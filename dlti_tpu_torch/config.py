@@ -1,0 +1,149 @@
+"""Model configuration: this package's copy of ``dlti_tpu/config.py``'s
+``ModelConfig`` and ``MODEL_PRESETS``.
+
+Field names, defaults and presets are the reference's, so a configuration
+means the same model in both packages. Fields that select code the port has
+not reached yet (remat, the flash tiles, mixture of experts) are kept for
+that parity; the modules that would read them raise where the port stops.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Optional
+
+
+@dataclass(frozen=True)
+class ModelConfig:
+    """Llama-family architecture hyperparameters."""
+
+    vocab_size: int = 32000
+    hidden_size: int = 4096
+    intermediate_size: int = 11008
+    num_layers: int = 32
+    num_heads: int = 32
+    num_kv_heads: int = 32  # < num_heads => GQA
+    head_dim: Optional[int] = None  # default hidden_size // num_heads
+    max_seq_len: int = 4096
+    rope_theta: float = 10000.0
+    rms_norm_eps: float = 1e-5
+    tie_embeddings: bool = False
+    attention_bias: bool = False        # Qwen2: bias on q/k/v (never o)
+    sliding_window: Optional[int] = None  # Mistral: local attention window
+    mlp_activation: str = "silu"        # "silu" | "gelu_tanh" | "gelu_exact"
+    rmsnorm_offset: bool = False        # Gemma: normalize with (1 + weight)
+    embedding_scale: bool = False       # Gemma: embed * sqrt(hidden_size)
+    # Mixture of Experts: 0 = dense MLP (the only kind the port runs yet).
+    num_experts: int = 0
+    num_experts_per_tok: int = 2
+    moe_capacity_factor: float = 1.25
+    router_aux_loss_coef: float = 0.02
+    dtype: str = "bfloat16"        # compute dtype
+    param_dtype: str = "bfloat16"  # storage dtype of the base params
+    remat: bool = True
+    remat_policy: str = "nothing_saveable"
+    remat_stride: int = 1
+    attention_impl: str = "auto"  # "auto" | "reference" | "flash"
+    flash_block_q: int = 512
+    flash_block_kv: int = 512
+    # Packed batches: an upper bound on any packed document's token count
+    # (0 = unknown); with segment masking a window of this size is exact.
+    packed_attention_window: int = 0
+    # Serving decode over the paged cache: "auto" and "kernel" take the
+    # paged decode kernel for one-token steps (its plain PyTorch version on
+    # a CPU tensor); "gather" takes paged_gather + reference_attention.
+    paged_attention_impl: str = "auto"
+
+    @property
+    def resolved_head_dim(self) -> int:
+        return self.head_dim if self.head_dim is not None else self.hidden_size // self.num_heads
+
+    def num_params(self, include_lm_head: bool = True) -> int:
+        """Analytic parameter count of the dense model."""
+        h, m, v = self.hidden_size, self.intermediate_size, self.vocab_size
+        hd = self.resolved_head_dim
+        attn = (h * self.num_heads * hd + 2 * h * self.num_kv_heads * hd
+                + self.num_heads * hd * h)
+        if self.attention_bias:
+            attn += (self.num_heads + 2 * self.num_kv_heads) * hd
+        per_layer = attn + 3 * h * m + 2 * h
+        total = v * h + self.num_layers * per_layer + h
+        if include_lm_head and not self.tie_embeddings:
+            total += h * v
+        return total
+
+
+@dataclass(frozen=True)
+class LoRAConfig:
+    """LoRA adapter config (the reference's ``LoRAConfig``): r=16, alpha=32,
+    on the q/k/v/o projections. Serving applies the adapter branch without
+    dropout."""
+
+    enabled: bool = True
+    r: int = 16
+    alpha: int = 32
+    dropout: float = 0.05
+    target_modules: tuple = ("q_proj", "k_proj", "v_proj", "o_proj")
+
+
+MODEL_PRESETS: dict = {
+    # Test-scale model: tiny but structurally identical (GQA, SwiGLU, RoPE).
+    "llama_tiny": ModelConfig(
+        vocab_size=512, hidden_size=64, intermediate_size=128, num_layers=2,
+        num_heads=4, num_kv_heads=2, max_seq_len=128, remat=False,
+        dtype="float32", param_dtype="float32",
+    ),
+    "llama_debug": ModelConfig(
+        vocab_size=4096, hidden_size=256, intermediate_size=512, num_layers=4,
+        num_heads=8, num_kv_heads=4, max_seq_len=512,
+    ),
+    "llama_300m": ModelConfig(
+        vocab_size=32000, hidden_size=1024, intermediate_size=2816,
+        num_layers=24, num_heads=16, num_kv_heads=16, max_seq_len=2048,
+    ),
+    "llama_1b": ModelConfig(
+        vocab_size=32000, hidden_size=2048, intermediate_size=5632,
+        num_layers=22, num_heads=32, num_kv_heads=4, max_seq_len=2048,
+    ),
+    # Llama-2-7B (meta-llama/Llama-2-7b-hf).
+    "llama2_7b": ModelConfig(
+        vocab_size=32000, hidden_size=4096, intermediate_size=11008,
+        num_layers=32, num_heads=32, num_kv_heads=32, max_seq_len=4096,
+    ),
+    "llama2_13b": ModelConfig(
+        vocab_size=32000, hidden_size=5120, intermediate_size=13824,
+        num_layers=40, num_heads=40, num_kv_heads=40, max_seq_len=4096,
+    ),
+    "llama3_8b": ModelConfig(
+        vocab_size=128256, hidden_size=4096, intermediate_size=14336,
+        num_layers=32, num_heads=32, num_kv_heads=8, max_seq_len=8192,
+        rope_theta=500000.0,
+    ),
+    "mistral_7b": ModelConfig(
+        vocab_size=32000, hidden_size=4096, intermediate_size=14336,
+        num_layers=32, num_heads=32, num_kv_heads=8, max_seq_len=8192,
+        sliding_window=4096,
+    ),
+    "qwen2_7b": ModelConfig(
+        vocab_size=152064, hidden_size=3584, intermediate_size=18944,
+        num_layers=28, num_heads=28, num_kv_heads=4, max_seq_len=32768,
+        rope_theta=1000000.0, attention_bias=True,
+    ),
+    "gemma_7b": ModelConfig(
+        vocab_size=256000, hidden_size=3072, intermediate_size=24576,
+        num_layers=28, num_heads=16, num_kv_heads=16, head_dim=256,
+        max_seq_len=8192, rms_norm_eps=1e-6, tie_embeddings=True,
+        mlp_activation="gelu_tanh", rmsnorm_offset=True, embedding_scale=True,
+    ),
+    "mixtral_8x7b": ModelConfig(
+        vocab_size=32000, hidden_size=4096, intermediate_size=14336,
+        num_layers=32, num_heads=32, num_kv_heads=8, max_seq_len=8192,
+        rope_theta=1000000.0, num_experts=8, num_experts_per_tok=2,
+    ),
+    "mixtral_tiny": ModelConfig(
+        vocab_size=512, hidden_size=64, intermediate_size=128, num_layers=2,
+        num_heads=4, num_kv_heads=2, max_seq_len=128, remat=False,
+        dtype="float32", param_dtype="float32", num_experts=4,
+        num_experts_per_tok=2,
+    ),
+}

@@ -1,0 +1,179 @@
+"""Paged decode attention: the port of the TPU kernel
+``dlti_tpu/ops/pallas/paged_attention.py`` (``_decode_kernel``, launched by
+``paged_decode_attention``).
+
+* :func:`paged_decode_attention_reference` — the plain PyTorch version:
+  gather each sequence's window by block table, mask by position (and
+  window), float32 softmax, zeros for ``seq_len == 0``.
+* :func:`paged_decode_attention` — the wrapper. A CPU tensor takes the
+  plain version; a CUDA tensor launches the hand-written kernel
+  ``csrc/paged_attention.cu`` (built on first use by ``ops._build``) or
+  raises. There is no fallback from the kernel to the plain version.
+* ``launches`` — how many times the wrapper launched the kernel.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+
+from dlti_tpu_torch.ops import _build
+
+KERNEL_HEAD_DIMS = (64, 128, 256)
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+# Kernel launches made by paged_decode_attention (plain CPU calls excluded).
+launches = 0
+
+
+def paged_decode_attention_reference(
+    q: torch.Tensor,
+    k_pool: torch.Tensor,
+    v_pool: torch.Tensor,
+    block_tables: torch.Tensor,
+    seq_lens: torch.Tensor,
+    *,
+    window: Optional[int] = None,
+) -> torch.Tensor:
+    """What the kernel computes, in plain PyTorch (float pools).
+
+    q: (batch, 1, heads, d); pools: (num_blocks, block_size, kv_heads, d);
+    block_tables: (batch, max_blocks), entries clamped into the pool;
+    seq_lens: (batch,) = query position + 1. Returns (batch, 1, heads, d)
+    in q's dtype. Rows outside ``[seq_len - window, seq_len)`` neither
+    score nor contribute values, so stale pool rows cannot leak.
+    """
+    batch, _, num_heads, d = q.shape
+    nb, bs, kvh, _ = k_pool.shape
+    hpg = num_heads // kvh
+    f32 = torch.float32
+    bt = block_tables.long().clamp(0, nb - 1)
+    max_len = bt.shape[1] * bs
+    k = k_pool[bt].reshape(batch, max_len, kvh, d).to(f32)
+    v = v_pool[bt].reshape(batch, max_len, kvh, d).to(f32)
+    pos = torch.arange(max_len, device=q.device)[None, :]
+    lens = seq_lens.long()[:, None]
+    valid = pos < lens
+    if window:
+        valid &= pos >= lens - window                       # (b, L)
+    qg = q[:, 0].to(f32).reshape(batch, kvh, hpg, d)
+    s = torch.einsum("bghd,blgd->bghl", qg, k) * d ** -0.5
+    s = s.masked_fill(~valid[:, None, None, :], float("-inf"))
+    m = s.amax(dim=-1, keepdim=True)
+    m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
+    p = torch.exp(s - m)                                    # 0 where masked
+    l = p.sum(dim=-1, keepdim=True)
+    v = torch.where(valid[:, :, None, None], v, torch.zeros_like(v))
+    o = torch.einsum("bghl,blgd->bghd", p, v) / torch.where(l > 0, l, 1.0)
+    return o.reshape(batch, 1, num_heads, d).to(q.dtype)
+
+
+def _check_kernel_inputs(q, k_pool, v_pool, block_tables, seq_lens):
+    tensors = {"q": q, "k_pool": k_pool, "v_pool": v_pool,
+               "block_tables": block_tables, "seq_lens": seq_lens}
+    for name, t in tensors.items():
+        if t.device != q.device:
+            raise ValueError(f"{name} is on {t.device}, q on {q.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if q.dim() != 4 or q.shape[1] != 1:
+        raise ValueError(f"q must be (batch, 1, heads, d), got {tuple(q.shape)}")
+    batch, _, num_heads, d = q.shape
+    if k_pool.dim() != 4 or k_pool.shape != v_pool.shape:
+        raise ValueError("k_pool and v_pool must share one 4-d shape")
+    nb, bs, kvh, pd = k_pool.shape
+    if pd != d or num_heads % kvh:
+        raise ValueError(f"pool head shape {(kvh, pd)} does not fit q's "
+                         f"{(num_heads, d)}")
+    if d not in KERNEL_HEAD_DIMS:
+        raise ValueError(f"the kernel is built for head_dim in "
+                         f"{KERNEL_HEAD_DIMS}, got {d}")
+    if q.dtype not in _DTYPE_CODES or k_pool.dtype not in _DTYPE_CODES \
+            or v_pool.dtype != k_pool.dtype:
+        raise ValueError(f"unsupported dtypes q={q.dtype} pool={k_pool.dtype}"
+                         f"/{v_pool.dtype}; the kernel takes float32/bfloat16")
+    if block_tables.dtype != torch.int32 or seq_lens.dtype != torch.int32:
+        raise ValueError("block_tables and seq_lens must be int32")
+    if block_tables.dim() != 2 or block_tables.shape[0] != batch \
+            or tuple(seq_lens.shape) != (batch,):
+        raise ValueError("block_tables must be (batch, max_blocks) and "
+                         "seq_lens (batch,)")
+    if k_pool.data_ptr() % 16 or v_pool.data_ptr() % 16:
+        raise ValueError("pools must be 16-byte aligned")
+
+
+def _kernel_library() -> ctypes.CDLL:
+    lib = _build.load_library("paged_attention")
+    fn = lib.dlti_paged_decode_attention
+    if fn.argtypes is None:
+        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 8
+                       + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
+                          ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        lib.dlti_paged_decode_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
+        lib.dlti_paged_decode_smem_bytes.restype = ctypes.c_longlong
+        lib.dlti_cuda_error_string.argtypes = [ctypes.c_int]
+        lib.dlti_cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def paged_decode_attention(
+    q: torch.Tensor,
+    k_pool: torch.Tensor,
+    v_pool: torch.Tensor,
+    block_tables: torch.Tensor,
+    seq_lens: torch.Tensor,
+    *,
+    k_scale: Optional[torch.Tensor] = None,
+    v_scale: Optional[torch.Tensor] = None,
+    window: Optional[int] = None,
+) -> torch.Tensor:
+    """One-token-per-sequence attention over the paged KV pool.
+
+    Same arguments as the reference's ``paged_decode_attention``: q
+    ``(batch, 1, heads, d)``; pools ``(num_blocks, block_size, kv_heads,
+    d)``; block_tables ``(batch, max_blocks)`` int32 (entries past a
+    sequence's length may hold anything); seq_lens ``(batch,)`` int32 =
+    query position + 1; ``window`` keeps the last ``window`` positions.
+    Returns ``(batch, 1, heads, d)`` in q's dtype.
+
+    A CPU tensor goes to :func:`paged_decode_attention_reference`; a CUDA
+    tensor launches the kernel or raises. int8 pools (``k_scale`` /
+    ``v_scale``) are not ported yet.
+    """
+    global launches
+    if k_scale is not None or v_scale is not None or k_pool.dtype == torch.int8:
+        raise NotImplementedError(
+            "int8 KV pools are not ported yet (see ROADMAP.md, 'int8 KV')")
+    if q.device.type == "cpu":
+        return paged_decode_attention_reference(
+            q, k_pool, v_pool, block_tables, seq_lens, window=window)
+    if q.device.type != "cuda":
+        raise ValueError(f"paged_decode_attention runs on cpu or cuda, not "
+                         f"{q.device}")
+    _check_kernel_inputs(q, k_pool, v_pool, block_tables, seq_lens)
+    batch, _, num_heads, d = q.shape
+    nb, bs, kvh, _ = k_pool.shape
+    lib = _kernel_library()
+    smem = lib.dlti_paged_decode_smem_bytes(num_heads // kvh, d)
+    limit = torch.cuda.get_device_properties(q.device).shared_memory_per_block_optin
+    if smem > limit:
+        raise ValueError(f"heads per kv head {num_heads // kvh} at head_dim "
+                         f"{d} need {smem} B of shared memory; the card "
+                         f"allows {limit}")
+    out = torch.empty_like(q)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.dlti_paged_decode_attention(
+            q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+            block_tables.data_ptr(), seq_lens.data_ptr(), out.data_ptr(),
+            batch, num_heads, kvh, d, nb, bs, block_tables.shape[1],
+            int(window or 0), d ** -0.5, _DTYPE_CODES[q.dtype],
+            _DTYPE_CODES[k_pool.dtype], stream)
+    if err != 0:
+        raise RuntimeError("paged decode kernel launch failed: "
+                           + lib.dlti_cuda_error_string(err).decode())
+    launches += 1
+    return out

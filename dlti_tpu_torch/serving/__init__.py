@@ -1,0 +1,12 @@
+"""Paged-KV serving: block allocator, sampling and the continuous-batching
+engine."""
+
+from dlti_tpu_torch.serving.block_manager import BlockManager  # noqa: F401
+from dlti_tpu_torch.serving.sampling import SamplingParams, sample_tokens  # noqa: F401
+from dlti_tpu_torch.serving.engine import (  # noqa: F401
+    EngineConfig,
+    GenerationResult,
+    InferenceEngine,
+    NumericFault,
+    Request,
+)

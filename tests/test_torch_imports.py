@@ -1,0 +1,80 @@
+"""The port stands alone: with ``jax`` blocked out of ``sys.modules`` it
+imports, serves a ``llama_tiny`` request on the CPU, and loads no module of
+the JAX package (``dlti_tpu`` or ``dlti_tpu.*``; ``dlti_tpu_torch`` shares
+the prefix and is not one). Without CUDA, an entry point called without a
+device raises instead of running on the CPU.
+"""
+
+import subprocess
+import sys
+import textwrap
+from pathlib import Path
+
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+
+_CHILD = textwrap.dedent("""
+    import sys
+    sys.modules["jax"] = None  # any `import jax` now raises ImportError
+
+    import dlti_tpu_torch
+    from dlti_tpu_torch.config import MODEL_PRESETS
+    from dlti_tpu_torch.models import init_params
+    from dlti_tpu_torch.serving import EngineConfig, InferenceEngine, SamplingParams
+
+    cfg = MODEL_PRESETS["llama_tiny"]
+    engine = InferenceEngine(
+        cfg, init_params(cfg, seed=0, device="cpu"),
+        EngineConfig(max_seqs=2, block_size=8, num_blocks=32, max_model_len=64,
+                     cache_dtype="float32", eos_token_id=-1),
+        device="cpu")
+    [res] = engine.generate([[1, 2, 3, 4]], SamplingParams(temperature=0.0, max_tokens=5))
+    assert len(res.output_token_ids) == 5, res
+
+    def is_jax_package(name):
+        return name == "dlti_tpu" or name.startswith("dlti_tpu.")
+
+    # sys.modules["jax"] is the None placed above; anything else loaded counts.
+    loaded = sorted(n for n, m in sys.modules.items() if m is not None and (
+        is_jax_package(n) or n == "jax" or n.startswith(("jax.", "jaxlib"))))
+    assert not loaded, loaded
+    print("OK", res.output_token_ids)
+""")
+
+
+def test_port_runs_without_jax_and_imports_no_jax_package():
+    proc = subprocess.run([sys.executable, "-c", _CHILD], cwd=ROOT,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert proc.stdout.startswith("OK")
+
+
+def test_chip_smoke_imports_no_jax():
+    """``chip_smoke.py`` is a port entry point too: importing it pulls in
+    neither JAX nor the JAX package."""
+    code = ("import sys; sys.modules['jax'] = None; import runpy; "
+            "runpy.run_path('chip_smoke.py', run_name='not_main'); "
+            "assert not [n for n in sys.modules if n == 'dlti_tpu' "
+            "or n.startswith('dlti_tpu.')]")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+
+
+def test_entry_points_without_device_raise_when_there_is_no_cuda(monkeypatch):
+    from dlti_tpu_torch.config import MODEL_PRESETS
+    from dlti_tpu_torch.models import init_params
+    from dlti_tpu_torch.serving import InferenceEngine
+    from dlti_tpu_torch.utils.device import resolve_device
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = MODEL_PRESETS["llama_tiny"]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        resolve_device()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        init_params(cfg, seed=0)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        InferenceEngine(cfg, init_params(cfg, seed=0, device="cpu"))
+    assert resolve_device("cpu") == torch.device("cpu")

@@ -1,0 +1,121 @@
+"""The port's paged decode attention (its plain version, which the wrapper
+takes for CPU tensors) against the JAX Pallas kernel run with
+``interpret=True``, as ``tests/test_paged_attention.py`` runs it.
+
+Tolerance: 1e-5 absolute in float32 — the Pallas kernel's online softmax
+and the plain version's one-pass softmax sum in different orders.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from dlti_tpu.ops.pallas.paged_attention import (
+    paged_decode_attention as jax_paged_decode_attention,
+)
+from dlti_tpu_torch.ops import paged_attention as tpa
+
+ATOL = 1e-5
+
+
+def _setup(seed, batch, num_heads, kv_heads, head_dim, block_size, num_blocks,
+           max_blocks, seq_lens, garbage_tables=False):
+    """Pool plus disjoint random block tables; entries past each sequence's
+    length are -1, or random ids when ``garbage_tables``."""
+    rng = np.random.default_rng(seed)
+    shape = (num_blocks, block_size, kv_heads, head_dim)
+    k_pool = rng.standard_normal(shape).astype(np.float32)
+    v_pool = rng.standard_normal(shape).astype(np.float32)
+    perm = rng.permutation(num_blocks)
+    tables = np.full((batch, max_blocks), -1, np.int32)
+    if garbage_tables:
+        tables = rng.integers(0, num_blocks, (batch, max_blocks)).astype(np.int32)
+    nxt = 0
+    for b in range(batch):
+        need = -(-seq_lens[b] // block_size)
+        tables[b, :need] = perm[nxt:nxt + need]
+        nxt += need
+    q = rng.standard_normal((batch, 1, num_heads, head_dim)).astype(np.float32)
+    return q, k_pool, v_pool, tables
+
+
+def _both(q, k_pool, v_pool, tables, seq_lens, window=None):
+    want = jax_paged_decode_attention(
+        jnp.asarray(q), jnp.asarray(k_pool), jnp.asarray(v_pool),
+        jnp.asarray(tables), jnp.asarray(seq_lens), window=window,
+        interpret=True)
+    got = tpa.paged_decode_attention(
+        torch.from_numpy(q), torch.from_numpy(k_pool), torch.from_numpy(v_pool),
+        torch.from_numpy(tables), torch.from_numpy(seq_lens), window=window)
+    return got.numpy(), np.asarray(want)
+
+
+@pytest.mark.parametrize("num_heads,kv_heads", [(8, 8), (8, 2), (4, 1)])
+def test_plain_matches_pallas_interpret(num_heads, kv_heads):
+    seq_lens = np.array([5, 37, 16], np.int32)  # ragged tail / multi / exact
+    q, k, v, bt = _setup(0, 3, num_heads, kv_heads, 64, 16, 16, 4, seq_lens)
+    got, want = _both(q, k, v, bt, seq_lens)
+    np.testing.assert_allclose(got, want, atol=ATOL, rtol=0)
+
+
+def test_window_and_zero_length():
+    """A sliding window skipping whole blocks, a window cutting inside a
+    block, and a seq_len of 0 (zeros out)."""
+    seq_lens = np.array([45, 29, 0, 7], np.int32)
+    q, k, v, bt = _setup(1, 4, 4, 2, 32, 8, 24, 6, seq_lens)
+    got, want = _both(q, k, v, bt, seq_lens, window=12)
+    np.testing.assert_allclose(got, want, atol=ATOL, rtol=0)
+    assert not got[2].any()
+
+
+def test_poisoned_rows_and_garbage_tables_never_leak():
+    """Every pool block outside the live tables, and the tail rows past
+    seq_len in each last block, hold 1e9; table entries past seq_len point
+    at random (poisoned) blocks. The output must match the clean Pallas
+    result on the same live data."""
+    batch, block_size, nb = 3, 8, 12
+    seq_lens = np.array([3, 9, 20], np.int32)
+    q, k, v, bt = _setup(2, batch, 4, 2, 32, block_size, nb, 4, seq_lens,
+                         garbage_tables=True)
+    live = {int(bt[b, j]) for b in range(batch)
+            for j in range(-(-seq_lens[b] // block_size))}
+    kp, vp = k.copy(), v.copy()
+    for blk in range(nb):
+        if blk not in live:
+            kp[blk] = 1e9
+            vp[blk] = 1e9
+    for b in range(batch):
+        last = int(bt[b, (seq_lens[b] - 1) // block_size])
+        tail = seq_lens[b] % block_size
+        if tail:
+            kp[last, tail:] = 1e9
+            vp[last, tail:] = 1e9
+    got, _ = _both(q, kp, vp, bt, seq_lens)
+    clean_tables = bt.copy()
+    for b in range(batch):
+        clean_tables[b, -(-seq_lens[b] // block_size):] = -1
+    _, want = _both(q, k, v, clean_tables, seq_lens)
+    assert np.isfinite(got).all()
+    np.testing.assert_allclose(got, want, atol=ATOL, rtol=0)
+
+
+def test_cpu_tensors_never_count_as_launches():
+    tpa.launches = 0
+    seq_lens = np.array([4, 11], np.int32)
+    q, k, v, bt = _setup(3, 2, 4, 4, 64, 8, 8, 2, seq_lens)
+    tpa.paged_decode_attention(torch.from_numpy(q), torch.from_numpy(k),
+                               torch.from_numpy(v), torch.from_numpy(bt),
+                               torch.from_numpy(seq_lens))
+    assert tpa.launches == 0
+
+
+def test_int8_pools_are_not_ported_yet():
+    seq_lens = np.array([4], np.int32)
+    q, k, v, bt = _setup(4, 1, 2, 2, 64, 8, 4, 1, seq_lens)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tpa.paged_decode_attention(
+            torch.from_numpy(q), torch.from_numpy(k).to(torch.int8),
+            torch.from_numpy(v).to(torch.int8), torch.from_numpy(bt),
+            torch.from_numpy(seq_lens), k_scale=torch.ones(4, 8, 2),
+            v_scale=torch.ones(4, 8, 2))
