@@ -1,30 +1,51 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving path on one NVIDIA GPU (an H100).
+"""Drive the PyTorch port's serving and training paths on one NVIDIA GPU
+(an H100).
 
     python3 chip_smoke.py
 
 Phases, each of which fails the run if its check fails:
 
 1. Card and build: the card's name and power limit, then every kernel of
-   ``dlti_tpu_torch/csrc`` built with ``nvcc`` for ``sm_90a``.
-2. The paged decode kernel against its plain PyTorch version at the decode
-   shapes of the presets it serves (llama2_7b, llama3_8b's GQA, mistral_7b's
-   window, head_dim 256, a float32 pool, poisoned pool rows and garbage
-   table entries), with each case's error, kernel time, bound, plain time
-   and the time of ``F.scaled_dot_product_attention`` over the gathered
+   ``dlti_tpu_torch/csrc`` built with ``nvcc`` for ``sm_90a`` (one process
+   per source, all started together).
+2. The paged decode kernel (K4) against its plain PyTorch version at the
+   decode shapes of the presets it serves (llama2_7b, llama3_8b's GQA,
+   mistral_7b's window, head_dim 256, a float32 pool, poisoned pool rows and
+   garbage table entries), with each case's error, kernel time, bound, plain
+   time and the time of ``F.scaled_dot_product_attention`` over the gathered
    window (a yardstick the port never calls).
 3. The engine at full width: llama2_7b in bfloat16 from
    ``init_params(seed=0)``, 12 requests (prompts of 16 to 300 tokens,
    greedy and seeded sampling) submitted to ``InferenceEngine`` and driven
-   by ``step`` with 8 slots, so admission happens mid-flight. Every request must finish with
-   its token count, and the kernel must have been launched once per layer
-   per decode step.
-4. Inside the model: one decode step's logits through the kernel against
-   the same step through the plain gather path (``paged_attention_impl=
-   "gather"``), and the kernel against its plain version on the engine's
-   real pool, tables and lengths, where its time is taken for the record.
-5. Profile: ``torch.profiler`` over the remaining decode steps of phase
-   4's batch, for the device's busy share and the kernels by device time.
+   by ``step`` with 8 slots, so admission happens mid-flight. Every request
+   must finish with its token count, and K4 must have been launched once per
+   layer per decode step.
+4. Inside the model: one decode step's logits through K4 against the same
+   step through the plain gather path (``paged_attention_impl="gather"``),
+   and K4 against its plain version on the engine's real pool, tables and
+   lengths, where its time is taken for the record.
+5. Profile: ``torch.profiler`` over the remaining decode steps of phase 4's
+   batch, for the device's busy share and the kernels by device time.
+   The engine and its KV pool are then released.
+6. Flash attention K1 (forward), K2 (dq) and K3 (dk/dv) against their plain
+   versions: llama2_7b's training shape, llama3_8b's GQA at s 2048,
+   mistral_7b's window 4096 at s 8192, head_dim 256 and 64, float32, and a
+   packed batch at the unaligned length 1000 with padding rows. Each
+   kernel's time, bound, plain time and SDPA's time (forward for K1, its
+   autograd backward for K2 and K3).
+7. The trainer at full width: llama2_7b bf16 with LoRA r=16 on q/k/v/o
+   from ``init_params(seed=0)``, 8 steps of ``Trainer.train`` over
+   ``make_batches`` (byte tokenizer, texts from a seeded generator, seq 512,
+   micro-batch 4, grad-accum 2, warmup 2, lr 2e-4, remat on). Losses and
+   grad norms finite, every ``lora_b`` moved off zero, and K1 launched
+   2 x 32 x 2 x 8 times (forward and remat recompute), K2 and K3 32 x 2 x 8.
+   Prints step ms, tokens/s, MFU (4N FLOPs per token) and peak memory.
+8. Kernel path against reference path: one step's loss and LoRA grads with
+   the kernels and with ``attention_impl="reference"``, same weights and
+   batch, dropout off; then known-wrong controls (the kernels' outputs given
+   seeded multiplicative noise), which the same gate must refuse.
+9. Profile of one train step: device busy share, time by kernel group.
 
 Prints a ``{"kernels": [...]}`` line, and as its last line
 ``{"ok": true, "device": {...}}``. Exits non-zero without that line when
@@ -34,8 +55,11 @@ any check fails.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import gc
 import json
+import math
 import subprocess
 import sys
 import time
@@ -486,6 +510,463 @@ def phase_profile(torch, engine):
             "busy_ms_per_step": busy_ms / steps, "kernels_per_step": n_kernels / steps}
 
 
+# ----------------------------------------------------------------------
+# Training slice: flash attention K1-K3 and the LoRA trainer
+# ----------------------------------------------------------------------
+
+FLASH_REPLACES = {
+    "flash_fwd": "dlti_tpu/ops/pallas/flash_attention.py:132",
+    "flash_bwd_dq": "dlti_tpu/ops/pallas/flash_attention.py:366",
+    "flash_bwd_dkv": "dlti_tpu/ops/pallas/flash_attention.py:424",
+}
+# Kernel against plain version on identical inputs, elementwise
+# |got - want| <= atol + rtol |want|. Both compute in float32 and differ
+# only in summation order; in bfloat16 both then round to bf16 (relative
+# spacing 2**-7), so they may land one bf16 step apart.
+FLASH_TOL = {"float32": (1e-4, 1e-4), "bfloat16": (1e-3, 2.0 ** -7)}
+# Kernel path against reference path, one llama2_7b train step in bf16. The
+# reference path rounds the softmax probabilities to bf16 before p @ v and
+# the kernels do not, so the two attention outputs differ by about one bf16
+# step (2**-8 relative) in every layer; 32 layers carry that on. Gates: the
+# loss relative difference, and the LoRA grads (all factors as one vector)
+# by cosine and relative L2. On an H100 the sound path read loss rel
+# 2.7e-5 and 1.3e-4, rel L2 3.8e-3 and 4.3e-3, 1 - cosine 7e-6 to 9.3e-6.
+# The grad limits lie between those and the 10% controls below (rel L2
+# 2.2e-2 and 6.9e-2, 1 - cosine 2.4e-4 and 2.0e-3), which must be refused.
+# The loss barely moves on random weights (the 10% forward control read
+# 2.0e-4), so its limit only catches gross faults. The 2% control reads
+# within the limits (rel L2 6.1e-3): it is printed, not gated.
+STEP_LOSS_RTOL = 5e-4
+STEP_GRAD_COS = 0.9999
+STEP_GRAD_REL_L2 = 0.012
+# Known-wrong controls (kernels, eps, must be refused): the kernel path with
+# the named kernels' outputs multiplied elementwise by (1 + eps * N(0, 1))
+# from a seeded generator.
+STEP_CONTROLS = [(("flash_fwd",), 0.1, True),
+                 (("flash_bwd_dq", "flash_bwd_dkv"), 0.1, True),
+                 (("flash_bwd_dq", "flash_bwd_dkv"), 0.02, False)]
+
+
+def allowed_pairs(torch, b, s, causal, window, segs):
+    """(query, key) pairs the mask allows, counted from this case's data."""
+    if segs is None and not window:
+        return b * (s * (s + 1) // 2 if causal else s * s)
+    total = 0
+    qi = torch.arange(s, device="cuda")[:, None]
+    kj = torch.arange(s, device="cuda")[None, :]
+    allowed = (kj <= qi) if causal else torch.ones(s, s, dtype=torch.bool, device="cuda")
+    if causal and window:
+        allowed &= kj > qi - window
+    for row in range(b):
+        m = allowed
+        if segs is not None:
+            m = m & (segs[row][:, None] == segs[row][None, :]) & (segs[row][None, :] != 0)
+        total += int(m.sum())
+    return total
+
+
+def flash_work(q, k, segs, pairs):
+    """Bytes each kernel must move (inputs read once, outputs written once)
+    and operations it must do (2 per multiply-add; K1 two products per
+    allowed pair and channel, K2 three, K3 four) for these inputs."""
+    b, s, h, d = q.shape
+    e = q.element_size()
+    qb, kb = q.numel() * e, k.numel() * e
+    rowb = b * h * s * 4                      # lse or D, float32
+    segb = 0 if segs is None else segs.numel() * 4
+    reads_bwd = 2 * qb + 2 * kb + 2 * rowb + segb       # q, k, v, dO, lse, D
+    return {
+        "flash_fwd": (qb + 2 * kb + segb + qb + rowb, 4 * h * d * pairs),
+        "flash_bwd_dq": (reads_bwd + qb, 6 * h * d * pairs),
+        "flash_bwd_dkv": (reads_bwd + 2 * kb, 8 * h * d * pairs),
+    }
+
+
+def sdpa_calls(torch, q, k, v, do, causal, window, segs):
+    """The library yardstick, timed and never used by the port:
+    ``F.scaled_dot_product_attention`` forward, and its backward through
+    autograd (dq, dk and dv together)."""
+    import torch.nn.functional as F
+
+    qh, kh, vh = (t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
+    kw = dict(enable_gqa=k.shape[2] != q.shape[2])
+    if segs is None and not window:
+        kw["is_causal"] = causal
+    else:
+        s = q.shape[1]
+        qi = torch.arange(s, device="cuda")[:, None]
+        kj = torch.arange(s, device="cuda")[None, :]
+        m = (kj <= qi) & (kj > qi - window) if window else (kj <= qi)
+        m = m[None, None]
+        if segs is not None:
+            m = m & ((segs[:, :, None] == segs[:, None, :]) & (segs[:, None, :] != 0))[:, None]
+        kw["attn_mask"] = m
+    out = F.scaled_dot_product_attention(qh, kh, vh, **kw)
+    dout = do.transpose(1, 2)
+    fwd = lambda: F.scaled_dot_product_attention(qh, kh, vh, **kw)  # noqa: E731
+    bwd = lambda: torch.autograd.grad(out, (qh, kh, vh), dout, retain_graph=True)  # noqa: E731
+    return fwd, bwd
+
+
+def within(got, want, dtype_name):
+    atol, rtol = FLASH_TOL[dtype_name]
+    err = (got.float() - want.float()).abs()
+    ok = bool((err <= atol + rtol * want.float().abs()).all())
+    return ok, err.max().item()
+
+
+def phase_flash_cases(torch, flush):
+    from dlti_tpu_torch.ops import flash_attention as tfa
+
+    gen = torch.Generator(device="cuda").manual_seed(4321)
+    bf16, f32 = torch.bfloat16, torch.float32
+
+    def packed(b, s):
+        segs = torch.zeros(b, s, dtype=torch.int32, device="cuda")
+        cpu = torch.Generator().manual_seed(5)
+        for row in range(b):
+            cuts = sorted((torch.randperm(s - 200, generator=cpu)[:4] + 20).tolist())
+            prev = 0
+            for i, c in enumerate(cuts):  # 4 documents, then padding rows
+                segs[row, prev:c] = i + 1
+                prev = c
+        return segs
+
+    cases = [
+        ("llama2_7b_train", dict(b=4, s=512, h=32, hkv=32, d=128, dtype=bf16)),
+        ("llama3_8b_gqa", dict(b=1, s=2048, h=32, hkv=8, d=128, dtype=bf16)),
+        ("mistral_7b_window", dict(b=1, s=8192, h=32, hkv=8, d=128, dtype=bf16,
+                                   window=4096)),
+        ("gemma_7b_d256", dict(b=2, s=1024, h=16, hkv=16, d=256, dtype=bf16)),
+        ("d64", dict(b=2, s=1024, h=16, hkv=16, d=64, dtype=bf16)),
+        ("llama2_7b_fp32", dict(b=1, s=512, h=32, hkv=32, d=128, dtype=f32)),
+        ("packed_unaligned_1000", dict(b=2, s=1000, h=32, hkv=8, d=128, dtype=bf16,
+                                       packed=True)),
+    ]
+    results = {}
+    for name, c in cases:
+        b, s, h, hkv, d, dtype = c["b"], c["s"], c["h"], c["hkv"], c["d"], c["dtype"]
+        window = c.get("window")
+        q = torch.randn(b, s, h, d, device="cuda", generator=gen).to(dtype)
+        k = torch.randn(b, s, hkv, d, device="cuda", generator=gen).to(dtype)
+        v = torch.randn(b, s, hkv, d, device="cuda", generator=gen).to(dtype)
+        do = torch.randn(b, s, h, d, device="cuda", generator=gen).to(dtype)
+        segs = packed(b, s) if c.get("packed") else None
+        kw = dict(causal=True, window=window, segment_ids=segs)
+        chunk = 1024 if s > 2048 else None    # bound the plain version's memory
+        dtype_name = str(dtype).split(".")[-1]
+
+        o, lse = tfa.flash_fwd(q, k, v, **kw)
+        delta = tfa.backward_delta(o, do)
+        dq = tfa.flash_bwd_dq(q, k, v, do, lse, delta, **kw)
+        dk, dv = tfa.flash_bwd_dkv(q, k, v, do, lse, delta, **kw)
+        torch.cuda.synchronize()
+        ro, rlse = tfa.flash_attention_reference(q, k, v, q_chunk=chunk, **kw)
+        rdq, rdk, rdv = tfa.flash_attention_backward_reference(
+            q, k, v, o, lse, do, q_chunk=chunk, **kw)
+        errs = {}
+        for label, got, want in (("o", o, ro), ("dq", dq, rdq), ("dk", dk, rdk),
+                                 ("dv", dv, rdv)):
+            check(torch.isfinite(got).all().item(), f"{name}: nonfinite {label}")
+            ok, errs[label] = within(got, want, dtype_name)
+            check(ok, f"flash {label} disagrees with its plain version on {name}: "
+                      f"max abs err {errs[label]}")
+        masked = rlse == tfa.MASKED_LSE
+        check(torch.equal(lse == tfa.MASKED_LSE, masked),
+              f"{name}: fully masked rows differ")
+        lse_err = (lse[~masked] - rlse[~masked]).abs().max().item()
+        check(lse_err <= 1e-3, f"{name}: lse err {lse_err}")
+        if segs is not None:
+            check(not o[segs == 0].any().item(), f"{name}: padding rows not zero")
+
+        pairs = allowed_pairs(torch, b, s, True, window, segs)
+        work = flash_work(q, k, segs, pairs)
+        sdpa_fwd, sdpa_bwd = sdpa_calls(torch, q, k, v, do, True, window, segs)
+        iters = 5 if s > 2048 else 20
+        times = {
+            "flash_fwd": time_ms(torch, lambda: tfa.flash_fwd(q, k, v, **kw),
+                                 iters, flush),
+            "flash_bwd_dq": time_ms(torch, lambda: tfa.flash_bwd_dq(
+                q, k, v, do, lse, delta, **kw), iters, flush),
+            "flash_bwd_dkv": time_ms(torch, lambda: tfa.flash_bwd_dkv(
+                q, k, v, do, lse, delta, **kw), iters, flush),
+        }
+        plain_fwd = time_ms(torch, lambda: tfa.flash_attention_reference(
+            q, k, v, q_chunk=chunk, **kw), 3, flush)
+        plain_bwd = time_ms(torch, lambda: tfa.flash_attention_backward_reference(
+            q, k, v, o, lse, do, q_chunk=chunk, **kw), 3, flush)
+        lib_fwd = time_ms(torch, sdpa_fwd, iters, flush)
+        lib_bwd = time_ms(torch, sdpa_bwd, iters, flush)
+        r = {"errs": errs, "lse_err": lse_err, "pairs": pairs}
+        for kname in FLASH_REPLACES:
+            nbytes, ops = work[kname]
+            bound_ms, bound_by = bound(nbytes, ops, dtype_name)
+            fwd = kname == "flash_fwd"
+            r[kname] = {"ms": times[kname], "bound_ms": bound_ms, "bound_by": bound_by,
+                        "plain_ms": plain_fwd if fwd else plain_bwd,
+                        "library_ms": lib_fwd if fwd else lib_bwd,
+                        "max_abs_err": errs["o"] if fwd else (
+                            errs["dq"] if kname == "flash_bwd_dq"
+                            else max(errs["dk"], errs["dv"])),
+                        "bytes": nbytes, "ops": ops}
+        results[name] = r
+        log(f"[flash] {name} (b {b}, s {s}, h {h}/{hkv}, d {d}, {dtype_name}"
+            f"{', window %d' % window if window else ''}{', packed' if segs is not None else ''}): "
+            f"max abs err o {errs['o']:.3e} dq {errs['dq']:.3e} dk {errs['dk']:.3e} "
+            f"dv {errs['dv']:.3e} lse {lse_err:.2e}")
+        for kname in FLASH_REPLACES:
+            x = r[kname]
+            log(f"[flash]   {kname}: {x['ms']:.4f} ms, bound {x['bound_ms']:.4f} ms by "
+                f"{x['bound_by']}, plain {x['plain_ms']:.4f} ms, sdpa {x['library_ms']:.4f} ms")
+        del q, k, v, do, o, lse, delta, dq, dk, dv, ro, rlse, rdq, rdk, rdv
+        del sdpa_fwd, sdpa_bwd
+        torch.cuda.empty_cache()
+    return results
+
+
+def training_texts(n=96, seed=0):
+    """Texts of 40 to 1400 characters from a seeded generator: with the byte
+    tokenizer some fill seq 512 and some leave padding."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    words = ["def", "return", "the", "model", "tokens", "(x)", "=", "+", "loss",
+             "grad", "lora", "attention", "\n", "    ", "for", "in", "range"]
+    return [" ".join(rng.choice(words, rng.integers(8, 280))) for _ in range(n)]
+
+
+def phase_training(torch):
+    """llama2_7b LoRA (r=16, bf16, seq 512, micro-batch 4 x accum 2, remat)
+    for 8 steps through ``Trainer.train`` on ``make_batches`` output."""
+    from dlti_tpu_torch.config import (
+        MODEL_PRESETS, Config, DataConfig, LoRAConfig, OptimizerConfig, TrainConfig,
+    )
+    from dlti_tpu_torch.data import ByteTokenizer, make_batches
+    from dlti_tpu_torch.models.interop import init_params
+    from dlti_tpu_torch.ops import flash_attention as tfa
+    from dlti_tpu_torch.ops import paged_attention as tpa
+    from dlti_tpu_torch.training import Trainer
+
+    mcfg = MODEL_PRESETS["llama2_7b"]
+    steps, accum, micro, seq = 8, 2, 4, 512
+    cfg = Config(model=mcfg, lora=LoRAConfig(),
+                 optimizer=OptimizerConfig(learning_rate=2e-4, warmup_steps=2),
+                 data=DataConfig(max_seq_len=seq, tokenizer="byte"),
+                 train=TrainConfig(micro_batch_size=micro, grad_accum_steps=accum,
+                                   max_steps=steps, logging_steps=1))
+    check(mcfg.remat and mcfg.remat_policy == "nothing_saveable"
+          and mcfg.attention_impl == "auto", "llama2_7b preset changed")
+    dataset = make_batches(training_texts(), ByteTokenizer(), seq_len=seq,
+                           micro_batch_size=micro, grad_accum_steps=accum)
+    check(dataset.steps_per_epoch() >= steps, "dataset too small")
+    first = next(dataset.epoch(0))
+    pad_share = 1 - first["loss_mask"].mean()
+    t0 = time.perf_counter()
+    params = init_params(mcfg, seed=0, device="cuda", lora=cfg.lora)
+    torch.cuda.synchronize()
+    log(f"[train] llama2_7b + LoRA r={cfg.lora.r}: {sum(p.numel() for p in params.values()) / 1e9:.3f} B "
+        f"params made on the card in {time.perf_counter() - t0:.1f} s; first batch "
+        f"{100 * pad_share:.1f}% padding")
+    trainer = Trainer(cfg, params=params, device="cuda")
+    state = trainer.init_state()
+    del params
+
+    tfa.fwd_launches = tfa.dq_launches = tfa.dkv_launches = 0
+    tpa.launches = 0  # the main path's counts start here ...
+    state, record = trainer.train(dataset=dataset, state=state)
+    torch.cuda.synchronize()
+    launches = {"flash_fwd": tfa.fwd_launches, "flash_bwd_dq": tfa.dq_launches,
+                "flash_bwd_dkv": tfa.dkv_launches}  # ... and are read here
+    check(tpa.launches == 0, "training launched the decode kernel")
+    layers = mcfg.num_layers
+    want = {"flash_fwd": 2 * layers * accum * steps,
+            "flash_bwd_dq": layers * accum * steps,
+            "flash_bwd_dkv": layers * accum * steps}
+    log(f"[train] {record.steps} steps; launches {launches} (expected {want}: K1 twice "
+        f"per layer per microbatch under remat, K2/K3 once)")
+    check(launches == want, f"flash launches {launches} != {want}")
+    check(record.steps == steps, f"{record.steps} steps, expected {steps}")
+    check(all(math.isfinite(x) for x in record.losses + record.grad_norms),
+          f"nonfinite losses {record.losses} or grad norms {record.grad_norms}")
+    check(record.skipped_updates == 0, "an update was skipped")
+    lora_b = {n: p for n, p in state.model.named_parameters() if n.endswith("lora_b")}
+    check(len(lora_b) == 4 * layers, f"{len(lora_b)} lora_b leaves")
+    still_zero = [n for n, p in lora_b.items() if not p.detach().abs().max().item() > 0]
+    check(not still_zero, f"lora_b still zero: {still_zero[:3]}")
+    perf = {
+        "steps": record.steps, "losses": record.losses, "grad_norms": record.grad_norms,
+        "step_times_s": record.step_times_s, "step_ms": 1e3 * record.step_time_s,
+        "tokens_per_step": record.tokens_per_step,
+        "tokens_per_s": record.tokens_per_second, "mfu_percent": record.mfu_percent,
+        "peak_memory_gb": record.peak_memory_gb,
+        "num_params": mcfg.num_params(), "trainable_params": record.trainable_params,
+    }
+    log(f"[train] losses {[round(x, 4) for x in record.losses]}")
+    log(f"[train] grad norms {[round(x, 4) for x in record.grad_norms]}")
+    log(f"[train] step {perf['step_ms']:.1f} ms (mean of steps 3-{steps}), "
+        f"{perf['tokens_per_s']:.1f} tokens/s, MFU {perf['mfu_percent']:.2f}% "
+        f"(4N FLOPs/token, N = {mcfg.num_params():,}, vs 989 TFLOP/s bf16), peak "
+        f"memory {perf['peak_memory_gb']:.2f} GB")
+    log("[train] perf " + json.dumps(perf))
+    return state, dataset, cfg.lora, launches, perf
+
+
+def lora_loss_and_grads(torch, model, batch):
+    """One step's token-mean loss and LoRA grads (float32), dropout off."""
+    from dlti_tpu_torch.training.step import causal_lm_loss
+
+    names = [n for n, p in model.named_parameters() if p.requires_grad]
+    leaves = [p for n, p in model.named_parameters() if p.requires_grad]
+    grads = [torch.zeros_like(p, dtype=torch.float32) for p in leaves]
+    loss_sum, n_tok = 0.0, 0.0
+    for a in range(batch["input_ids"].shape[0]):
+        ids = batch["input_ids"][a]
+        logits = model(ids)
+        ls, nt = causal_lm_loss(logits, ids, batch["loss_mask"][a])
+        del logits
+        for acc, g in zip(grads, torch.autograd.grad(ls, leaves)):
+            acc += g.float()
+        loss_sum += ls.item()
+        n_tok += nt.item()
+    return loss_sum / n_tok, {n: g / n_tok for n, g in zip(names, grads)}
+
+
+@contextlib.contextmanager
+def noisy_kernels(torch, names, eps, seed):
+    """Within the block, each named kernel wrapper of ``ops.flash_attention``
+    returns its outputs (o, not lse, for K1) times (1 + eps * N(0, 1))."""
+    from dlti_tpu_torch.ops import flash_attention as tfa
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def noisy(t):
+        z = torch.randn(t.shape, device=t.device, generator=gen)
+        return (t.float() * (1 + eps * z)).to(t.dtype)
+
+    def wrap(name, fn):
+        def f(*args, **kw):
+            out = fn(*args, **kw)
+            if name == "flash_fwd":
+                return noisy(out[0]), out[1]
+            return tuple(map(noisy, out)) if isinstance(out, tuple) else noisy(out)
+        return f
+
+    saved = {n: getattr(tfa, n) for n in names}
+    for n, fn in saved.items():
+        setattr(tfa, n, wrap(n, fn))
+    try:
+        yield
+    finally:
+        for n, fn in saved.items():
+            setattr(tfa, n, fn)
+
+
+def path_difference(torch, loss_a, grads_a, loss_b, grads_b):
+    ga = torch.cat([g.flatten() for g in grads_a.values()])
+    gb = torch.cat([grads_b[n].flatten() for n in grads_a])
+    return {"loss_rel": abs(loss_a - loss_b) / abs(loss_b),
+            "grad_cosine": torch.nn.functional.cosine_similarity(ga, gb, dim=0).item(),
+            "grad_rel_l2": ((ga - gb).norm() / gb.norm()).item()}
+
+
+def within_step_gate(d):
+    return (d["loss_rel"] <= STEP_LOSS_RTOL and d["grad_cosine"] >= STEP_GRAD_COS
+            and d["grad_rel_l2"] <= STEP_GRAD_REL_L2)
+
+
+def phase_train_paths(torch, state, dataset, lora):
+    """The same train step (weights, batch, dropout off) through the flash
+    kernels and through ``attention_impl="reference"``; then the known-wrong
+    controls, each of which the gate must refuse."""
+    from dlti_tpu_torch.models.interop import load_model
+
+    model = state.model
+    ref_model = load_model(dataclasses.replace(model.cfg, attention_impl="reference"),
+                           dict(model.named_parameters()), "cuda", lora=lora,
+                           trainable_lora=True)
+    host = next(dataset.epoch(1))
+    batch = {k: torch.from_numpy(host[k]).cuda() for k in ("input_ids", "loss_mask")}
+    loss_k, grads_k = lora_loss_and_grads(torch, model, batch)
+    loss_r, grads_r = lora_loss_and_grads(torch, ref_model, batch)
+    del ref_model
+    d = path_difference(torch, loss_k, grads_k, loss_r, grads_r)
+    log(f"[train-paths] loss kernels {loss_k:.6f} vs reference {loss_r:.6f} (rel "
+        f"{d['loss_rel']:.3e}, tol {STEP_LOSS_RTOL:.0e}); LoRA grads cosine "
+        f"{d['grad_cosine']:.7f} (>= {STEP_GRAD_COS}), rel L2 {d['grad_rel_l2']:.3e} "
+        f"(<= {STEP_GRAD_REL_L2})")
+    controls = []
+    for i, (names, eps, gated) in enumerate(STEP_CONTROLS):
+        with noisy_kernels(torch, names, eps, seed=77 + i):
+            loss_c, grads_c = lora_loss_and_grads(torch, model, batch)
+        c = {"kernels": list(names), "eps": eps, "gated": gated,
+             **path_difference(torch, loss_c, grads_c, loss_r, grads_r)}
+        controls.append(c)
+        log(f"[train-paths] control {'+'.join(names)} x (1 + {eps} N(0,1)): loss rel "
+            f"{c['loss_rel']:.3e}, grads cosine {c['grad_cosine']:.7f}, rel L2 "
+            f"{c['grad_rel_l2']:.3e} -> {'passes' if within_step_gate(c) else 'refused'}"
+            f"{'' if gated else ' (not gated)'}")
+    check(math.isfinite(loss_k) and d["loss_rel"] <= STEP_LOSS_RTOL,
+          f"kernel-path loss {loss_k} vs reference {loss_r}")
+    check(d["grad_cosine"] >= STEP_GRAD_COS and d["grad_rel_l2"] <= STEP_GRAD_REL_L2,
+          f"kernel-path grads differ: {d}")
+    passed = [c for c in controls if c["gated"] and within_step_gate(c)]
+    check(not passed, f"the gate let known-wrong controls through: {passed}")
+    return {"loss_kernels": loss_k, "loss_reference": loss_r, **d, "controls": controls}
+
+
+def phase_train_profile(torch, state, dataset):
+    """Where a train step's time goes: ``torch.profiler`` over one more
+    optimizer step of the trainer's own step function."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from dlti_tpu_torch.models.llama import derive_seed
+    from dlti_tpu_torch.training.step import make_train_step
+
+    step_fn = make_train_step(state.model, accum_steps=2)
+    host = next(dataset.epoch(2))
+    batch = {k: torch.from_numpy(v).cuda() for k, v in host.items()}
+    step_fn(state, batch, derive_seed(43, 100))  # warm
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step_fn(state, batch, derive_seed(43, 101))
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    if not kernels or busy_ms == 0:
+        log("[train-profile] the profiler recorded no device time: not measured")
+        return None
+    n_kernels = sum(e.count for e in kernels)
+    log(f"[train-profile] one train step under torch.profiler: wall {wall_ms:.1f} ms, "
+        f"device busy {busy_ms:.1f} ms ({100 * busy_ms / wall_ms:.1f}% busy), "
+        f"{n_kernels} kernels")
+    groups = {}
+    for e in kernels:
+        key = e.key
+        if "flash_fwd_kernel" in key:
+            g = "K1 flash_fwd"
+        elif "flash_bwd_dq_kernel" in key:
+            g = "K2 flash_bwd_dq"
+        elif "flash_bwd_dkv_kernel" in key:
+            g = "K3 flash_bwd_dkv"
+        elif "gemm" in key.lower() or "nvjet" in key or "cutlass" in key.lower():
+            g = "matmul (cuBLAS)"
+        else:
+            g = "other"
+        t, c = groups.get(g, (0.0, 0))
+        groups[g] = (t + e.self_device_time_total / 1e3, c + e.count)
+    for g, (t, c) in sorted(groups.items(), key=lambda x: -x[1][0]):
+        log(f"[train-profile]   {t:9.2f} ms {100 * t / busy_ms:5.1f}% x{c:<6d} {g}")
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]
+    for e in top:
+        log(f"[train-profile]   top {e.self_device_time_total / 1e3:9.2f} ms x{e.count:<5d} "
+            f"{e.key[:90]}")
+    return {"wall_ms": wall_ms, "busy_ms": busy_ms, "kernels": n_kernels,
+            "groups": {g: t for g, (t, _) in groups.items()}}
+
+
 def main() -> int:
     try:
         import torch
@@ -508,6 +989,15 @@ def main() -> int:
         engine, params, launches = phase_engine(torch)
         main_path = phase_in_model(torch, engine, params, flush)
         phase_profile(torch, engine)
+        # The serving phases hold ~23 GB (weights and KV pool): release them
+        # before the training phases build their own llama2_7b.
+        del engine, params
+        gc.collect()
+        torch.cuda.empty_cache()
+        flash = phase_flash_cases(torch, flush)
+        state, dataset, lora, flash_launches, train_perf = phase_training(torch)
+        paths = phase_train_paths(torch, state, dataset, lora)
+        phase_train_profile(torch, state, dataset)
     except CheckFailed as e:
         return fail(str(e))
 
@@ -525,6 +1015,25 @@ def main() -> int:
         "bound_by": main_path["bound_by"],
         "library_ms": main_path["library_ms"],
     }]
+    # K1-K3: times and bound at the training path's shape (llama2_7b,
+    # b 4, s 512, bf16, causal); the error is the worst over every case.
+    at = flash["llama2_7b_train"]
+    for name, replaces in FLASH_REPLACES.items():
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": "dlti_tpu_torch/csrc/flash_attention.cu",
+            "replaces": replaces,
+            "launches": flash_launches[name],
+            "max_abs_err": max(r[name]["max_abs_err"] for r in flash.values()),
+            "ms": at[name]["ms"],
+            "plain_ms": at[name]["plain_ms"],
+            "bound_ms": at[name]["bound_ms"],
+            "bound_by": at[name]["bound_by"],
+            "library_ms": at[name]["library_ms"],
+        })
+    log("[train] summary " + json.dumps({**{k: train_perf[k] for k in (
+        "step_ms", "tokens_per_s", "mfu_percent", "peak_memory_gb")}, **paths}))
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,7 +1,8 @@
 """PyTorch / CUDA port of ``dlti_tpu`` for NVIDIA Hopper (H100).
 
 The JAX package ``dlti_tpu`` stays the reference; this package mirrors its
-module layout (``config``, ``ops``, ``models``, ``serving``) so each
+module layout (``config``, ``ops``, ``models``, ``serving``, ``data``,
+``training``) so each
 counterpart is found under the same name. It imports ``torch`` and numpy
 only — never ``jax`` and nothing of ``dlti_tpu``.
 
@@ -10,7 +11,11 @@ without a card and without an explicit device they raise.
 
 Port so far: the paged-KV serving path (``serving.engine.InferenceEngine``)
 with the paged decode attention as a hand-written CUDA kernel
-(``ops.paged_attention``, source in ``csrc/paged_attention.cu``).
+(``ops.paged_attention``, source in ``csrc/paged_attention.cu``), and
+single-device LoRA training (``training.Trainer``, CLI
+``python -m dlti_tpu_torch.cli.train``) with flash attention forward and
+backward as hand-written CUDA kernels (``ops.flash_attention``, source in
+``csrc/flash_attention.cu``).
 """
 
 from dlti_tpu_torch.config import MODEL_PRESETS, LoRAConfig, ModelConfig

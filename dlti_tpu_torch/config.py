@@ -1,16 +1,21 @@
-"""Model configuration: this package's copy of ``dlti_tpu/config.py``'s
-``ModelConfig`` and ``MODEL_PRESETS``.
+"""Configuration: this package's copy of ``dlti_tpu/config.py``'s
+``ModelConfig``, ``LoRAConfig``, ``MODEL_PRESETS`` and, for training,
+``OptimizerConfig``, ``DataConfig``, ``TrainConfig`` and the root ``Config``.
 
 Field names, defaults and presets are the reference's, so a configuration
-means the same model in both packages. Fields that select code the port has
-not reached yet (remat, the flash tiles, mixture of experts) are kept for
-that parity; the modules that would read them raise where the port stops.
+means the same thing in both packages. The training blocks carry the fields
+the single-device LoRA path reads. Fields that select code the port has not
+reached yet (mixture of experts, the other remat policies, the fp16 scaler,
+``loss_chunk``) are kept for that parity; the modules that would read them
+raise where the port stops. ``flash_block_q``/``flash_block_kv`` are the TPU
+kernel's tiles: the CUDA flash kernels pick their own and do not read them.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
-from typing import Optional
+import dataclasses
+from dataclasses import dataclass, field
+from typing import Any, Optional
 
 
 @dataclass(frozen=True)
@@ -76,14 +81,63 @@ class ModelConfig:
 @dataclass(frozen=True)
 class LoRAConfig:
     """LoRA adapter config (the reference's ``LoRAConfig``): r=16, alpha=32,
-    on the q/k/v/o projections. Serving applies the adapter branch without
-    dropout."""
+    dropout 0.05 on the adapter input in training, on the q/k/v/o
+    projections. Serving applies the adapter branch without dropout."""
 
     enabled: bool = True
     r: int = 16
     alpha: int = 32
     dropout: float = 0.05
     target_modules: tuple = ("q_proj", "k_proj", "v_proj", "o_proj")
+
+    @property
+    def scaling(self) -> float:
+        return self.alpha / self.r
+
+
+@dataclass(frozen=True)
+class OptimizerConfig:
+    """AdamW + warmup schedule (the reference's ``OptimizerConfig``)."""
+
+    learning_rate: float = 2e-4
+    betas: tuple = (0.9, 0.999)
+    eps: float = 1e-8
+    weight_decay: float = 0.0
+    warmup_steps: int = 100
+    grad_clip: float = 1.0
+    schedule: str = "warmup_constant"  # or "warmup_cosine"
+    total_steps: int = 0  # used by cosine schedule; 0 = constant after warmup
+
+
+@dataclass(frozen=True)
+class DataConfig:
+    """Data pipeline config (the reference's ``DataConfig``, the fields the
+    in-memory pipeline reads)."""
+
+    dataset_path: str = "./data/glaive_code_full"
+    tokenizer: str = "meta-llama/Llama-2-7b-hf"
+    max_seq_len: int = 512  # the reference's truncation
+    pack_sequences: bool = False
+    shuffle_seed: int = 0
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    """Training loop knobs (the reference's ``TrainConfig``): the fields
+    of the single-device loop. ``fp16``, ``loss_chunk``, ``steps_per_sync``
+    and ``quantize_frozen_base`` are kept for parity and raise when set."""
+
+    num_epochs: int = 1
+    max_steps: int = 0  # 0 = derive from epochs * steps_per_epoch
+    micro_batch_size: int = 1
+    grad_accum_steps: int = 16
+    logging_steps: int = 10
+    seed: int = 42
+    fp16: bool = False
+    loss_chunk: int = 0
+    steps_per_sync: int = 1
+    quantize_frozen_base: str = ""
+
 
 
 MODEL_PRESETS: dict = {
@@ -147,3 +201,19 @@ MODEL_PRESETS: dict = {
         num_experts_per_tok=2,
     ),
 }
+
+
+@dataclass(frozen=True)
+class Config:
+    """Root config of the training slice (the reference's ``Config``,
+    without the blocks of code the port has not reached: parallel,
+    checkpoint, telemetry, serving)."""
+
+    model: ModelConfig = field(default_factory=ModelConfig)
+    lora: LoRAConfig = field(default_factory=LoRAConfig)
+    optimizer: OptimizerConfig = field(default_factory=OptimizerConfig)
+    data: DataConfig = field(default_factory=DataConfig)
+    train: TrainConfig = field(default_factory=TrainConfig)
+
+    def replace(self, **kwargs: Any) -> "Config":
+        return dataclasses.replace(self, **kwargs)

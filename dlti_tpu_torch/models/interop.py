@@ -4,7 +4,9 @@
   numpy arrays, as ``jax.device_get(model.init(...)["params"])`` gives) to
   this package's state dict. Layouts agree, so it is a rename:
   ``model/layers_{i}/attn/q_proj/kernel`` becomes
-  ``model.layers.{i}.attn.q_proj.kernel``.
+  ``model.layers.{i}.attn.q_proj.kernel``. LoRA factors (``lora_a``,
+  ``lora_b``) cross like any other leaf, so both packages start from the
+  same adapter.
 * :func:`init_params` — a full-width random model filled directly on the
   device from a seeded ``torch.Generator``: embed and head normal(0.02),
   projection kernels lecun-normal (the reference's ``LoRADense`` default),
@@ -25,6 +27,7 @@ import torch
 
 from dlti_tpu_torch.config import LoRAConfig, ModelConfig
 from dlti_tpu_torch.models.llama import LlamaForCausalLM
+from dlti_tpu_torch.models.lora import is_lora_name
 from dlti_tpu_torch.utils.device import resolve_device
 
 # flax's lecun_normal: a normal truncated at two standard deviations, scaled
@@ -87,14 +90,18 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None,
 
 
 def load_model(cfg: ModelConfig, params: Mapping[str, torch.Tensor],
-               device=None, lora: Optional[LoRAConfig] = None
-               ) -> LlamaForCausalLM:
+               device=None, lora: Optional[LoRAConfig] = None,
+               trainable_lora: bool = False) -> LlamaForCausalLM:
     """A ``LlamaForCausalLM`` on ``device`` whose parameters are ``params``
-    (moved there if they are elsewhere; not copied if they are already)."""
+    (moved there if they are elsewhere; not copied if they are already).
+
+    Every parameter is frozen and the module is in eval mode, unless
+    ``trainable_lora``: then the ``lora_a``/``lora_b`` leaves require grad
+    (the base stays frozen) and the module is in train mode."""
     device = resolve_device(device)
     model = LlamaForCausalLM(cfg, lora, device="meta")
     state = {k: v.to(device) for k, v in params.items()}
     model.load_state_dict(state, assign=True, strict=True)
-    for p in model.parameters():
-        p.requires_grad_(False)
-    return model.eval()
+    for name, p in model.named_parameters():
+        p.requires_grad_(trainable_lora and is_lora_name(name))
+    return model.train(trainable_lora)

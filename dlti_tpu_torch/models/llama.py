@@ -1,16 +1,21 @@
-"""Llama-family transformer for serving: the port of
+"""Llama-family transformer for serving and training: the port of
 ``dlti_tpu/models/llama.py``.
 
-RMSNorm, RoPE, GQA attention over the paged KV cache, gated MLP, float32
-logits with a tied or untied head. Parameter names and layouts are the
-reference's (``model.layers.{i}.attn.q_proj.kernel`` is ``(in, out)``), so
+RMSNorm, RoPE, GQA attention, gated MLP, float32 logits with a tied or
+untied head. Parameter names and layouts are the reference's
+(``model.layers.{i}.attn.q_proj.kernel`` is ``(in, out)``), so
 ``models.interop.params_from_jax`` is a rename.
 
 Attention branches ported here: the paged cache (prefill through
 ``paged_gather`` + ``reference_attention``; one-token decode through the
-paged decode kernel) and the no-cache ``reference_attention``. The dense
-fixed-capacity cache, ring and flash attention, remat and quantized leaves
-belong to later slices.
+paged decode kernel) and the no-cache (training) path through
+``multi_head_attention`` with ``cfg.attention_impl`` (flash attention's CUDA
+kernels on the card). In training each block runs under
+``torch.utils.checkpoint`` when ``cfg.remat`` (policy ``nothing_saveable``,
+honouring ``remat_stride``), and LoRA dropout draws its masks from a seed
+the caller passes (``dropout_seed``), fixed per layer and projection so the
+recomputation draws the same masks. The dense fixed-capacity cache, ring
+attention, the other remat policies and quantized leaves are not ported.
 """
 
 from __future__ import annotations
@@ -20,10 +25,11 @@ from typing import Dict, List, Optional, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from dlti_tpu_torch.config import LoRAConfig, ModelConfig
 from dlti_tpu_torch.models.lora import LoRADense
-from dlti_tpu_torch.ops.attention import reference_attention
+from dlti_tpu_torch.ops.attention import multi_head_attention, reference_attention
 from dlti_tpu_torch.ops.kv_cache import paged_gather, paged_update, slot_mapping
 from dlti_tpu_torch.ops.paged_attention import paged_decode_attention
 from dlti_tpu_torch.ops.rope import (
@@ -32,6 +38,21 @@ from dlti_tpu_torch.ops.rope import (
 from dlti_tpu_torch.utils.device import resolve_dtype
 
 PAGED_ATTENTION_IMPLS = ("auto", "kernel", "gather")
+REMAT_POLICIES = ("nothing_saveable",)
+
+
+def derive_seed(seed: Optional[int], *path: int) -> Optional[int]:
+    """A 63-bit seed for ``path`` under ``seed`` (splitmix64 steps), or None
+    when there is no seed: the dropout seed of a layer and projection."""
+    if seed is None:
+        return None
+    x = seed & 0xFFFFFFFFFFFFFFFF
+    for v in path:
+        x = (x ^ (v + 0x9E3779B97F4A7C15)) & 0xFFFFFFFFFFFFFFFF
+        x = ((x ^ (x >> 30)) * 0xBF58476D1CE4E5B9) & 0xFFFFFFFFFFFFFFFF
+        x = ((x ^ (x >> 27)) * 0x94D049BB133111EB) & 0xFFFFFFFFFFFFFFFF
+        x ^= x >> 31
+    return x >> 1
 
 
 class RMSNorm(nn.Module):
@@ -61,7 +82,7 @@ def _proj(cfg: ModelConfig, lora: Optional[LoRAConfig], name: str,
           in_features: int, features: int, use_bias: bool, device) -> LoRADense:
     kw = {}
     if lora is not None and lora.enabled and name in lora.target_modules:
-        kw = dict(lora_r=lora.r, lora_alpha=lora.alpha)
+        kw = dict(lora_r=lora.r, lora_alpha=lora.alpha, lora_dropout=lora.dropout)
     return LoRADense(in_features, features, use_bias=use_bias,
                      dtype=resolve_dtype(cfg.dtype),
                      param_dtype=resolve_dtype(cfg.param_dtype), device=device,
@@ -96,13 +117,14 @@ class LlamaAttention(nn.Module):
 
     def forward(self, x, cos, sin, positions, segment_ids=None,
                 cache: Optional[dict] = None,
-                block_tables: Optional[torch.Tensor] = None) -> torch.Tensor:
+                block_tables: Optional[torch.Tensor] = None,
+                dropout_seed: Optional[int] = None) -> torch.Tensor:
         cfg = self.cfg
         b, s, _ = x.shape
         hd = cfg.resolved_head_dim
-        q = self.q_proj(x).reshape(b, s, cfg.num_heads, hd)
-        k = self.k_proj(x).reshape(b, s, cfg.num_kv_heads, hd)
-        v = self.v_proj(x).reshape(b, s, cfg.num_kv_heads, hd)
+        q = self.q_proj(x, derive_seed(dropout_seed, 0)).reshape(b, s, cfg.num_heads, hd)
+        k = self.k_proj(x, derive_seed(dropout_seed, 1)).reshape(b, s, cfg.num_kv_heads, hd)
+        v = self.v_proj(x, derive_seed(dropout_seed, 2)).reshape(b, s, cfg.num_kv_heads, hd)
         q = apply_rope(q, cos, sin, positions)
         k = apply_rope(k, cos, sin, positions)
 
@@ -126,10 +148,12 @@ class LlamaAttention(nn.Module):
                     q, ck.to(q.dtype), cv.to(q.dtype), causal=True,
                     q_positions=positions, window=cfg.sliding_window)
         else:
-            out = reference_attention(q, k, v, causal=True,
-                                      segment_ids=segment_ids,
-                                      window=self._effective_window(segment_ids))
-        return self.o_proj(out.reshape(b, s, cfg.num_heads * hd))
+            out = multi_head_attention(q, k, v, causal=True,
+                                       segment_ids=segment_ids,
+                                       impl=cfg.attention_impl,
+                                       window=self._effective_window(segment_ids))
+        return self.o_proj(out.reshape(b, s, cfg.num_heads * hd),
+                           derive_seed(dropout_seed, 3))
 
 
 _MLP_ACTIVATIONS = {
@@ -151,8 +175,11 @@ class LlamaMLP(nn.Module):
         self.up_proj = _proj(cfg, lora, "up_proj", h, m, False, device)
         self.down_proj = _proj(cfg, lora, "down_proj", m, h, False, device)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.down_proj(self.act(self.gate_proj(x)) * self.up_proj(x))
+    def forward(self, x: torch.Tensor,
+                dropout_seed: Optional[int] = None) -> torch.Tensor:
+        gate = self.gate_proj(x, derive_seed(dropout_seed, 4))
+        up = self.up_proj(x, derive_seed(dropout_seed, 5))
+        return self.down_proj(self.act(gate) * up, derive_seed(dropout_seed, 6))
 
 
 class LlamaBlock(nn.Module):
@@ -169,10 +196,10 @@ class LlamaBlock(nn.Module):
         self.mlp = LlamaMLP(cfg, lora, device)
 
     def forward(self, x, cos, sin, positions, segment_ids=None, cache=None,
-                block_tables=None):
+                block_tables=None, dropout_seed=None):
         x = x + self.attn(self.input_norm(x), cos, sin, positions, segment_ids,
-                          cache, block_tables)
-        return x + self.mlp(self.post_attn_norm(x))
+                          cache, block_tables, dropout_seed)
+        return x + self.mlp(self.post_attn_norm(x), dropout_seed)
 
 
 class LlamaModel(nn.Module):
@@ -181,6 +208,10 @@ class LlamaModel(nn.Module):
     def __init__(self, cfg: ModelConfig, lora: Optional[LoRAConfig] = None,
                  device=None):
         super().__init__()
+        if cfg.remat and cfg.remat_policy not in REMAT_POLICIES:
+            raise NotImplementedError(
+                f"remat_policy {cfg.remat_policy!r} is not ported yet; the port "
+                f"has {REMAT_POLICIES} (see ROADMAP.md)")
         self.cfg = cfg
         self.embed_tokens = nn.Parameter(torch.empty(
             cfg.vocab_size, cfg.hidden_size, dtype=resolve_dtype(cfg.param_dtype),
@@ -204,7 +235,8 @@ class LlamaModel(nn.Module):
                 positions: Optional[torch.Tensor] = None,
                 segment_ids: Optional[torch.Tensor] = None,
                 cache: Optional[List[dict]] = None,
-                block_tables: Optional[torch.Tensor] = None) -> torch.Tensor:
+                block_tables: Optional[torch.Tensor] = None,
+                dropout_seed: Optional[int] = None) -> torch.Tensor:
         cfg = self.cfg
         dtype = resolve_dtype(cfg.dtype)
         b, s = input_ids.shape
@@ -225,9 +257,19 @@ class LlamaModel(nn.Module):
             table_len = block_tables.shape[1] * cache[0]["k"].shape[1]
         cos, sin = self._rope_tables(table_len, x.device)
 
+        remat = cfg.remat and cache is None and torch.is_grad_enabled()
         for i, layer in enumerate(self.layers):
-            x = layer(x, cos, sin, positions, segment_ids,
-                      cache[i] if cache is not None else None, block_tables)
+            seed = derive_seed(dropout_seed, i)
+            # Selective remat: every remat_stride-th block keeps its
+            # activations instead of recomputing them in the backward.
+            if remat and not (cfg.remat_stride > 1 and i % cfg.remat_stride == 0):
+                x = checkpoint(layer, x, cos, sin, positions, segment_ids, None,
+                               None, seed, use_reentrant=False,
+                               preserve_rng_state=False)
+            else:
+                x = layer(x, cos, sin, positions, segment_ids,
+                          cache[i] if cache is not None else None, block_tables,
+                          seed)
         return self.final_norm(x)
 
 
@@ -236,7 +278,8 @@ class LlamaForCausalLM(nn.Module):
 
     With a paged ``cache`` (a list of per-layer ``{"k", "v"}`` pools from
     ``ops.kv_cache.init_paged_cache``) and ``block_tables``, the forward
-    writes this call's K/V into the pools in place.
+    writes this call's K/V into the pools in place. ``dropout_seed`` turns
+    LoRA dropout on (training); without it the forward is deterministic.
     """
 
     def __init__(self, cfg: ModelConfig, lora: Optional[LoRAConfig] = None,
@@ -251,8 +294,9 @@ class LlamaForCausalLM(nn.Module):
                 requires_grad=False)
 
     def forward(self, input_ids, positions=None, segment_ids=None, cache=None,
-                block_tables=None) -> torch.Tensor:
-        x = self.model(input_ids, positions, segment_ids, cache, block_tables)
+                block_tables=None, dropout_seed=None) -> torch.Tensor:
+        x = self.model(input_ids, positions, segment_ids, cache, block_tables,
+                       dropout_seed)
         # Float32 products of the (possibly bf16) operands: the reference's
         # preferred_element_type=float32 head, with no bf16 rounding of logits.
         if self.cfg.tie_embeddings:

@@ -1,4 +1,5 @@
-"""Compute ops: RoPE, reference attention, the paged KV cache and the paged
+"""Compute ops: RoPE, reference attention and its dispatch to flash
+attention (forward and backward kernels), the paged KV cache and the paged
 decode attention kernel."""
 
 from dlti_tpu_torch.ops.rope import apply_rope, rope_frequencies  # noqa: F401

@@ -1,9 +1,9 @@
-"""Attention ops: the port of ``dlti_tpu/ops/attention.py``'s reference
-path (``repeat_kv``, ``make_causal_mask``, ``reference_attention``).
+"""Attention ops: the port of ``dlti_tpu/ops/attention.py``
+(``repeat_kv``, ``make_causal_mask``, ``reference_attention`` and the
+``multi_head_attention`` dispatch between it and flash attention).
 
 Scores and softmax are float32 whatever the input dtype, as in the
-reference's ``preferred_element_type=float32`` einsums. The flash dispatch
-(``multi_head_attention``) belongs to the training slice and is not here.
+reference's ``preferred_element_type=float32`` einsums.
 """
 
 from __future__ import annotations
@@ -11,6 +11,8 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+
+from dlti_tpu_torch.ops.flash_attention import flash_attention
 
 
 def repeat_kv(x: torch.Tensor, n_rep: int) -> torch.Tensor:
@@ -86,3 +88,43 @@ def reference_attention(
     probs = torch.softmax(scores, dim=-1)
     out = torch.einsum("bhqk,bkhd->bqhd", probs.to(v.dtype).to(f32), v.to(f32))
     return out.to(q.dtype)
+
+
+ATTENTION_IMPLS = ("auto", "reference", "flash")
+
+
+def multi_head_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    causal: bool = True,
+    segment_ids: Optional[torch.Tensor] = None,
+    impl: str = "auto",
+    window: Optional[int] = None,
+) -> torch.Tensor:
+    """Dispatching attention entry point used by the model.
+
+    ``impl``: "reference" runs :func:`reference_attention`; "flash" runs
+    ``ops.flash_attention.flash_attention`` (its plain version on a CPU
+    tensor, the CUDA kernels on the card); "auto" takes flash on every CUDA
+    tensor and the reference path on a CPU one. The JAX package's rule for
+    "auto" (lengths and head_dim multiples of 128) follows the TPU tile; the
+    CUDA kernels mask ragged tails by bounds and need no such alignment, and
+    they raise on what they were not built for (head_dim outside 64/128/256,
+    more than 64 query heads per kv head). The one exception is causal
+    attention with ``sq != skv``: the flash mask is top-left aligned and
+    the reference's bottom-right, a different function, so "auto" keeps the
+    reference there as the JAX package does.
+    """
+    if impl not in ATTENTION_IMPLS:
+        raise ValueError(f"attention impl must be one of {ATTENTION_IMPLS}, "
+                         f"got {impl!r}")
+    use_flash = impl == "flash"
+    if impl == "auto":
+        use_flash = q.device.type == "cuda" and (q.shape[1] == k.shape[1] or not causal)
+    if use_flash:
+        return flash_attention(q, k, v, causal=causal, segment_ids=segment_ids,
+                               window=window)
+    return reference_attention(q, k, v, causal=causal, segment_ids=segment_ids,
+                               window=window)

@@ -1,5 +1,6 @@
 """The port stands alone: with ``jax`` blocked out of ``sys.modules`` it
-imports, serves a ``llama_tiny`` request on the CPU, and loads no module of
+imports, serves a ``llama_tiny`` request and trains two LoRA steps of
+``llama_tiny`` through ``Trainer`` on the CPU, and loads no module of
 the JAX package (``dlti_tpu`` or ``dlti_tpu.*``; ``dlti_tpu_torch`` shares
 the prefix and is not one). Without CUDA, an entry point called without a
 device raises instead of running on the CPU.
@@ -33,6 +34,19 @@ _CHILD = textwrap.dedent("""
     [res] = engine.generate([[1, 2, 3, 4]], SamplingParams(temperature=0.0, max_tokens=5))
     assert len(res.output_token_ids) == 5, res
 
+    from dlti_tpu_torch.config import Config, DataConfig, TrainConfig
+    from dlti_tpu_torch.data import get_tokenizer, make_batches
+    from dlti_tpu_torch.training import Trainer
+
+    tcfg = Config(model=cfg, data=DataConfig(max_seq_len=32, tokenizer="byte"),
+                  train=TrainConfig(micro_batch_size=2, grad_accum_steps=2,
+                                    max_steps=2, logging_steps=1))
+    texts = ["port " * n for n in range(1, 20)]
+    ds = make_batches(texts, get_tokenizer("byte"), seq_len=32,
+                      micro_batch_size=2, grad_accum_steps=2)
+    state, record = Trainer(tcfg, device="cpu").train(dataset=ds)
+    assert state.step == 2 and len(record.losses) == 2, record
+
     def is_jax_package(name):
         return name == "dlti_tpu" or name.startswith("dlti_tpu.")
 
@@ -64,9 +78,10 @@ def test_chip_smoke_imports_no_jax():
 
 
 def test_entry_points_without_device_raise_when_there_is_no_cuda(monkeypatch):
-    from dlti_tpu_torch.config import MODEL_PRESETS
+    from dlti_tpu_torch.config import MODEL_PRESETS, Config
     from dlti_tpu_torch.models import init_params
     from dlti_tpu_torch.serving import InferenceEngine
+    from dlti_tpu_torch.training import Trainer
     from dlti_tpu_torch.utils.device import resolve_device
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -77,4 +92,6 @@ def test_entry_points_without_device_raise_when_there_is_no_cuda(monkeypatch):
         init_params(cfg, seed=0)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         InferenceEngine(cfg, init_params(cfg, seed=0, device="cpu"))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Trainer(Config(model=cfg))
     assert resolve_device("cpu") == torch.device("cpu")
