@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving and training paths on one NVIDIA GPU
-(an H100).
+"""Drive the PyTorch port's serving, training and HTTP serving paths on one
+NVIDIA GPU (an H100).
 
     python3 chip_smoke.py
 
@@ -14,7 +14,13 @@ Phases, each of which fails the run if its check fails:
    mistral_7b's window, head_dim 256, a float32 pool, poisoned pool rows and
    garbage table entries), with each case's error, kernel time, bound, plain
    time and the time of ``F.scaled_dot_product_attention`` over the gathered
-   window (a yardstick the port never calls).
+   window (a yardstick the port never calls). Then K4's int8 program (K4q)
+   the same way on int8 pools with float32 row scales: llama2_7b, llama3_8b's
+   GQA, mistral_7b's window, head_dim 256, and NaN in the scales of every
+   row that is not live with garbage table entries (SDPA over the window
+   dequantized once, outside the timed call). bf16 cases are held to an
+   absolute limit and to one relative to each batch row's largest output;
+   a planted 25% scale fault in a late tile must fail the second.
 3. The engine at full width: llama2_7b in bfloat16 from
    ``init_params(seed=0)``, 12 requests (prompts of 16 to 300 tokens,
    greedy and seeded sampling) submitted to ``InferenceEngine`` and driven
@@ -46,6 +52,28 @@ Phases, each of which fails the run if its check fails:
    batch, dropout off; then known-wrong controls (the kernels' outputs given
    seeded multiplicative noise), which the same gate must refuse.
 9. Profile of one train step: device busy share, time by kernel group.
+   The trainer is then released.
+10. The OpenAI server at full width on an int8 KV pool: llama2_7b from the
+    serve CLI's own builder (``--random-init llama2_7b --tokenizer byte
+    --kv-cache-dtype int8`` and the CLI's defaults: 8 slots, 2048 blocks of
+    16, max_model_len 2048) behind ``make_server`` on a free port. 12
+    concurrent requests (6 greedy completions of 32 tokens with prompts of
+    16-300 bytes, 2 streamed, 2 chat, 1 seeded ``n: 2``, 1 with a ``stop``
+    string), then one greedy prompt twice and streamed, one at a time. Every
+    response 200 with no SSE error frame or ``error`` finish, ``usage``
+    agreeing with the tokens, the repeated prompt identical, the streamed
+    deltas the completion's text, ``/health`` 200, ``/metrics`` with
+    ``dlti_requests`` >= 12 and the TTFT histogram; K4q launched exactly 32
+    x decode steps and the float K4 never. Prints requests/s, output tok/s,
+    TTFT p50/p99 and mean TPOT from ``/stats``, and the pool's bytes.
+11. Inside the model on the int8 pool: one decode step's logits through K4q
+    against the gather path (dequantized in float32), gated; against the
+    same step on a bf16 pool, printed only (quantization error). Then K4q
+    against its plain version on the engine's pool and tables, timed.
+12. The entry point itself: ``python -m dlti_tpu_torch.cli.serve
+    --random-init llama_tiny --tokenizer byte --kv-cache-dtype int8 --port
+    0`` as a subprocess on the card answers ``/health`` and a completion and
+    exits 0 on SIGTERM.
 
 Prints a ``{"kernels": [...]}`` line, and as its last line
 ``{"ok": true, "device": {...}}``. Exits non-zero without that line when
@@ -77,6 +105,10 @@ PEAK_OPS_PER_S = {"bfloat16": 989e12, "float32": 67e12}
 # result to bf16, whose spacing below |x| = 4 is at most 2**-6, so they may
 # land one bf16 step apart.
 TOL = {"float32": 1e-5, "bfloat16": 2.0 ** -6}
+# The same bound per batch row, relative to the row's largest |output|: one
+# bf16 step of an element x is at most 2**-7 |x|. Long rows average many
+# tokens into small outputs, where the absolute limit would not see a fault.
+ROW_REL_TOL = 2.0 ** -7
 # Whole-model logits, kernel path against gather path in bfloat16: the two
 # attention outputs may differ by one bf16 step per element and 32 layers
 # carry that on, so the bound is relative to the logits' scale.
@@ -130,9 +162,10 @@ def time_ms(torch, fn, iters: int = 20, flush=None) -> float:
 
 def decode_work(q, k_pool, block_tables, seq_lens, window):
     """Bytes the paged decode must move and operations it must do for
-    these inputs: K and V of every live (token, kv head) once, q and the
-    output once, the live table entries and the lengths; two multiply-adds
-    per (token, query head, channel)."""
+    these inputs: K and V of every live (token, kv head) once (with their
+    two float32 scales on an int8 pool), q and the output once, the live
+    table entries and the lengths; two multiply-adds per (token, query
+    head, channel)."""
     batch, _, heads, d = q.shape
     bs, kvh = k_pool.shape[1], k_pool.shape[2]
     lens = seq_lens.long().clamp(min=0, max=block_tables.shape[1] * bs)
@@ -141,6 +174,8 @@ def decode_work(q, k_pool, block_tables, seq_lens, window):
     first_blk, last_blk = start // bs, (lens + bs - 1) // bs
     live_blocks = int((last_blk - first_blk).clamp(min=0).sum())
     kv_bytes = 2 * tokens * kvh * d * k_pool.element_size()
+    if not k_pool.dtype.is_floating_point:  # int8: a float32 scale per row
+        kv_bytes += 2 * 4 * tokens * kvh
     qo_bytes = 2 * q.numel() * q.element_size()
     meta_bytes = 4 * (live_blocks + batch)
     ops = 4 * tokens * heads * d
@@ -154,18 +189,25 @@ def bound(nbytes: int, ops: int, dtype_name: str):
             "bytes" if t_bytes >= t_ops else "operations")
 
 
-def sdpa_over_gathered(torch, q, k_pool, v_pool, block_tables, seq_lens, window):
+def sdpa_over_gathered(torch, q, k_pool, v_pool, block_tables, seq_lens, window,
+                       k_scale=None, v_scale=None):
     """The library yardstick: ``scaled_dot_product_attention`` over the
-    window gathered from the pool (the gather is done once, outside the
-    timed call). Returns the timed closure."""
+    window gathered from the pool (the gather, and an int8 pool's
+    dequantization, done once, outside the timed call). Returns the timed
+    closure."""
     import torch.nn.functional as F
 
     batch, _, heads, d = q.shape
     nb, bs, kvh, _ = k_pool.shape
     bt = block_tables.long().clamp(0, nb - 1)
     max_len = bt.shape[1] * bs
-    k = k_pool[bt].reshape(batch, max_len, kvh, d).transpose(1, 2).to(q.dtype)
-    v = v_pool[bt].reshape(batch, max_len, kvh, d).transpose(1, 2).to(q.dtype)
+    k = k_pool[bt].float() if k_scale is not None else k_pool[bt]
+    v = v_pool[bt].float() if v_scale is not None else v_pool[bt]
+    if k_scale is not None:
+        k = k * k_scale[bt][..., None]
+        v = v * v_scale[bt][..., None]
+    k = k.reshape(batch, max_len, kvh, d).transpose(1, 2).to(q.dtype)
+    v = v.reshape(batch, max_len, kvh, d).transpose(1, 2).to(q.dtype)
     pos = torch.arange(max_len, device=q.device)[None, :]
     lens = seq_lens.long()[:, None]
     valid = pos < lens
@@ -205,11 +247,13 @@ def phase_card_and_build(torch):
 
 
 def make_decode_case(torch, gen, *, heads, kv_heads, d, dtype, block_size,
-                     seq_lens, max_blocks, window=None, poison=False):
+                     seq_lens, max_blocks, window=None, poison=False, int8=False):
     """A pool holding exactly the blocks the sequences use (a random
     permutation of them), plus block tables. With ``poison``, every pool row
-    that is not live holds NaN and table entries past each sequence point at
-    random (poisoned) blocks; otherwise they are -1."""
+    that is not live holds NaN (on an int8 pool: its scales do) and table
+    entries past each sequence point at random (poisoned) blocks; otherwise
+    they are -1. With ``int8`` the pools are quantized as ``paged_update``
+    stores them and the scales come back in a dict."""
     dev = torch.device("cuda")
     batch = len(seq_lens)
     need = [-(-n // block_size) for n in seq_lens]
@@ -232,38 +276,81 @@ def make_decode_case(torch, gen, *, heads, kv_heads, d, dtype, block_size,
         t = torch.arange(max(0, n - window) if window else 0, n, device=dev)
         live[blocks[t // block_size].long() * block_size + t % block_size] = True
         nxt += need[b]
+    scales = {}
+    if int8:
+        from dlti_tpu_torch.ops.kv_cache import _quantize_rows
+
+        (k_pool, scales["k_scale"]), (v_pool, scales["v_scale"]) = (
+            _quantize_rows(k_pool), _quantize_rows(v_pool))
     if poison:
         live = live.view(num_blocks, block_size)
-        k_pool[~live] = float("nan")
-        v_pool[~live] = float("nan")
+        for t in (scales.values() if int8 else (k_pool, v_pool)):
+            t[~live] = float("nan")
     q = torch.randn(batch, 1, heads, d, device=dev, generator=gen).to(dtype)
     lens = torch.tensor(seq_lens, device=dev, dtype=torch.int32)
-    return q, k_pool, v_pool, tables, lens
+    return q, k_pool, v_pool, tables, lens, scales
 
 
-def measure_kernel(torch, tpa, q, k_pool, v_pool, tables, lens, window, flush):
-    """Error against the plain version, and the four times."""
-    out = tpa.paged_decode_attention(q, k_pool, v_pool, tables, lens, window=window)
+def decode_errors(torch, out, ref):
+    """(max abs error, max over batch rows of the row's max abs error over
+    its max |ref|). A row whose reference is all zero (seq_len 0) must be
+    exactly zero: any error there reads as infinite."""
+    diff = (out.float() - ref.float()).abs().flatten(1).amax(1)
+    scale = ref.float().abs().flatten(1).amax(1)
+    row_rel = torch.where(scale > 0, diff / scale.clamp(min=1e-30),
+                          torch.where(diff > 0, float("inf"), 0.0))
+    return diff.max().item(), row_rel.max().item()
+
+
+def measure_kernel(torch, tpa, q, k_pool, v_pool, tables, lens, window, flush,
+                   scales=None):
+    """Error against the plain version, and the four times. ``scales``: an
+    int8 pool's ``k_scale``/``v_scale``; its tolerance and peak rate are
+    those of q's dtype, in which both versions compute."""
+    kw = dict(window=window, **(scales or {}))
+    out = tpa.paged_decode_attention(q, k_pool, v_pool, tables, lens, **kw)
     torch.cuda.synchronize()
-    ref = tpa.paged_decode_attention_reference(q, k_pool, v_pool, tables, lens,
-                                               window=window)
+    ref = tpa.paged_decode_attention_reference(q, k_pool, v_pool, tables, lens, **kw)
     check(torch.isfinite(out).all().item(), "kernel output is not finite")
-    err = (out.float() - ref.float()).abs().max().item()
-    dtype_name = str(k_pool.dtype).split(".")[-1]
+    err, row_rel = decode_errors(torch, out, ref)
+    dtype_name = str(q.dtype if scales else k_pool.dtype).split(".")[-1]
     nbytes, ops = decode_work(q, k_pool, tables, lens, window)
     bound_ms, bound_by = bound(nbytes, ops, dtype_name)
     ms = time_ms(torch, lambda: tpa.paged_decode_attention(
-        q, k_pool, v_pool, tables, lens, window=window), flush=flush)
+        q, k_pool, v_pool, tables, lens, **kw), flush=flush)
     plain_ms = time_ms(torch, lambda: tpa.paged_decode_attention_reference(
-        q, k_pool, v_pool, tables, lens, window=window), flush=flush)
+        q, k_pool, v_pool, tables, lens, **kw), flush=flush)
     library_ms = time_ms(torch, sdpa_over_gathered(
-        torch, q, k_pool, v_pool, tables, lens, window), flush=flush)
-    return {"max_abs_err": err, "tol": TOL[dtype_name], "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+        torch, q, k_pool, v_pool, tables, lens, window, **(scales or {})), flush=flush)
+    return {"max_abs_err": err, "tol": TOL[dtype_name], "row_rel_err": row_rel,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": library_ms, "bytes": nbytes, "ops": ops}
 
 
+def planted_scale_fault(torch, tpa, q, k_pool, v_pool, tables, lens, scales):
+    """Known-wrong control for the int8 gate: K4q reads ``v_scale`` 25% high
+    on the last block of the longest sequence (a scale misread in a late
+    tile) and is held against the plain version on the true scales. The
+    row-relative limit must refuse it; the absolute one, which such a fault
+    can pass, is printed beside."""
+    row = int(lens.argmax())
+    block = int(tables[row, (int(lens[row]) - 1) // k_pool.shape[1]])
+    bad = scales["v_scale"].clone()
+    bad[block] *= 1.25
+    out = tpa.paged_decode_attention(q, k_pool, v_pool, tables, lens,
+                                     k_scale=scales["k_scale"], v_scale=bad)
+    ref = tpa.paged_decode_attention_reference(q, k_pool, v_pool, tables, lens, **scales)
+    err, row_rel = decode_errors(torch, out, ref)
+    log(f"[kernel] control, v_scale x1.25 on row {row}'s last block: max_abs_err "
+        f"{err:.3e} (abs tol {TOL['bfloat16']:.3e}), row rel {row_rel:.3e} "
+        f"(tol {ROW_REL_TOL:.3e}): must be refused")
+    check(row_rel > ROW_REL_TOL, "the row-relative gate passed a planted scale fault")
+
+
 def phase_kernel_cases(torch, flush):
+    """K4 on float pools, then its int8 program (K4q) on int8 pools with
+    float32 row scales and bf16 queries, against their plain version.
+    Returns (float cases, int8 cases)."""
     from dlti_tpu_torch.ops import paged_attention as tpa
 
     gen = torch.Generator(device="cuda").manual_seed(1234)
@@ -272,6 +359,7 @@ def phase_kernel_cases(torch, flush):
     # (an idle slot), single tokens, tails inside a block, a full table.
     lens_1k = [0, 1, 17, 100, 255, 316, 600, 1024]
     lens_8k = [0, 5, 100, 4095, 4097, 5000, 6000, 8192]
+    int8 = dict(dtype=bf16, int8=True)
     cases = [
         ("llama2_7b", dict(heads=32, kv_heads=32, d=128, dtype=bf16,
                            seq_lens=lens_1k, max_blocks=64)),
@@ -286,23 +374,42 @@ def phase_kernel_cases(torch, flush):
         ("poisoned_rows_garbage_tables", dict(heads=32, kv_heads=8, d=128,
                                               dtype=bf16, seq_lens=lens_1k,
                                               max_blocks=64, poison=True)),
+        ("int8_llama2_7b", dict(heads=32, kv_heads=32, d=128, seq_lens=lens_1k,
+                                max_blocks=64, **int8)),
+        ("int8_llama3_8b_gqa", dict(heads=32, kv_heads=8, d=128, seq_lens=lens_1k,
+                                    max_blocks=64, **int8)),
+        ("int8_mistral_7b_window", dict(heads=32, kv_heads=8, d=128, seq_lens=lens_8k,
+                                        max_blocks=512, window=4096, **int8)),
+        ("int8_d256", dict(heads=16, kv_heads=16, d=256, seq_lens=lens_1k,
+                           max_blocks=64, **int8)),
+        ("int8_nan_scales_garbage_tables", dict(heads=32, kv_heads=8, d=128,
+                                                seq_lens=lens_1k, max_blocks=64,
+                                                poison=True, **int8)),
     ]
-    results = {}
+    results, int8_results = {}, {}
     for name, kw in cases:
         window = kw.get("window")
-        inputs = make_decode_case(torch, gen, block_size=16, **kw)
-        r = measure_kernel(torch, tpa, *inputs, window, flush)
-        results[name] = r
+        *inputs, scales = make_decode_case(torch, gen, block_size=16, **kw)
+        r = measure_kernel(torch, tpa, *inputs, window, flush, scales=scales)
+        (int8_results if scales else results)[name] = r
         log(f"[kernel] {name}: max_abs_err {r['max_abs_err']:.3e} (tol "
-            f"{r['tol']:.3e}); kernel {r['ms']:.4f} ms, bound {r['bound_ms']:.4f} "
-            f"ms by {r['bound_by']}, plain {r['plain_ms']:.4f} ms, sdpa "
+            f"{r['tol']:.3e}), row rel {r['row_rel_err']:.3e}; kernel {r['ms']:.4f} "
+            f"ms, bound {r['bound_ms']:.4f} ms by {r['bound_by']}, plain "
+            f"{r['plain_ms']:.4f} ms, sdpa"
+            f"{' over the dequantized window' if scales else ''} "
             f"{r['library_ms']:.4f} ms")
         check(r["max_abs_err"] <= r["tol"],
               f"kernel disagrees with its plain version on {name}: "
               f"{r['max_abs_err']} > {r['tol']}")
-        del inputs
+        if inputs[0].dtype == bf16:
+            check(r["row_rel_err"] <= ROW_REL_TOL,
+                  f"kernel disagrees with its plain version on {name}: row rel "
+                  f"{r['row_rel_err']} > {ROW_REL_TOL}")
+        if name == "int8_llama2_7b":
+            planted_scale_fault(torch, tpa, *inputs[:5], scales)
+        del inputs, scales
     torch.cuda.empty_cache()
-    return results
+    return results, int8_results
 
 
 def phase_engine(torch):
@@ -362,7 +469,7 @@ def phase_engine(torch):
                                   max_tokens=max_tokens, seed=1000 + i))
         reqs.append((p, sp))
 
-    tpa.launches = 0  # the main path's count starts here
+    tpa.launches = tpa.launches_int8 = 0  # the main path's counts start here
     t0 = time.perf_counter()
     results = []
     for p, sp in reqs:
@@ -371,8 +478,9 @@ def phase_engine(torch):
         engine.step()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = tpa.launches  # ... and is read here
+    launches, launches_int8 = tpa.launches, tpa.launches_int8  # ... and are read here
     del ex.prefill, ex.decode
+    check(launches_int8 == 0, f"a bf16 pool launched the int8 kernel {launches_int8} times")
 
     stats = dict(engine.stats)
     for r, n in zip(results, lengths):
@@ -414,20 +522,29 @@ def phase_engine(torch):
         f"({decode_tokens} tokens in {decode_s:.3f} s, {perf['decode_step_ms']:.2f} "
         f"ms/step at up to {ec.max_seqs} slots)")
     log("[engine] perf " + json.dumps(perf))
-    return engine, params, launches
+    return engine, launches
 
 
-def phase_in_model(torch, engine, params, flush):
-    """One decode step's logits, kernel path against gather path, on a batch
-    of 8 freshly prefilled sequences; then the kernel against its plain
-    version on the engine's layer-0 pool and tables."""
+def phase_in_model(torch, engine, flush):
+    """One decode step's logits, kernel path against gather path (an int8
+    pool's window dequantized in float32), gated, on a batch of 8 freshly
+    prefilled sequences. On an int8 pool also against the same step on a
+    bf16 pool, printed only: that is quantization error, not a kernel fault.
+    Then the kernel against its plain version on the engine's layer-0 pool
+    and tables, timed."""
     import numpy as np
 
     from dlti_tpu_torch.models.interop import load_model
     from dlti_tpu_torch.ops import paged_attention as tpa
+    from dlti_tpu_torch.ops.kv_cache import init_paged_cache
     from dlti_tpu_torch.serving.sampling import SamplingParams
 
     cfg = engine.model_cfg
+    layer = engine.cache[0]
+    int8 = layer["k"].dtype == torch.int8
+    tag, kname = ("[int8-in-model]", "K4q") if int8 else ("[in-model]", "kernel")
+    # No slot may finish at its first token: the step below needs all 8.
+    engine.cfg = dataclasses.replace(engine.cfg, eos_token_id=-1)
     rng = np.random.default_rng(1)
     for n in [40, 77, 128, 129, 200, 255, 300, 511]:
         engine.submit(rng.integers(3, cfg.vocab_size, n).tolist(),
@@ -440,22 +557,47 @@ def phase_in_model(torch, engine, params, flush):
     pos = torch.tensor([[s.seq_len] for s in engine.slots], device=dev)
     tables = torch.tensor(engine._block_tables, device=dev)
     gather_model = load_model(dataclasses.replace(cfg, paged_attention_impl="gather"),
-                              params, dev)
+                              dict(engine.model.state_dict()), dev)
     with torch.no_grad():
+        if int8:  # the same prompts prefilled into a bf16 pool at the same blocks
+            bf16_cache = init_paged_cache(cfg.num_layers, engine.cfg.num_blocks,
+                                          engine.cfg.block_size, cfg.num_kv_heads,
+                                          cfg.resolved_head_dim, torch.bfloat16, device=dev)
+            prompts = [s.request.prompt_token_ids for s in engine.slots]
+            width = max(len(p) for p in prompts)
+            pre_ids = torch.zeros(8, width, dtype=torch.long, device=dev)
+            pre_pos = torch.full((8, width), -1, dtype=torch.long, device=dev)
+            for r, p in enumerate(prompts):
+                pre_ids[r, :len(p)] = torch.tensor(p, device=dev)
+                pre_pos[r, :len(p)] = torch.arange(len(p), device=dev)
+            engine.model(pre_ids, positions=pre_pos, cache=bf16_cache, block_tables=tables)
+            bf16_logits = engine.model(ids, positions=pos, cache=bf16_cache,
+                                       block_tables=tables)[:, 0]
+            del bf16_cache
         # Both write the same K/V rows at the same slots before attending.
         kernel_logits = engine.model(ids, positions=pos, cache=engine.cache,
                                      block_tables=tables)[:, 0]
         gather_logits = gather_model(ids, positions=pos, cache=engine.cache,
                                      block_tables=tables)[:, 0]
-    check(torch.isfinite(kernel_logits).all().item(), "nonfinite kernel-path logits")
+    del gather_model
+    torch.cuda.empty_cache()
+    check(torch.isfinite(kernel_logits).all().item(), f"nonfinite {kname}-path logits")
     scale = gather_logits.abs().max().item()
     diff = (kernel_logits - gather_logits).abs().max().item()
     agree = (kernel_logits.argmax(-1) == gather_logits.argmax(-1)).float().mean().item()
-    log(f"[in-model] decode logits kernel vs gather: max_abs_diff {diff:.4e}, "
+    log(f"{tag} decode logits {kname} vs gather path: max_abs_diff {diff:.4e}, "
         f"max |logit| {scale:.4e}, rel {diff / scale:.3e} (tol {LOGITS_REL_TOL:.1e}); "
         f"argmax agreement {agree:.3f}")
+    extra = {"logits_rel": diff / scale, "argmax_agree": agree}
+    if int8:
+        qdiff = (kernel_logits - bf16_logits).abs().max().item()
+        qagree = (kernel_logits.argmax(-1) == bf16_logits.argmax(-1)).float().mean().item()
+        log(f"{tag} int8 pool vs bf16 pool (quantization error, not gated): "
+            f"max_abs_diff {qdiff:.4e}, rel {qdiff / scale:.3e}, argmax agreement "
+            f"{qagree:.3f}")
+        extra.update(bf16_pool_rel=qdiff / scale, bf16_pool_argmax_agree=qagree)
     check(diff <= LOGITS_REL_TOL * scale,
-          f"kernel-path logits differ from gather-path by {diff} (scale {scale})")
+          f"{kname}-path logits differ from gather-path by {diff} (scale {scale})")
 
     # The kernel on the engine's own pool, tables and lengths (positions
     # seq_len + 1 after the step above wrote them), with a random query.
@@ -463,15 +605,18 @@ def phase_in_model(torch, engine, params, flush):
     q = torch.randn(8, 1, cfg.num_heads, cfg.resolved_head_dim, device=dev,
                     generator=gen).to(torch.bfloat16)
     lens = (pos[:, 0] + 1).to(torch.int32)
-    layer = engine.cache[0]
+    scales = {k: layer[k] for k in ("k_scale", "v_scale") if k in layer}
     r = measure_kernel(torch, tpa, q, layer["k"], layer["v"], tables, lens,
-                       cfg.sliding_window, flush)
-    log(f"[in-model] kernel on the engine's pool (seq_lens {lens.tolist()}): "
-        f"max_abs_err {r['max_abs_err']:.3e} (tol {r['tol']:.3e}); kernel "
+                       cfg.sliding_window, flush, scales=scales)
+    log(f"{tag} {kname} on the engine's pool (seq_lens {lens.tolist()}): "
+        f"max_abs_err {r['max_abs_err']:.3e} (tol {r['tol']:.3e}), row rel "
+        f"{r['row_rel_err']:.3e} (tol {ROW_REL_TOL:.3e}); kernel "
         f"{r['ms']:.4f} ms, bound {r['bound_ms']:.4f} ms by {r['bound_by']}, "
         f"plain {r['plain_ms']:.4f} ms, sdpa {r['library_ms']:.4f} ms")
-    check(r["max_abs_err"] <= r["tol"], "kernel disagrees on the engine's pool")
-    return r
+    check(r["max_abs_err"] <= r["tol"], f"{kname} disagrees on the engine's pool")
+    check(r["row_rel_err"] <= ROW_REL_TOL, f"{kname} disagrees on the engine's pool "
+          f"relative to its rows: {r['row_rel_err']}")
+    return {**r, **extra}
 
 
 def phase_profile(torch, engine):
@@ -967,6 +1112,307 @@ def phase_train_profile(torch, state, dataset):
             "groups": {g: t for g, (t, _) in groups.items()}}
 
 
+# ----------------------------------------------------------------------
+# Serving slice 3: the OpenAI server and serve CLI on an int8 KV pool (K4q)
+# ----------------------------------------------------------------------
+
+SERVE_ARGS = ["--random-init", "llama2_7b", "--tokenizer", "byte",
+              "--kv-cache-dtype", "int8", "--host", "127.0.0.1", "--port", "0"]
+
+
+def http_request(addr, method, path, body=None, timeout=600):
+    import http.client
+
+    conn = http.client.HTTPConnection(*addr, timeout=timeout)
+    try:
+        conn.request(method, path, json.dumps(body) if body is not None else None,
+                     {"Content-Type": "application/json"})
+        resp = conn.getresponse()
+        return resp.status, resp.read()
+    finally:
+        conn.close()
+
+
+def post_json(addr, path, body):
+    status, data = http_request(addr, "POST", path, body)
+    check(status == 200, f"POST {path} {body} answered {status}: {data[:300]!r}")
+    obj = json.loads(data)
+    for c in obj["choices"]:
+        check(c["finish_reason"] in ("length", "stop"),
+              f"POST {path}: finish_reason {c['finish_reason']!r}")
+    return obj
+
+
+def post_stream(addr, path, body):
+    """(deltas, final chunk) of an SSE completion; any error frame fails."""
+    status, raw = http_request(addr, "POST", path, {**body, "stream": True})
+    check(status == 200, f"stream {path} answered {status}")
+    events = [ln[len("data: "):] for ln in raw.decode().splitlines()
+              if ln.startswith("data: ")]
+    check(events and events[-1] == "[DONE]", "stream did not end with [DONE]")
+    chunks = [json.loads(e) for e in events[:-1]]
+    check(not any("error" in c for c in chunks), f"SSE error frame: {chunks[-1]}")
+    deltas = [c["choices"][0]["delta"].get("content", "") if "delta" in c["choices"][0]
+              else c["choices"][0].get("text", "") for c in chunks]
+    final = chunks[-1]
+    check(final["choices"][0]["finish_reason"] in ("length", "stop"),
+          f"stream finish_reason {final['choices'][0]['finish_reason']!r}")
+    return deltas, final
+
+
+def incremental_text(tok, ids):
+    """The text the server streams for these token ids: the suffix of the
+    running decode, token by token (a replacement character, once
+    streamed, is not taken back)."""
+    emitted = ""
+    for i in range(1, len(ids) + 1):
+        emitted += tok.decode(ids[:i])[len(emitted):]
+    return emitted
+
+
+def server_requests(seed=0):
+    """The phase's 12 requests: 6 greedy completions of 32 tokens (prompts
+    of 16-300 bytes), 2 streamed, 2 chat, 1 n=2 seeded, 1 with a stop."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    words = ["serve", "the", "model", "int8", "cache", "token", "decode", "page",
+             "block", "attention", "kernel", "of", "a", "query"]
+
+    def text(n):
+        out = ""
+        while len(out) < n:
+            out += str(rng.choice(words)) + " "
+        return out[:n]
+
+    lengths = [16, 300] + rng.integers(16, 301, 6).tolist()
+    greedy = dict(max_tokens=32, temperature=0.0, logprobs=True)
+    reqs = [("completion", "/v1/completions", {"prompt": text(n), **greedy})
+            for n in lengths[:6]]
+    reqs += [("stream", "/v1/completions", {"prompt": text(n), "max_tokens": 32,
+                                            "temperature": 0.0})
+             for n in lengths[6:8]]
+    reqs += [("chat", "/v1/chat/completions", {
+        "messages": [{"role": "system", "content": "Answer briefly."},
+                     {"role": "user", "content": text(n)}], **greedy})
+        for n in (40, 120)]
+    reqs.append(("n2", "/v1/completions", {"prompt": text(64), "n": 2, "seed": 7,
+                                           "max_tokens": 32, "temperature": 0.8,
+                                           "top_p": 0.95, "logprobs": True}))
+    reqs.append(("stop", "/v1/completions", {"prompt": text(90), "stop": ["e "],
+                                             **greedy}))
+    return reqs
+
+
+def phase_server(torch):
+    """llama2_7b from the serve CLI's own builder on an int8 pool with the
+    CLI's defaults, behind ``make_server`` on a free port: 12 concurrent
+    requests, then a greedy prompt twice and streamed, one at a time."""
+    import threading
+
+    from dlti_tpu_torch.cli import serve as cli
+    from dlti_tpu_torch.ops import flash_attention as tfa
+    from dlti_tpu_torch.ops import paged_attention as tpa
+    from dlti_tpu_torch.serving import make_server
+    from dlti_tpu_torch.serving.server import llama2_chat_prompt
+
+    args = cli.parse_args(SERVE_ARGS)
+    check((args.max_seqs, args.num_blocks, args.block_size, args.max_model_len)
+          == (8, 2048, 16, 2048), "the serve CLI's defaults changed")
+    t0 = time.perf_counter()
+    engine, tok, sc = cli.build(args)
+    torch.cuda.synchronize()
+    cfg = engine.model_cfg
+    pool_bytes = sum(t.numel() * t.element_size() for c in engine.cache for t in c.values())
+    scale_bytes = sum(c[k].numel() * 4 for c in engine.cache for k in ("k_scale", "v_scale"))
+    check(engine.cache[0]["k"].dtype == torch.int8, "the CLI did not build an int8 pool")
+    log(f"[server] {args.random_init} engine from the serve CLI builder in "
+        f"{time.perf_counter() - t0:.1f} s: int8 KV pool {pool_bytes / 1e9:.3f} GB "
+        f"({scale_bytes / 1e9:.3f} GB of it float32 scales; {args.num_blocks} blocks x "
+        f"{args.block_size} tokens x {cfg.num_layers} layers), device memory "
+        f"allocated {torch.cuda.memory_allocated() / 1e9:.2f} GB")
+
+    # Host time of each engine step on the stepper thread (a step ends by
+    # reading its tokens back, so the device work is inside it).
+    step_s = []
+    real_step = engine.step
+
+    def timed_step():
+        t = time.perf_counter()
+        try:
+            return real_step()
+        finally:
+            step_s.append(time.perf_counter() - t)
+
+    engine.step = timed_step
+    httpd, aeng = make_server(engine, tok, sc)
+    addr = ("127.0.0.1", httpd.server_address[1])
+    server = threading.Thread(target=httpd.serve_forever, daemon=True)
+    server.start()
+    try:
+        reqs = server_requests()
+        results = [None] * len(reqs)
+        errors = []
+
+        def run(i, kind, path, body):
+            try:
+                results[i] = (post_stream(addr, path, body) if kind == "stream"
+                              else post_json(addr, path, body))
+            except Exception as e:  # reported, and fails the phase below
+                errors.append(f"{kind} {i}: {type(e).__name__}: {e}")
+
+        # The main path's counts start here ...
+        tpa.launches = tpa.launches_int8 = 0
+        tfa.fwd_launches = tfa.dq_launches = tfa.dkv_launches = 0
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=run, args=(i, *r)) for i, r in enumerate(reqs)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        wall = time.perf_counter() - t0
+        check(not any(t.is_alive() for t in threads), "a request did not finish")
+        check(not errors, f"server requests failed: {errors}")
+
+        # One at a time: a greedy prompt twice, then streamed.
+        kind, path, body = reqs[0]
+        first = post_json(addr, path, body)
+        again = post_json(addr, path, body)
+        deltas, final = post_stream(addr, path, {k: v for k, v in body.items()
+                                                  if k != "logprobs"})
+        torch.cuda.synchronize()
+        launches_int8, launches_float = tpa.launches_int8, tpa.launches  # ... read here
+        flash = tfa.fwd_launches + tfa.dq_launches + tfa.dkv_launches
+        decode_steps = engine.stats["decode_steps"]
+
+        completion_tokens = 0
+        for (kind, path, body), res in zip(reqs, results):
+            if kind == "stream":
+                deltas_i, fin = res
+                usage = fin["usage"]
+                check(0 < usage["completion_tokens"] <= 32, f"stream usage {usage}")
+            else:
+                usage = res["usage"]
+                n_tok = sum(len(c["logprobs"]["tokens"]) for c in res["choices"])
+                check(usage["completion_tokens"] == n_tok,
+                      f"{kind}: usage {usage} but {n_tok} tokens")
+                check(all(len(c["logprobs"]["tokens"]) <= 32 for c in res["choices"]),
+                      f"{kind}: more than max_tokens")
+                check(len(res["choices"]) == body.get("n", 1), f"{kind}: choices")
+                if kind == "stop":
+                    check("e " not in res["choices"][0]["text"], "stop string returned")
+            prompt = (body["prompt"] if "prompt" in body
+                      else llama2_chat_prompt(body["messages"]))
+            check(usage["prompt_tokens"] == len(tok.encode(prompt, add_bos=True)),
+                  f"{kind}: prompt_tokens {usage['prompt_tokens']}")
+            check(usage["total_tokens"] == usage["prompt_tokens"] + usage["completion_tokens"],
+                  f"{kind}: total_tokens")
+            completion_tokens += usage["completion_tokens"]
+        ids = first["choices"][0]["logprobs"]["tokens"]
+        check(again["choices"][0]["logprobs"]["tokens"] == ids
+              and again["choices"][0]["text"] == first["choices"][0]["text"],
+              "the same greedy prompt gave two different completions")
+        check("".join(deltas) == incremental_text(tok, ids),
+              "streamed deltas do not concatenate to the completion's text")
+        check(final["usage"]["completion_tokens"] == len(ids), "streamed usage")
+
+        status, data = http_request(addr, "GET", "/health")
+        check(status == 200 and json.loads(data) == {"status": "ok"}, f"/health {status}")
+        status, metrics = http_request(addr, "GET", "/metrics")
+        metrics = metrics.decode()
+        n_req = [float(ln.split()[1]) for ln in metrics.splitlines()
+                 if ln.startswith("dlti_requests ")]
+        check(status == 200 and n_req and n_req[0] >= 12, f"/metrics dlti_requests {n_req}")
+        check("# TYPE dlti_request_ttft_seconds histogram" in metrics
+              and "dlti_request_ttft_seconds_count" in metrics, "no TTFT histogram")
+        stats = json.loads(http_request(addr, "GET", "/stats")[1])
+    finally:
+        httpd.shutdown()
+        aeng.shutdown()
+        httpd.server_close()
+        del engine.step
+
+    expected = cfg.num_layers * decode_steps
+    log(f"[server] 12 concurrent requests in {wall:.2f} s, then 3 one at a time; decode "
+        f"steps {decode_steps}; K4q launches {launches_int8} (expected {cfg.num_layers} "
+        f"layers x {decode_steps} steps = {expected}), float K4 launches {launches_float}")
+    check(launches_int8 == expected, f"K4q launches {launches_int8} != {expected}")
+    check(launches_float == 0, f"the float K4 ran {launches_float} times on an int8 pool")
+    check(flash == 0, f"serving launched the flash kernels {flash} times")
+    ttft, tpot = stats["request_ttft_seconds"], stats["request_tpot_seconds"]
+    perf = {"requests": 12, "wall_s": wall, "requests_per_s": 12 / wall,
+            "completion_tokens": completion_tokens,
+            "output_tok_s": completion_tokens / wall,
+            "ttft_p50_s": ttft["p50"], "ttft_p99_s": ttft["p99"],
+            "tpot_mean_s": tpot["mean"], "decode_steps": decode_steps,
+            "engine_steps": len(step_s), "step_ms_p50": 1e3 * sorted(step_s)[len(step_s) // 2],
+            "step_ms_mean": 1e3 * sum(step_s) / len(step_s),
+            "kv_pool_bytes": pool_bytes, "kv_scale_bytes": scale_bytes,
+            "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+    log(f"[server] {perf['requests_per_s']:.3f} requests/s, {perf['output_tok_s']:.1f} "
+        f"output tok/s ({completion_tokens} tokens); TTFT p50 {ttft['p50']:.4f} s, p99 "
+        f"{ttft['p99']:.4f} s (/stats, bucket-interpolated); mean TPOT "
+        f"{1e3 * tpot['mean']:.2f} ms; engine step on the stepper thread p50 "
+        f"{perf['step_ms_p50']:.2f} ms, mean {perf['step_ms_mean']:.2f} ms over "
+        f"{len(step_s)} steps")
+    log("[server] perf " + json.dumps(perf))
+    return engine, launches_int8, perf
+
+
+def phase_serve_cli(torch):
+    """The entry point itself: ``python -m dlti_tpu_torch.cli.serve`` on the
+    card (llama_tiny, int8 pool, a free port) answers /health and one
+    completion, and exits 0 on SIGTERM."""
+    import os
+    import queue
+    import re
+    import signal
+    import threading
+
+    cmd = [sys.executable, "-m", "dlti_tpu_torch.cli.serve", "--random-init",
+           "llama_tiny", "--tokenizer", "byte", "--kv-cache-dtype", "int8",
+           "--host", "127.0.0.1", "--port", "0"]
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    lines: "queue.Queue" = queue.Queue()
+    reader = threading.Thread(target=lambda: [lines.put(ln) for ln in proc.stdout],
+                              daemon=True)
+    reader.start()
+    seen, port = [], None
+    try:
+        deadline = time.monotonic() + 240
+        while port is None and time.monotonic() < deadline:
+            try:
+                line = lines.get(timeout=1.0)
+            except queue.Empty:
+                check(proc.poll() is None, "the serve CLI exited early:\n" + "".join(seen))
+                continue
+            seen.append(line)
+            m = re.search(r"serving on http://127\.0\.0\.1:(\d+)", line)
+            port = int(m.group(1)) if m else None
+        check(port is not None, "the serve CLI never printed its port:\n" + "".join(seen))
+        check(any("on cuda" in ln for ln in seen), "the serve CLI did not run on the card")
+        addr = ("127.0.0.1", port)
+        status, data = http_request(addr, "GET", "/health", timeout=60)
+        check(status == 200, f"CLI /health answered {status}")
+        out = post_json(addr, "/v1/completions", {"prompt": "hello", "max_tokens": 8,
+                                                  "temperature": 0.0})
+        check(out["usage"]["completion_tokens"] > 0, f"CLI completion {out}")
+        proc.send_signal(signal.SIGTERM)
+        rc = proc.wait(timeout=60)
+        check(rc == 0, f"the serve CLI exited {rc} on SIGTERM:\n" + "".join(seen[-20:]))
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=30)
+        reader.join(timeout=10)
+        proc.stdout.close()
+    log(f"[serve-cli] {' '.join(cmd[1:])}: port {port}, /health 200, one completion "
+        f"200 ({out['usage']}), exit 0 on SIGTERM; {time.perf_counter() - t0:.1f} s")
+
+
 def main() -> int:
     try:
         import torch
@@ -985,19 +1431,29 @@ def main() -> int:
         phase_card_and_build(torch)
         # 256 MB written before each timed launch: more than the 50 MB L2.
         flush = torch.empty(64 << 20, dtype=torch.float32, device="cuda")
-        cases = phase_kernel_cases(torch, flush)
-        engine, params, launches = phase_engine(torch)
-        main_path = phase_in_model(torch, engine, params, flush)
+        cases, int8_cases = phase_kernel_cases(torch, flush)
+        engine, launches = phase_engine(torch)
+        main_path = phase_in_model(torch, engine, flush)
         phase_profile(torch, engine)
         # The serving phases hold ~23 GB (weights and KV pool): release them
         # before the training phases build their own llama2_7b.
-        del engine, params
+        del engine
         gc.collect()
         torch.cuda.empty_cache()
         flash = phase_flash_cases(torch, flush)
         state, dataset, lora, flash_launches, train_perf = phase_training(torch)
         paths = phase_train_paths(torch, state, dataset, lora)
         phase_train_profile(torch, state, dataset)
+        # The trainer holds ~16 GB: release it before the int8 server's llama2_7b.
+        del state, dataset
+        gc.collect()
+        torch.cuda.empty_cache()
+        engine, int8_launches, server_perf = phase_server(torch)
+        int8_main = phase_in_model(torch, engine, flush)
+        del engine
+        gc.collect()
+        torch.cuda.empty_cache()
+        phase_serve_cli(torch)
     except CheckFailed as e:
         return fail(str(e))
 
@@ -1015,6 +1471,22 @@ def main() -> int:
         "bound_by": main_path["bound_by"],
         "library_ms": main_path["library_ms"],
     }]
+    # K4q: times and bound at the int8 engine's decode state (phase 11); the
+    # error is the worst over phase 2's int8 cases and that state.
+    kernels.append({
+        "name": "paged_decode_attention_int8",
+        "route": "cuda",
+        "source": "dlti_tpu_torch/csrc/paged_attention.cu",
+        "replaces": KERNEL_REPLACES + " (quantized=True)",
+        "launches": int8_launches,
+        "max_abs_err": max([r["max_abs_err"] for r in int8_cases.values()]
+                           + [int8_main["max_abs_err"]]),
+        "ms": int8_main["ms"],
+        "plain_ms": int8_main["plain_ms"],
+        "bound_ms": int8_main["bound_ms"],
+        "bound_by": int8_main["bound_by"],
+        "library_ms": int8_main["library_ms"],
+    })
     # K1-K3: times and bound at the training path's shape (llama2_7b,
     # b 4, s 512, bf16, causal); the error is the worst over every case.
     at = flash["llama2_7b_train"]
@@ -1034,6 +1506,7 @@ def main() -> int:
         })
     log("[train] summary " + json.dumps({**{k: train_perf[k] for k in (
         "step_ms", "tokens_per_s", "mfu_percent", "peak_memory_gb")}, **paths}))
+    log("[server] summary " + json.dumps(server_perf))
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

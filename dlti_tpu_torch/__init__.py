@@ -9,8 +9,10 @@ only — never ``jax`` and nothing of ``dlti_tpu``.
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
 without a card and without an explicit device they raise.
 
-Port so far: the paged-KV serving path (``serving.engine.InferenceEngine``)
-with the paged decode attention as a hand-written CUDA kernel
+Port so far: the paged-KV serving path (``serving.engine.InferenceEngine``
+on float32, bfloat16 or int8 KV pools, behind the OpenAI server
+``serving.server``, CLI ``python -m dlti_tpu_torch.cli.serve``) with the
+paged decode attention, float and int8, as a hand-written CUDA kernel
 (``ops.paged_attention``, source in ``csrc/paged_attention.cu``), and
 single-device LoRA training (``training.Trainer``, CLI
 ``python -m dlti_tpu_torch.cli.train``) with flash attention forward and

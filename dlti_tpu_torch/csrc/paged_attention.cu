@@ -1,13 +1,16 @@
 // Paged decode attention for Hopper (sm_90a), hand-written CUDA C++.
 //
 // Replaces the TPU kernel dlti_tpu/ops/pallas/paged_attention.py:_decode_kernel
-// (launched by paged_decode_attention, pl.pallas_call at :193): one-token
-// attention of every sequence's query over its K/V rows, read in place from
-// the paged pool through the block table.
+// (launched by paged_decode_attention, pl.pallas_call at :193), both of its
+// programs: float pools, and int8 pools (quantized=True) whose every
+// (token, kv head) row carries a float32 scale. One-token attention of every
+// sequence's query over its K/V rows, read in place from the paged pool
+// through the block table.
 //
 // What bounds it: HBM bytes. Each sequence reads the K and V rows of its live
-// tokens once, plus q and the output; per token and head that is 2*d loads
-// against 4*d flops, far below the card's ~295 flop/byte bf16 ridge.
+// tokens once (plus their two float32 scales on an int8 pool), q and the
+// output; per token and head that is 2*d loads against 4*d flops, far below
+// the card's ~295 flop/byte bf16 ridge.
 //
 // Design (the simple, correct first version):
 // * One thread block per (batch row, kv head). The TPU grid's carried
@@ -18,16 +21,23 @@
 //   that kv head exactly once, with 16-byte loads, and shares it across the
 //   whole GQA group: K/V bytes move once per kv head, never once per query
 //   head.
+// * int8 pools: each row is dequantized at load, into the same fp32 shared
+//   tile, as int8 * its row scale. The TPU kernel folds the scales into the
+//   math instead (s *= k_scale after q.k, p *= v_scale before p.v, l summing
+//   the unscaled p); both compute softmax(q.(k*ks)) . (v*vs), and
+//   dequantizing at load keeps one score/softmax/PV path for every pool
+//   type. No dequantized row goes back to device memory.
 // * The physical block of token t is block_tables[b, t / block_size],
 //   clamped to the pool like the reference's index map. Only tokens in
 //   [max(0, seq_len - window), seq_len) are visited, so blocks past seq_len,
-//   blocks wholly outside the window, and garbage table entries there are
-//   never read; the ragged tail is cut by position.
+//   blocks wholly outside the window, garbage table entries there, and the
+//   scales of rows never written are never read; the ragged tail is cut by
+//   position.
 // * Online softmax with m, l and acc in fp32; output in q's dtype.
 //   seq_len == 0 visits nothing and writes zeros.
 //
 // Later work (not here): TMA/cp.async double buffering, split-K over long
-// sequences to fill 132 SMs at small batch, int8 pools with folded scales.
+// sequences to fill 132 SMs at small batch, dp4a / int8 mma on int8 pools.
 //
 // Built by dlti_tpu_torch/ops/_build.py:
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
@@ -38,6 +48,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace {
 
 constexpr int kThreads = 128;
@@ -46,6 +58,7 @@ constexpr int kTile = 32;  // tokens per tile: one lane per token in softmax
 
 __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float to_float(int8_t x) { return static_cast<float>(x); }
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2bfloat16(x); }
 
@@ -54,6 +67,8 @@ __global__ void __launch_bounds__(kThreads)
 paged_decode_kernel(const TQ* __restrict__ q,             // (B, H, D)
                     const TKV* __restrict__ k_pool,       // (NB, BS, KVH, D)
                     const TKV* __restrict__ v_pool,       // (NB, BS, KVH, D)
+                    const float* __restrict__ k_scale,    // (NB, BS, KVH), int8 pools
+                    const float* __restrict__ v_scale,    // (NB, BS, KVH), int8 pools
                     const int32_t* __restrict__ block_tables,  // (B, MB)
                     const int32_t* __restrict__ seq_lens,      // (B,)
                     TQ* __restrict__ out,                 // (B, H, D)
@@ -93,9 +108,9 @@ paged_decode_kernel(const TQ* __restrict__ q,             // (B, H, D)
   __syncthreads();
 
   const int32_t* bt = block_tables + (size_t)b * max_blocks;
-  const size_t token_stride = (size_t)kv_heads * D;  // pool elements per token row
   constexpr int kVec = 16 / sizeof(TKV);            // elements per 16-byte load
   constexpr int kChunks = D / kVec;                 // 16-byte loads per token
+  constexpr bool kQuant = std::is_same<TKV, int8_t>::value;
 
   for (int t0 = start; t0 < end; t0 += kTile) {
     const int n = min(kTile, end - t0);
@@ -107,16 +122,21 @@ paged_decode_kernel(const TQ* __restrict__ q,             // (B, H, D)
       const int tok = t0 + t;
       int phys = bt[tok / block_size];
       phys = min(max(phys, 0), num_blocks - 1);
-      const size_t base = ((size_t)phys * block_size + tok % block_size) * token_stride
-                          + (size_t)g * D + off;
+      const size_t row = ((size_t)phys * block_size + tok % block_size) * kv_heads + g;
+      const size_t base = row * D + off;
       const uint4 kraw = *reinterpret_cast<const uint4*>(k_pool + base);
       const uint4 vraw = *reinterpret_cast<const uint4*>(v_pool + base);
       const TKV* kv = reinterpret_cast<const TKV*>(&kraw);
       const TKV* vv = reinterpret_cast<const TKV*>(&vraw);
+      float ks = 1.f, vs = 1.f;
+      if constexpr (kQuant) {  // this live row's scales, read with its payload
+        ks = k_scale[row];
+        vs = v_scale[row];
+      }
 #pragma unroll
       for (int i = 0; i < kVec; ++i) {
-        k_s[t * D + off + i] = to_float(kv[i]);
-        v_s[t * D + off + i] = to_float(vv[i]);
+        k_s[t * D + off + i] = kQuant ? to_float(kv[i]) * ks : to_float(kv[i]);
+        v_s[t * D + off + i] = kQuant ? to_float(vv[i]) * vs : to_float(vv[i]);
       }
     }
     __syncthreads();
@@ -185,6 +205,7 @@ size_t smem_bytes(int hpg, int d) {
 
 template <typename TQ, typename TKV, int D>
 cudaError_t launch(const void* q, const void* k_pool, const void* v_pool,
+                   const void* k_scale, const void* v_scale,
                    const void* block_tables, const void* seq_lens, void* out,
                    int batch, int kv_heads, int hpg, int num_blocks,
                    int block_size, int max_blocks, int window, float scale,
@@ -199,7 +220,8 @@ cudaError_t launch(const void* q, const void* k_pool, const void* v_pool,
   dim3 grid(kv_heads, batch);
   kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const TQ*>(q), static_cast<const TKV*>(k_pool),
-      static_cast<const TKV*>(v_pool), static_cast<const int32_t*>(block_tables),
+      static_cast<const TKV*>(v_pool), static_cast<const float*>(k_scale),
+      static_cast<const float*>(v_scale), static_cast<const int32_t*>(block_tables),
       static_cast<const int32_t*>(seq_lens), static_cast<TQ*>(out), num_blocks,
       block_size, kv_heads, hpg, max_blocks, window, scale);
   return cudaGetLastError();
@@ -207,15 +229,19 @@ cudaError_t launch(const void* q, const void* k_pool, const void* v_pool,
 
 template <typename TQ, typename TKV>
 cudaError_t dispatch_d(int head_dim, const void* q, const void* k_pool,
-                       const void* v_pool, const void* block_tables,
+                       const void* v_pool, const void* k_scale,
+                       const void* v_scale, const void* block_tables,
                        const void* seq_lens, void* out, int batch, int kv_heads,
                        int hpg, int num_blocks, int block_size, int max_blocks,
                        int window, float scale, cudaStream_t stream) {
 #define DLTI_LAUNCH(D)                                                        \
-  return launch<TQ, TKV, D>(q, k_pool, v_pool, block_tables, seq_lens, out,   \
+  return launch<TQ, TKV, D>(q, k_pool, v_pool, k_scale, v_scale,             \
+                            block_tables, seq_lens, out,                      \
                             batch, kv_heads, hpg, num_blocks, block_size,     \
                             max_blocks, window, scale, stream)
   switch (head_dim) {
+    case 16: DLTI_LAUNCH(16);
+    case 32: DLTI_LAUNCH(32);
     case 64: DLTI_LAUNCH(64);
     case 128: DLTI_LAUNCH(128);
     case 256: DLTI_LAUNCH(256);
@@ -226,26 +252,33 @@ cudaError_t dispatch_d(int head_dim, const void* q, const void* k_pool,
 
 }  // namespace
 
-// dtype codes: 0 = float32, 1 = bfloat16.
+// dtype codes: 0 = float32, 1 = bfloat16, 2 = int8 (pools only; k_scale and
+// v_scale must then point at the (NB, BS, KVH) float32 scales, and are
+// ignored, null, for float pools).
 extern "C" int dlti_paged_decode_attention(
-    const void* q, const void* k_pool, const void* v_pool,
-    const void* block_tables, const void* seq_lens, void* out, int batch,
+    const void* q, const void* k_pool, const void* v_pool, const void* k_scale,
+    const void* v_scale, const void* block_tables, const void* seq_lens,
+    void* out, int batch,
     int num_heads, int kv_heads, int head_dim, int num_blocks, int block_size,
     int max_blocks, int window, float scale, int q_dtype, int kv_dtype,
     void* stream) {
   if (batch <= 0 || kv_heads <= 0 || num_heads % kv_heads != 0 ||
       num_blocks <= 0 || block_size <= 0 || max_blocks <= 0)
     return (int)cudaErrorInvalidValue;
+  if (kv_dtype == 2 && (k_scale == nullptr || v_scale == nullptr))
+    return (int)cudaErrorInvalidValue;
   const int hpg = num_heads / kv_heads;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define DLTI_ARGS                                                              \
-  head_dim, q, k_pool, v_pool, block_tables, seq_lens, out, batch, kv_heads,   \
-      hpg, num_blocks, block_size, max_blocks, window, scale, s
+  head_dim, q, k_pool, v_pool, k_scale, v_scale, block_tables, seq_lens, out,  \
+      batch, kv_heads, hpg, num_blocks, block_size, max_blocks, window, scale, s
   if (q_dtype == 0 && kv_dtype == 0) return (int)dispatch_d<float, float>(DLTI_ARGS);
   if (q_dtype == 0 && kv_dtype == 1) return (int)dispatch_d<float, __nv_bfloat16>(DLTI_ARGS);
   if (q_dtype == 1 && kv_dtype == 0) return (int)dispatch_d<__nv_bfloat16, float>(DLTI_ARGS);
   if (q_dtype == 1 && kv_dtype == 1)
     return (int)dispatch_d<__nv_bfloat16, __nv_bfloat16>(DLTI_ARGS);
+  if (q_dtype == 0 && kv_dtype == 2) return (int)dispatch_d<float, int8_t>(DLTI_ARGS);
+  if (q_dtype == 1 && kv_dtype == 2) return (int)dispatch_d<__nv_bfloat16, int8_t>(DLTI_ARGS);
 #undef DLTI_ARGS
   return (int)cudaErrorInvalidValue;
 }

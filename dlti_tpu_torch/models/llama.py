@@ -6,9 +6,9 @@ untied head. Parameter names and layouts are the reference's
 (``model.layers.{i}.attn.q_proj.kernel`` is ``(in, out)``), so
 ``models.interop.params_from_jax`` is a rename.
 
-Attention branches ported here: the paged cache (prefill through
-``paged_gather`` + ``reference_attention``; one-token decode through the
-paged decode kernel) and the no-cache (training) path through
+Attention branches ported here: the paged cache, float or int8 (prefill
+through ``paged_gather`` + ``reference_attention``; one-token decode
+through the paged decode kernel, given an int8 pool's scales) and the no-cache (training) path through
 ``multi_head_attention`` with ``cfg.attention_impl`` (flash attention's CUDA
 kernels on the card). In training each block runs under
 ``torch.utils.checkpoint`` when ``cfg.remat`` (policy ``nothing_saveable``,
@@ -140,6 +140,7 @@ class LlamaAttention(nn.Module):
                     q, cache["k"], cache["v"],
                     block_tables.to(torch.int32).contiguous(),
                     (positions[:, 0] + 1).to(torch.int32),
+                    k_scale=cache.get("k_scale"), v_scale=cache.get("v_scale"),
                     window=cfg.sliding_window,
                 ).to(q.dtype)
             else:

@@ -1,15 +1,18 @@
 """Paged decode attention: the port of the TPU kernel
 ``dlti_tpu/ops/pallas/paged_attention.py`` (``_decode_kernel``, launched by
-``paged_decode_attention``).
+``paged_decode_attention``), for float pools and for int8 pools with
+per-(token, kv head) float32 scales (the kernel's ``quantized`` program).
 
 * :func:`paged_decode_attention_reference` — the plain PyTorch version:
-  gather each sequence's window by block table, mask by position (and
-  window), float32 softmax, zeros for ``seq_len == 0``.
+  gather each sequence's window by block table (dequantized in float32 on
+  an int8 pool), zero the rows outside the live range, mask by position
+  (and window), float32 softmax, zeros for ``seq_len == 0``.
 * :func:`paged_decode_attention` — the wrapper. A CPU tensor takes the
   plain version; a CUDA tensor launches the hand-written kernel
   ``csrc/paged_attention.cu`` (built on first use by ``ops._build``) or
   raises. There is no fallback from the kernel to the plain version.
-* ``launches`` — how many times the wrapper launched the kernel.
+* ``launches`` / ``launches_int8`` — how many times the wrapper launched
+  the kernel on a float pool / on an int8 pool.
 """
 
 from __future__ import annotations
@@ -21,11 +24,24 @@ import torch
 
 from dlti_tpu_torch.ops import _build
 
-KERNEL_HEAD_DIMS = (64, 128, 256)
+KERNEL_HEAD_DIMS = (16, 32, 64, 128, 256)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_INT8_CODE = 2  # pools only
 
-# Kernel launches made by paged_decode_attention (plain CPU calls excluded).
+# Kernel launches made by paged_decode_attention (plain CPU calls excluded):
+# on float pools, and on int8 pools.
 launches = 0
+launches_int8 = 0
+
+
+def _check_scales(k_pool, k_scale, v_scale) -> None:
+    """The reference's rule: scales are required iff the pools are int8."""
+    if k_pool.dtype == torch.int8:
+        if k_scale is None or v_scale is None:
+            raise ValueError("int8 KV pools require k_scale/v_scale")
+    elif k_scale is not None or v_scale is not None:
+        raise ValueError(f"k_scale/v_scale belong to int8 pools, not a "
+                         f"{k_pool.dtype} pool")
 
 
 def paged_decode_attention_reference(
@@ -35,16 +51,21 @@ def paged_decode_attention_reference(
     block_tables: torch.Tensor,
     seq_lens: torch.Tensor,
     *,
+    k_scale: Optional[torch.Tensor] = None,
+    v_scale: Optional[torch.Tensor] = None,
     window: Optional[int] = None,
 ) -> torch.Tensor:
-    """What the kernel computes, in plain PyTorch (float pools).
+    """What the kernel computes, in plain PyTorch.
 
-    q: (batch, 1, heads, d); pools: (num_blocks, block_size, kv_heads, d);
-    block_tables: (batch, max_blocks), entries clamped into the pool;
-    seq_lens: (batch,) = query position + 1. Returns (batch, 1, heads, d)
-    in q's dtype. Rows outside ``[seq_len - window, seq_len)`` neither
-    score nor contribute values, so stale pool rows cannot leak.
+    q: (batch, 1, heads, d); pools: (num_blocks, block_size, kv_heads, d),
+    float, or int8 with ``k_scale``/``v_scale`` (num_blocks, block_size,
+    kv_heads) float32; block_tables: (batch, max_blocks), entries clamped
+    into the pool; seq_lens: (batch,) = query position + 1. Returns
+    (batch, 1, heads, d) in q's dtype. Rows outside ``[seq_len - window,
+    seq_len)`` are zeroed before any product, so stale pool rows (or NaN
+    scales of rows never written) cannot leak.
     """
+    _check_scales(k_pool, k_scale, v_scale)
     batch, _, num_heads, d = q.shape
     nb, bs, kvh, _ = k_pool.shape
     hpg = num_heads // kvh
@@ -53,11 +74,17 @@ def paged_decode_attention_reference(
     max_len = bt.shape[1] * bs
     k = k_pool[bt].reshape(batch, max_len, kvh, d).to(f32)
     v = v_pool[bt].reshape(batch, max_len, kvh, d).to(f32)
+    if k_pool.dtype == torch.int8:
+        k = k * k_scale[bt].reshape(batch, max_len, kvh, 1)
+        v = v * v_scale[bt].reshape(batch, max_len, kvh, 1)
     pos = torch.arange(max_len, device=q.device)[None, :]
     lens = seq_lens.long()[:, None]
     valid = pos < lens
     if window:
         valid &= pos >= lens - window                       # (b, L)
+    live = valid[:, :, None, None]
+    k = torch.where(live, k, torch.zeros_like(k))
+    v = torch.where(live, v, torch.zeros_like(v))
     qg = q[:, 0].to(f32).reshape(batch, kvh, hpg, d)
     s = torch.einsum("bghd,blgd->bghl", qg, k) * d ** -0.5
     s = s.masked_fill(~valid[:, None, None, :], float("-inf"))
@@ -65,14 +92,16 @@ def paged_decode_attention_reference(
     m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
     p = torch.exp(s - m)                                    # 0 where masked
     l = p.sum(dim=-1, keepdim=True)
-    v = torch.where(valid[:, :, None, None], v, torch.zeros_like(v))
     o = torch.einsum("bghl,blgd->bghd", p, v) / torch.where(l > 0, l, 1.0)
     return o.reshape(batch, 1, num_heads, d).to(q.dtype)
 
 
-def _check_kernel_inputs(q, k_pool, v_pool, block_tables, seq_lens):
+def _check_kernel_inputs(q, k_pool, v_pool, block_tables, seq_lens,
+                         k_scale=None, v_scale=None):
     tensors = {"q": q, "k_pool": k_pool, "v_pool": v_pool,
                "block_tables": block_tables, "seq_lens": seq_lens}
+    if k_scale is not None:
+        tensors.update(k_scale=k_scale, v_scale=v_scale)
     for name, t in tensors.items():
         if t.device != q.device:
             raise ValueError(f"{name} is on {t.device}, q on {q.device}")
@@ -90,10 +119,16 @@ def _check_kernel_inputs(q, k_pool, v_pool, block_tables, seq_lens):
     if d not in KERNEL_HEAD_DIMS:
         raise ValueError(f"the kernel is built for head_dim in "
                          f"{KERNEL_HEAD_DIMS}, got {d}")
-    if q.dtype not in _DTYPE_CODES or k_pool.dtype not in _DTYPE_CODES \
-            or v_pool.dtype != k_pool.dtype:
+    if q.dtype not in _DTYPE_CODES or v_pool.dtype != k_pool.dtype or not (
+            k_pool.dtype in _DTYPE_CODES or k_pool.dtype == torch.int8):
         raise ValueError(f"unsupported dtypes q={q.dtype} pool={k_pool.dtype}"
-                         f"/{v_pool.dtype}; the kernel takes float32/bfloat16")
+                         f"/{v_pool.dtype}; the kernel takes float32/bfloat16 "
+                         f"queries and float32/bfloat16/int8 pools")
+    if k_scale is not None:
+        for name, t in (("k_scale", k_scale), ("v_scale", v_scale)):
+            if t.dtype != torch.float32 or tuple(t.shape) != (nb, bs, kvh):
+                raise ValueError(f"{name} must be float32 {(nb, bs, kvh)}, got "
+                                 f"{t.dtype} {tuple(t.shape)}")
     if block_tables.dtype != torch.int32 or seq_lens.dtype != torch.int32:
         raise ValueError("block_tables and seq_lens must be int32")
     if block_tables.dim() != 2 or block_tables.shape[0] != batch \
@@ -108,7 +143,7 @@ def _kernel_library() -> ctypes.CDLL:
     lib = _build.load_library("paged_attention")
     fn = lib.dlti_paged_decode_attention
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 8
+        fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 8
                        + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
                           ctypes.c_void_p])
         fn.restype = ctypes.c_int
@@ -137,23 +172,26 @@ def paged_decode_attention(
     d)``; block_tables ``(batch, max_blocks)`` int32 (entries past a
     sequence's length may hold anything); seq_lens ``(batch,)`` int32 =
     query position + 1; ``window`` keeps the last ``window`` positions.
-    Returns ``(batch, 1, heads, d)`` in q's dtype.
+    ``k_scale``/``v_scale`` ``(num_blocks, block_size, kv_heads)`` float32
+    are an int8 pool's row scales: required iff the pools are int8
+    (``ValueError`` otherwise). Returns ``(batch, 1, heads, d)`` in q's
+    dtype.
 
     A CPU tensor goes to :func:`paged_decode_attention_reference`; a CUDA
-    tensor launches the kernel or raises. int8 pools (``k_scale`` /
-    ``v_scale``) are not ported yet.
+    tensor launches the kernel or raises.
     """
-    global launches
-    if k_scale is not None or v_scale is not None or k_pool.dtype == torch.int8:
-        raise NotImplementedError(
-            "int8 KV pools are not ported yet (see ROADMAP.md, 'int8 KV')")
+    global launches, launches_int8
+    _check_scales(k_pool, k_scale, v_scale)
     if q.device.type == "cpu":
         return paged_decode_attention_reference(
-            q, k_pool, v_pool, block_tables, seq_lens, window=window)
+            q, k_pool, v_pool, block_tables, seq_lens, k_scale=k_scale,
+            v_scale=v_scale, window=window)
     if q.device.type != "cuda":
         raise ValueError(f"paged_decode_attention runs on cpu or cuda, not "
                          f"{q.device}")
-    _check_kernel_inputs(q, k_pool, v_pool, block_tables, seq_lens)
+    _check_kernel_inputs(q, k_pool, v_pool, block_tables, seq_lens,
+                         k_scale, v_scale)
+    quantized = k_pool.dtype == torch.int8
     batch, _, num_heads, d = q.shape
     nb, bs, kvh, _ = k_pool.shape
     lib = _kernel_library()
@@ -168,12 +206,17 @@ def paged_decode_attention(
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.dlti_paged_decode_attention(
             q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+            k_scale.data_ptr() if quantized else None,
+            v_scale.data_ptr() if quantized else None,
             block_tables.data_ptr(), seq_lens.data_ptr(), out.data_ptr(),
             batch, num_heads, kvh, d, nb, bs, block_tables.shape[1],
             int(window or 0), d ** -0.5, _DTYPE_CODES[q.dtype],
-            _DTYPE_CODES[k_pool.dtype], stream)
+            _INT8_CODE if quantized else _DTYPE_CODES[k_pool.dtype], stream)
     if err != 0:
         raise RuntimeError("paged decode kernel launch failed: "
                            + lib.dlti_cuda_error_string(err).decode())
-    launches += 1
+    if quantized:
+        launches_int8 += 1
+    else:
+        launches += 1
     return out

@@ -1,5 +1,5 @@
-"""Paged-KV serving: block allocator, sampling and the continuous-batching
-engine."""
+"""Paged-KV serving: block allocator, sampling, the continuous-batching
+engine and the OpenAI-compatible HTTP server."""
 
 from dlti_tpu_torch.serving.block_manager import BlockManager  # noqa: F401
 from dlti_tpu_torch.serving.sampling import SamplingParams, sample_tokens  # noqa: F401
@@ -9,4 +9,9 @@ from dlti_tpu_torch.serving.engine import (  # noqa: F401
     InferenceEngine,
     NumericFault,
     Request,
+)
+from dlti_tpu_torch.serving.server import (  # noqa: F401
+    ServerConfig,
+    make_server,
+    serve,
 )

@@ -16,11 +16,18 @@
 * **Sampling** is per-slot data (``serving.sampling``). A request's draws
   come from generators seeded by (its seed, tokens generated so far), so a
   seeded stream does not depend on batch company or preemption.
+* **What the server needs**: a request's ``cancel_requested`` flag (set
+  from any thread; a queued request finishes without a slot, a running one
+  at its next token), the ``finished`` deque the server drains,
+  ``abort_all`` after a faulted step, and the request-latency histograms
+  (``telemetry.lifecycle``).
+* **KV pool dtypes**: ``cache_dtype`` ``"bfloat16"``, ``"float32"`` or
+  ``"int8"`` (per-row scales; decode through the paged kernel's int8 mode).
 
 Not ported yet (ROADMAP.md): multi-step and speculative decode, prefix
 caching and tiers, chunked and ragged prefill, the decode-state cache, the
-multi-LoRA pool, int8 weights and int8 KV, tensor parallelism, the memory
-ledger and telemetry.
+multi-LoRA pool, int8 weights, float16 KV pools, tensor parallelism, the
+memory ledger, tracer spans and critical-path attribution.
 """
 
 from __future__ import annotations
@@ -40,6 +47,7 @@ from dlti_tpu_torch.models.interop import load_model
 from dlti_tpu_torch.ops.kv_cache import init_paged_cache
 from dlti_tpu_torch.serving.block_manager import BlockManager
 from dlti_tpu_torch.serving.sampling import SamplingParams, sample_tokens
+from dlti_tpu_torch.telemetry.lifecycle import RequestTelemetry
 from dlti_tpu_torch.utils.device import resolve_device, resolve_dtype
 
 _MASK64 = (1 << 64) - 1
@@ -63,7 +71,7 @@ class EngineConfig:
     num_blocks: int = 256          # physical pool size (per layer)
     max_model_len: int = 512       # max prompt+generation length per request
     prefill_buckets: Sequence[int] = ()  # default: powers of 2 up to max_model_len
-    cache_dtype: str = "bfloat16"
+    cache_dtype: str = "bfloat16"  # "bfloat16" | "float32" | "int8"
     eos_token_id: int = 2          # Llama-2 </s>
     # Raise NumericFault before appending any token of a round whose
     # logprobs are not finite (NaN/inf logits).
@@ -104,6 +112,12 @@ class Request:
     finish_time: Optional[float] = None
     finish_reason: Optional[str] = None
     num_preemptions: int = 0
+    # When the request was first admitted into a slot (None while queued);
+    # kept across preemption so the queue-time histogram sees the first wait.
+    admitted_time: Optional[float] = None
+    # Early cancel (stop string, client disconnect, timeout): set from any
+    # thread, consumed by the engine at admission or at the next token.
+    cancel_requested: bool = False
 
     @property
     def done(self) -> bool:
@@ -206,6 +220,9 @@ class InferenceEngine:
         self.block_manager = BlockManager(ec.num_blocks, ec.block_size)
         self.slots = [_Slot(i) for i in range(ec.max_seqs)]
         self.waiting: collections.deque = collections.deque()
+        # Recently finished requests, for the server to drain their last events.
+        self.finished: collections.deque = collections.deque(maxlen=256)
+        self.telemetry = RequestTelemetry()
         self._rng = random.Random(0)  # seeds of requests that name none
         self._req_counter = itertools.count()
 
@@ -239,6 +256,10 @@ class InferenceEngine:
     @property
     def num_active(self) -> int:
         return sum(not s.free for s in self.slots)
+
+    @property
+    def num_free_blocks(self) -> int:
+        return self.block_manager.num_free
 
     @property
     def has_work(self) -> bool:
@@ -303,6 +324,13 @@ class InferenceEngine:
         in batched calls grouped by length bucket."""
         admissions = []
         for slot in self.slots:
+            # Cancelled while queued: finish without taking a slot.
+            while self.waiting and self.waiting[0].cancel_requested:
+                req = self.waiting.popleft()
+                req.finish_reason = "stop"
+                req.finish_time = time.monotonic()
+                self.finished.append(req)
+                self.telemetry.on_finished(req)
             if not self.waiting or not slot.free:
                 continue
             req = self.waiting[0]
@@ -326,6 +354,7 @@ class InferenceEngine:
 
     def _register_slot(self, slot: _Slot, req: Request, blocks: List[int]) -> None:
         """Host bookkeeping for an admitted request."""
+        self.telemetry.on_admitted(req)
         slot.request = req
         slot.blocks = blocks
         slot.seq_len = len(req.prompt_token_ids) + len(req.output_token_ids)
@@ -424,6 +453,7 @@ class InferenceEngine:
         active = [s for s in self.slots if not s.free]
         if not active:
             return None
+        t_prep = time.perf_counter()
         ids = np.zeros((ec.max_seqs, 1), np.int32)
         pos = np.zeros((ec.max_seqs, 1), np.int32)  # inactive -> trash block
         for s in active:
@@ -431,6 +461,7 @@ class InferenceEngine:
             pos[s.slot_id, 0] = s.seq_len  # position of the new token
         seeds = [fold_seed(self._slot_seeds[i], self._gen_counts[i])
                  for i in range(ec.max_seqs)]
+        self.telemetry.host_prep.observe(time.perf_counter() - t_prep)
         tokens, logprobs = self.executor.decode(
             ids, pos, self._block_tables, seeds, self._temperature,
             self._top_k, self._top_p)
@@ -464,6 +495,7 @@ class InferenceEngine:
         now = time.monotonic()
         if req.first_token_time is None:
             req.first_token_time = now
+            self.telemetry.on_first_token(req)
         req.output_token_ids.append(token)
         req.output_logprobs.append(logprob)
         slot.last_token = token
@@ -471,7 +503,10 @@ class InferenceEngine:
         self.stats["generated_tokens"] += 1
 
         reason = None
-        if token == self.cfg.eos_token_id or token in req.params.stop_token_ids:
+        if req.cancel_requested:
+            # Server-side early cancel: finish as a normal stop.
+            reason = "stop"
+        elif token == self.cfg.eos_token_id or token in req.params.stop_token_ids:
             reason = "stop"
         elif len(req.output_token_ids) >= req.params.max_tokens:
             reason = "length"
@@ -481,6 +516,8 @@ class InferenceEngine:
             return False
         req.finish_reason = reason
         req.finish_time = now
+        self.finished.append(req)
+        self.telemetry.on_finished(req)
         self._release(slot)
         return True
 
@@ -496,6 +533,27 @@ class InferenceEngine:
         self._top_p[sid] = 1.0
         self._slot_seeds[sid] = 0
         self._gen_counts[sid] = 0
+
+    def abort_all(self, reason: str = "abort") -> List[Request]:
+        """Finish every running and queued request with ``reason`` and free
+        their slots: the server's recovery after a faulted :meth:`step`,
+        whose consumers are gone. Returns the aborted requests."""
+        aborted: List[Request] = []
+        for slot in self.slots:
+            if slot.request is not None:
+                req = slot.request
+                req.finish_reason = reason
+                req.finish_time = time.monotonic()
+                aborted.append(req)
+                self._release(slot)
+        while self.waiting:
+            req = self.waiting.popleft()
+            req.finish_reason = reason
+            req.finish_time = time.monotonic()
+            aborted.append(req)
+        for req in aborted:
+            self.telemetry.on_finished(req)
+        return aborted
 
     def _preempt_youngest(self, exclude: _Slot) -> bool:
         """Evict the most recently arrived sequence back to the queue head."""

@@ -1,0 +1,726 @@
+"""OpenAI-compatible HTTP server over the continuous-batching engine: the
+port of ``dlti_tpu/serving/server.py`` on one engine.
+
+* ``POST /v1/completions``      — text completion, optional SSE streaming
+* ``POST /v1/chat/completions`` — chat with the Llama-2 template
+  (``<s>[INST] {q} [/INST] {a}</s>``, the training data's format)
+* ``GET /v1/models`` · ``GET /health`` · ``GET /stats`` · ``GET /metrics``
+  (Prometheus text exposition of the same counters and histograms)
+
+Requests take OpenAI's ``stop`` strings (matched on detokenized text, the
+stop string never returned or streamed), ``n`` choices decoding
+concurrently, ``seed``, ``logprobs`` and ``stop_token_ids``. Responses keep
+the reference's JSON keys; ``migrations`` and ``retries`` are 0 on one
+engine. Not ported (ROADMAP.md, queue 1): the admission gateway, the
+``/debug/*`` routes, ``/dashboard``, multi-LoRA adapters (``/v1/adapters``,
+``X-Adapter``), ``/v1/reload``, ``/v1/deploy``, and the ``phases`` and
+``trace_id`` response keys; those routes answer 404 and say so.
+
+Standard library HTTP (``http.server`` + threads): the engine steps in one
+background thread, which selects the engine's CUDA device before its first
+step; handler threads block on per-request event queues and touch only
+Python values.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import queue
+import signal
+import threading
+import time
+import uuid
+from dataclasses import dataclass, field
+from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+from typing import Dict, List, Optional, Tuple
+
+import torch
+
+from dlti_tpu_torch.data.tokenizer import Tokenizer
+from dlti_tpu_torch.serving.engine import InferenceEngine, Request
+from dlti_tpu_torch.serving.sampling import SamplingParams
+from dlti_tpu_torch.telemetry.registry import MetricsRegistry
+from dlti_tpu_torch.utils.logging import get_logger
+
+# /stats keys exposed as Prometheus gauges; every other numeric stat is a
+# counter. Names are the reference server's: dlti_<key>.
+_GAUGE_KEYS = ("active_seqs", "waiting", "free_blocks")
+
+# Routes of the reference server whose subsystems are not ported.
+_NOT_PORTED_ROUTES = ("/dashboard", "/v1/adapters", "/v1/reload", "/v1/deploy")
+
+
+def _not_ported(what: str) -> str:
+    return f"{what} is not ported to the PyTorch server yet (see ROADMAP.md, queue 1)"
+
+
+def build_registry(async_engine: "AsyncEngine") -> MetricsRegistry:
+    """The backing store for ``/stats`` and ``/metrics``: the engine's stats
+    dict plus its gauges as a scalar source, and its request histograms."""
+    registry = MetricsRegistry()
+
+    def _engine_scalars() -> dict:
+        eng = async_engine.engine
+        return {
+            **eng.stats,
+            "active_seqs": eng.num_active,
+            "waiting": len(eng.waiting),
+            "free_blocks": eng.num_free_blocks,
+        }
+
+    registry.add_scalar_source(_engine_scalars, gauge_keys=_GAUGE_KEYS,
+                               prefix="dlti_")
+    for hist in async_engine.engine.telemetry.histograms():
+        registry.register(hist)
+    return registry
+
+
+def llama2_chat_prompt(messages: List[dict]) -> str:
+    """Messages -> Llama-2 chat string (the training data's format), so
+    serve-time prompts match the fine-tuning distribution."""
+    system = ""
+    turns: List[Tuple[str, Optional[str]]] = []  # (user, assistant?) pairs
+    pending_user: Optional[str] = None
+    for m in messages:
+        role, content = m.get("role"), m.get("content", "")
+        if role == "system":
+            system = content
+        elif role == "user":
+            if pending_user is not None:
+                turns.append((pending_user, ""))
+            pending_user = content
+        elif role == "assistant":
+            turns.append((pending_user or "", content))
+            pending_user = None
+    if pending_user is not None:
+        turns.append((pending_user, None))
+
+    out = []
+    first = True
+    for user, assistant in turns:
+        u = user
+        if first and system:
+            u = f"<<SYS>>\n{system}\n<</SYS>>\n\n{user}"
+        first = False
+        if assistant is None:
+            out.append(f"[INST] {u} [/INST]")
+        else:
+            out.append(f"[INST] {u} [/INST] {assistant}")
+    return " ".join(out)
+
+
+class AsyncEngine:
+    """Thread-safe facade: a single stepper thread drives the engine;
+    callers get a per-request event queue for streaming."""
+
+    def __init__(self, engine: InferenceEngine):
+        self.engine = engine
+        self.logger = get_logger()
+        self._lock = threading.Lock()
+        self._work = threading.Condition(self._lock)
+        self._queues: Dict[str, queue.Queue] = {}
+        self._seen: Dict[str, int] = {}
+        self._stop = False
+        self._dead = False  # set when even fault recovery failed
+        self._thread = threading.Thread(target=self._run, daemon=True,
+                                        name="dlti-engine-stepper")
+        self._thread.start()
+
+    @property
+    def dead(self) -> bool:
+        """True once even fault recovery failed and the stepper parked
+        (every later submit raises; ``/health`` reports 503)."""
+        return self._dead
+
+    def submit(self, prompt_ids: List[int], params: SamplingParams,
+               request_id: Optional[str] = None) -> Tuple[Request, queue.Queue]:
+        """Enqueue a request; returns (request, event queue).
+
+        Queue events: ``("token", token_id, logprob)`` per generated token,
+        then ``("done", finish_reason)`` — or ``("error", message)``.
+        """
+        q: queue.Queue = queue.Queue()
+        with self._work:
+            if self._dead:
+                raise RuntimeError("engine is down (unrecoverable step fault)")
+            req = self.engine.submit(prompt_ids, params, request_id)
+            self._queues[req.request_id] = q
+            self._seen[req.request_id] = 0
+            self._work.notify()
+        return req, q
+
+    def shutdown(self) -> None:
+        with self._work:
+            self._stop = True
+            self._work.notify()
+        self._thread.join(timeout=10)
+
+    def _run(self) -> None:
+        try:
+            device = getattr(self.engine, "device", None)
+            if device is not None and device.type == "cuda":
+                # CUDA's current device is per thread: the kernels launch on it.
+                torch.cuda.set_device(device.index if device.index is not None
+                                      else torch.cuda.current_device())
+        except Exception as e:
+            # A stepper that cannot select the card can never step: park it,
+            # so /health answers 503 and submits fail at once.
+            self.logger.exception("stepper could not select the engine's "
+                                  "device; stepper parked")
+            with self._work:
+                self._dead = True
+                self._stop = True
+                for q in self._queues.values():
+                    q.put(("error", f"{type(e).__name__}: {e}"))
+                self._queues.clear()
+                self._seen.clear()
+            return
+        while True:
+            with self._work:
+                while not self._stop and not self.engine.has_work:
+                    self._work.wait()
+                if self._stop:
+                    for q in self._queues.values():
+                        q.put(("error", "server shutting down"))
+                    return
+            # Step outside the lock: a concurrent submit only appends to the
+            # engine's waiting deque, which admission reads at one point
+            # inside step(), so a racing submit lands this step or the next.
+            try:
+                self.engine.step()
+            except Exception as e:  # surface engine faults to the waiters
+                self.logger.exception("engine step failed")
+                with self._work:
+                    # Fail fast: abort every request the engine holds and
+                    # error every registered consumer; the engine ends
+                    # empty, so a persistent fault is not retried forever.
+                    try:
+                        self.engine.abort_all(reason="error")
+                    except Exception:
+                        # Bookkeeping is beyond recovery: park the stepper
+                        # and fail every later submit.
+                        self.logger.exception("engine abort failed; stepper parked")
+                        self._dead = True
+                        self._stop = True
+                    for q in self._queues.values():
+                        q.put(("error", f"{type(e).__name__}: {e}"))
+                    self._queues.clear()
+                    self._seen.clear()
+                    if self._stop:
+                        return
+                continue
+            with self._work:
+                self._drain_events()
+
+    def _drain_events(self) -> None:
+        """Push tokens generated since the last step to per-request queues."""
+        reqs = [s.request for s in self.engine.slots if s.request is not None]
+        reqs.extend(r for r in list(self.engine.finished)
+                    if r.request_id in self._queues)
+        for req in reqs:
+            q = self._queues.get(req.request_id)
+            if q is None:
+                continue
+            seen = self._seen.get(req.request_id, 0)
+            for i in range(seen, len(req.output_token_ids)):
+                q.put(("token", req.output_token_ids[i], req.output_logprobs[i]))
+            self._seen[req.request_id] = len(req.output_token_ids)
+            if req.done:
+                q.put(("done", req.finish_reason))
+                del self._queues[req.request_id]
+                del self._seen[req.request_id]
+
+
+@dataclass
+class ServerConfig:
+    host: str = "0.0.0.0"
+    port: int = 8000
+    model_name: str = "dlti-tpu-model"
+    request_timeout_s: float = 600.0
+    default_params: SamplingParams = field(default_factory=SamplingParams)
+
+
+class _Handler(BaseHTTPRequestHandler):
+    """One instance per connection (ThreadingHTTPServer)."""
+
+    server_version = "dlti-tpu"
+    protocol_version = "HTTP/1.1"
+
+    # Bound per server by make_server's subclass.
+    async_engine: AsyncEngine
+    tokenizer: Tokenizer
+    cfg: ServerConfig
+    registry: MetricsRegistry
+
+    def log_message(self, fmt, *args):  # route through our logger
+        get_logger().debug("http: " + fmt, *args)
+
+    # -- helpers -------------------------------------------------------
+    def _json(self, code: int, obj: dict) -> None:
+        body = json.dumps(obj).encode()
+        self.send_response(code)
+        self.send_header("Content-Type", "application/json")
+        self.send_header("Content-Length", str(len(body)))
+        self.end_headers()
+        self.wfile.write(body)
+
+    def _error(self, code: int, message: str) -> None:
+        err_type = ("rate_limit_error" if code == 429
+                    else "overloaded_error" if code == 503
+                    else "invalid_request_error")
+        self._json(code, {"error": {"message": message, "type": err_type}})
+
+    def _read_body(self) -> Optional[dict]:
+        try:
+            n = int(self.headers.get("Content-Length", 0))
+            return json.loads(self.rfile.read(n) or b"{}")
+        except (ValueError, json.JSONDecodeError):
+            self._error(400, "invalid JSON body")
+            return None
+
+    class _StopMatcher:
+        """Stateful windowed stop-string scanner shared by the stream and
+        non-stream paths: feed(text) -> (cut, safe), with the scan window
+        advanced past text already scanned."""
+
+        def __init__(self, stops: tuple):
+            self.stops = stops
+            self._max = max((len(s) for s in stops), default=0)
+            self._prev = 0
+
+        def feed(self, text: str) -> tuple:
+            cut, safe = _Handler._scan_stops(
+                text, self.stops, start=self._prev - self._max + 1)
+            self._prev = len(text)
+            return cut, safe
+
+    @staticmethod
+    def _scan_stops(text: str, stops: tuple, start: int = 0) -> tuple:
+        """(cut, safe): ``cut`` is the index of the earliest stop-string
+        match (None if absent); ``safe`` is how much of ``text`` may be
+        emitted now — a tail that could begin a stop string arriving across
+        token boundaries is held back, since the OpenAI contract excludes
+        the stop string from the returned text. ``start`` windows the
+        search so per-token scanning stays linear in the output length."""
+        cut = None
+        for s in stops:
+            i = text.find(s, max(0, start))
+            if i != -1 and (cut is None or i < cut):
+                cut = i
+        if cut is not None:
+            return cut, cut
+        hold = 0
+        for s in stops:
+            for k in range(1, len(s)):
+                if text.endswith(s[:k]):
+                    hold = max(hold, k)
+        return None, len(text) - hold
+
+    @staticmethod
+    def _stops_from(body: dict) -> tuple:
+        """OpenAI ``stop``: a string or list of strings (<= 4)."""
+        stop = body.get("stop")
+        if stop is None:
+            return ()
+        if isinstance(stop, str):
+            stop = [stop]
+        if (not isinstance(stop, list) or len(stop) > 4
+                or not all(isinstance(s, str) and s for s in stop)):
+            raise ValueError(
+                "stop must be a non-empty string or a list of up to 4")
+        return tuple(stop)
+
+    def _params_from(self, body: dict) -> SamplingParams:
+        # Every client-supplied field is cast here, before the request
+        # reaches the stepper thread: a malformed value fails this one
+        # request with a 400, not every in-flight one.
+        d = self.cfg.default_params
+        stop_ids = tuple(int(t) for t in body.get("stop_token_ids", ()))
+        seed = body.get("seed")
+        return SamplingParams(
+            temperature=float(body.get("temperature", d.temperature)),
+            top_k=int(body.get("top_k", d.top_k)),
+            top_p=float(body.get("top_p", d.top_p)),
+            max_tokens=int(body.get("max_tokens", d.max_tokens)),
+            stop_token_ids=stop_ids,
+            seed=int(seed) if seed is not None else None,
+            logprobs=bool(body.get("logprobs", False)),
+        )
+
+    # -- routes --------------------------------------------------------
+    def do_GET(self):
+        path = self.path.partition("?")[0]
+        if path.startswith("/debug/") or path in _NOT_PORTED_ROUTES:
+            self._error(404, _not_ported(path))
+        elif self.path == "/health":
+            # A parked stepper must read unhealthy, so a balancer routes
+            # elsewhere instead of sending requests that 503.
+            if self.async_engine.dead:
+                self._json(503, {"status": "dead"})
+            else:
+                self._json(200, {"status": "ok"})
+        elif self.path == "/stats":
+            self._json(200, self.registry.stats_dict())
+        elif self.path == "/metrics":
+            body = self.registry.render_prometheus().encode()
+            self.send_response(200)
+            self.send_header("Content-Type",
+                             "text/plain; version=0.0.4; charset=utf-8")
+            self.send_header("Content-Length", str(len(body)))
+            self.end_headers()
+            self.wfile.write(body)
+        elif self.path == "/v1/models":
+            self._json(200, {"object": "list", "data": [{
+                "id": self.cfg.model_name, "object": "model",
+                "owned_by": "dlti_tpu",
+            }]})
+        else:
+            self._error(404, f"no route {self.path}")
+
+    def do_POST(self):
+        if self.path == "/v1/completions":
+            self._completions(chat=False)
+        elif self.path == "/v1/chat/completions":
+            self._completions(chat=True)
+        elif self.path.startswith("/debug/") or self.path in _NOT_PORTED_ROUTES:
+            self._error(404, _not_ported(self.path))
+        else:
+            self._error(404, f"no route {self.path}")
+
+    # -- completion core ----------------------------------------------
+    def _completions(self, chat: bool) -> None:
+        body = self._read_body()
+        if body is None:
+            return
+        tok = self.tokenizer
+        if chat:
+            messages = body.get("messages")
+            if not isinstance(messages, list) or not messages:
+                return self._error(400, "messages must be a non-empty list")
+            prompt = llama2_chat_prompt(messages)
+        else:
+            prompt = body.get("prompt", "")
+            if isinstance(prompt, list):
+                prompt = prompt[0] if prompt else ""
+            if not isinstance(prompt, str) or not prompt:
+                return self._error(400, "prompt must be a non-empty string")
+
+        prompt_ids = tok.encode(prompt, add_bos=True)
+        try:
+            params = self._params_from(body)
+            stops = self._stops_from(body)
+        except (TypeError, ValueError) as e:
+            return self._error(400, f"invalid sampling parameter: {e}")
+        max_len = self.async_engine.engine.cfg.max_model_len
+        if len(prompt_ids) >= max_len:
+            return self._error(400, f"prompt has {len(prompt_ids)} tokens; "
+                                    f"max_model_len is {max_len}")
+
+        try:
+            n = int(body.get("n", 1))
+        except (TypeError, ValueError):
+            return self._error(400, "n must be an integer")
+        if not 1 <= n <= self.async_engine.engine.cfg.max_seqs:
+            return self._error(
+                400, f"n must be in [1, {self.async_engine.engine.cfg.max_seqs}]")
+        if n > 1 and body.get("stream"):
+            return self._error(400, "n > 1 does not support stream=true")
+        if n > 1 and (params.temperature == 0.0 or params.top_k == 1):
+            return self._error(
+                400, "n > 1 with deterministic sampling (temperature=0 or "
+                     "top_k=1) would return n identical choices; relax the "
+                     "sampling or drop n")
+        if str(self.headers.get("X-Adapter", "") or "").strip():
+            return self._error(404, _not_ported("multi-LoRA serving (X-Adapter)"))
+
+        rid = ("chatcmpl-" if chat else "cmpl-") + uuid.uuid4().hex[:24]
+        created = int(time.time())
+        try:
+            if n == 1:
+                req, q = self.async_engine.submit(prompt_ids, params, rid)
+            else:
+                # n choices = n engine requests decoding concurrently; a user
+                # seed derives per-choice seeds so the response reproduces
+                # without n identical samples.
+                subs = []
+                try:
+                    for i in range(n):
+                        p_i = params if params.seed is None else \
+                            dataclasses.replace(params, seed=params.seed + i)
+                        subs.append(self.async_engine.submit(
+                            prompt_ids, p_i, f"{rid}-{i}"))
+                except Exception:
+                    # A submit failed mid-loop: cancel the choices already
+                    # submitted, or they decode into queues nobody reads.
+                    for other, _ in subs:
+                        other.cancel_requested = True
+                    raise
+        except ValueError as e:
+            return self._error(400, str(e))
+        except RuntimeError as e:  # engine parked after an unrecoverable fault
+            return self._error(503, str(e))
+
+        if body.get("stream"):
+            self._stream_response(req, q, chat, created, stops)
+        elif n == 1:
+            self._full_response(req, q, chat, created, stops)
+        else:
+            self._multi_response(subs, rid, chat, created, stops)
+
+    def _collect(self, q: queue.Queue, req: Optional[Request] = None):
+        """Yield events until done/error/timeout. On timeout the request is
+        cancelled first, so it stops taking a slot."""
+        deadline = time.monotonic() + self.cfg.request_timeout_s
+        while True:
+            remaining = deadline - time.monotonic()
+            if remaining <= 0:
+                if req is not None:
+                    req.cancel_requested = True
+                yield ("error", "request timed out")
+                return
+            try:
+                ev = q.get(timeout=min(remaining, 1.0))
+            except queue.Empty:
+                continue
+            yield ev
+            if ev[0] in ("done", "error"):
+                return
+
+    def _collect_choice(self, req: Request, q: queue.Queue,
+                        stops: tuple) -> tuple:
+        """Drain one non-streaming request: returns ((token_ids, logprobs,
+        text, finish), None) or (None, (status, error_message)). A stop
+        string match cancels the request early and keeps draining until the
+        engine's done event, so the slot release is observed."""
+        token_ids: List[int] = []
+        logprobs: List[float] = []
+        finish = "stop"
+        cut = None
+        matcher = self._StopMatcher(stops)
+        for ev in self._collect(q, req):
+            if ev[0] == "token":
+                token_ids.append(ev[1])
+                logprobs.append(ev[2])
+                if stops and cut is None:
+                    cut, _ = matcher.feed(self.tokenizer.decode(token_ids))
+                    if cut is not None:
+                        req.cancel_requested = True
+            elif ev[0] == "done":
+                finish = ev[1]
+            else:
+                return None, (500, ev[1])
+        text = self.tokenizer.decode(token_ids)
+        if cut is not None:
+            text, finish = text[:cut], "stop"
+        return (token_ids, logprobs, text, finish), None
+
+    def _choice(self, i: int, chat: bool, text: str, finish: str,
+                req: Request, token_ids: List[int], logprobs: List[float]) -> dict:
+        if chat:
+            choice = {"index": i, "message": {"role": "assistant", "content": text},
+                      "finish_reason": finish}
+        else:
+            choice = {"index": i, "text": text, "finish_reason": finish}
+        if req.params.logprobs:
+            choice["logprobs"] = {"token_logprobs": logprobs, "tokens": token_ids}
+        return choice
+
+    def _full_response(self, req: Request, q: queue.Queue, chat: bool,
+                       created: int, stops: tuple = ()) -> None:
+        got, err = self._collect_choice(req, q, stops)
+        if err is not None:
+            return self._error(*err)
+        token_ids, logprobs, text, finish = got
+        n_prompt = len(req.prompt_token_ids)
+        self._json(200, {
+            "id": req.request_id,
+            "object": "chat.completion" if chat else "text_completion",
+            "created": created, "model": self.cfg.model_name,
+            "choices": [self._choice(0, chat, text, finish, req, token_ids,
+                                     logprobs)],
+            "usage": {"prompt_tokens": n_prompt,
+                      "completion_tokens": len(token_ids),
+                      "total_tokens": n_prompt + len(token_ids)},
+            # One engine: no live migration, no failover resubmission.
+            "migrations": 0, "retries": 0,
+        })
+
+    def _multi_response(self, subs: list, rid: str, chat: bool,
+                        created: int, stops: tuple = ()) -> None:
+        """OpenAI ``n`` > 1: the n requests decode concurrently (submitted
+        before this runs); collect each in turn."""
+        choices = []
+        total_completion = 0
+        prompt_tokens = len(subs[0][0].prompt_token_ids)
+        for i, (req, q) in enumerate(subs):
+            got, err = self._collect_choice(req, q, stops)
+            if err is not None:
+                # Cancel the other choices before erroring.
+                for other, _ in subs:
+                    other.cancel_requested = True
+                return self._error(*err)
+            token_ids, logprobs, text, finish = got
+            total_completion += len(token_ids)
+            choices.append(self._choice(i, chat, text, finish, req, token_ids,
+                                        logprobs))
+        self._json(200, {
+            "id": rid,
+            "object": "chat.completion" if chat else "text_completion",
+            "created": created, "model": self.cfg.model_name,
+            "choices": choices,
+            "usage": {"prompt_tokens": prompt_tokens,
+                      "completion_tokens": total_completion,
+                      "total_tokens": prompt_tokens + total_completion},
+        })
+
+    def _stream_response(self, req: Request, q: queue.Queue, chat: bool,
+                         created: int, stops: tuple = ()) -> None:
+        self.send_response(200)
+        self.send_header("Content-Type", "text/event-stream")
+        self.send_header("Cache-Control", "no-cache")
+        self.send_header("Transfer-Encoding", "chunked")
+        self.end_headers()
+
+        def chunk(data: str) -> None:
+            payload = f"data: {data}\n\n".encode()
+            self.wfile.write(f"{len(payload):x}\r\n".encode() + payload + b"\r\n")
+            self.wfile.flush()
+
+        obj = "chat.completion.chunk" if chat else "text_completion"
+        key = "delta" if chat else "text"
+
+        def delta_chunk(delta: str) -> None:
+            val = {"content": delta} if chat else delta
+            chunk(json.dumps({
+                "id": req.request_id, "object": obj, "created": created,
+                "model": self.cfg.model_name,
+                "choices": [{"index": 0, key: val, "finish_reason": None}]}))
+
+        # Incremental detokenization: decode the whole id list and emit the
+        # new suffix, so a multi-byte character never splits.
+        token_ids: List[int] = []
+        emitted = ""
+        finish = None
+        try:
+            if chat:
+                chunk(json.dumps({
+                    "id": req.request_id, "object": obj, "created": created,
+                    "model": self.cfg.model_name,
+                    "choices": [{"index": 0, "delta": {"role": "assistant"},
+                                 "finish_reason": None}]}))
+            cancelled = False
+            matcher = self._StopMatcher(stops)
+            for ev in self._collect(q, req):
+                if ev[0] == "token":
+                    if cancelled:
+                        # Stop already matched: drain until the engine
+                        # finishes, so the final usage reads a settled request.
+                        continue
+                    token_ids.append(ev[1])
+                    text = self.tokenizer.decode(token_ids)
+                    if stops:
+                        # Emit only up to the earliest match, and hold back
+                        # a tail that could start a match.
+                        cut, safe = matcher.feed(text)
+                        if cut is not None:
+                            delta = text[len(emitted):cut]
+                            emitted += delta
+                            if delta:
+                                delta_chunk(delta)
+                            req.cancel_requested = True
+                            cancelled = True
+                            continue
+                        text = text[:safe]
+                    delta = text[len(emitted):]
+                    emitted += delta
+                    if delta:  # empty: partial unicode or a held-back prefix
+                        delta_chunk(delta)
+                elif ev[0] == "done":
+                    finish = "stop" if cancelled else ev[1]
+                    if stops and not cancelled:
+                        # No stop matched: the held-back tail is real output.
+                        tail = self.tokenizer.decode(token_ids)[len(emitted):]
+                        if tail:
+                            emitted += tail
+                            delta_chunk(tail)
+                else:
+                    # Headers are already on the wire: the failure arrives
+                    # as a terminal SSE error frame.
+                    chunk(json.dumps({"error": {"message": ev[-1]}}))
+                    break
+            if finish is not None:
+                n_prompt, n_out = len(req.prompt_token_ids), len(req.output_token_ids)
+                chunk(json.dumps({
+                    "id": req.request_id, "object": obj, "created": created,
+                    "model": self.cfg.model_name,
+                    "choices": [{"index": 0, key: {} if chat else "",
+                                 "finish_reason": finish}],
+                    # Token-accurate usage in the final chunk: SSE event
+                    # count is not the token count.
+                    "usage": {"prompt_tokens": n_prompt,
+                              "completion_tokens": n_out,
+                              "total_tokens": n_prompt + n_out},
+                    "migrations": 0, "retries": 0}))
+            chunk("[DONE]")
+            self.wfile.write(b"0\r\n\r\n")
+            self.wfile.flush()
+        except (BrokenPipeError, ConnectionResetError):
+            # Cancel the orphaned request so it stops taking a slot.
+            req.cancel_requested = True
+            get_logger().info("client disconnected mid-stream: %s", req.request_id)
+
+
+def make_server(engine: InferenceEngine, tokenizer: Tokenizer,
+                cfg: Optional[ServerConfig] = None,
+                ) -> Tuple[ThreadingHTTPServer, AsyncEngine]:
+    """Build (but do not start) the HTTP server and start the engine's
+    stepper; the caller runs ``serve_forever()``. With ``cfg.port`` 0 the
+    system picks a free port: ``httpd.server_address[1]``."""
+    cfg = cfg or ServerConfig()
+    async_engine = AsyncEngine(engine)
+    registry = build_registry(async_engine)
+    handler = type("BoundHandler", (_Handler,), {
+        "async_engine": async_engine, "tokenizer": tokenizer, "cfg": cfg,
+        "registry": registry,
+    })
+    try:
+        httpd = ThreadingHTTPServer((cfg.host, cfg.port), handler)
+    except OSError:
+        async_engine.shutdown()
+        raise
+    httpd.daemon_threads = True
+    return httpd, async_engine
+
+
+def serve(engine: InferenceEngine, tokenizer: Tokenizer,
+          cfg: Optional[ServerConfig] = None) -> None:
+    """Blocking entry point (``dlti_tpu_torch.cli.serve``). SIGTERM, like
+    Ctrl-C, stops the server cleanly: the stepper is shut down and the
+    socket closed, and the call returns."""
+    cfg = cfg or ServerConfig()
+    httpd, async_engine = make_server(engine, tokenizer, cfg)
+    host, port = httpd.server_address[:2]
+    get_logger().info("serving on http://%s:%d (model=%s)", host, port,
+                      cfg.model_name)
+
+    def _on_term(signum, frame):
+        # httpd.shutdown() joins serve_forever, so it runs off this thread.
+        threading.Thread(target=httpd.shutdown, daemon=True).start()
+
+    prev_handler = None
+    installed = False
+    try:
+        prev_handler = signal.signal(signal.SIGTERM, _on_term)
+        installed = True
+    except ValueError:
+        pass  # not the main thread (embedded use): SIGTERM stays default
+    try:
+        httpd.serve_forever()
+    except KeyboardInterrupt:
+        pass
+    finally:
+        if installed:
+            signal.signal(signal.SIGTERM, prev_handler or signal.SIG_DFL)
+        async_engine.shutdown()
+        httpd.server_close()

@@ -31,9 +31,13 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None
                    ) -> torch.device:
     """The device an entry point runs on: the card unless the caller names
     another. With no argument and no CUDA this raises instead of quietly
-    running on the CPU."""
+    running on the CPU. A CUDA device always comes back with its index
+    (``"cuda"`` means the current card), since ``torch.cuda.set_device``
+    refuses one without."""
     if device is not None:
-        return torch.device(device)
+        device = torch.device(device)
+        if device.type != "cuda" or device.index is not None:
+            return device
     if not torch.cuda.is_available():
         raise RuntimeError(
             "no CUDA device is available; pass device='cpu' to run on the "

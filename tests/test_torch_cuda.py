@@ -1,6 +1,6 @@
 """The CUDA kernels on the card, against their plain versions: the paged
-decode kernel (K4) and flash attention's forward (K1), dq (K2) and dk/dv
-(K3).
+decode kernel (K4) on float and int8 pools and flash attention's forward
+(K1), dq (K2) and dk/dv (K3).
 
 Marked ``cuda``: each test skips where ``torch.cuda.is_available()`` is
 false, as on a CPU-only host. On a machine with the card and without JAX,
@@ -48,7 +48,7 @@ def _inputs(gen, batch, heads, kv_heads, d, dtype, block_size=16, num_blocks=64,
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("d", [64, 128, 256])
+@pytest.mark.parametrize("d", [16, 32, 64, 128, 256])
 @pytest.mark.parametrize("heads,kv_heads", [(8, 8), (8, 2), (4, 1)])
 @pytest.mark.parametrize("window", [None, 20])
 def test_kernel_matches_plain(gen, dtype, d, heads, kv_heads, window):
@@ -88,10 +88,127 @@ def test_kernel_refuses_what_it_was_not_built_for(gen):
         tpa.paged_decode_attention(q, k.transpose(0, 1), v.transpose(0, 1), tables, lens)
     with pytest.raises(ValueError, match="int32"):
         tpa.paged_decode_attention(q, k, v, tables.long(), lens)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="require k_scale"):
+        tpa.paged_decode_attention(q, k.to(torch.int8), v.to(torch.int8), tables, lens)
+    ones = torch.ones(k.shape[:3], device="cuda")
+    with pytest.raises(ValueError, match="belong to int8 pools"):
+        tpa.paged_decode_attention(q, k, v, tables, lens, k_scale=ones, v_scale=ones)
+    with pytest.raises(ValueError, match="k_scale must be float32"):
         tpa.paged_decode_attention(q, k.to(torch.int8), v.to(torch.int8), tables, lens,
-                                   k_scale=torch.ones(k.shape[:3], device="cuda"),
-                                   v_scale=torch.ones(k.shape[:3], device="cuda"))
+                                   k_scale=ones.double(), v_scale=ones)
+    with pytest.raises(ValueError, match="v_scale must be float32"):
+        tpa.paged_decode_attention(q, k.to(torch.int8), v.to(torch.int8), tables, lens,
+                                   k_scale=ones, v_scale=ones[:, :8].contiguous())
+
+
+def _int8_inputs(gen, *args, **kw):
+    """As ``_inputs``, with the pools quantized as ``paged_update`` stores
+    them: int8 payloads and float32 row scales."""
+    from dlti_tpu_torch.ops.kv_cache import _quantize_rows
+
+    q, k, v, tables, lens = _inputs(gen, *args, **kw)
+    kq, ks = _quantize_rows(k)
+    vq, vs = _quantize_rows(v)
+    return q, kq, vq, tables, lens, ks, vs
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [16, 64, 128, 256])
+@pytest.mark.parametrize("heads,kv_heads", [(8, 8), (8, 2), (4, 1)])
+@pytest.mark.parametrize("window", [None, 20])
+def test_int8_kernel_matches_plain(gen, dtype, d, heads, kv_heads, window):
+    q, k, v, tables, lens, ks, vs = _int8_inputs(gen, 5, heads, kv_heads, d, dtype,
+                                                 lens=[0, 1, 17, 100, 128])
+    before, before_float = tpa.launches_int8, tpa.launches
+    out = tpa.paged_decode_attention(q, k, v, tables, lens, k_scale=ks, v_scale=vs,
+                                     window=window)
+    torch.cuda.synchronize()
+    assert (tpa.launches_int8, tpa.launches) == (before + 1, before_float)
+    ref = tpa.paged_decode_attention_reference(q, k, v, tables, lens, k_scale=ks,
+                                               v_scale=vs, window=window)
+    assert out.dtype == q.dtype and out.shape == q.shape
+    assert not out[0].any()
+    torch.testing.assert_close(out.float(), ref.float(), atol=TOL[dtype], rtol=0)
+
+
+def test_int8_nan_scales_of_dead_rows_never_leak(gen):
+    q, k, v, tables, lens, ks, vs = _int8_inputs(gen, 3, 8, 2, 128, torch.bfloat16,
+                                                 lens=[5, 40, 0])
+    tables[:, 4:] = 3  # garbage past every sequence's blocks
+    live = torch.zeros(k.shape[:2], dtype=torch.bool, device="cuda")
+    for b, n in enumerate(lens.tolist()):
+        for t in range(n):
+            live[tables[b, t // 16], t % 16] = True
+    ref = tpa.paged_decode_attention_reference(q, k, v, tables, lens, k_scale=ks,
+                                               v_scale=vs)
+    ks[~live] = float("nan")
+    vs[~live] = float("nan")
+    out = tpa.paged_decode_attention(q, k, v, tables, lens, k_scale=ks, v_scale=vs)
+    assert torch.isfinite(out).all()
+    torch.testing.assert_close(out.float(), ref.float(), atol=TOL[torch.bfloat16], rtol=0)
+
+
+def test_int8_engine_decode_launches_the_int8_kernel_per_layer(gen):
+    """An engine on an int8 pool on the card: every decode step launches the
+    int8 program once per layer and the float program never."""
+    from dlti_tpu_torch.config import MODEL_PRESETS
+    from dlti_tpu_torch.models import init_params
+    from dlti_tpu_torch.serving import EngineConfig, InferenceEngine, SamplingParams
+
+    cfg = MODEL_PRESETS["llama_tiny"]
+    engine = InferenceEngine(cfg, init_params(cfg, seed=0, device="cuda"),
+                             EngineConfig(max_seqs=4, block_size=16, num_blocks=32,
+                                          max_model_len=128, cache_dtype="int8",
+                                          eos_token_id=-1), device="cuda")
+    tpa.launches = tpa.launches_int8 = 0
+    out = engine.generate([[1, 2, 3], [4] * 40], SamplingParams(temperature=0.0,
+                                                                max_tokens=6))
+    torch.cuda.synchronize()
+    assert [len(r.output_token_ids) for r in out] == [6, 6]
+    assert tpa.launches == 0
+    assert tpa.launches_int8 == cfg.num_layers * engine.stats["decode_steps"] > 0
+
+
+def test_server_on_an_engine_built_with_device_cuda_answers(gen):
+    """``device="cuda"`` (no index, as ``--device cuda`` passes it): the
+    server's stepper selects the card and serves a completion."""
+    import http.client
+    import json
+    import threading
+
+    from dlti_tpu_torch.config import MODEL_PRESETS
+    from dlti_tpu_torch.data import ByteTokenizer
+    from dlti_tpu_torch.models import init_params
+    from dlti_tpu_torch.serving import EngineConfig, InferenceEngine, ServerConfig, make_server
+
+    cfg = MODEL_PRESETS["llama_tiny"]
+    engine = InferenceEngine(cfg, init_params(cfg, seed=0, device="cuda"),
+                             EngineConfig(max_seqs=2, block_size=16, num_blocks=32,
+                                          max_model_len=128, cache_dtype="int8",
+                                          eos_token_id=-1), device="cuda")
+    assert engine.device.index is not None
+    httpd, aeng = make_server(engine, ByteTokenizer(),
+                              ServerConfig(host="127.0.0.1", port=0, request_timeout_s=60))
+    threading.Thread(target=httpd.serve_forever, daemon=True).start()
+    try:
+        conn = http.client.HTTPConnection("127.0.0.1", httpd.server_address[1], timeout=60)
+        conn.request("GET", "/health")
+        health = conn.getresponse()
+        assert (health.status, health.read()) == (200, b'{"status": "ok"}')
+        conn.request("POST", "/v1/completions",
+                     json.dumps({"prompt": "hello", "max_tokens": 4, "temperature": 0.0}),
+                     {"Content-Type": "application/json"})
+        resp = conn.getresponse()
+        body = json.loads(resp.read())
+        conn.close()
+        assert resp.status == 200, body
+        assert body["usage"]["completion_tokens"] == 4
+        assert body["choices"][0]["finish_reason"] == "length"
+        assert not aeng.dead
+    finally:
+        httpd.shutdown()
+        aeng.shutdown()
+        httpd.server_close()
 
 
 # ----------------------------------------------------------------------

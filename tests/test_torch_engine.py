@@ -12,6 +12,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from dlti_tpu.config import MODEL_PRESETS as JAX_PRESETS
 from dlti_tpu.models import LlamaForCausalLM as JaxLlama
@@ -97,6 +98,31 @@ def test_engine_matches_jax_under_preemption(params):
         assert engine.block_manager.num_free == ec["num_blocks"] - 1
 
 
+def test_engine_matches_jax_on_an_int8_pool(params):
+    """The same request script on int8 KV pools (rows quantized at write,
+    prefill through the dequantized gather, decode through the paged
+    attention with scales) gives the JAX int8 engine's greedy tokens."""
+    ec = dict(max_seqs=4, block_size=8, num_blocks=64, max_model_len=64,
+              cache_dtype="int8", eos_token_id=-1)
+    jax_engine, torch_engine = _engines(params, **ec)
+    assert torch_engine.cache[0]["k"].dtype == torch.int8
+    want = _script(jax_engine, JaxSamplingParams)
+    got = _script(torch_engine, SamplingParams)
+    _assert_same_outputs(want, got)
+    assert torch_engine.block_manager.num_free == ec["num_blocks"] - 1
+
+
+def test_engine_matches_jax_on_an_int8_pool_under_preemption(params):
+    ec = dict(max_seqs=3, block_size=8, num_blocks=8, max_model_len=48,
+              cache_dtype="int8", eos_token_id=-1)
+    prompts = [[1, 2, 3, 4, 5, 6, 7], [8, 9, 10, 11, 12, 13], [14, 15, 16, 17, 18]]
+    jax_engine, torch_engine = _engines(params, **ec)
+    want = jax_engine.generate(prompts, JaxSamplingParams(temperature=0.0, max_tokens=12))
+    got = torch_engine.generate(prompts, SamplingParams(temperature=0.0, max_tokens=12))
+    _assert_same_outputs(want, got)
+    assert torch_engine.stats["preemptions"] >= 1
+
+
 def test_engine_seeded_request_independent_of_batch_company(params):
     """A seeded sampling request draws the same tokens alone and in company
     (the port's own property; its bits differ from JAX's by design)."""
@@ -125,3 +151,7 @@ def test_engine_rejects_unsatisfiable_pool_and_empty_prompt(params):
                                           cache_dtype="float32"), device="cpu")
     with pytest.raises(ValueError):
         engine.submit([])
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        InferenceEngine(MODEL_PRESETS["llama_tiny"], params_from_jax(params),
+                        EngineConfig(num_blocks=80, max_model_len=64,
+                                     cache_dtype="float16"), device="cpu")

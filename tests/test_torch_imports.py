@@ -65,6 +65,45 @@ def test_port_runs_without_jax_and_imports_no_jax_package():
     assert proc.stdout.startswith("OK")
 
 
+_SERVER_CHILD = textwrap.dedent("""
+    import sys
+    sys.modules["jax"] = None
+
+    import http.client, json, threading
+    import dlti_tpu_torch.cli.serve as cli
+    import dlti_tpu_torch.telemetry
+    from dlti_tpu_torch.serving import make_server
+
+    args = cli.parse_args(["--device", "cpu", "--random-init", "llama_tiny",
+                           "--tokenizer", "byte", "--port", "0",
+                           "--max-model-len", "64", "--num-blocks", "16",
+                           "--kv-cache-dtype", "int8"])
+    engine, tok, sc = cli.build(args)
+    httpd, aeng = make_server(engine, tok, sc)
+    threading.Thread(target=httpd.serve_forever, daemon=True).start()
+    conn = http.client.HTTPConnection("127.0.0.1", httpd.server_address[1], timeout=60)
+    conn.request("POST", "/v1/completions", json.dumps({"prompt": "hi", "max_tokens": 3}))
+    resp = conn.getresponse()
+    body = json.loads(resp.read())
+    assert resp.status == 200 and body["usage"]["completion_tokens"] == 3, body
+    httpd.shutdown(); aeng.shutdown(); httpd.server_close()
+
+    loaded = sorted(n for n, m in sys.modules.items() if m is not None and (
+        n in ("jax", "dlti_tpu") or n.startswith(("jax.", "jaxlib", "dlti_tpu."))))
+    assert not loaded, loaded
+    print("OK")
+""")
+
+
+def test_server_and_serve_cli_run_without_jax():
+    """The server, the serve CLI's builder and the telemetry modules import
+    and serve a completion on an int8 pool with ``jax`` blocked."""
+    proc = subprocess.run([sys.executable, "-c", _SERVER_CHILD], cwd=ROOT,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert proc.stdout.strip().endswith("OK")
+
+
 def test_chip_smoke_imports_no_jax():
     """``chip_smoke.py`` is a port entry point too: importing it pulls in
     neither JAX nor the JAX package."""
@@ -95,3 +134,20 @@ def test_entry_points_without_device_raise_when_there_is_no_cuda(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         Trainer(Config(model=cfg))
     assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_resolve_device_gives_cuda_its_index(monkeypatch):
+    """``"cuda"`` resolves to the current card with its index, which
+    ``torch.cuda.set_device`` needs; an explicit index is kept; without
+    CUDA, ``"cuda"`` raises as the default does."""
+    from dlti_tpu_torch.utils.device import resolve_device
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        resolve_device("cuda")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 3)
+    assert resolve_device("cuda") == torch.device("cuda", 3)
+    assert resolve_device(torch.device("cuda")) == torch.device("cuda", 3)
+    assert resolve_device(None) == torch.device("cuda", 3)
+    assert resolve_device("cuda:1") == torch.device("cuda", 1)

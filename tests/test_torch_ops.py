@@ -138,8 +138,57 @@ def test_paged_update_and_gather_match_jax():
 
 
 def test_bf16_pool_and_int8_pool():
+    """Pool layouts, and the int8 pool's write and read against the JAX
+    package's bit for bit: payloads and scales after ``paged_update``
+    (position -1 dropped), and the float32 dequantized window of
+    ``paged_gather``."""
     cache = tkv.init_paged_cache(2, 4, 2, 1, 8, torch.bfloat16)
     assert len(cache) == 2 and cache[0]["k"].dtype == torch.bfloat16
     assert tuple(cache[1]["v"].shape) == (4, 2, 1, 8)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tkv.init_paged_cache(1, 4, 2, 1, 8, "int8")
+        tkv.init_paged_cache(1, 4, 2, 1, 8, torch.float16)
+
+    nb, bs, kvh, hd = 8, 4, 2, 16
+    jcache = jkv.init_paged_cache(1, nb, bs, kvh, hd, "int8")[0]
+    tcache = tkv.init_paged_cache(1, nb, bs, kvh, hd, "int8")[0]
+    assert sorted(tcache) == sorted(jcache) == ["k", "k_scale", "v", "v_scale"]
+    for name in tcache:
+        assert tcache[name].dtype == {"k": torch.int8, "v": torch.int8}.get(
+            name, torch.float32)
+        np.testing.assert_array_equal(tcache[name].numpy(), np.asarray(jcache[name]))
+
+    rng = np.random.default_rng(4)
+    bt = np.array([[3, 5, 1], [7, 2, 6]], np.int32)
+    pos = np.array([[0, 1, 2, 3, 4, -1], [0, 1, 2, -1, -1, -1]], np.int32)
+    k_new = rng.standard_normal((2, 6, kvh, hd)).astype(np.float32)
+    v_new = (3.0 * rng.standard_normal((2, 6, kvh, hd))).astype(np.float32)
+    k_new[0, 2, 1] = 0.0  # an all-zero row: scale 1
+    jslots = jkv.slot_mapping(jnp.asarray(bt), jnp.asarray(pos), bs, nb)
+    jcache = jkv.paged_update(jcache, jnp.asarray(k_new), jnp.asarray(v_new), jslots)
+    tkv.paged_update(tcache, T(k_new), T(v_new), tkv.slot_mapping(T(bt), T(pos), bs, nb))
+    for name in tcache:
+        np.testing.assert_array_equal(tcache[name].numpy(), np.asarray(jcache[name]))
+    assert (tcache["k_scale"].numpy() != 0).any(axis=-1).sum() == 8  # 5 + 3 rows
+
+    jk, jv = jkv.paged_gather(jcache, jnp.asarray(bt))
+    tk, tv = tkv.paged_gather(tcache, T(bt))
+    assert tk.dtype == tv.dtype == torch.float32
+    np.testing.assert_array_equal(tk.numpy(), np.asarray(jk))
+    np.testing.assert_array_equal(tv.numpy(), np.asarray(jv))
+
+
+@pytest.mark.parametrize("scale", [1e-4, 1.0, 300.0])
+def test_quantize_rows_matches_jax_bit_for_bit(scale):
+    """Payloads and scales equal for random rows, a zero row, rows whose
+    quotients land on .5 (half to even), and a single huge outlier."""
+    rng = np.random.default_rng(5)
+    x = (scale * rng.standard_normal((3, 5, 2, 64))).astype(np.float32)
+    x[0, 0, 0] = 0.0
+    x[1, 1, 0] = np.float32(scale) * (np.arange(64) - 31.5).astype(np.float32)
+    x[2, 4, 1, 7] = 1e4 * scale
+    jq, js = jkv._quantize_rows(jnp.asarray(x))
+    tq, ts = tkv._quantize_rows(T(x))
+    assert tq.dtype == torch.int8 and ts.dtype == torch.float32
+    np.testing.assert_array_equal(tq.numpy(), np.asarray(jq))
+    np.testing.assert_array_equal(ts.numpy(), np.asarray(js))
+    assert ts[0, 0, 0] == 1.0 and int(tq.abs().max()) == 127

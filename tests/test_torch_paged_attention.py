@@ -3,7 +3,11 @@ takes for CPU tensors) against the JAX Pallas kernel run with
 ``interpret=True``, as ``tests/test_paged_attention.py`` runs it.
 
 Tolerance: 1e-5 absolute in float32 — the Pallas kernel's online softmax
-and the plain version's one-pass softmax sum in different orders.
+and the plain version's one-pass softmax sum in different orders. On int8
+pools the Pallas kernel folds the scales into the scores and
+probabilities while the plain version dequantizes first, so the products
+round differently: atol 2e-5, rtol 2e-4, the tolerance of the JAX suite's
+own int8 case (``tests/test_paged_attention.py``).
 """
 
 import jax.numpy as jnp
@@ -110,12 +114,83 @@ def test_cpu_tensors_never_count_as_launches():
     assert tpa.launches == 0
 
 
-def test_int8_pools_are_not_ported_yet():
+INT8_CASES = {
+    "mha": dict(num_heads=4, kv_heads=4, window=None),
+    "gqa": dict(num_heads=8, kv_heads=2, window=None),
+    "window": dict(num_heads=4, kv_heads=2, window=12),
+}
+
+
+def _int8_pools(k_pool, v_pool):
+    """int8 payloads and float32 row scales, quantized as ``paged_update``
+    stores them (the port's ``_quantize_rows``, equal to the JAX package's
+    bit for bit)."""
+    from dlti_tpu_torch.ops.kv_cache import _quantize_rows
+
+    kq, ks = _quantize_rows(torch.from_numpy(k_pool))
+    vq, vs = _quantize_rows(torch.from_numpy(v_pool))
+    return kq.numpy(), ks.numpy(), vq.numpy(), vs.numpy()
+
+
+@pytest.mark.parametrize("case", list(INT8_CASES))
+def test_int8_pools_match_pallas_interpret(case):
+    """K4's int8 program: the plain version against the Pallas kernel with
+    ``k_scale``/``v_scale``, including a window cutting inside a block and
+    a seq_len of 0."""
+    c = INT8_CASES[case]
+    seq_lens = np.array([5, 17, 32, 0], np.int32)
+    q, k, v, bt = _setup(7, 4, c["num_heads"], c["kv_heads"], 32, 8, 20, 4, seq_lens)
+    kq, ks, vq, vs = _int8_pools(k, v)
+    want = jax_paged_decode_attention(
+        jnp.asarray(q), jnp.asarray(kq), jnp.asarray(vq), jnp.asarray(bt),
+        jnp.asarray(seq_lens), k_scale=jnp.asarray(ks), v_scale=jnp.asarray(vs),
+        window=c["window"], interpret=True)
+    got = tpa.paged_decode_attention(
+        *map(torch.from_numpy, (q, kq, vq, bt, seq_lens)),
+        k_scale=torch.from_numpy(ks), v_scale=torch.from_numpy(vs),
+        window=c["window"])
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-5, rtol=2e-4)
+    assert not got.numpy()[3].any()
+
+
+def test_int8_nan_scales_of_dead_rows_never_leak():
+    """NaN in the scales of every row outside the live range, and garbage
+    table entries past each sequence: the plain version equals itself on
+    clean scales. (The Pallas kernel multiplies whole blocks by their
+    scales, so this case is held against the plain version only.)"""
+    seq_lens = np.array([3, 9, 20], np.int32)
+    q, k, v, bt = _setup(8, 3, 4, 2, 32, 8, 12, 4, seq_lens, garbage_tables=True)
+    kq, ks, vq, vs = _int8_pools(k, v)
+    live = np.zeros(ks.shape[:2], bool)
+    for b, n in enumerate(seq_lens):
+        for t in range(n):
+            live[bt[b, t // 8], t % 8] = True
+    ks_nan, vs_nan = ks.copy(), vs.copy()
+    ks_nan[~live] = np.nan
+    vs_nan[~live] = np.nan
+    args = [torch.from_numpy(a) for a in (q, kq, vq, bt, seq_lens)]
+    got = tpa.paged_decode_attention(*args, k_scale=torch.from_numpy(ks_nan),
+                                     v_scale=torch.from_numpy(vs_nan))
+    want = tpa.paged_decode_attention(*args, k_scale=torch.from_numpy(ks),
+                                      v_scale=torch.from_numpy(vs))
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got, want, atol=0, rtol=0)
+
+
+def test_int8_scale_arguments_are_checked():
+    """Scales are required iff the pools are int8, as in the reference."""
     seq_lens = np.array([4], np.int32)
-    q, k, v, bt = _setup(4, 1, 2, 2, 64, 8, 4, 1, seq_lens)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tpa.paged_decode_attention(
-            torch.from_numpy(q), torch.from_numpy(k).to(torch.int8),
-            torch.from_numpy(v).to(torch.int8), torch.from_numpy(bt),
-            torch.from_numpy(seq_lens), k_scale=torch.ones(4, 8, 2),
-            v_scale=torch.ones(4, 8, 2))
+    q, k, v, bt = map(torch.from_numpy, _setup(4, 1, 2, 2, 64, 8, 4, 1, seq_lens))
+    lens = torch.from_numpy(seq_lens)
+    scales = dict(k_scale=torch.ones(4, 8, 2), v_scale=torch.ones(4, 8, 2))
+    with pytest.raises(ValueError, match="require k_scale"):
+        tpa.paged_decode_attention(q, k.to(torch.int8), v.to(torch.int8), bt, lens)
+    with pytest.raises(ValueError, match="require k_scale"):
+        tpa.paged_decode_attention(q, k.to(torch.int8), v.to(torch.int8), bt, lens,
+                                   k_scale=scales["k_scale"])
+    with pytest.raises(ValueError, match="belong to int8 pools"):
+        tpa.paged_decode_attention(q, k, v, bt, lens, **scales)
+    tpa.launches = tpa.launches_int8 = 0
+    tpa.paged_decode_attention(q, k.to(torch.int8), v.to(torch.int8), bt, lens,
+                               **scales)
+    assert tpa.launches == tpa.launches_int8 == 0  # CPU: the plain version
