@@ -1,0 +1,124 @@
+#!/usr/bin/env python3
+"""Compare checkouts of this repository on one NVIDIA GPU, in turns.
+
+    python3 chip_ab.py [--what flash|step|both] ROOT [ROOT ...]
+
+Each ROOT is a checkout (``.`` for this one; another commit unpacked with
+``git archive`` into a directory that ``.gitignore`` lists). Give them in
+the order to run them, parent and change alternating (``P . . P``), so that
+a drift of the card shows. For each ROOT a fresh process, started in that
+ROOT, builds its kernels and uses that ROOT's own ``chip_smoke.py``:
+
+* ``flash``: K1 (forward) and K3 (dk/dv) at the bf16 shapes of
+  ``chip_smoke.py``'s phase 6, timed by its ``time_ms`` (L2 flushed before
+  each call), and each output's agreement with the plain version. Where the
+  ROOT's ``time_ms`` has a host cover (``HOST_COVER_CYCLES``), the time
+  without it follows in brackets.
+* ``step``: phase 7, the llama2_7b LoRA trainer for 8 steps: step ms and
+  tokens/s.
+
+Prints one line per ROOT and measurement, and the card's name and power
+limit first. Needs the card; exits 1 without one.
+"""
+
+from __future__ import annotations
+
+import argparse
+import subprocess
+import sys
+
+FLASH = r'''
+import sys, torch
+sys.path.insert(0, ".")
+torch.backends.cuda.matmul.allow_tf32 = False
+import chip_smoke as cs
+from dlti_tpu_torch.ops import _build, flash_attention as tfa
+
+_build.build(["flash_attention"])
+flush = torch.empty(64 << 20, dtype=torch.float32, device="cuda")
+gen = torch.Generator(device="cuda").manual_seed(4321)
+SHAPES = {"llama2_7b_train": (4, 512, 32, 32, 128, None),
+          "llama3_8b_gqa": (1, 2048, 32, 8, 128, None),
+          "mistral_7b_window": (1, 8192, 32, 8, 128, 4096),
+          "gemma_7b_d256": (2, 1024, 16, 16, 256, None),
+          "d64": (2, 1024, 16, 16, 64, None)}
+
+def timed(fn):
+    ms = cs.time_ms(torch, fn, 20, flush)
+    cover = getattr(cs, "HOST_COVER_CYCLES", None)
+    if not cover:
+        return f"{ms:.4f}"
+    cs.HOST_COVER_CYCLES = 0
+    try:
+        bare = cs.time_ms(torch, fn, 20, flush)
+    finally:
+        cs.HOST_COVER_CYCLES = cover
+    return f"{ms:.4f} ({bare:.4f})"
+
+for name, (b, s, h, hkv, d, window) in SHAPES.items():
+    q, do = (torch.randn(b, s, h, d, device="cuda", generator=gen).bfloat16() for _ in range(2))
+    k, v = (torch.randn(b, s, hkv, d, device="cuda", generator=gen).bfloat16() for _ in range(2))
+    o, lse = tfa.flash_fwd(q, k, v, window=window)
+    delta = tfa.backward_delta(o, do)
+    dk, dv = tfa.flash_bwd_dkv(q, k, v, do, lse, delta, window=window)
+    chunk = 1024 if s > 2048 else None
+    ro, _ = tfa.flash_attention_reference(q, k, v, window=window, q_chunk=chunk)
+    _, rdk, rdv = tfa.flash_attention_backward_reference(q, k, v, o, lse, do, window=window,
+                                                         q_chunk=chunk)
+    ok = all(cs.within(got, want, "bfloat16")[0]
+             for got, want in ((o, ro), (dk, rdk), (dv, rdv)))
+    k1 = timed(lambda: tfa.flash_fwd(q, k, v, window=window))
+    k3 = timed(lambda: tfa.flash_bwd_dkv(q, k, v, do, lse, delta, window=window))
+    print(f"RESULT flash {name}: K1 {k1} ms, K3 {k3} ms, within phase 6's limit: {ok}",
+          flush=True)
+    del q, k, v, do, o, lse, delta, dk, dv, ro, rdk, rdv
+    torch.cuda.empty_cache()
+'''
+
+STEP = r'''
+import sys, torch
+sys.path.insert(0, ".")
+torch.backends.cuda.matmul.allow_tf32 = False
+import chip_smoke as cs
+
+cs.phase_card_and_build(torch)
+perf = cs.phase_training(torch)[-1]
+print(f"RESULT step: {perf['step_ms']:.1f} ms, {perf['tokens_per_s']:.1f} tokens/s, "
+      f"MFU {perf['mfu_percent']:.2f}%", flush=True)
+'''
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--what", choices=("flash", "step", "both"), default="both")
+    ap.add_argument("roots", nargs="+")
+    args = ap.parse_args()
+    try:
+        import torch
+    except ImportError:
+        print("chip_ab: torch is not installed", file=sys.stderr)
+        return 1
+    if not torch.cuda.is_available():
+        print("chip_ab: no CUDA device", file=sys.stderr)
+        return 1
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True)
+    print(smi.stdout.strip().splitlines()[0] if smi.returncode == 0 else "nvidia-smi failed",
+          flush=True)
+    codes = {"flash": [FLASH], "step": [STEP], "both": [FLASH, STEP]}[args.what]
+    failed = False
+    for root in args.roots:
+        for code in codes:
+            run = subprocess.run([sys.executable, "-c", code], cwd=root,
+                                 capture_output=True, text=True)
+            for line in run.stdout.splitlines():
+                if line.startswith("RESULT "):
+                    print(f"{root}: {line[len('RESULT '):]}", flush=True)
+            if run.returncode != 0:
+                failed = True
+                print(f"{root}: exited {run.returncode}\n{run.stderr[-3000:]}", flush=True)
+    return 1 if failed else 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -38,8 +38,10 @@ Phases, each of which fails the run if its check fails:
    versions: llama2_7b's training shape, llama3_8b's GQA at s 2048,
    mistral_7b's window 4096 at s 8192, head_dim 256 and 64, float32, and a
    packed batch at the unaligned length 1000 with padding rows. Each
-   kernel's time, bound, plain time and SDPA's time (forward for K1, its
-   autograd backward for K2 and K3).
+   kernel's program in each case (``kernel_design``: wgmma on the tensor
+   cores for bf16 K1, and K3 at d 64/128; the CUDA cores otherwise), time,
+   bound, plain time and SDPA's time (forward for K1, its autograd backward
+   for K2 and K3).
 7. The trainer at full width: llama2_7b bf16 with LoRA r=16 on q/k/v/o
    from ``init_params(seed=0)``, 8 steps of ``Trainer.train`` over
    ``make_batches`` (byte tokenizer, texts from a seeded generator, seq 512,
@@ -51,8 +53,9 @@ Phases, each of which fails the run if its check fails:
    the kernels and with ``attention_impl="reference"``, same weights and
    batch, dropout off; then known-wrong controls (the kernels' outputs given
    seeded multiplicative noise), which the same gate must refuse.
-9. Profile of one train step: device busy share, time by kernel group.
-   The trainer is then released.
+9. Profile of one train step: device busy share, time by kernel group;
+   K1 and K3 must appear as their wgmma kernels. The trainer is then
+   released.
 10. The OpenAI server at full width on an int8 KV pool: llama2_7b from the
     serve CLI's own builder (``--random-init llama2_7b --tokenizer byte
     --kv-cache-dtype int8`` and the CLI's defaults: 8 slots, 2048 blocks of
@@ -88,6 +91,7 @@ import dataclasses
 import gc
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -139,10 +143,17 @@ def check(cond: bool, msg: str) -> None:
 # Timing and bounds
 # ----------------------------------------------------------------------
 
+# GPU cycles the card spins before each timed call (about 0.5 ms): the host
+# prepares the call meanwhile, so the start event does not wait on it.
+HOST_COVER_CYCLES = 1_000_000
+
+
 def time_ms(torch, fn, iters: int = 20, flush=None) -> float:
     """Mean device time of ``fn`` by CUDA events around each call. With
     ``flush`` (a large buffer), L2 is overwritten before every call, as the
-    next layer's decode finds it."""
+    next layer's decode finds it. A spin kernel queued ahead of the start
+    event covers the wrapper's host time (argument checks, ctypes), so a
+    short kernel's reading is the card's time, not the host's."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
@@ -150,6 +161,7 @@ def time_ms(torch, fn, iters: int = 20, flush=None) -> float:
     for _ in range(iters):
         if flush is not None:
             flush.zero_()
+        torch.cuda._sleep(HOST_COVER_CYCLES)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -847,7 +859,8 @@ def phase_flash_cases(torch, flush):
             nbytes, ops = work[kname]
             bound_ms, bound_by = bound(nbytes, ops, dtype_name)
             fwd = kname == "flash_fwd"
-            r[kname] = {"ms": times[kname], "bound_ms": bound_ms, "bound_by": bound_by,
+            r[kname] = {"design": tfa.kernel_design(kname, dtype, d),
+                        "ms": times[kname], "bound_ms": bound_ms, "bound_by": bound_by,
                         "plain_ms": plain_fwd if fwd else plain_bwd,
                         "library_ms": lib_fwd if fwd else lib_bwd,
                         "max_abs_err": errs["o"] if fwd else (
@@ -859,9 +872,10 @@ def phase_flash_cases(torch, flush):
             f"{', window %d' % window if window else ''}{', packed' if segs is not None else ''}): "
             f"max abs err o {errs['o']:.3e} dq {errs['dq']:.3e} dk {errs['dk']:.3e} "
             f"dv {errs['dv']:.3e} lse {lse_err:.2e}")
-        for kname in FLASH_REPLACES:
+        for kname, label in zip(FLASH_REPLACES, ("K1", "K2", "K3")):
             x = r[kname]
-            log(f"[flash]   {kname}: {x['ms']:.4f} ms, bound {x['bound_ms']:.4f} ms by "
+            log(f"[flash]   {label} {kname} ({'bf16' if dtype == bf16 else 'fp32'}: "
+                f"{x['design']}): {x['ms']:.4f} ms, bound {x['bound_ms']:.4f} ms by "
                 f"{x['bound_by']}, plain {x['plain_ms']:.4f} ms, sdpa {x['library_ms']:.4f} ms")
         del q, k, v, do, o, lse, delta, dq, dk, dv, ro, rlse, rdq, rdk, rdv
         del sdpa_fwd, sdpa_bwd
@@ -1087,23 +1101,32 @@ def phase_train_profile(torch, state, dataset):
     log(f"[train-profile] one train step under torch.profiler: wall {wall_ms:.1f} ms, "
         f"device busy {busy_ms:.1f} ms ({100 * busy_ms / wall_ms:.1f}% busy), "
         f"{n_kernels} kernels")
-    groups = {}
+    groups, flash_names = {}, {}
     for e in kernels:
         key = e.key
-        if "flash_fwd_kernel" in key:
-            g = "K1 flash_fwd"
-        elif "flash_bwd_dq_kernel" in key:
-            g = "K2 flash_bwd_dq"
-        elif "flash_bwd_dkv_kernel" in key:
-            g = "K3 flash_bwd_dkv"
-        elif "gemm" in key.lower() or "nvjet" in key or "cutlass" in key.lower():
-            g = "matmul (cuBLAS)"
+        # K1 and K3 in bf16 are flash_fwd_wgmma_kernel and
+        # flash_bwd_dkv_wgmma_kernel; the CUDA-core programs drop "_wgmma".
+        kernel = re.search(r"flash_\w+_kernel", key)
+        for label, name in (("K1", "flash_fwd"), ("K2", "flash_bwd_dq"),
+                            ("K3", "flash_bwd_dkv")):
+            if kernel and kernel.group(0).startswith(name + "_"):
+                g = f"{label} {name}"
+                flash_names.setdefault(label, set()).add(kernel.group(0))
+                break
         else:
-            g = "other"
+            if "gemm" in key.lower() or "nvjet" in key or "cutlass" in key.lower():
+                g = "matmul (cuBLAS)"
+            else:
+                g = "other"
         t, c = groups.get(g, (0.0, 0))
         groups[g] = (t + e.self_device_time_total / 1e3, c + e.count)
     for g, (t, c) in sorted(groups.items(), key=lambda x: -x[1][0]):
         log(f"[train-profile]   {t:9.2f} ms {100 * t / busy_ms:5.1f}% x{c:<6d} {g}")
+    log(f"[train-profile] flash kernels by name: "
+        + "; ".join(f"{k}: {', '.join(sorted(v))}" for k, v in sorted(flash_names.items())))
+    for label in ("K1", "K3"):
+        check(any("wgmma" in n for n in flash_names.get(label, ())),
+              f"the train step's {label} did not run its wgmma kernel: {flash_names}")
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]
     for e in top:
         log(f"[train-profile]   top {e.self_device_time_total / 1e3:9.2f} ms x{e.count:<5d} "
@@ -1365,7 +1388,6 @@ def phase_serve_cli(torch):
     completion, and exits 0 on SIGTERM."""
     import os
     import queue
-    import re
     import signal
     import threading
 
@@ -1489,10 +1511,12 @@ def main() -> int:
     })
     # K1-K3: times and bound at the training path's shape (llama2_7b,
     # b 4, s 512, bf16, causal); the error is the worst over every case.
+    # "design" is the program that shape runs.
     at = flash["llama2_7b_train"]
     for name, replaces in FLASH_REPLACES.items():
         kernels.append({
             "name": name,
+            "design": at[name]["design"],
             "route": "cuda",
             "source": "dlti_tpu_torch/csrc/flash_attention.cu",
             "replaces": replaces,

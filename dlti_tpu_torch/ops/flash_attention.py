@@ -12,7 +12,9 @@ and ``_flash_bwd``'s ``_dq_kernel`` / ``_dkv_kernel``).
   :func:`flash_attention_backward_reference`. On a CUDA tensor they launch
   the hand-written kernels of ``csrc/flash_attention.cu`` (K1 forward, K2
   dq, K3 dk/dv) or raise; nothing falls back from a kernel to a plain
-  version.
+  version. In bfloat16, K1 and K3 (at head_dim 64 and 128) run on the
+  tensor cores (wgmma); :func:`kernel_design` names the program a call
+  takes.
 * ``fwd_launches``, ``dq_launches``, ``dkv_launches`` — how many times each
   kernel was launched.
 
@@ -213,17 +215,33 @@ def _kernel_library() -> ctypes.CDLL:
         lib.dlti_flash_bwd_dkv.argtypes = [ptr] * 9 + dims
         for fn in (lib.dlti_flash_fwd, lib.dlti_flash_bwd_dq, lib.dlti_flash_bwd_dkv):
             fn.restype = ctypes.c_int
-        lib.dlti_flash_smem_bytes.argtypes = [i32, i32]
+        lib.dlti_flash_smem_bytes.argtypes = [i32, i32, i32]
         lib.dlti_flash_smem_bytes.restype = ctypes.c_longlong
+        lib.dlti_flash_impl.argtypes = [i32, i32, i32]
+        lib.dlti_flash_impl.restype = ctypes.c_char_p
         lib.dlti_flash_error_string.argtypes = [i32]
         lib.dlti_flash_error_string.restype = ctypes.c_char_p
     return lib
 
 
-def _launch(name: str, which: int, q, k, args, window, causal):
+_KERNELS = {"flash_fwd": 0, "flash_bwd_dq": 1, "flash_bwd_dkv": 2}
+
+
+def kernel_design(name: str, dtype: torch.dtype, head_dim: int) -> str:
+    """The program that kernel ``name`` ("flash_fwd", "flash_bwd_dq",
+    "flash_bwd_dkv") runs for this dtype and head_dim, as the CUDA source
+    names it: "wgmma bf16 hi/lo, cp.async 2-stage" (tensor cores) or
+    "cuda-core fp32". Loads (and, the first time, builds) the library."""
+    if dtype not in _DTYPE_CODES or head_dim not in KERNEL_HEAD_DIMS:
+        raise ValueError(f"no kernel for {dtype} at head_dim {head_dim}")
+    return _kernel_library().dlti_flash_impl(_KERNELS[name], head_dim,
+                                             _DTYPE_CODES[dtype]).decode()
+
+
+def _launch(name: str, q, k, args, window, causal):
     lib = _kernel_library()
     d = q.shape[3]
-    smem = lib.dlti_flash_smem_bytes(which, d)
+    smem = lib.dlti_flash_smem_bytes(_KERNELS[name], d, _DTYPE_CODES[q.dtype])
     limit = torch.cuda.get_device_properties(q.device).shared_memory_per_block_optin
     if smem > limit:
         raise ValueError(f"{name} at head_dim {d} needs {smem} B of shared "
@@ -250,7 +268,7 @@ def flash_fwd(q, k, v, *, causal=True, segment_ids=None, window=None):
     b, sq, h, _ = q.shape
     o = torch.empty_like(q)
     lse = torch.empty(b, h, sq, dtype=torch.float32, device=q.device)
-    _launch("flash_fwd", 0, q, k,
+    _launch("flash_fwd", q, k,
             [q.data_ptr(), k.data_ptr(), v.data_ptr(), _seg_ptr(segment_ids),
              o.data_ptr(), lse.data_ptr()], window, causal)
     fwd_launches += 1
@@ -273,7 +291,7 @@ def flash_bwd_dq(q, k, v, do, lse, delta, *, causal=True, segment_ids=None,
     global dq_launches
     _check_bwd_inputs(q, k, v, do, lse, delta, segment_ids)
     dq = torch.empty_like(q)
-    _launch("flash_bwd_dq", 1, q, k,
+    _launch("flash_bwd_dq", q, k,
             [q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
              lse.data_ptr(), delta.data_ptr(), _seg_ptr(segment_ids),
              dq.data_ptr()], window, causal)
@@ -288,7 +306,7 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, *, causal=True, segment_ids=None,
     _check_bwd_inputs(q, k, v, do, lse, delta, segment_ids)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
-    _launch("flash_bwd_dkv", 2, q, k,
+    _launch("flash_bwd_dkv", q, k,
             [q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
              lse.data_ptr(), delta.data_ptr(), _seg_ptr(segment_ids),
              dk.data_ptr(), dv.data_ptr()], window, causal)

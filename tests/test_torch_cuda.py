@@ -246,6 +246,8 @@ def _flash_case(gen, b, s, h, hkv, d, dtype, *, causal=True, window=None,
     v = torch.randn(b, s, hkv, d, device=dev, generator=gen).to(dtype)
     do = torch.randn(b, s, h, d, device=dev, generator=gen).to(dtype)
     segs = _segments(b, s) if segments else None
+    if segments == "padded_row":  # the last batch row is all padding
+        segs[-1] = 0
     return q, k, v, do, dict(causal=causal, window=window, segment_ids=segs)
 
 
@@ -285,6 +287,57 @@ def test_flash_kernels_edges(gen, s, variant):
                               causal=variant != "noncausal",
                               window=96 if "window" in variant else None,
                               segments="segments" in variant))
+
+
+# bf16 K1 and K3 run on the tensor cores (wgmma; K3 at d 256 stays on the
+# CUDA cores): the edges their 64-row tiles and GQA packing create. s 1, 63
+# and 65 put the end inside or just past one tile; 64/1 packs 64 heads of
+# one position into a tile.
+@pytest.mark.parametrize("s", [1, 63, 65, 200, 1000])
+@pytest.mark.parametrize("h,hkv", [(32, 32), (32, 8), (8, 1), (64, 1)])
+@pytest.mark.parametrize("d", [64, 128, 256])
+def test_bf16_flash_kernels_at_tile_edges(gen, s, h, hkv, d):
+    _check_flash(*_flash_case(gen, 1, s, h, hkv, d, torch.bfloat16))
+
+
+# Non-causal; a window smaller than a tile; packed segments whose last batch
+# row is all padding (every row of it fully masked: o = 0, lse = +1e30).
+@pytest.mark.parametrize("s", [65, 1000])
+@pytest.mark.parametrize("d", [64, 128, 256])
+@pytest.mark.parametrize("variant", ["noncausal", "window40", "segments_padded_row"])
+def test_bf16_flash_kernels_masks(gen, s, d, variant):
+    q, k, v, do, kw = _flash_case(gen, 2, s, 8, 2, d, torch.bfloat16,
+                                  causal=variant != "noncausal",
+                                  window=40 if variant == "window40" else None,
+                                  segments="padded_row" if "segments" in variant else False)
+    _check_flash(q, k, v, do, kw)
+    if kw["segment_ids"] is not None:
+        o, lse = tfa.flash_fwd(q, k, v, **kw)
+        assert not o[-1].any() and (lse[-1] == tfa.MASKED_LSE).all()
+
+
+def test_bf16_flash_reaches_the_tensor_core_kernels(gen):
+    """bf16 K1 and K3 (d 64/128) name the wgmma program and the profiler
+    sees their kernels; float32, K2 and K3 at d 256 keep the CUDA cores."""
+    from torch.profiler import ProfilerActivity, profile
+
+    wgmma = "wgmma bf16 hi/lo, cp.async 2-stage"
+    for d in (64, 128, 256):
+        assert tfa.kernel_design("flash_fwd", torch.bfloat16, d) == wgmma
+        assert tfa.kernel_design("flash_bwd_dkv", torch.bfloat16, d) == (
+            wgmma if d <= 128 else "cuda-core fp32")
+        assert tfa.kernel_design("flash_bwd_dq", torch.bfloat16, d) == "cuda-core fp32"
+        for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+            assert tfa.kernel_design(name, torch.float32, d) == "cuda-core fp32"
+    q, k, v, do, _ = _flash_case(gen, 1, 256, 8, 2, 128, torch.bfloat16)
+    q, k, v = (t.requires_grad_() for t in (q, k, v))
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        tfa.flash_attention(q, k, v).backward(do)
+        torch.cuda.synchronize()
+    names = {e.key for e in prof.key_averages()}
+    assert any("flash_fwd_wgmma_kernel" in n for n in names), names
+    assert any("flash_bwd_dkv_wgmma_kernel" in n for n in names), names
+    assert not any("flash_fwd_kernel" in n for n in names), names
 
 
 def test_flash_autograd_function_launches_all_three(gen):

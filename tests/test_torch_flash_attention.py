@@ -149,3 +149,93 @@ def test_multi_head_attention_dispatch(impl):
     torch.testing.assert_close(got, want, atol=2e-5, rtol=1e-3)
     with pytest.raises(ValueError, match="impl"):
         multi_head_attention(q, k, v, impl="pallas")
+
+
+# ----------------------------------------------------------------------
+# The bf16 tensor-core kernels' arithmetic, emulated in plain torch
+# ----------------------------------------------------------------------
+
+# chip_smoke.py's FLASH_TOL["bfloat16"]: |got - want| <= 1e-3 + 2**-7 |want|.
+PHASE6_ATOL, PHASE6_RTOL = 1e-3, 2.0 ** -7
+# The split must use at most this share of that limit: 20x margin.
+SPLIT_SHARE = 0.05
+
+
+def _split(x):
+    """hi = bf16(x), lo = bf16(x - hi), both back in float32."""
+    hi = x.to(torch.bfloat16).float()
+    return hi, (x - hi).to(torch.bfloat16).float()
+
+
+def _bf16_kernel_emulation(q, k, v, do, *, segment_ids, window, p_operand):
+    """What bf16 K1 and K3 compute: q, k, v, dO bf16; q k^T and dO v^T
+    summed in float32 (a product of two bf16 values is exact there); the
+    float32 operand of p v, p^T dO and ds^T q turned into bf16 tensor-core
+    operands by ``p_operand`` (the kernels' hi/lo split: two products into
+    one float32 sum). The online softmax over kv tiles is written as one
+    softmax: the same sum in another order. Returns float32 o, dk, dv."""
+    b, s, h, d = q.shape
+    hkv = k.shape[2]
+    scale = d ** -0.5
+    qg, kf, vf, dog = (t.float() for t in (q, k, v, do))
+    qg, dog = qg.reshape(b, s, hkv, h // hkv, d), dog.reshape(b, s, hkv, h // hkv, d)
+    allowed = tfa._allowed(b, s, s, True, segment_ids, window, 0, s, "cpu")[:, None, None]
+
+    def prod(eq, x, y):  # sum of the operand's bf16 parts times y, in float32
+        return sum(torch.einsum(eq, part, y) for part in p_operand(x))
+
+    sc = torch.einsum("bqngd,bknd->bngqk", qg, kf).masked_fill(~allowed, float("-inf")) * scale
+    m = sc.amax(-1, keepdim=True)
+    p = torch.exp(sc - torch.where(torch.isfinite(m), m, torch.zeros_like(m)))
+    l = p.sum(-1, keepdim=True)
+    o = prod("bngqk,bknd->bqngd", p, vf) / torch.where(l > 0, l, 1.0).permute(0, 3, 1, 2, 4)
+    lse = torch.where(l > 0, m + torch.log(l), torch.full_like(l, tfa.MASKED_LSE))
+    o = o.reshape(b, s, h, d)
+    delta = tfa.backward_delta(o, do).reshape(b, hkv, h // hkv, s, 1)
+    p = torch.where(allowed, torch.exp(sc - lse), torch.zeros_like(sc))
+    dp = torch.einsum("bqngd,bknd->bngqk", dog, vf)
+    ds = torch.where(allowed, p * (dp - delta) * scale, torch.zeros_like(sc))
+    return (o, prod("bngqk,bqngd->bknd", ds, qg), prod("bngqk,bqngd->bknd", p, dog))
+
+
+_SPLIT_CASES = {
+    # rows 1 and 2 attend to two and three keys: p far from 0 and 1
+    "early_causal_rows": dict(b=1, s=64, h=4, hkv=4),
+    "gqa_8_2": dict(b=2, s=128, h=8, hkv=2),
+    "segments_zero_rows": dict(b=2, s=128, h=4, hkv=2, segments=True),
+    "window_24": dict(b=1, s=128, h=4, hkv=2, window=24),
+}
+
+
+def _phase6_share(case, p_operand):
+    """Largest |emulation - reference| over the phase-6 limit, for o, dk
+    and dv; the reference is the plain versions on the same bf16 values in
+    float32, compared before either rounds its output."""
+    c = _SPLIT_CASES[case]
+    rng = np.random.default_rng(7)
+    shapes = [(c["b"], c["s"], c["h"], 64), (c["b"], c["s"], c["hkv"], 64)]
+    q, k, v, do = (torch.from_numpy(rng.standard_normal(shapes[i]).astype(np.float32))
+                   .to(torch.bfloat16) for i in (0, 1, 1, 0))
+    segs = (torch.from_numpy(np.array(make_packed_segments(c["b"], c["s"], n_docs=2)))
+            if c.get("segments") else None)
+    kw = dict(segment_ids=segs, window=c.get("window"))
+    got = _bf16_kernel_emulation(q, k, v, do, p_operand=p_operand, **kw)
+    ro, rlse = tfa.flash_attention_reference(q.float(), k.float(), v.float(), **kw)
+    _, rdk, rdv = tfa.flash_attention_backward_reference(
+        q.float(), k.float(), v.float(), ro, rlse, do.float(), **kw)
+    return max(((g - w).abs() / (PHASE6_ATOL + PHASE6_RTOL * w.abs())).max().item()
+               for g, w in zip(got, (ro, rdk, rdv)))
+
+
+@pytest.mark.parametrize("case", sorted(_SPLIT_CASES))
+def test_bf16_hi_lo_split_stays_far_inside_the_phase6_limit(case):
+    """The split carries ~16 bits of p and ds: error ~2**-17 relative."""
+    assert _phase6_share(case, _split) <= SPLIT_SHARE
+
+
+@pytest.mark.parametrize("case", sorted(_SPLIT_CASES))
+def test_bf16_rounding_p_alone_would_break_the_phase6_limit(case):
+    """Known-wrong control: p and ds rounded once to bf16 (FlashAttention-2's
+    numerics) move o, dk and dv past the same limit, which is why the
+    kernels split them."""
+    assert _phase6_share(case, lambda x: (x.to(torch.bfloat16).float(),)) > 1.0
