@@ -20,7 +20,8 @@ Phases, each of which fails the run if its check fails:
    row that is not live with garbage table entries (SDPA over the window
    dequantized once, outside the timed call). bf16 cases are held to an
    absolute limit and to one relative to each batch row's largest output;
-   a planted 25% scale fault in a late tile must fail the second.
+   a planted 25% scale fault in a late tile must fail the second. Each case
+   prints its program and its split-K plan (splits x tokens a split).
 3. The engine at full width: llama2_7b in bfloat16 from
    ``init_params(seed=0)``, 12 requests (prompts of 16 to 300 tokens,
    greedy and seeded sampling) submitted to ``InferenceEngine`` and driven
@@ -32,14 +33,16 @@ Phases, each of which fails the run if its check fails:
    and K4 against its plain version on the engine's real pool, tables and
    lengths, where its time is taken for the record.
 5. Profile: ``torch.profiler`` over the remaining decode steps of phase 4's
-   batch, for the device's busy share and the kernels by device time.
-   The engine and its KV pool are then released.
+   batch, for the device's busy share and the kernels by device time; K4's
+   split kernel and its combine kernel must both run. The engine and its KV
+   pool are then released.
 6. Flash attention K1 (forward), K2 (dq) and K3 (dk/dv) against their plain
    versions: llama2_7b's training shape, llama3_8b's GQA at s 2048,
    mistral_7b's window 4096 at s 8192, head_dim 256 and 64, float32, and a
    packed batch at the unaligned length 1000 with padding rows. Each
    kernel's program in each case (``kernel_design``: wgmma on the tensor
-   cores for bf16 K1, and K3 at d 64/128; the CUDA cores otherwise), time,
+   cores for bf16 K1 and K2, and K3 at d 64/128, which bf16 K2 must run;
+   the CUDA cores otherwise), time,
    bound, plain time and SDPA's time (forward for K1, its autograd backward
    for K2 and K3).
 7. The trainer at full width: llama2_7b bf16 with LoRA r=16 on q/k/v/o
@@ -54,7 +57,7 @@ Phases, each of which fails the run if its check fails:
    batch, dropout off; then known-wrong controls (the kernels' outputs given
    seeded multiplicative noise), which the same gate must refuse.
 9. Profile of one train step: device busy share, time by kernel group;
-   K1 and K3 must appear as their wgmma kernels. The trainer is then
+   K1, K2 and K3 must appear as their wgmma kernels. The trainer is then
    released.
 10. The OpenAI server at full width on an int8 KV pool: llama2_7b from the
     serve CLI's own builder (``--random-init llama2_7b --tokenizer byte
@@ -321,6 +324,7 @@ def measure_kernel(torch, tpa, q, k_pool, v_pool, tables, lens, window, flush,
     those of q's dtype, in which both versions compute."""
     kw = dict(window=window, **(scales or {}))
     out = tpa.paged_decode_attention(q, k_pool, v_pool, tables, lens, **kw)
+    splits, chunk = tpa.last_plan  # the plan this launch ran
     torch.cuda.synchronize()
     ref = tpa.paged_decode_attention_reference(q, k_pool, v_pool, tables, lens, **kw)
     check(torch.isfinite(out).all().item(), "kernel output is not finite")
@@ -336,7 +340,8 @@ def measure_kernel(torch, tpa, q, k_pool, v_pool, tables, lens, window, flush,
         torch, q, k_pool, v_pool, tables, lens, window, **(scales or {})), flush=flush)
     return {"max_abs_err": err, "tol": TOL[dtype_name], "row_rel_err": row_rel,
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": library_ms, "bytes": nbytes, "ops": ops}
+            "library_ms": library_ms, "bytes": nbytes, "ops": ops, "splits": splits,
+            "chunk": chunk, "design": tpa.kernel_design(k_pool.dtype, q.shape[3])}
 
 
 def planted_scale_fault(torch, tpa, q, k_pool, v_pool, tables, lens, scales):
@@ -404,7 +409,8 @@ def phase_kernel_cases(torch, flush):
         *inputs, scales = make_decode_case(torch, gen, block_size=16, **kw)
         r = measure_kernel(torch, tpa, *inputs, window, flush, scales=scales)
         (int8_results if scales else results)[name] = r
-        log(f"[kernel] {name}: max_abs_err {r['max_abs_err']:.3e} (tol "
+        log(f"[kernel] {name} ({r['design']}; {r['splits']} splits of {r['chunk']} "
+            f"tokens): max_abs_err {r['max_abs_err']:.3e} (tol "
             f"{r['tol']:.3e}), row rel {r['row_rel_err']:.3e}; kernel {r['ms']:.4f} "
             f"ms, bound {r['bound_ms']:.4f} ms by {r['bound_by']}, plain "
             f"{r['plain_ms']:.4f} ms, sdpa"
@@ -620,7 +626,8 @@ def phase_in_model(torch, engine, flush):
     scales = {k: layer[k] for k in ("k_scale", "v_scale") if k in layer}
     r = measure_kernel(torch, tpa, q, layer["k"], layer["v"], tables, lens,
                        cfg.sliding_window, flush, scales=scales)
-    log(f"{tag} {kname} on the engine's pool (seq_lens {lens.tolist()}): "
+    log(f"{tag} {kname} on the engine's pool (seq_lens {lens.tolist()}; {r['design']}; "
+        f"{r['splits']} splits of {r['chunk']} tokens): "
         f"max_abs_err {r['max_abs_err']:.3e} (tol {r['tol']:.3e}), row rel "
         f"{r['row_rel_err']:.3e} (tol {ROW_REL_TOL:.3e}); kernel "
         f"{r['ms']:.4f} ms, bound {r['bound_ms']:.4f} ms by {r['bound_by']}, "
@@ -663,8 +670,21 @@ def phase_profile(torch, engine):
         log(f"[profile]   {e.self_device_time_total / 1e3 / steps:8.3f} ms/step "
             f"{100 * e.self_device_time_total / 1e3 / busy_ms:5.1f}% x{e.count // steps:<4d} "
             f"{e.key[:90]}")
+    # K4 as split-K: its split kernel and its combine kernel, each once per
+    # layer per step.
+    k4 = {}
+    for e in kernels:
+        for name in ("paged_decode_kernel", "paged_decode_combine_kernel"):
+            if name in e.key:
+                t, c = k4.get(name, (0.0, 0))
+                k4[name] = (t + e.self_device_time_total / 1e3 / steps, c + e.count // steps)
+    log("[profile] K4 by kernel: " + "; ".join(
+        f"{n} {t:.3f} ms/step x{c}" for n, (t, c) in sorted(k4.items())))
+    check(set(k4) == {"paged_decode_kernel", "paged_decode_combine_kernel"},
+          f"the decode step did not run K4's split and combine kernels: {sorted(k4)}")
     return {"steps": steps, "wall_ms_per_step": wall_ms / steps,
-            "busy_ms_per_step": busy_ms / steps, "kernels_per_step": n_kernels / steps}
+            "busy_ms_per_step": busy_ms / steps, "kernels_per_step": n_kernels / steps,
+            "k4_ms_per_step": sum(t for t, _ in k4.values())}
 
 
 # ----------------------------------------------------------------------
@@ -867,6 +887,9 @@ def phase_flash_cases(torch, flush):
                             errs["dq"] if kname == "flash_bwd_dq"
                             else max(errs["dk"], errs["dv"])),
                         "bytes": nbytes, "ops": ops}
+        if dtype == bf16:
+            check(r["flash_bwd_dq"]["design"].startswith("wgmma"),
+                  f"{name}: bf16 K2 did not run its wgmma program")
         results[name] = r
         log(f"[flash] {name} (b {b}, s {s}, h {h}/{hkv}, d {d}, {dtype_name}"
             f"{', window %d' % window if window else ''}{', packed' if segs is not None else ''}): "
@@ -1104,8 +1127,9 @@ def phase_train_profile(torch, state, dataset):
     groups, flash_names = {}, {}
     for e in kernels:
         key = e.key
-        # K1 and K3 in bf16 are flash_fwd_wgmma_kernel and
-        # flash_bwd_dkv_wgmma_kernel; the CUDA-core programs drop "_wgmma".
+        # K1, K2 and K3 in bf16 are flash_fwd_wgmma_kernel,
+        # flash_bwd_dq_wgmma_kernel and flash_bwd_dkv_wgmma_kernel; the
+        # CUDA-core programs drop "_wgmma".
         kernel = re.search(r"flash_\w+_kernel", key)
         for label, name in (("K1", "flash_fwd"), ("K2", "flash_bwd_dq"),
                             ("K3", "flash_bwd_dkv")):
@@ -1124,7 +1148,7 @@ def phase_train_profile(torch, state, dataset):
         log(f"[train-profile]   {t:9.2f} ms {100 * t / busy_ms:5.1f}% x{c:<6d} {g}")
     log(f"[train-profile] flash kernels by name: "
         + "; ".join(f"{k}: {', '.join(sorted(v))}" for k, v in sorted(flash_names.items())))
-    for label in ("K1", "K3"):
+    for label in ("K1", "K2", "K3"):
         check(any("wgmma" in n for n in flash_names.get(label, ())),
               f"the train step's {label} did not run its wgmma kernel: {flash_names}")
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]
@@ -1482,6 +1506,7 @@ def main() -> int:
     worst = max([r["max_abs_err"] for r in cases.values()] + [main_path["max_abs_err"]])
     kernels = [{
         "name": "paged_decode_attention",
+        "design": main_path["design"],
         "route": "cuda",
         "source": "dlti_tpu_torch/csrc/paged_attention.cu",
         "replaces": KERNEL_REPLACES,
@@ -1497,6 +1522,7 @@ def main() -> int:
     # error is the worst over phase 2's int8 cases and that state.
     kernels.append({
         "name": "paged_decode_attention_int8",
+        "design": int8_main["design"],
         "route": "cuda",
         "source": "dlti_tpu_torch/csrc/paged_attention.cu",
         "replaces": KERNEL_REPLACES + " (quantized=True)",

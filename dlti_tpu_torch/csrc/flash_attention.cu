@@ -9,7 +9,9 @@
 //                         flash_fwd_kernel.
 //   K2 dq                 replaces _dq_kernel (:366), launched by _flash_bwd
 //                         (:490, pl.pallas_call :527): dq = sum_j ds k with
-//                         ds = p (dO v^T - D) d^-1/2. flash_bwd_dq_kernel.
+//                         ds = p (dO v^T - D) d^-1/2.
+//                         bf16: flash_bwd_dq_wgmma_kernel; float32:
+//                         flash_bwd_dq_kernel.
 //   K3 dk/dv              replaces _dkv_kernel (:424), launched by _flash_bwd
 //                         (pl.pallas_call :560): dv = sum p^T dO,
 //                         dk = sum ds^T q over every query head of the group.
@@ -53,7 +55,7 @@
 // widened to float32 in shared memory and every product re-reads both
 // operands from it. They took 37-39x their bound in bf16.
 //
-// The bf16 programs (K1; K3 at d 64 and 128) put every product on the tensor
+// The bf16 programs (K1, K2; K3 at d 64 and 128) put every product on the tensor
 // cores with wgmma, one warpgroup (128 threads) per block:
 // * Tiles stay bf16 in shared memory in the layout wgmma's descriptors name:
 //   column blocks of 64 channels (128 bytes a row), 16-byte chunk c of row r
@@ -69,13 +71,19 @@
 //   row max and sum by shuffles inside each quad, l summed from the float32
 //   p); O += P V by wgmma with P from registers (the accumulator's layout is
 //   the A-fragment layout) and V as a transposed B from shared memory.
+// * K2: Q and dO stay in shared memory, K and V stream through the ring;
+//   S = Q K^T and dP = dO V^T by wgmma; P = exp(S scale - lse) and
+//   dS = P (dP - D) scale in registers; dQ += dS K by wgmma with dS from
+//   registers and K as an MN-major B (the kv rows are the reduction). Each
+//   thread's two rows keep their lse and D in registers. 32-row kv tiles at
+//   d 256, as K1, for the 128-register dq accumulator.
 // * K3: S^T = K Q^T and dP^T = V dO^T by wgmma; P^T = exp(S^T scale - lse)
 //   and dS^T = P^T (dP^T - D) scale in registers; dV += P^T dO and
 //   dK += dS^T Q by wgmma with the A operand from registers.
 // * Numerics, the hi/lo split. The Pallas kernels upcast the bf16 tiles and
 //   multiply in float32 (:171-173, :347-350). A product of two bf16 values
 //   is exact in a float32 accumulator, so q k^T and dO v^T on bf16 tensor
-//   cores equal float32 FMAs up to the order of the sum. p, p^T and ds^T
+//   cores equal float32 FMAs up to the order of the sum. p, p^T, ds and ds^T
 //   are float32, though: rounding one to bf16 (as FlashAttention-2 does)
 //   moves o by up to 2^-9 |v|, past the 1e-3 limit where o is near 0. So
 //   each is split into hi = bf16(x) and lo = bf16(x - hi), and two wgmmas
@@ -91,8 +99,7 @@
 // TMA and mbarriers, consumer warpgroups with setmaxnreg), overlapping one
 // tile's softmax with the next tile's q k^T, persistent blocks with a causal
 // schedule that balances the triangle, clusters sharing K/V tiles by
-// multicast, K2 on the tensor cores, and K3 at d 256 split across two
-// warpgroups.
+// multicast, and K3 at d 256 split across two warpgroups.
 //
 // Built by dlti_tpu_torch/ops/_build.py:
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
@@ -368,7 +375,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
-// K2: dq, CUDA cores
+// K2 in float32: CUDA cores
 // ---------------------------------------------------------------------------
 
 template <int D, int BK>
@@ -1379,6 +1386,178 @@ flash_bwd_dkv_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ 
 }
 
 // ---------------------------------------------------------------------------
+// K2, bf16: wgmma
+// ---------------------------------------------------------------------------
+
+template <int D, int BK>
+constexpr size_t dq_wgmma_smem_bytes() {
+  // alignment slack; Q and dO; two stages of K and V; two stages of kv ids
+  return 1024 + sizeof(bf16) * (2 * (size_t)kRows * D + 4 * (size_t)BK * D)
+         + sizeof(int) * 2 * BK;
+}
+
+template <int D, int BK>
+__global__ void __launch_bounds__(kWgThreads, 1)
+flash_bwd_dq_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                          const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                          const float* __restrict__ lse, const float* __restrict__ delta,
+                          const int32_t* __restrict__ seg, bf16* __restrict__ dq,
+                          FlashParams p) {
+  constexpr int KT = BK * D;  // elements of one K or V tile
+  extern __shared__ uint8_t smem_raw[];
+  bf16* qs = reinterpret_cast<bf16*>(align_1024(smem_raw));
+  bf16* dos = qs + kRows * D;
+  bf16* ks = dos + kRows * D;  // two stages
+  bf16* vs = ks + 2 * KT;      // two stages
+  int* kseg = reinterpret_cast<int*>(vs + 2 * KT);  // two stages of BK ids
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int b = blockIdx.y / p.kv_heads, kvh = blockIdx.y % p.kv_heads;
+  // Last q tile first, as in K1: the longest blocks start first.
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * p.bq;
+  const int q_end = min(q0 + p.bq, p.sq);
+
+  // This thread's two rows of the tile (16 warp + lane / 4, and 8 below):
+  // position, segment id, and their lse and D in log2 units. A slot with no
+  // row gets lse = +1e30, so its p is 0.
+  int row_q[2], row_seg[2];
+  float lse2[2], dl[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = 16 * warp + (lane >> 2) + 8 * h;
+    row_q[h] = slot_q(p, q0, r);
+    const bool ok = row_q[h] < p.sq;
+    row_seg[h] = (p.has_seg && ok) ? seg[(size_t)b * p.sq + row_q[h]] : 0;
+    const size_t at = ((size_t)b * p.heads + kvh * p.group + r / p.bq) * p.sq + row_q[h];
+    lse2[h] = (ok ? lse[at] : kMaskedLse) * kLog2e;
+    dl[h] = ok ? delta[at] : 0.f;
+  }
+  int q_mn = 0, q_mx = 0;
+  if (p.has_seg) seg_range(seg, (size_t)b * p.sq, q0, q_end, &q_mn, &q_mx);
+
+  int k_lo = 0, k_hi = p.skv;
+  if (p.causal) {
+    k_hi = min(p.skv, q_end);
+    if (p.window > 0) k_lo = max(0, q0 - p.window + 1);
+  }
+  auto next_tile = [&](int k0) {
+    for (; k0 < k_hi && p.has_seg; k0 += BK) {
+      int mn, mx;
+      seg_range(seg, (size_t)b * p.skv, k0, min(k0 + BK, p.skv), &mn, &mx);
+      if (q_mn <= mx && q_mx >= mn) break;
+    }
+    return k0;
+  };
+  auto load_kv = [&](int k0, int stage) {
+    auto kv_row = [&](const bf16* base) {
+      return [&, base](int r) -> const bf16* {
+        if (k0 + r >= p.skv) return nullptr;
+        return base + (((size_t)b * p.skv + k0 + r) * p.kv_heads + kvh) * D;
+      };
+    };
+    load_tile_async<BK, D>(ks + stage * KT, k, kv_row(k));
+    load_tile_async<BK, D>(vs + stage * KT, v, kv_row(v));
+    if (p.has_seg && tid < BK)
+      cp_async4(kseg + stage * BK + tid, seg + (size_t)b * p.skv + k0 + tid, k0 + tid < p.skv);
+  };
+
+  auto q_row = [&](const bf16* base) {
+    return [&, base](int r) -> const bf16* {
+      const int qi = slot_q(p, q0, r);
+      if (qi >= p.sq) return nullptr;
+      return base + (((size_t)b * p.sq + qi) * p.heads + kvh * p.group + r / p.bq) * D;
+    };
+  };
+  load_tile_async<kRows, D>(qs, q, q_row(q));
+  load_tile_async<kRows, D>(dos, dout, q_row(dout));
+  int cur = next_tile(k_lo);
+  if (cur < k_hi) load_kv(cur, 0);
+  cp_async_commit();
+
+  float acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  const float sl2 = p.scale * kLog2e;
+  const uint32_t qs_addr = smem_addr(qs), dos_addr = smem_addr(dos);
+
+  for (int stage = 0; cur < k_hi; stage ^= 1) {
+    const int nxt = next_tile(cur + BK);
+    if (nxt < k_hi) load_kv(nxt, stage ^ 1);
+    cp_async_commit();
+    cp_async_wait<1>();  // tile `cur` (and Q, dO) landed
+    fence_proxy_async();
+    __syncthreads();
+    const uint32_t ks_addr = smem_addr(ks + stage * KT);
+    const uint32_t vs_addr = smem_addr(vs + stage * KT);
+
+    // S = Q K^T and dP = dO V^T: 64 rows x BK kv columns each.
+    float s[BK / 2], dp[BK / 2];
+#pragma unroll
+    for (int i = 0; i < BK / 2; ++i) s[i] = dp[i] = 0.f;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss<BK>(s, desc_k_major<kRows>(qs_addr, kk), desc_k_major<BK>(ks_addr, kk), kk > 0);
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss<BK>(dp, desc_k_major<kRows>(dos_addr, kk), desc_k_major<BK>(vs_addr, kk), kk > 0);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(s);
+    fence_regs(dp);
+
+    // P = exp(S scale - lse), dS = P (dP - D) scale; masked only on a tile
+    // that crosses the band, the kv end or a segment edge (K rows past the
+    // end are zero, but a p there could overflow and make 0 * inf).
+    const bool full = !p.has_seg && cur + BK <= p.skv
+                      && (!p.causal || (cur + BK - 1 <= q0
+                                        && (p.window == 0 || cur > q_end - 1 - p.window)));
+    const int* ts = kseg + stage * BK;
+#pragma unroll
+    for (int i = 0; i < BK / 2; ++i) {
+      const int h = (i >> 1) & 1, col = 8 * (i >> 2) + 2 * (lane & 3) + (i & 1);
+      float pr = exp2f(fmaf(s[i], sl2, -lse2[h]));
+      if (!full && !allowed(p, row_q[h], cur + col, row_seg[h], p.has_seg ? ts[col] : 0))
+        pr = 0.f;
+      s[i] = pr * (dp[i] - dl[h]) * p.scale;
+    }
+
+    // dQ += dS K: A = dS (hi and lo) from registers, B = K as an MN-major
+    // operand (the BK kv rows are the reduction).
+    uint32_t ds_hi[BK / 16][4], ds_lo[BK / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) split_hi_lo(s, kk, ds_hi[kk], ds_lo[kk]);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      wgmma_rs<D>(acc, ds_hi[kk], desc_mn_major<BK>(ks_addr, kk), 1);
+      wgmma_rs<D>(acc, ds_lo[kk], desc_mn_major<BK>(ks_addr, kk), 1);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(acc);
+    fence_regs(ds_hi);
+    fence_regs(ds_lo);
+    __syncthreads();  // every warp is done with this stage before it is refilled
+    cur = nxt;
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = 16 * warp + (lane >> 2) + 8 * h;
+    const int qi = row_q[h];
+    if (qi >= p.sq) continue;
+    bf16* row = dq + (((size_t)b * p.sq + qi) * p.heads + kvh * p.group + r / p.bq) * D
+                + 2 * (lane & 3);
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(row + 8 * j) =
+          __floats2bfloat162_rn(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+  }
+}
+
+// ---------------------------------------------------------------------------
 // Launch
 // ---------------------------------------------------------------------------
 
@@ -1389,13 +1568,14 @@ template <int D> constexpr int kv_tile() { return D == 256 ? 32 : 64; }
 // Whether kernel `which` (0 = K1, 1 = K2, 2 = K3) at head_dim d and dtype
 // code `dtype` runs its wgmma program or its CUDA-core one.
 constexpr bool uses_wgmma(int which, int d, int dtype) {
-  return dtype == 1 && (which == 0 || (which == 2 && d <= 128));
+  return dtype == 1 && (which <= 1 || (which == 2 && d <= 128));
 }
 
 template <int D> size_t smem_for(int which, int dtype) {
   constexpr int BK = kv_tile<D>();
   if (uses_wgmma(which, D, dtype)) {
     if (which == 0) return fwd_wgmma_smem_bytes<D, fwd_wgmma_tile<D>()>();
+    if (which == 1) return dq_wgmma_smem_bytes<D, fwd_wgmma_tile<D>()>();
     if constexpr (D <= 128) return dkv_wgmma_smem_bytes<D>();
   }
   if (which == 0) return fwd_smem_bytes<D, BK>();
@@ -1427,7 +1607,7 @@ cudaError_t set_smem(Kernel kernel, size_t smem) {
                               (int)smem);
 }
 
-// The wgmma programs (bf16): K1 at every head_dim, K3 at d 64 and 128.
+// The wgmma programs (bf16): K1 and K2 at every head_dim, K3 at d 64 and 128.
 template <int D>
 cudaError_t launch_wgmma(int which, const void* q, const void* k, const void* v,
                          const void* dout, const void* lse, const void* delta,
@@ -1445,6 +1625,13 @@ cudaError_t launch_wgmma(int which, const void* q, const void* k, const void* v,
     dim3 grid((p.sq + p.bq - 1) / p.bq, p.batch * p.kv_heads);
     kernel<<<grid, kWgThreads, smem, stream>>>(tq, tk, tv, sg, static_cast<bf16*>(out0),
                                                static_cast<float*>(out_lse), p);
+  } else if (which == 1) {
+    auto kernel = flash_bwd_dq_wgmma_kernel<D, fwd_wgmma_tile<D>()>;
+    if ((err = set_smem(kernel, smem)) != cudaSuccess) return err;
+    dim3 grid((p.sq + p.bq - 1) / p.bq, p.batch * p.kv_heads);
+    kernel<<<grid, kWgThreads, smem, stream>>>(
+        tq, tk, tv, static_cast<const bf16*>(dout), static_cast<const float*>(lse),
+        static_cast<const float*>(delta), sg, static_cast<bf16*>(out0), p);
   } else if constexpr (D <= 128) {
     auto kernel = flash_bwd_dkv_wgmma_kernel<D>;
     if ((err = set_smem(kernel, smem)) != cudaSuccess) return err;
@@ -1457,8 +1644,7 @@ cudaError_t launch_wgmma(int which, const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
-// The CUDA-core programs: every kernel in float32; K2, and K3 at d 256, in
-// bf16.
+// The CUDA-core programs: every kernel in float32; K3 at d 256 in bf16.
 template <typename T, int D>
 cudaError_t launch(int which, const void* q, const void* k, const void* v,
                    const void* dout, const void* lse, const void* delta,
@@ -1484,12 +1670,14 @@ cudaError_t launch(int which, const void* q, const void* k, const void* v,
                                                static_cast<float*>(out_lse), p);
     }
   } else if (which == 1) {
-    auto kernel = flash_bwd_dq_kernel<T, D, BK>;
-    if ((err = set_smem(kernel, smem)) != cudaSuccess) return err;
-    dim3 grid((p.sq + p.bq - 1) / p.bq, p.batch * p.kv_heads);
-    kernel<<<grid, kThreads, smem, stream>>>(
-        tq, tk, tv, static_cast<const T*>(dout), static_cast<const float*>(lse),
-        static_cast<const float*>(delta), sg, static_cast<T*>(out0), p);
+    if constexpr (dtype == 0) {
+      auto kernel = flash_bwd_dq_kernel<T, D, BK>;
+      if ((err = set_smem(kernel, smem)) != cudaSuccess) return err;
+      dim3 grid((p.sq + p.bq - 1) / p.bq, p.batch * p.kv_heads);
+      kernel<<<grid, kThreads, smem, stream>>>(
+          tq, tk, tv, static_cast<const T*>(dout), static_cast<const float*>(lse),
+          static_cast<const float*>(delta), sg, static_cast<T*>(out0), p);
+    }
   } else if constexpr (dtype == 0 || D > 128) {
     auto kernel = flash_bwd_dkv_kernel<T, D, BK>;
     if ((err = set_smem(kernel, smem)) != cudaSuccess) return err;

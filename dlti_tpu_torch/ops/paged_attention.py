@@ -11,14 +11,19 @@ per-(token, kv head) float32 scales (the kernel's ``quantized`` program).
   plain version; a CUDA tensor launches the hand-written kernel
   ``csrc/paged_attention.cu`` (built on first use by ``ops._build``) or
   raises. There is no fallback from the kernel to the plain version.
+* :func:`split_plan` — how the kernel splits each sequence's tokens
+  (split-K), chosen from static shapes only, never from ``seq_lens``.
 * ``launches`` / ``launches_int8`` — how many times the wrapper launched
-  the kernel on a float pool / on an int8 pool.
+  the kernel on a float pool / on an int8 pool (one per call; each call
+  also launches the combine kernel). ``last_plan`` — the ``(splits,
+  chunk)`` of the wrapper's last launch.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+import functools
+from typing import Optional, Tuple
 
 import torch
 
@@ -28,10 +33,21 @@ KERNEL_HEAD_DIMS = (16, 32, 64, 128, 256)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _INT8_CODE = 2  # pools only
 
+# Split-K: the kernel walks its tokens in tiles of TILE_TOKENS and serves up
+# to MAX_HEADS_PER_BLOCK query heads a block (kTile, kMaxHeads in the
+# source, which the library reports and _kernel_library checks); the host
+# aims for SPLIT_BLOCKS_PER_SM blocks per SM (several waves, so that no SM
+# waits on one long sequence), with splits of at least MIN_SPLIT_TOKENS.
+TILE_TOKENS = 32
+MAX_HEADS_PER_BLOCK = 8
+SPLIT_BLOCKS_PER_SM = 8
+MIN_SPLIT_TOKENS = 64
+
 # Kernel launches made by paged_decode_attention (plain CPU calls excluded):
 # on float pools, and on int8 pools.
 launches = 0
 launches_int8 = 0
+last_plan: Optional[Tuple[int, int]] = None
 
 
 def _check_scales(k_pool, k_scale, v_scale) -> None:
@@ -139,19 +155,59 @@ def _check_kernel_inputs(q, k_pool, v_pool, block_tables, seq_lens,
         raise ValueError("pools must be 16-byte aligned")
 
 
+def split_plan(batch: int, num_heads: int, kv_heads: int, max_len: int,
+               sm_count: int) -> Tuple[int, int]:
+    """``(splits, chunk)``: split s of every sequence covers tokens
+    ``[s * chunk, (s + 1) * chunk)``; ``splits * chunk >= max_len``, the
+    table's ``max_blocks * block_size``. Static shapes only: the kernel
+    cuts each split to the live window itself, so no launch reads
+    ``seq_lens`` on the host."""
+    blocks = batch * kv_heads * -(-(num_heads // kv_heads) // MAX_HEADS_PER_BLOCK)
+    want = -(-SPLIT_BLOCKS_PER_SM * sm_count // blocks)
+    chunk = max(MIN_SPLIT_TOKENS, -(-max_len // want))
+    chunk = -(-chunk // TILE_TOKENS) * TILE_TOKENS
+    return -(-max_len // chunk), chunk
+
+
 def _kernel_library() -> ctypes.CDLL:
     lib = _build.load_library("paged_attention")
     fn = lib.dlti_paged_decode_attention
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 8
+        built = (lib.dlti_paged_decode_tile_tokens(),
+                 lib.dlti_paged_decode_heads_per_block())
+        if built != (TILE_TOKENS, MAX_HEADS_PER_BLOCK):
+            raise RuntimeError(f"the kernel's (tile tokens, heads per block) {built} "
+                               f"differ from split_plan's "
+                               f"{(TILE_TOKENS, MAX_HEADS_PER_BLOCK)}")
+        fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 10
                        + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
                           ctypes.c_void_p])
         fn.restype = ctypes.c_int
-        lib.dlti_paged_decode_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
+        lib.dlti_paged_decode_smem_bytes.argtypes = [ctypes.c_int] * 3
         lib.dlti_paged_decode_smem_bytes.restype = ctypes.c_longlong
+        lib.dlti_paged_decode_stages.argtypes = [ctypes.c_int] * 2
+        lib.dlti_paged_decode_stages.restype = ctypes.c_int
         lib.dlti_cuda_error_string.argtypes = [ctypes.c_int]
         lib.dlti_cuda_error_string.restype = ctypes.c_char_p
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _device_limits(device: torch.device) -> Tuple[int, int]:
+    """(SM count, shared memory a block may opt into) of a card."""
+    props = torch.cuda.get_device_properties(device)
+    return props.multi_processor_count, props.shared_memory_per_block_optin
+
+
+def kernel_design(pool_dtype: torch.dtype, head_dim: int) -> str:
+    """The program the kernel runs on a pool of this dtype and head_dim, as
+    ``chip_smoke.py`` prints it. Loads (and, the first time, builds) the
+    library."""
+    code = _INT8_CODE if pool_dtype == torch.int8 else _DTYPE_CODES.get(pool_dtype)
+    if code is None or head_dim not in KERNEL_HEAD_DIMS:
+        raise ValueError(f"no kernel for a {pool_dtype} pool at head_dim {head_dim}")
+    stages = _kernel_library().dlti_paged_decode_stages(head_dim, code)
+    return f"split-K + combine, cp.async {stages}-stage ring, fp32 CUDA cores"
 
 
 def paged_decode_attention(
@@ -180,7 +236,7 @@ def paged_decode_attention(
     A CPU tensor goes to :func:`paged_decode_attention_reference`; a CUDA
     tensor launches the kernel or raises.
     """
-    global launches, launches_int8
+    global launches, launches_int8, last_plan
     _check_scales(k_pool, k_scale, v_scale)
     if q.device.type == "cpu":
         return paged_decode_attention_reference(
@@ -194,14 +250,20 @@ def paged_decode_attention(
     quantized = k_pool.dtype == torch.int8
     batch, _, num_heads, d = q.shape
     nb, bs, kvh, _ = k_pool.shape
+    hpg = num_heads // kvh
     lib = _kernel_library()
-    smem = lib.dlti_paged_decode_smem_bytes(num_heads // kvh, d)
-    limit = torch.cuda.get_device_properties(q.device).shared_memory_per_block_optin
+    kv_code = _INT8_CODE if quantized else _DTYPE_CODES[k_pool.dtype]
+    smem = lib.dlti_paged_decode_smem_bytes(hpg, d, kv_code)
+    sm_count, limit = _device_limits(q.device)
     if smem > limit:
-        raise ValueError(f"heads per kv head {num_heads // kvh} at head_dim "
-                         f"{d} need {smem} B of shared memory; the card "
-                         f"allows {limit}")
+        raise ValueError(f"heads per kv head {hpg} at head_dim {d} need {smem} B "
+                         f"of shared memory; the card allows {limit}")
+    max_blocks = block_tables.shape[1]
+    splits, chunk = split_plan(batch, num_heads, kvh, max_blocks * bs, sm_count)
     out = torch.empty_like(q)
+    # (m, l) then acc per (row, head, split); the kernel writes every record.
+    records = batch * num_heads * splits
+    ws = torch.empty(records * (d + 2), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.dlti_paged_decode_attention(
@@ -209,12 +271,13 @@ def paged_decode_attention(
             k_scale.data_ptr() if quantized else None,
             v_scale.data_ptr() if quantized else None,
             block_tables.data_ptr(), seq_lens.data_ptr(), out.data_ptr(),
-            batch, num_heads, kvh, d, nb, bs, block_tables.shape[1],
-            int(window or 0), d ** -0.5, _DTYPE_CODES[q.dtype],
-            _INT8_CODE if quantized else _DTYPE_CODES[k_pool.dtype], stream)
+            ws.data_ptr(), ws.data_ptr() + 4 * 2 * records,
+            batch, num_heads, kvh, d, nb, bs, max_blocks, int(window or 0), splits,
+            chunk, d ** -0.5, _DTYPE_CODES[q.dtype], kv_code, stream)
     if err != 0:
         raise RuntimeError("paged decode kernel launch failed: "
                            + lib.dlti_cuda_error_string(err).decode())
+    last_plan = (splits, chunk)
     if quantized:
         launches_int8 += 1
     else:

@@ -148,6 +148,134 @@ def test_int8_nan_scales_of_dead_rows_never_leak(gen):
     torch.testing.assert_close(out.float(), ref.float(), atol=TOL[torch.bfloat16], rtol=0)
 
 
+# ----------------------------------------------------------------------
+# Split-K: tables up to 256 blocks (4,096 tokens), lengths at the split
+# boundaries the host's plan picks for this card, windows past a split.
+# ----------------------------------------------------------------------
+
+def _plan(batch, heads, kv_heads, max_len):
+    sm = torch.cuda.get_device_properties(0).multi_processor_count
+    return tpa.split_plan(batch, heads, kv_heads, max_len, sm)
+
+
+def _check_pool(gen, pool, batch, heads, kv_heads, d, lens, max_blocks, window=None,
+                num_blocks=64):
+    """K4 (float pools) or K4q (int8) against the plain version on bf16
+    queries: absolute 2**-6, and 2**-7 relative to each row's largest |out|."""
+    make = _int8_inputs if pool == "int8" else _inputs
+    dtype = torch.float32 if pool == "float32" else torch.bfloat16
+    got = make(gen, batch, heads, kv_heads, d, dtype, max_blocks=max_blocks, lens=lens,
+               num_blocks=num_blocks)
+    q, k, v, tables, lens_t = got[:5]
+    kw = dict(window=window)
+    if pool == "int8":
+        kw.update(k_scale=got[5], v_scale=got[6])
+    out = tpa.paged_decode_attention(q, k, v, tables, lens_t, **kw)
+    torch.cuda.synchronize()
+    ref = tpa.paged_decode_attention_reference(q, k, v, tables, lens_t, **kw)
+    assert torch.isfinite(out).all()
+    torch.testing.assert_close(out.float(), ref.float(), atol=TOL[dtype], rtol=0)
+    if dtype == torch.bfloat16:
+        err = (out.float() - ref.float()).abs().flatten(1).amax(1)
+        top = ref.float().abs().flatten(1).amax(1)
+        assert (err <= 2.0 ** -7 * top).all(), (err, top)
+    for row, n in enumerate(lens):
+        if n == 0:
+            assert not out[row].any()
+
+
+@pytest.mark.parametrize("pool", ["bfloat16", "float32", "int8"])
+@pytest.mark.parametrize("d", [16, 32, 64, 128, 256])
+@pytest.mark.parametrize("heads,kv_heads", [(32, 8), (8, 1)])
+@pytest.mark.parametrize("delta", [-1, 0, 1])
+def test_split_k_one_row_at_a_split_boundary(gen, pool, d, heads, kv_heads, delta):
+    splits, chunk = _plan(1, heads, kv_heads, 256 * 16)
+    assert splits > 1
+    _check_pool(gen, pool, 1, heads, kv_heads, d, [chunk + delta], max_blocks=256)
+
+
+@pytest.mark.parametrize("pool", ["bfloat16", "float32", "int8"])
+@pytest.mark.parametrize("d", [16, 32, 64, 128, 256])
+@pytest.mark.parametrize("heads,kv_heads", [(32, 8), (8, 1)])
+def test_split_k_batch_of_eight_across_splits(gen, pool, d, heads, kv_heads):
+    splits, chunk = _plan(8, heads, kv_heads, 256 * 16)
+    assert splits > 1
+    lens = [0, 1, chunk - 1, chunk, chunk + 1, 2 * chunk + 1, 4095, 4096]
+    _check_pool(gen, pool, 8, heads, kv_heads, d, lens, max_blocks=256)
+
+
+@pytest.mark.parametrize("pool", ["bfloat16", "float32", "int8"])
+@pytest.mark.parametrize("batch,heads,kv_heads,max_blocks", [(5, 8, 8, 4), (40, 32, 32, 64)])
+def test_split_k_plans_of_one_split(gen, pool, batch, heads, kv_heads, max_blocks):
+    """A 64-token table, and llama2_7b's 32 kv heads at batch 40 (more
+    blocks than the plan's target): one split a row, which still goes
+    through the workspace and the combine kernel."""
+    max_len = max_blocks * 16
+    assert _plan(batch, heads, kv_heads, max_len)[0] == 1
+    lens = [0, 1, max_len] + [(37 * i) % (max_len + 1) for i in range(3, batch)]
+    _check_pool(gen, pool, batch, heads, kv_heads, 128, lens, max_blocks=max_blocks)
+    assert tpa.last_plan[0] == 1
+
+
+@pytest.mark.parametrize("pool", ["bfloat16", "int8"])
+def test_split_k_window_4096_over_lengths_to_8192(gen, pool):
+    """mistral_7b's window: the leading splits of the long rows are empty."""
+    lens = [0, 5, 100, 4095, 4097, 5000, 6000, 8192]
+    _check_pool(gen, pool, 8, 32, 8, 128, lens, max_blocks=512, window=4096,
+                num_blocks=128)
+
+
+@pytest.mark.parametrize("pool", ["bfloat16", "int8"])
+def test_split_k_nan_in_dead_rows_with_rows_of_empty_splits(gen, pool):
+    """NaN in every dead pool row (on an int8 pool: in the dead rows'
+    scales), garbage table entries past every sequence, a row of length 0
+    (every split empty) and rows whose later splits lie wholly past
+    seq_len: the output is finite and matches the plain version on clean
+    data."""
+    _, chunk = _plan(4, 32, 8, 256 * 16)
+    lens = [0, 5, chunk + 1, 3 * chunk]
+    if pool == "int8":
+        q, k, v, tables, lens_t, ks, vs = _int8_inputs(gen, 4, 32, 8, 128, torch.bfloat16,
+                                                       max_blocks=256, lens=lens,
+                                                       num_blocks=512)
+        scales = dict(k_scale=ks, v_scale=vs)
+    else:
+        q, k, v, tables, lens_t = _inputs(gen, 4, 32, 8, 128, torch.bfloat16, max_blocks=256,
+                                          lens=lens, num_blocks=512)
+        scales = {}
+    live = torch.zeros(k.shape[:2], dtype=torch.bool, device="cuda")
+    for b, n in enumerate(lens):
+        for t in range(n):
+            live[tables[b, t // 16], t % 16] = True
+    ref = tpa.paged_decode_attention_reference(q, k, v, tables, lens_t, **scales)
+    for t in (scales.values() if scales else (k, v)):
+        t[~live] = float("nan")
+    out = tpa.paged_decode_attention(q, k, v, tables, lens_t, **scales)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out).all() and not out[0].any()
+    torch.testing.assert_close(out.float(), ref.float(), atol=TOL[torch.bfloat16], rtol=0)
+
+
+def test_split_k_launches_the_split_and_combine_kernels(gen):
+    """One count a wrapper call; on the card, the split kernel and the
+    combine kernel."""
+    from torch.profiler import ProfilerActivity, profile
+
+    q, k, v, tables, lens = _inputs(gen, 8, 32, 8, 128, torch.bfloat16, max_blocks=256,
+                                    lens=[4096] * 8)
+    before = tpa.launches
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(2):
+            tpa.paged_decode_attention(q, k, v, tables, lens)
+        torch.cuda.synchronize()
+    assert tpa.launches == before + 2
+    names = {e.key for e in prof.key_averages()}
+    assert any("paged_decode_kernel" in n for n in names), names
+    assert any("paged_decode_combine_kernel" in n for n in names), names
+    assert "split-K" in tpa.kernel_design(torch.bfloat16, 128)
+
+
 def test_int8_engine_decode_launches_the_int8_kernel_per_layer(gen):
     """An engine on an int8 pool on the card: every decode step launches the
     int8 program once per layer and the float program never."""
@@ -317,8 +445,9 @@ def test_bf16_flash_kernels_masks(gen, s, d, variant):
 
 
 def test_bf16_flash_reaches_the_tensor_core_kernels(gen):
-    """bf16 K1 and K3 (d 64/128) name the wgmma program and the profiler
-    sees their kernels; float32, K2 and K3 at d 256 keep the CUDA cores."""
+    """bf16 K1, K2 and K3 (d 64/128) name the wgmma program and the
+    profiler sees their kernels; float32 and K3 at d 256 keep the CUDA
+    cores."""
     from torch.profiler import ProfilerActivity, profile
 
     wgmma = "wgmma bf16 hi/lo, cp.async 2-stage"
@@ -326,18 +455,22 @@ def test_bf16_flash_reaches_the_tensor_core_kernels(gen):
         assert tfa.kernel_design("flash_fwd", torch.bfloat16, d) == wgmma
         assert tfa.kernel_design("flash_bwd_dkv", torch.bfloat16, d) == (
             wgmma if d <= 128 else "cuda-core fp32")
-        assert tfa.kernel_design("flash_bwd_dq", torch.bfloat16, d) == "cuda-core fp32"
+        assert tfa.kernel_design("flash_bwd_dq", torch.bfloat16, d) == wgmma
         for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
             assert tfa.kernel_design(name, torch.float32, d) == "cuda-core fp32"
     q, k, v, do, _ = _flash_case(gen, 1, 256, 8, 2, 128, torch.bfloat16)
     q, k, v = (t.requires_grad_() for t in (q, k, v))
+    torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        tfa.flash_attention(q, k, v).backward(do)
+        for _ in range(2):
+            tfa.flash_attention(q, k, v).backward(do)
         torch.cuda.synchronize()
     names = {e.key for e in prof.key_averages()}
     assert any("flash_fwd_wgmma_kernel" in n for n in names), names
     assert any("flash_bwd_dkv_wgmma_kernel" in n for n in names), names
-    assert not any("flash_fwd_kernel" in n for n in names), names
+    assert any("flash_bwd_dq_wgmma_kernel" in n for n in names), names
+    assert not any("flash_fwd_kernel" in n or "flash_bwd_dq_kernel" in n
+                   for n in names), names
 
 
 def test_flash_autograd_function_launches_all_three(gen):

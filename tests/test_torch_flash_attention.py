@@ -168,12 +168,13 @@ def _split(x):
 
 
 def _bf16_kernel_emulation(q, k, v, do, *, segment_ids, window, p_operand):
-    """What bf16 K1 and K3 compute: q, k, v, dO bf16; q k^T and dO v^T
+    """What bf16 K1, K2 and K3 compute: q, k, v, dO bf16; q k^T and dO v^T
     summed in float32 (a product of two bf16 values is exact there); the
-    float32 operand of p v, p^T dO and ds^T q turned into bf16 tensor-core
-    operands by ``p_operand`` (the kernels' hi/lo split: two products into
-    one float32 sum). The online softmax over kv tiles is written as one
-    softmax: the same sum in another order. Returns float32 o, dk, dv."""
+    float32 operand of p v, ds k, p^T dO and ds^T q turned into bf16
+    tensor-core operands by ``p_operand`` (the kernels' hi/lo split: two
+    products into one float32 sum). The online softmax over kv tiles is
+    written as one softmax: the same sum in another order. Returns float32
+    o, dq, dk, dv."""
     b, s, h, d = q.shape
     hkv = k.shape[2]
     scale = d ** -0.5
@@ -195,7 +196,8 @@ def _bf16_kernel_emulation(q, k, v, do, *, segment_ids, window, p_operand):
     p = torch.where(allowed, torch.exp(sc - lse), torch.zeros_like(sc))
     dp = torch.einsum("bqngd,bknd->bngqk", dog, vf)
     ds = torch.where(allowed, p * (dp - delta) * scale, torch.zeros_like(sc))
-    return (o, prod("bngqk,bqngd->bknd", ds, qg), prod("bngqk,bqngd->bknd", p, dog))
+    dq = prod("bngqk,bknd->bqngd", ds, kf).reshape(b, s, h, d)
+    return (o, dq, prod("bngqk,bqngd->bknd", ds, qg), prod("bngqk,bqngd->bknd", p, dog))
 
 
 _SPLIT_CASES = {
@@ -208,9 +210,9 @@ _SPLIT_CASES = {
 
 
 def _phase6_share(case, p_operand):
-    """Largest |emulation - reference| over the phase-6 limit, for o, dk
-    and dv; the reference is the plain versions on the same bf16 values in
-    float32, compared before either rounds its output."""
+    """Largest |emulation - reference| over the phase-6 limit, for o, dq,
+    dk and dv; the reference is the plain versions on the same bf16 values
+    in float32, compared before either rounds its output."""
     c = _SPLIT_CASES[case]
     rng = np.random.default_rng(7)
     shapes = [(c["b"], c["s"], c["h"], 64), (c["b"], c["s"], c["hkv"], 64)]
@@ -221,10 +223,10 @@ def _phase6_share(case, p_operand):
     kw = dict(segment_ids=segs, window=c.get("window"))
     got = _bf16_kernel_emulation(q, k, v, do, p_operand=p_operand, **kw)
     ro, rlse = tfa.flash_attention_reference(q.float(), k.float(), v.float(), **kw)
-    _, rdk, rdv = tfa.flash_attention_backward_reference(
+    rdq, rdk, rdv = tfa.flash_attention_backward_reference(
         q.float(), k.float(), v.float(), ro, rlse, do.float(), **kw)
     return max(((g - w).abs() / (PHASE6_ATOL + PHASE6_RTOL * w.abs())).max().item()
-               for g, w in zip(got, (ro, rdk, rdv)))
+               for g, w in zip(got, (ro, rdq, rdk, rdv)))
 
 
 @pytest.mark.parametrize("case", sorted(_SPLIT_CASES))
@@ -236,6 +238,6 @@ def test_bf16_hi_lo_split_stays_far_inside_the_phase6_limit(case):
 @pytest.mark.parametrize("case", sorted(_SPLIT_CASES))
 def test_bf16_rounding_p_alone_would_break_the_phase6_limit(case):
     """Known-wrong control: p and ds rounded once to bf16 (FlashAttention-2's
-    numerics) move o, dk and dv past the same limit, which is why the
+    numerics) move o, dq, dk and dv past the same limit, which is why the
     kernels split them."""
     assert _phase6_share(case, lambda x: (x.to(torch.bfloat16).float(),)) > 1.0

@@ -194,3 +194,139 @@ def test_int8_scale_arguments_are_checked():
     tpa.paged_decode_attention(q, k.to(torch.int8), v.to(torch.int8), bt, lens,
                                **scales)
     assert tpa.launches == tpa.launches_int8 == 0  # CPU: the plain version
+
+
+# ----------------------------------------------------------------------
+# Split-K, the kernel's arithmetic on the card, emulated in plain torch
+# ----------------------------------------------------------------------
+
+def _split_k_emulation(q, k_pool, v_pool, tables, seq_lens, splits, chunk, *,
+                       k_scale=None, v_scale=None, window=None):
+    """What ``csrc/paged_attention.cu`` computes: split s of a row covers
+    tokens ``[s * chunk, (s + 1) * chunk)`` cut to the live window and keeps
+    (m, l, acc) in log2 units, reading live rows only (the k scale on the
+    score, the v scale on p, l the unscaled p); then the combine,
+    ``o = sum 2^(m_s - m*) acc_s / sum 2^(m_s - m*) l_s`` over splits with
+    l > 0, zeros where there is none. Tiles and warps inside a split only
+    reorder its sums."""
+    q, k_pool, v_pool = (torch.as_tensor(a) for a in (q, k_pool, v_pool))
+    batch, _, heads, d = q.shape
+    nb, bs, kvh, _ = k_pool.shape
+    hpg = heads // kvh
+    qs = q[:, 0].float().reshape(batch, kvh, hpg, d) * (d ** -0.5 * np.log2(np.e))
+    out = torch.zeros(batch, heads, d)
+    for b in range(batch):
+        n = int(seq_lens[b])
+        start = max(0, n - window) if window else 0
+        end = min(n, tables.shape[1] * bs)
+        records = []
+        for s in range(splits):
+            lo, hi = max(start, s * chunk), min(end, (s + 1) * chunk)
+            if lo >= hi:
+                records.append(None)  # an empty split: l = 0, skipped
+                continue
+            t = torch.arange(lo, hi)
+            phys = torch.as_tensor(tables[b])[t // bs].long().clamp(0, nb - 1)
+            k = k_pool[phys, t % bs].float()                  # (n, kvh, d)
+            v = v_pool[phys, t % bs].float()
+            x = torch.einsum("ghd,tgd->ght", qs[b], k)
+            if k_scale is not None:
+                x = x * torch.as_tensor(k_scale)[phys, t % bs].T[:, None, :]
+            m = x.amax(-1, keepdim=True)
+            p = torch.exp2(x - m)
+            pv = p if v_scale is None else p * torch.as_tensor(v_scale)[phys, t % bs].T[:, None, :]
+            records.append((m, p.sum(-1, keepdim=True), torch.einsum("ght,tgd->ghd", pv, v)))
+        live = [r for r in records if r is not None]
+        if not live:
+            continue
+        m_star = torch.stack([m for m, _, _ in live]).amax(0)
+        l = sum(torch.exp2(m - m_star) * ls for m, ls, _ in live)
+        o = sum(torch.exp2(m - m_star) * acc for m, _, acc in live)
+        out[b] = (o / l).reshape(heads, d)
+    return out.reshape(batch, 1, heads, d).numpy()
+
+
+@pytest.mark.parametrize("batch,heads,kvh,max_len,want", [
+    (8, 32, 32, 1024, 5), (8, 32, 8, 1024, 16), (40, 32, 32, 1024, 1), (5, 8, 8, 64, 1)])
+def test_split_plan_covers_the_table_from_static_shapes(batch, heads, kvh, max_len, want):
+    """The llama2_7b and llama3_8b engine states, a wide batch and a short
+    table on a 132-SM card: whole tiles, no split wholly past the table."""
+    splits, chunk = tpa.split_plan(batch, heads, kvh, max_len, 132)
+    assert splits == want and (splits - 1) * chunk < max_len <= splits * chunk
+    assert chunk % tpa.TILE_TOKENS == 0 and chunk >= tpa.MIN_SPLIT_TOKENS
+
+
+def _clean_tables(tables, seq_lens, block_size):
+    clean = tables.copy()
+    for b, n in enumerate(seq_lens):
+        clean[b, -(-int(n) // block_size):] = -1
+    return clean
+
+
+# (batch, heads, kv_heads, head_dim, block_size, num_blocks, max_blocks).
+_SPLIT_SHAPE = (4, 4, 2, 32, 8, 96, 40)
+
+
+def _split_case(case, pool):
+    """Inputs, split plan and window for one case; the chunk is the host's
+    plan for these shapes on a 132-SM card (MIN_SPLIT_TOKENS here)."""
+    batch, heads, kvh, d, bs, nb, mb = _SPLIT_SHAPE
+    splits, chunk = tpa.split_plan(batch, heads, kvh, mb * bs, 132)
+    assert splits > 2 and chunk == tpa.MIN_SPLIT_TOKENS
+    window = None
+    if case == "one_split":                # a short table's or a wide batch's plan
+        splits, chunk = 1, mb * bs
+        lens = [0, 1, 3 * tpa.MIN_SPLIT_TOKENS + 5, mb * bs]
+    elif case == "zero_and_boundaries":    # seq_len 0; C - 1, C, C + 1
+        lens = [0, chunk - 1, chunk, chunk + 1]
+    elif case == "window_empties_leading_splits":
+        lens, window = [3 * chunk + 5, 2 * chunk + 1, 40, 0], chunk - 7
+    elif case == "tables_much_longer_than_live":   # 40 blocks, at most 3 live
+        lens = [1, 9, 17, 20]
+    else:                                  # NaN in every dead row / its scales
+        lens = [0, 3, chunk + 2, 2 * chunk - 1]
+    seq_lens = np.array(lens, np.int32)
+    q, k, v, bt = _setup(11, batch, heads, kvh, d, bs, nb, mb, seq_lens,
+                         garbage_tables=case == "nan_dead_rows")
+    scales = {}
+    if pool == "int8":
+        k, ks, v, vs = _int8_pools(k, v)
+        scales = dict(k_scale=ks, v_scale=vs)
+    return q, k, v, bt, seq_lens, splits, chunk, window, scales
+
+
+@pytest.mark.parametrize("pool", ["float32", "int8"])
+@pytest.mark.parametrize("case", ["zero_and_boundaries", "window_empties_leading_splits",
+                                  "tables_much_longer_than_live", "nan_dead_rows",
+                                  "one_split"])
+def test_split_k_emulation_matches_pallas_interpret(case, pool):
+    """The kernel's split-K arithmetic against the Pallas kernel in
+    interpret mode, 1e-5 absolute. For ``nan_dead_rows`` every pool row
+    outside the live windows (on an int8 pool: its scales) holds NaN, table
+    entries past each sequence are garbage and the last splits lie wholly
+    past seq_len: the emulation, reading live rows only, must equal the
+    Pallas kernel on the clean pool and tables."""
+    q, k, v, bt, lens, splits, chunk, window, scales = _split_case(case, pool)
+    bs = k.shape[1]
+    want = jax_paged_decode_attention(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+        jnp.asarray(_clean_tables(bt, lens, bs)), jnp.asarray(lens), window=window,
+        interpret=True, **{n: jnp.asarray(a) for n, a in scales.items()})
+    if case == "nan_dead_rows":
+        live = np.zeros(k.shape[:2], bool)
+        for b, n in enumerate(lens):
+            for t in range(n):
+                live[bt[b, t // bs], t % bs] = True
+        for name in (("k_scale", "v_scale") if scales else ()):
+            scales[name] = scales[name].copy()
+            scales[name][~live] = np.nan
+        if not scales:
+            k, v = k.copy(), v.copy()
+            k[~live] = np.nan
+            v[~live] = np.nan
+    got = _split_k_emulation(q, k, v, bt, lens, splits, chunk, window=window, **scales)
+    assert np.isfinite(got).all()
+    np.testing.assert_allclose(got, np.asarray(want), atol=ATOL, rtol=0)
+    for b, n in enumerate(lens):
+        if n == 0:
+            assert not got[b].any()
