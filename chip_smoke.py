@@ -23,19 +23,31 @@ Phases, each of which fails the run if its check fails:
    a planted 25% scale fault in a late tile must fail the second. Each case
    prints its program and its split-K plan (splits x tokens a split).
 3. The engine at full width: llama2_7b in bfloat16 from
-   ``init_params(seed=0)``, 12 requests (prompts of 16 to 300 tokens,
+   ``init_params(seed=0)``, its decode iteration captured as a CUDA graph
+   (``warmup_decode_ladder``), 12 requests (prompts of 16 to 300 tokens,
    greedy and seeded sampling) submitted to ``InferenceEngine`` and driven
    by ``step`` with 8 slots, so admission happens mid-flight. Every request
    must finish with its token count, and K4 must have been launched once per
-   layer per decode step.
-4. Inside the model: one decode step's logits through K4 against the same
-   step through the plain gather path (``paged_attention_impl="gather"``),
-   and K4 against its plain version on the engine's real pool, tables and
-   lengths, where its time is taken for the record.
-5. Profile: ``torch.profiler`` over the remaining decode steps of phase 4's
-   batch, for the device's busy share and the kernels by device time; K4's
-   split kernel and its combine kernel must both run. The engine and its KV
-   pool are then released.
+   layer per decode step (graph replays credit the counter with what the
+   capture counted). Then an equality script (8 requests of 24-96 tokens,
+   greedy and seeded, admitted in one wave) four ways: steps_per_sync 1
+   eager (``EngineExecutor(cuda_graphs=False)``), 1, 8 and 64 graphed. Every
+   request's tokens and logprobs must be identical across the four; each
+   run prints ms per device step (host clock over each window / k), decode
+   tok/s, windows and host syncs per token.
+4. Inside the model, on the k = 8 graphed engine: one decode step's logits
+   through K4 against the same step through the plain gather path
+   (``paged_attention_impl="gather"``), and K4 against its plain version on
+   the engine's real pool, tables and lengths, where its time is taken for
+   the record. Then ``torch.cuda.set_sync_debug_mode("error")`` around the
+   dispatch of an 8-step window: nothing in it may wait on the card.
+5. Profile: ``torch.profiler`` over the next 8-step graphed window, for the
+   device's busy share and the kernels by device time; K4's split kernel
+   and its combine kernel must run inside the replays, as many times as the
+   launch counter says. Then the LM head (F2): a decode forward profiled
+   with shapes must show the head's GEMM on bf16 inputs, and its memory
+   peak must stay under the float32 head copy (524 MB) it used to make. The
+   engine and its KV pool are then released.
 6. Flash attention K1 (forward), K2 (dq) and K3 (dk/dv) against their plain
    versions: llama2_7b's training shape, llama3_8b's GQA at s 2048,
    mistral_7b's window 4096 at s 8192, head_dim 256 and 64, float32, and a
@@ -71,15 +83,18 @@ Phases, each of which fails the run if its check fails:
     deltas the completion's text, ``/health`` 200, ``/metrics`` with
     ``dlti_requests`` >= 12 and the TTFT histogram; K4q launched exactly 32
     x decode steps and the float K4 never. Prints requests/s, output tok/s,
-    TTFT p50/p99 and mean TPOT from ``/stats``, and the pool's bytes.
+    TTFT p50/p99 and mean TPOT from ``/stats``, and the pool's bytes. Then
+    the same again as the reference's documented serving configuration
+    (``--max-seqs 28 --steps-per-sync 64``, bf16 weights), followed by the
+    sync check on its int8 pool.
 11. Inside the model on the int8 pool: one decode step's logits through K4q
     against the gather path (dequantized in float32), gated; against the
     same step on a bf16 pool, printed only (quantization error). Then K4q
     against its plain version on the engine's pool and tables, timed.
 12. The entry point itself: ``python -m dlti_tpu_torch.cli.serve
-    --random-init llama_tiny --tokenizer byte --kv-cache-dtype int8 --port
-    0`` as a subprocess on the card answers ``/health`` and a completion and
-    exits 0 on SIGTERM.
+    --random-init llama_tiny --tokenizer byte --kv-cache-dtype int8
+    --steps-per-sync 4 --port 0`` as a subprocess on the card answers
+    ``/health`` and a completion and exits 0 on SIGTERM.
 
 Prints a ``{"kernels": [...]}`` line, and as its last line
 ``{"ok": true, "device": {...}}``. Exits non-zero without that line when
@@ -430,11 +445,69 @@ def phase_kernel_cases(torch, flush):
     return results, int8_results
 
 
+def card_engine(cfg, params, ec, graphs=True):
+    """An engine on the card; ``graphs=False`` runs the decode iteration
+    eagerly (the executor's constructor argument, for comparisons only)."""
+    from dlti_tpu_torch.serving.engine import EngineExecutor, InferenceEngine
+
+    ex = EngineExecutor(cfg, params, ec, device="cuda", cuda_graphs=graphs)
+    return InferenceEngine(cfg, params, ec, device="cuda", executor=ex)
+
+
+def window_clock(engine) -> list:
+    """(k, seconds) of each decode window on the host clock, from the start
+    of its dispatch to the end of its completion (which waits for it)."""
+    spans, t = [], {}
+    dispatch, complete = engine._decode_dispatch, engine._decode_complete
+
+    def timed_dispatch():
+        t["start"] = time.perf_counter()
+        return dispatch()
+
+    def timed_complete(pending):
+        out = complete(pending)
+        spans.append((pending[1], time.perf_counter() - t["start"]))
+        return out
+
+    engine._decode_dispatch, engine._decode_complete = timed_dispatch, timed_complete
+    return spans
+
+
+def free_memory(torch):
+    """Return the memory of objects just dropped to the card."""
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+# Phase 3's equality script: one wave of 8 requests (every slot admitted in
+# the first step, so prefill groups and batch shapes match across runs),
+# greedy and seeded, run four ways.
+EQUALITY_RUNS = (("k=1 eager", 1, False), ("k=1 graph", 1, True),
+                 ("k=8 graph", 8, True), ("k=64 graph", 64, True))
+EQUALITY_LENGTHS = [16, 40, 77, 128, 200, 255, 300, 511]
+EQUALITY_MAX_TOKENS = [24, 96, 33, 64, 48, 80, 57, 72]
+
+
+def equality_requests(cfg):
+    import numpy as np
+
+    from dlti_tpu_torch.serving.sampling import SamplingParams
+
+    rng = np.random.default_rng(2)
+    out = []
+    for i, (n, m) in enumerate(zip(EQUALITY_LENGTHS, EQUALITY_MAX_TOKENS)):
+        sp = (SamplingParams(temperature=0.0, max_tokens=m) if i % 2 == 0 else
+              SamplingParams(temperature=0.8, top_p=0.95, top_k=50, max_tokens=m,
+                             seed=2000 + i))
+        out.append((rng.integers(3, cfg.vocab_size, n).tolist(), sp))
+    return out
+
+
 def phase_engine(torch):
     from dlti_tpu_torch.config import MODEL_PRESETS
     from dlti_tpu_torch.models.interop import init_params
     from dlti_tpu_torch.ops import paged_attention as tpa
-    from dlti_tpu_torch.serving.engine import EngineConfig, InferenceEngine
+    from dlti_tpu_torch.serving.engine import EngineConfig
     from dlti_tpu_torch.serving.sampling import SamplingParams
 
     import numpy as np
@@ -452,17 +525,21 @@ def phase_engine(torch):
     ec = EngineConfig(max_seqs=8, block_size=16, num_blocks=1024,
                       max_model_len=1024, cache_dtype="bfloat16",
                       eos_token_id=-1)  # every request runs to max_tokens
-    engine = InferenceEngine(cfg, params, ec, device="cuda")
+    engine = card_engine(cfg, params, ec)
+    t0 = time.perf_counter()
+    engine.warmup_decode_ladder()  # captures the decode graph, as the CLI does
+    torch.cuda.synchronize()
     log(f"[engine] KV pool {sum(c['k'].numel() * 2 * c['k'].element_size() for c in engine.cache) / 1e9:.2f} GB, "
-        f"device memory allocated {torch.cuda.memory_allocated() / 1e9:.2f} GB")
+        f"decode graph captured in {time.perf_counter() - t0:.2f} s, device memory "
+        f"allocated {torch.cuda.memory_allocated() / 1e9:.2f} GB")
 
     rng = np.random.default_rng(0)
     lengths = [16, 300] + rng.integers(16, 301, 10).tolist()
     prompts = [rng.integers(3, cfg.vocab_size, n).tolist() for n in lengths]
     max_tokens = 32
 
-    # Device time of each prefill and decode call, by CUDA events on the
-    # stream around the executor's two programs.
+    # Device time of each prefill call and decode window, by CUDA events on
+    # the stream around the executor's two calls.
     ex = engine.executor
     spans = {"prefill": [], "decode": []}
 
@@ -478,7 +555,7 @@ def phase_engine(torch):
         return call
 
     ex.prefill = timed("prefill", ex.prefill)
-    ex.decode = timed("decode", ex.decode)
+    ex.decode_window = timed("decode", ex.decode_window)
 
     reqs = []
     for i, p in enumerate(prompts):
@@ -497,7 +574,7 @@ def phase_engine(torch):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches, launches_int8 = tpa.launches, tpa.launches_int8  # ... and are read here
-    del ex.prefill, ex.decode
+    del ex.prefill, ex.decode_window
     check(launches_int8 == 0, f"a bf16 pool launched the int8 kernel {launches_int8} times")
 
     stats = dict(engine.stats)
@@ -509,9 +586,11 @@ def phase_engine(torch):
               f"request {r.request_id} produced an out-of-vocabulary token")
         check(np.isfinite(r.output_logprobs).all(), "nonfinite logprobs")
     expected = cfg.num_layers * stats["decode_steps"]
-    log(f"[engine] {len(results)} requests done in {wall:.2f} s; decode steps "
-        f"{stats['decode_steps']}, prefill batches {stats['prefill_batches']}, "
-        f"preemptions {stats['preemptions']}; kernel launches {launches} "
+    log(f"[engine] {len(results)} requests done in {wall:.2f} s (decode graph, "
+        f"steps_per_sync 1); decode steps {stats['decode_steps']}, prefill batches "
+        f"{stats['prefill_batches']}, preemptions {stats['preemptions']}; decode state "
+        f"uploads {stats['decode_state_uploads']} ({stats['decode_state_rows']} rows), "
+        f"clean syncs {stats['decode_state_clean_syncs']}; kernel launches {launches} "
         f"(expected {cfg.num_layers} layers x {stats['decode_steps']} steps = {expected})")
     check(launches == expected, f"kernel launches {launches} != {expected}")
     check(engine.block_manager.num_free == ec.num_blocks - 1, "blocks leaked")
@@ -538,18 +617,71 @@ def phase_engine(torch):
         f"({stats['prefill_tokens']} tokens in {prefill_s:.3f} s device time over "
         f"{perf['prefill_calls']} calls); decode {perf['decode_tok_s']:.1f} tok/s "
         f"({decode_tokens} tokens in {decode_s:.3f} s, {perf['decode_step_ms']:.2f} "
-        f"ms/step at up to {ec.max_seqs} slots)")
+        f"ms/step at up to {ec.max_seqs} slots, CUDA events around each window)")
     log("[engine] perf " + json.dumps(perf))
-    return engine, launches
+    del engine
+    free_memory(torch)
+
+    # The equality script, four ways. Tokens and logprobs must be identical.
+    runs, keep = {}, None
+    for name, k, graphs in EQUALITY_RUNS:
+        eng = card_engine(cfg, params, dataclasses.replace(ec, steps_per_sync=k), graphs)
+        eng.warmup_decode_ladder()
+        tpa.launches = 0
+        windows = window_clock(eng)
+        reqs = [eng.submit(p, sp) for p, sp in equality_requests(cfg)]
+        while eng.has_work:
+            eng.step()
+        torch.cuda.synchronize()
+        st = eng.stats
+        check(all(r.finish_reason == "length" for r in reqs), f"{name}: a request stopped early")
+        check(tpa.launches == cfg.num_layers * st["decode_steps"],
+              f"{name}: K4 launches {tpa.launches} != {cfg.num_layers} x {st['decode_steps']}")
+        secs = sum(s for _, s in windows)
+        run = {"ms_per_device_step": 1e3 * secs / st["decode_steps"],
+               "decode_tok_s": st["decode_slot_steps"] / secs,
+               "windows": len(windows), "decode_steps": st["decode_steps"],
+               "decode_tokens": st["decode_slot_steps"],
+               "host_syncs_per_token": len(windows) / st["decode_slot_steps"],
+               "k4_launches": tpa.launches,
+               "state_uploads": st["decode_state_uploads"],
+               "clean_syncs": st["decode_state_clean_syncs"],
+               "outputs": [(r.output_token_ids, r.output_logprobs) for r in reqs]}
+        runs[name] = run
+        log(f"[equality] {name}: {run['ms_per_device_step']:.3f} ms per device step "
+            f"(host clock over each window / k), decode {run['decode_tok_s']:.1f} tok/s, "
+            f"{run['windows']} windows over {run['decode_steps']} device steps, "
+            f"{run['host_syncs_per_token']:.4f} host syncs per token; K4 launches "
+            f"{tpa.launches}; state uploads {run['state_uploads']}, clean syncs "
+            f"{run['clean_syncs']}")
+        del eng._decode_dispatch, eng._decode_complete
+        if k == 8:
+            keep = eng  # phases 4 and 5 run on the k = 8 graphed engine
+        del eng
+        free_memory(torch)
+    first = runs[EQUALITY_RUNS[0][0]]["outputs"]
+    for name, run in runs.items():
+        for i, (got, want) in enumerate(zip(run["outputs"], first)):
+            check(got[0] == want[0], f"{name}: request {i}'s tokens differ from "
+                  f"{EQUALITY_RUNS[0][0]}'s")
+            check(got[1] == want[1], f"{name}: request {i}'s logprobs differ from "
+                  f"{EQUALITY_RUNS[0][0]}'s")
+    log(f"[equality] tokens and logprobs identical across {', '.join(runs)} "
+        f"({sum(len(t) for t, _ in first)} tokens, max_tokens {EQUALITY_MAX_TOKENS})")
+    perf["equality"] = {n: {k: v for k, v in r.items() if k != "outputs"}
+                        for n, r in runs.items()}
+    log("[equality] perf " + json.dumps(perf["equality"]))
+    return keep, launches, perf
 
 
-def phase_in_model(torch, engine, flush):
+def phase_in_model(torch, engine, flush, max_tokens=4):
     """One decode step's logits, kernel path against gather path (an int8
     pool's window dequantized in float32), gated, on a batch of 8 freshly
-    prefilled sequences. On an int8 pool also against the same step on a
-    bf16 pool, printed only: that is quantization error, not a kernel fault.
-    Then the kernel against its plain version on the engine's layer-0 pool
-    and tables, timed."""
+    prefilled sequences (``max_tokens`` each, so the engine's later windows
+    can run on). On an int8 pool also against the same step on a bf16 pool,
+    printed only: that is quantization error, not a kernel fault. Then the
+    kernel against its plain version on the engine's layer-0 pool and
+    tables, timed."""
     import numpy as np
 
     from dlti_tpu_torch.models.interop import load_model
@@ -566,7 +698,7 @@ def phase_in_model(torch, engine, flush):
     rng = np.random.default_rng(1)
     for n in [40, 77, 128, 129, 200, 255, 300, 511]:
         engine.submit(rng.integers(3, cfg.vocab_size, n).tolist(),
-                      SamplingParams(temperature=0.0, max_tokens=4))
+                      SamplingParams(temperature=0.0, max_tokens=max_tokens))
     engine.step()  # no slot was active: admission prefill only
     check(engine.num_active == 8, f"expected 8 active slots, got {engine.num_active}")
 
@@ -638,53 +770,149 @@ def phase_in_model(torch, engine, flush):
     return {**r, **extra}
 
 
+def sync_check(torch, engine, tag, submit=False):
+    """``torch.cuda.set_sync_debug_mode("error")`` around the dispatch of an
+    8-step decode window: growing tables, syncing the resident state,
+    uploading ids and positions and replaying the graph must not wait on
+    the card. With ``submit``, first admits 8 greedy requests of 9 tokens
+    (8 left after prefill: an 8-step window)."""
+    import numpy as np
+
+    from dlti_tpu_torch.serving.sampling import SamplingParams
+
+    if submit:
+        rng = np.random.default_rng(3)
+        for n in [40, 77, 128, 129, 200, 255, 300, 511]:
+            engine.submit(rng.integers(3, engine.model_cfg.vocab_size, n).tolist(),
+                          SamplingParams(temperature=0.0, max_tokens=9))
+        engine.step()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        pending = engine._decode_dispatch()
+    except RuntimeError as e:
+        raise CheckFailed(f"{tag}: the decode dispatch synchronized: {e}") from e
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    check(pending is not None and pending[1] == 8,
+          f"{tag}: expected an 8-step window, got {pending and pending[1]}")
+    engine._decode_complete(pending)
+    log(f"{tag} sync check: set_sync_debug_mode('error') around the dispatch of an "
+        f"8-step graphed window on a {engine.cfg.cache_dtype} pool "
+        f"({len(pending[0])} active slots): no synchronization")
+
+
 def phase_profile(torch, engine):
-    """Where a decode step's time goes: ``torch.profiler`` over the engine's
-    remaining decode steps (8 active slots). Device busy time is the sum of
-    the kernels' own device time; the rest of the wall time the card idles
-    while the host prepares and launches work."""
+    """Where a graphed decode window's time goes: ``torch.profiler`` over
+    the engine's remaining decode window (8 active slots, k = 8). Device
+    busy time is the sum of the kernels' own device time; the rest of the
+    wall time the card idles. K4's split and combine kernels must appear
+    inside the replays, once per layer per device step each, as the launch
+    counter says."""
     from torch.profiler import ProfilerActivity, profile
 
-    steps = 0
+    from dlti_tpu_torch.ops import paged_attention as tpa
+
+    steps0, calls, launches0 = engine.stats["decode_steps"], 0, tpa.launches
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         while engine.has_work:
             engine.step()
-            steps += 1
+            calls += 1
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
+    steps = engine.stats["decode_steps"] - steps0
+    launches = tpa.launches - launches0
     kernels = [e for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    check(steps > 0, "no decode step left to profile")
     if not kernels or busy_ms == 0:
         log("[profile] the profiler recorded no device time: not measured")
         return None
     n_kernels = sum(e.count for e in kernels)
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
-    log(f"[profile] {steps} decode steps under torch.profiler: wall "
-        f"{wall_ms / steps:.2f} ms/step, device busy {busy_ms / steps:.2f} ms/step "
-        f"({100 * busy_ms / wall_ms:.1f}% busy, {100 - 100 * busy_ms / wall_ms:.1f}% idle), "
-        f"{n_kernels / steps:.0f} kernels/step")
+    log(f"[profile] {steps} device decode steps in {calls} engine step(s) under "
+        f"torch.profiler (graph replays): wall {wall_ms / steps:.2f} ms/step, device "
+        f"busy {busy_ms / steps:.2f} ms/step ({100 * busy_ms / wall_ms:.1f}% busy, "
+        f"{100 - 100 * busy_ms / wall_ms:.1f}% idle), {n_kernels / steps:.0f} kernels/step")
     for e in top:
         log(f"[profile]   {e.self_device_time_total / 1e3 / steps:8.3f} ms/step "
             f"{100 * e.self_device_time_total / 1e3 / busy_ms:5.1f}% x{e.count // steps:<4d} "
             f"{e.key[:90]}")
     # K4 as split-K: its split kernel and its combine kernel, each once per
-    # layer per step.
+    # layer per device step.
     k4 = {}
     for e in kernels:
         for name in ("paged_decode_kernel", "paged_decode_combine_kernel"):
             if name in e.key:
                 t, c = k4.get(name, (0.0, 0))
-                k4[name] = (t + e.self_device_time_total / 1e3 / steps, c + e.count // steps)
+                k4[name] = (t + e.self_device_time_total / 1e3, c + e.count)
     log("[profile] K4 by kernel: " + "; ".join(
-        f"{n} {t:.3f} ms/step x{c}" for n, (t, c) in sorted(k4.items())))
+        f"{n} {t / steps:.3f} ms/step, {c} launches" for n, (t, c) in sorted(k4.items()))
+        + f"; launch counter {launches} (= {launches // max(steps, 1)} x {steps} steps)")
     check(set(k4) == {"paged_decode_kernel", "paged_decode_combine_kernel"},
-          f"the decode step did not run K4's split and combine kernels: {sorted(k4)}")
+          f"the graphed window did not run K4's split and combine kernels: {sorted(k4)}")
+    layers = engine.model_cfg.num_layers
+    check(launches == layers * steps, f"K4 counter {launches} != {layers} x {steps}")
+    check(all(c == launches for _, c in k4.values()),
+          f"the profiler's K4 kernels {k4} disagree with the counter {launches}")
     return {"steps": steps, "wall_ms_per_step": wall_ms / steps,
-            "busy_ms_per_step": busy_ms / steps, "kernels_per_step": n_kernels / steps,
-            "k4_ms_per_step": sum(t for t, _ in k4.values())}
+            "busy_ms_per_step": busy_ms / steps, "busy_share": busy_ms / wall_ms,
+            "kernels_per_step": n_kernels / steps,
+            "k4_ms_per_step": sum(t for t, _ in k4.values()) / steps}
+
+
+def phase_head(torch, engine):
+    """F2: one decode-shaped forward of the engine's model (8 rows, every
+    K/V write into the trash block), profiled with shapes. The LM head's
+    GEMM must take bf16 inputs, and the forward's memory peak must stay
+    under the float32 head copy it used to make."""
+    from torch.profiler import ProfilerActivity, profile
+
+    cfg = engine.model_cfg
+    dev = engine.device
+    S = 8
+    ids = torch.ones((S, 1), dtype=torch.long, device=dev)
+    pos = torch.arange(S, dtype=torch.int32, device=dev)[:, None]
+    tables = torch.zeros((S, engine.cfg.max_blocks_per_seq), dtype=torch.int32, device=dev)
+    head_f32 = cfg.hidden_size * cfg.vocab_size * 4
+    with torch.no_grad():
+        engine.model(ids, positions=pos, cache=engine.cache, block_tables=tables)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        engine.model(ids, positions=pos, cache=engine.cache, block_tables=tables)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     record_shapes=True) as prof:
+            engine.model(ids, positions=pos, cache=engine.cache, block_tables=tables)
+            torch.cuda.synchronize()
+    # The trace's op events carry their inputs' dims and types.
+    trace_path = ROOT / "build" / "head_profile.json"
+    trace_path.parent.mkdir(parents=True, exist_ok=True)
+    prof.export_chrome_trace(str(trace_path))
+    events = json.loads(trace_path.read_text())["traceEvents"]
+    shape = [cfg.hidden_size, cfg.vocab_size]
+    heads = [e for e in events if e.get("name") == "aten::mm"
+             and shape in (e.get("args", {}).get("Input Dims") or [])]
+    check(len(heads) == 1, f"expected one head GEMM in the profile, found {len(heads)}")
+    args = heads[0]["args"]
+    dtypes = args.get("Input type") or []
+    op_id = args.get("External id")
+    kernels = sorted({e["name"] for e in events if e.get("cat") == "kernel"
+                      and e.get("args", {}).get("External id") == op_id})
+    log(f"[head] LM head GEMM: aten::mm input dims {args.get('Input Dims')}, input "
+        f"types {dtypes}, kernels {kernels}")
+    check(len(dtypes) >= 2 and all("BFloat16" in str(d) for d in dtypes[:2]),
+          f"the head GEMM's inputs are {dtypes}, not bf16")
+    log(f"[head] decode forward memory peak over the allocated base: {peak / 1e6:.1f} MB "
+        f"(the float32 head copy alone was {head_f32 / 1e6:.1f} MB)")
+    check(peak < head_f32, f"a decode forward still peaks at {peak} B >= {head_f32} B")
+    return {"head_input_dtypes": dtypes, "head_kernels": kernels,
+            "decode_forward_peak_mb": peak / 1e6, "f32_head_copy_mb": head_f32 / 1e6}
 
 
 # ----------------------------------------------------------------------
@@ -1165,6 +1393,10 @@ def phase_train_profile(torch, state, dataset):
 
 SERVE_ARGS = ["--random-init", "llama2_7b", "--tokenizer", "byte",
               "--kv-cache-dtype", "int8", "--host", "127.0.0.1", "--port", "0"]
+# The reference's documented serving configuration (README's serve command):
+# int8 KV, 28 slots, 64 decode steps a host sync; bf16 weights (int8 weights
+# are not ported).
+DOCUMENTED_ARGS = SERVE_ARGS + ["--max-seqs", "28", "--steps-per-sync", "64"]
 
 
 def http_request(addr, method, path, body=None, timeout=600):
@@ -1251,10 +1483,11 @@ def server_requests(seed=0):
     return reqs
 
 
-def phase_server(torch):
-    """llama2_7b from the serve CLI's own builder on an int8 pool with the
-    CLI's defaults, behind ``make_server`` on a free port: 12 concurrent
-    requests, then a greedy prompt twice and streamed, one at a time."""
+def phase_server(torch, argv=SERVE_ARGS, tag="[server]"):
+    """llama2_7b from the serve CLI's own builder on an int8 pool (the CLI's
+    defaults, or ``argv``), warmed up as the CLI warms it, behind
+    ``make_server`` on a free port: 12 concurrent requests, then a greedy
+    prompt twice and streamed, one at a time."""
     import threading
 
     from dlti_tpu_torch.cli import serve as cli
@@ -1263,17 +1496,21 @@ def phase_server(torch):
     from dlti_tpu_torch.serving import make_server
     from dlti_tpu_torch.serving.server import llama2_chat_prompt
 
-    args = cli.parse_args(SERVE_ARGS)
-    check((args.max_seqs, args.num_blocks, args.block_size, args.max_model_len)
-          == (8, 2048, 16, 2048), "the serve CLI's defaults changed")
+    args = cli.parse_args(argv)
+    if argv is SERVE_ARGS:
+        check((args.max_seqs, args.num_blocks, args.block_size, args.max_model_len,
+               args.steps_per_sync) == (8, 2048, 16, 2048, 1),
+              "the serve CLI's defaults changed")
     t0 = time.perf_counter()
     engine, tok, sc = cli.build(args)
+    engine.warmup_decode_ladder()
     torch.cuda.synchronize()
     cfg = engine.model_cfg
     pool_bytes = sum(t.numel() * t.element_size() for c in engine.cache for t in c.values())
     scale_bytes = sum(c[k].numel() * 4 for c in engine.cache for k in ("k_scale", "v_scale"))
     check(engine.cache[0]["k"].dtype == torch.int8, "the CLI did not build an int8 pool")
-    log(f"[server] {args.random_init} engine from the serve CLI builder in "
+    log(f"{tag} {' '.join(argv)}: {args.random_init} engine from the serve CLI "
+        f"builder, warmed up, in "
         f"{time.perf_counter() - t0:.1f} s: int8 KV pool {pool_bytes / 1e9:.3f} GB "
         f"({scale_bytes / 1e9:.3f} GB of it float32 scales; {args.num_blocks} blocks x "
         f"{args.block_size} tokens x {cfg.num_layers} layers), device memory "
@@ -1380,7 +1617,7 @@ def phase_server(torch):
         del engine.step
 
     expected = cfg.num_layers * decode_steps
-    log(f"[server] 12 concurrent requests in {wall:.2f} s, then 3 one at a time; decode "
+    log(f"{tag} 12 concurrent requests in {wall:.2f} s, then 3 one at a time; decode "
         f"steps {decode_steps}; K4q launches {launches_int8} (expected {cfg.num_layers} "
         f"layers x {decode_steps} steps = {expected}), float K4 launches {launches_float}")
     check(launches_int8 == expected, f"K4q launches {launches_int8} != {expected}")
@@ -1395,14 +1632,15 @@ def phase_server(torch):
             "engine_steps": len(step_s), "step_ms_p50": 1e3 * sorted(step_s)[len(step_s) // 2],
             "step_ms_mean": 1e3 * sum(step_s) / len(step_s),
             "kv_pool_bytes": pool_bytes, "kv_scale_bytes": scale_bytes,
+            "max_seqs": args.max_seqs, "steps_per_sync": args.steps_per_sync,
             "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
-    log(f"[server] {perf['requests_per_s']:.3f} requests/s, {perf['output_tok_s']:.1f} "
+    log(f"{tag} {perf['requests_per_s']:.3f} requests/s, {perf['output_tok_s']:.1f} "
         f"output tok/s ({completion_tokens} tokens); TTFT p50 {ttft['p50']:.4f} s, p99 "
         f"{ttft['p99']:.4f} s (/stats, bucket-interpolated); mean TPOT "
         f"{1e3 * tpot['mean']:.2f} ms; engine step on the stepper thread p50 "
         f"{perf['step_ms_p50']:.2f} ms, mean {perf['step_ms_mean']:.2f} ms over "
         f"{len(step_s)} steps")
-    log("[server] perf " + json.dumps(perf))
+    log(f"{tag} perf " + json.dumps(perf))
     return engine, launches_int8, perf
 
 
@@ -1417,7 +1655,7 @@ def phase_serve_cli(torch):
 
     cmd = [sys.executable, "-m", "dlti_tpu_torch.cli.serve", "--random-init",
            "llama_tiny", "--tokenizer", "byte", "--kv-cache-dtype", "int8",
-           "--host", "127.0.0.1", "--port", "0"]
+           "--steps-per-sync", "4", "--host", "127.0.0.1", "--port", "0"]
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     t0 = time.perf_counter()
     proc = subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=subprocess.PIPE,
@@ -1478,14 +1716,18 @@ def main() -> int:
         # 256 MB written before each timed launch: more than the 50 MB L2.
         flush = torch.empty(64 << 20, dtype=torch.float32, device="cuda")
         cases, int8_cases = phase_kernel_cases(torch, flush)
-        engine, launches = phase_engine(torch)
-        main_path = phase_in_model(torch, engine, flush)
-        phase_profile(torch, engine)
+        engine, launches, engine_perf = phase_engine(torch)
+        # Phases 4 and 5 on the k = 8 graphed engine: 17 tokens a request
+        # leave two 8-step windows after the prefill, one dispatched under
+        # the sync check and one profiled.
+        main_path = phase_in_model(torch, engine, flush, max_tokens=17)
+        sync_check(torch, engine, "[in-model]")
+        profile_perf = phase_profile(torch, engine)
+        head_perf = phase_head(torch, engine)
         # The serving phases hold ~23 GB (weights and KV pool): release them
         # before the training phases build their own llama2_7b.
         del engine
-        gc.collect()
-        torch.cuda.empty_cache()
+        free_memory(torch)
         flash = phase_flash_cases(torch, flush)
         state, dataset, lora, flash_launches, train_perf = phase_training(torch)
         paths = phase_train_paths(torch, state, dataset, lora)
@@ -1497,8 +1739,14 @@ def main() -> int:
         engine, int8_launches, server_perf = phase_server(torch)
         int8_main = phase_in_model(torch, engine, flush)
         del engine
-        gc.collect()
-        torch.cuda.empty_cache()
+        free_memory(torch)
+        engine, _, documented_perf = phase_server(torch, DOCUMENTED_ARGS,
+                                                  "[server-documented]")
+        sync_check(torch, engine, "[server-documented]", submit=True)
+        while engine.has_work:
+            engine.step()
+        del engine
+        free_memory(torch)
         phase_serve_cli(torch)
     except CheckFailed as e:
         return fail(str(e))
@@ -1556,7 +1804,14 @@ def main() -> int:
         })
     log("[train] summary " + json.dumps({**{k: train_perf[k] for k in (
         "step_ms", "tokens_per_s", "mfu_percent", "peak_memory_gb")}, **paths}))
+    log("[engine] summary " + json.dumps({
+        "decode_step_ms_k1_graph_events": engine_perf["decode_step_ms"],
+        **{name: {k: r[k] for k in ("ms_per_device_step", "decode_tok_s", "windows",
+                                   "host_syncs_per_token")}
+           for name, r in engine_perf["equality"].items()},
+        "profile_k8": profile_perf, "head": head_perf}))
     log("[server] summary " + json.dumps(server_perf))
+    log("[server-documented] summary " + json.dumps(documented_perf))
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -7,7 +7,9 @@
     python -m dlti_tpu_torch.cli.serve --device cpu --random-init llama_tiny \\
         --tokenizer byte --port 0
 
-Flags keep the reference's names and defaults. Weights are random, from
+Flags keep the reference's names and defaults (``--steps-per-sync``,
+``--no-decode-state-cache`` included); the decode iteration's CUDA graph is
+captured before the server binds. Weights are random, from
 ``init_params(seed=0)``; ``--model-dir`` (an export) is not ported yet. It
 prints ``serving on http://HOST:PORT`` with the port it bound, and SIGTERM
 or Ctrl-C stops it with exit code 0.
@@ -41,9 +43,17 @@ def parse_args(argv=None):
     p.add_argument("--block-size", type=int, default=16, help="tokens per KV block")
     p.add_argument("--max-model-len", type=int, default=2048)
     p.add_argument("--max-tokens-default", type=int, default=256)
+    p.add_argument("--steps-per-sync", type=int, default=1,
+                   help="decode iterations per host sync (multi-step "
+                        "scheduling; amortizes host round-trips)")
     p.add_argument("--kv-cache-dtype", default="bfloat16", choices=KV_CACHE_DTYPES,
                    help="KV pool dtype; int8 stores per-row-scaled payloads at "
                         "half the bf16 bytes")
+    p.add_argument("--no-decode-state-cache", action="store_true",
+                   help="disable the device-resident decode-state cache "
+                        "(per-slot dirty tracking; clean decode steps "
+                        "upload no host state) and re-upload every row "
+                        "each step; outputs are identical")
     p.add_argument("--device", default=None, help="cuda (default) or cpu")
     return p.parse_args(argv)
 
@@ -75,7 +85,9 @@ def build(args):
     ec = EngineConfig(
         max_seqs=args.max_seqs, block_size=args.block_size,
         num_blocks=args.num_blocks, max_model_len=args.max_model_len,
-        eos_token_id=tok.eos_id, cache_dtype=args.kv_cache_dtype)
+        eos_token_id=tok.eos_id, cache_dtype=args.kv_cache_dtype,
+        steps_per_sync=args.steps_per_sync,
+        decode_state_cache=not args.no_decode_state_cache)
     engine = InferenceEngine(model_cfg, params, ec, device=device)
     sc = ServerConfig(host=args.host, port=args.port,
                       default_params=SamplingParams(max_tokens=args.max_tokens_default))
@@ -90,6 +102,13 @@ def main(argv=None) -> None:
 
     print(f"KV pool: {args.num_blocks} blocks x {args.block_size} tokens, "
           f"{args.kv_cache_dtype}", flush=True)
+    # Capture the decode graph before traffic: its first use would otherwise
+    # stall the live decode loop.
+    print("pre-compiling decode programs (single-step + multi-step ladder)...",
+          flush=True)
+    t0 = time.time()
+    engine.warmup_decode_ladder()
+    print(f"decode programs ready in {time.time() - t0:.0f}s", flush=True)
     serve(engine, tok, sc)
 
 

@@ -118,7 +118,10 @@ class LlamaAttention(nn.Module):
     def forward(self, x, cos, sin, positions, segment_ids=None,
                 cache: Optional[dict] = None,
                 block_tables: Optional[torch.Tensor] = None,
-                dropout_seed: Optional[int] = None) -> torch.Tensor:
+                dropout_seed: Optional[int] = None,
+                paged: Optional[tuple] = None) -> torch.Tensor:
+        """``paged``: ``(slots, seq_lens)`` of a paged-cache call, computed
+        once per forward by :class:`LlamaModel`."""
         cfg = self.cfg
         b, s, _ = x.shape
         hd = cfg.resolved_head_dim
@@ -132,14 +135,11 @@ class LlamaAttention(nn.Module):
             # Paged cache: write this step's K/V into the pool in place, then
             # attend over the sequence's pages. Unwritten rows sit at logical
             # positions past the query, so the position mask hides them.
-            nb, blk_size = cache["k"].shape[0], cache["k"].shape[1]
-            paged_update(cache, k, v,
-                         slot_mapping(block_tables, positions, blk_size, nb))
+            slots, seq_lens = paged
+            paged_update(cache, k, v, slots)
             if s == 1 and cfg.paged_attention_impl != "gather":
                 out = paged_decode_attention(
-                    q, cache["k"], cache["v"],
-                    block_tables.to(torch.int32).contiguous(),
-                    (positions[:, 0] + 1).to(torch.int32),
+                    q, cache["k"], cache["v"], block_tables, seq_lens,
                     k_scale=cache.get("k_scale"), v_scale=cache.get("v_scale"),
                     window=cfg.sliding_window,
                 ).to(q.dtype)
@@ -197,9 +197,9 @@ class LlamaBlock(nn.Module):
         self.mlp = LlamaMLP(cfg, lora, device)
 
     def forward(self, x, cos, sin, positions, segment_ids=None, cache=None,
-                block_tables=None, dropout_seed=None):
+                block_tables=None, dropout_seed=None, paged=None):
         x = x + self.attn(self.input_norm(x), cos, sin, positions, segment_ids,
-                          cache, block_tables, dropout_seed)
+                          cache, block_tables, dropout_seed, paged)
         return x + self.mlp(self.post_attn_norm(x), dropout_seed)
 
 
@@ -243,10 +243,12 @@ class LlamaModel(nn.Module):
         b, s = input_ids.shape
         x = self.embed_tokens[input_ids].to(dtype)
         if cfg.embedding_scale:  # Gemma: scaled by sqrt(hidden) in the compute dtype
-            x = x * torch.tensor(cfg.hidden_size ** 0.5, dtype=dtype, device=x.device)
+            # A CPU scalar: no host-to-device copy, which a CUDA graph refuses.
+            x = x * torch.tensor(cfg.hidden_size ** 0.5, dtype=dtype)
         if positions is None:
             positions = torch.arange(s, device=x.device)[None, :].expand(b, s)
 
+        paged = None
         if cache is None:
             # Cover the whole sequence even past the preset's design length.
             table_len = max(cfg.max_seq_len, s)
@@ -255,7 +257,13 @@ class LlamaModel(nn.Module):
             if block_tables is None:
                 raise ValueError("a paged cache needs block_tables")
             # Capacity of the logical window: positions stay below it.
-            table_len = block_tables.shape[1] * cache[0]["k"].shape[1]
+            block_size = cache[0]["k"].shape[1]
+            table_len = block_tables.shape[1] * block_size
+            block_tables = block_tables.to(torch.int32).contiguous()
+            # Where this call's K/V rows go, and (for one-token decode) each
+            # row's length: the same in every layer.
+            paged = (slot_mapping(block_tables, positions, block_size),
+                     (positions[:, 0] + 1).to(torch.int32))
         cos, sin = self._rope_tables(table_len, x.device)
 
         remat = cfg.remat and cache is None and torch.is_grad_enabled()
@@ -270,7 +278,7 @@ class LlamaModel(nn.Module):
             else:
                 x = layer(x, cos, sin, positions, segment_ids,
                           cache[i] if cache is not None else None, block_tables,
-                          seed)
+                          seed, paged)
         return self.final_norm(x)
 
 
@@ -298,8 +306,46 @@ class LlamaForCausalLM(nn.Module):
                 block_tables=None, dropout_seed=None) -> torch.Tensor:
         x = self.model(input_ids, positions, segment_ids, cache, block_tables,
                        dropout_seed)
-        # Float32 products of the (possibly bf16) operands: the reference's
-        # preferred_element_type=float32 head, with no bf16 rounding of logits.
-        if self.cfg.tie_embeddings:
-            return x.float() @ self.model.embed_tokens.float().T
-        return x.float() @ self.lm_head.to(x.dtype).float()
+        head = (self.model.embed_tokens.T if self.cfg.tie_embeddings
+                else self.lm_head)
+        return lm_head_logits(x, head)
+
+
+def lm_head_logits(x: torch.Tensor, head: torch.Tensor) -> torch.Tensor:
+    """Float32 logits ``x @ head``: the reference's ``jnp.dot(x,
+    head.astype(x.dtype), preferred_element_type=float32)``.
+
+    On the card a bf16/fp16 ``x`` multiplies the head cast to its dtype on
+    the tensor cores, accumulating and writing float32
+    (:class:`_HalfHeadMatmul`). Everywhere else (the CPU has no such GEMM,
+    and float32 models need none) it is the float32 product of the two,
+    which is the same function up to summation order: the products of two
+    bf16 values are exact in float32. Logits stay float32 either way; a
+    bf16 rounding would flip greedy near-ties against the JAX engine.
+    """
+    if x.device.type == "cuda" and x.dtype in (torch.bfloat16, torch.float16):
+        return _HalfHeadMatmul.apply(x, head.to(x.dtype))
+    return x.float() @ head.float()
+
+
+class _HalfHeadMatmul(torch.autograd.Function):
+    """``torch.mm(x, w, out_dtype=torch.float32)`` (``aten::mm.dtype``,
+    which has no derivative) with the float32 head's gradients: dx as the
+    float32 product ``g @ w.T`` rounded to x's dtype, dw likewise."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        out = torch.mm(x.reshape(-1, x.shape[-1]), w, out_dtype=torch.float32)
+        return out.reshape(*x.shape[:-1], w.shape[-1])
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        g2 = g.reshape(-1, g.shape[-1])
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            dx = (g2 @ w.float().T).to(x.dtype).reshape(x.shape)
+        if ctx.needs_input_grad[1]:
+            dw = (x.reshape(-1, x.shape[-1]).float().T @ g2).to(w.dtype)
+        return dx, dw

@@ -10,11 +10,13 @@
   row ``block_tables[b, p // bs]``, offset ``p % bs``.
 * :func:`paged_update` writes the new K/V rows **in place** into the pool
   (``index_copy_``); an int8 pool quantizes them once, here, and writes
-  payloads and scales through the same filter. The reference returns fresh
+  payloads and scales to the same slots. The reference returns fresh
   pools and relies on JAX buffer donation to reuse the memory; here the
   pool tensors themselves are mutated and nothing is returned to rebind.
-* Writes whose slot is out of range (padding tokens at position -1) are
-  dropped, as the reference's ``mode="drop"`` scatter drops them.
+* Padding tokens (position -1) write to the trash block (block 0, which
+  the block manager never hands out, so nothing reads it back) where the
+  reference's ``mode="drop"`` scatter drops them: every row is written,
+  with no mask, so a write never waits on the host.
 * :func:`paged_gather` reads a sequence's blocks back into a contiguous
   logical window (an int8 pool's dequantized to float32); the caller's
   position mask hides unwritten rows. The paged decode kernel
@@ -82,17 +84,16 @@ def _quantize_rows(x: torch.Tensor):
 
 
 def slot_mapping(block_tables: torch.Tensor, positions: torch.Tensor,
-                 block_size: int, num_blocks: int) -> torch.Tensor:
+                 block_size: int) -> torch.Tensor:
     """Flat physical slot index (int64) for each (batch, seq) token.
 
-    Negative positions (padding) map to ``num_blocks * block_size``, one
-    past the end, which :func:`paged_update` drops.
+    Negative positions (padding) map to slot 0, in the trash block.
     """
     pos = positions.long()
     clamped = pos.clamp(min=0)
     phys = torch.gather(block_tables.long(), 1, clamped // block_size)
     slots = phys * block_size + clamped % block_size
-    return torch.where(pos >= 0, slots, num_blocks * block_size)
+    return torch.where(pos >= 0, slots, 0)
 
 
 def paged_update(layer_cache: dict, k_new: torch.Tensor, v_new: torch.Tensor,
@@ -100,26 +101,25 @@ def paged_update(layer_cache: dict, k_new: torch.Tensor, v_new: torch.Tensor,
     """Write new K/V rows into the layer's pools, in place.
 
     ``k_new``/``v_new``: (batch, s, kv_heads, head_dim); ``slots``:
-    (batch, s) from :func:`slot_mapping`. Rows whose slot lies outside the
-    pool are filtered out before the copy. An int8 pool gets the rows
-    quantized and their scales written to the same slots.
+    (batch, s) from :func:`slot_mapping`. Every row is written; padding rows
+    all land in the trash block, where duplicate indices only collide with
+    each other. An int8 pool gets the rows quantized and their scales
+    written to the same slots.
     """
     k_pool, v_pool = layer_cache["k"], layer_cache["v"]
     nb, bs, kvh, hd = k_pool.shape
-    flat = slots.reshape(-1)
-    keep = (flat >= 0) & (flat < nb * bs)
-    idx = flat[keep]
+    idx = slots.reshape(-1)
     if k_pool.dtype == torch.int8:
         k_new, ks = _quantize_rows(k_new)
         v_new, vs = _quantize_rows(v_new)
         layer_cache["k_scale"].view(nb * bs, kvh).index_copy_(
-            0, idx, ks.reshape(-1, kvh)[keep])
+            0, idx, ks.reshape(-1, kvh))
         layer_cache["v_scale"].view(nb * bs, kvh).index_copy_(
-            0, idx, vs.reshape(-1, kvh)[keep])
+            0, idx, vs.reshape(-1, kvh))
     k_pool.view(nb * bs, kvh, hd).index_copy_(
-        0, idx, k_new.reshape(-1, kvh, hd)[keep].to(k_pool.dtype))
+        0, idx, k_new.reshape(-1, kvh, hd).to(k_pool.dtype))
     v_pool.view(nb * bs, kvh, hd).index_copy_(
-        0, idx, v_new.reshape(-1, kvh, hd)[keep].to(v_pool.dtype))
+        0, idx, v_new.reshape(-1, kvh, hd).to(v_pool.dtype))
 
 
 def paged_gather(layer_cache: dict, block_tables: torch.Tensor):

@@ -8,10 +8,15 @@ rank and cumulative-probability masks in sorted space. A row with
 ``temperature == 0`` is greedy. The reported logprob is the chosen token's
 under the unscaled, unmasked distribution (what the OpenAI API reports).
 
-Random draws: each sampling row draws from its own ``torch.Generator``
-seeded with that row's seed (Gumbel-max over the masked logits), so a
-request's stream does not depend on what else shares the batch. The bits
-differ from JAX's threefry draws; only the distribution is the same.
+Random draws are Gumbel-max over the masked logits, with each uniform a
+counter-based hash of (the slot's seed, its generated-token count, the
+vocabulary index) in plain integer tensor ops on the logits' device. A
+seeded stream therefore depends on (seed, count) alone: not on batch
+company, preemption or the decode window, and it is the same bits on the
+CPU and on the card. Nothing here reads a tensor back to the host, so a
+sampling step never waits on the device and can be captured in a CUDA
+graph. The bits differ from JAX's threefry draws; only the distribution is
+the same.
 """
 
 from __future__ import annotations
@@ -39,9 +44,45 @@ class SamplingParams:
         return self.temperature == 0.0
 
 
+_MASK32 = 0xFFFFFFFF
+# Multiplier of the 32-bit finalizer below; < 2**31, so a 32-bit lane times
+# it stays inside int64 and no product overflows.
+_MIX32 = 0x045D9F3B
+
+
+def _mix32(x: torch.Tensor) -> torch.Tensor:
+    """A bijective 32-bit integer hash of ``x`` (int64 tensor holding values
+    in [0, 2**32)). Every shift acts on a non-negative value, so torch's
+    arithmetic ``>>`` is the logical one."""
+    x = ((x >> 16) ^ x) * _MIX32 & _MASK32
+    x = ((x >> 16) ^ x) * _MIX32 & _MASK32
+    return (x >> 16) ^ x
+
+
+def draw_keys(seeds: torch.Tensor, counts: torch.Tensor) -> torch.Tensor:
+    """Per-row 32-bit key of the ``counts``-th draw of each slot ``seeds``
+    stream: the role ``jax.random.fold_in(key, count)`` plays in the
+    reference."""
+    s = seeds.long()
+    k = _mix32((s & _MASK32) ^ 0x9E3779B9)
+    k = _mix32(k ^ ((s >> 32) & _MASK32))
+    return _mix32(k ^ (counts.long() & _MASK32))
+
+
+def gumbel_noise(keys: torch.Tensor, vocab: int) -> torch.Tensor:
+    """(rows, vocab) float32 Gumbel noise, entry ``[r, v]`` a function of
+    ``(keys[r], v)`` only. The uniform is the hash's 24 high bits plus one
+    half over 2**24: strictly inside (0, 1), exact in float64."""
+    v = torch.arange(vocab, device=keys.device)
+    h = _mix32(keys[:, None] ^ _mix32(v ^ 0x85EBCA6B)[None, :])
+    u = ((h >> 8).double() + 0.5) * 2.0 ** -24
+    return (-torch.log(-torch.log(u))).float()
+
+
 def sample_tokens(
     logits: torch.Tensor,
-    seeds: Sequence[int],
+    seeds: torch.Tensor,
+    counts: torch.Tensor,
     temperature: torch.Tensor,
     top_k: torch.Tensor,
     top_p: torch.Tensor,
@@ -50,9 +91,11 @@ def sample_tokens(
 
     Args:
       logits: (batch, vocab) float32.
-      seeds: one seed per row for that row's generator (read only for rows
-        with ``temperature > 0``).
-      temperature: (batch,) float32; 0 => greedy.
+      seeds: (batch,) int64, each row's stream seed.
+      counts: (batch,) int, tokens the row has generated so far (which draw
+        of its stream this is).
+      temperature: (batch,) float32; 0 => greedy (the same code runs, and
+        the row takes rank 0).
       top_k: (batch,) int; 0 => disabled.
       top_p: (batch,) float32; 1.0 => disabled.
 
@@ -75,15 +118,10 @@ def sample_tokens(
     keep &= cum_before < top_p[:, None]
     masked = torch.where(keep, scaled, float("-inf"))
 
-    rank = torch.zeros(b, dtype=torch.long, device=logits.device)  # greedy: rank 0
-    rows = sampling.nonzero().flatten().tolist()
-    if rows:
-        u = torch.empty((len(rows), v), dtype=torch.float32, device=logits.device)
-        for i, r in enumerate(rows):
-            gen = torch.Generator(device=logits.device).manual_seed(int(seeds[r]))
-            u[i].uniform_(generator=gen)
-        gumbel = -torch.log(-torch.log(u.clamp_min(torch.finfo(torch.float32).tiny)))
-        rank[rows] = torch.argmax(masked[rows] + gumbel, dim=-1)
+    # Noise by token id, moved into sorted order; greedy rows take rank 0.
+    noise = torch.gather(gumbel_noise(draw_keys(seeds, counts), v), 1, sorted_idx)
+    drawn = torch.argmax(masked + noise, dim=-1)
+    rank = torch.where(sampling, drawn, 0)
 
     tokens = torch.gather(sorted_idx, 1, rank[:, None])[:, 0]
     logz = torch.logsumexp(sorted_logits, dim=-1)

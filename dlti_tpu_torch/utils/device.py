@@ -1,4 +1,5 @@
-"""Device resolution and the dtype-name table.
+"""Device resolution, the dtype-name table, and host<->device copies that
+wait on the card at most once.
 
 The dtype table is this package's copy of ``dlti_tpu/utils/dtypes.py``.
 """
@@ -43,3 +44,39 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None
             "no CUDA device is available; pass device='cpu' to run on the "
             "CPU explicitly")
     return torch.device("cuda", torch.cuda.current_device())
+
+
+def upload(a, device: torch.device, out: Optional[torch.Tensor] = None
+           ) -> torch.Tensor:
+    """A host array (numpy) as a tensor on ``device`` (into ``out`` when
+    given), without waiting on the device: on the card it is staged in
+    pinned memory and copied with ``non_blocking=True``. The caching host
+    allocator records the copy, so the pinned buffer is not handed out
+    again before the copy has read it. A pageable upload would synchronize
+    the stream."""
+    t = torch.from_numpy(a)
+    if device.type == "cuda":
+        t = t.pin_memory()
+    elif out is None:
+        t = t.clone()
+    if out is not None:
+        return out.copy_(t, non_blocking=True)
+    return t.to(device, non_blocking=True)
+
+
+def to_host(*tensors: torch.Tensor) -> list:
+    """Tensors as numpy arrays (copies), with at most one wait on the card:
+    each CUDA tensor is copied into pinned memory without blocking, then
+    its stream is synchronized once."""
+    out, stream = [], None
+    for t in tensors:
+        if t.device.type == "cuda":
+            h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            h.copy_(t, non_blocking=True)
+            stream = torch.cuda.current_stream(t.device)
+            out.append(h)
+        else:
+            out.append(t.detach().clone())
+    if stream is not None:
+        stream.synchronize()
+    return [h.numpy() for h in out]

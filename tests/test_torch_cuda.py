@@ -1,6 +1,8 @@
 """The CUDA kernels on the card, against their plain versions: the paged
 decode kernel (K4) on float and int8 pools and flash attention's forward
-(K1), dq (K2) and dk/dv (K3).
+(K1), dq (K2) and dk/dv (K3); then the decode step's host path (the decode
+window as a CUDA graph, no host sync in its dispatch, the LM head's bf16
+GEMM).
 
 Marked ``cuda``: each test skips where ``torch.cuda.is_available()`` is
 false, as on a CPU-only host. On a machine with the card and without JAX,
@@ -288,6 +290,10 @@ def test_int8_engine_decode_launches_the_int8_kernel_per_layer(gen):
                              EngineConfig(max_seqs=4, block_size=16, num_blocks=32,
                                           max_model_len=128, cache_dtype="int8",
                                           eos_token_id=-1), device="cuda")
+    # Captures the decode graph, whose warm-up iteration launches the
+    # kernel once per layer outside any decode step (as the serve CLI does
+    # before traffic).
+    engine.warmup_decode_ladder()
     tpa.launches = tpa.launches_int8 = 0
     out = engine.generate([[1, 2, 3], [4] * 40], SamplingParams(temperature=0.0,
                                                                 max_tokens=6))
@@ -530,3 +536,144 @@ def test_flash_kernels_refuse_what_they_were_not_built_for(gen):
                                                       device="cuda"))
     with pytest.raises(ValueError, match="does not fit"):
         tfa.flash_fwd(q, k[:, :, :3].contiguous(), v[:, :, :3].contiguous())
+
+
+# ----------------------------------------------------------------------
+# The decode step's host path: the decode window as a CUDA graph, with no
+# host sync inside the dispatch; the LM head's bf16 GEMM
+# ----------------------------------------------------------------------
+
+def _tiny_bf16_cfg():
+    import dataclasses
+
+    from dlti_tpu_torch.config import MODEL_PRESETS
+
+    return dataclasses.replace(MODEL_PRESETS["llama_tiny"], dtype="bfloat16",
+                               param_dtype="bfloat16")
+
+
+def _card_engine(pool="bfloat16", k=8, graphs=True, max_seqs=4):
+    """llama_tiny in bf16 on the card; ``graphs=False`` runs the decode
+    iteration eagerly through the executor's constructor argument."""
+    from dlti_tpu_torch.models import init_params
+    from dlti_tpu_torch.serving import EngineConfig, InferenceEngine
+    from dlti_tpu_torch.serving.engine import EngineExecutor
+
+    cfg = _tiny_bf16_cfg()
+    params = init_params(cfg, seed=0, device="cuda")
+    ec = EngineConfig(max_seqs=max_seqs, block_size=16, num_blocks=64, max_model_len=128,
+                      cache_dtype=pool, eos_token_id=-1, steps_per_sync=k)
+    ex = EngineExecutor(cfg, params, ec, device="cuda", cuda_graphs=graphs)
+    return InferenceEngine(cfg, params, ec, device="cuda", executor=ex)
+
+
+def _mixed_requests(engine):
+    from dlti_tpu_torch.serving import SamplingParams
+
+    reqs = [engine.submit([1, 2, 3], SamplingParams(temperature=0.0, max_tokens=21)),
+            engine.submit([4] * 40, SamplingParams(temperature=0.9, top_k=50, top_p=0.9,
+                                                   max_tokens=17, seed=5)),
+            engine.submit([7, 8], SamplingParams(temperature=0.7, max_tokens=30, seed=9))]
+    return reqs
+
+
+@pytest.mark.parametrize("pool", ["bfloat16", "int8"])
+def test_decode_window_and_prefill_never_sync_the_host(gen, pool):
+    """``set_sync_debug_mode("error")`` around a graphed 8-step window's
+    dispatch (greedy and sampling rows, one slot free) and around the
+    executor's prefill and first-token sampling: nothing waits on the card."""
+    import numpy as np
+
+    engine = _card_engine(pool)
+    engine.warmup_decode_ladder()
+    _mixed_requests(engine)
+    engine.step()  # admission and prefill
+    ex = engine.executor
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        pending = engine._decode_dispatch()
+        ids = np.arange(1, 33, dtype=np.int64).reshape(2, 16)
+        pos = np.tile(np.arange(16, dtype=np.int32), (2, 1))
+        pos[1, 9:] = -1
+        logits = ex.prefill(ids, pos, np.zeros((2, 1), np.int32), np.array([15, 8], np.int32))
+        ex.sample(logits, np.array([3, 4], np.int64), np.array([0, 2], np.int32),
+                  np.array([0.0, 1.0], np.float32), np.array([0, 5], np.int32),
+                  np.array([1.0, 0.9], np.float32))
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert pending[1] == 8
+    engine._decode_complete(pending)
+    while engine.has_work:
+        engine.step()
+    assert engine.block_manager.num_free == 63
+
+
+@pytest.mark.parametrize("k", [1, 8])
+def test_graphed_decode_equals_eager(gen, k):
+    """The same requests through the captured graph and through the eager
+    iteration on the card: identical tokens and logprobs."""
+    runs = []
+    for graphs in (False, True):
+        engine = _card_engine("bfloat16", k, graphs)
+        reqs = _mixed_requests(engine)
+        while engine.has_work:
+            engine.step()
+        assert (engine.executor.graph is not None) == graphs
+        runs.append([(r.output_token_ids, r.output_logprobs) for r in reqs])
+    assert runs[0] == runs[1]
+    assert [len(t) for t, _ in runs[0]] == [21, 17, 30]
+
+
+def test_rewarm_keeps_one_graph_and_replays_count_launches(gen):
+    """``warmup_decode_ladder`` is idempotent (one graph), and K4's counter
+    grows by layers x device steps although replays bypass the wrapper."""
+    engine = _card_engine("bfloat16", 8)
+    engine.warmup_decode_ladder()
+    graph = engine.executor.graph
+    engine.warmup_decode_ladder()
+    assert engine.executor.graph is graph
+    tpa.launches = tpa.launches_int8 = 0
+    _mixed_requests(engine)
+    windows = 0
+    while engine.has_work:
+        windows += engine.num_active > 0
+        engine.step()
+    torch.cuda.synchronize()
+    steps = engine.stats["decode_steps"]
+    assert engine.executor.graph is graph
+    assert steps > windows
+    assert tpa.launches == engine.model_cfg.num_layers * steps and tpa.launches_int8 == 0
+
+
+def test_lm_head_runs_a_bf16_gemm_with_float32_output(gen):
+    """The head of a bf16 model multiplies bf16 operands on the card
+    (``aten::mm`` with an out_dtype, bf16 inputs in the profile) and returns
+    float32 logits equal to the float32 product up to summation order; its
+    gradient with respect to x is the float32 product's."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from dlti_tpu_torch.models.llama import lm_head_logits
+
+    x = torch.randn(8, 1, 256, device="cuda", generator=gen).to(torch.bfloat16)
+    w = (0.05 * torch.randn(256, 512, device="cuda", generator=gen)).to(torch.bfloat16)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
+        got = lm_head_logits(x, w)
+        torch.cuda.synchronize()
+    want = x.float() @ w.float()
+    assert got.dtype == torch.float32 and got.shape == (8, 1, 512)
+    torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-5)
+    mms = [e for e in prof.events() if e.name == "aten::mm"]
+    assert mms and all(e.input_shapes[:2] == [[8, 256], [256, 512]] for e in mms)
+    dtypes = getattr(mms[0], "input_dtypes", None)
+    if dtypes is not None:
+        assert "BFloat16" in str(dtypes[0]) and "BFloat16" in str(dtypes[1]), dtypes
+
+    xg = x.clone().requires_grad_()
+    xf = x.clone().requires_grad_()
+    g = torch.randn(8, 1, 512, device="cuda", generator=gen)
+    lm_head_logits(xg, w).backward(g)
+    (xf.float() @ w.float()).backward(g)
+    assert xg.grad.dtype == torch.bfloat16
+    torch.testing.assert_close(xg.grad, xf.grad, atol=0, rtol=0)

@@ -99,16 +99,21 @@ def test_repeat_kv_matches_jax():
 
 
 def test_slot_mapping_matches_jax():
+    """Real positions map to JAX's slots. Padding (position -1), which JAX
+    maps one past the pool to be dropped, maps to slot 0 of the trash block
+    here, so the write needs no mask."""
     bt = np.array([[3, 5, 1], [7, 2, 6]], np.int32)
     pos = np.array([[0, 3, 4, 9, -1], [11, 8, -1, -1, 2]], np.int32)
-    want = jkv.slot_mapping(jnp.asarray(bt), jnp.asarray(pos), 4, 8)
-    got = tkv.slot_mapping(T(bt), T(pos), 4, 8)
-    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    want = np.asarray(jkv.slot_mapping(jnp.asarray(bt), jnp.asarray(pos), 4, 8))
+    got = tkv.slot_mapping(T(bt), T(pos), 4).numpy()
+    np.testing.assert_array_equal(got[pos >= 0], want[pos >= 0])
+    assert (want[pos < 0] == 8 * 4).all() and (got[pos < 0] == 0).all()
 
 
 def test_paged_update_and_gather_match_jax():
-    """Writes land where JAX's land; position -1 writes are dropped (block 0
-    and every other row untouched); the gathered window matches."""
+    """Writes land where JAX's land; position -1 writes, which JAX drops,
+    land in the trash block 0 and nowhere else; the gathered window
+    matches."""
     nb, bs, kvh, hd = 8, 4, 2, 4
     rng = np.random.default_rng(3)
     bt = np.array([[3, 5, 1], [7, 2, 6]], np.int32)
@@ -124,11 +129,12 @@ def test_paged_update_and_gather_match_jax():
     tcache = tkv.init_paged_cache(1, nb, bs, kvh, hd, torch.float32)[0]
     tcache["k"].copy_(T(pool0))
     tcache["v"].copy_(T(pool0))
-    tkv.paged_update(tcache, T(k_new), T(v_new), tkv.slot_mapping(T(bt), T(pos), bs, nb))
+    tkv.paged_update(tcache, T(k_new), T(v_new), tkv.slot_mapping(T(bt), T(pos), bs))
     for name in ("k", "v"):
-        np.testing.assert_array_equal(tcache[name].numpy(), np.asarray(jcache[name]))
-    # Exactly the 5 + 3 real rows changed.
-    changed = (tcache["k"].numpy() != pool0).any(axis=(2, 3)).sum()
+        np.testing.assert_array_equal(tcache[name].numpy()[1:],
+                                      np.asarray(jcache[name])[1:])
+    # Exactly the 5 + 3 real rows changed outside the trash block.
+    changed = (tcache["k"].numpy()[1:] != pool0[1:]).any(axis=(2, 3)).sum()
     assert changed == 8
 
     jk, jv = jkv.paged_gather(jcache, jnp.asarray(bt))
@@ -140,8 +146,8 @@ def test_paged_update_and_gather_match_jax():
 def test_bf16_pool_and_int8_pool():
     """Pool layouts, and the int8 pool's write and read against the JAX
     package's bit for bit: payloads and scales after ``paged_update``
-    (position -1 dropped), and the float32 dequantized window of
-    ``paged_gather``."""
+    (position -1 in the trash block, which JAX drops), and the float32
+    dequantized window of ``paged_gather``."""
     cache = tkv.init_paged_cache(2, 4, 2, 1, 8, torch.bfloat16)
     assert len(cache) == 2 and cache[0]["k"].dtype == torch.bfloat16
     assert tuple(cache[1]["v"].shape) == (4, 2, 1, 8)
@@ -165,10 +171,11 @@ def test_bf16_pool_and_int8_pool():
     k_new[0, 2, 1] = 0.0  # an all-zero row: scale 1
     jslots = jkv.slot_mapping(jnp.asarray(bt), jnp.asarray(pos), bs, nb)
     jcache = jkv.paged_update(jcache, jnp.asarray(k_new), jnp.asarray(v_new), jslots)
-    tkv.paged_update(tcache, T(k_new), T(v_new), tkv.slot_mapping(T(bt), T(pos), bs, nb))
-    for name in tcache:
-        np.testing.assert_array_equal(tcache[name].numpy(), np.asarray(jcache[name]))
-    assert (tcache["k_scale"].numpy() != 0).any(axis=-1).sum() == 8  # 5 + 3 rows
+    tkv.paged_update(tcache, T(k_new), T(v_new), tkv.slot_mapping(T(bt), T(pos), bs))
+    for name in tcache:  # block 0 is the trash block: padding lands there
+        np.testing.assert_array_equal(tcache[name].numpy()[1:],
+                                      np.asarray(jcache[name])[1:])
+    assert (tcache["k_scale"].numpy()[1:] != 0).any(axis=-1).sum() == 8  # 5 + 3 rows
 
     jk, jv = jkv.paged_gather(jcache, jnp.asarray(bt))
     tk, tv = tkv.paged_gather(tcache, T(bt))

@@ -2,9 +2,10 @@
 
 Greedy rows are deterministic, so tokens and logprobs are compared directly
 (logprobs within 1e-6: the same float32 logsumexp). Random draws differ by
-construction (torch's generators vs JAX's threefry), so the sampled rows
-are compared by what they may return: the support kept by top-k/top-p, and
-the distribution over it (a chi-square test on many draws).
+construction (the port's counter hash of (seed, count, vocab index) vs JAX's
+threefry), so the sampled rows are compared by what they may return: the
+support kept by top-k/top-p, and the distribution over it (a chi-square
+test on many draws).
 """
 
 import jax
@@ -17,6 +18,13 @@ from dlti_tpu.serving.sampling import sample_tokens as jax_sample_tokens
 from dlti_tpu_torch.serving.sampling import sample_tokens
 
 T = torch.from_numpy
+
+
+def _seeds(seeds, counts=None):
+    """(seeds, counts) tensors for ``sample_tokens``; counts default to 0."""
+    seeds = np.asarray(seeds, np.int64)
+    counts = np.zeros_like(seeds, np.int32) if counts is None else counts
+    return T(seeds), T(np.asarray(counts, np.int32))
 
 
 def _row_params(n, temperature, top_k, top_p):
@@ -37,7 +45,7 @@ def _draw_jax(logits_row, n, temperature, top_k, top_p, seed=0):
 def _draw_torch(logits_row, n, temperature, top_k, top_p, seed=0):
     logits = T(np.repeat(logits_row[None], n, axis=0))
     t, k, p = _row_params(n, temperature, top_k, top_p)
-    toks, _ = sample_tokens(logits, [seed * n + i for i in range(n)],
+    toks, _ = sample_tokens(logits, *_seeds([seed * n + i for i in range(n)]),
                             T(t), T(k), T(p))
     return toks.numpy()
 
@@ -63,7 +71,7 @@ def test_greedy_tokens_and_logprobs_match_jax():
                np.array([1.0, 1.0, 0.3, 0.9, 0.5], np.float32))
     want_tok, want_lp = jax_sample_tokens(jnp.asarray(logits), jax.random.PRNGKey(0),
                                           jnp.asarray(t), jnp.asarray(k), jnp.asarray(p))
-    got_tok, got_lp = sample_tokens(T(logits), [0] * 5, T(t), T(k), T(p))
+    got_tok, got_lp = sample_tokens(T(logits), *_seeds([0] * 5), T(t), T(k), T(p))
     np.testing.assert_array_equal(got_tok.numpy(), np.asarray(want_tok))
     np.testing.assert_allclose(got_lp.numpy(), np.asarray(want_lp), atol=1e-6, rtol=0)
     assert got_tok[3].item() == 7
@@ -73,7 +81,7 @@ def test_sampled_logprob_is_under_the_unscaled_distribution():
     rng = np.random.default_rng(1)
     logits = rng.standard_normal((3, 64)).astype(np.float32)
     t, k, p = _row_params(3, 0.7, 8, 0.9)
-    toks, lps = sample_tokens(T(logits), [1, 2, 3], T(t), T(k), T(p))
+    toks, lps = sample_tokens(T(logits), *_seeds([1, 2, 3]), T(t), T(k), T(p))
     logz = torch.logsumexp(T(logits), dim=-1)
     want = T(logits)[torch.arange(3), toks] - logz
     np.testing.assert_allclose(lps.numpy(), want.numpy(), atol=1e-6, rtol=0)
@@ -102,11 +110,11 @@ def test_support_kept_by_top_k_top_p_matches_jax(case):
 def test_seeded_draws_are_reproducible():
     row = np.random.default_rng(3).standard_normal((4, 128)).astype(np.float32)
     t, k, p = _row_params(4, 1.0, 0, 1.0)
-    a, _ = sample_tokens(T(row), [11, 12, 13, 14], T(t), T(k), T(p))
-    b, _ = sample_tokens(T(row), [11, 12, 13, 14], T(t), T(k), T(p))
+    a, _ = sample_tokens(T(row), *_seeds([11, 12, 13, 14]), T(t), T(k), T(p))
+    b, _ = sample_tokens(T(row), *_seeds([11, 12, 13, 14]), T(t), T(k), T(p))
     np.testing.assert_array_equal(a.numpy(), b.numpy())
     # Each row's draw depends on its own seed only, not on its neighbours.
-    c, _ = sample_tokens(T(row[2:3]), [13], T(t[:1]), T(k[:1]), T(p[:1]))
+    c, _ = sample_tokens(T(row[2:3]), *_seeds([13]), T(t[:1]), T(k[:1]), T(p[:1]))
     assert c.item() == a[2].item()
 
 
@@ -128,3 +136,34 @@ def test_draw_distribution_matches_masked_softmax(case):
     expected = n * probs[kept]
     stat = ((counts[kept] - expected) ** 2 / expected).sum()
     assert stat < chi2.ppf(0.999, kept.sum() - 1)
+
+
+def test_draws_depend_on_seed_and_count_only():
+    """A row's draw is a function of (seed, count): the same pair in another
+    row of another batch draws the same token, another count of the same
+    seed draws from a fresh stream, and greedy rows ignore both."""
+    row = np.random.default_rng(6).standard_normal((1, 64)).astype(np.float32)
+    rows = np.repeat(row, 6, axis=0)
+    t, k, p = _row_params(6, 1.0, 0, 1.0)
+    t[5] = 0.0
+    seeds, counts = [7, 7, 7, 8, 7, 7], [0, 1, 2, 0, 2, 9]
+    toks, _ = sample_tokens(T(rows), *_seeds(seeds, counts), T(t), T(k), T(p))
+    alone, _ = sample_tokens(T(row), *_seeds([7], [2]), T(t[:1]), T(k[:1]), T(p[:1]))
+    assert toks[2] == toks[4] == alone[0]
+    assert toks[5] == int(np.argmax(row[0]))
+    draws = [sample_tokens(T(row), *_seeds([7], [c]), T(t[:1]), T(k[:1]),
+                           T(p[:1]))[0].item() for c in range(40)]
+    assert len(set(draws)) > 10  # counts index a stream, not one draw
+
+
+def test_uniforms_are_strictly_inside_zero_one():
+    """The uniform behind each Gumbel draw comes from 24 hash bits plus a
+    half: never 0 or 1, so the noise is finite at every vocabulary index."""
+    from dlti_tpu_torch.serving.sampling import draw_keys, gumbel_noise
+
+    keys = draw_keys(T(np.arange(64, dtype=np.int64) - 32),
+                     T(np.arange(64, dtype=np.int32)))
+    g = gumbel_noise(keys, 4096)
+    assert g.dtype == torch.float32 and torch.isfinite(g).all()
+    u = torch.exp(-torch.exp(-g.double()))
+    assert abs(u.mean().item() - 0.5) < 0.01 and abs(u.var().item() - 1 / 12) < 0.01

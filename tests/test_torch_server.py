@@ -523,6 +523,71 @@ def test_request_timeout_cancels_the_request(params):
         httpd.server_close()
 
 
+def test_multi_step_server_streams_match_jax(params):
+    """Both servers at steps_per_sync=4 (several tokens a window): texts and
+    SSE deltas equal the JAX server's, the deltas concatenate to the
+    non-streamed text, and ``/metrics`` carries the decode-state counters."""
+    from dlti_tpu.data.tokenizer import IdTokenizer as JaxIdTokenizer
+    from dlti_tpu_torch.data import IdTokenizer
+
+    ec = dict(EC, cache_dtype="float32", steps_per_sync=4)
+    jeng = JaxEngine(JAX_PRESETS["llama_tiny"], jax.tree_util.tree_map(jnp.asarray, params),
+                     JaxEngineConfig(**ec))
+    teng = InferenceEngine(MODEL_PRESETS["llama_tiny"], params_from_jax(params),
+                           EngineConfig(**ec), device="cpu")
+    servers = [jserver.make_server(jeng, JaxIdTokenizer(512),
+                                   jserver.ServerConfig(host="127.0.0.1", port=0)),
+               tserver.make_server(teng, IdTokenizer(vocab_size=512),
+                                   tserver.ServerConfig(host="127.0.0.1", port=0))]
+    jaddr, taddr = (_start(httpd) for httpd, _ in servers)
+    try:
+        for path, body in STREAM_BODIES:
+            _, want = _post(jaddr, path, body)
+            _, full = _post(taddr, path, body)
+            deltas, _ = _stream(taddr, path, body)
+            jdeltas, _ = _stream(jaddr, path, body)
+            text = (full["choices"][0]["message"]["content"] if "chat" in path
+                    else full["choices"][0]["text"])
+            assert _without_unported(full)["choices"] == _without_unported(want)["choices"]
+            assert deltas == jdeltas and "".join(deltas) == text
+        assert teng.stats["decode_steps"] == jeng.stats["decode_steps"]
+        metrics = _get(taddr, "/metrics")[1].decode()
+        uploads = [ln for ln in metrics.splitlines()
+                   if ln.startswith("dlti_decode_state_uploads ")]
+        assert uploads and float(uploads[0].split()[1]) > 0
+    finally:
+        for httpd, async_engine in servers:
+            httpd.shutdown()
+            async_engine.shutdown()
+            httpd.server_close()
+
+
+def test_serve_cli_flags_reach_the_engine_and_it_warms_up(monkeypatch, capsys):
+    """``--steps-per-sync`` and ``--no-decode-state-cache`` reach the
+    engine's config (defaults: 1 and the cache on), and ``main`` warms the
+    decode path up before it serves, printing the reference's two lines."""
+    from dlti_tpu_torch import serving
+    from dlti_tpu_torch.cli import serve as cli
+
+    base = ["--device", "cpu", "--random-init", "llama_tiny", "--tokenizer", "byte",
+            "--max-model-len", "64", "--num-blocks", "16"]
+    engine, _, _ = cli.build(cli.parse_args(base))
+    assert (engine.cfg.steps_per_sync, engine.cfg.decode_state_cache) == (1, True)
+    served = []
+    monkeypatch.setattr(serving, "serve", lambda eng, tok, sc: served.append(eng))
+    warmed = []
+    real_warmup = InferenceEngine.warmup_decode_ladder
+    monkeypatch.setattr(InferenceEngine, "warmup_decode_ladder",
+                        lambda self: (warmed.append(self), real_warmup(self)))
+    cli.main(base + ["--steps-per-sync", "4", "--no-decode-state-cache"])
+    [engine] = served
+    assert warmed == [engine]
+    assert (engine.cfg.steps_per_sync, engine.cfg.decode_state_cache) == (4, False)
+    out = capsys.readouterr().out
+    assert "pre-compiling decode programs (single-step + multi-step ladder)..." in out
+    assert re.search(r"decode programs ready in \d+s", out)
+
+
 @pytest.mark.parametrize("kv", KV_DTYPES)
 def test_serve_cli_starts_answers_and_exits_on_sigterm(kv):
     """``python -m dlti_tpu_torch.cli.serve`` on the CPU: it prints the port
