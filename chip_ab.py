@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Compare checkouts of this repository on one NVIDIA GPU, in turns.
 
-    python3 chip_ab.py [--what flash|decode|step|serve|both] ROOT [ROOT ...]
+    python3 chip_ab.py [--what flash|decode|step|serve|restore|both] ROOT [ROOT ...]
 
 Each ROOT is a checkout (``.`` for this one; another commit unpacked with
 ``git archive`` into a directory that ``.gitignore`` lists). Give them in
@@ -23,6 +23,11 @@ ROOT, builds its kernels and uses that ROOT's own ``chip_smoke.py``:
 * ``serve``: phase 10, the OpenAI server on the serve CLI's llama2_7b int8
   engine answering 12 concurrent requests: requests/s, mean TPOT, and the
   engine step's p50 and mean on the server's stepper thread.
+* ``restore``: phase 13's resume, llama2_7b LoRA (13.7 GB): the first ROOT
+  saves one checkpoint of a fresh state into a temporary directory, then
+  every ROOT restores it twice through ``restore_latest_verified`` with
+  the trainer's ``HostCache``, as ``Trainer.train`` resumes: restore
+  seconds, and the scan's ``latest_verified_step`` alone.
 
 Prints one line per ROOT and measurement, and the card's name and power
 limit first. Needs the card; exits 1 without one.
@@ -31,8 +36,10 @@ limit first. Needs the card; exits 1 without one.
 from __future__ import annotations
 
 import argparse
+import shutil
 import subprocess
 import sys
+import tempfile
 
 FLASH = r'''
 import sys, torch
@@ -149,6 +156,37 @@ print(f"RESULT step: {perf['step_ms']:.1f} ms, {perf['tokens_per_s']:.1f} tokens
       f"MFU {perf['mfu_percent']:.2f}%", flush=True)
 '''
 
+RESTORE = r'''
+import sys, time, torch
+sys.path.insert(0, ".")
+import chip_smoke as cs
+from dlti_tpu_torch.checkpoint import store
+from dlti_tpu_torch.config import CheckpointConfig
+from dlti_tpu_torch.models.interop import init_params
+from dlti_tpu_torch.training import Trainer
+from dlti_tpu_torch.training.state import frozen_param_keys, state_leaves
+
+directory = sys.argv[1]
+cfg = cs.train_config(CheckpointConfig(save_strategy="no"), max_steps=0)
+state = Trainer(cfg, params=init_params(cfg.model, seed=0, device="cuda", lora=cfg.lora),
+                device="cuda").init_state()
+leaves = state_leaves(state)
+if not store.list_checkpoint_steps(directory):
+    store.save_train_state(directory, 1, leaves, async_save=False)
+for i in range(2):
+    t0 = time.perf_counter()
+    store.latest_verified_step(directory)
+    scan = time.perf_counter() - t0
+    cache = store.HostCache(frozen_param_keys(state))
+    t0 = time.perf_counter()
+    placed, step, _ = store.restore_latest_verified(directory, leaves, cache=cache)
+    restore = time.perf_counter() - t0
+    print(f"RESULT restore {i}: {restore:.2f} s (scan alone {scan:.2f} s) for step {step}",
+          flush=True)
+    del placed, cache
+    torch.cuda.empty_cache()
+'''
+
 SERVE = r'''
 import sys, torch
 sys.path.insert(0, ".")
@@ -165,7 +203,8 @@ print(f"RESULT serve: {perf['requests_per_s']:.3f} requests/s, mean TPOT "
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--what", choices=("flash", "decode", "step", "serve", "both"),
+    ap.add_argument("--what", choices=("flash", "decode", "step", "serve", "restore",
+                                       "both"),
                     default="both")
     ap.add_argument("roots", nargs="+")
     args = ap.parse_args()
@@ -182,18 +221,23 @@ def main() -> int:
     print(smi.stdout.strip().splitlines()[0] if smi.returncode == 0 else "nvidia-smi failed",
           flush=True)
     codes = {"flash": [FLASH], "decode": [DECODE], "step": [STEP], "serve": [SERVE],
-             "both": [FLASH, STEP]}[args.what]
+             "restore": [RESTORE], "both": [FLASH, STEP]}[args.what]
     failed = False
-    for root in args.roots:
-        for code in codes:
-            run = subprocess.run([sys.executable, "-c", code], cwd=root,
-                                 capture_output=True, text=True)
-            for line in run.stdout.splitlines():
-                if line.startswith("RESULT "):
-                    print(f"{root}: {line[len('RESULT '):]}", flush=True)
-            if run.returncode != 0:
-                failed = True
-                print(f"{root}: exited {run.returncode}\n{run.stderr[-3000:]}", flush=True)
+    scratch = tempfile.mkdtemp(prefix="chip-ab-")  # restore's checkpoint
+    try:
+        for root in args.roots:
+            for code in codes:
+                run = subprocess.run([sys.executable, "-c", code, scratch], cwd=root,
+                                     capture_output=True, text=True)
+                for line in run.stdout.splitlines():
+                    if line.startswith("RESULT "):
+                        print(f"{root}: {line[len('RESULT '):]}", flush=True)
+                if run.returncode != 0:
+                    failed = True
+                    print(f"{root}: exited {run.returncode}\n{run.stderr[-3000:]}",
+                          flush=True)
+    finally:
+        shutil.rmtree(scratch, ignore_errors=True)
     return 1 if failed else 0
 
 

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving, training and HTTP serving paths on one
-NVIDIA GPU (an H100).
+"""Drive the PyTorch port's serving, training, checkpoint-to-serving and
+HTTP serving paths on one NVIDIA GPU (an H100).
 
     python3 chip_smoke.py
 
@@ -60,10 +60,12 @@ Phases, each of which fails the run if its check fails:
 7. The trainer at full width: llama2_7b bf16 with LoRA r=16 on q/k/v/o
    from ``init_params(seed=0)``, 8 steps of ``Trainer.train`` over
    ``make_batches`` (byte tokenizer, texts from a seeded generator, seq 512,
-   micro-batch 4, grad-accum 2, warmup 2, lr 2e-4, remat on). Losses and
-   grad norms finite, every ``lora_b`` moved off zero, and K1 launched
+   micro-batch 4, grad-accum 2, warmup 2, lr 2e-4, remat on), with
+   ``save_strategy="no"`` so its numbers stay comparable. Losses and grad
+   norms finite, every ``lora_b`` moved off zero, and K1 launched
    2 x 32 x 2 x 8 times (forward and remat recompute), K2 and K3 32 x 2 x 8.
-   Prints step ms, tokens/s, MFU (4N FLOPs per token) and peak memory.
+   Prints step ms, tokens/s, MFU (4N FLOPs per token) and peak memory. Its
+   losses and grad norms for steps 5-8 are phase 13's reference.
 8. Kernel path against reference path: one step's loss and LoRA grads with
    the kernels and with ``attention_impl="reference"``, same weights and
    batch, dropout off; then known-wrong controls (the kernels' outputs given
@@ -91,10 +93,39 @@ Phases, each of which fails the run if its check fails:
     against the gather path (dequantized in float32), gated; against the
     same step on a bf16 pool, printed only (quantization error). Then K4q
     against its plain version on the engine's pool and tables, timed.
-12. The entry point itself: ``python -m dlti_tpu_torch.cli.serve
-    --random-init llama_tiny --tokenizer byte --kv-cache-dtype int8
-    --steps-per-sync 4 --port 0`` as a subprocess on the card answers
-    ``/health`` and a completion and exits 0 on SIGTERM.
+12. The entry points themselves, as subprocesses on the card: ``python -m
+    dlti_tpu_torch.cli.serve --random-init llama_tiny --tokenizer byte
+    --kv-cache-dtype int8 --steps-per-sync 4 --port 0`` answers ``/health``
+    and a completion and exits 0 on SIGTERM. Then, on ``llama_300m`` (head
+    dim 64, which K1-K3 take): ``cli.train --max-steps 4 --save-steps 2
+    --output-dir D --export-dir E`` exits 0 leaving steps 2 and 4 in D;
+    ``cli.export --checkpoint-dir D --out E2`` prints the digest of E's
+    params; ``cli.serve --model-dir E --port 0`` answers ``/health`` and a
+    completion and exits 0 on SIGTERM.
+13. Train -> checkpoint -> resume -> export -> serve (run after phase 9,
+    before the servers), llama2_7b at full width and full depth (``layers
+    32 of 32``; a checkpoint is ~13.7 GB, and ``shutil.disk_usage`` must
+    show room for two checkpoints and an export, ~41 GB, or the phase
+    fails with the number), in a temporary directory the phase removes. A
+    fresh ``Trainer`` (phase 7's config, ``save_steps=4``,
+    ``save_total_limit=2``, async) commits step 4; a second fresh one,
+    from other random weights, resumes from step 4 (its log says so), runs
+    steps 5-8, whose losses and grad norms must be bit-equal to phase 7's,
+    and commits step 8. ``verify_checkpoint`` passes both steps. The step-8
+    checkpoint is exported through ``cli.export``'s function, merged on the
+    card; its manifest digest must equal that of ``merge_lora_params`` of
+    the live resumed state, and its ``config.json`` has LoRA off. An engine
+    from ``cli.serve.build --model-dir <export> --tokenizer byte`` (bf16
+    pool, the CLI's defaults: 8 slots, max_model_len 2048, so 128-block
+    tables) serves 4 greedy requests, with K4 counted 32 x decode steps.
+    Then phase 4's check on that engine, whose tables give K4 a split plan
+    no other phase holds: one decode step's logits through K4 against the
+    gather path, and K4 against its plain version on the engine's own pool
+    and tables (these launches are not counted).
+    Prints the host's rates (SHA-256, pinning, copies from the card), the
+    loop's stall per save, the writer's seconds and GB per save, write+hash
+    GB/s, restore, export and load seconds, and free disk, beside the
+    card's name and power limit.
 
 Prints a ``{"kernels": [...]}`` line, and as its last line
 ``{"ok": true, "device": {...}}``. Exits non-zero without that line when
@@ -107,7 +138,9 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import gc
+import hashlib
 import json
+import logging
 import math
 import re
 import subprocess
@@ -1145,25 +1178,44 @@ def training_texts(n=96, seed=0):
     return [" ".join(rng.choice(words, rng.integers(8, 280))) for _ in range(n)]
 
 
-def phase_training(torch):
-    """llama2_7b LoRA (r=16, bf16, seq 512, micro-batch 4 x accum 2, remat)
-    for 8 steps through ``Trainer.train`` on ``make_batches`` output."""
+TRAIN_STEPS = 8
+MODEL_LAYERS = 32  # llama2_7b
+
+
+def train_config(checkpoint, max_steps, num_layers=None):
+    """Phase 7's configuration (and phase 13's): llama2_7b LoRA r=16 on
+    q/k/v/o, bf16, seq 512, micro-batch 4 x accum 2, warmup 2, lr 2e-4,
+    remat, with an explicit checkpoint config."""
     from dlti_tpu_torch.config import (
         MODEL_PRESETS, Config, DataConfig, LoRAConfig, OptimizerConfig, TrainConfig,
     )
+
+    mcfg = MODEL_PRESETS["llama2_7b"]
+    if num_layers is not None:
+        mcfg = dataclasses.replace(mcfg, num_layers=num_layers)
+    return Config(model=mcfg, lora=LoRAConfig(),
+                  optimizer=OptimizerConfig(learning_rate=2e-4, warmup_steps=2),
+                  data=DataConfig(max_seq_len=512, tokenizer="byte"),
+                  checkpoint=checkpoint,
+                  train=TrainConfig(micro_batch_size=4, grad_accum_steps=2,
+                                    max_steps=max_steps, logging_steps=1))
+
+
+def phase_training(torch):
+    """llama2_7b LoRA (r=16, bf16, seq 512, micro-batch 4 x accum 2, remat)
+    for 8 steps through ``Trainer.train`` on ``make_batches`` output."""
+    from dlti_tpu_torch.config import CheckpointConfig
     from dlti_tpu_torch.data import ByteTokenizer, make_batches
     from dlti_tpu_torch.models.interop import init_params
     from dlti_tpu_torch.ops import flash_attention as tfa
     from dlti_tpu_torch.ops import paged_attention as tpa
     from dlti_tpu_torch.training import Trainer
 
-    mcfg = MODEL_PRESETS["llama2_7b"]
-    steps, accum, micro, seq = 8, 2, 4, 512
-    cfg = Config(model=mcfg, lora=LoRAConfig(),
-                 optimizer=OptimizerConfig(learning_rate=2e-4, warmup_steps=2),
-                 data=DataConfig(max_seq_len=seq, tokenizer="byte"),
-                 train=TrainConfig(micro_batch_size=micro, grad_accum_steps=accum,
-                                   max_steps=steps, logging_steps=1))
+    # Phase 7 keeps its numbers comparable with earlier runs: no checkpoints.
+    cfg = train_config(CheckpointConfig(save_strategy="no"), max_steps=TRAIN_STEPS)
+    mcfg = cfg.model
+    steps, accum, micro, seq = (TRAIN_STEPS, cfg.train.grad_accum_steps,
+                                cfg.train.micro_batch_size, cfg.data.max_seq_len)
     check(mcfg.remat and mcfg.remat_policy == "nothing_saveable"
           and mcfg.attention_impl == "auto", "llama2_7b preset changed")
     dataset = make_batches(training_texts(), ByteTokenizer(), seq_len=seq,
@@ -1385,6 +1437,247 @@ def phase_train_profile(torch, state, dataset):
             f"{e.key[:90]}")
     return {"wall_ms": wall_ms, "busy_ms": busy_ms, "kernels": n_kernels,
             "groups": {g: t for g, (t, _) in groups.items()}}
+
+
+# ----------------------------------------------------------------------
+# Checkpoint slice 7: train -> checkpoint -> resume -> export -> serve
+# ----------------------------------------------------------------------
+
+# Phase 13's depth: llama2_7b at full width and full depth. A checkpoint is
+# ~13.7 GB (the 13.5 GB bf16 base, LoRA factors and float32 moments); two
+# checkpoints and an export need ~41 GB of disk.
+CKPT_LAYERS = 32
+CKPT_SAVE_STEPS = 4
+CKPT_REQUESTS = 4
+CKPT_NEW_TOKENS = 16
+# Free space the phase needs beyond its three artifacts.
+CKPT_DISK_MARGIN = 2 << 30
+
+
+class LogLines(logging.Handler):
+    """Keeps the messages of the records it is handed."""
+
+    def __init__(self):
+        super().__init__()
+        self.lines = []
+
+    def emit(self, record):
+        self.lines.append(record.getMessage())
+
+
+def tree_bytes(step_dir) -> int:
+    """Bytes of every file a manifest lists."""
+    manifest = json.loads((Path(step_dir) / "MANIFEST.json").read_text())
+    return sum(e["size"] for e in manifest["leaves"]) + sum(
+        m["size"] for m in manifest["meta_files"].values())
+
+
+def host_rates(torch) -> dict:
+    """The host's side of a checkpoint, on 1 GiB: SHA-256 on one core,
+    pinning a fresh host buffer, and copies from the card into pinned and
+    into pageable memory (GB/s)."""
+    n = 1 << 30
+    src = torch.empty(n, dtype=torch.uint8, device="cuda")
+    data = bytes(n)
+    t0 = time.perf_counter()
+    hashlib.sha256(data).hexdigest()
+    rates = {"sha256_gb_s": n / (time.perf_counter() - t0) / 1e9}
+    del data
+    t0 = time.perf_counter()
+    pinned = torch.empty(n, dtype=torch.uint8, pin_memory=True)
+    rates["pin_gb_s"] = n / (time.perf_counter() - t0) / 1e9
+    for name, dst in (("d2h_pinned_gb_s", pinned),
+                      ("d2h_pageable_gb_s", torch.empty(n, dtype=torch.uint8))):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dst.copy_(src)
+        torch.cuda.synchronize()
+        rates[name] = n / (time.perf_counter() - t0) / 1e9
+    return rates
+
+
+def phase_checkpoint(torch, reference, card, flush):
+    """Phase 13: llama2_7b LoRA trained on the card, checkpointed, resumed,
+    verified, exported through ``cli.export`` and served from the export
+    through ``cli.serve.build``; see the module docstring."""
+    import shutil
+    import tempfile
+
+    from dlti_tpu_torch.checkpoint import store
+    from dlti_tpu_torch.checkpoint.export import merged_tree
+    from dlti_tpu_torch.cli import export as export_cli
+    from dlti_tpu_torch.cli import serve as serve_cli
+    from dlti_tpu_torch.config import CheckpointConfig
+    from dlti_tpu_torch.data import ByteTokenizer, make_batches
+    from dlti_tpu_torch.models.interop import init_params
+    from dlti_tpu_torch.ops import flash_attention as tfa
+    from dlti_tpu_torch.ops import paged_attention as tpa
+    from dlti_tpu_torch.serving import SamplingParams
+    from dlti_tpu_torch.training import Trainer
+
+    root = Path(tempfile.mkdtemp(prefix="dlti-ckpt-"))
+    ck_dir, ex_dir = root / "ckpt", root / "export"
+    ckpt = CheckpointConfig(output_dir=str(ck_dir), save_strategy="steps",
+                            save_steps=CKPT_SAVE_STEPS, save_total_limit=2,
+                            async_save=True)
+    first = train_config(ckpt, max_steps=CKPT_SAVE_STEPS, num_layers=CKPT_LAYERS)
+    mcfg, lora = first.model, first.lora
+    perf = {"card": card, "layers": mcfg.num_layers, **host_rates(torch)}
+    t_phase = time.perf_counter()
+    log(f"[ckpt] {card}; llama2_7b layers {mcfg.num_layers} of "
+        f"{MODEL_LAYERS}, full width")
+    log(f"[ckpt] host rates on 1 GiB: SHA-256 {perf['sha256_gb_s']:.2f} GB/s (one core), "
+        f"pinning {perf['pin_gb_s']:.2f} GB/s, card to pinned {perf['d2h_pinned_gb_s']:.1f}"
+        f" GB/s, card to pageable {perf['d2h_pageable_gb_s']:.2f} GB/s")
+    handler, port_log = LogLines(), logging.getLogger("dlti_tpu_torch")
+    level = port_log.level
+    port_log.addHandler(handler)
+    port_log.setLevel(logging.INFO)
+    try:
+        # Two checkpoints and an export, all of the model's size, plus margin.
+        model_bytes = 2 * mcfg.num_params()
+        need = 3 * model_bytes + CKPT_DISK_MARGIN
+        free0 = shutil.disk_usage(root).free
+        perf["free_gb_before"] = free0 / 1e9
+        check(free0 >= need, f"phase 13 needs {need / 1e9:.1f} GB free under {root}, "
+              f"the disk has {free0 / 1e9:.1f} GB")
+        dataset = make_batches(training_texts(), ByteTokenizer(), seq_len=512,
+                               micro_batch_size=4, grad_accum_steps=2)
+        tfa.fwd_launches = tfa.dq_launches = tfa.dkv_launches = 0
+        tpa.launches = 0  # this path's counts start here ...
+
+        # 1. Save: steps 1-4 from phase 7's weights, step 4 committed async.
+        sum0 = store.save_seconds.snapshot()[1]
+        trainer = Trainer(first, params=init_params(mcfg, seed=0, device="cuda", lora=lora),
+                          device="cuda")
+        state, rec1 = trainer.train(dataset=dataset)
+        sum1 = store.save_seconds.snapshot()[1]
+        check(rec1.save_steps == [CKPT_SAVE_STEPS] and rec1.resumed_from is None,
+              f"first run saved {rec1.save_steps}, resumed from {rec1.resumed_from}")
+        check(store.list_checkpoint_steps(ck_dir) == [CKPT_SAVE_STEPS],
+              f"checkpoints {store.list_checkpoint_steps(ck_dir)}")
+        del state, trainer
+        free_memory(torch)
+
+        # 2. Resume: a fresh trainer (other random weights, which the restore
+        # replaces) continues to step 8.
+        second = dataclasses.replace(first, train=dataclasses.replace(
+            first.train, max_steps=TRAIN_STEPS))
+        trainer = Trainer(second, params=init_params(mcfg, seed=1, device="cuda", lora=lora),
+                          device="cuda")
+        state, rec2 = trainer.train(dataset=dataset)
+        sum2 = store.save_seconds.snapshot()[1]
+        check(rec2.resumed_from == CKPT_SAVE_STEPS and any(
+            f"resumed from verified checkpoint step {CKPT_SAVE_STEPS}" in ln
+            for ln in handler.lines), f"no resume from step {CKPT_SAVE_STEPS}: "
+              f"{rec2.resumed_from}, log {handler.lines[-5:]}")
+        check(rec2.save_steps == [TRAIN_STEPS], f"second run saved {rec2.save_steps}")
+        steps = list(range(CKPT_SAVE_STEPS + 1, TRAIN_STEPS + 1))
+        log(f"[ckpt] resumed losses {rec2.losses} / phase 7 "
+            f"{reference['losses'][CKPT_SAVE_STEPS:]}")
+        log(f"[ckpt] resumed grad norms {rec2.grad_norms} / phase 7 "
+            f"{reference['grad_norms'][CKPT_SAVE_STEPS:]}")
+        if mcfg.num_layers == MODEL_LAYERS:
+            check(rec2.losses == reference["losses"][CKPT_SAVE_STEPS:]
+                  and rec2.grad_norms == reference["grad_norms"][CKPT_SAVE_STEPS:],
+                  f"steps {steps} after the resume are not bit-equal to phase 7's")
+        check(store.list_checkpoint_steps(ck_dir) == [CKPT_SAVE_STEPS, TRAIN_STEPS],
+              f"checkpoints {store.list_checkpoint_steps(ck_dir)}")
+        train_launches = {"flash_fwd": tfa.fwd_launches, "flash_bwd_dq": tfa.dq_launches,
+                          "flash_bwd_dkv": tfa.dkv_launches}
+        n = mcfg.num_layers * 2 * TRAIN_STEPS  # layers x accum x steps
+        want = {"flash_fwd": 2 * n, "flash_bwd_dq": n, "flash_bwd_dkv": n}
+        check(train_launches == want, f"training launches {train_launches} != {want}")
+
+        # 3. Verify both steps (re-hash every file).
+        t0 = time.perf_counter()
+        for step in (CKPT_SAVE_STEPS, TRAIN_STEPS):
+            ok = store.verify_checkpoint(ck_dir, step)
+            check(ok == (True, "ok"), f"verify_checkpoint step {step}: {ok}")
+        verify_s = (time.perf_counter() - t0) / 2
+
+        # 4. Export step 8 through cli.export; its params must be byte-equal
+        # to the merge of the live resumed state, run on the card.
+        with torch.no_grad():
+            live = merged_tree(dict(state.model.named_parameters()), second)
+            live_digest = hashlib.sha256(store.manifest_of(live)).hexdigest()
+        del live, state, trainer
+        free_memory(torch)
+        t0 = time.perf_counter()
+        digest = export_cli.export(export_cli.parse_args([
+            "--checkpoint-dir", str(ck_dir), "--step", str(TRAIN_STEPS),
+            "--model", "llama2_7b", "--lora-r", str(lora.r), "--out", str(ex_dir)]))
+        export_s = time.perf_counter() - t0
+        check(digest == live_digest, f"export digest {digest} != live merge {live_digest}")
+        exported = json.loads((ex_dir / "config.json").read_text())
+        check(exported["lora"]["enabled"] is False, "the export's config keeps LoRA on")
+        free_memory(torch)
+
+        # 5. Serve 4 greedy requests from the export (bf16 pool, CLI defaults).
+        argv = ["--model-dir", str(ex_dir), "--tokenizer", "byte"]
+        if mcfg.num_layers != MODEL_LAYERS:  # the cut model's config names its depth
+            check(exported["model"]["num_layers"] == mcfg.num_layers, "export depth")
+        t0 = time.perf_counter()
+        engine, tok, _ = serve_cli.build(serve_cli.parse_args(argv))
+        load_s = time.perf_counter() - t0
+        engine.warmup_decode_ladder()
+        launches_before = tpa.launches
+        decode_before = engine.stats["decode_steps"]
+        prompts = [tok.encode(t[:96]) for t in training_texts(CKPT_REQUESTS, seed=7)]
+        results = engine.generate(prompts, SamplingParams(temperature=0.0,
+                                                          max_tokens=CKPT_NEW_TOKENS))
+        decode_steps = engine.stats["decode_steps"] - decode_before
+        k4 = tpa.launches - launches_before
+        check(len(results) == CKPT_REQUESTS and all(r.output_token_ids for r in results),
+              "a request from the export produced no tokens")
+        check(k4 == mcfg.num_layers * decode_steps,
+              f"K4 launches {k4} != {mcfg.num_layers} x {decode_steps} decode steps")
+        log(f"[ckpt] served {CKPT_REQUESTS} greedy requests from the export: "
+            f"{[len(r.output_token_ids) for r in results]} tokens, {decode_steps} decode "
+            f"steps, K4 {k4} launches (+ the warm-up's)")
+        launches = {**train_launches, "paged_decode_attention": tpa.launches}
+        # ... and are read here, with the serve's warm-up. Then the engine's
+        # state (the export's weights, 128-block tables) is checked.
+        log("[ckpt] the served export's engine, checked as in phase 4:")
+        in_model = phase_in_model(torch, engine, flush)
+        perf["in_model"] = {k: in_model[k] for k in (
+            "max_abs_err", "row_rel_err", "logits_rel", "argmax_agree", "splits",
+            "chunk", "ms", "plain_ms", "bound_ms")}
+        del engine
+        free_memory(torch)
+
+        gb = [tree_bytes(ck_dir / str(s)) / 1e9 for s in (CKPT_SAVE_STEPS, TRAIN_STEPS)]
+        writer_s = [sum1 - sum0, sum2 - sum1]
+        free1 = shutil.disk_usage(root).free
+        perf.update({
+            "losses_bit_equal": rec2.losses == reference["losses"][CKPT_SAVE_STEPS:],
+            "save_stall_ms": [1e3 * rec1.save_stall_s[0], 1e3 * rec2.save_stall_s[0]],
+            "writer_s": writer_s, "gb_written": gb,
+            "write_hash_gb_s": [g / w for g, w in zip(gb, writer_s)],
+            "restore_s": rec2.restore_s, "verify_s": verify_s, "export_s": export_s,
+            "export_gb": tree_bytes(ex_dir / "model") / 1e9, "load_s": load_s,
+            "free_gb_after": free1 / 1e9, "launches": launches,
+            "train_step_ms": [1e3 * x for x in rec1.step_times_s + rec2.step_times_s]})
+        log(f"[ckpt] save stall {perf['save_stall_ms'][0]:.1f} ms at step "
+            f"{CKPT_SAVE_STEPS} (cold: the whole state copied) and "
+            f"{perf['save_stall_ms'][1]:.1f} ms at step {TRAIN_STEPS} (the frozen base's "
+            f"host copy kept from the restore)")
+        log(f"[ckpt] writer {writer_s[0]:.2f} s / {writer_s[1]:.2f} s per save for "
+            f"{gb[0]:.3f} / {gb[1]:.3f} GB: write+hash {perf['write_hash_gb_s'][0]:.3f} / "
+            f"{perf['write_hash_gb_s'][1]:.3f} GB/s")
+        log(f"[ckpt] restore {rec2.restore_s:.2f} s (scan, re-hash, read, placement on the "
+            f"card); verify {verify_s:.2f} s a step; export {export_s:.2f} s "
+            f"({perf['export_gb']:.3f} GB); --model-dir load {load_s:.2f} s")
+        perf["phase_s"] = time.perf_counter() - t_phase
+        log(f"[ckpt] free disk {perf['free_gb_before']:.1f} GB before, "
+            f"{perf['free_gb_after']:.1f} GB with both checkpoints and the export; "
+            f"phase {perf['phase_s']:.1f} s")
+    finally:
+        port_log.removeHandler(handler)
+        port_log.setLevel(level)
+        shutil.rmtree(root, ignore_errors=True)
+    log("[ckpt] perf " + json.dumps(perf))
+    return launches, perf
 
 
 # ----------------------------------------------------------------------
@@ -1644,18 +1937,14 @@ def phase_server(torch, argv=SERVE_ARGS, tag="[server]"):
     return engine, launches_int8, perf
 
 
-def phase_serve_cli(torch):
-    """The entry point itself: ``python -m dlti_tpu_torch.cli.serve`` on the
-    card (llama_tiny, int8 pool, a free port) answers /health and one
-    completion, and exits 0 on SIGTERM."""
+def serve_subprocess(cmd, tag):
+    """Run a serve CLI command as a subprocess on the card: it must print its
+    port, answer /health and one greedy completion, and exit 0 on SIGTERM."""
     import os
     import queue
     import signal
     import threading
 
-    cmd = [sys.executable, "-m", "dlti_tpu_torch.cli.serve", "--random-init",
-           "llama_tiny", "--tokenizer", "byte", "--kv-cache-dtype", "int8",
-           "--steps-per-sync", "4", "--host", "127.0.0.1", "--port", "0"]
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     t0 = time.perf_counter()
     proc = subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=subprocess.PIPE,
@@ -1671,30 +1960,94 @@ def phase_serve_cli(torch):
             try:
                 line = lines.get(timeout=1.0)
             except queue.Empty:
-                check(proc.poll() is None, "the serve CLI exited early:\n" + "".join(seen))
+                check(proc.poll() is None, f"{tag} the serve CLI exited early:\n"
+                      + "".join(seen))
                 continue
             seen.append(line)
             m = re.search(r"serving on http://127\.0\.0\.1:(\d+)", line)
             port = int(m.group(1)) if m else None
-        check(port is not None, "the serve CLI never printed its port:\n" + "".join(seen))
-        check(any("on cuda" in ln for ln in seen), "the serve CLI did not run on the card")
+        check(port is not None, f"{tag} the serve CLI never printed its port:\n"
+              + "".join(seen))
+        check(any("on cuda" in ln for ln in seen), f"{tag} the serve CLI did not run on "
+              "the card")
         addr = ("127.0.0.1", port)
         status, data = http_request(addr, "GET", "/health", timeout=60)
-        check(status == 200, f"CLI /health answered {status}")
+        check(status == 200, f"{tag} CLI /health answered {status}")
         out = post_json(addr, "/v1/completions", {"prompt": "hello", "max_tokens": 8,
                                                   "temperature": 0.0})
-        check(out["usage"]["completion_tokens"] > 0, f"CLI completion {out}")
+        check(out["usage"]["completion_tokens"] > 0, f"{tag} CLI completion {out}")
         proc.send_signal(signal.SIGTERM)
         rc = proc.wait(timeout=60)
-        check(rc == 0, f"the serve CLI exited {rc} on SIGTERM:\n" + "".join(seen[-20:]))
+        check(rc == 0, f"{tag} the serve CLI exited {rc} on SIGTERM:\n"
+              + "".join(seen[-20:]))
     finally:
         if proc.poll() is None:
             proc.kill()
             proc.wait(timeout=30)
         reader.join(timeout=10)
         proc.stdout.close()
-    log(f"[serve-cli] {' '.join(cmd[1:])}: port {port}, /health 200, one completion "
+    log(f"{tag} {' '.join(cmd[1:])}: port {port}, /health 200, one completion "
         f"200 ({out['usage']}), exit 0 on SIGTERM; {time.perf_counter() - t0:.1f} s")
+    return seen
+
+
+def phase_serve_cli(torch):
+    """The entry point itself: ``python -m dlti_tpu_torch.cli.serve`` on the
+    card (llama_tiny, int8 pool, a free port) answers /health and one
+    completion, and exits 0 on SIGTERM."""
+    serve_subprocess([sys.executable, "-m", "dlti_tpu_torch.cli.serve", "--random-init",
+                      "llama_tiny", "--tokenizer", "byte", "--kv-cache-dtype", "int8",
+                      "--steps-per-sync", "4", "--host", "127.0.0.1", "--port", "0"],
+                     "[serve-cli]")
+
+
+def run_cli(cmd, tag, timeout=600):
+    """A CLI as a subprocess that must exit 0; returns its stdout."""
+    import os
+
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=ROOT, env=dict(os.environ, PYTHONPATH=str(ROOT)),
+                          capture_output=True, text=True, timeout=timeout)
+    check(proc.returncode == 0, f"{tag} {' '.join(cmd[1:])} exited {proc.returncode}:\n"
+          + proc.stdout[-2000:] + proc.stderr[-3000:])
+    log(f"{tag} {' '.join(cmd[1:])}: exit 0 in {time.perf_counter() - t0:.1f} s")
+    return proc.stdout
+
+
+def phase_cli_round_trip(torch):
+    """The three entry points as subprocesses on the card, on llama_300m (d
+    64, which K1-K3 take): ``cli.train`` checkpoints steps 2 and 4 and
+    exports; ``cli.export`` of the checkpoints prints the export's digest;
+    ``cli.serve --model-dir`` serves the export."""
+    import shutil
+    import tempfile
+
+    from dlti_tpu_torch.checkpoint import list_checkpoint_steps, manifest_digest
+
+    root = Path(tempfile.mkdtemp(prefix="dlti-cli-"))
+    data, ck, ex, ex2 = (root / n for n in ("data.jsonl", "ckpt", "export", "export2"))
+    data.write_text("".join(json.dumps({"text": t}) + "\n" for t in training_texts()))
+    py = [sys.executable, "-m"]
+    try:
+        out = run_cli(py + ["dlti_tpu_torch.cli.train", "--model", "llama_300m",
+                            "--tokenizer", "byte", "--dataset-path", str(data),
+                            "--max-steps", "4", "--save-steps", "2",
+                            "--output-dir", str(ck), "--export-dir", str(ex)], "[cli]")
+        check(list_checkpoint_steps(ck) == [2, 4],
+              f"cli.train left checkpoints {list_checkpoint_steps(ck)}")
+        digest = manifest_digest(ex / "model")
+        check(digest is not None and f"manifest sha256: {digest}" in out,
+              f"cli.train's export digest {digest} is not in its output")
+        out = run_cli(py + ["dlti_tpu_torch.cli.export", "--checkpoint-dir", str(ck),
+                            "--model", "llama_300m", "--out", str(ex2)], "[cli]")
+        check(out.strip().splitlines()[-1] == f"manifest sha256: {digest}",
+              f"cli.export printed {out.strip().splitlines()[-1:]}, the export is {digest}")
+        seen = serve_subprocess(py + ["dlti_tpu_torch.cli.serve", "--model-dir", str(ex),
+                                      "--tokenizer", "byte", "--host", "127.0.0.1",
+                                      "--port", "0"], "[cli]")
+        check(any("loaded export" in ln for ln in seen), "cli.serve did not load the export")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
 
 
 def main() -> int:
@@ -1712,7 +2065,7 @@ def main() -> int:
 
     t_start = time.perf_counter()
     try:
-        phase_card_and_build(torch)
+        card = phase_card_and_build(torch)
         # 256 MB written before each timed launch: more than the 50 MB L2.
         flush = torch.empty(64 << 20, dtype=torch.float32, device="cuda")
         cases, int8_cases = phase_kernel_cases(torch, flush)
@@ -1732,10 +2085,11 @@ def main() -> int:
         state, dataset, lora, flash_launches, train_perf = phase_training(torch)
         paths = phase_train_paths(torch, state, dataset, lora)
         phase_train_profile(torch, state, dataset)
-        # The trainer holds ~16 GB: release it before the int8 server's llama2_7b.
+        # The trainer holds ~16 GB: release it before phase 13's trainers.
         del state, dataset
         gc.collect()
         torch.cuda.empty_cache()
+        ckpt_launches, ckpt_perf = phase_checkpoint(torch, train_perf, card, flush)
         engine, int8_launches, server_perf = phase_server(torch)
         int8_main = phase_in_model(torch, engine, flush)
         del engine
@@ -1748,10 +2102,12 @@ def main() -> int:
         del engine
         free_memory(torch)
         phase_serve_cli(torch)
+        phase_cli_round_trip(torch)
     except CheckFailed as e:
         return fail(str(e))
 
-    worst = max([r["max_abs_err"] for r in cases.values()] + [main_path["max_abs_err"]])
+    worst = max([r["max_abs_err"] for r in cases.values()]
+                + [main_path["max_abs_err"], ckpt_perf["in_model"]["max_abs_err"]])
     kernels = [{
         "name": "paged_decode_attention",
         "design": main_path["design"],
@@ -1812,6 +2168,13 @@ def main() -> int:
         "profile_k8": profile_perf, "head": head_perf}))
     log("[server] summary " + json.dumps(server_perf))
     log("[server-documented] summary " + json.dumps(documented_perf))
+    log("[ckpt] summary " + json.dumps({k: ckpt_perf[k] for k in (
+        "card", "layers", "losses_bit_equal", "save_stall_ms", "writer_s", "gb_written",
+        "write_hash_gb_s", "restore_s", "export_s", "load_s", "free_gb_before",
+        "free_gb_after", "phase_s", "sha256_gb_s", "pin_gb_s", "d2h_pinned_gb_s",
+        "d2h_pageable_gb_s", "in_model")}))
+    log("[ckpt] launches on the train -> checkpoint -> resume -> export -> serve path "
+        + json.dumps(ckpt_launches))
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

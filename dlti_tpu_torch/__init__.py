@@ -2,7 +2,7 @@
 
 The JAX package ``dlti_tpu`` stays the reference; this package mirrors its
 module layout (``config``, ``ops``, ``models``, ``serving``, ``data``,
-``training``) so each
+``training``, ``checkpoint``) so each
 counterpart is found under the same name. It imports ``torch`` and numpy
 only — never ``jax`` and nothing of ``dlti_tpu``.
 
@@ -17,7 +17,10 @@ paged decode attention, float and int8, as a hand-written CUDA kernel
 single-device LoRA training (``training.Trainer``, CLI
 ``python -m dlti_tpu_torch.cli.train``) with flash attention forward and
 backward as hand-written CUDA kernels (``ops.flash_attention``, source in
-``csrc/flash_attention.cu``).
+``csrc/flash_attention.cu``), and its checkpoints, verified resume and
+merged export in the JAX package's on-disk format (``checkpoint``, CLI
+``python -m dlti_tpu_torch.cli.export``; ``cli.serve --model-dir`` serves
+an export).
 """
 
 from dlti_tpu_torch.config import MODEL_PRESETS, LoRAConfig, ModelConfig

@@ -30,7 +30,7 @@ def parse_args(argv=None):
                                             "(PyTorch port, one engine)",
                                 formatter_class=argparse.ArgumentDefaultsHelpFormatter)
     p.add_argument("--model-dir", default=None,
-                   help="consolidated export dir (not ported yet; see ROADMAP.md)")
+                   help="consolidated export dir (cli.train --export-dir or cli.export)")
     p.add_argument("--random-init", default=None, metavar="PRESET",
                    choices=sorted(MODEL_PRESETS),
                    help="serve a random-weight model preset")
@@ -61,15 +61,11 @@ def parse_args(argv=None):
 def build(args):
     """(engine, tokenizer, ServerConfig) from parsed arguments: what
     :func:`main` serves, and what an in-process caller can drive."""
-    if args.model_dir:
-        raise SystemExit("--model-dir needs the export format, which is not "
-                         "ported yet (see ROADMAP.md, queue 1); use "
-                         "--random-init PRESET")
-    if not args.random_init:
-        raise SystemExit("need --random-init PRESET")
+    if not args.model_dir and not args.random_init:
+        raise SystemExit("need --model-dir DIR or --random-init PRESET")
 
     from dlti_tpu_torch.data import get_tokenizer
-    from dlti_tpu_torch.models.interop import init_params
+    from dlti_tpu_torch.models.interop import init_params, params_from_jax
     from dlti_tpu_torch.serving import (
         EngineConfig, InferenceEngine, SamplingParams, ServerConfig,
     )
@@ -77,18 +73,31 @@ def build(args):
 
     tok = get_tokenizer(args.tokenizer)
     device = resolve_device(args.device)
-    model_cfg = MODEL_PRESETS[args.random_init]
     t0 = time.perf_counter()
-    params = init_params(model_cfg, seed=0, device=device)
-    print(f"random-initialized preset {args.random_init} on {device} in "
-          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    lora_cfg = None
+    if args.model_dir:
+        from dlti_tpu_torch.checkpoint import load_exported_model
+
+        tree, cfg = load_exported_model(args.model_dir, device=device)
+        params = params_from_jax(tree)
+        del tree
+        model_cfg = cfg.model
+        lora_cfg = cfg.lora if cfg.lora.enabled else None
+        print(f"loaded export {args.model_dir} (layers={model_cfg.num_layers}, "
+              f"hidden={model_cfg.hidden_size}) on {device} in "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+    else:
+        model_cfg = MODEL_PRESETS[args.random_init]
+        params = init_params(model_cfg, seed=0, device=device)
+        print(f"random-initialized preset {args.random_init} on {device} in "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
     ec = EngineConfig(
         max_seqs=args.max_seqs, block_size=args.block_size,
         num_blocks=args.num_blocks, max_model_len=args.max_model_len,
         eos_token_id=tok.eos_id, cache_dtype=args.kv_cache_dtype,
         steps_per_sync=args.steps_per_sync,
         decode_state_cache=not args.no_decode_state_cache)
-    engine = InferenceEngine(model_cfg, params, ec, device=device)
+    engine = InferenceEngine(model_cfg, params, ec, lora_cfg=lora_cfg, device=device)
     sc = ServerConfig(host=args.host, port=args.port,
                       default_params=SamplingParams(max_tokens=args.max_tokens_default))
     return engine, tok, sc

@@ -8,10 +8,20 @@
         --tokenizer byte --dataset-path data/ --max-seq-len 64 \\
         --per-device-batch-size 2 --gradient-accumulation-steps 2 --max-steps 4
 
-Flags keep the reference's names and defaults. ``--dataset-path`` is a
-``data.jsonl`` (one ``{"text": ...}`` per line), a directory holding one, or
-a file of text lines. Weights are random, from ``--seed``. Prints one JSON
-line with the run's record at the end.
+    # checkpoint every 2 steps, resume if a checkpoint is there, export
+    python -m dlti_tpu_torch.cli.train --device cpu --model llama_tiny \
+        --tokenizer byte --dataset-path data/ --max-seq-len 64 --max-steps 4 \
+        --save-steps 2 --output-dir runs/tiny --export-dir exports/tiny
+
+Flags keep the reference's names and defaults: like the reference it
+checkpoints every 100 steps under ``./checkpoints/run`` and first resumes
+from the newest checkpoint there that verifies (``--no-resume`` starts
+afresh, ``--save-strategy no`` writes nothing). ``--export-dir`` writes the
+merged model after training (``cli.serve --model-dir`` serves it).
+``--dataset-path`` is a ``data.jsonl`` (one ``{"text": ...}`` per line), a
+directory holding one, or a file of text lines. Weights are random, from
+``--seed``. Prints one JSON line with the run's record at the end. The PEFT
+and HF exports (``--export-peft``, ``--export-hf``) are not ported.
 """
 
 from __future__ import annotations
@@ -23,7 +33,8 @@ import logging
 import os
 
 from dlti_tpu_torch.config import (
-    MODEL_PRESETS, Config, DataConfig, LoRAConfig, OptimizerConfig, TrainConfig,
+    MODEL_PRESETS, CheckpointConfig, Config, DataConfig, LoRAConfig, OptimizerConfig,
+    TrainConfig,
 )
 
 REMAT_CHOICES = ["none", "nothing_saveable", "dots_saveable",
@@ -37,6 +48,7 @@ def parse_args(argv=None):
     p.add_argument("--dataset-path", "--dataset_path", default="./data/glaive_code_full",
                    help="data.jsonl with a `text` field (or a directory holding "
                         "one), or a file of text lines")
+    p.add_argument("--output-dir", "--output_dir", default="./checkpoints/run")
     p.add_argument("--tokenizer", default="meta-llama/Llama-2-7b-hf",
                    help="'byte' or 'id[:vocab]' (hub tokenizers are not ported)")
     p.add_argument("--max-seq-len", type=int, default=512)
@@ -56,6 +68,13 @@ def parse_args(argv=None):
                    help="keep every Nth block's activations (0 = preset)")
     p.add_argument("--seed", type=int, default=42)
     p.add_argument("--logging-steps", type=int, default=10)
+    p.add_argument("--save-strategy", default="steps", choices=["steps", "epoch", "no"])
+    p.add_argument("--save-steps", type=int, default=100)
+    p.add_argument("--save-total-limit", type=int, default=3)
+    p.add_argument("--no-resume", action="store_true",
+                   help="skip the verified scan-latest-and-resume pass")
+    p.add_argument("--export-dir", default=None,
+                   help="write a consolidated merged-LoRA export here after training")
     p.add_argument("--device", default=None, help="cuda (default) or cpu")
     return p.parse_args(argv)
 
@@ -93,6 +112,11 @@ def build_config(args) -> Config:
                                   warmup_steps=args.warmup_steps),
         data=DataConfig(dataset_path=args.dataset_path, tokenizer=args.tokenizer,
                         max_seq_len=args.max_seq_len, pack_sequences=args.pack),
+        checkpoint=CheckpointConfig(output_dir=args.output_dir,
+                                    save_strategy=args.save_strategy,
+                                    save_steps=args.save_steps,
+                                    save_total_limit=args.save_total_limit,
+                                    resume=not args.no_resume),
         train=TrainConfig(num_epochs=args.num_train_epochs, max_steps=args.max_steps,
                           micro_batch_size=args.per_device_batch_size,
                           grad_accum_steps=args.gradient_accumulation_steps,
@@ -122,9 +146,16 @@ def main(argv=None) -> None:
     print(f"dataset: {len(texts)} examples, {dataset.steps_per_epoch()} steps/epoch",
           flush=True)
     trainer = Trainer(cfg, device=args.device)
-    _, record = trainer.train(dataset=dataset)
+    state, record = trainer.train(dataset=dataset)
+    if args.export_dir:
+        from dlti_tpu_torch.checkpoint import export_merged_model, manifest_digest
+
+        export_merged_model(args.export_dir, dict(state.model.named_parameters()), cfg)
+        print(f"merged export -> {args.export_dir}", flush=True)
+        print(f"manifest sha256: {manifest_digest(os.path.join(args.export_dir, 'model'))}",
+              flush=True)
     summary = {k: v for k, v in dataclasses.asdict(record).items()
-               if k not in ("losses", "grad_norms", "step_times_s")}
+               if k not in ("losses", "grad_norms", "step_times_s", "save_stall_s")}
     summary["final_loss"] = record.final_loss
     print(json.dumps(summary), flush=True)
 

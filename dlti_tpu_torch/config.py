@@ -1,6 +1,7 @@
 """Configuration: this package's copy of ``dlti_tpu/config.py``'s
 ``ModelConfig``, ``LoRAConfig``, ``MODEL_PRESETS`` and, for training,
-``OptimizerConfig``, ``DataConfig``, ``TrainConfig`` and the root ``Config``.
+``OptimizerConfig``, ``DataConfig``, ``CheckpointConfig``, ``TrainConfig``
+and the root ``Config`` with its JSON form (``to_dict``/``from_dict``).
 
 Field names, defaults and presets are the reference's, so a configuration
 means the same thing in both packages. The training blocks carry the fields
@@ -14,6 +15,7 @@ kernel's tiles: the CUDA flash kernels pick their own and do not read them.
 from __future__ import annotations
 
 import dataclasses
+import json
 from dataclasses import dataclass, field
 from typing import Any, Optional
 
@@ -122,6 +124,26 @@ class DataConfig:
 
 
 @dataclass(frozen=True)
+class CheckpointConfig:
+    """Checkpoint / resume policy (the reference's ``CheckpointConfig``):
+    every ``save_steps`` steps keep the newest ``save_total_limit``, and
+    resume from the newest checkpoint that verifies. Writes are async with
+    a bounded retry; a save that fails is logged and training goes on.
+
+    The defaults are the reference's, so a ``Trainer`` given no checkpoint
+    config saves under, and resumes from, ``./checkpoints/run``."""
+
+    output_dir: str = "./checkpoints/run"
+    save_strategy: str = "steps"  # "steps" | "epoch" | "no"
+    save_steps: int = 100
+    save_total_limit: int = 3
+    resume: bool = True
+    async_save: bool = True
+    save_retries: int = 3
+    save_retry_backoff_s: float = 0.2
+
+
+@dataclass(frozen=True)
 class TrainConfig:
     """Training loop knobs (the reference's ``TrainConfig``): the fields
     of the single-device loop. ``fp16``, ``loss_chunk``, ``steps_per_sync``
@@ -203,17 +225,68 @@ MODEL_PRESETS: dict = {
 }
 
 
+_SECTIONS = {"model": ModelConfig, "lora": LoRAConfig,
+             "optimizer": OptimizerConfig, "data": DataConfig,
+             "checkpoint": CheckpointConfig, "train": TrainConfig}
+
+
 @dataclass(frozen=True)
 class Config:
-    """Root config of the training slice (the reference's ``Config``,
-    without the blocks of code the port has not reached: parallel,
-    checkpoint, telemetry, serving)."""
+    """Root config (the reference's ``Config``, without the blocks of code
+    the port has not reached: parallel, telemetry, serving)."""
 
     model: ModelConfig = field(default_factory=ModelConfig)
     lora: LoRAConfig = field(default_factory=LoRAConfig)
     optimizer: OptimizerConfig = field(default_factory=OptimizerConfig)
     data: DataConfig = field(default_factory=DataConfig)
+    checkpoint: CheckpointConfig = field(default_factory=CheckpointConfig)
     train: TrainConfig = field(default_factory=TrainConfig)
 
     def replace(self, **kwargs: Any) -> "Config":
         return dataclasses.replace(self, **kwargs)
+
+    def to_dict(self) -> dict:
+        """The sections as plain JSON values (tuples become lists), under
+        the reference's names: the JAX package's ``Config.from_dict`` reads
+        it back, taking its defaults for the sections the port lacks."""
+        def convert(obj: Any) -> Any:
+            if isinstance(obj, dict):
+                return {k: convert(v) for k, v in obj.items()}
+            if isinstance(obj, (tuple, list)):
+                return [convert(v) for v in obj]
+            return obj
+
+        return convert(dataclasses.asdict(self))
+
+    def to_json(self) -> str:
+        return json.dumps(self.to_dict(), indent=2, sort_keys=True)
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "Config":
+        """A config from :meth:`to_dict`'s form, or from the JAX package's
+        (an export's ``config.json``). Sections and fields the port does not
+        have are ignored, except in ``model``: a model field it does not
+        know, or a mixture-of-experts model, raises, since the port cannot
+        run that model."""
+        model = d.get("model", {})
+        known = {f.name for f in dataclasses.fields(ModelConfig)}
+        unknown = sorted(set(model) - known)
+        if unknown:
+            raise ValueError(f"model config has fields the port does not know: "
+                             f"{unknown}")
+        if model.get("num_experts", 0) > 0:
+            raise NotImplementedError("mixture-of-experts models are not ported "
+                                      "yet (see ROADMAP.md)")
+        kwargs = {}
+        for name, section in _SECTIONS.items():
+            if not isinstance(d.get(name), dict):
+                continue
+            fields = {f.name for f in dataclasses.fields(section)}
+            kwargs[name] = section(**{
+                k: tuple(v) if isinstance(v, list) else v
+                for k, v in d[name].items() if k in fields})
+        return cls(**kwargs)
+
+    @classmethod
+    def from_json(cls, s: str) -> "Config":
+        return cls.from_dict(json.loads(s))

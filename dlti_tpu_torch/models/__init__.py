@@ -8,4 +8,5 @@ from dlti_tpu_torch.models.interop import (  # noqa: F401
     init_params,
     load_model,
     params_from_jax,
+    params_to_jax,
 )

@@ -1,12 +1,17 @@
 """Weights in and out of the port's Llama modules.
 
 * :func:`params_from_jax` — the JAX package's params tree (a nested dict of
-  numpy arrays, as ``jax.device_get(model.init(...)["params"])`` gives) to
-  this package's state dict. Layouts agree, so it is a rename:
-  ``model/layers_{i}/attn/q_proj/kernel`` becomes
+  numpy arrays, as ``jax.device_get(model.init(...)["params"])`` gives, or
+  of tensors) to this package's state dict. Layouts agree, so it is a
+  rename: ``model/layers_{i}/attn/q_proj/kernel`` becomes
   ``model.layers.{i}.attn.q_proj.kernel``. LoRA factors (``lora_a``,
   ``lora_b``) cross like any other leaf, so both packages start from the
-  same adapter.
+  same adapter. :func:`params_to_jax` is its inverse.
+* :func:`tensor_to_numpy` / :func:`numpy_to_tensor` — the numpy codec the
+  checkpoint store writes with: a tensor's bytes and the numpy dtype name
+  the JAX package records. ``bfloat16`` travels as its bits (``uint16``)
+  under the name ``"bfloat16"``, since numpy knows that dtype only once
+  ``ml_dtypes`` is imported, and the port never imports it.
 * :func:`init_params` — a full-width random model filled directly on the
   device from a seeded ``torch.Generator``: embed and head normal(0.02),
   projection kernels lecun-normal (the reference's ``LoRADense`` default),
@@ -20,7 +25,7 @@ from __future__ import annotations
 
 import math
 import re
-from typing import Dict, Mapping, Optional
+from typing import Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -35,11 +40,43 @@ from dlti_tpu_torch.utils.device import resolve_device
 _TRUNC_STD = 0.87962566103423978
 
 
+_BITS = {"bfloat16": (torch.bfloat16, np.uint16)}
+
+
+def tensor_to_numpy(t: torch.Tensor) -> Tuple[np.ndarray, str]:
+    """A CPU tensor's numpy view (no copy) and the dtype name the JAX
+    package writes for it; ``bfloat16`` comes back as its ``uint16`` bits."""
+    name = str(t.dtype).removeprefix("torch.")
+    if name in _BITS:
+        return t.view(torch.int16).numpy().view(_BITS[name][1]), name
+    return t.numpy(), np.dtype(name).name
+
+
+def numpy_to_tensor(a: np.ndarray, dtype_name: str) -> torch.Tensor:
+    """The inverse of :func:`tensor_to_numpy`, sharing ``a``'s memory:
+    ``a`` holds the values, or for ``bfloat16`` their bits (any 2-byte
+    dtype)."""
+    if dtype_name in _BITS:
+        return torch.from_numpy(a.view(np.int16)).view(_BITS[dtype_name][0])
+    if a.dtype.name != dtype_name:
+        raise ValueError(f"array of {a.dtype.name} where {dtype_name} was expected")
+    return torch.from_numpy(a)
+
+
 def _to_tensor(a) -> torch.Tensor:
+    if isinstance(a, torch.Tensor):
+        return a
     a = np.asarray(a)
     if a.dtype.name == "bfloat16":  # ml_dtypes: same bits as torch.bfloat16
         return torch.from_numpy(a.view(np.uint16).copy()).view(torch.bfloat16)
     return torch.from_numpy(np.ascontiguousarray(a).copy())
+
+
+def jax_path(name: str) -> Tuple[str, ...]:
+    """This package's parameter name as the JAX params tree's key path:
+    ``model.layers.3.attn.q_proj.kernel`` is
+    ``('model', 'layers_3', 'attn', 'q_proj', 'kernel')``."""
+    return tuple(re.sub(r"layers\.(\d+)", r"layers_\1", name).split("."))
 
 
 def params_from_jax(tree: Mapping) -> Dict[str, torch.Tensor]:
@@ -55,6 +92,19 @@ def params_from_jax(tree: Mapping) -> Dict[str, torch.Tensor]:
         out[re.sub(r"layers_(\d+)", r"layers.\1", name)] = _to_tensor(node)
 
     walk(tree, [])
+    return out
+
+
+def params_to_jax(params: Mapping[str, torch.Tensor]) -> dict:
+    """The inverse of :func:`params_from_jax`: ``{name: tensor}`` as the JAX
+    package's nested params dict (leaves stay tensors)."""
+    out: dict = {}
+    for name, t in params.items():
+        *parents, leaf = jax_path(name)
+        node = out
+        for k in parents:
+            node = node.setdefault(k, {})
+        node[leaf] = t
     return out
 
 

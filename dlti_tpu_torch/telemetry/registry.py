@@ -1,8 +1,8 @@
-"""Metrics registry: histograms and scalar sources + Prometheus text
-exposition. The part of ``dlti_tpu/telemetry/registry.py`` (standard
-library only) that the server uses, the backing store of its ``/stats`` and
-``/metrics``; the labelled counters and gauges come with the first ported
-subsystem that needs them.
+"""Metrics registry: counters, gauges, histograms and scalar sources +
+Prometheus text exposition. The part of ``dlti_tpu/telemetry/registry.py``
+(standard library only) that the port uses: the backing store of the
+server's ``/stats`` and ``/metrics``, and the checkpoint store's counters
+and gauges.
 
 1. **Name stability.** The ``/metrics`` names (``dlti_requests``,
    ``dlti_free_blocks``, ...) are the reference server's; the scalar
@@ -36,6 +36,38 @@ TPOT_BUCKETS = (0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1, 0.25,
 # tens of microseconds when clean, low milliseconds when rebuilding.
 HOST_PREP_BUCKETS = (1e-5, 2.5e-5, 5e-5, 1e-4, 2.5e-4, 5e-4, 0.001,
                      0.0025, 0.005, 0.01, 0.025, 0.05, 0.1)
+
+
+class Counter:
+    """A monotonic counter (unlabelled: the reference's label children come
+    with the first ported consumer that needs them)."""
+
+    kind = "counter"
+
+    def __init__(self, name: str, help: str = ""):
+        self.name = name
+        self.help = help
+        self._value = 0.0
+        self._lock = threading.Lock()
+
+    def inc(self, amount: float = 1.0) -> None:
+        with self._lock:
+            self._value += amount
+
+    @property
+    def value(self) -> float:
+        return self._value
+
+
+class Gauge(Counter):
+    kind = "gauge"
+
+    def set(self, value: float) -> None:
+        with self._lock:
+            self._value = float(value)
+
+    def dec(self, amount: float = 1.0) -> None:
+        self.inc(-amount)
 
 
 class Histogram:
@@ -135,11 +167,11 @@ class MetricsRegistry:
 
     def __init__(self):
         self._lock = threading.Lock()
-        self._metrics: Dict[str, Histogram] = {}
+        self._metrics: Dict[str, object] = {}
         self._sources: List[_ScalarSource] = []
 
     # -- registration ---------------------------------------------------
-    def register(self, metric: Histogram) -> None:
+    def register(self, metric) -> None:
         """Attach an externally created metric (e.g. the engine's
         request-lifecycle histograms) for exposition."""
         with self._lock:
@@ -179,8 +211,11 @@ class MetricsRegistry:
         with self._lock:
             metrics = list(self._metrics.values())
         for m in metrics:
-            if m.stats_key not in out:
-                out[m.stats_key] = m.summary()
+            if isinstance(m, Histogram):
+                if m.stats_key not in out:
+                    out[m.stats_key] = m.summary()
+            else:
+                out.setdefault(m.name, m.value)
         return out
 
     def render_prometheus(self) -> str:
@@ -195,7 +230,10 @@ class MetricsRegistry:
         with self._lock:
             metrics = list(self._metrics.values())
         for m in metrics:
-            blocks.append((m.name, m.render()))
+            if isinstance(m, Histogram):
+                blocks.append((m.name, m.render()))
+                continue
+            blocks.append((m.name, [f"# TYPE {m.name} {m.kind}", f"{m.name} {m.value}"]))
         blocks.sort(key=lambda b: b[0])
         lines = [line for _, blk in blocks for line in blk]
         return "\n".join(lines) + "\n"

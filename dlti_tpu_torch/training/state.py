@@ -4,18 +4,36 @@
 The state holds the step count, the model (whose frozen base and trainable
 LoRA leaves are its parameters) and the optimizer state over the trainable
 subset only.
+
+:func:`state_leaves` names the state as the JAX ``TrainState``'s pytree
+leaves, in JAX's flatten order, for the checkpoint store; for
+``chain(clip_by_global_norm, adamw(schedule))``::
+
+    .step                                       int32 []
+    .params['lm_head'], .params['model'][...]   sorted keys
+    .opt_state[1][0].count                      int32 [] (Adam's count)
+    .opt_state[1][0].mu[('model', 'layers_0', ...)]   sorted key tuples
+    .opt_state[1][0].nu[(...)]                  every mu before every nu
+    .opt_state[1][2].count                      int32 [] (the schedule's)
+
+The port's one ``AdamWState.count`` is written to both counts;
+:func:`load_state_leaves` reads it back and checks that they agree.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, Mapping, Tuple
+from typing import Dict, List, Mapping, Sequence, Tuple
 
 import torch
 from torch import nn
 
+from dlti_tpu_torch.models.interop import jax_path
 from dlti_tpu_torch.models.lora import is_lora_name
 from dlti_tpu_torch.training.optimizer import AdamWState, ClipAdamW
+
+_ADAM = ".opt_state[1][0]"
+_SCHEDULE_COUNT = ".opt_state[1][2].count"
 
 
 def _is_trainable(name: str, lora_enabled: bool) -> bool:
@@ -56,3 +74,64 @@ def create_train_state(model: nn.Module, tx: ClipAdamW,
         p.requires_grad_(name in trainable)
     return TrainState(step=0, model=model, opt_state=tx.init(trainable), tx=tx,
                       lora_enabled=lora_enabled)
+
+
+def params_key(name: str) -> str:
+    """A parameter's leaf name in the JAX ``TrainState``:
+    ``.params['model']['layers_0']['attn']['q_proj']['kernel']``."""
+    return ".params" + "".join(f"[{k!r}]" for k in jax_path(name))
+
+
+def frozen_param_keys(state: TrainState) -> List[str]:
+    """The leaf names of the parameters no step changes (the base under
+    LoRA; none in a full fine-tune)."""
+    trainable = state.trainable()
+    return [params_key(n) for n, _ in state.model.named_parameters()
+            if n not in trainable]
+
+
+def _count(n: int) -> torch.Tensor:
+    return torch.tensor(n, dtype=torch.int32)
+
+
+def state_leaves(state: TrainState) -> List[Tuple[str, torch.Tensor]]:
+    """The state as ``[(jax leaf name, tensor)]`` in the JAX flatten order
+    (see the module docstring). Tensors are the live ones (parameters and
+    moments, on their device); the step and counts are new CPU int32
+    scalars."""
+    params = sorted(state.model.named_parameters(), key=lambda kv: jax_path(kv[0]))
+    moments = sorted(state.opt_state.mu, key=jax_path)
+    count = state.opt_state.count
+    return ([(".step", _count(state.step))]
+            + [(params_key(n), p) for n, p in params]
+            + [(f"{_ADAM}.count", _count(count))]
+            + [(f"{_ADAM}.mu[{jax_path(n)!r}]", state.opt_state.mu[n]) for n in moments]
+            + [(f"{_ADAM}.nu[{jax_path(n)!r}]", state.opt_state.nu[n]) for n in moments]
+            + [(_SCHEDULE_COUNT, _count(count))])
+
+
+@torch.no_grad()
+def load_state_leaves(state: TrainState,
+                      leaves: Sequence[Tuple[str, torch.Tensor]]) -> None:
+    """Load ``leaves`` (named as :func:`state_leaves` names them, e.g. from
+    ``restore_train_state``) into ``state``: parameters are copied in place
+    (each keeps its tensor and device), the moments become float32 tensors
+    on their parameter's device, and the step and count become ints."""
+    got = dict(leaves)
+    want = [name for name, _ in state_leaves(state)]
+    if sorted(got) != sorted(want):
+        missing, extra = sorted(set(want) - set(got)), sorted(set(got) - set(want))
+        raise ValueError(f"leaves do not match the state: missing {missing[:5]}, "
+                         f"unexpected {extra[:5]}")
+    adam_count, schedule_count = int(got[f"{_ADAM}.count"]), int(got[_SCHEDULE_COUNT])
+    if adam_count != schedule_count:
+        raise ValueError(f"Adam's count {adam_count} and the schedule's count "
+                         f"{schedule_count} disagree")
+    for n, p in state.model.named_parameters():
+        p.copy_(got[params_key(n)])
+    mu, nu = {}, {}
+    for n, p in state.trainable().items():
+        mu[n] = got[f"{_ADAM}.mu[{jax_path(n)!r}]"].to(p.device, torch.float32)
+        nu[n] = got[f"{_ADAM}.nu[{jax_path(n)!r}]"].to(p.device, torch.float32)
+    state.opt_state = AdamWState(count=adam_count, mu=mu, nu=nu)
+    state.step = int(got[".step"])

@@ -2,7 +2,8 @@
 decode kernel (K4) on float and int8 pools and flash attention's forward
 (K1), dq (K2) and dk/dv (K3); then the decode step's host path (the decode
 window as a CUDA graph, no host sync in its dispatch, the LM head's bf16
-GEMM).
+GEMM); then checkpoints of a train state on the card (placement on restore,
+a bit-equal resume, the one wait on the card a save adds to its step).
 
 Marked ``cuda``: each test skips where ``torch.cuda.is_available()`` is
 false, as on a CPU-only host. On a machine with the card and without JAX,
@@ -677,3 +678,126 @@ def test_lm_head_runs_a_bf16_gemm_with_float32_output(gen):
     (xf.float() @ w.float()).backward(g)
     assert xg.grad.dtype == torch.bfloat16
     torch.testing.assert_close(xg.grad, xf.grad, atol=0, rtol=0)
+
+
+# ----------------------------------------------------------------------
+# Checkpoints of a train state on the card
+# ----------------------------------------------------------------------
+
+def _card_train_state(preset, layers=None, lora_r=16):
+    import dataclasses
+
+    from dlti_tpu_torch.config import MODEL_PRESETS, LoRAConfig, OptimizerConfig
+    from dlti_tpu_torch.models import init_params, load_model
+    from dlti_tpu_torch.training import build_optimizer, create_train_state
+
+    cfg = MODEL_PRESETS[preset]
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
+    lora = LoRAConfig(r=lora_r, alpha=2 * lora_r)
+    params = init_params(cfg, seed=0, device="cuda", lora=lora)
+    model = load_model(cfg, params, "cuda", lora=lora, trainable_lora=True)
+    return create_train_state(model, build_optimizer(OptimizerConfig(warmup_steps=1)))
+
+
+def test_restore_places_every_leaf_on_the_card_with_the_templates_dtype(gen, tmp_path):
+    from dlti_tpu_torch.checkpoint import restore_train_state, save_train_state
+    from dlti_tpu_torch.training.state import load_state_leaves, state_leaves
+
+    state = _card_train_state("llama_300m", layers=2)
+    state.step, state.opt_state.count = 3, 3
+    with torch.no_grad():
+        for t in [*state.trainable().values(), *state.opt_state.mu.values()]:
+            t.normal_(generator=gen)
+    save_train_state(str(tmp_path), 3, state_leaves(state), async_save=False)
+    template = _card_train_state("llama_300m", layers=2)
+    leaves = restore_train_state(str(tmp_path), 3, state_leaves(template))
+    for (name, got), (_, want) in zip(leaves, state_leaves(template)):
+        assert got.device == want.device and got.dtype == want.dtype, name
+    load_state_leaves(template, leaves)
+    assert template.step == 3 and template.opt_state.count == 3
+    for (name, got), (_, want) in zip(state_leaves(template), state_leaves(state)):
+        assert got.device == want.device and torch.equal(got, want), name
+    assert all(m.dtype == torch.float32 and m.is_cuda for m in template.opt_state.mu.values())
+    on_card = [n for n, t in leaves if t.is_cuda]
+    assert len(on_card) == len(leaves) - 3  # all but the step and the two counts
+
+
+def _texts(n=48):
+    import numpy as np
+
+    rng = np.random.default_rng(2)
+    return ["".join(chr(97 + c) for c in rng.integers(0, 26, rng.integers(40, 300)))
+            for _ in range(n)]
+
+
+def test_two_step_resume_on_llama_300m_is_bit_equal(gen, tmp_path):
+    """4 steps uninterrupted against 2 steps, a checkpoint, and a fresh
+    trainer resuming for 2 more: the same losses and grad norms, bit for
+    bit (the kernels use no atomics; dropout seeds depend on the step)."""
+    from dlti_tpu_torch.config import (
+        MODEL_PRESETS, CheckpointConfig, Config, DataConfig, LoRAConfig, OptimizerConfig,
+        TrainConfig,
+    )
+    from dlti_tpu_torch.data import ByteTokenizer, make_batches
+    from dlti_tpu_torch.training import Trainer
+
+    def cfg(max_steps, strategy):
+        return Config(model=MODEL_PRESETS["llama_300m"], lora=LoRAConfig(),
+                      optimizer=OptimizerConfig(warmup_steps=1, learning_rate=1e-3),
+                      data=DataConfig(max_seq_len=256, tokenizer="byte"),
+                      checkpoint=CheckpointConfig(output_dir=str(tmp_path / "ck"),
+                                                  save_strategy=strategy, save_steps=2),
+                      train=TrainConfig(micro_batch_size=2, grad_accum_steps=2,
+                                        max_steps=max_steps, logging_steps=100))
+
+    ds = make_batches(_texts(), ByteTokenizer(), seq_len=256, micro_batch_size=2,
+                      grad_accum_steps=2)
+    _, ref = Trainer(cfg(4, "no"), device="cuda").train(dataset=ds)
+    _, first = Trainer(cfg(2, "steps"), device="cuda").train(dataset=ds)
+    _, rest = Trainer(cfg(4, "steps"), device="cuda").train(dataset=ds)
+    assert first.losses == ref.losses[:2] and first.save_steps == [2]
+    assert rest.resumed_from == 2 and rest.save_steps == [4]
+    assert rest.losses == ref.losses[2:] and rest.grad_norms == ref.grad_norms[2:]
+
+
+def _syncs(fn):
+    import warnings
+
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            fn()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    return sum("synchroniz" in str(w.message) for w in caught)
+
+
+def test_a_save_adds_one_wait_on_the_card_to_its_step(gen, tmp_path):
+    """``set_sync_debug_mode``: a train step with a save (cold, then with
+    the frozen base's host copy kept) waits on the card once more than the
+    same step without: the snapshot's one stream synchronisation."""
+    from dlti_tpu_torch.checkpoint import HostCache, save_train_state, wait_for_saves
+    from dlti_tpu_torch.training import make_train_step
+    from dlti_tpu_torch.training.state import frozen_param_keys, state_leaves
+
+    state = _card_train_state("llama_300m", layers=2)
+    step = make_train_step(state.model, accum_steps=1)
+    batch = {"input_ids": torch.randint(3, 32000, (1, 2, 128), device="cuda",
+                                        generator=gen, dtype=torch.int32)}
+    step(state, batch, 1)  # warm
+    cache = HostCache(frozen_param_keys(state))
+
+    def step_and_save():
+        step(state, batch, 2)
+        save_train_state(str(tmp_path), state.step, state_leaves(state), cache=cache)
+
+    plain = _syncs(lambda: step(state, batch, 2))
+    cold = _syncs(step_and_save)
+    warm = _syncs(step_and_save)
+    wait_for_saves(str(tmp_path))
+    assert plain > 0
+    assert (cold - plain, warm - plain) == (1, 1), (plain, cold, warm)
+    assert len(cache) == len(frozen_param_keys(state))

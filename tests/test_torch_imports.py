@@ -34,11 +34,12 @@ _CHILD = textwrap.dedent("""
     [res] = engine.generate([[1, 2, 3, 4]], SamplingParams(temperature=0.0, max_tokens=5))
     assert len(res.output_token_ids) == 5, res
 
-    from dlti_tpu_torch.config import Config, DataConfig, TrainConfig
+    from dlti_tpu_torch.config import CheckpointConfig, Config, DataConfig, TrainConfig
     from dlti_tpu_torch.data import get_tokenizer, make_batches
     from dlti_tpu_torch.training import Trainer
 
     tcfg = Config(model=cfg, data=DataConfig(max_seq_len=32, tokenizer="byte"),
+                  checkpoint=CheckpointConfig(save_strategy="no"),
                   train=TrainConfig(micro_batch_size=2, grad_accum_steps=2,
                                     max_steps=2, logging_steps=1))
     texts = ["port " * n for n in range(1, 20)]
@@ -104,6 +105,61 @@ def test_server_and_serve_cli_run_without_jax():
     assert proc.stdout.strip().endswith("OK")
 
 
+_CHECKPOINT_CHILD = textwrap.dedent("""
+    import dataclasses, sys, tempfile
+    sys.modules["jax"] = None
+    sys.modules["ml_dtypes"] = None  # the card machine has no ml_dtypes
+
+    import torch
+    import dlti_tpu_torch.checkpoint as ck
+    import dlti_tpu_torch.cli.export as export_cli
+    import dlti_tpu_torch.cli.train
+    from dlti_tpu_torch.checkpoint import store
+    from dlti_tpu_torch.config import MODEL_PRESETS, Config, LoRAConfig
+    from dlti_tpu_torch.models import init_params
+    from dlti_tpu_torch.models.interop import numpy_to_tensor, tensor_to_numpy
+    from dlti_tpu_torch.telemetry import Counter, Gauge
+    from dlti_tpu_torch.utils import durable_io
+
+    t = torch.randn(5, 3).to(torch.bfloat16)
+    arr, name = tensor_to_numpy(t)
+    assert name == "bfloat16" and arr.dtype.name == "uint16", (name, arr.dtype)
+    assert torch.equal(numpy_to_tensor(arr.copy(), name), t)
+
+    d = tempfile.mkdtemp()
+    leaves = [("['w']", t), ("['n']", torch.tensor(3, dtype=torch.int32))]
+    ck.save_train_state(d + "/ck", 1, leaves, async_save=True)
+    ck.wait_for_saves(d + "/ck")
+    assert ck.verify_checkpoint(d + "/ck", 1) == (True, "ok")
+    back = dict(ck.restore_train_state(d + "/ck", 1, leaves))
+    assert back["['w']"].dtype == torch.bfloat16 and torch.equal(back["['w']"], t)
+
+    cfg = dataclasses.replace(MODEL_PRESETS["llama_tiny"], dtype="bfloat16",
+                              param_dtype="bfloat16")
+    params = init_params(cfg, seed=0, device="cpu", lora=LoRAConfig(r=2))
+    ck.export_merged_model(d + "/ex", params, Config(model=cfg, lora=LoRAConfig(r=2)))
+    tree, back_cfg = ck.load_exported_model(d + "/ex")
+    assert back_cfg.model == cfg and not back_cfg.lora.enabled
+    assert tree["lm_head"].dtype == torch.bfloat16
+
+    loaded = sorted(n for n, m in sys.modules.items() if m is not None and (
+        n in ("jax", "dlti_tpu", "ml_dtypes")
+        or n.startswith(("jax.", "jaxlib", "dlti_tpu.", "ml_dtypes."))))
+    assert not loaded, loaded
+    print("OK")
+""")
+
+
+def test_checkpoint_and_export_run_without_jax_or_ml_dtypes():
+    """The checkpoint store, the export, the CLIs that use them and the
+    bfloat16 codec import and round-trip with ``jax`` and ``ml_dtypes``
+    blocked: bfloat16 travels as its bits."""
+    proc = subprocess.run([sys.executable, "-c", _CHECKPOINT_CHILD], cwd=ROOT,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert proc.stdout.strip().endswith("OK")
+
+
 def test_chip_smoke_imports_no_jax():
     """``chip_smoke.py`` is a port entry point too: importing it pulls in
     neither JAX nor the JAX package."""
@@ -117,7 +173,7 @@ def test_chip_smoke_imports_no_jax():
 
 
 def test_entry_points_without_device_raise_when_there_is_no_cuda(monkeypatch):
-    from dlti_tpu_torch.config import MODEL_PRESETS, Config
+    from dlti_tpu_torch.config import MODEL_PRESETS, CheckpointConfig, Config
     from dlti_tpu_torch.models import init_params
     from dlti_tpu_torch.serving import InferenceEngine
     from dlti_tpu_torch.training import Trainer
@@ -132,7 +188,7 @@ def test_entry_points_without_device_raise_when_there_is_no_cuda(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         InferenceEngine(cfg, init_params(cfg, seed=0, device="cpu"))
     with pytest.raises(RuntimeError, match="no CUDA device"):
-        Trainer(Config(model=cfg))
+        Trainer(Config(model=cfg, checkpoint=CheckpointConfig(save_strategy="no")))
     assert resolve_device("cpu") == torch.device("cpu")
 
 

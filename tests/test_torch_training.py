@@ -215,6 +215,7 @@ def test_unported_remat_policy_raises():
                                          ("quantize_frozen_base", True)])
 def test_trainer_refuses_unported_train_options(field, value):
     cfg = tc.Config(model=tc.MODEL_PRESETS["llama_tiny"],
+                    checkpoint=tc.CheckpointConfig(save_strategy="no"),
                     train=tc.TrainConfig(**{field: value}))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Trainer(cfg, device="cpu")
@@ -240,6 +241,8 @@ def test_trainer_matches_jax_trainer_for_six_steps(tmp_path):
         model=tc.MODEL_PRESETS["llama_tiny"], lora=tc.LoRAConfig(**LORA),
         optimizer=tc.OptimizerConfig(**OPT),
         data=tc.DataConfig(max_seq_len=SEQ, tokenizer="byte"),
+        checkpoint=tc.CheckpointConfig(output_dir=str(tmp_path / "tck"),
+                                       save_strategy="no"),
         train=tc.TrainConfig(**common))
     texts = _texts()
     jtrainer = JaxTrainer(jcfg)
