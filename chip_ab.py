@@ -19,7 +19,7 @@ ROOT, builds its kernels and uses that ROOT's own ``chip_smoke.py``:
   bf16 pool behind 64-block tables and an int8 pool behind 128-block
   tables), timed the same way, each held to phase 2's limits.
 * ``step``: phase 7, the llama2_7b LoRA trainer for 8 steps: step ms and
-  tokens/s.
+  tokens/s (and, where the ROOT's phase 7 has one, its eager yardstick's).
 * ``serve``: phase 10, the OpenAI server on the serve CLI's llama2_7b int8
   engine answering 12 concurrent requests: requests/s, mean TPOT, and the
   engine step's p50 and mean on the server's stepper thread.
@@ -154,6 +154,9 @@ cs.phase_card_and_build(torch)
 perf = cs.phase_training(torch)[-1]
 print(f"RESULT step: {perf['step_ms']:.1f} ms, {perf['tokens_per_s']:.1f} tokens/s, "
       f"MFU {perf['mfu_percent']:.2f}%", flush=True)
+if "eager" in perf:  # a root whose phase 7 also runs the eager yardstick
+    print(f"RESULT step eager: {perf['eager']['step_ms']:.1f} ms, "
+          f"{perf['eager']['tokens_per_s']:.1f} tokens/s", flush=True)
 '''
 
 RESTORE = r'''

@@ -58,21 +58,39 @@ Phases, each of which fails the run if its check fails:
    bound, plain time and SDPA's time (forward for K1, its autograd backward
    for K2 and K3).
 7. The trainer at full width: llama2_7b bf16 with LoRA r=16 on q/k/v/o
-   from ``init_params(seed=0)``, 8 steps of ``Trainer.train`` over
-   ``make_batches`` (byte tokenizer, texts from a seeded generator, seq 512,
-   micro-batch 4, grad-accum 2, warmup 2, lr 2e-4, remat on), with
-   ``save_strategy="no"`` so its numbers stay comparable. Losses and grad
-   norms finite, every ``lora_b`` moved off zero, and K1 launched
-   2 x 32 x 2 x 8 times (forward and remat recompute), K2 and K3 32 x 2 x 8.
-   Prints step ms, tokens/s, MFU (4N FLOPs per token) and peak memory. Its
-   losses and grad norms for steps 5-8 are phase 13's reference.
+   (dropout 0.05) from ``init_params(seed=0)``, 8 steps of
+   ``Trainer.train`` over ``make_batches`` (byte tokenizer, texts from a
+   seeded generator, seq 512, micro-batch 4, grad-accum 2, warmup 2, lr
+   2e-4, remat on), with ``save_strategy="no"`` so its numbers stay
+   comparable; each step one replay of the step's CUDA graph (one capture).
+   Losses and grad norms finite, every ``lora_b`` moved off zero, and K1
+   launched 2 x 32 x 2 x 9 times (forward and remat recompute, over the 8
+   replayed steps and the capture's eager warm-up step), K2 and K3 32 x 2 x
+   9. Before it, and released before it, the same 8 steps through an eager
+   ``Trainer(cuda_graphs=False)`` from the same weights: losses and grad
+   norms must be bit-equal. Prints
+   both runs' step ms, tokens/s, MFU (4N FLOPs per token), peak memory and
+   host syncs per step. Its losses and grad norms are phase 13's and phase
+   14's reference.
 8. Kernel path against reference path: one step's loss and LoRA grads with
    the kernels and with ``attention_impl="reference"``, same weights and
    batch, dropout off; then known-wrong controls (the kernels' outputs given
    seeded multiplicative noise), which the same gate must refuse.
-9. Profile of one train step: device busy share, time by kernel group;
-   K1, K2 and K3 must appear as their wgmma kernels. The trainer is then
+9. Profiles: one eager train step, then a window of 2 graph replays
+   (``StepWindow``, captured before the profile): wall and device busy time
+   a step, busy share, kernels a step, time by kernel group; K1, K2 and K3
+   must appear as their wgmma kernels in both. The trainer is then
    released.
+14. Windows, eval and the chunked loss (run after phase 9, before phase 13),
+    llama2_7b at full width and depth: phase 7's configuration over 2
+    epochs of its 12 steps with ``steps_per_sync`` 8, ``max_steps`` 16 and
+    ``eval_steps`` 8 on 4 eval batches (windows of 8, 4 at the epoch's end
+    and 4 to ``max_steps``; evals at steps 8 and 16): steps 1-8 must be
+    bit-equal to phase 7's. Then ``loss_chunk=128`` over the same 16 steps
+    and windows: step 1's loss within 1e-4 of the run without, the peak
+    memory below that run's, and K1-K3 launches a step unchanged.
+    Prints each run's step ms, tokens/s, peak memory and host syncs per
+    step.
 10. The OpenAI server at full width on an int8 KV pool: llama2_7b from the
     serve CLI's own builder (``--random-init llama2_7b --tokenizer byte
     --kv-cache-dtype int8`` and the CLI's defaults: 8 slots, 2048 blocks of
@@ -102,7 +120,7 @@ Phases, each of which fails the run if its check fails:
     ``cli.export --checkpoint-dir D --out E2`` prints the digest of E's
     params; ``cli.serve --model-dir E --port 0`` answers ``/health`` and a
     completion and exits 0 on SIGTERM.
-13. Train -> checkpoint -> resume -> export -> serve (run after phase 9,
+13. Train -> checkpoint -> resume -> export -> serve (run after phase 14,
     before the servers), llama2_7b at full width and full depth (``layers
     32 of 32``; a checkpoint is ~13.7 GB, and ``shutil.disk_usage`` must
     show room for two checkpoints and an export, ~41 GB, or the phase
@@ -110,8 +128,8 @@ Phases, each of which fails the run if its check fails:
     fresh ``Trainer`` (phase 7's config, ``save_steps=4``,
     ``save_total_limit=2``, async) commits step 4; a second fresh one,
     from other random weights, resumes from step 4 (its log says so), runs
-    steps 5-8, whose losses and grad norms must be bit-equal to phase 7's,
-    and commits step 8. ``verify_checkpoint`` passes both steps. The step-8
+    steps 5-8 (each trainer its own CUDA graph of the step), whose losses
+    and grad norms must be bit-equal to phase 7's, and commits step 8. ``verify_checkpoint`` passes both steps. The step-8
     checkpoint is exported through ``cli.export``'s function, merged on the
     card; its manifest digest must equal that of ``merge_lora_params`` of
     the live resumed state, and its ``config.json`` has LoRA off. An engine
@@ -1201,9 +1219,46 @@ def train_config(checkpoint, max_steps, num_layers=None):
                                     max_steps=max_steps, logging_steps=1))
 
 
+def train_perf(record, mcfg) -> dict:
+    return {
+        "steps": record.steps, "losses": record.losses, "grad_norms": record.grad_norms,
+        "step_times_s": record.step_times_s, "step_ms": 1e3 * record.step_time_s,
+        "tokens_per_step": record.tokens_per_step,
+        "tokens_per_s": record.tokens_per_second, "mfu_percent": record.mfu_percent,
+        "peak_memory_gb": record.peak_memory_gb, "windows": record.windows,
+        "host_syncs_per_step": record.host_syncs_per_step, "captures": record.captures,
+        "num_params": mcfg.num_params(), "trainable_params": record.trainable_params,
+    }
+
+
+def log_train_perf(tag, perf, mcfg):
+    log(f"{tag} losses {[round(x, 4) for x in perf['losses']]}")
+    log(f"{tag} grad norms {[round(x, 4) for x in perf['grad_norms']]}")
+    log(f"{tag} step {perf['step_ms']:.1f} ms (mean of the steps after the first window "
+        f"and step 2), {perf['tokens_per_s']:.1f} tokens/s, MFU {perf['mfu_percent']:.2f}% "
+        f"(4N FLOPs/token, N = {mcfg.num_params():,}, vs 989 TFLOP/s bf16), peak memory "
+        f"{perf['peak_memory_gb']:.2f} GB, {perf['windows']} windows, host syncs per step "
+        f"{perf['host_syncs_per_step']:.3f}, graph captures {perf['captures']}")
+
+
+def flash_counts(tfa) -> dict:
+    return {"flash_fwd": tfa.fwd_launches, "flash_bwd_dq": tfa.dq_launches,
+            "flash_bwd_dkv": tfa.dkv_launches}
+
+
+def flash_expected(layers, accum, steps) -> dict:
+    """K1 twice per layer per microbatch under remat (forward and
+    recompute), K2 and K3 once."""
+    n = layers * accum * steps
+    return {"flash_fwd": 2 * n, "flash_bwd_dq": n, "flash_bwd_dkv": n}
+
+
 def phase_training(torch):
     """llama2_7b LoRA (r=16, bf16, seq 512, micro-batch 4 x accum 2, remat)
-    for 8 steps through ``Trainer.train`` on ``make_batches`` output."""
+    for 8 steps through an eager ``Trainer(cuda_graphs=False)`` (the
+    yardstick, released), then through ``Trainer.train`` on the same
+    weights and ``make_batches`` output with the step as a CUDA graph (the
+    main path, whose launches are counted)."""
     from dlti_tpu_torch.config import CheckpointConfig
     from dlti_tpu_torch.data import ByteTokenizer, make_batches
     from dlti_tpu_torch.models.interop import init_params
@@ -1229,23 +1284,29 @@ def phase_training(torch):
     log(f"[train] llama2_7b + LoRA r={cfg.lora.r}: {sum(p.numel() for p in params.values()) / 1e9:.3f} B "
         f"params made on the card in {time.perf_counter() - t0:.1f} s; first batch "
         f"{100 * pad_share:.1f}% padding")
-    trainer = Trainer(cfg, params=params, device="cuda")
-    state = trainer.init_state()
-    del params
+    # The yardstick first, released before the main path: the same steps
+    # eagerly, from the same weights.
+    eager_trainer = Trainer(cfg, params=params, device="cuda", cuda_graphs=False)
+    eager_state, eager = eager_trainer.train(dataset=dataset)
+    del eager_state, eager_trainer, params
+    free_memory(torch)
 
+    trainer = Trainer(cfg, params=init_params(mcfg, seed=0, device="cuda", lora=cfg.lora),
+                      device="cuda")
+    state = trainer.init_state()
     tfa.fwd_launches = tfa.dq_launches = tfa.dkv_launches = 0
     tpa.launches = 0  # the main path's counts start here ...
     state, record = trainer.train(dataset=dataset, state=state)
     torch.cuda.synchronize()
-    launches = {"flash_fwd": tfa.fwd_launches, "flash_bwd_dq": tfa.dq_launches,
-                "flash_bwd_dkv": tfa.dkv_launches}  # ... and are read here
+    launches = flash_counts(tfa)  # ... and are read here
     check(tpa.launches == 0, "training launched the decode kernel")
     layers = mcfg.num_layers
-    want = {"flash_fwd": 2 * layers * accum * steps,
-            "flash_bwd_dq": layers * accum * steps,
-            "flash_bwd_dkv": layers * accum * steps}
-    log(f"[train] {record.steps} steps; launches {launches} (expected {want}: K1 twice "
-        f"per layer per microbatch under remat, K2/K3 once)")
+    # The capture's eager warm-up step launches K1-K3 once for real.
+    want = flash_expected(layers, accum, steps + record.captures)
+    log(f"[train] {record.steps} steps as a CUDA graph ({record.captures} capture); "
+        f"launches {launches} (expected {want}: K1 twice per layer per microbatch under "
+        f"remat, K2/K3 once, over {steps} replayed steps and the capture's warm-up step)")
+    check(record.captures == 1, f"{record.captures} graph captures, expected 1")
     check(launches == want, f"flash launches {launches} != {want}")
     check(record.steps == steps, f"{record.steps} steps, expected {steps}")
     check(all(math.isfinite(x) for x in record.losses + record.grad_norms),
@@ -1255,20 +1316,18 @@ def phase_training(torch):
     check(len(lora_b) == 4 * layers, f"{len(lora_b)} lora_b leaves")
     still_zero = [n for n, p in lora_b.items() if not p.detach().abs().max().item() > 0]
     check(not still_zero, f"lora_b still zero: {still_zero[:3]}")
-    perf = {
-        "steps": record.steps, "losses": record.losses, "grad_norms": record.grad_norms,
-        "step_times_s": record.step_times_s, "step_ms": 1e3 * record.step_time_s,
-        "tokens_per_step": record.tokens_per_step,
-        "tokens_per_s": record.tokens_per_second, "mfu_percent": record.mfu_percent,
-        "peak_memory_gb": record.peak_memory_gb,
-        "num_params": mcfg.num_params(), "trainable_params": record.trainable_params,
-    }
-    log(f"[train] losses {[round(x, 4) for x in record.losses]}")
-    log(f"[train] grad norms {[round(x, 4) for x in record.grad_norms]}")
-    log(f"[train] step {perf['step_ms']:.1f} ms (mean of steps 3-{steps}), "
-        f"{perf['tokens_per_s']:.1f} tokens/s, MFU {perf['mfu_percent']:.2f}% "
-        f"(4N FLOPs/token, N = {mcfg.num_params():,}, vs 989 TFLOP/s bf16), peak "
-        f"memory {perf['peak_memory_gb']:.2f} GB")
+    perf = train_perf(record, mcfg)
+    log_train_perf("[train]", perf, mcfg)
+    perf["eager"] = train_perf(eager, mcfg)
+    log_train_perf("[train-eager]", perf["eager"], mcfg)
+    same = eager.losses == record.losses and eager.grad_norms == record.grad_norms
+    log(f"[train] graphed {perf['step_ms']:.1f} ms a step, {perf['tokens_per_s']:.1f} "
+        f"tokens/s, peak {perf['peak_memory_gb']:.2f} GB; eager "
+        f"{perf['eager']['step_ms']:.1f} ms, {perf['eager']['tokens_per_s']:.1f} tokens/s, "
+        f"peak {perf['eager']['peak_memory_gb']:.2f} GB; losses and grad norms bit-equal: "
+        f"{same}")
+    check(same, f"graphed losses {record.losses} / grad norms {record.grad_norms} differ "
+          f"from eager {eager.losses} / {eager.grad_norms}")
     log("[train] perf " + json.dumps(perf))
     return state, dataset, cfg.lora, launches, perf
 
@@ -1376,34 +1435,19 @@ def phase_train_paths(torch, state, dataset, lora):
     return {"loss_kernels": loss_k, "loss_reference": loss_r, **d, "controls": controls}
 
 
-def phase_train_profile(torch, state, dataset):
-    """Where a train step's time goes: ``torch.profiler`` over one more
-    optimizer step of the trainer's own step function."""
-    from torch.profiler import ProfilerActivity, profile
-
-    from dlti_tpu_torch.models.llama import derive_seed
-    from dlti_tpu_torch.training.step import make_train_step
-
-    step_fn = make_train_step(state.model, accum_steps=2)
-    host = next(dataset.epoch(2))
-    batch = {k: torch.from_numpy(v).cuda() for k, v in host.items()}
-    step_fn(state, batch, derive_seed(43, 100))  # warm
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        step_fn(state, batch, derive_seed(43, 101))
-        torch.cuda.synchronize()
-        wall_ms = 1e3 * (time.perf_counter() - t0)
+def train_profile_groups(torch, prof, wall_ms, steps, tag):
+    """Device time by kernel group of a profiled run of ``steps`` train
+    steps; K1, K2 and K3 must show up as their wgmma kernels."""
     kernels = [e for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     if not kernels or busy_ms == 0:
-        log("[train-profile] the profiler recorded no device time: not measured")
+        log(f"{tag} the profiler recorded no device time: not measured")
         return None
     n_kernels = sum(e.count for e in kernels)
-    log(f"[train-profile] one train step under torch.profiler: wall {wall_ms:.1f} ms, "
-        f"device busy {busy_ms:.1f} ms ({100 * busy_ms / wall_ms:.1f}% busy), "
-        f"{n_kernels} kernels")
+    log(f"{tag} {steps} train step(s) under torch.profiler: wall {wall_ms / steps:.1f} ms "
+        f"a step, device busy {busy_ms / steps:.1f} ms a step ({100 * busy_ms / wall_ms:.1f}% "
+        f"busy), {n_kernels / steps:.0f} kernels a step")
     groups, flash_names = {}, {}
     for e in kernels:
         key = e.key
@@ -1425,18 +1469,150 @@ def phase_train_profile(torch, state, dataset):
         t, c = groups.get(g, (0.0, 0))
         groups[g] = (t + e.self_device_time_total / 1e3, c + e.count)
     for g, (t, c) in sorted(groups.items(), key=lambda x: -x[1][0]):
-        log(f"[train-profile]   {t:9.2f} ms {100 * t / busy_ms:5.1f}% x{c:<6d} {g}")
-    log(f"[train-profile] flash kernels by name: "
+        log(f"{tag}   {t / steps:9.2f} ms a step {100 * t / busy_ms:5.1f}% x{c // steps:<6d} {g}")
+    log(f"{tag} flash kernels by name: "
         + "; ".join(f"{k}: {', '.join(sorted(v))}" for k, v in sorted(flash_names.items())))
     for label in ("K1", "K2", "K3"):
         check(any("wgmma" in n for n in flash_names.get(label, ())),
-              f"the train step's {label} did not run its wgmma kernel: {flash_names}")
+              f"{tag} the train step's {label} did not run its wgmma kernel: {flash_names}")
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]
     for e in top:
-        log(f"[train-profile]   top {e.self_device_time_total / 1e3:9.2f} ms x{e.count:<5d} "
-            f"{e.key[:90]}")
-    return {"wall_ms": wall_ms, "busy_ms": busy_ms, "kernels": n_kernels,
-            "groups": {g: t for g, (t, _) in groups.items()}}
+        log(f"{tag}   top {e.self_device_time_total / 1e3 / steps:9.2f} ms a step "
+            f"x{e.count // steps:<5d} {e.key[:90]}")
+    return {"wall_ms": wall_ms / steps, "busy_ms": busy_ms / steps,
+            "busy_share": busy_ms / wall_ms, "kernels": n_kernels / steps,
+            "groups": {g: t / steps for g, (t, _) in groups.items()}}
+
+
+PROFILE_WINDOW = 2
+
+
+def phase_train_profile(torch, state, dataset):
+    """Where a train step's time goes: ``torch.profiler`` over one eager
+    optimizer step of the trainer's own step function, then over a window
+    of ``PROFILE_WINDOW`` graph replays (``StepWindow``, captured before
+    the profile)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from dlti_tpu_torch.training.step import StepWindow, make_train_step, step_seed
+    from dlti_tpu_torch.utils.device import to_host
+
+    step_fn = make_train_step(state.model, accum_steps=2)
+    hosts = list(dataset.epoch(2))[:2 + PROFILE_WINDOW]
+    batch = {k: torch.from_numpy(v).cuda() for k, v in hosts[0].items()}
+    step_fn(state, batch, step_seed(43, 100))  # warm
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step_fn(state, batch, step_seed(43, 101))
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    eager = train_profile_groups(torch, prof, wall_ms, 1, "[train-profile eager]")
+
+    window = StepWindow(state.model, accum_steps=2, seed=43, capacity=PROFILE_WINDOW)
+    to_host(window.run(state, hosts[1:2], 102))  # the capture
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        rows = to_host(window.run(state, hosts[2:], 103))[0]
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    window.release()
+    check(all(math.isfinite(x) for x in rows[:, 0]), f"graphed window losses {rows[:, 0]}")
+    graphed = train_profile_groups(torch, prof, wall_ms, PROFILE_WINDOW,
+                                   "[train-profile graph]")
+    return {"eager": eager, "graph": graphed}
+
+
+# ----------------------------------------------------------------------
+# Train-window slice 8: steps_per_sync windows, eval, loss_chunk
+# ----------------------------------------------------------------------
+
+WINDOW_K = 8
+WINDOW_STEPS = 16
+WINDOW_EVAL_BATCHES = 4
+LOSS_CHUNK = 128
+# Step 1 of the loss_chunk run against the run without, the same weights
+# and batch: the chunked loss sums the same token losses in another order
+# and its head GEMMs have other shapes, so cuBLAS may round the float32
+# logits differently; the relative difference stays far below this.
+LOSS_CHUNK_STEP1_RTOL = 1e-4
+
+
+def phase_train_window(torch, reference):
+    """Phase 14 (run after phase 9): llama2_7b at full width and depth,
+    ``steps_per_sync`` 8 over 16 steps with ``eval_steps`` 8 on 4 eval
+    batches, then ``loss_chunk=128`` over the same 16 steps; see the module
+    docstring."""
+    from dlti_tpu_torch.config import CheckpointConfig
+    from dlti_tpu_torch.data import ByteTokenizer, make_batches
+    from dlti_tpu_torch.models.interop import init_params
+    from dlti_tpu_torch.ops import flash_attention as tfa
+    from dlti_tpu_torch.training import Trainer
+
+    base = train_config(CheckpointConfig(save_strategy="no"), max_steps=WINDOW_STEPS)
+    base = dataclasses.replace(base, train=dataclasses.replace(base.train, num_epochs=2))
+    mcfg, accum = base.model, base.train.grad_accum_steps
+    # Phase 7's batches: 12 steps an epoch, so the 16 steps run as windows
+    # of 8, 4 (the epoch's end) and 4 (max_steps).
+    dataset = make_batches(training_texts(), ByteTokenizer(), seq_len=512,
+                           micro_batch_size=4, grad_accum_steps=accum)
+    check(dataset.steps_per_epoch() == 12, "phase 7's dataset changed")
+    windows = {"window": 3, "loss_chunk": 3}
+    eval_dataset = make_batches(training_texts(4 * WINDOW_EVAL_BATCHES, seed=11),
+                                ByteTokenizer(), seq_len=512, micro_batch_size=4,
+                                grad_accum_steps=1, shuffle_seed=None)
+    check(eval_dataset.steps_per_epoch() == WINDOW_EVAL_BATCHES, "eval dataset size")
+    perf = {}
+    runs = {"window": dataclasses.replace(base, train=dataclasses.replace(
+                base.train, steps_per_sync=WINDOW_K, eval_steps=WINDOW_K)),
+            "loss_chunk": dataclasses.replace(base, train=dataclasses.replace(
+                base.train, steps_per_sync=WINDOW_K, loss_chunk=LOSS_CHUNK))}
+    for name, cfg in runs.items():
+        trainer = Trainer(cfg, params=init_params(mcfg, seed=0, device="cuda",
+                                                  lora=cfg.lora), device="cuda")
+        tfa.fwd_launches = tfa.dq_launches = tfa.dkv_launches = 0
+        state, rec = trainer.train(dataset=dataset, eval_dataset=eval_dataset)
+        torch.cuda.synchronize()
+        launches = flash_counts(tfa)
+        del state, trainer
+        free_memory(torch)
+        steps = cfg.train.max_steps
+        p = train_perf(rec, mcfg)
+        p.update(launches=launches, eval_steps=rec.eval_steps, eval_losses=rec.eval_losses)
+        perf[name] = p
+        log_train_perf(f"[train-{name}]", p, mcfg)
+        want = flash_expected(mcfg.num_layers, accum, steps + rec.captures)
+        # Each eval runs K1 once per layer per eval batch (no backward).
+        want["flash_fwd"] += mcfg.num_layers * WINDOW_EVAL_BATCHES * len(rec.eval_steps)
+        log(f"[train-{name}] launches {launches} (expected {want}); evals at steps "
+            f"{rec.eval_steps}, losses {[round(x, 4) for x in rec.eval_losses]}")
+        # Both runs: K1-K3 launches a step as phase 7's, loss_chunk or not.
+        check(rec.steps == steps and rec.captures == 1 and launches == want,
+              f"{name}: {rec.steps} steps, {rec.captures} captures, launches {launches}")
+        check(rec.windows == windows[name], f"{name}: {rec.windows} windows, "
+              f"expected {windows[name]}")
+        check(all(math.isfinite(x) for x in rec.losses + rec.eval_losses),
+              f"{name}: losses {rec.losses}, eval losses {rec.eval_losses}")
+    win, chunk = perf["window"], perf["loss_chunk"]
+    first = reference["losses"][:TRAIN_STEPS]
+    check(win["losses"][:TRAIN_STEPS] == first
+          and win["grad_norms"][:TRAIN_STEPS] == reference["grad_norms"][:TRAIN_STEPS],
+          f"k={WINDOW_K} steps 1-{TRAIN_STEPS} {win['losses'][:TRAIN_STEPS]} are not "
+          f"bit-equal to phase 7's k=1 graphed {first}")
+    check(win["eval_steps"] == [WINDOW_K, WINDOW_STEPS], f"evals at {win['eval_steps']}")
+    rel = [abs(a - b) / abs(b) for a, b in zip(chunk["losses"], win["losses"])]
+    log(f"[train-loss_chunk] losses against the run without: relative differences "
+        f"{[f'{r:.2e}' for r in rel]} (step 1 limit {LOSS_CHUNK_STEP1_RTOL:.0e}); peak "
+        f"memory {chunk['peak_memory_gb']:.2f} GB against {win['peak_memory_gb']:.2f} GB "
+        f"without loss_chunk")
+    check(rel[0] <= LOSS_CHUNK_STEP1_RTOL, f"loss_chunk step 1 loss rel {rel[0]:.2e}")
+    check(chunk["peak_memory_gb"] < win["peak_memory_gb"],
+          f"loss_chunk peak {chunk['peak_memory_gb']:.2f} GB is not below "
+          f"{win['peak_memory_gb']:.2f} GB")
+    perf["losses_bit_equal_to_k1"] = True
+    perf["loss_chunk_loss_rel"] = rel
+    log("[train-window] perf " + json.dumps(perf))
+    return perf
 
 
 # ----------------------------------------------------------------------
@@ -1585,8 +1761,9 @@ def phase_checkpoint(torch, reference, card, flush):
               f"checkpoints {store.list_checkpoint_steps(ck_dir)}")
         train_launches = {"flash_fwd": tfa.fwd_launches, "flash_bwd_dq": tfa.dq_launches,
                           "flash_bwd_dkv": tfa.dkv_launches}
-        n = mcfg.num_layers * 2 * TRAIN_STEPS  # layers x accum x steps
-        want = {"flash_fwd": 2 * n, "flash_bwd_dq": n, "flash_bwd_dkv": n}
+        # 8 replayed steps and each trainer's capture warm-up step.
+        want = flash_expected(mcfg.num_layers, 2,
+                              TRAIN_STEPS + rec1.captures + rec2.captures)
         check(train_launches == want, f"training launches {train_launches} != {want}")
 
         # 3. Verify both steps (re-hash every file).
@@ -2084,11 +2261,12 @@ def main() -> int:
         flash = phase_flash_cases(torch, flush)
         state, dataset, lora, flash_launches, train_perf = phase_training(torch)
         paths = phase_train_paths(torch, state, dataset, lora)
-        phase_train_profile(torch, state, dataset)
-        # The trainer holds ~16 GB: release it before phase 13's trainers.
+        train_profile = phase_train_profile(torch, state, dataset)
+        # The trainer holds ~16 GB: release it before phases 14 and 13.
         del state, dataset
         gc.collect()
         torch.cuda.empty_cache()
+        window_perf = phase_train_window(torch, train_perf)
         ckpt_launches, ckpt_perf = phase_checkpoint(torch, train_perf, card, flush)
         engine, int8_launches, server_perf = phase_server(torch)
         int8_main = phase_in_model(torch, engine, flush)
@@ -2158,8 +2336,18 @@ def main() -> int:
             "bound_by": at[name]["bound_by"],
             "library_ms": at[name]["library_ms"],
         })
-    log("[train] summary " + json.dumps({**{k: train_perf[k] for k in (
-        "step_ms", "tokens_per_s", "mfu_percent", "peak_memory_gb")}, **paths}))
+    keys = ("step_ms", "tokens_per_s", "mfu_percent", "peak_memory_gb",
+            "host_syncs_per_step")
+    log("[train] summary " + json.dumps({
+        "graph": {k: train_perf[k] for k in keys},
+        "eager": {k: train_perf["eager"][k] for k in keys},
+        "busy_share": {k: v and v["busy_share"] for k, v in train_profile.items()},
+        "profile_ms_a_step": {k: v and {"wall": v["wall_ms"], "busy": v["busy_ms"]}
+                              for k, v in train_profile.items()},
+        **{f"k{WINDOW_K}" if name == "window" else name: {k: window_perf[name][k]
+                                                          for k in keys}
+           for name in ("window", "loss_chunk")},
+        **paths}))
     log("[engine] summary " + json.dumps({
         "decode_step_ms_k1_graph_events": engine_perf["decode_step_ms"],
         **{name: {k: r[k] for k in ("ms_per_device_step", "decode_tok_s", "windows",

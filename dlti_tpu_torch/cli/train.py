@@ -13,15 +13,26 @@
         --tokenizer byte --dataset-path data/ --max-seq-len 64 --max-steps 4 \
         --save-steps 2 --output-dir runs/tiny --export-dir exports/tiny
 
+    # 4 steps a host sync, the chunked loss, an eval every 4 steps
+    python -m dlti_tpu_torch.cli.train --device cpu --model llama_tiny \
+        --tokenizer byte --dataset-path data/ --max-seq-len 64 --max-steps 8 \
+        --steps-per-sync 4 --loss-chunk 32 --eval-dataset held_out/ \
+        --eval-steps 4 --save-strategy no
+
 Flags keep the reference's names and defaults: like the reference it
 checkpoints every 100 steps under ``./checkpoints/run`` and first resumes
 from the newest checkpoint there that verifies (``--no-resume`` starts
 afresh, ``--save-strategy no`` writes nothing). ``--export-dir`` writes the
 merged model after training (``cli.serve --model-dir`` serves it).
-``--dataset-path`` is a ``data.jsonl`` (one ``{"text": ...}`` per line), a
-directory holding one, or a file of text lines. Weights are random, from
-``--seed``. Prints one JSON line with the run's record at the end. The PEFT
-and HF exports (``--export-peft``, ``--export-hf``) are not ported.
+``--dataset-path`` and ``--eval-dataset`` are a ``data.jsonl`` (one
+``{"text": ...}`` per line), a directory holding one, or a file of text
+lines; a token store (a directory with ``meta.json``) needs
+``data/streaming.py``, which is not ported. ``--steps-per-sync`` runs that
+many optimizer steps a host synchronisation (on the card one CUDA graph of
+the step, replayed); eval and saves land at window boundaries. Weights are
+random, from ``--seed``. Prints one JSON line with the run's record at the
+end. The PEFT and HF exports (``--export-peft``, ``--export-hf``) are not
+ported.
 """
 
 from __future__ import annotations
@@ -66,6 +77,14 @@ def parse_args(argv=None):
                         "nothing_saveable (default: the preset's)")
     p.add_argument("--remat-stride", type=int, default=0,
                    help="keep every Nth block's activations (0 = preset)")
+    p.add_argument("--loss-chunk", type=int, default=0,
+                   help="sequence-chunked cross-entropy: LM head + CE this many "
+                        "positions at a time, so full float32 logits never sit "
+                        "in device memory (0 = off)")
+    p.add_argument("--steps-per-sync", type=int, default=1,
+                   help="optimizer steps per host synchronisation (same "
+                        "trajectory as 1, metrics stay per-step, eval/saves "
+                        "land at window boundaries)")
     p.add_argument("--seed", type=int, default=42)
     p.add_argument("--logging-steps", type=int, default=10)
     p.add_argument("--save-strategy", default="steps", choices=["steps", "epoch", "no"])
@@ -75,6 +94,11 @@ def parse_args(argv=None):
                    help="skip the verified scan-latest-and-resume pass")
     p.add_argument("--export-dir", default=None,
                    help="write a consolidated merged-LoRA export here after training")
+    p.add_argument("--eval-dataset", default=None, metavar="PATH",
+                   help="held-out dataset (same formats as --dataset-path); "
+                        "evaluated every --eval-steps optimizer steps")
+    p.add_argument("--eval-steps", type=int, default=0,
+                   help="eval cadence in steps (0 = never; requires --eval-dataset)")
     p.add_argument("--device", default=None, help="cuda (default) or cpu")
     return p.parse_args(argv)
 
@@ -82,6 +106,10 @@ def parse_args(argv=None):
 def load_texts(path: str) -> list:
     """``data.jsonl`` with a ``text`` field (or a directory holding one), or
     plain text lines."""
+    if os.path.isfile(os.path.join(path, "meta.json")):
+        raise SystemExit(f"{path} is a token store (it holds meta.json); reading "
+                         f"one needs data/streaming.py, which is not ported yet "
+                         f"(see ROADMAP.md): pass a data.jsonl instead")
     if os.path.isdir(path):
         jsonl = os.path.join(path, "data.jsonl")
         if not os.path.isfile(jsonl):
@@ -120,7 +148,9 @@ def build_config(args) -> Config:
         train=TrainConfig(num_epochs=args.num_train_epochs, max_steps=args.max_steps,
                           micro_batch_size=args.per_device_batch_size,
                           grad_accum_steps=args.gradient_accumulation_steps,
-                          logging_steps=args.logging_steps, seed=args.seed))
+                          logging_steps=args.logging_steps, seed=args.seed,
+                          eval_steps=args.eval_steps, loss_chunk=args.loss_chunk,
+                          steps_per_sync=args.steps_per_sync))
 
 
 def main(argv=None) -> None:
@@ -145,8 +175,25 @@ def main(argv=None) -> None:
                 cfg.model, packed_attention_window=longest))
     print(f"dataset: {len(texts)} examples, {dataset.steps_per_epoch()} steps/epoch",
           flush=True)
+    eval_dataset = None
+    if args.eval_dataset:
+        if not cfg.train.eval_steps:
+            raise SystemExit("--eval-dataset needs --eval-steps > 0")
+        eval_texts = load_texts(args.eval_dataset)
+        print(f"eval dataset: {len(eval_texts)} examples from {args.eval_dataset}",
+              flush=True)
+        eval_dataset = make_batches(eval_texts, get_tokenizer(cfg.data.tokenizer),
+                                    seq_len=cfg.data.max_seq_len,
+                                    micro_batch_size=cfg.train.micro_batch_size,
+                                    grad_accum_steps=1,
+                                    shuffle_seed=None)  # fixed order: comparable losses
+        if eval_dataset.steps_per_epoch() == 0:
+            raise SystemExit(
+                f"eval dataset yields zero batches: it has fewer rows than one "
+                f"batch ({cfg.train.micro_batch_size}); shrink "
+                f"--per-device-batch-size or grow the eval split")
     trainer = Trainer(cfg, device=args.device)
-    state, record = trainer.train(dataset=dataset)
+    state, record = trainer.train(dataset=dataset, eval_dataset=eval_dataset)
     if args.export_dir:
         from dlti_tpu_torch.checkpoint import export_merged_model, manifest_digest
 
@@ -157,6 +204,7 @@ def main(argv=None) -> None:
     summary = {k: v for k, v in dataclasses.asdict(record).items()
                if k not in ("losses", "grad_norms", "step_times_s", "save_stall_s")}
     summary["final_loss"] = record.final_loss
+    summary["host_syncs_per_step"] = record.host_syncs_per_step
     print(json.dumps(summary), flush=True)
 
 

@@ -7,7 +7,7 @@ Field names, defaults and presets are the reference's, so a configuration
 means the same thing in both packages. The training blocks carry the fields
 the single-device LoRA path reads. Fields that select code the port has not
 reached yet (mixture of experts, the other remat policies, the fp16 scaler,
-``loss_chunk``) are kept for that parity; the modules that would read them
+the int8 frozen base) are kept for that parity; the modules that would read them
 raise where the port stops. ``flash_block_q``/``flash_block_kv`` are the TPU
 kernel's tiles: the CUDA flash kernels pick their own and do not read them.
 """
@@ -146,8 +146,11 @@ class CheckpointConfig:
 @dataclass(frozen=True)
 class TrainConfig:
     """Training loop knobs (the reference's ``TrainConfig``): the fields
-    of the single-device loop. ``fp16``, ``loss_chunk``, ``steps_per_sync``
-    and ``quantize_frozen_base`` are kept for parity and raise when set."""
+    of the single-device loop. ``eval_steps``: evaluate every so many steps
+    (0 = never; at window boundaries, when a window crossed a multiple).
+    ``loss_chunk``: the sequence-chunked loss (0 = off). ``steps_per_sync``:
+    optimizer steps a host synchronisation. ``fp16`` and
+    ``quantize_frozen_base`` are kept for parity and raise when set."""
 
     num_epochs: int = 1
     max_steps: int = 0  # 0 = derive from epochs * steps_per_epoch
@@ -155,6 +158,7 @@ class TrainConfig:
     grad_accum_steps: int = 16
     logging_steps: int = 10
     seed: int = 42
+    eval_steps: int = 0  # 0 = no eval
     fp16: bool = False
     loss_chunk: int = 0
     steps_per_sync: int = 1

@@ -13,9 +13,12 @@ through the paged decode kernel, given an int8 pool's scales) and the no-cache (
 kernels on the card). In training each block runs under
 ``torch.utils.checkpoint`` when ``cfg.remat`` (policy ``nothing_saveable``,
 honouring ``remat_stride``), and LoRA dropout draws its masks from a seed
-the caller passes (``dropout_seed``), fixed per layer and projection so the
-recomputation draws the same masks. The dense fixed-capacity cache, ring
-attention, the other remat policies and quantized leaves are not ported.
+the caller passes (``dropout_seed``): each layer's projections get a key
+derived from it on the device (:func:`dropout_keys`), hashed once per
+forward, so the recomputation draws the same masks and a CUDA graph can
+take the seed from a buffer. The
+dense fixed-capacity cache, ring attention, the other remat policies and
+quantized leaves are not ported.
 """
 
 from __future__ import annotations
@@ -28,7 +31,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from dlti_tpu_torch.config import LoRAConfig, ModelConfig
-from dlti_tpu_torch.models.lora import LoRADense
+from dlti_tpu_torch.models.lora import LoRADense, dropout_hashes
 from dlti_tpu_torch.ops.attention import multi_head_attention, reference_attention
 from dlti_tpu_torch.ops.kv_cache import paged_gather, paged_update, slot_mapping
 from dlti_tpu_torch.ops.paged_attention import paged_decode_attention
@@ -36,23 +39,33 @@ from dlti_tpu_torch.ops.rope import (
     apply_rope, assert_rope_table_covers, rope_frequencies,
 )
 from dlti_tpu_torch.utils.device import resolve_dtype
+from dlti_tpu_torch.utils.hashing import MASK32, mix32
 
 PAGED_ATTENTION_IMPLS = ("auto", "kernel", "gather")
 REMAT_POLICIES = ("nothing_saveable",)
+# The projections of a block that can carry LoRA dropout, in key order.
+PROJECTIONS = ("q_proj", "k_proj", "v_proj", "o_proj", "gate_proj", "up_proj",
+               "down_proj")
 
 
-def derive_seed(seed: Optional[int], *path: int) -> Optional[int]:
-    """A 63-bit seed for ``path`` under ``seed`` (splitmix64 steps), or None
-    when there is no seed: the dropout seed of a layer and projection."""
-    if seed is None:
+def dropout_keys(seed, num_layers: int, device) -> torch.Tensor:
+    """The LoRA dropout key of every (layer, projection) under ``seed``:
+    a ``(num_layers, len(PROJECTIONS))`` int64 tensor of 32-bit keys on
+    ``device``. ``seed`` is a 32-bit key: a Python int (its low 32 bits) or
+    a 0-d int64 tensor on ``device``, which may change between replays of a
+    CUDA graph that captured this call."""
+    if not isinstance(seed, torch.Tensor):
+        seed = torch.full((), seed & MASK32, dtype=torch.int64, device=device)
+    sites = mix32(torch.arange(num_layers * len(PROJECTIONS), device=device) ^ 0x68E31DA4)
+    return mix32(seed ^ sites).reshape(num_layers, len(PROJECTIONS))
+
+
+def _hashes(hashes: Optional[tuple], projection: str) -> Optional[tuple]:
+    """One projection's (row, column) dropout hashes from its layer's."""
+    if hashes is None:
         return None
-    x = seed & 0xFFFFFFFFFFFFFFFF
-    for v in path:
-        x = (x ^ (v + 0x9E3779B97F4A7C15)) & 0xFFFFFFFFFFFFFFFF
-        x = ((x ^ (x >> 30)) * 0xBF58476D1CE4E5B9) & 0xFFFFFFFFFFFFFFFF
-        x = ((x ^ (x >> 27)) * 0x94D049BB133111EB) & 0xFFFFFFFFFFFFFFFF
-        x ^= x >> 31
-    return x >> 1
+    j = PROJECTIONS.index(projection)
+    return hashes[0][j], hashes[1][j]
 
 
 class RMSNorm(nn.Module):
@@ -118,16 +131,18 @@ class LlamaAttention(nn.Module):
     def forward(self, x, cos, sin, positions, segment_ids=None,
                 cache: Optional[dict] = None,
                 block_tables: Optional[torch.Tensor] = None,
-                dropout_seed: Optional[int] = None,
+                hashes: Optional[tuple] = None,
                 paged: Optional[tuple] = None) -> torch.Tensor:
         """``paged``: ``(slots, seq_lens)`` of a paged-cache call, computed
-        once per forward by :class:`LlamaModel`."""
+        once per forward by :class:`LlamaModel`; ``hashes``: this layer's
+        dropout hashes, ``(row, column)`` by projection (None: no
+        dropout)."""
         cfg = self.cfg
         b, s, _ = x.shape
         hd = cfg.resolved_head_dim
-        q = self.q_proj(x, derive_seed(dropout_seed, 0)).reshape(b, s, cfg.num_heads, hd)
-        k = self.k_proj(x, derive_seed(dropout_seed, 1)).reshape(b, s, cfg.num_kv_heads, hd)
-        v = self.v_proj(x, derive_seed(dropout_seed, 2)).reshape(b, s, cfg.num_kv_heads, hd)
+        q = self.q_proj(x, _hashes(hashes, "q_proj")).reshape(b, s, cfg.num_heads, hd)
+        k = self.k_proj(x, _hashes(hashes, "k_proj")).reshape(b, s, cfg.num_kv_heads, hd)
+        v = self.v_proj(x, _hashes(hashes, "v_proj")).reshape(b, s, cfg.num_kv_heads, hd)
         q = apply_rope(q, cos, sin, positions)
         k = apply_rope(k, cos, sin, positions)
 
@@ -154,7 +169,7 @@ class LlamaAttention(nn.Module):
                                        impl=cfg.attention_impl,
                                        window=self._effective_window(segment_ids))
         return self.o_proj(out.reshape(b, s, cfg.num_heads * hd),
-                           derive_seed(dropout_seed, 3))
+                           _hashes(hashes, "o_proj"))
 
 
 _MLP_ACTIVATIONS = {
@@ -176,11 +191,10 @@ class LlamaMLP(nn.Module):
         self.up_proj = _proj(cfg, lora, "up_proj", h, m, False, device)
         self.down_proj = _proj(cfg, lora, "down_proj", m, h, False, device)
 
-    def forward(self, x: torch.Tensor,
-                dropout_seed: Optional[int] = None) -> torch.Tensor:
-        gate = self.gate_proj(x, derive_seed(dropout_seed, 4))
-        up = self.up_proj(x, derive_seed(dropout_seed, 5))
-        return self.down_proj(self.act(gate) * up, derive_seed(dropout_seed, 6))
+    def forward(self, x: torch.Tensor, hashes: Optional[tuple] = None) -> torch.Tensor:
+        gate = self.gate_proj(x, _hashes(hashes, "gate_proj"))
+        up = self.up_proj(x, _hashes(hashes, "up_proj"))
+        return self.down_proj(self.act(gate) * up, _hashes(hashes, "down_proj"))
 
 
 class LlamaBlock(nn.Module):
@@ -197,10 +211,10 @@ class LlamaBlock(nn.Module):
         self.mlp = LlamaMLP(cfg, lora, device)
 
     def forward(self, x, cos, sin, positions, segment_ids=None, cache=None,
-                block_tables=None, dropout_seed=None, paged=None):
+                block_tables=None, hashes=None, paged=None):
         x = x + self.attn(self.input_norm(x), cos, sin, positions, segment_ids,
-                          cache, block_tables, dropout_seed, paged)
-        return x + self.mlp(self.post_attn_norm(x), dropout_seed)
+                          cache, block_tables, hashes, paged)
+        return x + self.mlp(self.post_attn_norm(x), hashes)
 
 
 class LlamaModel(nn.Module):
@@ -237,7 +251,7 @@ class LlamaModel(nn.Module):
                 segment_ids: Optional[torch.Tensor] = None,
                 cache: Optional[List[dict]] = None,
                 block_tables: Optional[torch.Tensor] = None,
-                dropout_seed: Optional[int] = None) -> torch.Tensor:
+                dropout_seed=None) -> torch.Tensor:
         cfg = self.cfg
         dtype = resolve_dtype(cfg.dtype)
         b, s = input_ids.shape
@@ -266,19 +280,27 @@ class LlamaModel(nn.Module):
                      (positions[:, 0] + 1).to(torch.int32))
         cos, sin = self._rope_tables(table_len, x.device)
 
+        hashes = None
+        if dropout_seed is not None:
+            # Every (layer, projection)'s row and column hashes at once: a
+            # mask then costs three elementwise ops.
+            cols = max(cfg.hidden_size, cfg.num_heads * cfg.resolved_head_dim,
+                       cfg.intermediate_size)
+            hashes = dropout_hashes(dropout_keys(dropout_seed, cfg.num_layers, x.device),
+                                    b * s, cols)
         remat = cfg.remat and cache is None and torch.is_grad_enabled()
         for i, layer in enumerate(self.layers):
-            seed = derive_seed(dropout_seed, i)
+            layer_hashes = None if hashes is None else (hashes[0][i], hashes[1][i])
             # Selective remat: every remat_stride-th block keeps its
             # activations instead of recomputing them in the backward.
             if remat and not (cfg.remat_stride > 1 and i % cfg.remat_stride == 0):
                 x = checkpoint(layer, x, cos, sin, positions, segment_ids, None,
-                               None, seed, use_reentrant=False,
+                               None, layer_hashes, use_reentrant=False,
                                preserve_rng_state=False)
             else:
                 x = layer(x, cos, sin, positions, segment_ids,
                           cache[i] if cache is not None else None, block_tables,
-                          seed, paged)
+                          layer_hashes, paged)
         return self.final_norm(x)
 
 
@@ -287,8 +309,11 @@ class LlamaForCausalLM(nn.Module):
 
     With a paged ``cache`` (a list of per-layer ``{"k", "v"}`` pools from
     ``ops.kv_cache.init_paged_cache``) and ``block_tables``, the forward
-    writes this call's K/V into the pools in place. ``dropout_seed`` turns
-    LoRA dropout on (training); without it the forward is deterministic.
+    writes this call's K/V into the pools in place. ``dropout_seed`` (see
+    :func:`dropout_keys`) turns LoRA dropout on (training); without it the
+    forward is deterministic. ``return_hidden`` returns the final norm's
+    output instead of the logits, for a loss that applies
+    :meth:`head_matrix` itself (``training.step.chunked_causal_lm_loss``).
     """
 
     def __init__(self, cfg: ModelConfig, lora: Optional[LoRAConfig] = None,
@@ -303,12 +328,18 @@ class LlamaForCausalLM(nn.Module):
                 requires_grad=False)
 
     def forward(self, input_ids, positions=None, segment_ids=None, cache=None,
-                block_tables=None, dropout_seed=None) -> torch.Tensor:
+                block_tables=None, dropout_seed=None,
+                return_hidden: bool = False) -> torch.Tensor:
         x = self.model(input_ids, positions, segment_ids, cache, block_tables,
                        dropout_seed)
-        head = (self.model.embed_tokens.T if self.cfg.tie_embeddings
-                else self.lm_head)
-        return lm_head_logits(x, head)
+        if return_hidden:
+            return x
+        return lm_head_logits(x, self.head_matrix())
+
+    def head_matrix(self) -> torch.Tensor:
+        """The (hidden, vocab) matrix the forward multiplies the final
+        hidden state by (through :func:`lm_head_logits`)."""
+        return self.model.embed_tokens.T if self.cfg.tie_embeddings else self.lm_head
 
 
 def lm_head_logits(x: torch.Tensor, head: torch.Tensor) -> torch.Tensor:

@@ -11,11 +11,13 @@ trains (``load_model(..., trainable_lora=True)`` sets their
 ``requires_grad``).
 
 Dropout is applied to the adapter input only in training, and only when
-the caller passes a ``dropout_seed``: the keep mask is drawn from a
-``torch.Generator`` seeded with it, so a recomputation under activation
-checkpointing draws the same mask as the forward did (checkpointing restores
-the default generators' state, never an explicit one's). Without a seed the
-branch is deterministic, as in serving.
+the caller passes ``dropout_hashes``: the row and column hashes of one
+32-bit key (:func:`dropout_hashes`), on the input's device. The keep mask
+is a function of (the key, the element's index) computed on the device
+(:func:`keep_mask_from`): a recomputation under activation checkpointing
+draws the same mask as the forward did, nothing is read back to the host,
+and a CUDA graph that is replayed with a new key in the same buffer draws
+new masks. Without hashes the branch is deterministic, as in serving.
 """
 
 from __future__ import annotations
@@ -24,6 +26,8 @@ from typing import Dict, Mapping, Optional, Tuple
 
 import torch
 from torch import nn
+
+from dlti_tpu_torch.utils.hashing import mix32
 
 LORA_LEAVES = ("lora_a", "lora_b")
 
@@ -56,28 +60,59 @@ class LoRADense(nn.Module):
                 requires_grad=False)
 
     def forward(self, x: torch.Tensor,
-                dropout_seed: Optional[int] = None) -> torch.Tensor:
+                dropout_hashes: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+                ) -> torch.Tensor:
         dt = self.dtype
         y = x.to(dt) @ self.kernel.to(dt)
         if self.bias is not None:
             y = y + self.bias.to(dt)
         if self.lora_r > 0:
             h = x
-            if dropout_seed is not None and self.lora_dropout > 0.0:
-                h = dropout(h, self.lora_dropout, dropout_seed)
+            if dropout_hashes is not None and self.lora_dropout > 0.0:
+                h = dropout(h, self.lora_dropout, *dropout_hashes)
             delta = (h.to(dt) @ self.lora_a.to(dt)) @ self.lora_b.to(dt)
             y = y + (self.lora_alpha / self.lora_r) * delta
         return y
 
 
-def dropout(x: torch.Tensor, rate: float, seed: int) -> torch.Tensor:
+def dropout(x: torch.Tensor, rate: float, row_hash: torch.Tensor,
+            col_hash: torch.Tensor) -> torch.Tensor:
     """flax's ``nn.Dropout``: keep each element with probability
-    ``1 - rate`` and scale kept ones by ``1 / (1 - rate)``; the mask comes
-    from a generator seeded with ``seed`` on x's device."""
+    ``1 - rate`` and scale kept ones by ``1 / (1 - rate)``; the mask is
+    :func:`keep_mask_from` of one key's hashes."""
     keep_prob = 1.0 - rate
-    gen = torch.Generator(device=x.device).manual_seed(seed)
-    keep = torch.rand(x.shape, generator=gen, device=x.device) < keep_prob
-    return torch.where(keep, x / keep_prob, torch.zeros_like(x))
+    keep = keep_mask_from(row_hash, col_hash, x.shape[-1], keep_prob)
+    return torch.where(keep.reshape(x.shape), x / keep_prob, 0.0)
+
+
+def dropout_hashes(keys: torch.Tensor, rows: int, cols: int) -> tuple:
+    """For each of ``keys`` (int64 tensor of 32-bit keys, any shape ``K``):
+    a 32-bit hash of (key, row) for ``rows`` rows and of (key, column) for
+    ``cols`` columns, as int32 tensors shaped ``K + (rows,)`` and
+    ``K + (cols,)``. One call hashes every key of a forward at once, so each
+    dropout mask costs three elementwise ops on its full shape."""
+    k = keys[..., None]
+    r = mix32(mix32(torch.arange(rows, device=keys.device) ^ k) ^ 0x5BD1E995)
+    c = mix32(torch.arange(cols, device=keys.device) ^ mix32(k ^ 0x27D4EB2F))
+    # [0, 2**32) -> int32 exactly, by moving the range down 2**31.
+    return (r - 2 ** 31).to(torch.int32), (c - 2 ** 31).to(torch.int32)
+
+
+# Odd multiplier of the per-element step below (a bijection of int32).
+_KEEP_MUL = 0x2C1B3C6D
+
+
+def keep_mask_from(row_hash: torch.Tensor, col_hash: torch.Tensor, cols: int,
+                   keep_prob: float) -> torch.Tensor:
+    """The ``(rows, cols)`` bool keep mask of one key from its hashes
+    (:func:`dropout_hashes`; ``col_hash`` may be longer than ``cols``):
+    element (i, j) is (row hash i XOR column hash j) times an odd constant
+    in wrapping int32 arithmetic, uniform over int32 since both hashes are,
+    and it is kept when below ``keep_prob`` of the way up the int32 range
+    (resolution 2**-32). A function of (key, i, j) alone."""
+    h = (row_hash[:, None] ^ col_hash[None, :cols]) * _KEEP_MUL
+    threshold = min(round(keep_prob * 2 ** 32), 2 ** 32 - 1) - 2 ** 31
+    return h < threshold
 
 
 # ----------------------------------------------------------------------

@@ -61,8 +61,8 @@ import torch
 
 from dlti_tpu_torch.config import LoRAConfig, ModelConfig
 from dlti_tpu_torch.models.interop import load_model
-from dlti_tpu_torch.ops import flash_attention, paged_attention
 from dlti_tpu_torch.ops.kv_cache import init_paged_cache
+from dlti_tpu_torch.ops.launches import GraphLaunches
 from dlti_tpu_torch.serving.block_manager import BlockManager
 from dlti_tpu_torch.serving.decode_state import DecodeStateCache
 from dlti_tpu_torch.serving.sampling import SamplingParams, sample_tokens
@@ -70,20 +70,6 @@ from dlti_tpu_torch.telemetry.lifecycle import RequestTelemetry
 from dlti_tpu_torch.utils.device import (
     resolve_device, resolve_dtype, to_host, upload,
 )
-
-# The kernels' launch counters. A graph replay launches without running
-# the wrappers, so the executor credits each replay with what the capture
-# counted.
-_LAUNCH_COUNTERS = (
-    (paged_attention, "launches"), (paged_attention, "launches_int8"),
-    (flash_attention, "fwd_launches"), (flash_attention, "dq_launches"),
-    (flash_attention, "dkv_launches"),
-)
-
-
-def _launch_counts() -> list:
-    return [getattr(m, name) for m, name in _LAUNCH_COUNTERS]
-
 
 @dataclass
 class EngineConfig:
@@ -232,7 +218,7 @@ class EngineExecutor:
                       torch.zeros((K, S), dtype=torch.float32, device=dev))
         self.cuda_graphs = cuda_graphs and dev.type == "cuda"
         self.graph: Optional[torch.cuda.CUDAGraph] = None
-        self._graph_launches: list = []
+        self.launches = GraphLaunches()
 
     def _decode_iteration(self, bufs, state) -> None:
         """One decode iteration over every slot, in place: forward, sample,
@@ -273,14 +259,10 @@ class EngineExecutor:
                 self._decode_iteration([torch.zeros_like(b) for b in self._bufs],
                                        state)
             torch.cuda.current_stream().wait_stream(side)
-            before = _launch_counts()
             graph = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+            with self.launches.capturing(), torch.cuda.graph(
+                    graph, capture_error_mode="thread_local"):
                 self._decode_iteration(self._bufs, self.state.tensors)
-            after = _launch_counts()
-        for (module, name), n in zip(_LAUNCH_COUNTERS, before):
-            setattr(module, name, n)
-        self._graph_launches = [a - b for a, b in zip(after, before)]
         self.graph = graph
 
     @torch.no_grad()
@@ -303,8 +285,7 @@ class EngineExecutor:
             with torch.cuda.device(self.device):
                 for _ in range(k):
                     self.graph.replay()
-            for (module, name), n in zip(_LAUNCH_COUNTERS, self._graph_launches):
-                setattr(module, name, getattr(module, name) + k * n)
+            self.launches.credit(k)
         else:
             for _ in range(k):
                 self._decode_iteration(self._bufs, self.state.tensors)

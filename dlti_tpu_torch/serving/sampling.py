@@ -9,9 +9,9 @@ rank and cumulative-probability masks in sorted space. A row with
 under the unscaled, unmasked distribution (what the OpenAI API reports).
 
 Random draws are Gumbel-max over the masked logits, with each uniform a
-counter-based hash of (the slot's seed, its generated-token count, the
-vocabulary index) in plain integer tensor ops on the logits' device. A
-seeded stream therefore depends on (seed, count) alone: not on batch
+counter-based hash (``utils.hashing``) of (the slot's seed, its
+generated-token count, the vocabulary index) in plain integer tensor ops on
+the logits' device. A seeded stream therefore depends on (seed, count) alone: not on batch
 company, preemption or the decode window, and it is the same bits on the
 CPU and on the card. Nothing here reads a tensor back to the host, so a
 sampling step never waits on the device and can be captured in a CUDA
@@ -25,6 +25,8 @@ from dataclasses import dataclass, field
 from typing import Optional, Sequence
 
 import torch
+
+from dlti_tpu_torch.utils.hashing import MASK32, fold_seed, mix32
 
 
 @dataclass
@@ -44,29 +46,11 @@ class SamplingParams:
         return self.temperature == 0.0
 
 
-_MASK32 = 0xFFFFFFFF
-# Multiplier of the 32-bit finalizer below; < 2**31, so a 32-bit lane times
-# it stays inside int64 and no product overflows.
-_MIX32 = 0x045D9F3B
-
-
-def _mix32(x: torch.Tensor) -> torch.Tensor:
-    """A bijective 32-bit integer hash of ``x`` (int64 tensor holding values
-    in [0, 2**32)). Every shift acts on a non-negative value, so torch's
-    arithmetic ``>>`` is the logical one."""
-    x = ((x >> 16) ^ x) * _MIX32 & _MASK32
-    x = ((x >> 16) ^ x) * _MIX32 & _MASK32
-    return (x >> 16) ^ x
-
-
 def draw_keys(seeds: torch.Tensor, counts: torch.Tensor) -> torch.Tensor:
     """Per-row 32-bit key of the ``counts``-th draw of each slot ``seeds``
     stream: the role ``jax.random.fold_in(key, count)`` plays in the
     reference."""
-    s = seeds.long()
-    k = _mix32((s & _MASK32) ^ 0x9E3779B9)
-    k = _mix32(k ^ ((s >> 32) & _MASK32))
-    return _mix32(k ^ (counts.long() & _MASK32))
+    return mix32(fold_seed(seeds.long()) ^ (counts.long() & MASK32))
 
 
 def gumbel_noise(keys: torch.Tensor, vocab: int) -> torch.Tensor:
@@ -74,7 +58,7 @@ def gumbel_noise(keys: torch.Tensor, vocab: int) -> torch.Tensor:
     ``(keys[r], v)`` only. The uniform is the hash's 24 high bits plus one
     half over 2**24: strictly inside (0, 1), exact in float64."""
     v = torch.arange(vocab, device=keys.device)
-    h = _mix32(keys[:, None] ^ _mix32(v ^ 0x85EBCA6B)[None, :])
+    h = mix32(keys[:, None] ^ mix32(v ^ 0x85EBCA6B)[None, :])
     u = ((h >> 8).double() + 0.5) * 2.0 ** -24
     return (-torch.log(-torch.log(u))).float()
 

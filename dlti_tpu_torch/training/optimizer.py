@@ -14,50 +14,60 @@ out on tensors, with optax's arithmetic:
   update, so the first update of a warmup schedule has lr 0.
 
 The count lives in the optimizer state, as optax's does, so a skipped
-update (which restores the whole state) also holds the schedule. Moments are
-float32 whatever the parameter dtype (the reference's ``_fp32_state``).
+update (which keeps the whole state) also holds the schedule. It is a 0-d
+int32 tensor on the parameters' device, and the schedule and Adam's bias
+corrections are computed from it with tensor ops in float32 (optax's
+arithmetic), so an update reads nothing back to the host. ``update`` writes
+the parameters, the moments and the count in place, into the tensors the
+state already holds, so a CUDA graph that captured it reads on each replay
+what the last one wrote. Moments are float32 whatever the parameter dtype
+(the reference's ``_fp32_state``).
 """
 
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass, field
-from typing import Callable, Dict
+from typing import Callable, Dict, Union
 
 import torch
 
 from dlti_tpu_torch.config import OptimizerConfig
 
 
-def build_schedule(cfg: OptimizerConfig) -> Callable[[int], float]:
-    """Learning rate as a function of the optimizer's update count."""
+def build_schedule(cfg: OptimizerConfig
+                   ) -> Callable[[Union[int, torch.Tensor]], torch.Tensor]:
+    """Learning rate as a function of the optimizer's update count (an int
+    or an int tensor): a float32 tensor on the count's device, as optax's
+    ``join_schedules(linear warmup, constant or cosine decay)``."""
     lr = cfg.learning_rate
-    if cfg.schedule == "warmup_constant":
-        if cfg.warmup_steps <= 0:
-            return lambda count: lr
-        warmup = max(cfg.warmup_steps, 1)
-        # optax.linear_schedule(0, lr, warmup), then constant lr.
-        return lambda count: ((0.0 - lr) * (1 - min(max(count, 0), warmup) / warmup) + lr
-                              if count < warmup else lr)
-    if cfg.schedule == "warmup_cosine":
-        warmup = max(cfg.warmup_steps, 1)
-        decay_steps = max(cfg.total_steps, cfg.warmup_steps + 1) - warmup
+    if cfg.schedule not in ("warmup_constant", "warmup_cosine"):
+        raise ValueError(f"unknown schedule {cfg.schedule!r}")
+    warmup = max(cfg.warmup_steps, 1)
+    decay_steps = max(cfg.total_steps, cfg.warmup_steps + 1) - warmup
 
-        def cosine(count: int) -> float:
-            if count < warmup:
-                return (0.0 - lr) * (1 - min(max(count, 0), warmup) / warmup) + lr
-            c = min(count - warmup, decay_steps)
-            return lr * (0.5 * (1 + math.cos(math.pi * c / decay_steps)))
-        return cosine
-    raise ValueError(f"unknown schedule {cfg.schedule!r}")
+    def schedule(count: Union[int, torch.Tensor]) -> torch.Tensor:
+        c = torch.as_tensor(count).float()
+        if cfg.schedule == "warmup_constant" and cfg.warmup_steps <= 0:
+            return torch.full_like(c, lr)
+        # optax.linear_schedule(0, lr, warmup) ...
+        warm = (0.0 - lr) * (1 - c.clamp(0, warmup) / warmup) + lr
+        if cfg.schedule == "warmup_constant":
+            after = torch.full_like(c, lr)
+        else:  # ... then optax.cosine_decay_schedule(lr, decay_steps)
+            after = lr * (0.5 * (1 + torch.cos(math.pi * (c - warmup).clamp(max=decay_steps)
+                                               / decay_steps)))
+        return torch.where(c < warmup, warm, after)
+    return schedule
 
 
 @dataclass
 class AdamWState:
     """optax's state for the chain: the update count (shared by Adam's bias
-    correction and the schedule) and the float32 moments by parameter name."""
+    correction and the schedule; a 0-d int32 tensor) and the float32
+    moments by parameter name."""
 
-    count: int = 0
+    count: torch.Tensor = field(default_factory=lambda: torch.zeros((), dtype=torch.int32))
     mu: Dict[str, torch.Tensor] = field(default_factory=dict)
     nu: Dict[str, torch.Tensor] = field(default_factory=dict)
 
@@ -69,29 +79,36 @@ def global_norm(tensors: Dict[str, torch.Tensor]) -> torch.Tensor:
 
 class ClipAdamW:
     """Global-norm clip, then AdamW with a schedule, over a dict of
-    parameters; ``update`` writes the new parameters in place."""
+    parameters; ``update`` writes the new parameters and state in place."""
 
     def __init__(self, cfg: OptimizerConfig):
         self.cfg = cfg
         self.schedule = build_schedule(cfg)
 
     def init(self, params: Dict[str, torch.Tensor]) -> AdamWState:
+        device = next(iter(params.values())).device if params else None
         return AdamWState(
-            count=0,
+            count=torch.zeros((), dtype=torch.int32, device=device),
             mu={n: torch.zeros_like(p, dtype=torch.float32) for n, p in params.items()},
             nu={n: torch.zeros_like(p, dtype=torch.float32) for n, p in params.items()})
 
     @torch.no_grad()
     def update(self, grads: Dict[str, torch.Tensor], state: AdamWState,
-               params: Dict[str, torch.Tensor]) -> AdamWState:
+               params: Dict[str, torch.Tensor], apply: torch.Tensor) -> AdamWState:
+        """One update of ``params`` and ``state`` in place. ``apply``: a 0-d
+        bool tensor; where it is False the parameters, the moments and the
+        count keep their values (the update is computed and dropped)."""
         cfg = self.cfg
         b1, b2 = cfg.betas
         norm = global_norm(grads)
         clip = norm >= cfg.grad_clip
         count_inc = state.count + 1
-        bc1, bc2 = 1 - b1 ** count_inc, 1 - b2 ** count_inc
+        bc1, bc2 = 1 - b1 ** count_inc.float(), 1 - b2 ** count_inc.float()
         step_size = -self.schedule(state.count)
-        mu_new, nu_new = {}, {}
+
+        def keep(new, old):  # in place: old <- new where apply
+            torch.where(apply, new, old, out=old)
+
         for n, p in params.items():
             g = grads[n].float()
             g = torch.where(clip, (g / norm) * cfg.grad_clip, g)
@@ -100,9 +117,11 @@ class ClipAdamW:
             u = (mu / bc1) / (torch.sqrt(nu / bc2) + cfg.eps)
             if cfg.weight_decay:
                 u = u + cfg.weight_decay * p.float()
-            p.copy_((p.float() + step_size * u).to(p.dtype))
-            mu_new[n], nu_new[n] = mu, nu
-        return AdamWState(count=count_inc, mu=mu_new, nu=nu_new)
+            keep((p.float() + step_size * u).to(p.dtype), p)
+            keep(mu, state.mu[n])
+            keep(nu, state.nu[n])
+        keep(count_inc, state.count)
+        return state
 
 
 def build_optimizer(cfg: OptimizerConfig) -> ClipAdamW:

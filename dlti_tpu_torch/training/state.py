@@ -16,8 +16,10 @@ leaves, in JAX's flatten order, for the checkpoint store; for
     .opt_state[1][0].nu[(...)]                  every mu before every nu
     .opt_state[1][2].count                      int32 [] (the schedule's)
 
-The port's one ``AdamWState.count`` is written to both counts;
-:func:`load_state_leaves` reads it back and checks that they agree.
+The port's one ``AdamWState.count`` (a 0-d int32 tensor on the
+parameters' device) is both counts, so the snapshot copies it with the
+other device leaves; :func:`load_state_leaves` reads both back and checks
+that they agree.
 """
 
 from __future__ import annotations
@@ -90,33 +92,30 @@ def frozen_param_keys(state: TrainState) -> List[str]:
             if n not in trainable]
 
 
-def _count(n: int) -> torch.Tensor:
-    return torch.tensor(n, dtype=torch.int32)
-
-
 def state_leaves(state: TrainState) -> List[Tuple[str, torch.Tensor]]:
     """The state as ``[(jax leaf name, tensor)]`` in the JAX flatten order
-    (see the module docstring). Tensors are the live ones (parameters and
-    moments, on their device); the step and counts are new CPU int32
-    scalars."""
+    (see the module docstring). Tensors are the live ones (parameters,
+    moments and the count, on their device); the step is a new CPU int32
+    scalar."""
     params = sorted(state.model.named_parameters(), key=lambda kv: jax_path(kv[0]))
     moments = sorted(state.opt_state.mu, key=jax_path)
     count = state.opt_state.count
-    return ([(".step", _count(state.step))]
+    return ([(".step", torch.tensor(state.step, dtype=torch.int32))]
             + [(params_key(n), p) for n, p in params]
-            + [(f"{_ADAM}.count", _count(count))]
+            + [(f"{_ADAM}.count", count)]
             + [(f"{_ADAM}.mu[{jax_path(n)!r}]", state.opt_state.mu[n]) for n in moments]
             + [(f"{_ADAM}.nu[{jax_path(n)!r}]", state.opt_state.nu[n]) for n in moments]
-            + [(_SCHEDULE_COUNT, _count(count))])
+            + [(_SCHEDULE_COUNT, count)])
 
 
 @torch.no_grad()
 def load_state_leaves(state: TrainState,
                       leaves: Sequence[Tuple[str, torch.Tensor]]) -> None:
     """Load ``leaves`` (named as :func:`state_leaves` names them, e.g. from
-    ``restore_train_state``) into ``state``: parameters are copied in place
-    (each keeps its tensor and device), the moments become float32 tensors
-    on their parameter's device, and the step and count become ints."""
+    ``restore_train_state``) into ``state``, in place: parameters, moments
+    and the count keep their tensors (and devices), so a CUDA graph that
+    captured them stays valid; the step becomes an int. Reads the counts
+    back to the host once."""
     got = dict(leaves)
     want = [name for name, _ in state_leaves(state)]
     if sorted(got) != sorted(want):
@@ -129,9 +128,9 @@ def load_state_leaves(state: TrainState,
                          f"{schedule_count} disagree")
     for n, p in state.model.named_parameters():
         p.copy_(got[params_key(n)])
-    mu, nu = {}, {}
-    for n, p in state.trainable().items():
-        mu[n] = got[f"{_ADAM}.mu[{jax_path(n)!r}]"].to(p.device, torch.float32)
-        nu[n] = got[f"{_ADAM}.nu[{jax_path(n)!r}]"].to(p.device, torch.float32)
-    state.opt_state = AdamWState(count=adam_count, mu=mu, nu=nu)
+    opt = state.opt_state
+    for n in state.trainable():
+        opt.mu[n].copy_(got[f"{_ADAM}.mu[{jax_path(n)!r}]"])
+        opt.nu[n].copy_(got[f"{_ADAM}.nu[{jax_path(n)!r}]"])
+    opt.count.fill_(adam_count)
     state.step = int(got[".step"])

@@ -380,7 +380,7 @@ def test_midepoch_resume_bit_identical_losses(tmp_path, pack):
     assert half.save_steps == [3] and store.latest_verified_step(ck) == 3
     meta = store.load_train_meta(ck, 3)
     assert meta["step"] == 3 and meta["data_pos"] == 3
-    assert meta["rng_schedule"] == "splitmix64_v1"
+    assert meta["rng_schedule"] == "counter_hash_v1"
     assert meta["dataset"]["steps_per_epoch"] > 0 and meta["dataset"]["packed"] == pack
     assert meta["skip_list"] == [] and meta["fp16"] is False
     state, rest = Trainer(_tcfg(tmp_path, 6), device="cpu").train(dataset=_dataset(pack))

@@ -166,7 +166,7 @@ def test_schedule_matches_optax(schedule):
     mine = build_schedule(tc.OptimizerConfig(**kw))
     ref = jax_schedule(jc.OptimizerConfig(**kw))
     for count in range(25):
-        # optax evaluates in float32, the port in float64.
+        # Both evaluate in float32, each with its own cos.
         np.testing.assert_allclose(mine(count), float(ref(count)), rtol=1e-5, atol=1e-12)
     assert mine(0) == 0.0  # the first update of a warmup has lr 0
 
@@ -210,8 +210,7 @@ def test_unported_remat_policy_raises():
         load_model(cfg, {}, "cpu")
 
 
-@pytest.mark.parametrize("field,value", [("fp16", True), ("loss_chunk", 64),
-                                         ("steps_per_sync", 2),
+@pytest.mark.parametrize("field,value", [("fp16", True),
                                          ("quantize_frozen_base", True)])
 def test_trainer_refuses_unported_train_options(field, value):
     cfg = tc.Config(model=tc.MODEL_PRESETS["llama_tiny"],
