@@ -133,7 +133,7 @@ for name, kw in CASES:
     ref = tpa.paged_decode_attention_reference(q, k, v, tables, lens, **args)
     err, row_rel = cs.decode_errors(torch, out, ref)
     tol = cs.TOL["float32" if q.dtype == f32 else "bfloat16"]
-    ok = err <= tol and (q.dtype == f32 or row_rel <= cs.ROW_REL_TOL)
+    ok = err <= tol and (q.dtype == f32 or row_rel <= cs.ROW_REL_TOL["bfloat16"])
     ms = cs.time_ms(torch, lambda: tpa.paged_decode_attention(q, k, v, tables, lens, **args),
                     20, flush)
     nbytes, ops = cs.decode_work(q, k, tables, lens, window)

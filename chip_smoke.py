@@ -18,10 +18,13 @@ Phases, each of which fails the run if its check fails:
    the same way on int8 pools with float32 row scales: llama2_7b, llama3_8b's
    GQA, mistral_7b's window, head_dim 256, and NaN in the scales of every
    row that is not live with garbage table entries (SDPA over the window
-   dequantized once, outside the timed call). bf16 cases are held to an
-   absolute limit and to one relative to each batch row's largest output;
-   a planted 25% scale fault in a late tile must fail the second. Each case
-   prints its program and its split-K plan (splits x tokens a split).
+   dequantized once, outside the timed call). Float16 pools too: llama2_7b,
+   llama3_8b's GQA with a bf16 query, mistral_7b's window with poisoned
+   rows, head_dim 256. bf16 and float16 outputs are held to an absolute
+   limit and to one relative to each batch row's largest output (one step
+   of the type); a planted 25% scale fault in a late tile must fail the
+   second. Each case prints its program and its split-K plan (splits x
+   tokens a split).
 3. The engine at full width: llama2_7b in bfloat16 from
    ``init_params(seed=0)``, its decode iteration captured as a CUDA graph
    (``warmup_decode_ladder``), 12 requests (prompts of 16 to 300 tokens,
@@ -39,8 +42,10 @@ Phases, each of which fails the run if its check fails:
    through K4 against the same step through the plain gather path
    (``paged_attention_impl="gather"``), and K4 against its plain version on
    the engine's real pool, tables and lengths, where its time is taken for
-   the record. Then ``torch.cuda.set_sync_debug_mode("error")`` around the
-   dispatch of an 8-step window: nothing in it may wait on the card.
+   the record, and again on a float16 copy of that pool with a float16
+   query (the fp16 path's K4 at this decode state). Then
+   ``torch.cuda.set_sync_debug_mode("error")`` around the dispatch of an
+   8-step window: nothing in it may wait on the card.
 5. Profile: ``torch.profiler`` over the next 8-step graphed window, for the
    device's busy share and the kernels by device time; K4's split kernel
    and its combine kernel must run inside the replays, as many times as the
@@ -51,12 +56,16 @@ Phases, each of which fails the run if its check fails:
 6. Flash attention K1 (forward), K2 (dq) and K3 (dk/dv) against their plain
    versions: llama2_7b's training shape, llama3_8b's GQA at s 2048,
    mistral_7b's window 4096 at s 8192, head_dim 256 and 64, float32, and a
-   packed batch at the unaligned length 1000 with padding rows. Each
+   packed batch at the unaligned length 1000 with padding rows; then in
+   float16 the training shape, head_dim 256 and 64, the packed case, and
+   the training shape with dO at 2**12 (a gradient of 2**-4 under the
+   default loss scale), v at 2**5 and q, k at 2**-4, whose ds pass
+   float16's 65504 (the plain version's max |ds| must exceed it) while dq,
+   dk and dv stay finite; those are compared in units of 2**12. Each
    kernel's program in each case (``kernel_design``: wgmma on the tensor
-   cores for bf16 K1 and K2, and K3 at d 64/128, which bf16 K2 must run;
-   the CUDA cores otherwise), time,
-   bound, plain time and SDPA's time (forward for K1, its autograd backward
-   for K2 and K3).
+   cores for bf16 and float16 K1 and K2, and K3 at d 64/128, which 2-byte K2
+   must run; the CUDA cores otherwise), time, bound, plain time and SDPA's
+   time (forward for K1, its autograd backward for K2 and K3).
 7. The trainer at full width: llama2_7b bf16 with LoRA r=16 on q/k/v/o
    (dropout 0.05) from ``init_params(seed=0)``, 8 steps of
    ``Trainer.train`` over ``make_batches`` (byte tokenizer, texts from a
@@ -145,7 +154,25 @@ Phases, each of which fails the run if its check fails:
     GB/s, restore, export and load seconds, and free disk, beside the
     card's name and power limit.
 
-Prints a ``{"kernels": [...]}`` line, and as its last line
+15. The fp16 path (run after phase 13, before the servers), llama2_7b at
+    full width: ``cli.train``'s own configuration with ``--fp16`` (the model
+    in float16 under the dynamic loss scaler from 2**16) and phase 7's
+    settings for 32 graphed steps at full depth (at 2**16 its first steps
+    overflow and the scale halves until the grads fit: the scales must
+    follow the scaler's rule replayed on the host, and a later step must
+    apply), K1-K3 in float16 counted as in phase 7, its step ms, tokens/s,
+    MFU and peak memory printed beside phase 7's bf16 step; then a run from
+    2**40 (4 layers, 72 steps, windows of 8, graphed) that must skip and
+    halve until the grads fit, its first 16 steps bit-equal to an eager
+    run's (losses, grad norms, scales); then, at 8 layers, a checkpoint at
+    step 4 and a fresh trainer's resume whose steps 5-8 (and scaler) are
+    bit-equal to an uninterrupted run, ``cli.export --fp16`` and
+    ``cli.serve.build --model-dir --kv-cache-dtype float16`` serving 4
+    greedy requests with K4 counted layers x decode steps, and phase 4's
+    check on that engine.
+
+Prints a ``{"kernels": [...]}`` line (each kernel's float16 mode a row of
+its own), and as its last line
 ``{"ok": true, "device": {...}}``. Exits non-zero without that line when
 there is no CUDA device, when the package is not beside this file, or when
 any check fails.
@@ -171,17 +198,19 @@ ROOT = Path(__file__).resolve().parent
 # H100 SXM published peaks (NVIDIA data sheet): HBM3 bandwidth, dense bf16
 # tensor-core rate, float32 rate outside the tensor cores.
 HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS_PER_S = {"bfloat16": 989e12, "float32": 67e12}
+PEAK_OPS_PER_S = {"bfloat16": 989e12, "float16": 989e12, "float32": 67e12}
 
-# Kernel output against the plain version on identical inputs. float32: the
-# two sum in different orders (1e-5 absolute). bfloat16: both round an fp32
-# result to bf16, whose spacing below |x| = 4 is at most 2**-6, so they may
-# land one bf16 step apart.
-TOL = {"float32": 1e-5, "bfloat16": 2.0 ** -6}
+# Kernel output against the plain version on identical inputs, by the
+# output's (the query's) type. float32: the two sum in different orders
+# (1e-5 absolute). bfloat16: both round an fp32 result to bf16, whose
+# spacing below |x| = 4 is at most 2**-6, so they may land one bf16 step
+# apart. float16: the same with 3 more bits, one float16 step, 2**-9.
+TOL = {"float32": 1e-5, "bfloat16": 2.0 ** -6, "float16": 2.0 ** -9}
 # The same bound per batch row, relative to the row's largest |output|: one
-# bf16 step of an element x is at most 2**-7 |x|. Long rows average many
-# tokens into small outputs, where the absolute limit would not see a fault.
-ROW_REL_TOL = 2.0 ** -7
+# step of an element x is at most 2**-7 |x| in bf16, 2**-10 |x| in float16.
+# Long rows average many tokens into small outputs, where the absolute limit
+# would not see a fault.
+ROW_REL_TOL = {"bfloat16": 2.0 ** -7, "float16": 2.0 ** -10}
 # Whole-model logits, kernel path against gather path in bfloat16: the two
 # attention outputs may differ by one bf16 step per element and 32 layers
 # carry that on, so the bound is relative to the logits' scale.
@@ -328,13 +357,15 @@ def phase_card_and_build(torch):
 
 
 def make_decode_case(torch, gen, *, heads, kv_heads, d, dtype, block_size,
-                     seq_lens, max_blocks, window=None, poison=False, int8=False):
+                     seq_lens, max_blocks, window=None, poison=False, int8=False,
+                     q_dtype=None):
     """A pool holding exactly the blocks the sequences use (a random
     permutation of them), plus block tables. With ``poison``, every pool row
     that is not live holds NaN (on an int8 pool: its scales do) and table
     entries past each sequence point at random (poisoned) blocks; otherwise
     they are -1. With ``int8`` the pools are quantized as ``paged_update``
-    stores them and the scales come back in a dict."""
+    stores them and the scales come back in a dict. The query is ``dtype``
+    unless ``q_dtype`` names another."""
     dev = torch.device("cuda")
     batch = len(seq_lens)
     need = [-(-n // block_size) for n in seq_lens]
@@ -367,7 +398,7 @@ def make_decode_case(torch, gen, *, heads, kv_heads, d, dtype, block_size,
         live = live.view(num_blocks, block_size)
         for t in (scales.values() if int8 else (k_pool, v_pool)):
             t[~live] = float("nan")
-    q = torch.randn(batch, 1, heads, d, device=dev, generator=gen).to(dtype)
+    q = torch.randn(batch, 1, heads, d, device=dev, generator=gen).to(q_dtype or dtype)
     lens = torch.tensor(seq_lens, device=dev, dtype=torch.int32)
     return q, k_pool, v_pool, tables, lens, scales
 
@@ -395,16 +426,18 @@ def measure_kernel(torch, tpa, q, k_pool, v_pool, tables, lens, window, flush,
     ref = tpa.paged_decode_attention_reference(q, k_pool, v_pool, tables, lens, **kw)
     check(torch.isfinite(out).all().item(), "kernel output is not finite")
     err, row_rel = decode_errors(torch, out, ref)
-    dtype_name = str(q.dtype if scales else k_pool.dtype).split(".")[-1]
+    out_name = str(q.dtype).split(".")[-1]  # the output's type: the tolerance's
+    rate_name = str(q.dtype if scales else k_pool.dtype).split(".")[-1]
     nbytes, ops = decode_work(q, k_pool, tables, lens, window)
-    bound_ms, bound_by = bound(nbytes, ops, dtype_name)
+    bound_ms, bound_by = bound(nbytes, ops, rate_name)
     ms = time_ms(torch, lambda: tpa.paged_decode_attention(
         q, k_pool, v_pool, tables, lens, **kw), flush=flush)
     plain_ms = time_ms(torch, lambda: tpa.paged_decode_attention_reference(
         q, k_pool, v_pool, tables, lens, **kw), flush=flush)
     library_ms = time_ms(torch, sdpa_over_gathered(
         torch, q, k_pool, v_pool, tables, lens, window, **(scales or {})), flush=flush)
-    return {"max_abs_err": err, "tol": TOL[dtype_name], "row_rel_err": row_rel,
+    return {"max_abs_err": err, "tol": TOL[out_name], "row_rel_tol": ROW_REL_TOL.get(out_name),
+            "row_rel_err": row_rel, "pool": str(k_pool.dtype).split(".")[-1],
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": library_ms, "bytes": nbytes, "ops": ops, "splits": splits,
             "chunk": chunk, "design": tpa.kernel_design(k_pool.dtype, q.shape[3])}
@@ -426,18 +459,20 @@ def planted_scale_fault(torch, tpa, q, k_pool, v_pool, tables, lens, scales):
     err, row_rel = decode_errors(torch, out, ref)
     log(f"[kernel] control, v_scale x1.25 on row {row}'s last block: max_abs_err "
         f"{err:.3e} (abs tol {TOL['bfloat16']:.3e}), row rel {row_rel:.3e} "
-        f"(tol {ROW_REL_TOL:.3e}): must be refused")
-    check(row_rel > ROW_REL_TOL, "the row-relative gate passed a planted scale fault")
+        f"(tol {ROW_REL_TOL['bfloat16']:.3e}): must be refused")
+    check(row_rel > ROW_REL_TOL["bfloat16"],
+          "the row-relative gate passed a planted scale fault")
 
 
 def phase_kernel_cases(torch, flush):
-    """K4 on float pools, then its int8 program (K4q) on int8 pools with
-    float32 row scales and bf16 queries, against their plain version.
-    Returns (float cases, int8 cases)."""
+    """K4 on float pools (float16 ones with float16 and bf16 queries), then
+    its int8 program (K4q) on int8 pools with float32 row scales and bf16
+    queries, against their plain version. Returns (float cases, int8
+    cases)."""
     from dlti_tpu_torch.ops import paged_attention as tpa
 
     gen = torch.Generator(device="cuda").manual_seed(1234)
-    bf16, f32 = torch.bfloat16, torch.float32
+    bf16, f32, f16 = torch.bfloat16, torch.float32, torch.float16
     # Decode batches of 8 at block_size 16 with a ragged mix: a seq_len of 0
     # (an idle slot), single tokens, tails inside a block, a full table.
     lens_1k = [0, 1, 17, 100, 255, 316, 600, 1024]
@@ -457,6 +492,16 @@ def phase_kernel_cases(torch, flush):
         ("poisoned_rows_garbage_tables", dict(heads=32, kv_heads=8, d=128,
                                               dtype=bf16, seq_lens=lens_1k,
                                               max_blocks=64, poison=True)),
+        ("fp16_llama2_7b", dict(heads=32, kv_heads=32, d=128, dtype=f16,
+                                seq_lens=lens_1k, max_blocks=64)),
+        ("fp16_pool_bf16_q_llama3_8b_gqa", dict(heads=32, kv_heads=8, d=128, dtype=f16,
+                                                q_dtype=bf16, seq_lens=lens_1k,
+                                                max_blocks=64)),
+        ("fp16_mistral_7b_window_poisoned", dict(heads=32, kv_heads=8, d=128, dtype=f16,
+                                                 seq_lens=lens_8k, max_blocks=512,
+                                                 window=4096, poison=True)),
+        ("fp16_d256", dict(heads=16, kv_heads=16, d=256, dtype=f16, seq_lens=lens_1k,
+                           max_blocks=64)),
         ("int8_llama2_7b", dict(heads=32, kv_heads=32, d=128, seq_lens=lens_1k,
                                 max_blocks=64, **int8)),
         ("int8_llama3_8b_gqa", dict(heads=32, kv_heads=8, d=128, seq_lens=lens_1k,
@@ -485,10 +530,10 @@ def phase_kernel_cases(torch, flush):
         check(r["max_abs_err"] <= r["tol"],
               f"kernel disagrees with its plain version on {name}: "
               f"{r['max_abs_err']} > {r['tol']}")
-        if inputs[0].dtype == bf16:
-            check(r["row_rel_err"] <= ROW_REL_TOL,
+        if r["row_rel_tol"] is not None:
+            check(r["row_rel_err"] <= r["row_rel_tol"],
                   f"kernel disagrees with its plain version on {name}: row rel "
-                  f"{r['row_rel_err']} > {ROW_REL_TOL}")
+                  f"{r['row_rel_err']} > {r['row_rel_tol']}")
         if name == "int8_llama2_7b":
             planted_scale_fault(torch, tpa, *inputs[:5], scales)
         del inputs, scales
@@ -725,14 +770,16 @@ def phase_engine(torch):
     return keep, launches, perf
 
 
-def phase_in_model(torch, engine, flush, max_tokens=4):
+def phase_in_model(torch, engine, flush, max_tokens=4, fp16_pool=False):
     """One decode step's logits, kernel path against gather path (an int8
     pool's window dequantized in float32), gated, on a batch of 8 freshly
     prefilled sequences (``max_tokens`` each, so the engine's later windows
     can run on). On an int8 pool also against the same step on a bf16 pool,
     printed only: that is quantization error, not a kernel fault. Then the
     kernel against its plain version on the engine's layer-0 pool and
-    tables, timed."""
+    tables, timed, with a query in the model's dtype. With ``fp16_pool``,
+    also K4 on a float16 copy of that pool with a float16 query (the fp16
+    path's decode at this engine's state), returned as ``fp16``."""
     import numpy as np
 
     from dlti_tpu_torch.models.interop import load_model
@@ -804,21 +851,31 @@ def phase_in_model(torch, engine, flush, max_tokens=4):
     # seq_len + 1 after the step above wrote them), with a random query.
     gen = torch.Generator(device=dev).manual_seed(7)
     q = torch.randn(8, 1, cfg.num_heads, cfg.resolved_head_dim, device=dev,
-                    generator=gen).to(torch.bfloat16)
+                    generator=gen).to(engine.model.model.embed_tokens.dtype)
     lens = (pos[:, 0] + 1).to(torch.int32)
     scales = {k: layer[k] for k in ("k_scale", "v_scale") if k in layer}
-    r = measure_kernel(torch, tpa, q, layer["k"], layer["v"], tables, lens,
-                       cfg.sliding_window, flush, scales=scales)
-    log(f"{tag} {kname} on the engine's pool (seq_lens {lens.tolist()}; {r['design']}; "
-        f"{r['splits']} splits of {r['chunk']} tokens): "
-        f"max_abs_err {r['max_abs_err']:.3e} (tol {r['tol']:.3e}), row rel "
-        f"{r['row_rel_err']:.3e} (tol {ROW_REL_TOL:.3e}); kernel "
-        f"{r['ms']:.4f} ms, bound {r['bound_ms']:.4f} ms by {r['bound_by']}, "
-        f"plain {r['plain_ms']:.4f} ms, sdpa {r['library_ms']:.4f} ms")
-    check(r["max_abs_err"] <= r["tol"], f"{kname} disagrees on the engine's pool")
-    check(r["row_rel_err"] <= ROW_REL_TOL, f"{kname} disagrees on the engine's pool "
-          f"relative to its rows: {r['row_rel_err']}")
-    return {**r, **extra}
+    pools = [(kname, layer["k"], layer["v"], q, scales)]
+    if fp16_pool:
+        pools.append(("K4 on a float16 copy", layer["k"].half(), layer["v"].half(),
+                      q.half(), {}))
+    results = []
+    for label, k_pool, v_pool, q_in, sc in pools:
+        r = measure_kernel(torch, tpa, q_in, k_pool, v_pool, tables, lens,
+                           cfg.sliding_window, flush, scales=sc)
+        log(f"{tag} {label} on the engine's pool ({k_pool.dtype} pool, {q_in.dtype} q; "
+            f"seq_lens {lens.tolist()}; {r['design']}; {r['splits']} splits of "
+            f"{r['chunk']} tokens): max_abs_err {r['max_abs_err']:.3e} (tol "
+            f"{r['tol']:.3e}), row rel {r['row_rel_err']:.3e} (tol {r['row_rel_tol']:.3e}); "
+            f"kernel {r['ms']:.4f} ms, bound {r['bound_ms']:.4f} ms by {r['bound_by']}, "
+            f"plain {r['plain_ms']:.4f} ms, sdpa {r['library_ms']:.4f} ms")
+        check(r["max_abs_err"] <= r["tol"], f"{label} disagrees on the engine's pool")
+        check(r["row_rel_err"] <= r["row_rel_tol"], f"{label} disagrees on the engine's "
+              f"pool relative to its rows: {r['row_rel_err']}")
+        results.append(r)
+    out = {**results[0], **extra}
+    if fp16_pool:
+        out["fp16"] = results[1]
+    return out
 
 
 def sync_check(torch, engine, tag, submit=False):
@@ -978,8 +1035,21 @@ FLASH_REPLACES = {
 # Kernel against plain version on identical inputs, elementwise
 # |got - want| <= atol + rtol |want|. Both compute in float32 and differ
 # only in summation order; in bfloat16 both then round to bf16 (relative
-# spacing 2**-7), so they may land one bf16 step apart.
-FLASH_TOL = {"float32": (1e-4, 1e-4), "bfloat16": (1e-3, 2.0 ** -7)}
+# spacing 2**-7), so they may land one bf16 step apart. float16 keeps 3 more
+# bits: rtol 2**-10, 8x tighter; atol stays 1e-3, since near zero it covers
+# the float32 sums' order, which does not depend on the output's type (a
+# GQA 64/1 dk or dv sums 64 heads' rows; the card read up to 4.9e-4 there).
+# The float16 kernels' hi/lo split carries ~22 bits of p and ds; rounding p
+# once to float16 would take 48-100% of this limit on CPU emulations
+# (tests/test_torch_flash_attention.py), so they keep the split.
+FLASH_TOL = {"float32": (1e-4, 1e-4), "bfloat16": (1e-3, 2.0 ** -7),
+             "float16": (1e-3, 2.0 ** -10)}
+# The float16 case whose ds passes float16's 65504 (the kernels rescale it):
+# dO of a gradient of 2**-4 under the default loss scale 2**16, v at 2**5,
+# q and k at 2**-4 (near-uniform p); dq, dk and dv stay finite. Compared in
+# units of dO's scale (dividing both by 2**12 is exact), where FLASH_TOL
+# applies as at unit scale.
+DS_CASE_SCALES = {"do": 2.0 ** 12, "v": 2.0 ** 5, "qk": 2.0 ** -4}
 # Kernel path against reference path, one llama2_7b train step in bf16. The
 # reference path rounds the softmax probabilities to bf16 before p @ v and
 # the kernels do not, so the two attention outputs differ by about one bf16
@@ -1064,18 +1134,42 @@ def sdpa_calls(torch, q, k, v, do, causal, window, segs):
     return fwd, bwd
 
 
-def within(got, want, dtype_name):
+def within(got, want, dtype_name, unit=1.0):
     atol, rtol = FLASH_TOL[dtype_name]
-    err = (got.float() - want.float()).abs()
-    ok = bool((err <= atol + rtol * want.float().abs()).all())
+    got, want = got.float() / unit, want.float() / unit
+    err = (got - want).abs()
+    ok = bool((err <= atol + rtol * want.abs()).all())
     return ok, err.max().item()
+
+
+def max_abs_ds(torch, q, k, v, do, o, lse, chunk=64):
+    """max |ds| of the float32 backward the plain version computes
+    (causal, no window or segments), ``chunk`` query rows at a time."""
+    b, s, h, d = q.shape
+    hkv = k.shape[2]
+    delta = (do.float() * o.float()).sum(-1).transpose(1, 2)       # (b, h, s)
+    kf, vf = k.float(), v.float()
+    top = 0.0
+    for lo in range(0, s, chunk):
+        hi = min(s, lo + chunk)
+        qg = q[:, lo:hi].float().reshape(b, hi - lo, hkv, h // hkv, d)
+        dog = do[:, lo:hi].float().reshape(b, hi - lo, hkv, h // hkv, d)
+        sc = torch.einsum("bqngd,bknd->bngqk", qg, kf) * d ** -0.5
+        qi = torch.arange(lo, hi, device=q.device)[:, None]
+        allowed = torch.arange(s, device=q.device)[None, :] <= qi
+        ls = lse[:, :, lo:hi].reshape(b, hkv, h // hkv, hi - lo, 1)
+        p = torch.where(allowed, torch.exp(sc - ls), 0.0)
+        dp = torch.einsum("bqngd,bknd->bngqk", dog, vf)
+        dl = delta[:, :, lo:hi].reshape(b, hkv, h // hkv, hi - lo, 1)
+        top = max(top, (p * (dp - dl) * d ** -0.5).abs().max().item())
+    return top
 
 
 def phase_flash_cases(torch, flush):
     from dlti_tpu_torch.ops import flash_attention as tfa
 
     gen = torch.Generator(device="cuda").manual_seed(4321)
-    bf16, f32 = torch.bfloat16, torch.float32
+    bf16, f32, f16 = torch.bfloat16, torch.float32, torch.float16
 
     def packed(b, s):
         segs = torch.zeros(b, s, dtype=torch.int32, device="cuda")
@@ -1098,15 +1192,25 @@ def phase_flash_cases(torch, flush):
         ("llama2_7b_fp32", dict(b=1, s=512, h=32, hkv=32, d=128, dtype=f32)),
         ("packed_unaligned_1000", dict(b=2, s=1000, h=32, hkv=8, d=128, dtype=bf16,
                                        packed=True)),
+        # The fp16 path: llama2_7b's training shape, d 64 and 256, the packed
+        # unaligned case, and the training shape with ds past 65504.
+        ("llama2_7b_train_fp16", dict(b=4, s=512, h=32, hkv=32, d=128, dtype=f16)),
+        ("gemma_7b_d256_fp16", dict(b=2, s=1024, h=16, hkv=16, d=256, dtype=f16)),
+        ("d64_fp16", dict(b=2, s=1024, h=16, hkv=16, d=64, dtype=f16)),
+        ("packed_unaligned_1000_fp16", dict(b=2, s=1000, h=32, hkv=8, d=128, dtype=f16,
+                                            packed=True)),
+        ("llama2_7b_train_fp16_ds_past_65504", dict(b=4, s=512, h=32, hkv=32, d=128,
+                                                    dtype=f16, scales=DS_CASE_SCALES)),
     ]
     results = {}
     for name, c in cases:
         b, s, h, hkv, d, dtype = c["b"], c["s"], c["h"], c["hkv"], c["d"], c["dtype"]
         window = c.get("window")
-        q = torch.randn(b, s, h, d, device="cuda", generator=gen).to(dtype)
-        k = torch.randn(b, s, hkv, d, device="cuda", generator=gen).to(dtype)
-        v = torch.randn(b, s, hkv, d, device="cuda", generator=gen).to(dtype)
-        do = torch.randn(b, s, h, d, device="cuda", generator=gen).to(dtype)
+        sc = c.get("scales", {})
+        q = (torch.randn(b, s, h, d, device="cuda", generator=gen) * sc.get("qk", 1)).to(dtype)
+        k = (torch.randn(b, s, hkv, d, device="cuda", generator=gen) * sc.get("qk", 1)).to(dtype)
+        v = (torch.randn(b, s, hkv, d, device="cuda", generator=gen) * sc.get("v", 1)).to(dtype)
+        do = (torch.randn(b, s, h, d, device="cuda", generator=gen) * sc.get("do", 1)).to(dtype)
         segs = packed(b, s) if c.get("packed") else None
         kw = dict(causal=True, window=window, segment_ids=segs)
         chunk = 1024 if s > 2048 else None    # bound the plain version's memory
@@ -1124,9 +1228,18 @@ def phase_flash_cases(torch, flush):
         for label, got, want in (("o", o, ro), ("dq", dq, rdq), ("dk", dk, rdk),
                                  ("dv", dv, rdv)):
             check(torch.isfinite(got).all().item(), f"{name}: nonfinite {label}")
-            ok, errs[label] = within(got, want, dtype_name)
+            unit = sc.get("do", 1) if label != "o" else 1
+            ok, errs[label] = within(got, want, dtype_name, unit)
             check(ok, f"flash {label} disagrees with its plain version on {name}: "
-                      f"max abs err {errs[label]}")
+                      f"max abs err {errs[label]}{' in units of 2**12' if unit != 1 else ''}")
+        ds_top = None
+        if sc:
+            ds_top = max_abs_ds(torch, q, k, v, do, o, lse)
+            log(f"[flash] {name}: the plain version's max |ds| {ds_top:.4g} (float16 max "
+                f"65504); max |dq| {rdq.float().abs().max().item():.4g}, |dk| "
+                f"{rdk.float().abs().max().item():.4g}, |dv| "
+                f"{rdv.float().abs().max().item():.4g}; errors in units of 2**12")
+            check(ds_top > 65504, f"{name}: max |ds| {ds_top} does not pass 65504")
         masked = rlse == tfa.MASKED_LSE
         check(torch.equal(lse == tfa.MASKED_LSE, masked),
               f"{name}: fully masked rows differ")
@@ -1153,7 +1266,8 @@ def phase_flash_cases(torch, flush):
             q, k, v, o, lse, do, q_chunk=chunk, **kw), 3, flush)
         lib_fwd = time_ms(torch, sdpa_fwd, iters, flush)
         lib_bwd = time_ms(torch, sdpa_bwd, iters, flush)
-        r = {"errs": errs, "lse_err": lse_err, "pairs": pairs}
+        r = {"errs": errs, "lse_err": lse_err, "pairs": pairs, "max_abs_ds": ds_top,
+             "dtype": dtype_name}
         for kname in FLASH_REPLACES:
             nbytes, ops = work[kname]
             bound_ms, bound_by = bound(nbytes, ops, dtype_name)
@@ -1166,9 +1280,9 @@ def phase_flash_cases(torch, flush):
                             errs["dq"] if kname == "flash_bwd_dq"
                             else max(errs["dk"], errs["dv"])),
                         "bytes": nbytes, "ops": ops}
-        if dtype == bf16:
+        if dtype in (bf16, f16):
             check(r["flash_bwd_dq"]["design"].startswith("wgmma"),
-                  f"{name}: bf16 K2 did not run its wgmma program")
+                  f"{name}: {dtype_name} K2 did not run its wgmma program")
         results[name] = r
         log(f"[flash] {name} (b {b}, s {s}, h {h}/{hkv}, d {d}, {dtype_name}"
             f"{', window %d' % window if window else ''}{', packed' if segs is not None else ''}): "
@@ -1176,7 +1290,7 @@ def phase_flash_cases(torch, flush):
             f"dv {errs['dv']:.3e} lse {lse_err:.2e}")
         for kname, label in zip(FLASH_REPLACES, ("K1", "K2", "K3")):
             x = r[kname]
-            log(f"[flash]   {label} {kname} ({'bf16' if dtype == bf16 else 'fp32'}: "
+            log(f"[flash]   {label} {kname} ({dtype_name}: "
                 f"{x['design']}): {x['ms']:.4f} ms, bound {x['bound_ms']:.4f} ms by "
                 f"{x['bound_by']}, plain {x['plain_ms']:.4f} ms, sdpa {x['library_ms']:.4f} ms")
         del q, k, v, do, o, lse, delta, dq, dk, dv, ro, rlse, rdq, rdk, rdv
@@ -1858,6 +1972,277 @@ def phase_checkpoint(torch, reference, card, flush):
 
 
 # ----------------------------------------------------------------------
+# The fp16 path: --fp16 through train -> checkpoint -> export -> serve
+# ----------------------------------------------------------------------
+
+# Phase 15's runs. The fp16 step at full depth is phase 7's run in float16;
+# the run from 2**40 and the checkpoint leg cut the depth (full width), so
+# the phase stays within about 90 s: the checkpoint leg's llama2_7b of 8
+# layers writes ~3.5 GB a checkpoint where phase 13's writes 13.7 GB.
+# The reference scales the loss's sum over tokens (not its mean), so at
+# 2**16 llama2_7b's float16 gradients overflow (the LoRA factors' gradients
+# in the compute dtype sum a microbatch's 2,048 tokens): the full-depth run
+# takes 32 steps, two a halving (hysteresis 2), to reach a scale that fits.
+FP16_TRAIN_STEPS = 32
+FP16_OVERFLOW_LAYERS = 4
+FP16_OVERFLOW_STEPS = 72       # from 2**40 down to 2**4 at most
+FP16_OVERFLOW_EAGER_STEPS = 16  # the eager yardstick: two windows, all skipped
+FP16_OVERFLOW_POWER = 40
+FP16_CKPT_LAYERS = 8
+FP16_CKPT_PRESET = "llama2_7b_8_layers"
+
+
+def fp16_train_config(output_dir, max_steps, num_layers=None, extra=()):
+    """``cli.train``'s configuration (its own ``build_config``) with
+    ``--fp16`` and phase 7's settings: llama2_7b LoRA r=16, seq 512,
+    micro-batch 4 x accum 2, warmup 2, lr 2e-4, remat; the model in float16
+    under the dynamic loss scaler from 2**16."""
+    from dlti_tpu_torch.cli import train as train_cli
+
+    args = train_cli.parse_args([
+        "--model", "llama2_7b", "--tokenizer", "byte", "--fp16", "--max-seq-len", "512",
+        "--per-device-batch-size", "4", "--gradient-accumulation-steps", "2",
+        "--warmup-steps", "2", "--learning-rate", "2e-4", "--max-steps", str(max_steps),
+        "--logging-steps", "1", "--output-dir", str(output_dir), *extra])
+    cfg = train_cli.build_config(args)
+    if num_layers is not None:
+        cfg = cfg.replace(model=dataclasses.replace(cfg.model, num_layers=num_layers))
+    check(cfg.train.fp16 and cfg.model.dtype == cfg.model.param_dtype == "float16",
+          "cli.train --fp16 did not give a float16 model under the scaler")
+    return cfg
+
+
+def scaler_replay(overflow, scale, window, hysteresis=2, min_scale=1.0):
+    """The loss scale after each step, by the reference's rule
+    (``apply_loss_scaler``) replayed on the host from the steps' overflow
+    flags."""
+    good, hyst, out = 0, hysteresis, []
+    for bad in overflow:
+        shrink = bad and hyst <= 1
+        hyst = max(hyst - 1, 0) if bad else hyst
+        scale = max(scale * 0.5, min_scale) if shrink else scale
+        good = 0 if bad else good + 1
+        grow = good >= window
+        if grow:
+            scale, good = scale * 2.0, 0
+        if shrink or grow:
+            hyst = hysteresis
+        out.append(scale)
+    return out
+
+
+def same_floats(a, b) -> bool:
+    """Bit-equal lists of floats, NaN equal to NaN (an overflowing step's
+    loss or grad norm)."""
+    return len(a) == len(b) and all(x == y or (math.isnan(x) and math.isnan(y))
+                                    for x, y in zip(a, b))
+
+
+def phase_fp16(torch, bf16_perf, card, flush):
+    """Phase 15 (run after phase 13): the fp16 path on llama2_7b at full
+    width; see the module docstring. Returns (launches, perf)."""
+    import shutil
+    import tempfile
+
+    from dlti_tpu_torch.checkpoint import store
+    from dlti_tpu_torch.cli import export as export_cli
+    from dlti_tpu_torch.cli import serve as serve_cli
+    from dlti_tpu_torch.config import MODEL_PRESETS
+    from dlti_tpu_torch.data import ByteTokenizer, make_batches
+    from dlti_tpu_torch.models.interop import init_params
+    from dlti_tpu_torch.ops import flash_attention as tfa
+    from dlti_tpu_torch.ops import paged_attention as tpa
+    from dlti_tpu_torch.serving import SamplingParams
+    from dlti_tpu_torch.training import Trainer
+
+    t_phase = time.perf_counter()
+    root = Path(tempfile.mkdtemp(prefix="dlti-fp16-"))
+    perf = {"card": card}
+    dataset = make_batches(training_texts(), ByteTokenizer(), seq_len=512,
+                           micro_batch_size=4, grad_accum_steps=2)
+    for name in FLASH_REPLACES:
+        design = tfa.kernel_design(name, torch.float16, 128)
+        check(design.startswith("wgmma f16"), f"{name} in float16 at d 128 runs {design}")
+    launches = {}
+    try:
+        # 1. cli.train --fp16's configuration, graphed steps at full depth.
+        cfg = fp16_train_config(root / "unused", FP16_TRAIN_STEPS,
+                                extra=["--save-strategy", "no", "--num-train-epochs", "3"])
+        mcfg = cfg.model
+        trainer = Trainer(cfg, params=init_params(mcfg, seed=0, device="cuda", lora=cfg.lora),
+                          device="cuda")
+        state = trainer.init_state()
+        check(float(state.scaler["scale"]) == 2.0 ** 16, "the scaler does not start at 2**16")
+        tfa.fwd_launches = tfa.dq_launches = tfa.dkv_launches = 0
+        tpa.launches = 0  # the fp16 training path's counts start here ...
+        state, rec = trainer.train(dataset=dataset, state=state)
+        torch.cuda.synchronize()
+        launches.update(flash_counts(tfa))  # ... and are read here
+        want = flash_expected(mcfg.num_layers, 2, FP16_TRAIN_STEPS + rec.captures)
+        check(rec.captures == 1 and {k: launches[k] for k in want} == want,
+              f"fp16 flash launches {launches} != {want}")
+        check(tpa.launches == 0, "fp16 training launched the decode kernel")
+        p = train_perf(rec, mcfg)
+        p.update(loss_scales=rec.loss_scales, overflows=rec.skipped_updates)
+        log_train_perf("[fp16]", p, mcfg)
+        # An overflow is a step whose grad norm is not finite (its loss is).
+        overflow = [not math.isfinite(x) for x in rec.grad_norms]
+        first_applied = next((i + 1 for i, o in enumerate(overflow) if not o), None)
+        log(f"[fp16] log2 loss scale after each step "
+            f"{[int(math.log2(x)) for x in rec.loss_scales]}; {rec.skipped_updates} of "
+            f"{rec.steps} steps overflowed; first applied step {first_applied}")
+        check(rec.loss_scales == scaler_replay(overflow, 2.0 ** 16, window=1000),
+              "the graphed scaler's scales differ from the rule replayed on the host")
+        check(first_applied is not None and all(math.isfinite(x) for x in rec.losses),
+              f"every fp16 step overflowed ({rec.loss_scales}) or a loss is not finite")
+        check(all(t.detach().abs().max().item() > 0 for n, t in state.model.named_parameters()
+                  if n.endswith("lora_b")), "an fp16 lora_b is still zero")
+        log(f"[fp16] step {p['step_ms']:.1f} ms, {p['tokens_per_s']:.1f} tokens/s, MFU "
+            f"{p['mfu_percent']:.2f}%, peak {p['peak_memory_gb']:.2f} GB; bf16 (phase 7, this "
+            f"call) {bf16_perf['step_ms']:.1f} ms, {bf16_perf['tokens_per_s']:.1f} tokens/s, "
+            f"MFU {bf16_perf['mfu_percent']:.2f}%, peak {bf16_perf['peak_memory_gb']:.2f} GB: "
+            f"fp16/bf16 step {p['step_ms'] / bf16_perf['step_ms']:.4f}")
+        p["first_applied_step"] = first_applied
+        perf["train"] = p
+        del state, trainer
+        free_memory(torch)
+
+        # 2. From 2**40 (depth cut): every step overflows until the scale
+        # fits, skipping and halving; the eager run's first 16 steps are
+        # bit-equal to the graphed run's.
+        over = fp16_train_config(root / "unused", FP16_OVERFLOW_STEPS, FP16_OVERFLOW_LAYERS,
+                                 extra=["--save-strategy", "no", "--steps-per-sync", "8",
+                                        "--num-train-epochs", "6"])
+        over = over.replace(train=dataclasses.replace(
+            over.train, fp16_initial_scale_power=FP16_OVERFLOW_POWER))
+        runs = {}
+        for graphs in (True, False):
+            cfg_run = over if graphs else over.replace(train=dataclasses.replace(
+                over.train, max_steps=FP16_OVERFLOW_EAGER_STEPS))
+            trainer = Trainer(cfg_run, params=init_params(over.model, seed=0, device="cuda",
+                                                          lora=over.lora),
+                              device="cuda", cuda_graphs=graphs)
+            st, r = trainer.train(dataset=dataset)
+            runs[graphs] = (r, {k: float(t) for k, t in st.scaler.items()})
+            del st, trainer
+            free_memory(torch)
+        (g, gs), (e, es) = runs[True], runs[False]
+        scales = g.loss_scales
+        first_fit = next((i for i, x in enumerate(g.grad_norms) if math.isfinite(x)), None)
+        check(g.loss_scales == scaler_replay([not math.isfinite(x) for x in g.grad_norms],
+                                             2.0 ** FP16_OVERFLOW_POWER, window=1000),
+              "the scales from 2**40 differ from the rule replayed on the host")
+        log(f"[fp16-overflow] llama2_7b layers {FP16_OVERFLOW_LAYERS}, from 2**"
+            f"{FP16_OVERFLOW_POWER}: {g.skipped_updates} of {g.steps} steps skipped; scale "
+            f"after each step {[int(math.log2(x)) for x in scales]} (log2); first applied "
+            f"step {None if first_fit is None else first_fit + 1}; final scaler {gs}")
+        n = FP16_OVERFLOW_EAGER_STEPS
+        same = (e.steps == n and same_floats(g.losses[:n], e.losses)
+                and same_floats(g.grad_norms[:n], e.grad_norms)
+                and g.loss_scales[:n] == e.loss_scales)
+        log(f"[fp16-overflow] eager steps 1-{n} bit-equal to the graphed run's (losses, "
+            f"grad norms, scales): {same}; eager scaler after step {n}: {es}")
+        check(g.skipped_updates >= 2 and scales[1] == 2.0 ** (FP16_OVERFLOW_POWER - 1)
+              and first_fit is not None,
+              f"the run from 2**{FP16_OVERFLOW_POWER} did not skip, halve and fit: "
+              f"{scales[:4]}, first applied step {first_fit}")
+        check(same, "the graphed fp16 run from 2**40 differs from the eager one")
+        perf["overflow"] = {"layers": FP16_OVERFLOW_LAYERS, "steps": g.steps,
+                            "skipped": g.skipped_updates,
+                            "log2_scales": [math.log2(x) for x in scales],
+                            "first_applied_step": None if first_fit is None else first_fit + 1,
+                            "bit_equal": same}
+
+        # 3. Checkpoint at step 4, resume steps 5-8 (depth cut), export
+        # through cli.export --fp16, serve through cli.serve --model-dir
+        # --kv-cache-dtype float16.
+        MODEL_PRESETS[FP16_CKPT_PRESET] = dataclasses.replace(
+            MODEL_PRESETS["llama2_7b"], num_layers=FP16_CKPT_LAYERS)
+        ck_dir, ex_dir = root / "ckpt", root / "export"
+        ref_cfg = fp16_train_config(root / "ref", TRAIN_STEPS, FP16_CKPT_LAYERS,
+                                    extra=["--save-strategy", "no"])
+        ref_tr = Trainer(ref_cfg, params=init_params(ref_cfg.model, seed=0, device="cuda",
+                                                     lora=ref_cfg.lora), device="cuda")
+        ref_state, ref = ref_tr.train(dataset=dataset)
+        ref_scaler = {k: float(t) for k, t in ref_state.scaler.items()}
+        del ref_state, ref_tr
+        free_memory(torch)
+        save = ["--save-steps", str(CKPT_SAVE_STEPS), "--save-total-limit", "2"]
+        first = fp16_train_config(ck_dir, CKPT_SAVE_STEPS, FP16_CKPT_LAYERS, extra=save)
+        tr = Trainer(first, params=init_params(first.model, seed=0, device="cuda",
+                                               lora=first.lora), device="cuda")
+        _, r1 = tr.train(dataset=dataset)
+        del tr
+        free_memory(torch)
+        second = fp16_train_config(ck_dir, TRAIN_STEPS, FP16_CKPT_LAYERS, extra=save)
+        tr = Trainer(second, params=init_params(second.model, seed=1, device="cuda",
+                                                lora=second.lora), device="cuda")
+        st2, r2 = tr.train(dataset=dataset)
+        scaler2 = {k: float(t) for k, t in st2.scaler.items()}
+        del st2, tr
+        free_memory(torch)
+        meta = store.load_train_meta(str(ck_dir), CKPT_SAVE_STEPS)
+        resumed = (same_floats(r2.losses, ref.losses[CKPT_SAVE_STEPS:])
+                   and same_floats(r2.grad_norms, ref.grad_norms[CKPT_SAVE_STEPS:])
+                   and r2.loss_scales == ref.loss_scales[CKPT_SAVE_STEPS:]
+                   and scaler2 == ref_scaler)
+        log(f"[fp16-ckpt] layers {FP16_CKPT_LAYERS}: saved {r1.save_steps}, resumed from "
+            f"{r2.resumed_from} (sidecar fp16 {meta and meta.get('fp16')}); steps 5-8 "
+            f"losses {r2.losses} / uninterrupted {ref.losses[CKPT_SAVE_STEPS:]}; scales "
+            f"{r2.loss_scales} / {ref.loss_scales[CKPT_SAVE_STEPS:]}; bit-equal {resumed}")
+        check(r1.save_steps == [CKPT_SAVE_STEPS] and r2.resumed_from == CKPT_SAVE_STEPS
+              and meta and meta.get("fp16") is True, "the fp16 checkpoint did not resume")
+        check(resumed, "fp16 steps 5-8 after the resume differ from the uninterrupted run")
+        for step in (CKPT_SAVE_STEPS, TRAIN_STEPS):
+            check(store.verify_checkpoint(ck_dir, step) == (True, "ok"), f"verify {step}")
+        t0 = time.perf_counter()
+        export_cli.export(export_cli.parse_args([
+            "--checkpoint-dir", str(ck_dir), "--model", FP16_CKPT_PRESET, "--lora-r", "16",
+            "--fp16", "--out", str(ex_dir)]))
+        export_s = time.perf_counter() - t0
+        exported = json.loads((ex_dir / "config.json").read_text())
+        check(exported["model"]["dtype"] == "float16", "the export is not a float16 model")
+        engine, tok, _ = serve_cli.build(serve_cli.parse_args([
+            "--model-dir", str(ex_dir), "--tokenizer", "byte", "--kv-cache-dtype", "float16"]))
+        check(engine.cache[0]["k"].dtype == torch.float16
+              and engine.model.model.embed_tokens.dtype == torch.float16,
+              "the served export is not float16 on a float16 pool")
+        engine.warmup_decode_ladder()
+        tpa.launches = tpa.launches_int8 = 0  # the fp16 serving path's counts start here ...
+        decode0 = engine.stats["decode_steps"]
+        prompts = [tok.encode(t[:96]) for t in training_texts(CKPT_REQUESTS, seed=7)]
+        results = engine.generate(prompts, SamplingParams(temperature=0.0,
+                                                          max_tokens=CKPT_NEW_TOKENS))
+        torch.cuda.synchronize()
+        decode_steps = engine.stats["decode_steps"] - decode0
+        launches["paged_decode_attention"] = tpa.launches  # ... and are read here
+        check(len(results) == CKPT_REQUESTS and all(r.output_token_ids for r in results)
+              and all(math.isfinite(x) for r in results for x in r.output_logprobs),
+              "the fp16 export served no tokens or nonfinite logprobs")
+        check(tpa.launches == FP16_CKPT_LAYERS * decode_steps and tpa.launches_int8 == 0,
+              f"K4 launches {tpa.launches} != {FP16_CKPT_LAYERS} x {decode_steps}")
+        log(f"[fp16-serve] {CKPT_REQUESTS} greedy requests from the fp16 export on a "
+            f"float16 pool: {[len(r.output_token_ids) for r in results]} tokens, "
+            f"{decode_steps} decode steps, K4 {tpa.launches} launches; export "
+            f"{export_s:.2f} s")
+        in_model = phase_in_model(torch, engine, flush)
+        perf["ckpt"] = {"layers": FP16_CKPT_LAYERS, "resumed_bit_equal": resumed,
+                        "export_s": export_s, "decode_steps": decode_steps,
+                        "in_model": {k: in_model[k] for k in (
+                            "max_abs_err", "row_rel_err", "logits_rel", "argmax_agree",
+                            "ms", "plain_ms", "bound_ms")}}
+        del engine
+        free_memory(torch)
+    finally:
+        MODEL_PRESETS.pop(FP16_CKPT_PRESET, None)
+        shutil.rmtree(root, ignore_errors=True)
+    perf["phase_s"] = time.perf_counter() - t_phase
+    log(f"[fp16] phase {perf['phase_s']:.1f} s")
+    log("[fp16] perf " + json.dumps(perf))
+    return launches, perf
+
+
+# ----------------------------------------------------------------------
 # Serving slice 3: the OpenAI server and serve CLI on an int8 KV pool (K4q)
 # ----------------------------------------------------------------------
 
@@ -2250,7 +2635,7 @@ def main() -> int:
         # Phases 4 and 5 on the k = 8 graphed engine: 17 tokens a request
         # leave two 8-step windows after the prefill, one dispatched under
         # the sync check and one profiled.
-        main_path = phase_in_model(torch, engine, flush, max_tokens=17)
+        main_path = phase_in_model(torch, engine, flush, max_tokens=17, fp16_pool=True)
         sync_check(torch, engine, "[in-model]")
         profile_perf = phase_profile(torch, engine)
         head_perf = phase_head(torch, engine)
@@ -2268,6 +2653,7 @@ def main() -> int:
         torch.cuda.empty_cache()
         window_perf = phase_train_window(torch, train_perf)
         ckpt_launches, ckpt_perf = phase_checkpoint(torch, train_perf, card, flush)
+        fp16_launches, fp16_perf = phase_fp16(torch, train_perf, card, flush)
         engine, int8_launches, server_perf = phase_server(torch)
         int8_main = phase_in_model(torch, engine, flush)
         del engine
@@ -2284,7 +2670,8 @@ def main() -> int:
     except CheckFailed as e:
         return fail(str(e))
 
-    worst = max([r["max_abs_err"] for r in cases.values()]
+    f16 = lambda r: r["pool"] == "float16"  # noqa: E731
+    worst = max([r["max_abs_err"] for r in cases.values() if not f16(r)]
                 + [main_path["max_abs_err"], ckpt_perf["in_model"]["max_abs_err"]])
     kernels = [{
         "name": "paged_decode_attention",
@@ -2300,6 +2687,27 @@ def main() -> int:
         "bound_by": main_path["bound_by"],
         "library_ms": main_path["library_ms"],
     }]
+    # K4 on float16 pools: times and bound at the llama2_7b engine's decode
+    # state (phase 4, a float16 copy of its pool, a float16 query); launches
+    # from phase 15's fp16 export served on a float16 pool; the error is the
+    # worst over phase 2's float16-pool cases and both states.
+    at16 = main_path["fp16"]
+    kernels.append({
+        "name": "paged_decode_attention_float16",
+        "design": at16["design"],
+        "route": "cuda",
+        "source": "dlti_tpu_torch/csrc/paged_attention.cu",
+        "replaces": KERNEL_REPLACES + " (float16 pools)",
+        "launches": fp16_launches["paged_decode_attention"],
+        "max_abs_err": max([r["max_abs_err"] for r in cases.values() if f16(r)]
+                           + [at16["max_abs_err"],
+                              fp16_perf["ckpt"]["in_model"]["max_abs_err"]]),
+        "ms": at16["ms"],
+        "plain_ms": at16["plain_ms"],
+        "bound_ms": at16["bound_ms"],
+        "bound_by": at16["bound_by"],
+        "library_ms": at16["library_ms"],
+    })
     # K4q: times and bound at the int8 engine's decode state (phase 11); the
     # error is the worst over phase 2's int8 cases and that state.
     kernels.append({
@@ -2318,24 +2726,29 @@ def main() -> int:
         "library_ms": int8_main["library_ms"],
     })
     # K1-K3: times and bound at the training path's shape (llama2_7b,
-    # b 4, s 512, bf16, causal); the error is the worst over every case.
-    # "design" is the program that shape runs.
-    at = flash["llama2_7b_train"]
-    for name, replaces in FLASH_REPLACES.items():
-        kernels.append({
-            "name": name,
-            "design": at[name]["design"],
-            "route": "cuda",
-            "source": "dlti_tpu_torch/csrc/flash_attention.cu",
-            "replaces": replaces,
-            "launches": flash_launches[name],
-            "max_abs_err": max(r[name]["max_abs_err"] for r in flash.values()),
-            "ms": at[name]["ms"],
-            "plain_ms": at[name]["plain_ms"],
-            "bound_ms": at[name]["bound_ms"],
-            "bound_by": at[name]["bound_by"],
-            "library_ms": at[name]["library_ms"],
-        })
+    # b 4, s 512, causal), bf16 (phase 7's launches) and float16 (phase
+    # 15's); the error is the worst over the cases of that mode (float32
+    # with bf16; the float16 ds case's, in units of 2**12, is printed in its
+    # own line). "design" is the program that shape runs.
+    for suffix, at, counts, mode in (
+            ("", flash["llama2_7b_train"], flash_launches, ("bfloat16", "float32")),
+            ("_float16", flash["llama2_7b_train_fp16"], fp16_launches, ("float16",))):
+        for name, replaces in FLASH_REPLACES.items():
+            kernels.append({
+                "name": name + suffix,
+                "design": at[name]["design"],
+                "route": "cuda",
+                "source": "dlti_tpu_torch/csrc/flash_attention.cu",
+                "replaces": replaces + (" (float16)" if suffix else ""),
+                "launches": counts[name],
+                "max_abs_err": max(r[name]["max_abs_err"] for r in flash.values()
+                                   if r["dtype"] in mode and not r["max_abs_ds"]),
+                "ms": at[name]["ms"],
+                "plain_ms": at[name]["plain_ms"],
+                "bound_ms": at[name]["bound_ms"],
+                "bound_by": at[name]["bound_by"],
+                "library_ms": at[name]["library_ms"],
+            })
     keys = ("step_ms", "tokens_per_s", "mfu_percent", "peak_memory_gb",
             "host_syncs_per_step")
     log("[train] summary " + json.dumps({
@@ -2363,6 +2776,13 @@ def main() -> int:
         "d2h_pageable_gb_s", "in_model")}))
     log("[ckpt] launches on the train -> checkpoint -> resume -> export -> serve path "
         + json.dumps(ckpt_launches))
+    keys16 = keys + ("loss_scales", "overflows")
+    log("[fp16] summary " + json.dumps({
+        "fp16": {k: fp16_perf["train"][k] for k in keys16},
+        "bf16": {k: train_perf[k] for k in keys},
+        "fp16_over_bf16_step": fp16_perf["train"]["step_ms"] / train_perf["step_ms"],
+        "overflow_run": fp16_perf["overflow"], "ckpt": fp16_perf["ckpt"],
+        "launches": fp16_launches}))
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

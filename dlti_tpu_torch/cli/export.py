@@ -14,14 +14,19 @@ as ``cli.train`` sets it) on the ``meta`` device, so no weights are made;
 the checkpoint's leaves are read to ``--device`` (the card unless told
 ``cpu``), the LoRA pairs are merged there (``--keep-lora`` keeps them as
 leaves), and the export is written. ``--step 0`` takes the newest step that
-verifies (corrupt newer ones are quarantined). The last line on stdout is
-``manifest sha256: <digest>``, the export's content identity. The int8 base
-(``--quantize-base``) and the fp16 scaler (``--fp16``) are not ported.
+verifies (corrupt newer ones are quarantined). ``--fp16`` reads an
+``cli.train --fp16`` run's checkpoint: its base is float16 and its state
+carries the loss scaler's leaves, so the template has both (the JAX
+package's script adds only the scaler and so refuses such a checkpoint's
+float16 base). The last line on stdout is ``manifest sha256: <digest>``,
+the export's content identity. The int8 base (``--quantize-base``) is not
+ported.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import os
 
 from dlti_tpu_torch.config import MODEL_PRESETS
@@ -41,7 +46,8 @@ def parse_args(argv=None):
     p.add_argument("--keep-lora", action="store_true",
                    help="export unmerged (adapter factors kept as leaves)")
     p.add_argument("--fp16", action="store_true",
-                   help="not ported (a checkpoint with the fp16 loss scaler)")
+                   help="checkpoint came from an --fp16 run (a float16 base, and "
+                        "its state carries the dynamic loss scaler subtree)")
     p.add_argument("--device", default=None, help="cuda (default) or cpu")
     return p.parse_args(argv)
 
@@ -49,9 +55,8 @@ def parse_args(argv=None):
 def export(args) -> str:
     """Restore the checkpoint's params and write the export; returns its
     manifest SHA-256."""
-    if args.quantize_base or args.fp16:
-        raise NotImplementedError("--quantize-base and --fp16 are not ported yet "
-                                  "(see ROADMAP.md)")
+    if args.quantize_base:
+        raise NotImplementedError("--quantize-base is not ported yet (see ROADMAP.md)")
     from dlti_tpu_torch.checkpoint import (
         export_merged_model, latest_verified_step, manifest_digest, restore_train_state,
     )
@@ -62,13 +67,17 @@ def export(args) -> str:
     from dlti_tpu_torch.utils.device import resolve_device
 
     r = max(args.lora_r, 1)
-    cfg = Config(model=MODEL_PRESETS[args.model],
+    model_cfg = MODEL_PRESETS[args.model]
+    if args.fp16:  # as cli.train --fp16 sets it
+        model_cfg = dataclasses.replace(model_cfg, dtype="float16", param_dtype="float16")
+    cfg = Config(model=model_cfg,
                  lora=LoRAConfig(enabled=args.lora_r > 0, r=r, alpha=2 * r))
     device = resolve_device(args.device)
     model = LlamaForCausalLM(cfg.model, cfg.lora if cfg.lora.enabled else None,
                              device="meta")
     template = create_train_state(model, build_optimizer(OptimizerConfig()),
-                                  lora_enabled=cfg.lora.enabled)
+                                  lora_enabled=cfg.lora.enabled,
+                                  fp16_initial_scale=2.0 ** 16 if args.fp16 else None)
     step = args.step or latest_verified_step(args.checkpoint_dir)
     if step is None:
         raise SystemExit(f"no verified checkpoints under {args.checkpoint_dir}")

@@ -7,12 +7,17 @@
     python -m dlti_tpu_torch.cli.serve --device cpu --random-init llama_tiny \\
         --tokenizer byte --port 0
 
+    # an export (cli.train --export-dir, cli.export), an fp16 run's on a
+    # float16 pool
+    python -m dlti_tpu_torch.cli.serve --model-dir exports/fp16 \
+        --tokenizer byte --kv-cache-dtype float16
+
 Flags keep the reference's names and defaults (``--steps-per-sync``,
 ``--no-decode-state-cache`` included); the decode iteration's CUDA graph is
-captured before the server binds. Weights are random, from
-``init_params(seed=0)``; ``--model-dir`` (an export) is not ported yet. It
-prints ``serving on http://HOST:PORT`` with the port it bound, and SIGTERM
-or Ctrl-C stops it with exit code 0.
+captured before the server binds. ``--random-init`` weights come from
+``init_params(seed=0)``; ``--model-dir`` serves an export in the dtype its
+``config.json`` names. It prints ``serving on http://HOST:PORT`` with the
+port it bound, and SIGTERM or Ctrl-C stops it with exit code 0.
 """
 
 from __future__ import annotations
@@ -22,7 +27,7 @@ import time
 
 from dlti_tpu_torch.config import MODEL_PRESETS
 
-KV_CACHE_DTYPES = ["bfloat16", "float32", "int8"]
+KV_CACHE_DTYPES = ["bfloat16", "float16", "float32", "int8"]
 
 
 def parse_args(argv=None):

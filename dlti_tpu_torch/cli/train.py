@@ -13,6 +13,12 @@
         --tokenizer byte --dataset-path data/ --max-seq-len 64 --max-steps 4 \
         --save-steps 2 --output-dir runs/tiny --export-dir exports/tiny
 
+    # fp16: a float16 model under the dynamic loss scaler (export with
+    # cli.export --fp16, serve with --kv-cache-dtype float16)
+    python -m dlti_tpu_torch.cli.train --device cpu --model llama_tiny \
+        --tokenizer byte --dataset-path data/ --max-seq-len 64 --max-steps 4 \
+        --fp16 --save-steps 2 --output-dir runs/fp16
+
     # 4 steps a host sync, the chunked loss, an eval every 4 steps
     python -m dlti_tpu_torch.cli.train --device cpu --model llama_tiny \
         --tokenizer byte --dataset-path data/ --max-seq-len 64 --max-steps 8 \
@@ -29,10 +35,11 @@ merged model after training (``cli.serve --model-dir`` serves it).
 lines; a token store (a directory with ``meta.json``) needs
 ``data/streaming.py``, which is not ported. ``--steps-per-sync`` runs that
 many optimizer steps a host synchronisation (on the card one CUDA graph of
-the step, replayed); eval and saves land at window boundaries. Weights are
-random, from ``--seed``. Prints one JSON line with the run's record at the
-end. The PEFT and HF exports (``--export-peft``, ``--export-hf``) are not
-ported.
+the step, replayed); eval and saves land at window boundaries. ``--fp16``
+runs the model in float16 (compute and base weights) under the dynamic loss
+scaler, as the reference's ``--fp16`` does. Weights are random, from
+``--seed``. Prints one JSON line with the run's record at the end. The PEFT
+and HF exports (``--export-peft``, ``--export-hf``) are not ported.
 """
 
 from __future__ import annotations
@@ -85,6 +92,9 @@ def parse_args(argv=None):
                    help="optimizer steps per host synchronisation (same "
                         "trajectory as 1, metrics stay per-step, eval/saves "
                         "land at window boundaries)")
+    p.add_argument("--fp16", action="store_true",
+                   help="fp16 + dynamic loss scaling parity mode (the model in "
+                        "float16, the reference's DeepSpeed fp16 block)")
     p.add_argument("--seed", type=int, default=42)
     p.add_argument("--logging-steps", type=int, default=10)
     p.add_argument("--save-strategy", default="steps", choices=["steps", "epoch", "no"])
@@ -126,6 +136,9 @@ def load_texts(path: str) -> list:
 
 def build_config(args) -> Config:
     model = MODEL_PRESETS[args.model]
+    if args.fp16:
+        # compute and store in float16; the scaler handles overflow
+        model = dataclasses.replace(model, dtype="float16", param_dtype="float16")
     if args.remat_policy == "none":
         model = dataclasses.replace(model, remat=False)
     elif args.remat_policy:
@@ -150,7 +163,7 @@ def build_config(args) -> Config:
                           grad_accum_steps=args.gradient_accumulation_steps,
                           logging_steps=args.logging_steps, seed=args.seed,
                           eval_steps=args.eval_steps, loss_chunk=args.loss_chunk,
-                          steps_per_sync=args.steps_per_sync))
+                          steps_per_sync=args.steps_per_sync, fp16=args.fp16))
 
 
 def main(argv=None) -> None:
@@ -202,8 +215,11 @@ def main(argv=None) -> None:
         print(f"manifest sha256: {manifest_digest(os.path.join(args.export_dir, 'model'))}",
               flush=True)
     summary = {k: v for k, v in dataclasses.asdict(record).items()
-               if k not in ("losses", "grad_norms", "step_times_s", "save_stall_s")}
+               if k not in ("losses", "grad_norms", "loss_scales", "step_times_s",
+                            "save_stall_s")}
     summary["final_loss"] = record.final_loss
+    if record.loss_scales:
+        summary["final_loss_scale"] = record.loss_scales[-1]
     summary["host_syncs_per_step"] = record.host_syncs_per_step
     print(json.dumps(summary), flush=True)
 

@@ -6,9 +6,9 @@ and the root ``Config`` with its JSON form (``to_dict``/``from_dict``).
 Field names, defaults and presets are the reference's, so a configuration
 means the same thing in both packages. The training blocks carry the fields
 the single-device LoRA path reads. Fields that select code the port has not
-reached yet (mixture of experts, the other remat policies, the fp16 scaler,
-the int8 frozen base) are kept for that parity; the modules that would read them
-raise where the port stops. ``flash_block_q``/``flash_block_kv`` are the TPU
+reached yet (mixture of experts, the other remat policies, the int8 frozen
+base) are kept for that parity; the modules that would read them raise where
+the port stops. ``flash_block_q``/``flash_block_kv`` are the TPU
 kernel's tiles: the CUDA flash kernels pick their own and do not read them.
 """
 
@@ -149,8 +149,12 @@ class TrainConfig:
     of the single-device loop. ``eval_steps``: evaluate every so many steps
     (0 = never; at window boundaries, when a window crossed a multiple).
     ``loss_chunk``: the sequence-chunked loss (0 = off). ``steps_per_sync``:
-    optimizer steps a host synchronisation. ``fp16`` and
-    ``quantize_frozen_base`` are kept for parity and raise when set."""
+    optimizer steps a host synchronisation. ``fp16`` turns on DeepSpeed's
+    dynamic loss scaler (the reference's fp16 block,
+    ``configs/ds_config_zero1.json``: initial scale 2^16, window 1000,
+    hysteresis 2, min scale 1); pair it with a model whose ``dtype`` and
+    ``param_dtype`` are ``"float16"``. ``quantize_frozen_base`` is kept for
+    parity and raises when set."""
 
     num_epochs: int = 1
     max_steps: int = 0  # 0 = derive from epochs * steps_per_epoch
@@ -160,6 +164,10 @@ class TrainConfig:
     seed: int = 42
     eval_steps: int = 0  # 0 = no eval
     fp16: bool = False
+    fp16_initial_scale_power: int = 16
+    fp16_scale_window: int = 1000
+    fp16_hysteresis: int = 2
+    fp16_min_scale: float = 1.0
     loss_chunk: int = 0
     steps_per_sync: int = 1
     quantize_frozen_base: str = ""

@@ -5,18 +5,19 @@
 //                         _fwd_kernel (:132), launched by _flash_fwd (:270,
 //                         pl.pallas_call :304): o = softmax(q k^T d^-1/2) v
 //                         and the per-row logsumexp.
-//                         bf16: flash_fwd_wgmma_kernel; float32:
+//                         bf16 and f16: flash_fwd_wgmma_kernel; float32:
 //                         flash_fwd_kernel.
 //   K2 dq                 replaces _dq_kernel (:366), launched by _flash_bwd
 //                         (:490, pl.pallas_call :527): dq = sum_j ds k with
 //                         ds = p (dO v^T - D) d^-1/2.
-//                         bf16: flash_bwd_dq_wgmma_kernel; float32:
+//                         bf16 and f16: flash_bwd_dq_wgmma_kernel; float32:
 //                         flash_bwd_dq_kernel.
 //   K3 dk/dv              replaces _dkv_kernel (:424), launched by _flash_bwd
 //                         (pl.pallas_call :560): dv = sum p^T dO,
 //                         dk = sum ds^T q over every query head of the group.
-//                         bf16 at d 64 and 128: flash_bwd_dkv_wgmma_kernel;
-//                         float32, and bf16 at d 256: flash_bwd_dkv_kernel.
+//                         bf16 and f16 at d 64 and 128:
+//                         flash_bwd_dkv_wgmma_kernel; float32, and bf16 and
+//                         f16 at d 256: flash_bwd_dkv_kernel.
 //
 // D = rowsum(dO * O) is computed by the caller in PyTorch, as the JAX
 // package leaves it to XLA (:505).
@@ -55,9 +56,10 @@
 // widened to float32 in shared memory and every product re-reads both
 // operands from it. They took 37-39x their bound in bf16.
 //
-// The bf16 programs (K1, K2; K3 at d 64 and 128) put every product on the tensor
-// cores with wgmma, one warpgroup (128 threads) per block:
-// * Tiles stay bf16 in shared memory in the layout wgmma's descriptors name:
+// The 2-byte programs (K1, K2; K3 at d 64 and 128), each built for bf16 and
+// for f16, put every product on the tensor cores with wgmma, one warpgroup
+// (128 threads) per block:
+// * Tiles stay 2-byte in shared memory in the layout wgmma's descriptors name:
 //   column blocks of 64 channels (128 bytes a row), 16-byte chunk c of row r
 //   at c ^ (r % 8) (the 128-byte swizzle), each block 1024-byte aligned. The
 //   same tile is a K-major operand (q k^T, k q^T, v dO^T: the channels are
@@ -90,10 +92,28 @@
 //   add hi * B and lo * B into the same float32 accumulator: about 16
 //   significant bits of x, an error near 2^-17 relative. It costs 1.5x the
 //   tensor-core work of the unsplit kernels.
+// * f16 (the fp16 training path, under the dynamic loss scaler): the same
+//   programs with wgmma .f16 (the same shapes, descriptors and swizzle).
+//   A product of two f16 values is exact in float32 too. f16 keeps 11
+//   significant bits against bf16's 8 but has a narrow range (subnormal
+//   below 2^-14, inf above 65504), so the split operands are brought into
+//   range by powers of two before the split and the float32 accumulators
+//   are scaled back exactly: p and p^T (at most 1) by 2^14; ds and ds^T,
+//   whose size follows dO (2^16 times a gradient under the default loss
+//   scale), per accumulator row by 2^e with e chosen so the row's largest
+//   |ds| seen so far lies in [2^14, 2^15): e only falls, and when it falls
+//   the row's accumulator is scaled by the same power of two. So |ds| above
+//   65504 does not overflow where the float32 kernels would not, and small
+//   ds do not fall into subnormals. hi + lo then carries ~22 bits of p and
+//   ds. Rounding p once to f16 (keeping only hi) would take up to the whole
+//   f16 limit of chip_smoke.py where the split takes under 0.3% of it
+//   (tests/test_torch_flash_attention.py emulates both), so f16 splits as
+//   bf16 does.
 // * The float32 programs stay on the CUDA cores: TF32 would break their
 //   1e-4 limit, and float32 is not on the training path. K3 at d 256 in
-//   bf16 stays there too: the dk and dv accumulators of a 64-row tile are
-//   2 x 64 x 256 float32, 256 registers a thread for one warpgroup.
+//   bf16 and f16 stays there too: the dk and dv accumulators of a 64-row
+//   tile are 2 x 64 x 256 float32, 256 registers a thread for one
+//   warpgroup.
 //
 // Left on the table (later work): warp specialisation (a producer warp with
 // TMA and mbarriers, consumer warpgroups with setmaxnreg), overlapping one
@@ -106,6 +126,7 @@
 //        -Xcompiler -fPIC -o libflash_attention.so flash_attention.cu
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <limits.h>
 #include <math.h>
@@ -127,8 +148,10 @@ struct FlashParams {
 
 __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float to_float(__half x) { return __half2float(x); }
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2bfloat16(x); }
+__device__ __forceinline__ void store(__half* p, float x) { *p = __float2half_rn(x); }
 
 __device__ __forceinline__ float max16(float x) {
 #pragma unroll
@@ -546,7 +569,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
-// K3 in float32, and in bf16 at d 256: CUDA cores
+// K3 in float32, and in bf16 and f16 at d 256: CUDA cores
 // ---------------------------------------------------------------------------
 
 template <int D, int BKV>
@@ -731,7 +754,7 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
-// bf16 on the tensor cores: wgmma, descriptors, asynchronous copies
+// bf16 and f16 on the tensor cores: wgmma, descriptors, asynchronous copies
 // ---------------------------------------------------------------------------
 
 using bf16 = __nv_bfloat16;
@@ -739,6 +762,38 @@ using bf16 = __nv_bfloat16;
 constexpr int kWgThreads = 128;  // one warpgroup
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
+// f16: p and p^T enter the split times 2^14 (p <= 1, so at most 16384).
+constexpr float kPScale = 16384.f;
+constexpr float kPUnscale = 1.f / 16384.f;
+// f16: the ds row exponent before the row has seen a non-zero ds, and its
+// least value: float16 inputs bound |dO v^T| and D by 65504^2 * 256 < 2^41,
+// so |ds| < 2^42 and 2^-30 brings any finite row below 2^15 (an inf row
+// stays inf, as it would in float32).
+constexpr int kDsExpStart = 64;
+constexpr int kDsExpMin = -30;
+
+// The 2-byte element types of the tensor-core programs: a pair of them in
+// one 32-bit register (the A fragments and the output stores), and the
+// PTX type name wgmma takes.
+template <typename E> struct Elem;
+template <> struct Elem<__nv_bfloat16> {
+  using Pair = __nv_bfloat162;
+  static constexpr bool kF16 = false;
+  static constexpr int kCode = 1;
+  __device__ static __forceinline__ Pair pack(float a, float b) {
+    return __floats2bfloat162_rn(a, b);
+  }
+  __device__ static __forceinline__ float2 unpack(Pair x) { return __bfloat1622float2(x); }
+};
+template <> struct Elem<__half> {
+  using Pair = __half2;
+  static constexpr bool kF16 = true;
+  static constexpr int kCode = 2;
+  __device__ static __forceinline__ Pair pack(float a, float b) {
+    return __floats2half2_rn(a, b);
+  }
+  __device__ static __forceinline__ float2 unpack(Pair x) { return __half22float2(x); }
+};
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -800,8 +855,8 @@ __device__ __forceinline__ void fence_regs(uint32_t (&r)[M][4]) {
     for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j]) :: "memory");
 }
 
-// A tile of ROWS rows x D bf16 channels in shared memory is stored as D / 64
-// column blocks of ROWS x 128 bytes; the 16-byte chunk c of row r sits at
+// A tile of ROWS rows x D 2-byte channels in shared memory is stored as D /
+// 64 column blocks of ROWS x 128 bytes; the 16-byte chunk c of row r sits at
 // chunk position c ^ (r % 8) of its 128-byte row (the 128-byte swizzle). A
 // wgmma descriptor: start address, leading and stride byte offsets (16-byte
 // units), layout 1 = 128-byte swizzle.
@@ -828,37 +883,44 @@ __device__ __forceinline__ uint64_t desc_mn_major(uint32_t tile, int kk) {
 // row) into the swizzled layout, one 16-byte cp.async per chunk; neighbouring
 // threads take neighbouring chunks of a row. A zero row's copies name
 // `valid_src`, a mapped address, and read nothing from it.
-template <int ROWS, int D, typename RowPtr>
-__device__ __forceinline__ void load_tile_async(bf16* dst, const bf16* valid_src,
+template <int ROWS, int D, typename E, typename RowPtr>
+__device__ __forceinline__ void load_tile_async(E* dst, const E* valid_src,
                                                 RowPtr row_ptr) {
   constexpr int kChunks = D / 8;
   for (int e = threadIdx.x; e < ROWS * kChunks; e += kWgThreads) {
     const int r = e / kChunks, c = e % kChunks;
-    const bf16* src = row_ptr(r);
-    bf16* out = dst + (c >> 3) * ROWS * 64 + r * 64 + (((c & 7) ^ (r & 7)) << 3);
+    const E* src = row_ptr(r);
+    E* out = dst + (c >> 3) * ROWS * 64 + r * 64 + (((c & 7) ^ (r & 7)) << 3);
     cp_async16(out, src != nullptr ? src + c * 8 : valid_src, src != nullptr);
   }
 }
 
-__device__ __forceinline__ uint32_t bf16x2_bits(__nv_bfloat162 x) {
+template <typename Pair>
+__device__ __forceinline__ uint32_t pair_bits(Pair x) {
   return *reinterpret_cast<uint32_t*>(&x);
 }
 
-// Accumulator values x[2 r], x[2 r + 1] (r = 0..3) of k-step kk, split into
-// the A fragments hi = bf16(x) and lo = bf16(x - hi). The accumulator of a
-// 64 x N wgmma holds, in thread t of the warpgroup, element 4 j + e at row
-// 16 (t / 32) + (t % 32) / 4 + 8 (e / 2) and column 8 j + 2 (t % 4) + e % 2;
-// the A fragment of k-step kk is elements 8 kk .. 8 kk + 7 in that order.
-template <int N>
+// Accumulator values x[2 r], x[2 r + 1] (r = 0..3) of k-step kk, each
+// times mul[h] of its row h, split into the A fragments hi = E(x) and lo =
+// E(x - hi). The accumulator of a 64 x N wgmma holds, in thread t of the
+// warpgroup, element 4 j + e at row 16 (t / 32) + (t % 32) / 4 + 8 (e / 2)
+// and column 8 j + 2 (t % 4) + e % 2 (so element i is in row half (i / 2)
+// % 2); the A fragment of k-step kk is elements 8 kk .. 8 kk + 7 in that
+// order. Without mul (p, and bf16 ds) nothing is multiplied.
+template <typename E, int N>
 __device__ __forceinline__ void split_hi_lo(const float (&x)[N], int kk, uint32_t (&hi)[4],
-                                            uint32_t (&lo)[4]) {
+                                            uint32_t (&lo)[4], const float* mul = nullptr) {
 #pragma unroll
   for (int r = 0; r < 4; ++r) {
-    const float a = x[8 * kk + 2 * r], b = x[8 * kk + 2 * r + 1];
-    const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
-    const float2 hf = __bfloat1622float2(h);
-    hi[r] = bf16x2_bits(h);
-    lo[r] = bf16x2_bits(__floats2bfloat162_rn(a - hf.x, b - hf.y));
+    float a = x[8 * kk + 2 * r], b = x[8 * kk + 2 * r + 1];
+    if (mul != nullptr) {
+      a *= mul[r & 1];
+      b *= mul[r & 1];
+    }
+    const typename Elem<E>::Pair h = Elem<E>::pack(a, b);
+    const float2 hf = Elem<E>::unpack(h);
+    hi[r] = pair_bits(h);
+    lo[r] = pair_bits(Elem<E>::pack(a - hf.x, b - hf.y));
   }
 }
 
@@ -872,145 +934,184 @@ __device__ __forceinline__ float quad_sum(float x) {
   return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
-// d (64 x 32, fp32) = A (64 x 16) * B (32 x 16)^T (+ d when scale_d != 0); A
-// and B in shared memory, both K-major.
-__device__ __forceinline__ void wgmma_ss_n32(float (&d)[16], uint64_t desc_a,
-                                             uint64_t desc_b, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
-      "%16, %17, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+// 2^n exactly, for n in [-126, 127].
+__device__ __forceinline__ float exp2i(int n) { return __int_as_float((n + 127) << 23); }
+
+// f16: brings each of this thread's two accumulator rows' ds into range
+// before the split. x holds the rows' float32 ds of this tile (element i in
+// row half (i / 2) % 2), ex the rows' exponents so far, acc their
+// accumulators. A row whose largest |ds| (over the quad that holds it) needs
+// a smaller exponent takes it, and its accumulator is scaled by the same
+// power of two, exactly; mul gets 2^exp of each row. The exponent comes from
+// the float's bits (0 and subnormals give kDsExpStart, inf gives kDsExpMin);
+// a warp multiplies its accumulators only when one of its rows' exponents
+// fell, which after a row's first tiles is rare.
+template <int N, int M>
+__device__ __forceinline__ void ds_row_scale(const float (&x)[N], int (&ex)[2], float (&acc)[M],
+                                             float (&mul)[2]) {
+  float mx[2] = {0.f, 0.f};
+#pragma unroll
+  for (int i = 0; i < N; ++i) mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], fabsf(x[i]));
+  float f[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int bits = ((__float_as_int(quad_max(mx[h])) >> 23) & 0xff) - 127;
+    const int e = min(min(max(14 - bits, kDsExpMin), kDsExpStart), ex[h]);
+    f[h] = exp2i(e - ex[h]);  // 1 unless the row's exponent fell
+    ex[h] = e;
+    mul[h] = exp2i(e);
+  }
+  if (__any_sync(0xffffffffu, f[0] != 1.f || f[1] != 1.f)) {
+#pragma unroll
+    for (int i = 0; i < M; ++i) acc[i] *= f[(i >> 1) & 1];
+  }
 }
 
-// d (64 x 64, fp32) = A (64 x 16) * B (64 x 16)^T (+ d when scale_d != 0); A
-// and B in shared memory, both K-major.
-__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t desc_a,
-                                             uint64_t desc_b, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "%32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
-}
+// The wgmma instructions, for bf16 ("bf16") or f16 ("f16") operands.
+#define DLTI_WGMMA_SS_N32(TY)                                                              \
+  asm volatile(                                                                            \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"                                        \
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32." TY "." TY " {"                        \
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "           \
+      "%16, %17, p, 1, 1, 0, 0;\n}\n"                                                      \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),           \
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),         \
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])                                \
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d))
 
-// d (64 x 64, fp32) = A (64 x 16) * B (16 x 64) (+ d when scale_d != 0); A in
-// four registers of bf16 pairs, B in shared memory, MN-major.
-__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)[4],
-                                              uint64_t desc_b, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
-}
+#define DLTI_WGMMA_SS_N64(TY)                                                              \
+  asm volatile(                                                                            \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"                                        \
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " {"                        \
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"             \
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, " \
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"                                                      \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),           \
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),         \
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),     \
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),     \
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),     \
+        "+f"(d[30]), "+f"(d[31])                                                          \
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d))
 
-// d (64 x 128, fp32) = A (64 x 16) * B (16 x 128) (+ d when scale_d != 0); A in
-// four registers of bf16 pairs, B in shared memory, MN-major.
-__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a)[4],
-                                              uint64_t desc_b, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
-        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
-        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
-}
+#define DLTI_WGMMA_RS_N64(TY)                                                              \
+  asm volatile(                                                                            \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"                                        \
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " {"                        \
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"             \
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, " \
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"                                        \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),           \
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),         \
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),     \
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),     \
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),     \
+        "+f"(d[30]), "+f"(d[31])                                                          \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d))
 
-// d (64 x 256, fp32) = A (64 x 16) * B (16 x 256) (+ d when scale_d != 0); A in
-// four registers of bf16 pairs, B in shared memory, MN-major.
-__device__ __forceinline__ void wgmma_rs_n256(float (&d)[128], const uint32_t (&a)[4],
-                                              uint64_t desc_b, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63,"
-      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79,"
-      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95,"
-      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111,"
-      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, "
-      "{%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
-        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
-        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]),
-        "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
-        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]),
-        "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
-        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
-        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
-        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]),
-        "+f"(d[102]), "+f"(d[103]), "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
-        "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]),
-        "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
-        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]),
-        "+f"(d[126]), "+f"(d[127])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
-}
+#define DLTI_WGMMA_RS_N128(TY)                                                             \
+  asm volatile(                                                                            \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"                                        \
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32." TY "." TY " {"                       \
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"             \
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"   \
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"   \
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, " \
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"                                        \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),           \
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),         \
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),     \
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),     \
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),     \
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),     \
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),     \
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),     \
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),     \
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),     \
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])                                \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d))
 
-template <int N>
-__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t a, uint64_t b, int scale_d) {
-  if constexpr (N == 32) wgmma_ss_n32(d, a, b, scale_d);
-  else wgmma_ss_n64(d, a, b, scale_d);
-}
+#define DLTI_WGMMA_RS_N256(TY)                                                                  \
+  asm volatile(                                                                                 \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"                                            \
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32." TY "." TY " {"                            \
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"                  \
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"        \
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"        \
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63,"        \
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79,"        \
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95,"        \
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, " \
+      "%111, %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, "   \
+      "%125, %126, %127}, "                                                                     \
+      "{%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"                                        \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),                \
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),              \
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),          \
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),          \
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),          \
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),          \
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),          \
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),          \
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),          \
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),          \
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]),          \
+        "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),          \
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]),          \
+        "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),          \
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),          \
+        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),          \
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]),        \
+        "+f"(d[102]), "+f"(d[103]), "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),    \
+        "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]),    \
+        "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),    \
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]),    \
+        "+f"(d[126]), "+f"(d[127])                                                              \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d))
 
-template <int N>
-__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t b,
+// d (64 x N, fp32) = A (64 x 16) * B (N x 16)^T (+ d when scale_d != 0); A
+// and B in shared memory, both K-major. N = 32 or 64.
+template <typename E, int N>
+__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t desc_a, uint64_t desc_b,
                                          int scale_d) {
-  if constexpr (N == 64) wgmma_rs_n64(d, a, b, scale_d);
-  else if constexpr (N == 128) wgmma_rs_n128(d, a, b, scale_d);
-  else wgmma_rs_n256(d, a, b, scale_d);
+  if constexpr (N == 32) {
+    if constexpr (Elem<E>::kF16) DLTI_WGMMA_SS_N32("f16");
+    else DLTI_WGMMA_SS_N32("bf16");
+  } else {
+    if constexpr (Elem<E>::kF16) DLTI_WGMMA_SS_N64("f16");
+    else DLTI_WGMMA_SS_N64("bf16");
+  }
 }
 
+// d (64 x N, fp32) = A (64 x 16) * B (16 x N) (+ d when scale_d != 0); A in
+// four registers of element pairs, B in shared memory, MN-major. N = 64,
+// 128 or 256.
+template <typename E, int N>
+__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[4],
+                                         uint64_t desc_b, int scale_d) {
+  if constexpr (N == 64) {
+    if constexpr (Elem<E>::kF16) DLTI_WGMMA_RS_N64("f16");
+    else DLTI_WGMMA_RS_N64("bf16");
+  } else if constexpr (N == 128) {
+    if constexpr (Elem<E>::kF16) DLTI_WGMMA_RS_N128("f16");
+    else DLTI_WGMMA_RS_N128("bf16");
+  } else {
+    if constexpr (Elem<E>::kF16) DLTI_WGMMA_RS_N256("f16");
+    else DLTI_WGMMA_RS_N256("bf16");
+  }
+}
+
+#undef DLTI_WGMMA_SS_N32
+#undef DLTI_WGMMA_SS_N64
+#undef DLTI_WGMMA_RS_N64
+#undef DLTI_WGMMA_RS_N128
+#undef DLTI_WGMMA_RS_N256
+
 // ---------------------------------------------------------------------------
-// K1, bf16: wgmma
+// K1, bf16 and f16: wgmma
 // ---------------------------------------------------------------------------
 
-// kv tile of the bf16 forward: 64 rows; 32 at d = 256, where the output
+// kv tile of the 2-byte forward: 64 rows; 32 at d = 256, where the output
 // accumulator alone takes 128 registers a thread.
 template <int D> constexpr int fwd_wgmma_tile() { return D == 256 ? 32 : 64; }
 
@@ -1020,16 +1121,16 @@ constexpr size_t fwd_wgmma_smem_bytes() {
   return 1024 + sizeof(bf16) * ((size_t)kRows * D + 4 * (size_t)BK * D) + sizeof(int) * 2 * BK;
 }
 
-template <int D, int BK>
+template <typename E, int D, int BK>
 __global__ void __launch_bounds__(kWgThreads, 1)
-flash_fwd_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                       const bf16* __restrict__ v, const int32_t* __restrict__ seg,
-                       bf16* __restrict__ o, float* __restrict__ lse, FlashParams p) {
+flash_fwd_wgmma_kernel(const E* __restrict__ q, const E* __restrict__ k,
+                       const E* __restrict__ v, const int32_t* __restrict__ seg,
+                       E* __restrict__ o, float* __restrict__ lse, FlashParams p) {
   constexpr int KT = BK * D;  // elements of one K or V tile
   extern __shared__ uint8_t smem_raw[];
-  bf16* qs = reinterpret_cast<bf16*>(align_1024(smem_raw));
-  bf16* ks = qs + kRows * D;  // two stages
-  bf16* vs = ks + 2 * KT;     // two stages
+  E* qs = reinterpret_cast<E*>(align_1024(smem_raw));
+  E* ks = qs + kRows * D;  // two stages
+  E* vs = ks + 2 * KT;     // two stages
   int* kseg = reinterpret_cast<int*>(vs + 2 * KT);  // two stages of BK ids
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
@@ -1065,8 +1166,8 @@ flash_fwd_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     return k0;
   };
   auto load_kv = [&](int k0, int stage) {
-    auto kv_row = [&](const bf16* base) {
-      return [&, base](int r) -> const bf16* {
+    auto kv_row = [&](const E* base) {
+      return [&, base](int r) -> const E* {
         if (k0 + r >= p.skv) return nullptr;
         return base + (((size_t)b * p.skv + k0 + r) * p.kv_heads + kvh) * D;
       };
@@ -1077,7 +1178,7 @@ flash_fwd_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       cp_async4(kseg + stage * BK + tid, seg + (size_t)b * p.skv + k0 + tid, k0 + tid < p.skv);
   };
 
-  load_tile_async<kRows, D>(qs, q, [&](int r) -> const bf16* {
+  load_tile_async<kRows, D>(qs, q, [&](int r) -> const E* {
     const int qi = slot_q(p, q0, r);
     if (qi >= p.sq) return nullptr;
     return q + (((size_t)b * p.sq + qi) * p.heads + kvh * p.group + r / p.bq) * D;
@@ -1109,7 +1210,7 @@ flash_fwd_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk)
-      wgmma_ss<BK>(s, desc_k_major<kRows>(qs_addr, kk), desc_k_major<BK>(ks_addr, kk), kk > 0);
+      wgmma_ss<E, BK>(s, desc_k_major<kRows>(qs_addr, kk), desc_k_major<BK>(ks_addr, kk), kk > 0);
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(s);
@@ -1137,11 +1238,13 @@ flash_fwd_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       alpha[h] = exp2f(m_i[h] - m_use[h]);
       m_i[h] = m_new;
     }
+    // f16: p times 2^14 (exact), so l and acc are too; o = acc / l is not.
     float rs[2] = {0.f, 0.f};
 #pragma unroll
     for (int i = 0; i < BK / 2; ++i) {
       const int h = (i >> 1) & 1;
       s[i] = exp2f(s[i] - m_use[h]);
+      if constexpr (Elem<E>::kF16) s[i] *= kPScale;
       rs[h] += s[i];
     }
 #pragma unroll
@@ -1151,12 +1254,12 @@ flash_fwd_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
     uint32_t p_hi[BK / 16][4], p_lo[BK / 16][4];
 #pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) split_hi_lo(s, kk, p_hi[kk], p_lo[kk]);
+    for (int kk = 0; kk < BK / 16; ++kk) split_hi_lo<E>(s, kk, p_hi[kk], p_lo[kk]);
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < BK / 16; ++kk) {
-      wgmma_rs<D>(acc, p_hi[kk], desc_mn_major<BK>(vs_addr, kk), 1);
-      wgmma_rs<D>(acc, p_lo[kk], desc_mn_major<BK>(vs_addr, kk), 1);
+      wgmma_rs<E, D>(acc, p_hi[kk], desc_mn_major<BK>(vs_addr, kk), 1);
+      wgmma_rs<E, D>(acc, p_lo[kk], desc_mn_major<BK>(vs_addr, kk), 1);
     }
     wgmma_commit();
     wgmma_wait<0>();
@@ -1178,19 +1281,20 @@ flash_fwd_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     if (qi >= p.sq) continue;
     const int head = kvh * p.group + r / p.bq;
     const float l = l_row[h], inv = l > 0.f ? 1.f / l : 0.f;
-    bf16* orow = o + (((size_t)b * p.sq + qi) * p.heads + head) * D + 2 * (lane & 3);
+    E* orow = o + (((size_t)b * p.sq + qi) * p.heads + head) * D + 2 * (lane & 3);
 #pragma unroll
     for (int j = 0; j < D / 8; ++j)
-      *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j) =
-          __floats2bfloat162_rn(acc[4 * j + 2 * h] * inv, acc[4 * j + 2 * h + 1] * inv);
+      *reinterpret_cast<typename Elem<E>::Pair*>(orow + 8 * j) =
+          Elem<E>::pack(acc[4 * j + 2 * h] * inv, acc[4 * j + 2 * h + 1] * inv);
+    const float l_true = Elem<E>::kF16 ? l * kPUnscale : l;
     if ((lane & 3) == 0)
       lse[((size_t)b * p.heads + head) * p.sq + qi] =
-          l > 0.f ? (m_i[h] + log2f(l)) * kLn2 : kMaskedLse;
+          l > 0.f ? (m_i[h] + log2f(l_true)) * kLn2 : kMaskedLse;
   }
 }
 
 // ---------------------------------------------------------------------------
-// K3, bf16 at d 64 and 128: wgmma
+// K3, bf16 and f16 at d 64 and 128: wgmma
 // ---------------------------------------------------------------------------
 
 template <int D>
@@ -1201,19 +1305,19 @@ constexpr size_t dkv_wgmma_smem_bytes() {
          + sizeof(int) * kRows;
 }
 
-template <int D>
+template <typename E, int D>
 __global__ void __launch_bounds__(kWgThreads, 1)
-flash_bwd_dkv_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                           const bf16* __restrict__ v, const bf16* __restrict__ dout,
+flash_bwd_dkv_wgmma_kernel(const E* __restrict__ q, const E* __restrict__ k,
+                           const E* __restrict__ v, const E* __restrict__ dout,
                            const float* __restrict__ lse, const float* __restrict__ delta,
-                           const int32_t* __restrict__ seg, bf16* __restrict__ dk,
-                           bf16* __restrict__ dv, FlashParams p) {
+                           const int32_t* __restrict__ seg, E* __restrict__ dk,
+                           E* __restrict__ dv, FlashParams p) {
   constexpr int T = kRows * D;  // elements of one 64-row tile
   extern __shared__ uint8_t smem_raw[];
-  bf16* ks = reinterpret_cast<bf16*>(align_1024(smem_raw));
-  bf16* vs = ks + T;
-  bf16* qs = vs + T;        // two stages
-  bf16* dos = qs + 2 * T;   // two stages
+  E* ks = reinterpret_cast<E*>(align_1024(smem_raw));
+  E* vs = ks + T;
+  E* qs = vs + T;        // two stages
+  E* dos = qs + 2 * T;   // two stages
   float* lse_s = reinterpret_cast<float*>(dos + 2 * T);  // two stages of kRows
   float* dl_s = lse_s + 2 * kRows;
   int* qseg_s = reinterpret_cast<int*>(dl_s + 2 * kRows);
@@ -1249,8 +1353,8 @@ flash_bwd_dkv_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ 
     return q0;
   };
   auto load_q = [&](int q0, int stage) {
-    auto q_row = [&](const bf16* base) {
-      return [&, base](int r) -> const bf16* {
+    auto q_row = [&](const E* base) {
+      return [&, base](int r) -> const E* {
         const int qi = slot_q(p, q0, r);
         if (qi >= p.sq) return nullptr;
         return base + (((size_t)b * p.sq + qi) * p.heads + kvh * p.group + r / p.bq) * D;
@@ -1270,8 +1374,8 @@ flash_bwd_dkv_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ 
     }
   };
 
-  auto kv_row = [&](const bf16* base) {
-    return [&, base](int r) -> const bf16* {
+  auto kv_row = [&](const E* base) {
+    return [&, base](int r) -> const E* {
       if (r >= n) return nullptr;
       return base + (((size_t)b * p.skv + k0 + r) * p.kv_heads + kvh) * D;
     };
@@ -1285,6 +1389,8 @@ flash_bwd_dkv_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ 
   float dk_acc[D / 2], dv_acc[D / 2];
 #pragma unroll
   for (int i = 0; i < D / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+  // f16: dk_acc holds dK * 2^ds_exp[h] per kv row, dv_acc dV * 2^14.
+  int ds_exp[2] = {kDsExpStart, kDsExpStart};
   const float sl2 = p.scale * kLog2e;
   const uint32_t ks_addr = smem_addr(ks), vs_addr = smem_addr(vs);
 
@@ -1305,11 +1411,12 @@ flash_bwd_dkv_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ 
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk)
-      wgmma_ss<64>(st, desc_k_major<kRows>(ks_addr, kk), desc_k_major<kRows>(qs_addr, kk), kk > 0);
+      wgmma_ss<E, 64>(st, desc_k_major<kRows>(ks_addr, kk), desc_k_major<kRows>(qs_addr, kk),
+                      kk > 0);
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk)
-      wgmma_ss<64>(dpt, desc_k_major<kRows>(vs_addr, kk), desc_k_major<kRows>(dos_addr, kk),
-                   kk > 0);
+      wgmma_ss<E, 64>(dpt, desc_k_major<kRows>(vs_addr, kk), desc_k_major<kRows>(dos_addr, kk),
+                      kk > 0);
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(st);
@@ -1333,7 +1440,7 @@ flash_bwd_dkv_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ 
         if (off < 0 || !allowed(p, cur + off, krow[h], p.has_seg ? qsg[c] : 0, kseg_r[h]))
           pr = 0.f;
       }
-      st[i] = pr;
+      st[i] = Elem<E>::kF16 ? pr * kPScale : pr;
       dpt[i] = pr * (dpt[i] - dls[c]) * p.scale;
     }
 
@@ -1341,22 +1448,26 @@ flash_bwd_dkv_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ 
     // B = dO, Q as MN-major operands (the 64 q slots are the reduction).
     uint32_t hi[4][4], lo[4][4];
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) split_hi_lo(st, kk, hi[kk], lo[kk]);
+    for (int kk = 0; kk < 4; ++kk) split_hi_lo<E>(st, kk, hi[kk], lo[kk]);
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk) {
-      wgmma_rs<D>(dv_acc, hi[kk], desc_mn_major<kRows>(dos_addr, kk), 1);
-      wgmma_rs<D>(dv_acc, lo[kk], desc_mn_major<kRows>(dos_addr, kk), 1);
+      wgmma_rs<E, D>(dv_acc, hi[kk], desc_mn_major<kRows>(dos_addr, kk), 1);
+      wgmma_rs<E, D>(dv_acc, lo[kk], desc_mn_major<kRows>(dos_addr, kk), 1);
     }
     wgmma_commit();
+    // f16: dk_acc is not read by a wgmma in flight here (only dv_acc is).
+    float ds_mul[2];
+    if constexpr (Elem<E>::kF16) ds_row_scale(dpt, ds_exp, dk_acc, ds_mul);
     uint32_t ds_hi[4][4], ds_lo[4][4];
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) split_hi_lo(dpt, kk, ds_hi[kk], ds_lo[kk]);
+    for (int kk = 0; kk < 4; ++kk)
+      split_hi_lo<E>(dpt, kk, ds_hi[kk], ds_lo[kk], Elem<E>::kF16 ? ds_mul : nullptr);
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk) {
-      wgmma_rs<D>(dk_acc, ds_hi[kk], desc_mn_major<kRows>(qs_addr, kk), 1);
-      wgmma_rs<D>(dk_acc, ds_lo[kk], desc_mn_major<kRows>(qs_addr, kk), 1);
+      wgmma_rs<E, D>(dk_acc, ds_hi[kk], desc_mn_major<kRows>(qs_addr, kk), 1);
+      wgmma_rs<E, D>(dk_acc, ds_lo[kk], desc_mn_major<kRows>(qs_addr, kk), 1);
     }
     wgmma_commit();
     wgmma_wait<0>();
@@ -1374,19 +1485,23 @@ flash_bwd_dkv_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ 
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     if (krow[h] >= p.skv) continue;
+    // f16: undo the exact powers of two (1 and 1 for bf16).
+    const float dk_unscale = Elem<E>::kF16 ? exp2i(-ds_exp[h]) : 1.f;
+    const float dv_unscale = Elem<E>::kF16 ? kPUnscale : 1.f;
     const size_t at = (((size_t)b * p.skv + krow[h]) * p.kv_heads + kvh) * D + 2 * (lane & 3);
+    using Pair = typename Elem<E>::Pair;
 #pragma unroll
     for (int j = 0; j < D / 8; ++j) {
-      *reinterpret_cast<__nv_bfloat162*>(dk + at + 8 * j) =
-          __floats2bfloat162_rn(dk_acc[4 * j + 2 * h], dk_acc[4 * j + 2 * h + 1]);
-      *reinterpret_cast<__nv_bfloat162*>(dv + at + 8 * j) =
-          __floats2bfloat162_rn(dv_acc[4 * j + 2 * h], dv_acc[4 * j + 2 * h + 1]);
+      *reinterpret_cast<Pair*>(dk + at + 8 * j) = Elem<E>::pack(
+          dk_acc[4 * j + 2 * h] * dk_unscale, dk_acc[4 * j + 2 * h + 1] * dk_unscale);
+      *reinterpret_cast<Pair*>(dv + at + 8 * j) = Elem<E>::pack(
+          dv_acc[4 * j + 2 * h] * dv_unscale, dv_acc[4 * j + 2 * h + 1] * dv_unscale);
     }
   }
 }
 
 // ---------------------------------------------------------------------------
-// K2, bf16: wgmma
+// K2, bf16 and f16: wgmma
 // ---------------------------------------------------------------------------
 
 template <int D, int BK>
@@ -1396,19 +1511,19 @@ constexpr size_t dq_wgmma_smem_bytes() {
          + sizeof(int) * 2 * BK;
 }
 
-template <int D, int BK>
+template <typename E, int D, int BK>
 __global__ void __launch_bounds__(kWgThreads, 1)
-flash_bwd_dq_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                          const bf16* __restrict__ v, const bf16* __restrict__ dout,
+flash_bwd_dq_wgmma_kernel(const E* __restrict__ q, const E* __restrict__ k,
+                          const E* __restrict__ v, const E* __restrict__ dout,
                           const float* __restrict__ lse, const float* __restrict__ delta,
-                          const int32_t* __restrict__ seg, bf16* __restrict__ dq,
+                          const int32_t* __restrict__ seg, E* __restrict__ dq,
                           FlashParams p) {
   constexpr int KT = BK * D;  // elements of one K or V tile
   extern __shared__ uint8_t smem_raw[];
-  bf16* qs = reinterpret_cast<bf16*>(align_1024(smem_raw));
-  bf16* dos = qs + kRows * D;
-  bf16* ks = dos + kRows * D;  // two stages
-  bf16* vs = ks + 2 * KT;      // two stages
+  E* qs = reinterpret_cast<E*>(align_1024(smem_raw));
+  E* dos = qs + kRows * D;
+  E* ks = dos + kRows * D;  // two stages
+  E* vs = ks + 2 * KT;      // two stages
   int* kseg = reinterpret_cast<int*>(vs + 2 * KT);  // two stages of BK ids
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
@@ -1449,8 +1564,8 @@ flash_bwd_dq_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
     return k0;
   };
   auto load_kv = [&](int k0, int stage) {
-    auto kv_row = [&](const bf16* base) {
-      return [&, base](int r) -> const bf16* {
+    auto kv_row = [&](const E* base) {
+      return [&, base](int r) -> const E* {
         if (k0 + r >= p.skv) return nullptr;
         return base + (((size_t)b * p.skv + k0 + r) * p.kv_heads + kvh) * D;
       };
@@ -1461,8 +1576,8 @@ flash_bwd_dq_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
       cp_async4(kseg + stage * BK + tid, seg + (size_t)b * p.skv + k0 + tid, k0 + tid < p.skv);
   };
 
-  auto q_row = [&](const bf16* base) {
-    return [&, base](int r) -> const bf16* {
+  auto q_row = [&](const E* base) {
+    return [&, base](int r) -> const E* {
       const int qi = slot_q(p, q0, r);
       if (qi >= p.sq) return nullptr;
       return base + (((size_t)b * p.sq + qi) * p.heads + kvh * p.group + r / p.bq) * D;
@@ -1477,6 +1592,7 @@ flash_bwd_dq_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
   float acc[D / 2];
 #pragma unroll
   for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  int ds_exp[2] = {kDsExpStart, kDsExpStart};  // f16: acc holds dQ * 2^ds_exp[h]
   const float sl2 = p.scale * kLog2e;
   const uint32_t qs_addr = smem_addr(qs), dos_addr = smem_addr(dos);
 
@@ -1497,10 +1613,11 @@ flash_bwd_dq_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk)
-      wgmma_ss<BK>(s, desc_k_major<kRows>(qs_addr, kk), desc_k_major<BK>(ks_addr, kk), kk > 0);
+      wgmma_ss<E, BK>(s, desc_k_major<kRows>(qs_addr, kk), desc_k_major<BK>(ks_addr, kk), kk > 0);
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk)
-      wgmma_ss<BK>(dp, desc_k_major<kRows>(dos_addr, kk), desc_k_major<BK>(vs_addr, kk), kk > 0);
+      wgmma_ss<E, BK>(dp, desc_k_major<kRows>(dos_addr, kk), desc_k_major<BK>(vs_addr, kk),
+                      kk > 0);
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(s);
@@ -1524,14 +1641,17 @@ flash_bwd_dq_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
 
     // dQ += dS K: A = dS (hi and lo) from registers, B = K as an MN-major
     // operand (the BK kv rows are the reduction).
+    float ds_mul[2];
+    if constexpr (Elem<E>::kF16) ds_row_scale(s, ds_exp, acc, ds_mul);
     uint32_t ds_hi[BK / 16][4], ds_lo[BK / 16][4];
 #pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) split_hi_lo(s, kk, ds_hi[kk], ds_lo[kk]);
+    for (int kk = 0; kk < BK / 16; ++kk)
+      split_hi_lo<E>(s, kk, ds_hi[kk], ds_lo[kk], Elem<E>::kF16 ? ds_mul : nullptr);
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < BK / 16; ++kk) {
-      wgmma_rs<D>(acc, ds_hi[kk], desc_mn_major<BK>(ks_addr, kk), 1);
-      wgmma_rs<D>(acc, ds_lo[kk], desc_mn_major<BK>(ks_addr, kk), 1);
+      wgmma_rs<E, D>(acc, ds_hi[kk], desc_mn_major<BK>(ks_addr, kk), 1);
+      wgmma_rs<E, D>(acc, ds_lo[kk], desc_mn_major<BK>(ks_addr, kk), 1);
     }
     wgmma_commit();
     wgmma_wait<0>();
@@ -1548,12 +1668,13 @@ flash_bwd_dq_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
     const int r = 16 * warp + (lane >> 2) + 8 * h;
     const int qi = row_q[h];
     if (qi >= p.sq) continue;
-    bf16* row = dq + (((size_t)b * p.sq + qi) * p.heads + kvh * p.group + r / p.bq) * D
-                + 2 * (lane & 3);
+    E* row = dq + (((size_t)b * p.sq + qi) * p.heads + kvh * p.group + r / p.bq) * D
+             + 2 * (lane & 3);
+    const float unscale = Elem<E>::kF16 ? exp2i(-ds_exp[h]) : 1.f;
 #pragma unroll
     for (int j = 0; j < D / 8; ++j)
-      *reinterpret_cast<__nv_bfloat162*>(row + 8 * j) =
-          __floats2bfloat162_rn(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+      *reinterpret_cast<typename Elem<E>::Pair*>(row + 8 * j) =
+          Elem<E>::pack(acc[4 * j + 2 * h] * unscale, acc[4 * j + 2 * h + 1] * unscale);
   }
 }
 
@@ -1565,10 +1686,13 @@ flash_bwd_dq_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
 // d = 256 so that the float32 tiles fit the 227 KB a block may use.
 template <int D> constexpr int kv_tile() { return D == 256 ? 32 : 64; }
 
+// dtype codes: 0 = float32, 1 = bfloat16, 2 = float16.
+constexpr bool known_dtype(int dtype) { return dtype >= 0 && dtype <= 2; }
+
 // Whether kernel `which` (0 = K1, 1 = K2, 2 = K3) at head_dim d and dtype
 // code `dtype` runs its wgmma program or its CUDA-core one.
 constexpr bool uses_wgmma(int which, int d, int dtype) {
-  return dtype == 1 && (which <= 1 || (which == 2 && d <= 128));
+  return (dtype == 1 || dtype == 2) && (which <= 1 || (which == 2 && d <= 128));
 }
 
 template <int D> size_t smem_for(int which, int dtype) {
@@ -1584,7 +1708,7 @@ template <int D> size_t smem_for(int which, int dtype) {
 }
 
 size_t smem_bytes(int which, int d, int dtype) {
-  if (dtype != 0 && dtype != 1) return 0;
+  if (!known_dtype(dtype)) return 0;
   switch (d) {
     case 64: return smem_for<64>(which, dtype);
     case 128: return smem_for<128>(which, dtype);
@@ -1594,10 +1718,11 @@ size_t smem_bytes(int which, int d, int dtype) {
 }
 
 const char* impl_name(int which, int d, int dtype) {
-  if ((d != 64 && d != 128 && d != 256) || (dtype != 0 && dtype != 1) || which < 0
-      || which > 2)
+  if ((d != 64 && d != 128 && d != 256) || !known_dtype(dtype) || which < 0 || which > 2)
     return "";
-  return uses_wgmma(which, d, dtype) ? "wgmma bf16 hi/lo, cp.async 2-stage" : "cuda-core fp32";
+  if (!uses_wgmma(which, d, dtype)) return "cuda-core fp32";
+  return dtype == 1 ? "wgmma bf16 hi/lo, cp.async 2-stage"
+                    : "wgmma f16 hi/lo, power-of-2 scaled, cp.async 2-stage";
 }
 
 template <typename Kernel>
@@ -1607,53 +1732,62 @@ cudaError_t set_smem(Kernel kernel, size_t smem) {
                               (int)smem);
 }
 
-// The wgmma programs (bf16): K1 and K2 at every head_dim, K3 at d 64 and 128.
-template <int D>
+// The wgmma programs (bf16 and f16): K1 and K2 at every head_dim, K3 at d
+// 64 and 128.
+template <typename E, int D>
 cudaError_t launch_wgmma(int which, const void* q, const void* k, const void* v,
                          const void* dout, const void* lse, const void* delta,
                          const void* seg, void* out0, void* out1, void* out_lse,
                          const FlashParams& p, cudaStream_t stream) {
-  const size_t smem = smem_bytes(which, D, 1);
-  const bf16* tq = static_cast<const bf16*>(q);
-  const bf16* tk = static_cast<const bf16*>(k);
-  const bf16* tv = static_cast<const bf16*>(v);
+  const size_t smem = smem_bytes(which, D, Elem<E>::kCode);
+  const E* tq = static_cast<const E*>(q);
+  const E* tk = static_cast<const E*>(k);
+  const E* tv = static_cast<const E*>(v);
   const int32_t* sg = static_cast<const int32_t*>(seg);
   cudaError_t err;
   if (which == 0) {
-    auto kernel = flash_fwd_wgmma_kernel<D, fwd_wgmma_tile<D>()>;
+    auto kernel = flash_fwd_wgmma_kernel<E, D, fwd_wgmma_tile<D>()>;
     if ((err = set_smem(kernel, smem)) != cudaSuccess) return err;
     dim3 grid((p.sq + p.bq - 1) / p.bq, p.batch * p.kv_heads);
-    kernel<<<grid, kWgThreads, smem, stream>>>(tq, tk, tv, sg, static_cast<bf16*>(out0),
+    kernel<<<grid, kWgThreads, smem, stream>>>(tq, tk, tv, sg, static_cast<E*>(out0),
                                                static_cast<float*>(out_lse), p);
   } else if (which == 1) {
-    auto kernel = flash_bwd_dq_wgmma_kernel<D, fwd_wgmma_tile<D>()>;
+    auto kernel = flash_bwd_dq_wgmma_kernel<E, D, fwd_wgmma_tile<D>()>;
     if ((err = set_smem(kernel, smem)) != cudaSuccess) return err;
     dim3 grid((p.sq + p.bq - 1) / p.bq, p.batch * p.kv_heads);
     kernel<<<grid, kWgThreads, smem, stream>>>(
-        tq, tk, tv, static_cast<const bf16*>(dout), static_cast<const float*>(lse),
-        static_cast<const float*>(delta), sg, static_cast<bf16*>(out0), p);
+        tq, tk, tv, static_cast<const E*>(dout), static_cast<const float*>(lse),
+        static_cast<const float*>(delta), sg, static_cast<E*>(out0), p);
   } else if constexpr (D <= 128) {
-    auto kernel = flash_bwd_dkv_wgmma_kernel<D>;
+    auto kernel = flash_bwd_dkv_wgmma_kernel<E, D>;
     if ((err = set_smem(kernel, smem)) != cudaSuccess) return err;
     dim3 grid((p.skv + kRows - 1) / kRows, p.batch * p.kv_heads);
     kernel<<<grid, kWgThreads, smem, stream>>>(
-        tq, tk, tv, static_cast<const bf16*>(dout), static_cast<const float*>(lse),
-        static_cast<const float*>(delta), sg, static_cast<bf16*>(out0),
-        static_cast<bf16*>(out1), p);
+        tq, tk, tv, static_cast<const E*>(dout), static_cast<const float*>(lse),
+        static_cast<const float*>(delta), sg, static_cast<E*>(out0),
+        static_cast<E*>(out1), p);
   }
   return cudaGetLastError();
 }
 
-// The CUDA-core programs: every kernel in float32; K3 at d 256 in bf16.
+template <typename T> constexpr int dtype_code() {
+  if constexpr (std::is_same<T, float>::value) return 0;
+  else return Elem<T>::kCode;
+}
+
+// The CUDA-core programs: every kernel in float32; K3 at d 256 in bf16 and
+// f16.
 template <typename T, int D>
 cudaError_t launch(int which, const void* q, const void* k, const void* v,
                    const void* dout, const void* lse, const void* delta,
                    const void* seg, void* out0, void* out1, void* out_lse,
                    const FlashParams& p, cudaStream_t stream) {
-  constexpr int dtype = std::is_same<T, float>::value ? 0 : 1;
-  if (uses_wgmma(which, D, dtype))
-    return launch_wgmma<D>(which, q, k, v, dout, lse, delta, seg, out0, out1, out_lse,
-                           p, stream);
+  constexpr int dtype = dtype_code<T>();
+  if constexpr (dtype != 0) {
+    if (uses_wgmma(which, D, dtype))
+      return launch_wgmma<T, D>(which, q, k, v, dout, lse, delta, seg, out0, out1,
+                                out_lse, p, stream);
+  }
   constexpr int BK = kv_tile<D>();
   const size_t smem = smem_bytes(which, D, dtype);
   const T* tq = static_cast<const T*>(q);
@@ -1704,7 +1838,7 @@ cudaError_t dispatch_d(int d, int which, const void* q, const void* k,
 }
 
 // which: 0 = forward (K1), 1 = dq (K2), 2 = dk/dv (K3). dtype: 0 = float32,
-// 1 = bfloat16 (q, k, v, dO and the outputs share it).
+// 1 = bfloat16, 2 = float16 (q, k, v, dO and the outputs share it).
 int run(int which, const void* q, const void* k, const void* v, const void* dout,
         const void* lse, const void* delta, const void* seg, void* out0,
         void* out1, void* out_lse, int batch, int sq, int skv, int heads,
@@ -1734,6 +1868,9 @@ int run(int which, const void* q, const void* k, const void* v, const void* dout
   if (dtype == 1)
     return (int)dispatch_d<__nv_bfloat16>(head_dim, which, q, k, v, dout, lse,
                                           delta, seg, out0, out1, out_lse, p, s);
+  if (dtype == 2)
+    return (int)dispatch_d<__half>(head_dim, which, q, k, v, dout, lse, delta, seg,
+                                   out0, out1, out_lse, p, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -1778,7 +1915,8 @@ extern "C" long long dlti_flash_smem_bytes(int which, int head_dim, int dtype) {
 }
 
 // Which program runs kernel `which` at head_dim d and dtype code `dtype`:
-// "wgmma bf16 hi/lo, cp.async 2-stage" or "cuda-core fp32" ("" if not built).
+// "wgmma bf16 hi/lo, cp.async 2-stage", "wgmma f16 hi/lo, power-of-2 scaled,
+// cp.async 2-stage" or "cuda-core fp32" ("" if not built).
 extern "C" const char* dlti_flash_impl(int which, int head_dim, int dtype) {
   return impl_name(which, head_dim, dtype);
 }

@@ -26,8 +26,8 @@
 // * A head group is up to kMaxHeads query heads of one kv head; they share
 //   every K/V row the block reads (GQA), so K/V bytes move once per kv head.
 // * Tiles of kTile tokens go through a ring of 2 or 3 stages in shared
-//   memory by cp.async: 16-byte copies in the pool's own type (bf16, float32
-//   or int8 bytes; an int8 pool's row scales by 4-byte copies), tile i + S - 1
+//   memory by cp.async: 16-byte copies in the pool's own type (bf16, f16,
+//   float32 or int8 bytes; an int8 pool's row scales by 4-byte copies), tile i + S - 1
 //   in flight while tile i computes, one __syncthreads a tile. Rows past the
 //   split's last live token are zero-filled without reading device memory,
 //   so no stale row, garbage table entry or NaN scale of a dead row is read.
@@ -53,6 +53,7 @@
 //        -Xcompiler -fPIC -o libpaged_attention.so paged_attention.cu
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -70,6 +71,7 @@ constexpr float kLog2e = 1.4426950408889634f;
 
 __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float to_float(__half x) { return __half2float(x); }
 // int8 -> float by the float's bits, not by I2F (16 a clock per SM on
 // Hopper): 0x4B400000 + x is the float 1.5 * 2^23 + x for |x| < 2^22.
 __device__ __forceinline__ float to_float(int8_t x) {
@@ -77,16 +79,22 @@ __device__ __forceinline__ float to_float(int8_t x) {
 }
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2bfloat16(x); }
+__device__ __forceinline__ void store(__half* p, float x) { *p = __float2half_rn(x); }
+
+// dtype codes: 0 = float32, 1 = bfloat16, 2 = int8 (pools only), 3 = float16.
+constexpr int kF32 = 0, kBF16 = 1, kInt8 = 2, kF16 = 3;
 
 // q is read once a block and the output written once by the combine, so
-// their dtype is a runtime flag, not a template parameter: half the
-// programs to build.
-__device__ __forceinline__ float load_q(const void* q, size_t i, bool bf16) {
-  return bf16 ? __bfloat162float(static_cast<const __nv_bfloat16*>(q)[i])
-              : static_cast<const float*>(q)[i];
+// their dtype (kF32, kBF16 or kF16, whatever the pool's) is a runtime code,
+// not a template parameter: a third of the programs to build.
+__device__ __forceinline__ float load_q(const void* q, size_t i, int dtype) {
+  if (dtype == kBF16) return __bfloat162float(static_cast<const __nv_bfloat16*>(q)[i]);
+  if (dtype == kF16) return __half2float(static_cast<const __half*>(q)[i]);
+  return static_cast<const float*>(q)[i];
 }
-__device__ __forceinline__ void store_q(void* out, size_t i, float x, bool bf16) {
-  if (bf16) store(static_cast<__nv_bfloat16*>(out) + i, x);
+__device__ __forceinline__ void store_q(void* out, size_t i, float x, int dtype) {
+  if (dtype == kBF16) store(static_cast<__nv_bfloat16*>(out) + i, x);
+  else if (dtype == kF16) store(static_cast<__half*>(out) + i, x);
   else store(static_cast<float*>(out) + i, x);
 }
 
@@ -165,7 +173,7 @@ paged_decode_kernel(const void* __restrict__ q,           // (B, H, D)
                     float* __restrict__ ws_acc,           // (B, H, splits, D)
                     int num_blocks, int block_size, int kv_heads, int hpg,
                     int head_groups, int max_blocks, int window, int chunk,
-                    float scale, bool q_bf16) {
+                    float scale, int q_dtype) {
   using G = Geometry<TKV, D>;
   constexpr bool kQuant = std::is_same<TKV, int8_t>::value;
   extern __shared__ __align__(16) uint8_t smem[];
@@ -198,7 +206,7 @@ paged_decode_kernel(const void* __restrict__ q,           // (B, H, D)
     for (int e = tid; e < HMAX * D; e += kThreads) {
       const int c = (e % D) / G::kVec, e4 = (e % G::kVec) / 4;
       q_s[e - e % G::kVec + G::q_slot(c, e4) * 4 + e % 4] =
-          e < nh * D ? load_q(q, head_off + e, q_bf16) * (scale * kLog2e) : 0.f;
+          e < nh * D ? load_q(q, head_off + e, q_dtype) * (scale * kLog2e) : 0.f;
     }
   for (int e = tid; e < kWarps * HMAX; e += kThreads) {
     m_w[e] = -INFINITY;
@@ -415,7 +423,7 @@ paged_decode_kernel(const void* __restrict__ q,           // (B, H, D)
 __global__ void paged_decode_combine_kernel(const float* __restrict__ ws_ml,
                                             const float* __restrict__ ws_acc,
                                             void* __restrict__ out, int splits, int d,
-                                            bool q_bf16) {
+                                            int q_dtype) {
   const int h = blockIdx.x, b = blockIdx.y, heads = gridDim.x;
   const size_t rec0 = ((size_t)b * heads + h) * splits;
   float m = -INFINITY;
@@ -432,7 +440,7 @@ __global__ void paged_decode_combine_kernel(const float* __restrict__ ws_ml,
           o = fmaf(f, ws_acc[(rec0 + s) * d + c], o);
         }
       }
-    store_q(out, ((size_t)b * heads + h) * d + c, l > 0.f ? o / l : 0.f, q_bf16);
+    store_q(out, ((size_t)b * heads + h) * d + c, l > 0.f ? o / l : 0.f, q_dtype);
   }
 }
 
@@ -463,9 +471,10 @@ size_t smem_bytes_d(int hmax, int d) {
 
 size_t smem_bytes(int hpg, int d, int kv_dtype) {
   const int hmax = heads_per_block(hpg);
-  if (kv_dtype == 0) return smem_bytes_d<float>(hmax, d);
-  if (kv_dtype == 1) return smem_bytes_d<__nv_bfloat16>(hmax, d);
-  if (kv_dtype == 2) return smem_bytes_d<int8_t>(hmax, d);
+  if (kv_dtype == kF32) return smem_bytes_d<float>(hmax, d);
+  if (kv_dtype == kBF16) return smem_bytes_d<__nv_bfloat16>(hmax, d);
+  if (kv_dtype == kInt8) return smem_bytes_d<int8_t>(hmax, d);
+  if (kv_dtype == kF16) return smem_bytes_d<__half>(hmax, d);
   return 0;
 }
 
@@ -474,7 +483,7 @@ struct Args {
   void *out, *ws_ml, *ws_acc;
   int batch, kv_heads, hpg, num_blocks, block_size, max_blocks, window, splits, chunk;
   float scale;
-  bool q_bf16;
+  int q_dtype;
   cudaStream_t stream;
 };
 
@@ -495,13 +504,13 @@ cudaError_t launch(const Args& a) {
       static_cast<const float*>(a.v_scale), static_cast<const int32_t*>(a.block_tables),
       static_cast<const int32_t*>(a.seq_lens), static_cast<float*>(a.ws_ml), static_cast<float*>(a.ws_acc), a.num_blocks,
       a.block_size, a.kv_heads, a.hpg, head_groups, a.max_blocks, a.window, a.chunk,
-      a.scale, a.q_bf16);
+      a.scale, a.q_dtype);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   dim3 cgrid(a.kv_heads * a.hpg, a.batch);
   paged_decode_combine_kernel<<<cgrid, D, 0, a.stream>>>(
       static_cast<const float*>(a.ws_ml), static_cast<const float*>(a.ws_acc), a.out,
-      a.splits, D, a.q_bf16);
+      a.splits, D, a.q_dtype);
   return cudaGetLastError();
 }
 
@@ -531,7 +540,8 @@ cudaError_t dispatch_d(int head_dim, const Args& a) {
 
 // dtype codes: 0 = float32, 1 = bfloat16, 2 = int8 (pools only; k_scale and
 // v_scale must then point at the (NB, BS, KVH) float32 scales, and are
-// ignored, null, for float pools). splits x chunk must cover the table's
+// ignored, null, for float pools), 3 = float16. q takes 0, 1 or 3, and any
+// of them with any pool. splits x chunk must cover the table's
 // max_blocks x block_size tokens; ws_ml and ws_acc point at float32
 // workspaces of batch x heads x splits x 2 and x head_dim.
 extern "C" int dlti_paged_decode_attention(
@@ -546,18 +556,19 @@ extern "C" int dlti_paged_decode_attention(
       splits > 65535 || chunk <= 0 ||
       (long long)splits * chunk < (long long)max_blocks * block_size)
     return (int)cudaErrorInvalidValue;
-  if (kv_dtype == 2 && (k_scale == nullptr || v_scale == nullptr))
+  if (kv_dtype == kInt8 && (k_scale == nullptr || v_scale == nullptr))
     return (int)cudaErrorInvalidValue;
   if (ws_ml == nullptr || ws_acc == nullptr)
     return (int)cudaErrorInvalidValue;
-  if (q_dtype != 0 && q_dtype != 1) return (int)cudaErrorInvalidValue;
+  if (q_dtype != kF32 && q_dtype != kBF16 && q_dtype != kF16) return (int)cudaErrorInvalidValue;
   Args a{q, k_pool, v_pool, k_scale, v_scale, block_tables, seq_lens, out, ws_ml,
          ws_acc, batch, kv_heads, num_heads / kv_heads, num_blocks, block_size,
-         max_blocks, window, splits, chunk, scale, q_dtype == 1,
+         max_blocks, window, splits, chunk, scale, q_dtype,
          static_cast<cudaStream_t>(stream)};
-  if (kv_dtype == 0) return (int)dispatch_d<float>(head_dim, a);
-  if (kv_dtype == 1) return (int)dispatch_d<__nv_bfloat16>(head_dim, a);
-  if (kv_dtype == 2) return (int)dispatch_d<int8_t>(head_dim, a);
+  if (kv_dtype == kF32) return (int)dispatch_d<float>(head_dim, a);
+  if (kv_dtype == kBF16) return (int)dispatch_d<__nv_bfloat16>(head_dim, a);
+  if (kv_dtype == kInt8) return (int)dispatch_d<int8_t>(head_dim, a);
+  if (kv_dtype == kF16) return (int)dispatch_d<__half>(head_dim, a);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -583,9 +594,10 @@ extern "C" int dlti_paged_decode_stages(int head_dim, int kv_dtype) {
     case 256: return Geometry<T, 256>::kStages;                          \
     default: return 0;                                                   \
   }
-  if (kv_dtype == 0) DLTI_STAGES(float);
-  if (kv_dtype == 1) DLTI_STAGES(__nv_bfloat16);
-  if (kv_dtype == 2) DLTI_STAGES(int8_t);
+  if (kv_dtype == kF32) DLTI_STAGES(float);
+  if (kv_dtype == kBF16) DLTI_STAGES(__nv_bfloat16);
+  if (kv_dtype == kInt8) DLTI_STAGES(int8_t);
+  if (kv_dtype == kF16) DLTI_STAGES(__half);
 #undef DLTI_STAGES
   return 0;
 }

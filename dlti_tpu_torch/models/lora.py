@@ -78,11 +78,15 @@ class LoRADense(nn.Module):
 def dropout(x: torch.Tensor, rate: float, row_hash: torch.Tensor,
             col_hash: torch.Tensor) -> torch.Tensor:
     """flax's ``nn.Dropout``: keep each element with probability
-    ``1 - rate`` and scale kept ones by ``1 / (1 - rate)``; the mask is
-    :func:`keep_mask_from` of one key's hashes."""
+    ``1 - rate`` and divide kept ones by ``1 - rate``; the mask is
+    :func:`keep_mask_from` of one key's hashes. flax divides by a weakly
+    typed Python float, which takes ``x``'s dtype: in bf16 and float16 by
+    ``1 - rate`` rounded to that type (0.95 is 0.9502 in float16), so the
+    divisor is rounded here too (a CPU scalar, which a CUDA graph takes)."""
     keep_prob = 1.0 - rate
     keep = keep_mask_from(row_hash, col_hash, x.shape[-1], keep_prob)
-    return torch.where(keep.reshape(x.shape), x / keep_prob, 0.0)
+    return torch.where(keep.reshape(x.shape), x / torch.tensor(keep_prob, dtype=x.dtype),
+                       0.0)
 
 
 def dropout_hashes(keys: torch.Tensor, rows: int, cols: int) -> tuple:

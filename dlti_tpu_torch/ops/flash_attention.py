@@ -12,9 +12,10 @@ and ``_flash_bwd``'s ``_dq_kernel`` / ``_dkv_kernel``).
   :func:`flash_attention_backward_reference`. On a CUDA tensor they launch
   the hand-written kernels of ``csrc/flash_attention.cu`` (K1 forward, K2
   dq, K3 dk/dv) or raise; nothing falls back from a kernel to a plain
-  version. In bfloat16, K1 and K3 (at head_dim 64 and 128) run on the
-  tensor cores (wgmma); :func:`kernel_design` names the program a call
-  takes.
+  version. In bfloat16 and float16, K1, K2 and K3 (at head_dim 64 and 128)
+  run on the tensor cores (wgmma), float16 with its split operands scaled
+  into float16's range by powers of two; :func:`kernel_design` names the
+  program a call takes.
 * ``fwd_launches``, ``dq_launches``, ``dkv_launches`` — how many times each
   kernel was launched.
 
@@ -39,7 +40,7 @@ import torch
 from dlti_tpu_torch.ops import _build
 
 KERNEL_HEAD_DIMS = (64, 128, 256)
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 MASKED_LSE = 1e30  # logsumexp of a row with nothing to attend to
 MAX_GROUP = 64     # query heads per kv head a kernel tile can hold
 
@@ -191,8 +192,8 @@ def _check_kernel_inputs(q, k, v, segment_ids, extra=()):
     if q.dtype not in _DTYPE_CODES or any(
             t.dtype != q.dtype for n, t in tensors.items()
             if n not in ("segment_ids", "lse", "delta")):
-        raise ValueError(f"unsupported dtypes: the kernels take float32 or "
-                         f"bfloat16 q/k/v of one dtype, got {q.dtype}, "
+        raise ValueError(f"unsupported dtypes: the kernels take float32, "
+                         f"bfloat16 or float16 q/k/v of one dtype, got {q.dtype}, "
                          f"{k.dtype}, {v.dtype}")
     if segment_ids is not None:
         if segment_ids.dtype != torch.int32 or tuple(segment_ids.shape) != (b, sq):
@@ -230,8 +231,9 @@ _KERNELS = {"flash_fwd": 0, "flash_bwd_dq": 1, "flash_bwd_dkv": 2}
 def kernel_design(name: str, dtype: torch.dtype, head_dim: int) -> str:
     """The program that kernel ``name`` ("flash_fwd", "flash_bwd_dq",
     "flash_bwd_dkv") runs for this dtype and head_dim, as the CUDA source
-    names it: "wgmma bf16 hi/lo, cp.async 2-stage" (tensor cores) or
-    "cuda-core fp32". Loads (and, the first time, builds) the library."""
+    names it: "wgmma bf16 hi/lo, cp.async 2-stage" or "wgmma f16 hi/lo,
+    power-of-2 scaled, cp.async 2-stage" (tensor cores), or "cuda-core
+    fp32". Loads (and, the first time, builds) the library."""
     if dtype not in _DTYPE_CODES or head_dim not in KERNEL_HEAD_DIMS:
         raise ValueError(f"no kernel for {dtype} at head_dim {head_dim}")
     return _kernel_library().dlti_flash_impl(_KERNELS[name], head_dim,

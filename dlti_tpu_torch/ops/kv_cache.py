@@ -1,8 +1,8 @@
 """Paged KV cache, device side: the port of ``dlti_tpu/ops/kv_cache.py``.
 
 * One physical pool per layer: ``(num_blocks, block_size, kv_heads,
-  head_dim)``, allocated once for the engine's lifetime, float32 or
-  bfloat16, or int8 with one float32 scale per (token, kv head) row in
+  head_dim)``, allocated once for the engine's lifetime, float32, bfloat16
+  or float16, or int8 with one float32 scale per (token, kv head) row in
   ``k_scale``/``v_scale`` ``(num_blocks, block_size, kv_heads)``: symmetric
   absmax quantization over head_dim, at half a bf16 pool's bytes.
 * ``block_tables`` ``(batch, max_blocks_per_seq)`` int32 maps a sequence's
@@ -57,11 +57,7 @@ def init_paged_cache(
              "v_scale": torch.zeros(sshape, dtype=torch.float32, device=device)}
             for _ in range(num_layers)
         ]
-    if dtype == torch.float16:
-        raise NotImplementedError(
-            "float16 KV pools are not ported (see ROADMAP.md, queue 1): the "
-            "paged decode kernel takes float32, bfloat16 and int8 pools")
-    if dtype not in (torch.float32, torch.bfloat16):
+    if dtype not in (torch.float32, torch.bfloat16, torch.float16):
         raise ValueError(f"unsupported KV pool dtype {dtype}")
     return [
         {"k": torch.zeros(shape, dtype=dtype, device=device),

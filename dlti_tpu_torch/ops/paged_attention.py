@@ -1,7 +1,9 @@
 """Paged decode attention: the port of the TPU kernel
 ``dlti_tpu/ops/pallas/paged_attention.py`` (``_decode_kernel``, launched by
-``paged_decode_attention``), for float pools and for int8 pools with
-per-(token, kv head) float32 scales (the kernel's ``quantized`` program).
+``paged_decode_attention``), for float pools (float32, bfloat16 or float16,
+with a float32, bfloat16 or float16 query whatever the pool's dtype) and
+for int8 pools with per-(token, kv head) float32 scales (the kernel's
+``quantized`` program).
 
 * :func:`paged_decode_attention_reference` — the plain PyTorch version:
   gather each sequence's window by block table (dequantized in float32 on
@@ -30,7 +32,7 @@ import torch
 from dlti_tpu_torch.ops import _build
 
 KERNEL_HEAD_DIMS = (16, 32, 64, 128, 256)
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 3}
 _INT8_CODE = 2  # pools only
 
 # Split-K: the kernel walks its tokens in tiles of TILE_TOKENS and serves up
@@ -138,8 +140,8 @@ def _check_kernel_inputs(q, k_pool, v_pool, block_tables, seq_lens,
     if q.dtype not in _DTYPE_CODES or v_pool.dtype != k_pool.dtype or not (
             k_pool.dtype in _DTYPE_CODES or k_pool.dtype == torch.int8):
         raise ValueError(f"unsupported dtypes q={q.dtype} pool={k_pool.dtype}"
-                         f"/{v_pool.dtype}; the kernel takes float32/bfloat16 "
-                         f"queries and float32/bfloat16/int8 pools")
+                         f"/{v_pool.dtype}; the kernel takes float32/bfloat16/"
+                         f"float16 queries and float32/bfloat16/float16/int8 pools")
     if k_scale is not None:
         for name, t in (("k_scale", k_scale), ("v_scale", v_scale)):
             if t.dtype != torch.float32 or tuple(t.shape) != (nb, bs, kvh):

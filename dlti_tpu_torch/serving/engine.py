@@ -38,13 +38,14 @@
   at its next token), the ``finished`` deque the server drains,
   ``abort_all`` after a faulted step, and the request-latency histograms
   (``telemetry.lifecycle``).
-* **KV pool dtypes**: ``cache_dtype`` ``"bfloat16"``, ``"float32"`` or
-  ``"int8"`` (per-row scales; decode through the paged kernel's int8 mode).
+* **KV pool dtypes**: ``cache_dtype`` ``"bfloat16"``, ``"float16"``,
+  ``"float32"`` or ``"int8"`` (per-row scales; decode through the paged
+  kernel's int8 mode), whatever the model's dtype: the decode kernel takes
+  a float32, bfloat16 or float16 query on any of them.
 
 Not ported yet (ROADMAP.md): speculative decode, prefix caching and tiers,
-chunked and ragged prefill, the multi-LoRA pool, int8 weights, float16 KV
-pools, tensor parallelism, the memory ledger, tracer spans and
-critical-path attribution.
+chunked and ragged prefill, the multi-LoRA pool, int8 weights, tensor
+parallelism, the memory ledger, tracer spans and critical-path attribution.
 """
 
 from __future__ import annotations
@@ -80,7 +81,7 @@ class EngineConfig:
     num_blocks: int = 256          # physical pool size (per layer)
     max_model_len: int = 512       # max prompt+generation length per request
     prefill_buckets: Sequence[int] = ()  # default: powers of 2 up to max_model_len
-    cache_dtype: str = "bfloat16"  # "bfloat16" | "float32" | "int8"
+    cache_dtype: str = "bfloat16"  # "bfloat16" | "float16" | "float32" | "int8"
     eos_token_id: int = 2          # Llama-2 </s>
     # Multi-step decode: run this many decode iterations (forward -> sample
     # -> feed back) per host sync. Amortizes per-step host work and round

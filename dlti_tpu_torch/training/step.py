@@ -1,20 +1,32 @@
-"""The train step: the port of ``dlti_tpu/training/step.py``'s bf16 path
-(``causal_lm_loss``, ``chunked_causal_lm_loss``, ``guard_nonfinite_update``,
-``make_train_step``, ``make_multi_step``, ``make_eval_step``).
+"""The train step: the port of ``dlti_tpu/training/step.py``
+(``causal_lm_loss``, ``chunked_causal_lm_loss``, ``apply_loss_scaler``,
+``guard_nonfinite_update``, ``make_train_step``, ``make_multi_step``,
+``make_eval_step``).
 
 One optimizer step: forward and backward over each microbatch of the
 leading ``accum`` axis with float32 gradient accumulation, the token-mean
 loss (gradients divided by the total token count), the optimizer (clip +
-AdamW), and the metrics ``loss``, ``grad_norm`` (before clipping),
-``num_tokens``, ``nonfinite`` and ``skipped_update``, as 0-d tensors on the
-device. A step whose loss or gradient norm is not finite leaves the
-parameters and the optimizer state (its count, and with it the schedule) as
-they were; the step count still advances. Nothing in a step reads the
-device back, so it can be captured as a CUDA graph: :class:`StepWindow`
+AdamW), and the metrics :data:`METRICS` as 0-d tensors on the device:
+``loss``, ``grad_norm`` (before clipping), ``num_tokens``, ``nonfinite``,
+``skipped_update``, ``loss_scale`` and ``overflow``.
+
+bf16 and float32 runs (no scaler): a step whose loss or gradient norm is
+not finite leaves the parameters and the optimizer state (its count, and
+with it the schedule) as they were; ``loss_scale`` is 1 and ``overflow`` 0.
+fp16 runs (``state.scaler``, DeepSpeed's dynamic loss scaler): each
+microbatch's objective is multiplied by the scale before the backward and
+the float32 gradients are divided by ``tokens * scale``; a step whose
+gradient norm alone is not finite overflows, skips its update the same
+way, and the scaler (:func:`apply_loss_scaler`) absorbs it into its
+hysteresis or halves the scale; ``nonfinite`` and ``skipped_update`` equal
+``overflow``. Either way the step count still advances.
+
+Nothing in a step reads the device back, and the scale is read from its
+0-d tensor, so a step can be captured as a CUDA graph: :class:`StepWindow`
 does that on the card, the counterpart of the reference's
 ``make_multi_step``, and runs a window of steps with one host
-synchronisation. The fp16 loss scaler is not ported (``Trainer`` refuses
-it); the MoE aux loss is not ported either, and a MoE model raises here.
+synchronisation. The MoE aux loss is not ported, and a MoE model raises
+here.
 """
 
 from __future__ import annotations
@@ -34,7 +46,8 @@ from dlti_tpu_torch.utils.device import upload
 from dlti_tpu_torch.utils.hashing import MASK32, fold_seed, mix32
 
 # The per-step metrics, in the column order of StepWindow.run's output.
-METRICS = ("loss", "grad_norm", "num_tokens", "nonfinite", "skipped_update")
+METRICS = ("loss", "grad_norm", "num_tokens", "nonfinite", "skipped_update",
+           "loss_scale", "overflow")
 
 
 def causal_lm_loss(logits: torch.Tensor, input_ids: torch.Tensor,
@@ -98,11 +111,42 @@ def guard_nonfinite_update(grad_norm: torch.Tensor, loss: torch.Tensor) -> tuple
     """The bf16 path's nonfinite gate: ``(finite, metrics)``, where
     ``finite`` (a 0-d bool tensor) says whether the update may be applied
     (loss and grad norm finite) and the metrics are ``nonfinite`` and
-    ``skipped_update`` (float32 0/1). Reads nothing back to the host: the
-    optimizer applies ``finite`` with ``torch.where``."""
+    ``skipped_update`` (float32 0/1), with ``loss_scale`` 1 and ``overflow``
+    0 (no scaler). Reads nothing back to the host: the optimizer applies
+    ``finite`` with ``torch.where``."""
     finite = torch.isfinite(grad_norm) & torch.isfinite(loss)
     bad = (~finite).float()
-    return finite, {"nonfinite": bad, "skipped_update": bad}
+    return finite, {"nonfinite": bad, "skipped_update": bad,
+                    "loss_scale": torch.ones_like(grad_norm),
+                    "overflow": torch.zeros_like(grad_norm)}
+
+
+def apply_loss_scaler(scaler: Dict[str, torch.Tensor], grad_norm: torch.Tensor, *,
+                      scale_window: int, min_scale: float, hysteresis: int) -> tuple:
+    """DeepSpeed's dynamic fp16 loss-scaler update (the reference's
+    ``apply_loss_scaler``): ``(finite, metrics)``. ``finite`` (a 0-d bool
+    tensor, the gradient norm alone) says whether the update may be
+    applied. On an overflow the hysteresis budget absorbs it first, then
+    the scale halves (not below ``min_scale``); after ``scale_window``
+    consecutive good steps the scale doubles; any change of the scale
+    re-arms the hysteresis. ``scaler``'s three tensors are updated in place
+    (``torch.where(..., out=)``), so a CUDA graph that captured the update
+    advances them on every replay. The metrics are ``loss_scale`` (the new
+    scale) and ``overflow``, ``nonfinite`` and ``skipped_update`` (float32
+    0/1, all three the same)."""
+    finite = torch.isfinite(grad_norm)
+    scale, good, hyst = scaler["scale"], scaler["good_steps"], scaler["hysteresis_left"]
+    hyst_after = torch.where(finite, hyst, torch.clamp(hyst - 1, min=0))
+    shrink = ~finite & (hyst <= 1)
+    scale_after = torch.where(shrink, torch.clamp(scale * 0.5, min=min_scale), scale)
+    good_after = torch.where(finite, good + 1, torch.zeros_like(good))
+    grow = good_after >= scale_window
+    torch.where(grow, scale_after * 2.0, scale_after, out=scale)
+    torch.where(grow, torch.zeros_like(good), good_after, out=good)
+    torch.where(shrink | grow, torch.full_like(hyst, hysteresis), hyst_after, out=hyst)
+    bad = (~finite).float()
+    return finite, {"loss_scale": scale.clone(), "overflow": bad, "nonfinite": bad,
+                    "skipped_update": bad}
 
 
 def step_seed(seed: int, step):
@@ -125,17 +169,21 @@ def _loss(model, batch: dict, dropout_seed, loss_chunk: int) -> tuple:
     return causal_lm_loss(model(ids, **kw), ids, batch.get("loss_mask"))
 
 
-def make_device_step(model, *, accum_steps: int = 1, loss_chunk: int = 0) -> Callable:
+def make_device_step(model, *, accum_steps: int = 1, loss_chunk: int = 0,
+                     fp16_scale_window: int = 1000, fp16_min_scale: float = 1.0,
+                     fp16_hysteresis: int = 2) -> Callable:
     """Build ``device_step(state, batch, step_seed) -> metrics``: one
-    optimizer step that updates the parameters and optimizer state in place
-    and returns :data:`METRICS` as 0-d tensors, without touching
-    ``state.step`` and without reading the device back. ``batch`` holds
-    tensors on the model's device shaped (accum, micro_bs, seq):
+    optimizer step that updates the parameters, optimizer state and (fp16)
+    scaler in place and returns :data:`METRICS` as 0-d tensors, without
+    touching ``state.step`` and without reading the device back. ``batch``
+    holds tensors on the model's device shaped (accum, micro_bs, seq):
     ``input_ids`` and optionally ``loss_mask``, ``positions``,
     ``segment_ids``. ``step_seed`` (a 32-bit key: an int, or a 0-d int64
     tensor on the device, see :func:`step_seed`) seeds the LoRA dropout
     masks, one key per microbatch derived from it; None runs without
-    dropout. ``loss_chunk`` > 0 takes :func:`chunked_causal_lm_loss`."""
+    dropout. ``loss_chunk`` > 0 takes :func:`chunked_causal_lm_loss`. With
+    ``state.scaler`` the loss is scaled and the ``fp16_*`` settings drive
+    :func:`apply_loss_scaler`."""
     if model.cfg.num_experts > 0:
         raise NotImplementedError("MoE training is not ported yet (see ROADMAP.md)")
 
@@ -148,32 +196,42 @@ def make_device_step(model, *, accum_steps: int = 1, loss_chunk: int = 0) -> Cal
         grads = [torch.zeros_like(p, dtype=torch.float32) for p in leaves]
         loss_sum = torch.zeros((), dtype=torch.float32, device=dev)
         n_tok = torch.zeros((), dtype=torch.float32, device=dev)
+        scaler = state.scaler
         for a in range(accum_steps):
             micro = {k: v[a] for k, v in batch.items()}
             seed = None if step_seed is None else mix32(step_seed ^ mix32(a + 0x3C6EF372))
             ls, nt = _loss(state.model, micro, seed, loss_chunk)
-            for acc, g in zip(grads, torch.autograd.grad(ls, leaves)):
+            objective = ls if scaler is None else ls * scaler["scale"]
+            for acc, g in zip(grads, torch.autograd.grad(objective, leaves)):
                 acc += g.float()
             loss_sum += ls.detach()
             n_tok += nt
         # Token-mean loss over the whole step (HF Trainer's semantics under
-        # grad accumulation).
+        # grad accumulation); the gradients also lose the fp16 loss scale.
         n_tok = torch.clamp(n_tok, min=1.0)
-        grads = {n: g / n_tok for n, g in zip(names, grads)}
+        denom = n_tok if scaler is None else n_tok * scaler["scale"]
+        grads = {n: g / denom for n, g in zip(names, grads)}
         loss = loss_sum / n_tok
         grad_norm = global_norm(grads)
-        finite, extra = guard_nonfinite_update(grad_norm, loss)
+        if scaler is None:
+            finite, extra = guard_nonfinite_update(grad_norm, loss)
+        else:
+            finite, extra = apply_loss_scaler(
+                scaler, grad_norm, scale_window=fp16_scale_window,
+                min_scale=fp16_min_scale, hysteresis=fp16_hysteresis)
         state.tx.update(grads, state.opt_state, trainable, apply=finite)
         return {"loss": loss, "grad_norm": grad_norm, "num_tokens": n_tok, **extra}
 
     return device_step
 
 
-def make_train_step(model, *, accum_steps: int = 1, loss_chunk: int = 0) -> Callable:
+def make_train_step(model, *, accum_steps: int = 1, loss_chunk: int = 0,
+                    **fp16) -> Callable:
     """Build ``train_step(state, batch, step_seed) -> metrics``: one
-    :func:`make_device_step` step, then ``state.step += 1``. The metrics
-    stay on the device."""
-    device_step = make_device_step(model, accum_steps=accum_steps, loss_chunk=loss_chunk)
+    :func:`make_device_step` step (``fp16``: its ``fp16_*`` settings), then
+    ``state.step += 1``. The metrics stay on the device."""
+    device_step = make_device_step(model, accum_steps=accum_steps, loss_chunk=loss_chunk,
+                                   **fp16)
 
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor], step_seed) -> dict:
         metrics = device_step(state, batch, step_seed)
@@ -225,14 +283,15 @@ class StepWindow:
 
     ``cuda_graphs=False`` (and every CPU run) runs the same steps eagerly,
     one after the other: the CPU path, and on the card the graph's
-    yardstick (tests and ``chip_smoke.py`` only).
+    yardstick (tests and ``chip_smoke.py`` only). ``fp16`` takes
+    :func:`make_device_step`'s ``fp16_*`` settings.
     """
 
     def __init__(self, model, *, accum_steps: int = 1, loss_chunk: int = 0,
                  seed: Optional[int] = None, capacity: int = 1,
-                 cuda_graphs: bool = True):
+                 cuda_graphs: bool = True, **fp16):
         self.device_step = make_device_step(model, accum_steps=accum_steps,
-                                            loss_chunk=loss_chunk)
+                                            loss_chunk=loss_chunk, **fp16)
         self.seed = seed
         self.capacity = max(1, capacity)
         self.device = next(model.parameters()).device
@@ -310,7 +369,8 @@ class StepWindow:
     def _capture(self, state: TrainState) -> None:
         opt = state.opt_state
         kept: List[torch.Tensor] = [*state.trainable().values(), *opt.mu.values(),
-                                    *opt.nu.values(), opt.count]
+                                    *opt.nu.values(), opt.count,
+                                    *(state.scaler or {}).values()]
         with torch.cuda.device(self.device), torch.no_grad():
             saved = [t.clone() for t in kept]
             side = torch.cuda.Stream()

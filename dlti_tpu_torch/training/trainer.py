@@ -44,11 +44,17 @@ never counted, so a resume replays them). Under LoRA the frozen base's host
 copy is kept from one save to the next (``checkpoint.store.HostCache``).
 Every exit path waits for the pending saves.
 
+``cfg.train.fp16`` runs DeepSpeed's dynamic loss scaler (pair it with a
+float16 model, as ``cli.train --fp16`` does): the state carries the scaler
+from ``2 ** fp16_initial_scale_power``, a checkpoint saves it and a resume
+restores it, each step's scale is in ``TrainRecord.loss_scales`` and its
+overflows are counted in ``skipped_updates``.
+
 Runs on ``cuda`` unless given ``device="cpu"``; without a card and without a
 device it raises. Not ported (each raises or is absent, see ROADMAP.md):
-meshes, ZeRO, TP/SP/PP, host offload, the int8 frozen base, the fp16
-scaler, the step log and other telemetry, the sentinel's rollback and data
-quarantine, chaos and elastic training.
+meshes, ZeRO, TP/SP/PP, host offload, the int8 frozen base, the step log
+and other telemetry, the sentinel's rollback and data quarantine, chaos and
+elastic training.
 """
 
 from __future__ import annotations
@@ -98,7 +104,10 @@ class TrainRecord:
     device: str
     losses: List[float] = field(default_factory=list)
     grad_norms: List[float] = field(default_factory=list)
-    skipped_updates: int = 0
+    # fp16 runs: each step's loss scale after the step (the reference's
+    # ``loss_scale`` metric); empty without the scaler.
+    loss_scales: List[float] = field(default_factory=list)
+    skipped_updates: int = 0          # nonfinite steps; fp16: overflows
     step_times_s: List[float] = field(default_factory=list)
     tokens_per_step: int = 0
     step_time_s: float = 0.0           # mean after the warm-up steps
@@ -137,7 +146,6 @@ class Trainer:
                  device=None, *, cuda_graphs: bool = True):
         t = cfg.train
         unported = [name for name, on in (
-            ("train.fp16", t.fp16),
             ("train.quantize_frozen_base", t.quantize_frozen_base),
             ("mixture-of-experts models", cfg.model.num_experts > 0)) if on]
         if unported:
@@ -168,7 +176,11 @@ class Trainer:
                                  lora=lora)
         model = load_model(cfg.model, params, self.device, lora=lora,
                            trainable_lora=True)
-        return create_train_state(model, self.tx, lora_enabled=cfg.lora.enabled)
+        t = cfg.train
+        return create_train_state(
+            model, self.tx, lora_enabled=cfg.lora.enabled,
+            fp16_initial_scale=float(2 ** t.fp16_initial_scale_power) if t.fp16 else None,
+            fp16_hysteresis=t.fp16_hysteresis)
 
     def train(self, dataset, eval_dataset=None, state: Optional[TrainState] = None
               ) -> tuple:
@@ -184,7 +196,10 @@ class Trainer:
         window = StepWindow(state.model, accum_steps=cfg.train.grad_accum_steps,
                             loss_chunk=cfg.train.loss_chunk,
                             seed=cfg.train.seed + 1 if dropout else None,
-                            capacity=sync_k, cuda_graphs=self.cuda_graphs)
+                            capacity=sync_k, cuda_graphs=self.cuda_graphs,
+                            fp16_scale_window=cfg.train.fp16_scale_window,
+                            fp16_min_scale=cfg.train.fp16_min_scale,
+                            fp16_hysteresis=cfg.train.fp16_hysteresis)
         eval_fn = (make_eval_step(state.model, loss_chunk=cfg.train.loss_chunk)
                    if eval_dataset is not None and cfg.train.eval_steps else None)
         trainable, total = count_params(dict(state.model.named_parameters()))
@@ -231,7 +246,7 @@ class Trainer:
                         "kind": type(dataset).__name__, "steps_per_epoch": spe,
                         "shuffle_seed": getattr(dataset, "shuffle_seed", None),
                         "packed": bool(getattr(dataset, "pack", False))},
-                    "prefetch_depth": 0, "fp16": False,
+                    "prefetch_depth": 0, "fp16": bool(cfg.train.fp16),
                 }
 
             def run_window(batches: list) -> None:
@@ -248,6 +263,8 @@ class Trainer:
                     m = dict(zip(METRICS, row))
                     record.losses.append(m["loss"])
                     record.grad_norms.append(m["grad_norm"])
+                    if state.scaler is not None:
+                        record.loss_scales.append(m["loss_scale"])
                     record.skipped_updates += int(m["skipped_update"])
                     record.step_times_s.append(dt / k)
                     cursor += 1

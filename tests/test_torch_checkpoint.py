@@ -535,19 +535,27 @@ def _batches(n, seed=1):
             for _ in range(n)]
 
 
+# float16 runs carry the dynamic loss scaler (the reference pairs them), here
+# from a scale at which llama_tiny's steps do not overflow (at the default
+# 2**16 both packages skip its first steps), so the moments move.
+FP16_SCALE = 2.0 ** 8
+
+
 class _Pair:
     """One model, optimizer and initial weights in both packages; ``dtype``
-    is the base params' storage dtype (LoRA factors stay float32)."""
+    is the base params' storage and compute dtype (LoRA factors stay
+    float32); a float16 state carries the loss scaler."""
 
     def __init__(self, dtype="float32"):
         over = dict(dtype=dtype, param_dtype=dtype)
         self.jcfg = dataclasses.replace(jc.MODEL_PRESETS["llama_tiny"], **over)
         self.tcfg = dataclasses.replace(tc.MODEL_PRESETS["llama_tiny"], **over)
+        self.fp16_scale = FP16_SCALE if dtype == "float16" else None
         params = _jax_params(self.jcfg)
         jmodel = JaxLlama(self.jcfg, jc.LoRAConfig(**LORA))
         self.jstate = jax_create_state(
             jax.random.PRNGKey(0), jmodel, jax_build_optimizer(jc.OptimizerConfig(**OPT)),
-            (BS, SEQ), init_fn=lambda rng, x: params)
+            (BS, SEQ), init_fn=lambda rng, x: params, fp16_initial_scale=self.fp16_scale)
         self.jstep = jax.jit(jax_make_step(jmodel, accum_steps=ACCUM))
         self.tstate = self.fresh_port_state(params)
 
@@ -556,7 +564,8 @@ class _Pair:
             params = _jax_params(self.jcfg, seed=5)  # other weights: a template
         model = load_model(self.tcfg, params_from_jax(params), "cpu",
                            lora=tc.LoRAConfig(**LORA), trainable_lora=True)
-        return create_train_state(model, build_optimizer(tc.OptimizerConfig(**OPT)))
+        return create_train_state(model, build_optimizer(tc.OptimizerConfig(**OPT)),
+                                  fp16_initial_scale=self.fp16_scale)
 
     def jax_steps(self, batches):
         out = []
@@ -589,7 +598,7 @@ def _jax_bits(a):
     return a.view(np.uint16) if a.dtype.name == "bfloat16" else a
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
 def test_jax_checkpoint_restores_bit_equal_in_the_port(tmp_path, dtype):
     pair = _Pair(dtype)
     batches = _batches(4)
@@ -611,7 +620,7 @@ def test_jax_checkpoint_restores_bit_equal_in_the_port(tmp_path, dtype):
             np.testing.assert_allclose(t["grad_norm"], j["grad_norm"], rtol=RTOL)
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
 def test_port_checkpoint_verifies_restores_and_exports_in_jax(tmp_path, dtype):
     from dlti_tpu.checkpoint.export import export_params_host
 
@@ -631,7 +640,7 @@ def test_port_checkpoint_verifies_restores_and_exports_in_jax(tmp_path, dtype):
     assert port_export_params_host(d, 2, str(tmp_path / "ex_port")) == digest
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
 def test_both_packages_write_the_same_manifest(tmp_path, dtype):
     """The same state saved by each package: the same leaves in the same
     order with the same names, files, shapes, dtypes, sizes and digests,
@@ -646,14 +655,18 @@ def test_both_packages_write_the_same_manifest(tmp_path, dtype):
     store.save_train_state(str(tmp_path / "t"), 2, state_leaves(state), async_save=False)
     mj = json.loads((tmp_path / "j" / "2" / "MANIFEST.json").read_text())
     mt = json.loads((tmp_path / "t" / "2" / "MANIFEST.json").read_text())
-    assert len(mj["leaves"]) == len(mt["leaves"]) == 72
+    scaler_leaves = 3 if dtype == "float16" else 0
+    assert len(mj["leaves"]) == len(mt["leaves"]) == 72 + scaler_leaves
     for a, b in zip(mj["leaves"], mt["leaves"]):
         for key in ("name", "file", "shape", "dtype", "size", "sha256"):
             assert a[key] == b[key], (a["name"], key)
     for f in ("MANIFEST.json", "COMMIT"):
         assert (tmp_path / "j" / "2" / f).read_bytes() == (tmp_path / "t" / "2" / f).read_bytes()
     kinds = {e["dtype"] for e in mt["leaves"]}
-    assert kinds == ({"int32", "float32"} | ({"bfloat16"} if dtype == "bfloat16" else set()))
+    assert kinds == ({"int32", "float32"} | ({dtype} if dtype != "float32" else set()))
+    if scaler_leaves:
+        assert [e["name"] for e in mt["leaves"][-3:]] == [
+            ".scaler['good_steps']", ".scaler['hysteresis_left']", ".scaler['scale']"]
 
 
 def _texts(n=48):

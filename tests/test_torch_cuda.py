@@ -6,7 +6,8 @@ GEMM); then checkpoints of a train state on the card (placement on restore,
 a bit-equal resume, the one wait on the card a save adds to its step); then
 the train step's host path (the step as a CUDA graph, bit-equal to the
 eager step with dropout on, no host sync in a window's replays, K1-K3
-counted per replay).
+counted per replay); then the fp16 path (K1-K4 in float16, the |ds| >
+65504 case, the graphed fp16 step with the loss scaler across an overflow).
 
 Marked ``cuda``: each test skips where ``torch.cuda.is_available()`` is
 false, as on a CPU-only host. On a machine with the card and without JAX,
@@ -15,8 +16,9 @@ run this file alone, without the suite's JAX conftest:
     python -m pytest --noconftest -q tests/test_torch_cuda.py
 
 Tolerances as in ``chip_smoke.py``. K4: 1e-5 for float32 (sums in another
-order); 2**-6 for bfloat16 (both versions round an fp32 result below
-|x| = 4 to bf16, at most one bf16 step apart). Flash: see ``FLASH_TOL``.
+order); 2**-6 for bfloat16 and 2**-9 for float16 (both versions round an
+fp32 result below |x| = 4 to the output's type, at most one step of it
+apart: float16 keeps 3 more bits than bf16). Flash: see ``FLASH_TOL``.
 """
 
 import pytest
@@ -27,7 +29,9 @@ from dlti_tpu_torch.ops import paged_attention as tpa
 
 pytestmark = pytest.mark.cuda
 
-TOL = {torch.float32: 1e-5, torch.bfloat16: 2.0 ** -6}
+TOL = {torch.float32: 1e-5, torch.bfloat16: 2.0 ** -6, torch.float16: 2.0 ** -9}
+# One step of the output's type relative to each batch row's largest |out|.
+ROW_REL_TOL = {torch.bfloat16: 2.0 ** -7, torch.float16: 2.0 ** -10}
 
 
 @pytest.fixture
@@ -53,7 +57,7 @@ def _inputs(gen, batch, heads, kv_heads, d, dtype, block_size=16, num_blocks=64,
     return q, k, v, tables, lens
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
 @pytest.mark.parametrize("d", [16, 32, 64, 128, 256])
 @pytest.mark.parametrize("heads,kv_heads", [(8, 8), (8, 2), (4, 1)])
 @pytest.mark.parametrize("window", [None, 20])
@@ -68,6 +72,21 @@ def test_kernel_matches_plain(gen, dtype, d, heads, kv_heads, window):
     assert out.dtype == q.dtype and out.shape == q.shape
     assert not out[0].any()  # seq_len 0 gives zeros
     torch.testing.assert_close(out.float(), ref.float(), atol=TOL[dtype], rtol=0)
+
+
+@pytest.mark.parametrize("q_dtype,pool_dtype", [
+    (torch.float16, torch.bfloat16), (torch.bfloat16, torch.float16),
+    (torch.float32, torch.float16), (torch.float16, torch.float32)])
+@pytest.mark.parametrize("d", [64, 128])
+def test_kernel_takes_a_query_of_another_dtype_than_the_pool(gen, q_dtype, pool_dtype, d):
+    """The engine pairs the model's dtype (q) with ``cache_dtype`` (the
+    pool) freely: the output is in q's dtype, within q's tolerance."""
+    q, k, v, tables, lens = _inputs(gen, 5, 8, 2, d, pool_dtype, lens=[0, 1, 17, 100, 128])
+    q = q.to(q_dtype)
+    out = tpa.paged_decode_attention(q, k, v, tables, lens)
+    ref = tpa.paged_decode_attention_reference(q, k, v, tables, lens)
+    assert out.dtype == q_dtype and not out[0].any()
+    torch.testing.assert_close(out.float(), ref.float(), atol=TOL[q_dtype], rtol=0)
 
 
 def test_nan_in_rows_past_seq_len_never_leaks(gen):
@@ -118,7 +137,7 @@ def _int8_inputs(gen, *args, **kw):
     return q, kq, vq, tables, lens, ks, vs
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
 @pytest.mark.parametrize("d", [16, 64, 128, 256])
 @pytest.mark.parametrize("heads,kv_heads", [(8, 8), (8, 2), (4, 1)])
 @pytest.mark.parametrize("window", [None, 20])
@@ -167,9 +186,10 @@ def _plan(batch, heads, kv_heads, max_len):
 def _check_pool(gen, pool, batch, heads, kv_heads, d, lens, max_blocks, window=None,
                 num_blocks=64):
     """K4 (float pools) or K4q (int8) against the plain version on bf16
-    queries: absolute 2**-6, and 2**-7 relative to each row's largest |out|."""
+    queries (float16 on a float16 pool): absolute ``TOL``, and one step of
+    the type relative to each row's largest |out|."""
     make = _int8_inputs if pool == "int8" else _inputs
-    dtype = torch.float32 if pool == "float32" else torch.bfloat16
+    dtype = {"float32": torch.float32, "float16": torch.float16}.get(pool, torch.bfloat16)
     got = make(gen, batch, heads, kv_heads, d, dtype, max_blocks=max_blocks, lens=lens,
                num_blocks=num_blocks)
     q, k, v, tables, lens_t = got[:5]
@@ -181,16 +201,16 @@ def _check_pool(gen, pool, batch, heads, kv_heads, d, lens, max_blocks, window=N
     ref = tpa.paged_decode_attention_reference(q, k, v, tables, lens_t, **kw)
     assert torch.isfinite(out).all()
     torch.testing.assert_close(out.float(), ref.float(), atol=TOL[dtype], rtol=0)
-    if dtype == torch.bfloat16:
+    if dtype in ROW_REL_TOL:
         err = (out.float() - ref.float()).abs().flatten(1).amax(1)
         top = ref.float().abs().flatten(1).amax(1)
-        assert (err <= 2.0 ** -7 * top).all(), (err, top)
+        assert (err <= ROW_REL_TOL[dtype] * top).all(), (err, top)
     for row, n in enumerate(lens):
         if n == 0:
             assert not out[row].any()
 
 
-@pytest.mark.parametrize("pool", ["bfloat16", "float32", "int8"])
+@pytest.mark.parametrize("pool", ["bfloat16", "float16", "float32", "int8"])
 @pytest.mark.parametrize("d", [16, 32, 64, 128, 256])
 @pytest.mark.parametrize("heads,kv_heads", [(32, 8), (8, 1)])
 @pytest.mark.parametrize("delta", [-1, 0, 1])
@@ -200,7 +220,7 @@ def test_split_k_one_row_at_a_split_boundary(gen, pool, d, heads, kv_heads, delt
     _check_pool(gen, pool, 1, heads, kv_heads, d, [chunk + delta], max_blocks=256)
 
 
-@pytest.mark.parametrize("pool", ["bfloat16", "float32", "int8"])
+@pytest.mark.parametrize("pool", ["bfloat16", "float16", "float32", "int8"])
 @pytest.mark.parametrize("d", [16, 32, 64, 128, 256])
 @pytest.mark.parametrize("heads,kv_heads", [(32, 8), (8, 1)])
 def test_split_k_batch_of_eight_across_splits(gen, pool, d, heads, kv_heads):
@@ -210,7 +230,7 @@ def test_split_k_batch_of_eight_across_splits(gen, pool, d, heads, kv_heads):
     _check_pool(gen, pool, 8, heads, kv_heads, d, lens, max_blocks=256)
 
 
-@pytest.mark.parametrize("pool", ["bfloat16", "float32", "int8"])
+@pytest.mark.parametrize("pool", ["bfloat16", "float16", "float32", "int8"])
 @pytest.mark.parametrize("batch,heads,kv_heads,max_blocks", [(5, 8, 8, 4), (40, 32, 32, 64)])
 def test_split_k_plans_of_one_split(gen, pool, batch, heads, kv_heads, max_blocks):
     """A 64-token table, and llama2_7b's 32 kv heads at batch 40 (more
@@ -358,8 +378,12 @@ def test_server_on_an_engine_built_with_device_cuda_answers(gen):
 # agrees to 1e-4 (absolute and relative) at these O(1)-O(10) magnitudes. In
 # bfloat16 both round a float32 result to bf16, whose relative spacing is
 # 2**-7, so they may land one step apart: rtol 2**-7, atol 1e-3 near zero.
+# float16 keeps 3 more bits: rtol 2**-10, 8x tighter; atol stays 1e-3, since
+# near zero it covers the float32 sums' order (a GQA 64/1 dk or dv at s 1000
+# sums 64,000 products), which does not depend on the output's type.
 FLASH_TOL = {torch.float32: dict(atol=1e-4, rtol=1e-4),
-             torch.bfloat16: dict(atol=1e-3, rtol=2.0 ** -7)}
+             torch.bfloat16: dict(atol=1e-3, rtol=2.0 ** -7),
+             torch.float16: dict(atol=1e-3, rtol=2.0 ** -10)}
 
 
 def _segments(b, s, n_docs=3, seed=0):
@@ -410,7 +434,7 @@ def _check_flash(q, k, v, do, kw):
         torch.testing.assert_close(got.float(), want.float(), **tol)
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
 @pytest.mark.parametrize("d", [64, 128, 256])
 @pytest.mark.parametrize("h,hkv", [(8, 8), (8, 2), (4, 1)])
 def test_flash_kernels_match_plain(gen, dtype, d, h, hkv):
@@ -483,6 +507,97 @@ def test_bf16_flash_reaches_the_tensor_core_kernels(gen):
                    for n in names), names
 
 
+# float16 runs the 2-byte tensor-core programs too: the tile edges, masks
+# and GQA packing of the bf16 cases above.
+@pytest.mark.parametrize("s", [1, 65, 1000])
+@pytest.mark.parametrize("h,hkv", [(32, 32), (8, 1), (64, 1)])
+@pytest.mark.parametrize("d", [64, 128, 256])
+def test_f16_flash_kernels_at_tile_edges(gen, s, h, hkv, d):
+    _check_flash(*_flash_case(gen, 1, s, h, hkv, d, torch.float16))
+
+
+@pytest.mark.parametrize("variant", ["noncausal", "window40", "segments_padded_row"])
+@pytest.mark.parametrize("d", [64, 256])
+def test_f16_flash_kernels_masks(gen, variant, d):
+    _check_flash(*_flash_case(gen, 2, 1000, 8, 2, d, torch.float16,
+                              causal=variant != "noncausal",
+                              window=40 if variant == "window40" else None,
+                              segments="padded_row" if "segments" in variant else False))
+
+
+# dO of a gradient of 2**-4 under the default loss scale 2**16, v at 2**5 and
+# q, k at 2**-4 (near-uniform p): rows of ds pass float16's 65504 while dq,
+# dk and dv stay within it (the plain version read |ds| up to 1.04e5, dq
+# 2.2e4 at b 2, s 512, h 8). Compared in units of dO's scale (dividing both
+# by 2**12 is exact), where the float16 limits apply as at unit scale.
+DS_CASE_SCALES = dict(do=2.0 ** 12, v=2.0 ** 5, qk=2.0 ** -4)
+
+
+def _ds_case(gen, b=2, s=512, h=8, hkv=8, d=128):
+    dev = torch.device("cuda")
+    sc = DS_CASE_SCALES
+    q = (torch.randn(b, s, h, d, device=dev, generator=gen) * sc["qk"]).half()
+    k = (torch.randn(b, s, hkv, d, device=dev, generator=gen) * sc["qk"]).half()
+    v = (torch.randn(b, s, hkv, d, device=dev, generator=gen) * sc["v"]).half()
+    do = (torch.randn(b, s, h, d, device=dev, generator=gen) * sc["do"]).half()
+    return q, k, v, do
+
+
+def _max_abs_ds(q, k, v, do, o, lse):
+    """max |ds| of the plain version's float32 backward (causal)."""
+    b, s, h, d = q.shape
+    hkv = k.shape[2]
+    qg = q.float().reshape(b, s, hkv, h // hkv, d)
+    sc = torch.einsum("bqngd,bknd->bngqk", qg, k.float()) * d ** -0.5
+    allowed = torch.ones(s, s, dtype=torch.bool, device=q.device).tril()
+    p = torch.where(allowed, torch.exp(sc - lse.reshape(b, hkv, h // hkv, s, 1)), 0.0)
+    dp = torch.einsum("bqngd,bknd->bngqk", do.float().reshape(b, s, hkv, h // hkv, d),
+                      v.float())
+    delta = tfa.backward_delta(o, do).reshape(b, hkv, h // hkv, s, 1)
+    return (p * (dp - delta) * d ** -0.5).abs().max().item()
+
+
+@pytest.mark.parametrize("hkv", [8, 2])
+def test_f16_flash_backward_rescales_ds_past_float16_range(gen, hkv):
+    """|ds| above 65504 is no overflow: K2 and K3 bring each accumulator
+    row's ds into range by a power of two before the float16 split, so dq,
+    dk and dv are the plain version's finite values."""
+    q, k, v, do = _ds_case(gen, hkv=hkv)
+    o, lse = tfa.flash_fwd(q, k, v)
+    dq, dk, dv = tfa.flash_bwd(q, k, v, o, lse, do)
+    torch.cuda.synchronize()
+    assert _max_abs_ds(q, k, v, do, o, lse) > 65504
+    rdq, rdk, rdv = tfa.flash_attention_backward_reference(q, k, v, o, lse, do)
+    unit = DS_CASE_SCALES["do"]
+    for got, want in ((dq, rdq), (dk, rdk), (dv, rdv)):
+        assert torch.isfinite(want).all() and torch.isfinite(got).all()
+        torch.testing.assert_close(got.float() / unit, want.float() / unit,
+                                   **FLASH_TOL[torch.float16])
+
+
+def test_f16_flash_reaches_the_tensor_core_kernels(gen):
+    """float16 K1, K2 and K3 (d 64/128) name the float16 wgmma program, and
+    the profiler sees their kernels in a forward and backward."""
+    from torch.profiler import ProfilerActivity, profile
+
+    wgmma = "wgmma f16 hi/lo, power-of-2 scaled, cp.async 2-stage"
+    for d in (64, 128, 256):
+        assert tfa.kernel_design("flash_fwd", torch.float16, d) == wgmma
+        assert tfa.kernel_design("flash_bwd_dq", torch.float16, d) == wgmma
+        assert tfa.kernel_design("flash_bwd_dkv", torch.float16, d) == (
+            wgmma if d <= 128 else "cuda-core fp32")
+    q, k, v, do, _ = _flash_case(gen, 1, 256, 8, 2, 128, torch.float16)
+    q, k, v = (t.requires_grad_() for t in (q, k, v))
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        tfa.flash_attention(q, k, v).backward(do)
+        torch.cuda.synchronize()
+    names = {e.key for e in prof.key_averages()}
+    for kernel in ("flash_fwd_wgmma_kernel", "flash_bwd_dq_wgmma_kernel",
+                   "flash_bwd_dkv_wgmma_kernel"):
+        assert any(kernel in n and "half" in n for n in names), names
+
+
 def test_flash_autograd_function_launches_all_three(gen):
     q, k, v, do, _ = _flash_case(gen, 1, 128, 4, 2, 64, torch.float32)
     q, k, v = (t.requires_grad_() for t in (q, k, v))
@@ -534,7 +649,7 @@ def test_flash_kernels_refuse_what_they_were_not_built_for(gen):
     with pytest.raises(ValueError, match="dtypes"):
         tfa.flash_fwd(q, k.to(torch.bfloat16), v)
     with pytest.raises(ValueError, match="dtypes"):
-        tfa.flash_fwd(q.half(), k.half(), v.half())
+        tfa.flash_fwd(q.double(), k.double(), v.double())
     with pytest.raises(ValueError, match="segment_ids"):
         tfa.flash_fwd(q, k, v, segment_ids=torch.ones(1, 64, dtype=torch.int64,
                                                       device="cuda"))
@@ -650,17 +765,18 @@ def test_rewarm_keeps_one_graph_and_replays_count_launches(gen):
     assert tpa.launches == engine.model_cfg.num_layers * steps and tpa.launches_int8 == 0
 
 
-def test_lm_head_runs_a_bf16_gemm_with_float32_output(gen):
-    """The head of a bf16 model multiplies bf16 operands on the card
-    (``aten::mm`` with an out_dtype, bf16 inputs in the profile) and returns
-    float32 logits equal to the float32 product up to summation order; its
-    gradient with respect to x is the float32 product's."""
+def _check_half_head(gen, dtype, name):
+    """The head of a ``dtype`` (bf16 or float16) model multiplies ``dtype``
+    operands on the card (``aten::mm`` with an out_dtype, ``name`` inputs
+    in the profile) and returns float32 logits equal to the float32 product
+    up to summation order; its gradient with respect to x is the float32
+    product's."""
     from torch.profiler import ProfilerActivity, profile
 
     from dlti_tpu_torch.models.llama import lm_head_logits
 
-    x = torch.randn(8, 1, 256, device="cuda", generator=gen).to(torch.bfloat16)
-    w = (0.05 * torch.randn(256, 512, device="cuda", generator=gen)).to(torch.bfloat16)
+    x = torch.randn(8, 1, 256, device="cuda", generator=gen).to(dtype)
+    w = (0.05 * torch.randn(256, 512, device="cuda", generator=gen)).to(dtype)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                  record_shapes=True) as prof:
         got = lm_head_logits(x, w)
@@ -672,22 +788,34 @@ def test_lm_head_runs_a_bf16_gemm_with_float32_output(gen):
     assert mms and all(e.input_shapes[:2] == [[8, 256], [256, 512]] for e in mms)
     dtypes = getattr(mms[0], "input_dtypes", None)
     if dtypes is not None:
-        assert "BFloat16" in str(dtypes[0]) and "BFloat16" in str(dtypes[1]), dtypes
+        assert name in str(dtypes[0]) and name in str(dtypes[1]), dtypes
 
     xg = x.clone().requires_grad_()
     xf = x.clone().requires_grad_()
     g = torch.randn(8, 1, 512, device="cuda", generator=gen)
     lm_head_logits(xg, w).backward(g)
     (xf.float() @ w.float()).backward(g)
-    assert xg.grad.dtype == torch.bfloat16
+    assert xg.grad.dtype == dtype
     torch.testing.assert_close(xg.grad, xf.grad, atol=0, rtol=0)
+
+
+def test_lm_head_runs_a_bf16_gemm_with_float32_output(gen):
+    _check_half_head(gen, torch.bfloat16, "BFloat16")
+
+
+def test_lm_head_runs_a_float16_gemm_with_float32_output(gen):
+    """``torch.mm(..., out_dtype=torch.float32)`` takes float16 operands
+    too: the fp16 model's head (the reference's preferred_element_type)."""
+    _check_half_head(gen, torch.float16, "Half")
 
 
 # ----------------------------------------------------------------------
 # Checkpoints of a train state on the card
 # ----------------------------------------------------------------------
 
-def _card_train_state(preset, layers=None, lora_r=16):
+def _card_train_state(preset, layers=None, lora_r=16, fp16_initial_scale=None):
+    """``fp16_initial_scale``: a float16 model (compute and base) under the
+    loss scaler, as ``cli.train --fp16`` builds it."""
     import dataclasses
 
     from dlti_tpu_torch.config import MODEL_PRESETS, LoRAConfig, OptimizerConfig
@@ -697,10 +825,13 @@ def _card_train_state(preset, layers=None, lora_r=16):
     cfg = MODEL_PRESETS[preset]
     if layers is not None:
         cfg = dataclasses.replace(cfg, num_layers=layers)
+    if fp16_initial_scale is not None:
+        cfg = dataclasses.replace(cfg, dtype="float16", param_dtype="float16")
     lora = LoRAConfig(r=lora_r, alpha=2 * lora_r)
     params = init_params(cfg, seed=0, device="cuda", lora=lora)
     model = load_model(cfg, params, "cuda", lora=lora, trainable_lora=True)
-    return create_train_state(model, build_optimizer(OptimizerConfig(warmup_steps=1)))
+    return create_train_state(model, build_optimizer(OptimizerConfig(warmup_steps=1)),
+                              fp16_initial_scale=fp16_initial_scale)
 
 
 def test_restore_places_every_leaf_on_the_card_with_the_templates_dtype(gen, tmp_path):
@@ -858,6 +989,7 @@ def test_train_window_replays_never_sync_the_host(gen):
     """``set_sync_debug_mode("error")`` around a captured window of 3
     steps: the uploads into the static inputs and the replays wait on
     nothing (the capture, in the first window, does)."""
+    from dlti_tpu_torch.training.step import METRICS
     from dlti_tpu_torch.utils.device import to_host
 
     state, window = _window_case(gen, True)
@@ -870,7 +1002,7 @@ def test_train_window_replays_never_sync_the_host(gen):
     finally:
         torch.cuda.set_sync_debug_mode(0)
     rows = to_host(out)[0]
-    assert rows.shape == (3, 5) and state.step == 4 and window.captures == 1
+    assert rows.shape == (3, len(METRICS)) and state.step == 4 and window.captures == 1
     assert all(abs(x) < float("inf") for x in rows[:, 0])
 
 
@@ -895,3 +1027,86 @@ def test_train_window_counts_k1_k3_per_replay(gen):
     rows = to_host(window.run(state, short, 5))[0]
     assert window.captures == 2 and state.step == 5 and abs(rows[0, 0]) < float("inf")
     assert tfa.dq_launches == per_step * 5
+
+
+# ----------------------------------------------------------------------
+# The fp16 path: the step under the dynamic loss scaler as a CUDA graph
+# ----------------------------------------------------------------------
+
+def _fp16_window_case(gen, graphs):
+    """``_window_case`` in float16 under the loss scaler from 2**10, with a
+    scale window of 2 (the scale doubles after two good steps)."""
+    from dlti_tpu_torch.training import StepWindow
+
+    state = _card_train_state("llama_300m", layers=2, fp16_initial_scale=2.0 ** 10)
+    assert state.model.model.embed_tokens.dtype == torch.float16
+    window = StepWindow(state.model, accum_steps=2, seed=43, capacity=4,
+                        cuda_graphs=graphs, fp16_scale_window=2)
+    return state, window
+
+
+def _fp16_batches(poison=2, seed=3):
+    """Four host batches with float loss masks; batch ``poison`` has a NaN in
+    its mask, so its gradient norm is not finite: an overflow."""
+    import numpy as np
+
+    out = []
+    for i, b in enumerate(_host_batches(4, seed=seed)):
+        b = dict(b, loss_mask=b["loss_mask"].astype(np.float32))
+        if i == poison:
+            b["loss_mask"][0, 0, 5] = np.nan
+        out.append(b)
+    return out
+
+
+def test_graphed_fp16_steps_equal_eager_across_an_overflow(gen):
+    """Four fp16 steps (two windows of 2), the third overflowing, through
+    the captured step and the eager step from the same state: equal
+    metrics, LoRA factors, moments and scaler tensors, bit for bit; the
+    scale doubled after two good steps and the hysteresis absorbed the
+    overflow (the scale read from its tensor on every replay)."""
+    import numpy as np
+
+    from dlti_tpu_torch.training.step import METRICS
+    from dlti_tpu_torch.utils.device import to_host
+
+    batches = _fp16_batches()
+    runs = []
+    for graphs in (False, True):
+        state, window = _fp16_window_case(gen, graphs)
+        rows = [to_host(window.run(state, batches[i:i + 2], i + 1))[0] for i in (0, 2)]
+        assert (window.graph is not None) == graphs and state.step == 4
+        runs.append((rows, [t.clone() for t in state.trainable().values()],
+                     [t.clone() for t in state.opt_state.mu.values()],
+                     {k: t.clone() for k, t in state.scaler.items()}))
+        window.release()
+    (eager, pe, me, se), (graphed, pg, mg, sg) = runs
+    for a, b in zip(eager, graphed):  # the overflowing step's loss is NaN in both
+        assert np.array_equal(a, b, equal_nan=True), (a, b)
+    assert all(torch.equal(a, b) for a, b in zip(pe + me, pg + mg))
+    assert all(torch.equal(se[k], sg[k]) for k in se)
+    rows = torch.cat([torch.as_tensor(r) for r in graphed])
+    col = {name: rows[:, i].tolist() for i, name in enumerate(METRICS)}
+    assert col["overflow"] == col["skipped_update"] == [0.0, 0.0, 1.0, 0.0]
+    assert col["loss_scale"] == [1024.0, 2048.0, 2048.0, 2048.0]
+    assert (int(sg["good_steps"]), int(sg["hysteresis_left"])) == (1, 1)
+
+
+def test_fp16_train_window_replays_never_sync_the_host(gen):
+    """``set_sync_debug_mode("error")`` around a captured fp16 window of 3
+    steps, one of them overflowing: the scaler's update waits on nothing."""
+    from dlti_tpu_torch.utils.device import to_host
+
+    state, window = _fp16_window_case(gen, True)
+    batches = _fp16_batches(poison=2, seed=4)
+    to_host(window.run(state, batches[:1], 1))
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = window.run(state, batches[1:], 2)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    rows = to_host(out)[0]
+    assert state.step == 4 and window.captures == 1
+    assert rows[:, -1].tolist() == [0.0, 1.0, 0.0]  # overflow
+

@@ -151,7 +151,7 @@ def test_engine_rejects_unsatisfiable_pool_and_empty_prompt(params):
                                           cache_dtype="float32"), device="cpu")
     with pytest.raises(ValueError):
         engine.submit([])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="dtype"):
         InferenceEngine(MODEL_PRESETS["llama_tiny"], params_from_jax(params),
                         EngineConfig(num_blocks=80, max_model_len=64,
-                                     cache_dtype="float16"), device="cpu")
+                                     cache_dtype="float64"), device="cpu")

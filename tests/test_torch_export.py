@@ -6,8 +6,9 @@ against the JAX package's (``llama_tiny``, CPU).
   preset the port has; the port reads the JAX package's ``config.json``
   and refuses a model it cannot run.
 * Exports cross both ways: each package's merged kernels agree with the
-  other's (float32 to 1e-6 relative, bfloat16 to one bf16 step: the two
-  merges sum in different orders), and a port export and a JAX export
+  other's (float32 to 1e-6 relative, bfloat16 and float16 to one step of
+  the type: the two merges sum in different orders), and a port export and
+  a JAX export
   each give equal greedy tokens from the JAX engine and from the port's
   engine built by ``cli.serve.build --model-dir --device cpu``; an
   unmerged (``--keep-lora``) export serves the same tokens through its
@@ -105,7 +106,7 @@ def _leaf_bits(a):
     return a.view(np.int16) if a.dtype.name == "bfloat16" else a
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
 def test_merged_exports_agree_across_packages(tmp_path, dtype):
     params = _params(dtype)
     jcfg, tcfg = _configs(dtype)
@@ -122,7 +123,7 @@ def test_merged_exports_agree_across_packages(tmp_path, dtype):
     theirs = params_from_jax(jtree)
     for name, ours in params_from_jax(ptree).items():
         want = theirs[name]
-        if dtype == "bfloat16":  # one bf16 step at most, same sign
+        if dtype != "float32":  # one bf16 / float16 step at most, same sign
             steps = np.abs(ours.view(torch.int16).numpy().astype(np.int32)
                            - want.view(torch.int16).numpy().astype(np.int32))
             assert steps.max() <= 1, name

@@ -151,8 +151,13 @@ def test_bf16_pool_and_int8_pool():
     cache = tkv.init_paged_cache(2, 4, 2, 1, 8, torch.bfloat16)
     assert len(cache) == 2 and cache[0]["k"].dtype == torch.bfloat16
     assert tuple(cache[1]["v"].shape) == (4, 2, 1, 8)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tkv.init_paged_cache(1, 4, 2, 1, 8, torch.float16)
+    # float16 pools as the JAX package allocates them; other dtypes refused.
+    half = tkv.init_paged_cache(1, 4, 2, 1, 8, torch.float16)[0]
+    jhalf = jkv.init_paged_cache(1, 4, 2, 1, 8, jnp.float16)[0]
+    assert half["k"].dtype == torch.float16 and str(jhalf["k"].dtype) == "float16"
+    assert sorted(half) == sorted(jhalf) == ["k", "v"]
+    with pytest.raises(ValueError, match="unsupported"):
+        tkv.init_paged_cache(1, 4, 2, 1, 8, torch.float64)
 
     nb, bs, kvh, hd = 8, 4, 2, 16
     jcache = jkv.init_paged_cache(1, nb, bs, kvh, hd, "int8")[0]

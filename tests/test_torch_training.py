@@ -210,8 +210,7 @@ def test_unported_remat_policy_raises():
         load_model(cfg, {}, "cpu")
 
 
-@pytest.mark.parametrize("field,value", [("fp16", True),
-                                         ("quantize_frozen_base", True)])
+@pytest.mark.parametrize("field,value", [("quantize_frozen_base", True)])
 def test_trainer_refuses_unported_train_options(field, value):
     cfg = tc.Config(model=tc.MODEL_PRESETS["llama_tiny"],
                     checkpoint=tc.CheckpointConfig(save_strategy="no"),
