@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving, training, checkpoint-to-serving and
-HTTP serving paths on one NVIDIA GPU (an H100).
+"""Drive the PyTorch port's serving, training (single-device and ZeRO),
+checkpoint-to-serving and HTTP serving paths on one NVIDIA GPU (an H100).
 
     python3 chip_smoke.py
 
@@ -170,6 +170,16 @@ Phases, each of which fails the run if its check fails:
     ``cli.serve.build --model-dir --kv-cache-dtype float16`` serving 4
     greedy requests with K4 counted layers x decode steps, and phase 4's
     check on that engine.
+
+16. ZeRO on one card (run last): phase 7's configuration, llama2_7b LoRA at
+    full width and depth, graphed, 8 steps under ``baseline``, ``zero1``,
+    ``zero2``, ``zero3`` and ``zero3`` with both host offloads, in a NCCL
+    process group of one joined through the launcher's env
+    (``launcher.maybe_initialize_from_env``): every run's losses and grad
+    norms bit-equal to the group's baseline (and that to phase 7's run
+    without a group), K1-K3 counted per run as in phase 7, every offloaded
+    leaf a pinned host tensor. Prints each strategy's step ms, tokens/s,
+    peak memory and launches; the group is destroyed at the end.
 
 Prints a ``{"kernels": [...]}`` line (each kernel's float16 mode a row of
 its own), and as its last line
@@ -2612,6 +2622,143 @@ def phase_cli_round_trip(torch):
         shutil.rmtree(root, ignore_errors=True)
 
 
+def h2d_pinned_gb_s(torch, nbytes=1 << 30, reps=3) -> float:
+    """Host-to-card copy rate from pinned memory (CUDA events, best of
+    ``reps`` 1 GiB copies)."""
+    src = torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
+    dst = torch.empty(nbytes, dtype=torch.uint8, device="cuda")
+    best = float("inf")
+    for _ in range(reps):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        dst.copy_(src, non_blocking=True)
+        end.record()
+        end.synchronize()
+        best = min(best, start.elapsed_time(end) / 1e3)
+    return nbytes / best / 1e9
+
+
+# Phase 16's strategies: (name, preset, offload_optimizer, offload_params).
+ZERO_RUNS = (("baseline", "baseline", False, False), ("zero1", "zero1", False, False),
+             ("zero2", "zero2", False, False), ("zero3", "zero3", False, False),
+             ("zero3_offload", "zero3", True, True))
+
+
+def phase_zero(torch, reference, card):
+    """Phase 16, ZeRO on one card: phase 7's configuration (llama2_7b LoRA
+    r=16 at full width and depth, seq 512, micro-batch 4 x accum 2, remat,
+    the step as a CUDA graph) for 8 steps under each of ``ZERO_RUNS`` in a
+    NCCL process group of one, joined as the launcher's env describes it
+    (``launcher.maybe_initialize_from_env``). Every run's losses and grad
+    norms must be bit-equal to the group's baseline run (at a world of 1
+    every collective is a copy), K1-K3 counted as in phase 7 (counters set
+    to 0 before each run and read after it), and under offload every frozen
+    leaf and every moment a pinned host tensor. The baseline in the group
+    is also held against phase 7's run without a group. Prints each run's
+    step ms, tokens/s, peak memory and launches beside the card."""
+    import os
+    import socket
+
+    import torch.distributed as dist
+
+    from dlti_tpu_torch import launcher
+    from dlti_tpu_torch.config import CheckpointConfig, ParallelConfig, ZeROStage, preset
+    from dlti_tpu_torch.data import ByteTokenizer, make_batches
+    from dlti_tpu_torch.models.interop import init_params
+    from dlti_tpu_torch.ops import flash_attention as tfa
+    from dlti_tpu_torch.training import Trainer
+
+    t_phase = time.perf_counter()
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    env = launcher.worker_env(f"127.0.0.1:{port}", 1, 0, base={}, local_rank=0)
+    os.environ.update(env)
+    try:
+        check(launcher.maybe_initialize_from_env("cuda"), "no process group was formed")
+        check(dist.get_backend() == "nccl" and dist.get_world_size() == 1,
+              f"group {dist.get_backend()} of {dist.get_world_size()}")
+        base = train_config(CheckpointConfig(save_strategy="no"), max_steps=TRAIN_STEPS)
+        mcfg, accum = base.model, base.train.grad_accum_steps
+        dataset = make_batches(training_texts(), ByteTokenizer(), seq_len=512,
+                               micro_batch_size=4, grad_accum_steps=accum)
+        runs = {}
+        for name, preset_name, off_opt, off_params in ZERO_RUNS:
+            stage = ZeROStage(preset(preset_name).parallel.zero_stage)
+            cfg = dataclasses.replace(base, parallel=ParallelConfig(
+                zero_stage=stage, offload_optimizer=off_opt, offload_params=off_params),
+                experiment_name=preset_name)
+            trainer = Trainer(cfg, params=init_params(mcfg, seed=0, device="cuda",
+                                                      lora=cfg.lora), device="cuda")
+            state = trainer.init_state()
+            if off_params or off_opt:
+                frozen = [p for n, p in state.model.named_parameters()
+                          if not n.endswith(("lora_a", "lora_b"))]
+                # What a step streams: each block's base twice a microbatch
+                # (forward and remat recompute), the rest once.
+                in_blocks = sum(p.numel() * p.element_size()
+                                for n, p in state.model.named_parameters()
+                                if n.startswith("model.layers.")
+                                and not n.endswith(("lora_a", "lora_b")))
+                outside = sum(p.numel() * p.element_size() for p in frozen) - in_blocks
+                streamed = accum * (2 * in_blocks + outside)
+                moments = [*state.opt_state.mu.values(), *state.opt_state.nu.values()]
+                host = [t.device.type == "cpu" and t.is_pinned() for t in frozen + moments]
+                log(f"[zero] {name}: {len(frozen)} frozen leaves "
+                    f"({sum(t.numel() * t.element_size() for t in frozen) / 1e9:.2f} GB) and "
+                    f"{len(moments)} moments in pinned host memory: {all(host)}")
+                check(all(host), f"{name}: {host.count(False)} offloaded leaves are not "
+                      "pinned host tensors")
+            free_memory(torch)
+            tfa.fwd_launches = tfa.dq_launches = tfa.dkv_launches = 0
+            state, record = trainer.train(dataset=dataset, state=state)
+            torch.cuda.synchronize()
+            launches = flash_counts(tfa)
+            want = flash_expected(mcfg.num_layers, accum, TRAIN_STEPS + record.captures)
+            perf = train_perf(record, mcfg)
+            perf["launches"] = launches
+            perf["strategy"], perf["world"] = record.strategy, record.world
+            runs[name] = perf
+            log(f"[zero] {name} ({record.strategy}, world {record.world}, offload optimizer "
+                f"{off_opt}, params {off_params}): step {perf['step_ms']:.1f} ms, "
+                f"{perf['tokens_per_s']:.1f} tokens/s, peak {perf['peak_memory_gb']:.2f} GB, "
+                f"{record.captures} capture, launches {launches} (expected {want})")
+            if off_params:
+                rate = h2d_pinned_gb_s(torch)
+                perf["streamed_gb_a_step"], perf["h2d_pinned_gb_s"] = streamed / 1e9, rate
+                perf["copy_bound_ms"] = streamed / 1e9 / rate * 1e3
+                log(f"[zero] {name}: the base streamed {streamed / 1e9:.2f} GB a step; pinned "
+                    f"host-to-card copies {rate:.1f} GB/s, so the copies alone take "
+                    f"{perf['copy_bound_ms']:.1f} ms a step")
+            check(record.captures == 1, f"{name}: {record.captures} captures")
+            check(launches == want, f"{name}: flash launches {launches} != {want}")
+            check(record.steps == TRAIN_STEPS and record.skipped_updates == 0,
+                  f"{name}: {record.steps} steps, {record.skipped_updates} skipped")
+            check(record.strategy == preset_name.split("_")[0], record.strategy)
+            del state, trainer
+            free_memory(torch)
+        ref = runs["baseline"]
+        for name, perf in runs.items():
+            same = perf["losses"] == ref["losses"] and perf["grad_norms"] == ref["grad_norms"]
+            log(f"[zero] {name}: losses and grad norms bit-equal to the baseline in the "
+                f"group: {same}")
+            check(same, f"{name} losses {perf['losses']} / grad norms {perf['grad_norms']} "
+                  f"differ from the baseline's {ref['losses']} / {ref['grad_norms']}")
+        no_group = (ref["losses"] == reference["losses"]
+                    and ref["grad_norms"] == reference["grad_norms"])
+        log(f"[zero] the baseline in the group against phase 7's without one: bit-equal "
+            f"{no_group}")
+        check(no_group, "the baseline in a group of one differs from phase 7's run")
+        log(f"[zero] card {card}; phase {time.perf_counter() - t_phase:.1f} s")
+        return runs
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        for k in env:
+            if k.startswith("DLTI_"):
+                os.environ.pop(k, None)
+
+
 def main() -> int:
     try:
         import torch
@@ -2667,6 +2814,7 @@ def main() -> int:
         free_memory(torch)
         phase_serve_cli(torch)
         phase_cli_round_trip(torch)
+        zero_perf = phase_zero(torch, train_perf, card)
     except CheckFailed as e:
         return fail(str(e))
 
@@ -2783,6 +2931,9 @@ def main() -> int:
         "fp16_over_bf16_step": fp16_perf["train"]["step_ms"] / train_perf["step_ms"],
         "overflow_run": fp16_perf["overflow"], "ckpt": fp16_perf["ckpt"],
         "launches": fp16_launches}))
+    log("[zero] summary " + json.dumps({name: {k: r[k] for k in keys + (
+        "launches", "strategy", "world", "streamed_gb_a_step", "h2d_pinned_gb_s",
+        "copy_bound_ms") if k in r} for name, r in zero_perf.items()}))
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -46,8 +46,15 @@ Where the port differs from the reference, the format does not:
 * The reference's ``_launder`` (a jitted copy of a restored state, the
   workaround for a heap fault in JAX's CPU backend when a transfer-created
   array is donated) has no counterpart: nothing here donates buffers.
-* Multi-host consolidation and the reference's ENOSPC reclaimers are not
-  ported (one process writes).
+* Data-parallel runs write consolidated checkpoints, as the reference's
+  multi-host saves do: every rank joins the gathers of the leaves it holds
+  shards of (``training.state.state_leaves``), rank 0 alone calls
+  :func:`save_train_state`, and rotation and quarantine run there. The
+  others restore the step rank 0's scan chose (``training.trainer``).
+* A leaf that rests in pinned host memory (ZeRO-3's ``offload_params``) is
+  its own host copy: the cache keeps the live tensor, so the frozen base is
+  not held on the host twice.
+* The reference's ENOSPC reclaimers are not ported.
 
 Checkpoint layout (``<dir>/<step>/``)::
 
@@ -171,6 +178,11 @@ def _sync_sources(tensors: Iterable[torch.Tensor]) -> None:
         torch.cuda.current_stream(dev).synchronize()
 
 
+def _is_host_resident(t: torch.Tensor) -> bool:
+    """A leaf kept in pinned host memory (offloaded): its own host copy."""
+    return t.device.type == "cpu" and t.is_pinned()
+
+
 @dataclasses.dataclass
 class _CacheEntry:
     ref: "weakref.ref"
@@ -214,7 +226,7 @@ class HostCache:
         for name, t in live:
             if name in self._restored:
                 host, digest = self._restored[name]
-                self.put(name, t, host, digest)
+                self.put(name, t, t.detach() if _is_host_resident(t) else host, digest)
         self._restored = {}
 
     def __len__(self) -> int:
@@ -246,6 +258,9 @@ def snapshot(leaves: Leaves, cache: Optional[HostCache] = None
         hit = cache.lookup(name, t) if cache is not None else None
         if hit is not None:
             hosts[i], entries[i] = hit.host, hit
+        elif cache is not None and name in cache.names and _is_host_resident(t):
+            hosts[i] = t.detach()
+            entries[i] = cache.put(name, t, hosts[i])
         elif cache is not None and name in cache.names:
             to_cache.append(i)
         else:

@@ -1,4 +1,5 @@
-"""Training CLI: the port of ``scripts/train.py`` for one device.
+"""Training CLI: the port of ``scripts/train.py``, on one device or data
+parallel (``--preset baseline|zero1|zero2|zero3`` under the launcher).
 
     python -m dlti_tpu_torch.cli.train --model llama2_7b --tokenizer byte \\
         --dataset-path data/corpus.jsonl --max-steps 100
@@ -19,6 +20,13 @@
         --tokenizer byte --dataset-path data/ --max-seq-len 64 --max-steps 4 \
         --fp16 --save-steps 2 --output-dir runs/fp16
 
+    # ZeRO-3 over 2 processes (gloo on the CPU; drop --device cpu for one
+    # process per card over NCCL), host offload of the moments
+    python -m dlti_tpu_torch.launcher --num-processes 2 -- \
+        python -m dlti_tpu_torch.cli.train --device cpu --preset zero3 \
+        --model llama_tiny --tokenizer byte --dataset-path data/ \
+        --max-seq-len 64 --max-steps 4 --offload-optimizer --save-strategy no
+
     # 4 steps a host sync, the chunked loss, an eval every 4 steps
     python -m dlti_tpu_torch.cli.train --device cpu --model llama_tiny \
         --tokenizer byte --dataset-path data/ --max-seq-len 64 --max-steps 8 \
@@ -38,8 +46,19 @@ many optimizer steps a host synchronisation (on the card one CUDA graph of
 the step, replayed); eval and saves land at window boundaries. ``--fp16``
 runs the model in float16 (compute and base weights) under the dynamic loss
 scaler, as the reference's ``--fp16`` does. Weights are random, from
-``--seed``. Prints one JSON line with the run's record at the end. The PEFT
-and HF exports (``--export-peft``, ``--export-hf``) are not ported.
+``--seed``. Prints one JSON line with the run's record at the end.
+
+``--preset`` picks the strategy (the reference's semantics): ``baseline``
+(replicated data parallelism), ``zero1``/``zero2`` (sharded optimizer
+state, then reduce-scattered gradients, over ``data``) or ``zero3``
+(sharded parameters over ``fsdp``); ``--num-devices`` is the extent (0 = the
+launcher's world), and ``--per-device-batch-size`` times it is the global
+microbatch. ``--offload-optimizer`` and ``--offload-params`` keep the
+optimizer moments and the frozen base in pinned host memory. Under the
+launcher rank 0 alone logs, writes checkpoints (consolidated) and the
+export, and prints the summary. Not ported, each raising above 1:
+``--tensor``, ``--sequence``, ``--expert``, ``--pipe`` and ``--data``; the
+PEFT and HF exports (``--export-peft``, ``--export-hf``) are absent.
 """
 
 from __future__ import annotations
@@ -51,8 +70,8 @@ import logging
 import os
 
 from dlti_tpu_torch.config import (
-    MODEL_PRESETS, CheckpointConfig, Config, DataConfig, LoRAConfig, OptimizerConfig,
-    TrainConfig,
+    MODEL_PRESETS, CheckpointConfig, DataConfig, LoRAConfig, OptimizerConfig,
+    ParallelConfig, TrainConfig, ZeROStage, preset,
 )
 
 REMAT_CHOICES = ["none", "nothing_saveable", "dots_saveable",
@@ -60,8 +79,10 @@ REMAT_CHOICES = ["none", "nothing_saveable", "dots_saveable",
 
 
 def parse_args(argv=None):
-    p = argparse.ArgumentParser(description="LoRA trainer (PyTorch port, one device)",
+    p = argparse.ArgumentParser(description="LoRA trainer (PyTorch port)",
                                 formatter_class=argparse.ArgumentDefaultsHelpFormatter)
+    p.add_argument("--preset", default="baseline",
+                   help="strategy: baseline | zero1 | zero2 | zero3")
     p.add_argument("--model", default="llama2_7b", choices=sorted(MODEL_PRESETS))
     p.add_argument("--dataset-path", "--dataset_path", default="./data/glaive_code_full",
                    help="data.jsonl with a `text` field (or a directory holding "
@@ -109,6 +130,19 @@ def parse_args(argv=None):
                         "evaluated every --eval-steps optimizer steps")
     p.add_argument("--eval-steps", type=int, default=0,
                    help="eval cadence in steps (0 = never; requires --eval-dataset)")
+    p.add_argument("--num-devices", type=int, default=0,
+                   help="DP/FSDP extent; 0 = the launcher's world (1 without it)")
+    for axis in ("tensor", "sequence", "expert", "pipe"):
+        p.add_argument(f"--{axis}", type=int, default=1,
+                       help=f"{axis}-parallel extent (not ported: only 1)")
+    p.add_argument("--data", type=int, default=None,
+                   help="batch-row extent under --pipe (not ported: only 1)")
+    p.add_argument("--offload-optimizer", action="store_true",
+                   help="optimizer moments in pinned host memory "
+                        "(ds_config_zero3.json:19-23)")
+    p.add_argument("--offload-params", action="store_true",
+                   help="the frozen base in pinned host memory, streamed into the "
+                        "step a block ahead (ds_config_zero3.json:24-27)")
     p.add_argument("--device", default=None, help="cuda (default) or cpu")
     return p.parse_args(argv)
 
@@ -134,8 +168,32 @@ def load_texts(path: str) -> list:
         return [line.rstrip("\n") for line in f if line.strip()]
 
 
-def build_config(args) -> Config:
-    model = MODEL_PRESETS[args.model]
+def build_parallel(args, zero_stage: ZeROStage) -> ParallelConfig:
+    """The reference's flat-path mesh rules: the extent is ``--num-devices``
+    (0: the process group's world), on ``fsdp`` under ZeRO-3, else on
+    ``data``. The model-parallel axes are not ported and raise above 1."""
+    for axis in ("tensor", "sequence", "expert", "pipe"):
+        if getattr(args, axis) != 1:
+            raise SystemExit(f"--{axis} {getattr(args, axis)}: {axis} parallelism is "
+                             f"not ported yet (see ROADMAP.md); only 1 is accepted")
+    if args.data not in (None, 1):
+        raise SystemExit(f"--data {args.data} only applies under --pipe, which is not "
+                         f"ported yet (see ROADMAP.md); use --num-devices")
+    import torch.distributed as dist
+
+    world = dist.get_world_size() if dist.is_available() and dist.is_initialized() else 1
+    n = args.num_devices or world
+    kw = dict(zero_stage=zero_stage, offload_optimizer=args.offload_optimizer,
+              offload_params=args.offload_params)
+    if zero_stage == ZeROStage.ZERO3:
+        return ParallelConfig(fsdp=n, **kw)
+    return ParallelConfig(data=n, **kw)
+
+
+def build_config(args):
+    cfg = preset(args.preset, model=args.model)
+    par = build_parallel(args, ZeROStage(cfg.parallel.zero_stage))
+    model = cfg.model
     if args.fp16:
         # compute and store in float16; the scaler handles overflow
         model = dataclasses.replace(model, dtype="float16", param_dtype="float16")
@@ -146,8 +204,9 @@ def build_config(args) -> Config:
     if args.remat_stride:
         model = dataclasses.replace(model, remat_stride=args.remat_stride)
     r = max(args.lora_r, 1)
-    return Config(
+    return cfg.replace(
         model=model,
+        parallel=par,
         lora=LoRAConfig(enabled=args.lora_r > 0, r=r, alpha=2 * r),
         optimizer=OptimizerConfig(learning_rate=args.learning_rate,
                                   warmup_steps=args.warmup_steps),
@@ -159,7 +218,7 @@ def build_config(args) -> Config:
                                     save_total_limit=args.save_total_limit,
                                     resume=not args.no_resume),
         train=TrainConfig(num_epochs=args.num_train_epochs, max_steps=args.max_steps,
-                          micro_batch_size=args.per_device_batch_size,
+                          micro_batch_size=args.per_device_batch_size * par.dp_like_size,
                           grad_accum_steps=args.gradient_accumulation_steps,
                           logging_steps=args.logging_steps, seed=args.seed,
                           eval_steps=args.eval_steps, loss_chunk=args.loss_chunk,
@@ -169,10 +228,22 @@ def build_config(args) -> Config:
 def main(argv=None) -> None:
     args = parse_args(argv)
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(message)s")
+    import torch.distributed as dist
+
+    from dlti_tpu_torch.launcher import init_group_of_one, maybe_initialize_from_env
+
+    maybe_initialize_from_env(args.device)  # before anything lands on a card
+    if not dist.is_initialized() and preset(args.preset).parallel.zero_stage != ZeROStage.NONE:
+        from dlti_tpu_torch.utils.device import resolve_device
+
+        # A ZeRO strategy without the launcher: its collectives in a group of one.
+        init_group_of_one(resolve_device(args.device))
     cfg = build_config(args)
 
     from dlti_tpu_torch.data import get_tokenizer, make_batches
-    from dlti_tpu_torch.training import Trainer
+    from dlti_tpu_torch.training import Trainer, whole_params
+
+    writer = not dist.is_initialized() or dist.get_rank() == 0
 
     texts = load_texts(args.dataset_path)
     dataset = make_batches(texts, get_tokenizer(cfg.data.tokenizer),
@@ -186,15 +257,17 @@ def main(argv=None) -> None:
         if longest < cfg.data.max_seq_len:  # exact banded attention for packed rows
             cfg = cfg.replace(model=dataclasses.replace(
                 cfg.model, packed_attention_window=longest))
-    print(f"dataset: {len(texts)} examples, {dataset.steps_per_epoch()} steps/epoch",
-          flush=True)
+    if writer:
+        print(f"dataset: {len(texts)} examples, {dataset.steps_per_epoch()} steps/epoch",
+              flush=True)
     eval_dataset = None
     if args.eval_dataset:
         if not cfg.train.eval_steps:
             raise SystemExit("--eval-dataset needs --eval-steps > 0")
         eval_texts = load_texts(args.eval_dataset)
-        print(f"eval dataset: {len(eval_texts)} examples from {args.eval_dataset}",
-              flush=True)
+        if writer:
+            print(f"eval dataset: {len(eval_texts)} examples from {args.eval_dataset}",
+                  flush=True)
         eval_dataset = make_batches(eval_texts, get_tokenizer(cfg.data.tokenizer),
                                     seq_len=cfg.data.max_seq_len,
                                     micro_batch_size=cfg.train.micro_batch_size,
@@ -210,10 +283,18 @@ def main(argv=None) -> None:
     if args.export_dir:
         from dlti_tpu_torch.checkpoint import export_merged_model, manifest_digest
 
-        export_merged_model(args.export_dir, dict(state.model.named_parameters()), cfg)
-        print(f"merged export -> {args.export_dir}", flush=True)
-        print(f"manifest sha256: {manifest_digest(os.path.join(args.export_dir, 'model'))}",
-              flush=True)
+        # Every rank gathers; an offloaded base is merged where it rests, on the host.
+        params = whole_params(state)
+        if writer:
+            export_merged_model(args.export_dir, params, cfg)
+            print(f"merged export -> {args.export_dir}", flush=True)
+            print(f"manifest sha256: "
+                  f"{manifest_digest(os.path.join(args.export_dir, 'model'))}", flush=True)
+        del params
+    if dist.is_initialized():
+        dist.destroy_process_group()
+    if not writer:
+        return
     summary = {k: v for k, v in dataclasses.asdict(record).items()
                if k not in ("losses", "grad_norms", "loss_scales", "step_times_s",
                             "save_stall_s")}

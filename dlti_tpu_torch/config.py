@@ -1,7 +1,8 @@
 """Configuration: this package's copy of ``dlti_tpu/config.py``'s
 ``ModelConfig``, ``LoRAConfig``, ``MODEL_PRESETS`` and, for training,
-``OptimizerConfig``, ``DataConfig``, ``CheckpointConfig``, ``TrainConfig``
-and the root ``Config`` with its JSON form (``to_dict``/``from_dict``).
+``OptimizerConfig``, ``ZeROStage``, ``ParallelConfig``, ``DataConfig``,
+``CheckpointConfig``, ``TrainConfig``, the root ``Config`` with its JSON form
+(``to_dict``/``from_dict``) and the strategy presets (:func:`preset`).
 
 Field names, defaults and presets are the reference's, so a configuration
 means the same thing in both packages. The training blocks carry the fields
@@ -15,9 +16,24 @@ kernel's tiles: the CUDA flash kernels pick their own and do not read them.
 from __future__ import annotations
 
 import dataclasses
+import enum
 import json
+import re
 from dataclasses import dataclass, field
 from typing import Any, Optional
+
+
+class ZeROStage(enum.IntEnum):
+    """ZeRO stage (the reference's): ``NONE`` replicated data parallelism
+    (the baseline); ``ZERO1`` optimizer state sharded over ``data``;
+    ``ZERO2`` gradients reduce-scattered to those shards too; ``ZERO3``
+    parameters sharded over ``fsdp`` and gathered at use, with optional host
+    offload (``configs/ds_config_zero{1,2,3}.json``)."""
+
+    NONE = 0
+    ZERO1 = 1
+    ZERO2 = 2
+    ZERO3 = 3
 
 
 @dataclass(frozen=True)
@@ -109,6 +125,37 @@ class OptimizerConfig:
     grad_clip: float = 1.0
     schedule: str = "warmup_constant"  # or "warmup_cosine"
     total_steps: int = 0  # used by cosine schedule; 0 = constant after warmup
+
+
+@dataclass(frozen=True)
+class ParallelConfig:
+    """Mesh shape and strategy (the reference's ``ParallelConfig``, every
+    field and default). The port runs the batch axes, ``data`` (DP, ZeRO-1/2)
+    and ``fsdp`` (ZeRO-3), one process per device; ``tensor``,
+    ``sequence``, ``pipe`` and ``expert`` are kept for parity and raise
+    above 1 (``parallel.mesh.build_mesh``). ``offload_optimizer`` keeps the
+    optimizer moments, ``offload_params`` the frozen base, in pinned host
+    memory (``configs/ds_config_zero3.json:19-27``)."""
+
+    zero_stage: ZeROStage = ZeROStage.NONE
+    data: int = 1
+    fsdp: int = 1
+    tensor: int = 1
+    sequence: int = 1
+    pipe: int = 1
+    expert: int = 1
+    offload_optimizer: bool = False
+    offload_params: bool = False
+
+    @property
+    def num_devices(self) -> int:
+        return (self.data * self.fsdp * self.tensor * self.sequence
+                * self.pipe * self.expert)
+
+    @property
+    def dp_like_size(self) -> int:
+        """Total batch-sharding degree (data * fsdp axes both carry batch)."""
+        return self.data * self.fsdp
 
 
 @dataclass(frozen=True)
@@ -238,21 +285,24 @@ MODEL_PRESETS: dict = {
 
 
 _SECTIONS = {"model": ModelConfig, "lora": LoRAConfig,
-             "optimizer": OptimizerConfig, "data": DataConfig,
+             "optimizer": OptimizerConfig, "parallel": ParallelConfig,
+             "data": DataConfig,
              "checkpoint": CheckpointConfig, "train": TrainConfig}
 
 
 @dataclass(frozen=True)
 class Config:
     """Root config (the reference's ``Config``, without the blocks of code
-    the port has not reached: parallel, telemetry, serving)."""
+    the port has not reached: telemetry, serving)."""
 
     model: ModelConfig = field(default_factory=ModelConfig)
     lora: LoRAConfig = field(default_factory=LoRAConfig)
     optimizer: OptimizerConfig = field(default_factory=OptimizerConfig)
+    parallel: ParallelConfig = field(default_factory=ParallelConfig)
     data: DataConfig = field(default_factory=DataConfig)
     checkpoint: CheckpointConfig = field(default_factory=CheckpointConfig)
     train: TrainConfig = field(default_factory=TrainConfig)
+    experiment_name: str = ""
 
     def replace(self, **kwargs: Any) -> "Config":
         return dataclasses.replace(self, **kwargs)
@@ -266,6 +316,8 @@ class Config:
                 return {k: convert(v) for k, v in obj.items()}
             if isinstance(obj, (tuple, list)):
                 return [convert(v) for v in obj]
+            if isinstance(obj, enum.Enum):
+                return obj.value
             return obj
 
         return convert(dataclasses.asdict(self))
@@ -295,10 +347,35 @@ class Config:
                 continue
             fields = {f.name for f in dataclasses.fields(section)}
             kwargs[name] = section(**{
-                k: tuple(v) if isinstance(v, list) else v
+                k: ZeROStage(v) if k == "zero_stage" else
+                tuple(v) if isinstance(v, list) else v
                 for k, v in d[name].items() if k in fields})
+        if isinstance(d.get("experiment_name"), str):
+            kwargs["experiment_name"] = d["experiment_name"]
         return cls(**kwargs)
 
     @classmethod
     def from_json(cls, s: str) -> "Config":
         return cls.from_dict(json.loads(s))
+
+
+def preset(name: str, **overrides: Any) -> Config:
+    """A :class:`Config` from a strategy preset name (the reference's
+    ``preset``): ``baseline`` or ``zero{1,2,3}[_Ndev]``. ZeRO-3 puts the
+    extent on ``fsdp``, ZeRO-1/2 on ``data``; ``model`` may be a preset
+    name. ``preset("zero3_4dev").parallel.fsdp == 4``."""
+    model = overrides.pop("model", MODEL_PRESETS["llama2_7b"])
+    if isinstance(model, str):
+        model = MODEL_PRESETS[model]
+    if name == "baseline":
+        par = ParallelConfig(zero_stage=ZeROStage.NONE)
+    else:
+        m = re.fullmatch(r"zero([123])(?:_(\d+)dev)?", name)
+        if not m:
+            raise ValueError(f"unknown preset {name!r}; expected 'baseline' or "
+                             f"'zero{{1,2,3}}[_Ndev]'")
+        stage = ZeROStage(int(m.group(1)))
+        n = int(m.group(2) or 1)
+        par = (ParallelConfig(zero_stage=stage, fsdp=n) if stage == ZeROStage.ZERO3
+               else ParallelConfig(zero_stage=stage, data=n))
+    return Config(model=model, parallel=par, experiment_name=name, **overrides)

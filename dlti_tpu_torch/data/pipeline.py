@@ -1,7 +1,14 @@
 """Input pipeline: tokenize -> truncate/pad or pack -> train-step batches.
-This package's copy of ``dlti_tpu/data/pipeline.py``'s numpy functions, for
-one host: the batches are the same arrays, in the same order, as the JAX
-package's.
+This package's copy of ``dlti_tpu/data/pipeline.py``'s numpy functions: the
+batches are the same arrays, in the same order, as the JAX package's.
+
+Under data parallelism (an initialized ``torch.distributed`` group, one
+process per device) each process materializes its slice of every step, by
+the reference's world-size-invariant schedule: one seeded global
+permutation chunked ``micro_batch_size * grad_accum_steps`` rows per step;
+local element (a, b) of rank p is global chunk row ``a*bs + p*bs_local +
+b``, ``bs_local = micro_batch_size // world``. ``micro_batch_size`` is the
+global microbatch.
 
 Batches are dicts of int32 numpy arrays shaped (accum, micro_bs, seq_len):
 ``input_ids`` and ``loss_mask``, plus ``segment_ids`` and ``positions`` when
@@ -16,6 +23,7 @@ import dataclasses
 from typing import Iterator, List, Optional, Sequence
 
 import numpy as np
+import torch.distributed as dist
 
 from dlti_tpu_torch.data.tokenizer import Tokenizer
 
@@ -99,13 +107,26 @@ def packed_positions(segment_ids: np.ndarray) -> np.ndarray:
 
 
 class HostShardedSchedule:
-    """The epoch schedule over rows, for one host: one seeded permutation
-    per epoch (``shuffle_seed + epoch``), chunked ``samples_per_step`` rows
-    per optimizer step; ``skip_steps`` resumes mid-epoch. Subclasses set
-    ``_n_rows`` and implement ``_gather(rows) -> {field: (n, seq_len)}``."""
+    """The epoch schedule over rows: one seeded global permutation per
+    epoch (``shuffle_seed + epoch``), chunked ``samples_per_step`` rows per
+    optimizer step, of which this process takes its batch-column slice (see
+    the module docstring); ``skip_steps`` resumes mid-epoch. The schedule
+    does not depend on the world size. Subclasses call :meth:`_init_procs`,
+    set ``_n_rows`` and implement ``_gather(rows) -> {field: (n,
+    seq_len)}``."""
+
+    def _init_procs(self, shard_by_host: bool) -> None:
+        on = shard_by_host and dist.is_available() and dist.is_initialized()
+        self._procs = dist.get_world_size() if on else 1
+        self._proc_id = dist.get_rank() if on else 0
+        if self.micro_batch_size % self._procs != 0:
+            raise ValueError(
+                f"global micro_batch_size {self.micro_batch_size} must be "
+                f"divisible by the world size {self._procs}")
 
     @property
     def samples_per_step(self) -> int:
+        """Global samples consumed per optimizer step."""
         return self.micro_batch_size * self.grad_accum_steps
 
     def steps_per_epoch(self) -> int:
@@ -115,7 +136,8 @@ class HostShardedSchedule:
 
     def _pad_partial(self, fields: dict, present: np.ndarray) -> dict:
         """Pad a partial final step to the full step shape with all-pad rows
-        (loss mask, segment ids and positions 0)."""
+        (loss mask, segment ids and positions 0), placed in global batch
+        coordinates, so the padded step does not depend on the world size."""
         out = {}
         for k, v in fields.items():
             fill = self.pad_id if k == "input_ids" else 0
@@ -129,8 +151,11 @@ class HostShardedSchedule:
         if self.shuffle_seed is not None:
             np.random.default_rng(self.shuffle_seed + epoch_idx).shuffle(order)
         step_rows = self.samples_per_step
-        shape = (self.grad_accum_steps, self.micro_batch_size, self.seq_len)
-        g_idx = np.arange(step_rows)
+        bs = self.micro_batch_size
+        bs_local = bs // self._procs
+        shape = (self.grad_accum_steps, bs_local, self.seq_len)
+        g_idx = (np.arange(self.grad_accum_steps)[:, None] * bs
+                 + self._proc_id * bs_local + np.arange(bs_local)[None, :]).ravel()
         for step_i, start in enumerate(range(0, self._n_rows, step_rows)):
             chunk = order[start:start + step_rows]
             if len(chunk) < step_rows and self.drop_remainder:
@@ -156,10 +181,12 @@ class TokenBatchDataset(HostShardedSchedule):
     micro_batch_size: int
     grad_accum_steps: int = 1
     shuffle_seed: Optional[int] = 0
+    shard_by_host: bool = True
     drop_remainder: bool = True
     pack: bool = False
 
     def __post_init__(self) -> None:
+        self._init_procs(self.shard_by_host)  # validate before packing
         if self.pack:
             # Pack once over the (seed-shuffled) corpus; epochs reshuffle rows.
             order = np.arange(len(self.sequences))
@@ -185,11 +212,11 @@ class TokenBatchDataset(HostShardedSchedule):
 
 def make_batches(texts: Sequence[str], tokenizer: Tokenizer, seq_len: int = 512,
                  micro_batch_size: int = 1, grad_accum_steps: int = 1,
-                 shuffle_seed: Optional[int] = 0,
+                 shuffle_seed: Optional[int] = 0, shard_by_host: bool = True,
                  pack: bool = False) -> TokenBatchDataset:
     """Tokenize ``texts`` and wrap them in a :class:`TokenBatchDataset`."""
     return TokenBatchDataset(
         sequences=tokenize_and_truncate(texts, tokenizer, seq_len),
         seq_len=seq_len, pad_id=tokenizer.pad_id,
         micro_batch_size=micro_batch_size, grad_accum_steps=grad_accum_steps,
-        shuffle_seed=shuffle_seed, pack=pack)
+        shuffle_seed=shuffle_seed, shard_by_host=shard_by_host, pack=pack)

@@ -16,13 +16,18 @@ honouring ``remat_stride``), and LoRA dropout draws its masks from a seed
 the caller passes (``dropout_seed``): each layer's projections get a key
 derived from it on the device (:func:`dropout_keys`), hashed once per
 forward, so the recomputation draws the same masks and a CUDA graph can
-take the seed from a buffer. The
+take the seed from a buffer. Under ZeRO-3 or ``offload_params`` a
+``parallel.sharding.ParamFetcher`` on the model brings each block's leaves
+whole onto the device for the block (all-gathered, or copied from pinned
+host memory a block ahead), inside a remat recompute again; a data-parallel
+rank numbers its dropout rows from ``dropout_row_offset``. The
 dense fixed-capacity cache, ring attention, the other remat policies and
 quantized leaves are not ported.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Dict, List, Optional, Tuple
 
 import torch
@@ -237,6 +242,9 @@ class LlamaModel(nn.Module):
                                   cfg.rmsnorm_offset, device)
         # RoPE tables by (length, device); computed, not learned.
         self._rope: Dict[Tuple[int, torch.device], tuple] = {}
+        # ZeRO-3 and offload_params: fetches the leaves this rank does not
+        # hold whole on its device (parallel.sharding.ParamFetcher).
+        self.fetcher = None
 
     def _rope_tables(self, table_len: int, device) -> tuple:
         key = (table_len, device)
@@ -251,11 +259,14 @@ class LlamaModel(nn.Module):
                 segment_ids: Optional[torch.Tensor] = None,
                 cache: Optional[List[dict]] = None,
                 block_tables: Optional[torch.Tensor] = None,
-                dropout_seed=None) -> torch.Tensor:
+                dropout_seed=None, dropout_row_offset: int = 0) -> torch.Tensor:
         cfg = self.cfg
         dtype = resolve_dtype(cfg.dtype)
         b, s = input_ids.shape
-        x = self.embed_tokens[input_ids].to(dtype)
+        fetcher = self.fetcher
+        embed = (self.embed_tokens if fetcher is None
+                 else fetcher.leaf("model.embed_tokens"))
+        x = embed[input_ids].to(dtype)
         if cfg.embedding_scale:  # Gemma: scaled by sqrt(hidden) in the compute dtype
             # A CPU scalar: no host-to-device copy, which a CUDA graph refuses.
             x = x * torch.tensor(cfg.hidden_size ** 0.5, dtype=dtype)
@@ -287,20 +298,28 @@ class LlamaModel(nn.Module):
             cols = max(cfg.hidden_size, cfg.num_heads * cfg.resolved_head_dim,
                        cfg.intermediate_size)
             hashes = dropout_hashes(dropout_keys(dropout_seed, cfg.num_layers, x.device),
-                                    b * s, cols)
+                                    b * s, cols, row_offset=dropout_row_offset)
         remat = cfg.remat and cache is None and torch.is_grad_enabled()
+        # Selective remat: every remat_stride-th block keeps its
+        # activations instead of recomputing them in the backward.
+        recomputed = [i for i in range(cfg.num_layers)
+                      if remat and not (cfg.remat_stride > 1 and i % cfg.remat_stride == 0)]
+        if fetcher is not None:
+            fetcher.begin(recomputed)
         for i, layer in enumerate(self.layers):
             layer_hashes = None if hashes is None else (hashes[0][i], hashes[1][i])
-            # Selective remat: every remat_stride-th block keeps its
-            # activations instead of recomputing them in the backward.
-            if remat and not (cfg.remat_stride > 1 and i % cfg.remat_stride == 0):
-                x = checkpoint(layer, x, cos, sin, positions, segment_ids, None,
+            run = layer if fetcher is None else functools.partial(fetcher.run_block, i, layer)
+            if i in recomputed:
+                x = checkpoint(run, x, cos, sin, positions, segment_ids, None,
                                None, layer_hashes, use_reentrant=False,
                                preserve_rng_state=False)
             else:
-                x = layer(x, cos, sin, positions, segment_ids,
-                          cache[i] if cache is not None else None, block_tables,
-                          layer_hashes, paged)
+                x = run(x, cos, sin, positions, segment_ids,
+                        cache[i] if cache is not None else None, block_tables,
+                        layer_hashes, paged)
+        if fetcher is not None and fetcher.fetches("model.final_norm.scale"):
+            return torch.func.functional_call(
+                self.final_norm, {"scale": fetcher.leaf("model.final_norm.scale")}, (x,))
         return self.final_norm(x)
 
 
@@ -328,18 +347,24 @@ class LlamaForCausalLM(nn.Module):
                 requires_grad=False)
 
     def forward(self, input_ids, positions=None, segment_ids=None, cache=None,
-                block_tables=None, dropout_seed=None,
+                block_tables=None, dropout_seed=None, dropout_row_offset: int = 0,
                 return_hidden: bool = False) -> torch.Tensor:
         x = self.model(input_ids, positions, segment_ids, cache, block_tables,
-                       dropout_seed)
+                       dropout_seed, dropout_row_offset)
         if return_hidden:
             return x
         return lm_head_logits(x, self.head_matrix())
 
     def head_matrix(self) -> torch.Tensor:
         """The (hidden, vocab) matrix the forward multiplies the final
-        hidden state by (through :func:`lm_head_logits`)."""
-        return self.model.embed_tokens.T if self.cfg.tie_embeddings else self.lm_head
+        hidden state by (through :func:`lm_head_logits`), fetched whole when
+        this rank does not hold it so."""
+        fetcher = self.model.fetcher
+        if self.cfg.tie_embeddings:
+            embed = (self.model.embed_tokens if fetcher is None
+                     else fetcher.leaf("model.embed_tokens"))
+            return embed.T
+        return self.lm_head if fetcher is None else fetcher.leaf("lm_head")
 
 
 def lm_head_logits(x: torch.Tensor, head: torch.Tensor) -> torch.Tensor:

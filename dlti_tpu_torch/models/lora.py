@@ -89,14 +89,20 @@ def dropout(x: torch.Tensor, rate: float, row_hash: torch.Tensor,
                        0.0)
 
 
-def dropout_hashes(keys: torch.Tensor, rows: int, cols: int) -> tuple:
+def dropout_hashes(keys: torch.Tensor, rows: int, cols: int,
+                   row_offset: int = 0) -> tuple:
     """For each of ``keys`` (int64 tensor of 32-bit keys, any shape ``K``):
-    a 32-bit hash of (key, row) for ``rows`` rows and of (key, column) for
-    ``cols`` columns, as int32 tensors shaped ``K + (rows,)`` and
-    ``K + (cols,)``. One call hashes every key of a forward at once, so each
-    dropout mask costs three elementwise ops on its full shape."""
+    a 32-bit hash of (key, row) for rows ``row_offset`` ..
+    ``row_offset + rows - 1`` and of (key, column) for ``cols`` columns, as
+    int32 tensors shaped ``K + (rows,)`` and ``K + (cols,)``. One call
+    hashes every key of a forward at once, so each dropout mask costs three
+    elementwise ops on its full shape. Rows are numbered across the whole
+    microbatch: a data-parallel rank holding a slice of it passes the
+    slice's first global row, so every rank draws the masks a single device
+    draws for the same rows."""
     k = keys[..., None]
-    r = mix32(mix32(torch.arange(rows, device=keys.device) ^ k) ^ 0x5BD1E995)
+    rows_i = torch.arange(row_offset, row_offset + rows, device=keys.device)
+    r = mix32(mix32(rows_i ^ k) ^ 0x5BD1E995)
     c = mix32(torch.arange(cols, device=keys.device) ^ mix32(k ^ 0x27D4EB2F))
     # [0, 2**32) -> int32 exactly, by moving the range down 2**31.
     return (r - 2 ** 31).to(torch.int32), (c - 2 ** 31).to(torch.int32)
@@ -139,8 +145,9 @@ def merge_lora_params(params: Mapping[str, torch.Tensor],
                       scaling: Optional[float] = None,
                       alpha: int = 32) -> Dict[str, torch.Tensor]:
     """Fold each LoRA pair into its base kernel, W' = W + scaling * A @ B in
-    float32 and cast back to W's dtype; the returned dict has no
-    ``lora_a``/``lora_b`` leaves."""
+    float32 and cast back to W's dtype, on W's device (A @ B is formed
+    where the factors are); the returned dict has no ``lora_a``/``lora_b``
+    leaves."""
     out = {}
     for name, t in params.items():
         if is_lora_name(name):
@@ -150,7 +157,7 @@ def merge_lora_params(params: Mapping[str, torch.Tensor],
         b = params.get(f"{prefix}.lora_b")
         if leaf == "kernel" and a is not None and b is not None:
             s = scaling if scaling is not None else alpha / a.shape[-1]
-            t = (t.float() + s * (a.float() @ b.float())).to(t.dtype)
+            t = (t.float() + s * (a.float() @ b.float()).to(t.device)).to(t.dtype)
         out[name] = t
     return out
 

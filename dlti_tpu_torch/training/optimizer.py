@@ -22,17 +22,30 @@ the parameters, the moments and the count in place, into the tensors the
 state already holds, so a CUDA graph that captured it reads on each replay
 what the last one wrote. Moments are float32 whatever the parameter dtype
 (the reference's ``_fp32_state``).
+
+``init`` and ``update`` follow the state's ``parallel.sharding.Layout``
+(on one device, every leaf whole). Under a ZeRO strategy the moments of a
+trainable leaf hold only this rank's shard, the gradient ``update`` takes is
+the one this rank owns (that shard, or the whole leaf), and the update runs
+on the shard of the parameter: a ZeRO-3 leaf is its shard already, a
+ZeRO-1/2 leaf's new whole value is all-gathered after it. The clip reads
+the norm of the whole gradient (``sharded_sq_norm``). With
+``offload_optimizer`` on the card the moments rest in pinned host memory and
+cross to the card for the update and back, with the same arithmetic.
 """
 
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass, field
-from typing import Callable, Dict, Union
+from typing import Callable, Dict, Optional, Union
 
 import torch
 
 from dlti_tpu_torch.config import OptimizerConfig
+from dlti_tpu_torch.parallel.sharding import (
+    Layout, all_gather_dim, shard_of, sharded_sq_norm,
+)
 
 
 def build_schedule(cfg: OptimizerConfig
@@ -72,11 +85,6 @@ class AdamWState:
     nu: Dict[str, torch.Tensor] = field(default_factory=dict)
 
 
-def global_norm(tensors: Dict[str, torch.Tensor]) -> torch.Tensor:
-    """sqrt of the sum of squares of every element, in float32."""
-    return torch.sqrt(sum(torch.sum(t.float() * t.float()) for t in tensors.values()))
-
-
 class ClipAdamW:
     """Global-norm clip, then AdamW with a schedule, over a dict of
     parameters; ``update`` writes the new parameters and state in place."""
@@ -85,22 +93,40 @@ class ClipAdamW:
         self.cfg = cfg
         self.schedule = build_schedule(cfg)
 
-    def init(self, params: Dict[str, torch.Tensor]) -> AdamWState:
+    def init(self, params: Dict[str, torch.Tensor], layout: Layout) -> AdamWState:
+        """Zero moments shaped like the part of each leaf this rank updates
+        (its shard under a ZeRO ``layout``), in pinned host memory under
+        ``offload_optimizer`` on the card."""
         device = next(iter(params.values())).device if params else None
+        host = (layout.offload_optimizer and device is not None
+                and device.type == "cuda")
+
+        def zeros(n: str, p: torch.Tensor) -> torch.Tensor:
+            if layout.gathers_update(n):
+                p = shard_of(p, layout.leaves[n].opt_dim, layout.mesh)
+            if host:
+                return torch.zeros(p.shape, dtype=torch.float32, pin_memory=True)
+            return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+
         return AdamWState(
             count=torch.zeros((), dtype=torch.int32, device=device),
-            mu={n: torch.zeros_like(p, dtype=torch.float32) for n, p in params.items()},
-            nu={n: torch.zeros_like(p, dtype=torch.float32) for n, p in params.items()})
+            mu={n: zeros(n, p) for n, p in params.items()},
+            nu={n: zeros(n, p) for n, p in params.items()})
 
     @torch.no_grad()
     def update(self, grads: Dict[str, torch.Tensor], state: AdamWState,
-               params: Dict[str, torch.Tensor], apply: torch.Tensor) -> AdamWState:
+               params: Dict[str, torch.Tensor], apply: torch.Tensor,
+               layout: Layout, norm: Optional[torch.Tensor] = None) -> AdamWState:
         """One update of ``params`` and ``state`` in place. ``apply``: a 0-d
         bool tensor; where it is False the parameters, the moments and the
-        count keep their values (the update is computed and dropped)."""
+        count keep their values (the update is computed and dropped).
+        ``layout``: the state's placement (``grads`` are the gradients this
+        rank owns); ``norm``: the whole gradient's norm when the caller has
+        it already."""
         cfg = self.cfg
         b1, b2 = cfg.betas
-        norm = global_norm(grads)
+        if norm is None:
+            norm = torch.sqrt(sharded_sq_norm(grads, layout))
         clip = norm >= cfg.grad_clip
         count_inc = state.count + 1
         bc1, bc2 = 1 - b1 ** count_inc.float(), 1 - b2 ** count_inc.float()
@@ -109,17 +135,28 @@ class ClipAdamW:
         def keep(new, old):  # in place: old <- new where apply
             torch.where(apply, new, old, out=old)
 
-        for n, p in params.items():
+        for n, whole in params.items():
+            gathered = layout.gathers_update(n)
+            p = shard_of(whole, layout.leaves[n].opt_dim, layout.mesh) if gathered else whole
+            mu_old, nu_old = state.mu[n], state.nu[n]
+            if mu_old.device != p.device:  # offloaded moments: onto the card
+                mu_old = mu_old.to(p.device, non_blocking=True)
+                nu_old = nu_old.to(p.device, non_blocking=True)
             g = grads[n].float()
             g = torch.where(clip, (g / norm) * cfg.grad_clip, g)
-            mu = (1 - b1) * g + b1 * state.mu[n]
-            nu = (1 - b2) * (g * g) + b2 * state.nu[n]
+            mu = (1 - b1) * g + b1 * mu_old
+            nu = (1 - b2) * (g * g) + b2 * nu_old
             u = (mu / bc1) / (torch.sqrt(nu / bc2) + cfg.eps)
             if cfg.weight_decay:
                 u = u + cfg.weight_decay * p.float()
             keep((p.float() + step_size * u).to(p.dtype), p)
-            keep(mu, state.mu[n])
-            keep(nu, state.nu[n])
+            keep(mu, mu_old)
+            keep(nu, nu_old)
+            if mu_old is not state.mu[n]:  # ... and back to pinned host memory
+                state.mu[n].copy_(mu_old, non_blocking=True)
+                state.nu[n].copy_(nu_old, non_blocking=True)
+            if gathered:
+                whole.copy_(all_gather_dim(p, layout.leaves[n].opt_dim, layout.mesh))
         keep(count_inc, state.count)
         return state
 

@@ -25,6 +25,17 @@ The port's one ``AdamWState.count`` (a 0-d int32 tensor on the
 parameters' device) is both counts, so the snapshot copies it with the
 other device leaves; :func:`load_state_leaves` reads both back and checks
 that they agree.
+
+The state carries its ``parallel.sharding.Layout`` (on one device without
+a strategy, the single-device mesh's, which places every leaf whole): under
+a ZeRO strategy a leaf may be this rank's shard (ZeRO-3 parameters,
+ZeRO-1/2/3 moments) or rest in pinned host memory (offload).
+:func:`state_leaves` still gives every leaf whole, under the same names: a
+sharded one all-gathered into host memory, leaf after leaf (a collective
+every rank joins; rank 0 keeps it), anything else the live tensor. So a
+checkpoint of any strategy and world is the baseline's, and
+:func:`load_state_leaves` takes each rank's shard of the whole leaves it is
+given, so it restores under any other.
 """
 
 from __future__ import annotations
@@ -37,6 +48,8 @@ from torch import nn
 
 from dlti_tpu_torch.models.interop import jax_path
 from dlti_tpu_torch.models.lora import is_lora_name
+from dlti_tpu_torch.parallel.mesh import single_device_mesh
+from dlti_tpu_torch.parallel.sharding import Layout, gather_whole, plan_layout, shard_of
 from dlti_tpu_torch.training.optimizer import AdamWState, ClipAdamW
 
 _ADAM = ".opt_state[1][0]"
@@ -64,6 +77,7 @@ class TrainState:
     model: nn.Module
     opt_state: AdamWState
     tx: ClipAdamW
+    layout: Layout
     lora_enabled: bool = True
     scaler: Optional[Dict[str, torch.Tensor]] = None
 
@@ -71,18 +85,32 @@ class TrainState:
         return partition_params(dict(self.model.named_parameters()),
                                 self.lora_enabled)[0]
 
+    def _param_dim(self, name: str) -> Optional[int]:
+        return self.layout.leaves[name].param_dim
+
+    def _moment_dim(self, name: str) -> Optional[int]:
+        """The dim along which ``name``'s moments are this rank's shard."""
+        pl = self.layout.leaves[name]
+        return pl.param_dim if pl.param_dim is not None else pl.opt_dim
+
 
 def create_train_state(model: nn.Module, tx: ClipAdamW, lora_enabled: bool = True,
                        fp16_initial_scale: Optional[float] = None,
-                       fp16_hysteresis: int = 2) -> TrainState:
+                       fp16_hysteresis: int = 2,
+                       layout: Optional[Layout] = None) -> TrainState:
     """Step 0, the model with its trainable leaves requiring grad (and only
     those), and the optimizer state over them. ``fp16_initial_scale`` (e.g.
     2**16) turns on the dynamic loss scaler, with a full hysteresis budget,
-    as the reference's ``create_train_state``."""
+    as the reference's ``create_train_state``. ``layout``: the ZeRO
+    placement ``parallel.sharding.shard_model`` gave the model; without
+    one, every leaf whole on the trainable leaves' device."""
     trainable, _ = partition_params(dict(model.named_parameters()), lora_enabled)
     if not trainable:
         raise ValueError("no trainable params found (LoRA enabled but no "
                          "adapters grafted)")
+    if layout is None:
+        device = next(iter(trainable.values())).device
+        layout = plan_layout(model, single_device_mesh(device), lora_enabled)
     for name, p in model.named_parameters():
         p.requires_grad_(name in trainable)
     scaler = None
@@ -93,8 +121,8 @@ def create_train_state(model: nn.Module, tx: ClipAdamW, lora_enabled: bool = Tru
             "good_steps": torch.zeros((), dtype=torch.int32, device=device),
             "hysteresis_left": torch.tensor(fp16_hysteresis, dtype=torch.int32,
                                             device=device)}
-    return TrainState(step=0, model=model, opt_state=tx.init(trainable), tx=tx,
-                      lora_enabled=lora_enabled, scaler=scaler)
+    return TrainState(step=0, model=model, opt_state=tx.init(trainable, layout), tx=tx,
+                      layout=layout, lora_enabled=lora_enabled, scaler=scaler)
 
 
 def params_key(name: str) -> str:
@@ -111,21 +139,55 @@ def frozen_param_keys(state: TrainState) -> List[str]:
             if n not in trainable]
 
 
-def state_leaves(state: TrainState) -> List[Tuple[str, torch.Tensor]]:
+def whole_params(state: TrainState) -> Dict[str, torch.Tensor]:
+    """``{name: parameter}`` with every leaf whole, what an export merges:
+    each leaf where it lives (an offloaded one in pinned host memory), a
+    sharded one all-gathered into host memory, leaf after leaf. At a world
+    above 1 every rank must call this together, and only rank 0 gets the
+    leaves (the others an empty dict)."""
+    mesh = state.layout.mesh
+    out = {}
+    for n, p in state.model.named_parameters():
+        t = gather_whole(p.detach(), state._param_dim(n), mesh)
+        if mesh.is_writer:
+            out[n] = t
+    return out
+
+
+def state_leaves(state: TrainState, whole: bool = True) -> List[Tuple[str, torch.Tensor]]:
     """The state as ``[(jax leaf name, tensor)]`` in the JAX flatten order
     (see the module docstring). Tensors are the live ones (parameters,
-    moments, the count and the scaler, on their device); the step is a new
-    CPU int32 scalar."""
+    moments, the count and the scaler, on their device or in pinned host
+    memory); the step is a new CPU int32 scalar. A leaf this rank holds a
+    shard of comes back whole, all-gathered into host memory one leaf at a
+    time (every rank must call this together; rank 0 keeps it, the others
+    get a ``meta`` tensor in its place). ``whole=False`` gives instead a
+    ``meta`` tensor of each leaf's whole shape and dtype, with no
+    collective (a restore target)."""
+    layout = state.layout
+    mesh = layout.mesh
+
+    def out(t: torch.Tensor, d: Optional[int], shape) -> torch.Tensor:
+        if whole:
+            g = gather_whole(t, d, mesh)
+            if g is t or mesh.is_writer:
+                return g
+        return torch.empty(shape, dtype=t.dtype, device="meta")
+
     params = sorted(state.model.named_parameters(), key=lambda kv: jax_path(kv[0]))
     moments = sorted(state.opt_state.mu, key=jax_path)
     count = state.opt_state.count
     scaler = ([(f".scaler[{k!r}]", state.scaler[k]) for k in SCALER_KEYS]
               if state.scaler is not None else [])
+    mom = {n: (state._moment_dim(n), layout.leaves[n].shape) for n in moments}
     return ([(".step", torch.tensor(state.step, dtype=torch.int32))]
-            + [(params_key(n), p) for n, p in params]
+            + [(params_key(n), out(p, state._param_dim(n), layout.leaves[n].shape))
+               for n, p in params]
             + [(f"{_ADAM}.count", count)]
-            + [(f"{_ADAM}.mu[{jax_path(n)!r}]", state.opt_state.mu[n]) for n in moments]
-            + [(f"{_ADAM}.nu[{jax_path(n)!r}]", state.opt_state.nu[n]) for n in moments]
+            + [(f"{_ADAM}.mu[{jax_path(n)!r}]", out(state.opt_state.mu[n], *mom[n]))
+               for n in moments]
+            + [(f"{_ADAM}.nu[{jax_path(n)!r}]", out(state.opt_state.nu[n], *mom[n]))
+               for n in moments]
             + [(_SCHEDULE_COUNT, count)]
             + scaler)
 
@@ -133,13 +195,14 @@ def state_leaves(state: TrainState) -> List[Tuple[str, torch.Tensor]]:
 @torch.no_grad()
 def load_state_leaves(state: TrainState,
                       leaves: Sequence[Tuple[str, torch.Tensor]]) -> None:
-    """Load ``leaves`` (named as :func:`state_leaves` names them, e.g. from
-    ``restore_train_state``) into ``state``, in place: parameters, moments,
-    the count and the scaler keep their tensors (and devices), so a CUDA
-    graph that captured them stays valid; the step becomes an int. Reads the
-    counts back to the host once."""
+    """Load ``leaves`` (named as :func:`state_leaves` names them, whole,
+    e.g. from ``restore_train_state``) into ``state``, in place: parameters,
+    moments, the count and the scaler keep their tensors (and devices, and
+    this rank's shard of each sharded leaf), so a CUDA graph that captured
+    them stays valid; the step becomes an int. Reads the counts back to the
+    host once."""
     got = dict(leaves)
-    want = [name for name, _ in state_leaves(state)]
+    want = [name for name, _ in state_leaves(state, whole=False)]
     if sorted(got) != sorted(want):
         missing, extra = sorted(set(want) - set(got)), sorted(set(got) - set(want))
         raise ValueError(f"leaves do not match the state: missing {missing[:5]}, "
@@ -148,12 +211,14 @@ def load_state_leaves(state: TrainState,
     if adam_count != schedule_count:
         raise ValueError(f"Adam's count {adam_count} and the schedule's count "
                          f"{schedule_count} disagree")
+    mesh = state.layout.mesh
     for n, p in state.model.named_parameters():
-        p.copy_(got[params_key(n)])
+        p.copy_(shard_of(got[params_key(n)], state._param_dim(n), mesh))
     opt = state.opt_state
     for n in state.trainable():
-        opt.mu[n].copy_(got[f"{_ADAM}.mu[{jax_path(n)!r}]"])
-        opt.nu[n].copy_(got[f"{_ADAM}.nu[{jax_path(n)!r}]"])
+        d = state._moment_dim(n)
+        opt.mu[n].copy_(shard_of(got[f"{_ADAM}.mu[{jax_path(n)!r}]"], d, mesh))
+        opt.nu[n].copy_(shard_of(got[f"{_ADAM}.nu[{jax_path(n)!r}]"], d, mesh))
     opt.count.fill_(adam_count)
     for k in SCALER_KEYS if state.scaler is not None else ():
         state.scaler[k].copy_(got[f".scaler[{k!r}]"])

@@ -27,6 +27,17 @@ does that on the card, the counterpart of the reference's
 ``make_multi_step``, and runs a window of steps with one host
 synchronisation. The MoE aux loss is not ported, and a MoE model raises
 here.
+
+Data parallelism (the state's ``parallel.sharding.Layout`` has a mesh with
+a process group): each rank runs its rows of every microbatch, drawing LoRA dropout
+for them by their global row numbers; the token count and the loss sum are
+all-reduced before they divide, so loss and gradients are the global token
+mean; each gradient is all-reduced or reduce-scattered to the part this
+rank owns (``parallel.sharding.owned_grad``; ZeRO-3's sharded leaves
+reduce-scatter in the backward); the norm is the whole gradient's, equal on
+every rank, so the bf16 guard and the fp16 scaler take the same decision
+everywhere. The collectives run synchronously on the current stream, inside
+the CUDA graph on the card.
 """
 
 from __future__ import annotations
@@ -40,7 +51,7 @@ from torch.utils.checkpoint import checkpoint
 
 from dlti_tpu_torch.models.llama import lm_head_logits
 from dlti_tpu_torch.ops.launches import GraphLaunches
-from dlti_tpu_torch.training.optimizer import global_norm
+from dlti_tpu_torch.parallel.sharding import all_reduce_, owned_grad, sharded_sq_norm
 from dlti_tpu_torch.training.state import TrainState
 from dlti_tpu_torch.utils.device import upload
 from dlti_tpu_torch.utils.hashing import MASK32, fold_seed, mix32
@@ -157,11 +168,13 @@ def step_seed(seed: int, step):
     return mix32(fold_seed(seed) ^ (step & MASK32))
 
 
-def _loss(model, batch: dict, dropout_seed, loss_chunk: int) -> tuple:
-    """(sum of token losses, token count) of one ``(rows, seq)`` batch."""
+def _loss(model, batch: dict, dropout_seed, loss_chunk: int, rank: int = 0) -> tuple:
+    """(sum of token losses, token count) of one ``(rows, seq)`` batch, rank
+    ``rank``'s rows of its microbatch (dropout rows numbered from
+    ``rank * rows * seq``)."""
     ids = batch["input_ids"]
     kw = dict(positions=batch.get("positions"), segment_ids=batch.get("segment_ids"),
-              dropout_seed=dropout_seed)
+              dropout_seed=dropout_seed, dropout_row_offset=rank * ids.numel())
     if loss_chunk:
         hidden = model(ids, return_hidden=True, **kw)
         return chunked_causal_lm_loss(hidden, model.head_matrix(), ids,
@@ -183,12 +196,15 @@ def make_device_step(model, *, accum_steps: int = 1, loss_chunk: int = 0,
     masks, one key per microbatch derived from it; None runs without
     dropout. ``loss_chunk`` > 0 takes :func:`chunked_causal_lm_loss`. With
     ``state.scaler`` the loss is scaled and the ``fp16_*`` settings drive
-    :func:`apply_loss_scaler`."""
+    :func:`apply_loss_scaler`. Under data parallelism (``state.layout``)
+    ``batch`` is this rank's rows; see the module docstring."""
     if model.cfg.num_experts > 0:
         raise NotImplementedError("MoE training is not ported yet (see ROADMAP.md)")
 
     def device_step(state: TrainState, batch: Dict[str, torch.Tensor],
                     step_seed) -> dict:
+        layout = state.layout
+        dp = layout.mesh.distributed
         trainable = state.trainable()
         names = list(trainable)
         leaves = [trainable[n] for n in names]
@@ -200,26 +216,31 @@ def make_device_step(model, *, accum_steps: int = 1, loss_chunk: int = 0,
         for a in range(accum_steps):
             micro = {k: v[a] for k, v in batch.items()}
             seed = None if step_seed is None else mix32(step_seed ^ mix32(a + 0x3C6EF372))
-            ls, nt = _loss(state.model, micro, seed, loss_chunk)
+            ls, nt = _loss(state.model, micro, seed, loss_chunk, layout.mesh.rank)
             objective = ls if scaler is None else ls * scaler["scale"]
             for acc, g in zip(grads, torch.autograd.grad(objective, leaves)):
                 acc += g.float()
             loss_sum += ls.detach()
             n_tok += nt
+        if dp:  # the global sums, then each gradient's part this rank owns
+            totals = all_reduce_(torch.stack([loss_sum, n_tok]), layout.mesh)
+            loss_sum, n_tok = totals[0], totals[1]
+            grads = [owned_grad(g, n, layout) for n, g in zip(names, grads)]
         # Token-mean loss over the whole step (HF Trainer's semantics under
         # grad accumulation); the gradients also lose the fp16 loss scale.
         n_tok = torch.clamp(n_tok, min=1.0)
         denom = n_tok if scaler is None else n_tok * scaler["scale"]
         grads = {n: g / denom for n, g in zip(names, grads)}
         loss = loss_sum / n_tok
-        grad_norm = global_norm(grads)
+        grad_norm = torch.sqrt(sharded_sq_norm(grads, layout))
         if scaler is None:
             finite, extra = guard_nonfinite_update(grad_norm, loss)
         else:
             finite, extra = apply_loss_scaler(
                 scaler, grad_norm, scale_window=fp16_scale_window,
                 min_scale=fp16_min_scale, hysteresis=fp16_hysteresis)
-        state.tx.update(grads, state.opt_state, trainable, apply=finite)
+        state.tx.update(grads, state.opt_state, trainable, apply=finite, layout=layout,
+                        norm=grad_norm)
         return {"loss": loss, "grad_norm": grad_norm, "num_tokens": n_tok, **extra}
 
     return device_step
@@ -245,11 +266,16 @@ def make_eval_step(model, loss_chunk: int = 0) -> Callable:
     """Build ``eval_step(state, batch) -> {"loss", "num_tokens"}`` (0-d
     tensors): the token-mean loss of one ``(rows, seq)`` batch, no dropout,
     no update, ``loss_chunk`` as in the train step (a run that needs it to
-    fit must not run out of memory at its first eval)."""
+    fit must not run out of memory at its first eval). Under data
+    parallelism ``batch`` is this rank's rows and the sums are all-reduced."""
 
     @torch.no_grad()
     def eval_step(state: TrainState, batch: Dict[str, torch.Tensor]) -> dict:
         loss_sum, n_tok = _loss(state.model, batch, None, loss_chunk)
+        mesh = state.layout.mesh
+        if mesh.distributed:
+            totals = all_reduce_(torch.stack([loss_sum, n_tok.float()]), mesh)
+            loss_sum, n_tok = totals[0], totals[1]
         return {"loss": loss_sum / torch.clamp(n_tok, min=1.0), "num_tokens": n_tok}
 
     return eval_step
@@ -281,10 +307,12 @@ class StepWindow:
     moved are put back, and each replay is credited with them. A batch of
     another shape, or a window longer than ``capacity``, captures again.
 
-    ``cuda_graphs=False`` (and every CPU run) runs the same steps eagerly,
-    one after the other: the CPU path, and on the card the graph's
-    yardstick (tests and ``chip_smoke.py`` only). ``fp16`` takes
-    :func:`make_device_step`'s ``fp16_*`` settings.
+    ``cuda_graphs=False`` (and every run on the CPU, whatever it asks)
+    runs the same steps eagerly, one after the other: the CPU path, and on
+    the card the graph's yardstick (tests and ``chip_smoke.py`` only). The
+    computing device is the state's mesh's (an offloaded frozen leaf rests
+    on the host). ``fp16`` takes :func:`make_device_step`'s ``fp16_*``
+    settings.
     """
 
     def __init__(self, model, *, accum_steps: int = 1, loss_chunk: int = 0,
@@ -294,8 +322,8 @@ class StepWindow:
                                             loss_chunk=loss_chunk, **fp16)
         self.seed = seed
         self.capacity = max(1, capacity)
-        self.device = next(model.parameters()).device
-        self.cuda_graphs = cuda_graphs and self.device.type == "cuda"
+        self.cuda_graphs = cuda_graphs
+        self.device: Optional[torch.device] = None
         self.graph: Optional[torch.cuda.CUDAGraph] = None
         self.launches = GraphLaunches()
         self.captures = 0
@@ -311,7 +339,8 @@ class StepWindow:
         ``(k, len(METRICS))`` float32 on the device (on the card a view of
         the static output, valid until the next window)."""
         k = len(batches)
-        if not self.cuda_graphs:
+        self.device = state.layout.mesh.device
+        if not (self.cuda_graphs and self.device.type == "cuda"):
             rows = []
             for i, hb in enumerate(batches):
                 batch = {key: upload(np.ascontiguousarray(v), self.device)
@@ -372,12 +401,17 @@ class StepWindow:
                                     *opt.nu.values(), opt.count,
                                     *(state.scaler or {}).values()]
         with torch.cuda.device(self.device), torch.no_grad():
+            # Offloaded moments are host tensors the card writes without
+            # blocking: settle those writes before the host reads or
+            # restores them.
+            torch.cuda.synchronize(self.device)
             saved = [t.clone() for t in kept]
             side = torch.cuda.Stream()
             side.wait_stream(torch.cuda.current_stream())
             with torch.cuda.stream(side), torch.enable_grad():
                 self._body(state)  # the warm-up step
             torch.cuda.current_stream().wait_stream(side)
+            torch.cuda.synchronize(self.device)
             for t, s in zip(kept, saved):
                 t.copy_(s)
             del saved

@@ -1,7 +1,8 @@
-"""The training loop for one device: the port of
-``dlti_tpu/training/trainer.py``'s ``Trainer`` on its flat single-device
-path (``_build_step``'s last branch and the loop of ``train``, with its
-``steps_per_sync`` windows, eval, checkpoint save and verified resume).
+"""The training loop: the port of ``dlti_tpu/training/trainer.py``'s
+``Trainer`` on its flat path (``_build_step`` and the loop of ``train``,
+with its ``steps_per_sync`` windows, eval, checkpoint save and verified
+resume), on one device or data parallel under ``cfg.parallel``: the
+baseline or ZeRO-1/2/3, with ZeRO-3's host offload.
 
 ``Trainer(cfg).train(dataset=..., eval_dataset=...)`` builds the model
 (random weights from ``cfg.train.seed`` unless the caller passes
@@ -40,8 +41,9 @@ the checkpoint had consumed (``dataset.epoch(..., skip_steps=...)``), so a
 resumed run replays the uninterrupted run's steps bit for bit. SIGTERM (from
 the main thread) asks for one last checkpoint at the next window boundary
 and a clean return: a window still filling is dropped (its batches were
-never counted, so a resume replays them). Under LoRA the frozen base's host
-copy is kept from one save to the next (``checkpoint.store.HostCache``).
+never counted, so a resume replays them). Under LoRA on one rank the frozen
+base's host copy is kept from one save to the next
+(``checkpoint.store.HostCache``).
 Every exit path waits for the pending saves.
 
 ``cfg.train.fp16`` runs DeepSpeed's dynamic loss scaler (pair it with a
@@ -50,11 +52,25 @@ from ``2 ** fp16_initial_scale_power``, a checkpoint saves it and a resume
 restores it, each step's scale is in ``TrainRecord.loss_scales`` and its
 overflows are counted in ``skipped_updates``.
 
+Data parallelism: the trainer builds the mesh (``parallel.mesh.build_mesh``:
+one process per device, in the process group the entry point formed, the
+launcher's or ``launcher.init_group_of_one``) and places the state by the
+strategy (``parallel.sharding.shard_model``; on one device without a
+strategy every leaf stays whole); every rank runs its rows of each
+microbatch (the dataset slices them, ``data.pipeline``), and the step's
+collectives make the update the one a single device would make on the whole
+batch. Rank 0 alone logs and writes checkpoints, consolidated (every leaf
+whole, so a checkpoint of any strategy and world is the baseline's and the
+JAX store's); the others join the gathers and wait on a barrier after the
+commit. A resume scans on rank 0 and every rank restores the chosen step,
+taking its shard. A stop (SIGTERM) is agreed by every rank at the window
+boundary.
+
 Runs on ``cuda`` unless given ``device="cpu"``; without a card and without a
 device it raises. Not ported (each raises or is absent, see ROADMAP.md):
-meshes, ZeRO, TP/SP/PP, host offload, the int8 frozen base, the step log
-and other telemetry, the sentinel's rollback and data quarantine, chaos and
-elastic training.
+TP/SP/PP/EP and a mixed data x fsdp mesh, the int8 frozen base, the step log
+and other telemetry, the metrics CSV, the sentinel's rollback and data
+quarantine, chaos and elastic training.
 """
 
 from __future__ import annotations
@@ -68,11 +84,13 @@ from typing import Callable, List, Mapping, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from dlti_tpu_torch.checkpoint import store
-from dlti_tpu_torch.config import Config
+from dlti_tpu_torch.config import Config, ZeROStage
 from dlti_tpu_torch.models.interop import init_params, load_model
-from dlti_tpu_torch.models.lora import count_params
+from dlti_tpu_torch.parallel.mesh import build_mesh
+from dlti_tpu_torch.parallel.sharding import all_reduce_, shard_model
 from dlti_tpu_torch.training.optimizer import build_optimizer
 from dlti_tpu_torch.training.state import (
     TrainState, create_train_state, frozen_param_keys, load_state_leaves, state_leaves,
@@ -126,6 +144,8 @@ class TrainRecord:
     captures: int = 0
     eval_steps: List[int] = field(default_factory=list)
     eval_losses: List[float] = field(default_factory=list)
+    strategy: str = "baseline"   # baseline | zero1 | zero2 | zero3
+    world: int = 1               # data-parallel ranks
 
     @property
     def steps(self) -> int:
@@ -155,7 +175,10 @@ class Trainer:
             raise ValueError(f"unknown save_strategy {cfg.checkpoint.save_strategy!r}")
         self.cfg = cfg
         self.device = resolve_device(device)
+        self.mesh = build_mesh(cfg.parallel, self.device, cfg.lora.enabled)
         self.params = params
+        # Set once the strategy placed the given weights and they were let go.
+        self._params_released = False
         self.cuda_graphs = cuda_graphs
         self.tx = build_optimizer(cfg.optimizer)
         self._stop_requested = False
@@ -168,6 +191,17 @@ class Trainer:
         self._stop_requested = True
 
     def init_state(self) -> TrainState:
+        """A fresh state from the weights given to the constructor (random
+        ones from ``cfg.train.seed`` without), placed by the strategy. Under
+        ``offload_params`` or at a world above 1 the trainer lets go of the
+        given weights once they are placed, and a second call raises
+        (pass ``state=`` to :meth:`train` instead)."""
+        if self._params_released:
+            raise RuntimeError(
+                "the weights given to this Trainer were placed by the strategy and "
+                "released by the first init_state (offload_params or a world above "
+                "1); pass the state train() returned as train(state=...), or build "
+                "a new Trainer with the weights")
         cfg = self.cfg
         lora = cfg.lora if cfg.lora.enabled else None
         params = self.params
@@ -176,11 +210,31 @@ class Trainer:
                                  lora=lora)
         model = load_model(cfg.model, params, self.device, lora=lora,
                            trainable_lora=True)
+        del params
+        layout = shard_model(model, self.mesh, cfg.lora.enabled)
+        if self.params is not None and (cfg.parallel.offload_params or self.mesh.world > 1):
+            # Holding the whole weights would undo what the strategy saves.
+            self.params = None
+            self._params_released = True
         t = cfg.train
         return create_train_state(
             model, self.tx, lora_enabled=cfg.lora.enabled,
             fp16_initial_scale=float(2 ** t.fp16_initial_scale_power) if t.fp16 else None,
-            fp16_hysteresis=t.fp16_hysteresis)
+            fp16_hysteresis=t.fp16_hysteresis, layout=layout)
+
+    @property
+    def strategy(self) -> str:
+        """The reference's strategy label."""
+        stage = ZeROStage(self.cfg.parallel.zero_stage)
+        return "baseline" if stage == ZeROStage.NONE else f"zero{int(stage)}"
+
+    def _info(self, *args) -> None:
+        if self.mesh.is_writer:
+            logger.info(*args)
+
+    def _warning(self, *args) -> None:
+        if self.mesh.is_writer:
+            logger.warning(*args)
 
     def train(self, dataset, eval_dataset=None, state: Optional[TrainState] = None
               ) -> tuple:
@@ -202,20 +256,28 @@ class Trainer:
                             fp16_hysteresis=cfg.train.fp16_hysteresis)
         eval_fn = (make_eval_step(state.model, loss_chunk=cfg.train.loss_chunk)
                    if eval_dataset is not None and cfg.train.eval_steps else None)
-        trainable, total = count_params(dict(state.model.named_parameters()))
-        logger.info("trainable params: %s / %s (%.4f%%)", f"{trainable:,}",
-                    f"{total:,}", 100 * trainable / total)
+        leaves = state.layout.leaves.values()  # whole leaves, whatever this rank holds
+        total = sum(int(np.prod(pl.shape)) for pl in leaves)
+        trainable = sum(int(np.prod(pl.shape)) for pl in leaves if pl.trainable)
+        self._info("trainable params: %s / %s (%.4f%%) | %s over %d rank(s)",
+                   f"{trainable:,}", f"{total:,}", 100 * trainable / total,
+                   self.strategy, self.mesh.world)
+        # micro_batch_size is global: every rank's rows together.
         tokens_per_step = (cfg.train.micro_batch_size * cfg.train.grad_accum_steps
                            * cfg.data.max_seq_len)
         record = TrainRecord(device=str(self.device), tokens_per_step=tokens_per_step,
-                             trainable_params=trainable, total_params=total)
+                             trainable_params=trainable, total_params=total,
+                             strategy=self.strategy, world=self.mesh.world)
         on_cuda = self.device.type == "cuda"
         if on_cuda:
             torch.cuda.reset_peak_memory_stats(self.device)
         saving = ck.save_strategy != "no"
         self._stop_requested = False
         self._last_save_step = None
-        self._cache = store.HostCache(frozen_param_keys(state)) if saving else None
+        # The frozen base's host copy, kept from save to save; at a world
+        # above 1 every save gathers it anew, so there is none to keep.
+        self._cache = (store.HostCache(frozen_param_keys(state))
+                       if saving and self.mesh.world == 1 else None)
 
         prev_handler, sigterm_installed = None, False
         if threading.current_thread() is threading.main_thread():
@@ -247,6 +309,8 @@ class Trainer:
                         "shuffle_seed": getattr(dataset, "shuffle_seed", None),
                         "packed": bool(getattr(dataset, "pack", False))},
                     "prefetch_depth": 0, "fp16": bool(cfg.train.fp16),
+                    "parallel": {"strategy": self.strategy, "world": self.mesh.world,
+                                 **cfg.to_dict()["parallel"]},
                 }
 
             def run_window(batches: list) -> None:
@@ -271,13 +335,14 @@ class Trainer:
                     samples_seen += cfg.train.micro_batch_size * cfg.train.grad_accum_steps
                     step = before + i + 1
                     if step % cfg.train.logging_steps == 0:
-                        logger.info("step %d | loss %.4f | grad_norm %.3f | %.3f s",
-                                    step, m["loss"], m["grad_norm"], dt / k)
+                        self._info("step %d | loss %.4f | grad_norm %.3f | %.3f s",
+                                   step, m["loss"], m["grad_norm"], dt / k)
                 every = cfg.train.eval_steps
                 if eval_fn is not None and state.step // every > before // every:
                     self._run_eval(eval_fn, state, eval_dataset, record)
                 self._maybe_save(state, record, epoch_end=False, sidecar=sidecar,
                                  crossed_from=before)
+                self._agree_on_stop()
 
             for epoch in range(start_epoch, cfg.train.num_epochs):
                 skip = skip_steps if epoch == start_epoch else 0
@@ -317,7 +382,7 @@ class Trainer:
                 store.wait_for_saves(ck.output_dir)
                 if self._last_save_step != state.step:
                     self._save(state, record, sidecar(), async_save=False)
-                    logger.info("preemption checkpoint written at step %d", state.step)
+                    self._info("preemption checkpoint written at step %d", state.step)
         finally:
             record.captures = window.captures
             window.release()
@@ -364,52 +429,78 @@ class Trainer:
                 toks += n
         eval_loss = losses / toks if toks else float("nan")
         if toks:
-            logger.info("eval @ step %d | loss %.4f", state.step, eval_loss)
+            self._info("eval @ step %d | loss %.4f", state.step, eval_loss)
         record.eval_steps.append(state.step)
         record.eval_losses.append(eval_loss)
 
     def _resume(self, state: TrainState, record: TrainRecord) -> tuple:
         """Restore the newest verified checkpoint into ``state``; returns
         (sidecar, data cursor), (None, 0) when there is nothing to resume."""
-        cfg = self.cfg
+        cfg, mesh = self.cfg, self.mesh
+        ck_dir = cfg.checkpoint.output_dir
         t0 = time.perf_counter()
-        restored = store.restore_latest_verified(
-            cfg.checkpoint.output_dir, state_leaves(state), cache=self._cache)
+        # Whole leaves are live tensors unless this rank holds shards.
+        live = mesh.world == 1
+        target = state_leaves(state, whole=live)
+        device = None if live else "cpu"
+        if mesh.world == 1:
+            restored = store.restore_latest_verified(ck_dir, target, device=device,
+                                                     cache=self._cache)
+        else:
+            # Rank 0 scans (and quarantines); every rank reads the step it chose.
+            restored = None
+            if mesh.is_writer:
+                restored = store.restore_latest_verified(ck_dir, target, device=device)
+            chosen = [restored[1] if restored is not None else None]
+            dist.broadcast_object_list(chosen, src=0, group=mesh.group)
+            if chosen[0] is not None and not mesh.is_writer:
+                restored = (store.restore_train_state(ck_dir, chosen[0], target,
+                                                      device=device),
+                            chosen[0], store.load_train_meta(ck_dir, chosen[0]))
         if restored is None:
             return None, 0
         leaves, step, meta = restored
         load_state_leaves(state, leaves)
-        self._cache.bind_restored(state_leaves(state))
+        if live:
+            self._cache.bind_restored(state_leaves(state))
         record.resumed_from, record.restore_s = step, time.perf_counter() - t0
         self._last_save_step = step  # committed already: a due save there is a no-op
-        logger.info("resumed from verified checkpoint step %d", step)
+        self._info("resumed from verified checkpoint step %d", step)
         if meta and meta.get("seed", cfg.train.seed) != cfg.train.seed:
-            logger.warning("checkpoint was saved with train.seed=%s but this run uses "
-                           "%s; the resumed loss trajectory will not match the "
-                           "original run's", meta.get("seed"), cfg.train.seed)
+            self._warning("checkpoint was saved with train.seed=%s but this run uses "
+                          "%s; the resumed loss trajectory will not match the "
+                          "original run's", meta.get("seed"), cfg.train.seed)
         if meta and meta.get("rng_schedule", RNG_SCHEDULE) != RNG_SCHEDULE:
-            logger.warning("checkpoint was saved under the dropout schedule %r but "
-                           "this run draws with %r; the resumed loss trajectory will "
-                           "not match the original run's", meta.get("rng_schedule"),
-                           RNG_SCHEDULE)
+            self._warning("checkpoint was saved under the dropout schedule %r but "
+                          "this run draws with %r; the resumed loss trajectory will "
+                          "not match the original run's", meta.get("rng_schedule"),
+                          RNG_SCHEDULE)
         cursor = int(meta["data_pos"]) if meta and meta.get("data_pos") is not None \
             else int(step)
         return meta, cursor
 
-    @staticmethod
-    def _check_schedule(meta: Optional[dict], dataset, spe: int) -> None:
+    def _check_schedule(self, meta: Optional[dict], dataset, spe: int) -> None:
         saved = (meta or {}).get("dataset")
         if not saved:
             return
         if saved.get("steps_per_epoch") not in (None, 0, spe):
-            logger.warning("checkpoint sidecar recorded steps_per_epoch=%s but this "
-                           "dataset yields %s; mid-epoch resume will replay a "
-                           "different batch schedule", saved.get("steps_per_epoch"), spe)
+            self._warning("checkpoint sidecar recorded steps_per_epoch=%s but this "
+                          "dataset yields %s; mid-epoch resume will replay a "
+                          "different batch schedule", saved.get("steps_per_epoch"), spe)
         current = getattr(dataset, "shuffle_seed", None)
         if saved.get("shuffle_seed", current) != current:
-            logger.warning("checkpoint sidecar recorded shuffle_seed=%s but this "
-                           "dataset uses %s; batch order will differ from the "
-                           "original run", saved.get("shuffle_seed"), current)
+            self._warning("checkpoint sidecar recorded shuffle_seed=%s but this "
+                          "dataset uses %s; batch order will differ from the "
+                          "original run", saved.get("shuffle_seed"), current)
+
+    def _agree_on_stop(self) -> None:
+        """Every rank stops at the same window boundary: a stop any rank
+        was asked for is every rank's (one host-side collective a window,
+        at a world above 1)."""
+        if self.mesh.world == 1:
+            return
+        flag = torch.tensor([float(self._stop_requested)], device=self.device)
+        self._stop_requested = bool(all_reduce_(flag, self.mesh).item() > 0)
 
     def _maybe_save(self, state: TrainState, record: TrainRecord, epoch_end: bool,
                     sidecar: Callable[[], dict],
@@ -431,12 +522,21 @@ class Trainer:
 
     def _save(self, state: TrainState, record: TrainRecord, meta: dict,
               async_save: bool) -> None:
-        ck = self.cfg.checkpoint
+        """Rank 0 writes the consolidated state; every rank joins the gathers
+        of the leaves it holds shards of, and at a world above 1 waits on a
+        barrier after the commit."""
+        ck, mesh = self.cfg.checkpoint, self.mesh
         self._last_save_step = state.step
         t0 = time.perf_counter()
-        store.save_train_state(
-            ck.output_dir, state.step, state_leaves(state), keep=ck.save_total_limit,
-            async_save=async_save, train_meta=meta, retries=ck.save_retries,
-            retry_backoff_s=ck.save_retry_backoff_s, cache=self._cache)
+        leaves = state_leaves(state)
+        if mesh.is_writer:
+            store.save_train_state(
+                ck.output_dir, state.step, leaves, keep=ck.save_total_limit,
+                async_save=async_save and mesh.world == 1, train_meta=meta,
+                retries=ck.save_retries, retry_backoff_s=ck.save_retry_backoff_s,
+                cache=self._cache)
+        del leaves
+        if mesh.world > 1:
+            dist.barrier(group=mesh.group)
         record.save_steps.append(state.step)
         record.save_stall_s.append(time.perf_counter() - t0)

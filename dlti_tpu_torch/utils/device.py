@@ -34,7 +34,9 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None
     another. With no argument and no CUDA this raises instead of quietly
     running on the CPU. A CUDA device always comes back with its index
     (``"cuda"`` means the current card), since ``torch.cuda.set_device``
-    refuses one without."""
+    refuses one without. In a process the launcher started, the entry
+    point's ``launcher.maybe_initialize_from_env`` made ``cuda:{local
+    rank}`` the current card, so ``"cuda"`` resolves to it."""
     if device is not None:
         device = torch.device(device)
         if device.type != "cuda" or device.index is not None:

@@ -353,6 +353,20 @@ def _dataset(pack=False, n=96, seq_len=16):
                              micro_batch_size=2, grad_accum_steps=1, pack=pack)
 
 
+@pytest.fixture
+def caplog(caplog):
+    """pytest's ``caplog``, its handler attached to the trainer's logger
+    itself: once ``utils.logging.get_logger()`` has run in this process (the
+    server calls it), the ``dlti_tpu_torch`` logger stops propagation, and a
+    warning of ``dlti_tpu_torch.train`` never reaches the root handler."""
+    train_logger = logging.getLogger("dlti_tpu_torch.train")
+    train_logger.addHandler(caplog.handler)
+    try:
+        yield caplog
+    finally:
+        train_logger.removeHandler(caplog.handler)
+
+
 def _tcfg(tmp_path, max_steps, save_steps=1000, save_strategy="steps", num_epochs=1,
           dropout=0.05, **ck):
     return tc.Config(
@@ -469,6 +483,22 @@ def test_pending_async_save_commits_when_the_run_raises(tmp_path):
 
 
 def test_seed_mismatch_on_resume_warns(tmp_path, caplog):
+    Trainer(_tcfg(tmp_path, 2, save_steps=2), device="cpu").train(dataset=_dataset())
+    cfg = _tcfg(tmp_path, 3)
+    cfg = cfg.replace(train=dataclasses.replace(cfg.train, seed=7))
+    with caplog.at_level(logging.WARNING, logger="dlti_tpu_torch.train"):
+        _, rec = Trainer(cfg, device="cpu").train(dataset=_dataset())
+    assert rec.resumed_from == 2
+    assert "train.seed=42 but this run uses 7" in caplog.text
+
+
+def test_seed_mismatch_warning_is_captured_after_the_server_logger_exists(tmp_path, caplog):
+    """The server's ``get_logger()`` turns off the package logger's
+    propagation for the rest of the process; the trainer's warning must
+    still reach ``caplog`` (the ``caplog`` fixture above)."""
+    from dlti_tpu_torch.utils.logging import get_logger
+
+    assert get_logger().propagate is False
     Trainer(_tcfg(tmp_path, 2, save_steps=2), device="cpu").train(dataset=_dataset())
     cfg = _tcfg(tmp_path, 3)
     cfg = cfg.replace(train=dataclasses.replace(cfg.train, seed=7))

@@ -1110,3 +1110,212 @@ def test_fp16_train_window_replays_never_sync_the_host(gen):
     assert state.step == 4 and window.captures == 1
     assert rows[:, -1].tolist() == [0.0, 1.0, 0.0]  # overflow
 
+
+
+# ----------------------------------------------------------------------
+# ZeRO on one card: a NCCL group of one, the step as a CUDA graph
+# ----------------------------------------------------------------------
+
+@pytest.fixture
+def nccl_group(gen):
+    """A NCCL process group of one on the current card, destroyed after the
+    test (so later tests run without one)."""
+    import socket
+
+    import torch.distributed as dist
+
+    if not dist.is_initialized():
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            port = s.getsockname()[1]
+        dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}",
+                                world_size=1, rank=0,
+                                device_id=torch.device("cuda", torch.cuda.current_device()))
+    yield
+    dist.destroy_process_group()
+
+
+def _zero_window_case(stage, graphs, offload=False, layers=2, fp16_initial_scale=None):
+    """``_window_case``'s model and dropout under ``stage`` in the group of
+    one (both host offloads with ``offload``), its window over the layout;
+    with ``fp16_initial_scale``, ``_fp16_window_case``'s float16 model and
+    scaler."""
+    from dlti_tpu_torch.config import OptimizerConfig, ParallelConfig, ZeROStage
+    from dlti_tpu_torch.parallel.mesh import build_mesh
+    from dlti_tpu_torch.parallel.sharding import shard_model
+    from dlti_tpu_torch.training import StepWindow, build_optimizer, create_train_state
+
+    state = _card_train_state("llama_300m", layers=layers,
+                              fp16_initial_scale=fp16_initial_scale)
+    par = ParallelConfig(zero_stage=ZeROStage(stage), offload_optimizer=offload,
+                         offload_params=offload)
+    mesh = build_mesh(par, torch.device("cuda", torch.cuda.current_device()))
+    layout = shard_model(state.model, mesh, True)
+    state = create_train_state(state.model, build_optimizer(OptimizerConfig(warmup_steps=1)),
+                               fp16_initial_scale=fp16_initial_scale, layout=layout)
+    fp16 = {"fp16_scale_window": 2} if fp16_initial_scale is not None else {}
+    window = StepWindow(state.model, accum_steps=2, seed=43, capacity=4,
+                        cuda_graphs=graphs, **fp16)
+    return state, window
+
+
+def _run_windows(state, window, batches):
+    from dlti_tpu_torch.utils.device import to_host
+
+    rows = [to_host(window.run(state, batches[i:i + 2], i + 1))[0] for i in (0, 2)]
+    out = (rows, [t.detach().clone() for t in state.trainable().values()],
+           [t.clone() for t in state.opt_state.mu.values()])
+    window.release()
+    return out
+
+
+@pytest.mark.parametrize("stage", [0, 1, 2, 3])
+def test_zero_graphed_steps_in_a_nccl_group_of_one_equal_the_plain_step(gen, nccl_group, stage):
+    """Four steps (two windows of 2, dropout on) of each strategy with its
+    collectives inside the captured step, in a NCCL group of one, against
+    the plain single-device graphed step: bit-equal metrics, LoRA factors
+    and moments (at a world of 1 every collective is a copy), and K1-K3
+    launched as many times."""
+    batches = _host_batches(4, seed=5)
+    state, window = _window_case(gen, True)
+    tfa.fwd_launches = tfa.dq_launches = tfa.dkv_launches = 0
+    plain = _run_windows(state, window, batches)
+    plain_counts = (tfa.fwd_launches, tfa.dq_launches, tfa.dkv_launches)
+    del state, window
+    state, window = _zero_window_case(stage, True)
+    assert state.layout.mesh.distributed and window.cuda_graphs
+    tfa.fwd_launches = tfa.dq_launches = tfa.dkv_launches = 0
+    zero = _run_windows(state, window, batches)
+    assert (tfa.fwd_launches, tfa.dq_launches, tfa.dkv_launches) == plain_counts
+    for a, b in zip(plain[0], zero[0]):
+        assert (a == b).all(), (stage, a, b)
+    assert all(torch.equal(a, b.to(a.device)) for a, b in zip(plain[1] + plain[2],
+                                                              zero[1] + zero[2]))
+
+
+def test_offloaded_leaves_are_pinned_and_the_graphed_step_equals_the_plain_one(
+        gen, nccl_group):
+    """ZeRO-3 with both offloads: every frozen leaf and every moment is a
+    pinned host tensor (a pageable one would copy synchronously and could
+    not be captured), the base is streamed into the captured step, and
+    four steps are bit-equal to the plain graphed step's."""
+    batches = _host_batches(4, seed=6)
+    state, window = _window_case(gen, True)
+    plain = _run_windows(state, window, batches)
+    del state, window
+    state, window = _zero_window_case(3, True, offload=True)
+    frozen = [p for n, p in state.model.named_parameters()
+              if not n.endswith(("lora_a", "lora_b"))]
+    moments = [*state.opt_state.mu.values(), *state.opt_state.nu.values()]
+    assert frozen and all(t.device.type == "cpu" and t.is_pinned() for t in frozen + moments)
+    assert all(p.is_cuda for n, p in state.model.named_parameters()
+               if n.endswith(("lora_a", "lora_b")))
+    zero = _run_windows(state, window, batches)
+    for a, b in zip(plain[0], zero[0]):
+        assert (a == b).all(), (a, b)
+    assert all(torch.equal(a, b.to(a.device)) for a, b in zip(plain[1] + plain[2],
+                                                              zero[1] + zero[2]))
+
+
+def test_zero_train_window_replays_never_sync_the_host(gen, nccl_group):
+    """``set_sync_debug_mode("error")`` around a captured ZeRO-3 window of 3
+    steps with both offloads: the collectives and the host copies of the
+    base and the moments run inside the replays and wait on nothing."""
+    from dlti_tpu_torch.utils.device import to_host
+
+    state, window = _zero_window_case(3, True, offload=True)
+    batches = _host_batches(4, seed=7)
+    to_host(window.run(state, batches[:1], 1))
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = window.run(state, batches[1:], 2)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    rows = to_host(out)[0]
+    assert state.step == 4 and window.captures == 1
+    assert all(abs(x) < float("inf") for x in rows[:, 0])
+
+
+def test_offloaded_base_is_its_own_checkpoint_host_copy(gen, nccl_group, tmp_path):
+    """Under ``offload_params`` the frozen base already rests in pinned host
+    memory: a save's host cache keeps those very tensors (no second host
+    copy of the base), the checkpoint verifies, and a restore into another
+    offloaded state gives the same leaves."""
+    from dlti_tpu_torch.checkpoint import store
+    from dlti_tpu_torch.training.state import frozen_param_keys, load_state_leaves, state_leaves
+
+    state, window = _zero_window_case(3, False, offload=True)
+    cache = store.HostCache(frozen_param_keys(state))
+    leaves = state_leaves(state)
+    store.save_train_state(str(tmp_path), 0, leaves, async_save=False, cache=cache)
+    frozen = dict(leaves)
+    for name in cache.names:
+        entry = cache.lookup(name, frozen[name])
+        assert entry is not None and entry.host.data_ptr() == frozen[name].data_ptr(), name
+    assert store.verify_checkpoint(str(tmp_path), 0) == (True, "ok")
+    other, _ = _zero_window_case(3, False, offload=True)
+    restored = store.restore_train_state(str(tmp_path), 0, state_leaves(other))
+    load_state_leaves(other, restored)
+    for (n, a), (_, b) in zip(state_leaves(state), state_leaves(other)):
+        assert torch.equal(a.cpu(), b.cpu()), n
+
+
+def test_an_offloaded_export_merges_the_base_on_the_host(gen, nccl_group, tmp_path):
+    """Under ``offload_params`` the export merges each base kernel where it
+    rests, in pinned host memory: the card's memory does not grow by the
+    base while the export runs, and the merged weights equal those of the
+    same state held on the card."""
+    import dataclasses
+
+    from dlti_tpu_torch.checkpoint import export_merged_model, manifest_digest
+    from dlti_tpu_torch.config import MODEL_PRESETS, CheckpointConfig, Config, LoRAConfig
+    from dlti_tpu_torch.training import whole_params
+
+    plain = _card_train_state("llama_300m", layers=2)
+    offloaded, _ = _zero_window_case(3, False, offload=True)
+    with torch.no_grad():
+        for st in (plain, offloaded):  # nonzero factors, the same in both
+            for n, p in st.model.named_parameters():
+                if n.endswith("lora_b"):
+                    p.copy_(torch.linspace(-0.1, 0.1, p.numel()).reshape(p.shape))
+    cfg = Config(model=dataclasses.replace(MODEL_PRESETS["llama_300m"], num_layers=2),
+                 lora=LoRAConfig(r=16, alpha=32),
+                 checkpoint=CheckpointConfig(save_strategy="no"))
+    export_merged_model(str(tmp_path / "plain"), whole_params(plain), cfg)
+    base = sum(p.numel() * p.element_size() for p in offloaded.model.parameters()
+               if not p.is_cuda)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    params = whole_params(offloaded)
+    assert all(p.is_pinned() for n, p in params.items() if not n.endswith(("lora_a", "lora_b")))
+    export_merged_model(str(tmp_path / "offloaded"), params, cfg)
+    assert torch.cuda.max_memory_allocated() - before < base / 4
+    assert (manifest_digest(str(tmp_path / "offloaded" / "model"))
+            == manifest_digest(str(tmp_path / "plain" / "model")))
+
+
+@pytest.mark.parametrize("stage", [1, 3])
+def test_zero_fp16_graphed_steps_across_an_overflow_equal_the_plain_step(
+        gen, nccl_group, stage):
+    """``_fp16_window_case``'s four float16 steps, the third overflowing,
+    under ZeRO in the group of one: the scaler decides on the global norm
+    inside the graph, and metrics, LoRA factors, moments and scaler equal
+    the plain graphed step's bit for bit."""
+    import numpy as np
+
+    batches = _fp16_batches(seed=8)
+    runs = []
+    for build in (lambda: _fp16_window_case(gen, True),
+                  lambda: _zero_window_case(stage, True, fp16_initial_scale=2.0 ** 10)):
+        state, window = build()
+        rows, params, moments = _run_windows(state, window, batches)
+        runs.append((rows, params, moments, {k: t.clone() for k, t in state.scaler.items()}))
+        del state, window
+    (plain, pp, mp, sp), (zero, pz, mz, sz) = runs
+    for a, b in zip(plain, zero):
+        assert np.array_equal(a, b, equal_nan=True), (a, b)
+    assert all(torch.equal(a, b) for a, b in zip(pp + mp, pz + mz))
+    assert all(torch.equal(sp[k], sz[k]) for k in sp)
+    assert [r[-1] for r in np.concatenate(zero)] == [0.0, 0.0, 1.0, 0.0]  # overflow

@@ -1,6 +1,7 @@
 """The port stands alone: with ``jax`` blocked out of ``sys.modules`` it
 imports, serves a ``llama_tiny`` request and trains two LoRA steps of
-``llama_tiny`` through ``Trainer`` on the CPU, and loads no module of
+``llama_tiny`` through ``Trainer`` on the CPU (and two under ZeRO-3, the
+launcher and ``parallel`` imported), and loads no module of
 the JAX package (``dlti_tpu`` or ``dlti_tpu.*``; ``dlti_tpu_torch`` shares
 the prefix and is not one). Without CUDA, an entry point called without a
 device raises instead of running on the CPU.
@@ -155,6 +156,48 @@ def test_checkpoint_and_export_run_without_jax_or_ml_dtypes():
     bfloat16 codec import and round-trip with ``jax`` and ``ml_dtypes``
     blocked: bfloat16 travels as its bits."""
     proc = subprocess.run([sys.executable, "-c", _CHECKPOINT_CHILD], cwd=ROOT,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert proc.stdout.strip().endswith("OK")
+
+
+_ZERO_CHILD = textwrap.dedent("""
+    import sys
+    sys.modules["jax"] = None
+
+    import dlti_tpu_torch.launcher
+    import dlti_tpu_torch.parallel
+    import dlti_tpu_torch.parallel.mesh
+    import dlti_tpu_torch.parallel.sharding
+    import dlti_tpu_torch.cli.train
+    import torch.distributed as dist
+    from dlti_tpu_torch.config import (
+        MODEL_PRESETS, CheckpointConfig, DataConfig, TrainConfig, preset)
+    from dlti_tpu_torch.data import get_tokenizer, make_batches
+    from dlti_tpu_torch.training import Trainer
+
+    cfg = preset("zero3", model=MODEL_PRESETS["llama_tiny"],
+                 data=DataConfig(max_seq_len=32, tokenizer="byte"),
+                 checkpoint=CheckpointConfig(save_strategy="no"),
+                 train=TrainConfig(micro_batch_size=2, grad_accum_steps=2, max_steps=2))
+    ds = make_batches(["zero " * n for n in range(1, 20)], get_tokenizer("byte"),
+                      seq_len=32, micro_batch_size=2, grad_accum_steps=2)
+    dlti_tpu_torch.launcher.init_group_of_one("cpu")
+    state, record = Trainer(cfg, device="cpu").train(dataset=ds)
+    assert record.strategy == "zero3" and dist.get_world_size() == 1, record
+    dist.destroy_process_group()
+
+    loaded = sorted(n for n, m in sys.modules.items() if m is not None and (
+        n in ("jax", "dlti_tpu") or n.startswith(("jax.", "jaxlib", "dlti_tpu."))))
+    assert not loaded, loaded
+    print("OK")
+""")
+
+
+def test_launcher_and_parallel_run_without_jax():
+    """The launcher, the mesh and the ZeRO placement import with ``jax``
+    blocked, and a ZeRO-3 run trains in a group of one."""
+    proc = subprocess.run([sys.executable, "-c", _ZERO_CHILD], cwd=ROOT,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-4000:]
     assert proc.stdout.strip().endswith("OK")

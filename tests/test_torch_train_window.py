@@ -25,6 +25,7 @@ sequence-chunked loss, the eval step, and the counter-hash LoRA dropout.
 
 import dataclasses
 import json
+import logging
 
 import jax
 import jax.numpy as jnp
@@ -272,6 +273,20 @@ def test_a_batch_of_another_shape_starts_a_new_window(tmp_path, params):
             dataset=_Shorter(_dataset(texts), at=2))
     assert runs[4].windows == 3  # steps 1-2, then 3-6 from the short batch, then 7
     assert runs[4].losses == runs[1].losses and runs[4].grad_norms == runs[1].grad_norms
+
+
+@pytest.fixture
+def caplog(caplog):
+    """pytest's ``caplog``, its handler attached to the trainer's logger
+    itself: once ``utils.logging.get_logger()`` has run in this process (the
+    server calls it), the ``dlti_tpu_torch`` logger stops propagation, and a
+    warning of ``dlti_tpu_torch.train`` never reaches the root handler."""
+    train_logger = logging.getLogger("dlti_tpu_torch.train")
+    train_logger.addHandler(caplog.handler)
+    try:
+        yield caplog
+    finally:
+        train_logger.removeHandler(caplog.handler)
 
 
 def test_resume_from_another_dropout_schedule_warns(tmp_path, params, monkeypatch, caplog):
