@@ -95,9 +95,10 @@ Phases, each of which fails the run if its check fails:
     epochs of its 12 steps with ``steps_per_sync`` 8, ``max_steps`` 16 and
     ``eval_steps`` 8 on 4 eval batches (windows of 8, 4 at the epoch's end
     and 4 to ``max_steps``; evals at steps 8 and 16): steps 1-8 must be
-    bit-equal to phase 7's. Then ``loss_chunk=128`` over the same 16 steps
-    and windows: step 1's loss within 1e-4 of the run without, the peak
-    memory below that run's, and K1-K3 launches a step unchanged.
+    bit-equal to phase 7's. Then ``loss_chunk=128`` over the first window (8
+    steps; cut from 16 in PR 11 to make room for phase 17): step 1's loss
+    within 1e-4 of the run without, the peak memory below that run's, and
+    K1-K3 launches a step unchanged.
     Prints each run's step ms, tokens/s, peak memory and host syncs per
     step.
 10. The OpenAI server at full width on an int8 KV pool: llama2_7b from the
@@ -114,8 +115,8 @@ Phases, each of which fails the run if its check fails:
     x decode steps and the float K4 never. Prints requests/s, output tok/s,
     TTFT p50/p99 and mean TPOT from ``/stats``, and the pool's bytes. Then
     the same again as the reference's documented serving configuration
-    (``--max-seqs 28 --steps-per-sync 64``, bf16 weights), followed by the
-    sync check on its int8 pool.
+    (``--max-seqs 28 --steps-per-sync 64 --quantization int8``: int8
+    weights), followed by the sync check on its int8 pool.
 11. Inside the model on the int8 pool: one decode step's logits through K4q
     against the gather path (dequantized in float32), gated; against the
     same step on a bf16 pool, printed only (quantization error). Then K4q
@@ -157,7 +158,8 @@ Phases, each of which fails the run if its check fails:
 15. The fp16 path (run after phase 13, before the servers), llama2_7b at
     full width: ``cli.train``'s own configuration with ``--fp16`` (the model
     in float16 under the dynamic loss scaler from 2**16) and phase 7's
-    settings for 32 graphed steps at full depth (at 2**16 its first steps
+    settings for 16 graphed steps at full depth (32 until PR 11, cut to make
+    room for phase 17; at 2**16 its first steps
     overflow and the scale halves until the grads fit: the scales must
     follow the scaler's rule replayed on the host, and a later step must
     apply), K1-K3 in float16 counted as in phase 7, its step ms, tokens/s,
@@ -179,7 +181,28 @@ Phases, each of which fails the run if its check fails:
     norms bit-equal to the group's baseline (and that to phase 7's run
     without a group), K1-K3 counted per run as in phase 7, every offloaded
     leaf a pinned host tensor. Prints each strategy's step ms, tokens/s,
-    peak memory and launches; the group is destroyed at the end.
+    peak memory and launches; each run appends its row to one metrics CSV
+    (``TrainConfig.metrics_csv``), and ``analysis.compare`` prints the five
+    rows' table (no plot); the group is destroyed at the end.
+17. The README Quickstart through the port's CLIs as subprocesses (run
+    last): ``cli.prepare_dataset --synthetic 2000 --write-token-store S``;
+    ``cli.train --model llama2_7b --preset baseline --dataset-path S
+    --tokenizer byte --lora-r 16 --quantize-base int8 --remat-policy none
+    --steps-per-sync 10 --max-steps 20 --metrics-csv C --step-log L
+    --export-dir E`` (the CLI's batch defaults: micro-batch 1 x accum 16,
+    seq 512; full width and depth); the same without ``--quantize-base`` as
+    the yardstick; ``cli.compare_training --csv C --no-plots``; ``cli.serve
+    --model-dir E`` with the documented flags (int8 weights, int8 KV, 28
+    slots, k 64) answering phase 10's 12 requests over HTTP; the engine
+    built from E with int8 and with bf16 weights, 28 greedy requests each;
+    ``cli.run_experiments --model llama2_7b --strategies baseline,zero3
+    --device-counts 1 --max-steps 2`` into its own CSV, compared. Each run
+    must take 2 windows and 1 capture, launch K1-K3 32 x 16 = 512 times a
+    step each (no remat: nothing recomputed), and log 22 lines; the int8
+    run must peak 5 GB below the bf16 run, and the int8-weight engine 5 GB
+    below the bf16-weight engine. Prints each run's step ms, tokens/s, MFU,
+    peak and launches a step, the server's TTFT and TPOT, both engines'
+    peaks, and the CSVs' tables.
 
 Prints a ``{"kernels": [...]}`` line (each kernel's float16 mode a row of
 its own), and as its last line
@@ -1665,8 +1688,8 @@ LOSS_CHUNK_STEP1_RTOL = 1e-4
 def phase_train_window(torch, reference):
     """Phase 14 (run after phase 9): llama2_7b at full width and depth,
     ``steps_per_sync`` 8 over 16 steps with ``eval_steps`` 8 on 4 eval
-    batches, then ``loss_chunk=128`` over the same 16 steps; see the module
-    docstring."""
+    batches, then ``loss_chunk=128`` over the first window of 8; see the
+    module docstring."""
     from dlti_tpu_torch.config import CheckpointConfig
     from dlti_tpu_torch.data import ByteTokenizer, make_batches
     from dlti_tpu_torch.models.interop import init_params
@@ -1681,7 +1704,7 @@ def phase_train_window(torch, reference):
     dataset = make_batches(training_texts(), ByteTokenizer(), seq_len=512,
                            micro_batch_size=4, grad_accum_steps=accum)
     check(dataset.steps_per_epoch() == 12, "phase 7's dataset changed")
-    windows = {"window": 3, "loss_chunk": 3}
+    windows = {"window": 3, "loss_chunk": 1}
     eval_dataset = make_batches(training_texts(4 * WINDOW_EVAL_BATCHES, seed=11),
                                 ByteTokenizer(), seq_len=512, micro_batch_size=4,
                                 grad_accum_steps=1, shuffle_seed=None)
@@ -1690,7 +1713,8 @@ def phase_train_window(torch, reference):
     runs = {"window": dataclasses.replace(base, train=dataclasses.replace(
                 base.train, steps_per_sync=WINDOW_K, eval_steps=WINDOW_K)),
             "loss_chunk": dataclasses.replace(base, train=dataclasses.replace(
-                base.train, steps_per_sync=WINDOW_K, loss_chunk=LOSS_CHUNK))}
+                base.train, steps_per_sync=WINDOW_K, loss_chunk=LOSS_CHUNK,
+                max_steps=WINDOW_K))}
     for name, cfg in runs.items():
         trainer = Trainer(cfg, params=init_params(mcfg, seed=0, device="cuda",
                                                   lora=cfg.lora), device="cuda")
@@ -1993,7 +2017,7 @@ def phase_checkpoint(torch, reference, card, flush):
 # 2**16 llama2_7b's float16 gradients overflow (the LoRA factors' gradients
 # in the compute dtype sum a microbatch's 2,048 tokens): the full-depth run
 # takes 32 steps, two a halving (hysteresis 2), to reach a scale that fits.
-FP16_TRAIN_STEPS = 32
+FP16_TRAIN_STEPS = 16  # its first applied step is 15 (PR 9-11 runs)
 FP16_OVERFLOW_LAYERS = 4
 FP16_OVERFLOW_STEPS = 72       # from 2**40 down to 2**4 at most
 FP16_OVERFLOW_EAGER_STEPS = 16  # the eager yardstick: two windows, all skipped
@@ -2259,9 +2283,9 @@ def phase_fp16(torch, bf16_perf, card, flush):
 SERVE_ARGS = ["--random-init", "llama2_7b", "--tokenizer", "byte",
               "--kv-cache-dtype", "int8", "--host", "127.0.0.1", "--port", "0"]
 # The reference's documented serving configuration (README's serve command):
-# int8 KV, 28 slots, 64 decode steps a host sync; bf16 weights (int8 weights
-# are not ported).
-DOCUMENTED_ARGS = SERVE_ARGS + ["--max-seqs", "28", "--steps-per-sync", "64"]
+# int8 weights, int8 KV, 28 slots, 64 decode steps a host sync.
+DOCUMENTED_FLAGS = ["--max-seqs", "28", "--steps-per-sync", "64", "--quantization", "int8"]
+DOCUMENTED_ARGS = SERVE_ARGS + DOCUMENTED_FLAGS
 
 
 def http_request(addr, method, path, body=None, timeout=600):
@@ -2509,9 +2533,11 @@ def phase_server(torch, argv=SERVE_ARGS, tag="[server]"):
     return engine, launches_int8, perf
 
 
-def serve_subprocess(cmd, tag):
+def serve_subprocess(cmd, tag, drive=None):
     """Run a serve CLI command as a subprocess on the card: it must print its
-    port, answer /health and one greedy completion, and exit 0 on SIGTERM."""
+    port, answer /health and one greedy completion (or what ``drive(addr)``
+    sends, whose result is returned beside the output lines), and exit 0 on
+    SIGTERM."""
     import os
     import queue
     import signal
@@ -2545,9 +2571,12 @@ def serve_subprocess(cmd, tag):
         addr = ("127.0.0.1", port)
         status, data = http_request(addr, "GET", "/health", timeout=60)
         check(status == 200, f"{tag} CLI /health answered {status}")
-        out = post_json(addr, "/v1/completions", {"prompt": "hello", "max_tokens": 8,
-                                                  "temperature": 0.0})
-        check(out["usage"]["completion_tokens"] > 0, f"{tag} CLI completion {out}")
+        if drive is not None:
+            out = drive(addr)
+        else:
+            out = post_json(addr, "/v1/completions", {"prompt": "hello", "max_tokens": 8,
+                                                      "temperature": 0.0})
+            check(out["usage"]["completion_tokens"] > 0, f"{tag} CLI completion {out}")
         proc.send_signal(signal.SIGTERM)
         rc = proc.wait(timeout=60)
         check(rc == 0, f"{tag} the serve CLI exited {rc} on SIGTERM:\n"
@@ -2558,9 +2587,10 @@ def serve_subprocess(cmd, tag):
             proc.wait(timeout=30)
         reader.join(timeout=10)
         proc.stdout.close()
-    log(f"{tag} {' '.join(cmd[1:])}: port {port}, /health 200, one completion "
-        f"200 ({out['usage']}), exit 0 on SIGTERM; {time.perf_counter() - t0:.1f} s")
-    return seen
+    log(f"{tag} {' '.join(cmd[1:])}: port {port}, /health 200, "
+        + ("driven" if drive is not None else f"one completion 200 ({out['usage']})")
+        + f", exit 0 on SIGTERM; {time.perf_counter() - t0:.1f} s")
+    return (seen, out) if drive is not None else seen
 
 
 def phase_serve_cli(torch):
@@ -2657,11 +2687,14 @@ def phase_zero(torch, reference, card):
     is also held against phase 7's run without a group. Prints each run's
     step ms, tokens/s, peak memory and launches beside the card."""
     import os
+    import shutil
     import socket
+    import tempfile
 
     import torch.distributed as dist
 
     from dlti_tpu_torch import launcher
+    from dlti_tpu_torch.analysis import compare
     from dlti_tpu_torch.config import CheckpointConfig, ParallelConfig, ZeROStage, preset
     from dlti_tpu_torch.data import ByteTokenizer, make_batches
     from dlti_tpu_torch.models.interop import init_params
@@ -2674,6 +2707,8 @@ def phase_zero(torch, reference, card):
         port = sock.getsockname()[1]
     env = launcher.worker_env(f"127.0.0.1:{port}", 1, 0, base={}, local_rank=0)
     os.environ.update(env)
+    csv_dir = Path(tempfile.mkdtemp(prefix="dlti-zero-csv-"))
+    metrics_csv = csv_dir / "training_metrics.csv"
     try:
         check(launcher.maybe_initialize_from_env("cuda"), "no process group was formed")
         check(dist.get_backend() == "nccl" and dist.get_world_size() == 1,
@@ -2687,7 +2722,8 @@ def phase_zero(torch, reference, card):
             stage = ZeROStage(preset(preset_name).parallel.zero_stage)
             cfg = dataclasses.replace(base, parallel=ParallelConfig(
                 zero_stage=stage, offload_optimizer=off_opt, offload_params=off_params),
-                experiment_name=preset_name)
+                experiment_name=name, train=dataclasses.replace(
+                    base.train, metrics_csv=str(metrics_csv)))
             trainer = Trainer(cfg, params=init_params(mcfg, seed=0, device="cuda",
                                                       lora=cfg.lora), device="cuda")
             state = trainer.init_state()
@@ -2749,14 +2785,296 @@ def phase_zero(torch, reference, card):
         log(f"[zero] the baseline in the group against phase 7's without one: bit-equal "
             f"{no_group}")
         check(no_group, "the baseline in a group of one differs from phase 7's run")
+        # The reference's comparison over the five rows the runs appended.
+        rows = compare(str(metrics_csv))
+        check([r["experiment"] for r in rows] == [r[0] for r in ZERO_RUNS],
+              f"the metrics CSV holds {[r['experiment'] for r in rows]}")
+        check(all(r["peak_memory_source"] == "device" and r["num_gpus"] == 1
+                  for r in rows), "the CSV rows are not the card's")
+        for r in rows:
+            runs[r["experiment"]]["csv"] = {k: r[k] for k in (
+                "training_time_hours", "samples_per_second", "peak_memory_gb",
+                "final_loss", "speedup", "tokens_per_second_per_chip", "mfu_percent")}
+        log(f"[zero] metrics CSV: {len(rows)} rows compared ({metrics_csv.name})")
         log(f"[zero] card {card}; phase {time.perf_counter() - t_phase:.1f} s")
         return runs
     finally:
+        shutil.rmtree(csv_dir, ignore_errors=True)
         if dist.is_initialized():
             dist.destroy_process_group()
         for k in env:
             if k.startswith("DLTI_"):
                 os.environ.pop(k, None)
+
+
+# ----------------------------------------------------------------------
+# Quickstart slice 11: prepare -> int8-base train -> CSV -> compare ->
+# export -> serve int8 weights, and the experiment matrix
+# ----------------------------------------------------------------------
+
+# The README Quickstart's 7B recipe at the CLI's batch defaults (micro-batch
+# 1 x accum 16, seq 512), cut from 300 steps to two windows of 10.
+QUICKSTART_STEPS = 20
+QUICKSTART_ACCUM = 16
+# The prepared corpus: 2000 synthetic QA pairs, 125 steps an epoch at 16
+# rows a step, so 20 steps stay in the first epoch.
+QUICKSTART_PAIRS = 2000
+# The int8 base must free at least this much of the bf16 base's peak (the
+# base is 13.5 GB in bf16 and ~6.7 GB in int8), in training and serving.
+INT8_SAVING_GB = 5.0
+# Disk phase 17 needs: the 13.5 GB merged export, the token store and the
+# CSVs, with room to spare.
+QUICKSTART_DISK_GB = 20.0
+
+
+def run_train_cli(cmd, tag):
+    """A ``cli.train`` subprocess that must exit 0; its last stdout line,
+    the JSON summary."""
+    out = run_cli(cmd, tag, timeout=900)
+    return json.loads(out.strip().splitlines()[-1]), out
+
+
+def quickstart_run_perf(summary, log_path) -> dict:
+    """One ``cli.train`` run's readings from its JSON summary and its step
+    log; launches a step over the steps and the capture's eager warm-up
+    step, which launches once more."""
+    lines = [json.loads(ln) for ln in Path(log_path).read_text().splitlines()]
+    steps = sum(r["type"] == "step" for r in lines)
+    launches = summary["flash_launches"]
+    return {"step_ms": 1e3 * summary["step_time_s"], "tokens_per_s": summary["tokens_per_second"],
+            "mfu_percent": summary["mfu_percent"], "peak_memory_gb": summary["peak_memory_gb"],
+            "windows": summary["windows"], "captures": summary["captures"],
+            "final_loss": summary["final_loss"], "steps": steps, "launches": launches,
+            "launches_per_step": {k: v / (steps + summary["captures"])
+                                  for k, v in launches.items()},
+            "step_log_lines": len(lines),
+            "host_syncs_per_step": summary["host_syncs_per_step"]}
+
+
+def engine_peak(torch, export_dir, quantization):
+    """The documented serving configuration's engine from the export, built
+    by the serve CLI's builder with ``--quantization``, warmed up, then 28
+    greedy requests of 64 tokens through ``generate``: peak device memory
+    (GB) over build and serving, weight bytes and output tokens/s."""
+    from dlti_tpu_torch.cli import serve as cli
+    from dlti_tpu_torch.serving import SamplingParams
+
+    free_memory(torch)
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    args = cli.parse_args(["--model-dir", str(export_dir), "--tokenizer", "byte",
+                           "--kv-cache-dtype", "int8", "--port", "0", "--quantization",
+                           quantization] + DOCUMENTED_FLAGS[:4])
+    engine, tok, _ = cli.build(args)
+    engine.warmup_decode_ladder()
+    weights = sum(p.numel() * p.element_size() for p in engine.executor.model.parameters())
+    prompts = [tok.encode(f"request {i}: " + "serve the model " * (1 + i % 9), add_bos=True)
+               for i in range(28)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = engine.generate(prompts, SamplingParams(temperature=0.0, max_tokens=64))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    tokens = sum(len(r.output_token_ids) for r in out)
+    peak = (torch.cuda.max_memory_allocated() - base) / 1e9
+    del engine, out
+    free_memory(torch)
+    return {"peak_memory_gb": peak, "weights_gb": weights / 1e9, "tokens": tokens,
+            "output_tok_s": tokens / wall, "wall_s": wall}
+
+
+def dequant_time(torch, flush):
+    """``models.quantization.dequantize`` of one llama2_7b block's seven
+    kernels (int8 -> bf16, the expansion each use of an int8 weight runs),
+    timed as the kernels are (``time_ms``): ms a block, ms for the 32 blocks
+    and the head (one forward's expansions), and the rate at 3 bytes an
+    element (1 read, 2 written)."""
+    from dlti_tpu_torch.models.quantization import dequantize, quantize_int8
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    shapes = [(4096, 4096)] * 4 + [(4096, 11008)] * 2 + [(11008, 4096)]
+    pairs = [quantize_int8(torch.randn(s, generator=gen, device="cuda") * 0.02)
+             for s in shapes]
+    elems = sum(q.numel() for q, _ in pairs)
+    block_ms = time_ms(torch, lambda: [dequantize(q, s, torch.bfloat16) for q, s in pairs],
+                       flush=flush)
+    head_elems = 4096 * 32000
+    model_ms = block_ms * (MODEL_LAYERS + head_elems / elems)
+    out = {"block_ms": block_ms, "model_ms": model_ms,
+           "gb_s": 3 * elems / block_ms / 1e6,
+           "model_gb": 3 * (MODEL_LAYERS * elems + head_elems) / 1e9}
+    log(f"[quickstart] dequantize one block's kernels {block_ms:.3f} ms, a forward's "
+        f"expansions {model_ms:.1f} ms ({out['model_gb']:.1f} GB at 3 bytes an element, "
+        f"{out['gb_s']:.0f} GB/s against the card's 3350)")
+    del pairs
+    return out
+
+
+def phase_quickstart(torch, card, flush):
+    """Phase 17, the README Quickstart through the port's CLIs, as a user
+    types them, each a subprocess on the card: prepare a token store from
+    2000 synthetic pairs; train llama2_7b (full width and depth) with LoRA
+    r=16 on an int8 frozen base without remat, 10 steps a sync, 20 steps,
+    appending to a metrics CSV and a step log and exporting; the same run
+    on the bf16 base as the yardstick; compare the CSV; serve the export
+    with the documented flags (int8 weights and KV, 28 slots, k 64) to 12
+    concurrent requests over HTTP; then the experiment matrix (baseline and
+    zero3 at one card, 2 steps) into its own CSV, compared. K1-K3 must run
+    32 x 16 = 512 times a step each (no remat: nothing recomputed), the
+    int8 run must peak ``INT8_SAVING_GB`` below the bf16 run, and the
+    int8-weight engine below the bf16-weight engine by as much."""
+    import shutil
+    import tempfile
+
+    from dlti_tpu_torch.analysis import compare
+
+    t_phase = time.perf_counter()
+    free_memory(torch)
+    root = Path(tempfile.mkdtemp(prefix="dlti-quickstart-"))
+    data, store, ex = root / "data", root / "store", root / "export"
+    csv_path, csv_matrix = root / "training_metrics.csv", root / "matrix.csv"
+    py = [sys.executable, "-m"]
+    perf = {"card": card, "dequant": dequant_time(torch, flush)}
+    try:
+        free0 = shutil.disk_usage(root).free / 1e9
+        check(free0 >= QUICKSTART_DISK_GB, f"phase 17 needs {QUICKSTART_DISK_GB} GB free "
+              f"under {root}, the disk has {free0:.1f} GB")
+        # 1. Data prep.
+        run_cli(py + ["dlti_tpu_torch.cli.prepare_dataset", "--synthetic",
+                      str(QUICKSTART_PAIRS), "--output-dir", str(data),
+                      "--write-token-store", str(store)], "[quickstart]")
+        meta = json.loads((store / "meta.json").read_text())
+        check(meta["n_rows"] == QUICKSTART_PAIRS and meta["seq_len"] == 512
+              and (data / "data.jsonl").is_file(), f"token store meta {meta}")
+
+        # 2-3. The 7B recipe on the int8 base, then on the bf16 base.
+        def train_cmd(tag, int8):
+            cmd = py + ["dlti_tpu_torch.cli.train", "--model", "llama2_7b", "--preset",
+                        "baseline", "--dataset-path", str(store), "--tokenizer", "byte",
+                        "--lora-r", "16", "--remat-policy", "none", "--steps-per-sync", "10",
+                        "--max-steps", str(QUICKSTART_STEPS), "--metrics-csv", str(csv_path),
+                        "--step-log", str(root / f"{tag}.jsonl"),
+                        "--output-dir", str(root / f"ck_{tag}")]
+            if int8:
+                cmd += ["--quantize-base", "int8", "--export-dir", str(ex)]
+            return cmd
+
+        runs = {}
+        for tag, int8 in (("int8", True), ("bf16", False)):
+            summary, out = run_train_cli(train_cmd(tag, int8), f"[quickstart {tag}]")
+            run = quickstart_run_perf(summary, root / f"{tag}.jsonl")
+            runs[tag] = run
+            want = QUICKSTART_ACCUM * MODEL_LAYERS
+            log(f"[quickstart {tag}] {QUICKSTART_STEPS} steps in {run['windows']} windows: "
+                f"step {run['step_ms']:.1f} ms, {run['tokens_per_s']:.1f} tokens/s, MFU "
+                f"{run['mfu_percent']:.2f}%, peak {run['peak_memory_gb']:.2f} GB, K1/K2/K3 "
+                f"launches a step {run['launches_per_step']} (expected {want} each, "
+                f"{run['captures']} capture), step log {run['step_log_lines']} lines, "
+                f"final loss {run['final_loss']:.4f}")
+            check(run["steps"] == QUICKSTART_STEPS and run["windows"] == 2
+                  and run["captures"] == 1, f"{tag}: {run['steps']} steps, "
+                  f"{run['windows']} windows, {run['captures']} captures")
+            check(all(v == want for v in run["launches_per_step"].values()),
+                  f"{tag}: flash launches a step {run['launches_per_step']} != {want}")
+            check(run["step_log_lines"] == QUICKSTART_STEPS + 2,
+                  f"{tag}: the step log has {run['step_log_lines']} lines")
+            check(math.isfinite(run["final_loss"]), f"{tag}: final loss {run['final_loss']}")
+            if int8:
+                check("manifest sha256:" in out and (ex / "model").is_dir(),
+                      "the int8 run wrote no export")
+        saving = runs["bf16"]["peak_memory_gb"] - runs["int8"]["peak_memory_gb"]
+        log(f"[quickstart] int8 base against bf16 base: step x"
+            f"{runs['int8']['step_ms'] / runs['bf16']['step_ms']:.3f}, peak "
+            f"{runs['int8']['peak_memory_gb']:.2f} against {runs['bf16']['peak_memory_gb']:.2f} "
+            f"GB ({saving:.2f} GB less)")
+        check(saving >= INT8_SAVING_GB, f"the int8 base saved {saving:.2f} GB of peak")
+        perf["train"] = runs
+
+        # 4. Compare the two rows.
+        out = run_cli(py + ["dlti_tpu_torch.cli.compare_training", "--csv", str(csv_path),
+                            "--no-plots"], "[quickstart]")
+        log(out.rstrip())
+        rows = compare(str(csv_path))
+        check(len(rows) == 2 and all(r["peak_memory_source"] == "device" for r in rows),
+              f"the metrics CSV holds {len(rows)} rows")
+        perf["csv"] = [{k: r[k] for k in ("experiment", "training_time_hours",
+                                          "samples_per_second", "peak_memory_gb",
+                                          "final_loss", "tokens_per_second_per_chip",
+                                          "mfu_percent", "speedup")} for r in rows]
+
+        # 5. Serve the export with the documented flags, 12 requests over HTTP.
+        def drive(addr):
+            import threading
+
+            reqs = server_requests()
+            results, errors = [None] * len(reqs), []
+
+            def one(i, kind, path, body):
+                try:
+                    results[i] = (post_stream(addr, path, body) if kind == "stream"
+                                  else post_json(addr, path, body))
+                except Exception as e:  # reported, and fails the phase below
+                    errors.append(f"{kind} {i}: {type(e).__name__}: {e}")
+
+            t0 = time.perf_counter()
+            threads = [threading.Thread(target=one, args=(i, *r))
+                       for i, r in enumerate(reqs)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=600)
+            wall = time.perf_counter() - t0
+            check(not errors and all(r is not None for r in results),
+                  f"quickstart server requests failed: {errors}")
+            stats = json.loads(http_request(addr, "GET", "/stats")[1])
+            return {"wall_s": wall, "requests": len(reqs),
+                    "ttft_p50_s": stats["request_ttft_seconds"]["p50"],
+                    "ttft_p99_s": stats["request_ttft_seconds"]["p99"],
+                    "tpot_mean_s": stats["request_tpot_seconds"]["mean"]}
+
+        seen, served = serve_subprocess(
+            py + ["dlti_tpu_torch.cli.serve", "--model-dir", str(ex), "--tokenizer", "byte",
+                  "--kv-cache-dtype", "int8", "--host", "127.0.0.1", "--port", "0"]
+            + DOCUMENTED_FLAGS, "[quickstart serve]", drive=drive)
+        check(any("quantization int8" in ln for ln in seen), "the server's weights are not int8")
+        log(f"[quickstart serve] {served['requests']} concurrent requests in "
+            f"{served['wall_s']:.2f} s; TTFT p50 {served['ttft_p50_s']:.4f} s, p99 "
+            f"{served['ttft_p99_s']:.4f} s; mean TPOT {1e3 * served['tpot_mean_s']:.2f} ms "
+            "(/stats, bucket-interpolated)")
+        perf["serve"] = served
+        engines = {q: engine_peak(torch, ex, q) for q in ("int8", "none")}
+        saving = engines["none"]["peak_memory_gb"] - engines["int8"]["peak_memory_gb"]
+        log(f"[quickstart serve] engine from the export, documented flags, 28 greedy "
+            f"requests of 64 tokens: int8 weights {engines['int8']['weights_gb']:.2f} GB, "
+            f"peak {engines['int8']['peak_memory_gb']:.2f} GB, "
+            f"{engines['int8']['output_tok_s']:.1f} tok/s; bf16 weights "
+            f"{engines['none']['weights_gb']:.2f} GB, peak "
+            f"{engines['none']['peak_memory_gb']:.2f} GB, "
+            f"{engines['none']['output_tok_s']:.1f} tok/s ({saving:.2f} GB less)")
+        check(saving >= INT8_SAVING_GB, f"int8 weights saved {saving:.2f} GB of peak")
+        perf["engines"] = engines
+
+        # 6. The experiment matrix, then its comparison.
+        out = run_cli(py + ["dlti_tpu_torch.cli.run_experiments", "--model", "llama2_7b",
+                            "--strategies", "baseline,zero3", "--device-counts", "1",
+                            "--max-steps", "2", "--dataset-path", str(store),
+                            "--tokenizer", "byte", "--metrics-csv", str(csv_matrix),
+                            "--output-root", str(root / "matrix_ck"),
+                            "--log-dir", str(root / "matrix_logs"), "--no-plots"],
+                      "[quickstart matrix]", timeout=900)
+        rows = compare(str(csv_matrix))
+        check([r["experiment"] for r in rows] == ["baseline", "zero3_1dev"],
+              f"the matrix CSV holds {[r['experiment'] for r in rows]}")
+        perf["matrix"] = [{k: r[k] for k in ("experiment", "strategy", "training_time_hours",
+                                             "peak_memory_gb", "final_loss",
+                                             "tokens_per_second_per_chip", "speedup")}
+                          for r in rows]
+        log(f"[quickstart matrix] {perf['matrix']}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    perf["phase_s"] = time.perf_counter() - t_phase
+    log(f"[quickstart] card {card}; phase {perf['phase_s']:.1f} s")
+    return perf
 
 
 def main() -> int:
@@ -2815,6 +3133,8 @@ def main() -> int:
         phase_serve_cli(torch)
         phase_cli_round_trip(torch)
         zero_perf = phase_zero(torch, train_perf, card)
+        free_memory(torch)
+        quickstart_perf = phase_quickstart(torch, card, flush)
     except CheckFailed as e:
         return fail(str(e))
 
@@ -2934,6 +3254,7 @@ def main() -> int:
     log("[zero] summary " + json.dumps({name: {k: r[k] for k in keys + (
         "launches", "strategy", "world", "streamed_gb_a_step", "h2d_pinned_gb_s",
         "copy_bound_ms") if k in r} for name, r in zero_perf.items()}))
+    log("[quickstart] summary " + json.dumps(quickstart_perf))
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

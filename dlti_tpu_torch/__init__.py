@@ -20,7 +20,13 @@ backward as hand-written CUDA kernels (``ops.flash_attention``, source in
 ``csrc/flash_attention.cu``), and its checkpoints, verified resume and
 merged export in the JAX package's on-disk format (``checkpoint``, CLI
 ``python -m dlti_tpu_torch.cli.export``; ``cli.serve --model-dir`` serves
-an export).
+an export), ZeRO-1/2/3 under the launcher (``parallel``, ``launcher``), and
+the Quickstart chain: data prep into token stores (``data.streaming``, CLI
+``cli.prepare_dataset``), an int8 frozen base and int8 serving weights
+(``models.quantization``), the metrics CSV and step log
+(``utils.metrics``, ``telemetry.steplog``), the comparison and the
+experiment matrix (``analysis``, ``orchestration``, CLIs
+``cli.compare_training`` and ``cli.run_experiments``).
 """
 
 from dlti_tpu_torch.config import MODEL_PRESETS, LoRAConfig, ModelConfig

@@ -18,9 +18,11 @@ verifies (corrupt newer ones are quarantined). ``--fp16`` reads an
 ``cli.train --fp16`` run's checkpoint: its base is float16 and its state
 carries the loss scaler's leaves, so the template has both (the JAX
 package's script adds only the scaler and so refuses such a checkpoint's
-float16 base). The last line on stdout is ``manifest sha256: <digest>``,
-the export's content identity. The int8 base (``--quantize-base``) is not
-ported.
+float16 base). ``--quantize-base int8`` reads a ``cli.train --quantize-base
+int8`` run's checkpoint: the template's frozen weights are ``{q, scale}``
+pairs, and the export expands them to bf16 (merged or not), as the
+reference's does. The last line on stdout is ``manifest sha256: <digest>``,
+the export's content identity.
 """
 
 from __future__ import annotations
@@ -41,7 +43,8 @@ def parse_args(argv=None):
     p.add_argument("--model", default="llama2_7b", choices=sorted(MODEL_PRESETS))
     p.add_argument("--lora-r", type=int, default=16, help="0 = a full fine-tune")
     p.add_argument("--quantize-base", default="", choices=["", "int8"],
-                   help="not ported (the int8 frozen base)")
+                   help="checkpoint came from a --quantize-base run (int8 frozen "
+                        "base leaves; the export is dequantized to bf16)")
     p.add_argument("--out", required=True)
     p.add_argument("--keep-lora", action="store_true",
                    help="export unmerged (adapter factors kept as leaves)")
@@ -55,13 +58,12 @@ def parse_args(argv=None):
 def export(args) -> str:
     """Restore the checkpoint's params and write the export; returns its
     manifest SHA-256."""
-    if args.quantize_base:
-        raise NotImplementedError("--quantize-base is not ported yet (see ROADMAP.md)")
     from dlti_tpu_torch.checkpoint import (
         export_merged_model, latest_verified_step, manifest_digest, restore_train_state,
     )
     from dlti_tpu_torch.config import Config, LoRAConfig, OptimizerConfig
     from dlti_tpu_torch.models.llama import LlamaForCausalLM
+    from dlti_tpu_torch.models.quantization import install_quantized, should_quantize
     from dlti_tpu_torch.training import build_optimizer, create_train_state
     from dlti_tpu_torch.training.state import params_key, state_leaves
     from dlti_tpu_torch.utils.device import resolve_device
@@ -75,6 +77,9 @@ def export(args) -> str:
     device = resolve_device(args.device)
     model = LlamaForCausalLM(cfg.model, cfg.lora if cfg.lora.enabled else None,
                              device="meta")
+    if args.quantize_base:  # the leaves cli.train --quantize-base int8 quantized
+        install_quantized(model, [n for n, p in model.named_parameters()
+                                  if should_quantize(n, p)])
     template = create_train_state(model, build_optimizer(OptimizerConfig()),
                                   lora_enabled=cfg.lora.enabled,
                                   fp16_initial_scale=2.0 ** 16 if args.fp16 else None)

@@ -12,11 +12,20 @@
     python -m dlti_tpu_torch.cli.serve --model-dir exports/fp16 \
         --tokenizer byte --kv-cache-dtype float16
 
+    # the reference's documented configuration: int8 weights, int8 KV,
+    # 28 slots, 64 decode steps a host sync
+    python -m dlti_tpu_torch.cli.serve --model-dir exports/glaive_int8 \
+        --tokenizer byte --quantization int8 --kv-cache-dtype int8 \
+        --max-seqs 28 --steps-per-sync 64
+
 Flags keep the reference's names and defaults (``--steps-per-sync``,
 ``--no-decode-state-cache`` included); the decode iteration's CUDA graph is
 captured before the server binds. ``--random-init`` weights come from
 ``init_params(seed=0)``; ``--model-dir`` serves an export in the dtype its
-``config.json`` names. It prints ``serving on http://HOST:PORT`` with the
+``config.json`` names. ``--quantization int8`` keeps the weights as int8
+with per-channel scales, quantized leaf by leaf on the card (an export is
+read into host memory first, so its bf16 tree never sits whole on the
+card). It prints ``serving on http://HOST:PORT`` with the
 port it bound, and SIGTERM or Ctrl-C stops it with exit code 0.
 """
 
@@ -54,6 +63,9 @@ def parse_args(argv=None):
     p.add_argument("--kv-cache-dtype", default="bfloat16", choices=KV_CACHE_DTYPES,
                    help="KV pool dtype; int8 stores per-row-scaled payloads at "
                         "half the bf16 bytes")
+    p.add_argument("--quantization", default="none", choices=["none", "int8"],
+                   help="weight-only quantization (int8 + per-channel scales; "
+                        "about half the weight memory)")
     p.add_argument("--no-decode-state-cache", action="store_true",
                    help="disable the device-resident decode-state cache "
                         "(per-slot dirty tracking; clean decode steps "
@@ -83,7 +95,9 @@ def build(args):
     if args.model_dir:
         from dlti_tpu_torch.checkpoint import load_exported_model
 
-        tree, cfg = load_exported_model(args.model_dir, device=device)
+        # int8: the engine quantizes host leaves one at a time on the card.
+        tree, cfg = load_exported_model(
+            args.model_dir, device=None if args.quantization == "int8" else device)
         params = params_from_jax(tree)
         del tree
         model_cfg = cfg.model
@@ -101,8 +115,15 @@ def build(args):
         num_blocks=args.num_blocks, max_model_len=args.max_model_len,
         eos_token_id=tok.eos_id, cache_dtype=args.kv_cache_dtype,
         steps_per_sync=args.steps_per_sync,
-        decode_state_cache=not args.no_decode_state_cache)
-    engine = InferenceEngine(model_cfg, params, ec, lora_cfg=lora_cfg, device=device)
+        decode_state_cache=not args.no_decode_state_cache,
+        quantization=args.quantization)
+    engine = InferenceEngine(model_cfg, params, ec, lora_cfg=lora_cfg, device=device,
+                             donate_params=True)
+    del params
+    weight_bytes = sum(p.numel() * p.element_size()
+                       for p in engine.executor.model.parameters())
+    print(f"weights on {device}: {weight_bytes / 1e9:.2f} GB "
+          f"(quantization {args.quantization})", flush=True)
     sc = ServerConfig(host=args.host, port=args.port,
                       default_params=SamplingParams(max_tokens=args.max_tokens_default))
     return engine, tok, sc

@@ -27,6 +27,15 @@ parallel (``--preset baseline|zero1|zero2|zero3`` under the launcher).
         --model llama_tiny --tokenizer byte --dataset-path data/ \
         --max-seq-len 64 --max-steps 4 --offload-optimizer --save-strategy no
 
+    # the Quickstart's 7B recipe on a token store (cli.prepare_dataset
+    # --write-token-store): an int8 frozen base, no remat, 10 steps a sync,
+    # the run's row appended to a metrics CSV and a per-step JSONL log
+    python -m dlti_tpu_torch.cli.train --model llama2_7b --preset baseline \
+        --dataset-path data/glaive_tokens --tokenizer byte --lora-r 16 \
+        --quantize-base int8 --remat-policy none --steps-per-sync 10 \
+        --max-steps 300 --metrics-csv results/training_metrics.csv \
+        --step-log runs/steps.jsonl --export-dir exports/glaive_int8
+
     # 4 steps a host sync, the chunked loss, an eval every 4 steps
     python -m dlti_tpu_torch.cli.train --device cpu --model llama_tiny \
         --tokenizer byte --dataset-path data/ --max-seq-len 64 --max-steps 8 \
@@ -39,14 +48,21 @@ from the newest checkpoint there that verifies (``--no-resume`` starts
 afresh, ``--save-strategy no`` writes nothing). ``--export-dir`` writes the
 merged model after training (``cli.serve --model-dir`` serves it).
 ``--dataset-path`` and ``--eval-dataset`` are a ``data.jsonl`` (one
-``{"text": ...}`` per line), a directory holding one, or a file of text
-lines; a token store (a directory with ``meta.json``) needs
-``data/streaming.py``, which is not ported. ``--steps-per-sync`` runs that
+``{"text": ...}`` per line), a directory holding one, a file of text
+lines, or a memory-mapped token store (a directory with ``meta.json``,
+``data.streaming``; its tokenizer and ``--max-seq-len`` must be the run's).
+``--quantize-base int8`` keeps the frozen base as int8 weights with
+per-channel scales (LoRA only; export with ``cli.export --quantize-base
+int8``). ``--metrics-csv`` is where rank 0 appends the run's row of the
+reference's metrics CSV (``cli.compare_training`` reads it), ``--step-log``
+a per-step JSONL stream. ``--steps-per-sync`` runs that
 many optimizer steps a host synchronisation (on the card one CUDA graph of
 the step, replayed); eval and saves land at window boundaries. ``--fp16``
 runs the model in float16 (compute and base weights) under the dynamic loss
 scaler, as the reference's ``--fp16`` does. Weights are random, from
-``--seed``. Prints one JSON line with the run's record at the end.
+``--seed``. Prints the reference's metrics summary, then one JSON line with
+the run's record (and the flash kernels' launches in the process) at the
+end.
 
 ``--preset`` picks the strategy (the reference's semantics): ``baseline``
 (replicated data parallelism), ``zero1``/``zero2`` (sharded optimizer
@@ -113,6 +129,14 @@ def parse_args(argv=None):
                    help="optimizer steps per host synchronisation (same "
                         "trajectory as 1, metrics stay per-step, eval/saves "
                         "land at window boundaries)")
+    p.add_argument("--quantize-base", default="", choices=["", "int8"],
+                   help="store the frozen base params weight-only quantized "
+                        "(int8 + per-channel scales; requires LoRA)")
+    p.add_argument("--metrics-csv", default="results/training_metrics.csv",
+                   help="append the run's row of the reference's metrics CSV here")
+    p.add_argument("--step-log", default="",
+                   help="per-step JSONL stream (rank 0): step, loss, grad_norm, lr, "
+                        "tok/s/card, MFU, peak memory; a superset of the CSV columns")
     p.add_argument("--fp16", action="store_true",
                    help="fp16 + dynamic loss scaling parity mode (the model in "
                         "float16, the reference's DeepSpeed fp16 block)")
@@ -150,10 +174,6 @@ def parse_args(argv=None):
 def load_texts(path: str) -> list:
     """``data.jsonl`` with a ``text`` field (or a directory holding one), or
     plain text lines."""
-    if os.path.isfile(os.path.join(path, "meta.json")):
-        raise SystemExit(f"{path} is a token store (it holds meta.json); reading "
-                         f"one needs data/streaming.py, which is not ported yet "
-                         f"(see ROADMAP.md): pass a data.jsonl instead")
     if os.path.isdir(path):
         jsonl = os.path.join(path, "data.jsonl")
         if not os.path.isfile(jsonl):
@@ -204,9 +224,12 @@ def build_config(args):
     if args.remat_stride:
         model = dataclasses.replace(model, remat_stride=args.remat_stride)
     r = max(args.lora_r, 1)
+    from dlti_tpu_torch.utils.experiment import create_experiment_name
+
     return cfg.replace(
         model=model,
         parallel=par,
+        experiment_name=create_experiment_name(par.num_devices, int(par.zero_stage)),
         lora=LoRAConfig(enabled=args.lora_r > 0, r=r, alpha=2 * r),
         optimizer=OptimizerConfig(learning_rate=args.learning_rate,
                                   warmup_steps=args.warmup_steps),
@@ -222,7 +245,36 @@ def build_config(args):
                           grad_accum_steps=args.gradient_accumulation_steps,
                           logging_steps=args.logging_steps, seed=args.seed,
                           eval_steps=args.eval_steps, loss_chunk=args.loss_chunk,
-                          steps_per_sync=args.steps_per_sync, fp16=args.fp16))
+                          steps_per_sync=args.steps_per_sync, fp16=args.fp16,
+                          quantize_frozen_base=args.quantize_base,
+                          metrics_csv=args.metrics_csv, step_log_path=args.step_log))
+
+
+def open_token_store(path: str, cfg, accum: int, shuffle_seed):
+    """A token store as the run's dataset, refusing one written with
+    another tokenizer or ``seq_len``."""
+    from dlti_tpu_torch.data.streaming import StreamingTokenDataset
+
+    try:
+        ds = StreamingTokenDataset(path, micro_batch_size=cfg.train.micro_batch_size,
+                                   grad_accum_steps=accum, shuffle_seed=shuffle_seed,
+                                   expect_tokenizer=cfg.data.tokenizer)
+    except ValueError as e:
+        raise SystemExit(str(e))
+    if ds.seq_len != cfg.data.max_seq_len:
+        raise SystemExit(f"token store {path} was written with seq_len={ds.seq_len}, "
+                         f"but --max-seq-len is {cfg.data.max_seq_len}; re-prepare "
+                         f"or pass the matching --max-seq-len")
+    return ds
+
+
+def with_packed_window(cfg, longest: int):
+    """Exact banded attention for packed rows whose documents are all
+    shorter than ``max_seq_len``."""
+    if longest and longest < cfg.data.max_seq_len:
+        cfg = cfg.replace(model=dataclasses.replace(cfg.model,
+                                                    packed_attention_window=longest))
+    return cfg
 
 
 def main(argv=None) -> None:
@@ -245,34 +297,55 @@ def main(argv=None) -> None:
 
     writer = not dist.is_initialized() or dist.get_rank() == 0
 
-    texts = load_texts(args.dataset_path)
-    dataset = make_batches(texts, get_tokenizer(cfg.data.tokenizer),
-                           seq_len=cfg.data.max_seq_len,
-                           micro_batch_size=cfg.train.micro_batch_size,
-                           grad_accum_steps=cfg.train.grad_accum_steps,
-                           shuffle_seed=cfg.data.shuffle_seed,
-                           pack=cfg.data.pack_sequences)
-    if cfg.data.pack_sequences and dataset.sequences:
-        longest = max(len(s) for s in dataset.sequences)
-        if longest < cfg.data.max_seq_len:  # exact banded attention for packed rows
-            cfg = cfg.replace(model=dataclasses.replace(
-                cfg.model, packed_attention_window=longest))
+    from dlti_tpu_torch.data.streaming import is_token_store
+
+    if is_token_store(args.dataset_path):
+        dataset = open_token_store(args.dataset_path, cfg, cfg.train.grad_accum_steps,
+                                   cfg.data.shuffle_seed)
+        if dataset.packed:
+            cfg = with_packed_window(cfg, dataset.max_doc_len)
+        described = (f"memory-mapped token store {args.dataset_path} ({dataset._n_rows} "
+                     f"rows x {dataset.seq_len}, packed={dataset.packed})")
+    else:
+        texts = load_texts(args.dataset_path)
+        dataset = make_batches(texts, get_tokenizer(cfg.data.tokenizer),
+                               seq_len=cfg.data.max_seq_len,
+                               micro_batch_size=cfg.train.micro_batch_size,
+                               grad_accum_steps=cfg.train.grad_accum_steps,
+                               shuffle_seed=cfg.data.shuffle_seed,
+                               pack=cfg.data.pack_sequences)
+        if cfg.data.pack_sequences and dataset.sequences:
+            cfg = with_packed_window(cfg, max(len(s) for s in dataset.sequences))
+        described = f"{len(texts)} examples"
     if writer:
-        print(f"dataset: {len(texts)} examples, {dataset.steps_per_epoch()} steps/epoch",
+        print(f"dataset: {described}, {dataset.steps_per_epoch()} steps/epoch",
               flush=True)
     eval_dataset = None
     if args.eval_dataset:
         if not cfg.train.eval_steps:
             raise SystemExit("--eval-dataset needs --eval-steps > 0")
-        eval_texts = load_texts(args.eval_dataset)
+        if is_token_store(args.eval_dataset):
+            # fixed order: comparable losses
+            eval_dataset = open_token_store(args.eval_dataset, cfg, 1, None)
+            window = cfg.model.packed_attention_window
+            if eval_dataset.packed and window and eval_dataset.max_doc_len > window:
+                # The band is exact only if it covers the eval split's longest
+                # document too (a window of 0 turns it off).
+                cfg = cfg.replace(model=dataclasses.replace(
+                    cfg.model, packed_attention_window=(
+                        0 if eval_dataset.max_doc_len >= cfg.data.max_seq_len
+                        else eval_dataset.max_doc_len)))
+            described = f"token store {args.eval_dataset}"
+        else:
+            eval_texts = load_texts(args.eval_dataset)
+            eval_dataset = make_batches(eval_texts, get_tokenizer(cfg.data.tokenizer),
+                                        seq_len=cfg.data.max_seq_len,
+                                        micro_batch_size=cfg.train.micro_batch_size,
+                                        grad_accum_steps=1,
+                                        shuffle_seed=None)  # fixed order: comparable losses
+            described = f"{len(eval_texts)} examples from {args.eval_dataset}"
         if writer:
-            print(f"eval dataset: {len(eval_texts)} examples from {args.eval_dataset}",
-                  flush=True)
-        eval_dataset = make_batches(eval_texts, get_tokenizer(cfg.data.tokenizer),
-                                    seq_len=cfg.data.max_seq_len,
-                                    micro_batch_size=cfg.train.micro_batch_size,
-                                    grad_accum_steps=1,
-                                    shuffle_seed=None)  # fixed order: comparable losses
+            print(f"eval dataset: {described}", flush=True)
         if eval_dataset.steps_per_epoch() == 0:
             raise SystemExit(
                 f"eval dataset yields zero batches: it has fewer rows than one "
@@ -280,6 +353,10 @@ def main(argv=None) -> None:
                 f"--per-device-batch-size or grow the eval split")
     trainer = Trainer(cfg, device=args.device)
     state, record = trainer.train(dataset=dataset, eval_dataset=eval_dataset)
+    if writer:
+        from dlti_tpu_torch.utils.metrics import print_metrics_summary
+
+        print_metrics_summary(record.metrics)
     if args.export_dir:
         from dlti_tpu_torch.checkpoint import export_merged_model, manifest_digest
 
@@ -302,6 +379,13 @@ def main(argv=None) -> None:
     if record.loss_scales:
         summary["final_loss_scale"] = record.loss_scales[-1]
     summary["host_syncs_per_step"] = record.host_syncs_per_step
+    from dlti_tpu_torch.ops import flash_attention
+
+    # The flash kernels' launches in this process (a captured step's
+    # replays are credited with what its capture counted).
+    summary["flash_launches"] = {"fwd": flash_attention.fwd_launches,
+                                 "dq": flash_attention.dq_launches,
+                                 "dkv": flash_attention.dkv_launches}
     print(json.dumps(summary), flush=True)
 
 

@@ -7,8 +7,8 @@
 Field names, defaults and presets are the reference's, so a configuration
 means the same thing in both packages. The training blocks carry the fields
 the single-device LoRA path reads. Fields that select code the port has not
-reached yet (mixture of experts, the other remat policies, the int8 frozen
-base) are kept for that parity; the modules that would read them raise where
+reached yet (mixture of experts, the other remat policies) are kept for
+that parity; the modules that would read them raise where
 the port stops. ``flash_block_q``/``flash_block_kv`` are the TPU
 kernel's tiles: the CUDA flash kernels pick their own and do not read them.
 """
@@ -168,6 +168,9 @@ class DataConfig:
     max_seq_len: int = 512  # the reference's truncation
     pack_sequences: bool = False
     shuffle_seed: int = 0
+    # Batches the trainer's prefetch thread prepares ahead of the step
+    # (data.prefetch.HostPrefetcher); 0 reads them on the training thread.
+    prefetch_depth: int = 2
 
 
 @dataclass(frozen=True)
@@ -200,8 +203,16 @@ class TrainConfig:
     dynamic loss scaler (the reference's fp16 block,
     ``configs/ds_config_zero1.json``: initial scale 2^16, window 1000,
     hysteresis 2, min scale 1); pair it with a model whose ``dtype`` and
-    ``param_dtype`` are ``"float16"``. ``quantize_frozen_base`` is kept for
-    parity and raises when set."""
+    ``param_dtype`` are ``"float16"``. ``quantize_frozen_base="int8"``
+    keeps the frozen base as int8 weights with per-channel scales
+    (``models.quantization``; LoRA only). ``metrics_csv``: rank 0 appends
+    the run's reference-schema row there at the end of ``Trainer.train``
+    (``utils.metrics.save_training_metrics``); the reference's default is
+    ``results/training_metrics.csv``, which ``cli.train --metrics-csv``
+    keeps, and the library writes none unless given a path (its tests and
+    callers would otherwise append to the working directory).
+    ``step_log_path``: rank 0's per-step JSONL stream
+    (``telemetry.steplog``), the reference's ``telemetry.step_log_path``."""
 
     num_epochs: int = 1
     max_steps: int = 0  # 0 = derive from epochs * steps_per_epoch
@@ -218,6 +229,8 @@ class TrainConfig:
     loss_chunk: int = 0
     steps_per_sync: int = 1
     quantize_frozen_base: str = ""
+    metrics_csv: str = ""
+    step_log_path: str = ""
 
 
 

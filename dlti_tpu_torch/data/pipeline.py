@@ -112,8 +112,10 @@ class HostShardedSchedule:
     optimizer step, of which this process takes its batch-column slice (see
     the module docstring); ``skip_steps`` resumes mid-epoch. The schedule
     does not depend on the world size. Subclasses call :meth:`_init_procs`,
-    set ``_n_rows`` and implement ``_gather(rows) -> {field: (n,
-    seq_len)}``."""
+    then :meth:`_init_host_shard` with their row count (or set ``_n_rows``),
+    and implement ``_gather(rows) -> {field: (n, seq_len)}``. Shared by
+    :class:`TokenBatchDataset` and ``data.streaming.StreamingTokenDataset``,
+    so the in-memory and the disk-backed paths take the same rows."""
 
     def _init_procs(self, shard_by_host: bool) -> None:
         on = shard_by_host and dist.is_available() and dist.is_initialized()
@@ -123,6 +125,11 @@ class HostShardedSchedule:
             raise ValueError(
                 f"global micro_batch_size {self.micro_batch_size} must be "
                 f"divisible by the world size {self._procs}")
+
+    def _init_host_shard(self, n_rows: int, shard_by_host: bool) -> None:
+        if not hasattr(self, "_procs"):
+            self._init_procs(shard_by_host)
+        self._n_rows = n_rows
 
     @property
     def samples_per_step(self) -> int:

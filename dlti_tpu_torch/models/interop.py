@@ -33,6 +33,7 @@ import torch
 from dlti_tpu_torch.config import LoRAConfig, ModelConfig
 from dlti_tpu_torch.models.llama import LlamaForCausalLM
 from dlti_tpu_torch.models.lora import is_lora_name
+from dlti_tpu_torch.models.quantization import install_quantized, quant_bases
 from dlti_tpu_torch.utils.device import resolve_device
 
 # flax's lecun_normal: a normal truncated at two standard deviations, scaled
@@ -144,12 +145,15 @@ def load_model(cfg: ModelConfig, params: Mapping[str, torch.Tensor],
                trainable_lora: bool = False) -> LlamaForCausalLM:
     """A ``LlamaForCausalLM`` on ``device`` whose parameters are ``params``
     (moved there if they are elsewhere; not copied if they are already).
+    A weight ``params`` holds quantized (``{name}.q`` and ``{name}.scale``,
+    ``models.quantization``) becomes a ``QuantizedWeight`` of the module.
 
     Every parameter is frozen and the module is in eval mode, unless
     ``trainable_lora``: then the ``lora_a``/``lora_b`` leaves require grad
     (the base stays frozen) and the module is in train mode."""
     device = resolve_device(device)
     model = LlamaForCausalLM(cfg, lora, device="meta")
+    install_quantized(model, quant_bases(params))
     state = {k: v.to(device) for k, v in params.items()}
     model.load_state_dict(state, assign=True, strict=True)
     for name, p in model.named_parameters():

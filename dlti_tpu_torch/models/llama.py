@@ -20,9 +20,13 @@ take the seed from a buffer. Under ZeRO-3 or ``offload_params`` a
 ``parallel.sharding.ParamFetcher`` on the model brings each block's leaves
 whole onto the device for the block (all-gathered, or copied from pinned
 host memory a block ahead), inside a remat recompute again; a data-parallel
-rank numbers its dropout rows from ``dropout_row_offset``. The
-dense fixed-capacity cache, ring attention, the other remat policies and
-quantized leaves are not ported.
+rank numbers its dropout rows from ``dropout_row_offset``. With
+``cfg.remat`` off (``remat_policy`` ``none`` on the CLIs) every block keeps
+its activations. Weights may be int8 (``models.quantization``: the
+embedding, the head and the projection kernels as ``QuantizedWeight``
+pairs), each expanded at its use, as the reference's ``maybe_dequantize``.
+The dense fixed-capacity cache, ring attention and the other remat
+policies are not ported.
 """
 
 from __future__ import annotations
@@ -37,6 +41,7 @@ from torch.utils.checkpoint import checkpoint
 
 from dlti_tpu_torch.config import LoRAConfig, ModelConfig
 from dlti_tpu_torch.models.lora import LoRADense, dropout_hashes
+from dlti_tpu_torch.models.quantization import QuantizedWeight, weight_of
 from dlti_tpu_torch.ops.attention import multi_head_attention, reference_attention
 from dlti_tpu_torch.ops.kv_cache import paged_gather, paged_update, slot_mapping
 from dlti_tpu_torch.ops.paged_attention import paged_decode_attention
@@ -264,9 +269,17 @@ class LlamaModel(nn.Module):
         dtype = resolve_dtype(cfg.dtype)
         b, s = input_ids.shape
         fetcher = self.fetcher
-        embed = (self.embed_tokens if fetcher is None
-                 else fetcher.leaf("model.embed_tokens"))
-        x = embed[input_ids].to(dtype)
+        if isinstance(self.embed_tokens, QuantizedWeight):
+            # int8: gather the rows, then scale them in the compute dtype,
+            # as the reference does.
+            q, scale = ((self.embed_tokens.q, self.embed_tokens.scale) if fetcher is None
+                        else (fetcher.leaf("model.embed_tokens.q"),
+                              fetcher.leaf("model.embed_tokens.scale")))
+            x = q[input_ids].to(dtype) * scale.to(dtype)
+        else:
+            embed = (self.embed_tokens if fetcher is None
+                     else fetcher.leaf("model.embed_tokens"))
+            x = embed[input_ids].to(dtype)
         if cfg.embedding_scale:  # Gemma: scaled by sqrt(hidden) in the compute dtype
             # A CPU scalar: no host-to-device copy, which a CUDA graph refuses.
             x = x * torch.tensor(cfg.hidden_size ** 0.5, dtype=dtype)
@@ -358,13 +371,14 @@ class LlamaForCausalLM(nn.Module):
     def head_matrix(self) -> torch.Tensor:
         """The (hidden, vocab) matrix the forward multiplies the final
         hidden state by (through :func:`lm_head_logits`), fetched whole when
-        this rank does not hold it so."""
+        this rank does not hold it so. An int8 head is expanded to the
+        compute dtype, an int8 tied embedding to float32, as the reference
+        expands them."""
         fetcher = self.model.fetcher
         if self.cfg.tie_embeddings:
-            embed = (self.model.embed_tokens if fetcher is None
-                     else fetcher.leaf("model.embed_tokens"))
-            return embed.T
-        return self.lm_head if fetcher is None else fetcher.leaf("lm_head")
+            return weight_of(self.model.embed_tokens, "model.embed_tokens", fetcher,
+                             torch.float32).T
+        return weight_of(self.lm_head, "lm_head", fetcher, resolve_dtype(self.cfg.dtype))
 
 
 def lm_head_logits(x: torch.Tensor, head: torch.Tensor) -> torch.Tensor:

@@ -10,6 +10,11 @@ between the packages by name without a transpose. The base kernel is frozen;
 trains (``load_model(..., trainable_lora=True)`` sets their
 ``requires_grad``).
 
+The base kernel may be quantized: a ``models.quantization.QuantizedWeight``
+(int8 ``q`` and float32 ``scale``) in place of the ``kernel`` parameter,
+expanded at use by the frozen product ``int8_matmul``, as the reference's
+``maybe_dequantize`` at the consumer.
+
 Dropout is applied to the adapter input only in training, and only when
 the caller passes ``dropout_hashes``: the row and column hashes of one
 32-bit key (:func:`dropout_hashes`), on the input's device. The keep mask
@@ -27,6 +32,9 @@ from typing import Dict, Mapping, Optional, Tuple
 import torch
 from torch import nn
 
+from dlti_tpu_torch.models.quantization import (
+    QuantizedWeight, dequantize, int8_matmul, quant_bases,
+)
 from dlti_tpu_torch.utils.hashing import mix32
 
 LORA_LEAVES = ("lora_a", "lora_b")
@@ -63,7 +71,10 @@ class LoRADense(nn.Module):
                 dropout_hashes: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
                 ) -> torch.Tensor:
         dt = self.dtype
-        y = x.to(dt) @ self.kernel.to(dt)
+        if isinstance(self.kernel, QuantizedWeight):
+            y = int8_matmul(x.to(dt), self.kernel.q, self.kernel.scale)
+        else:
+            y = x.to(dt) @ self.kernel.to(dt)
         if self.bias is not None:
             y = y + self.bias.to(dt)
         if self.lora_r > 0:
@@ -147,12 +158,21 @@ def merge_lora_params(params: Mapping[str, torch.Tensor],
     """Fold each LoRA pair into its base kernel, W' = W + scaling * A @ B in
     float32 and cast back to W's dtype, on W's device (A @ B is formed
     where the factors are); the returned dict has no ``lora_a``/``lora_b``
-    leaves."""
+    leaves. A quantized weight (``{name}.q``, ``{name}.scale``) is expanded
+    to bf16 first, merged or not, as the reference's merge does: the export
+    is a compute-dtype tree."""
+    bases = quant_bases(params)
     out = {}
     for name, t in params.items():
         if is_lora_name(name):
             continue
         prefix, leaf = name.rsplit(".", 1) if "." in name else ("", name)
+        if prefix in bases:
+            if leaf == "scale":
+                continue
+            t = dequantize(t, params[f"{prefix}.scale"], torch.bfloat16)
+            name = prefix
+            prefix, leaf = name.rsplit(".", 1) if "." in name else ("", name)
         a = params.get(f"{prefix}.lora_a")
         b = params.get(f"{prefix}.lora_b")
         if leaf == "kernel" and a is not None and b is not None:

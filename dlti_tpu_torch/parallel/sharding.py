@@ -329,19 +329,37 @@ class ParamFetcher:
         return torch.func.functional_call(layer, self.block(i), args)
 
 
-def owned_grad(g: torch.Tensor, name: str, layout: Layout) -> torch.Tensor:
+def owned_grad(g: torch.Tensor, name: str, layout: Layout,
+               summed: bool = False) -> torch.Tensor:
     """A trainable leaf's summed local gradient (whole, or the ZeRO-3 shard
     autograd reduce-scattered already) as the global gradient this rank
     owns: the shard along ``opt_dim`` (reduce-scattered under ZeRO-2/3,
     sliced from the all-reduced whole under ZeRO-1) or the whole
-    (all-reduced)."""
+    (all-reduced). ``summed``: ``g`` is the global sum already
+    (:func:`reduce_in_dtype` per microbatch), so this rank takes its part."""
     pl, mesh = layout.leaves[name], layout.mesh
     if pl.param_dim is not None:
         return g
+    if summed:
+        return shard_of(g, pl.opt_dim, mesh)
     if pl.opt_dim is not None and mesh.zero_stage in (ZeROStage.ZERO2, ZeROStage.ZERO3):
         return reduce_scatter_dim(g, pl.opt_dim, mesh)
     all_reduce_(g, mesh)
     return shard_of(g, pl.opt_dim, mesh)
+
+
+def reduce_in_dtype(g: torch.Tensor, name: str, layout: Layout,
+                    dtype: torch.dtype) -> torch.Tensor:
+    """One microbatch's gradient of a trainable leaf (float32 holding the
+    values of a ``dtype`` gradient, this rank's rows) summed over the ranks
+    and rounded to ``dtype``, as the reference's sharded step sums the
+    compute-dtype partial products of a data-parallel dot: in float16 a sum
+    past 65504 is inf on every rank, as on one device, and the loss scaler
+    takes the single device's decision. A ZeRO-3 leaf's gradient arrives
+    reduce-scattered already (``GatherAtUse``) and is only rounded."""
+    if layout.leaves[name].param_dim is None:
+        g = all_reduce_(g, layout.mesh)
+    return g.to(dtype).float()
 
 
 def sharded_sq_norm(grads: Mapping[str, torch.Tensor], layout: Layout) -> torch.Tensor:

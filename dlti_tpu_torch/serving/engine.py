@@ -38,14 +38,19 @@
   at its next token), the ``finished`` deque the server drains,
   ``abort_all`` after a faulted step, and the request-latency histograms
   (``telemetry.lifecycle``).
+* **int8 weights** (``EngineConfig.quantization="int8"``): the embedding,
+  the head and the projection kernels are quantized leaf by leaf as they
+  reach the device (``models.quantization``: int8 with per-channel float32
+  scales), and each is expanded to the compute dtype at its use, one layer
+  at a time; in the decode graph each layer's expanded weights are freed
+  after its use.
 * **KV pool dtypes**: ``cache_dtype`` ``"bfloat16"``, ``"float16"``,
   ``"float32"`` or ``"int8"`` (per-row scales; decode through the paged
   kernel's int8 mode), whatever the model's dtype: the decode kernel takes
   a float32, bfloat16 or float16 query on any of them.
 
 Not ported yet (ROADMAP.md): speculative decode, prefix caching and tiers,
-chunked and ragged prefill, the multi-LoRA pool, int8 weights, tensor
-parallelism, the memory ledger, tracer spans and critical-path attribution.
+chunked and ragged prefill, the multi-LoRA pool, tensor parallelism, the memory ledger, tracer spans and critical-path attribution.
 """
 
 from __future__ import annotations
@@ -62,6 +67,7 @@ import torch
 
 from dlti_tpu_torch.config import LoRAConfig, ModelConfig
 from dlti_tpu_torch.models.interop import load_model
+from dlti_tpu_torch.models.quantization import quantize_params_int8
 from dlti_tpu_torch.ops.kv_cache import init_paged_cache
 from dlti_tpu_torch.ops.launches import GraphLaunches
 from dlti_tpu_torch.serving.block_manager import BlockManager
@@ -96,6 +102,9 @@ class EngineConfig:
     # Raise NumericFault before appending any token of a round whose
     # logprobs are not finite (NaN/inf logits).
     guard_nonfinite: bool = True
+    # Weight-only quantization: "int8" stores the matmul weights as int8 +
+    # per-channel scales, expanded at use; "none" keeps param_dtype.
+    quantization: str = "none"
 
     def buckets(self) -> List[int]:
         if self.prefill_buckets:
@@ -197,11 +206,19 @@ class EngineExecutor:
 
     def __init__(self, model_cfg: ModelConfig, params, engine_cfg: EngineConfig,
                  lora_cfg: Optional[LoRAConfig] = None, device=None, *,
-                 cuda_graphs: bool = True):
+                 cuda_graphs: bool = True, donate_params: bool = False):
         self.device = dev = resolve_device(device)
         self.cfg = ec = engine_cfg
         self.model_cfg = model_cfg
+        if ec.quantization not in ("none", "int8"):
+            raise ValueError(f"unknown quantization {ec.quantization!r}")
+        if ec.quantization == "int8":
+            # Leaf by leaf onto the device; with donate_params each source
+            # leaf is let go (popped from the caller's dict) as it is done.
+            params = quantize_params_int8(params if donate_params else dict(params),
+                                          device=dev, donate=True)
         self.model = load_model(model_cfg, params, dev, lora_cfg)
+        del params
         cache_dtype = ("int8" if ec.cache_dtype == "int8"
                        else resolve_dtype(ec.cache_dtype))
         self.cache = init_paged_cache(
@@ -321,11 +338,15 @@ class InferenceEngine:
     def __init__(self, model_cfg: ModelConfig, params,
                  engine_cfg: EngineConfig = EngineConfig(),
                  lora_cfg: Optional[LoRAConfig] = None, device=None,
-                 executor: Optional[EngineExecutor] = None):
+                 executor: Optional[EngineExecutor] = None,
+                 donate_params: bool = False):
         """``executor``: a prebuilt :class:`EngineExecutor` for this model
         and ``engine_cfg`` (how a caller runs the card eagerly:
         ``EngineExecutor(..., cuda_graphs=False)``); built here by default,
-        and then ``params`` is loaded into it."""
+        and then ``params`` is loaded into it. ``donate_params``: under
+        ``quantization="int8"`` each leaf of ``params`` (a dict) is popped
+        as it is quantized, so its source is freed unless the caller holds
+        it elsewhere."""
         if engine_cfg.steps_per_sync < 1:
             raise ValueError(f"steps_per_sync must be >= 1, got "
                              f"{engine_cfg.steps_per_sync}")
@@ -342,7 +363,7 @@ class InferenceEngine:
         self.model_cfg = model_cfg
         if executor is None:
             executor = EngineExecutor(model_cfg, params, engine_cfg, lora_cfg,
-                                      device)
+                                      device, donate_params=donate_params)
         elif executor.cfg != engine_cfg or executor.model_cfg != model_cfg:
             raise ValueError("the executor was built for another configuration")
         self.executor = executor

@@ -36,7 +36,11 @@ mean; each gradient is all-reduced or reduce-scattered to the part this
 rank owns (``parallel.sharding.owned_grad``; ZeRO-3's sharded leaves
 reduce-scatter in the backward); the norm is the whole gradient's, equal on
 every rank, so the bf16 guard and the fp16 scaler take the same decision
-everywhere. The collectives run synchronously on the current stream, inside
+everywhere. In fp16 each microbatch's gradients are summed over the ranks
+and rounded to float16 (``parallel.sharding.reduce_in_dtype``), where the
+reference's sharded step sums its float16 partial products: a sum past
+float16's range overflows on every rank as on one device, so the scaler
+skips the steps a single device skips. The collectives run synchronously on the current stream, inside
 the CUDA graph on the card.
 """
 
@@ -51,9 +55,11 @@ from torch.utils.checkpoint import checkpoint
 
 from dlti_tpu_torch.models.llama import lm_head_logits
 from dlti_tpu_torch.ops.launches import GraphLaunches
-from dlti_tpu_torch.parallel.sharding import all_reduce_, owned_grad, sharded_sq_norm
+from dlti_tpu_torch.parallel.sharding import (
+    all_reduce_, owned_grad, reduce_in_dtype, sharded_sq_norm,
+)
 from dlti_tpu_torch.training.state import TrainState
-from dlti_tpu_torch.utils.device import upload
+from dlti_tpu_torch.utils.device import resolve_dtype, upload
 from dlti_tpu_torch.utils.hashing import MASK32, fold_seed, mix32
 
 # The per-step metrics, in the column order of StepWindow.run's output.
@@ -213,19 +219,26 @@ def make_device_step(model, *, accum_steps: int = 1, loss_chunk: int = 0,
         loss_sum = torch.zeros((), dtype=torch.float32, device=dev)
         n_tok = torch.zeros((), dtype=torch.float32, device=dev)
         scaler = state.scaler
+        # fp16 across ranks: each microbatch's gradients are summed over the
+        # ranks in float16 (reduce_in_dtype), where the reference reduces
+        # them, so an overflow of the whole batch's sum is seen everywhere.
+        half_sums = dp and scaler is not None
+        compute = resolve_dtype(state.model.cfg.dtype)
         for a in range(accum_steps):
             micro = {k: v[a] for k, v in batch.items()}
             seed = None if step_seed is None else mix32(step_seed ^ mix32(a + 0x3C6EF372))
             ls, nt = _loss(state.model, micro, seed, loss_chunk, layout.mesh.rank)
             objective = ls if scaler is None else ls * scaler["scale"]
-            for acc, g in zip(grads, torch.autograd.grad(objective, leaves)):
-                acc += g.float()
+            for n, acc, g in zip(names, grads, torch.autograd.grad(objective, leaves)):
+                g = g.float()
+                acc += reduce_in_dtype(g, n, layout, compute) if half_sums else g
             loss_sum += ls.detach()
             n_tok += nt
         if dp:  # the global sums, then each gradient's part this rank owns
             totals = all_reduce_(torch.stack([loss_sum, n_tok]), layout.mesh)
             loss_sum, n_tok = totals[0], totals[1]
-            grads = [owned_grad(g, n, layout) for n, g in zip(names, grads)]
+            grads = [owned_grad(g, n, layout, summed=half_sums)
+                     for n, g in zip(names, grads)]
         # Token-mean loss over the whole step (HF Trainer's semantics under
         # grad accumulation); the gradients also lose the fp16 loss scale.
         n_tok = torch.clamp(n_tok, min=1.0)

@@ -66,16 +66,33 @@ commit. A resume scans on rank 0 and every rank restores the chosen step,
 taking its shard. A stop (SIGTERM) is agreed by every rank at the window
 boundary.
 
+``cfg.train.quantize_frozen_base="int8"`` (LoRA only) keeps the frozen
+base as int8 weights with per-channel scales (``models.quantization``):
+each leaf is quantized as it is placed and its bf16 source let go, the
+model expands a layer's weights at their use, and checkpoints hold the
+``{q, scale}`` leaves under the JAX store's names.
+
+Host batches come from a prefetch thread (``data.prefetch.HostPrefetcher``,
+``cfg.data.prefetch_depth`` deep; 0 reads them on the training thread);
+their copies into the step's inputs stay on the training thread. Rank 0
+writes the per-step JSONL stream (``cfg.train.step_log_path``,
+``telemetry.steplog``): a window's steps are booked at its one
+synchronisation, from its metric rows. At the end rank 0 appends the
+run's row of the reference's metrics CSV (``cfg.train.metrics_csv``,
+``utils.metrics``); the row is also ``TrainRecord.metrics``, which
+``cli.train`` prints as the reference's summary.
+
 Runs on ``cuda`` unless given ``device="cpu"``; without a card and without a
 device it raises. Not ported (each raises or is absent, see ROADMAP.md):
-TP/SP/PP/EP and a mixed data x fsdp mesh, the int8 frozen base, the step log
-and other telemetry, the metrics CSV, the sentinel's rollback and data
-quarantine, chaos and elastic training.
+TP/SP/PP/EP and a mixed data x fsdp mesh, the reference's other telemetry
+(tracer, goodput and memory ledgers, watchdog), the sentinel's rollback and
+data quarantine, chaos and elastic training.
 """
 
 from __future__ import annotations
 
 import logging
+import math
 import signal
 import threading
 import time
@@ -88,7 +105,10 @@ import torch.distributed as dist
 
 from dlti_tpu_torch.checkpoint import store
 from dlti_tpu_torch.config import Config, ZeROStage
+from dlti_tpu_torch.data.pipeline import HostShardedSchedule
+from dlti_tpu_torch.data.prefetch import HostPrefetcher
 from dlti_tpu_torch.models.interop import init_params, load_model
+from dlti_tpu_torch.models.quantization import quantize_params_int8
 from dlti_tpu_torch.parallel.mesh import build_mesh
 from dlti_tpu_torch.parallel.sharding import all_reduce_, shard_model
 from dlti_tpu_torch.training.optimizer import build_optimizer
@@ -98,8 +118,13 @@ from dlti_tpu_torch.training.state import (
 from dlti_tpu_torch.training.step import (
     METRICS, StepWindow, batch_signature, make_eval_step,
 )
+from dlti_tpu_torch.telemetry.steplog import StepLogWriter, schedule_lr
 from dlti_tpu_torch.utils.device import resolve_device, to_host, upload
-from dlti_tpu_torch.utils.metrics import H100_BF16_PEAK_FLOPS, compute_mfu
+from dlti_tpu_torch.utils.experiment import experiment_name_from_config
+from dlti_tpu_torch.utils.metrics import (
+    H100_BF16_PEAK_FLOPS, MetricsRecord, compute_mfu, device_peak_memory,
+    save_training_metrics,
+)
 
 logger = logging.getLogger("dlti_tpu_torch.train")
 
@@ -146,6 +171,8 @@ class TrainRecord:
     eval_losses: List[float] = field(default_factory=list)
     strategy: str = "baseline"   # baseline | zero1 | zero2 | zero3
     world: int = 1               # data-parallel ranks
+    # The run's row of the reference's metrics CSV (rank 0; None elsewhere).
+    metrics: Optional[MetricsRecord] = None
 
     @property
     def steps(self) -> int:
@@ -165,12 +192,16 @@ class Trainer:
     def __init__(self, cfg: Config, params: Optional[Mapping[str, torch.Tensor]] = None,
                  device=None, *, cuda_graphs: bool = True):
         t = cfg.train
-        unported = [name for name, on in (
-            ("train.quantize_frozen_base", t.quantize_frozen_base),
-            ("mixture-of-experts models", cfg.model.num_experts > 0)) if on]
-        if unported:
-            raise NotImplementedError(f"not ported yet (see ROADMAP.md): "
-                                      f"{', '.join(unported)}")
+        if cfg.model.num_experts > 0:
+            raise NotImplementedError("not ported yet (see ROADMAP.md): "
+                                      "mixture-of-experts models")
+        if t.quantize_frozen_base:
+            if t.quantize_frozen_base != "int8":
+                raise ValueError(f"unknown quantize_frozen_base="
+                                 f"{t.quantize_frozen_base!r} (only 'int8')")
+            if not cfg.lora.enabled:
+                raise ValueError("quantize_frozen_base requires LoRA: it compresses "
+                                 "the frozen base params, and a full fine-tune has none")
         if cfg.checkpoint.save_strategy not in ("steps", "epoch", "no"):
             raise ValueError(f"unknown save_strategy {cfg.checkpoint.save_strategy!r}")
         self.cfg = cfg
@@ -208,6 +239,11 @@ class Trainer:
         if params is None:
             params = init_params(cfg.model, seed=cfg.train.seed, device=self.device,
                                  lora=lora)
+        if cfg.train.quantize_frozen_base:
+            # Leaf by leaf on the device; each bf16 source of a tree made
+            # here is let go as its int8 pair is made.
+            params = quantize_params_int8(params if self.params is None else dict(params),
+                                          device=self.device, donate=True)
         model = load_model(cfg.model, params, self.device, lora=lora,
                            trainable_lora=True)
         del params
@@ -259,6 +295,7 @@ class Trainer:
         leaves = state.layout.leaves.values()  # whole leaves, whatever this rank holds
         total = sum(int(np.prod(pl.shape)) for pl in leaves)
         trainable = sum(int(np.prod(pl.shape)) for pl in leaves if pl.trainable)
+        self._trainable = trainable
         self._info("trainable params: %s / %s (%.4f%%) | %s over %d rank(s)",
                    f"{trainable:,}", f"{total:,}", 100 * trainable / total,
                    self.strategy, self.mesh.world)
@@ -269,6 +306,17 @@ class Trainer:
                              trainable_params=trainable, total_params=total,
                              strategy=self.strategy, world=self.mesh.world)
         on_cuda = self.device.type == "cuda"
+        t_start = time.perf_counter()
+        steplog = None
+        if cfg.train.step_log_path and self.mesh.is_writer:
+            steplog = StepLogWriter(cfg.train.step_log_path, run_meta={
+                "experiment": experiment_name_from_config(cfg),
+                "num_gpus": cfg.parallel.num_devices,
+                "zero_stage": int(cfg.parallel.zero_stage),
+                "strategy": self.strategy})
+        prefetcher: Optional[HostPrefetcher] = None
+        # Wall clock of the current window's phases, for the step log.
+        waits = {"data": 0.0, "ckpt": 0.0}
         if on_cuda:
             torch.cuda.reset_peak_memory_stats(self.device)
         saving = ck.save_strategy != "no"
@@ -319,8 +367,11 @@ class Trainer:
                 nonlocal cursor, samples_seen, first_window
                 before, k = state.step, len(batches)
                 t0 = time.perf_counter()
-                rows = to_host(window.run(state, batches, before + 1))[0]
-                dt = time.perf_counter() - t0
+                out = window.run(state, batches, before + 1)
+                t_sync = time.perf_counter()
+                rows = to_host(out)[0]
+                t1 = time.perf_counter()
+                dt, sync_s = t1 - t0, t1 - t_sync
                 record.windows += 1
                 first_window = first_window or k
                 for i, row in enumerate(rows.tolist()):
@@ -337,17 +388,44 @@ class Trainer:
                     if step % cfg.train.logging_steps == 0:
                         self._info("step %d | loss %.4f | grad_norm %.3f | %.3f s",
                                    step, m["loss"], m["grad_norm"], dt / k)
+                    if steplog is not None:
+                        self._log_step(steplog, step, m, tokens_per_step, dt / k,
+                                       sync_s / k, waits, k)
+                waits["data"] = waits["ckpt"] = 0.0
                 every = cfg.train.eval_steps
                 if eval_fn is not None and state.step // every > before // every:
                     self._run_eval(eval_fn, state, eval_dataset, record)
+                t_save = time.perf_counter()
                 self._maybe_save(state, record, epoch_end=False, sidecar=sidecar,
                                  crossed_from=before)
+                waits["ckpt"] += time.perf_counter() - t_save  # booked to the next window
                 self._agree_on_stop()
+
+            def epoch_batches(epoch: int, skip: int):
+                """The epoch's host batches, from the prefetch thread when
+                ``prefetch_depth`` > 0 and the dataset is one of the
+                package's (whose ``epoch`` has no side effects: another
+                object's may depend on being read lazily, as in the
+                reference); the time spent waiting for each is booked to
+                the window it joins."""
+                nonlocal prefetcher
+                source = dataset.epoch(epoch, skip_steps=skip)
+                if cfg.data.prefetch_depth > 0 and isinstance(dataset, HostShardedSchedule):
+                    source = prefetcher = HostPrefetcher(source,
+                                                         depth=cfg.data.prefetch_depth)
+                it = iter(source)
+                while True:
+                    t = time.perf_counter()
+                    host_batch = next(it, None)
+                    waits["data"] += time.perf_counter() - t
+                    if host_batch is None:
+                        return
+                    yield host_batch
 
             for epoch in range(start_epoch, cfg.train.num_epochs):
                 skip = skip_steps if epoch == start_epoch else 0
                 pending: list = []
-                for host_batch in dataset.epoch(epoch, skip_steps=skip):
+                for host_batch in epoch_batches(epoch, skip):
                     # A pending window is shorter than the steps left, so
                     # this never skips a queued step.
                     if cfg.train.max_steps and state.step >= cfg.train.max_steps:
@@ -370,6 +448,9 @@ class Trainer:
                     pending = []
                     if self._stop_requested:
                         break
+                if prefetcher is not None:
+                    prefetcher.close()
+                    prefetcher = None
                 if pending and not self._stop_requested:
                     run_window(pending)  # the epoch's tail, shorter than a window
                 self._maybe_save(state, record, epoch_end=True, sidecar=sidecar)
@@ -384,6 +465,8 @@ class Trainer:
                     self._save(state, record, sidecar(), async_save=False)
                     self._info("preemption checkpoint written at step %d", state.step)
         finally:
+            if prefetcher is not None:
+                prefetcher.close()
             record.captures = window.captures
             window.release()
             if sigterm_installed:
@@ -409,7 +492,68 @@ class Trainer:
                 H100_BF16_PEAK_FLOPS, trainable_params=trainable)
         if on_cuda:
             record.peak_memory_gb = torch.cuda.max_memory_allocated(self.device) / 1e9
+        if self.mesh.is_writer:
+            record.metrics = self._final_metrics(record, time.perf_counter() - t_start,
+                                                 samples_seen)
+            if steplog is not None:
+                steplog.log_final(record.metrics)
+                steplog.close()
+            if cfg.train.metrics_csv:
+                save_training_metrics(record.metrics, csv_path=cfg.train.metrics_csv)
         return state, record
+
+    def _log_step(self, steplog: StepLogWriter, step: int, m: dict, tokens: int,
+                  step_s: float, sync_s: float, waits: dict, k: int) -> None:
+        """One step's record of the step log (``tokens`` a step over all
+        ranks); the window's wall clock phases are split evenly over its
+        ``k`` steps."""
+        cfg, dev = self.cfg, self.device
+        tok_s_chip = tokens / step_s / self.mesh.world if step_s > 0 else 0.0
+        peak_gb, peak_src = device_peak_memory(dev)
+        mfu = (compute_mfu(tok_s_chip, cfg.model.num_params(), H100_BF16_PEAK_FLOPS,
+                           trainable_params=self._trainable) if dev.type == "cuda"
+               else float("nan"))
+        in_use = headroom = 0
+        if dev.type == "cuda":
+            in_use = torch.cuda.memory_allocated(dev)
+            headroom = (torch.cuda.get_device_properties(dev).total_memory
+                        - torch.cuda.memory_reserved(dev))
+        finite = math.isfinite(m["loss"]) and math.isfinite(m["grad_norm"])
+        steplog.log_step(
+            step, loss=m["loss"], grad_norm=m["grad_norm"],
+            lr=schedule_lr(cfg.optimizer, step),
+            tokens_per_second_per_chip=round(tok_s_chip, 2),
+            mfu_percent=round(mfu, 4), peak_memory_gb=round(peak_gb, 4),
+            peak_memory_source=peak_src, step_time_s=round(step_s, 6),
+            anomaly="" if finite else "nonfinite",
+            skipped_update=int(m["skipped_update"]), rollbacks_total=0,
+            data_wait_s=round(waits["data"] / k, 6), sync_s=round(sync_s, 6),
+            ckpt_s=round(waits["ckpt"] / k, 6), rollback_s=0.0,
+            hbm_bytes_in_use=int(in_use), hbm_headroom_bytes=int(headroom))
+
+    def _final_metrics(self, record: TrainRecord, wall: float,
+                       samples_seen: int) -> MetricsRecord:
+        """The run's row of the reference's metrics CSV. Throughput is the
+        record's (the steps after the warm-up, a card's share);
+        ``training_time_hours`` and ``samples_per_second`` are over the whole
+        ``train`` call, as the reference's. MFU is nan off the card."""
+        cfg = self.cfg
+        tok_s_chip = record.tokens_per_second / self.mesh.world
+        peak_gb, peak_src = device_peak_memory(self.device)
+        return MetricsRecord(
+            experiment=experiment_name_from_config(cfg),
+            num_gpus=cfg.parallel.num_devices,
+            zero_stage=int(cfg.parallel.zero_stage),
+            strategy=self.strategy,
+            training_time_hours=wall / 3600.0,
+            samples_per_second=samples_seen / wall if wall > 0 else 0.0,
+            peak_memory_gb=peak_gb,
+            final_loss=record.final_loss,
+            tokens_per_second_per_chip=tok_s_chip,
+            mfu_percent=(record.mfu_percent / self.mesh.world
+                         if record.mfu_percent is not None else float("nan")),
+            peak_memory_source=peak_src,
+            eval_loss=record.eval_losses[-1] if record.eval_losses else float("nan"))
 
     def _run_eval(self, eval_fn, state: TrainState, eval_dataset,
                   record: TrainRecord) -> None:

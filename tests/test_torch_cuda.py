@@ -7,7 +7,11 @@ a bit-equal resume, the one wait on the card a save adds to its step); then
 the train step's host path (the step as a CUDA graph, bit-equal to the
 eager step with dropout on, no host sync in a window's replays, K1-K3
 counted per replay); then the fp16 path (K1-K4 in float16, the |ds| >
-65504 case, the graphed fp16 step with the loss scaler across an overflow).
+65504 case, the graphed fp16 step with the loss scaler across an overflow);
+then the int8 frozen base and int8 serving weights (the dequantization on
+the card, the graphed int8 step equal to the eager one and under ZeRO-3
+and offload, its peak, each block's expanded weights freed inside the
+train and decode graphs, a decode window that never syncs the host).
 
 Marked ``cuda``: each test skips where ``torch.cuda.is_available()`` is
 false, as on a CPU-only host. On a machine with the card and without JAX,
@@ -1319,3 +1323,224 @@ def test_zero_fp16_graphed_steps_across_an_overflow_equal_the_plain_step(
     assert all(torch.equal(a, b) for a, b in zip(pp + mp, pz + mz))
     assert all(torch.equal(sp[k], sz[k]) for k in sp)
     assert [r[-1] for r in np.concatenate(zero)] == [0.0, 0.0, 1.0, 0.0]  # overflow
+
+
+# ----------------------------------------------------------------------
+# The int8 frozen base and int8 serving weights
+# ----------------------------------------------------------------------
+
+def test_dequantize_on_the_card_is_bit_equal_to_the_two_step_form(gen):
+    """``models.quantization.dequantize`` (one ``torch.mul`` into a bf16 or
+    float16 output) rounds the float32 product once, as
+    ``(q.float() * scale).to(dtype)`` does, on the card too."""
+    from dlti_tpu_torch.models.quantization import dequantize, quantize_int8
+
+    w = torch.randn(4096, 1024, generator=gen, device="cuda") * 0.03
+    q, scale = quantize_int8(w)
+    for dtype in (torch.bfloat16, torch.float16, torch.float32):
+        got = dequantize(q, scale, dtype)
+        want = (q.float() * scale).to(dtype)
+        assert got.dtype == dtype and torch.equal(got.view(torch.uint8), want.view(torch.uint8))
+
+
+def _int8_train_state(layers=8, quantized=True, parallel=None):
+    """llama_300m (head_dim 64) cut to ``layers``, LoRA r=16 (dropout 0.05),
+    remat off, with the base int8 (``quantized``) or bf16; under
+    ``parallel`` placed by its strategy (a process group must exist)."""
+    import dataclasses
+
+    from dlti_tpu_torch.config import MODEL_PRESETS, LoRAConfig, OptimizerConfig
+    from dlti_tpu_torch.models import init_params, load_model
+    from dlti_tpu_torch.models.quantization import quantize_params_int8
+    from dlti_tpu_torch.training import build_optimizer, create_train_state
+
+    cfg = dataclasses.replace(MODEL_PRESETS["llama_300m"], num_layers=layers, remat=False)
+    lora = LoRAConfig(r=16, alpha=32)
+    params = init_params(cfg, seed=0, device="cuda", lora=lora)
+    if quantized:
+        params = quantize_params_int8(params, donate=True)
+    model = load_model(cfg, params, "cuda", lora=lora, trainable_lora=True)
+    del params
+    layout = None
+    if parallel is not None:
+        from dlti_tpu_torch.parallel.mesh import build_mesh
+        from dlti_tpu_torch.parallel.sharding import shard_model
+
+        mesh = build_mesh(parallel, torch.device("cuda", torch.cuda.current_device()))
+        layout = shard_model(model, mesh, True)
+    return create_train_state(model, build_optimizer(OptimizerConfig(warmup_steps=1)),
+                              layout=layout)
+
+
+def _int8_run(state, graphs, batches):
+    from dlti_tpu_torch.training import StepWindow
+
+    window = StepWindow(state.model, accum_steps=2, seed=43, capacity=4, cuda_graphs=graphs)
+    return _run_windows(state, window, batches)
+
+
+def _frozen_bytes(model, dtype_bytes=None):
+    """The bytes of the quantized kernels (``dtype_bytes`` per element when
+    given: their expanded size) of the first block, and of the head."""
+    from dlti_tpu_torch.models.quantization import QuantizedWeight
+
+    block = sum(m.kernel.q.numel() for m in model.model.layers[0].modules()
+                if isinstance(getattr(m, "kernel", None), QuantizedWeight))
+    return block * dtype_bytes, model.lm_head.q.numel() * dtype_bytes
+
+
+def test_graphed_int8_base_steps_equal_eager(gen):
+    """Four steps (two windows of 2, dropout on, no remat) of an int8 base
+    through the captured step and eagerly on the card: bit-equal metrics,
+    LoRA factors and moments, and the int8 leaves untouched."""
+    batches = _host_batches(4, seed=11)
+    runs = []
+    for graphs in (False, True):
+        state = _int8_train_state(layers=2)
+        before = {n: p.clone() for n, p in state.model.named_parameters()
+                  if p.dtype == torch.int8}
+        runs.append(_int8_run(state, graphs, batches))
+        assert before and all(torch.equal(p, before[n]) for n, p
+                              in state.model.named_parameters() if n in before)
+        del state
+    (eager, pe, me), (graphed, pg, mg) = runs
+    for a, b in zip(eager, graphed):
+        assert (a == b).all(), (a, b)
+    assert all(torch.equal(a, b) for a, b in zip(pe + me, pg + mg))
+
+
+def _step_memory(quantized, layers=8):
+    """(bytes the state adds to the card, peak bytes above it during the
+    graph's capture and two replays, and for an int8 base the expanded
+    bytes of a block's kernels and of the head) of the no-remat step; the
+    state is gone on return."""
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    state = _int8_train_state(layers=layers, quantized=quantized)
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    _int8_run(state, True, _host_batches(4, seed=12))
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    frozen = _frozen_bytes(state.model, 2) if quantized else None
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return resident - before, peak - resident, frozen
+
+
+def test_int8_step_peaks_below_the_bf16_step_and_frees_each_layers_weights(gen):
+    """The same no-remat step on an 8-block model, graphed: the int8 base's
+    peak is below the bf16 base's, and above its smaller resident state the
+    int8 step holds at most two blocks' expanded kernels and the expanded
+    head more than the bf16 step does: each block's weights are expanded at
+    use and freed within the graph's pool, never all blocks at once (which
+    would be 8 blocks' worth)."""
+    res_bf16, transient_bf16, _ = _step_memory(False)
+    res_int8, transient_int8, (block, head) = _step_memory(True)
+    assert res_int8 + transient_int8 < res_bf16 + transient_bf16
+    assert res_bf16 - res_int8 > 4 * block  # 8 blocks at one byte an element less
+    assert transient_int8 - transient_bf16 < 2 * block + head, (
+        transient_int8 - transient_bf16, block, head)
+
+
+def _int8_engine(quantization="int8", k=8, graphs=True):
+    """llama_300m cut to 8 blocks (head_dim 64), bf16, int8 weights (or
+    not), a bf16 pool; ``graphs=False`` runs the decode iteration eagerly."""
+    import dataclasses
+
+    from dlti_tpu_torch.config import MODEL_PRESETS
+    from dlti_tpu_torch.models import init_params
+    from dlti_tpu_torch.serving import EngineConfig, InferenceEngine
+    from dlti_tpu_torch.serving.engine import EngineExecutor
+
+    cfg = dataclasses.replace(MODEL_PRESETS["llama_300m"], num_layers=8)
+    params = init_params(cfg, seed=0, device="cuda")
+    ec = EngineConfig(max_seqs=4, block_size=16, num_blocks=64, max_model_len=128,
+                      cache_dtype="bfloat16", eos_token_id=-1, steps_per_sync=k,
+                      quantization=quantization)
+    ex = EngineExecutor(cfg, params, ec, device="cuda", cuda_graphs=graphs,
+                        donate_params=True)
+    return InferenceEngine(cfg, None, ec, device="cuda", executor=ex)
+
+
+def test_int8_decode_graph_frees_each_layers_weights(gen):
+    """The decode iteration's capture (and its eager warm-up) with int8
+    weights holds at most two blocks' expanded kernels and the expanded head
+    above what the bf16-weight capture holds, and its weights rest at about
+    half the bf16 bytes."""
+    import gc
+
+    out = {}
+    for quantization in ("none", "int8"):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        engine = _int8_engine(quantization)
+        torch.cuda.synchronize()
+        resident = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        engine.warmup_decode_ladder()
+        torch.cuda.synchronize()
+        out[quantization] = (resident - before, torch.cuda.max_memory_allocated() - resident)
+        if quantization == "int8":
+            block, head = _frozen_bytes(engine.executor.model, 2)
+        del engine
+    assert out["none"][0] - out["int8"][0] > 4 * block
+    assert out["int8"][1] - out["none"][1] < 2 * block + head, (out["int8"][1],
+                                                                out["none"][1])
+
+
+def test_int8_weight_engine_decode_window_never_syncs_the_host(gen):
+    """``set_sync_debug_mode("error")`` around a graphed 8-step window's
+    dispatch on int8 weights; the window's tokens then equal the eager
+    iteration's."""
+    engine = _int8_engine()
+    engine.warmup_decode_ladder()
+    reqs = _mixed_requests(engine)
+    engine.step()  # admission and prefill
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        pending = engine._decode_dispatch()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert pending[1] == 8
+    engine._decode_complete(pending)
+    while engine.has_work:
+        engine.step()
+    graphed = [r.output_token_ids for r in reqs]
+    eager = _int8_engine(graphs=False)
+    reqs = _mixed_requests(eager)
+    while eager.has_work:
+        eager.step()
+    assert [r.output_token_ids for r in reqs] == graphed
+    assert [len(t) for t in graphed] == [21, 17, 30]
+
+
+@pytest.mark.parametrize("stage,offload", [(3, False), (3, True)])
+def test_int8_base_under_zero3_and_offload_equals_the_plain_int8_step(gen, nccl_group,
+                                                                      stage, offload):
+    """ZeRO-3 (and its host offload) on an int8 base in the group of one:
+    ``q`` and ``scale`` are placed like the kernels (pinned host tensors
+    under offload), fetched into the captured step, and four steps equal
+    the plain graphed int8 step bit for bit."""
+    from dlti_tpu_torch.config import ParallelConfig, ZeROStage
+
+    batches = _host_batches(4, seed=13)
+    plain = _int8_run(_int8_train_state(layers=2), True, batches)
+    state = _int8_train_state(layers=2, parallel=ParallelConfig(
+        zero_stage=ZeROStage(stage), offload_optimizer=offload, offload_params=offload))
+    q = [p for n, p in state.model.named_parameters() if p.dtype == torch.int8]
+    assert q and all((p.device.type == "cpu" and p.is_pinned()) == offload for p in q)
+    zero = _int8_run(state, True, batches)
+    for a, b in zip(plain[0], zero[0]):
+        assert (a == b).all(), (a, b)
+    assert all(torch.equal(a, b.to(a.device)) for a, b in zip(plain[1] + plain[2],
+                                                              zero[1] + zero[2]))

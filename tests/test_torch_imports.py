@@ -250,3 +250,80 @@ def test_resolve_device_gives_cuda_its_index(monkeypatch):
     assert resolve_device(torch.device("cuda")) == torch.device("cuda", 3)
     assert resolve_device(None) == torch.device("cuda", 3)
     assert resolve_device("cuda:1") == torch.device("cuda", 1)
+
+
+_QUICKSTART_CHILD = textwrap.dedent("""
+    import sys, tempfile
+    for name in ("jax", "pandas", "matplotlib", "datasets"):
+        sys.modules[name] = None  # any import of them now raises ImportError
+
+    import dlti_tpu_torch.analysis as analysis
+    import dlti_tpu_torch.cli.compare_training
+    import dlti_tpu_torch.cli.prepare_dataset as prepare
+    import dlti_tpu_torch.cli.run_experiments
+    import dlti_tpu_torch.cli.train as train
+    import dlti_tpu_torch.data.formats
+    import dlti_tpu_torch.data.prefetch
+    import dlti_tpu_torch.data.streaming
+    import dlti_tpu_torch.models.quantization
+    import dlti_tpu_torch.orchestration
+    import dlti_tpu_torch.telemetry.steplog
+    import dlti_tpu_torch.utils.experiment
+    import dlti_tpu_torch.utils.metrics
+
+    d = tempfile.mkdtemp()
+    prepare.main(["--synthetic", "64", "--output-dir", d + "/data",
+                  "--write-token-store", d + "/store", "--max-seq-len", "64"])
+    train.main(["--device", "cpu", "--model", "llama_tiny", "--tokenizer", "byte",
+                "--dataset-path", d + "/store", "--max-seq-len", "64",
+                "--per-device-batch-size", "2", "--gradient-accumulation-steps", "2",
+                "--max-steps", "2", "--quantize-base", "int8", "--remat-policy", "none",
+                "--save-strategy", "no", "--output-dir", d + "/ck", "--metrics-csv", d + "/m.csv",
+                "--step-log", d + "/steps.jsonl"])
+    rows = analysis.compare(d + "/m.csv")
+    assert len(rows) == 1 and rows[0]["experiment"] == "baseline", rows
+    try:
+        analysis.create_plots(rows, d + "/p.png")
+    except ImportError:
+        pass
+    else:
+        raise AssertionError("create_plots drew without matplotlib")
+
+    def absent(name):
+        return not any(m is not None and (n == name or n.startswith(name + "."))
+                       for n, m in sys.modules.items())
+
+    assert all(absent(n) for n in ("jax", "jaxlib", "dlti_tpu", "pandas", "matplotlib"))
+    print("OK")
+""")
+
+
+def test_quickstart_modules_run_without_jax_pandas_or_matplotlib():
+    """The data prep, int8 base, step log, metrics CSV and comparison
+    modules import and run (prepare -> train on a token store with an int8
+    base -> compare) with ``jax``, ``pandas``, ``matplotlib`` and
+    ``datasets`` blocked, as on the card machine; only ``create_plots``
+    needs matplotlib, and it raises without it."""
+    proc = subprocess.run([sys.executable, "-c", _QUICKSTART_CHILD], cwd=ROOT,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert proc.stdout.strip().endswith("OK")
+
+
+def test_the_port_imports_neither_pandas_nor_matplotlib():
+    """Importing every module of the port loads neither pandas nor
+    matplotlib (both absent on the card machine)."""
+    code = textwrap.dedent("""
+        import pkgutil, importlib, sys
+        import dlti_tpu_torch
+        for m in pkgutil.walk_packages(dlti_tpu_torch.__path__, "dlti_tpu_torch."):
+            importlib.import_module(m.name)
+        bad = sorted(n for n in sys.modules
+                     if n.split(".")[0] in ("pandas", "matplotlib", "jax", "dlti_tpu"))
+        assert not bad, bad
+        print("OK")
+    """)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                          text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert proc.stdout.strip().endswith("OK")

@@ -515,10 +515,12 @@ def test_cli_runs_windows_with_loss_chunk_and_eval(tmp_path, capsys):
     summary = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert summary["windows"] == 2 and summary["eval_steps"] == [4]
     assert np.isfinite(summary["eval_losses"][0]) and summary["host_syncs_per_step"] == 2 / 6
+    # A directory with a meta.json is read as a token store (data.streaming);
+    # one that is not a token store's is refused by name.
     (tmp_path / "store").mkdir()
     (tmp_path / "store" / "meta.json").write_text("{}")
     i = args.index("--eval-dataset") + 1
-    with pytest.raises(SystemExit, match="data/streaming.py"):
+    with pytest.raises(SystemExit, match="token-store version"):
         cli.main(args[:i] + [str(tmp_path / "store")] + args[i + 1:])
     with pytest.raises(SystemExit, match="--eval-steps"):
         i = args.index("--eval-steps")

@@ -212,10 +212,12 @@ def test_unported_remat_policy_raises():
 
 @pytest.mark.parametrize("field,value", [("quantize_frozen_base", True)])
 def test_trainer_refuses_unported_train_options(field, value):
+    """``quantize_frozen_base`` is ported for ``"int8"`` alone, as the JAX
+    Trainer takes it; any other value is refused when the Trainer is built."""
     cfg = tc.Config(model=tc.MODEL_PRESETS["llama_tiny"],
                     checkpoint=tc.CheckpointConfig(save_strategy="no"),
                     train=tc.TrainConfig(**{field: value}))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="only 'int8'"):
         Trainer(cfg, device="cpu")
 
 

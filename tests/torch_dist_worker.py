@@ -123,8 +123,9 @@ def local_rows(batch: dict, rank: int, world: int) -> dict:
 
 def _state(params: dict, parallel: dict, lora: dict = None, opt: dict = None,
            model: dict = None, fp16_scale: float = None):
-    """A ``llama_tiny`` train state from ``params`` (port names, numpy),
-    placed on this rank under ``parallel``."""
+    """A ``llama_tiny`` train state from ``params`` (port names, numpy; int8
+    pairs ``{name}.q``/``{name}.scale`` load as a quantized base), placed on
+    this rank under ``parallel``."""
     from dlti_tpu_torch.config import MODEL_PRESETS, LoRAConfig, OptimizerConfig
     from dlti_tpu_torch.models import load_model
     from dlti_tpu_torch.models.lora import is_lora_name
@@ -136,11 +137,19 @@ def _state(params: dict, parallel: dict, lora: dict = None, opt: dict = None,
     cpu = torch.device("cpu")
     mcfg = dataclasses.replace(MODEL_PRESETS["llama_tiny"], **(model or {}))
     lcfg = LoRAConfig(**lora) if lora else LoRAConfig(enabled=False)
+    from dlti_tpu_torch.models.quantization import quant_bases
+
     mesh = build_mesh(_parallel(parallel), cpu, lcfg.enabled)
     base_dtype = resolve_dtype(mcfg.param_dtype)
-    net = load_model(mcfg, {n: torch.from_numpy(a.copy()).to(
-                                torch.float32 if is_lora_name(n) else base_dtype)
-                            for n, a in params.items()}, cpu,
+    quantized = quant_bases(params)  # int8 pairs keep their dtypes
+
+    def leaf(n, a):
+        t = torch.from_numpy(a.copy())
+        if n.rpartition(".")[0] in quantized:
+            return t
+        return t.to(torch.float32 if is_lora_name(n) else base_dtype)
+
+    net = load_model(mcfg, {n: leaf(n, a) for n, a in params.items()}, cpu,
                      lora=lcfg if lcfg.enabled else None, trainable_lora=True)
     layout = shard_model(net, mesh, lcfg.enabled)
     return create_train_state(net, build_optimizer(OptimizerConfig(**(opt or OPT))),
