@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's serving, training (single-device and ZeRO),
-checkpoint-to-serving and HTTP serving paths on one NVIDIA GPU (an H100).
+checkpoint-to-serving, HTTP serving and load-test paths on one NVIDIA GPU
+(an H100).
 
     python3 chip_smoke.py
 
@@ -202,7 +203,33 @@ Phases, each of which fails the run if its check fails:
     run must peak 5 GB below the bf16 run, and the int8-weight engine 5 GB
     below the bf16-weight engine. Prints each run's step ms, tokens/s, MFU,
     peak and launches a step, the server's TTFT and TPOT, both engines'
-    peaks, and the CSVs' tables.
+    peaks, and the CSVs' tables. The server then takes Quickstart step 5
+    as a subprocess, ``cli.benchmark_serving --num-requests
+    112 --concurrency 56 --max-tokens 256``: 112 ok, none failed; prints
+    requests/s, output tok/s, TTFT p50/p99 and mean TPOT.
+18. The engine features at llama2_7b width (run last). First each feature
+    against the engine without it, at full width cut to 8 layers in float32
+    (TF32 off), from one ``init_params(seed=0)``: chunked prefill (256
+    tokens a step, prompts of 600-1000 tokens) and ragged prefill (fewer
+    prefill calls) against one call a bucket; prefix caching with a shared
+    410-token prefix (the second wave must reuse it); a 100-block pool with
+    a host tier that evicts the prefix and restores it; n-gram speculation
+    (k 4, 8 rounds a sync, graphed) against plain decode, and against its
+    rounds run eagerly. Greedy tokens identical in every pair; K4 launched
+    layers x plain decode steps, as the decode graph credits; a spec
+    window's dispatch under ``set_sync_debug_mode("error")``. Then over HTTP
+    at full depth: ``cli.serve --random-init llama2_7b --quantization int8
+    --kv-cache-dtype int8 --max-seqs 28 --num-blocks 910 --steps-per-sync 32
+    --max-prefill-tokens 256 --ragged-prefill --enable-prefix-caching
+    --prefix-host-blocks 256 --speculative ngram --num-draft-tokens 4``
+    under ``cli.benchmark_serving --sessions 8 --turns 4`` (prefix hit rate
+    > 0) and ``--qps 1.5 --num-requests 32 --max-tokens 256
+    --long-prompt-frac 0.25 --long-prompt-tokens 1024
+    --scrape-server-metrics`` (spec proposed > 0), then the same flags
+    without the features under the second: no request may fail. Prints
+    TTFT p50/p99, TPOT, output tok/s, the hit rate, spec acceptance and
+    tokens per slot-round, spec round and plain step ms, and the graph
+    pool's size.
 
 Prints a ``{"kernels": [...]}`` line (each kernel's float16 mode a row of
 its own), and as its last line
@@ -3027,10 +3054,14 @@ def phase_quickstart(torch, card, flush):
             check(not errors and all(r is not None for r in results),
                   f"quickstart server requests failed: {errors}")
             stats = json.loads(http_request(addr, "GET", "/stats")[1])
+            # Quickstart step 5 with README's own flags, as a subprocess.
+            step5 = run_loadgen(addr, STEP5_FLAGS, "[quickstart loadgen]")
+            check(step5["num_requests"] == 112, f"step 5 sent {step5['num_requests']}")
             return {"wall_s": wall, "requests": len(reqs),
                     "ttft_p50_s": stats["request_ttft_seconds"]["p50"],
                     "ttft_p99_s": stats["request_ttft_seconds"]["p99"],
-                    "tpot_mean_s": stats["request_tpot_seconds"]["mean"]}
+                    "tpot_mean_s": stats["request_tpot_seconds"]["mean"],
+                    "loadgen": loadgen_summary(step5)}
 
         seen, served = serve_subprocess(
             py + ["dlti_tpu_torch.cli.serve", "--model-dir", str(ex), "--tokenizer", "byte",
@@ -3074,6 +3105,392 @@ def phase_quickstart(torch, card, flush):
         shutil.rmtree(root, ignore_errors=True)
     perf["phase_s"] = time.perf_counter() - t_phase
     log(f"[quickstart] card {card}; phase {perf['phase_s']:.1f} s")
+    return perf
+
+
+# ----------------------------------------------------------------------
+# Slice 12: the load test and the engine features it measures
+# ----------------------------------------------------------------------
+
+# README Quickstart step 5's flags.
+STEP5_FLAGS = ["--num-requests", "112", "--concurrency", "56", "--max-tokens", "256"]
+LOADGEN_KEYS = ("num_requests", "num_ok", "num_shed", "requests_per_s",
+                "output_tokens_per_s", "ttft_p50_s", "ttft_p99_s", "tpot_mean_ms",
+                "latency_p50_s", "latency_p99_s", "cache_hit_rate", "num_warm",
+                "warm_ttft_p50_s", "cold_ttft_p50_s", "spec", "interference", "engine")
+
+
+def loadgen_summary(report) -> dict:
+    return {k: report[k] for k in LOADGEN_KEYS}
+
+
+def run_loadgen(addr, flags, tag, timeout=900):
+    """``python -m dlti_tpu_torch.cli.benchmark_serving`` as a subprocess
+    against ``addr``: every request must come back ok (none failed, none
+    shed). Returns its ``--json-out`` report, with ``engine``: the server's
+    own mean TTFT and TPOT over this run (its ``/stats`` histograms' sum and
+    count, before and after). The client stamps TTFT at the first streamed
+    text, and a random model's tokens past the byte tokenizer's 259 render
+    as no text, so the client's TTFT and TPOT cover only the requests that
+    showed some (``timed`` of them); the engine's cover every request."""
+    import os
+    import tempfile
+
+    def hist(stats, name):
+        return stats[name]["sum"], stats[name]["count"]
+
+    before = json.loads(http_request(addr, "GET", "/stats")[1])
+    fd, out = tempfile.mkstemp(prefix="dlti-loadgen-", suffix=".json")
+    os.close(fd)
+    try:
+        run_cli([sys.executable, "-m", "dlti_tpu_torch.cli.benchmark_serving",
+                 "--host", addr[0], "--port", str(addr[1]), *flags, "--json-out", out],
+                tag, timeout=timeout)
+        report = json.loads(Path(out).read_text())
+    finally:
+        Path(out).unlink(missing_ok=True)
+    after = json.loads(http_request(addr, "GET", "/stats")[1])
+    check(report["num_ok"] == report["num_requests"] > 0 and not report["errors"],
+          f"{tag} {report['num_requests'] - report['num_ok']} of "
+          f"{report['num_requests']} requests failed: {report['errors'][:5]}")
+    engine = {}
+    for key, name in (("ttft_mean_s", "request_ttft_seconds"),
+                      ("tpot_mean_s", "request_tpot_seconds")):
+        (s0, n0), (s1, n1) = hist(before, name), hist(after, name)
+        engine[key] = (s1 - s0) / (n1 - n0) if n1 > n0 else None
+    engine["requests"] = after["requests"] - before["requests"]
+    engine["generated_tokens"] = after["generated_tokens"] - before["generated_tokens"]
+    report["engine"] = engine
+    fmt = lambda v, scale=1.0: "n/a" if v is None else f"{scale * v:.4f}"  # noqa: E731
+    log(f"{tag} {' '.join(flags)}: {report['num_ok']} ok, 0 failed; "
+        f"{report['requests_per_s']:.3f} requests/s, {report['output_tokens_per_s']:.1f} "
+        f"output tok/s; client (requests with visible text) TTFT p50 "
+        f"{report['ttft_p50_s']:.4f} s p99 {report['ttft_p99_s']:.4f} s, mean TPOT "
+        f"{report['tpot_mean_ms']:.2f} ms; engine mean TTFT {fmt(engine['ttft_mean_s'])} s, "
+        f"mean TPOT {fmt(engine['tpot_mean_s'], 1e3)} ms over {engine['requests']} requests")
+    return report
+
+
+# Phase 18's equality engines: llama2_7b at full width, cut to 8 layers, in
+# float32 (TF32 off), from init_params(seed=0).
+FEATURE_LAYERS = 8
+FEATURE_SIZES = {
+    "ec": dict(max_seqs=8, block_size=16, num_blocks=512, max_model_len=1280,
+               cache_dtype="float32", eos_token_id=-1),
+    "long": [600, 777, 1000],        # prompts chunked prefill cuts
+    "short": [24, 90, 200, 350, 480],
+    "chunk": 256,                    # max_prefill_tokens_per_step
+    "prefix": 410,                   # the shared prefix, as in the 7B A/B
+    "suffix": [12, 40, 75, 130, 16, 60],
+    "evict_blocks": 100,             # a pool that evicts the prefix
+    "host_blocks": 256,
+    "filler": [700, 650, 600],
+    "max_tokens": 24,
+    "spec_k": 4, "spec_sync": 8, "spec_tokens": 96,
+    "spec_plain": [50, 300],         # prompts with no built-in repeats
+}
+
+
+def prompts_of(rng, lengths, vocab):
+    return [rng.integers(3, vocab, n).tolist() for n in lengths]
+
+
+def run_engine(engine, waves, max_tokens):
+    """Submit each wave of greedy prompts and drain it; returns every
+    request in order."""
+    from dlti_tpu_torch.serving.sampling import SamplingParams
+
+    reqs = []
+    for wave in waves:
+        reqs += [engine.submit(p, SamplingParams(temperature=0.0, max_tokens=max_tokens))
+                 for p in wave]
+        while engine.has_work:
+            engine.step()
+    return reqs
+
+
+def feature_pairs(torch, cfg, params, device, sizes):
+    """Phase 18's first half on any device: each engine feature against the
+    engine without it, greedy tokens identical in every pair. Returns the
+    readings (prefill batches, cached and restored tokens, spec counters,
+    spec round and plain step ms, the spec graphs' pool). On the card also
+    K4 counted once per layer per plain decode step (the decode graph's
+    credit), the spec window's dispatch under ``set_sync_debug_mode
+    ("error")`` and the spec graphs against spec rounds run eagerly."""
+    import numpy as np
+
+    from dlti_tpu_torch.ops import paged_attention as tpa
+    from dlti_tpu_torch.serving.engine import EngineConfig, EngineExecutor, InferenceEngine
+    from dlti_tpu_torch.serving.sampling import SamplingParams
+
+    cuda = torch.device(device).type == "cuda"
+    rng = np.random.default_rng(18)
+    vocab = cfg.vocab_size
+    out = {}
+
+    def engine(graphs=True, **over):
+        ec = EngineConfig(**{**sizes["ec"], **over})
+        ex = EngineExecutor(cfg, params, ec, device=device, cuda_graphs=graphs)
+        return InferenceEngine(cfg, params, ec, device=device, executor=ex)
+
+    def tokens(reqs):
+        return [r.output_token_ids for r in reqs]
+
+    def ttft_ms(reqs):
+        return 1e3 * float(np.mean([r.first_token_time - r.arrival_time for r in reqs]))
+
+    def pair(name, a, b):
+        check(tokens(a) == tokens(b), f"[features] {name}: greedy tokens differ")
+
+    # Chunked and ragged prefill: one wave of long and short prompts.
+    wave = prompts_of(rng, sizes["long"] + sizes["short"], vocab)
+    runs = {}
+    for name, over in (("plain", {}),
+                       ("chunked", dict(max_prefill_tokens_per_step=sizes["chunk"])),
+                       ("ragged", dict(ragged_prefill=True)),
+                       ("chunked+ragged", dict(max_prefill_tokens_per_step=sizes["chunk"],
+                                               ragged_prefill=True))):
+        eng = engine(**over)
+        reqs = run_engine(eng, [wave], sizes["max_tokens"])
+        runs[name] = (reqs, dict(eng.stats))
+        del eng
+    for name in ("chunked", "ragged", "chunked+ragged"):
+        pair(name, runs["plain"][0], runs[name][0])
+    batches = {k: v[1]["prefill_batches"] for k, v in runs.items()}
+    check(batches["ragged"] < batches["plain"]
+          and batches["chunked+ragged"] < batches["chunked"],
+          f"[features] ragged prefill took no fewer calls: {batches}")
+    out["prefill_batches"] = batches
+    out["ttft_ms"] = {k: ttft_ms(v[0]) for k, v in runs.items()}
+    log(f"[features] chunked ({sizes['chunk']} tokens a step) and ragged prefill: "
+        f"{len(wave)} prompts of {min(map(len, wave))}-{max(map(len, wave))} tokens, "
+        f"tokens identical to one call a bucket; prefill calls {batches}; mean TTFT ms "
+        + json.dumps({k: round(v, 1) for k, v in out["ttft_ms"].items()}))
+
+    # Prefix caching: a shared prefix, then a wave that reuses it.
+    prefix = prompts_of(rng, [sizes["prefix"]], vocab)[0]
+    waves = [[prefix + s for s in prompts_of(rng, sizes["suffix"][:1], vocab)],
+             [prefix + s for s in prompts_of(rng, sizes["suffix"][1:], vocab)]]
+    cached = {}
+    for on in (False, True):
+        eng = engine(enable_prefix_caching=on)
+        cached[on] = (run_engine(eng, waves, sizes["max_tokens"]), dict(eng.stats))
+        del eng
+    pair("prefix caching", cached[False][0], cached[True][0])
+    hit = cached[True][1]["prefix_cached_tokens"]
+    check(hit > 0, "[features] the second wave reused no cached prefix")
+    out["prefix"] = {"cached_tokens": hit,
+                     "prefill_tokens": {str(k): v[1]["prefill_tokens"]
+                                        for k, v in cached.items()},
+                     "ttft_ms_wave2": {str(k): ttft_ms(v[0][1:]) for k, v in cached.items()}}
+    log(f"[features] prefix caching, a {sizes['prefix']}-token prefix shared by "
+        f"{len(waves[1])} requests: tokens identical; prefix_cached_tokens {hit}; "
+        f"prefill tokens {out['prefix']['prefill_tokens']}; wave-2 mean TTFT ms "
+        + json.dumps({k: round(v, 1) for k, v in out["prefix"]["ttft_ms_wave2"].items()}))
+
+    # The host tier: a pool small enough that filler traffic evicts the
+    # prefix, then the prefix again.
+    tier_waves = [waves[0], prompts_of(rng, sizes["filler"], vocab),
+                  [prefix + s for s in prompts_of(rng, [33], vocab)]]
+    tiered = {}
+    for on in (False, True):
+        eng = engine(num_blocks=sizes["evict_blocks"], enable_prefix_caching=on,
+                     prefix_host_blocks=sizes["host_blocks"] if on else 0)
+        tiered[on] = (run_engine(eng, tier_waves, sizes["max_tokens"]), dict(eng.stats),
+                      eng.prefix_cache and dict(eng.prefix_cache.stats))
+        del eng
+    pair("host tier", tiered[False][0], tiered[True][0])
+    restored = tiered[True][1]["prefix_restored_tokens"]
+    check(restored > 0, f"[features] nothing restored from the host tier: {tiered[True][2]}")
+    out["tier"] = {"restored_tokens": restored, **tiered[True][2]}
+    log(f"[features] host tier ({sizes['host_blocks']} blocks) under a "
+        f"{sizes['evict_blocks']}-block pool: tokens identical; prefix_restored_tokens "
+        f"{restored}; allocator {tiered[True][2]}")
+
+    # N-gram speculation, graphed, against plain decode; then eager rounds.
+    spec_wave = [p * (4 + i) for i, p in enumerate(prompts_of(rng, [7, 11, 5, 13], vocab))]
+    spec_wave += prompts_of(rng, sizes["spec_plain"], vocab)
+    spec = dict(speculative="ngram", num_draft_tokens=sizes["spec_k"],
+                steps_per_sync=sizes["spec_sync"])
+    spec_runs = {}
+    for name, over, graphs in (("plain", dict(steps_per_sync=sizes["spec_sync"]), True),
+                               ("spec", spec, True), ("spec eager", spec, False)):
+        eng = engine(graphs=graphs, **over)
+        eng.warmup_decode_ladder()
+        plain_steps, spans = [0], []
+        window = eng.executor.decode_window
+
+        def counted(k, *a, window=window, plain_steps=plain_steps):
+            plain_steps[0] += k
+            return window(k, *a)
+
+        eng.executor.decode_window = counted
+        dispatch, complete = eng._decode_dispatch, eng._decode_complete
+        clock = {}
+
+        def timed_dispatch(dispatch=dispatch, clock=clock):
+            if cuda:
+                torch.cuda.synchronize()
+            clock["t"] = time.perf_counter()
+            return dispatch()
+
+        def timed_complete(pending, complete=complete, clock=clock, spans=spans):
+            res = complete(pending)
+            n = (pending[3].shape[0] if pending[0] == "spec" else pending[1])
+            spans.append((pending[0] == "spec", n, time.perf_counter() - clock["t"]))
+            return res
+
+        eng._decode_dispatch, eng._decode_complete = timed_dispatch, timed_complete
+        if cuda:
+            torch.cuda.synchronize()
+            tpa.launches = tpa.launches_int8 = 0
+        reqs = run_engine(eng, [spec_wave], sizes["spec_tokens"])
+        rec = {"reqs": reqs, "stats": dict(eng.stats), "plain_steps": plain_steps[0],
+               "pool_gb": eng.executor.graph_pool_bytes / 1e9,
+               "graphs": len(eng.executor.spec_graphs),
+               "round_ms": [1e3 * t / n for s, n, t in spans if s],
+               "step_ms": [1e3 * t / n for s, n, t in spans if not s]}
+        if cuda:
+            torch.cuda.synchronize()
+            layers = cfg.num_layers
+            per_replay = eng.executor.launches.per_replay[0]
+            check(tpa.launches == layers * plain_steps[0] and tpa.launches_int8 == 0,
+                  f"[features] {name}: K4 launched {tpa.launches} times for "
+                  f"{plain_steps[0]} plain decode steps of {layers} layers")
+            check(not graphs or per_replay == layers,
+                  f"[features] {name}: the decode graph credits {per_replay} K4 a step")
+            if name == "spec":
+                # A spec window's dispatch under the sync check.
+                eng.submit(spec_wave[0], SamplingParams(temperature=0.0, max_tokens=16))
+                eng.step()
+                torch.cuda.synchronize()
+                torch.cuda.set_sync_debug_mode("error")
+                try:
+                    pending = dispatch()
+                except RuntimeError as e:
+                    raise CheckFailed(f"[features] the spec dispatch synchronized: {e}") from e
+                finally:
+                    torch.cuda.set_sync_debug_mode(0)
+                check(pending is not None and pending[0] == "spec",
+                      "[features] the sync check's window was not a spec window")
+                complete(pending)
+                while eng.has_work:
+                    eng.step()
+        spec_runs[name] = rec
+        del eng
+    pair("speculative", spec_runs["plain"]["reqs"], spec_runs["spec"]["reqs"])
+    pair("spec graph against eager rounds", spec_runs["spec eager"]["reqs"],
+         spec_runs["spec"]["reqs"])
+    st = spec_runs["spec"]["stats"]
+    check(st["spec_proposed"] > 0 and st["spec_accepted"] > 0,
+          f"[features] speculation proposed {st['spec_proposed']}, accepted "
+          f"{st['spec_accepted']}")
+    check(not cuda or spec_runs["spec"]["graphs"] > 0, "[features] no spec graph captured")
+    med = lambda xs: float(np.median(xs)) if xs else None  # noqa: E731
+    out["spec"] = {
+        "proposed": st["spec_proposed"], "accepted": st["spec_accepted"],
+        "acceptance": st["spec_accepted"] / st["spec_proposed"],
+        "tokens_per_slot_round": (st["generated_tokens"] - len(spec_wave))
+        / max(1, st["decode_slot_steps"]),
+        "round_ms_median": med(spec_runs["spec"]["round_ms"]),
+        "plain_step_ms_median": med(spec_runs["plain"]["step_ms"]),
+        "spec_plain_step_ms_median": med(spec_runs["spec"]["step_ms"]),
+        "decode_steps": {k: v["stats"]["decode_steps"] for k, v in spec_runs.items()},
+        "plain_steps_in_spec_run": spec_runs["spec"]["plain_steps"],
+        "graph_pool_gb": spec_runs["spec"]["pool_gb"],
+        "plain_graph_pool_gb": spec_runs["plain"]["pool_gb"]}
+    log(f"[features] n-gram speculation (k {sizes['spec_k']}, {sizes['spec_sync']} rounds "
+        f"a sync, graphed) against plain decode and against eager rounds: tokens identical; "
+        + json.dumps(out["spec"]))
+    return out
+
+
+# Phase 18's server: the latency-bounded configuration with the features on,
+# and the same flags without them as the yardstick.
+FEATURE_BASE_ARGS = ["--random-init", "llama2_7b", "--tokenizer", "byte",
+                     "--quantization", "int8", "--kv-cache-dtype", "int8",
+                     "--max-seqs", "28", "--num-blocks", "910", "--steps-per-sync", "32",
+                     "--host", "127.0.0.1", "--port", "0"]
+FEATURE_FLAGS = ["--max-prefill-tokens", "256", "--ragged-prefill",
+                 "--enable-prefix-caching", "--prefix-host-blocks", "256",
+                 "--speculative", "ngram", "--num-draft-tokens", "4"]
+SESSION_FLAGS = ["--sessions", "8", "--turns", "4"]
+MIXED_FLAGS = ["--qps", "1.5", "--num-requests", "32", "--max-tokens", "256",
+               "--long-prompt-frac", "0.25", "--long-prompt-tokens", "1024",
+               "--scrape-server-metrics"]
+
+
+def phase_features(torch, card):
+    """Phase 18: the engine features at llama2_7b width. First each feature
+    against the engine without it at 8 layers in float32 (``feature_pairs``);
+    then over HTTP at full depth, the serve CLI with the features on under
+    two load tests (sessions; an open-loop mix with long prompts), and the
+    same flags without the features under the second as the yardstick."""
+    import dataclasses as dc
+
+    from dlti_tpu_torch.config import MODEL_PRESETS
+    from dlti_tpu_torch.models.interop import init_params
+
+    t_phase = time.perf_counter()
+    free_memory(torch)
+    cfg = dc.replace(MODEL_PRESETS["llama2_7b"], num_layers=FEATURE_LAYERS,
+                     dtype="float32", param_dtype="float32")
+    params = init_params(cfg, seed=0, device="cuda")
+    log(f"[features] llama2_7b at full width (hidden {cfg.hidden_size}, {cfg.num_heads} "
+        f"heads, vocab {cfg.vocab_size}), layers {cfg.num_layers} of 32, float32, TF32 off")
+    perf = {"card": card, "pairs": feature_pairs(torch, cfg, params, "cuda", FEATURE_SIZES)}
+    del params
+    free_memory(torch)
+    perf["pairs_s"] = time.perf_counter() - t_phase
+
+    def pool_gb(seen):
+        for ln in seen:
+            m = re.search(r"graph pool ([0-9.]+) GB", ln)
+            if m:
+                return float(m.group(1))
+        return None
+
+    def drive_on(addr):
+        sessions = run_loadgen(addr, SESSION_FLAGS, "[features serve on]")
+        check(sessions["cache_hit_rate"] > 0, "[features serve on] prefix hit rate "
+              f"{sessions['cache_hit_rate']}")
+        mixed = run_loadgen(addr, MIXED_FLAGS, "[features serve on]")
+        check(mixed["spec"].get("proposed", 0) > 0,
+              f"[features serve on] spec proposed nothing: {mixed['spec']}")
+        stats = json.loads(http_request(addr, "GET", "/stats")[1])
+        return {"sessions": loadgen_summary(sessions), "mixed": loadgen_summary(mixed),
+                "stats": {k: stats[k] for k in (
+                    "prefix_cached_tokens", "prefix_restored_tokens", "prefill_tokens",
+                    "prefill_batches", "spec_proposed", "spec_accepted",
+                    "spec_paused_rounds", "decode_steps", "decode_slot_steps",
+                    "generated_tokens", "requests", "preemptions")}}
+
+    py = [sys.executable, "-m", "dlti_tpu_torch.cli.serve"]
+    seen, on = serve_subprocess(py + FEATURE_BASE_ARGS + FEATURE_FLAGS,
+                                "[features serve on]", drive=drive_on)
+    st = on["stats"]
+    on["graph_pool_gb"] = pool_gb(seen)
+    on["spec_acceptance"] = st["spec_accepted"] / max(1, st["spec_proposed"])
+    on["tokens_per_slot_round"] = ((st["generated_tokens"] - st["requests"])
+                                   / max(1, st["decode_slot_steps"]))
+    seen, off = serve_subprocess(
+        py + FEATURE_BASE_ARGS, "[features serve off]",
+        drive=lambda addr: {"mixed": loadgen_summary(
+            run_loadgen(addr, MIXED_FLAGS, "[features serve off]"))})
+    off["graph_pool_gb"] = pool_gb(seen)
+    perf["serve"] = {"on": on, "off": off}
+    for name, rec in (("on", on), ("off", off)):
+        r = rec["mixed"]
+        log(f"[features serve {name}] mixed run: client TTFT p50 {r['ttft_p50_s']:.4f} s, "
+            f"p99 {r['ttft_p99_s']:.4f} s, TPOT {r['tpot_mean_ms']:.2f} ms; engine "
+            f"{json.dumps(r['engine'])}; output tok/s {r['output_tokens_per_s']:.1f}; "
+            f"graph pool {rec['graph_pool_gb']} GB")
+    log(f"[features serve on] sessions prefix hit rate "
+        f"{on['sessions']['cache_hit_rate']:.4f}, engine {json.dumps(on['sessions']['engine'])}"
+        f"; spec acceptance {on['spec_acceptance']:.4f}, tokens per slot-round "
+        f"{on['tokens_per_slot_round']:.3f}; /stats {json.dumps(st)}")
+    perf["phase_s"] = time.perf_counter() - t_phase
+    log(f"[features] card {card}; phase {perf['phase_s']:.1f} s")
     return perf
 
 
@@ -3135,6 +3552,8 @@ def main() -> int:
         zero_perf = phase_zero(torch, train_perf, card)
         free_memory(torch)
         quickstart_perf = phase_quickstart(torch, card, flush)
+        free_memory(torch)
+        features_perf = phase_features(torch, card)
     except CheckFailed as e:
         return fail(str(e))
 
@@ -3255,6 +3674,7 @@ def main() -> int:
         "launches", "strategy", "world", "streamed_gb_a_step", "h2d_pinned_gb_s",
         "copy_bound_ms") if k in r} for name, r in zero_perf.items()}))
     log("[quickstart] summary " + json.dumps(quickstart_perf))
+    log("[features] summary " + json.dumps(features_perf))
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -315,6 +315,8 @@ class _PendingSave:
     keep: Optional[int]
     retries: int
     retry_backoff_s: float
+    # durable_io's path class: "prefix_tier" for KV-block demotions.
+    path_class: str = "checkpoint"
 
 
 class _Writer:
@@ -398,10 +400,11 @@ def _write_and_commit(directory: str, p: _PendingSave) -> None:
     save_seconds.observe(time.perf_counter() - t0)
 
 
-def _write_leaf(tmp: str, leaf: _HostLeaf) -> dict:
+def _write_leaf(tmp: str, leaf: _HostLeaf, path_class: str) -> dict:
     known = leaf.entry.sha256 if leaf.entry is not None else None
     digest = known or _sha256_bytes(leaf.data)
-    durable_io.write_bytes(os.path.join(tmp, leaf.meta["file"]), leaf.data)
+    durable_io.write_bytes(os.path.join(tmp, leaf.meta["file"]), leaf.data,
+                           path_class=path_class)
     if leaf.entry is not None and known is None:
         leaf.entry.sha256 = digest
     return {**leaf.meta, "size": int(leaf.data.nbytes), "sha256": digest}
@@ -410,21 +413,25 @@ def _write_leaf(tmp: str, leaf: _HostLeaf) -> dict:
 def _write_staging(tmp: str, p: _PendingSave) -> None:
     os.makedirs(os.path.join(tmp, _ARRAY_DIR), exist_ok=True)
     with ThreadPoolExecutor(_IO_THREADS) as pool:
-        entries = list(pool.map(lambda leaf: _write_leaf(tmp, leaf), p.leaves))
+        entries = list(pool.map(lambda leaf: _write_leaf(tmp, leaf, p.path_class),
+                                p.leaves))
     manifest: dict = {"format": _FORMAT_VERSION, "step": p.step,
                       "leaves": entries, "meta_files": {}}
     if p.train_meta is not None:
         data = json.dumps(p.train_meta, indent=2, sort_keys=True).encode()
-        durable_io.write_bytes(os.path.join(tmp, _SIDECAR), data)
+        durable_io.write_bytes(os.path.join(tmp, _SIDECAR), data,
+                               path_class=p.path_class)
         manifest["meta_files"][_SIDECAR] = {
             "size": len(data), "sha256": _sha256_bytes(data)}
     mbytes = json.dumps(manifest, indent=2, sort_keys=True).encode()
-    durable_io.write_bytes(os.path.join(tmp, _MANIFEST), mbytes)
+    durable_io.write_bytes(os.path.join(tmp, _MANIFEST), mbytes,
+                           path_class=p.path_class)
     # The commit marker is written LAST and names the manifest's digest: a
     # torn copy of this directory cannot present a valid COMMIT over a
     # mismatched manifest.
     durable_io.write_bytes(os.path.join(tmp, _COMMIT), json.dumps(
-        {"manifest_sha256": _sha256_bytes(mbytes)}).encode())
+        {"manifest_sha256": _sha256_bytes(mbytes)}).encode(),
+        path_class=p.path_class)
     durable_io.fsync_dir(os.path.join(tmp, _ARRAY_DIR))
     durable_io.fsync_dir(tmp)
 
@@ -745,23 +752,27 @@ def flatten_tree(tree: Mapping, prefix: str = "") -> List[Tuple[str, torch.Tenso
     return out
 
 
-def save_pytree(directory: str, tree: Mapping) -> str:
-    """Write a nested dict of tensors (an export's params) with the same
-    manifest and commit protocol as a step checkpoint, synchronously and
-    atomically (staging dir + rename). A save that fails mid-staging
-    quarantines its staging dir and re-raises. Returns ``directory``."""
+def save_pytree(directory: str, tree: Mapping, *,
+                path_class: str = "checkpoint") -> str:
+    """Write a nested dict of tensors (an export's params, a prefix-cache
+    block) with the same manifest and commit protocol as a step checkpoint,
+    synchronously and atomically (staging dir + rename). ``path_class``
+    selects durable_io's retry budget (``"prefix_tier"`` for KV-block
+    demotions). A save that fails mid-staging quarantines its staging dir
+    and re-raises. Returns ``directory``."""
     directory = os.path.abspath(directory)
     parent = os.path.dirname(directory) or "."
     os.makedirs(parent, exist_ok=True)
     pending = _PendingSave(step=0, leaves=snapshot(flatten_tree(tree)),
-                           train_meta=None, keep=None, retries=3, retry_backoff_s=0.2)
+                           train_meta=None, keep=None, retries=3, retry_backoff_s=0.2,
+                           path_class=path_class)
     tmp = f"{directory}{_TMP_PREFIX}{os.getpid()}"
     shutil.rmtree(tmp, ignore_errors=True)
     try:
         _write_staging(tmp, pending)
         if os.path.isdir(directory):
             shutil.rmtree(directory)
-        durable_io.replace(tmp, directory)
+        durable_io.replace(tmp, directory, path_class=path_class)
     except BaseException:
         try:
             quarantine_step(parent, os.path.basename(tmp), "save-failed")

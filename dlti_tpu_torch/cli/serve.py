@@ -18,8 +18,18 @@
         --tokenizer byte --quantization int8 --kv-cache-dtype int8 \
         --max-seqs 28 --steps-per-sync 64
 
+    # the latency-bounded configuration with the engine features on
+    python -m dlti_tpu_torch.cli.serve --random-init llama2_7b --tokenizer byte \
+        --quantization int8 --kv-cache-dtype int8 --max-seqs 28 \
+        --num-blocks 910 --steps-per-sync 32 --max-prefill-tokens 256 \
+        --ragged-prefill --enable-prefix-caching --prefix-host-blocks 256 \
+        --speculative ngram --num-draft-tokens 4
+
 Flags keep the reference's names and defaults (``--steps-per-sync``,
-``--no-decode-state-cache`` included); the decode iteration's CUDA graph is
+``--no-decode-state-cache``, the prefix-cache and tier flags,
+``--max-prefill-tokens``, ``--ragged-prefill`` and the ``--speculative``
+family included); the decode iteration's CUDA graph, and with
+``--speculative ngram`` one spec round's graph per draft length, are
 captured before the server binds. ``--random-init`` weights come from
 ``init_params(seed=0)``; ``--model-dir`` serves an export in the dtype its
 ``config.json`` names. ``--quantization int8`` keeps the weights as int8
@@ -71,6 +81,55 @@ def parse_args(argv=None):
                         "(per-slot dirty tracking; clean decode steps "
                         "upload no host state) and re-upload every row "
                         "each step; outputs are identical")
+    p.add_argument("--enable-prefix-caching", action="store_true",
+                   help="reuse KV blocks across requests sharing a prompt "
+                        "prefix (content-addressed, LRU-evicted)")
+    p.add_argument("--prefix-host-blocks", type=int, default=0,
+                   help="host-RAM prefix tier budget in KV blocks: evicted "
+                        "prefix blocks demote here instead of being "
+                        "discarded, and restore with one host->device "
+                        "scatter instead of a re-prefill (0 = tier off; "
+                        "implies --enable-prefix-caching)")
+    p.add_argument("--prefix-disk-dir", default="",
+                   help="disk prefix tier directory: host-tier overflow "
+                        "demotes to digest-verified block dirs here "
+                        "(checkpoint-store manifest/SHA-256 format; corrupt "
+                        "blocks quarantine to _quarantine/ and read as "
+                        "misses)")
+    p.add_argument("--prefix-disk-blocks", type=int, default=0,
+                   help="disk prefix tier budget in block dirs (0 = disk "
+                        "tier off; needs --prefix-disk-dir)")
+    p.add_argument("--speculative", default="none", choices=["none", "ngram"],
+                   help="n-gram prompt-lookup speculative decoding (exact "
+                        "greedy outputs, multiple tokens per model call)")
+    p.add_argument("--num-draft-tokens", type=int, default=4)
+    p.add_argument("--max-prefill-tokens", type=int, default=0,
+                   help="chunked prefill: cap prompt tokens prefilled per "
+                        "engine step so decode never stalls a full prompt "
+                        "length (latency mode; 0 = unbounded throughput "
+                        "mode)")
+    p.add_argument("--ngram-size", type=int, default=2,
+                   help="trailing n-gram length matched for prompt lookup")
+    p.add_argument("--spec-min-acceptance", type=float, default=0.25,
+                   help="speculative gate: pause a slot's proposing when its "
+                        "mean accepted tokens per lookup-hit round fall below "
+                        "this (0 = always speculate)")
+    p.add_argument("--spec-probe-window", type=int, default=64,
+                   help="greedy slot-rounds measured before each gate "
+                        "decision")
+    p.add_argument("--spec-cooldown", type=int, default=32,
+                   help="engine rounds the gate pauses a slot's proposing "
+                        "for after a failed probe window")
+    p.add_argument("--no-spec-adaptive", action="store_true",
+                   help="pin the draft length at --num-draft-tokens "
+                        "instead of picking it per round from live "
+                        "per-slot acceptance (the pow2 draft-length "
+                        "ladder; outputs are identical either way)")
+    p.add_argument("--ragged-prefill", action="store_true",
+                   help="pack prefill chunks from many admissions into "
+                        "shared ragged calls (group width = widest member, "
+                        "padding bounded) instead of one call per length "
+                        "bucket; outputs are identical")
     p.add_argument("--device", default=None, help="cuda (default) or cpu")
     return p.parse_args(argv)
 
@@ -110,11 +169,26 @@ def build(args):
         params = init_params(model_cfg, seed=0, device=device)
         print(f"random-initialized preset {args.random_init} on {device} in "
               f"{time.perf_counter() - t0:.1f} s", flush=True)
+    tiered = args.prefix_host_blocks > 0 or (
+        args.prefix_disk_blocks > 0 and args.prefix_disk_dir)
     ec = EngineConfig(
         max_seqs=args.max_seqs, block_size=args.block_size,
         num_blocks=args.num_blocks, max_model_len=args.max_model_len,
         eos_token_id=tok.eos_id, cache_dtype=args.kv_cache_dtype,
+        enable_prefix_caching=args.enable_prefix_caching or bool(tiered),
+        prefix_host_blocks=args.prefix_host_blocks,
+        prefix_disk_dir=args.prefix_disk_dir,
+        prefix_disk_blocks=args.prefix_disk_blocks,
         steps_per_sync=args.steps_per_sync,
+        speculative=args.speculative,
+        num_draft_tokens=args.num_draft_tokens,
+        ngram_size=args.ngram_size,
+        spec_min_acceptance=args.spec_min_acceptance,
+        spec_probe_window=args.spec_probe_window,
+        spec_cooldown=args.spec_cooldown,
+        spec_adaptive=not args.no_spec_adaptive,
+        max_prefill_tokens_per_step=args.max_prefill_tokens,
+        ragged_prefill=args.ragged_prefill,
         decode_state_cache=not args.no_decode_state_cache,
         quantization=args.quantization)
     engine = InferenceEngine(model_cfg, params, ec, lora_cfg=lora_cfg, device=device,
@@ -143,7 +217,9 @@ def main(argv=None) -> None:
           flush=True)
     t0 = time.time()
     engine.warmup_decode_ladder()
-    print(f"decode programs ready in {time.time() - t0:.0f}s", flush=True)
+    pool = engine.executor.graph_pool_bytes
+    print(f"decode programs ready in {time.time() - t0:.0f}s"
+          + (f" (graph pool {pool / 1e9:.2f} GB)" if pool else ""), flush=True)
     serve(engine, tok, sc)
 
 

@@ -6,9 +6,11 @@ untied head. Parameter names and layouts are the reference's
 (``model.layers.{i}.attn.q_proj.kernel`` is ``(in, out)``), so
 ``models.interop.params_from_jax`` is a rename.
 
-Attention branches ported here: the paged cache, float or int8 (prefill
-through ``paged_gather`` + ``reference_attention``; one-token decode
-through the paged decode kernel, given an int8 pool's scales) and the no-cache (training) path through
+Attention branches ported here: the paged cache, float or int8 (several
+positions a row, a prefill chunk or a speculative verify, through
+``ops.attention.paged_window_attention``, the reference's ``paged_gather``
++ ``reference_attention``; one-token decode through the paged decode
+kernel, given an int8 pool's scales) and the no-cache (training) path through
 ``multi_head_attention`` with ``cfg.attention_impl`` (flash attention's CUDA
 kernels on the card). In training each block runs under
 ``torch.utils.checkpoint`` when ``cfg.remat`` (policy ``nothing_saveable``,
@@ -42,8 +44,8 @@ from torch.utils.checkpoint import checkpoint
 from dlti_tpu_torch.config import LoRAConfig, ModelConfig
 from dlti_tpu_torch.models.lora import LoRADense, dropout_hashes
 from dlti_tpu_torch.models.quantization import QuantizedWeight, weight_of
-from dlti_tpu_torch.ops.attention import multi_head_attention, reference_attention
-from dlti_tpu_torch.ops.kv_cache import paged_gather, paged_update, slot_mapping
+from dlti_tpu_torch.ops.attention import multi_head_attention, paged_window_attention
+from dlti_tpu_torch.ops.kv_cache import paged_update, slot_mapping
 from dlti_tpu_torch.ops.paged_attention import paged_decode_attention
 from dlti_tpu_torch.ops.rope import (
     apply_rope, assert_rope_table_covers, rope_frequencies,
@@ -169,10 +171,8 @@ class LlamaAttention(nn.Module):
                     window=cfg.sliding_window,
                 ).to(q.dtype)
             else:
-                ck, cv = paged_gather(cache, block_tables)
-                out = reference_attention(
-                    q, ck.to(q.dtype), cv.to(q.dtype), causal=True,
-                    q_positions=positions, window=cfg.sliding_window)
+                out = paged_window_attention(q, cache, block_tables, positions,
+                                             window=cfg.sliding_window)
         else:
             out = multi_head_attention(q, k, v, causal=True,
                                        segment_ids=segment_ids,

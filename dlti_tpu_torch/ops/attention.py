@@ -1,6 +1,9 @@
 """Attention ops: the port of ``dlti_tpu/ops/attention.py``
 (``repeat_kv``, ``make_causal_mask``, ``reference_attention`` and the
-``multi_head_attention`` dispatch between it and flash attention).
+``multi_head_attention`` dispatch between it and flash attention), and
+``paged_window_attention``: several query positions a row over the paged KV
+cache (a prefill chunk, a prefix-hit suffix, the speculative verify), the
+reference's ``paged_gather`` + ``reference_attention``.
 
 Scores and softmax are float32 whatever the input dtype, as in the
 reference's ``preferred_element_type=float32`` einsums.
@@ -13,6 +16,7 @@ from typing import Optional
 import torch
 
 from dlti_tpu_torch.ops.flash_attention import flash_attention
+from dlti_tpu_torch.ops.kv_cache import paged_gather
 
 
 def repeat_kv(x: torch.Tensor, n_rep: int) -> torch.Tensor:
@@ -128,3 +132,73 @@ def multi_head_attention(
                                window=window)
     return reference_attention(q, k, v, causal=causal, segment_ids=segment_ids,
                                window=window)
+
+
+def paged_window_attention(q: torch.Tensor, layer_cache: dict,
+                           block_tables: torch.Tensor, q_positions: torch.Tensor,
+                           window: Optional[int] = None) -> torch.Tensor:
+    """Attention of ``s`` query positions a row (``q`` (b, s, h, d), at
+    ``q_positions`` (b, s)) over the row's whole paged window, causal by
+    position: the reference's ``paged_gather`` + ``reference_attention``
+    (``dlti_tpu/models/llama.py:157-187``), which it is everywhere but for a
+    bfloat16 or float16 ``q`` on a CUDA device. There the reference's
+    float32 copies of the window are the cost (a 2048-token window of 28
+    slots is ~0.9 GB a layer in bf16), so :func:`_half_window_attention`
+    gathers the window once into q's dtype and runs both products as
+    half-precision GEMMs with float32 output: the reference's function up to
+    rounding. The products of two half-precision values are exact in
+    float32, so only the summation order differs (as in the LM head's GEMM);
+    an int8 window's row scales multiply the float32 scores and
+    probabilities instead of each payload element, which skips the
+    reference's rounding of ``payload * scale`` to q's dtype."""
+    if q.device.type == "cuda" and q.dtype in (torch.bfloat16, torch.float16):
+        return _half_window_attention(
+            q, layer_cache, block_tables, q_positions, window,
+            lambda a, b: torch.bmm(a, b, out_dtype=torch.float32))
+    k, v = paged_gather(layer_cache, block_tables)
+    return reference_attention(q, k.to(q.dtype), v.to(q.dtype), causal=True,
+                               q_positions=q_positions, window=window)
+
+
+def _half_window_attention(q, layer_cache, block_tables, q_positions, window, bmm):
+    """The card's form of :func:`paged_window_attention` in q's (half)
+    dtype; ``bmm(a, b)`` is a batched product with float32 output. GQA
+    groups each kv head's query heads into one product instead of repeating
+    the window."""
+    b, s, h, d = q.shape
+    _, bs, kvh, _ = layer_cache["k"].shape
+    rep = h // kvh
+    idx = block_tables.long()
+    t = idx.shape[1] * bs
+
+    def window_of(name: str) -> torch.Tensor:
+        """(b * kvh, t, d): the rows in q's dtype (int8 payloads cast
+        exactly, without their scales)."""
+        out = torch.empty((b, kvh, t, d), dtype=q.dtype, device=q.device)
+        out.view(b, kvh, -1, bs, d).permute(0, 2, 3, 1, 4).copy_(layer_cache[name][idx])
+        return out.view(b * kvh, t, d)
+
+    def scales_of(name: str) -> Optional[torch.Tensor]:
+        """(b, kvh, 1, 1, t): an int8 window's float32 row scales."""
+        scale = layer_cache.get(name + "_scale")
+        if scale is None:
+            return None
+        return scale[idx].reshape(b, t, kvh).permute(0, 2, 1)[:, :, None, None, :]
+
+    qg = q.view(b, s, kvh, rep, d).permute(0, 2, 3, 1, 4).reshape(b * kvh, rep * s, d)
+    scores = bmm(qg, window_of("k").transpose(1, 2)).view(b, kvh, rep, s, t)
+    k_scale = scales_of("k")
+    if k_scale is not None:
+        scores = scores * k_scale
+    scores = scores * d ** -0.5
+    kv_pos = torch.arange(t, device=q.device)
+    allowed = kv_pos[None, None, :] <= q_positions[:, :, None]
+    if window is not None:
+        allowed &= kv_pos[None, None, :] > q_positions[:, :, None] - window
+    mask = torch.where(allowed, 0.0, torch.finfo(torch.float32).min)
+    probs = torch.softmax(scores + mask[:, None, None], dim=-1)
+    v_scale = scales_of("v")
+    if v_scale is not None:
+        probs = probs * v_scale
+    out = bmm(probs.to(q.dtype).view(b * kvh, rep * s, t), window_of("v"))
+    return out.view(b, kvh, rep, s, d).permute(0, 3, 1, 2, 4).reshape(b, s, h, d).to(q.dtype)

@@ -33,6 +33,9 @@ class BlockManager:
     def blocks_needed(self, num_tokens: int) -> int:
         return -(-num_tokens // self.block_size)
 
+    def can_allocate(self, n: int) -> bool:
+        return self.num_free >= n
+
     def allocate(self, n: int) -> Optional[List[int]]:
         """Allocate ``n`` blocks, or None (allocating nothing) if they do not
         all fit — admission is all-or-nothing."""

@@ -2,8 +2,9 @@
 ``dlti_tpu/serving/decode_state.py``.
 
 The engine keeps six per-slot host mirrors (block tables, slot seeds,
-generated counts, temperature, top-k, top-p). This cache keeps their device
-twins and maintains them incrementally:
+generated counts, temperature, top-k, top-p), and with speculative decode a
+seventh, each slot's token history. This cache keeps their device twins and
+maintains them incrementally:
 
 * The engine marks a slot dirty at admission, release (retire, preempt,
   abort), block-table growth and prefill completion. :meth:`sync` then
@@ -34,7 +35,8 @@ import torch
 
 from dlti_tpu_torch.utils.device import upload
 
-# Mirror names in the decode iteration's argument order.
+# Mirror names in the decode iteration's argument order; any further
+# mirrors (the spec rounds' "spec_hist") follow them.
 FIELDS = ("block_tables", "slot_seeds", "gen_counts",
           "temperature", "top_k", "top_p")
 STAT_KEYS = ("decode_state_uploads", "decode_state_rows",
@@ -46,12 +48,15 @@ class DecodeStateCache:
 
     def __init__(self, mirrors: Dict[str, np.ndarray], device: torch.device,
                  stats: Optional[dict] = None):
+        self.fields = tuple(mirrors)
+        if self.fields[:len(FIELDS)] != FIELDS:
+            raise ValueError(f"mirrors must start with {FIELDS}, got {self.fields}")
         self._num_slots = len(mirrors[FIELDS[0]])
         self._device = device
         # Allocated once; sync() writes into them.
         self.tensors: Tuple[torch.Tensor, ...] = tuple(
             torch.zeros(mirrors[f].shape, dtype=torch.from_numpy(mirrors[f]).dtype,
-                        device=device) for f in FIELDS)
+                        device=device) for f in self.fields)
         self._dirty: set = set()
         self._all_dirty = True
         self.stats = stats if stats is not None else {}
@@ -73,7 +78,7 @@ class DecodeStateCache:
     def sync(self, mirrors: Dict[str, np.ndarray],
              masked_rows: Sequence[int] = ()) -> Tuple[torch.Tensor, ...]:
         """Bring the device tensors up to date with the host ``mirrors`` and
-        return them in :data:`FIELDS` order."""
+        return them in :attr:`fields` order."""
         if self._all_dirty:
             self.reupload(mirrors, masked_rows)
             self.stats["decode_state_uploads"] += 1
@@ -107,7 +112,7 @@ class DecodeStateCache:
         rows_idx[:len(idx)] = idx
         masked = np.isin(rows_idx, list(masked_rows))
         dev_idx = upload(rows_idx, self._device)
-        for f, t in zip(FIELDS, self.tensors):
+        for f, t in zip(self.fields, self.tensors):
             rows = np.ascontiguousarray(mirrors[f][rows_idx])
             if f == "block_tables" and masked.any():
                 rows[masked] = 0

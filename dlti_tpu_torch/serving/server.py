@@ -5,7 +5,9 @@ port of ``dlti_tpu/serving/server.py`` on one engine.
 * ``POST /v1/chat/completions`` — chat with the Llama-2 template
   (``<s>[INST] {q} [/INST] {a}</s>``, the training data's format)
 * ``GET /v1/models`` · ``GET /health`` · ``GET /stats`` · ``GET /metrics``
-  (Prometheus text exposition of the same counters and histograms)
+  (Prometheus text exposition of the same counters and histograms, with
+  the prefix-cache series, ``dlti_prefix_cache_hit_rate`` and the five
+  ``dlti_spec_*`` series under the reference's names)
 
 Requests take OpenAI's ``stop`` strings (matched on detokenized text, the
 stop string never returned or streamed), ``n`` choices decoding
@@ -38,6 +40,7 @@ from typing import Dict, List, Optional, Tuple
 import torch
 
 from dlti_tpu_torch.data.tokenizer import Tokenizer
+from dlti_tpu_torch.serving import prefix_cache
 from dlti_tpu_torch.serving.engine import InferenceEngine, Request
 from dlti_tpu_torch.serving.sampling import SamplingParams
 from dlti_tpu_torch.telemetry.registry import MetricsRegistry
@@ -73,6 +76,48 @@ def build_registry(async_engine: "AsyncEngine") -> MetricsRegistry:
                                prefix="dlti_")
     for hist in async_engine.engine.telemetry.histograms():
         registry.register(hist)
+    # Tiered prefix-cache telemetry (module-level, as in the reference):
+    # per-tier hit/miss/eviction/promotion/demotion counters and block
+    # gauges, rendered once an engine has touched them.
+    for metric in (prefix_cache.hits_total, prefix_cache.misses_total,
+                   prefix_cache.evictions_total, prefix_cache.promotions_total,
+                   prefix_cache.demotions_total, prefix_cache.blocks_gauge):
+        registry.register(metric)
+
+    def _prefix_hit_rate() -> dict:
+        # The fraction of prompt tokens served from the cache (HBM hits
+        # plus lower-tier restores) over everything the engine handled.
+        s = async_engine.engine.stats
+        cached = s.get("prefix_cached_tokens", 0)
+        restored = s.get("prefix_restored_tokens", 0)
+        total = cached + restored + s.get("prefill_tokens", 0)
+        return {"prefix_cache_hit_rate":
+                (cached + restored) / total if total else 0.0}
+
+    registry.add_scalar_source(_prefix_hit_rate,
+                               gauge_keys=("prefix_cache_hit_rate",),
+                               prefix="dlti_")
+
+    def _spec_scalars() -> dict:
+        # The speculative-decode series (engine.SPEC_METRIC_NAMES): raw
+        # draft counters, the cumulative acceptance ratio and the draft
+        # length of the last decode round.
+        eng = async_engine.engine
+        s = eng.stats
+        p = s.get("spec_proposed", 0)
+        return {
+            "spec_proposed_total": p,
+            "spec_accepted_total": s.get("spec_accepted", 0),
+            "spec_paused_rounds_total": s.get("spec_paused_rounds", 0),
+            "spec_acceptance_rate":
+                s.get("spec_accepted", 0) / p if p else 0.0,
+            "spec_draft_len": getattr(eng, "spec_draft_len", 0),
+        }
+
+    registry.add_scalar_source(
+        _spec_scalars,
+        gauge_keys=("spec_acceptance_rate", "spec_draft_len"),
+        prefix="dlti_")
     return registry
 
 

@@ -38,15 +38,56 @@ HOST_PREP_BUCKETS = (1e-5, 2.5e-5, 5e-5, 1e-4, 2.5e-4, 5e-4, 0.001,
                      0.0025, 0.005, 0.01, 0.025, 0.05, 0.1)
 
 
-class Counter:
-    """A monotonic counter (unlabelled: the reference's label children come
-    with the first ported consumer that needs them)."""
+def _fmt_labels(labels: Tuple[Tuple[str, str], ...]) -> str:
+    if not labels:
+        return ""
+    inner = ",".join(f'{k}="{v}"' for k, v in labels)
+    return "{" + inner + "}"
 
-    kind = "counter"
 
-    def __init__(self, name: str, help: str = ""):
+class _Metric:
+    """Shared label-child machinery: ``.labels(k=v)`` returns (creating on
+    first use) the child for that label set. A metric declared without
+    ``labelnames`` has its unlabelled child from the start, so it renders
+    at 0; a labelled one renders only the children it has."""
+
+    kind = "untyped"
+
+    def __init__(self, name: str, help: str = "",
+                 labelnames: Sequence[str] = ()):
         self.name = name
         self.help = help
+        self.labelnames = tuple(labelnames)
+        self._lock = threading.Lock()
+        self._children: Dict[Tuple[Tuple[str, str], ...], object] = {}
+        if not self.labelnames:
+            self._default()
+
+    def _new_child(self):
+        raise NotImplementedError
+
+    def labels(self, **labels: str):
+        key = tuple(sorted((k, str(v)) for k, v in labels.items()))
+        with self._lock:
+            child = self._children.get(key)
+            if child is None:
+                child = self._children[key] = self._new_child()
+            return child
+
+    def _default(self):
+        return self.labels()
+
+    def samples(self) -> List[Tuple[str, str, object]]:
+        """[(name, labels_str, child)] under lock, sorted by labels."""
+        with self._lock:
+            return [(self.name, _fmt_labels(key), child)
+                    for key, child in sorted(self._children.items())]
+
+
+class _CounterChild:
+    __slots__ = ("_value", "_lock")
+
+    def __init__(self):
         self._value = 0.0
         self._lock = threading.Lock()
 
@@ -59,15 +100,49 @@ class Counter:
         return self._value
 
 
-class Gauge(Counter):
-    kind = "gauge"
+class Counter(_Metric):
+    """A monotonic counter, with optional label children (``tier="hbm"``)."""
 
+    kind = "counter"
+
+    def _new_child(self):
+        return _CounterChild()
+
+    def inc(self, amount: float = 1.0) -> None:
+        self._default().inc(amount)
+
+    @property
+    def value(self) -> float:
+        return self._default().value
+
+
+class _GaugeChild(_CounterChild):
     def set(self, value: float) -> None:
         with self._lock:
             self._value = float(value)
 
     def dec(self, amount: float = 1.0) -> None:
         self.inc(-amount)
+
+
+class Gauge(_Metric):
+    kind = "gauge"
+
+    def _new_child(self):
+        return _GaugeChild()
+
+    def set(self, value: float) -> None:
+        self._default().set(value)
+
+    def inc(self, amount: float = 1.0) -> None:
+        self._default().inc(amount)
+
+    def dec(self, amount: float = 1.0) -> None:
+        self._default().inc(-amount)
+
+    @property
+    def value(self) -> float:
+        return self._default().value
 
 
 class Histogram:
@@ -215,7 +290,8 @@ class MetricsRegistry:
                 if m.stats_key not in out:
                     out[m.stats_key] = m.summary()
             else:
-                out.setdefault(m.name, m.value)
+                for name, labels, child in m.samples():
+                    out.setdefault(name + labels, child.value)
         return out
 
     def render_prometheus(self) -> str:
@@ -233,7 +309,11 @@ class MetricsRegistry:
             if isinstance(m, Histogram):
                 blocks.append((m.name, m.render()))
                 continue
-            blocks.append((m.name, [f"# TYPE {m.name} {m.kind}", f"{m.name} {m.value}"]))
+            lines = [f"# TYPE {m.name} {m.kind}"]
+            lines += [f"{name}{labels} {child.value}"
+                      for name, labels, child in m.samples()]
+            if len(lines) > 1:
+                blocks.append((m.name, lines))
         blocks.sort(key=lambda b: b[0])
         lines = [line for _, blk in blocks for line in blk]
         return "\n".join(lines) + "\n"

@@ -1544,3 +1544,177 @@ def test_int8_base_under_zero3_and_offload_equals_the_plain_int8_step(gen, nccl_
         assert (a == b).all(), (a, b)
     assert all(torch.equal(a, b.to(a.device)) for a, b in zip(plain[1] + plain[2],
                                                               zero[1] + zero[2]))
+
+
+# ----------------------------------------------------------------------
+# Speculative decode, prefix-tier block transport and chunked prefill: the
+# spec rounds as CUDA graphs equal to the eager rounds, no host sync in a
+# spec dispatch, fetch -> restore bit-equal on every pool, chunked bf16
+# prefill against one call
+# ----------------------------------------------------------------------
+
+# chip_smoke.py's limit for logits of one function reached two ways in bf16.
+LOGITS_REL_TOL = 5e-2
+
+
+def _spec_engine(graphs, pool="bfloat16", k=4, rounds=4):
+    from dlti_tpu_torch.models import init_params
+    from dlti_tpu_torch.serving import EngineConfig, InferenceEngine
+    from dlti_tpu_torch.serving.engine import EngineExecutor
+
+    cfg = _tiny_bf16_cfg()
+    params = init_params(cfg, seed=0, device="cuda")
+    ec = EngineConfig(max_seqs=4, block_size=16, num_blocks=64, max_model_len=128,
+                      cache_dtype=pool, eos_token_id=-1, steps_per_sync=rounds,
+                      speculative="ngram", num_draft_tokens=k, spec_min_acceptance=0.0)
+    ex = EngineExecutor(cfg, params, ec, device="cuda", cuda_graphs=graphs)
+    return InferenceEngine(cfg, params, ec, device="cuda", executor=ex)
+
+
+def _spec_requests(engine):
+    from dlti_tpu_torch.serving import SamplingParams
+
+    return [engine.submit([6, 6, 7, 7] * 3, SamplingParams(temperature=0.0, max_tokens=40)),
+            engine.submit([1, 2, 3], SamplingParams(temperature=0.8, top_p=0.9,
+                                                    max_tokens=25, seed=4)),
+            engine.submit([5, 5, 5, 5], SamplingParams(temperature=0.0, max_tokens=33))]
+
+
+@pytest.mark.parametrize("pool", ["bfloat16", "int8"])
+def test_spec_graph_replays_equal_eager_rounds(gen, pool):
+    """One spec round per draft length captured and replayed round by
+    round gives the eager rounds' tokens and logprobs; the spec rounds run
+    no K4 (the verify takes the gather path) and the plain windows between
+    them launch it once per layer per step."""
+    runs = []
+    for graphs in (False, True):
+        engine = _spec_engine(graphs, pool)
+        engine.warmup_decode_ladder()
+        tpa.launches = tpa.launches_int8 = 0
+        reqs = _spec_requests(engine)
+        while engine.has_work:
+            engine.step()
+        torch.cuda.synchronize()
+        assert bool(engine.executor.spec_graphs) == graphs
+        assert engine.stats["spec_accepted"] > 0
+        runs.append([(r.output_token_ids, r.output_logprobs) for r in reqs])
+    assert runs[0] == runs[1]
+    assert [len(t) for t, _ in runs[0]] == [40, 25, 33]
+
+
+def test_spec_dispatch_never_syncs_the_host(gen):
+    engine = _spec_engine(True)
+    engine.warmup_decode_ladder()
+    _spec_requests(engine)
+    engine.step()  # admission and prefill
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        pending = engine._decode_dispatch()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert pending[0] == "spec"
+    engine._decode_complete(pending)
+    while engine.has_work:
+        engine.step()
+    assert engine.block_manager.num_free == 63
+
+
+@pytest.mark.parametrize("pool", ["bfloat16", "float16", "int8"])
+def test_fetch_and_restore_block_round_trip_bit_equal_on_the_card(gen, pool):
+    from dlti_tpu_torch.models import init_params
+    from dlti_tpu_torch.serving import EngineConfig
+    from dlti_tpu_torch.serving.engine import EngineExecutor
+
+    cfg = _tiny_bf16_cfg()
+    ec = EngineConfig(max_seqs=2, block_size=16, num_blocks=32, max_model_len=128,
+                      cache_dtype=pool, eos_token_id=-1)
+    ex = EngineExecutor(cfg, init_params(cfg, seed=0, device="cuda"), ec, device="cuda")
+    for layer in ex.cache:
+        for t in layer.values():
+            if t.dtype == torch.int8:
+                t.copy_(torch.randint(-127, 128, t.shape, device="cuda", generator=gen,
+                                      dtype=torch.int8))
+            else:
+                t.copy_(torch.randn(t.shape, device="cuda", generator=gen).to(t.dtype))
+    payload = ex.fetch_block_kv(5)
+    rows = [r for layer in payload.values() for r in layer.values()]
+    assert all(r.device.type == "cpu" and r.is_pinned() for r in rows)
+    before = [{k: t.clone() for k, t in layer.items()} for layer in ex.cache]
+    ex.restore_block(9, payload)
+    torch.cuda.synchronize()
+    for layer, old in zip(ex.cache, before):
+        for k, t in layer.items():
+            assert torch.equal(t[9], old[k][5]) and torch.equal(t[5], old[k][5])
+            others = [b for b in range(t.shape[0]) if b != 9]
+            assert torch.equal(t[others], old[k][others])
+
+
+def test_chunked_bf16_prefill_logits_match_one_call(gen):
+    """A 100-token prompt prefilled in one call and in chunks of 16 at their
+    offsets (each chunk attending to the keys the earlier ones wrote): the
+    last logits agree within chip_smoke.py's bf16 limit."""
+    import numpy as np
+
+    from dlti_tpu_torch.models import init_params
+    from dlti_tpu_torch.serving import EngineConfig
+    from dlti_tpu_torch.serving.engine import EngineExecutor
+
+    cfg = _tiny_bf16_cfg()
+    ec = EngineConfig(max_seqs=2, block_size=16, num_blocks=32, max_model_len=128,
+                      eos_token_id=-1)
+    ex = EngineExecutor(cfg, init_params(cfg, seed=0, device="cuda"), ec, device="cuda")
+    tokens = np.random.default_rng(0).integers(3, cfg.vocab_size, size=100)
+    n = len(tokens)
+
+    def table(first):
+        bt = np.zeros((1, ec.max_blocks_per_seq), np.int32)
+        bt[0, :7] = np.arange(first, first + 7)
+        return bt
+
+    whole = ex.prefill(tokens[None].astype(np.int32), np.arange(n, dtype=np.int32)[None],
+                       table(1), np.array([n - 1], np.int32))
+    for start in range(0, n, 16):
+        piece = tokens[start:start + 16]
+        ids = np.zeros((1, 16), np.int32)
+        pos = np.full((1, 16), -1, np.int32)
+        ids[0, :len(piece)] = piece
+        pos[0, :len(piece)] = np.arange(start, start + len(piece))
+        last = ex.prefill(ids, pos, table(8), np.array([len(piece) - 1], np.int32))
+    scale = whole.abs().max().item()
+    assert (last - whole).abs().max().item() <= LOGITS_REL_TOL * scale
+
+
+@pytest.mark.parametrize("pool,dtype", [("int8", torch.bfloat16), ("bfloat16", torch.bfloat16),
+                                        ("float16", torch.float16)])
+@pytest.mark.parametrize("kv_heads", [32, 8])
+def test_paged_window_attention_matches_the_reference_path(gen, pool, dtype, kv_heads):
+    """The card's multi-position paged attention (half-precision GEMMs with
+    float32 output over a window gathered once in q's dtype) against the
+    reference path (``paged_gather`` + ``reference_attention`` in float32)
+    at a verify's shape: 28 slots x 5 positions over 2048-token tables. The
+    two sum in another order and round the output to q's type: one step of
+    it apart (``TOL``)."""
+    from dlti_tpu_torch.ops.attention import paged_window_attention, reference_attention
+    from dlti_tpu_torch.ops.kv_cache import init_paged_cache, paged_gather
+
+    cache = init_paged_cache(1, 512, 16, kv_heads, 128,
+                             "int8" if pool == "int8" else getattr(torch, pool),
+                             device="cuda")[0]
+    for name in ("k", "v"):
+        t = cache[name]
+        if t.dtype == torch.int8:
+            t.copy_(torch.randint(-127, 128, t.shape, device="cuda", generator=gen,
+                                  dtype=torch.int8))
+            cache[name + "_scale"].copy_(torch.rand(cache[name + "_scale"].shape,
+                                                    device="cuda", generator=gen) * 0.02)
+        else:
+            t.copy_(torch.randn(t.shape, device="cuda", generator=gen).to(t.dtype))
+    tables = torch.randint(1, 512, (28, 128), device="cuda", generator=gen, dtype=torch.int32)
+    start = torch.randint(0, 2043, (28, 1), device="cuda", generator=gen)
+    pos = (start + torch.arange(5, device="cuda")).to(torch.int32)
+    q = torch.randn(28, 5, 32, 128, device="cuda", generator=gen).to(dtype)
+    got = paged_window_attention(q, cache, tables, pos)
+    k, v = paged_gather(cache, tables)
+    want = reference_attention(q, k.to(dtype), v.to(dtype), causal=True, q_positions=pos)
+    torch.testing.assert_close(got.float(), want.float(), atol=TOL[dtype], rtol=0)
