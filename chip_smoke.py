@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's serving, training (single-device and ZeRO),
-checkpoint-to-serving, HTTP serving and load-test paths on one NVIDIA GPU
-(an H100).
+checkpoint-to-serving, HTTP serving, load-test, Hugging Face interop and
+multi-LoRA serving paths on one NVIDIA GPU (an H100).
 
     python3 chip_smoke.py
 
@@ -204,8 +204,9 @@ Phases, each of which fails the run if its check fails:
     below the bf16-weight engine. Prints each run's step ms, tokens/s, MFU,
     peak and launches a step, the server's TTFT and TPOT, both engines'
     peaks, and the CSVs' tables. The server then takes Quickstart step 5
-    as a subprocess, ``cli.benchmark_serving --num-requests
-    112 --concurrency 56 --max-tokens 256``: 112 ok, none failed; prints
+    as a subprocess, ``cli.benchmark_serving --num-requests 56
+    --concurrency 28 --max-tokens 256`` (the README's 112 and 56, halved to
+    make room for phase 19): 56 ok, none failed; prints
     requests/s, output tok/s, TTFT p50/p99 and mean TPOT.
 18. The engine features at llama2_7b width (run last). First each feature
     against the engine without it, at full width cut to 8 layers in float32
@@ -218,7 +219,9 @@ Phases, each of which fails the run if its check fails:
     rounds run eagerly. Greedy tokens identical in every pair; K4 launched
     layers x plain decode steps, as the decode graph credits; a spec
     window's dispatch under ``set_sync_debug_mode("error")``. Then over HTTP
-    at full depth: ``cli.serve --random-init llama2_7b --quantization int8
+    at the same width and depth (an export of ``init_params(seed=0)`` in
+    bf16; cut from full depth to make room for phase 19):
+    ``cli.serve --model-dir E --quantization int8
     --kv-cache-dtype int8 --max-seqs 28 --num-blocks 910 --steps-per-sync 32
     --max-prefill-tokens 256 --ragged-prefill --enable-prefix-caching
     --prefix-host-blocks 256 --speculative ngram --num-draft-tokens 4``
@@ -230,6 +233,25 @@ Phases, each of which fails the run if its check fails:
     TTFT p50/p99, TPOT, output tok/s, the hit rate, spec acceptance and
     tokens per slot-round, spec round and plain step ms, and the graph
     pool's size.
+19. Hugging Face checkpoints, PEFT adapters and multi-LoRA serving (run
+    last), llama2_7b at full width and depth: ``save_hf_checkpoint`` of
+    ``init_params(seed=0)`` in bf16 (4 shards and an index) and
+    ``load_hf_checkpoint`` back onto the card, every tensor bit-equal, GB
+    and seconds each way; ``cli.train --init-from-hf DIR --lora-r 16`` (phase
+    7's batch, 4 graphed steps, 2 a sync) with ``--export-peft`` and
+    ``--export-hf``, K1-K3 counted as in phase 7, the HF export bit-equal to
+    ``merge_lora_params`` of the run's base and the factors its PEFT export
+    holds; the trained adapter (``load_peft_adapter`` -> ``save_adapter``)
+    and a seeded one registered with ``--adapter`` and in the catalog; 8
+    slots of base rows and both adapters in one decode batch (bf16 pool, k
+    8, a row load under ``set_sync_debug_mode("error")``): base rows
+    token-identical to the adapter-off engine's, K4 32 x decode steps, the
+    pool's bytes the plan's, the decode step with and without the adapter
+    branch; at 8 layers in float32 every row token-identical to an engine
+    holding its adapter as static LoRA leaves; over HTTP on an int8 pool,
+    ``POST /v1/adapters``, ``X-Adapter`` completions (K4q 32 x decode
+    steps), a 404 for an unknown name and the ``dlti_adapter_*`` series on
+    ``/metrics``. Every directory it writes is removed.
 
 Prints a ``{"kernels": [...]}`` line (each kernel's float16 mode a row of
 its own), and as its last line
@@ -2315,13 +2337,13 @@ DOCUMENTED_FLAGS = ["--max-seqs", "28", "--steps-per-sync", "64", "--quantizatio
 DOCUMENTED_ARGS = SERVE_ARGS + DOCUMENTED_FLAGS
 
 
-def http_request(addr, method, path, body=None, timeout=600):
+def http_request(addr, method, path, body=None, timeout=600, headers=None):
     import http.client
 
     conn = http.client.HTTPConnection(*addr, timeout=timeout)
     try:
         conn.request(method, path, json.dumps(body) if body is not None else None,
-                     {"Content-Type": "application/json"})
+                     {"Content-Type": "application/json", **(headers or {})})
         resp = conn.getresponse()
         return resp.status, resp.read()
     finally:
@@ -3054,9 +3076,10 @@ def phase_quickstart(torch, card, flush):
             check(not errors and all(r is not None for r in results),
                   f"quickstart server requests failed: {errors}")
             stats = json.loads(http_request(addr, "GET", "/stats")[1])
-            # Quickstart step 5 with README's own flags, as a subprocess.
+            # Quickstart step 5 (STEP5_FLAGS), as a subprocess.
             step5 = run_loadgen(addr, STEP5_FLAGS, "[quickstart loadgen]")
-            check(step5["num_requests"] == 112, f"step 5 sent {step5['num_requests']}")
+            check(step5["num_requests"] == STEP5_REQUESTS,
+                  f"step 5 sent {step5['num_requests']}")
             return {"wall_s": wall, "requests": len(reqs),
                     "ttft_p50_s": stats["request_ttft_seconds"]["p50"],
                     "ttft_p99_s": stats["request_ttft_seconds"]["p99"],
@@ -3112,8 +3135,12 @@ def phase_quickstart(torch, card, flush):
 # Slice 12: the load test and the engine features it measures
 # ----------------------------------------------------------------------
 
-# README Quickstart step 5's flags.
-STEP5_FLAGS = ["--num-requests", "112", "--concurrency", "56", "--max-tokens", "256"]
+# README Quickstart step 5's flags at half its requests and concurrency (112
+# and 56, cut to make room for phase 19): two waves of the server's 28
+# slots, as the full run's 56 concurrent clients made.
+STEP5_REQUESTS = 56
+STEP5_FLAGS = ["--num-requests", str(STEP5_REQUESTS), "--concurrency", "28",
+               "--max-tokens", "256"]
 LOADGEN_KEYS = ("num_requests", "num_ok", "num_shed", "requests_per_s",
                 "output_tokens_per_s", "ttft_p50_s", "ttft_p99_s", "tpot_mean_ms",
                 "latency_p50_s", "latency_p99_s", "cache_hit_rate", "num_warm",
@@ -3406,8 +3433,10 @@ def feature_pairs(torch, cfg, params, device, sizes):
 
 
 # Phase 18's server: the latency-bounded configuration with the features on,
-# and the same flags without them as the yardstick.
-FEATURE_BASE_ARGS = ["--random-init", "llama2_7b", "--tokenizer", "byte",
+# and the same flags without them as the yardstick, serving an export of
+# llama2_7b at full width cut to FEATURE_LAYERS layers (the full depth's
+# load tests took 210 s of the run; cut to make room for phase 19).
+FEATURE_BASE_ARGS = ["--tokenizer", "byte",
                      "--quantization", "int8", "--kv-cache-dtype", "int8",
                      "--max-seqs", "28", "--num-blocks", "910", "--steps-per-sync", "32",
                      "--host", "127.0.0.1", "--port", "0"]
@@ -3423,12 +3452,16 @@ MIXED_FLAGS = ["--qps", "1.5", "--num-requests", "32", "--max-tokens", "256",
 def phase_features(torch, card):
     """Phase 18: the engine features at llama2_7b width. First each feature
     against the engine without it at 8 layers in float32 (``feature_pairs``);
-    then over HTTP at full depth, the serve CLI with the features on under
-    two load tests (sessions; an open-loop mix with long prompts), and the
-    same flags without the features under the second as the yardstick."""
+    then over HTTP on an export at the same depth in bf16, the serve CLI
+    with the features on under two load tests (sessions; an open-loop mix
+    with long prompts), and the same flags without the features under the
+    second as the yardstick."""
     import dataclasses as dc
+    import shutil
+    import tempfile
 
-    from dlti_tpu_torch.config import MODEL_PRESETS
+    from dlti_tpu_torch.checkpoint import export_merged_model
+    from dlti_tpu_torch.config import MODEL_PRESETS, CheckpointConfig, Config, LoRAConfig
     from dlti_tpu_torch.models.interop import init_params
 
     t_phase = time.perf_counter()
@@ -3442,6 +3475,17 @@ def phase_features(torch, card):
     del params
     free_memory(torch)
     perf["pairs_s"] = time.perf_counter() - t_phase
+    # The servers' model: the same width and depth in bf16, as an export.
+    root = Path(tempfile.mkdtemp(prefix="dlti-features-"))
+    bf16 = dc.replace(cfg, dtype="bfloat16", param_dtype="bfloat16")
+    params = init_params(bf16, seed=0, device="cuda")
+    export_merged_model(str(root / "export"), params,
+                        Config(model=bf16, lora=LoRAConfig(enabled=False),
+                               checkpoint=CheckpointConfig(output_dir=str(root / "ck"),
+                                                           save_strategy="no")))
+    del params
+    free_memory(torch)
+    model_args = ["--model-dir", str(root / "export")]
 
     def pool_gb(seen):
         for ln in seen:
@@ -3465,18 +3509,21 @@ def phase_features(torch, card):
                     "spec_paused_rounds", "decode_steps", "decode_slot_steps",
                     "generated_tokens", "requests", "preemptions")}}
 
-    py = [sys.executable, "-m", "dlti_tpu_torch.cli.serve"]
-    seen, on = serve_subprocess(py + FEATURE_BASE_ARGS + FEATURE_FLAGS,
-                                "[features serve on]", drive=drive_on)
-    st = on["stats"]
-    on["graph_pool_gb"] = pool_gb(seen)
-    on["spec_acceptance"] = st["spec_accepted"] / max(1, st["spec_proposed"])
-    on["tokens_per_slot_round"] = ((st["generated_tokens"] - st["requests"])
-                                   / max(1, st["decode_slot_steps"]))
-    seen, off = serve_subprocess(
-        py + FEATURE_BASE_ARGS, "[features serve off]",
-        drive=lambda addr: {"mixed": loadgen_summary(
-            run_loadgen(addr, MIXED_FLAGS, "[features serve off]"))})
+    py = [sys.executable, "-m", "dlti_tpu_torch.cli.serve"] + model_args
+    try:
+        seen, on = serve_subprocess(py + FEATURE_BASE_ARGS + FEATURE_FLAGS,
+                                    "[features serve on]", drive=drive_on)
+        st = on["stats"]
+        on["graph_pool_gb"] = pool_gb(seen)
+        on["spec_acceptance"] = st["spec_accepted"] / max(1, st["spec_proposed"])
+        on["tokens_per_slot_round"] = ((st["generated_tokens"] - st["requests"])
+                                       / max(1, st["decode_slot_steps"]))
+        seen, off = serve_subprocess(
+            py + FEATURE_BASE_ARGS, "[features serve off]",
+            drive=lambda addr: {"mixed": loadgen_summary(
+                run_loadgen(addr, MIXED_FLAGS, "[features serve off]"))})
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
     off["graph_pool_gb"] = pool_gb(seen)
     perf["serve"] = {"on": on, "off": off}
     for name, rec in (("on", on), ("off", off)):
@@ -3491,6 +3538,361 @@ def phase_features(torch, card):
         f"{on['tokens_per_slot_round']:.3f}; /stats {json.dumps(st)}")
     perf["phase_s"] = time.perf_counter() - t_phase
     log(f"[features] card {card}; phase {perf['phase_s']:.1f} s")
+    return perf
+
+
+# ----------------------------------------------------------------------
+# Phase 19: Hugging Face checkpoints in and out, PEFT adapters, multi-LoRA
+# ----------------------------------------------------------------------
+
+HF_SHARDS = 4          # llama2_7b in bf16 over 4 GiB shards
+HF_TRAIN_STEPS = 4
+ADAPTER_RANK = 16
+ADAPTER_LAYERS = 8     # the float32 static-LoRA comparison's depth
+# Phase 19's mixed batch: the slot each request takes and its adapter ("" =
+# the base), greedy, 33 tokens each (one from the prefill, four windows of 8).
+ADAPTER_ASSIGN = ["", "trained", "seeded", "", "trained", "seeded", "", "seeded"]
+ADAPTER_MAX_TOKENS = 33
+ADAPTER_SERVE_ARGS = ["--random-init", "llama2_7b", "--tokenizer", "byte",
+                      "--max-seqs", "8", "--num-blocks", "512", "--steps-per-sync", "8",
+                      "--host", "127.0.0.1", "--port", "0"]
+
+
+def lora_names(cfg, targets=("q_proj", "k_proj", "v_proj", "o_proj"), layers=None):
+    """``{name: (shape)}`` of the LoRA factors at rank ``ADAPTER_RANK``."""
+    hd = cfg.resolved_head_dim
+    out_dim = {"q_proj": cfg.num_heads * hd, "k_proj": cfg.num_kv_heads * hd,
+               "v_proj": cfg.num_kv_heads * hd, "o_proj": cfg.hidden_size}
+    in_dim = {"q_proj": cfg.hidden_size, "k_proj": cfg.hidden_size,
+              "v_proj": cfg.hidden_size, "o_proj": cfg.num_heads * hd}
+    out = {}
+    for i in range(cfg.num_layers if layers is None else layers):
+        for p in targets:
+            pre = f"model.layers.{i}.attn.{p}"
+            out[f"{pre}.lora_a"] = (in_dim[p], ADAPTER_RANK)
+            out[f"{pre}.lora_b"] = (ADAPTER_RANK, out_dim[p])
+    return out
+
+
+def adapter_run(torch, engine, prompts, assign):
+    """The mixed batch on ``engine`` (one wave: every slot admitted in the
+    first step): each request's tokens, the decode steps, K4 or K4q launches
+    (counted from 0 here) and each window's (k, seconds)."""
+    from dlti_tpu_torch.ops import paged_attention as tpa
+    from dlti_tpu_torch.serving.sampling import SamplingParams
+
+    engine.warmup_decode_ladder()
+    torch.cuda.synchronize()
+    spans = window_clock(engine)
+    tpa.launches = tpa.launches_int8 = 0
+    steps0 = engine.stats["decode_steps"]
+    sp = SamplingParams(temperature=0.0, max_tokens=ADAPTER_MAX_TOKENS)
+    reqs = [engine.submit(p, sp, adapter=a) for p, a in zip(prompts, assign)]
+    while engine.has_work:
+        engine.step()
+    torch.cuda.synchronize()
+    return {"tokens": [r.output_token_ids for r in reqs],
+            "finish": [r.finish_reason for r in reqs],
+            "decode_steps": engine.stats["decode_steps"] - steps0,
+            "k4": tpa.launches, "k4q": tpa.launches_int8, "spans": list(spans)}
+
+
+def step_ms(spans) -> float:
+    """Median ms per device step over full windows (k > 1)."""
+    import statistics
+
+    per = [1e3 * s / k for k, s in spans if k > 1]
+    return statistics.median(per) if per else float("nan")
+
+
+def phase_hf_adapters(torch, card):
+    """Phase 19: an HF checkpoint of llama2_7b written and read back; the
+    train CLI from it with PEFT and HF exports; the trained and a seeded
+    adapter served over one base in one decode batch (bf16 pool, full
+    depth), held against the adapter-off engine and, at 8 layers in
+    float32, against static-LoRA engines; then over HTTP on an int8 pool."""
+    import os
+    import shutil
+    import tempfile
+    import threading
+
+    from dlti_tpu_torch.cli import serve as cli
+    from dlti_tpu_torch.config import MODEL_PRESETS, LoRAConfig
+    from dlti_tpu_torch.models import hf_interop as hf
+    from dlti_tpu_torch.models import merge_lora_params
+    from dlti_tpu_torch.models.interop import init_params
+    from dlti_tpu_torch.ops import paged_attention as tpa
+    from dlti_tpu_torch.serving import EngineConfig, InferenceEngine, make_server
+    from dlti_tpu_torch.serving import adapters as ad
+
+    t_phase = time.perf_counter()
+    free_memory(torch)
+    cfg = MODEL_PRESETS["llama2_7b"]
+    layers = cfg.num_layers
+    root = Path(tempfile.mkdtemp(prefix="dlti-hf-"))
+    perf = {"card": card}
+    try:
+        # 1. the HF directory, written and read back
+        params = init_params(cfg, seed=0, device="cuda")
+        gb = sum(t.numel() * t.element_size() for t in params.values()) / 1e9
+        hf_dir = root / "hf"
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        hf.save_hf_checkpoint(str(hf_dir), params, cfg)
+        write_s = time.perf_counter() - t0
+        shards = sorted(f for f in os.listdir(hf_dir) if f.endswith(".safetensors"))
+        check(len(shards) == HF_SHARDS,
+              f"[hf] expected {HF_SHARDS} shards and an index, got {os.listdir(hf_dir)}")
+        t0 = time.perf_counter()
+        back, back_cfg = hf.load_hf_checkpoint(str(hf_dir), device="cuda")
+        torch.cuda.synchronize()
+        read_s = time.perf_counter() - t0
+        arch = ("vocab_size", "hidden_size", "intermediate_size", "num_layers", "num_heads",
+                "num_kv_heads", "resolved_head_dim", "rope_theta", "rms_norm_eps",
+                "tie_embeddings", "max_seq_len")
+        check(all(getattr(back_cfg, f) == getattr(cfg, f) for f in arch),
+              f"[hf] config.json read back as {back_cfg}")
+        # Every leaf comes back in param_dtype (the norm scales too, as in the
+        # reference's mapping); compared in the written leaf's dtype.
+        bad = [n for n, t in params.items()
+               if back[n].dtype != torch.bfloat16 or not torch.equal(back[n].to(t.dtype), t)]
+        check(sorted(back) == sorted(params) and not bad,
+              f"[hf] {len(bad)} leaves differ after the round trip: {bad[:4]}")
+        perf["hf_io"] = {"gb": gb, "write_s": write_s, "read_s": read_s,
+                         "write_gb_s": gb / write_s, "read_gb_s": gb / read_s,
+                         "shards": len(shards)}
+        log(f"[hf] llama2_7b init_params(seed=0), {gb:.3f} GB in {len(shards)} shards: "
+            f"save_hf_checkpoint {write_s:.2f} s ({gb / write_s:.2f} GB/s, fsynced), "
+            f"load_hf_checkpoint to the card {read_s:.2f} s ({gb / read_s:.2f} GB/s); "
+            f"{len(params)} tensors bit-equal")
+        del params, back
+        free_memory(torch)
+
+        # 2. cli.train from the HF directory, with both exports
+        data = root / "data.jsonl"
+        data.write_text("".join(json.dumps({"text": t}) + "\n" for t in training_texts()))
+        peft_dir, hf_out = root / "peft", root / "hf_out"
+        py = [sys.executable, "-m", "dlti_tpu_torch.cli.train"]
+        summary, out = run_train_cli(py + [
+            "--model", "llama2_7b", "--preset", "baseline", "--tokenizer", "byte",
+            "--dataset-path", str(data), "--max-seq-len", "512",
+            "--per-device-batch-size", "4", "--gradient-accumulation-steps", "2",
+            "--max-steps", str(HF_TRAIN_STEPS), "--steps-per-sync", "2",
+            "--warmup-steps", "2", "--learning-rate", "2e-4",
+            "--lora-r", str(ADAPTER_RANK), "--save-strategy", "no",
+            "--output-dir", str(root / "ck"),
+            "--metrics-csv", str(root / "m.csv"), "--step-log", str(root / "steps.jsonl"),
+            "--init-from-hf", str(hf_dir), "--export-peft", str(peft_dir),
+            "--export-hf", str(hf_out)], "[hf train]")
+        run = quickstart_run_perf(summary, root / "steps.jsonl")
+        n = flash_expected(layers, 2, HF_TRAIN_STEPS + run["captures"])
+        want = {"fwd": n["flash_fwd"], "dq": n["flash_bwd_dq"], "dkv": n["flash_bwd_dkv"]}
+        check(run["launches"] == want,
+              f"[hf train] K1-K3 launches {run['launches']}, expected {want}")
+        check(run["steps"] == HF_TRAIN_STEPS and math.isfinite(run["final_loss"])
+              and "PEFT adapter ->" in out and "HF checkpoint ->" in out,
+              f"[hf train] run {run}")
+        perf["train"] = run
+        log(f"[hf train] cli.train --init-from-hf: {run['steps']} steps, step "
+            f"{run['step_ms']:.1f} ms, {run['tokens_per_s']:.1f} tokens/s, peak "
+            f"{run['peak_memory_gb']} GB, {run['captures']} capture, K1-K3 launches "
+            f"{run['launches']} (= 32 layers x 2 microbatches x {HF_TRAIN_STEPS} steps + "
+            f"the capture's warm-up step, K1 twice under remat)")
+        # The HF export against merge_lora_params of the trained state: the
+        # base the run started from with the factors its PEFT export holds.
+        lora = {n: torch.zeros(s, device="cuda") for n, s in lora_names(cfg).items()}
+        hf.load_peft_adapter(str(peft_dir), lora)
+        check(all(bool(t.any()) for n, t in lora.items() if n.endswith("lora_b")),
+              "[hf train] a trained lora_b is still zero")
+        base, _ = hf.load_hf_checkpoint(str(hf_dir), device="cuda")
+        merged = merge_lora_params({**base, **lora}, alpha=2 * ADAPTER_RANK)
+        del base
+        exported, _ = hf.load_hf_checkpoint(str(hf_out), device="cuda")
+        bad = [n for n in merged if not torch.equal(exported[n], merged[n])]
+        check(sorted(exported) == sorted(merged) and not bad,
+              f"[hf train] the HF export differs from the merged state at {bad[:4]}")
+        log(f"[hf train] load_hf_checkpoint(--export-hf) bit-equal to merge_lora_params "
+            f"of the trained state ({len(merged)} tensors); PEFT adapter "
+            f"{sum(t.numel() for t in lora.values()) * 4 / 1e6:.1f} MB")
+        del merged, exported
+        free_memory(torch)
+
+        # 3. the adapters: the trained one through load_peft_adapter, a seeded one
+        gen = torch.Generator(device="cuda").manual_seed(1)
+        seeded = {}
+        for n, s in lora_names(cfg).items():
+            t = torch.empty(s, device="cuda")
+            if n.endswith("lora_a"):
+                t.uniform_(-s[0] ** -0.5, s[0] ** -0.5, generator=gen)
+            else:
+                t.normal_(0.0, 0.05, generator=gen)
+            seeded[n] = t
+        dirs = {"trained": str(root / "ad_trained"), "seeded": str(root / "ad_seeded")}
+        ad.save_adapter(dirs["trained"], lora, alpha=2 * ADAPTER_RANK)
+        ad.save_adapter(dirs["seeded"], seeded, alpha=2 * ADAPTER_RANK)
+
+        # 4. one decode batch of base rows and both adapters, full depth, bf16 pool
+        rng = __import__("numpy").random.default_rng(19)
+        prompts = [rng.integers(3, cfg.vocab_size, n).tolist()
+                   for n in (16, 40, 77, 128, 200, 255, 300, 100)]
+        ad.get_catalog().clear()
+        args = cli.parse_args(ADAPTER_SERVE_ARGS + [
+            "--adapter-slots", "2", "--adapter-rank", str(ADAPTER_RANK),
+            "--adapter", f"trained={dirs['trained']}"])
+        engine, _, _ = cli.build(args)
+        ad.register_adapter("seeded", dirs["seeded"])
+        # A row load queues its copies without waiting on the card.
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            row, loaded = engine.adapter_pool.acquire("seeded")
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        check(row > 0 and loaded, f"[adapters] acquire gave {(row, loaded)}")
+        engine.adapter_pool.release(row)
+        on = adapter_run(torch, engine, prompts, ADAPTER_ASSIGN)
+        pool_bytes = engine.adapter_pool.nbytes
+        plan = ad.plan_pool_bytes(cfg, engine.cfg.adapter_targets, ADAPTER_RANK, 2)
+        graph_pool = engine.executor.graph_pool_bytes
+        del engine
+        free_memory(torch)
+        engine, _, _ = cli.build(cli.parse_args(ADAPTER_SERVE_ARGS))
+        off = adapter_run(torch, engine, prompts, [""] * len(prompts))
+        del engine
+        free_memory(torch)
+        check(all(f in ("length", "stop") for f in on["finish"] + off["finish"]),
+              f"[adapters] finishes {on['finish']} / {off['finish']}")
+        check(pool_bytes == plan, f"[adapters] pool {pool_bytes} B, plan {plan} B")
+        for run_, name in ((on, "adapters on"), (off, "adapters off")):
+            check(run_["k4"] == layers * run_["decode_steps"] > 0 and not run_["k4q"],
+                  f"[adapters] {name}: K4 {run_['k4']} launches for "
+                  f"{run_['decode_steps']} decode steps")
+        base_rows = [i for i, a in enumerate(ADAPTER_ASSIGN) if not a]
+        check(all(on["tokens"][i] == off["tokens"][i] for i in base_rows),
+              "[adapters] a base row's tokens differ from the adapter-off engine's")
+        changed = sum(on["tokens"][i] != off["tokens"][i]
+                      for i, a in enumerate(ADAPTER_ASSIGN) if a)
+        check(changed > 0, "[adapters] no adapter row changed its tokens")
+        perf["decode"] = {"on_ms": step_ms(on["spans"]), "off_ms": step_ms(off["spans"]),
+                          "pool_bytes": pool_bytes, "k4_on": on["k4"], "k4_off": off["k4"],
+                          "decode_steps": on["decode_steps"], "adapter_rows_changed": changed,
+                          "graph_pool_bytes": graph_pool}
+        log(f"[adapters] llama2_7b, 8 slots (3 base rows, 2 'trained', 3 'seeded'), k 8, "
+            f"bf16 pool: decode step {perf['decode']['on_ms']:.3f} ms with the adapter "
+            f"branch against {perf['decode']['off_ms']:.3f} ms without (median over full "
+            f"windows); pool {pool_bytes / 1e6:.2f} MB = plan_pool_bytes; K4 {on['k4']} = 32 "
+            f"layers x {on['decode_steps']} decode steps; base rows token-identical to the "
+            f"adapter-off engine; {changed} of 5 adapter rows changed; a row load under "
+            f"set_sync_debug_mode('error'); graph pool {graph_pool / 1e9:.2f} GB")
+
+        # 5. at 8 layers in float32: each adapter's rows against an engine
+        # holding it as static LoRA leaves
+        cfg8 = dataclasses.replace(cfg, num_layers=ADAPTER_LAYERS, dtype="float32",
+                                   param_dtype="float32")
+        base8 = init_params(cfg8, seed=0, device="cuda")
+        keep = lora_names(cfg8)
+        trees = {"trained": {n: lora[n] for n in keep}, "seeded": {n: seeded[n] for n in keep}}
+        ad.get_catalog().clear()
+        for name, tree in trees.items():
+            d = str(root / f"ad8_{name}")
+            ad.save_adapter(d, tree, alpha=2 * ADAPTER_RANK)
+            ad.register_adapter(name, d)
+        ec = dict(max_seqs=8, block_size=16, num_blocks=256, max_model_len=1024,
+                  cache_dtype="float32", steps_per_sync=8, eos_token_id=-1)
+        shared = InferenceEngine(cfg8, base8, EngineConfig(
+            adapter_slots=2, adapter_rank=ADAPTER_RANK, **ec), device="cuda")
+        mixed = adapter_run(torch, shared, prompts, ADAPTER_ASSIGN)
+        del shared
+        lcfg = LoRAConfig(r=ADAPTER_RANK, alpha=2 * ADAPTER_RANK, dropout=0.0)
+        static = {}
+        for name, tree in trees.items():
+            eng = InferenceEngine(cfg8, {**base8, **tree}, EngineConfig(**ec),
+                                  lora_cfg=lcfg, device="cuda")
+            static[name] = adapter_run(torch, eng, prompts, [""] * len(prompts))
+            del eng
+        eng = InferenceEngine(cfg8, base8, EngineConfig(**ec), device="cuda")
+        static[""] = adapter_run(torch, eng, prompts, [""] * len(prompts))
+        del eng, base8
+        free_memory(torch)
+        for i, name in enumerate(ADAPTER_ASSIGN):
+            check(mixed["tokens"][i] == static[name]["tokens"][i],
+                  f"[adapters f32] row {i} ({name or 'base'}) differs from the engine "
+                  f"holding it as static LoRA leaves")
+        check(mixed["k4"] == ADAPTER_LAYERS * mixed["decode_steps"],
+              f"[adapters f32] K4 {mixed['k4']} for {mixed['decode_steps']} steps")
+        log(f"[adapters f32] llama2_7b width, {ADAPTER_LAYERS} layers, float32, TF32 off: "
+            f"every row of the mixed batch token-identical to the engine holding its "
+            f"adapter as static LoRA leaves (base rows: the adapter-off engine); K4 "
+            f"{mixed['k4']} = {ADAPTER_LAYERS} x {mixed['decode_steps']}")
+
+        # 6. over HTTP on an int8 pool
+        ad.get_catalog().clear()
+        args = cli.parse_args(ADAPTER_SERVE_ARGS + [
+            "--kv-cache-dtype", "int8", "--adapter-slots", "2",
+            "--adapter-rank", str(ADAPTER_RANK), "--adapter", f"trained={dirs['trained']}"])
+        engine, tok, sc = cli.build(args)
+        engine.warmup_decode_ladder()
+        httpd, aeng = make_server(engine, tok, sc)
+        thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+        thread.start()
+        addr = ("127.0.0.1", httpd.server_address[1])
+        try:
+            status, data = http_request(addr, "POST", "/v1/adapters",
+                                        {"name": "seeded", "directory": dirs["seeded"]})
+            check(status == 200, f"[adapters http] POST /v1/adapters {status} {data[:200]}")
+            listed = json.loads(http_request(addr, "GET", "/v1/adapters")[1])["data"]
+            check(listed == ["seeded", "trained"], f"[adapters http] listed {listed}")
+            tpa.launches = tpa.launches_int8 = 0
+            steps0 = engine.stats["decode_steps"]
+            body = {"prompt": "def model(x):", "max_tokens": 24, "temperature": 0.0}
+            results, errors = {}, []
+
+            def one(name):
+                try:
+                    status, data = http_request(addr, "POST", "/v1/completions", body,
+                                                headers={"X-Adapter": name} if name else None)
+                    results[name] = (status, json.loads(data))
+                except Exception as e:  # noqa: BLE001 - reported below
+                    errors.append(repr(e))
+
+            threads = [threading.Thread(target=one, args=(n,)) for n in ("", "trained", "seeded")]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join()
+            check(not errors and all(s == 200 and r["usage"]["completion_tokens"] == 24
+                                     for s, r in results.values()),
+                  f"[adapters http] {errors} {results}")
+            status, data = http_request(addr, "POST", "/v1/completions", body,
+                                        headers={"X-Adapter": "ghost"})
+            check(status == 404 and b"unknown adapter" in data,
+                  f"[adapters http] unknown adapter answered {status}")
+            metrics = http_request(addr, "GET", "/metrics")[1].decode()
+            series = {ln.split()[0]: float(ln.split()[1]) for ln in metrics.splitlines()
+                      if ln.startswith("dlti_adapter")}
+            check(set(ad.ADAPTER_METRIC_NAMES) <= set(series)
+                  and series["dlti_adapter_pool_bytes"] == engine.adapter_pool.nbytes,
+                  f"[adapters http] /metrics adapter series {series}")
+            steps = engine.stats["decode_steps"] - steps0
+            check(tpa.launches_int8 == layers * steps > 0 and not tpa.launches,
+                  f"[adapters http] K4q {tpa.launches_int8} for {steps} decode steps")
+            perf["http"] = {"k4q": tpa.launches_int8, "decode_steps": steps,
+                            "series": series}
+            log(f"[adapters http] int8 pool: POST /v1/adapters 200, GET lists {listed}; "
+                f"3 concurrent completions (base, X-Adapter trained, seeded) 200, an "
+                f"unknown X-Adapter 404; K4q {tpa.launches_int8} = 32 x {steps} decode "
+                f"steps; /metrics {json.dumps(series)}")
+        finally:
+            httpd.shutdown()
+            aeng.shutdown()
+            httpd.server_close()
+            ad.get_catalog().clear()
+        del engine
+        free_memory(torch)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    perf["phase_s"] = time.perf_counter() - t_phase
+    log(f"[hf] card {card}; phase {perf['phase_s']:.1f} s")
     return perf
 
 
@@ -3554,6 +3956,8 @@ def main() -> int:
         quickstart_perf = phase_quickstart(torch, card, flush)
         free_memory(torch)
         features_perf = phase_features(torch, card)
+        free_memory(torch)
+        hf_perf = phase_hf_adapters(torch, card)
     except CheckFailed as e:
         return fail(str(e))
 
@@ -3675,6 +4079,7 @@ def main() -> int:
         "copy_bound_ms") if k in r} for name, r in zero_perf.items()}))
     log("[quickstart] summary " + json.dumps(quickstart_perf))
     log("[features] summary " + json.dumps(features_perf))
+    log("[hf] summary " + json.dumps(hf_perf))
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -54,7 +54,10 @@ Where the port differs from the reference, the format does not:
 * A leaf that rests in pinned host memory (ZeRO-3's ``offload_params``) is
   its own host copy: the cache keeps the live tensor, so the frozen base is
   not held on the host twice.
-* The reference's ENOSPC reclaimers are not ported.
+* Quarantined wreckage is reclaimable from the moment it exists:
+  :func:`quarantine_step` registers its directory's ``_quarantine`` with
+  ``utils.durable_io``'s ENOSPC reclaimers, as the reference does (adapter
+  exports and tier blocks get their hatch there).
 
 Checkpoint layout (``<dir>/<step>/``)::
 
@@ -571,6 +574,8 @@ def quarantine_step(directory: str, name: str, reason: str) -> Optional[str]:
             break
         k += 1
     durable_io.replace(src, dst)
+    durable_io.register_reclaimer(f"ckpt-quarantine:{directory}",
+                                  durable_io.quarantine_reclaimer(directory))
     corrupt_skipped.inc()
     logger.warning("quarantined checkpoint %s (%s) -> %s", src, reason, dst)
     return dst

@@ -25,6 +25,14 @@
         --ragged-prefill --enable-prefix-caching --prefix-host-blocks 256 \
         --speculative ngram --num-draft-tokens 4
 
+    # several LoRA adapters over one base (serving.adapters.save_adapter
+    # directories, or load_peft_adapter -> save_adapter for a PEFT one);
+    # a completion picks one with the X-Adapter header, and more register
+    # live through POST /v1/adapters
+    python -m dlti_tpu_torch.cli.serve --device cpu --random-init llama_tiny \
+        --tokenizer byte --port 0 --adapter-slots 4 --adapter-rank 8 \
+        --adapter A=adapters/a --adapter B=adapters/b
+
 Flags keep the reference's names and defaults (``--steps-per-sync``,
 ``--no-decode-state-cache``, the prefix-cache and tier flags,
 ``--max-prefill-tokens``, ``--ragged-prefill`` and the ``--speculative``
@@ -35,8 +43,12 @@ captured before the server binds. ``--random-init`` weights come from
 ``config.json`` names. ``--quantization int8`` keeps the weights as int8
 with per-channel scales, quantized leaf by leaf on the card (an export is
 read into host memory first, so its bf16 tree never sits whole on the
-card). It prints ``serving on http://HOST:PORT`` with the
-port it bound, and SIGTERM or Ctrl-C stops it with exit code 0.
+card). ``--adapter-slots`` sizes the multi-LoRA pool (0: none) at rank
+``--adapter-rank`` over the q/k/v/o projections; each ``--adapter
+NAME=DIR`` registers one at startup (it needs slots). ``--adapter-map``,
+the gateway's tenant-to-adapter routing, is not ported and raises. It
+prints ``serving on http://HOST:PORT`` with the port it bound, and SIGTERM
+or Ctrl-C stops it with exit code 0.
 """
 
 from __future__ import annotations
@@ -130,6 +142,19 @@ def parse_args(argv=None):
                         "shared ragged calls (group width = widest member, "
                         "padding bounded) instead of one call per length "
                         "bucket; outputs are identical")
+    p.add_argument("--adapter-slots", type=int, default=0,
+                   help="device adapter-pool slots: one decode batch serves up "
+                        "to this many distinct LoRA adapters over one shared "
+                        "base (0 = off)")
+    p.add_argument("--adapter-rank", type=int, default=16,
+                   help="pool rank ceiling: registered adapters of rank <= this "
+                        "zero-pad into a slot")
+    p.add_argument("--adapter", action="append", default=[], metavar="NAME=DIR",
+                   help="register adapter NAME from checkpoint-store DIR "
+                        "(serving.adapters.save_adapter) at startup; repeatable. "
+                        "More can register later via POST /v1/adapters")
+    p.add_argument("--adapter-map", default="",
+                   help="tenant->adapter routing (needs the gateway, not ported)")
     p.add_argument("--device", default=None, help="cuda (default) or cpu")
     return p.parse_args(argv)
 
@@ -139,6 +164,18 @@ def build(args):
     :func:`main` serves, and what an in-process caller can drive."""
     if not args.model_dir and not args.random_init:
         raise SystemExit("need --model-dir DIR or --random-init PRESET")
+    if args.adapter_map:
+        raise SystemExit("--adapter-map routes tenants through the admission "
+                         "gateway, which is not ported yet (see ROADMAP.md); "
+                         "name the adapter with the X-Adapter header instead")
+    if args.adapter and args.adapter_slots <= 0:
+        raise SystemExit("--adapter needs --adapter-slots > 0")
+    specs = []
+    for spec in args.adapter:
+        name, sep, adir = spec.partition("=")
+        if not sep or not name.strip() or not adir.strip():
+            raise SystemExit(f"--adapter expects NAME=DIR, got {spec!r}")
+        specs.append((name.strip(), adir.strip()))
 
     from dlti_tpu_torch.data import get_tokenizer
     from dlti_tpu_torch.models.interop import init_params, params_from_jax
@@ -190,7 +227,9 @@ def build(args):
         max_prefill_tokens_per_step=args.max_prefill_tokens,
         ragged_prefill=args.ragged_prefill,
         decode_state_cache=not args.no_decode_state_cache,
-        quantization=args.quantization)
+        quantization=args.quantization,
+        adapter_slots=args.adapter_slots,
+        adapter_rank=args.adapter_rank)
     engine = InferenceEngine(model_cfg, params, ec, lora_cfg=lora_cfg, device=device,
                              donate_params=True)
     del params
@@ -198,6 +237,14 @@ def build(args):
                        for p in engine.executor.model.parameters())
     print(f"weights on {device}: {weight_bytes / 1e9:.2f} GB "
           f"(quantization {args.quantization})", flush=True)
+    if engine.adapter_pool is not None:
+        from dlti_tpu_torch.serving.adapters import register_adapter
+
+        for name, adir in specs:
+            register_adapter(name, adir)
+            print(f"registered adapter {name!r} from {adir}", flush=True)
+        print(f"adapter pool: {args.adapter_slots} slots at rank {args.adapter_rank}, "
+              f"{engine.adapter_pool.nbytes / 1e9:.3f} GB", flush=True)
     sc = ServerConfig(host=args.host, port=args.port,
                       default_params=SamplingParams(max_tokens=args.max_tokens_default))
     return engine, tok, sc

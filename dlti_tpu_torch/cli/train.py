@@ -36,6 +36,14 @@ parallel (``--preset baseline|zero1|zero2|zero3`` under the launcher).
         --max-steps 300 --metrics-csv results/training_metrics.csv \
         --step-log runs/steps.jsonl --export-dir exports/glaive_int8
 
+    # from a Hugging Face checkpoint directory (config.json + safetensors):
+    # its config sets the architecture, LoRA factors start fresh; after
+    # training, the adapter in PEFT layout and the merged model in HF layout
+    python -m dlti_tpu_torch.cli.train --device cpu --tokenizer byte \
+        --dataset-path data/ --max-seq-len 64 --max-steps 4 --lora-r 4 \
+        --init-from-hf hf/tiny --export-peft out/peft --export-hf out/hf \
+        --save-strategy no
+
     # 4 steps a host sync, the chunked loss, an eval every 4 steps
     python -m dlti_tpu_torch.cli.train --device cpu --model llama_tiny \
         --tokenizer byte --dataset-path data/ --max-seq-len 64 --max-steps 8 \
@@ -47,6 +55,14 @@ checkpoints every 100 steps under ``./checkpoints/run`` and first resumes
 from the newest checkpoint there that verifies (``--no-resume`` starts
 afresh, ``--save-strategy no`` writes nothing). ``--export-dir`` writes the
 merged model after training (``cli.serve --model-dir`` serves it).
+``--init-from-hf DIR`` starts from an HF checkpoint directory
+(``models.hf_interop.load_hf_checkpoint``): its ``config.json`` sets the
+architecture, overriding ``--model``'s, while the preset keeps the
+performance fields (dtypes, remat, attention implementation), and the
+base is grafted under freshly initialized LoRA factors, then goes the way a
+seeded base goes (``--quantize-base``, ZeRO, offload). After training,
+``--export-peft DIR`` writes the LoRA factors as a PEFT adapter and
+``--export-hf DIR`` the merged model as an HF checkpoint (rank 0).
 ``--dataset-path`` and ``--eval-dataset`` are a ``data.jsonl`` (one
 ``{"text": ...}`` per line), a directory holding one, a file of text
 lines, or a memory-mapped token store (a directory with ``meta.json``,
@@ -73,8 +89,7 @@ microbatch. ``--offload-optimizer`` and ``--offload-params`` keep the
 optimizer moments and the frozen base in pinned host memory. Under the
 launcher rank 0 alone logs, writes checkpoints (consolidated) and the
 export, and prints the summary. Not ported, each raising above 1:
-``--tensor``, ``--sequence``, ``--expert``, ``--pipe`` and ``--data``; the
-PEFT and HF exports (``--export-peft``, ``--export-hf``) are absent.
+``--tensor``, ``--sequence``, ``--expert``, ``--pipe`` and ``--data``.
 """
 
 from __future__ import annotations
@@ -149,6 +164,13 @@ def parse_args(argv=None):
                    help="skip the verified scan-latest-and-resume pass")
     p.add_argument("--export-dir", default=None,
                    help="write a consolidated merged-LoRA export here after training")
+    p.add_argument("--init-from-hf", default=None, metavar="DIR",
+                   help="initialize base weights from an HF Llama checkpoint dir "
+                        "(config.json + safetensors); overrides --model's arch")
+    p.add_argument("--export-hf", default=None, metavar="DIR",
+                   help="write the merged model as an HF-layout checkpoint after training")
+    p.add_argument("--export-peft", default=None, metavar="DIR",
+                   help="write the LoRA factors as a PEFT adapter after training")
     p.add_argument("--eval-dataset", default=None, metavar="PATH",
                    help="held-out dataset (same formats as --dataset-path); "
                         "evaluated every --eval-steps optimizer steps")
@@ -277,6 +299,26 @@ def with_packed_window(cfg, longest: int):
     return cfg
 
 
+# The fields an HF config.json does not decide: the preset's (an fp32
+# checkpoint must not quietly turn training to fp32).
+PERF_FIELDS = ("dtype", "param_dtype", "remat", "remat_policy", "remat_stride",
+               "attention_impl", "flash_block_q", "flash_block_kv")
+
+
+def hf_base(directory: str, cfg, device):
+    """``(base params, cfg)``: the HF checkpoint's weights on ``device`` and
+    the config with its architecture and the preset's performance fields."""
+    from dlti_tpu_torch.models.hf_interop import load_hf_checkpoint
+
+    base, model = load_hf_checkpoint(
+        directory, device=device,
+        **{f: getattr(cfg.model, f) for f in PERF_FIELDS})
+    if model != cfg.model:
+        print(f"model arch from {directory}/config.json (overrides --model)", flush=True)
+        cfg = cfg.replace(model=model)
+    return base, cfg
+
+
 def main(argv=None) -> None:
     args = parse_args(argv)
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(message)s")
@@ -291,6 +333,20 @@ def main(argv=None) -> None:
         # A ZeRO strategy without the launcher: its collectives in a group of one.
         init_group_of_one(resolve_device(args.device))
     cfg = build_config(args)
+    params = None
+    if args.init_from_hf:
+        from dlti_tpu_torch.models.hf_interop import graft_base_params
+        from dlti_tpu_torch.models.interop import init_params
+        from dlti_tpu_torch.utils.device import resolve_device
+
+        device = resolve_device(args.device)
+        base, cfg = hf_base(args.init_from_hf, cfg, device)
+        # A seeded tree, whose LoRA factors stay and whose base leaves the
+        # checkpoint's replace one by one.
+        params = graft_base_params(
+            init_params(cfg.model, seed=cfg.train.seed, device=device,
+                        lora=cfg.lora if cfg.lora.enabled else None), base)
+        del base
 
     from dlti_tpu_torch.data import get_tokenizer, make_batches
     from dlti_tpu_torch.training import Trainer, whole_params
@@ -351,7 +407,8 @@ def main(argv=None) -> None:
                 f"eval dataset yields zero batches: it has fewer rows than one "
                 f"batch ({cfg.train.micro_batch_size}); shrink "
                 f"--per-device-batch-size or grow the eval split")
-    trainer = Trainer(cfg, device=args.device)
+    trainer = Trainer(cfg, params, device=args.device)
+    del params
     state, record = trainer.train(dataset=dataset, eval_dataset=eval_dataset)
     if writer:
         from dlti_tpu_torch.utils.metrics import print_metrics_summary
@@ -367,6 +424,22 @@ def main(argv=None) -> None:
             print(f"merged export -> {args.export_dir}", flush=True)
             print(f"manifest sha256: "
                   f"{manifest_digest(os.path.join(args.export_dir, 'model'))}", flush=True)
+        del params
+    if args.export_peft or args.export_hf:
+        params = whole_params(state)
+        if writer and args.export_peft:
+            from dlti_tpu_torch.models.hf_interop import save_peft_adapter
+
+            save_peft_adapter(args.export_peft, params, cfg.lora)
+            print(f"PEFT adapter -> {args.export_peft}", flush=True)
+        if writer and args.export_hf:
+            from dlti_tpu_torch.models import merge_lora_params
+            from dlti_tpu_torch.models.hf_interop import save_hf_checkpoint
+
+            save_hf_checkpoint(args.export_hf,
+                               merge_lora_params(params, alpha=cfg.lora.alpha),
+                               cfg.model)
+            print(f"HF checkpoint -> {args.export_hf}", flush=True)
         del params
     if dist.is_initialized():
         dist.destroy_process_group()

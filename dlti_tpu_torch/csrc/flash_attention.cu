@@ -1732,6 +1732,10 @@ cudaError_t set_smem(Kernel kernel, size_t smem) {
                               (int)smem);
 }
 
+// The kernel each entry point (0 = K1, 1 = K2, 2 = K3) launched last, by its
+// function name: what dlti_flash_last_kernel reports to the wrapper.
+const char* g_last_kernel[3] = {"", "", ""};
+
 // The wgmma programs (bf16 and f16): K1 and K2 at every head_dim, K3 at d
 // 64 and 128.
 template <typename E, int D>
@@ -1751,6 +1755,7 @@ cudaError_t launch_wgmma(int which, const void* q, const void* k, const void* v,
     dim3 grid((p.sq + p.bq - 1) / p.bq, p.batch * p.kv_heads);
     kernel<<<grid, kWgThreads, smem, stream>>>(tq, tk, tv, sg, static_cast<E*>(out0),
                                                static_cast<float*>(out_lse), p);
+    g_last_kernel[0] = "flash_fwd_wgmma_kernel";
   } else if (which == 1) {
     auto kernel = flash_bwd_dq_wgmma_kernel<E, D, fwd_wgmma_tile<D>()>;
     if ((err = set_smem(kernel, smem)) != cudaSuccess) return err;
@@ -1758,6 +1763,7 @@ cudaError_t launch_wgmma(int which, const void* q, const void* k, const void* v,
     kernel<<<grid, kWgThreads, smem, stream>>>(
         tq, tk, tv, static_cast<const E*>(dout), static_cast<const float*>(lse),
         static_cast<const float*>(delta), sg, static_cast<E*>(out0), p);
+    g_last_kernel[1] = "flash_bwd_dq_wgmma_kernel";
   } else if constexpr (D <= 128) {
     auto kernel = flash_bwd_dkv_wgmma_kernel<E, D>;
     if ((err = set_smem(kernel, smem)) != cudaSuccess) return err;
@@ -1766,6 +1772,7 @@ cudaError_t launch_wgmma(int which, const void* q, const void* k, const void* v,
         tq, tk, tv, static_cast<const E*>(dout), static_cast<const float*>(lse),
         static_cast<const float*>(delta), sg, static_cast<E*>(out0),
         static_cast<E*>(out1), p);
+    g_last_kernel[2] = "flash_bwd_dkv_wgmma_kernel";
   }
   return cudaGetLastError();
 }
@@ -1802,6 +1809,7 @@ cudaError_t launch(int which, const void* q, const void* k, const void* v,
       dim3 grid((p.sq + p.bq - 1) / p.bq, p.batch * p.kv_heads);
       kernel<<<grid, kThreads, smem, stream>>>(tq, tk, tv, sg, static_cast<T*>(out0),
                                                static_cast<float*>(out_lse), p);
+      g_last_kernel[0] = "flash_fwd_kernel";
     }
   } else if (which == 1) {
     if constexpr (dtype == 0) {
@@ -1811,6 +1819,7 @@ cudaError_t launch(int which, const void* q, const void* k, const void* v,
       kernel<<<grid, kThreads, smem, stream>>>(
           tq, tk, tv, static_cast<const T*>(dout), static_cast<const float*>(lse),
           static_cast<const float*>(delta), sg, static_cast<T*>(out0), p);
+      g_last_kernel[1] = "flash_bwd_dq_kernel";
     }
   } else if constexpr (dtype == 0 || D > 128) {
     auto kernel = flash_bwd_dkv_kernel<T, D, BK>;
@@ -1820,6 +1829,7 @@ cudaError_t launch(int which, const void* q, const void* k, const void* v,
         tq, tk, tv, static_cast<const T*>(dout), static_cast<const float*>(lse),
         static_cast<const float*>(delta), sg, static_cast<T*>(out0),
         static_cast<T*>(out1), p);
+    g_last_kernel[2] = "flash_bwd_dkv_kernel";
   }
   return cudaGetLastError();
 }
@@ -1919,6 +1929,12 @@ extern "C" long long dlti_flash_smem_bytes(int which, int head_dim, int dtype) {
 // cp.async 2-stage" or "cuda-core fp32" ("" if not built).
 extern "C" const char* dlti_flash_impl(int which, int head_dim, int dtype) {
   return impl_name(which, head_dim, dtype);
+}
+
+// The function name of the kernel entry point `which` launched last ("" before
+// its first launch).
+extern "C" const char* dlti_flash_last_kernel(int which) {
+  return (which >= 0 && which < 3) ? g_last_kernel[which] : "";
 }
 
 extern "C" const char* dlti_flash_error_string(int err) {

@@ -29,6 +29,13 @@ embedding, the head and the projection kernels as ``QuantizedWeight``
 pairs), each expanded at its use, as the reference's ``maybe_dequantize``.
 The dense fixed-capacity cache, ring attention and the other remat
 policies are not ported.
+
+Multi-LoRA serving passes ``adapter_ids`` ``(B,)`` (each row's pool row)
+and ``adapters``, the pool's per-layer ``{projection: (a, b, s)}``
+(``serving.adapters.AdapterPool.layers``); every projection the pool
+targets adds its rows' deltas (``models.lora.adapter_delta``), in the
+eager prefill, the decode iteration, the multi-position window and the
+speculative verify alike. Without them no branch is built.
 """
 
 from __future__ import annotations
@@ -78,6 +85,15 @@ def _hashes(hashes: Optional[tuple], projection: str) -> Optional[tuple]:
         return None
     j = PROJECTIONS.index(projection)
     return hashes[0][j], hashes[1][j]
+
+
+def _adapter(rows: Optional[tuple], projection: str) -> Optional[tuple]:
+    """One projection's per-row adapter arguments ``(ids, a, b, s)`` from
+    its layer's ``(ids, {projection: (a, b, s)})``; None where the pool
+    does not target it."""
+    if rows is None or projection not in rows[1]:
+        return None
+    return (rows[0], *rows[1][projection])
 
 
 class RMSNorm(nn.Module):
@@ -144,17 +160,23 @@ class LlamaAttention(nn.Module):
                 cache: Optional[dict] = None,
                 block_tables: Optional[torch.Tensor] = None,
                 hashes: Optional[tuple] = None,
-                paged: Optional[tuple] = None) -> torch.Tensor:
+                paged: Optional[tuple] = None,
+                adapter_rows: Optional[tuple] = None) -> torch.Tensor:
         """``paged``: ``(slots, seq_lens)`` of a paged-cache call, computed
         once per forward by :class:`LlamaModel`; ``hashes``: this layer's
         dropout hashes, ``(row, column)`` by projection (None: no
-        dropout)."""
+        dropout); ``adapter_rows``: ``(ids, {projection: (a, b, s)})`` of
+        this layer's adapter pool (None: no per-row adapters)."""
         cfg = self.cfg
         b, s, _ = x.shape
         hd = cfg.resolved_head_dim
-        q = self.q_proj(x, _hashes(hashes, "q_proj")).reshape(b, s, cfg.num_heads, hd)
-        k = self.k_proj(x, _hashes(hashes, "k_proj")).reshape(b, s, cfg.num_kv_heads, hd)
-        v = self.v_proj(x, _hashes(hashes, "v_proj")).reshape(b, s, cfg.num_kv_heads, hd)
+        rows = adapter_rows
+        q = self.q_proj(x, _hashes(hashes, "q_proj"),
+                        _adapter(rows, "q_proj")).reshape(b, s, cfg.num_heads, hd)
+        k = self.k_proj(x, _hashes(hashes, "k_proj"),
+                        _adapter(rows, "k_proj")).reshape(b, s, cfg.num_kv_heads, hd)
+        v = self.v_proj(x, _hashes(hashes, "v_proj"),
+                        _adapter(rows, "v_proj")).reshape(b, s, cfg.num_kv_heads, hd)
         q = apply_rope(q, cos, sin, positions)
         k = apply_rope(k, cos, sin, positions)
 
@@ -179,7 +201,7 @@ class LlamaAttention(nn.Module):
                                        impl=cfg.attention_impl,
                                        window=self._effective_window(segment_ids))
         return self.o_proj(out.reshape(b, s, cfg.num_heads * hd),
-                           _hashes(hashes, "o_proj"))
+                           _hashes(hashes, "o_proj"), _adapter(rows, "o_proj"))
 
 
 _MLP_ACTIVATIONS = {
@@ -201,10 +223,13 @@ class LlamaMLP(nn.Module):
         self.up_proj = _proj(cfg, lora, "up_proj", h, m, False, device)
         self.down_proj = _proj(cfg, lora, "down_proj", m, h, False, device)
 
-    def forward(self, x: torch.Tensor, hashes: Optional[tuple] = None) -> torch.Tensor:
-        gate = self.gate_proj(x, _hashes(hashes, "gate_proj"))
-        up = self.up_proj(x, _hashes(hashes, "up_proj"))
-        return self.down_proj(self.act(gate) * up, _hashes(hashes, "down_proj"))
+    def forward(self, x: torch.Tensor, hashes: Optional[tuple] = None,
+                adapter_rows: Optional[tuple] = None) -> torch.Tensor:
+        rows = adapter_rows
+        gate = self.gate_proj(x, _hashes(hashes, "gate_proj"), _adapter(rows, "gate_proj"))
+        up = self.up_proj(x, _hashes(hashes, "up_proj"), _adapter(rows, "up_proj"))
+        return self.down_proj(self.act(gate) * up, _hashes(hashes, "down_proj"),
+                              _adapter(rows, "down_proj"))
 
 
 class LlamaBlock(nn.Module):
@@ -221,10 +246,10 @@ class LlamaBlock(nn.Module):
         self.mlp = LlamaMLP(cfg, lora, device)
 
     def forward(self, x, cos, sin, positions, segment_ids=None, cache=None,
-                block_tables=None, hashes=None, paged=None):
+                block_tables=None, hashes=None, paged=None, adapter_rows=None):
         x = x + self.attn(self.input_norm(x), cos, sin, positions, segment_ids,
-                          cache, block_tables, hashes, paged)
-        return x + self.mlp(self.post_attn_norm(x), hashes)
+                          cache, block_tables, hashes, paged, adapter_rows)
+        return x + self.mlp(self.post_attn_norm(x), hashes, adapter_rows)
 
 
 class LlamaModel(nn.Module):
@@ -264,7 +289,9 @@ class LlamaModel(nn.Module):
                 segment_ids: Optional[torch.Tensor] = None,
                 cache: Optional[List[dict]] = None,
                 block_tables: Optional[torch.Tensor] = None,
-                dropout_seed=None, dropout_row_offset: int = 0) -> torch.Tensor:
+                dropout_seed=None, dropout_row_offset: int = 0,
+                adapter_ids: Optional[torch.Tensor] = None,
+                adapters: Optional[list] = None) -> torch.Tensor:
         cfg = self.cfg
         dtype = resolve_dtype(cfg.dtype)
         b, s = input_ids.shape
@@ -329,7 +356,8 @@ class LlamaModel(nn.Module):
             else:
                 x = run(x, cos, sin, positions, segment_ids,
                         cache[i] if cache is not None else None, block_tables,
-                        layer_hashes, paged)
+                        layer_hashes, paged,
+                        None if adapters is None else (adapter_ids, adapters[i]))
         if fetcher is not None and fetcher.fetches("model.final_norm.scale"):
             return torch.func.functional_call(
                 self.final_norm, {"scale": fetcher.leaf("model.final_norm.scale")}, (x,))
@@ -346,6 +374,8 @@ class LlamaForCausalLM(nn.Module):
     forward is deterministic. ``return_hidden`` returns the final norm's
     output instead of the logits, for a loss that applies
     :meth:`head_matrix` itself (``training.step.chunked_causal_lm_loss``).
+    ``adapter_ids`` and ``adapters`` apply a multi-LoRA pool per row (see
+    the module docstring).
     """
 
     def __init__(self, cfg: ModelConfig, lora: Optional[LoRAConfig] = None,
@@ -361,9 +391,12 @@ class LlamaForCausalLM(nn.Module):
 
     def forward(self, input_ids, positions=None, segment_ids=None, cache=None,
                 block_tables=None, dropout_seed=None, dropout_row_offset: int = 0,
-                return_hidden: bool = False) -> torch.Tensor:
+                return_hidden: bool = False, adapter_ids=None,
+                adapters: Optional[list] = None) -> torch.Tensor:
+        if (adapters is None) != (adapter_ids is None):
+            raise ValueError("adapter_ids and adapters go together")
         x = self.model(input_ids, positions, segment_ids, cache, block_tables,
-                       dropout_seed, dropout_row_offset)
+                       dropout_seed, dropout_row_offset, adapter_ids, adapters)
         if return_hidden:
             return x
         return lm_head_logits(x, self.head_matrix())

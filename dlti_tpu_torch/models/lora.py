@@ -23,6 +23,16 @@ is a function of (the key, the element's index) computed on the device
 draws the same mask as the forward did, nothing is read back to the host,
 and a CUDA graph that is replayed with a new key in the same buffer draws
 new masks. Without hashes the branch is deterministic, as in serving.
+
+Multi-LoRA serving (``serving.adapters``) adds a per-row branch, the
+counterpart of the reference's ``adapters`` variable collection: the caller
+passes ``adapter=(ids, a, b, s)``, the row ids ``(B,)`` and this
+projection's stacked pool ``a (P, in, r)``, ``b (P, r, out)``, ``s (P,)``;
+each batch row gathers its adapter's factors, casts them to the compute
+dtype and adds ``s * (x @ a) @ b`` through two batched products. Pool row 0
+is all zero, so a base row adds exactly +0.0. Without ``adapter`` the
+branch is not built, so training and adapter-off serving run the forward
+they ran before.
 """
 
 from __future__ import annotations
@@ -68,8 +78,8 @@ class LoRADense(nn.Module):
                 requires_grad=False)
 
     def forward(self, x: torch.Tensor,
-                dropout_hashes: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
-                ) -> torch.Tensor:
+                dropout_hashes: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+                adapter: Optional[tuple] = None) -> torch.Tensor:
         dt = self.dtype
         if isinstance(self.kernel, QuantizedWeight):
             y = int8_matmul(x.to(dt), self.kernel.q, self.kernel.scale)
@@ -83,7 +93,22 @@ class LoRADense(nn.Module):
                 h = dropout(h, self.lora_dropout, *dropout_hashes)
             delta = (h.to(dt) @ self.lora_a.to(dt)) @ self.lora_b.to(dt)
             y = y + (self.lora_alpha / self.lora_r) * delta
+        if adapter is not None:
+            y = y + adapter_delta(x.to(dt), *adapter)
         return y
+
+
+def adapter_delta(x: torch.Tensor, ids: torch.Tensor, pool_a: torch.Tensor,
+                  pool_b: torch.Tensor, pool_s: torch.Tensor) -> torch.Tensor:
+    """Each row's adapter delta ``s[id] * (x @ a[id]) @ b[id]`` for ``x``
+    ``(B, s, in)`` in the compute dtype and row ids ``(B,)`` into the
+    stacked pool: the reference's gather and two ``einsum``s
+    (``dlti_tpu/models/lora.py:98-105``)."""
+    dt = x.dtype
+    a = pool_a[ids].to(dt)
+    b = pool_b[ids].to(dt)
+    s = pool_s[ids].to(dt)
+    return s[:, None, None] * torch.bmm(torch.bmm(x, a), b)
 
 
 def dropout(x: torch.Tensor, rate: float, row_hash: torch.Tensor,

@@ -17,7 +17,10 @@ and ``_flash_bwd``'s ``_dq_kernel`` / ``_dkv_kernel``).
   into float16's range by powers of two; :func:`kernel_design` names the
   program a call takes.
 * ``fwd_launches``, ``dq_launches``, ``dkv_launches`` — how many times each
-  kernel was launched.
+  kernel was launched; ``last_kernel`` — by entry point (``"flash_fwd"``,
+  ``"flash_bwd_dq"``, ``"flash_bwd_dkv"``), the function name of the CUDA
+  kernel its last launch ran, as the library reports it
+  (``"flash_fwd_wgmma_kernel"``, ``"flash_bwd_dkv_kernel"``, ...).
 
 What the plain versions compute is what the kernels compute, which is the
 Pallas kernels' semantics, not ``reference_attention``'s: a query row with
@@ -33,7 +36,7 @@ tiles; the CUDA kernels pick their own tiles and do not read them.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -48,6 +51,8 @@ MAX_GROUP = 64     # query heads per kv head a kernel tile can hold
 fwd_launches = 0
 dq_launches = 0
 dkv_launches = 0
+# Entry point -> the kernel function its last launch ran.
+last_kernel: Dict[str, str] = {}
 
 
 def _allowed(b, sq, skv, causal, segment_ids, window, q_lo, q_hi, device):
@@ -222,6 +227,8 @@ def _kernel_library() -> ctypes.CDLL:
         lib.dlti_flash_impl.restype = ctypes.c_char_p
         lib.dlti_flash_error_string.argtypes = [i32]
         lib.dlti_flash_error_string.restype = ctypes.c_char_p
+        lib.dlti_flash_last_kernel.argtypes = [i32]
+        lib.dlti_flash_last_kernel.restype = ctypes.c_char_p
     return lib
 
 
@@ -257,6 +264,7 @@ def _launch(name: str, q, k, args, window, causal):
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: "
                            + lib.dlti_flash_error_string(err).decode())
+    last_kernel[name] = lib.dlti_flash_last_kernel(_KERNELS[name]).decode()
 
 
 def _seg_ptr(segment_ids):

@@ -2,9 +2,11 @@
 ``dlti_tpu/serving/decode_state.py``.
 
 The engine keeps six per-slot host mirrors (block tables, slot seeds,
-generated counts, temperature, top-k, top-p), and with speculative decode a
-seventh, each slot's token history. This cache keeps their device twins and
-maintains them incrementally:
+generated counts, temperature, top-k, top-p), appended after them each
+slot's adapter-pool row with multi-LoRA serving (``adapter_ids``, as the
+reference appends it) and each slot's token history with speculative
+decode. This cache keeps their device twins and maintains them
+incrementally:
 
 * The engine marks a slot dirty at admission, release (retire, preempt,
   abort), block-table growth and prefill completion. :meth:`sync` then
@@ -36,7 +38,7 @@ import torch
 from dlti_tpu_torch.utils.device import upload
 
 # Mirror names in the decode iteration's argument order; any further
-# mirrors (the spec rounds' "spec_hist") follow them.
+# mirrors ("adapter_ids", the spec rounds' "spec_hist") follow them.
 FIELDS = ("block_tables", "slot_seeds", "gen_counts",
           "temperature", "top_k", "top_p")
 STAT_KEYS = ("decode_state_uploads", "decode_state_rows",
@@ -66,6 +68,14 @@ class DecodeStateCache:
     @property
     def gen_counts(self) -> torch.Tensor:
         return self.tensors[FIELDS.index("gen_counts")]
+
+    def field(self, name: str, tensors: Optional[Sequence[torch.Tensor]] = None
+              ) -> Optional[torch.Tensor]:
+        """Field ``name`` of ``tensors`` (in :attr:`fields` order; the
+        resident tensors by default), or None when this cache has none."""
+        if name not in self.fields:
+            return None
+        return (tensors if tensors is not None else self.tensors)[self.fields.index(name)]
 
     def mark_dirty(self, slot_id: int) -> None:
         self._dirty.add(slot_id)

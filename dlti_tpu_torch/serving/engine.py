@@ -73,11 +73,21 @@
   tables) replayed round by round. A per-slot gate
   pauses slots whose drafts keep failing (:meth:`InferenceEngine.
   _spec_note_slot`).
+* **Multi-LoRA serving** (``adapter_slots`` > 0, ``serving.adapters``): the
+  executor owns an :class:`~dlti_tpu_torch.serving.adapters.AdapterPool`
+  and every forward (prefill, the decode graph, the spec graphs) applies
+  each row's adapter by its pool row, a resident decode-state field
+  (``adapter_ids``). A request names its adapter (``submit(...,
+  adapter=)``); admission resolves the row before it takes blocks, defers
+  the request while every row is pinned and fails that request alone for
+  an unknown or corrupt adapter. Rows are released at finish, preemption
+  and cancel, and prefix-cache keys are namespaced by the adapter. With
+  ``adapter_slots = 0`` no program changes.
 
-Not ported yet (ROADMAP.md): the native block allocator, the multi-LoRA
-pool, tensor parallelism, disaggregated handoff, the memory ledger and
-headroom-aware admission, the token-storm guard, tracer spans and
-critical-path attribution.
+Not ported yet (ROADMAP.md): the native block allocator, tensor
+parallelism, disaggregated handoff, the memory ledger and headroom-aware
+admission, the token-storm guard, tracer spans and critical-path
+attribution.
 """
 
 from __future__ import annotations
@@ -98,6 +108,7 @@ from dlti_tpu_torch.models.interop import load_model
 from dlti_tpu_torch.models.quantization import quantize_params_int8
 from dlti_tpu_torch.ops.kv_cache import init_paged_cache
 from dlti_tpu_torch.ops.launches import GraphLaunches
+from dlti_tpu_torch.serving.adapters import AdapterError, AdapterPool
 from dlti_tpu_torch.serving.block_manager import BlockManager
 from dlti_tpu_torch.serving.decode_state import FIELDS, DecodeStateCache
 from dlti_tpu_torch.serving.prefix_cache import PrefixCachingAllocator
@@ -189,6 +200,16 @@ class EngineConfig:
     # admission never stalls running decodes for a whole prompt length.
     # 0 = unbounded (whole prompts in one batched call per bucket).
     max_prefill_tokens_per_step: int = 0
+    # Multi-LoRA serving (serving.adapters): with adapter_slots > 0 the
+    # executor holds a stacked adapter pool ((slots+1, in, r) and (slots+1,
+    # r, out) per targeted projection, row 0 the all-zero base) and every
+    # forward gathers each row's factors by its pool row. adapter_rank is
+    # the pool-wide maximum (smaller adapters zero-pad, exactly);
+    # adapter_targets name the projections the pool covers. 0 slots leave
+    # every program as it is without a pool.
+    adapter_slots: int = 0
+    adapter_rank: int = 16
+    adapter_targets: Sequence[str] = ("q_proj", "k_proj", "v_proj", "o_proj")
 
     def buckets(self) -> List[int]:
         if self.prefill_buckets:
@@ -231,6 +252,13 @@ class Request:
     # Early cancel (stop string, client disconnect, timeout): set from any
     # thread, consumed by the engine at admission or at the next token.
     cancel_requested: bool = False
+    # Multi-LoRA serving: the registered adapter this request generates
+    # under ("" = the base model), and its resolved pool row (-1 =
+    # unresolved). The row is acquired at admission and released with the
+    # slot, so a preempted request acquires again (its row may have been
+    # evicted meanwhile).
+    adapter: str = ""
+    _adapter_slot: int = -1
 
     @property
     def done(self) -> bool:
@@ -294,9 +322,10 @@ def spec_hist_width(ec: EngineConfig) -> int:
 
 def decode_mirrors(ec: EngineConfig) -> Dict[str, np.ndarray]:
     """Fresh host mirrors of the per-slot decode state, in
-    ``serving.decode_state.FIELDS`` order (plus ``spec_hist``, each slot's
-    tokens at their context positions, with speculation on); a free slot's
-    row holds these values."""
+    ``serving.decode_state.FIELDS`` order (plus ``adapter_ids``, each slot's
+    adapter-pool row, with a pool, and ``spec_hist``, each slot's tokens at
+    their context positions, with speculation on); a free slot's row holds
+    these values."""
     S = ec.max_seqs
     m = {"block_tables": np.zeros((S, ec.max_blocks_per_seq), np.int32),
          "slot_seeds": np.zeros((S,), np.int64),
@@ -304,6 +333,8 @@ def decode_mirrors(ec: EngineConfig) -> Dict[str, np.ndarray]:
          "temperature": np.ones((S,), np.float32),
          "top_k": np.zeros((S,), np.int32),
          "top_p": np.ones((S,), np.float32)}
+    if ec.adapter_slots > 0:
+        m["adapter_ids"] = np.zeros((S,), np.int64)
     if ec.speculative == "ngram":
         m["spec_hist"] = np.zeros((S, spec_hist_width(ec)), np.int64)
     return m
@@ -389,6 +420,13 @@ class EngineExecutor:
                                           device=dev, donate=True)
         self.model = load_model(model_cfg, params, dev, lora_cfg)
         del params
+        # The multi-LoRA pool, sized from the model's final (possibly int8)
+        # projection shapes, on the engine's device.
+        self.adapter_pool: Optional[AdapterPool] = None
+        if ec.adapter_slots > 0:
+            self.adapter_pool = AdapterPool(
+                dict(self.model.named_parameters()), ec.adapter_slots,
+                ec.adapter_rank, ec.adapter_targets, device=dev)
         cache_dtype = ("int8" if ec.cache_dtype == "int8"
                        else resolve_dtype(ec.cache_dtype))
         self.cache = init_paged_cache(
@@ -441,13 +479,13 @@ class EngineExecutor:
         ids, pos, cnt, step, out_tok, out_lp = bufs
         tables, seeds, _, temperature, top_k, top_p = state[:len(FIELDS)]
         logits = self.model(ids, positions=pos, cache=self.cache,
-                            block_tables=tables)
+                            block_tables=tables, **self._adapter_args(state))
         tok, lp = sample_tokens(logits[:, 0], seeds, cnt, temperature, top_k,
                                 top_p)
-        if len(state) > len(FIELDS):
+        hist = self.state.field("spec_hist", state)
+        if hist is not None:
             # Rows of free and prefilling slots write garbage here; their
             # rows upload whole before they decode.
-            hist = state[len(FIELDS)]
             rows = torch.arange(hist.shape[0], device=hist.device)
             hist.index_put_((rows, pos[:, 0].long() + 1), tok)
         out_tok.index_copy_(0, step, tok[None])
@@ -456,6 +494,16 @@ class EngineExecutor:
         pos.add_(1)
         cnt.add_(1)
         step.add_(1)
+
+    def _adapter_args(self, state=None, adapter_ids=None) -> dict:
+        """The model's multi-LoRA arguments: each row's pool row (the
+        resident ``adapter_ids`` of ``state``, or ``adapter_ids``) and the
+        pool's per-layer tensors; nothing without a pool."""
+        if self.adapter_pool is None:
+            return {}
+        if adapter_ids is None:
+            adapter_ids = self.state.field("adapter_ids", state)
+        return {"adapter_ids": adapter_ids, "adapters": self.adapter_pool.layers}
 
     def _capture(self, run, launches: GraphLaunches, static_args: list
                  ) -> torch.cuda.CUDAGraph:
@@ -560,7 +608,8 @@ class EngineExecutor:
         """
         t_in, seq_len, cnt, mask, step = bufs
         toks_o, lps_o, emit_o, prop_o, acc_o = out
-        tables, seeds, _, temperature, top_k, top_p, hist = state
+        tables, seeds, _, temperature, top_k, top_p = state[:len(FIELDS)]
+        hist = self.state.field("spec_hist", state)
         tables = tables[:, :width]
         S, W = hist.shape
         dev = hist.device
@@ -571,8 +620,8 @@ class EngineExecutor:
         drafts = torch.where(mask[:, None], drafts, -1)
         ids = torch.cat([t_in[:, None], drafts.clamp(min=0)], dim=1)
         pos = (seq_len[:, None] + ar[None, :]).to(torch.int32)
-        logits = self.model(ids, positions=pos, cache=self.cache,
-                            block_tables=tables)                 # (S, k+1, V)
+        logits = self.model(ids, positions=pos, cache=self.cache, block_tables=tables,
+                            **self._adapter_args(state))         # (S, k+1, V)
         g = logits.argmax(dim=-1)
         g_lp = (torch.gather(logits, 2, g[..., None])[..., 0]
                 - torch.logsumexp(logits, dim=-1))
@@ -645,14 +694,18 @@ class EngineExecutor:
     # ------------------------------------------------------------------
     @torch.no_grad()
     def prefill(self, input_ids: np.ndarray, positions: np.ndarray,
-                block_table: np.ndarray, last_idx: np.ndarray) -> torch.Tensor:
+                block_table: np.ndarray, last_idx: np.ndarray,
+                adapter_ids: Optional[np.ndarray] = None) -> torch.Tensor:
         """Prefill rows ``(B, bucket)`` at their own positions (padding at
         position -1, whose KV writes go to the trash block); returns each
-        row's logits at ``last_idx``. Waits on nothing."""
+        row's logits at ``last_idx``. ``adapter_ids`` ``(B,)``: each row's
+        adapter-pool row (needed with a pool). Waits on nothing."""
         dev = self.device
+        extra = (self._adapter_args(adapter_ids=upload(adapter_ids, dev))
+                 if self.adapter_pool is not None else {})
         logits = self.model(upload(input_ids, dev),
                             positions=upload(positions, dev), cache=self.cache,
-                            block_tables=upload(block_table, dev))
+                            block_tables=upload(block_table, dev), **extra)
         rows = torch.arange(logits.shape[0], device=dev)
         return logits[rows, upload(last_idx, dev).long()]
 
@@ -785,6 +838,10 @@ class InferenceEngine:
         self._temperature = self._mirrors["temperature"]
         self._top_k = self._mirrors["top_k"]
         self._top_p = self._mirrors["top_p"]
+        # Each slot's adapter-pool row (0, the base, for free slots and base
+        # requests); with no pool, a host array the device never reads.
+        self._adapter_ids = self._mirrors.get("adapter_ids",
+                                              np.zeros((ec.max_seqs,), np.int64))
         # Each slot's tokens at their context positions: the spec rounds'
         # proposal input, kept incrementally at admission and append. Cells
         # past a slot's length are never read, so stale tails need no
@@ -836,6 +893,10 @@ class InferenceEngine:
     @property
     def model(self):
         return self.executor.model
+
+    @property
+    def adapter_pool(self) -> Optional[AdapterPool]:
+        return self.executor.adapter_pool
 
     @property
     def cache(self) -> list:
@@ -922,10 +983,12 @@ class InferenceEngine:
     # ------------------------------------------------------------------
     def submit(self, prompt_token_ids: Sequence[int],
                params: Optional[SamplingParams] = None,
-               request_id: Optional[str] = None) -> Request:
+               request_id: Optional[str] = None, adapter: str = "") -> Request:
         """Enqueue a request; tokens arrive through :meth:`step`. Touches no
         engine state but the queue and its own counter, so handler threads
-        may call it while the stepper thread steps."""
+        may call it while the stepper thread steps. ``adapter`` names a
+        registered LoRA adapter ("" = the base model); an unknown one fails
+        this request at admission."""
         if not prompt_token_ids:
             raise ValueError("prompt must contain at least one token")
         if len(prompt_token_ids) >= self.cfg.max_model_len:
@@ -934,7 +997,7 @@ class InferenceEngine:
                 f"max_model_len={self.cfg.max_model_len}")
         req = Request(request_id=request_id or f"req-{next(self._req_counter)}",
                       prompt_token_ids=list(prompt_token_ids),
-                      params=params or SamplingParams())
+                      params=params or SamplingParams(), adapter=adapter)
         self.waiting.append(req)
         self.stats["requests"] += 1
         return req
@@ -985,6 +1048,8 @@ class InferenceEngine:
             # Cancelled while queued: finish without taking a slot.
             while self.waiting and self.waiting[0].cancel_requested:
                 req = self.waiting.popleft()
+                # It may hold a pool row from a pass that then ran out of blocks.
+                self._release_adapter(req)
                 req.finish_reason = "stop"
                 req.finish_time = time.monotonic()
                 self.finished.append(req)
@@ -992,18 +1057,45 @@ class InferenceEngine:
             if not self.waiting or not slot.free:
                 continue
             req = self.waiting[0]
+            # Resolve the adapter's pool row before any block work: a full
+            # pool of pinned rows leaves the request queued (FCFS, as KV
+            # exhaustion does), a bad adapter fails this request alone, and
+            # the row stays pinned across passes until the slot releases.
+            if req._adapter_slot < 0:
+                if not req.adapter:
+                    req._adapter_slot = 0
+                elif self.adapter_pool is None:
+                    self.waiting.popleft()
+                    self._fail_waiting(req, f"request names adapter {req.adapter!r} "
+                                            "but the engine has no adapter pool "
+                                            "(adapter_slots=0)")
+                    continue
+                else:
+                    try:
+                        row, _ = self.adapter_pool.acquire(req.adapter)
+                    except AdapterError as e:
+                        self.waiting.popleft()
+                        self._fail_waiting(req, str(e))
+                        continue
+                    if row < 0:
+                        break  # every row pinned: retry next step
+                    req._adapter_slot = row
+            ns = req.adapter or None
             tokens = req.prompt_token_ids + req.output_token_ids
             cached_blocks: List[int] = []
             n_cached = 0
             tier_keys: List[tuple] = []
             if self.prefix_cache is not None:
-                cached_blocks, n_cached = self.prefix_cache.match_prefix(tokens)
+                # Keys are namespaced by the adapter: the same prompt under
+                # two adapters writes different KV.
+                cached_blocks, n_cached = self.prefix_cache.match_prefix(tokens, ns=ns)
                 # Pin the matched blocks BEFORE allocating the suffix, or
                 # the allocation's own eviction could reclaim them.
                 self.prefix_cache.acquire(cached_blocks)
                 # The chain continues into the host/disk tiers: these keys'
                 # payloads restore into blocks allocated below.
-                tier_keys = self.prefix_cache.match_tiers(tokens, len(cached_blocks))
+                tier_keys = self.prefix_cache.match_tiers(tokens, len(cached_blocks),
+                                                          ns=ns)
             need = (self.block_manager.blocks_needed(len(tokens) + 1)
                     - len(cached_blocks))
             blocks = self._alloc(need)
@@ -1129,6 +1221,8 @@ class InferenceEngine:
         self._temperature[sid] = req.params.temperature
         self._top_k[sid] = req.params.top_k
         self._top_p[sid] = req.params.top_p
+        # A request without a resolved row decodes under row 0, the base.
+        self._adapter_ids[sid] = max(req._adapter_slot, 0)
         self._slot_seeds[sid] = (req.params.seed & (2 ** 63 - 1)
                                  if req.params.seed is not None
                                  else self._rng.getrandbits(63))
@@ -1176,8 +1270,10 @@ class InferenceEngine:
         temps = np.ones((B,), np.float32)
         top_k = np.zeros((B,), np.int32)
         top_p = np.ones((B,), np.float32)
+        adapter_ids = np.zeros((B,), np.int64)
         for r, (slot, tokens, start, _) in enumerate(chunks):
             sid, req = slot.slot_id, slot.request
+            adapter_ids[r] = self._adapter_ids[sid]
             ids[r, :len(tokens)] = tokens
             pos[r, :len(tokens)] = np.arange(start, start + len(tokens))
             bt[r, :len(slot.blocks)] = slot.blocks
@@ -1190,7 +1286,7 @@ class InferenceEngine:
             self.stats["prefill_tokens"] += len(tokens)
 
         ex = self.executor
-        last_logits = ex.prefill(ids, pos, bt, last_idx)
+        last_logits = ex.prefill(ids, pos, bt, last_idx, adapter_ids)
         if not any(is_last for *_, is_last in chunks):
             return  # mid-prompt chunks: KV writes only, nothing to sample
         toks, lps = to_host(*ex.sample(last_logits, seeds, counts, temps, top_k,
@@ -1513,9 +1609,12 @@ class InferenceEngine:
             n_written = slot.next_pos if slot.prefilling else slot.seq_len
             written = ((req.prompt_token_ids + req.output_token_ids)[:n_written]
                        if register else [])
-            self.prefix_cache.release_sequence(written, slot.blocks)
+            self.prefix_cache.release_sequence(written, slot.blocks,
+                                               ns=req.adapter or None)
         else:
             self.block_manager.free(slot.blocks)
+        if slot.request is not None:
+            self._release_adapter(slot.request)
         slot.request = None
         slot.blocks = []
         slot.seq_len = 0
@@ -1528,8 +1627,27 @@ class InferenceEngine:
         self._top_p[sid] = 1.0
         self._slot_seeds[sid] = 0
         self._gen_counts[sid] = 0
+        self._adapter_ids[sid] = 0
         self._spec_reset_slot(sid)
         self._mark_state_dirty(sid)
+
+    def _release_adapter(self, req: Request) -> None:
+        """Drop the request's pool-row pin and mark it unresolved
+        (idempotent): a preempted request acquires again at readmission."""
+        if self.adapter_pool is not None and req._adapter_slot > 0:
+            self.adapter_pool.release(req._adapter_slot)
+        req._adapter_slot = -1
+
+    def _fail_waiting(self, req: Request, msg: str) -> None:
+        """Finish a request that was never admitted as an error (an unknown
+        or corrupt adapter): the engine, its slots and the rest of the
+        queue are untouched."""
+        logger.warning("request %s failed at admission: %s", req.request_id, msg)
+        self._release_adapter(req)
+        req.finish_reason = "error"
+        req.finish_time = time.monotonic()
+        self.finished.append(req)
+        self.telemetry.on_finished(req)
 
     def abort_all(self, reason: str = "abort") -> List[Request]:
         """Finish every running and queued request with ``reason`` and free
@@ -1545,6 +1663,7 @@ class InferenceEngine:
                 self._release(slot, register=False)
         while self.waiting:
             req = self.waiting.popleft()
+            self._release_adapter(req)
             req.finish_reason = reason
             req.finish_time = time.monotonic()
             aborted.append(req)

@@ -6,17 +6,25 @@ port of ``dlti_tpu/serving/server.py`` on one engine.
   (``<s>[INST] {q} [/INST] {a}</s>``, the training data's format)
 * ``GET /v1/models`` · ``GET /health`` · ``GET /stats`` · ``GET /metrics``
   (Prometheus text exposition of the same counters and histograms, with
-  the prefix-cache series, ``dlti_prefix_cache_hit_rate`` and the five
-  ``dlti_spec_*`` series under the reference's names)
+  the prefix-cache series, ``dlti_prefix_cache_hit_rate``, the five
+  ``dlti_spec_*`` series and the six ``dlti_adapter_*`` series under the
+  reference's names)
+* ``GET /v1/adapters`` lists the registered LoRA adapters; ``POST
+  /v1/adapters {"name", "directory"}`` registers one (digest-verified; a
+  bad or corrupt directory answers 400 and stays unregistered). A
+  completion names its adapter in the ``X-Adapter`` header; an unknown name
+  answers 404 before the engine sees it.
+* ``POST /v1/reload`` answers as the reference's single-engine server does:
+  400, since a rolling reload needs a replica lifecycle (not ported).
 
 Requests take OpenAI's ``stop`` strings (matched on detokenized text, the
 stop string never returned or streamed), ``n`` choices decoding
 concurrently, ``seed``, ``logprobs`` and ``stop_token_ids``. Responses keep
 the reference's JSON keys; ``migrations`` and ``retries`` are 0 on one
-engine. Not ported (ROADMAP.md, queue 1): the admission gateway, the
-``/debug/*`` routes, ``/dashboard``, multi-LoRA adapters (``/v1/adapters``,
-``X-Adapter``), ``/v1/reload``, ``/v1/deploy``, and the ``phases`` and
-``trace_id`` response keys; those routes answer 404 and say so.
+engine. Not ported (ROADMAP.md, queue 1): the admission gateway (and its
+tenant-to-adapter map), the ``/debug/*`` routes, ``/dashboard``,
+``/v1/deploy``, and the ``phases`` and ``trace_id`` response keys; those
+routes answer 404 and say so.
 
 Standard library HTTP (``http.server`` + threads): the engine steps in one
 background thread, which selects the engine's CUDA device before its first
@@ -28,6 +36,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import os
 import queue
 import signal
 import threading
@@ -40,7 +49,7 @@ from typing import Dict, List, Optional, Tuple
 import torch
 
 from dlti_tpu_torch.data.tokenizer import Tokenizer
-from dlti_tpu_torch.serving import prefix_cache
+from dlti_tpu_torch.serving import adapters, prefix_cache
 from dlti_tpu_torch.serving.engine import InferenceEngine, Request
 from dlti_tpu_torch.serving.sampling import SamplingParams
 from dlti_tpu_torch.telemetry.registry import MetricsRegistry
@@ -51,7 +60,7 @@ from dlti_tpu_torch.utils.logging import get_logger
 _GAUGE_KEYS = ("active_seqs", "waiting", "free_blocks")
 
 # Routes of the reference server whose subsystems are not ported.
-_NOT_PORTED_ROUTES = ("/dashboard", "/v1/adapters", "/v1/reload", "/v1/deploy")
+_NOT_PORTED_ROUTES = ("/dashboard", "/v1/deploy")
 
 
 def _not_ported(what: str) -> str:
@@ -83,6 +92,12 @@ def build_registry(async_engine: "AsyncEngine") -> MetricsRegistry:
                    prefix_cache.evictions_total, prefix_cache.promotions_total,
                    prefix_cache.demotions_total, prefix_cache.blocks_gauge):
         registry.register(metric)
+    # The adapter pool's series (module-level too): loads, evictions, hits,
+    # misses, and the slot and byte gauges, on a server whose engine has a
+    # pool (the reference's show only once a pool has touched them).
+    if async_engine.engine.adapter_pool is not None:
+        for metric in adapters.METRICS:
+            registry.register(metric)
 
     def _prefix_hit_rate() -> dict:
         # The fraction of prompt tokens served from the cache (HBM hits
@@ -179,8 +194,10 @@ class AsyncEngine:
         return self._dead
 
     def submit(self, prompt_ids: List[int], params: SamplingParams,
-               request_id: Optional[str] = None) -> Tuple[Request, queue.Queue]:
-        """Enqueue a request; returns (request, event queue).
+               request_id: Optional[str] = None,
+               adapter: str = "") -> Tuple[Request, queue.Queue]:
+        """Enqueue a request (under LoRA ``adapter``, "" = the base model);
+        returns (request, event queue).
 
         Queue events: ``("token", token_id, logprob)`` per generated token,
         then ``("done", finish_reason)`` — or ``("error", message)``.
@@ -189,7 +206,7 @@ class AsyncEngine:
         with self._work:
             if self._dead:
                 raise RuntimeError("engine is down (unrecoverable step fault)")
-            req = self.engine.submit(prompt_ids, params, request_id)
+            req = self.engine.submit(prompt_ids, params, request_id, adapter=adapter)
             self._queues[req.request_id] = q
             self._seen[req.request_id] = 0
             self._work.notify()
@@ -420,6 +437,9 @@ class _Handler(BaseHTTPRequestHandler):
                 "id": self.cfg.model_name, "object": "model",
                 "owned_by": "dlti_tpu",
             }]})
+        elif self.path == "/v1/adapters":
+            # What a client may put in X-Adapter right now.
+            self._json(200, {"object": "list", "data": adapters.get_catalog().names()})
         else:
             self._error(404, f"no route {self.path}")
 
@@ -428,10 +448,49 @@ class _Handler(BaseHTTPRequestHandler):
             self._completions(chat=False)
         elif self.path == "/v1/chat/completions":
             self._completions(chat=True)
+        elif self.path == "/v1/adapters":
+            self._register_adapter()
+        elif self.path == "/v1/reload":
+            self._reload_weights()
         elif self.path.startswith("/debug/") or self.path in _NOT_PORTED_ROUTES:
             self._error(404, _not_ported(self.path))
         else:
             self._error(404, f"no route {self.path}")
+
+    def _register_adapter(self) -> None:
+        """``POST /v1/adapters {"name", "directory"}``: register an adapter
+        checkpoint without a restart. The directory is digest-verified
+        before the name exists; a corrupt one is quarantined, and either
+        failure answers 400 with the name still unknown."""
+        body = self._read_body()
+        if body is None:
+            return
+        name = str(body.get("name", "") or "")
+        directory = str(body.get("directory", "") or "")
+        if not name or not directory:
+            return self._error(400, "name and directory are required")
+        try:
+            adapters.register_adapter(name, directory)
+        except adapters.AdapterError as e:
+            return self._error(400, str(e))
+        self._json(200, {"object": "adapter", "name": name, "directory": directory})
+
+    def _reload_weights(self) -> None:
+        """``POST /v1/reload {"directory"}``: a rolling weight reload needs
+        a replica lifecycle, which one engine has not (the reference's
+        single-engine server answers the same 400s)."""
+        body = self._read_body()
+        if body is None:
+            return
+        directory = str(body.get("directory", "") or "")
+        if not directory:
+            return self._error(400, "directory is required")
+        if not os.path.isfile(os.path.join(directory, "MANIFEST.json")):
+            return self._error(400, f"{directory!r} is not a checkpoint-store params "
+                                    f"export (no MANIFEST.json)")
+        return self._error(400, "engine has no replica lifecycle (rolling reload "
+                                "needs a replicated fleet; restart single-engine "
+                                "servers instead)")
 
     # -- completion core ----------------------------------------------
     def _completions(self, chat: bool) -> None:
@@ -476,14 +535,19 @@ class _Handler(BaseHTTPRequestHandler):
                 400, "n > 1 with deterministic sampling (temperature=0 or "
                      "top_k=1) would return n identical choices; relax the "
                      "sampling or drop n")
-        if str(self.headers.get("X-Adapter", "") or "").strip():
-            return self._error(404, _not_ported("multi-LoRA serving (X-Adapter)"))
+        # Unknown names answer 404 here, before any queue or slot is taken:
+        # the engine only sees registered adapters.
+        adapter = str(self.headers.get("X-Adapter", "") or "").strip()
+        if adapter and adapter not in adapters.get_catalog():
+            return self._error(404, f"unknown adapter {adapter!r}: register it via "
+                                    "POST /v1/adapters first")
+        by_adapter = {"adapter": adapter} if adapter else {}
 
         rid = ("chatcmpl-" if chat else "cmpl-") + uuid.uuid4().hex[:24]
         created = int(time.time())
         try:
             if n == 1:
-                req, q = self.async_engine.submit(prompt_ids, params, rid)
+                req, q = self.async_engine.submit(prompt_ids, params, rid, **by_adapter)
             else:
                 # n choices = n engine requests decoding concurrently; a user
                 # seed derives per-choice seeds so the response reproduces
@@ -494,7 +558,7 @@ class _Handler(BaseHTTPRequestHandler):
                         p_i = params if params.seed is None else \
                             dataclasses.replace(params, seed=params.seed + i)
                         subs.append(self.async_engine.submit(
-                            prompt_ids, p_i, f"{rid}-{i}"))
+                            prompt_ids, p_i, f"{rid}-{i}", **by_adapter))
                 except Exception:
                     # A submit failed mid-loop: cancel the choices already
                     # submitted, or they decode into queues nobody reads.

@@ -4,7 +4,10 @@ that they use (``write_bytes`` with fsync, ``replace``, the fsync of a
 directory, the ENOSPC reclaimers and ``dir_bytes``).
 
 Each write names its path class, whose retry budget is the reference's:
-``"checkpoint"`` 3 retries, ``"prefix_tier"`` 1. A transient errno
+``"checkpoint"`` 3 retries, ``"adapter"`` 2, ``"prefix_tier"`` 1. Every
+class raises once its budget is spent, as the reference's do: a torn
+adapter export is the caller's to quarantine (``checkpoint.store``'s
+staging protocol does). A transient errno
 (``EIO``, ``EAGAIN``, ``EINTR``, ``EBUSY``, ``ETIMEDOUT``, ``ESTALE``: the
 flaky-network-filesystem family) retries with exponential backoff within
 that budget; ``ENOSPC``/``EDQUOT`` first runs the registered reclaimers
@@ -29,7 +32,7 @@ import time
 from typing import Callable, Dict
 
 # Retry budgets by path class, the reference's (3 retries = 4 attempts).
-RETRIES = {"checkpoint": 3, "prefix_tier": 1}
+RETRIES = {"checkpoint": 3, "adapter": 2, "prefix_tier": 1}
 BACKOFF_S = 0.05
 
 _TRANSIENT_ERRNOS = frozenset(
@@ -47,7 +50,8 @@ _reclaimers: Dict[str, Callable[[int], int]] = {}
 
 def _raw_write_bytes(path: str, data) -> None:
     with open(path, "wb") as f:
-        f.write(data)
+        for chunk in (data if isinstance(data, (list, tuple)) else (data,)):
+            f.write(chunk)
         f.flush()
         os.fsync(f.fileno())
 
@@ -77,11 +81,12 @@ def _attempt(op: Callable[[], None], path_class: str, nbytes: int) -> None:
 
 
 def write_bytes(path: str, data, *, path_class: str = "checkpoint") -> None:
-    """Write ``data`` (bytes or any contiguous buffer) to ``path``,
-    replacing it, and fsync it."""
+    """Write ``data`` (bytes or any contiguous buffer, or a list of them
+    written one after another) to ``path``, replacing it, and fsync it."""
     path = str(path)
+    chunks = data if isinstance(data, (list, tuple)) else (data,)
     _attempt(lambda: _raw_write_bytes(path, data), path_class,
-             memoryview(data).nbytes)
+             sum(memoryview(c).nbytes for c in chunks))
 
 
 def replace(src: str, dst: str, *, path_class: str = "checkpoint") -> None:

@@ -11,7 +11,10 @@ counted per replay); then the fp16 path (K1-K4 in float16, the |ds| >
 then the int8 frozen base and int8 serving weights (the dequantization on
 the card, the graphed int8 step equal to the eager one and under ZeRO-3
 and offload, its peak, each block's expanded weights freed inside the
-train and decode graphs, a decode window that never syncs the host).
+train and decode graphs, a decode window that never syncs the host); then
+multi-LoRA serving (the decode and spec graphs over a mixed batch of base
+and adapter rows equal to the eager iterations, the pool's addresses fixed
+across loads, a row load that never syncs the host).
 
 Marked ``cuda``: each test skips where ``torch.cuda.is_available()`` is
 false, as on a CPU-only host. On a machine with the card and without JAX,
@@ -482,12 +485,47 @@ def test_bf16_flash_kernels_masks(gen, s, d, variant):
         assert not o[-1].any() and (lse[-1] == tfa.MASKED_LSE).all()
 
 
-def test_bf16_flash_reaches_the_tensor_core_kernels(gen):
-    """bf16 K1, K2 and K3 (d 64/128) name the wgmma program and the
-    profiler sees their kernels; float32 and K3 at d 256 keep the CUDA
-    cores."""
+WGMMA_KERNELS = {"flash_fwd": "flash_fwd_wgmma_kernel",
+                 "flash_bwd_dq": "flash_bwd_dq_wgmma_kernel",
+                 "flash_bwd_dkv": "flash_bwd_dkv_wgmma_kernel"}
+
+
+def _flash_launches(gen, dtype, d):
+    """A forward and backward at (1, 256, 8/2, d) that checks, after each
+    call, the kernel each entry point launched as the library reports it
+    (``last_kernel``); returns the call and what it launched."""
+    q, k, v, do, _ = _flash_case(gen, 1, 256, 8, 2, d, dtype)
+    q, k, v = (t.requires_grad_() for t in (q, k, v))
+    tfa.last_kernel.clear()
+
+    def run():
+        tfa.flash_attention(q, k, v).backward(do)
+        return dict(tfa.last_kernel)
+
+    return run
+
+
+def _profiled_kernel_names(run) -> list:
+    """The kernel names the profiler records for ``run()``. One warm-up call
+    runs outside the profiled region first, so neither the kernels' first
+    loading nor CUPTI's first records fall inside it. The full list is
+    printed (pytest shows it when an assertion on it fails)."""
     from torch.profiler import ProfilerActivity, profile
 
+    run()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    names = sorted({e.key for e in prof.key_averages()})
+    print("profiled kernel names:", *names, sep="\n  ")
+    return names
+
+
+def test_bf16_flash_reaches_the_tensor_core_kernels(gen):
+    """bf16 K1, K2 and K3 (d 64/128) name the wgmma program, launch the
+    wgmma kernels (the library's report, after every call) and the profiler
+    sees them; float32 and K3 at d 256 keep the CUDA cores."""
     wgmma = "wgmma bf16 hi/lo, cp.async 2-stage"
     for d in (64, 128, 256):
         assert tfa.kernel_design("flash_fwd", torch.bfloat16, d) == wgmma
@@ -496,14 +534,15 @@ def test_bf16_flash_reaches_the_tensor_core_kernels(gen):
         assert tfa.kernel_design("flash_bwd_dq", torch.bfloat16, d) == wgmma
         for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
             assert tfa.kernel_design(name, torch.float32, d) == "cuda-core fp32"
-    q, k, v, do, _ = _flash_case(gen, 1, 256, 8, 2, 128, torch.bfloat16)
-    q, k, v = (t.requires_grad_() for t in (q, k, v))
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(2):
-            tfa.flash_attention(q, k, v).backward(do)
-        torch.cuda.synchronize()
-    names = {e.key for e in prof.key_averages()}
+    assert _flash_launches(gen, torch.bfloat16, 256)() == {
+        **WGMMA_KERNELS, "flash_bwd_dkv": "flash_bwd_dkv_kernel"}
+    assert _flash_launches(gen, torch.float32, 128)() == {
+        "flash_fwd": "flash_fwd_kernel", "flash_bwd_dq": "flash_bwd_dq_kernel",
+        "flash_bwd_dkv": "flash_bwd_dkv_kernel"}
+    run = _flash_launches(gen, torch.bfloat16, 128)
+    for _ in range(2):
+        assert run() == WGMMA_KERNELS
+    names = _profiled_kernel_names(run)
     assert any("flash_fwd_wgmma_kernel" in n for n in names), names
     assert any("flash_bwd_dkv_wgmma_kernel" in n for n in names), names
     assert any("flash_bwd_dq_wgmma_kernel" in n for n in names), names
@@ -580,23 +619,19 @@ def test_f16_flash_backward_rescales_ds_past_float16_range(gen, hkv):
 
 
 def test_f16_flash_reaches_the_tensor_core_kernels(gen):
-    """float16 K1, K2 and K3 (d 64/128) name the float16 wgmma program, and
+    """float16 K1, K2 and K3 (d 64/128) name the float16 wgmma program,
+    launch the wgmma kernels (the library's report, after every call), and
     the profiler sees their kernels in a forward and backward."""
-    from torch.profiler import ProfilerActivity, profile
-
     wgmma = "wgmma f16 hi/lo, power-of-2 scaled, cp.async 2-stage"
     for d in (64, 128, 256):
         assert tfa.kernel_design("flash_fwd", torch.float16, d) == wgmma
         assert tfa.kernel_design("flash_bwd_dq", torch.float16, d) == wgmma
         assert tfa.kernel_design("flash_bwd_dkv", torch.float16, d) == (
             wgmma if d <= 128 else "cuda-core fp32")
-    q, k, v, do, _ = _flash_case(gen, 1, 256, 8, 2, 128, torch.float16)
-    q, k, v = (t.requires_grad_() for t in (q, k, v))
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        tfa.flash_attention(q, k, v).backward(do)
-        torch.cuda.synchronize()
-    names = {e.key for e in prof.key_averages()}
+    run = _flash_launches(gen, torch.float16, 128)
+    for _ in range(2):
+        assert run() == WGMMA_KERNELS
+    names = _profiled_kernel_names(run)
     for kernel in ("flash_fwd_wgmma_kernel", "flash_bwd_dq_wgmma_kernel",
                    "flash_bwd_dkv_wgmma_kernel"):
         assert any(kernel in n and "half" in n for n in names), names
@@ -1718,3 +1753,105 @@ def test_paged_window_attention_matches_the_reference_path(gen, pool, dtype, kv_
     k, v = paged_gather(cache, tables)
     want = reference_attention(q, k.to(dtype), v.to(dtype), causal=True, q_positions=pos)
     torch.testing.assert_close(got.float(), want.float(), atol=TOL[dtype], rtol=0)
+
+
+# ----------------------------------------------------------------------
+# Multi-LoRA serving on the card: the pool's rows reach every captured
+# graph, loads keep the pool's addresses and never wait on the card
+# ----------------------------------------------------------------------
+
+def _adapter_engine(tmp_path, graphs, spec=False, pool="bfloat16"):
+    """llama_tiny in bf16 with a 2-row adapter pool (rank 4), and two seeded
+    adapters registered as "a" and "b"."""
+    from dlti_tpu_torch.models import init_params
+    from dlti_tpu_torch.serving import EngineConfig, InferenceEngine
+    from dlti_tpu_torch.serving import adapters as ad
+    from dlti_tpu_torch.serving.engine import EngineExecutor
+
+    cfg = _tiny_bf16_cfg()
+    params = init_params(cfg, seed=0, device="cuda")
+    g = torch.Generator().manual_seed(3)
+    for name in ("a", "b"):
+        tree = {n.replace("kernel", leaf): torch.randn(
+                    (t.shape[0], 4) if leaf == "lora_a" else (4, t.shape[1]), generator=g) * 0.3
+                for n, t in params.items() if n.endswith("_proj.kernel") and ".attn." in n
+                for leaf in ("lora_a", "lora_b")}
+        ad.save_adapter(str(tmp_path / name), tree, alpha=8.0)
+        ad.register_adapter(name, str(tmp_path / name))
+    extra = (dict(speculative="ngram", num_draft_tokens=4, spec_min_acceptance=0.0)
+             if spec else {})
+    ec = EngineConfig(max_seqs=4, block_size=16, num_blocks=64, max_model_len=128,
+                      cache_dtype=pool, eos_token_id=-1, steps_per_sync=4,
+                      adapter_slots=2, adapter_rank=4, **extra)
+    ex = EngineExecutor(cfg, params, ec, device="cuda", cuda_graphs=graphs)
+    return InferenceEngine(cfg, params, ec, device="cuda", executor=ex)
+
+
+@pytest.mark.parametrize("spec", [False, True])
+@pytest.mark.parametrize("pool", ["bfloat16", "int8"])
+def test_adapter_graphs_equal_eager_and_keep_pool_addresses(gen, tmp_path, spec, pool):
+    """The decode graph (and with speculation the spec graphs) replayed
+    over a mixed batch of base and adapter rows gives the eager iteration's
+    tokens and logprobs; the same prompt under each adapter and the base
+    gives three streams; the pool's tensors keep their addresses across
+    the loads."""
+    from dlti_tpu_torch.serving import SamplingParams
+    from dlti_tpu_torch.serving import adapters as ad
+
+    runs = []
+    try:
+        for graphs in (False, True):
+            ad.get_catalog().clear()
+            engine = _adapter_engine(tmp_path / str(graphs), graphs, spec, pool)
+            engine.warmup_decode_ladder()
+            ptrs = [t.data_ptr() for abs_ in engine.adapter_pool.tensors.values()
+                    for t in abs_]
+            sp = SamplingParams(temperature=0.0, max_tokens=30)
+            reqs = [engine.submit([6, 6, 7, 7] * 3, sp, adapter=a) for a in ("", "a", "b")]
+            reqs.append(engine.submit([1, 2, 3], SamplingParams(
+                temperature=0.8, max_tokens=20, seed=4), adapter="a"))
+            while engine.has_work:
+                engine.step()
+            torch.cuda.synchronize()
+            assert ptrs == [t.data_ptr() for abs_ in engine.adapter_pool.tensors.values()
+                            for t in abs_]
+            assert engine.adapter_pool.loaded_names() == ["a", "b"]
+            runs.append([(r.output_token_ids, r.output_logprobs) for r in reqs])
+    finally:
+        ad.get_catalog().clear()
+    assert runs[0] == runs[1]
+    tokens = [t for t, _ in runs[1][:3]]
+    assert tokens[0] != tokens[1] and tokens[0] != tokens[2] and tokens[1] != tokens[2]
+
+
+def test_adapter_row_load_never_syncs_the_host(gen, tmp_path):
+    """``set_sync_debug_mode("error")`` around a pool miss: the checkpoint's
+    rows reach the card through pinned memory without a wait; the next
+    window reads them."""
+    from dlti_tpu_torch.serving import SamplingParams
+    from dlti_tpu_torch.serving import adapters as ad
+
+    try:
+        engine = _adapter_engine(tmp_path, True)
+        engine.warmup_decode_ladder()
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            row, loaded = engine.adapter_pool.acquire("b")
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        assert (row, loaded) == (1, True)
+        engine.adapter_pool.release(row)
+        want = {m: [t[row].cpu() for t in abs_]
+                for m, abs_ in engine.adapter_pool.tensors.items()}
+        req = engine.submit([5, 4, 3], SamplingParams(temperature=0.0, max_tokens=8),
+                            adapter="b")
+        while engine.has_work:
+            engine.step()
+        assert req.finish_reason == "length"
+        got = {m: [t[row].cpu() for t in abs_]
+               for m, abs_ in engine.adapter_pool.tensors.items()}
+        assert all(torch.equal(x, y) for m in want for x, y in zip(want[m], got[m]))
+        assert any(bool(a.any()) for a, _, _ in got.values())
+    finally:
+        ad.get_catalog().clear()

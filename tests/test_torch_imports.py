@@ -327,3 +327,59 @@ def test_the_port_imports_neither_pandas_nor_matplotlib():
                           text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-4000:]
     assert proc.stdout.strip().endswith("OK")
+
+
+_HF_CHILD = textwrap.dedent("""
+    import dataclasses, sys, tempfile
+    for name in ("jax", "ml_dtypes", "safetensors", "transformers", "peft"):
+        sys.modules[name] = None  # none of them is on the card machine
+
+    import torch
+    from dlti_tpu_torch.config import MODEL_PRESETS, LoRAConfig
+    from dlti_tpu_torch.models import hf_interop as hf
+    from dlti_tpu_torch.models import init_params, merge_lora_params
+    from dlti_tpu_torch.serving import EngineConfig, InferenceEngine, SamplingParams
+    from dlti_tpu_torch.serving import adapters as ad
+
+    cfg = dataclasses.replace(MODEL_PRESETS["llama_tiny"], dtype="bfloat16",
+                              param_dtype="bfloat16")
+    lora = LoRAConfig(r=2, alpha=4, dropout=0.0)
+    params = init_params(cfg, seed=0, device="cpu", lora=lora)
+    params = {n: (t + 0.1 if n.endswith("lora_b") else t) for n, t in params.items()}
+    d = tempfile.mkdtemp()
+    hf.save_hf_checkpoint(d + "/hf", merge_lora_params(params, scaling=0.0), cfg,
+                          max_shard_bytes=100_000)
+    back, back_cfg = hf.load_hf_checkpoint(d + "/hf", device="cpu")
+    assert back_cfg.num_layers == cfg.num_layers and len(back) == 21
+    hf.save_peft_adapter(d + "/peft", params, lora)
+    fresh = init_params(cfg, seed=1, device="cpu", lora=lora)
+    hf.load_peft_adapter(d + "/peft", fresh)
+    assert torch.equal(fresh["model.layers.1.attn.v_proj.lora_b"],
+                       params["model.layers.1.attn.v_proj.lora_b"])
+    ad.register_adapter("a", ad.save_adapter(d + "/a", params, alpha=4.0))
+    eng = InferenceEngine(cfg, back, EngineConfig(max_seqs=2, num_blocks=32, max_model_len=64,
+                                                  adapter_slots=1, adapter_rank=2),
+                          device="cpu")
+    reqs = [eng.submit([1, 2, 3], SamplingParams(temperature=0.0, max_tokens=4), adapter=a)
+            for a in ("a", "")]
+    while eng.has_work:
+        eng.step()
+    assert [r.finish_reason for r in reqs] != ["error", "error"], reqs
+
+    loaded = sorted(n for n, m in sys.modules.items() if m is not None and (
+        n.split(".")[0] in ("jax", "jaxlib", "dlti_tpu", "ml_dtypes", "safetensors",
+                            "transformers", "peft")))
+    assert not loaded, loaded
+    print("OK")
+""")
+
+
+def test_hf_interop_and_adapters_run_without_jax_or_safetensors():
+    """HF checkpoints and PEFT adapters in and out, adapter checkpoints and
+    a multi-LoRA engine, with ``jax``, ``ml_dtypes``, ``safetensors``,
+    ``transformers`` and ``peft`` blocked: the port's own safetensors codec
+    is all it needs."""
+    proc = subprocess.run([sys.executable, "-c", _HF_CHILD], cwd=ROOT,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert proc.stdout.strip().endswith("OK")
