@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's serving, training (single-device and ZeRO),
-checkpoint-to-serving, HTTP serving, load-test, Hugging Face interop and
-multi-LoRA serving paths on one NVIDIA GPU (an H100).
+checkpoint-to-serving, HTTP serving, load-test, Hugging Face interop,
+multi-LoRA serving and Mixtral (mixture-of-experts) paths on one NVIDIA GPU
+(an H100).
 
     python3 chip_smoke.py
 
@@ -175,12 +176,13 @@ Phases, each of which fails the run if its check fails:
     check on that engine.
 
 16. ZeRO on one card (run last): phase 7's configuration, llama2_7b LoRA at
-    full width and depth, graphed, 8 steps under ``baseline``, ``zero1``,
+    full width and depth, graphed, 4 steps (8 until phase 20 needed the
+    room) under ``baseline``, ``zero1``,
     ``zero2``, ``zero3`` and ``zero3`` with both host offloads, in a NCCL
     process group of one joined through the launcher's env
     (``launcher.maybe_initialize_from_env``): every run's losses and grad
-    norms bit-equal to the group's baseline (and that to phase 7's run
-    without a group), K1-K3 counted per run as in phase 7, every offloaded
+    norms bit-equal to the group's baseline (and that to phase 7's first 4
+    steps without a group), K1-K3 counted per run as in phase 7, every offloaded
     leaf a pinned host tensor. Prints each strategy's step ms, tokens/s,
     peak memory and launches; each run appends its row to one metrics CSV
     (``TrainConfig.metrics_csv``), and ``analysis.compare`` prints the five
@@ -189,7 +191,7 @@ Phases, each of which fails the run if its check fails:
     last): ``cli.prepare_dataset --synthetic 2000 --write-token-store S``;
     ``cli.train --model llama2_7b --preset baseline --dataset-path S
     --tokenizer byte --lora-r 16 --quantize-base int8 --remat-policy none
-    --steps-per-sync 10 --max-steps 20 --metrics-csv C --step-log L
+    --steps-per-sync 2 --max-steps 4 --metrics-csv C --step-log L
     --export-dir E`` (the CLI's batch defaults: micro-batch 1 x accum 16,
     seq 512; full width and depth); the same without ``--quantize-base`` as
     the yardstick; ``cli.compare_training --csv C --no-plots``; ``cli.serve
@@ -197,16 +199,19 @@ Phases, each of which fails the run if its check fails:
     slots, k 64) answering phase 10's 12 requests over HTTP; the engine
     built from E with int8 and with bf16 weights, 28 greedy requests each;
     ``cli.run_experiments --model llama2_7b --strategies baseline,zero3
-    --device-counts 1 --max-steps 2`` into its own CSV, compared. Each run
+    --device-counts 1 --max-steps 1 --gradient-accumulation-steps 2`` into
+    its own CSV, compared, both rows' final losses equal (cut from 20 steps
+    at 10 a sync, 64 engine tokens to 16, the matrix's 2 steps of 16
+    microbatches, and 56 step-5 requests to make room for phase 20). Each run
     must take 2 windows and 1 capture, launch K1-K3 32 x 16 = 512 times a
-    step each (no remat: nothing recomputed), and log 22 lines; the int8
+    step each (no remat: nothing recomputed), and log 6 lines; the int8
     run must peak 5 GB below the bf16 run, and the int8-weight engine 5 GB
     below the bf16-weight engine. Prints each run's step ms, tokens/s, MFU,
     peak and launches a step, the server's TTFT and TPOT, both engines'
     peaks, and the CSVs' tables. The server then takes Quickstart step 5
-    as a subprocess, ``cli.benchmark_serving --num-requests 56
-    --concurrency 28 --max-tokens 256`` (the README's 112 and 56, halved to
-    make room for phase 19): 56 ok, none failed; prints
+    as a subprocess, ``cli.benchmark_serving --num-requests 28
+    --concurrency 28 --max-tokens 256`` (the README's 112 and 56, cut to
+    make room for phases 19 and 20): 28 ok, none failed; prints
     requests/s, output tok/s, TTFT p50/p99 and mean TPOT.
 18. The engine features at llama2_7b width (run last). First each feature
     against the engine without it, at full width cut to 8 layers in float32
@@ -226,7 +231,7 @@ Phases, each of which fails the run if its check fails:
     --max-prefill-tokens 256 --ragged-prefill --enable-prefix-caching
     --prefix-host-blocks 256 --speculative ngram --num-draft-tokens 4``
     under ``cli.benchmark_serving --sessions 8 --turns 4`` (prefix hit rate
-    > 0) and ``--qps 1.5 --num-requests 32 --max-tokens 256
+    > 0) and ``--qps 1.5 --num-requests 16 --max-tokens 256
     --long-prompt-frac 0.25 --long-prompt-tokens 1024
     --scrape-server-metrics`` (spec proposed > 0), then the same flags
     without the features under the second: no request may fail. Prints
@@ -253,7 +258,39 @@ Phases, each of which fails the run if its check fails:
     steps), a 404 for an unknown name and the ``dlti_adapter_*`` series on
     ``/metrics``. Every directory it writes is removed.
 
-Prints a ``{"kernels": [...]}`` line (each kernel's float16 mode a row of
+20. Mixtral-8x7B at full width and depth on one card (run last), its
+    weights from ``init_params_int8(seed=0)`` (46.7 B parameters drawn and
+    quantized leaf by leaf: 46.7 GB of int8 weights; the bf16 tree, 93 GB,
+    would not fit). (a) Served through ``InferenceEngine``: int8 weights, a
+    bf16 pool, 8 slots, the default capacity factor 1.25, the decode
+    iteration as a CUDA graph; phase 3's 12 requests (prompts of 16-300
+    tokens, 32 tokens each, greedy and seeded, 4 admitted mid-flight), K4
+    32 x decode steps; then an 8-request equality script eager k 1, graphed
+    k 1 and graphed k 8 (tokens and logprobs identical; every request runs
+    9 tokens, so all 8 slots are busy at every step of both k: a free
+    slot's row routes tokens of its own, zeros at k 1 and its draws inside
+    a window, which under a dropping capacity moves the others'), and
+    ``set_sync_debug_mode("error")`` around the k = 8 engine's 8-step
+    window's dispatch; prints ms a device step, decode tok/s, the weight
+    bytes and the peak. The engine is released. (b) Trained: phase 7's
+    batch (micro-batch 4 x accum 2, seq 512, remat) with LoRA r=16 on
+    q/k/v/o over the int8 base, 2 eager steps through ``Trainer(cuda_graphs=
+    False)`` on ``cli.train``'s own config and dataset (released), then
+    ``cli.train --model mixtral_8x7b --quantize-base int8 --lora-r 16 ...
+    --max-steps 3 --step-log L --export-peft P`` as a subprocess, the step
+    one CUDA graph: its first 2 steps' losses and grad norms bit-equal to
+    the eager ones, K1 2 x 32 x 2 launches a step and K2/K3 32 x 2 (the
+    capture's warm-up step once more), the router's load-balance loss finite
+    and between 0.9 and 1.8 a layer, every exported ``lora_B`` nonzero;
+    prints step ms, tokens/s, MFU on the 12.88 B active parameters and the
+    peak. A witness for that loss (``mixtral_aux_witness``): one forward of
+    the eager run's first microbatch, every layer's loss recomputed plainly
+    in float64 from the states its router saw (within 1e-3) and, through
+    the same router, on isotropic inputs (the reference's 0.9-1.6); prints
+    each layer's values and how far its states share one direction.
+
+Prints ``[time]`` lines with each group of phases' wall clock, a
+``{"kernels": [...]}`` line (each kernel's float16 mode a row of
 its own), and as its last line
 ``{"ok": true, "device": {...}}``. Exits non-zero without that line when
 there is no CUDA device, when the package is not beside this file, or when
@@ -2667,8 +2704,8 @@ def run_cli(cmd, tag, timeout=600):
 
 def phase_cli_round_trip(torch):
     """The three entry points as subprocesses on the card, on llama_300m (d
-    64, which K1-K3 take): ``cli.train`` checkpoints steps 2 and 4 and
-    exports; ``cli.export`` of the checkpoints prints the export's digest;
+    64, which K1-K3 take): ``cli.train`` (2 microbatches a step)
+    checkpoints steps 2 and 4 and exports; ``cli.export`` of the checkpoints prints the export's digest;
     ``cli.serve --model-dir`` serves the export."""
     import shutil
     import tempfile
@@ -2683,6 +2720,9 @@ def phase_cli_round_trip(torch):
         out = run_cli(py + ["dlti_tpu_torch.cli.train", "--model", "llama_300m",
                             "--tokenizer", "byte", "--dataset-path", str(data),
                             "--max-steps", "4", "--save-steps", "2",
+                            # 2 microbatches a step (the CLI's 16 until phase 20
+                            # needed the room): the checkpoints are the check.
+                            "--gradient-accumulation-steps", "2",
                             "--output-dir", str(ck), "--export-dir", str(ex)], "[cli]")
         check(list_checkpoint_steps(ck) == [2, 4],
               f"cli.train left checkpoints {list_checkpoint_steps(ck)}")
@@ -2718,6 +2758,9 @@ def h2d_pinned_gb_s(torch, nbytes=1 << 30, reps=3) -> float:
 
 
 # Phase 16's strategies: (name, preset, offload_optimizer, offload_params).
+# Phase 16's steps a strategy: phase 7's first 4 (8 until phase 20 needed
+# the room).
+ZERO_STEPS = 4
 ZERO_RUNS = (("baseline", "baseline", False, False), ("zero1", "zero1", False, False),
              ("zero2", "zero2", False, False), ("zero3", "zero3", False, False),
              ("zero3_offload", "zero3", True, True))
@@ -2726,7 +2769,7 @@ ZERO_RUNS = (("baseline", "baseline", False, False), ("zero1", "zero1", False, F
 def phase_zero(torch, reference, card):
     """Phase 16, ZeRO on one card: phase 7's configuration (llama2_7b LoRA
     r=16 at full width and depth, seq 512, micro-batch 4 x accum 2, remat,
-    the step as a CUDA graph) for 8 steps under each of ``ZERO_RUNS`` in a
+    the step as a CUDA graph) for ``ZERO_STEPS`` steps under each of ``ZERO_RUNS`` in a
     NCCL process group of one, joined as the launcher's env describes it
     (``launcher.maybe_initialize_from_env``). Every run's losses and grad
     norms must be bit-equal to the group's baseline run (at a world of 1
@@ -2762,7 +2805,7 @@ def phase_zero(torch, reference, card):
         check(launcher.maybe_initialize_from_env("cuda"), "no process group was formed")
         check(dist.get_backend() == "nccl" and dist.get_world_size() == 1,
               f"group {dist.get_backend()} of {dist.get_world_size()}")
-        base = train_config(CheckpointConfig(save_strategy="no"), max_steps=TRAIN_STEPS)
+        base = train_config(CheckpointConfig(save_strategy="no"), max_steps=ZERO_STEPS)
         mcfg, accum = base.model, base.train.grad_accum_steps
         dataset = make_batches(training_texts(), ByteTokenizer(), seq_len=512,
                                micro_batch_size=4, grad_accum_steps=accum)
@@ -2799,7 +2842,7 @@ def phase_zero(torch, reference, card):
             state, record = trainer.train(dataset=dataset, state=state)
             torch.cuda.synchronize()
             launches = flash_counts(tfa)
-            want = flash_expected(mcfg.num_layers, accum, TRAIN_STEPS + record.captures)
+            want = flash_expected(mcfg.num_layers, accum, ZERO_STEPS + record.captures)
             perf = train_perf(record, mcfg)
             perf["launches"] = launches
             perf["strategy"], perf["world"] = record.strategy, record.world
@@ -2817,7 +2860,7 @@ def phase_zero(torch, reference, card):
                     f"{perf['copy_bound_ms']:.1f} ms a step")
             check(record.captures == 1, f"{name}: {record.captures} captures")
             check(launches == want, f"{name}: flash launches {launches} != {want}")
-            check(record.steps == TRAIN_STEPS and record.skipped_updates == 0,
+            check(record.steps == ZERO_STEPS and record.skipped_updates == 0,
                   f"{name}: {record.steps} steps, {record.skipped_updates} skipped")
             check(record.strategy == preset_name.split("_")[0], record.strategy)
             del state, trainer
@@ -2829,8 +2872,8 @@ def phase_zero(torch, reference, card):
                 f"group: {same}")
             check(same, f"{name} losses {perf['losses']} / grad norms {perf['grad_norms']} "
                   f"differ from the baseline's {ref['losses']} / {ref['grad_norms']}")
-        no_group = (ref["losses"] == reference["losses"]
-                    and ref["grad_norms"] == reference["grad_norms"])
+        no_group = (ref["losses"] == reference["losses"][:ZERO_STEPS]
+                    and ref["grad_norms"] == reference["grad_norms"][:ZERO_STEPS])
         log(f"[zero] the baseline in the group against phase 7's without one: bit-equal "
             f"{no_group}")
         check(no_group, "the baseline in a group of one differs from phase 7's run")
@@ -2862,9 +2905,18 @@ def phase_zero(torch, reference, card):
 # ----------------------------------------------------------------------
 
 # The README Quickstart's 7B recipe at the CLI's batch defaults (micro-batch
-# 1 x accum 16, seq 512), cut from 300 steps to two windows of 10.
-QUICKSTART_STEPS = 20
+# 1 x accum 16, seq 512), cut from 300 steps to two windows of 10, and to
+# two windows of 2 to make room for phase 20.
+QUICKSTART_STEPS = 4
+QUICKSTART_SYNC = 2
 QUICKSTART_ACCUM = 16
+# The engines' peak readings: 28 greedy requests of this many tokens (64
+# until phase 20 needed the room).
+ENGINE_PEAK_TOKENS = 16
+# The matrix's runs, baseline and zero3: one step of 2 microbatches each
+# (the CLI's 16 and 2 steps until phase 20 needed the room; its two runs
+# took 119.6 s at 16).
+MATRIX_ACCUM = 2
 # The prepared corpus: 2000 synthetic QA pairs, 125 steps an epoch at 16
 # rows a step, so 20 steps stay in the first epoch.
 QUICKSTART_PAIRS = 2000
@@ -2903,7 +2955,7 @@ def quickstart_run_perf(summary, log_path) -> dict:
 def engine_peak(torch, export_dir, quantization):
     """The documented serving configuration's engine from the export, built
     by the serve CLI's builder with ``--quantization``, warmed up, then 28
-    greedy requests of 64 tokens through ``generate``: peak device memory
+    greedy requests of ``ENGINE_PEAK_TOKENS`` through ``generate``: peak device memory
     (GB) over build and serving, weight bytes and output tokens/s."""
     from dlti_tpu_torch.cli import serve as cli
     from dlti_tpu_torch.serving import SamplingParams
@@ -2921,7 +2973,8 @@ def engine_peak(torch, export_dir, quantization):
                for i in range(28)]
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    out = engine.generate(prompts, SamplingParams(temperature=0.0, max_tokens=64))
+    out = engine.generate(prompts, SamplingParams(temperature=0.0,
+                                                  max_tokens=ENGINE_PEAK_TOKENS))
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     tokens = sum(len(r.output_token_ids) for r in out)
@@ -2963,12 +3016,13 @@ def phase_quickstart(torch, card, flush):
     """Phase 17, the README Quickstart through the port's CLIs, as a user
     types them, each a subprocess on the card: prepare a token store from
     2000 synthetic pairs; train llama2_7b (full width and depth) with LoRA
-    r=16 on an int8 frozen base without remat, 10 steps a sync, 20 steps,
+    r=16 on an int8 frozen base without remat, 2 steps a sync, 4 steps,
     appending to a metrics CSV and a step log and exporting; the same run
     on the bf16 base as the yardstick; compare the CSV; serve the export
     with the documented flags (int8 weights and KV, 28 slots, k 64) to 12
-    concurrent requests over HTTP; then the experiment matrix (baseline and
-    zero3 at one card, 2 steps) into its own CSV, compared. K1-K3 must run
+    concurrent requests over HTTP; then the experiment matrix (baseline
+    and zero3 at one card, 1 step of 2 microbatches each, their final
+    losses equal) into its own CSV, compared. K1-K3 must run
     32 x 16 = 512 times a step each (no remat: nothing recomputed), the
     int8 run must peak ``INT8_SAVING_GB`` below the bf16 run, and the
     int8-weight engine below the bf16-weight engine by as much."""
@@ -3000,7 +3054,8 @@ def phase_quickstart(torch, card, flush):
         def train_cmd(tag, int8):
             cmd = py + ["dlti_tpu_torch.cli.train", "--model", "llama2_7b", "--preset",
                         "baseline", "--dataset-path", str(store), "--tokenizer", "byte",
-                        "--lora-r", "16", "--remat-policy", "none", "--steps-per-sync", "10",
+                        "--lora-r", "16", "--remat-policy", "none",
+                        "--steps-per-sync", str(QUICKSTART_SYNC),
                         "--max-steps", str(QUICKSTART_STEPS), "--metrics-csv", str(csv_path),
                         "--step-log", str(root / f"{tag}.jsonl"),
                         "--output-dir", str(root / f"ck_{tag}")]
@@ -3099,7 +3154,7 @@ def phase_quickstart(torch, card, flush):
         engines = {q: engine_peak(torch, ex, q) for q in ("int8", "none")}
         saving = engines["none"]["peak_memory_gb"] - engines["int8"]["peak_memory_gb"]
         log(f"[quickstart serve] engine from the export, documented flags, 28 greedy "
-            f"requests of 64 tokens: int8 weights {engines['int8']['weights_gb']:.2f} GB, "
+            f"requests of {ENGINE_PEAK_TOKENS} tokens: int8 weights {engines['int8']['weights_gb']:.2f} GB, "
             f"peak {engines['int8']['peak_memory_gb']:.2f} GB, "
             f"{engines['int8']['output_tok_s']:.1f} tok/s; bf16 weights "
             f"{engines['none']['weights_gb']:.2f} GB, peak "
@@ -3111,7 +3166,8 @@ def phase_quickstart(torch, card, flush):
         # 6. The experiment matrix, then its comparison.
         out = run_cli(py + ["dlti_tpu_torch.cli.run_experiments", "--model", "llama2_7b",
                             "--strategies", "baseline,zero3", "--device-counts", "1",
-                            "--max-steps", "2", "--dataset-path", str(store),
+                            "--max-steps", "1", "--gradient-accumulation-steps",
+                            str(MATRIX_ACCUM), "--dataset-path", str(store),
                             "--tokenizer", "byte", "--metrics-csv", str(csv_matrix),
                             "--output-root", str(root / "matrix_ck"),
                             "--log-dir", str(root / "matrix_logs"), "--no-plots"],
@@ -3119,6 +3175,12 @@ def phase_quickstart(torch, card, flush):
         rows = compare(str(csv_matrix))
         check([r["experiment"] for r in rows] == ["baseline", "zero3_1dev"],
               f"the matrix CSV holds {[r['experiment'] for r in rows]}")
+        check([r["strategy"] for r in rows] == ["baseline", "zero3"],
+              f"the matrix ran {[r['strategy'] for r in rows]}")
+        losses = [float(r["final_loss"]) for r in rows]
+        # At a world of 1 ZeRO-3 shards nothing: phase 16's bit-equality.
+        check(all(math.isfinite(x) for x in losses) and losses[0] == losses[1],
+              f"the matrix's final losses {losses}")
         perf["matrix"] = [{k: r[k] for k in ("experiment", "strategy", "training_time_hours",
                                              "peak_memory_gb", "final_loss",
                                              "tokens_per_second_per_chip", "speedup")}
@@ -3135,10 +3197,10 @@ def phase_quickstart(torch, card, flush):
 # Slice 12: the load test and the engine features it measures
 # ----------------------------------------------------------------------
 
-# README Quickstart step 5's flags at half its requests and concurrency (112
-# and 56, cut to make room for phase 19): two waves of the server's 28
-# slots, as the full run's 56 concurrent clients made.
-STEP5_REQUESTS = 56
+# README Quickstart step 5's flags at a quarter of its requests and half its
+# concurrency (112 and 56; cut to 56 for phase 19, to 28 for phase 20): one
+# wave of the server's 28 slots.
+STEP5_REQUESTS = 28
 STEP5_FLAGS = ["--num-requests", str(STEP5_REQUESTS), "--concurrency", "28",
                "--max-tokens", "256"]
 LOADGEN_KEYS = ("num_requests", "num_ok", "num_shed", "requests_per_s",
@@ -3444,7 +3506,8 @@ FEATURE_FLAGS = ["--max-prefill-tokens", "256", "--ragged-prefill",
                  "--enable-prefix-caching", "--prefix-host-blocks", "256",
                  "--speculative", "ngram", "--num-draft-tokens", "4"]
 SESSION_FLAGS = ["--sessions", "8", "--turns", "4"]
-MIXED_FLAGS = ["--qps", "1.5", "--num-requests", "32", "--max-tokens", "256",
+# The open-loop mix at half its requests (32 until phase 20 needed the room).
+MIXED_FLAGS = ["--qps", "1.5", "--num-requests", "16", "--max-tokens", "256",
                "--long-prompt-frac", "0.25", "--long-prompt-tokens", "1024",
                "--scrape-server-metrics"]
 
@@ -3896,6 +3959,440 @@ def phase_hf_adapters(torch, card):
     return perf
 
 
+# ----------------------------------------------------------------------
+# Slice 15: Mixtral-8x7B at full width and depth on int8 weights
+# ----------------------------------------------------------------------
+
+# Phase 20's serving runs: the 12-request run (phase 3's prompts of 16-300
+# tokens, 32 tokens each), then the equality script three ways.
+MIXTRAL_EQUALITY_RUNS = EQUALITY_RUNS[:3]
+MIXTRAL_EQ_LENGTHS = [16, 40, 77, 128, 200, 255, 300, 120]
+# Every slot busy for every decode step at k 1 and at k 8 (the first token
+# from the prefill, then one 8-step window): a free or finished slot's row
+# takes tokens of its own (zeros at k 1, its draws inside a window), and
+# under a capacity that drops tokens its routing moves the others'.
+MIXTRAL_EQ_MAX_TOKENS = 9
+MIXTRAL_TRAIN_STEPS = 3      # graphed, 1 a sync (the CLI's default)
+MIXTRAL_EAGER_STEPS = 2      # the yardstick's
+# A router drawn at random balances the load roughly: the loss of each layer
+# is near its balanced value 1, far below E = 8 (every token on one expert).
+# The JAX package's bound for isotropic inputs to one layer is 0.9-1.6
+# (tests/test_moe.py): phase 20 holds each layer's router to it on isotropic
+# Gaussian inputs (AUX_ISOTROPIC). On the model's own hidden states
+# Mixtral-8x7B at init read 1.66-1.74 a layer on average over 3 runs, so the
+# model's loss is held just above that; mixtral_aux_witness recomputes every
+# layer's loss plainly from the states its router saw, within AUX_WITNESS_TOL.
+AUX_PER_LAYER = (0.9, 1.8)
+AUX_ISOTROPIC = (0.9, 1.6)
+# One reassigned token moves a layer's loss by E * |P_a - P_b| / (n k), below
+# 1e-4 at n ~ 1,400 valid tokens; float32 against float64 probabilities
+# differ by ~1e-7.
+AUX_WITNESS_TOL = 1e-3
+
+
+def mixtral_requests(cfg, seed=0):
+    """Phase 3's 12 requests at Mixtral's vocabulary: prompts of 16-300
+    tokens, greedy and seeded in turn, 32 tokens each."""
+    import numpy as np
+
+    from dlti_tpu_torch.serving.sampling import SamplingParams
+
+    rng = np.random.default_rng(seed)
+    lengths = [16, 300] + rng.integers(16, 301, 10).tolist()
+    out = []
+    for i, n in enumerate(lengths):
+        sp = (SamplingParams(temperature=0.0, max_tokens=32) if i % 2 == 0 else
+              SamplingParams(temperature=0.8, top_p=0.95, top_k=50, max_tokens=32,
+                             seed=1000 + i))
+        out.append((rng.integers(3, cfg.vocab_size, n).tolist(), sp))
+    return out
+
+
+def mixtral_equality_requests(cfg):
+    import numpy as np
+
+    from dlti_tpu_torch.serving.sampling import SamplingParams
+
+    rng = np.random.default_rng(2)
+    out = []
+    m = MIXTRAL_EQ_MAX_TOKENS
+    for i, n in enumerate(MIXTRAL_EQ_LENGTHS):
+        sp = (SamplingParams(temperature=0.0, max_tokens=m) if i % 2 == 0 else
+              SamplingParams(temperature=0.8, top_p=0.95, top_k=50, max_tokens=m,
+                             seed=2000 + i))
+        out.append((rng.integers(3, cfg.vocab_size, n).tolist(), sp))
+    return out
+
+
+def mixtral_serving(torch):
+    """Phase 20 (a): Mixtral-8x7B through ``InferenceEngine`` on int8 weights
+    (``init_params_int8(seed=0)``, drawn and quantized leaf by leaf), a bf16
+    pool, 8 slots, the default capacity factor, the decode iteration as a
+    CUDA graph: 12 requests with admission mid-flight (K4 32 x decode
+    steps), then the equality script eager k 1, graphed k 1 and graphed k 8
+    (identical tokens and logprobs; all 8 slots busy at every step, see
+    ``MIXTRAL_EQ_MAX_TOKENS``), and a sync check around the k = 8 engine's
+    8-step window."""
+    from dlti_tpu_torch.config import MODEL_PRESETS
+    from dlti_tpu_torch.models.interop import init_params_int8
+    from dlti_tpu_torch.models.quantization import quant_bases
+    from dlti_tpu_torch.ops import paged_attention as tpa
+    from dlti_tpu_torch.serving.engine import EngineConfig
+
+    import numpy as np
+
+    cfg = MODEL_PRESETS["mixtral_8x7b"]
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_params_int8(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    scales = {f"{b}.scale" for b in quant_bases(params)}
+    n_params = sum(t.numel() for n, t in params.items() if n not in scales)
+    weight_bytes = sum(t.numel() * t.element_size() for t in params.values())
+    check(n_params == cfg.num_params(), f"{n_params} params, expected {cfg.num_params()}")
+    log(f"[mixtral] mixtral_8x7b: {n_params / 1e9:.3f} B params ({cfg.num_layers} layers, "
+        f"{cfg.num_experts} experts of {cfg.intermediate_size}, top {cfg.num_experts_per_tok}, "
+        f"{cfg.num_heads}/{cfg.num_kv_heads} heads), {cfg.num_active_params() / 1e9:.3f} B "
+        f"active a token; int8 weights {weight_bytes / 1e9:.2f} GB drawn and quantized leaf "
+        f"by leaf on the card in {init_s:.1f} s, peak {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    perf_init_peak = torch.cuda.max_memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()  # the serving peak from here
+    ec = EngineConfig(max_seqs=8, block_size=16, num_blocks=520, max_model_len=1024,
+                      cache_dtype="bfloat16", eos_token_id=-1, quantization="int8")
+    check(cfg.moe_capacity_factor == 1.25, "the preset's capacity factor changed")
+
+    engine = card_engine(cfg, params, ec)
+    t0 = time.perf_counter()
+    engine.warmup_decode_ladder()
+    torch.cuda.synchronize()
+    log(f"[mixtral] decode graph captured in {time.perf_counter() - t0:.2f} s, graph pool "
+        f"{engine.executor.graph_pool_bytes / 1e9:.2f} GB, device memory allocated "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB")
+    ex = engine.executor
+    spans = {"prefill": [], "decode": []}
+
+    def timed(kind, fn):
+        def call(*args, **kw):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            out = fn(*args, **kw)
+            b.record()
+            spans[kind].append((a, b))
+            return out
+        return call
+
+    ex.prefill = timed("prefill", ex.prefill)
+    ex.decode_window = timed("decode", ex.decode_window)
+    reqs = mixtral_requests(cfg)
+    tpa.launches = tpa.launches_int8 = 0  # the main path's counts start here
+    t0 = time.perf_counter()
+    results = [engine.submit(p, sp) for p, sp in reqs]
+    while engine.has_work:
+        engine.step()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, launches_int8 = tpa.launches, tpa.launches_int8  # ... and are read here
+    del ex.prefill, ex.decode_window
+    stats = dict(engine.stats)
+    check(launches_int8 == 0, f"a bf16 pool launched the int8 kernel {launches_int8} times")
+    for r, (p, _) in zip(results, reqs):
+        check(r.finish_reason == "length" and len(r.output_token_ids) == 32,
+              f"request {r.request_id} (prompt {len(p)}) finished {r.finish_reason} with "
+              f"{len(r.output_token_ids)} tokens")
+        check(all(0 <= t < cfg.vocab_size for t in r.output_token_ids),
+              f"request {r.request_id} produced an out-of-vocabulary token")
+        check(np.isfinite(r.output_logprobs).all(), "nonfinite logprobs")
+    expected = cfg.num_layers * stats["decode_steps"]
+    check(launches == expected, f"K4 launches {launches} != {cfg.num_layers} x "
+          f"{stats['decode_steps']}")
+    check(engine.block_manager.num_free == ec.num_blocks - 1, "blocks leaked")
+    prefill_s = sum(a.elapsed_time(b) for a, b in spans["prefill"]) / 1e3
+    decode_s = sum(a.elapsed_time(b) for a, b in spans["decode"]) / 1e3
+    perf = {"init_s": init_s, "init_peak_gb": perf_init_peak, "num_params": n_params,
+            "weight_gb": weight_bytes / 1e9,
+            "requests": len(results), "decode_steps": stats["decode_steps"],
+            "prefill_tokens": stats["prefill_tokens"],
+            "prefill_tok_s": stats["prefill_tokens"] / prefill_s,
+            "decode_tok_s": stats["decode_slot_steps"] / decode_s,
+            "decode_step_ms": 1e3 * decode_s / stats["decode_steps"],
+            "wall_s": wall, "k4_launches": launches,
+            "graph_pool_gb": engine.executor.graph_pool_bytes / 1e9}
+    log(f"[mixtral] {len(results)} requests in {wall:.2f} s (4 admitted mid-flight), "
+        f"decode steps {stats['decode_steps']}, prefill batches {stats['prefill_batches']}; "
+        f"K4 launches {launches} (expected {cfg.num_layers} x {stats['decode_steps']}); "
+        f"decode {perf['decode_step_ms']:.2f} ms a device step, {perf['decode_tok_s']:.1f} "
+        f"tok/s at up to 8 slots; prefill {perf['prefill_tok_s']:.1f} tok/s (CUDA events)")
+    del engine, ex
+    free_memory(torch)
+
+    runs = {}
+    for name, k, graphs in MIXTRAL_EQUALITY_RUNS:
+        eng = card_engine(cfg, params, dataclasses.replace(ec, steps_per_sync=k), graphs)
+        eng.warmup_decode_ladder()
+        tpa.launches = 0
+        windows = window_clock(eng)
+        rs = [eng.submit(p, sp) for p, sp in mixtral_equality_requests(cfg)]
+        while eng.has_work:
+            eng.step()
+        torch.cuda.synchronize()
+        st = eng.stats
+        check(all(r.finish_reason == "length" for r in rs), f"{name}: a request stopped early")
+        check(tpa.launches == cfg.num_layers * st["decode_steps"],
+              f"{name}: K4 launches {tpa.launches} != {cfg.num_layers} x {st['decode_steps']}")
+        secs = sum(s for _, s in windows)
+        runs[name] = {"ms_per_device_step": 1e3 * secs / st["decode_steps"],
+                      "decode_tok_s": st["decode_slot_steps"] / secs,
+                      "windows": len(windows), "decode_steps": st["decode_steps"],
+                      "k4_launches": tpa.launches,
+                      "outputs": [(r.output_token_ids, r.output_logprobs) for r in rs]}
+        log(f"[mixtral equality] {name}: {runs[name]['ms_per_device_step']:.2f} ms per "
+            f"device step (host clock over each window / k), {runs[name]['decode_tok_s']:.1f} "
+            f"tok/s, {len(windows)} windows over {st['decode_steps']} steps; K4 "
+            f"{tpa.launches}")
+        del eng._decode_dispatch, eng._decode_complete
+        if k == 8:
+            sync_check(torch, eng, "[mixtral]", submit=True)
+            while eng.has_work:
+                eng.step()
+        del eng
+        free_memory(torch)
+    first_name = MIXTRAL_EQUALITY_RUNS[0][0]
+    first = runs[first_name]["outputs"]
+    for name, run in runs.items():
+        for i, (got, want) in enumerate(zip(run["outputs"], first)):
+            check(got[0] == want[0], f"{name}: request {i}'s tokens differ from {first_name}'s")
+            check(got[1] == want[1], f"{name}: request {i}'s logprobs differ from "
+                  f"{first_name}'s")
+    log(f"[mixtral equality] tokens and logprobs identical across {', '.join(runs)} "
+        f"({sum(len(t) for t, _ in first)} tokens)")
+    perf["equality"] = {n: {k: v for k, v in r.items() if k != "outputs"}
+                        for n, r in runs.items()}
+    del params
+    free_memory(torch)
+    perf["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    log(f"[mixtral] serving peak {perf['peak_memory_gb']:.2f} GB (the init's "
+        f"{perf_init_peak:.2f} GB apart)")
+    return perf
+
+
+def mixtral_aux_witness(torch, model, input_ids, token_mask):
+    """A second source for the router's load-balance loss: one no-grad
+    forward of ``input_ids (b, s)`` at full depth, each ``MoEMLP`` hooked.
+    For every layer: the module's loss; the same loss recomputed plainly in
+    float64 from the hidden states its router saw (``torch.topk``, no port
+    code); the plain loss of isotropic Gaussian inputs of the same shape
+    through the same router (the reference's unit-test setting); and how
+    far the hidden states share one direction, the squared norm of the mean
+    of their unit vectors (about 1/T for isotropic states, 1 for one
+    direction). Returns the rows, by layer."""
+    import torch.nn.functional as F
+
+    from dlti_tpu_torch.models.moe import MoEMLP
+
+    mlps = [m for m in model.modules() if isinstance(m, MoEMLP)]
+    k = mlps[0].cfg.num_experts_per_tok
+    rows = []
+    gen = torch.Generator(device=input_ids.device).manual_seed(0)
+
+    def plain_aux(x64, router64, valid):
+        E = router64.shape[1]
+        probs = torch.softmax(x64 @ router64, dim=-1)
+        hits = F.one_hot(probs.topk(k, dim=-1).indices, E).sum(1).double()
+        n = valid.sum()
+        frac = (hits * valid[:, None]).sum(0) / (n * k)
+        return float(E * (frac * (probs * valid[:, None]).sum(0) / n).sum())
+
+    def hook(mod, args, out):
+        x, mask = args[0], args[1]
+        xt = x.reshape(-1, x.shape[-1]).double()
+        valid = (torch.ones(xt.shape[0], dtype=torch.float64, device=xt.device)
+                 if mask is None else mask.reshape(-1).double())
+        router = mod.router.detach().double()
+        unit = xt / xt.norm(dim=-1, keepdim=True)
+        mean = (unit * valid[:, None]).sum(0) / valid.sum()
+        iso = torch.randn(xt.shape, generator=gen, dtype=torch.float64, device=xt.device)
+        rows.append({"module": float(out[1]), "plain": plain_aux(xt, router, valid),
+                     "isotropic": plain_aux(iso, router, valid),
+                     "shared": float(mean.square().sum())})
+
+    handles = [m.register_forward_hook(hook) for m in mlps]
+    try:
+        with torch.no_grad():
+            _, aux = model(input_ids, token_mask=token_mask, return_aux=True)
+    finally:
+        for h in handles:
+            h.remove()
+    check(len(rows) == len(mlps), f"{len(rows)} hooked layers of {len(mlps)}")
+    check(abs(float(aux) - sum(r["module"] for r in rows)) <= AUX_WITNESS_TOL,
+          f"the forward's aux {float(aux)} is not its layers' sum")
+    return rows
+
+
+def mixtral_train_args(data, root, steps):
+    """``cli.train``'s arguments for phase 20 (b): Mixtral-8x7B LoRA r=16 on
+    q/k/v/o over an int8 frozen base, phase 7's batch (micro-batch 4 x
+    accum 2, seq 512, remat, lr 2e-4, warmup 2), no checkpoints."""
+    return ["--model", "mixtral_8x7b", "--preset", "baseline", "--dataset-path", str(data),
+            "--tokenizer", "byte", "--max-seq-len", "512", "--per-device-batch-size", "4",
+            "--gradient-accumulation-steps", "2", "--lora-r", "16", "--quantize-base", "int8",
+            "--learning-rate", "2e-4", "--warmup-steps", "2", "--logging-steps", "1",
+            "--save-strategy", "no", "--max-steps", str(steps),
+            "--metrics-csv", str(root / "metrics.csv"), "--output-dir", str(root / "ck")]
+
+
+def mixtral_training(torch):
+    """Phase 20 (b): the yardstick first, ``MIXTRAL_EAGER_STEPS`` eager steps
+    through ``Trainer(cuda_graphs=False)`` on ``cli.train``'s own config and
+    dataset (released); then ``cli.train`` as a subprocess for
+    ``MIXTRAL_TRAIN_STEPS`` graphed steps from the same seeded int8 weights
+    with a step log and a PEFT export. Its first steps' losses and grad norms
+    must be bit-equal to the yardstick's; K1 2 x 32 x 2 launches a step, K2
+    and K3 32 x 2; the load-balance loss finite and in ``AUX_PER_LAYER`` a
+    layer, and equal to its plain recomputation (``mixtral_aux_witness``);
+    every ``lora_b`` moved off zero."""
+    import shutil
+    import tempfile
+
+    from dlti_tpu_torch.cli import train as cli_train
+    from dlti_tpu_torch.data import get_tokenizer, make_batches
+    from dlti_tpu_torch.ops import flash_attention as tfa
+    from dlti_tpu_torch.training import Trainer
+    from dlti_tpu_torch.utils.safetensors import load_file
+
+    root = Path(tempfile.mkdtemp(prefix="dlti-mixtral-"))
+    perf = {}
+    try:
+        data = root / "data"
+        data.mkdir()
+        (data / "data.jsonl").write_text(
+            "".join(json.dumps({"text": t}) + "\n" for t in training_texts()))
+        args = cli_train.parse_args(mixtral_train_args(data, root, MIXTRAL_EAGER_STEPS))
+        cfg = cli_train.build_config(args)
+        mcfg = cfg.model
+        check(mcfg.remat and mcfg.num_experts == 8 and cfg.train.quantize_frozen_base == "int8"
+              and cfg.lora.r == 16, f"phase 20's config changed: {cfg}")
+        cfg = cfg.replace(train=dataclasses.replace(cfg.train, metrics_csv=""))
+        dataset = make_batches(cli_train.load_texts(str(data)),
+                               get_tokenizer(cfg.data.tokenizer),
+                               seq_len=cfg.data.max_seq_len,
+                               micro_batch_size=cfg.train.micro_batch_size,
+                               grad_accum_steps=cfg.train.grad_accum_steps,
+                               shuffle_seed=cfg.data.shuffle_seed,
+                               pack=cfg.data.pack_sequences)
+        free_memory(torch)
+        tfa.fwd_launches = tfa.dq_launches = tfa.dkv_launches = 0
+        trainer = Trainer(cfg, device="cuda", cuda_graphs=False)
+        state, eager = trainer.train(dataset=dataset)
+        torch.cuda.synchronize()
+        eager_launches = flash_counts(tfa)
+        # The router's loss from a second source, on the trained weights and
+        # the first microbatch (its launches are not the main path's).
+        first = next(dataset.epoch(0))
+        check("segment_ids" not in first, "phase 20's rows are packed")
+        witness = mixtral_aux_witness(
+            torch, state.model, torch.as_tensor(first["input_ids"][0], device="cuda"),
+            torch.as_tensor(first["loss_mask"][0], device="cuda"))
+        # The subprocess needs the card: release the 46.7 GB base first.
+        del state, trainer
+        free_memory(torch)
+        want_eager = flash_expected(mcfg.num_layers, cfg.train.grad_accum_steps,
+                                    MIXTRAL_EAGER_STEPS)
+        check(eager_launches == want_eager, f"eager flash launches {eager_launches} != "
+              f"{want_eager}")
+        perf["eager"] = {"losses": eager.losses, "grad_norms": eager.grad_norms,
+                         "aux_losses": eager.aux_losses,
+                         "step_ms": 1e3 * (sum(eager.step_times_s[1:])
+                                           / max(len(eager.step_times_s) - 1, 1)),
+                         "peak_memory_gb": eager.peak_memory_gb}
+        log(f"[mixtral train-eager] losses {eager.losses}, grad norms {eager.grad_norms}, "
+            f"aux {eager.aux_losses}; step {perf['eager']['step_ms']:.1f} ms (the second), "
+            f"peak {eager.peak_memory_gb:.2f} GB; flash launches {eager_launches}")
+        fmt = lambda key: " ".join(f"{r[key]:.3f}" for r in witness)  # noqa: E731
+        log(f"[mixtral aux] by layer, the module's: {fmt('module')}")
+        log(f"[mixtral aux] by layer, plain float64 on the same states: {fmt('plain')}")
+        log(f"[mixtral aux] by layer, isotropic inputs through the same router: "
+            f"{fmt('isotropic')}")
+        log(f"[mixtral aux] by layer, the states' shared direction |mean unit|^2: "
+            f"{fmt('shared')}")
+        worst = max(abs(r["module"] - r["plain"]) for r in witness)
+        log(f"[mixtral aux] module against plain: worst {worst:.3g} (tolerance "
+            f"{AUX_WITNESS_TOL}); mean a layer {sum(r['module'] for r in witness) / len(witness):.4f}, "
+            f"isotropic {sum(r['isotropic'] for r in witness) / len(witness):.4f}")
+        check(worst <= AUX_WITNESS_TOL, f"the module's aux differs from the plain loss by {worst}")
+        iso_out = [i for i, r in enumerate(witness)
+                   if not AUX_ISOTROPIC[0] < r["isotropic"] < AUX_ISOTROPIC[1]]
+        check(not iso_out, f"layers {iso_out}: isotropic aux outside {AUX_ISOTROPIC}")
+        perf["aux_witness"] = witness
+        for aux in eager.aux_losses:
+            per_layer = aux / mcfg.num_layers
+            check(math.isfinite(aux) and AUX_PER_LAYER[0] < per_layer < AUX_PER_LAYER[1],
+                  f"aux_loss {aux} ({per_layer:.4f} a layer) outside {AUX_PER_LAYER} a layer")
+        del eager, dataset
+
+        steplog, peft = root / "steps.jsonl", root / "peft"
+        cmd = ([sys.executable, "-m", "dlti_tpu_torch.cli.train"]
+               + mixtral_train_args(data, root, MIXTRAL_TRAIN_STEPS)
+               + ["--step-log", str(steplog), "--export-peft", str(peft)])
+        summary, _ = run_train_cli(cmd, "[mixtral train]")
+        run = quickstart_run_perf(summary, steplog)
+        rows = [json.loads(ln) for ln in steplog.read_text().splitlines()]
+        steps = [r for r in rows if r["type"] == "step"]
+        losses = [r["loss"] for r in steps]
+        norms = [r["grad_norm"] for r in steps]
+        want = {"fwd": 2 * mcfg.num_layers * cfg.train.grad_accum_steps,
+                "dq": mcfg.num_layers * cfg.train.grad_accum_steps,
+                "dkv": mcfg.num_layers * cfg.train.grad_accum_steps}
+        log(f"[mixtral train] {run['steps']} graphed steps ({run['captures']} capture): step "
+            f"{run['step_ms']:.1f} ms, {run['tokens_per_s']:.1f} tokens/s, MFU "
+            f"{run['mfu_percent']:.2f}% (4N FLOPs a token, N = {mcfg.num_active_params():,} "
+            f"active, vs 989 TFLOP/s bf16), peak {run['peak_memory_gb']:.2f} GB; K1/K2/K3 "
+            f"launches a step {run['launches_per_step']} (expected {want}); losses {losses}, "
+            f"grad norms {norms}, final aux {summary.get('final_aux_loss')}")
+        check(run["steps"] == MIXTRAL_TRAIN_STEPS and run["captures"] == 1,
+              f"{run['steps']} steps, {run['captures']} captures")
+        check(run["launches_per_step"] == {k: float(v) for k, v in want.items()},
+              f"flash launches a step {run['launches_per_step']} != {want}")
+        same = (losses[:MIXTRAL_EAGER_STEPS] == perf["eager"]["losses"]
+                and norms[:MIXTRAL_EAGER_STEPS] == perf["eager"]["grad_norms"])
+        log(f"[mixtral train] graphed steps 1-{MIXTRAL_EAGER_STEPS} against the eager "
+            f"yardstick: losses and grad norms bit-equal: {same}")
+        check(same, f"graphed {losses} / {norms} differ from eager "
+              f"{perf['eager']['losses']} / {perf['eager']['grad_norms']}")
+        aux = summary.get("final_aux_loss")
+        check(aux is not None and math.isfinite(aux)
+              and AUX_PER_LAYER[0] < aux / mcfg.num_layers < AUX_PER_LAYER[1],
+              f"final aux_loss {aux}")
+        check(all(math.isfinite(x) for x in losses + norms), "nonfinite loss or grad norm")
+        factors = load_file(str(peft / "adapter_model.safetensors"))
+        lora_b = {n: t for n, t in factors.items() if "lora_B" in n}
+        check(len(lora_b) == 4 * mcfg.num_layers, f"{len(lora_b)} lora_B factors exported")
+        still = [n for n, t in lora_b.items() if not t.abs().max().item() > 0]
+        check(not still, f"lora_B still zero: {still[:3]}")
+        perf["train"] = {**run, "losses": losses, "grad_norms": norms, "final_aux_loss": aux,
+                         "active_params": mcfg.num_active_params(),
+                         "bit_equal_to_eager": same}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return perf
+
+
+def phase_mixtral(torch, card):
+    """Phase 20: Mixtral-8x7B at full width and depth on one card, int8
+    weights from the one-leaf-at-a-time seeded init: (a) served, then
+    released; (b) trained with LoRA on the int8 base."""
+    t_phase = time.perf_counter()
+    free_memory(torch)
+    perf = {"card": card, "serve": mixtral_serving(torch)}
+    free_memory(torch)
+    perf.update(mixtral_training(torch))
+    perf["phase_s"] = time.perf_counter() - t_phase
+    log(f"[mixtral] card {card}; phase {perf['phase_s']:.1f} s")
+    return perf
+
+
+
 def main() -> int:
     try:
         import torch
@@ -3910,56 +4407,85 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     t_start = time.perf_counter()
+    phase_times = {}
+
+    @contextlib.contextmanager
+    def lap(name):
+        """Book the wall clock of the phases run inside under ``name``."""
+        t0 = time.perf_counter()
+        yield
+        phase_times[name] = round(time.perf_counter() - t0, 1)
+        log(f"[time] {name} {phase_times[name]:.1f} s (run "
+            f"{time.perf_counter() - t_start:.1f} s)")
+
     try:
-        card = phase_card_and_build(torch)
-        # 256 MB written before each timed launch: more than the 50 MB L2.
-        flush = torch.empty(64 << 20, dtype=torch.float32, device="cuda")
-        cases, int8_cases = phase_kernel_cases(torch, flush)
-        engine, launches, engine_perf = phase_engine(torch)
-        # Phases 4 and 5 on the k = 8 graphed engine: 17 tokens a request
-        # leave two 8-step windows after the prefill, one dispatched under
-        # the sync check and one profiled.
-        main_path = phase_in_model(torch, engine, flush, max_tokens=17, fp16_pool=True)
-        sync_check(torch, engine, "[in-model]")
-        profile_perf = phase_profile(torch, engine)
-        head_perf = phase_head(torch, engine)
-        # The serving phases hold ~23 GB (weights and KV pool): release them
-        # before the training phases build their own llama2_7b.
-        del engine
-        free_memory(torch)
-        flash = phase_flash_cases(torch, flush)
-        state, dataset, lora, flash_launches, train_perf = phase_training(torch)
-        paths = phase_train_paths(torch, state, dataset, lora)
-        train_profile = phase_train_profile(torch, state, dataset)
-        # The trainer holds ~16 GB: release it before phases 14 and 13.
-        del state, dataset
-        gc.collect()
-        torch.cuda.empty_cache()
-        window_perf = phase_train_window(torch, train_perf)
-        ckpt_launches, ckpt_perf = phase_checkpoint(torch, train_perf, card, flush)
-        fp16_launches, fp16_perf = phase_fp16(torch, train_perf, card, flush)
-        engine, int8_launches, server_perf = phase_server(torch)
-        int8_main = phase_in_model(torch, engine, flush)
-        del engine
-        free_memory(torch)
-        engine, _, documented_perf = phase_server(torch, DOCUMENTED_ARGS,
-                                                  "[server-documented]")
-        sync_check(torch, engine, "[server-documented]", submit=True)
-        while engine.has_work:
-            engine.step()
-        del engine
-        free_memory(torch)
-        phase_serve_cli(torch)
-        phase_cli_round_trip(torch)
-        zero_perf = phase_zero(torch, train_perf, card)
-        free_memory(torch)
-        quickstart_perf = phase_quickstart(torch, card, flush)
-        free_memory(torch)
-        features_perf = phase_features(torch, card)
-        free_memory(torch)
-        hf_perf = phase_hf_adapters(torch, card)
+        with lap("phases 1-2"):
+            card = phase_card_and_build(torch)
+            # 256 MB written before each timed launch: more than the 50 MB L2.
+            flush = torch.empty(64 << 20, dtype=torch.float32, device="cuda")
+            cases, int8_cases = phase_kernel_cases(torch, flush)
+        with lap("phases 3-5"):
+            engine, launches, engine_perf = phase_engine(torch)
+            # Phases 4 and 5 on the k = 8 graphed engine: 17 tokens a request
+            # leave two 8-step windows after the prefill, one dispatched under
+            # the sync check and one profiled.
+            main_path = phase_in_model(torch, engine, flush, max_tokens=17,
+                                       fp16_pool=True)
+            sync_check(torch, engine, "[in-model]")
+            profile_perf = phase_profile(torch, engine)
+            head_perf = phase_head(torch, engine)
+            # The serving phases hold ~23 GB (weights and KV pool): release
+            # them before the training phases build their own llama2_7b.
+            del engine
+            free_memory(torch)
+        with lap("phase 6"):
+            flash = phase_flash_cases(torch, flush)
+        with lap("phases 7-9"):
+            state, dataset, lora, flash_launches, train_perf = phase_training(torch)
+            paths = phase_train_paths(torch, state, dataset, lora)
+            train_profile = phase_train_profile(torch, state, dataset)
+            # The trainer holds ~16 GB: release it before phases 14 and 13.
+            del state, dataset
+            gc.collect()
+            torch.cuda.empty_cache()
+        with lap("phase 14"):
+            window_perf = phase_train_window(torch, train_perf)
+        with lap("phase 13"):
+            ckpt_launches, ckpt_perf = phase_checkpoint(torch, train_perf, card, flush)
+        with lap("phase 15"):
+            fp16_launches, fp16_perf = phase_fp16(torch, train_perf, card, flush)
+        with lap("phases 10-11"):
+            engine, int8_launches, server_perf = phase_server(torch)
+            int8_main = phase_in_model(torch, engine, flush)
+            del engine
+            free_memory(torch)
+            engine, _, documented_perf = phase_server(torch, DOCUMENTED_ARGS,
+                                                      "[server-documented]")
+            sync_check(torch, engine, "[server-documented]", submit=True)
+            while engine.has_work:
+                engine.step()
+            del engine
+            free_memory(torch)
+        with lap("phase 12"):
+            phase_serve_cli(torch)
+            phase_cli_round_trip(torch)
+        with lap("phase 16"):
+            zero_perf = phase_zero(torch, train_perf, card)
+            free_memory(torch)
+        with lap("phase 17"):
+            quickstart_perf = phase_quickstart(torch, card, flush)
+            free_memory(torch)
+        with lap("phase 18"):
+            features_perf = phase_features(torch, card)
+            free_memory(torch)
+        with lap("phase 19"):
+            hf_perf = phase_hf_adapters(torch, card)
+            free_memory(torch)
+        with lap("phase 20"):
+            mixtral_perf = phase_mixtral(torch, card)
     except CheckFailed as e:
         return fail(str(e))
+    mix_serve, mix_train = mixtral_perf["serve"], mixtral_perf["train"]
 
     f16 = lambda r: r["pool"] == "float16"  # noqa: E731
     worst = max([r["max_abs_err"] for r in cases.values() if not f16(r)]
@@ -3977,6 +4503,7 @@ def main() -> int:
         "bound_ms": main_path["bound_ms"],
         "bound_by": main_path["bound_by"],
         "library_ms": main_path["library_ms"],
+        "mixtral_launches": mix_serve["k4_launches"],
     }]
     # K4 on float16 pools: times and bound at the llama2_7b engine's decode
     # state (phase 4, a float16 copy of its pool, a float16 query); launches
@@ -4021,10 +4548,14 @@ def main() -> int:
     # 15's); the error is the worst over the cases of that mode (float32
     # with bf16; the float16 ds case's, in units of 2**12, is printed in its
     # own line). "design" is the program that shape runs.
+    mixtral_flash = {"flash_fwd": mix_train["launches"]["fwd"],
+                     "flash_bwd_dq": mix_train["launches"]["dq"],
+                     "flash_bwd_dkv": mix_train["launches"]["dkv"]}
     for suffix, at, counts, mode in (
             ("", flash["llama2_7b_train"], flash_launches, ("bfloat16", "float32")),
             ("_float16", flash["llama2_7b_train_fp16"], fp16_launches, ("float16",))):
         for name, replaces in FLASH_REPLACES.items():
+            extra = {} if suffix else {"mixtral_launches": mixtral_flash[name]}
             kernels.append({
                 "name": name + suffix,
                 "design": at[name]["design"],
@@ -4039,6 +4570,7 @@ def main() -> int:
                 "bound_ms": at[name]["bound_ms"],
                 "bound_by": at[name]["bound_by"],
                 "library_ms": at[name]["library_ms"],
+                **extra,
             })
     keys = ("step_ms", "tokens_per_s", "mfu_percent", "peak_memory_gb",
             "host_syncs_per_step")
@@ -4080,6 +4612,8 @@ def main() -> int:
     log("[quickstart] summary " + json.dumps(quickstart_perf))
     log("[features] summary " + json.dumps(features_perf))
     log("[hf] summary " + json.dumps(hf_perf))
+    log("[mixtral] summary " + json.dumps(mixtral_perf))
+    log("[time] summary " + json.dumps(phase_times))
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

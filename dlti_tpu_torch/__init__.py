@@ -26,7 +26,10 @@ the Quickstart chain: data prep into token stores (``data.streaming``, CLI
 (``models.quantization``), the metrics CSV and step log
 (``utils.metrics``, ``telemetry.steplog``), the comparison and the
 experiment matrix (``analysis``, ``orchestration``, CLIs
-``cli.compare_training`` and ``cli.run_experiments``).
+``cli.compare_training`` and ``cli.run_experiments``), and the Mixtral
+family: the routed-expert MLP (``models.moe``), trained and served on int8
+weights (``models.init_params_int8``), and the ``expert`` mesh axis
+(``parallel``).
 """
 
 from dlti_tpu_torch.config import MODEL_PRESETS, LoRAConfig, ModelConfig

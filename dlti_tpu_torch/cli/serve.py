@@ -39,11 +39,13 @@ Flags keep the reference's names and defaults (``--steps-per-sync``,
 family included); the decode iteration's CUDA graph, and with
 ``--speculative ngram`` one spec round's graph per draft length, are
 captured before the server binds. ``--random-init`` weights come from
-``init_params(seed=0)``; ``--model-dir`` serves an export in the dtype its
-``config.json`` names. ``--quantization int8`` keeps the weights as int8
-with per-channel scales, quantized leaf by leaf on the card (an export is
-read into host memory first, so its bf16 tree never sits whole on the
-card). ``--adapter-slots`` sizes the multi-LoRA pool (0: none) at rank
+``init_params(seed=0)`` (with ``--quantization int8``, ``init_params_int8``:
+drawn and quantized leaf by leaf, which is how Mixtral-8x7B's 46.7 GB of
+int8 weights reach one card); ``--model-dir`` serves an export in the dtype
+its ``config.json`` names, a mixture of experts' too. ``--quantization
+int8`` keeps the weights as int8 with per-channel (per-expert for stacked
+experts) scales, quantized leaf by leaf on the card (an export is read into
+host memory first, so its bf16 tree never sits whole on the card). ``--adapter-slots`` sizes the multi-LoRA pool (0: none) at rank
 ``--adapter-rank`` over the q/k/v/o projections; each ``--adapter
 NAME=DIR`` registers one at startup (it needs slots). ``--adapter-map``,
 the gateway's tenant-to-adapter routing, is not ported and raises. It
@@ -178,7 +180,7 @@ def build(args):
         specs.append((name.strip(), adir.strip()))
 
     from dlti_tpu_torch.data import get_tokenizer
-    from dlti_tpu_torch.models.interop import init_params, params_from_jax
+    from dlti_tpu_torch.models.interop import init_params, init_params_int8, params_from_jax
     from dlti_tpu_torch.serving import (
         EngineConfig, InferenceEngine, SamplingParams, ServerConfig,
     )
@@ -203,7 +205,12 @@ def build(args):
               f"{time.perf_counter() - t0:.1f} s", flush=True)
     else:
         model_cfg = MODEL_PRESETS[args.random_init]
-        params = init_params(model_cfg, seed=0, device=device)
+        if args.quantization == "int8":
+            # Drawn and quantized leaf by leaf: Mixtral-8x7B's bf16 tree
+            # (93 GB) never exists.
+            params = init_params_int8(model_cfg, seed=0, device=device)
+        else:
+            params = init_params(model_cfg, seed=0, device=device)
         print(f"random-initialized preset {args.random_init} on {device} in "
               f"{time.perf_counter() - t0:.1f} s", flush=True)
     tiered = args.prefix_host_blocks > 0 or (

@@ -88,8 +88,12 @@ launcher's world), and ``--per-device-batch-size`` times it is the global
 microbatch. ``--offload-optimizer`` and ``--offload-params`` keep the
 optimizer moments and the frozen base in pinned host memory. Under the
 launcher rank 0 alone logs, writes checkpoints (consolidated) and the
-export, and prints the summary. Not ported, each raising above 1:
-``--tensor``, ``--sequence``, ``--expert``, ``--pipe`` and ``--data``.
+export, and prints the summary. ``--expert N`` splits a mixture of
+experts' experts over N ranks (``--model mixtral_tiny``, ``mixtral_8x7b``);
+the world is then ``N`` times the DP/FSDP extent, which ``--num-devices``
+sets (0: the world over ``N``), as the reference's ``scripts/train.py``
+sizes it; ``--expert`` with ``zero3`` raises. Not ported, each raising
+above 1: ``--tensor``, ``--sequence``, ``--pipe`` and ``--data``.
 """
 
 from __future__ import annotations
@@ -178,9 +182,12 @@ def parse_args(argv=None):
                    help="eval cadence in steps (0 = never; requires --eval-dataset)")
     p.add_argument("--num-devices", type=int, default=0,
                    help="DP/FSDP extent; 0 = the launcher's world (1 without it)")
-    for axis in ("tensor", "sequence", "expert", "pipe"):
+    for axis in ("tensor", "sequence", "pipe"):
         p.add_argument(f"--{axis}", type=int, default=1,
                        help=f"{axis}-parallel extent (not ported: only 1)")
+    p.add_argument("--expert", type=int, default=1,
+                   help="expert-parallel extent: a mixture of experts' experts split "
+                        "over this many ranks")
     p.add_argument("--data", type=int, default=None,
                    help="batch-row extent under --pipe (not ported: only 1)")
     p.add_argument("--offload-optimizer", action="store_true",
@@ -211,22 +218,27 @@ def load_texts(path: str) -> list:
 
 
 def build_parallel(args, zero_stage: ZeROStage) -> ParallelConfig:
-    """The reference's flat-path mesh rules: the extent is ``--num-devices``
-    (0: the process group's world), on ``fsdp`` under ZeRO-3, else on
-    ``data``. The model-parallel axes are not ported and raise above 1."""
-    for axis in ("tensor", "sequence", "expert", "pipe"):
+    """The reference's flat-path mesh rules (``scripts/train.py``): the
+    batch extent is ``--num-devices`` (0: the process group's world over
+    ``--expert``), on ``fsdp`` under ZeRO-3, else on ``data``; ``--expert``
+    keeps its extent. ``build_mesh`` then checks the product against the
+    world. The other model-parallel axes are not ported and raise above
+    1."""
+    for axis in ("tensor", "sequence", "pipe"):
         if getattr(args, axis) != 1:
             raise SystemExit(f"--{axis} {getattr(args, axis)}: {axis} parallelism is "
                              f"not ported yet (see ROADMAP.md); only 1 is accepted")
     if args.data not in (None, 1):
         raise SystemExit(f"--data {args.data} only applies under --pipe, which is not "
                          f"ported yet (see ROADMAP.md); use --num-devices")
+    if args.expert < 1:
+        raise SystemExit(f"--expert {args.expert}: the extent must be at least 1")
     import torch.distributed as dist
 
     world = dist.get_world_size() if dist.is_available() and dist.is_initialized() else 1
-    n = args.num_devices or world
+    n = args.num_devices or max(world // args.expert, 1)
     kw = dict(zero_stage=zero_stage, offload_optimizer=args.offload_optimizer,
-              offload_params=args.offload_params)
+              offload_params=args.offload_params, expert=args.expert)
     if zero_stage == ZeROStage.ZERO3:
         return ParallelConfig(fsdp=n, **kw)
     return ParallelConfig(data=n, **kw)
@@ -446,11 +458,13 @@ def main(argv=None) -> None:
     if not writer:
         return
     summary = {k: v for k, v in dataclasses.asdict(record).items()
-               if k not in ("losses", "grad_norms", "loss_scales", "step_times_s",
-                            "save_stall_s")}
+               if k not in ("losses", "grad_norms", "loss_scales", "aux_losses",
+                            "step_times_s", "save_stall_s")}
     summary["final_loss"] = record.final_loss
     if record.loss_scales:
         summary["final_loss_scale"] = record.loss_scales[-1]
+    if record.aux_losses:
+        summary["final_aux_loss"] = record.aux_losses[-1]
     summary["host_syncs_per_step"] = record.host_syncs_per_step
     from dlti_tpu_torch.ops import flash_attention
 

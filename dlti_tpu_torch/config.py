@@ -7,9 +7,8 @@
 Field names, defaults and presets are the reference's, so a configuration
 means the same thing in both packages. The training blocks carry the fields
 the single-device LoRA path reads. Fields that select code the port has not
-reached yet (mixture of experts, the other remat policies) are kept for
-that parity; the modules that would read them raise where
-the port stops. ``flash_block_q``/``flash_block_kv`` are the TPU
+reached yet (the other remat policies) are kept for that parity; the
+modules that would read them raise where the port stops. ``flash_block_q``/``flash_block_kv`` are the TPU
 kernel's tiles: the CUDA flash kernels pick their own and do not read them.
 """
 
@@ -56,7 +55,8 @@ class ModelConfig:
     mlp_activation: str = "silu"        # "silu" | "gelu_tanh" | "gelu_exact"
     rmsnorm_offset: bool = False        # Gemma: normalize with (1 + weight)
     embedding_scale: bool = False       # Gemma: embed * sqrt(hidden_size)
-    # Mixture of Experts: 0 = dense MLP (the only kind the port runs yet).
+    # Mixture of Experts: 0 = dense MLP; > 0 routes each token to the top
+    # num_experts_per_tok of num_experts SwiGLU experts (models.moe).
     num_experts: int = 0
     num_experts_per_tok: int = 2
     moe_capacity_factor: float = 1.25
@@ -82,14 +82,28 @@ class ModelConfig:
         return self.head_dim if self.head_dim is not None else self.hidden_size // self.num_heads
 
     def num_params(self, include_lm_head: bool = True) -> int:
-        """Analytic parameter count of the dense model."""
+        """Analytic parameter count (for MFU and reporting)."""
+        return self._count_params(include_lm_head, active_only=False)
+
+    def num_active_params(self, include_lm_head: bool = True) -> int:
+        """Parameters a token touches: :meth:`num_params` for a dense model;
+        for a mixture of experts, k routed experts instead of all E (the
+        count that drives FLOPs a token and MFU)."""
+        return self._count_params(include_lm_head, active_only=True)
+
+    def _count_params(self, include_lm_head: bool, active_only: bool) -> int:
         h, m, v = self.hidden_size, self.intermediate_size, self.vocab_size
         hd = self.resolved_head_dim
         attn = (h * self.num_heads * hd + 2 * h * self.num_kv_heads * hd
                 + self.num_heads * hd * h)
         if self.attention_bias:
             attn += (self.num_heads + 2 * self.num_kv_heads) * hd
-        per_layer = attn + 3 * h * m + 2 * h
+        if self.num_experts > 0:
+            n_ffn = self.num_experts_per_tok if active_only else self.num_experts
+            mlp = n_ffn * 3 * h * m + h * self.num_experts  # experts + router
+        else:
+            mlp = 3 * h * m
+        per_layer = attn + mlp + 2 * h
         total = v * h + self.num_layers * per_layer + h
         if include_lm_head and not self.tie_embeddings:
             total += h * v
@@ -131,9 +145,10 @@ class OptimizerConfig:
 class ParallelConfig:
     """Mesh shape and strategy (the reference's ``ParallelConfig``, every
     field and default). The port runs the batch axes, ``data`` (DP, ZeRO-1/2)
-    and ``fsdp`` (ZeRO-3), one process per device; ``tensor``,
-    ``sequence``, ``pipe`` and ``expert`` are kept for parity and raise
-    above 1 (``parallel.mesh.build_mesh``). ``offload_optimizer`` keeps the
+    and ``fsdp`` (ZeRO-3), and ``expert`` (a mixture of experts' expert
+    weights split over it), one process per device; ``tensor``,
+    ``sequence`` and ``pipe`` are kept for parity and raise above 1
+    (``parallel.mesh.build_mesh``). ``offload_optimizer`` keeps the
     optimizer moments, ``offload_params`` the frozen base, in pinned host
     memory (``configs/ds_config_zero3.json:19-27``)."""
 
@@ -343,17 +358,13 @@ class Config:
         """A config from :meth:`to_dict`'s form, or from the JAX package's
         (an export's ``config.json``). Sections and fields the port does not
         have are ignored, except in ``model``: a model field it does not
-        know, or a mixture-of-experts model, raises, since the port cannot
-        run that model."""
+        know raises, since the port cannot run that model."""
         model = d.get("model", {})
         known = {f.name for f in dataclasses.fields(ModelConfig)}
         unknown = sorted(set(model) - known)
         if unknown:
             raise ValueError(f"model config has fields the port does not know: "
                              f"{unknown}")
-        if model.get("num_experts", 0) > 0:
-            raise NotImplementedError("mixture-of-experts models are not ported "
-                                      "yet (see ROADMAP.md)")
         kwargs = {}
         for name, section in _SECTIONS.items():
             if not isinstance(d.get(name), dict):

@@ -126,6 +126,16 @@ class HostShardedSchedule:
                 f"global micro_batch_size {self.micro_batch_size} must be "
                 f"divisible by the world size {self._procs}")
 
+    def shard_rows(self, rank: int, world: int) -> None:
+        """Take batch-column slice ``rank`` of ``world`` instead of the
+        process group's: the batch axes' rank and extent when ranks beside
+        them (the expert axis) share rows."""
+        if self.micro_batch_size % world != 0:
+            raise ValueError(
+                f"global micro_batch_size {self.micro_batch_size} must be "
+                f"divisible by the batch extent {world}")
+        self._procs, self._proc_id = world, rank
+
     def _init_host_shard(self, n_rows: int, shard_by_host: bool) -> None:
         if not hasattr(self, "_procs"):
             self._init_procs(shard_by_host)

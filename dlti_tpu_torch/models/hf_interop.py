@@ -87,16 +87,18 @@ def config_from_hf(hf: Mapping[str, Any], **overrides) -> ModelConfig:
         if torch_dtype == "float32":
             kw["dtype"] = "float32"
     model_type = hf.get("model_type", "llama")
-    if hf.get("num_local_experts") or hf.get("num_experts"):
-        raise NotImplementedError(
-            "mixture-of-experts checkpoints are not supported (models.moe is not "
-            "ported; see ROADMAP.md)")
+    moe = ("mixture-of-experts checkpoints have no Hugging Face mapping (the "
+           "reference maps the dense families only)")
+    experts = hf.get("num_local_experts") or hf.get("num_experts")
     if model_type not in ("llama", "mistral", "qwen2", "gemma"):
         # A family without forward parity here (gemma2's softcapping, phi's
         # partial rotary, the MoE families) must fail, not load as a
-        # subtly different model.
+        # subtly different model: the reference's error, naming MoE.
         raise NotImplementedError(f"model_type {model_type!r} not supported "
-                                  f"(llama/mistral/qwen2/gemma)")
+                                  f"(llama/mistral/qwen2/gemma)"
+                                  + (f": {moe}" if experts else ""))
+    if experts:
+        raise NotImplementedError(moe)
     if model_type == "gemma":
         kw["rmsnorm_offset"] = True
         kw["embedding_scale"] = True
@@ -142,7 +144,11 @@ def config_from_hf(hf: Mapping[str, Any], **overrides) -> ModelConfig:
 def config_to_hf(cfg: ModelConfig) -> Dict[str, Any]:
     """An HF ``config.json`` dict for ``cfg``, whose ``model_type`` names a
     transformers class that honours its features (qwen2: q/k/v bias;
-    mistral: a window; gemma: the offset norm)."""
+    mistral: a window; gemma: the offset norm). A mixture of experts has
+    no mapping, as in the reference, and raises."""
+    if cfg.num_experts > 0:
+        raise NotImplementedError("mixture-of-experts models have no Hugging Face "
+                                  "mapping (the reference maps the dense families only)")
     if cfg.rmsnorm_offset:
         model_type, arch = "gemma", "GemmaForCausalLM"
     elif cfg.attention_bias:
@@ -335,6 +341,7 @@ def save_hf_checkpoint(directory: str, params: Mapping[str, torch.Tensor],
     in the state dict's key order (``model-XXXXX-of-XXXXX.safetensors``)
     with ``model.safetensors.index.json``: what ``transformers`` loads.
     Each file is written atomically and fsynced."""
+    hf_config = config_to_hf(cfg)  # raises before anything is written
     os.makedirs(directory, exist_ok=True)
     sd = hf_state_dict_from_params(params, cfg)
     shards: list = [[]]
@@ -359,7 +366,7 @@ def save_hf_checkpoint(directory: str, params: Mapping[str, torch.Tensor],
         _write_json(os.path.join(directory, INDEX_FILE),
                     {"metadata": {"total_size": sum(sizes)}, "weight_map": weight_map},
                     "checkpoint")
-    _write_json(os.path.join(directory, "config.json"), config_to_hf(cfg), "checkpoint")
+    _write_json(os.path.join(directory, "config.json"), hf_config, "checkpoint")
 
 
 def _write_json(path: str, obj: Any, path_class: str) -> None:

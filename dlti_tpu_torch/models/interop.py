@@ -14,8 +14,12 @@
   ``ml_dtypes`` is imported, and the port never imports it.
 * :func:`init_params` — a full-width random model filled directly on the
   device from a seeded ``torch.Generator``: embed and head normal(0.02),
-  projection kernels lecun-normal (the reference's ``LoRADense`` default),
-  norm scales ones (zeros under ``rmsnorm_offset``), biases zeros.
+  projection kernels, a mixture of experts' router and stacked experts
+  lecun-normal (the reference's ``LoRADense`` and ``MoEMLP`` defaults, fan
+  in the contraction dim -2), norm scales ones (zeros under
+  ``rmsnorm_offset``), biases zeros. :func:`init_params_int8` is the same
+  model quantized leaf by leaf as it is drawn (the tree at full precision
+  never exists: Mixtral-8x7B's 93 GB of bf16 would not fit one card).
 
 Both return ``{name: tensor}``; ``load_model`` builds a module around them
 without copying.
@@ -25,7 +29,7 @@ from __future__ import annotations
 
 import math
 import re
-from typing import Dict, Mapping, Optional, Tuple
+from typing import Dict, Iterator, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -33,7 +37,9 @@ import torch
 from dlti_tpu_torch.config import LoRAConfig, ModelConfig
 from dlti_tpu_torch.models.llama import LlamaForCausalLM
 from dlti_tpu_torch.models.lora import is_lora_name
-from dlti_tpu_torch.models.quantization import install_quantized, quant_bases
+from dlti_tpu_torch.models.quantization import (
+    install_quantized, quant_bases, quantize_params_int8,
+)
 from dlti_tpu_torch.utils.device import resolve_device
 
 # flax's lecun_normal: a normal truncated at two standard deviations, scaled
@@ -109,14 +115,37 @@ def params_to_jax(params: Mapping[str, torch.Tensor]) -> dict:
     return out
 
 
+# Leaves drawn lecun-normal over their contraction dim (-2).
+_LECUN = ("kernel", "router", "w1", "w2", "w3")
+
+
 def init_params(cfg: ModelConfig, seed: int = 0, device=None,
                 lora: Optional[LoRAConfig] = None) -> Dict[str, torch.Tensor]:
     """Random weights for ``cfg`` at full width, made on ``device`` (the card
     unless named) from ``torch.Generator(device).manual_seed(seed)``."""
+    return dict(_draw_params(cfg, seed, device, lora))
+
+
+def init_params_int8(cfg: ModelConfig, seed: int = 0, device=None,
+                     lora: Optional[LoRAConfig] = None) -> Dict[str, torch.Tensor]:
+    """``quantize_params_int8(init_params(cfg, seed, device, lora))``, leaf
+    for leaf the same values, made one leaf at a time: each weight is drawn
+    and quantized before the next is drawn, so the device holds the int8
+    tree and one leaf at full precision at most."""
+    out: Dict[str, torch.Tensor] = {}
+    for name, t in _draw_params(cfg, seed, device, lora):
+        out.update(quantize_params_int8({name: t}, donate=True))
+        del t
+    return out
+
+
+def _draw_params(cfg: ModelConfig, seed: int, device, lora: Optional[LoRAConfig]
+                 ) -> Iterator[Tuple[str, torch.Tensor]]:
+    """``(name, tensor)`` of every leaf in the state-dict order, drawn from
+    one generator."""
     device = resolve_device(device)
     gen = torch.Generator(device=device).manual_seed(seed)
     shapes = LlamaForCausalLM(cfg, lora, device="meta").state_dict()
-    params = {}
     for name, meta in shapes.items():
         leaf = name.rsplit(".", 1)[-1]
         if leaf == "scale":
@@ -128,16 +157,17 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None,
             w = torch.empty(meta.shape, dtype=torch.float32, device=device)
             if leaf in ("embed_tokens", "lm_head"):
                 w.normal_(0.0, 0.02, generator=gen)
-            elif leaf == "kernel":
-                std = math.sqrt(1.0 / meta.shape[0]) / _TRUNC_STD
+            elif leaf in _LECUN:
+                std = math.sqrt(1.0 / meta.shape[-2]) / _TRUNC_STD
                 torch.nn.init.trunc_normal_(w, 0.0, std, -2 * std, 2 * std,
                                             generator=gen)
             else:  # lora_a: PEFT's kaiming-uniform, variance 1 / (3 fan_in)
                 bound = math.sqrt(1.0 / meta.shape[0])
                 w.uniform_(-bound, bound, generator=gen)
             t = w.to(meta.dtype)
-        params[name] = t
-    return params
+            del w
+        yield name, t
+        del t  # the caller's reference alone keeps the leaf
 
 
 def load_model(cfg: ModelConfig, params: Mapping[str, torch.Tensor],

@@ -50,6 +50,7 @@ from torch.utils.checkpoint import checkpoint
 
 from dlti_tpu_torch.config import LoRAConfig, ModelConfig
 from dlti_tpu_torch.models.lora import LoRADense, dropout_hashes
+from dlti_tpu_torch.models.moe import MoEMLP, check_lora_targets, collect_aux_loss
 from dlti_tpu_torch.models.quantization import QuantizedWeight, weight_of
 from dlti_tpu_torch.ops.attention import multi_head_attention, paged_window_attention
 from dlti_tpu_torch.ops.kv_cache import paged_update, slot_mapping
@@ -162,7 +163,7 @@ class LlamaAttention(nn.Module):
                 hashes: Optional[tuple] = None,
                 paged: Optional[tuple] = None,
                 adapter_rows: Optional[tuple] = None) -> torch.Tensor:
-        """``paged``: ``(slots, seq_lens)`` of a paged-cache call, computed
+        """``paged``: ``(slots, seq_lens, drop)`` of a paged-cache call, computed
         once per forward by :class:`LlamaModel`; ``hashes``: this layer's
         dropout hashes, ``(row, column)`` by projection (None: no
         dropout); ``adapter_rows``: ``(ids, {projection: (a, b, s)})`` of
@@ -184,8 +185,8 @@ class LlamaAttention(nn.Module):
             # Paged cache: write this step's K/V into the pool in place, then
             # attend over the sequence's pages. Unwritten rows sit at logical
             # positions past the query, so the position mask hides them.
-            slots, seq_lens = paged
-            paged_update(cache, k, v, slots)
+            slots, seq_lens, drop = paged
+            paged_update(cache, k, v, slots, drop)
             if s == 1 and cfg.paged_attention_impl != "gather":
                 out = paged_decode_attention(
                     q, cache["k"], cache["v"], block_tables, seq_lens,
@@ -233,22 +234,33 @@ class LlamaMLP(nn.Module):
 
 
 class LlamaBlock(nn.Module):
+    """Attention and MLP with pre-norms. With ``cfg.num_experts`` > 0 the MLP
+    is a ``models.moe.MoEMLP``: ``token_mask`` keeps padding out of its
+    routing, and ``want_aux`` makes the block return ``(x, aux)``, its
+    load-balance loss beside the output (a dense block returns ``x``)."""
+
     def __init__(self, cfg: ModelConfig, lora: Optional[LoRAConfig] = None,
                  device=None):
         super().__init__()
-        if cfg.num_experts > 0:
-            raise NotImplementedError(
-                "mixture-of-experts blocks are not ported yet (see ROADMAP.md)")
         eps, off = cfg.rms_norm_eps, cfg.rmsnorm_offset
         self.input_norm = RMSNorm(cfg.hidden_size, eps, off, device)
         self.attn = LlamaAttention(cfg, lora, device)
         self.post_attn_norm = RMSNorm(cfg.hidden_size, eps, off, device)
-        self.mlp = LlamaMLP(cfg, lora, device)
+        self.moe = cfg.num_experts > 0
+        if self.moe:
+            check_lora_targets(lora)
+            self.mlp = MoEMLP(cfg, device)
+        else:
+            self.mlp = LlamaMLP(cfg, lora, device)
 
     def forward(self, x, cos, sin, positions, segment_ids=None, cache=None,
-                block_tables=None, hashes=None, paged=None, adapter_rows=None):
+                block_tables=None, hashes=None, paged=None, adapter_rows=None,
+                token_mask=None, want_aux=False):
         x = x + self.attn(self.input_norm(x), cos, sin, positions, segment_ids,
                           cache, block_tables, hashes, paged, adapter_rows)
+        if self.moe:
+            y, aux = self.mlp(self.post_attn_norm(x), token_mask, want_aux)
+            return (x + y, aux) if want_aux else x + y
         return x + self.mlp(self.post_attn_norm(x), hashes, adapter_rows)
 
 
@@ -291,7 +303,13 @@ class LlamaModel(nn.Module):
                 block_tables: Optional[torch.Tensor] = None,
                 dropout_seed=None, dropout_row_offset: int = 0,
                 adapter_ids: Optional[torch.Tensor] = None,
-                adapters: Optional[list] = None) -> torch.Tensor:
+                adapters: Optional[list] = None,
+                token_mask: Optional[torch.Tensor] = None,
+                return_aux: bool = False):
+        """The final norm's output ``(b, s, h)``; with ``return_aux`` (a
+        mixture of experts) the pair of it and the sum of the layers'
+        load-balance losses. ``token_mask`` (default: ``segment_ids != 0``
+        for packed rows) keeps padding out of the experts' routing."""
         cfg = self.cfg
         dtype = resolve_dtype(cfg.dtype)
         b, s = input_ids.shape
@@ -325,10 +343,15 @@ class LlamaModel(nn.Module):
             block_size = cache[0]["k"].shape[1]
             table_len = block_tables.shape[1] * block_size
             block_tables = block_tables.to(torch.int32).contiguous()
-            # Where this call's K/V rows go, and (for one-token decode) each
-            # row's length: the same in every layer.
+            # Where this call's K/V rows go, (for one-token decode) each
+            # row's length, and for a mixture of experts, which routes rows
+            # that read the trash block back, which rows are padding, whose
+            # writes are dropped (none in decode): the same in every layer.
+            drop = None
+            if cfg.num_experts > 0:
+                drop = positions < 0 if s > 1 else torch.zeros_like(positions, dtype=torch.bool)
             paged = (slot_mapping(block_tables, positions, block_size),
-                     (positions[:, 0] + 1).to(torch.int32))
+                     (positions[:, 0] + 1).to(torch.int32), drop)
         cos, sin = self._rope_tables(table_len, x.device)
 
         hashes = None
@@ -339,6 +362,10 @@ class LlamaModel(nn.Module):
                        cfg.intermediate_size)
             hashes = dropout_hashes(dropout_keys(dropout_seed, cfg.num_layers, x.device),
                                     b * s, cols, row_offset=dropout_row_offset)
+        want_aux = return_aux and cfg.num_experts > 0
+        if token_mask is None and segment_ids is not None and cfg.num_experts > 0:
+            token_mask = (segment_ids != 0).to(torch.int32)  # packed: 0 = pad
+        auxes = []
         remat = cfg.remat and cache is None and torch.is_grad_enabled()
         # Selective remat: every remat_stride-th block keeps its
         # activations instead of recomputing them in the backward.
@@ -350,18 +377,32 @@ class LlamaModel(nn.Module):
             layer_hashes = None if hashes is None else (hashes[0][i], hashes[1][i])
             run = layer if fetcher is None else functools.partial(fetcher.run_block, i, layer)
             if i in recomputed:
-                x = checkpoint(run, x, cos, sin, positions, segment_ids, None,
-                               None, layer_hashes, use_reentrant=False,
-                               preserve_rng_state=False)
+                # The block's (x, aux) outputs are what the backward differentiates;
+                # the recompute rebuilds the block's insides only, so its aux
+                # is counted once.
+                out = checkpoint(run, x, cos, sin, positions, segment_ids, None,
+                                 None, layer_hashes, None, None, token_mask, want_aux,
+                                 use_reentrant=False, preserve_rng_state=False)
             else:
-                x = run(x, cos, sin, positions, segment_ids,
-                        cache[i] if cache is not None else None, block_tables,
-                        layer_hashes, paged,
-                        None if adapters is None else (adapter_ids, adapters[i]))
+                out = run(x, cos, sin, positions, segment_ids,
+                          cache[i] if cache is not None else None, block_tables,
+                          layer_hashes, paged,
+                          None if adapters is None else (adapter_ids, adapters[i]),
+                          token_mask, want_aux)
+            if want_aux:
+                x, aux = out
+                auxes.append(aux)
+            else:
+                x = out
         if fetcher is not None and fetcher.fetches("model.final_norm.scale"):
-            return torch.func.functional_call(
+            x = torch.func.functional_call(
                 self.final_norm, {"scale": fetcher.leaf("model.final_norm.scale")}, (x,))
-        return self.final_norm(x)
+        else:
+            x = self.final_norm(x)
+        if return_aux:
+            return x, (collect_aux_loss(auxes) if auxes
+                       else torch.zeros((), dtype=torch.float32, device=x.device))
+        return x
 
 
 class LlamaForCausalLM(nn.Module):
@@ -375,7 +416,9 @@ class LlamaForCausalLM(nn.Module):
     output instead of the logits, for a loss that applies
     :meth:`head_matrix` itself (``training.step.chunked_causal_lm_loss``).
     ``adapter_ids`` and ``adapters`` apply a multi-LoRA pool per row (see
-    the module docstring).
+    the module docstring). A mixture of experts takes ``token_mask`` (1 for
+    real tokens) and with ``return_aux`` returns ``(logits or hidden, aux)``,
+    ``aux`` the sum of its layers' load-balance losses (0 for a dense model).
     """
 
     def __init__(self, cfg: ModelConfig, lora: Optional[LoRAConfig] = None,
@@ -392,14 +435,17 @@ class LlamaForCausalLM(nn.Module):
     def forward(self, input_ids, positions=None, segment_ids=None, cache=None,
                 block_tables=None, dropout_seed=None, dropout_row_offset: int = 0,
                 return_hidden: bool = False, adapter_ids=None,
-                adapters: Optional[list] = None) -> torch.Tensor:
+                adapters: Optional[list] = None, token_mask=None,
+                return_aux: bool = False):
         if (adapters is None) != (adapter_ids is None):
             raise ValueError("adapter_ids and adapters go together")
-        x = self.model(input_ids, positions, segment_ids, cache, block_tables,
-                       dropout_seed, dropout_row_offset, adapter_ids, adapters)
-        if return_hidden:
-            return x
-        return lm_head_logits(x, self.head_matrix())
+        out = self.model(input_ids, positions, segment_ids, cache, block_tables,
+                         dropout_seed, dropout_row_offset, adapter_ids, adapters,
+                         token_mask, return_aux)
+        x, aux = out if return_aux else (out, None)
+        if not return_hidden:
+            x = lm_head_logits(x, self.head_matrix())
+        return (x, aux) if return_aux else x
 
     def head_matrix(self) -> torch.Tensor:
         """The (hidden, vocab) matrix the forward multiplies the final

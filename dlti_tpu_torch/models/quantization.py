@@ -126,12 +126,15 @@ def quantize_params_int8(params: MutableMapping[str, torch.Tensor], device=None,
     quantized, so a host tree becomes a device tree one leaf at a time.
     ``donate=True`` pops each source from ``params`` as its pair is made,
     so the bf16 source and the int8 tree never coexist whole (the caller's
-    dict is emptied)."""
+    dict is emptied). A weight the tree holds quantized already (its
+    ``.q``/``.scale`` pair, e.g. from ``models.interop.init_params_int8``)
+    is moved as it is."""
     out: Dict[str, torch.Tensor] = {}
+    done = quant_bases(params)
     for name in list(params):
         t = params.pop(name) if donate else params[name]
         dev = t.device if device is None else device
-        if should_quantize(name, t):
+        if should_quantize(name, t) and name.rpartition(".")[0] not in done:
             q, scale = quantize_int8(t.to(dev))
             out[f"{name}.q"], out[f"{name}.scale"] = q, scale
         else:

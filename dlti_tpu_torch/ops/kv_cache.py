@@ -14,9 +14,14 @@
   pools and relies on JAX buffer donation to reuse the memory; here the
   pool tensors themselves are mutated and nothing is returned to rebind.
 * Padding tokens (position -1) write to the trash block (block 0, which
-  the block manager never hands out, so nothing reads it back) where the
-  reference's ``mode="drop"`` scatter drops them: every row is written,
-  with no mask, so a write never waits on the host.
+  the block manager never hands out) where the reference's ``mode="drop"``
+  scatter drops them: every row is written, with no mask, so a write never
+  waits on the host. A dense model never reads the trash block back. A
+  mixture of experts does (padding and free decode rows attend over it, are
+  routed, and take expert capacity), so its calls pass the ``drop`` mask
+  and every row landing on slot 0 writes what the reference leaves there,
+  whatever order a CUDA scatter lands duplicates in: an eager and a
+  graphed engine cannot part.
 * :func:`paged_gather` reads a sequence's blocks back into a contiguous
   logical window (an int8 pool's dequantized to float32); the caller's
   position mask hides unwritten rows. The paged decode kernel
@@ -27,7 +32,7 @@ The host-side block allocator is ``dlti_tpu_torch.serving.block_manager``.
 
 from __future__ import annotations
 
-from typing import List
+from typing import List, Optional
 
 import torch
 
@@ -93,29 +98,48 @@ def slot_mapping(block_tables: torch.Tensor, positions: torch.Tensor,
 
 
 def paged_update(layer_cache: dict, k_new: torch.Tensor, v_new: torch.Tensor,
-                 slots: torch.Tensor) -> None:
+                 slots: torch.Tensor, drop: Optional[torch.Tensor] = None) -> None:
     """Write new K/V rows into the layer's pools, in place.
 
     ``k_new``/``v_new``: (batch, s, kv_heads, head_dim); ``slots``:
-    (batch, s) from :func:`slot_mapping`. Every row is written; padding rows
-    all land in the trash block, where duplicate indices only collide with
-    each other. An int8 pool gets the rows quantized and their scales
-    written to the same slots.
+    (batch, s) from :func:`slot_mapping`. Without ``drop`` every row is
+    written and padding rows collide in the trash block in no fixed order.
+    ``drop`` (batch, s) bool, for a model that reads the trash block back,
+    marks the padding rows (position -1, which :func:`slot_mapping` sends
+    to slot 0), whose writes are dropped (all False for one-token decode):
+    every row that writes slot 0 (padding, and free decode slots, whose
+    tables are all zero) then writes the last row there not dropped, or
+    the slot's own values when every one is dropped, as the reference's
+    scatter leaves it. An int8 pool gets the rows quantized and their
+    scales written to the same slots.
     """
     k_pool, v_pool = layer_cache["k"], layer_cache["v"]
     nb, bs, kvh, hd = k_pool.shape
     idx = slots.reshape(-1)
+    if drop is not None:
+        to_zero = idx == 0
+        live = to_zero & ~drop.reshape(-1)
+        order = torch.arange(1, idx.shape[0] + 1, device=idx.device)
+        last = (live.long() * order).argmax()  # the last live row to slot 0
+        any_live = live.any()
+
+    def write(pool: torch.Tensor, rows: torch.Tensor) -> None:
+        flat = pool.view(nb * bs, *pool.shape[2:])
+        rows = rows.reshape(idx.shape[0], *pool.shape[2:]).to(pool.dtype)
+        if drop is not None:
+            shape = (-1,) + (1,) * (rows.dim() - 1)
+            # index_select: indexing by a 0-d tensor would read it on the host.
+            final = torch.where(any_live, rows.index_select(0, last.reshape(1)), flat[:1])
+            rows = torch.where(to_zero.view(shape), final, rows)
+        flat.index_copy_(0, idx, rows)
+
     if k_pool.dtype == torch.int8:
         k_new, ks = _quantize_rows(k_new)
         v_new, vs = _quantize_rows(v_new)
-        layer_cache["k_scale"].view(nb * bs, kvh).index_copy_(
-            0, idx, ks.reshape(-1, kvh))
-        layer_cache["v_scale"].view(nb * bs, kvh).index_copy_(
-            0, idx, vs.reshape(-1, kvh))
-    k_pool.view(nb * bs, kvh, hd).index_copy_(
-        0, idx, k_new.reshape(-1, kvh, hd).to(k_pool.dtype))
-    v_pool.view(nb * bs, kvh, hd).index_copy_(
-        0, idx, v_new.reshape(-1, kvh, hd).to(v_pool.dtype))
+        write(layer_cache["k_scale"], ks)
+        write(layer_cache["v_scale"], vs)
+    write(k_pool, k_new)
+    write(v_pool, v_new)
 
 
 def paged_gather(layer_cache: dict, block_tables: torch.Tensor):

@@ -1,5 +1,5 @@
-"""ZeRO placement rules and collectives: the port of
-``dlti_tpu/parallel/sharding.py`` for the batch axes.
+"""ZeRO placement rules, expert parallelism and their collectives: the port
+of ``dlti_tpu/parallel/sharding.py`` for the batch axes and the expert axis.
 
 The reference expresses DeepSpeed's ZeRO stages as shardings over a mesh
 and lets GSPMD insert the collectives. The port places each leaf by the
@@ -20,7 +20,9 @@ step with them:
   all-gather forward, reduce-scatter of a trainable leaf's gradient
   backward); the rest behaves as under ZeRO-2.
 
-The two rules pick the same dim for a leaf that both shard. A shard is a
+The ZeRO rules run over the batch axes (``Mesh.batch``: the whole world
+unless ``expert`` is above 1). The two rules pick the same dim for a leaf
+that both shard. A shard is a
 contiguous run of ``shape[d] // world`` indices along dim ``d``, rank
 ``r`` holding run ``r``. At a world of 1 a leaf the rules shard is one
 shard, the whole leaf, and its collectives still run (copies), so a group
@@ -33,10 +35,28 @@ memory. The update copies the moments to the card and back inside the
 step; :class:`ParamFetcher` streams the base into the step one block ahead
 on a side stream. On the CPU host and device memory are one, so offload
 moves nothing there.
+
+Expert parallelism (``expert`` above 1, the reference's ``_EP_PATTERN``
+rule): a mixture of experts' ``mlp.w1/w2/w3`` (and their int8 pairs) keep
+only this rank's ``E / ep`` experts, dim 0 split over the expert group,
+when ``ep`` divides ``E`` (else they stay whole, and every rank runs every
+expert). Each MoE layer gets a :class:`MoEGroups`: every rank routes every
+token and runs its own experts on them; :class:`ExpertIn` (identity
+forward, all-reduce backward) brings the tokens and their routing weights
+in, :class:`ExpertOut` (all-reduce forward, identity backward) sums the
+partial combines, so every leaf held whole gets the same gradient on every
+expert rank, and gradients are reduced over the batch axes alone. An expert
+leaf's moments are its shard's, never split further. Under data
+parallelism too (any ``expert``), :class:`MoEGroups` makes capacity and the
+load-balance loss the global microbatch's: it all-gathers each batch rank's
+per-(slot, expert) counts and sums the loss's statistics
+(:class:`BatchSum`, all-reduce forward and backward). ZeRO-3 with
+``expert`` above 1 raises (``parallel.mesh.check_strategy``).
 """
 
 from __future__ import annotations
 
+import re
 from dataclasses import dataclass, field
 from typing import Dict, List, Mapping, Optional, Sequence, Tuple
 
@@ -46,7 +66,12 @@ from torch import nn
 
 from dlti_tpu_torch.config import ZeROStage
 from dlti_tpu_torch.models.lora import is_lora_name
+from dlti_tpu_torch.models.moe import MoEMLP
 from dlti_tpu_torch.parallel.mesh import Mesh
+
+# Expert-parallel rule: stacked expert weights (or their int8 pairs) split
+# dim 0 over 'expert'.
+_EP_PATTERN = re.compile(r".*\.mlp\.(w1|w2|w3)(\.q|\.scale)?$")
 
 # Don't ZeRO-3-shard leaves with no dim this long (norm scales, LoRA
 # factors with every dim < 1024): the all-gather latency outweighs the
@@ -74,10 +99,19 @@ def param_shard_dim(shape: Sequence[int], mesh: Mesh) -> Optional[int]:
 
 def opt_shard_dim(shape: Sequence[int], mesh: Mesh) -> Optional[int]:
     """The dim a trainable leaf's optimizer moments (and its owned gradient)
-    are sharded along (ZeRO-1/2/3), or None when they are whole."""
+    are sharded along (ZeRO-1/2/3) over the batch axes, or None when they
+    are whole."""
     if mesh.zero_stage == ZeROStage.NONE or not mesh.distributed or not shape:
         return None
-    return _largest_divisible_dim(shape, mesh.world)
+    return _largest_divisible_dim(shape, mesh.batch.world)
+
+
+def expert_shard_dim(name: str, shape: Sequence[int], mesh: Mesh) -> Optional[int]:
+    """0 for a stacked expert leaf whose expert count the expert axis
+    divides (stored as this rank's experts), else None."""
+    if mesh.ep > 1 and _EP_PATTERN.match(name) and shape and shape[0] % mesh.ep == 0:
+        return 0
+    return None
 
 
 def shard_of(t: torch.Tensor, d: Optional[int], mesh: Mesh) -> torch.Tensor:
@@ -119,6 +153,75 @@ def all_reduce_(t: torch.Tensor, mesh: Mesh) -> torch.Tensor:
     return t
 
 
+class ExpertIn(torch.autograd.Function):
+    """A tensor every expert rank holds, into a computation whose gradient
+    each rank sees only through its own experts: identity forward, the
+    gradient summed over the expert group backward."""
+
+    @staticmethod
+    def forward(ctx, t, mesh):
+        ctx.mesh = mesh
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce_(g.contiguous().clone(), ctx.mesh), None
+
+
+class ExpertOut(torch.autograd.Function):
+    """The sum over the expert group of each rank's partial result (its
+    experts' share of the combine); the gradient, whole on every rank,
+    passes through."""
+
+    @staticmethod
+    def forward(ctx, t, mesh):
+        return all_reduce_(t.contiguous().clone(), mesh)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class BatchSum(torch.autograd.Function):
+    """The sum over the batch axes of each rank's statistics, feeding a
+    value every batch rank then uses: all-reduce forward and backward."""
+
+    @staticmethod
+    def forward(ctx, t, mesh):
+        ctx.mesh = mesh
+        return all_reduce_(t.contiguous().clone(), mesh)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce_(g.contiguous().clone(), ctx.mesh), None
+
+
+class MoEGroups:
+    """A MoE layer's collectives under ``mesh`` (``models.moe.MoEMLP.groups``):
+    the batch axes' counts and sums, and (``split``: the layer holds its
+    expert rank's experts) the expert group's way in and out."""
+
+    def __init__(self, mesh: Mesh, split: bool):
+        self.batch_mesh = mesh.batch
+        self.expert_mesh = mesh.experts
+        self.batch_world, self.batch_rank = self.batch_mesh.world, self.batch_mesh.rank
+        self.expert_rank = self.expert_mesh.rank
+        self.split = split and mesh.ep > 1
+
+    def gather_counts(self, counts: torch.Tensor) -> torch.Tensor:
+        """Every batch rank's ``counts`` stacked by batch rank."""
+        return all_gather_dim(counts[None], 0, self.batch_mesh)
+
+    def batch_sum(self, t: torch.Tensor) -> torch.Tensor:
+        return BatchSum.apply(t, self.batch_mesh)
+
+    def expert_in(self, t: torch.Tensor) -> torch.Tensor:
+        return ExpertIn.apply(t, self.expert_mesh)
+
+    def expert_out(self, t: torch.Tensor) -> torch.Tensor:
+        return ExpertOut.apply(t, self.expert_mesh)
+
+
 class GatherAtUse(torch.autograd.Function):
     """A sharded leaf, whole, for the computation that uses it: the forward
     all-gathers the shards; the backward reduce-scatters the gradient to
@@ -138,14 +241,17 @@ class GatherAtUse(torch.autograd.Function):
 class LeafPlacement:
     """Where one parameter leaf lives: ``param_dim`` (stored as this rank's
     shard along it, ZeRO-3), ``opt_dim`` (its moments and owned gradient
-    sharded along it; trainable leaves), ``shape`` (the whole leaf's),
-    ``host`` (kept in pinned host memory: an offloaded frozen leaf)."""
+    sharded along it over the batch axes; trainable leaves), ``expert_dim``
+    (stored as this rank's experts along it, the expert axis), ``shape``
+    (the whole leaf's), ``host`` (kept in pinned host memory: an offloaded
+    frozen leaf)."""
 
     shape: Tuple[int, ...]
     trainable: bool
     param_dim: Optional[int] = None
     opt_dim: Optional[int] = None
     host: bool = False
+    expert_dim: Optional[int] = None
 
 
 @dataclass
@@ -159,6 +265,22 @@ class Layout:
     @property
     def offload_optimizer(self) -> bool:
         return self.mesh.parallel.offload_optimizer
+
+    def param_axis(self, name: str) -> Tuple[Optional[int], Mesh]:
+        """``(dim, axis)``: the dim along which this rank holds a shard of the
+        parameter ``name``, and the mesh view of the ranks holding the
+        others ((None, mesh) for a leaf held whole)."""
+        pl = self.leaves[name]
+        if pl.expert_dim is not None:
+            return pl.expert_dim, self.mesh.experts
+        return pl.param_dim, self.mesh
+
+    def moment_axis(self, name: str) -> Tuple[Optional[int], Mesh]:
+        """``(dim, axis)`` as :meth:`param_axis`, for ``name``'s moments."""
+        pl = self.leaves[name]
+        if pl.param_dim is not None or pl.expert_dim is not None:
+            return self.param_axis(name)
+        return pl.opt_dim, self.mesh.batch
 
     def gathers_update(self, name: str) -> bool:
         """Whether the update of ``name`` runs on a shard of a whole
@@ -175,11 +297,12 @@ def plan_layout(model: nn.Module, mesh: Mesh, lora_enabled: bool) -> Layout:
     for name, p in model.named_parameters():
         trainable = not lora_enabled or is_lora_name(name)
         shape = tuple(p.shape)
+        ep_dim = expert_shard_dim(name, shape, mesh)
         layout.leaves[name] = LeafPlacement(
             shape=shape, trainable=trainable,
             param_dim=param_shard_dim(shape, mesh),
-            opt_dim=opt_shard_dim(shape, mesh) if trainable else None,
-            host=offload and not trainable)
+            opt_dim=opt_shard_dim(shape, mesh) if trainable and ep_dim is None else None,
+            host=offload and not trainable, expert_dim=ep_dim)
     return layout
 
 
@@ -192,12 +315,20 @@ def _param_owner(model: nn.Module, name: str) -> Tuple[nn.Module, str]:
 def shard_model(model: nn.Module, mesh: Mesh, lora_enabled: bool) -> Layout:
     """Place ``model``'s parameters by :func:`plan_layout`, in place: a
     ZeRO-3 leaf keeps only this rank's shard (a new ``nn.Parameter`` with
-    the old one's ``requires_grad``), an offloaded leaf moves to pinned
-    host memory. Installs a :class:`ParamFetcher` on the model when any
-    leaf must be fetched at use, and returns the layout."""
+    the old one's ``requires_grad``), an expert leaf only this rank's
+    experts, an offloaded leaf moves to pinned host memory. Installs a
+    :class:`ParamFetcher` on the model when any leaf must be fetched at
+    use, gives each MoE layer its :class:`MoEGroups` under data or expert
+    parallelism, and returns the layout."""
     layout = plan_layout(model, mesh, lora_enabled)
     fetched = False
     for name, pl in layout.leaves.items():
+        if pl.expert_dim is not None:
+            owner, leaf = _param_owner(model, name)
+            old = getattr(owner, leaf)
+            t = shard_of(old.detach(), pl.expert_dim, mesh.experts).clone()
+            setattr(owner, leaf, nn.Parameter(t, requires_grad=old.requires_grad))
+            del old
         if pl.param_dim is None and not pl.host:
             continue
         fetched = True
@@ -215,6 +346,11 @@ def shard_model(model: nn.Module, mesh: Mesh, lora_enabled: bool) -> Layout:
         del old
     if fetched:
         model.model.fetcher = ParamFetcher(model, layout)
+    if mesh.distributed and (mesh.batch.world > 1 or mesh.ep > 1):
+        for name, mod in model.named_modules():
+            if isinstance(mod, MoEMLP):
+                w1 = next(n for n in layout.leaves if n.startswith(f"{name}.w1"))
+                mod.groups = MoEGroups(mesh, split=layout.leaves[w1].expert_dim is not None)
     if mesh.device.type == "cuda":
         torch.cuda.empty_cache()
     return layout
@@ -337,7 +473,7 @@ def owned_grad(g: torch.Tensor, name: str, layout: Layout,
     sliced from the all-reduced whole under ZeRO-1) or the whole
     (all-reduced). ``summed``: ``g`` is the global sum already
     (:func:`reduce_in_dtype` per microbatch), so this rank takes its part."""
-    pl, mesh = layout.leaves[name], layout.mesh
+    pl, mesh = layout.leaves[name], layout.mesh.batch
     if pl.param_dim is not None:
         return g
     if summed:
@@ -358,21 +494,28 @@ def reduce_in_dtype(g: torch.Tensor, name: str, layout: Layout,
     takes the single device's decision. A ZeRO-3 leaf's gradient arrives
     reduce-scattered already (``GatherAtUse``) and is only rounded."""
     if layout.leaves[name].param_dim is None:
-        g = all_reduce_(g, layout.mesh)
+        g = all_reduce_(g, layout.mesh.batch)
     return g.to(dtype).float()
 
 
 def sharded_sq_norm(grads: Mapping[str, torch.Tensor], layout: Layout) -> torch.Tensor:
     """The whole gradient's sum of squares (float32) from the owned
-    gradients: each shard's squares summed over the ranks, each leaf held
-    whole on every rank counted once."""
-    sharded = [n for n in grads if layout.leaves[n].opt_dim is not None
-               or layout.leaves[n].param_dim is not None]
-    whole = [n for n in grads if n not in sharded]
-    sq = sum(torch.sum(grads[n].float() * grads[n].float()) for n in sharded)
+    gradients: each shard's squares summed over the ranks holding the
+    others (the batch axes for a ZeRO shard, the expert group for an expert
+    leaf), each leaf held whole on every rank counted once."""
+    def sq(names):
+        return sum(torch.sum(grads[n].float() * grads[n].float()) for n in names)
+
+    experts = [n for n in grads if layout.leaves[n].expert_dim is not None]
+    sharded = [n for n in grads if n not in experts and (
+        layout.leaves[n].opt_dim is not None or layout.leaves[n].param_dim is not None)]
+    whole = [n for n in grads if n not in sharded and n not in experts]
+    total = sq(whole)
     if sharded:
-        all_reduce_(sq, layout.mesh)
-    return sq + sum(torch.sum(grads[n].float() * grads[n].float()) for n in whole)
+        total = total + all_reduce_(sq(sharded), layout.mesh.batch)
+    if experts:
+        total = total + all_reduce_(sq(experts), layout.mesh.experts)
+    return total
 
 
 @torch.no_grad()

@@ -511,16 +511,24 @@ class EngineExecutor:
         in the shared pool. An eager warm-up first builds what the first
         call builds lazily (the kernel library, RoPE tables, cuBLAS state)
         on a side stream, on zeroed copies of the buffers and a zeroed block
-        table, so it writes nothing but the trash block. The capture itself
-        launches nothing: the launch counters it moved are put back and
-        credited to each replay instead."""
+        table, so it writes nothing but the trash block, whose rows a
+        mixture of experts then puts back: it routes padding rows that
+        attend over it, so a graphed engine must hold the eager one's.
+        The capture itself launches nothing: the launch counters it moved
+        are put back and credited to each replay instead."""
         with torch.cuda.device(self.device):
+            trash = [{name: t[0].clone() for name, t in layer.items()}
+                     for layer in self.cache] if self.model_cfg.num_experts > 0 else []
             side = torch.cuda.Stream()
             side.wait_stream(torch.cuda.current_stream())
             with torch.cuda.stream(side):
                 run(*[torch.zeros_like(a) for a in static_args],
                     [torch.zeros_like(t) for t in self.state.tensors])
             torch.cuda.current_stream().wait_stream(side)
+            for layer, saved in zip(self.cache, trash):
+                for name, t in saved.items():
+                    layer[name][0].copy_(t)
+            del trash
             if self._pool is None:
                 self._pool = torch.cuda.graph_pool_handle()
             # torch.cuda.graph empties the allocator's cache on entry: empty
@@ -1253,17 +1261,25 @@ class InferenceEngine:
         group's widest row, rounded up to a power of two): the attention's
         sums then run over the same window whatever rows share the call,
         so a row's output does not depend on how admissions are grouped
-        (ragged on and off give the same bytes). Final chunks sample their
-        first token from their last real logit; the others write KV
-        only."""
+        (ragged on and off give the same bytes). A mixture of experts takes
+        the reference's cut instead: its padding rows attend uniformly over
+        the window and are routed, taking expert capacity, so the window's
+        width decides which real tokens an expert drops. Final chunks
+        sample their first token from their last real logit; the others
+        write KV only."""
         ec = self.cfg
         B = 1
         while B < len(chunks):
             B *= 2
         self.stats["prefill_batches"] += 1
+        width = ec.max_blocks_per_seq
+        if self.model_cfg.num_experts > 0:
+            need = max(self.block_manager.blocks_needed(start + len(tokens))
+                       for _, tokens, start, _ in chunks)
+            width = min(1 << max(need - 1, 0).bit_length(), width)
         ids = np.zeros((B, bucket), np.int32)
         pos = np.full((B, bucket), -1, np.int32)  # -1: written to the trash block
-        bt = np.zeros((B, ec.max_blocks_per_seq), np.int32)
+        bt = np.zeros((B, width), np.int32)
         last_idx = np.zeros((B,), np.int32)
         seeds = np.zeros((B,), np.int64)
         counts = np.zeros((B,), np.int32)
@@ -1276,7 +1292,7 @@ class InferenceEngine:
             adapter_ids[r] = self._adapter_ids[sid]
             ids[r, :len(tokens)] = tokens
             pos[r, :len(tokens)] = np.arange(start, start + len(tokens))
-            bt[r, :len(slot.blocks)] = slot.blocks
+            bt[r, :min(len(slot.blocks), width)] = slot.blocks[:width]
             last_idx[r] = len(tokens) - 1
             seeds[r] = self._slot_seeds[sid]
             counts[r] = self._gen_counts[sid]

@@ -103,7 +103,7 @@ class ClipAdamW:
 
         def zeros(n: str, p: torch.Tensor) -> torch.Tensor:
             if layout.gathers_update(n):
-                p = shard_of(p, layout.leaves[n].opt_dim, layout.mesh)
+                p = shard_of(p, layout.leaves[n].opt_dim, layout.mesh.batch)
             if host:
                 return torch.zeros(p.shape, dtype=torch.float32, pin_memory=True)
             return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
@@ -137,7 +137,7 @@ class ClipAdamW:
 
         for n, whole in params.items():
             gathered = layout.gathers_update(n)
-            p = shard_of(whole, layout.leaves[n].opt_dim, layout.mesh) if gathered else whole
+            p = shard_of(whole, layout.leaves[n].opt_dim, layout.mesh.batch) if gathered else whole
             mu_old, nu_old = state.mu[n], state.nu[n]
             if mu_old.device != p.device:  # offloaded moments: onto the card
                 mu_old = mu_old.to(p.device, non_blocking=True)
@@ -156,7 +156,7 @@ class ClipAdamW:
                 state.mu[n].copy_(mu_old, non_blocking=True)
                 state.nu[n].copy_(nu_old, non_blocking=True)
             if gathered:
-                whole.copy_(all_gather_dim(p, layout.leaves[n].opt_dim, layout.mesh))
+                whole.copy_(all_gather_dim(p, layout.leaves[n].opt_dim, layout.mesh.batch))
         keep(count_inc, state.count)
         return state
 

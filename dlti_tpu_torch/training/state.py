@@ -29,7 +29,8 @@ that they agree.
 The state carries its ``parallel.sharding.Layout`` (on one device without
 a strategy, the single-device mesh's, which places every leaf whole): under
 a ZeRO strategy a leaf may be this rank's shard (ZeRO-3 parameters,
-ZeRO-1/2/3 moments) or rest in pinned host memory (offload).
+ZeRO-1/2/3 moments, a mixture of experts' expert leaves under expert
+parallelism) or rest in pinned host memory (offload).
 :func:`state_leaves` still gives every leaf whole, under the same names: a
 sharded one all-gathered into host memory, leaf after leaf (a collective
 every rank joins; rank 0 keeps it), anything else the live tensor. So a
@@ -85,13 +86,13 @@ class TrainState:
         return partition_params(dict(self.model.named_parameters()),
                                 self.lora_enabled)[0]
 
-    def _param_dim(self, name: str) -> Optional[int]:
-        return self.layout.leaves[name].param_dim
+    def _param_axis(self, name: str) -> tuple:
+        """(dim, mesh view) along which ``name`` is this rank's shard."""
+        return self.layout.param_axis(name)
 
-    def _moment_dim(self, name: str) -> Optional[int]:
-        """The dim along which ``name``'s moments are this rank's shard."""
-        pl = self.layout.leaves[name]
-        return pl.param_dim if pl.param_dim is not None else pl.opt_dim
+    def _moment_axis(self, name: str) -> tuple:
+        """(dim, mesh view) along which ``name``'s moments are this rank's shard."""
+        return self.layout.moment_axis(name)
 
 
 def create_train_state(model: nn.Module, tx: ClipAdamW, lora_enabled: bool = True,
@@ -148,7 +149,7 @@ def whole_params(state: TrainState) -> Dict[str, torch.Tensor]:
     mesh = state.layout.mesh
     out = {}
     for n, p in state.model.named_parameters():
-        t = gather_whole(p.detach(), state._param_dim(n), mesh)
+        t = gather_whole(p.detach(), *state._param_axis(n))
         if mesh.is_writer:
             out[n] = t
     return out
@@ -167,9 +168,9 @@ def state_leaves(state: TrainState, whole: bool = True) -> List[Tuple[str, torch
     layout = state.layout
     mesh = layout.mesh
 
-    def out(t: torch.Tensor, d: Optional[int], shape) -> torch.Tensor:
+    def out(t: torch.Tensor, axis: tuple, shape) -> torch.Tensor:
         if whole:
-            g = gather_whole(t, d, mesh)
+            g = gather_whole(t, *axis)
             if g is t or mesh.is_writer:
                 return g
         return torch.empty(shape, dtype=t.dtype, device="meta")
@@ -179,9 +180,9 @@ def state_leaves(state: TrainState, whole: bool = True) -> List[Tuple[str, torch
     count = state.opt_state.count
     scaler = ([(f".scaler[{k!r}]", state.scaler[k]) for k in SCALER_KEYS]
               if state.scaler is not None else [])
-    mom = {n: (state._moment_dim(n), layout.leaves[n].shape) for n in moments}
+    mom = {n: (state._moment_axis(n), layout.leaves[n].shape) for n in moments}
     return ([(".step", torch.tensor(state.step, dtype=torch.int32))]
-            + [(params_key(n), out(p, state._param_dim(n), layout.leaves[n].shape))
+            + [(params_key(n), out(p, state._param_axis(n), layout.leaves[n].shape))
                for n, p in params]
             + [(f"{_ADAM}.count", count)]
             + [(f"{_ADAM}.mu[{jax_path(n)!r}]", out(state.opt_state.mu[n], *mom[n]))
@@ -211,14 +212,13 @@ def load_state_leaves(state: TrainState,
     if adam_count != schedule_count:
         raise ValueError(f"Adam's count {adam_count} and the schedule's count "
                          f"{schedule_count} disagree")
-    mesh = state.layout.mesh
     for n, p in state.model.named_parameters():
-        p.copy_(shard_of(got[params_key(n)], state._param_dim(n), mesh))
+        p.copy_(shard_of(got[params_key(n)], *state._param_axis(n)))
     opt = state.opt_state
     for n in state.trainable():
-        d = state._moment_dim(n)
-        opt.mu[n].copy_(shard_of(got[f"{_ADAM}.mu[{jax_path(n)!r}]"], d, mesh))
-        opt.nu[n].copy_(shard_of(got[f"{_ADAM}.nu[{jax_path(n)!r}]"], d, mesh))
+        axis = state._moment_axis(n)
+        opt.mu[n].copy_(shard_of(got[f"{_ADAM}.mu[{jax_path(n)!r}]"], *axis))
+        opt.nu[n].copy_(shard_of(got[f"{_ADAM}.nu[{jax_path(n)!r}]"], *axis))
     opt.count.fill_(adam_count)
     for k in SCALER_KEYS if state.scaler is not None else ():
         state.scaler[k].copy_(got[f".scaler[{k!r}]"])

@@ -25,8 +25,16 @@ Nothing in a step reads the device back, and the scale is read from its
 0-d tensor, so a step can be captured as a CUDA graph: :class:`StepWindow`
 does that on the card, the counterpart of the reference's
 ``make_multi_step``, and runs a window of steps with one host
-synchronisation. The MoE aux loss is not ported, and a MoE model raises
-here.
+synchronisation.
+
+A mixture of experts (``cfg.num_experts`` > 0) adds its router's
+load-balance loss to the objective, ``loss_sum + router_aux_loss_coef *
+aux * tokens`` a microbatch (``aux`` the sum of the layers' losses), and
+reports it apart as ``aux_loss`` (the token-weighted mean of ``aux``;
+:data:`MOE_METRICS`): ``loss`` stays the pure cross entropy. An unpacked
+batch's ``loss_mask`` is its padding mask and keeps padding out of the
+routing; a packed batch's padding comes from its ``segment_ids``.
+``loss_chunk`` does not compose with it and raises, as in the reference.
 
 Data parallelism (the state's ``parallel.sharding.Layout`` has a mesh with
 a process group): each rank runs its rows of every microbatch, drawing LoRA dropout
@@ -62,9 +70,11 @@ from dlti_tpu_torch.training.state import TrainState
 from dlti_tpu_torch.utils.device import resolve_dtype, upload
 from dlti_tpu_torch.utils.hashing import MASK32, fold_seed, mix32
 
-# The per-step metrics, in the column order of StepWindow.run's output.
+# The per-step metrics, in the column order of StepWindow.run's output; a
+# mixture of experts adds its load-balance loss.
 METRICS = ("loss", "grad_norm", "num_tokens", "nonfinite", "skipped_update",
            "loss_scale", "overflow")
+MOE_METRICS = METRICS + ("aux_loss",)
 
 
 def causal_lm_loss(logits: torch.Tensor, input_ids: torch.Tensor,
@@ -174,13 +184,20 @@ def step_seed(seed: int, step):
     return mix32(fold_seed(seed) ^ (step & MASK32))
 
 
-def _loss(model, batch: dict, dropout_seed, loss_chunk: int, rank: int = 0) -> tuple:
+def _loss(model, batch: dict, dropout_seed, loss_chunk: int, rank: int = 0,
+          moe_aux: bool = False) -> tuple:
     """(sum of token losses, token count) of one ``(rows, seq)`` batch, rank
     ``rank``'s rows of its microbatch (dropout rows numbered from
-    ``rank * rows * seq``)."""
+    ``rank * rows * seq``); with ``moe_aux`` a third entry, the sum of the
+    layers' load-balance losses, the batch's padding kept out of the
+    routing by its ``loss_mask`` when the rows are not packed."""
     ids = batch["input_ids"]
     kw = dict(positions=batch.get("positions"), segment_ids=batch.get("segment_ids"),
               dropout_seed=dropout_seed, dropout_row_offset=rank * ids.numel())
+    if moe_aux:
+        mask = batch.get("loss_mask") if batch.get("segment_ids") is None else None
+        logits, aux = model(ids, token_mask=mask, return_aux=True, **kw)
+        return (*causal_lm_loss(logits, ids, batch.get("loss_mask")), aux)
     if loss_chunk:
         hidden = model(ids, return_hidden=True, **kw)
         return chunked_causal_lm_loss(hidden, model.head_matrix(), ids,
@@ -203,13 +220,18 @@ def make_device_step(model, *, accum_steps: int = 1, loss_chunk: int = 0,
     dropout. ``loss_chunk`` > 0 takes :func:`chunked_causal_lm_loss`. With
     ``state.scaler`` the loss is scaled and the ``fp16_*`` settings drive
     :func:`apply_loss_scaler`. Under data parallelism (``state.layout``)
-    ``batch`` is this rank's rows; see the module docstring."""
-    if model.cfg.num_experts > 0:
-        raise NotImplementedError("MoE training is not ported yet (see ROADMAP.md)")
+    ``batch`` is this rank's rows; see the module docstring. A mixture of
+    experts adds ``aux_loss`` to the metrics."""
+    cfg = model.cfg
+    moe_coef = cfg.router_aux_loss_coef if cfg.num_experts > 0 else 0.0
+    if loss_chunk and cfg.num_experts > 0:
+        raise ValueError("loss_chunk does not compose with MoE aux-loss collection; "
+                         "set train.loss_chunk=0 for MoE models")
 
     def device_step(state: TrainState, batch: Dict[str, torch.Tensor],
                     step_seed) -> dict:
         layout = state.layout
+        batch_axis = layout.mesh.batch
         dp = layout.mesh.distributed
         trainable = state.trainable()
         names = list(trainable)
@@ -218,6 +240,7 @@ def make_device_step(model, *, accum_steps: int = 1, loss_chunk: int = 0,
         grads = [torch.zeros_like(p, dtype=torch.float32) for p in leaves]
         loss_sum = torch.zeros((), dtype=torch.float32, device=dev)
         n_tok = torch.zeros((), dtype=torch.float32, device=dev)
+        aux_sum = torch.zeros((), dtype=torch.float32, device=dev)
         scaler = state.scaler
         # fp16 across ranks: each microbatch's gradients are summed over the
         # ranks in float16 (reduce_in_dtype), where the reference reduces
@@ -227,16 +250,25 @@ def make_device_step(model, *, accum_steps: int = 1, loss_chunk: int = 0,
         for a in range(accum_steps):
             micro = {k: v[a] for k, v in batch.items()}
             seed = None if step_seed is None else mix32(step_seed ^ mix32(a + 0x3C6EF372))
-            ls, nt = _loss(state.model, micro, seed, loss_chunk, layout.mesh.rank)
-            objective = ls if scaler is None else ls * scaler["scale"]
+            parts = _loss(state.model, micro, seed, loss_chunk, batch_axis.rank,
+                          moe_aux=cfg.num_experts > 0)
+            ls, nt = parts[0], parts[1]
+            objective = ls
+            if cfg.num_experts > 0:
+                # The microbatch's aux weighted by its tokens: the step's
+                # division by the tokens leaves its token-weighted mean.
+                objective = ls + moe_coef * parts[2] * nt
+                aux_sum += parts[2].detach() * nt
+            if scaler is not None:
+                objective = objective * scaler["scale"]
             for n, acc, g in zip(names, grads, torch.autograd.grad(objective, leaves)):
                 g = g.float()
                 acc += reduce_in_dtype(g, n, layout, compute) if half_sums else g
             loss_sum += ls.detach()
             n_tok += nt
         if dp:  # the global sums, then each gradient's part this rank owns
-            totals = all_reduce_(torch.stack([loss_sum, n_tok]), layout.mesh)
-            loss_sum, n_tok = totals[0], totals[1]
+            totals = all_reduce_(torch.stack([loss_sum, n_tok, aux_sum]), batch_axis)
+            loss_sum, n_tok, aux_sum = totals[0], totals[1], totals[2]
             grads = [owned_grad(g, n, layout, summed=half_sums)
                      for n, g in zip(names, grads)]
         # Token-mean loss over the whole step (HF Trainer's semantics under
@@ -254,7 +286,10 @@ def make_device_step(model, *, accum_steps: int = 1, loss_chunk: int = 0,
                 min_scale=fp16_min_scale, hysteresis=fp16_hysteresis)
         state.tx.update(grads, state.opt_state, trainable, apply=finite, layout=layout,
                         norm=grad_norm)
-        return {"loss": loss, "grad_norm": grad_norm, "num_tokens": n_tok, **extra}
+        metrics = {"loss": loss, "grad_norm": grad_norm, "num_tokens": n_tok, **extra}
+        if cfg.num_experts > 0:
+            metrics["aux_loss"] = aux_sum / n_tok
+        return metrics
 
     return device_step
 
@@ -287,7 +322,7 @@ def make_eval_step(model, loss_chunk: int = 0) -> Callable:
         loss_sum, n_tok = _loss(state.model, batch, None, loss_chunk)
         mesh = state.layout.mesh
         if mesh.distributed:
-            totals = all_reduce_(torch.stack([loss_sum, n_tok.float()]), mesh)
+            totals = all_reduce_(torch.stack([loss_sum, n_tok.float()]), mesh.batch)
             loss_sum, n_tok = totals[0], totals[1]
         return {"loss": loss_sum / torch.clamp(n_tok, min=1.0), "num_tokens": n_tok}
 
@@ -311,7 +346,8 @@ class StepWindow:
     batches, stacked in pinned memory and copied without blocking into
     ``(capacity, accum, micro_bs, seq)`` inputs, a device index of the
     step within the window, the step number that seeds dropout, and a
-    ``(capacity, len(METRICS))`` output. Each replay reads its step's
+    ``(capacity, len(metrics))`` output (:attr:`metrics`: :data:`METRICS`,
+    or :data:`MOE_METRICS` for a mixture of experts). Each replay reads its step's
     batch, writes its metrics row and advances the index and the step
     number, so the window is ``k`` replays. Before the capture one eager
     step on a side stream builds what a first call builds lazily (the
@@ -333,6 +369,7 @@ class StepWindow:
                  cuda_graphs: bool = True, **fp16):
         self.device_step = make_device_step(model, accum_steps=accum_steps,
                                             loss_chunk=loss_chunk, **fp16)
+        self.metrics = MOE_METRICS if model.cfg.num_experts > 0 else METRICS
         self.seed = seed
         self.capacity = max(1, capacity)
         self.cuda_graphs = cuda_graphs
@@ -349,7 +386,7 @@ class StepWindow:
         """Steps ``first_step`` .. ``first_step + k - 1`` (1-based) on the
         ``k`` host batches (numpy dicts shaped (accum, micro_bs, seq), all of
         one shape); advances ``state.step`` by ``k``. Returns the metrics,
-        ``(k, len(METRICS))`` float32 on the device (on the card a view of
+        ``(k, len(self.metrics))`` float32 on the device (on the card a view of
         the static output, valid until the next window)."""
         k = len(batches)
         self.device = state.layout.mesh.device
@@ -359,7 +396,7 @@ class StepWindow:
                 batch = {key: upload(np.ascontiguousarray(v), self.device)
                          for key, v in hb.items()}
                 m = self.device_step(state, batch, self._seed(first_step + i))
-                rows.append(torch.stack([m[name] for name in METRICS]))
+                rows.append(torch.stack([m[name] for name in self.metrics]))
                 state.step += 1
             return torch.stack(rows)
         sig = batch_signature(batches[0])
@@ -398,13 +435,15 @@ class StepWindow:
                         for key, v in batch.items()}
         self._slot = torch.zeros((1,), dtype=torch.long, device=dev)
         self._step_no = torch.zeros((), dtype=torch.long, device=dev)
-        self._out = torch.zeros((capacity, len(METRICS)), dtype=torch.float32, device=dev)
+        self._out = torch.zeros((capacity, len(self.metrics)), dtype=torch.float32,
+                                device=dev)
 
     def _body(self, state: TrainState) -> None:
         """One step from the static buffers, in place (what the graph holds)."""
         batch = {key: buf.index_select(0, self._slot)[0] for key, buf in self._inputs.items()}
         m = self.device_step(state, batch, self._seed(self._step_no))
-        self._out.index_copy_(0, self._slot, torch.stack([m[n] for n in METRICS])[None])
+        self._out.index_copy_(0, self._slot,
+                              torch.stack([m[n] for n in self.metrics])[None])
         self._slot.add_(1)
         self._step_no.add_(1)
 

@@ -82,9 +82,17 @@ run's row of the reference's metrics CSV (``cfg.train.metrics_csv``,
 ``utils.metrics``); the row is also ``TrainRecord.metrics``, which
 ``cli.train`` prints as the reference's summary.
 
+A mixture of experts (``cfg.model.num_experts`` > 0) trains with its
+router's load-balance loss in the objective; each step's ``aux_loss`` is in
+``TrainRecord.aux_losses``, and MFU counts the parameters a token touches
+(``ModelConfig.num_active_params``), as the reference's trainer does. Under
+``cfg.parallel.expert`` above 1 the experts are split over the expert axis
+(``parallel.sharding``), and the ranks of one expert group take the same
+rows of each batch (the dataset is sliced by the batch axes).
+
 Runs on ``cuda`` unless given ``device="cpu"``; without a card and without a
 device it raises. Not ported (each raises or is absent, see ROADMAP.md):
-TP/SP/PP/EP and a mixed data x fsdp mesh, the reference's other telemetry
+TP/SP/PP, a mixed data x fsdp mesh and fsdp x expert, the reference's other telemetry
 (tracer, goodput and memory ledgers, watchdog), the sentinel's rollback and
 data quarantine, chaos and elastic training.
 """
@@ -107,7 +115,7 @@ from dlti_tpu_torch.checkpoint import store
 from dlti_tpu_torch.config import Config, ZeROStage
 from dlti_tpu_torch.data.pipeline import HostShardedSchedule
 from dlti_tpu_torch.data.prefetch import HostPrefetcher
-from dlti_tpu_torch.models.interop import init_params, load_model
+from dlti_tpu_torch.models.interop import init_params, init_params_int8, load_model
 from dlti_tpu_torch.models.quantization import quantize_params_int8
 from dlti_tpu_torch.parallel.mesh import build_mesh
 from dlti_tpu_torch.parallel.sharding import all_reduce_, shard_model
@@ -116,7 +124,7 @@ from dlti_tpu_torch.training.state import (
     TrainState, create_train_state, frozen_param_keys, load_state_leaves, state_leaves,
 )
 from dlti_tpu_torch.training.step import (
-    METRICS, StepWindow, batch_signature, make_eval_step,
+    StepWindow, batch_signature, make_eval_step,
 )
 from dlti_tpu_torch.telemetry.steplog import StepLogWriter, schedule_lr
 from dlti_tpu_torch.utils.device import resolve_device, to_host, upload
@@ -150,6 +158,9 @@ class TrainRecord:
     # fp16 runs: each step's loss scale after the step (the reference's
     # ``loss_scale`` metric); empty without the scaler.
     loss_scales: List[float] = field(default_factory=list)
+    # Mixture of experts: each step's load-balance loss (the reference's
+    # ``aux_loss`` metric); empty for a dense model.
+    aux_losses: List[float] = field(default_factory=list)
     skipped_updates: int = 0          # nonfinite steps; fp16: overflows
     step_times_s: List[float] = field(default_factory=list)
     tokens_per_step: int = 0
@@ -192,9 +203,6 @@ class Trainer:
     def __init__(self, cfg: Config, params: Optional[Mapping[str, torch.Tensor]] = None,
                  device=None, *, cuda_graphs: bool = True):
         t = cfg.train
-        if cfg.model.num_experts > 0:
-            raise NotImplementedError("not ported yet (see ROADMAP.md): "
-                                      "mixture-of-experts models")
         if t.quantize_frozen_base:
             if t.quantize_frozen_base != "int8":
                 raise ValueError(f"unknown quantize_frozen_base="
@@ -236,14 +244,17 @@ class Trainer:
         cfg = self.cfg
         lora = cfg.lora if cfg.lora.enabled else None
         params = self.params
-        if params is None:
+        if params is None and cfg.train.quantize_frozen_base:
+            # Drawn and quantized leaf by leaf: the full-precision tree never
+            # exists.
+            params = init_params_int8(cfg.model, seed=cfg.train.seed, device=self.device,
+                                      lora=lora)
+        elif params is None:
             params = init_params(cfg.model, seed=cfg.train.seed, device=self.device,
                                  lora=lora)
-        if cfg.train.quantize_frozen_base:
-            # Leaf by leaf on the device; each bf16 source of a tree made
-            # here is let go as its int8 pair is made.
-            params = quantize_params_int8(params if self.params is None else dict(params),
-                                          device=self.device, donate=True)
+        elif cfg.train.quantize_frozen_base:
+            # Leaf by leaf on the device.
+            params = quantize_params_int8(dict(params), device=self.device, donate=True)
         model = load_model(cfg.model, params, self.device, lora=lora,
                            trainable_lora=True)
         del params
@@ -292,6 +303,11 @@ class Trainer:
                             fp16_hysteresis=cfg.train.fp16_hysteresis)
         eval_fn = (make_eval_step(state.model, loss_chunk=cfg.train.loss_chunk)
                    if eval_dataset is not None and cfg.train.eval_steps else None)
+        if self.mesh.ep > 1:
+            # An expert group's ranks take the same rows: slice by the batch axes.
+            for ds in (dataset, eval_dataset):
+                if isinstance(ds, HostShardedSchedule):
+                    ds.shard_rows(self.mesh.batch.rank, self.mesh.batch.world)
         leaves = state.layout.leaves.values()  # whole leaves, whatever this rank holds
         total = sum(int(np.prod(pl.shape)) for pl in leaves)
         trainable = sum(int(np.prod(pl.shape)) for pl in leaves if pl.trainable)
@@ -375,11 +391,13 @@ class Trainer:
                 record.windows += 1
                 first_window = first_window or k
                 for i, row in enumerate(rows.tolist()):
-                    m = dict(zip(METRICS, row))
+                    m = dict(zip(window.metrics, row))
                     record.losses.append(m["loss"])
                     record.grad_norms.append(m["grad_norm"])
                     if state.scaler is not None:
                         record.loss_scales.append(m["loss_scale"])
+                    if "aux_loss" in m:
+                        record.aux_losses.append(m["aux_loss"])
                     record.skipped_updates += int(m["skipped_update"])
                     record.step_times_s.append(dt / k)
                     cursor += 1
@@ -488,7 +506,7 @@ class Trainer:
             record.tokens_per_second = tokens_per_step / record.step_time_s
         if on_cuda and timed:
             record.mfu_percent = compute_mfu(
-                record.tokens_per_second, cfg.model.num_params(),
+                record.tokens_per_second, self._flops_params(),
                 H100_BF16_PEAK_FLOPS, trainable_params=trainable)
         if on_cuda:
             record.peak_memory_gb = torch.cuda.max_memory_allocated(self.device) / 1e9
@@ -510,7 +528,7 @@ class Trainer:
         cfg, dev = self.cfg, self.device
         tok_s_chip = tokens / step_s / self.mesh.world if step_s > 0 else 0.0
         peak_gb, peak_src = device_peak_memory(dev)
-        mfu = (compute_mfu(tok_s_chip, cfg.model.num_params(), H100_BF16_PEAK_FLOPS,
+        mfu = (compute_mfu(tok_s_chip, self._flops_params(), H100_BF16_PEAK_FLOPS,
                            trainable_params=self._trainable) if dev.type == "cuda"
                else float("nan"))
         in_use = headroom = 0
@@ -530,6 +548,13 @@ class Trainer:
             data_wait_s=round(waits["data"] / k, 6), sync_s=round(sync_s, 6),
             ckpt_s=round(waits["ckpt"] / k, 6), rollback_s=0.0,
             hbm_bytes_in_use=int(in_use), hbm_headroom_bytes=int(headroom))
+
+    def _flops_params(self) -> int:
+        """The parameter count FLOPs a token follow: the configuration's
+        analytic count, for a mixture of experts the parameters a token
+        touches (k routed experts, not all E)."""
+        model = self.cfg.model
+        return model.num_active_params() if model.num_experts > 0 else model.num_params()
 
     def _final_metrics(self, record: TrainRecord, wall: float,
                        samples_seen: int) -> MetricsRecord:

@@ -14,7 +14,11 @@ and offload, its peak, each block's expanded weights freed inside the
 train and decode graphs, a decode window that never syncs the host); then
 multi-LoRA serving (the decode and spec graphs over a mixed batch of base
 and adapter rows equal to the eager iterations, the pool's addresses fixed
-across loads, a row load that never syncs the host).
+across loads, a row load that never syncs the host); then Mixtral's routed
+experts at full width on an int8 base (the graphed step equal to the eager
+one with K1-K3 at GQA 32/8, each layer's expanded experts freed inside the
+step's graph, the decode graph equal to eager decode with K4 once a layer,
+a decode window that never syncs the host).
 
 Marked ``cuda``: each test skips where ``torch.cuda.is_available()`` is
 false, as on a CPU-only host. On a machine with the card and without JAX,
@@ -1855,3 +1859,153 @@ def test_adapter_row_load_never_syncs_the_host(gen, tmp_path):
         assert any(bool(a.any()) for a, _, _ in got.values())
     finally:
         ad.get_catalog().clear()
+
+
+# ----------------------------------------------------------------------
+# Mixtral: the routed-expert block at Mixtral-8x7B's width
+# ----------------------------------------------------------------------
+
+def _mixtral_cfg(layers):
+    """Mixtral-8x7B (hidden 4096, 8 experts of 14336, top 2, GQA 32/8 at
+    head_dim 128, remat, bf16) cut to ``layers`` blocks."""
+    import dataclasses
+
+    from dlti_tpu_torch.config import MODEL_PRESETS
+
+    return dataclasses.replace(MODEL_PRESETS["mixtral_8x7b"], num_layers=layers)
+
+
+def _moe_train_state(layers=2):
+    """LoRA r=16 (dropout 0.05) on q/k/v/o over an int8 base drawn leaf by
+    leaf (``init_params_int8``)."""
+    from dlti_tpu_torch.config import LoRAConfig, OptimizerConfig
+    from dlti_tpu_torch.models import init_params_int8, load_model
+    from dlti_tpu_torch.training import build_optimizer, create_train_state
+
+    lora = LoRAConfig(r=16, alpha=32)
+    cfg = _mixtral_cfg(layers)
+    model = load_model(cfg, init_params_int8(cfg, seed=0, device="cuda", lora=lora),
+                       "cuda", lora=lora, trainable_lora=True)
+    return create_train_state(model, build_optimizer(OptimizerConfig(warmup_steps=1)))
+
+
+def test_graphed_moe_steps_equal_eager_and_launch_k1_k3_at_gqa_32_8(gen):
+    """Four steps (two windows of 2, dropout on, remat) of Mixtral's block
+    on an int8 base through the captured step and eagerly: bit-equal
+    metrics (the load-balance loss among them), LoRA factors and moments;
+    K1 twice per layer per microbatch and K2/K3 once at GQA 32/8, d 128,
+    the capture's warm-up step once more."""
+    from dlti_tpu_torch.training import StepWindow
+    from dlti_tpu_torch.training.step import MOE_METRICS
+
+    layers, accum = 2, 2
+    batches = _host_batches(4, accum, seed=21)
+    runs, counts = [], []
+    for graphs in (False, True):
+        state = _moe_train_state(layers)
+        window = StepWindow(state.model, accum_steps=accum, seed=43, capacity=4,
+                            cuda_graphs=graphs)
+        assert window.metrics == MOE_METRICS
+        tfa.fwd_launches = tfa.dq_launches = tfa.dkv_launches = 0
+        runs.append(_run_windows(state, window, batches))
+        counts.append((tfa.fwd_launches, tfa.dq_launches, tfa.dkv_launches))
+        del state, window
+    (eager, pe, me), (graphed, pg, mg) = runs
+    for a, b in zip(eager, graphed):
+        assert (a == b).all(), (a, b)
+        aux = a[:, MOE_METRICS.index("aux_loss")] / layers
+        assert ((aux > 0.9) & (aux < 1.6)).all(), aux  # finite, near 1 a layer
+    assert all(torch.equal(a, b) for a, b in zip(pe + me, pg + mg))
+    n = layers * accum
+    assert counts == [(2 * n * 4, n * 4, n * 4), (2 * n * 5, n * 5, n * 5)]
+
+
+def test_moe_step_frees_each_layers_expanded_experts(gen):
+    """The graphed step (remat on, the preset's) on a 4-block int8 base
+    holds less than two layers' expanded experts above
+    its resident state: each expert weight is expanded at its use and let
+    go, in the forward, the recompute and the backward (all four layers'
+    would be 11.3 GB)."""
+    import gc
+
+    from dlti_tpu_torch.training import StepWindow
+
+    cfg = _mixtral_cfg(4)
+    layer_experts = 3 * cfg.num_experts * cfg.hidden_size * cfg.intermediate_size * 2
+    gc.collect()
+    torch.cuda.empty_cache()
+    state = _moe_train_state(4)
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    window = StepWindow(state.model, accum_steps=2, seed=43, capacity=4)
+    _run_windows(state, window, _host_batches(4, 2, seed=22))
+    torch.cuda.synchronize()
+    transient = torch.cuda.max_memory_allocated() - resident
+    del state, window
+    assert transient < 2 * layer_experts, (transient, layer_experts)
+
+
+def _moe_engine(k=8, graphs=True, layers=2):
+    from dlti_tpu_torch.models import init_params_int8
+    from dlti_tpu_torch.serving import EngineConfig, InferenceEngine
+    from dlti_tpu_torch.serving.engine import EngineExecutor
+
+    cfg = _mixtral_cfg(layers)
+    ec = EngineConfig(max_seqs=4, block_size=16, num_blocks=64, max_model_len=128,
+                      cache_dtype="bfloat16", eos_token_id=-1, steps_per_sync=k,
+                      quantization="int8")
+    ex = EngineExecutor(cfg, init_params_int8(cfg, seed=0, device="cuda"), ec,
+                        device="cuda", cuda_graphs=graphs, donate_params=True)
+    return InferenceEngine(cfg, None, ec, device="cuda", executor=ex)
+
+
+def test_moe_decode_graph_equals_eager_decode_and_launches_k4_per_layer(gen):
+    """Greedy and seeded requests through Mixtral's block on int8 weights:
+    the decode iteration graphed equals it eager at k 1, a free slot among
+    the rows (its trash-slot writes ordered, the dispatch and combine
+    without atomics), K4 once a layer a decode step at GQA 32/8; and k 8
+    graphed equals k 1 graphed on a batch whose every slot is busy at every
+    step (a free or finished slot routes tokens of its own inside a window,
+    which under a dropping capacity moves the others')."""
+    from dlti_tpu_torch.serving import SamplingParams
+
+    def run(k, graphs, full):
+        engine = _moe_engine(k, graphs)
+        engine.warmup_decode_ladder()
+        tpa.launches = 0
+        if full:
+            reqs = [engine.submit(list(range(3 + i, 9 + 5 * i)), SamplingParams(
+                temperature=0.0 if i % 2 else 0.8, max_tokens=17, seed=i)) for i in range(4)]
+        else:
+            reqs = _mixed_requests(engine)
+        while engine.has_work:
+            engine.step()
+        torch.cuda.synchronize()
+        assert tpa.launches == 2 * engine.stats["decode_steps"]
+        return [(r.output_token_ids, r.output_logprobs) for r in reqs]
+
+    staggered = [run(1, False, False), run(1, True, False)]
+    assert staggered[0] == staggered[1]
+    assert [len(t) for t, _ in staggered[0]] == [21, 17, 30]
+    assert run(1, True, True) == run(8, True, True)
+
+
+def test_moe_decode_window_never_syncs_the_host(gen):
+    """``set_sync_debug_mode("error")`` around a graphed 8-step window's
+    dispatch over Mixtral's routed experts: routing, capacity and the
+    dispatch are static shapes, nothing reads the card back."""
+    engine = _moe_engine()
+    engine.warmup_decode_ladder()
+    _mixed_requests(engine)
+    engine.step()  # admission and prefill
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        pending = engine._decode_dispatch()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert pending[1] == 8
+    engine._decode_complete(pending)
+    while engine.has_work:
+        engine.step()

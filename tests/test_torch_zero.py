@@ -404,19 +404,24 @@ def test_strategy_legality_errors():
     with pytest.raises(ValueError, match="offload_params without LoRA"):
         check_strategy(P(zero_stage=tc.ZeROStage.ZERO3, offload_params=True),
                        lora_enabled=False)
-    for axis in ("tensor", "sequence", "pipe", "expert"):
+    for axis in ("tensor", "sequence", "pipe"):
         with pytest.raises(NotImplementedError, match=f"{axis}=2"):
             check_strategy(P(**{axis: 2}))
     with pytest.raises(NotImplementedError, match="mixed"):
         check_strategy(P(zero_stage=tc.ZeROStage.ZERO3, data=2, fsdp=2))
+    # The expert axis runs (parallel.sharding), but not under ZeRO-3.
+    with pytest.raises(NotImplementedError, match="fsdp x expert"):
+        check_strategy(P(zero_stage=tc.ZeROStage.ZERO3, fsdp=2, expert=2))
     with pytest.raises(ValueError, match="process group has 1"):
         build_mesh(P(data=2), torch.device("cpu"))
 
     from dlti_tpu_torch.cli.train import build_config, parse_args
 
-    for flag in ("--tensor", "--sequence", "--expert", "--pipe", "--data"):
+    for flag in ("--tensor", "--sequence", "--pipe", "--data"):
         with pytest.raises(SystemExit, match="not ported"):
             build_config(parse_args(["--model", "llama_tiny", flag, "2"]))
+    assert build_config(parse_args(["--model", "mixtral_tiny", "--expert", "2"])
+                        ).parallel == P(expert=2)
     cfg = build_config(parse_args(["--model", "llama_tiny", "--data", "1",
                                    "--per-device-batch-size", "3"]))
     assert cfg.parallel == P() and cfg.train.micro_batch_size == 3

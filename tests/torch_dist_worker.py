@@ -122,10 +122,11 @@ def local_rows(batch: dict, rank: int, world: int) -> dict:
 
 
 def _state(params: dict, parallel: dict, lora: dict = None, opt: dict = None,
-           model: dict = None, fp16_scale: float = None):
-    """A ``llama_tiny`` train state from ``params`` (port names, numpy; int8
+           model: dict = None, fp16_scale: float = None, preset: str = "llama_tiny"):
+    """A ``preset`` train state from ``params`` (port names, numpy; int8
     pairs ``{name}.q``/``{name}.scale`` load as a quantized base), placed on
-    this rank under ``parallel``."""
+    this rank under ``parallel``; this rank's experts of each stacked expert
+    leaf under ``expert`` above 1."""
     from dlti_tpu_torch.config import MODEL_PRESETS, LoRAConfig, OptimizerConfig
     from dlti_tpu_torch.models import load_model
     from dlti_tpu_torch.models.lora import is_lora_name
@@ -135,7 +136,7 @@ def _state(params: dict, parallel: dict, lora: dict = None, opt: dict = None,
     from dlti_tpu_torch.utils.device import resolve_dtype
 
     cpu = torch.device("cpu")
-    mcfg = dataclasses.replace(MODEL_PRESETS["llama_tiny"], **(model or {}))
+    mcfg = dataclasses.replace(MODEL_PRESETS[preset], **(model or {}))
     lcfg = LoRAConfig(**lora) if lora else LoRAConfig(enabled=False)
     from dlti_tpu_torch.models.quantization import quant_bases
 
@@ -159,23 +160,25 @@ def _state(params: dict, parallel: dict, lora: dict = None, opt: dict = None,
 
 def steps(params: dict, batches: list, parallel: dict, lora: dict = None,
           opt: dict = None, model: dict = None, fp16_scale: float = None,
-          seed: int = None) -> dict:
-    """``len(batches)`` train steps of ``llama_tiny`` from ``params`` (port
-    names, numpy) under ``parallel``, each rank on its rows, through
+          seed: int = None, preset: str = "llama_tiny", accum: int = ACCUM) -> dict:
+    """``len(batches)`` train steps of ``preset`` from ``params`` (port
+    names, numpy) under ``parallel``, each rank on its rows (the batch
+    axes' share: an expert group's ranks take the same rows), through
     ``StepWindow`` (eager). Returns the metric rows, every trainable leaf
     whole (rank 0; the other ranks join the gathers and get none), and each
     leaf's (local, whole) shape."""
     from dlti_tpu_torch.training import whole_params
-    from dlti_tpu_torch.training.step import METRICS, StepWindow
+    from dlti_tpu_torch.training.step import StepWindow
 
     rank, world = _rank_world()
-    state = _state(params, parallel, lora, opt, model, fp16_scale)
+    ep = parallel.get("expert", 1)
+    state = _state(params, parallel, lora, opt, model, fp16_scale, preset)
     layout = state.layout
-    window = StepWindow(state.model, accum_steps=ACCUM, seed=seed, cuda_graphs=False)
-    rows = [window.run(state, [local_rows(b, rank, world)], i + 1)[0].tolist()
+    window = StepWindow(state.model, accum_steps=accum, seed=seed, cuda_graphs=False)
+    rows = [window.run(state, [local_rows(b, rank // ep, world // ep)], i + 1)[0].tolist()
             for i, b in enumerate(batches)]
     whole = whole_params(state)
-    return {"metrics": [dict(zip(METRICS, r)) for r in rows],
+    return {"metrics": [dict(zip(window.metrics, r)) for r in rows],
             "trainable": {n: t.numpy() for n, t in whole.items()
                           if layout.leaves[n].trainable},
             "shapes": {n: (tuple(p.shape), layout.leaves[n].shape)
@@ -276,5 +279,23 @@ def norm(shapes: dict, seed: int = 0) -> dict:
             "replicated": sorted(n for n, pl in layout.leaves.items() if pl.opt_dim is None)}
 
 
+def cli_mesh(argv: list) -> dict:
+    """``cli.train``'s parallel config for ``argv`` in this world, and what
+    ``build_mesh`` raises for it (``"{type}: {message}"``; None when it
+    builds)."""
+    from dlti_tpu_torch.cli.train import build_config, parse_args
+    from dlti_tpu_torch.parallel.mesh import build_mesh
+
+    cfg = build_config(parse_args(argv))
+    par = cfg.parallel
+    error = None
+    try:
+        build_mesh(par, torch.device("cpu"), cfg.lora.enabled)
+    except (NotImplementedError, ValueError) as e:
+        error = f"{type(e).__name__}: {e}"
+    return {"fsdp": par.fsdp, "expert": par.expert, "zero_stage": int(par.zero_stage),
+            "error": error}
+
+
 CASES = {"steps": steps, "train": train, "data_rows": data_rows, "norm": norm,
-         "gathered_leaves": gathered_leaves}
+         "gathered_leaves": gathered_leaves, "cli_mesh": cli_mesh}
