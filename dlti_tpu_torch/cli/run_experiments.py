@@ -19,8 +19,9 @@ one metrics CSV, and ends with the comparison.
 
 Flags are the reference's; ``--device cpu`` runs each rank on the CPU
 (gloo), and each run may add ``--quantize-base int8``, ``--remat-policy``
-and ``--steps-per-sync`` as ``cli.train`` takes them. ``--tensor`` and
-``--sequence`` above 1 raise (not ported), as does
+and ``--steps-per-sync`` as ``cli.train`` takes them. ``--tensor N``
+runs each cell on ``N`` times its device count of ranks; ``--sequence``
+above 1 raises (not ported), as does
 ``--simulate-devices`` (the JAX package's virtual CPU mesh: the port runs
 real processes instead).
 """

@@ -33,6 +33,13 @@
         --tokenizer byte --port 0 --adapter-slots 4 --adapter-rank 8 \
         --adapter A=adapters/a --adapter B=adapters/b
 
+    # tensor parallelism: one process per card, rank 0 serves HTTP and the
+    # others follow it (on one card for a check: launcher --one-device,
+    # gloo, eager decode)
+    python -m dlti_tpu_torch.launcher --num-processes 2 -- \
+        python -m dlti_tpu_torch.cli.serve --random-init llama2_7b \
+        --tokenizer byte --tensor 2
+
 Flags keep the reference's names and defaults (``--steps-per-sync``,
 ``--no-decode-state-cache``, the prefix-cache and tier flags,
 ``--max-prefill-tokens``, ``--ragged-prefill`` and the ``--speculative``
@@ -50,13 +57,20 @@ host memory first, so its bf16 tree never sits whole on the card). ``--adapter-s
 NAME=DIR`` registers one at startup (it needs slots). ``--adapter-map``,
 the gateway's tenant-to-adapter routing, is not ported and raises. It
 prints ``serving on http://HOST:PORT`` with the port it bound, and SIGTERM
-or Ctrl-C stops it with exit code 0.
+or Ctrl-C stops it with exit code 0. ``--tensor N`` (``scripts/serve.py``'s
+flag) runs under the launcher's N processes: each builds its part of the
+engine (``serving.engine``, random weights drawn whole and sliced as drawn,
+an export sliced as it loads), rank 0 serves and the others follow it until
+it stops; the adapter pool, ``--speculative`` and the prefix tiers raise
+under it.
 """
 
 from __future__ import annotations
 
 import argparse
 import time
+
+import torch.distributed as dist
 
 from dlti_tpu_torch.config import MODEL_PRESETS
 
@@ -157,6 +171,9 @@ def parse_args(argv=None):
                         "More can register later via POST /v1/adapters")
     p.add_argument("--adapter-map", default="",
                    help="tenant->adapter routing (needs the gateway, not ported)")
+    p.add_argument("--tensor", type=int, default=1,
+                   help="tensor-parallel extent: weights and KV pools split over this "
+                        "many ranks (run under python -m dlti_tpu_torch.launcher)")
     p.add_argument("--device", default=None, help="cuda (default) or cpu")
     return p.parse_args(argv)
 
@@ -184,8 +201,10 @@ def build(args):
     from dlti_tpu_torch.serving import (
         EngineConfig, InferenceEngine, SamplingParams, ServerConfig,
     )
+    from dlti_tpu_torch.serving.engine import EngineExecutor
     from dlti_tpu_torch.utils.device import resolve_device
 
+    mesh = tensor_mesh(args)
     tok = get_tokenizer(args.tokenizer)
     device = resolve_device(args.device)
     t0 = time.perf_counter()
@@ -208,9 +227,9 @@ def build(args):
         if args.quantization == "int8":
             # Drawn and quantized leaf by leaf: Mixtral-8x7B's bf16 tree
             # (93 GB) never exists.
-            params = init_params_int8(model_cfg, seed=0, device=device)
+            params = init_params_int8(model_cfg, seed=0, device=device, mesh=mesh)
         else:
-            params = init_params(model_cfg, seed=0, device=device)
+            params = init_params(model_cfg, seed=0, device=device, mesh=mesh)
         print(f"random-initialized preset {args.random_init} on {device} in "
               f"{time.perf_counter() - t0:.1f} s", flush=True)
     tiered = args.prefix_host_blocks > 0 or (
@@ -237,8 +256,15 @@ def build(args):
         quantization=args.quantization,
         adapter_slots=args.adapter_slots,
         adapter_rank=args.adapter_rank)
+    executor = None
+    if mesh is not None and device.type == "cuda" and dist.get_backend() == "gloo":
+        print("decoding eagerly: the decode graph captures the tensor collectives, "
+              "which needs NCCL, and this group runs gloo (launcher --one-device)",
+              flush=True)
+        executor = EngineExecutor(model_cfg, params, ec, lora_cfg, device,
+                                  cuda_graphs=False, donate_params=True, mesh=mesh)
     engine = InferenceEngine(model_cfg, params, ec, lora_cfg=lora_cfg, device=device,
-                             donate_params=True)
+                             donate_params=True, mesh=mesh, executor=executor)
     del params
     weight_bytes = sum(p.numel() * p.element_size()
                        for p in engine.executor.model.parameters())
@@ -257,9 +283,33 @@ def build(args):
     return engine, tok, sc
 
 
+def tensor_mesh(args):
+    """The tensor-parallel mesh of ``--tensor`` (None at 1): joins the
+    launcher's process group first, whose world must be the extent."""
+    if args.tensor == 1:
+        return None
+    if args.tensor < 1:
+        raise SystemExit(f"--tensor {args.tensor}: the extent must be at least 1")
+    from dlti_tpu_torch.config import ParallelConfig
+    from dlti_tpu_torch.launcher import maybe_initialize_from_env
+    from dlti_tpu_torch.parallel.mesh import build_mesh
+    from dlti_tpu_torch.utils.device import resolve_device
+
+    maybe_initialize_from_env(args.device)  # before anything lands on a card
+    if not dist.is_initialized() or dist.get_world_size() != args.tensor:
+        raise SystemExit(f"--tensor {args.tensor} runs under python -m "
+                         f"dlti_tpu_torch.launcher --num-processes {args.tensor}")
+    return build_mesh(ParallelConfig(tensor=args.tensor), resolve_device(args.device))
+
+
 def main(argv=None) -> None:
     args = parse_args(argv)
     engine, tok, sc = build(args)
+    if engine.follower:
+        print(f"tensor rank {engine.executor.mesh.tensor.rank}: following rank 0",
+              flush=True)
+        engine.follow()
+        return
 
     from dlti_tpu_torch.serving import serve
 

@@ -88,12 +88,15 @@ launcher's world), and ``--per-device-batch-size`` times it is the global
 microbatch. ``--offload-optimizer`` and ``--offload-params`` keep the
 optimizer moments and the frozen base in pinned host memory. Under the
 launcher rank 0 alone logs, writes checkpoints (consolidated) and the
-export, and prints the summary. ``--expert N`` splits a mixture of
+export, and prints the summary. ``--tensor N`` splits heads, MLP hidden
+units and the vocabulary over N ranks (alone or with a batch extent:
+baseline, ZeRO-1, ZeRO-2; ``parallel.tensor``). ``--expert N`` splits a mixture of
 experts' experts over N ranks (``--model mixtral_tiny``, ``mixtral_8x7b``);
 the world is then ``N`` times the DP/FSDP extent, which ``--num-devices``
 sets (0: the world over ``N``), as the reference's ``scripts/train.py``
 sizes it; ``--expert`` with ``zero3`` raises. Not ported, each raising
-above 1: ``--tensor``, ``--sequence``, ``--pipe`` and ``--data``.
+above 1: ``--sequence``, ``--pipe`` and ``--data``; ``--tensor`` with
+``zero3``, ``--expert`` or offload.
 """
 
 from __future__ import annotations
@@ -182,7 +185,8 @@ def parse_args(argv=None):
                    help="eval cadence in steps (0 = never; requires --eval-dataset)")
     p.add_argument("--num-devices", type=int, default=0,
                    help="DP/FSDP extent; 0 = the launcher's world (1 without it)")
-    for axis in ("tensor", "sequence", "pipe"):
+    p.add_argument("--tensor", type=int, default=1, help="tensor-parallel extent")
+    for axis in ("sequence", "pipe"):
         p.add_argument(f"--{axis}", type=int, default=1,
                        help=f"{axis}-parallel extent (not ported: only 1)")
     p.add_argument("--expert", type=int, default=1,
@@ -220,25 +224,27 @@ def load_texts(path: str) -> list:
 def build_parallel(args, zero_stage: ZeROStage) -> ParallelConfig:
     """The reference's flat-path mesh rules (``scripts/train.py``): the
     batch extent is ``--num-devices`` (0: the process group's world over
-    ``--expert``), on ``fsdp`` under ZeRO-3, else on ``data``; ``--expert``
-    keeps its extent. ``build_mesh`` then checks the product against the
-    world. The other model-parallel axes are not ported and raise above
-    1."""
-    for axis in ("tensor", "sequence", "pipe"):
+    ``--tensor * --expert``), on ``fsdp`` under ZeRO-3, else on ``data``;
+    ``--tensor`` and ``--expert`` keep their extents. ``build_mesh`` then
+    checks the product against the world. The other model-parallel axes
+    are not ported and raise above 1."""
+    for axis in ("sequence", "pipe"):
         if getattr(args, axis) != 1:
             raise SystemExit(f"--{axis} {getattr(args, axis)}: {axis} parallelism is "
                              f"not ported yet (see ROADMAP.md); only 1 is accepted")
     if args.data not in (None, 1):
         raise SystemExit(f"--data {args.data} only applies under --pipe, which is not "
                          f"ported yet (see ROADMAP.md); use --num-devices")
-    if args.expert < 1:
-        raise SystemExit(f"--expert {args.expert}: the extent must be at least 1")
+    for axis in ("tensor", "expert"):
+        if getattr(args, axis) < 1:
+            raise SystemExit(f"--{axis} {getattr(args, axis)}: the extent must be at "
+                             "least 1")
     import torch.distributed as dist
 
     world = dist.get_world_size() if dist.is_available() and dist.is_initialized() else 1
-    n = args.num_devices or max(world // args.expert, 1)
+    n = args.num_devices or max(world // (args.tensor * args.expert), 1)
     kw = dict(zero_stage=zero_stage, offload_optimizer=args.offload_optimizer,
-              offload_params=args.offload_params, expert=args.expert)
+              offload_params=args.offload_params, expert=args.expert, tensor=args.tensor)
     if zero_stage == ZeROStage.ZERO3:
         return ParallelConfig(fsdp=n, **kw)
     return ParallelConfig(data=n, **kw)

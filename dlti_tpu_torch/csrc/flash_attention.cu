@@ -134,17 +134,36 @@
 
 #include <type_traits>
 
-namespace {
-
-constexpr int kThreads = 256;  // 16 x 16: tx = tid % 16, ty = tid / 16
-constexpr int kRows = 64;      // query rows (group x bq) per tile
-constexpr float kMaskedLse = 1e30f;
+// The build may compile this file in parts at once and link them
+// (ops/_build.py, -DDLTI_PART=0..2): part p holds the programs of one
+// head_dim (64, 128, 256), part 0 the entry points too. Without DLTI_PART
+// the file is one unit.
+#ifdef DLTI_PART
+#define DLTI_IN_PART(p) (DLTI_PART == (p))
+#else
+#define DLTI_IN_PART(p) 1
+#endif
 
 struct FlashParams {
   int batch, sq, skv, heads, kv_heads, group, bq, rows;
   int causal, window, has_seg;
   float scale;
 };
+
+namespace dlti_flash {
+// The kernel each entry point (0 = K1, 1 = K2, 2 = K3) launched last, by its
+// function name: what dlti_flash_last_kernel reports to the wrapper.
+extern const char* last_kernel[3];
+#if DLTI_IN_PART(0)
+const char* last_kernel[3] = {"", "", ""};
+#endif
+}  // namespace dlti_flash
+
+namespace {
+
+constexpr int kThreads = 256;  // 16 x 16: tx = tid % 16, ty = tid / 16
+constexpr int kRows = 64;      // query rows (group x bq) per tile
+constexpr float kMaskedLse = 1e30f;
 
 __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
@@ -1717,24 +1736,12 @@ size_t smem_bytes(int which, int d, int dtype) {
   }
 }
 
-const char* impl_name(int which, int d, int dtype) {
-  if ((d != 64 && d != 128 && d != 256) || !known_dtype(dtype) || which < 0 || which > 2)
-    return "";
-  if (!uses_wgmma(which, d, dtype)) return "cuda-core fp32";
-  return dtype == 1 ? "wgmma bf16 hi/lo, cp.async 2-stage"
-                    : "wgmma f16 hi/lo, power-of-2 scaled, cp.async 2-stage";
-}
-
 template <typename Kernel>
 cudaError_t set_smem(Kernel kernel, size_t smem) {
   if (smem <= 48 * 1024) return cudaSuccess;
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                               (int)smem);
 }
-
-// The kernel each entry point (0 = K1, 1 = K2, 2 = K3) launched last, by its
-// function name: what dlti_flash_last_kernel reports to the wrapper.
-const char* g_last_kernel[3] = {"", "", ""};
 
 // The wgmma programs (bf16 and f16): K1 and K2 at every head_dim, K3 at d
 // 64 and 128.
@@ -1755,7 +1762,7 @@ cudaError_t launch_wgmma(int which, const void* q, const void* k, const void* v,
     dim3 grid((p.sq + p.bq - 1) / p.bq, p.batch * p.kv_heads);
     kernel<<<grid, kWgThreads, smem, stream>>>(tq, tk, tv, sg, static_cast<E*>(out0),
                                                static_cast<float*>(out_lse), p);
-    g_last_kernel[0] = "flash_fwd_wgmma_kernel";
+    dlti_flash::last_kernel[0] = "flash_fwd_wgmma_kernel";
   } else if (which == 1) {
     auto kernel = flash_bwd_dq_wgmma_kernel<E, D, fwd_wgmma_tile<D>()>;
     if ((err = set_smem(kernel, smem)) != cudaSuccess) return err;
@@ -1763,7 +1770,7 @@ cudaError_t launch_wgmma(int which, const void* q, const void* k, const void* v,
     kernel<<<grid, kWgThreads, smem, stream>>>(
         tq, tk, tv, static_cast<const E*>(dout), static_cast<const float*>(lse),
         static_cast<const float*>(delta), sg, static_cast<E*>(out0), p);
-    g_last_kernel[1] = "flash_bwd_dq_wgmma_kernel";
+    dlti_flash::last_kernel[1] = "flash_bwd_dq_wgmma_kernel";
   } else if constexpr (D <= 128) {
     auto kernel = flash_bwd_dkv_wgmma_kernel<E, D>;
     if ((err = set_smem(kernel, smem)) != cudaSuccess) return err;
@@ -1772,7 +1779,7 @@ cudaError_t launch_wgmma(int which, const void* q, const void* k, const void* v,
         tq, tk, tv, static_cast<const E*>(dout), static_cast<const float*>(lse),
         static_cast<const float*>(delta), sg, static_cast<E*>(out0),
         static_cast<E*>(out1), p);
-    g_last_kernel[2] = "flash_bwd_dkv_wgmma_kernel";
+    dlti_flash::last_kernel[2] = "flash_bwd_dkv_wgmma_kernel";
   }
   return cudaGetLastError();
 }
@@ -1809,7 +1816,7 @@ cudaError_t launch(int which, const void* q, const void* k, const void* v,
       dim3 grid((p.sq + p.bq - 1) / p.bq, p.batch * p.kv_heads);
       kernel<<<grid, kThreads, smem, stream>>>(tq, tk, tv, sg, static_cast<T*>(out0),
                                                static_cast<float*>(out_lse), p);
-      g_last_kernel[0] = "flash_fwd_kernel";
+      dlti_flash::last_kernel[0] = "flash_fwd_kernel";
     }
   } else if (which == 1) {
     if constexpr (dtype == 0) {
@@ -1819,7 +1826,7 @@ cudaError_t launch(int which, const void* q, const void* k, const void* v,
       kernel<<<grid, kThreads, smem, stream>>>(
           tq, tk, tv, static_cast<const T*>(dout), static_cast<const float*>(lse),
           static_cast<const float*>(delta), sg, static_cast<T*>(out0), p);
-      g_last_kernel[1] = "flash_bwd_dq_kernel";
+      dlti_flash::last_kernel[1] = "flash_bwd_dq_kernel";
     }
   } else if constexpr (dtype == 0 || D > 128) {
     auto kernel = flash_bwd_dkv_kernel<T, D, BK>;
@@ -1829,22 +1836,66 @@ cudaError_t launch(int which, const void* q, const void* k, const void* v,
         tq, tk, tv, static_cast<const T*>(dout), static_cast<const float*>(lse),
         static_cast<const float*>(delta), sg, static_cast<T*>(out0),
         static_cast<T*>(out1), p);
-    g_last_kernel[2] = "flash_bwd_dkv_kernel";
+    dlti_flash::last_kernel[2] = "flash_bwd_dkv_kernel";
   }
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t dispatch_d(int d, int which, const void* q, const void* k,
+// One head_dim's programs, every dtype (0 = float32, 1 = bfloat16, 2 =
+// float16).
+template <int D>
+cudaError_t dispatch_t(int dtype, int which, const void* q, const void* k,
                        const void* v, const void* dout, const void* lse,
                        const void* delta, const void* seg, void* out0, void* out1,
                        void* out_lse, const FlashParams& p, cudaStream_t s) {
-  switch (d) {
-    case 64: return launch<T, 64>(which, q, k, v, dout, lse, delta, seg, out0, out1, out_lse, p, s);
-    case 128: return launch<T, 128>(which, q, k, v, dout, lse, delta, seg, out0, out1, out_lse, p, s);
-    case 256: return launch<T, 256>(which, q, k, v, dout, lse, delta, seg, out0, out1, out_lse, p, s);
-    default: return cudaErrorInvalidValue;
-  }
+  if (dtype == 0)
+    return launch<float, D>(which, q, k, v, dout, lse, delta, seg, out0, out1, out_lse, p, s);
+  if (dtype == 1)
+    return launch<__nv_bfloat16, D>(which, q, k, v, dout, lse, delta, seg, out0, out1,
+                                    out_lse, p, s);
+  if (dtype == 2)
+    return launch<__half, D>(which, q, k, v, dout, lse, delta, seg, out0, out1, out_lse, p, s);
+  return cudaErrorInvalidValue;
+}
+
+}  // namespace
+
+namespace dlti_flash {
+#define DLTI_DISPATCH(D)                                                                  \
+  cudaError_t dispatch_##D(int dtype, int which, const void* q, const void* k,            \
+                           const void* v, const void* dout, const void* lse,              \
+                           const void* delta, const void* seg, void* out0, void* out1,    \
+                           void* out_lse, const FlashParams& p, cudaStream_t s)
+DLTI_DISPATCH(64);
+DLTI_DISPATCH(128);
+DLTI_DISPATCH(256);
+#if DLTI_IN_PART(0)
+DLTI_DISPATCH(64) {
+  return dispatch_t<64>(dtype, which, q, k, v, dout, lse, delta, seg, out0, out1, out_lse, p, s);
+}
+#endif
+#if DLTI_IN_PART(1)
+DLTI_DISPATCH(128) {
+  return dispatch_t<128>(dtype, which, q, k, v, dout, lse, delta, seg, out0, out1, out_lse, p, s);
+}
+#endif
+#if DLTI_IN_PART(2)
+DLTI_DISPATCH(256) {
+  return dispatch_t<256>(dtype, which, q, k, v, dout, lse, delta, seg, out0, out1, out_lse, p, s);
+}
+#endif
+#undef DLTI_DISPATCH
+}  // namespace dlti_flash
+
+#if DLTI_IN_PART(0)
+namespace {
+
+const char* impl_name(int which, int d, int dtype) {
+  if ((d != 64 && d != 128 && d != 256) || !known_dtype(dtype) || which < 0 || which > 2)
+    return "";
+  if (!uses_wgmma(which, d, dtype)) return "cuda-core fp32";
+  return dtype == 1 ? "wgmma bf16 hi/lo, cp.async 2-stage"
+                    : "wgmma f16 hi/lo, power-of-2 scaled, cp.async 2-stage";
 }
 
 // which: 0 = forward (K1), 1 = dq (K2), 2 = dk/dv (K3). dtype: 0 = float32,
@@ -1872,16 +1923,19 @@ int run(int which, const void* q, const void* k, const void* v, const void* dout
   p.has_seg = seg != nullptr;
   p.scale = scale;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return (int)dispatch_d<float>(head_dim, which, q, k, v, dout, lse, delta, seg,
-                                  out0, out1, out_lse, p, s);
-  if (dtype == 1)
-    return (int)dispatch_d<__nv_bfloat16>(head_dim, which, q, k, v, dout, lse,
-                                          delta, seg, out0, out1, out_lse, p, s);
-  if (dtype == 2)
-    return (int)dispatch_d<__half>(head_dim, which, q, k, v, dout, lse, delta, seg,
-                                   out0, out1, out_lse, p, s);
-  return (int)cudaErrorInvalidValue;
+  switch (head_dim) {
+    case 64:
+      return (int)dlti_flash::dispatch_64(dtype, which, q, k, v, dout, lse, delta, seg,
+                                          out0, out1, out_lse, p, s);
+    case 128:
+      return (int)dlti_flash::dispatch_128(dtype, which, q, k, v, dout, lse, delta, seg,
+                                           out0, out1, out_lse, p, s);
+    case 256:
+      return (int)dlti_flash::dispatch_256(dtype, which, q, k, v, dout, lse, delta, seg,
+                                           out0, out1, out_lse, p, s);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -1934,9 +1988,11 @@ extern "C" const char* dlti_flash_impl(int which, int head_dim, int dtype) {
 // The function name of the kernel entry point `which` launched last ("" before
 // its first launch).
 extern "C" const char* dlti_flash_last_kernel(int which) {
-  return (which >= 0 && which < 3) ? g_last_kernel[which] : "";
+  return (which >= 0 && which < 3) ? dlti_flash::last_kernel[which] : "";
 }
 
 extern "C" const char* dlti_flash_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
+
+#endif  // DLTI_IN_PART(0)

@@ -60,6 +60,25 @@
 
 #include <type_traits>
 
+// The build may compile this file in parts at once and link them
+// (ops/_build.py, -DDLTI_PART=0..3): part p holds the programs of one pool
+// type (float32, bfloat16, int8, float16), part 0 the entry points too.
+// Without DLTI_PART the file is one unit.
+#ifdef DLTI_PART
+#define DLTI_IN_PART(p) (DLTI_PART == (p))
+#else
+#define DLTI_IN_PART(p) 1
+#endif
+
+struct Args {
+  const void *q, *k_pool, *v_pool, *k_scale, *v_scale, *block_tables, *seq_lens;
+  void *out, *ws_ml, *ws_acc;
+  int batch, kv_heads, hpg, num_blocks, block_size, max_blocks, window, splits, chunk;
+  float scale;
+  int q_dtype;
+  cudaStream_t stream;
+};
+
 namespace {
 
 constexpr int kThreads = 128;
@@ -469,24 +488,6 @@ size_t smem_bytes_d(int hmax, int d) {
 #undef DLTI_SMEM
 }
 
-size_t smem_bytes(int hpg, int d, int kv_dtype) {
-  const int hmax = heads_per_block(hpg);
-  if (kv_dtype == kF32) return smem_bytes_d<float>(hmax, d);
-  if (kv_dtype == kBF16) return smem_bytes_d<__nv_bfloat16>(hmax, d);
-  if (kv_dtype == kInt8) return smem_bytes_d<int8_t>(hmax, d);
-  if (kv_dtype == kF16) return smem_bytes_d<__half>(hmax, d);
-  return 0;
-}
-
-struct Args {
-  const void *q, *k_pool, *v_pool, *k_scale, *v_scale, *block_tables, *seq_lens;
-  void *out, *ws_ml, *ws_acc;
-  int batch, kv_heads, hpg, num_blocks, block_size, max_blocks, window, splits, chunk;
-  float scale;
-  int q_dtype;
-  cudaStream_t stream;
-};
-
 template <typename TKV, int D, int HMAX>
 cudaError_t launch(const Args& a) {
   auto kernel = paged_decode_kernel<TKV, D, HMAX>;
@@ -538,6 +539,42 @@ cudaError_t dispatch_d(int head_dim, const Args& a) {
 
 }  // namespace
 
+// One pool type's programs, every head_dim.
+namespace dlti_paged {
+cudaError_t dispatch_f32(int head_dim, const Args& a);
+cudaError_t dispatch_bf16(int head_dim, const Args& a);
+cudaError_t dispatch_int8(int head_dim, const Args& a);
+cudaError_t dispatch_f16(int head_dim, const Args& a);
+#if DLTI_IN_PART(0)
+cudaError_t dispatch_f32(int head_dim, const Args& a) { return dispatch_d<float>(head_dim, a); }
+#endif
+#if DLTI_IN_PART(1)
+cudaError_t dispatch_bf16(int head_dim, const Args& a) {
+  return dispatch_d<__nv_bfloat16>(head_dim, a);
+}
+#endif
+#if DLTI_IN_PART(2)
+cudaError_t dispatch_int8(int head_dim, const Args& a) { return dispatch_d<int8_t>(head_dim, a); }
+#endif
+#if DLTI_IN_PART(3)
+cudaError_t dispatch_f16(int head_dim, const Args& a) { return dispatch_d<__half>(head_dim, a); }
+#endif
+}  // namespace dlti_paged
+
+#if DLTI_IN_PART(0)
+namespace {
+
+size_t smem_bytes(int hpg, int d, int kv_dtype) {
+  const int hmax = heads_per_block(hpg);
+  if (kv_dtype == kF32) return smem_bytes_d<float>(hmax, d);
+  if (kv_dtype == kBF16) return smem_bytes_d<__nv_bfloat16>(hmax, d);
+  if (kv_dtype == kInt8) return smem_bytes_d<int8_t>(hmax, d);
+  if (kv_dtype == kF16) return smem_bytes_d<__half>(hmax, d);
+  return 0;
+}
+
+}  // namespace
+
 // dtype codes: 0 = float32, 1 = bfloat16, 2 = int8 (pools only; k_scale and
 // v_scale must then point at the (NB, BS, KVH) float32 scales, and are
 // ignored, null, for float pools), 3 = float16. q takes 0, 1 or 3, and any
@@ -565,10 +602,10 @@ extern "C" int dlti_paged_decode_attention(
          ws_acc, batch, kv_heads, num_heads / kv_heads, num_blocks, block_size,
          max_blocks, window, splits, chunk, scale, q_dtype,
          static_cast<cudaStream_t>(stream)};
-  if (kv_dtype == kF32) return (int)dispatch_d<float>(head_dim, a);
-  if (kv_dtype == kBF16) return (int)dispatch_d<__nv_bfloat16>(head_dim, a);
-  if (kv_dtype == kInt8) return (int)dispatch_d<int8_t>(head_dim, a);
-  if (kv_dtype == kF16) return (int)dispatch_d<__half>(head_dim, a);
+  if (kv_dtype == kF32) return (int)dlti_paged::dispatch_f32(head_dim, a);
+  if (kv_dtype == kBF16) return (int)dlti_paged::dispatch_bf16(head_dim, a);
+  if (kv_dtype == kInt8) return (int)dlti_paged::dispatch_int8(head_dim, a);
+  if (kv_dtype == kF16) return (int)dlti_paged::dispatch_f16(head_dim, a);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -605,3 +642,5 @@ extern "C" int dlti_paged_decode_stages(int head_dim, int kv_dtype) {
 extern "C" const char* dlti_cuda_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
+
+#endif  // DLTI_IN_PART(0)

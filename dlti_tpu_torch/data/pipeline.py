@@ -121,15 +121,11 @@ class HostShardedSchedule:
         on = shard_by_host and dist.is_available() and dist.is_initialized()
         self._procs = dist.get_world_size() if on else 1
         self._proc_id = dist.get_rank() if on else 0
-        if self.micro_batch_size % self._procs != 0:
-            raise ValueError(
-                f"global micro_batch_size {self.micro_batch_size} must be "
-                f"divisible by the world size {self._procs}")
 
     def shard_rows(self, rank: int, world: int) -> None:
         """Take batch-column slice ``rank`` of ``world`` instead of the
         process group's: the batch axes' rank and extent when ranks beside
-        them (the expert axis) share rows."""
+        them (the tensor or the expert axis) share rows."""
         if self.micro_batch_size % world != 0:
             raise ValueError(
                 f"global micro_batch_size {self.micro_batch_size} must be "
@@ -169,6 +165,12 @@ class HostShardedSchedule:
             np.random.default_rng(self.shuffle_seed + epoch_idx).shuffle(order)
         step_rows = self.samples_per_step
         bs = self.micro_batch_size
+        if bs % self._procs != 0:
+            # Checked here, not at construction: a trainer with tensor or
+            # expert ranks re-slices by the batch axes first (shard_rows).
+            raise ValueError(
+                f"global micro_batch_size {bs} must be divisible by the batch "
+                f"extent {self._procs}")
         bs_local = bs // self._procs
         shape = (self.grad_accum_steps, bs_local, self.seq_len)
         g_idx = (np.arange(self.grad_accum_steps)[:, None] * bs
@@ -203,7 +205,7 @@ class TokenBatchDataset(HostShardedSchedule):
     pack: bool = False
 
     def __post_init__(self) -> None:
-        self._init_procs(self.shard_by_host)  # validate before packing
+        self._init_procs(self.shard_by_host)
         if self.pack:
             # Pack once over the (seed-shuffled) corpus; epochs reshuffle rows.
             order = np.arange(len(self.sequences))

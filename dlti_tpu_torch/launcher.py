@@ -15,6 +15,12 @@
 * :func:`init_group_of_one` forms a group of one on a free localhost
   port, for an entry point that runs a ZeRO strategy without the launcher:
   its collectives then run at a world of 1 as at any other.
+* ``--one-device`` (``DLTI_ONE_DEVICE=1``) puts every rank on ``cuda:0``
+  over ``gloo``, which carries CUDA tensors through the host: how a
+  tensor-parallel world runs on one card (NCCL refuses two ranks on one
+  device). It is never chosen for the caller, ``parallel.mesh.build_mesh``
+  admits gloo on the card only under it, and a CUDA graph under it raises
+  (the decode and train-step graphs capture NCCL collectives only).
 
 Rendezvous env contract:
 
@@ -24,6 +30,7 @@ Rendezvous env contract:
 ``DLTI_PROCESS_ID``         this process's id (0-based)
 ``DLTI_LOCAL_RANK``         its device index on its host (set by
                             :func:`launch_local`; else the process id)
+``DLTI_ONE_DEVICE``         ``1``: every rank on ``cuda:0`` over gloo
 ==========================  =================================================
 
 Elastic supervision (``--elastic``, ``training/elastic.py``) is not ported
@@ -47,6 +54,7 @@ ENV_COORDINATOR = "DLTI_COORDINATOR"
 ENV_NUM_PROCESSES = "DLTI_NUM_PROCESSES"
 ENV_PROCESS_ID = "DLTI_PROCESS_ID"
 ENV_LOCAL_RANK = "DLTI_LOCAL_RANK"
+ENV_ONE_DEVICE = "DLTI_ONE_DEVICE"
 
 DEFAULT_PORT = 29400
 # How long a collective may wait on a peer before the group raises.
@@ -67,12 +75,13 @@ def worker_env(coordinator: str, num_processes: int, process_id: int,
 
 def launch_local(command: Sequence[str], num_processes: int,
                  port: int = DEFAULT_PORT,
-                 log_dir: Optional[str] = None) -> int:
+                 log_dir: Optional[str] = None, one_device: bool = False) -> int:
     """Spawn ``num_processes`` copies of ``command`` on this host.
 
     Process i gets ``DLTI_PROCESS_ID=i`` and ``DLTI_LOCAL_RANK=i``; all share
     a localhost coordinator. Output is interleaved to our stdout/stderr
     unless ``log_dir`` is given (then ``rank{i}.out``/``.err`` per process).
+    ``one_device``: every rank on ``cuda:0`` over gloo (``DLTI_ONE_DEVICE``).
 
     Returns the worst return code: the one of the first worker that failed,
     after terminating the rest, so a crashed rank cannot hang the job.
@@ -83,6 +92,8 @@ def launch_local(command: Sequence[str], num_processes: int,
     try:
         for i in range(num_processes):
             env = worker_env(coordinator, num_processes, i, local_rank=i)
+            if one_device:
+                env[ENV_ONE_DEVICE] = "1"
             stdout = stderr = None
             if log_dir:
                 os.makedirs(log_dir, exist_ok=True)
@@ -171,13 +182,21 @@ def local_rank() -> int:
     return int(os.environ.get(ENV_LOCAL_RANK, os.environ.get(ENV_PROCESS_ID, "0")))
 
 
+def one_device() -> bool:
+    """Whether the launcher put every rank on one card over gloo
+    (``--one-device``)."""
+    return os.environ.get(ENV_ONE_DEVICE) == "1"
+
+
 def maybe_initialize_from_env(device=None) -> bool:
     """Join the process group the launcher env describes; a no-op (False)
     without it or when the group exists already. ``device``: the entry
     point's device argument; ``"cpu"`` selects ``gloo``, anything else
     ``nccl`` on ``cuda:{local rank}``, which becomes the current device
-    first (and raises without a card: no quiet fall back to the CPU).
-    Entry points call it once, before they allocate on a device."""
+    first (and raises without a card: no quiet fall back to the CPU);
+    under ``--one-device`` every rank ``gloo`` on ``cuda:0``, and the
+    group's backend is printed. Entry points call it once, before they
+    allocate on a device."""
     import torch
     import torch.distributed as dist
 
@@ -195,6 +214,14 @@ def maybe_initialize_from_env(device=None) -> bool:
         raise RuntimeError("the launcher env asks for a process group on the card "
                            "but no CUDA device is available; pass --device cpu to "
                            "run the group over gloo on the CPU")
+    if one_device():
+        dev = torch.device("cuda", 0)
+        torch.cuda.set_device(dev)
+        dist.init_process_group("gloo", init_method=init, world_size=world, rank=rank,
+                                timeout=timeout)
+        print(f"rank {rank}/{world}: process group over {dist.get_backend()} on {dev} "
+              "(launcher --one-device)", flush=True)
+        return True
     dev = torch.device("cuda", local_rank())
     torch.cuda.set_device(dev)
     dist.init_process_group("nccl", init_method=init, world_size=world, rank=rank,
@@ -232,6 +259,9 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                         "command in-place (one srun task per host)")
     p.add_argument("--port", type=int, default=DEFAULT_PORT)
     p.add_argument("--log-dir", default=None)
+    p.add_argument("--one-device", action="store_true",
+                   help="every rank on cuda:0 over gloo (a tensor-parallel world "
+                        "on one card; NCCL refuses two ranks on one device)")
     p.add_argument("--elastic", action="store_true",
                    help="elastic supervision (not ported: raises)")
     p.add_argument("command", nargs=argparse.REMAINDER, help="-- command to run")
@@ -250,7 +280,8 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         os.execvpe(cmd[0], list(cmd), env)  # never returns
     if args.num_processes <= 0:
         p.error("--num-processes N or --coordinator-from-slurm required")
-    return launch_local(cmd, args.num_processes, port=args.port, log_dir=args.log_dir)
+    return launch_local(cmd, args.num_processes, port=args.port, log_dir=args.log_dir,
+                        one_device=args.one_device)
 
 
 if __name__ == "__main__":

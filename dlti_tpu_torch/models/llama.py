@@ -30,6 +30,19 @@ pairs), each expanded at its use, as the reference's ``maybe_dequantize``.
 The dense fixed-capacity cache, ring attention and the other remat
 policies are not ported.
 
+Tensor parallelism (:meth:`LlamaForCausalLM.set_tensor_axis`, after the
+leaves were split by ``parallel.tensor.tensor_shard_dim``): each rank holds
+``num_heads / tp`` query heads and ``num_kv_heads / tp`` KV heads (its
+paged pools too), ``intermediate_size / tp`` MLP hidden units (a mixture
+of experts: of every expert) and ``vocab_size / tp`` rows of the embedding
+and columns of the head. The block's input reaches q/k/v and gate/up
+through the tensor group's copy, o and down all-reduce their partial
+products, the embedding is looked up rank by rank and summed, and the
+float32 logits of every rank's columns are assembled whole on every rank
+(``parallel.tensor``), so the loss, sampling and everything held whole run
+as on one device. Attention runs unchanged on the local heads, in training
+(flash attention's kernels) and in serving (the paged decode kernel).
+
 Multi-LoRA serving passes ``adapter_ids`` ``(B,)`` (each row's pool row)
 and ``adapters``, the pool's per-layer ``{projection: (a, b, s)}``
 (``serving.adapters.AdapterPool.layers``); every projection the pool
@@ -57,6 +70,9 @@ from dlti_tpu_torch.ops.kv_cache import paged_update, slot_mapping
 from dlti_tpu_torch.ops.paged_attention import paged_decode_attention
 from dlti_tpu_torch.ops.rope import (
     apply_rope, assert_rope_table_covers, rope_frequencies,
+)
+from dlti_tpu_torch.parallel.tensor import (
+    COLUMN_PARALLEL, ROW_PARALLEL, check_divides, copy_in, gather_vocab, vocab_embedding,
 )
 from dlti_tpu_torch.utils.device import resolve_dtype
 from dlti_tpu_torch.utils.hashing import MASK32, mix32
@@ -146,6 +162,9 @@ class LlamaAttention(nn.Module):
         self.k_proj = _proj(cfg, lora, "k_proj", h, cfg.num_kv_heads * hd, bias, device)
         self.v_proj = _proj(cfg, lora, "v_proj", h, cfg.num_kv_heads * hd, bias, device)
         self.o_proj = _proj(cfg, lora, "o_proj", cfg.num_heads * hd, h, False, device)
+        # This rank's heads (all of them without tensor parallelism).
+        self.num_heads, self.num_kv_heads = cfg.num_heads, cfg.num_kv_heads
+        self.tp = None
 
     def _effective_window(self, segment_ids) -> Optional[int]:
         """Sliding window combined with the packed-document length bound
@@ -171,13 +190,16 @@ class LlamaAttention(nn.Module):
         cfg = self.cfg
         b, s, _ = x.shape
         hd = cfg.resolved_head_dim
+        nh, nkv = self.num_heads, self.num_kv_heads
         rows = adapter_rows
+        if self.tp is not None:  # q/k/v are column-parallel
+            x = copy_in(x, self.tp)
         q = self.q_proj(x, _hashes(hashes, "q_proj"),
-                        _adapter(rows, "q_proj")).reshape(b, s, cfg.num_heads, hd)
+                        _adapter(rows, "q_proj")).reshape(b, s, nh, hd)
         k = self.k_proj(x, _hashes(hashes, "k_proj"),
-                        _adapter(rows, "k_proj")).reshape(b, s, cfg.num_kv_heads, hd)
+                        _adapter(rows, "k_proj")).reshape(b, s, nkv, hd)
         v = self.v_proj(x, _hashes(hashes, "v_proj"),
-                        _adapter(rows, "v_proj")).reshape(b, s, cfg.num_kv_heads, hd)
+                        _adapter(rows, "v_proj")).reshape(b, s, nkv, hd)
         q = apply_rope(q, cos, sin, positions)
         k = apply_rope(k, cos, sin, positions)
 
@@ -201,7 +223,7 @@ class LlamaAttention(nn.Module):
                                        segment_ids=segment_ids,
                                        impl=cfg.attention_impl,
                                        window=self._effective_window(segment_ids))
-        return self.o_proj(out.reshape(b, s, cfg.num_heads * hd),
+        return self.o_proj(out.reshape(b, s, nh * hd),
                            _hashes(hashes, "o_proj"), _adapter(rows, "o_proj"))
 
 
@@ -223,10 +245,13 @@ class LlamaMLP(nn.Module):
         self.gate_proj = _proj(cfg, lora, "gate_proj", h, m, False, device)
         self.up_proj = _proj(cfg, lora, "up_proj", h, m, False, device)
         self.down_proj = _proj(cfg, lora, "down_proj", m, h, False, device)
+        self.tp = None
 
     def forward(self, x: torch.Tensor, hashes: Optional[tuple] = None,
                 adapter_rows: Optional[tuple] = None) -> torch.Tensor:
         rows = adapter_rows
+        if self.tp is not None:  # gate/up are column-parallel
+            x = copy_in(x, self.tp)
         gate = self.gate_proj(x, _hashes(hashes, "gate_proj"), _adapter(rows, "gate_proj"))
         up = self.up_proj(x, _hashes(hashes, "up_proj"), _adapter(rows, "up_proj"))
         return self.down_proj(self.act(gate) * up, _hashes(hashes, "down_proj"),
@@ -287,6 +312,8 @@ class LlamaModel(nn.Module):
         # ZeRO-3 and offload_params: fetches the leaves this rank does not
         # hold whole on its device (parallel.sharding.ParamFetcher).
         self.fetcher = None
+        # The tensor group's mesh view under tensor parallelism.
+        self.tp = None
 
     def _rope_tables(self, table_len: int, device) -> tuple:
         key = (table_len, device)
@@ -314,7 +341,12 @@ class LlamaModel(nn.Module):
         dtype = resolve_dtype(cfg.dtype)
         b, s = input_ids.shape
         fetcher = self.fetcher
-        if isinstance(self.embed_tokens, QuantizedWeight):
+        if self.tp is not None:
+            emb = self.embed_tokens
+            quantized = isinstance(emb, QuantizedWeight)
+            x = vocab_embedding(input_ids, emb.q if quantized else emb, self.tp,
+                                emb.scale if quantized else None, dtype)
+        elif isinstance(self.embed_tokens, QuantizedWeight):
             # int8: gather the rows, then scale them in the compute dtype,
             # as the reference does.
             q, scale = ((self.embed_tokens.q, self.embed_tokens.scale) if fetcher is None
@@ -444,8 +476,30 @@ class LlamaForCausalLM(nn.Module):
                          token_mask, return_aux)
         x, aux = out if return_aux else (out, None)
         if not return_hidden:
-            x = lm_head_logits(x, self.head_matrix())
+            tp = self.model.tp
+            if tp is None:
+                x = lm_head_logits(x, self.head_matrix())
+            else:  # this rank's vocabulary columns, then every rank's
+                x = gather_vocab(lm_head_logits(copy_in(x, tp), self.head_matrix()), tp)
         return (x, aux) if return_aux else x
+
+    def set_tensor_axis(self, axis) -> None:
+        """Run on this rank's part of every tensor-split leaf (the leaves
+        hold it already, or are ``meta`` slots of the local shapes) and
+        issue the tensor group's collectives (``axis``: ``Mesh.tensor``)."""
+        cfg = self.cfg
+        check_divides(cfg, axis.world)
+        self.model.tp = axis
+        for name, mod in self.named_modules():
+            if isinstance(mod, (LlamaAttention, LlamaMLP, MoEMLP, LoRADense)):
+                mod.tp = axis
+            if isinstance(mod, LlamaAttention):
+                mod.num_heads = cfg.num_heads // axis.world
+                mod.num_kv_heads = cfg.num_kv_heads // axis.world
+            elif isinstance(mod, LoRADense):
+                leaf = name.rpartition(".")[2]
+                mod.tp_mode = ("column" if leaf in COLUMN_PARALLEL
+                               else "row" if leaf in ROW_PARALLEL else None)
 
     def head_matrix(self) -> torch.Tensor:
         """The (hidden, vocab) matrix the forward multiplies the final

@@ -24,6 +24,21 @@ draws the same mask as the forward did, nothing is read back to the host,
 and a CUDA graph that is replayed with a new key in the same buffer draws
 new masks. Without hashes the branch is deterministic, as in serving.
 
+Under tensor parallelism (``tp_mode``, set by
+``LlamaForCausalLM.set_tensor_axis``) the layer holds its rank's part: a
+``"column"`` projection its output features (``kernel``, ``lora_b``, a
+bias), a ``"row"`` one its input features (``kernel``, ``lora_a``). A
+column projection reads its input through the tensor group's copy (made
+once for the projections that share the input, ``x`` then being that
+copy), both products; its ``lora_a``, which every rank holds whole, enters
+through the copy too, so its gradient, each rank's through its own part of
+``lora_b``, is summed over the group. A row projection all-reduces its
+base product and ``x_part @ lora_a_part`` (then multiplied by the whole
+``lora_b``), and draws its dropout mask from the columns it holds,
+numbered from its first global input column, so every rank draws the
+single-device mask. Each sum thus runs where one device sums, and a
+tensor group of one gives one device's bits.
+
 Multi-LoRA serving (``serving.adapters``) adds a per-row branch, the
 counterpart of the reference's ``adapters`` variable collection: the caller
 passes ``adapter=(ids, a, b, s)``, the row ids ``(B,)`` and this
@@ -45,6 +60,7 @@ from torch import nn
 from dlti_tpu_torch.models.quantization import (
     QuantizedWeight, dequantize, int8_matmul, quant_bases,
 )
+from dlti_tpu_torch.parallel.tensor import copy_in, reduce_out
 from dlti_tpu_torch.utils.hashing import mix32
 
 LORA_LEAVES = ("lora_a", "lora_b")
@@ -76,22 +92,38 @@ class LoRADense(nn.Module):
             self.lora_b = nn.Parameter(torch.zeros(
                 lora_r, features, dtype=lora_param_dtype, device=device),
                 requires_grad=False)
+        # Tensor parallelism: None, "column" or "row", and the tensor
+        # group's mesh view (set_tensor_axis).
+        self.tp_mode: Optional[str] = None
+        self.tp = None
 
     def forward(self, x: torch.Tensor,
                 dropout_hashes: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
                 adapter: Optional[tuple] = None) -> torch.Tensor:
+        """A column-parallel projection's ``x`` is its input after the tensor
+        group's copy (``parallel.tensor.copy_in``)."""
         dt = self.dtype
+        tp, mode = self.tp, self.tp_mode
         if isinstance(self.kernel, QuantizedWeight):
             y = int8_matmul(x.to(dt), self.kernel.q, self.kernel.scale)
         else:
             y = x.to(dt) @ self.kernel.to(dt)
+        if mode == "row":
+            y = reduce_out(y, tp)
         if self.bias is not None:
             y = y + self.bias.to(dt)
         if self.lora_r > 0:
             h = x
             if dropout_hashes is not None and self.lora_dropout > 0.0:
-                h = dropout(h, self.lora_dropout, *dropout_hashes)
-            delta = (h.to(dt) @ self.lora_a.to(dt)) @ self.lora_b.to(dt)
+                rows, cols = dropout_hashes
+                if mode == "row":  # this rank's input columns
+                    cols = cols[tp.rank * x.shape[-1]:]
+                h = dropout(h, self.lora_dropout, rows, cols)
+            a = self.lora_a if mode != "column" else copy_in(self.lora_a, tp)
+            ha = h.to(dt) @ a.to(dt)
+            if mode == "row":
+                ha = reduce_out(ha, tp)
+            delta = ha @ self.lora_b.to(dt)
             y = y + (self.lora_alpha / self.lora_r) * delta
         if adapter is not None:
             y = y + adapter_delta(x.to(dt), *adapter)

@@ -42,7 +42,12 @@ this rank's ranks and the aux loss's sums are all-reduced, so capacity and
 the loss are the global microbatch's, as the reference's one program sees
 it; with the experts split over the ``expert`` axis each rank routes every
 token, runs only its own experts, and the partial combine is summed over
-the expert group.
+the expert group. Under tensor parallelism (:attr:`MoEMLP.tp`) each rank
+holds its part of every expert's hidden units (``w1``/``w3`` split on dim
+2, ``w2`` on dim 1) and routes every token as every other rank does (the
+router and its input are whole, so routing, capacity and the aux loss are
+bit-equal across ranks); the tokens and combine weights enter through the
+tensor group's copy and the combined output is summed over it.
 """
 
 from __future__ import annotations
@@ -55,6 +60,7 @@ from torch import nn
 
 from dlti_tpu_torch.config import ModelConfig
 from dlti_tpu_torch.models.quantization import QuantizedWeight, dequantize
+from dlti_tpu_torch.parallel.tensor import copy_in, reduce_out
 from dlti_tpu_torch.utils.device import resolve_dtype
 
 # The reference's error for LoRA targets on a mixture of experts' MLP.
@@ -173,6 +179,8 @@ class MoEMLP(nn.Module):
         self.w2 = param((E, m, h), pdtype)
         # parallel.sharding.MoEGroups under data or expert parallelism.
         self.groups = None
+        # The tensor group's mesh view under tensor parallelism.
+        self.tp = None
 
     def _experts(self, xe: torch.Tensor) -> torch.Tensor:
         ws = (self.w1, self.w3, self.w2)
@@ -244,6 +252,9 @@ class MoEMLP(nn.Module):
             # Each rank's gradients reach x and the weights through its own
             # experts alone: the backward sums them over the expert group.
             xin, topk_w = groups.expert_in(xin), groups.expert_in(topk_w)
+        if self.tp is not None:
+            # Each rank's hidden units see the tokens and weights whole.
+            xin, topk_w = copy_in(xin, self.tp), copy_in(topk_w, self.tp)
         # The combine weights in the compute dtype, as the reference's
         # einsum takes them; dropped and other ranks' assignments weigh 0.
         slot_w = (topk_w.T * mine).to(dtype).float()                       # (k, T)
@@ -255,6 +266,8 @@ class MoEMLP(nn.Module):
         y = sum(slot_w[j][:, None] * out_pad[dest[j]].float() for j in range(k))
         if split:
             y = groups.expert_out(y)
+        if self.tp is not None:
+            y = reduce_out(y, self.tp)
         y = y.to(dtype).reshape(b, s, h)
 
         aux = None

@@ -7,8 +7,12 @@ into ``build/torch_kernels/lib<name>-<hash>.so`` at the repository root
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
          -Xcompiler -fPIC -o lib<name>-<hash>.so <name>.cu
 
-The file name carries a hash of the source, so an edited kernel is rebuilt
-and a stale library is never loaded. The sources expose plain C functions;
+A source :data:`PARTS` names is compiled in parts instead, all at once
+(``nvcc -c -DDLTI_PART=i``, each part one family of its programs: the
+source says which), and the objects are linked into the one library: the
+build then takes about as long as its largest part. The file name carries a
+hash of the source and its parts, so an edited kernel is rebuilt and a
+stale library is never loaded. The sources expose plain C functions;
 nothing here includes PyTorch's headers, which keeps a build to seconds.
 """
 
@@ -25,8 +29,10 @@ from typing import Dict, Iterable, Optional
 
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = [*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+# Sources compiled in this many parts (``-DDLTI_PART=0..n-1``).
+PARTS = {"flash_attention": 3, "paged_attention": 4}
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 # Per source: seconds its nvcc took and the compiler's -Xptxas -v report,
@@ -46,33 +52,50 @@ def _nvcc() -> str:
 
 def _library_path(name: str) -> Path:
     src = CSRC_DIR / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
+    parts = f"parts={PARTS.get(name, 1)}".encode()
+    digest = hashlib.sha256(src.read_bytes() + parts).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 
 def build(names: Optional[Iterable[str]] = None) -> Dict[str, Path]:
     """Compile the named sources (default: every ``csrc/*.cu``) that have no
-    up-to-date library yet, one ``nvcc`` process per source, all started
-    together. Returns each name's library path."""
+    up-to-date library yet, one ``nvcc`` process per source or part, all
+    started together. Returns each name's library path."""
     if names is None:
         names = sorted(p.stem for p in CSRC_DIR.glob("*.cu"))
     paths = {n: _library_path(n) for n in names}
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    procs = {}
+
+    def start(cmd):
+        return subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                text=True)
+
+    jobs = {}
     for name, path in paths.items():
         if path.exists():
             continue
-        tmp = path.with_suffix(f".tmp{os.getpid()}")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")]
-        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                        stderr=subprocess.STDOUT, text=True),
-                       tmp, time.perf_counter())
-    for name, (proc, tmp, t0) in procs.items():
-        log, _ = proc.communicate()
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on csrc/{name}.cu:\n{log}")
+        tmp, src = path.with_suffix(f".tmp{os.getpid()}"), str(CSRC_DIR / f"{name}.cu")
+        n = PARTS.get(name, 1)
+        objs = [f"{tmp}.{i}.o" for i in range(n)] if n > 1 else []
+        procs = ([start([_nvcc(), *NVCC_FLAGS, "-c", f"-DDLTI_PART={i}", "-o", o, src])
+                  for i, o in enumerate(objs)]
+                 or [start([_nvcc(), *NVCC_FLAGS, "-shared", "-o", str(tmp), src])])
+        jobs[name] = (procs, objs, tmp, time.perf_counter())
+    for name, (procs, objs, tmp, t0) in jobs.items():
+        logs = [proc.communicate()[0] for proc in procs]
+        failed = [log for proc, log in zip(procs, logs) if proc.returncode != 0]
+        if objs and not failed:
+            link = subprocess.run([_nvcc(), *ARCH_FLAGS, "-shared", "-o", str(tmp), *objs],
+                                  stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            logs.append(link.stdout)
+            if link.returncode != 0:
+                failed.append(link.stdout)
+        for o in objs:
+            Path(o).unlink(missing_ok=True)
+        if failed:
+            raise RuntimeError(f"nvcc failed on csrc/{name}.cu:\n" + "\n".join(failed))
         os.replace(tmp, paths[name])  # atomic: concurrent builders agree
-        build_log[name] = {"seconds": time.perf_counter() - t0, "log": log}
+        build_log[name] = {"seconds": time.perf_counter() - t0, "log": "\n".join(logs)}
     return paths
 
 

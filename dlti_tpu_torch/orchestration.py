@@ -18,8 +18,9 @@ notebook matrix (baseline + ZeRO-{1,2,3} over device counts) in code.
   ``submit_all.sh``, one task per card, each running the launcher with
   ``--coordinator-from-slurm``.
 
-Tensor and sequence parallelism are not ported: a spec with ``tensor`` or
-``sequence`` above 1 raises.
+A spec with ``tensor`` above 1 launches ``num_devices * tensor`` ranks and
+passes ``--tensor`` on, as the reference's command does. Sequence
+parallelism is not ported: a spec with ``sequence`` above 1 raises.
 """
 
 from __future__ import annotations
@@ -53,10 +54,11 @@ class ExperimentSpec:
 
 
 def _refuse_model_parallel(tensor: int, sequence: int) -> None:
-    for axis, n in (("tensor", tensor), ("sequence", sequence)):
-        if n != 1:
-            raise NotImplementedError(f"--{axis} {n}: {axis} parallelism is not ported "
-                                      f"yet (see ROADMAP.md); only 1 is accepted")
+    if tensor < 1:
+        raise ValueError(f"--tensor {tensor}: the extent must be at least 1")
+    if sequence != 1:
+        raise NotImplementedError(f"--sequence {sequence}: sequence parallelism is not "
+                                  f"ported yet (see ROADMAP.md); only 1 is accepted")
 
 
 def plan_matrix(strategies: Sequence[str], device_counts: Sequence[int],
@@ -86,11 +88,13 @@ def build_command(spec: ExperimentSpec, train_args: Dict[str, object],
     without)."""
     _refuse_model_parallel(spec.tensor, spec.sequence)
     cmd = [python, "-m", "dlti_tpu_torch.launcher",
-           "--num-processes", str(spec.num_devices)]
+           "--num-processes", str(spec.num_devices * spec.tensor)]
     if port is not None:
         cmd += ["--port", str(port)]
     cmd += ["--", python, "-m", "dlti_tpu_torch.cli.train",
             "--preset", spec.strategy, "--num-devices", str(spec.num_devices)]
+    if spec.tensor > 1:
+        cmd += ["--tensor", str(spec.tensor)]
     for key, val in train_args.items():
         flag = "--" + key.replace("_", "-")
         if isinstance(val, bool):
@@ -188,7 +192,7 @@ def emit_slurm(specs: Sequence[ExperimentSpec], train_args: Dict[str, object],
         train_cmd = train_cmd[train_cmd.index("--") + 1:]  # the launcher is srun's
         body = SBATCH_TEMPLATE.format(
             name=spec.name, nodes=hosts_per_pod,
-            tasks=max(1, spec.num_devices // max(hosts_per_pod, 1)),
+            tasks=max(1, spec.num_devices * spec.tensor // max(hosts_per_pod, 1)),
             extra_directives=extra, python="python", train_cmd=shlex.join(train_cmd))
         path = os.path.join(out_dir, f"{spec.name}.sbatch")
         with open(path, "w") as f:

@@ -36,6 +36,18 @@ step; :class:`ParamFetcher` streams the base into the step one block ahead
 on a side stream. On the CPU host and device memory are one, so offload
 moves nothing there.
 
+Tensor parallelism (a tensor group, ``parallel.tensor``): the model comes
+in at this rank's parts, sliced by ``models.interop.shard_params`` and
+built at local widths by ``load_model(tensor=)`` (its modules issue the
+tensor group's collectives); the layout records each split leaf's
+``tensor_dim`` and whole shape. Every
+leaf a tensor rank holds whole gets the same gradient on every tensor rank
+through those collectives, so gradients are reduced over the batch axes
+alone (``Mesh.batch``: the ranks of this tensor rank), ZeRO-1/2 shard the
+moments of whole leaves over them, and a split leaf's moments are its
+part's, never split further; the gradient norm sums a split leaf's squares
+over the tensor group and counts a whole one once.
+
 Expert parallelism (``expert`` above 1, the reference's ``_EP_PATTERN``
 rule): a mixture of experts' ``mlp.w1/w2/w3`` (and their int8 pairs) keep
 only this rank's ``E / ep`` experts, dim 0 split over the expert group,
@@ -68,6 +80,8 @@ from dlti_tpu_torch.config import ZeROStage
 from dlti_tpu_torch.models.lora import is_lora_name
 from dlti_tpu_torch.models.moe import MoEMLP
 from dlti_tpu_torch.parallel.mesh import Mesh
+from dlti_tpu_torch.parallel.tensor import (
+    CopyIn, ReduceOut, all_reduce_, tensor_shard_dim, whole_shapes)
 
 # Expert-parallel rule: stacked expert weights (or their int8 pairs) split
 # dim 0 over 'expert'.
@@ -147,39 +161,18 @@ def reduce_scatter_dim(full: torch.Tensor, d: int, mesh: Mesh) -> torch.Tensor:
     return out
 
 
-def all_reduce_(t: torch.Tensor, mesh: Mesh) -> torch.Tensor:
-    """Sum ``t`` over the ranks, in place."""
-    dist.all_reduce(t, op=dist.ReduceOp.SUM, group=mesh.group)
-    return t
+def tensor_dim_of(name: str, shape: Sequence[int], mesh: Mesh) -> Optional[int]:
+    """The dim of leaf ``name`` split over the tensor group, or None (no
+    tensor group, or a leaf every tensor rank holds whole)."""
+    return tensor_shard_dim(name, shape, mesh.tp) if mesh.tensor_parallel else None
 
 
-class ExpertIn(torch.autograd.Function):
-    """A tensor every expert rank holds, into a computation whose gradient
-    each rank sees only through its own experts: identity forward, the
-    gradient summed over the expert group backward."""
-
-    @staticmethod
-    def forward(ctx, t, mesh):
-        ctx.mesh = mesh
-        return t.view_as(t)
-
-    @staticmethod
-    def backward(ctx, g):
-        return all_reduce_(g.contiguous().clone(), ctx.mesh), None
-
-
-class ExpertOut(torch.autograd.Function):
-    """The sum over the expert group of each rank's partial result (its
-    experts' share of the combine); the gradient, whole on every rank,
-    passes through."""
-
-    @staticmethod
-    def forward(ctx, t, mesh):
-        return all_reduce_(t.contiguous().clone(), mesh)
-
-    @staticmethod
-    def backward(ctx, g):
-        return g, None
+# A tensor every expert rank holds, into a computation whose gradient each
+# rank sees only through its own experts (identity forward, the gradient
+# summed over the expert group backward); and the sum over the expert group
+# of each rank's share of the combine (the gradient passes through): the
+# tensor group's pair, on the expert group.
+ExpertIn, ExpertOut = CopyIn, ReduceOut
 
 
 class BatchSum(torch.autograd.Function):
@@ -244,7 +237,8 @@ class LeafPlacement:
     sharded along it over the batch axes; trainable leaves), ``expert_dim``
     (stored as this rank's experts along it, the expert axis), ``shape``
     (the whole leaf's), ``host`` (kept in pinned host memory: an offloaded
-    frozen leaf)."""
+    frozen leaf), ``tensor_dim`` (stored as this rank's part along it, the
+    tensor axis)."""
 
     shape: Tuple[int, ...]
     trainable: bool
@@ -252,6 +246,7 @@ class LeafPlacement:
     opt_dim: Optional[int] = None
     host: bool = False
     expert_dim: Optional[int] = None
+    tensor_dim: Optional[int] = None
 
 
 @dataclass
@@ -273,12 +268,14 @@ class Layout:
         pl = self.leaves[name]
         if pl.expert_dim is not None:
             return pl.expert_dim, self.mesh.experts
+        if pl.tensor_dim is not None:
+            return pl.tensor_dim, self.mesh.tensor
         return pl.param_dim, self.mesh
 
     def moment_axis(self, name: str) -> Tuple[Optional[int], Mesh]:
         """``(dim, axis)`` as :meth:`param_axis`, for ``name``'s moments."""
         pl = self.leaves[name]
-        if pl.param_dim is not None or pl.expert_dim is not None:
+        if pl.param_dim is not None or pl.expert_dim is not None or pl.tensor_dim is not None:
             return self.param_axis(name)
         return pl.opt_dim, self.mesh.batch
 
@@ -291,18 +288,25 @@ class Layout:
 
 
 def plan_layout(model: nn.Module, mesh: Mesh, lora_enabled: bool) -> Layout:
-    """Every leaf's :class:`LeafPlacement` under ``mesh``."""
+    """Every leaf's :class:`LeafPlacement` under ``mesh``. Under a tensor
+    group ``model`` holds this rank's parts already (``models.interop``'s
+    ``shard_params`` and ``load_model(tensor=)``), and each placement
+    records the whole leaf's shape."""
     offload = mesh.parallel.offload_params and mesh.device.type == "cuda"
     layout = Layout(mesh)
-    for name, p in model.named_parameters():
+    shapes = {name: tuple(p.shape) for name, p in model.named_parameters()}
+    if mesh.tensor_parallel:
+        shapes = whole_shapes(shapes, mesh.tp)
+    for name, shape in shapes.items():
         trainable = not lora_enabled or is_lora_name(name)
-        shape = tuple(p.shape)
         ep_dim = expert_shard_dim(name, shape, mesh)
+        tp_dim = tensor_dim_of(name, shape, mesh)
+        whole = ep_dim is None and tp_dim is None
         layout.leaves[name] = LeafPlacement(
             shape=shape, trainable=trainable,
             param_dim=param_shard_dim(shape, mesh),
-            opt_dim=opt_shard_dim(shape, mesh) if trainable and ep_dim is None else None,
-            host=offload and not trainable, expert_dim=ep_dim)
+            opt_dim=opt_shard_dim(shape, mesh) if trainable and whole else None,
+            host=offload and not trainable, expert_dim=ep_dim, tensor_dim=tp_dim)
     return layout
 
 
@@ -319,11 +323,12 @@ def shard_model(model: nn.Module, mesh: Mesh, lora_enabled: bool) -> Layout:
     experts, an offloaded leaf moves to pinned host memory. Installs a
     :class:`ParamFetcher` on the model when any leaf must be fetched at
     use, gives each MoE layer its :class:`MoEGroups` under data or expert
-    parallelism, and returns the layout."""
+    parallelism, and returns the layout. Under a tensor group the model
+    comes in at its tensor rank's parts (:func:`plan_layout`)."""
     layout = plan_layout(model, mesh, lora_enabled)
     fetched = False
     for name, pl in layout.leaves.items():
-        if pl.expert_dim is not None:
+        if pl.expert_dim is not None and mesh.ep > 1:
             owner, leaf = _param_owner(model, name)
             old = getattr(owner, leaf)
             t = shard_of(old.detach(), pl.expert_dim, mesh.experts).clone()
@@ -500,22 +505,30 @@ def reduce_in_dtype(g: torch.Tensor, name: str, layout: Layout,
 
 def sharded_sq_norm(grads: Mapping[str, torch.Tensor], layout: Layout) -> torch.Tensor:
     """The whole gradient's sum of squares (float32) from the owned
-    gradients: each shard's squares summed over the ranks holding the
-    others (the batch axes for a ZeRO shard, the expert group for an expert
-    leaf), each leaf held whole on every rank counted once."""
-    def sq(names):
-        return sum(torch.sum(grads[n].float() * grads[n].float()) for n in names)
+    gradients: each leaf's squares summed over the ranks holding its other
+    parts (the batch axes for a ZeRO shard, the expert group for an expert
+    leaf, the tensor group for a tensor-split one; one all-reduce an axis),
+    then every leaf's in order, each leaf held whole on every rank counted
+    once. The leaves add up in one order whatever the placement, so a world
+    of 1 sums as one device does."""
+    leaves, mesh = layout.leaves, layout.mesh
+    sq = {n: torch.sum(g.float() * g.float()) for n, g in grads.items()}
 
-    experts = [n for n in grads if layout.leaves[n].expert_dim is not None]
-    sharded = [n for n in grads if n not in experts and (
-        layout.leaves[n].opt_dim is not None or layout.leaves[n].param_dim is not None)]
-    whole = [n for n in grads if n not in sharded and n not in experts]
-    total = sq(whole)
-    if sharded:
-        total = total + all_reduce_(sq(sharded), layout.mesh.batch)
-    if experts:
-        total = total + all_reduce_(sq(experts), layout.mesh.experts)
-    return total
+    def axis(pl):
+        if pl.expert_dim is not None:
+            return "experts"
+        if pl.tensor_dim is not None:
+            return "tensor"
+        if pl.opt_dim is not None or pl.param_dim is not None:
+            return "batch"
+        return None
+
+    for name in ("batch", "experts", "tensor"):  # one order on every rank
+        parts = [n for n in grads if axis(leaves[n]) == name]
+        if parts:
+            summed = all_reduce_(torch.stack([sq[n] for n in parts]), getattr(mesh, name))
+            sq.update(zip(parts, summed.unbind()))
+    return sum(sq[n] for n in grads)
 
 
 @torch.no_grad()

@@ -35,6 +35,7 @@ from typing import Dict, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from dlti_tpu_torch.parallel.tensor import mirrored
 from dlti_tpu_torch.utils.device import upload
 
 # Mirror names in the decode iteration's argument order; any further
@@ -64,6 +65,9 @@ class DecodeStateCache:
         self.stats = stats if stats is not None else {}
         for k in STAT_KEYS:
             self.stats.setdefault(k, 0)
+        # A tensor-parallel engine's parallel.tensor.HostMirror: the
+        # leader's writes reach the followers' twins.
+        self.mirror = None
 
     @property
     def gen_counts(self) -> torch.Tensor:
@@ -115,6 +119,7 @@ class DecodeStateCache:
         self._write(mirrors, list(range(self._num_slots)), self._num_slots,
                     masked_rows)
 
+    @mirrored("state.")
     def _write(self, mirrors, idx: list, npad: int, masked_rows) -> None:
         """Scatter mirror rows ``idx`` into the device tensors, padded to
         ``npad`` rows with repeats of the first."""
@@ -128,6 +133,7 @@ class DecodeStateCache:
                 rows[masked] = 0
             t.index_copy_(0, dev_idx, upload(rows, self._device))
 
+    @mirrored("state.")
     def bump_gen_counts(self, k: int) -> None:
         """Advance the resident generated counts by ``k`` decode steps, on
         the device."""

@@ -84,10 +84,28 @@
   and cancel, and prefix-cache keys are namespaced by the adapter. With
   ``adapter_slots = 0`` no program changes.
 
-Not ported yet (ROADMAP.md): the native block allocator, tensor
-parallelism, disaggregated handoff, the memory ledger and headroom-aware
-admission, the token-storm guard, tracer spans and critical-path
-attribution.
+* **Tensor parallelism** (``mesh=`` with a tensor group,
+  ``parallel.mesh.build_mesh``): every rank of the tensor group builds the
+  engine, as the reference's single-process TP engine places its weights
+  and pools on a ``tensor`` mesh. Each rank's executor holds its part of
+  the weights (``models.interop.shard_params``: int8 weights quantized
+  whole, then sliced) and a KV pool of its ``num_kv_heads / tp`` heads, on
+  which the paged decode kernel runs unchanged. Rank 0 alone schedules:
+  its executor mirrors each call that touches the device (prefill, the
+  decode window, sampling, the resident state's writes, the graph capture)
+  to the other ranks (``parallel.tensor.HostMirror``), which run
+  :meth:`InferenceEngine.follow` until rank 0 calls
+  :meth:`InferenceEngine.stop_followers`. Every rank samples from the same
+  assembled float32 logits with the same seeds, so the resident state
+  stays equal everywhere. The adapter pool, speculative decode and the
+  prefix cache's host/disk tiers are refused under it (ROADMAP.md);
+  plain prefix reuse, chunked and ragged prefill, int8 pools and int8
+  weights run. A CUDA graph needs NCCL: under gloo (``launcher
+  --one-device``) the executor must run eagerly.
+
+Not ported yet (ROADMAP.md): the native block allocator, disaggregated
+handoff, the memory ledger and headroom-aware admission, the token-storm
+guard, tracer spans and critical-path attribution.
 """
 
 from __future__ import annotations
@@ -102,12 +120,14 @@ from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from dlti_tpu_torch.config import LoRAConfig, ModelConfig
-from dlti_tpu_torch.models.interop import load_model
+from dlti_tpu_torch.models.interop import load_model, shard_params
 from dlti_tpu_torch.models.quantization import quantize_params_int8
 from dlti_tpu_torch.ops.kv_cache import init_paged_cache
 from dlti_tpu_torch.ops.launches import GraphLaunches
+from dlti_tpu_torch.parallel.tensor import HostMirror, mirrored
 from dlti_tpu_torch.serving.adapters import AdapterError, AdapterPool
 from dlti_tpu_torch.serving.block_manager import BlockManager
 from dlti_tpu_torch.serving.decode_state import FIELDS, DecodeStateCache
@@ -401,11 +421,15 @@ class EngineExecutor:
     graphs (sharing one memory pool) and replayed; ``cuda_graphs=False`` runs them eagerly on
     the card instead (for tests and ``chip_smoke.py`` only). A capture that
     fails raises.
+
+    ``mesh`` with a tensor group: this rank's part of the model and the
+    pools (see the module docstring); ``params`` whole or already this
+    rank's part (``init_params(..., mesh=)``).
     """
 
     def __init__(self, model_cfg: ModelConfig, params, engine_cfg: EngineConfig,
                  lora_cfg: Optional[LoRAConfig] = None, device=None, *,
-                 cuda_graphs: bool = True, donate_params: bool = False):
+                 cuda_graphs: bool = True, donate_params: bool = False, mesh=None):
         self.device = dev = resolve_device(device)
         self.cfg = ec = engine_cfg
         self.model_cfg = model_cfg
@@ -413,12 +437,24 @@ class EngineExecutor:
             raise ValueError(f"unknown quantization {ec.quantization!r}")
         if ec.speculative not in ("none", "ngram"):
             raise ValueError(f"unknown speculative mode {ec.speculative!r}")
-        if ec.quantization == "int8":
+        tensor = mesh if mesh is not None and mesh.tensor_parallel else None
+        self.mesh = tensor
+        self.mirror: Optional[HostMirror] = None
+        if tensor is not None:
+            check_tensor_engine(ec, tensor, cuda_graphs and dev.type == "cuda")
+            # Leaf by leaf: int8 weights quantized whole, then sliced.
+            params = shard_params(params if donate_params else dict(params), tensor,
+                                  model_cfg, lora_cfg, device=dev,
+                                  quantize=ec.quantization == "int8", donate=True)
+            if tensor.tp > 1:
+                self.mirror = HostMirror(tensor)
+        elif ec.quantization == "int8":
             # Leaf by leaf onto the device; with donate_params each source
             # leaf is let go (popped from the caller's dict) as it is done.
             params = quantize_params_int8(params if donate_params else dict(params),
                                           device=dev, donate=True)
-        self.model = load_model(model_cfg, params, dev, lora_cfg)
+        self.model = load_model(model_cfg, params, dev, lora_cfg,
+                                tensor=None if tensor is None else tensor.tensor)
         del params
         # The multi-LoRA pool, sized from the model's final (possibly int8)
         # projection shapes, on the engine's device.
@@ -429,11 +465,13 @@ class EngineExecutor:
                 ec.adapter_rank, ec.adapter_targets, device=dev)
         cache_dtype = ("int8" if ec.cache_dtype == "int8"
                        else resolve_dtype(ec.cache_dtype))
+        # This rank's KV heads: all of them without tensor parallelism.
+        kv_heads = model_cfg.num_kv_heads // (1 if tensor is None else tensor.tp)
         self.cache = init_paged_cache(
             model_cfg.num_layers, ec.num_blocks, ec.block_size,
-            model_cfg.num_kv_heads, model_cfg.resolved_head_dim, cache_dtype,
-            device=dev)
+            kv_heads, model_cfg.resolved_head_dim, cache_dtype, device=dev)
         self.state = DecodeStateCache(decode_mirrors(ec), dev)
+        self.state.mirror = self.mirror
         S, K = ec.max_seqs, max(1, ec.steps_per_sync)
         # ids, positions, this window's counts, step index, outputs.
         self._bufs = (torch.zeros((S, 1), dtype=torch.long, device=dev),
@@ -544,6 +582,7 @@ class EngineExecutor:
         return graph
 
     @torch.no_grad()
+    @mirrored()
     def capture(self) -> None:
         """Capture the decode iteration as a CUDA graph (once; later calls
         return at once)."""
@@ -554,6 +593,7 @@ class EngineExecutor:
             self.launches, list(self._bufs))
 
     @torch.no_grad()
+    @mirrored()
     def decode_window(self, k: int, input_ids: np.ndarray,
                       positions: np.ndarray):
         """``k`` decode iterations from ``input_ids``/``positions`` ``(S,
@@ -701,6 +741,7 @@ class EngineExecutor:
     # Prefill and sampling
     # ------------------------------------------------------------------
     @torch.no_grad()
+    @mirrored()
     def prefill(self, input_ids: np.ndarray, positions: np.ndarray,
                 block_table: np.ndarray, last_idx: np.ndarray,
                 adapter_ids: Optional[np.ndarray] = None) -> torch.Tensor:
@@ -718,12 +759,41 @@ class EngineExecutor:
         return logits[rows, upload(last_idx, dev).long()]
 
     @torch.no_grad()
+    @mirrored()
     def sample(self, logits: torch.Tensor, seeds: np.ndarray, counts: np.ndarray,
                temperature: np.ndarray, top_k: np.ndarray, top_p: np.ndarray):
         dev = self.device
         return sample_tokens(logits, upload(seeds, dev), upload(counts, dev),
                              upload(temperature, dev), upload(top_k, dev),
                              upload(top_p, dev))
+
+    # ------------------------------------------------------------------
+    # Tensor parallelism: the followers
+    # ------------------------------------------------------------------
+    def follow(self) -> None:
+        """A follower's loop (a tensor rank above 0): make each device call
+        the leader mirrors, in its order, until the leader stops. A mirrored
+        ``sample`` reads the logits of the last mirrored ``prefill``."""
+        if self.mirror is None or self.mirror.leads:
+            raise RuntimeError("follow() runs on a tensor rank above 0 only")
+        last = None
+        while True:
+            op, args = self.mirror.receive()
+            if op == "stop":
+                return
+            owner, _, name = op.rpartition(".")
+            if name == "sample":
+                args[0] = last
+            out = getattr(self.state if owner == "state" else self, name)(*args)
+            if name == "prefill":
+                last = out
+
+    def stop_followers(self) -> None:
+        """Release the followers from :meth:`follow` (the leader; once)."""
+        m = self.mirror
+        if m is not None and m.leads and not m.stopped:
+            m.stopped = True
+            m.send("stop", ())
 
     # ------------------------------------------------------------------
     # Block transport (prefix-tier demotion and restore)
@@ -781,6 +851,27 @@ class EngineExecutor:
                 t[block].copy_(src, non_blocking=True)
 
 
+def check_tensor_engine(ec: EngineConfig, mesh, cuda_graphs: bool) -> None:
+    """Raise for what a tensor-parallel engine does not run (``mesh``: a
+    mesh with a tensor group)."""
+    refused = [what for what, on in (
+        ("the adapter pool (adapter_slots)", ec.adapter_slots > 0),
+        ("n-gram speculative decode", ec.speculative != "none"),
+        ("the prefix cache's host/disk tiers",
+         ec.prefix_host_blocks > 0 or ec.prefix_disk_blocks > 0)) if on]
+    if refused:
+        raise NotImplementedError(f"tensor={mesh.tp}: {', '.join(refused)} under tensor "
+                                  "parallelism is not ported yet (see ROADMAP.md)")
+    if mesh.parallel.data * mesh.parallel.fsdp * mesh.ep > 1:
+        raise ValueError("a serving mesh may only extend the tensor axis (batch-level "
+                         "scaling is a replica concern)")
+    if cuda_graphs and dist.get_backend(mesh.tensor_group) != "nccl":
+        raise ValueError(f"the decode graph captures the tensor group's collectives, "
+                         f"which needs NCCL; the group runs "
+                         f"{dist.get_backend(mesh.tensor_group)}: pass cuda_graphs=False "
+                         "(EngineExecutor) to decode eagerly")
+
+
 class InferenceEngine:
     """Synchronous engine core: :meth:`submit` requests, :meth:`step` in a
     loop; :meth:`generate` is the offline batch entry point."""
@@ -789,14 +880,15 @@ class InferenceEngine:
                  engine_cfg: EngineConfig = EngineConfig(),
                  lora_cfg: Optional[LoRAConfig] = None, device=None,
                  executor: Optional[EngineExecutor] = None,
-                 donate_params: bool = False):
+                 donate_params: bool = False, mesh=None):
         """``executor``: a prebuilt :class:`EngineExecutor` for this model
         and ``engine_cfg`` (how a caller runs the card eagerly:
         ``EngineExecutor(..., cuda_graphs=False)``); built here by default,
         and then ``params`` is loaded into it. ``donate_params``: under
-        ``quantization="int8"`` each leaf of ``params`` (a dict) is popped
-        as it is quantized, so its source is freed unless the caller holds
-        it elsewhere."""
+        ``quantization="int8"`` or a tensor group each leaf of ``params``
+        (a dict) is popped as it is placed, so its source is freed unless
+        the caller holds it elsewhere. ``mesh``: a mesh with a tensor group
+        (every rank of it builds the engine; see the module docstring)."""
         if engine_cfg.steps_per_sync < 1:
             raise ValueError(f"steps_per_sync must be >= 1, got "
                              f"{engine_cfg.steps_per_sync}")
@@ -813,7 +905,7 @@ class InferenceEngine:
         self.model_cfg = model_cfg
         if executor is None:
             executor = EngineExecutor(model_cfg, params, engine_cfg, lora_cfg,
-                                      device, donate_params=donate_params)
+                                      device, donate_params=donate_params, mesh=mesh)
         elif executor.cfg != engine_cfg or executor.model_cfg != model_cfg:
             raise ValueError("the executor was built for another configuration")
         self.executor = executor
@@ -897,6 +989,20 @@ class InferenceEngine:
     @property
     def device(self) -> torch.device:
         return self.executor.device
+
+    @property
+    def follower(self) -> bool:
+        """A tensor rank above 0: it runs :meth:`follow`, never :meth:`step`."""
+        return self.executor.mirror is not None and not self.executor.mirror.leads
+
+    def follow(self) -> None:
+        """Make the device calls the tensor group's rank 0 mirrors, until it
+        calls :meth:`stop_followers` (every tensor rank above 0)."""
+        self.executor.follow()
+
+    def stop_followers(self) -> None:
+        """Release the followers (rank 0, once its serving ends)."""
+        self.executor.stop_followers()
 
     @property
     def model(self):

@@ -213,10 +213,16 @@ class AsyncEngine:
         return req, q
 
     def shutdown(self) -> None:
+        """Stop the stepper, then release a tensor-parallel engine's
+        followers (they leave their loop once the stepper's last call is
+        theirs too)."""
         with self._work:
             self._stop = True
             self._work.notify()
         self._thread.join(timeout=10)
+        stop = getattr(self.engine, "stop_followers", None)
+        if stop is not None:
+            stop()
 
     def _run(self) -> None:
         try:

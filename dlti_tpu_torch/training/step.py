@@ -58,6 +58,7 @@ from typing import Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
@@ -227,6 +228,10 @@ def make_device_step(model, *, accum_steps: int = 1, loss_chunk: int = 0,
     if loss_chunk and cfg.num_experts > 0:
         raise ValueError("loss_chunk does not compose with MoE aux-loss collection; "
                          "set train.loss_chunk=0 for MoE models")
+    if loss_chunk and model.model.tp is not None:
+        raise NotImplementedError("loss_chunk under tensor parallelism (a chunked loss "
+                                  "over a vocabulary-split head) is not ported yet "
+                                  "(see ROADMAP.md)")
 
     def device_step(state: TrainState, batch: Dict[str, torch.Tensor],
                     step_seed) -> dict:
@@ -399,6 +404,11 @@ class StepWindow:
                 rows.append(torch.stack([m[name] for name in self.metrics]))
                 state.step += 1
             return torch.stack(rows)
+        mesh = state.layout.mesh
+        if mesh.distributed and dist.get_backend(mesh.group) != "nccl":
+            raise ValueError(f"the train-step graph captures the step's collectives, which "
+                             f"needs NCCL; the group runs {dist.get_backend(mesh.group)}: "
+                             "run the steps eagerly (cuda_graphs=False)")
         sig = batch_signature(batches[0])
         fresh = self.graph is None or sig != self._signature or k > self.capacity
         if fresh:

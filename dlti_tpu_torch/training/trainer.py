@@ -88,11 +88,18 @@ router's load-balance loss in the objective; each step's ``aux_loss`` is in
 (``ModelConfig.num_active_params``), as the reference's trainer does. Under
 ``cfg.parallel.expert`` above 1 the experts are split over the expert axis
 (``parallel.sharding``), and the ranks of one expert group take the same
-rows of each batch (the dataset is sliced by the batch axes).
+rows of each batch (the dataset is sliced by the batch axes). Under
+``cfg.parallel.tensor`` above 1 (alone or with ``data``: baseline, ZeRO-1,
+ZeRO-2) each rank holds its part of the heads, hidden units and
+vocabulary (``parallel.tensor``'s rule, cut by ``models.interop``'s
+``shard_params`` or as drawn), the ranks of one tensor group take the
+same rows, and a checkpoint or an export gathers the parts into whole
+leaves on rank 0.
 
 Runs on ``cuda`` unless given ``device="cpu"``; without a card and without a
 device it raises. Not ported (each raises or is absent, see ROADMAP.md):
-TP/SP/PP, a mixed data x fsdp mesh and fsdp x expert, the reference's other telemetry
+SP/PP, a mixed data x fsdp mesh, fsdp x expert, tensor with ZeRO-3, expert or
+offload, the reference's other telemetry
 (tracer, goodput and memory ledgers, watchdog), the sentinel's rollback and
 data quarantine, chaos and elastic training.
 """
@@ -115,7 +122,8 @@ from dlti_tpu_torch.checkpoint import store
 from dlti_tpu_torch.config import Config, ZeROStage
 from dlti_tpu_torch.data.pipeline import HostShardedSchedule
 from dlti_tpu_torch.data.prefetch import HostPrefetcher
-from dlti_tpu_torch.models.interop import init_params, init_params_int8, load_model
+from dlti_tpu_torch.models.interop import (
+    init_params, init_params_int8, load_model, shard_params)
 from dlti_tpu_torch.models.quantization import quantize_params_int8
 from dlti_tpu_torch.parallel.mesh import build_mesh
 from dlti_tpu_torch.parallel.sharding import all_reduce_, shard_model
@@ -201,7 +209,10 @@ class TrainRecord:
 
 class Trainer:
     def __init__(self, cfg: Config, params: Optional[Mapping[str, torch.Tensor]] = None,
-                 device=None, *, cuda_graphs: bool = True):
+                 device=None, *, cuda_graphs: bool = True, mesh=None):
+        """``mesh``: a prebuilt ``parallel.mesh.Mesh`` for ``cfg.parallel``
+        (e.g. ``build_mesh(..., tensor_group=True)``, the tensor-parallel
+        path at extent 1); built from ``cfg.parallel`` by default."""
         t = cfg.train
         if t.quantize_frozen_base:
             if t.quantize_frozen_base != "int8":
@@ -214,7 +225,7 @@ class Trainer:
             raise ValueError(f"unknown save_strategy {cfg.checkpoint.save_strategy!r}")
         self.cfg = cfg
         self.device = resolve_device(device)
-        self.mesh = build_mesh(cfg.parallel, self.device, cfg.lora.enabled)
+        self.mesh = mesh or build_mesh(cfg.parallel, self.device, cfg.lora.enabled)
         self.params = params
         # Set once the strategy placed the given weights and they were let go.
         self._params_released = False
@@ -241,22 +252,27 @@ class Trainer:
                 "released by the first init_state (offload_params or a world above "
                 "1); pass the state train() returned as train(state=...), or build "
                 "a new Trainer with the weights")
-        cfg = self.cfg
+        cfg, mesh = self.cfg, self.mesh
         lora = cfg.lora if cfg.lora.enabled else None
         params = self.params
+        # Under a tensor group each leaf is cut to this rank's part as it is
+        # drawn or placed, an int8 weight quantized whole first.
         if params is None and cfg.train.quantize_frozen_base:
             # Drawn and quantized leaf by leaf: the full-precision tree never
             # exists.
             params = init_params_int8(cfg.model, seed=cfg.train.seed, device=self.device,
-                                      lora=lora)
+                                      lora=lora, mesh=mesh)
         elif params is None:
             params = init_params(cfg.model, seed=cfg.train.seed, device=self.device,
-                                 lora=lora)
+                                 lora=lora, mesh=mesh)
+        elif mesh.tensor_parallel:
+            params = shard_params(dict(params), mesh, cfg.model, lora, device=self.device,
+                                  quantize=cfg.train.quantize_frozen_base, donate=True)
         elif cfg.train.quantize_frozen_base:
             # Leaf by leaf on the device.
             params = quantize_params_int8(dict(params), device=self.device, donate=True)
-        model = load_model(cfg.model, params, self.device, lora=lora,
-                           trainable_lora=True)
+        model = load_model(cfg.model, params, self.device, lora=lora, trainable_lora=True,
+                           tensor=mesh.tensor if mesh.tensor_parallel else None)
         del params
         layout = shard_model(model, self.mesh, cfg.lora.enabled)
         if self.params is not None and (cfg.parallel.offload_params or self.mesh.world > 1):
@@ -303,8 +319,9 @@ class Trainer:
                             fp16_hysteresis=cfg.train.fp16_hysteresis)
         eval_fn = (make_eval_step(state.model, loss_chunk=cfg.train.loss_chunk)
                    if eval_dataset is not None and cfg.train.eval_steps else None)
-        if self.mesh.ep > 1:
-            # An expert group's ranks take the same rows: slice by the batch axes.
+        if self.mesh.batch.world != self.mesh.world:
+            # A tensor or expert group's ranks take the same rows: slice by
+            # the batch axes.
             for ds in (dataset, eval_dataset):
                 if isinstance(ds, HostShardedSchedule):
                     ds.shard_rows(self.mesh.batch.rank, self.mesh.batch.world)

@@ -1178,11 +1178,13 @@ def nccl_group(gen):
     dist.destroy_process_group()
 
 
-def _zero_window_case(stage, graphs, offload=False, layers=2, fp16_initial_scale=None):
+def _zero_window_case(stage, graphs, offload=False, layers=2, fp16_initial_scale=None,
+                      tensor_group=False):
     """``_window_case``'s model and dropout under ``stage`` in the group of
     one (both host offloads with ``offload``), its window over the layout;
     with ``fp16_initial_scale``, ``_fp16_window_case``'s float16 model and
-    scaler."""
+    scaler; with ``tensor_group``, on the tensor-parallel path (a tensor
+    group of one)."""
     from dlti_tpu_torch.config import OptimizerConfig, ParallelConfig, ZeROStage
     from dlti_tpu_torch.parallel.mesh import build_mesh
     from dlti_tpu_torch.parallel.sharding import shard_model
@@ -1192,7 +1194,10 @@ def _zero_window_case(stage, graphs, offload=False, layers=2, fp16_initial_scale
                               fp16_initial_scale=fp16_initial_scale)
     par = ParallelConfig(zero_stage=ZeROStage(stage), offload_optimizer=offload,
                          offload_params=offload)
-    mesh = build_mesh(par, torch.device("cuda", torch.cuda.current_device()))
+    mesh = build_mesh(par, torch.device("cuda", torch.cuda.current_device()),
+                      tensor_group=tensor_group)
+    if tensor_group:  # at extent 1 a rank's parts are the whole leaves
+        state.model.set_tensor_axis(mesh.tensor)
     layout = shard_model(state.model, mesh, True)
     state = create_train_state(state.model, build_optimizer(OptimizerConfig(warmup_steps=1)),
                                fp16_initial_scale=fp16_initial_scale, layout=layout)
@@ -2009,3 +2014,97 @@ def test_moe_decode_window_never_syncs_the_host(gen):
     engine._decode_complete(pending)
     while engine.has_work:
         engine.step()
+
+
+
+# ----------------------------------------------------------------------
+# Tensor parallelism on one card: the tensor path in a NCCL group of one
+# ----------------------------------------------------------------------
+
+def test_tensor_path_graphed_steps_in_a_nccl_group_of_one_equal_the_plain_step(
+        gen, nccl_group):
+    """Four steps (two windows of 2, dropout on) with every tensor
+    collective issued on a tensor group of one and captured in the step's
+    graph: bit-equal to the plain single-device graphed step, K1-K3 as
+    many times."""
+    batches = _host_batches(4, seed=7)
+    state, window = _window_case(gen, True)
+    tfa.fwd_launches = tfa.dq_launches = tfa.dkv_launches = 0
+    plain = _run_windows(state, window, batches)
+    plain_counts = (tfa.fwd_launches, tfa.dq_launches, tfa.dkv_launches)
+    del state, window
+    state, window = _zero_window_case(0, True, tensor_group=True)
+    assert state.layout.mesh.tensor_parallel and state.model.model.tp is not None
+    tfa.fwd_launches = tfa.dq_launches = tfa.dkv_launches = 0
+    tp = _run_windows(state, window, batches)
+    assert (tfa.fwd_launches, tfa.dq_launches, tfa.dkv_launches) == plain_counts
+    for a, b in zip(plain[0], tp[0]):
+        assert (a == b).all(), (a, b)
+    assert all(torch.equal(a, b) for a, b in zip(plain[1] + plain[2], tp[1] + tp[2]))
+
+
+def test_tensor_path_decode_graph_in_a_nccl_group_of_one_equals_the_plain_engine(
+        nccl_group):
+    """The engine on a tensor group of one (its pools' heads, the embedding,
+    the head and o/down all through the tensor collectives, captured in the
+    decode graph): tokens and logprobs equal to the plain graphed engine's,
+    K4 once a layer a step."""
+    from dlti_tpu_torch.config import MODEL_PRESETS, ParallelConfig
+    from dlti_tpu_torch.models.interop import init_params
+    from dlti_tpu_torch.parallel.mesh import build_mesh
+    from dlti_tpu_torch.serving import EngineConfig, InferenceEngine, SamplingParams
+
+    cfg = MODEL_PRESETS["llama_300m"]
+    ec = EngineConfig(max_seqs=4, block_size=16, num_blocks=64, max_model_len=256,
+                      steps_per_sync=4, eos_token_id=-1)
+    dev = torch.device("cuda", torch.cuda.current_device())
+    mesh = build_mesh(ParallelConfig(), dev, tensor_group=True)
+
+    def run(mesh):
+        engine = InferenceEngine(cfg, init_params(cfg, seed=0, device="cuda"), ec,
+                                 device="cuda", mesh=mesh)
+        engine.warmup_decode_ladder()
+        tpa.launches = 0
+        reqs = [engine.submit(list(range(3, 3 + n)), SamplingParams(
+                    temperature=0.0 if i % 2 else 0.8, max_tokens=12, seed=i))
+                for i, n in enumerate((5, 40, 17))]
+        while engine.has_work:
+            engine.step()
+        torch.cuda.synchronize()
+        assert tpa.launches == cfg.num_layers * engine.stats["decode_steps"]
+        return [(r.output_token_ids, r.output_logprobs) for r in reqs]
+
+    assert run(None) == run(mesh)
+
+
+def test_graphs_under_a_gloo_group_on_the_card_raise(gen, monkeypatch):
+    """Two ranks on one card run gloo (``launcher --one-device``), which a
+    CUDA graph cannot capture: the decode graph and the step graph refuse
+    it by name instead of capturing host collectives."""
+    import socket
+
+    import torch.distributed as dist
+
+    from dlti_tpu_torch.config import MODEL_PRESETS, ParallelConfig
+    from dlti_tpu_torch.models.interop import init_params
+    from dlti_tpu_torch.parallel.mesh import build_mesh
+    from dlti_tpu_torch.serving import EngineConfig
+    from dlti_tpu_torch.serving.engine import EngineExecutor
+
+    monkeypatch.setenv("DLTI_ONE_DEVICE", "1")
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", world_size=1,
+                            rank=0)
+    try:
+        dev = torch.device("cuda", torch.cuda.current_device())
+        mesh = build_mesh(ParallelConfig(), dev, tensor_group=True)
+        cfg = MODEL_PRESETS["llama_tiny"]
+        params = init_params(cfg, seed=0, device="cuda")
+        ec = EngineConfig(max_seqs=2, block_size=16, num_blocks=16, max_model_len=64)
+        with pytest.raises(ValueError, match="needs NCCL"):
+            EngineExecutor(cfg, dict(params), ec, device=dev, mesh=mesh)
+        EngineExecutor(cfg, dict(params), ec, device=dev, mesh=mesh, cuda_graphs=False)
+    finally:
+        dist.destroy_process_group()

@@ -207,8 +207,14 @@ def test_plan_matrix_and_build_command_match_jax():
         assert cmd[11:] == jcmd[2:]  # the JAX script's flags, in its order
     with pytest.raises(ValueError, match="unknown strategy"):
         orchestration.plan_matrix(["zero4"], [1])
-    with pytest.raises(NotImplementedError, match="tensor"):
-        orchestration.plan_matrix(["zero3"], [2], tensor=2)
+    # --tensor runs (the launcher's world is num_devices x tensor) and passes
+    # on as the JAX command passes it.
+    spec, = orchestration.plan_matrix(["zero1"], [2], tensor=2)
+    jspec, = jorch.plan_matrix(["zero1"], [2], tensor=2)
+    cmd = orchestration.build_command(spec, args, python="py", port=1234)
+    jcmd = jorch.build_command(jspec, args, python="py", train_script="train.py")
+    assert cmd[:5] == ["py", "-m", "dlti_tpu_torch.launcher", "--num-processes", "4"]
+    assert cmd[11:] == jcmd[2:] and "--tensor" in cmd
     with pytest.raises(NotImplementedError, match="sequence"):
         orchestration.build_command(orchestration.ExperimentSpec("zero3", 2, sequence=2), {})
 
@@ -273,8 +279,8 @@ def test_run_matrix_on_gloo_writes_a_csv_both_compares_read_the_same(tmp_path):
 def test_run_experiments_cli_refuses_what_is_not_ported(tmp_path):
     from dlti_tpu_torch.cli import run_experiments
 
-    with pytest.raises(NotImplementedError, match="tensor"):
-        run_experiments.main(["--tensor", "2", "--dry-run"])
+    with pytest.raises(NotImplementedError, match="sequence"):
+        run_experiments.main(["--sequence", "2", "--dry-run"])
     with pytest.raises(NotImplementedError, match="simulate-devices"):
         run_experiments.main(["--simulate-devices", "8", "--dry-run"])
     assert run_experiments.main(["--strategies", "baseline,zero3", "--device-counts", "2",

@@ -509,3 +509,33 @@ def test_a_mixtral_config_json_raises_as_in_the_reference():
     with pytest.raises(NotImplementedError, match="mixture-of-experts") as got:
         config_from_hf(hf)
     assert str(got.value).startswith(str(want.value))
+
+
+@pytest.mark.parametrize("shape", ["mixtral_tiny", "wide"])
+def test_stacked_experts_are_drawn_as_flax_lecun_normal(shape):
+    """F7: ``init_params`` draws each stacked expert leaf lecun-normal with
+    fan in every dim but the last (E * h for ``w1``/``w3``, E * m for
+    ``w2``), as flax's ``lecun_normal`` counts it on the reference's 3-D
+    arrays: its std equals flax's draw of the same shape within sampling
+    error, and 1 / sqrt(E * h), not 1 / sqrt(h), for ``w1``. The router
+    (2-D) keeps fan in h."""
+    import flax.linen as nn
+
+    cfg = tc.MODEL_PRESETS["mixtral_tiny"]
+    if shape == "wide":  # (8, 64, 128), the shape the fault was measured at
+        cfg = dataclasses.replace(cfg, num_experts=8)
+    params = init_params(cfg, seed=0, device="cpu")
+    E, h, m = cfg.num_experts, cfg.hidden_size, cfg.intermediate_size
+    for leaf, dims in (("w1", (E, h, m)), ("w3", (E, h, m)), ("w2", (E, m, h)),
+                       ("router", (h, E))):
+        t = params[f"model.layers.0.mlp.{leaf}"]
+        assert tuple(t.shape) == dims
+        flax_std = float(jnp.std(nn.initializers.lecun_normal()(jax.random.PRNGKey(1), dims)))
+        want = 1 / np.sqrt(np.prod(dims[:-1]))
+        got = float(t.float().std())
+        # the relative sampling error of a std over n draws is ~ 1/sqrt(2n)
+        tol = 4 / np.sqrt(2 * np.prod(dims)) * want
+        assert abs(got - want) < tol, (leaf, got, want)
+        assert abs(flax_std - want) < tol, (leaf, flax_std, want)
+    if shape == "mixtral_tiny":
+        assert abs(float(params["model.layers.0.mlp.w1"].std()) - 0.0625) < 0.002

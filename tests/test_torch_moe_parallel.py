@@ -233,7 +233,8 @@ def test_expert_axis_strategy_rules():
     check_strategy(tc.ParallelConfig(zero_stage=tc.ZeROStage.ZERO2, data=2, expert=2))
     for par, match in [(dict(zero_stage=tc.ZeROStage.ZERO3, fsdp=2, expert=2), "fsdp x expert"),
                        (dict(zero_stage=tc.ZeROStage.ZERO3, fsdp=1, expert=2), "fsdp x expert"),
-                       (dict(tensor=2), "tensor"), (dict(sequence=2), "sequence"),
+                       (dict(tensor=2, expert=2), "tensor x expert"),
+                       (dict(sequence=2), "sequence"),
                        (dict(pipe=2), "pipe")]:
         with pytest.raises(NotImplementedError, match=match):
             check_strategy(tc.ParallelConfig(**par))

@@ -404,9 +404,12 @@ def test_strategy_legality_errors():
     with pytest.raises(ValueError, match="offload_params without LoRA"):
         check_strategy(P(zero_stage=tc.ZeROStage.ZERO3, offload_params=True),
                        lora_enabled=False)
-    for axis in ("tensor", "sequence", "pipe"):
+    for axis in ("sequence", "pipe"):
         with pytest.raises(NotImplementedError, match=f"{axis}=2"):
             check_strategy(P(**{axis: 2}))
+    # The tensor axis runs (parallel.tensor), but not under ZeRO-3.
+    with pytest.raises(NotImplementedError, match="tensor x ZeRO-3"):
+        check_strategy(P(zero_stage=tc.ZeROStage.ZERO3, tensor=2))
     with pytest.raises(NotImplementedError, match="mixed"):
         check_strategy(P(zero_stage=tc.ZeROStage.ZERO3, data=2, fsdp=2))
     # The expert axis runs (parallel.sharding), but not under ZeRO-3.
@@ -417,9 +420,11 @@ def test_strategy_legality_errors():
 
     from dlti_tpu_torch.cli.train import build_config, parse_args
 
-    for flag in ("--tensor", "--sequence", "--pipe", "--data"):
+    for flag in ("--sequence", "--pipe", "--data"):
         with pytest.raises(SystemExit, match="not ported"):
             build_config(parse_args(["--model", "llama_tiny", flag, "2"]))
+    assert build_config(parse_args(["--model", "llama_tiny", "--tensor", "2"])
+                        ).parallel == P(tensor=2)
     assert build_config(parse_args(["--model", "mixtral_tiny", "--expert", "2"])
                         ).parallel == P(expert=2)
     cfg = build_config(parse_args(["--model", "llama_tiny", "--data", "1",

@@ -129,6 +129,7 @@ def _state(params: dict, parallel: dict, lora: dict = None, opt: dict = None,
     leaf under ``expert`` above 1."""
     from dlti_tpu_torch.config import MODEL_PRESETS, LoRAConfig, OptimizerConfig
     from dlti_tpu_torch.models import load_model
+    from dlti_tpu_torch.models.interop import shard_params
     from dlti_tpu_torch.models.lora import is_lora_name
     from dlti_tpu_torch.parallel.mesh import build_mesh
     from dlti_tpu_torch.parallel.sharding import shard_model
@@ -150,8 +151,10 @@ def _state(params: dict, parallel: dict, lora: dict = None, opt: dict = None,
             return t
         return t.to(torch.float32 if is_lora_name(n) else base_dtype)
 
-    net = load_model(mcfg, {n: leaf(n, a) for n, a in params.items()}, cpu,
-                     lora=lcfg if lcfg.enabled else None, trainable_lora=True)
+    lora_cfg = lcfg if lcfg.enabled else None
+    tree = shard_params({n: leaf(n, a) for n, a in params.items()}, mesh, mcfg, lora_cfg)
+    net = load_model(mcfg, tree, cpu, lora=lora_cfg, trainable_lora=True,
+                     tensor=mesh.tensor if mesh.tensor_parallel else None)
     layout = shard_model(net, mesh, lcfg.enabled)
     return create_train_state(net, build_optimizer(OptimizerConfig(**(opt or OPT))),
                               lora_enabled=lcfg.enabled, fp16_initial_scale=fp16_scale,
@@ -163,7 +166,7 @@ def steps(params: dict, batches: list, parallel: dict, lora: dict = None,
           seed: int = None, preset: str = "llama_tiny", accum: int = ACCUM) -> dict:
     """``len(batches)`` train steps of ``preset`` from ``params`` (port
     names, numpy) under ``parallel``, each rank on its rows (the batch
-    axes' share: an expert group's ranks take the same rows), through
+    axes' share: a tensor or expert group's ranks take the same rows), through
     ``StepWindow`` (eager). Returns the metric rows, every trainable leaf
     whole (rank 0; the other ranks join the gathers and get none), and each
     leaf's (local, whole) shape."""
@@ -171,11 +174,11 @@ def steps(params: dict, batches: list, parallel: dict, lora: dict = None,
     from dlti_tpu_torch.training.step import StepWindow
 
     rank, world = _rank_world()
-    ep = parallel.get("expert", 1)
+    inner = parallel.get("expert", 1) * parallel.get("tensor", 1)
     state = _state(params, parallel, lora, opt, model, fp16_scale, preset)
     layout = state.layout
     window = StepWindow(state.model, accum_steps=accum, seed=seed, cuda_graphs=False)
-    rows = [window.run(state, [local_rows(b, rank // ep, world // ep)], i + 1)[0].tolist()
+    rows = [window.run(state, [local_rows(b, rank // inner, world // inner)], i + 1)[0].tolist()
             for i, b in enumerate(batches)]
     whole = whole_params(state)
     return {"metrics": [dict(zip(window.metrics, r)) for r in rows],
@@ -297,5 +300,158 @@ def cli_mesh(argv: list) -> dict:
             "error": error}
 
 
+# ----------------------------------------------------------------------
+# Tensor-parallel serving cases: rank 0 schedules, the others follow
+# ----------------------------------------------------------------------
+
+def _tensor_mesh():
+    from dlti_tpu_torch.config import ParallelConfig
+    from dlti_tpu_torch.parallel.mesh import build_mesh
+
+    return build_mesh(ParallelConfig(tensor=dist.get_world_size()), torch.device("cpu"))
+
+
+def _model_cfg(preset: str, model: dict = None):
+    from dlti_tpu_torch.config import MODEL_PRESETS
+
+    return dataclasses.replace(MODEL_PRESETS[preset], **(model or {}))
+
+
+def run_script(engine, sampling_params=None, seeded: bool = False) -> list:
+    """The engine parity tests' request script (``tests/test_torch_engine.py``)
+    on either package's engine (``sampling_params``: its class, the port's
+    by default): a batch, a request crossing a block, one joining
+    mid-flight, more requests than slots; with ``seeded`` every other
+    request samples. Returns every request in order."""
+    if sampling_params is None:
+        from dlti_tpu_torch.serving import SamplingParams as sampling_params
+
+    def sp(i, n):
+        if seeded and i % 2:
+            return sampling_params(temperature=0.9, top_k=20, max_tokens=n, seed=100 + i)
+        return sampling_params(temperature=0.0, max_tokens=n)
+
+    prompts = [([1, 2, 3], 6), ([4, 5, 6, 7, 8], 6), ([9], 6), ([10, 11], 6),
+               ([3, 1, 4, 1, 5, 9, 2, 6, 5, 3], 10)]
+    reqs = [engine.submit(p, sp(i, n)) for i, (p, n) in enumerate(prompts)]
+    for _ in range(3):
+        engine.step()
+    reqs.append(engine.submit([4, 5], sp(5, 4)))
+    reqs += [engine.submit([i + 1, i + 7], sp(6 + i, 3)) for i in range(10)]
+    while engine.has_work:
+        engine.step()
+    return reqs
+
+
+def tp_engine(params: dict, ec: dict, preset: str = "llama_tiny", model: dict = None,
+              seeded: bool = False, sharded_init: bool = False) -> dict:
+    """An engine over the tensor group of the world from ``params`` (port
+    names, numpy, whole; with ``sharded_init`` the rank's part of
+    ``init_params(seed=0)`` instead): rank 0 runs :func:`run_script` and
+    releases the others, which follow. Every rank reports its KV heads and
+    what its model holds; rank 0 the tokens and logprobs."""
+    from dlti_tpu_torch.models.interop import init_params
+    from dlti_tpu_torch.serving import EngineConfig, InferenceEngine
+
+    cfg = _model_cfg(preset, model)
+    mesh = _tensor_mesh()
+    tree = (init_params(cfg, seed=0, device="cpu", mesh=mesh) if sharded_init
+            else {n: torch.from_numpy(a.copy()) for n, a in params.items()})
+    engine = InferenceEngine(cfg, tree, EngineConfig(**ec), device="cpu", mesh=mesh)
+    out = {"kv_heads": engine.cache[0]["k"].shape[2],
+           "shapes": {n: tuple(p.shape) for n, p in engine.model.named_parameters()},
+           "scales": {n: p.detach().numpy().copy() for n, p in engine.model.named_parameters()
+                      if n.endswith(".scale") and ".kernel" in n}}
+    if engine.follower:
+        engine.follow()
+        return out
+    reqs = run_script(engine, seeded=seeded)
+    engine.stop_followers()
+    out.update(tokens=[r.output_token_ids for r in reqs],
+               logprobs=[r.output_logprobs for r in reqs])
+    return out
+
+
+def tp_server(params: dict, ec: dict, prompts: list) -> dict:
+    """``make_server`` over a tensor-parallel engine on rank 0 (the others
+    follow): greedy completions of ``prompts`` over HTTP, ``/stats`` and
+    ``/metrics`` answered, then the server's shutdown releases the
+    followers. Rank 0 returns the texts."""
+    import json as _json
+    import threading
+    import urllib.request
+
+    from dlti_tpu_torch.data import ByteTokenizer
+    from dlti_tpu_torch.serving import EngineConfig, InferenceEngine, ServerConfig, make_server
+
+    cfg = _model_cfg("llama_tiny")
+    mesh = _tensor_mesh()
+    engine = InferenceEngine(cfg, {n: torch.from_numpy(a.copy()) for n, a in params.items()},
+                             EngineConfig(**ec), device="cpu", mesh=mesh)
+    if engine.follower:
+        engine.follow()
+        return {}
+    httpd, async_engine = make_server(engine, ByteTokenizer(),
+                                      ServerConfig(host="127.0.0.1", port=0))
+    threading.Thread(target=httpd.serve_forever, daemon=True).start()
+    base = f"http://127.0.0.1:{httpd.server_address[1]}"
+    texts = []
+    try:
+        for p in prompts:
+            body = _json.dumps({"prompt": p, "max_tokens": 8, "temperature": 0}).encode()
+            req = urllib.request.Request(base + "/v1/completions", data=body,
+                                         headers={"Content-Type": "application/json"})
+            texts.append(_json.loads(urllib.request.urlopen(req, timeout=60).read())
+                         ["choices"][0]["text"])
+        stats = _json.loads(urllib.request.urlopen(base + "/stats", timeout=60).read())
+        metrics = urllib.request.urlopen(base + "/metrics", timeout=60).read().decode()
+    finally:
+        httpd.shutdown()
+        async_engine.shutdown()  # releases the followers
+        httpd.server_close()
+    return {"texts": texts, "requests": stats["requests"],
+            "metrics_ok": "dlti_" in metrics}
+
+
+def tp_refusals(params: dict, ec: dict) -> dict:
+    """What a tensor-parallel engine refuses, by name: each error's message."""
+    from dlti_tpu_torch.serving import EngineConfig, InferenceEngine
+
+    cfg = _model_cfg("llama_tiny")
+    mesh = _tensor_mesh()
+    tree = {n: torch.from_numpy(a.copy()) for n, a in params.items()}
+    out = {}
+    for name, extra in (("adapters", dict(adapter_slots=2)),
+                        ("spec", dict(speculative="ngram")),
+                        ("tiers", dict(enable_prefix_caching=True, prefix_host_blocks=8))):
+        try:
+            InferenceEngine(cfg, dict(tree), EngineConfig(**ec, **extra), device="cpu",
+                            mesh=mesh)
+            out[name] = None
+        except NotImplementedError as e:
+            out[name] = str(e)
+    return out
+
+
+def tp_gather(params: dict, preset: str = "llama_tiny", quantize: bool = False) -> dict:
+    """``shard_params`` of a whole tree (port names, numpy) on this tensor
+    rank, then ``gather_params`` back: each leaf's part shape and whether
+    the gathered tree equals the whole one bit for bit."""
+    from dlti_tpu_torch.models.interop import gather_params, shard_params
+    from dlti_tpu_torch.models.quantization import quantize_params_int8
+
+    cfg = _model_cfg(preset)
+    whole = {n: torch.from_numpy(a.copy()) for n, a in params.items()}
+    if quantize:
+        whole = quantize_params_int8(whole)
+    mesh = _tensor_mesh()
+    part = shard_params(dict(whole), mesh, cfg, quantize=False)
+    back = gather_params(part, mesh, cfg)
+    return {"parts": {n: tuple(t.shape) for n, t in part.items()},
+            "equal": sorted(back) == sorted(whole)
+            and all(torch.equal(back[n], whole[n]) for n in whole)}
+
+
 CASES = {"steps": steps, "train": train, "data_rows": data_rows, "norm": norm,
-         "gathered_leaves": gathered_leaves, "cli_mesh": cli_mesh}
+         "gathered_leaves": gathered_leaves, "cli_mesh": cli_mesh, "tp_engine": tp_engine,
+         "tp_server": tp_server, "tp_refusals": tp_refusals, "tp_gather": tp_gather}
