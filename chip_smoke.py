@@ -294,7 +294,7 @@ Phases, each of which fails the run if its check fails:
     largest difference relative to their scale and the argmax agreement (a
     reading, not gated; the logits must be finite).
 
-21. Tensor parallelism on one card (run last). (a) and (b) in a world of
+21. Tensor parallelism on one card (before phase 22). (a) and (b) in a world of
     two ranks on this card over gloo (``python -m dlti_tpu_torch.launcher
     --one-device --num-processes 2 -- python chip_smoke.py --tensor-rank
     DIR``; NCCL refuses two ranks on one device), each joining through
@@ -304,7 +304,7 @@ Phases, each of which fails the run if its check fails:
     1 following: phase 3's first 4 requests (greedy and seeded) at 16
     tokens and their prompts' first-step logits; the same 4 at 16 tokens
     and 8 layers in float32; 4 requests of 8 tokens on an int8 pool (K4q).
-    (b) Phase 7's LoRA training at ``tensor`` 2, 2 eager steps, each rank's
+    (b) Phase 7's LoRA training at ``tensor`` 2, 1 eager step, each rank's
     K1-K3 and peak. (c) In this process, a NCCL group of one with a tensor
     group of one (every tensor collective issued and captured): phase 3's
     12 requests through the decode graph, tokens and logprobs equal to
@@ -317,6 +317,20 @@ Phases, each of which fails the run if its check fails:
     rank's argmax wherever one rank's top-2 margin exceeds it; the float32
     tokens a one-rank engine's; (b)'s loss and grad norm within
     ``TP_LOSS_RTOL``/``TP_GRAD_NORM_RTOL`` of phase 7's eager steps.
+22. Sequence and pipeline parallelism on one card (run last). Phase 21's
+    world of two ranks on this card over gloo runs them after its
+    tensor-parallel runs (one launch, so the second world's start and its
+    draw are saved), llama2_7b at full width and depth drawn once a rank:
+    (a) LoRA r=16 at ``sequence`` 2, seq 4096 (phase 7's texts packed),
+    micro-batch 1 x accum 2, 2 eager steps, each rank 2048 tokens of every
+    row and attention the ring (``parallel.ring_attention``, plain
+    arithmetic: no K1-K3); (b) LoRA at ``pipe`` 2, 16 layers a stage,
+    phase 7's 8 rows of 512 as 8 microbatches of 1 row, 2 eager steps
+    through the GPipe schedule. Then here one rank's eager references on
+    the same rows and microbatches: each run's losses and grad norms within
+    ``SEQPIPE_RTOL`` of them, (b)'s losses within it of phase 7's; K1-K3 0
+    under the ring and 2 x 16 x 8 / 16 x 8 a step on each stage; each
+    rank's step seconds and peak printed.
 
 Prints ``[time]`` lines with each group of phases' wall clock, a
 ``{"kernels": [...]}`` line (each kernel's float16 mode a row of
@@ -4518,7 +4532,8 @@ TP_F32_LAYERS, TP_F32_REQUESTS, TP_F32_TOKENS = 8, 4, 16
 # TP-2 LoRA training against phase 7's eager steps (bfloat16, the same batch
 # and seed): relative limits on the loss and the grad norm (PR 16's runs
 # read 1.13e-4 and 1.16e-4).
-TP_TRAIN_STEPS = 2
+# One step (two until phase 22's runs needed the room).
+TP_TRAIN_STEPS = 1
 TP_LOSS_RTOL, TP_GRAD_NORM_RTOL = 1e-3, 1e-3
 # The tensor path in a NCCL group of one: graphed steps held bit-equal to
 # phase 7's first steps.
@@ -4681,6 +4696,9 @@ def tensor_rank_main(out_dir: str) -> int:
     t0 = time.perf_counter()
     out["train"] = tensor_train(torch)
     out["train_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["seqpipe"] = seqpipe_world(torch)
+    out["seqpipe_s"] = time.perf_counter() - t0
     with open(Path(out_dir) / f"rank{mesh.rank}.json", "w") as f:
         json.dump(out, f)
     dist.barrier()
@@ -4725,7 +4743,7 @@ def teacher_forced(torch, ex, cfg, reqs, outputs, tag) -> dict:
 
 
 def phase_tensor(torch, engine_perf, train_perf, card):
-    """Phase 21, tensor parallelism on one card (run last).
+    """Phase 21, tensor parallelism on one card (before phase 22).
 
     (a)+(b): ``python -m dlti_tpu_torch.launcher --one-device
     --num-processes 2 -- python chip_smoke.py --tensor-rank DIR``: two ranks
@@ -4735,7 +4753,8 @@ def phase_tensor(torch, engine_perf, train_perf, card):
     phase 3's first 4 requests (greedy and seeded) at 16 tokens, and their
     prompts' first-step logits; at 8 layers in float32 the same 4 at 16
     tokens; on an int8 pool 4 requests of 8 tokens (K4q). (b) Phase 7's
-    LoRA training at ``tensor`` 2, 2 eager steps. (c) In this process, a
+    LoRA training at ``tensor`` 2, 1 eager step; then phase 22's runs
+    (:func:`seqpipe_world`). (c) In this process, a
     NCCL group of one with its tensor group (extent 1, every tensor
     collective issued): the decode graph over phase 3's 12 requests, tokens
     and logprobs equal to phase 3's; then phase 7's configuration for 4
@@ -4783,7 +4802,10 @@ def phase_tensor(torch, engine_perf, train_perf, card):
               + proc.stdout[-3000:] + proc.stderr[-5000:])
         ranks = [json.load(open(Path(out_dir) / f"rank{r}.json")) for r in (0, 1)]
         perf["world_s"] = time.perf_counter() - t0
-        perf["world_parts_s"] = {k: ranks[0][k] for k in ("start_s", "serve_s", "train_s")}
+        perf["world_parts_s"] = {k: ranks[0][k]
+                                 for k in ("start_s", "serve_s", "train_s", "seqpipe_s")}
+        # Phase 22's runs in this world, held there.
+        perf["seqpipe_ranks"] = [r.pop("seqpipe") for r in ranks]
         perf["world_parts_s"].update({f"{name}_wall_s": ranks[0][name]["wall_s"]
                                       for name in ("bf16", "f32", "int8")})
         log(f"[tensor] the TP-2 world took {perf['world_s']:.1f} s: "
@@ -4820,7 +4842,8 @@ def phase_tensor(torch, engine_perf, train_perf, card):
         ref_g = train_perf["eager"]["grad_norms"][:TP_TRAIN_STEPS]
         dl = max(abs(a - b) / abs(b) for a, b in zip(tr["losses"], ref_l))
         dg = max(abs(a - b) / abs(b) for a, b in zip(tr["grad_norms"], ref_g))
-        log(f"[tensor] (b) TP-2 LoRA r=16, 2 eager steps over gloo: losses {tr['losses']} "
+        log(f"[tensor] (b) TP-2 LoRA r=16, {TP_TRAIN_STEPS} eager step over gloo: losses "
+            f"{tr['losses']} "
             f"(phase 7 eager {ref_l}, worst relative {dl:.2e}), grad norms "
             f"{tr['grad_norms']} ({ref_g}, {dg:.2e}); step times {tr['step_times_s']} s; "
             f"K1-K3 {tr['launches']} a rank; peaks "
@@ -4949,6 +4972,185 @@ def phase_tensor(torch, engine_perf, train_perf, card):
             dist.destroy_process_group()
 
 
+# ----------------------------------------------------------------------
+# Phase 22: sequence and pipeline parallelism on one card
+# ----------------------------------------------------------------------
+
+# (a) SP-2: LoRA r=16 at seq 4096 (packed rows of phase 7's texts), micro-batch
+# 1 x accum 2, 2 steps; (b) PP-2: 16 layers a stage on phase 7's 8 rows of 512
+# as 8 microbatches of 1 row, 2 steps. Both over gloo, eager.
+SP_SEQ = 4096
+SP_ACCUM = 2
+PP_MICRO = 8
+SEQPIPE_STEPS = 2
+# Loss and grad norm against one rank's step on the same rows (relative).
+SEQPIPE_RTOL = 1e-3
+
+
+def seqpipe_config(kind: str, parallel: bool):
+    """Phase 22's configurations (phase 7's model, LoRA and optimizer):
+    ``"sp"`` at seq ``SP_SEQ``, micro-batch 1 x accum ``SP_ACCUM``, on
+    ``sequence`` 2 (``parallel``) or one rank; ``"pp"`` at seq 512,
+    micro-batch 1 x accum ``PP_MICRO``, on ``pipe`` 2 or one rank."""
+    from dlti_tpu_torch.config import CheckpointConfig, ParallelConfig
+
+    cfg = train_config(CheckpointConfig(save_strategy="no"), max_steps=SEQPIPE_STEPS)
+    if kind == "sp":
+        cfg = cfg.replace(data=dataclasses.replace(cfg.data, max_seq_len=SP_SEQ),
+                          train=dataclasses.replace(cfg.train, micro_batch_size=1,
+                                                    grad_accum_steps=SP_ACCUM))
+        par = ParallelConfig(sequence=2)
+    else:
+        cfg = cfg.replace(train=dataclasses.replace(cfg.train, micro_batch_size=1,
+                                                    grad_accum_steps=PP_MICRO))
+        par = ParallelConfig(pipe=2)
+    return cfg.replace(parallel=par) if parallel else cfg
+
+
+def seqpipe_dataset(cfg):
+    """``"sp"``: phase 7's texts packed into rows of ``SP_SEQ`` (segment ids
+    and per-document positions ride the ring); ``"pp"``: phase 7's rows."""
+    from dlti_tpu_torch.data import ByteTokenizer, make_batches
+
+    return make_batches(training_texts(), ByteTokenizer(), seq_len=cfg.data.max_seq_len,
+                        micro_batch_size=cfg.train.micro_batch_size,
+                        grad_accum_steps=cfg.train.grad_accum_steps,
+                        pack=cfg.data.max_seq_len == SP_SEQ)
+
+
+def seqpipe_train(torch, cfg, params) -> dict:
+    """``SEQPIPE_STEPS`` eager steps of ``cfg`` from ``params`` (fresh LoRA
+    factors each run): losses, grad norms, step times, this process's peak
+    and the flash kernels' launches."""
+    from dlti_tpu_torch.models.lora import is_lora_name
+    from dlti_tpu_torch.ops import flash_attention as tfa
+    from dlti_tpu_torch.training import Trainer
+
+    fresh = {n: t.clone() if is_lora_name(n) else t for n, t in params.items()}
+    torch.cuda.reset_peak_memory_stats()
+    trainer = Trainer(cfg, params=fresh, device="cuda", cuda_graphs=False)
+    del fresh
+    state = trainer.init_state()
+    tfa.fwd_launches = tfa.dq_launches = tfa.dkv_launches = 0
+    t0 = time.perf_counter()
+    state, record = trainer.train(dataset=seqpipe_dataset(cfg), state=state)
+    torch.cuda.synchronize()
+    out = {"losses": record.losses, "grad_norms": record.grad_norms,
+           "step_times_s": record.step_times_s, "train_s": time.perf_counter() - t0,
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "launches": flash_counts(tfa), "layers": len(state.model.model.layers),
+           "strategy": record.strategy, "world": record.world}
+    del state, trainer
+    free_memory(torch)
+    return out
+
+
+def seqpipe_world(torch) -> dict:
+    """This rank's part of phase 22, run in phase 21's world (both ranks on
+    this card over gloo) after its tensor-parallel runs: llama2_7b drawn
+    once, then (a) SP-2 and (b) PP-2."""
+    from dlti_tpu_torch.models.interop import init_params
+
+    t0 = time.perf_counter()
+    cfg = seqpipe_config("sp", True)
+    params = init_params(cfg.model, seed=0, device="cuda", lora=cfg.lora)
+    out = {"draw_s": time.perf_counter() - t0}
+    for kind in ("sp", "pp"):
+        out[kind] = seqpipe_train(torch, seqpipe_config(kind, True), params)
+    del params
+    free_memory(torch)
+    return out
+
+
+def rel_diff(got, want) -> float:
+    return max(abs(a - b) / abs(b) for a, b in zip(got, want))
+
+
+def phase_seqpipe(torch, train_perf, card, ranks):
+    """Phase 22, sequence and pipeline parallelism on one card (run last).
+
+    The two ranks of phase 21's world (``launcher --one-device``: both on
+    this card over gloo) ran, after its tensor-parallel runs, llama2_7b
+    drawn once a rank: (a) ``SEQPIPE_STEPS`` eager steps at ``sequence`` 2,
+    seq ``SP_SEQ`` (packed rows, micro-batch 1 x accum ``SP_ACCUM``; each
+    rank 2048 tokens of every row, attention the ring's plain arithmetic)
+    and (b) at ``pipe`` 2 (16 layers a stage, GPipe over phase 7's rows as
+    ``PP_MICRO`` microbatches of 1 row); ``ranks`` holds their results.
+    Here one rank's eager references from phase 7's weights on the same
+    rows and microbatches (attention through K1-K3; graphed they took
+    longer, the capture of 8 microbatches dearer than 2 eager steps).
+    Held: each run's losses and grad norms
+    within ``SEQPIPE_RTOL`` of the one-rank run's, the ranks' equal; (b)'s
+    losses within ``SEQPIPE_RTOL`` of phase 7's (the same rows; LoRA's
+    ``lora_b`` is 0 through step 2, so the loss does not see dropout's
+    masks, which follow the microbatches); K1-K3 counted on each stage,
+    twice a layer forward under remat, and none under the ring."""
+    from dlti_tpu_torch.models.interop import init_params
+
+    perf = {"card": card}
+    t0 = time.perf_counter()
+    cfg = seqpipe_config("sp", False)
+    params = init_params(cfg.model, seed=0, device="cuda", lora=cfg.lora)
+    ref = {kind: seqpipe_train(torch, seqpipe_config(kind, False), params)
+           for kind in ("sp", "pp")}
+    del params
+    free_memory(torch)
+    perf["reference_s"] = time.perf_counter() - t0
+    layers = MODEL_LAYERS
+    for kind, tag in (("sp", "(a) SP-2"), ("pp", "(b) PP-2")):
+        got, one = ranks[0][kind], ref[kind]
+        check(ranks[1][kind]["losses"] == got["losses"]
+              and ranks[1][kind]["grad_norms"] == got["grad_norms"],
+              f"[seqpipe] {tag}: the ranks' losses or grad norms differ")
+        dl = rel_diff(got["losses"], one["losses"])
+        dg = rel_diff(got["grad_norms"], one["grad_norms"])
+        perf[kind] = {
+            "losses": got["losses"], "grad_norms": got["grad_norms"],
+            "one_rank_losses": one["losses"], "one_rank_grad_norms": one["grad_norms"],
+            "loss_rel": dl, "grad_norm_rel": dg,
+            "step_times_s": [r[kind]["step_times_s"] for r in ranks],
+            "peaks_gb": [r[kind]["peak_gb"] for r in ranks],
+            "launches_a_rank": [r[kind]["launches"] for r in ranks],
+            "train_s": [r[kind]["train_s"] for r in ranks],
+            "one_rank_step_times_s": one["step_times_s"],
+            "one_rank_peak_gb": one["peak_gb"], "one_rank_launches": one["launches"],
+            "strategy": got["strategy"], "world": got["world"]}
+        log(f"[seqpipe] {tag} LoRA r=16, {SEQPIPE_STEPS} eager steps over gloo: losses "
+            f"{got['losses']} (one rank {one['losses']}, worst relative {dl:.2e}), "
+            f"grad norms {got['grad_norms']} ({one['grad_norms']}, {dg:.2e}); step times by "
+            f"rank {perf[kind]['step_times_s']} s (one rank {one['step_times_s']}); "
+            f"peaks {[round(x, 2) for x in perf[kind]['peaks_gb']]} GB (one rank "
+            f"{one['peak_gb']:.2f}); K1-K3 by rank {perf[kind]['launches_a_rank']} "
+            f"(one rank {one['launches']})")
+        check(dl <= SEQPIPE_RTOL and dg <= SEQPIPE_RTOL,
+              f"[seqpipe] {tag}: loss {dl:.2e} / grad norm {dg:.2e} beyond {SEQPIPE_RTOL}")
+    none = {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+    check(perf["sp"]["launches_a_rank"] == [none, none],
+          f"[seqpipe] (a) flash launched under the ring: {perf['sp']['launches_a_rank']}")
+    check(ref["sp"]["launches"] == flash_expected(layers, SP_ACCUM, SEQPIPE_STEPS),
+          f"[seqpipe] (a) one rank's flash launches {ref['sp']['launches']}")
+    want = flash_expected(layers // 2, PP_MICRO, SEQPIPE_STEPS)
+    check(all(r["pp"]["launches"] == want and r["pp"]["layers"] == layers // 2
+              for r in ranks),
+          f"[seqpipe] (b) flash launches by stage {perf['pp']['launches_a_rank']}, "
+          f"expected {want} on each")
+    p7 = train_perf["losses"][:SEQPIPE_STEPS]
+    d7 = rel_diff(perf["pp"]["losses"], p7)
+    perf["pp"].update(phase7_losses=p7, phase7_loss_rel=d7,
+                      phase7_grad_norms=train_perf["grad_norms"][:SEQPIPE_STEPS])
+    log(f"[seqpipe] (b) losses against phase 7's on the same rows {p7}: worst relative "
+        f"{d7:.2e}; grad norms {perf['pp']['grad_norms']} (phase 7's "
+        f"{perf['pp']['phase7_grad_norms']}: other dropout masks, microbatches of 1 row "
+        f"against 4)")
+    check(d7 <= SEQPIPE_RTOL, f"[seqpipe] (b) loss {d7:.2e} off phase 7's")
+    perf["launches"] = dict(want)
+    perf["draw_s"] = [r["draw_s"] for r in ranks]
+    log(f"[seqpipe] references {perf['reference_s']:.1f} s here; in phase 21's world the "
+        f"7B draw {perf['draw_s']} s, (a) {perf['sp']['train_s']} s, (b) "
+        f"{perf['pp']['train_s']} s")
+    return perf
+
+
 def main() -> int:
     try:
         import torch
@@ -5043,6 +5245,10 @@ def main() -> int:
             free_memory(torch)
         with lap("phase 21"):
             tensor_perf = phase_tensor(torch, engine_perf, train_perf, card)
+            free_memory(torch)
+        with lap("phase 22"):
+            seqpipe_perf = phase_seqpipe(torch, train_perf, card,
+                                         tensor_perf.pop("seqpipe_ranks"))
     except CheckFailed as e:
         return fail(str(e))
     mix_serve, mix_train = mixtral_perf["serve"], mixtral_perf["train"]
@@ -5118,7 +5324,8 @@ def main() -> int:
             ("_float16", flash["llama2_7b_train_fp16"], fp16_launches, ("float16",))):
         for name, replaces in FLASH_REPLACES.items():
             extra = {} if suffix else {"mixtral_launches": mixtral_flash[name],
-                                       "tensor_launches": tensor_perf["launches"][name]}
+                                       "tensor_launches": tensor_perf["launches"][name],
+                                       "pipe_stage_launches": seqpipe_perf["launches"][name]}
             kernels.append({
                 "name": name + suffix,
                 "design": at[name]["design"],
@@ -5177,6 +5384,7 @@ def main() -> int:
     log("[hf] summary " + json.dumps(hf_perf))
     log("[mixtral] summary " + json.dumps(mixtral_perf))
     log("[tensor] summary " + json.dumps(tensor_perf))
+    log("[seqpipe] summary " + json.dumps(seqpipe_perf))
     log("[time] summary " + json.dumps(phase_times))
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)

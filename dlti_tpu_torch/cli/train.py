@@ -94,9 +94,31 @@ baseline, ZeRO-1, ZeRO-2; ``parallel.tensor``). ``--expert N`` splits a mixture 
 experts' experts over N ranks (``--model mixtral_tiny``, ``mixtral_8x7b``);
 the world is then ``N`` times the DP/FSDP extent, which ``--num-devices``
 sets (0: the world over ``N``), as the reference's ``scripts/train.py``
-sizes it; ``--expert`` with ``zero3`` raises. Not ported, each raising
-above 1: ``--sequence``, ``--pipe`` and ``--data``; ``--tensor`` with
-``zero3``, ``--expert`` or offload.
+sizes it; ``--expert`` with ``zero3`` raises. ``--sequence N`` splits
+every row's tokens over N ranks, attention running the ring
+(``parallel.ring_attention``; the batch extent is then the world over
+``--tensor * --sequence * --expert``). ``--pipe P`` splits the layers into
+P GPipe stages (``parallel.pipeline``), the microbatches being
+``--gradient-accumulation-steps``; under it ``--data D`` is the batch-row
+extent and ``--num-devices``, when given, must equal ``P * tensor *
+sequence * expert * D``; ``--data`` without ``--pipe`` raises, as in the
+reference. Not ported, each raising by name: ``--tensor`` with ``zero3``,
+``--expert`` or offload; ``--sequence`` or ``--pipe`` with ``zero3`` or
+offload; ``--pipe`` with ``--sequence``; ``--sequence`` with a mixture of
+experts.
+
+    # sequence parallelism over 2 ranks, then a pipeline of 2 stages (gloo
+    # on the CPU; on one card drop --device cpu and give the launcher
+    # --one-device: gloo there too, and the steps run eagerly, since the
+    # step graph captures NCCL collectives only)
+    python -m dlti_tpu_torch.launcher --num-processes 2 -- \\
+        python -m dlti_tpu_torch.cli.train --device cpu --model llama_tiny \\
+        --sequence 2 --tokenizer byte --dataset-path data/ --max-seq-len 64 \\
+        --max-steps 4 --save-strategy no
+    python -m dlti_tpu_torch.launcher --num-processes 2 -- \\
+        python -m dlti_tpu_torch.cli.train --device cpu --model llama_tiny \\
+        --pipe 2 --data 1 --tokenizer byte --dataset-path data/ --max-seq-len 64 \\
+        --gradient-accumulation-steps 4 --max-steps 4 --save-strategy no
 """
 
 from __future__ import annotations
@@ -186,14 +208,18 @@ def parse_args(argv=None):
     p.add_argument("--num-devices", type=int, default=0,
                    help="DP/FSDP extent; 0 = the launcher's world (1 without it)")
     p.add_argument("--tensor", type=int, default=1, help="tensor-parallel extent")
-    for axis in ("sequence", "pipe"):
-        p.add_argument(f"--{axis}", type=int, default=1,
-                       help=f"{axis}-parallel extent (not ported: only 1)")
+    p.add_argument("--sequence", type=int, default=1,
+                   help="sequence-parallel (ring attention) extent")
+    p.add_argument("--pipe", type=int, default=1,
+                   help="pipeline-parallel stages (GPipe schedule; microbatches = "
+                        "--gradient-accumulation-steps); under --pipe, --data sets the "
+                        "batch-row extent")
     p.add_argument("--expert", type=int, default=1,
                    help="expert-parallel extent: a mixture of experts' experts split "
                         "over this many ranks")
     p.add_argument("--data", type=int, default=None,
-                   help="batch-row extent under --pipe (not ported: only 1)")
+                   help="batch-row (DP) extent under --pipe; default: the preset's "
+                        "own extent. Rejected without --pipe (use --num-devices there)")
     p.add_argument("--offload-optimizer", action="store_true",
                    help="optimizer moments in pinned host memory "
                         "(ds_config_zero3.json:19-23)")
@@ -221,30 +247,52 @@ def load_texts(path: str) -> list:
         return [line.rstrip("\n") for line in f if line.strip()]
 
 
-def build_parallel(args, zero_stage: ZeROStage) -> ParallelConfig:
-    """The reference's flat-path mesh rules (``scripts/train.py``): the
-    batch extent is ``--num-devices`` (0: the process group's world over
-    ``--tensor * --expert``), on ``fsdp`` under ZeRO-3, else on ``data``;
-    ``--tensor`` and ``--expert`` keep their extents. ``build_mesh`` then
-    checks the product against the world. The other model-parallel axes
-    are not ported and raise above 1."""
-    for axis in ("sequence", "pipe"):
-        if getattr(args, axis) != 1:
-            raise SystemExit(f"--{axis} {getattr(args, axis)}: {axis} parallelism is "
-                             f"not ported yet (see ROADMAP.md); only 1 is accepted")
-    if args.data not in (None, 1):
-        raise SystemExit(f"--data {args.data} only applies under --pipe, which is not "
-                         f"ported yet (see ROADMAP.md); use --num-devices")
-    for axis in ("tensor", "expert"):
+def build_parallel(args, preset_parallel: ParallelConfig) -> ParallelConfig:
+    """The reference's mesh rules (``scripts/train.py:300-362``). Under
+    ``--pipe`` the batch-row extent is ``--data`` (default: the preset's own
+    extent), on ``fsdp`` under ZeRO-3, and ``--num-devices``, when given,
+    must equal ``pipe * tensor * sequence * expert * data``. Without it
+    ``--data`` is refused, and the batch extent is ``--num-devices`` (0: the
+    process group's world over ``--tensor * --sequence * --expert``).
+    The model axes keep their extents; ``build_mesh`` then checks the
+    product against the world."""
+    for axis in ("tensor", "sequence", "pipe", "expert"):
         if getattr(args, axis) < 1:
             raise SystemExit(f"--{axis} {getattr(args, axis)}: the extent must be at "
                              "least 1")
+    zero_stage = ZeROStage(preset_parallel.zero_stage)
+    kw = dict(zero_stage=zero_stage, offload_optimizer=args.offload_optimizer,
+              offload_params=args.offload_params, expert=args.expert, tensor=args.tensor,
+              sequence=args.sequence, pipe=args.pipe)
+    model_axes = args.tensor * args.sequence * args.expert
+    if args.pipe > 1:
+        preset_rows = (preset_parallel.fsdp if zero_stage == ZeROStage.ZERO3
+                       else preset_parallel.data)
+        rows = args.data if args.data is not None else max(preset_rows, 1)
+        if rows < 1:
+            raise SystemExit(f"--data {rows} must be >= 1")
+        if zero_stage == ZeROStage.ZERO3 and rows == 1:
+            raise SystemExit(
+                "--preset zero3 with --pipe needs a batch-row extent for the FSDP axis: "
+                "pass --data N or use a zero3_Ndev preset (fsdp=1 would silently "
+                "disable ZeRO-3 param sharding)")
+        mesh_n = args.pipe * model_axes * rows
+        if args.num_devices and args.num_devices != mesh_n:
+            raise SystemExit(
+                f"--num-devices {args.num_devices} conflicts with --pipe {args.pipe} (the "
+                f"pipe mesh uses exactly pipe*tensor*sequence*expert*data = {mesh_n} "
+                "devices; drop --num-devices or fix --data)")
+        if zero_stage == ZeROStage.ZERO3:
+            return ParallelConfig(fsdp=rows, **kw)
+        return ParallelConfig(data=rows, **kw)
+    if args.data is not None:
+        # A mesh flag is never silently dropped.
+        raise SystemExit(f"--data {args.data} only applies under --pipe; without it use "
+                         "--num-devices to set the DP/FSDP extent")
     import torch.distributed as dist
 
     world = dist.get_world_size() if dist.is_available() and dist.is_initialized() else 1
-    n = args.num_devices or max(world // (args.tensor * args.expert), 1)
-    kw = dict(zero_stage=zero_stage, offload_optimizer=args.offload_optimizer,
-              offload_params=args.offload_params, expert=args.expert, tensor=args.tensor)
+    n = args.num_devices or max(world // model_axes, 1)
     if zero_stage == ZeROStage.ZERO3:
         return ParallelConfig(fsdp=n, **kw)
     return ParallelConfig(data=n, **kw)
@@ -252,7 +300,7 @@ def build_parallel(args, zero_stage: ZeROStage) -> ParallelConfig:
 
 def build_config(args):
     cfg = preset(args.preset, model=args.model)
-    par = build_parallel(args, ZeROStage(cfg.parallel.zero_stage))
+    par = build_parallel(args, cfg.parallel)
     model = cfg.model
     if args.fp16:
         # compute and store in float16; the scaler handles overflow
@@ -425,7 +473,17 @@ def main(argv=None) -> None:
                 f"eval dataset yields zero batches: it has fewer rows than one "
                 f"batch ({cfg.train.micro_batch_size}); shrink "
                 f"--per-device-batch-size or grow the eval split")
-    trainer = Trainer(cfg, params, device=args.device)
+    from dlti_tpu_torch.utils.device import resolve_device
+
+    graphs = True
+    if (dist.is_initialized() and dist.get_backend() == "gloo"
+            and resolve_device(args.device).type == "cuda"):
+        graphs = False
+        if writer:
+            print("training eagerly: the train-step graph captures the step's collectives, "
+                  "which needs NCCL, and this group runs gloo (launcher --one-device)",
+                  flush=True)
+    trainer = Trainer(cfg, params, device=args.device, cuda_graphs=graphs)
     del params
     state, record = trainer.train(dataset=dataset, eval_dataset=eval_dataset)
     if writer:

@@ -144,13 +144,14 @@ class OptimizerConfig:
 @dataclass(frozen=True)
 class ParallelConfig:
     """Mesh shape and strategy (the reference's ``ParallelConfig``, every
-    field and default). The port runs the batch axes, ``data`` (DP, ZeRO-1/2)
-    and ``fsdp`` (ZeRO-3), and ``expert`` (a mixture of experts' expert
-    weights split over it), one process per device; ``tensor``,
-    ``sequence`` and ``pipe`` are kept for parity and raise above 1
-    (``parallel.mesh.build_mesh``). ``offload_optimizer`` keeps the
-    optimizer moments, ``offload_params`` the frozen base, in pinned host
-    memory (``configs/ds_config_zero3.json:19-27``)."""
+    field and default). The port runs all six axes, one process per device
+    (``parallel.mesh``): ``data`` (DP, ZeRO-1/2), ``fsdp`` (ZeRO-3),
+    ``tensor``, ``sequence`` (ring attention), ``pipe`` (GPipe stages) and
+    ``expert`` (a mixture of experts' expert weights split over it); the
+    combinations it does not run raise (``parallel.mesh.check_strategy``).
+    ``offload_optimizer`` keeps the optimizer moments, ``offload_params``
+    the frozen base, in pinned host memory
+    (``configs/ds_config_zero3.json:19-27``)."""
 
     zero_stage: ZeROStage = ZeROStage.NONE
     data: int = 1

@@ -139,12 +139,15 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None,
     """Random weights for ``cfg`` at full width, made on ``device`` (the card
     unless named) from ``torch.Generator(device).manual_seed(seed)``.
     ``mesh``: keep this rank's part of each tensor-split leaf, sliced as it
-    is drawn (:func:`shard_params`)."""
-    if mesh is None or not mesh.tensor_parallel:
-        return dict(_draw_params(cfg, seed, device, lora))
+    is drawn (:func:`shard_params`), and under ``pipe`` only this stage's
+    layers, under their local names (``parallel.pipeline.stage_params``;
+    every leaf is still drawn, so every stage draws the same model)."""
     out: Dict[str, torch.Tensor] = {}
-    for name, t in _draw_params(cfg, seed, device, lora):
-        out.update(_place(name, t, tuple(t.shape), mesh.tensor, quantize=False))
+    for name, t in _draw_params(cfg, seed, device, lora, mesh):
+        if mesh is not None and mesh.tensor_parallel:
+            out.update(_place(name, t, tuple(t.shape), mesh.tensor, quantize=False))
+        else:
+            out[name] = t
         del t
     return out
 
@@ -158,7 +161,7 @@ def init_params_int8(cfg: ModelConfig, seed: int = 0, device=None,
     tree and one leaf at full precision at most. ``mesh``: each leaf is
     quantized whole, then this rank keeps its part (:func:`shard_params`)."""
     out: Dict[str, torch.Tensor] = {}
-    for name, t in _draw_params(cfg, seed, device, lora):
+    for name, t in _draw_params(cfg, seed, device, lora, mesh):
         if mesh is not None and mesh.tensor_parallel:
             out.update(_place(name, t, tuple(t.shape), mesh.tensor, quantize=True))
         else:
@@ -264,14 +267,19 @@ def gather_params(params: Mapping[str, torch.Tensor], mesh, cfg: ModelConfig,
             for name, t in params.items()}
 
 
-def _draw_params(cfg: ModelConfig, seed: int, device, lora: Optional[LoRAConfig]
-                 ) -> Iterator[Tuple[str, torch.Tensor]]:
+def _draw_params(cfg: ModelConfig, seed: int, device, lora: Optional[LoRAConfig],
+                 mesh=None) -> Iterator[Tuple[str, torch.Tensor]]:
     """``(name, tensor)`` of every leaf in the state-dict order, drawn from
-    one generator."""
+    one generator; under ``mesh``'s ``pipe`` axis only this stage's, under
+    their local names."""
+    from dlti_tpu_torch.parallel.pipeline import stage_of
+
     device = resolve_device(device)
     gen = torch.Generator(device=device).manual_seed(seed)
     shapes = LlamaForCausalLM(cfg, lora, device="meta").state_dict()
+    pp = mesh.pp if mesh is not None else 1
     for name, meta in shapes.items():
+        local = name if pp == 1 else stage_of(name, mesh.pipe.rank, pp, cfg.num_layers)
         leaf = name.rsplit(".", 1)[-1]
         if leaf == "scale":
             fill = 0.0 if cfg.rmsnorm_offset else 1.0
@@ -291,25 +299,29 @@ def _draw_params(cfg: ModelConfig, seed: int, device, lora: Optional[LoRAConfig]
                 w.uniform_(-bound, bound, generator=gen)
             t = w.to(meta.dtype)
             del w
-        yield name, t
+        if local is not None:
+            yield local, t
         del t  # the caller's reference alone keeps the leaf
 
 
 def load_model(cfg: ModelConfig, params: Mapping[str, torch.Tensor],
                device=None, lora: Optional[LoRAConfig] = None,
-               trainable_lora: bool = False, tensor=None) -> LlamaForCausalLM:
+               trainable_lora: bool = False, tensor=None,
+               stage: Tuple[int, int] = (0, 1)) -> LlamaForCausalLM:
     """A ``LlamaForCausalLM`` on ``device`` whose parameters are ``params``
     (moved there if they are elsewhere; not copied if they are already).
     A weight ``params`` holds quantized (``{name}.q`` and ``{name}.scale``,
     ``models.quantization``) becomes a ``QuantizedWeight`` of the module.
     ``tensor`` (``Mesh.tensor``): ``params`` is a tensor rank's tree
     (:func:`shard_params`), and the module runs at its local widths.
+    ``stage`` ``(k, P)``: ``params`` is pipeline stage ``k``'s tree
+    (``parallel.pipeline.stage_params``), and the module holds its layers.
 
     Every parameter is frozen and the module is in eval mode, unless
     ``trainable_lora``: then the ``lora_a``/``lora_b`` leaves require grad
     (the base stays frozen) and the module is in train mode."""
     device = resolve_device(device)
-    model = LlamaForCausalLM(cfg, lora, device="meta")
+    model = LlamaForCausalLM(cfg, lora, device="meta", stage=stage)
     install_quantized(model, quant_bases(params))
     if tensor is not None:
         for name, p in list(model.named_parameters()):

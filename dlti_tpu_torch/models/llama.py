@@ -27,8 +27,19 @@ rank numbers its dropout rows from ``dropout_row_offset``. With
 its activations. Weights may be int8 (``models.quantization``: the
 embedding, the head and the projection kernels as ``QuantizedWeight``
 pairs), each expanded at its use, as the reference's ``maybe_dequantize``.
-The dense fixed-capacity cache, ring attention and the other remat
-policies are not ported.
+The dense fixed-capacity cache and the other remat policies are not
+ported.
+
+Sequence parallelism (:meth:`LlamaForCausalLM.set_sequence_axis`): the
+model takes a rank's contiguous chunk of every row, at its global
+positions, and every layer's attention runs the ring over the sequence
+group (``parallel.ring_attention``, one ``RingContext`` a forward).
+Pipeline parallelism (``stage=(k, P)``): the module holds stage ``k``'s
+``num_layers / P`` layers as its ``layers.0 ..`` (their dropout keys the
+global layers'), and ``parallel.pipeline`` drives its parts
+(:meth:`LlamaModel.embed`, :meth:`LlamaModel.run_layers`,
+:meth:`LlamaModel.norm`, :meth:`LlamaForCausalLM.logits`) through the
+GPipe schedule.
 
 Tensor parallelism (:meth:`LlamaForCausalLM.set_tensor_axis`, after the
 leaves were split by ``parallel.tensor.tensor_shard_dim``): each rank holds
@@ -71,6 +82,7 @@ from dlti_tpu_torch.ops.paged_attention import paged_decode_attention
 from dlti_tpu_torch.ops.rope import (
     apply_rope, assert_rope_table_covers, rope_frequencies,
 )
+from dlti_tpu_torch.parallel.ring_attention import ring_attention_local
 from dlti_tpu_torch.parallel.tensor import (
     COLUMN_PARALLEL, ROW_PARALLEL, check_divides, copy_in, gather_vocab, vocab_embedding,
 )
@@ -165,6 +177,9 @@ class LlamaAttention(nn.Module):
         # This rank's heads (all of them without tensor parallelism).
         self.num_heads, self.num_kv_heads = cfg.num_heads, cfg.num_kv_heads
         self.tp = None
+        # This layer's index in its model (the ring keeps what it received
+        # under it for the remat recompute).
+        self.layer_index = None
 
     def _effective_window(self, segment_ids) -> Optional[int]:
         """Sliding window combined with the packed-document length bound
@@ -181,12 +196,15 @@ class LlamaAttention(nn.Module):
                 block_tables: Optional[torch.Tensor] = None,
                 hashes: Optional[tuple] = None,
                 paged: Optional[tuple] = None,
-                adapter_rows: Optional[tuple] = None) -> torch.Tensor:
+                adapter_rows: Optional[tuple] = None,
+                ring=None) -> torch.Tensor:
         """``paged``: ``(slots, seq_lens, drop)`` of a paged-cache call, computed
         once per forward by :class:`LlamaModel`; ``hashes``: this layer's
         dropout hashes, ``(row, column)`` by projection (None: no
         dropout); ``adapter_rows``: ``(ids, {projection: (a, b, s)})`` of
-        this layer's adapter pool (None: no per-row adapters)."""
+        this layer's adapter pool (None: no per-row adapters); ``ring``: the
+        forward's ``parallel.ring_attention.RingContext`` under sequence
+        parallelism (the rows are this rank's chunk)."""
         cfg = self.cfg
         b, s, _ = x.shape
         hd = cfg.resolved_head_dim
@@ -218,6 +236,11 @@ class LlamaAttention(nn.Module):
             else:
                 out = paged_window_attention(q, cache, block_tables, positions,
                                              window=cfg.sliding_window)
+        elif ring is not None:
+            # The ring masks by the positions RoPE used; the packed bound is
+            # not a window here (per-document positions never reach it), as
+            # in the reference.
+            out = ring_attention_local(q, k, v, ring=ring, layer=self.layer_index)
         else:
             out = multi_head_attention(q, k, v, causal=True,
                                        segment_ids=segment_ids,
@@ -280,9 +303,9 @@ class LlamaBlock(nn.Module):
 
     def forward(self, x, cos, sin, positions, segment_ids=None, cache=None,
                 block_tables=None, hashes=None, paged=None, adapter_rows=None,
-                token_mask=None, want_aux=False):
+                token_mask=None, want_aux=False, ring=None):
         x = x + self.attn(self.input_norm(x), cos, sin, positions, segment_ids,
-                          cache, block_tables, hashes, paged, adapter_rows)
+                          cache, block_tables, hashes, paged, adapter_rows, ring)
         if self.moe:
             y, aux = self.mlp(self.post_attn_norm(x), token_mask, want_aux)
             return (x + y, aux) if want_aux else x + y
@@ -290,10 +313,13 @@ class LlamaBlock(nn.Module):
 
 
 class LlamaModel(nn.Module):
-    """Transformer body: embeddings, blocks, final norm."""
+    """Transformer body: embeddings, blocks, final norm. ``stage`` ``(k, P)``:
+    a pipeline stage's body, holding layers ``k * L/P .. (k+1) * L/P - 1``
+    of ``cfg.num_layers`` as its ``layers.0 ..`` (``parallel.pipeline``
+    runs it)."""
 
     def __init__(self, cfg: ModelConfig, lora: Optional[LoRAConfig] = None,
-                 device=None):
+                 device=None, stage: Tuple[int, int] = (0, 1)):
         super().__init__()
         if cfg.remat and cfg.remat_policy not in REMAT_POLICIES:
             raise NotImplementedError(
@@ -303,8 +329,19 @@ class LlamaModel(nn.Module):
         self.embed_tokens = nn.Parameter(torch.empty(
             cfg.vocab_size, cfg.hidden_size, dtype=resolve_dtype(cfg.param_dtype),
             device=device), requires_grad=False)
+        index, count = stage
+        if cfg.num_layers % count:
+            raise ValueError(f"num_layers={cfg.num_layers} must divide into "
+                             f"pipe={count} stages")
+        per_stage = cfg.num_layers // count
+        # The global index of this module's first layer (dropout keys), and
+        # the number of pipeline stages the layers are split into.
+        self.layer_offset = index * per_stage
+        self.num_stages = count
         self.layers = nn.ModuleList(LlamaBlock(cfg, lora, device)
-                                    for _ in range(cfg.num_layers))
+                                    for _ in range(per_stage))
+        for i, layer in enumerate(self.layers):
+            layer.attn.layer_index = i
         self.final_norm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps,
                                   cfg.rmsnorm_offset, device)
         # RoPE tables by (length, device); computed, not learned.
@@ -314,6 +351,8 @@ class LlamaModel(nn.Module):
         self.fetcher = None
         # The tensor group's mesh view under tensor parallelism.
         self.tp = None
+        # The sequence group's mesh view under sequence parallelism.
+        self.sp = None
 
     def _rope_tables(self, table_len: int, device) -> tuple:
         key = (table_len, device)
@@ -323,23 +362,11 @@ class LlamaModel(nn.Module):
                                                device=device)
         return self._rope[key]
 
-    def forward(self, input_ids: torch.Tensor,
-                positions: Optional[torch.Tensor] = None,
-                segment_ids: Optional[torch.Tensor] = None,
-                cache: Optional[List[dict]] = None,
-                block_tables: Optional[torch.Tensor] = None,
-                dropout_seed=None, dropout_row_offset: int = 0,
-                adapter_ids: Optional[torch.Tensor] = None,
-                adapters: Optional[list] = None,
-                token_mask: Optional[torch.Tensor] = None,
-                return_aux: bool = False):
-        """The final norm's output ``(b, s, h)``; with ``return_aux`` (a
-        mixture of experts) the pair of it and the sum of the layers'
-        load-balance losses. ``token_mask`` (default: ``segment_ids != 0``
-        for packed rows) keeps padding out of the experts' routing."""
+    def embed(self, input_ids: torch.Tensor) -> torch.Tensor:
+        """The embedding of ``input_ids`` in the compute dtype (fetched,
+        vocabulary-split or int8 as the module holds it)."""
         cfg = self.cfg
         dtype = resolve_dtype(cfg.dtype)
-        b, s = input_ids.shape
         fetcher = self.fetcher
         if self.tp is not None:
             emb = self.embed_tokens
@@ -360,13 +387,102 @@ class LlamaModel(nn.Module):
         if cfg.embedding_scale:  # Gemma: scaled by sqrt(hidden) in the compute dtype
             # A CPU scalar: no host-to-device copy, which a CUDA graph refuses.
             x = x * torch.tensor(cfg.hidden_size ** 0.5, dtype=dtype)
+        return x
+
+    def layer_hashes(self, dropout_seed, rows: int, device, row_offset: int = 0,
+                     row_ids: Optional[torch.Tensor] = None) -> Optional[tuple]:
+        """This module's layers' dropout hashes under ``dropout_seed`` (None:
+        no dropout): every (layer, projection)'s row and column hashes at
+        once, keyed by the global layer index, for ``rows`` rows numbered
+        from ``row_offset`` (or by ``row_ids``)."""
+        if dropout_seed is None:
+            return None
+        cfg = self.cfg
+        cols = max(cfg.hidden_size, cfg.num_heads * cfg.resolved_head_dim,
+                   cfg.intermediate_size)
+        keys = dropout_keys(dropout_seed, cfg.num_layers, device)
+        keys = keys[self.layer_offset:self.layer_offset + len(self.layers)]
+        return dropout_hashes(keys, rows, cols, row_offset=row_offset, row_ids=row_ids)
+
+    def run_layers(self, x, cos, sin, positions, segment_ids=None, hashes=None,
+                   token_mask=None, want_aux: bool = False):
+        """The blocks of the no-cache (training) path: ``(x, [aux])``, each
+        block under ``torch.utils.checkpoint`` when ``cfg.remat`` (every
+        ``remat_stride``-th keeping its activations), its leaves fetched
+        when the model has a fetcher; under sequence parallelism the
+        attention runs the ring over ``positions``."""
+        cfg = self.cfg
+        fetcher = self.fetcher
+        ring = None
+        if self.sp is not None:
+            from dlti_tpu_torch.parallel.ring_attention import RingContext
+
+            ring = RingContext(self.sp, positions, segment_ids, causal=True,
+                               window=cfg.sliding_window)
+        remat = cfg.remat and torch.is_grad_enabled()
+        n = len(self.layers)
+        # Selective remat: every remat_stride-th block keeps its
+        # activations instead of recomputing them in the backward.
+        recomputed = [i for i in range(n)
+                      if remat and not (cfg.remat_stride > 1 and i % cfg.remat_stride == 0)]
+        if fetcher is not None:
+            fetcher.begin(recomputed)
+        auxes = []
+        for i, layer in enumerate(self.layers):
+            layer_hashes = None if hashes is None else (hashes[0][i], hashes[1][i])
+            run = layer if fetcher is None else functools.partial(fetcher.run_block, i, layer)
+            args = (x, cos, sin, positions, segment_ids, None, None, layer_hashes, None,
+                    None, token_mask, want_aux, ring)
+            if i in recomputed:
+                # The block's (x, aux) outputs are what the backward differentiates;
+                # the recompute rebuilds the block's insides only, so its aux
+                # is counted once.
+                out = checkpoint(run, *args, use_reentrant=False, preserve_rng_state=False)
+            else:
+                out = run(*args)
+            if want_aux:
+                x, aux = out
+                auxes.append(aux)
+            else:
+                x = out
+        return x, auxes
+
+    def norm(self, x: torch.Tensor) -> torch.Tensor:
+        """The final norm (its scale fetched when the model fetches it)."""
+        fetcher = self.fetcher
+        if fetcher is not None and fetcher.fetches("model.final_norm.scale"):
+            return torch.func.functional_call(
+                self.final_norm, {"scale": fetcher.leaf("model.final_norm.scale")}, (x,))
+        return self.final_norm(x)
+
+    def forward(self, input_ids: torch.Tensor,
+                positions: Optional[torch.Tensor] = None,
+                segment_ids: Optional[torch.Tensor] = None,
+                cache: Optional[List[dict]] = None,
+                block_tables: Optional[torch.Tensor] = None,
+                dropout_seed=None, dropout_row_offset: int = 0,
+                adapter_ids: Optional[torch.Tensor] = None,
+                adapters: Optional[list] = None,
+                token_mask: Optional[torch.Tensor] = None,
+                return_aux: bool = False,
+                dropout_rows: Optional[torch.Tensor] = None):
+        """The final norm's output ``(b, s, h)``; with ``return_aux`` (a
+        mixture of experts) the pair of it and the sum of the layers'
+        load-balance losses. ``token_mask`` (default: ``segment_ids != 0``
+        for packed rows) keeps padding out of the experts' routing.
+        ``dropout_rows``: each token's global row number for the dropout
+        masks, in place of ``dropout_row_offset``."""
+        cfg = self.cfg
+        b, s = input_ids.shape
+        x = self.embed(input_ids)
         if positions is None:
             positions = torch.arange(s, device=x.device)[None, :].expand(b, s)
 
         paged = None
         if cache is None:
-            # Cover the whole sequence even past the preset's design length.
-            table_len = max(cfg.max_seq_len, s)
+            # Cover the whole sequence even past the preset's design length
+            # (under sequence parallelism the positions are global).
+            table_len = max(cfg.max_seq_len, s * (self.sp.world if self.sp else 1))
             assert_rope_table_covers(table_len, s, "no-cache path")
         else:
             if block_tables is None:
@@ -386,51 +502,34 @@ class LlamaModel(nn.Module):
                      (positions[:, 0] + 1).to(torch.int32), drop)
         cos, sin = self._rope_tables(table_len, x.device)
 
-        hashes = None
-        if dropout_seed is not None:
-            # Every (layer, projection)'s row and column hashes at once: a
-            # mask then costs three elementwise ops.
-            cols = max(cfg.hidden_size, cfg.num_heads * cfg.resolved_head_dim,
-                       cfg.intermediate_size)
-            hashes = dropout_hashes(dropout_keys(dropout_seed, cfg.num_layers, x.device),
-                                    b * s, cols, row_offset=dropout_row_offset)
+        # Every (layer, projection)'s row and column hashes at once: a mask
+        # then costs three elementwise ops.
+        hashes = self.layer_hashes(dropout_seed, b * s, x.device, dropout_row_offset,
+                                   dropout_rows)
         want_aux = return_aux and cfg.num_experts > 0
         if token_mask is None and segment_ids is not None and cfg.num_experts > 0:
             token_mask = (segment_ids != 0).to(torch.int32)  # packed: 0 = pad
-        auxes = []
-        remat = cfg.remat and cache is None and torch.is_grad_enabled()
-        # Selective remat: every remat_stride-th block keeps its
-        # activations instead of recomputing them in the backward.
-        recomputed = [i for i in range(cfg.num_layers)
-                      if remat and not (cfg.remat_stride > 1 and i % cfg.remat_stride == 0)]
-        if fetcher is not None:
-            fetcher.begin(recomputed)
-        for i, layer in enumerate(self.layers):
-            layer_hashes = None if hashes is None else (hashes[0][i], hashes[1][i])
-            run = layer if fetcher is None else functools.partial(fetcher.run_block, i, layer)
-            if i in recomputed:
-                # The block's (x, aux) outputs are what the backward differentiates;
-                # the recompute rebuilds the block's insides only, so its aux
-                # is counted once.
-                out = checkpoint(run, x, cos, sin, positions, segment_ids, None,
-                                 None, layer_hashes, None, None, token_mask, want_aux,
-                                 use_reentrant=False, preserve_rng_state=False)
-            else:
-                out = run(x, cos, sin, positions, segment_ids,
-                          cache[i] if cache is not None else None, block_tables,
-                          layer_hashes, paged,
-                          None if adapters is None else (adapter_ids, adapters[i]),
-                          token_mask, want_aux)
-            if want_aux:
-                x, aux = out
-                auxes.append(aux)
-            else:
-                x = out
-        if fetcher is not None and fetcher.fetches("model.final_norm.scale"):
-            x = torch.func.functional_call(
-                self.final_norm, {"scale": fetcher.leaf("model.final_norm.scale")}, (x,))
+        if cache is None:
+            x, auxes = self.run_layers(x, cos, sin, positions, segment_ids, hashes,
+                                       token_mask, want_aux)
         else:
-            x = self.final_norm(x)
+            auxes = []
+            if self.fetcher is not None:
+                self.fetcher.begin([])
+            for i, layer in enumerate(self.layers):
+                layer_hashes = None if hashes is None else (hashes[0][i], hashes[1][i])
+                run = (layer if self.fetcher is None
+                       else functools.partial(self.fetcher.run_block, i, layer))
+                out = run(x, cos, sin, positions, segment_ids, cache[i], block_tables,
+                            layer_hashes, paged,
+                            None if adapters is None else (adapter_ids, adapters[i]),
+                            token_mask, want_aux)
+                if want_aux:
+                    x, aux = out
+                    auxes.append(aux)
+                else:
+                    x = out
+        x = self.norm(x)
         if return_aux:
             return x, (collect_aux_loss(auxes) if auxes
                        else torch.zeros((), dtype=torch.float32, device=x.device))
@@ -454,10 +553,10 @@ class LlamaForCausalLM(nn.Module):
     """
 
     def __init__(self, cfg: ModelConfig, lora: Optional[LoRAConfig] = None,
-                 device=None):
+                 device=None, stage: Tuple[int, int] = (0, 1)):
         super().__init__()
         self.cfg = cfg
-        self.model = LlamaModel(cfg, lora, device)
+        self.model = LlamaModel(cfg, lora, device, stage)
         if not cfg.tie_embeddings:
             self.lm_head = nn.Parameter(torch.empty(
                 cfg.hidden_size, cfg.vocab_size,
@@ -468,19 +567,15 @@ class LlamaForCausalLM(nn.Module):
                 block_tables=None, dropout_seed=None, dropout_row_offset: int = 0,
                 return_hidden: bool = False, adapter_ids=None,
                 adapters: Optional[list] = None, token_mask=None,
-                return_aux: bool = False):
+                return_aux: bool = False, dropout_rows=None):
         if (adapters is None) != (adapter_ids is None):
             raise ValueError("adapter_ids and adapters go together")
         out = self.model(input_ids, positions, segment_ids, cache, block_tables,
                          dropout_seed, dropout_row_offset, adapter_ids, adapters,
-                         token_mask, return_aux)
+                         token_mask, return_aux, dropout_rows)
         x, aux = out if return_aux else (out, None)
         if not return_hidden:
-            tp = self.model.tp
-            if tp is None:
-                x = lm_head_logits(x, self.head_matrix())
-            else:  # this rank's vocabulary columns, then every rank's
-                x = gather_vocab(lm_head_logits(copy_in(x, tp), self.head_matrix()), tp)
+            x = self.logits(x)
         return (x, aux) if return_aux else x
 
     def set_tensor_axis(self, axis) -> None:
@@ -500,6 +595,25 @@ class LlamaForCausalLM(nn.Module):
                 leaf = name.rpartition(".")[2]
                 mod.tp_mode = ("column" if leaf in COLUMN_PARALLEL
                                else "row" if leaf in ROW_PARALLEL else None)
+
+    def set_sequence_axis(self, axis) -> None:
+        """Take this rank's chunk of every row and run attention as the ring
+        over the sequence group (``axis``: ``Mesh.sequence``)."""
+        if self.cfg.num_experts > 0:
+            raise NotImplementedError(
+                "sequence parallelism with a mixture of experts (capacity and the "
+                "aux loss over the global token order) is not ported yet (see "
+                "ROADMAP.md)")
+        self.model.sp = axis
+
+    def logits(self, x: torch.Tensor) -> torch.Tensor:
+        """Float32 logits of the final hidden state ``x`` (every rank's
+        vocabulary columns under tensor parallelism)."""
+        tp = self.model.tp
+        if tp is None:
+            return lm_head_logits(x, self.head_matrix())
+        # this rank's vocabulary columns, then every rank's
+        return gather_vocab(lm_head_logits(copy_in(x, tp), self.head_matrix()), tp)
 
     def head_matrix(self) -> torch.Tensor:
         """The (hidden, vocab) matrix the forward multiplies the final

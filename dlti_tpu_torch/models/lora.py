@@ -158,7 +158,7 @@ def dropout(x: torch.Tensor, rate: float, row_hash: torch.Tensor,
 
 
 def dropout_hashes(keys: torch.Tensor, rows: int, cols: int,
-                   row_offset: int = 0) -> tuple:
+                   row_offset: int = 0, row_ids: Optional[torch.Tensor] = None) -> tuple:
     """For each of ``keys`` (int64 tensor of 32-bit keys, any shape ``K``):
     a 32-bit hash of (key, row) for rows ``row_offset`` ..
     ``row_offset + rows - 1`` and of (key, column) for ``cols`` columns, as
@@ -167,9 +167,12 @@ def dropout_hashes(keys: torch.Tensor, rows: int, cols: int,
     elementwise ops on its full shape. Rows are numbered across the whole
     microbatch: a data-parallel rank holding a slice of it passes the
     slice's first global row, so every rank draws the masks a single device
-    draws for the same rows."""
+    draws for the same rows. ``row_ids`` (``(rows,)`` int64 on the keys'
+    device) numbers the rows instead, when a rank's rows are not one run of
+    the microbatch's (a sequence rank's chunk of every row)."""
     k = keys[..., None]
-    rows_i = torch.arange(row_offset, row_offset + rows, device=keys.device)
+    rows_i = (torch.arange(row_offset, row_offset + rows, device=keys.device)
+              if row_ids is None else row_ids)
     r = mix32(mix32(rows_i ^ k) ^ 0x5BD1E995)
     c = mix32(torch.arange(cols, device=keys.device) ^ mix32(k ^ 0x27D4EB2F))
     # [0, 2**32) -> int32 exactly, by moving the range down 2**31.

@@ -1,34 +1,40 @@
-"""The mesh: the port of ``dlti_tpu/parallel/mesh.py`` for the batch axes,
-the tensor axis and the expert axis.
+"""The mesh: the port of ``dlti_tpu/parallel/mesh.py``, all six axes.
 
-The reference's mesh has six axes. The port runs four, one process per
-device: the two that carry the batch, ``data`` (replicated data
+The reference's mesh has six axes, and the port runs them all, one process
+per device: the two that carry the batch, ``data`` (replicated data
 parallelism and ZeRO-1/2) and ``fsdp`` (ZeRO-3's parameter sharding),
 ``tensor`` (attention heads, MLP hidden units and the vocabulary split over
-it, Megatron-style: ``parallel.tensor``) and ``expert`` (a mixture of
-experts' stacked expert weights split over it). ``tensor`` and ``expert``
-are not batch axes: the ranks of one tensor or expert group see the same
-rows. Their product is the world of the ``torch.distributed`` process
-group, which ``launcher.maybe_initialize_from_env`` joins. Ranks are laid
-out as the reference's axis order (data, fsdp, tensor, ..., expert) puts
-devices: rank ``r`` is expert rank ``r % expert``, tensor rank ``(r //
-expert) % tensor`` and batch rank ``r // (tensor * expert)``. With
-``tensor`` or ``expert`` above 1, :func:`build_mesh` forms a process
-subgroup per axis and rank of the others (``torch.distributed.new_group``);
-the whole world stays the group of everything else. A tensor group of one
-can be asked for (``build_mesh(..., tensor_group=True)``): the model then
-takes the tensor-parallel path at extent 1, its collectives issued on a
-group of one, as ZeRO's run at a world of 1. :func:`build_mesh` checks the
-strategy against the world with the reference trainer's legality rules
-(``dlti_tpu/training/trainer.py:104-117``) and raises for what the port
-cannot run: ``sequence`` or ``pipe`` above 1, ``data`` and ``fsdp`` both
-above 1, ``fsdp`` with ``expert`` above 1, and ``tensor`` above 1 with
-ZeRO-3, ``expert`` or host offload.
+it, Megatron-style: ``parallel.tensor``), ``sequence`` (each rank holds a
+contiguous chunk of every row's tokens; attention runs the ring,
+``parallel.ring_attention``), ``pipe`` (each rank holds ``num_layers /
+pipe`` consecutive layers, GPipe's stages: ``parallel.pipeline``) and
+``expert`` (a mixture of experts' stacked expert weights split over it).
+Only the batch axes split the rows: the ranks of one tensor, sequence, pipe
+or expert group see the same rows. The product of the extents is the world
+of the ``torch.distributed`` process group, which
+``launcher.maybe_initialize_from_env`` joins. Ranks are laid out in the
+reference's axis order (data, fsdp, tensor, sequence, pipe, expert), the
+last axis varying fastest: rank ``r`` is expert rank ``r % expert``, pipe
+rank ``(r // expert) % pipe``, sequence rank ``(r // (expert * pipe)) %
+sequence``, tensor rank ``(r // (expert * pipe * sequence)) % tensor`` and
+batch rank ``r // (expert * pipe * sequence * tensor)``. With an axis above
+1, :func:`build_mesh` forms a process subgroup per axis and rank of the
+others (``torch.distributed.new_group``), the batch axes' too; the whole
+world stays the group of everything else. A tensor group of one can be
+asked for (``build_mesh(..., tensor_group=True)``): the model then takes
+the tensor-parallel path at extent 1, its collectives issued on a group of
+one, as ZeRO's run at a world of 1. :func:`build_mesh` checks the strategy
+against the world with the reference trainer's legality rules
+(``dlti_tpu/training/trainer.py:73-169``) and raises for what the port
+cannot run: ``data`` and ``fsdp`` both above 1, ``fsdp`` with ``expert``
+above 1, ``tensor`` above 1 with ZeRO-3, ``expert`` or host offload, and
+``sequence`` or ``pipe`` above 1 with ZeRO-3, host offload, ``expert``
+(sequence only) or each other.
 
 The entry points own the process group: the launcher's env, or
 ``launcher.init_group_of_one`` for a ZeRO strategy run without it.
-:func:`build_mesh` only reads the group, and a ZeRO strategy in a process
-without one raises. The baseline without a group is
+:func:`build_mesh` only reads the group, and a strategy that needs one in
+a process without one raises. The baseline without a group is
 :func:`single_device_mesh`: one device and no collectives. On the card the
 group runs NCCL; gloo there (every rank on one card,
 ``launcher --one-device``) is admitted only when the launcher asked for it.
@@ -47,6 +53,8 @@ from dlti_tpu_torch.config import ParallelConfig, ZeROStage
 from dlti_tpu_torch.launcher import one_device
 
 MESH_AXES = ("data", "fsdp", "tensor", "sequence", "pipe", "expert")
+# The model axes in rank order after the batch axes, the last fastest.
+_MODEL_AXES = ("tensor", "sequence", "pipe", "expert")
 
 
 @dataclass(frozen=True)
@@ -54,12 +62,13 @@ class Mesh:
     """One rank's view of the world: the strategy (with its extents), the
     world size, this process's rank and device, and the process group
     (None: one process and no collectives, the baseline's single-device
-    path). With ``tensor`` or ``expert`` above 1, ``batch_group``,
-    ``tensor_group`` and ``expert_group`` are this rank's subgroups of the
-    axes (:attr:`batch`, :attr:`tensor`, :attr:`experts`); ``tensor_group``
-    may also be a group of one (the tensor-parallel path at extent 1).
-    ``control_group``: the tensor group again over gloo, for the host
-    messages a tensor-parallel engine sends its followers."""
+    path). With a model axis above 1, ``batch_group``, ``tensor_group``,
+    ``sequence_group``, ``pipe_group`` and ``expert_group`` are this rank's
+    subgroups of the axes (:attr:`batch`, :attr:`tensor`, :attr:`sequence`,
+    :attr:`pipe`, :attr:`experts`); ``tensor_group`` may also be a group of
+    one (the tensor-parallel path at extent 1). ``control_group``: the
+    tensor group again over gloo, for the host messages a tensor-parallel
+    engine sends its followers."""
 
     parallel: ParallelConfig
     world: int
@@ -70,6 +79,8 @@ class Mesh:
     expert_group: Optional["dist.ProcessGroup"] = None
     tensor_group: Optional["dist.ProcessGroup"] = None
     control_group: Optional["dist.ProcessGroup"] = None
+    sequence_group: Optional["dist.ProcessGroup"] = None
+    pipe_group: Optional["dist.ProcessGroup"] = None
 
     @property
     def ep(self) -> int:
@@ -82,6 +93,16 @@ class Mesh:
         return self.parallel.tensor
 
     @property
+    def sp(self) -> int:
+        """The sequence axis's extent."""
+        return self.parallel.sequence
+
+    @property
+    def pp(self) -> int:
+        """The pipe axis's extent (the number of stages)."""
+        return self.parallel.pipe
+
+    @property
     def tensor_parallel(self) -> bool:
         """Whether the model takes the tensor-parallel path (a tensor group
         exists, of any size)."""
@@ -89,19 +110,31 @@ class Mesh:
 
     def _view(self, **kw) -> "Mesh":
         return dataclasses.replace(self, batch_group=None, expert_group=None,
-                                   tensor_group=None, control_group=None, **kw)
+                                   tensor_group=None, control_group=None,
+                                   sequence_group=None, pipe_group=None, **kw)
+
+    def _axis_rank(self, axis: str) -> int:
+        """This rank's coordinate on model axis ``axis``."""
+        stride = 1
+        for a in reversed(_MODEL_AXES):
+            n = getattr(self.parallel, a)
+            if a == axis:
+                return (self.rank // stride) % n
+            stride *= n
+        raise KeyError(axis)
 
     @property
     def batch(self) -> "Mesh":
         """This rank's view of the batch axes alone: the ranks that hold its
-        tensor and expert ranks, which split the batch rows, reduce
-        gradients and shard ZeRO-1/2 moments (the whole mesh when ``tensor``
-        and ``expert`` are 1). For collectives only: its rank 0 is not the
+        tensor, sequence, pipe and expert ranks, which split the batch rows,
+        reduce gradients and shard ZeRO-1/2 moments (the whole mesh when
+        every model axis is 1). For collectives only: its rank 0 is not the
         writer."""
-        inner = self.ep * self.tp
+        inner = self.ep * self.tp * self.sp * self.pp
         if inner == 1:
             return self
-        return self._view(parallel=dataclasses.replace(self.parallel, expert=1, tensor=1),
+        return self._view(parallel=dataclasses.replace(self.parallel, expert=1, tensor=1,
+                                                       sequence=1, pipe=1),
                           world=self.world // inner, rank=self.rank // inner,
                           group=self.batch_group)
 
@@ -120,7 +153,25 @@ class Mesh:
         of 1, with a group when the tensor path runs at extent 1). For
         collectives only."""
         return self._view(parallel=ParallelConfig(), world=self.tp,
-                          rank=(self.rank // self.ep) % self.tp, group=self.tensor_group)
+                          rank=self._axis_rank("tensor"), group=self.tensor_group)
+
+    @property
+    def sequence(self) -> "Mesh":
+        """This rank's view of the sequence axis: the ranks of its batch rank
+        over which each row's tokens are split, in order (a world of 1 when
+        ``sequence`` is 1). For collectives only."""
+        return self._view(parallel=ParallelConfig(), world=self.sp,
+                          rank=self._axis_rank("sequence"),
+                          group=self.sequence_group if self.sp > 1 else None)
+
+    @property
+    def pipe(self) -> "Mesh":
+        """This rank's view of the pipe axis: the stages of its batch rank,
+        rank ``k`` holding layers ``k * L/P .. (k+1) * L/P - 1`` (a world of 1
+        when ``pipe`` is 1). For collectives only."""
+        return self._view(parallel=ParallelConfig(), world=self.pp,
+                          rank=self._axis_rank("pipe"),
+                          group=self.pipe_group if self.pp > 1 else None)
 
     @property
     def zero_stage(self) -> ZeROStage:
@@ -139,9 +190,8 @@ class Mesh:
 
 def fit_parallel_to_devices(cfg: ParallelConfig, n_devices: int) -> ParallelConfig:
     """Shrink the batch axes (``data``/``fsdp``) of a mesh config to fit
-    ``n_devices``: the model-parallel axes (``expert`` among them) keep
-    their extent while the batch extent absorbs the loss. A no-op when the
-    config already fits."""
+    ``n_devices``: the model-parallel axes keep their extent while the
+    batch extent absorbs the loss. A no-op when the config already fits."""
     if cfg.num_devices <= n_devices:
         return cfg
     fixed = cfg.tensor * cfg.sequence * cfg.pipe * cfg.expert
@@ -163,27 +213,47 @@ def fit_parallel_to_devices(cfg: ParallelConfig, n_devices: int) -> ParallelConf
 def check_strategy(par: ParallelConfig, lora_enabled: bool = True) -> None:
     """Raise for a strategy that is illegal (the reference's rules) or that
     the port does not run."""
-    unported = [f"{axis}={getattr(par, axis)}" for axis in ("sequence", "pipe")
-                if getattr(par, axis) > 1]
-    if unported:
-        raise NotImplementedError(
-            f"{', '.join(unported)}: sequence and pipeline parallelism "
-            "are not ported yet (see ROADMAP.md)")
+    for axis in MESH_AXES:
+        if getattr(par, axis) < 1:
+            raise ValueError(f"{axis}={getattr(par, axis)}: an extent must be at least 1")
+    zero3 = par.fsdp > 1 or int(par.zero_stage) == 3
+    offload = par.offload_optimizer or par.offload_params
+    for axis in ("sequence", "pipe"):
+        n = getattr(par, axis)
+        if n == 1:
+            continue
+        refused = []
+        if zero3:
+            refused.append(f"zero_stage={int(par.zero_stage)}, fsdp={par.fsdp} "
+                           f"({axis} x ZeRO-3)")
+        if offload:
+            refused.append(f"host offload ({axis} x offload)")
+        if axis == "sequence" and par.pipe > 1:
+            refused.append(f"pipe={par.pipe} (pipe x sequence: all-gather sequence "
+                           "parallelism inside the stages)")
+        if axis == "sequence" and par.expert > 1:
+            refused.append(f"expert={par.expert} (sequence x expert: routing over the "
+                           "global token order)")
+        if refused:
+            raise NotImplementedError(
+                f"{axis}={n} with {'; '.join(refused)}: not ported yet (see "
+                f"ROADMAP.md); {axis} parallelism runs with data, tensor"
+                f"{' and expert' if axis == 'pipe' else ''} (baseline, ZeRO-1, ZeRO-2)")
     if par.tensor > 1:
         with_tensor = []
-        if par.fsdp > 1 or int(par.zero_stage) == 3:
+        if zero3:
             with_tensor.append(f"zero_stage={int(par.zero_stage)}, fsdp={par.fsdp} "
                                "(tensor x ZeRO-3)")
         if par.expert > 1:
             with_tensor.append(f"expert={par.expert} (tensor x expert)")
-        if par.offload_optimizer or par.offload_params:
+        if offload:
             with_tensor.append("host offload (tensor x offload)")
         if with_tensor:
             raise NotImplementedError(
                 f"tensor={par.tensor} with {'; '.join(with_tensor)}: not ported yet "
                 "(see ROADMAP.md); tensor parallelism runs alone or with data "
                 "(baseline, ZeRO-1, ZeRO-2)")
-    if par.expert > 1 and (par.fsdp > 1 or int(par.zero_stage) == 3):
+    if par.expert > 1 and zero3:
         # Whatever the fsdp extent: ZeRO-3 shards over the whole world,
         # expert ranks included, which would split the experts twice.
         raise NotImplementedError(
@@ -207,35 +277,55 @@ def single_device_mesh(device) -> Mesh:
     return Mesh(parallel=ParallelConfig(), world=1, rank=0, device=torch.device(device))
 
 
+def _axis_members(par: ParallelConfig, world: int, axis: str) -> list:
+    """Every group of ranks that share all coordinates but ``axis``'s
+    (``"batch"``: the batch axes together), in one order."""
+    extents = [world // max(1, par.tensor * par.sequence * par.pipe * par.expert)]
+    extents += [getattr(par, a) for a in _MODEL_AXES]
+    names = ("batch",) + _MODEL_AXES
+    k = names.index(axis)
+    groups = {}
+    for r in range(world):
+        coords, rest = [], r
+        for n in reversed(extents):
+            coords.append(rest % n)
+            rest //= n
+        coords.reverse()
+        key = tuple(c for i, c in enumerate(coords) if i != k)
+        groups.setdefault(key, []).append(r)
+    return [groups[key] for key in sorted(groups)]
+
+
 def build_mesh(par: ParallelConfig, device: torch.device,
                lora_enabled: bool = True, tensor_group: bool = False) -> Mesh:
     """This rank's :class:`Mesh` for ``par`` on ``device``, in the process
-    group the entry point formed (every rank must call it together when
-    ``tensor`` or ``expert`` is above 1: it forms the subgroups).
-    ``tensor_group``: form the tensor groups at ``tensor`` 1 too (groups of
-    one), so the model takes the tensor-parallel path. Raises when the
-    strategy is illegal or unported (:func:`check_strategy`), when a ZeRO
-    strategy, the tensor or the expert axis finds no group, or when ``data
-    * fsdp * tensor * expert`` differs from the group's world (1 without a
-    group)."""
+    group the entry point formed (every rank must call it together when a
+    model axis is above 1: it forms the subgroups). ``tensor_group``: form
+    the tensor groups at ``tensor`` 1 too (groups of one), so the model
+    takes the tensor-parallel path. Raises when the strategy is illegal or
+    unported (:func:`check_strategy`), when a ZeRO strategy or a model axis
+    finds no group, or when the product of the extents differs from the
+    group's world (1 without a group)."""
     check_strategy(par, lora_enabled)
     initialized = dist.is_available() and dist.is_initialized()
     stage = ZeROStage(par.zero_stage)
     tensor_group = tensor_group or par.tensor > 1
-    if not initialized and (stage != ZeROStage.NONE or par.expert > 1 or tensor_group):
+    model_axes = [f"{a}={getattr(par, a)}" for a in ("expert", "sequence", "pipe")
+                  if getattr(par, a) > 1]
+    if not initialized and (stage != ZeROStage.NONE or model_axes or tensor_group):
         what = (f"zero{int(stage)}" if stage != ZeROStage.NONE
-                else f"expert={par.expert}" if par.expert > 1 else f"tensor={par.tensor}")
+                else model_axes[0] if model_axes else f"tensor={par.tensor}")
         raise ValueError(
             f"{what} runs its collectives in a process group and this "
             "process has none: start it with python -m dlti_tpu_torch.launcher, or "
             "form a group of one first (dlti_tpu_torch.launcher.init_group_of_one)")
     world = dist.get_world_size() if initialized else 1
     rank = dist.get_rank() if initialized else 0
-    need = par.dp_like_size * par.tensor * par.expert
+    need = par.num_devices
     if need != world:
         raise ValueError(
-            f"data*fsdp*tensor*expert = {need} but the process group has {world} "
-            f"rank(s); launch {need} processes with python -m "
+            f"data*fsdp*tensor*sequence*pipe*expert = {need} but the process group has "
+            f"{world} rank(s); launch {need} processes with python -m "
             "dlti_tpu_torch.launcher --num-processes N, or set the extent to the "
             "world (cli.train --num-devices)")
     if initialized:
@@ -247,22 +337,16 @@ def build_mesh(par: ParallelConfig, device: torch.device,
                              f"{device}; the port runs {want} there (gloo on the "
                              "card only under launcher --one-device)")
     groups = {}
-    ep, tp = par.expert, par.tensor
-    inner = ep * tp
+    inner = par.tensor * par.sequence * par.pipe * par.expert
     # Every rank forms every subgroup, in one order: the ranks that share
     # all coordinates but the axis's.
-    axes = []
-    if ep > 1:
-        axes.append(("expert", [[b * inner + t * ep + x for x in range(ep)]
-                                for b in range(world // inner) for t in range(tp)]))
+    axes = [a for a in ("expert", "sequence", "pipe") if getattr(par, a) > 1]
     if tensor_group:
-        axes.append(("tensor", [[b * inner + t * ep + x for t in range(tp)]
-                                for b in range(world // inner) for x in range(ep)]))
+        axes.append("tensor")
     if inner > 1:
-        axes.append(("batch", [[b * inner + t * ep + x for b in range(world // inner)]
-                               for t in range(tp) for x in range(ep)]))
-    for axis, members in axes:
-        for ranks in members:
+        axes.append("batch")
+    for axis in axes:
+        for ranks in _axis_members(par, world, axis):
             g = dist.new_group(ranks)
             if axis == "tensor":
                 # The host messages of a tensor-parallel engine, over gloo
@@ -275,4 +359,5 @@ def build_mesh(par: ParallelConfig, device: torch.device,
     return Mesh(parallel=par, world=world, rank=rank, device=device,
                 group=dist.group.WORLD if initialized else None,
                 batch_group=groups.get("batch"), expert_group=groups.get("expert"),
-                tensor_group=groups.get("tensor"), control_group=groups.get("control"))
+                tensor_group=groups.get("tensor"), control_group=groups.get("control"),
+                sequence_group=groups.get("sequence"), pipe_group=groups.get("pipe"))

@@ -64,6 +64,17 @@ load-balance loss the global microbatch's: it all-gathers each batch rank's
 per-(slot, expert) counts and sums the loss's statistics
 (:class:`BatchSum`, all-reduce forward and backward). ZeRO-3 with
 ``expert`` above 1 raises (``parallel.mesh.check_strategy``).
+
+Sequence parallelism (``sequence`` above 1): every rank holds every leaf;
+:func:`shard_model` puts the model on the ring (its chunk of each row), and
+the step sums each gradient over the sequence group before the batch axes'
+reduction. Pipeline parallelism (``pipe`` above 1): a stage holds its
+layers' leaves (``LeafPlacement.stage``, the local names ``model.layers.0
+..`` standing for its global layers) and every stage the embedding, the
+final norm and the head; a stage's layer leaf gets its whole gradient on
+its stage, a leaf every stage holds the same gradient on every stage
+(``parallel.pipeline``), so gradients are reduced over the batch axes
+alone, and the norm sums a layer leaf's squares over the pipe group.
 """
 
 from __future__ import annotations
@@ -238,7 +249,8 @@ class LeafPlacement:
     (stored as this rank's experts along it, the expert axis), ``shape``
     (the whole leaf's), ``host`` (kept in pinned host memory: an offloaded
     frozen leaf), ``tensor_dim`` (stored as this rank's part along it, the
-    tensor axis)."""
+    tensor axis), ``stage`` (a layer leaf of this pipeline stage, which the
+    other stages do not hold: ``shape`` is one layer's)."""
 
     shape: Tuple[int, ...]
     trainable: bool
@@ -247,6 +259,7 @@ class LeafPlacement:
     host: bool = False
     expert_dim: Optional[int] = None
     tensor_dim: Optional[int] = None
+    stage: bool = False
 
 
 @dataclass
@@ -306,7 +319,8 @@ def plan_layout(model: nn.Module, mesh: Mesh, lora_enabled: bool) -> Layout:
             shape=shape, trainable=trainable,
             param_dim=param_shard_dim(shape, mesh),
             opt_dim=opt_shard_dim(shape, mesh) if trainable and whole else None,
-            host=offload and not trainable, expert_dim=ep_dim, tensor_dim=tp_dim)
+            host=offload and not trainable, expert_dim=ep_dim, tensor_dim=tp_dim,
+            stage=mesh.pp > 1 and name.startswith("model.layers."))
     return layout
 
 
@@ -351,6 +365,8 @@ def shard_model(model: nn.Module, mesh: Mesh, lora_enabled: bool) -> Layout:
         del old
     if fetched:
         model.model.fetcher = ParamFetcher(model, layout)
+    if mesh.sp > 1:
+        model.set_sequence_axis(mesh.sequence)
     if mesh.distributed and (mesh.batch.world > 1 or mesh.ep > 1):
         for name, mod in model.named_modules():
             if isinstance(mod, MoEMLP):
@@ -528,6 +544,12 @@ def sharded_sq_norm(grads: Mapping[str, torch.Tensor], layout: Layout) -> torch.
         if parts:
             summed = all_reduce_(torch.stack([sq[n] for n in parts]), getattr(mesh, name))
             sq.update(zip(parts, summed.unbind()))
+    # A stage's layer leaves: the same local name is another layer on each
+    # stage, so its squares are summed over the pipe group.
+    staged = [n for n in grads if leaves[n].stage]
+    if staged:
+        summed = all_reduce_(torch.stack([sq[n] for n in staged]), mesh.pipe)
+        sq.update(zip(staged, summed.unbind()))
     return sum(sq[n] for n in grads)
 
 

@@ -27,11 +27,18 @@ inserts in the reference (``dlti_tpu/parallel/sharding.py:40-56``,
   leaf a rank holds whole then gets the same gradient on every rank, with
   no all-reduce of its own.
 
+:func:`permute_` (and :class:`Permute`, its autograd pair) is the
+counterpart of ``jax.lax.ppermute``: the neighbour exchange that moves a
+ring's key/value chunks (``parallel.ring_attention``) and a pipeline's
+activations and their gradients (``parallel.pipeline``); :func:`gather_dim`
+assembles a tensor split along any dim.
+
 The collectives run whenever the mesh has a tensor group, a group of one
 included (``build_mesh(..., tensor_group=True)``), as ZeRO's run at a
 world of 1, on the current stream: a CUDA graph over NCCL captures them.
-Every one is an all-reduce, which gloo carries for CUDA tensors too (two
-ranks on one card, ``launcher --one-device``).
+Every one is an all-reduce, or for the permute a broadcast, which gloo
+carries for CUDA tensors too (two ranks on one card, ``launcher
+--one-device``).
 """
 
 from __future__ import annotations
@@ -193,6 +200,78 @@ class _GatherVocab(torch.autograd.Function):
 
 def gather_vocab(t: torch.Tensor, mesh) -> torch.Tensor:
     return _GatherVocab.apply(t, mesh)
+
+
+def permute_(t: torch.Tensor, shift: int, mesh,
+             senders: Optional[Sequence[bool]] = None) -> torch.Tensor:
+    """``jax.lax.ppermute`` with the pairs ``(i, (i + shift) % world)`` over
+    ``mesh``'s group, outside autograd: rank ``i``'s ``t`` goes to rank ``i +
+    shift``, and this rank gets what rank ``rank - shift`` sent (a new
+    tensor). Each rank broadcasts its tensor in turn and keeps its source's:
+    a broadcast, which gloo carries for CUDA tensors and a CUDA graph
+    captures over NCCL, as an all-reduce; at a world of 2 each rank sends
+    its tensor once. ``senders`` (by rank, the same on every rank): the
+    ranks whose tensor is needed; the others send nothing and their
+    destinations get zeros."""
+    w = mesh.world
+    if shift % w == 0:  # every rank its own
+        return t.clone()
+    t = t.contiguous()
+    src = (mesh.rank - shift) % w
+    out = torch.empty_like(t) if senders is None or senders[src] else torch.zeros_like(t)
+    for r in range(w):
+        if senders is not None and not senders[r]:
+            continue
+        buf = t if r == mesh.rank else (out if r == src else torch.empty_like(t))
+        dist.broadcast(buf, src=dist.get_global_rank(mesh.group, r), group=mesh.group)
+    return out
+
+
+class Permute(torch.autograd.Function):
+    """:func:`permute_` in autograd: the forward sends each rank's tensor
+    ``shift`` ranks on, the backward sends each gradient back the other way
+    (``ppermute``'s transpose)."""
+
+    @staticmethod
+    def forward(ctx, t, shift, mesh):
+        ctx.shift, ctx.mesh = shift, mesh
+        return permute_(t, shift, mesh)
+
+    @staticmethod
+    def backward(ctx, g):
+        return permute_(g.contiguous(), -ctx.shift, ctx.mesh), None, None
+
+
+def permute(t: torch.Tensor, shift: int, mesh) -> torch.Tensor:
+    return Permute.apply(t, shift, mesh)
+
+
+class _GatherDim(torch.autograd.Function):
+    """Every rank's block of dim ``d``, concatenated in rank order (the
+    zero-padded all-reduce of :class:`_GatherVocab` on any dim); backward,
+    this rank's block of the gradient."""
+
+    @staticmethod
+    def forward(ctx, t, d, mesh):
+        n = t.shape[d]
+        ctx.d, ctx.n, ctx.mesh = d, n, mesh
+        shape = list(t.shape)
+        shape[d] = n * mesh.world
+        out = t.new_zeros(shape)
+        out.narrow(d, mesh.rank * n, n).copy_(t)
+        return all_reduce_(out, mesh)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.narrow(ctx.d, ctx.mesh.rank * ctx.n, ctx.n), None, None
+
+
+def gather_dim(t: torch.Tensor, d: int, mesh) -> torch.Tensor:
+    """The whole tensor of which ``t`` is this rank's contiguous block along
+    ``d`` (differentiable; ``t`` itself at a world of 1)."""
+    if mesh.world == 1:
+        return t
+    return _GatherDim.apply(t, d, mesh)
 
 
 def check_divides(cfg, tp: int) -> None:

@@ -37,12 +37,27 @@ every rank joins; rank 0 keeps it), anything else the live tensor. So a
 checkpoint of any strategy and world is the baseline's, and
 :func:`load_state_leaves` takes each rank's shard of the whole leaves it is
 given, so it restores under any other.
+
+Under pipeline parallelism (``pipe`` above 1) a stage's model holds its
+layers as ``model.layers.0 ..`` and the state is named as the reference's
+pipeline state (``dlti_tpu/parallel/pipeline.py:44-76``,
+``to_pipeline_state``): every layer leaf stacked over the layers,
+``.params['layers']['attn']['q_proj']['kernel']`` of shape ``(num_layers,
+...)`` and ``.opt_state[1][0].mu[('layers', 'attn', 'q_proj',
+'lora_a')]``, beside ``.params['embed_tokens']``,
+``.params['final_norm']['scale']`` and ``.params['lm_head']``.
+:func:`state_leaves` gathers each stacked leaf whole from the stages (rank 0
+keeps it) and :func:`load_state_leaves` takes the stage's layers of it, so a
+pipe checkpoint restores under any other stage count and in the JAX
+package's pipeline trainer.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
 from typing import Dict, List, Mapping, Optional, Sequence, Tuple
+
+import re
 
 import torch
 from torch import nn
@@ -132,6 +147,29 @@ def params_key(name: str) -> str:
     return ".params" + "".join(f"[{k!r}]" for k in jax_path(name))
 
 
+_LAYER = re.compile(r"model\.layers\.(\d+)\.(.*)")
+
+
+def stacked_path(name: str) -> Tuple[str, ...]:
+    """A parameter's key path in the reference's pipeline params tree
+    (``to_pipeline_params``): a layer leaf ``model.layers.{i}.attn...`` is
+    ``('layers', 'attn', ...)`` (every layer's in one stacked leaf), the
+    others lose their ``model`` level."""
+    m = _LAYER.fullmatch(name)
+    if m:
+        return ("layers",) + tuple(m.group(2).split("."))
+    return tuple(name.removeprefix("model.").split("."))
+
+
+def _leaf_path(layout: Layout, name: str) -> Tuple[str, ...]:
+    """``name``'s key path in the state's params tree (stacked under pipe)."""
+    return stacked_path(name) if layout.mesh.pp > 1 else jax_path(name)
+
+
+def _key(path: Tuple[str, ...]) -> str:
+    return ".params" + "".join(f"[{k!r}]" for k in path)
+
+
 def frozen_param_keys(state: TrainState) -> List[str]:
     """The leaf names of the parameters no step changes (the base under
     LoRA; none in a full fine-tune)."""
@@ -150,9 +188,16 @@ def whole_params(state: TrainState) -> Dict[str, torch.Tensor]:
     out = {}
     for n, p in state.model.named_parameters():
         t = gather_whole(p.detach(), *state._param_axis(n))
-        if mesh.is_writer:
+        m = _LAYER.fullmatch(n)
+        if state.layout.leaves[n].stage:
+            # The same layer of every stage: layer i of stage k is k*K + i.
+            per_stage = len(state.model.model.layers)
+            every = gather_whole(t.to(mesh.device)[None], 0, mesh.pipe)
+            for k in range(mesh.pp):
+                out[f"model.layers.{k * per_stage + int(m.group(1))}.{m.group(2)}"] = every[k]
+        else:
             out[n] = t
-    return out
+    return out if mesh.is_writer else {}
 
 
 def state_leaves(state: TrainState, whole: bool = True) -> List[Tuple[str, torch.Tensor]]:
@@ -175,20 +220,45 @@ def state_leaves(state: TrainState, whole: bool = True) -> List[Tuple[str, torch
                 return g
         return torch.empty(shape, dtype=t.dtype, device="meta")
 
-    params = sorted(state.model.named_parameters(), key=lambda kv: jax_path(kv[0]))
-    moments = sorted(state.opt_state.mu, key=jax_path)
+    def stacked(ts: List[torch.Tensor], axes: List[tuple], shape) -> torch.Tensor:
+        """A stage's layers of one leaf, each whole, stacked, then every
+        stage's concatenated (rank 0 keeps it)."""
+        shape = (len(ts) * mesh.pp,) + tuple(shape)
+        if not whole:
+            return torch.empty(shape, dtype=ts[0].dtype, device="meta")
+        local = torch.stack([gather_whole(t, *a).to(mesh.device) for t, a in zip(ts, axes)])
+        g = gather_whole(local, 0, mesh.pipe)
+        return g if mesh.is_writer else torch.empty(shape, dtype=g.dtype, device="meta")
+
+    def leaves_of(named: Dict[str, torch.Tensor], axis) -> List[tuple]:
+        """``[(key path, tensor)]`` sorted by path, a stage's layer leaves
+        grouped into one stacked leaf."""
+        groups: Dict[tuple, List[str]] = {}
+        for n in named:
+            groups.setdefault(_leaf_path(layout, n), []).append(n)
+        items = []
+        for path in sorted(groups):
+            names = sorted(groups[path], key=lambda n: int(_LAYER.fullmatch(n).group(1))
+                           if layout.leaves[n].stage else 0)
+            if layout.leaves[names[0]].stage:
+                t = stacked([named[n] for n in names], [axis(n) for n in names],
+                            layout.leaves[names[0]].shape)
+            else:
+                t = out(named[names[0]], axis(names[0]), layout.leaves[names[0]].shape)
+            items.append((path, t))
+        return items
+
+    params = dict(state.model.named_parameters())
     count = state.opt_state.count
     scaler = ([(f".scaler[{k!r}]", state.scaler[k]) for k in SCALER_KEYS]
               if state.scaler is not None else [])
-    mom = {n: (state._moment_axis(n), layout.leaves[n].shape) for n in moments}
+    mu = leaves_of(state.opt_state.mu, state._moment_axis)
+    nu = leaves_of(state.opt_state.nu, state._moment_axis)
     return ([(".step", torch.tensor(state.step, dtype=torch.int32))]
-            + [(params_key(n), out(p, state._param_axis(n), layout.leaves[n].shape))
-               for n, p in params]
+            + [(_key(path), t) for path, t in leaves_of(params, state._param_axis)]
             + [(f"{_ADAM}.count", count)]
-            + [(f"{_ADAM}.mu[{jax_path(n)!r}]", out(state.opt_state.mu[n], *mom[n]))
-               for n in moments]
-            + [(f"{_ADAM}.nu[{jax_path(n)!r}]", out(state.opt_state.nu[n], *mom[n]))
-               for n in moments]
+            + [(f"{_ADAM}.mu[{path!r}]", t) for path, t in mu]
+            + [(f"{_ADAM}.nu[{path!r}]", t) for path, t in nu]
             + [(_SCHEDULE_COUNT, count)]
             + scaler)
 
@@ -212,13 +282,22 @@ def load_state_leaves(state: TrainState,
     if adam_count != schedule_count:
         raise ValueError(f"Adam's count {adam_count} and the schedule's count "
                          f"{schedule_count} disagree")
+    offset = state.model.model.layer_offset
+
+    def mine(t: torch.Tensor, n: str) -> torch.Tensor:
+        """This stage's layer of a stacked leaf (the leaf itself elsewhere)."""
+        if state.layout.leaves[n].stage:
+            return t[offset + int(_LAYER.fullmatch(n).group(1))]
+        return t
+
     for n, p in state.model.named_parameters():
-        p.copy_(shard_of(got[params_key(n)], *state._param_axis(n)))
+        p.copy_(shard_of(mine(got[_key(_leaf_path(state.layout, n))], n),
+                         *state._param_axis(n)))
     opt = state.opt_state
     for n in state.trainable():
-        axis = state._moment_axis(n)
-        opt.mu[n].copy_(shard_of(got[f"{_ADAM}.mu[{jax_path(n)!r}]"], *axis))
-        opt.nu[n].copy_(shard_of(got[f"{_ADAM}.nu[{jax_path(n)!r}]"], *axis))
+        axis, path = state._moment_axis(n), _leaf_path(state.layout, n)
+        opt.mu[n].copy_(shard_of(mine(got[f"{_ADAM}.mu[{path!r}]"], n), *axis))
+        opt.nu[n].copy_(shard_of(mine(got[f"{_ADAM}.nu[{path!r}]"], n), *axis))
     opt.count.fill_(adam_count)
     for k in SCALER_KEYS if state.scaler is not None else ():
         state.scaler[k].copy_(got[f".scaler[{k!r}]"])

@@ -50,6 +50,18 @@ reference's sharded step sums its float16 partial products: a sum past
 float16's range overflows on every rank as on one device, so the scaler
 skips the steps a single device skips. The collectives run synchronously on the current stream, inside
 the CUDA graph on the card.
+
+Sequence parallelism (the model on the ring, ``parallel.ring_attention``):
+every rank of a sequence group holds the same whole rows and runs its
+contiguous chunk of their tokens, at their global positions, against the
+targets of the whole rows shifted left (a chunk's last token is labelled
+with the next chunk's first), dropout rows numbered by global token
+(:func:`_sequence_loss`); loss sums, token counts and gradients are summed
+over the sequence group, then the batch axes as above. ``loss_chunk``
+with it raises the reference's ``ValueError``. Pipeline parallelism (a
+stage's model, ``parallel.pipeline``) takes
+``parallel.pipeline.make_pipeline_train_step`` instead: the same metrics
+and update over a GPipe schedule of the ``accum`` microbatches.
 """
 
 from __future__ import annotations
@@ -185,6 +197,45 @@ def step_seed(seed: int, step):
     return mix32(fold_seed(seed) ^ (step & MASK32))
 
 
+def _sequence_loss(model, batch: dict, dropout_seed, rank: int) -> tuple:
+    """(sum of token losses, token count) of a sequence rank's chunk of the
+    whole rows ``batch`` (this batch rank's ``(rows, seq)``): the chunk's
+    tokens at their global positions, against the whole rows' shifted
+    targets and mask (the last position has no target), LoRA dropout rows
+    numbered by global token."""
+    sp = model.model.sp
+    ids = batch["input_ids"]
+    rows, seq = ids.shape
+    if seq % sp.world:
+        raise ValueError(f"ring attention: seq len {seq} not divisible by sequence "
+                         f"axis size {sp.world}")
+    chunk = seq // sp.world
+    lo = sp.rank * chunk
+    dev = ids.device
+    positions = batch.get("positions")
+    if positions is None:
+        positions = torch.arange(seq, device=dev)[None, :].expand(rows, seq)
+    segments = batch.get("segment_ids")
+    loss_mask = batch.get("loss_mask")
+    targets = F.pad(ids[:, 1:].long(), (0, 1))
+    mask = (torch.ones((rows, seq - 1), dtype=torch.float32, device=dev) if loss_mask is None
+            else loss_mask[:, 1:].float())
+    mask = F.pad(mask, (0, 1))
+    dropout_rows = None
+    if dropout_seed is not None:
+        row = rank * rows + torch.arange(rows, device=dev)
+        dropout_rows = (row[:, None] * seq + lo
+                        + torch.arange(chunk, device=dev)[None, :]).reshape(-1)
+    part = slice(lo, lo + chunk)
+    logits = model(ids[:, part], positions=positions[:, part],
+                   segment_ids=None if segments is None else segments[:, part],
+                   dropout_seed=dropout_seed, dropout_rows=dropout_rows)
+    token_loss = F.cross_entropy(logits.float().reshape(-1, logits.shape[-1]),
+                                 targets[:, part].reshape(-1), reduction="none")
+    m = mask[:, part]
+    return (token_loss.reshape(m.shape) * m).sum(), m.sum()
+
+
 def _loss(model, batch: dict, dropout_seed, loss_chunk: int, rank: int = 0,
           moe_aux: bool = False) -> tuple:
     """(sum of token losses, token count) of one ``(rows, seq)`` batch, rank
@@ -192,6 +243,8 @@ def _loss(model, batch: dict, dropout_seed, loss_chunk: int, rank: int = 0,
     ``rank * rows * seq``); with ``moe_aux`` a third entry, the sum of the
     layers' load-balance losses, the batch's padding kept out of the
     routing by its ``loss_mask`` when the rows are not packed."""
+    if model.model.sp is not None:
+        return _sequence_loss(model, batch, dropout_seed, rank)
     ids = batch["input_ids"]
     kw = dict(positions=batch.get("positions"), segment_ids=batch.get("segment_ids"),
               dropout_seed=dropout_seed, dropout_row_offset=rank * ids.numel())
@@ -204,6 +257,15 @@ def _loss(model, batch: dict, dropout_seed, loss_chunk: int, rank: int = 0,
         return chunked_causal_lm_loss(hidden, model.head_matrix(), ids,
                                       batch.get("loss_mask"), loss_chunk)
     return causal_lm_loss(model(ids, **kw), ids, batch.get("loss_mask"))
+
+
+def check_loss_chunk(model, loss_chunk: int) -> None:
+    """The reference's refusal of ``loss_chunk`` under sequence parallelism."""
+    if loss_chunk and model.model.sp is not None:
+        raise ValueError(
+            "train.loss_chunk does not compose with sequence parallelism (the chunk "
+            "reshape would regather the 'sequence'-sharded activations); set "
+            "loss_chunk=0")
 
 
 def make_device_step(model, *, accum_steps: int = 1, loss_chunk: int = 0,
@@ -223,8 +285,16 @@ def make_device_step(model, *, accum_steps: int = 1, loss_chunk: int = 0,
     :func:`apply_loss_scaler`. Under data parallelism (``state.layout``)
     ``batch`` is this rank's rows; see the module docstring. A mixture of
     experts adds ``aux_loss`` to the metrics."""
+    if model.model.num_stages > 1:
+        from dlti_tpu_torch.parallel.pipeline import make_pipeline_train_step
+
+        return make_pipeline_train_step(model, accum_steps=accum_steps, loss_chunk=loss_chunk,
+                                        fp16_scale_window=fp16_scale_window,
+                                        fp16_min_scale=fp16_min_scale,
+                                        fp16_hysteresis=fp16_hysteresis)
     cfg = model.cfg
     moe_coef = cfg.router_aux_loss_coef if cfg.num_experts > 0 else 0.0
+    check_loss_chunk(model, loss_chunk)
     if loss_chunk and cfg.num_experts > 0:
         raise ValueError("loss_chunk does not compose with MoE aux-loss collection; "
                          "set train.loss_chunk=0 for MoE models")
@@ -252,6 +322,7 @@ def make_device_step(model, *, accum_steps: int = 1, loss_chunk: int = 0,
         # them, so an overflow of the whole batch's sum is seen everywhere.
         half_sums = dp and scaler is not None
         compute = resolve_dtype(state.model.cfg.dtype)
+        seq_axis = layout.mesh.sequence if layout.mesh.sp > 1 else None
         for a in range(accum_steps):
             micro = {k: v[a] for k, v in batch.items()}
             seed = None if step_seed is None else mix32(step_seed ^ mix32(a + 0x3C6EF372))
@@ -268,35 +339,70 @@ def make_device_step(model, *, accum_steps: int = 1, loss_chunk: int = 0,
                 objective = objective * scaler["scale"]
             for n, acc, g in zip(names, grads, torch.autograd.grad(objective, leaves)):
                 g = g.float()
-                acc += reduce_in_dtype(g, n, layout, compute) if half_sums else g
+                if half_sums:
+                    if seq_axis is not None:
+                        g = all_reduce_(g, seq_axis)
+                    g = reduce_in_dtype(g, n, layout, compute)
+                acc += g
             loss_sum += ls.detach()
             n_tok += nt
+        if seq_axis is not None:  # every sequence rank's tokens of the rows
+            totals = all_reduce_(torch.stack([loss_sum, n_tok]), seq_axis)
+            loss_sum, n_tok = totals[0], totals[1]
+            if not half_sums:
+                sum_grads_(grads, seq_axis)
         if dp:  # the global sums, then each gradient's part this rank owns
             totals = all_reduce_(torch.stack([loss_sum, n_tok, aux_sum]), batch_axis)
             loss_sum, n_tok, aux_sum = totals[0], totals[1], totals[2]
             grads = [owned_grad(g, n, layout, summed=half_sums)
                      for n, g in zip(names, grads)]
-        # Token-mean loss over the whole step (HF Trainer's semantics under
-        # grad accumulation); the gradients also lose the fp16 loss scale.
-        n_tok = torch.clamp(n_tok, min=1.0)
-        denom = n_tok if scaler is None else n_tok * scaler["scale"]
-        grads = {n: g / denom for n, g in zip(names, grads)}
-        loss = loss_sum / n_tok
-        grad_norm = torch.sqrt(sharded_sq_norm(grads, layout))
-        if scaler is None:
-            finite, extra = guard_nonfinite_update(grad_norm, loss)
-        else:
-            finite, extra = apply_loss_scaler(
-                scaler, grad_norm, scale_window=fp16_scale_window,
-                min_scale=fp16_min_scale, hysteresis=fp16_hysteresis)
-        state.tx.update(grads, state.opt_state, trainable, apply=finite, layout=layout,
-                        norm=grad_norm)
-        metrics = {"loss": loss, "grad_norm": grad_norm, "num_tokens": n_tok, **extra}
-        if cfg.num_experts > 0:
-            metrics["aux_loss"] = aux_sum / n_tok
-        return metrics
+        return finish_step(state, names, grads, loss_sum, n_tok, aux_sum, moe=cfg.num_experts > 0,
+                           fp16_scale_window=fp16_scale_window, fp16_min_scale=fp16_min_scale,
+                           fp16_hysteresis=fp16_hysteresis)
 
     return device_step
+
+
+def sum_grads_(grads: List[torch.Tensor], axis) -> None:
+    """Sum same-shaped gradients over ``axis``'s group in place, as one
+    all-reduce of their concatenation."""
+    if not grads:
+        return
+    flat = all_reduce_(torch.cat([g.reshape(-1) for g in grads]), axis)
+    for g, part in zip(grads, flat.split([g.numel() for g in grads])):
+        g.copy_(part.view_as(g))
+
+
+def finish_step(state: TrainState, names: List[str], grads: List[torch.Tensor],
+                loss_sum: torch.Tensor, n_tok: torch.Tensor, aux_sum: torch.Tensor, *,
+                moe: bool, fp16_scale_window: int, fp16_min_scale: float,
+                fp16_hysteresis: int) -> dict:
+    """The end of a step from the global loss sum, token count and owned
+    gradients (sums of the token losses' gradients, times the fp16 scale):
+    the token mean, the norm, the nonfinite gate or the fp16 scaler, the
+    optimizer's update, and the metrics."""
+    layout = state.layout
+    trainable = state.trainable()
+    scaler = state.scaler
+    # Token-mean loss over the whole step (HF Trainer's semantics under
+    # grad accumulation); the gradients also lose the fp16 loss scale.
+    n_tok = torch.clamp(n_tok, min=1.0)
+    denom = n_tok if scaler is None else n_tok * scaler["scale"]
+    grads = {n: g / denom for n, g in zip(names, grads)}
+    loss = loss_sum / n_tok
+    grad_norm = torch.sqrt(sharded_sq_norm(grads, layout))
+    if scaler is None:
+        finite, extra = guard_nonfinite_update(grad_norm, loss)
+    else:
+        finite, extra = apply_loss_scaler(
+            scaler, grad_norm, scale_window=fp16_scale_window,
+            min_scale=fp16_min_scale, hysteresis=fp16_hysteresis)
+    state.tx.update(grads, state.opt_state, trainable, apply=finite, layout=layout,
+                    norm=grad_norm)
+    metrics = {"loss": loss, "grad_norm": grad_norm, "num_tokens": n_tok, **extra}
+    if moe:
+        metrics["aux_loss"] = aux_sum / n_tok
+    return metrics
 
 
 def make_train_step(model, *, accum_steps: int = 1, loss_chunk: int = 0,
@@ -322,10 +428,19 @@ def make_eval_step(model, loss_chunk: int = 0) -> Callable:
     fit must not run out of memory at its first eval). Under data
     parallelism ``batch`` is this rank's rows and the sums are all-reduced."""
 
+    if model.model.num_stages > 1:
+        from dlti_tpu_torch.parallel.pipeline import make_pipeline_eval_step
+
+        return make_pipeline_eval_step(model, loss_chunk)
+    check_loss_chunk(model, loss_chunk)
+
     @torch.no_grad()
     def eval_step(state: TrainState, batch: Dict[str, torch.Tensor]) -> dict:
         loss_sum, n_tok = _loss(state.model, batch, None, loss_chunk)
         mesh = state.layout.mesh
+        if mesh.sp > 1:
+            totals = all_reduce_(torch.stack([loss_sum, n_tok.float()]), mesh.sequence)
+            loss_sum, n_tok = totals[0], totals[1]
         if mesh.distributed:
             totals = all_reduce_(torch.stack([loss_sum, n_tok.float()]), mesh.batch)
             loss_sum, n_tok = totals[0], totals[1]

@@ -96,10 +96,21 @@ vocabulary (``parallel.tensor``'s rule, cut by ``models.interop``'s
 same rows, and a checkpoint or an export gathers the parts into whole
 leaves on rank 0.
 
+Under ``cfg.parallel.sequence`` above 1 each rank of a sequence group
+runs its chunk of every row's tokens, attention over the ring, and the
+group's ranks take the same rows (``training.step``). Under
+``cfg.parallel.pipe`` above 1 each rank builds its stage's layers only
+(``parallel.pipeline.stage_params``, or drawn so), ``grad_accum_steps`` is
+the number of microbatches of the GPipe schedule (fewer than ``4 * pipe``
+logs the reference's bubble warning), evals run the whole eval batch through
+the stages as one microbatch, and a checkpoint holds the reference's stacked
+layout, gathered whole on rank 0 (``training.state``).
+
 Runs on ``cuda`` unless given ``device="cpu"``; without a card and without a
 device it raises. Not ported (each raises or is absent, see ROADMAP.md):
-SP/PP, a mixed data x fsdp mesh, fsdp x expert, tensor with ZeRO-3, expert or
-offload, the reference's other telemetry
+sequence or pipe with ZeRO-3 or offload, pipe x sequence, sequence with a
+mixture of experts, a mixed data x fsdp mesh, fsdp x expert, tensor with
+ZeRO-3, expert or offload, the reference's other telemetry
 (tracer, goodput and memory ledgers, watchdog), the sentinel's rollback and
 data quarantine, chaos and elastic training.
 """
@@ -126,6 +137,7 @@ from dlti_tpu_torch.models.interop import (
     init_params, init_params_int8, load_model, shard_params)
 from dlti_tpu_torch.models.quantization import quantize_params_int8
 from dlti_tpu_torch.parallel.mesh import build_mesh
+from dlti_tpu_torch.parallel.pipeline import stage_params
 from dlti_tpu_torch.parallel.sharding import all_reduce_, shard_model
 from dlti_tpu_torch.training.optimizer import build_optimizer
 from dlti_tpu_torch.training.state import (
@@ -207,6 +219,29 @@ class TrainRecord:
         return self.windows / self.steps if self.steps else 0.0
 
 
+def check_model_axes(cfg: Config) -> None:
+    """The reference's refusals for the sequence and pipe axes that need the
+    model or the train config (``dlti_tpu/training/trainer.py:73-169``,
+    ``dlti_tpu/parallel/sharding.py:392-396``); the mesh's own rules are
+    ``parallel.mesh.check_strategy``'s."""
+    par = cfg.parallel
+    if par.sequence > 1 and cfg.train.loss_chunk:
+        raise ValueError(
+            "train.loss_chunk does not compose with sequence parallelism (the chunk "
+            "reshape would regather the 'sequence'-sharded activations); set "
+            "loss_chunk=0")
+    if par.sequence > 1 and cfg.model.num_experts > 0:
+        raise NotImplementedError(
+            f"sequence={par.sequence} with a mixture of experts (capacity and the aux "
+            "loss over the global token order) is not ported yet (see ROADMAP.md)")
+    if par.pipe > 1:
+        if cfg.train.grad_accum_steps < 1:
+            raise ValueError("grad_accum_steps must be >= 1 under pipe")
+        if cfg.model.num_layers % par.pipe:
+            raise ValueError(f"num_layers={cfg.model.num_layers} must divide into "
+                             f"pipe={par.pipe} stages")
+
+
 class Trainer:
     def __init__(self, cfg: Config, params: Optional[Mapping[str, torch.Tensor]] = None,
                  device=None, *, cuda_graphs: bool = True, mesh=None):
@@ -223,6 +258,7 @@ class Trainer:
                                  "the frozen base params, and a full fine-tune has none")
         if cfg.checkpoint.save_strategy not in ("steps", "epoch", "no"):
             raise ValueError(f"unknown save_strategy {cfg.checkpoint.save_strategy!r}")
+        check_model_axes(cfg)
         self.cfg = cfg
         self.device = resolve_device(device)
         self.mesh = mesh or build_mesh(cfg.parallel, self.device, cfg.lora.enabled)
@@ -255,6 +291,11 @@ class Trainer:
         cfg, mesh = self.cfg, self.mesh
         lora = cfg.lora if cfg.lora.enabled else None
         params = self.params
+        if params is not None and mesh.pp > 1:
+            # This stage's layers under their local names; init_params(mesh=)
+            # keeps them as it draws.
+            params = stage_params(dict(params), mesh.pipe.rank, mesh.pp,
+                                  cfg.model.num_layers)
         # Under a tensor group each leaf is cut to this rank's part as it is
         # drawn or placed, an int8 weight quantized whole first.
         if params is None and cfg.train.quantize_frozen_base:
@@ -272,7 +313,8 @@ class Trainer:
             # Leaf by leaf on the device.
             params = quantize_params_int8(dict(params), device=self.device, donate=True)
         model = load_model(cfg.model, params, self.device, lora=lora, trainable_lora=True,
-                           tensor=mesh.tensor if mesh.tensor_parallel else None)
+                           tensor=mesh.tensor if mesh.tensor_parallel else None,
+                           stage=(mesh.pipe.rank, mesh.pp))
         del params
         layout = shard_model(model, self.mesh, cfg.lora.enabled)
         if self.params is not None and (cfg.parallel.offload_params or self.mesh.world > 1):
@@ -287,7 +329,10 @@ class Trainer:
 
     @property
     def strategy(self) -> str:
-        """The reference's strategy label."""
+        """The reference's strategy label (``pipe{P}`` under pipeline
+        parallelism)."""
+        if self.cfg.parallel.pipe > 1:
+            return f"pipe{self.cfg.parallel.pipe}"
         stage = ZeROStage(self.cfg.parallel.zero_stage)
         return "baseline" if stage == ZeROStage.NONE else f"zero{int(stage)}"
 
@@ -309,6 +354,12 @@ class Trainer:
         cfg, ck = self.cfg, self.cfg.checkpoint
         state = state or self.init_state()
         sync_k = max(1, int(cfg.train.steps_per_sync))
+        accum, pipe = cfg.train.grad_accum_steps, cfg.parallel.pipe
+        if pipe > 1 and accum < 4 * pipe:
+            self._warning("GPipe bubble: grad_accum_steps=%d microbatches over pipe=%d "
+                          "stages idles %.0f%% of ticks; use >= %d microbatches for >80%% "
+                          "utilization", accum, pipe, 100 * (pipe - 1) / (accum + pipe - 1),
+                          4 * pipe)
         dropout = cfg.lora.enabled and cfg.lora.dropout > 0
         window = StepWindow(state.model, accum_steps=cfg.train.grad_accum_steps,
                             loss_chunk=cfg.train.loss_chunk,
@@ -320,14 +371,16 @@ class Trainer:
         eval_fn = (make_eval_step(state.model, loss_chunk=cfg.train.loss_chunk)
                    if eval_dataset is not None and cfg.train.eval_steps else None)
         if self.mesh.batch.world != self.mesh.world:
-            # A tensor or expert group's ranks take the same rows: slice by
-            # the batch axes.
+            # A tensor, sequence, pipe or expert group's ranks take the same
+            # rows: slice by the batch axes.
             for ds in (dataset, eval_dataset):
                 if isinstance(ds, HostShardedSchedule):
                     ds.shard_rows(self.mesh.batch.rank, self.mesh.batch.world)
-        leaves = state.layout.leaves.values()  # whole leaves, whatever this rank holds
-        total = sum(int(np.prod(pl.shape)) for pl in leaves)
-        trainable = sum(int(np.prod(pl.shape)) for pl in leaves if pl.trainable)
+        # Whole leaves, whatever this rank holds (a stage's layer leaves stand
+        # for every stage's).
+        leaves = [(pl, self.mesh.pp if pl.stage else 1) for pl in state.layout.leaves.values()]
+        total = sum(int(np.prod(pl.shape)) * n for pl, n in leaves)
+        trainable = sum(int(np.prod(pl.shape)) * n for pl, n in leaves if pl.trainable)
         self._trainable = trainable
         self._info("trainable params: %s / %s (%.4f%%) | %s over %d rank(s)",
                    f"{trainable:,}", f"{total:,}", 100 * trainable / total,

@@ -18,7 +18,9 @@ across loads, a row load that never syncs the host); then Mixtral's routed
 experts at full width on an int8 base (the graphed step equal to the eager
 one with K1-K3 at GQA 32/8, each layer's expanded experts freed inside the
 step's graph, the decode graph equal to eager decode with K4 once a layer,
-a decode window that never syncs the host).
+a decode window that never syncs the host); then sequence and pipeline
+parallelism over NCCL across four cards (graphed steps against one card's;
+skipped with fewer cards).
 
 Marked ``cuda``: each test skips where ``torch.cuda.is_available()`` is
 false, as on a CPU-only host. On a machine with the card and without JAX,
@@ -2108,3 +2110,76 @@ def test_graphs_under_a_gloo_group_on_the_card_raise(gen, monkeypatch):
         EngineExecutor(cfg, dict(params), ec, device=dev, mesh=mesh, cuda_graphs=False)
     finally:
         dist.destroy_process_group()
+
+
+# ----------------------------------------------------------------------
+# Sequence and pipeline parallelism over NCCL across cards
+# ----------------------------------------------------------------------
+
+# name -> (world, parallel): graphed SP/PP steps, a rank a card.
+ACROSS_CARDS = {
+    "sequence2": (2, dict(sequence=2)),
+    "pipe2": (2, dict(pipe=2)),
+    "data2_sequence2": (4, dict(data=2, sequence=2)),
+    "zero1_pipe2_data2": (4, dict(zero_stage=1, pipe=2, data=2)),
+}
+ACROSS_MODEL = dict(num_layers=4, vocab_size=512, dtype="float32", param_dtype="float32")
+ACROSS_LORA = dict(r=8, alpha=16, dropout=0.05)
+
+
+@pytest.fixture(scope="module")
+def across_cards(tmp_path_factory):
+    """The cases' graphed steps in NCCL worlds of 2 and 4, one rank a card
+    (llama_300m's widths at 4 layers, float32, LoRA with dropout), and the
+    same steps on one card, eager, in this process."""
+    import numpy as np
+
+    import torch_dist_worker as W
+    from dlti_tpu_torch.config import MODEL_PRESETS, LoRAConfig
+    from dlti_tpu_torch.models import init_params
+
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 4:
+        pytest.skip("needs 4 CUDA devices (one rank a card over NCCL)")
+    import dataclasses
+
+    cfg = dataclasses.replace(MODEL_PRESETS["llama_300m"], **ACROSS_MODEL)
+    lora = LoRAConfig(**ACROSS_LORA)
+    params = {n: t.numpy() for n, t in init_params(cfg, seed=0, device="cpu",
+                                                     lora=lora).items()}
+    rng = np.random.default_rng(3)
+    shape = (4, 4, 256)
+    batches = [{"input_ids": rng.integers(3, cfg.vocab_size, shape).astype(np.int32),
+                "loss_mask": (rng.random(shape) > 0.2).astype(np.int32)} for _ in range(2)]
+    kw = dict(params=params, batches=batches, lora=ACROSS_LORA, opt=dict(warmup_steps=1),
+              model=ACROSS_MODEL, preset="llama_300m", seed=5, accum=4)
+    # Build the kernels once before the ranks load them.
+    tfa.flash_attention(*(torch.zeros(1, 64, 2, 64, device="cuda") for _ in range(3)))
+    tmp = tmp_path_factory.mktemp("across")
+    worlds = {w: W.spawn_world(w, [(n, "steps", dict(kw, parallel=par, device="cuda",
+                                                      graphs=True))
+                                   for n, (wn, par) in ACROSS_CARDS.items() if wn == w],
+                               str(tmp), backend="nccl") for w in (2, 4)}
+    one = W.steps(parallel={}, device="cuda", **kw)
+    return worlds, one
+
+
+@pytest.mark.parametrize("name", list(ACROSS_CARDS))
+def test_sequence_and_pipe_graphed_steps_across_cards_equal_one_card(across_cards, name):
+    """Each rank a card over NCCL, the step captured as a CUDA graph (the
+    ring's permutes and skips, the pipeline's ticks and hand-run backward,
+    their collectives inside): losses, grad norms and LoRA factors equal
+    one card's eager steps on the same rows within 1e-4 (float32: the ring
+    sums in another order than K1), every rank reporting the same metrics."""
+    import numpy as np
+
+    worlds, one = across_cards
+    world, _ = ACROSS_CARDS[name]
+    got = worlds[world][0][name]
+    assert got["captures"] == 1
+    for g, w in zip(got["metrics"], one["metrics"]):
+        np.testing.assert_allclose([g["loss"], g["grad_norm"]], [w["loss"], w["grad_norm"]],
+                                   rtol=1e-4, err_msg=name)
+    for n, t in got["trainable"].items():
+        np.testing.assert_allclose(t, one["trainable"][n], rtol=1e-4, atol=1e-6, err_msg=n)
+    for rank_out in worlds[world][1:]:
+        assert rank_out[name]["metrics"] == got["metrics"]

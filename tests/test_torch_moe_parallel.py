@@ -231,11 +231,13 @@ def test_expert_axis_strategy_rules():
     check_strategy(tc.ParallelConfig(expert=2))
     check_strategy(tc.ParallelConfig(data=2, expert=2))
     check_strategy(tc.ParallelConfig(zero_stage=tc.ZeROStage.ZERO2, data=2, expert=2))
+    check_strategy(tc.ParallelConfig(pipe=2, expert=2))
     for par, match in [(dict(zero_stage=tc.ZeROStage.ZERO3, fsdp=2, expert=2), "fsdp x expert"),
                        (dict(zero_stage=tc.ZeROStage.ZERO3, fsdp=1, expert=2), "fsdp x expert"),
                        (dict(tensor=2, expert=2), "tensor x expert"),
-                       (dict(sequence=2), "sequence"),
-                       (dict(pipe=2), "pipe")]:
+                       (dict(sequence=2, expert=2), "sequence x expert"),
+                       (dict(pipe=2, zero_stage=tc.ZeROStage.ZERO3, fsdp=2, expert=2),
+                        "pipe x ZeRO-3")]:
         with pytest.raises(NotImplementedError, match=match):
             check_strategy(tc.ParallelConfig(**par))
 

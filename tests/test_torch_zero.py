@@ -404,9 +404,12 @@ def test_strategy_legality_errors():
     with pytest.raises(ValueError, match="offload_params without LoRA"):
         check_strategy(P(zero_stage=tc.ZeROStage.ZERO3, offload_params=True),
                        lora_enabled=False)
+    # The sequence and pipe axes run (parallel.ring_attention,
+    # parallel.pipeline), but not under ZeRO-3.
     for axis in ("sequence", "pipe"):
-        with pytest.raises(NotImplementedError, match=f"{axis}=2"):
-            check_strategy(P(**{axis: 2}))
+        check_strategy(P(**{axis: 2}))
+        with pytest.raises(NotImplementedError, match=f"{axis}=2 .*{axis} x ZeRO-3"):
+            check_strategy(P(zero_stage=tc.ZeROStage.ZERO3, fsdp=2, **{axis: 2}))
     # The tensor axis runs (parallel.tensor), but not under ZeRO-3.
     with pytest.raises(NotImplementedError, match="tensor x ZeRO-3"):
         check_strategy(P(zero_stage=tc.ZeROStage.ZERO3, tensor=2))
@@ -420,16 +423,19 @@ def test_strategy_legality_errors():
 
     from dlti_tpu_torch.cli.train import build_config, parse_args
 
-    for flag in ("--sequence", "--pipe", "--data"):
-        with pytest.raises(SystemExit, match="not ported"):
-            build_config(parse_args(["--model", "llama_tiny", flag, "2"]))
+    # --data only under --pipe, as the reference's scripts/train.py.
+    for n in ("1", "2"):
+        with pytest.raises(SystemExit, match="only applies under --pipe"):
+            build_config(parse_args(["--model", "llama_tiny", "--data", n]))
     assert build_config(parse_args(["--model", "llama_tiny", "--tensor", "2"])
                         ).parallel == P(tensor=2)
     assert build_config(parse_args(["--model", "mixtral_tiny", "--expert", "2"])
                         ).parallel == P(expert=2)
-    cfg = build_config(parse_args(["--model", "llama_tiny", "--data", "1",
+    assert build_config(parse_args(["--model", "llama_tiny", "--sequence", "2"])
+                        ).parallel == P(sequence=2)
+    cfg = build_config(parse_args(["--model", "llama_tiny", "--pipe", "2", "--data", "1",
                                    "--per-device-batch-size", "3"]))
-    assert cfg.parallel == P() and cfg.train.micro_batch_size == 3
+    assert cfg.parallel == P(pipe=2) and cfg.train.micro_batch_size == 3
 
 
 def test_presets_and_parallel_config_cross_packages():

@@ -37,16 +37,18 @@ Case = Tuple[str, str, dict]  # (result name, case function, keyword arguments)
 
 
 def spawn_world(world: int, cases: Sequence[Case], tmp_dir: str,
-                timeout_s: float = TIMEOUT_S) -> List[Dict[str, object]]:
+                timeout_s: float = TIMEOUT_S, backend: str = "gloo") -> List[Dict[str, object]]:
     """Run ``cases`` in a fresh world of ``world`` ranks; returns each rank's
     ``{name: result}``, by rank. Raises with the failing rank's traceback,
     or when the world overruns ``timeout_s``; every rank is gone on
-    return."""
+    return. ``backend="nccl"``: rank ``r`` on card ``r`` (a machine with as
+    many cards)."""
     ctx = mp.get_context("spawn")
     results = ctx.Queue()
     rdzv = os.path.join(tmp_dir, f"rdzv-{world}-{os.getpid()}-{time.monotonic_ns()}")
-    procs = [ctx.Process(target=_rank_main, args=(r, world, rdzv, list(cases), results),
-                         daemon=True) for r in range(world)]
+    procs = [ctx.Process(target=_rank_main,
+                         args=(r, world, rdzv, list(cases), results, backend), daemon=True)
+             for r in range(world)]
     for p in procs:
         p.start()
     got: Dict[int, Dict[str, object]] = {}
@@ -79,11 +81,16 @@ def spawn_world(world: int, cases: Sequence[Case], tmp_dir: str,
     return [got[r] for r in range(world)]
 
 
-def _rank_main(rank: int, world: int, rdzv: str, cases: List[Case], results) -> None:
+def _rank_main(rank: int, world: int, rdzv: str, cases: List[Case], results,
+               backend: str = "gloo") -> None:
     try:
         torch.set_num_threads(1)
-        dist.init_process_group("gloo", init_method=f"file://{rdzv}", world_size=world,
-                                rank=rank, timeout=datetime.timedelta(seconds=TIMEOUT_S))
+        kw = {}
+        if backend == "nccl":
+            torch.cuda.set_device(rank)
+            kw["device_id"] = torch.device("cuda", rank)
+        dist.init_process_group(backend, init_method=f"file://{rdzv}", world_size=world,
+                                rank=rank, timeout=datetime.timedelta(seconds=TIMEOUT_S), **kw)
         from dlti_tpu_torch.parallel import sharding
 
         sharding._MIN_FSDP_DIM = MIN_FSDP_DIM
@@ -122,11 +129,12 @@ def local_rows(batch: dict, rank: int, world: int) -> dict:
 
 
 def _state(params: dict, parallel: dict, lora: dict = None, opt: dict = None,
-           model: dict = None, fp16_scale: float = None, preset: str = "llama_tiny"):
+           model: dict = None, fp16_scale: float = None, preset: str = "llama_tiny",
+           device: str = "cpu"):
     """A ``preset`` train state from ``params`` (port names, numpy; int8
     pairs ``{name}.q``/``{name}.scale`` load as a quantized base), placed on
     this rank under ``parallel``; this rank's experts of each stacked expert
-    leaf under ``expert`` above 1."""
+    leaf under ``expert`` above 1, its stage's layers under ``pipe``."""
     from dlti_tpu_torch.config import MODEL_PRESETS, LoRAConfig, OptimizerConfig
     from dlti_tpu_torch.models import load_model
     from dlti_tpu_torch.models.interop import shard_params
@@ -136,12 +144,14 @@ def _state(params: dict, parallel: dict, lora: dict = None, opt: dict = None,
     from dlti_tpu_torch.training import build_optimizer, create_train_state
     from dlti_tpu_torch.utils.device import resolve_dtype
 
-    cpu = torch.device("cpu")
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
     mcfg = dataclasses.replace(MODEL_PRESETS[preset], **(model or {}))
     lcfg = LoRAConfig(**lora) if lora else LoRAConfig(enabled=False)
     from dlti_tpu_torch.models.quantization import quant_bases
 
-    mesh = build_mesh(_parallel(parallel), cpu, lcfg.enabled)
+    mesh = build_mesh(_parallel(parallel), dev, lcfg.enabled)
     base_dtype = resolve_dtype(mcfg.param_dtype)
     quantized = quant_bases(params)  # int8 pairs keep their dtypes
 
@@ -152,9 +162,15 @@ def _state(params: dict, parallel: dict, lora: dict = None, opt: dict = None,
         return t.to(torch.float32 if is_lora_name(n) else base_dtype)
 
     lora_cfg = lcfg if lcfg.enabled else None
-    tree = shard_params({n: leaf(n, a) for n, a in params.items()}, mesh, mcfg, lora_cfg)
-    net = load_model(mcfg, tree, cpu, lora=lora_cfg, trainable_lora=True,
-                     tensor=mesh.tensor if mesh.tensor_parallel else None)
+    from dlti_tpu_torch.parallel.pipeline import stage_params
+
+    tree = {n: leaf(n, a) for n, a in params.items()}
+    if mesh.pp > 1:
+        tree = stage_params(tree, mesh.pipe.rank, mesh.pp, mcfg.num_layers)
+    tree = shard_params(tree, mesh, mcfg, lora_cfg)
+    net = load_model(mcfg, tree, dev, lora=lora_cfg, trainable_lora=True,
+                     tensor=mesh.tensor if mesh.tensor_parallel else None,
+                     stage=(mesh.pipe.rank, mesh.pp))
     layout = shard_model(net, mesh, lcfg.enabled)
     return create_train_state(net, build_optimizer(OptimizerConfig(**(opt or OPT))),
                               lora_enabled=lcfg.enabled, fp16_initial_scale=fp16_scale,
@@ -163,27 +179,31 @@ def _state(params: dict, parallel: dict, lora: dict = None, opt: dict = None,
 
 def steps(params: dict, batches: list, parallel: dict, lora: dict = None,
           opt: dict = None, model: dict = None, fp16_scale: float = None,
-          seed: int = None, preset: str = "llama_tiny", accum: int = ACCUM) -> dict:
+          seed: int = None, preset: str = "llama_tiny", accum: int = ACCUM,
+          loss_chunk: int = 0, device: str = "cpu", graphs: bool = False) -> dict:
     """``len(batches)`` train steps of ``preset`` from ``params`` (port
     names, numpy) under ``parallel``, each rank on its rows (the batch
     axes' share: a tensor or expert group's ranks take the same rows), through
-    ``StepWindow`` (eager). Returns the metric rows, every trainable leaf
+    ``StepWindow`` (eager, or on a card ``graphs``: the step a CUDA graph), on
+    ``device``. Returns the metric rows, the captures, every trainable leaf
     whole (rank 0; the other ranks join the gathers and get none), and each
     leaf's (local, whole) shape."""
+    from dlti_tpu_torch.models.lora import is_lora_name
     from dlti_tpu_torch.training import whole_params
     from dlti_tpu_torch.training.step import StepWindow
 
-    rank, world = _rank_world()
-    inner = parallel.get("expert", 1) * parallel.get("tensor", 1)
-    state = _state(params, parallel, lora, opt, model, fp16_scale, preset)
+    state = _state(params, parallel, lora, opt, model, fp16_scale, preset, device)
     layout = state.layout
-    window = StepWindow(state.model, accum_steps=accum, seed=seed, cuda_graphs=False)
-    rows = [window.run(state, [local_rows(b, rank // inner, world // inner)], i + 1)[0].tolist()
-            for i, b in enumerate(batches)]
+    rows_axis = layout.mesh.batch
+    window = StepWindow(state.model, accum_steps=accum, seed=seed, cuda_graphs=graphs,
+                        loss_chunk=loss_chunk)
+    rows = [window.run(state, [local_rows(b, rows_axis.rank, rows_axis.world)], i + 1)[0]
+            .tolist() for i, b in enumerate(batches)]
     whole = whole_params(state)
     return {"metrics": [dict(zip(window.metrics, r)) for r in rows],
-            "trainable": {n: t.numpy() for n, t in whole.items()
-                          if layout.leaves[n].trainable},
+            "captures": window.captures,
+            "trainable": {n: t.cpu().numpy() for n, t in whole.items()
+                          if is_lora_name(n) or not state.lora_enabled},
             "shapes": {n: (tuple(p.shape), layout.leaves[n].shape)
                        for n, p in state.model.named_parameters()}}
 
@@ -452,6 +472,94 @@ def tp_gather(params: dict, preset: str = "llama_tiny", quantize: bool = False) 
             and all(torch.equal(back[n], whole[n]) for n in whole)}
 
 
-CASES = {"steps": steps, "train": train, "data_rows": data_rows, "norm": norm,
+# ----------------------------------------------------------------------
+# Sequence and pipeline parallelism: the ring and the pipelined forward
+# ----------------------------------------------------------------------
+
+def ring(q, k, v, parallel: dict, positions=None, segment_ids=None, causal: bool = True,
+         window: int = None, w=None) -> dict:
+    """``parallel.ring_attention.ring_attention`` of whole float32 ``q``/``k``/
+    ``v`` (numpy) over this world's mesh: the output, and with ``w`` the
+    gradients of ``sum(out * w)`` summed over the world (each rank's reach
+    its own rows, tokens and heads)."""
+    from dlti_tpu_torch.parallel.mesh import build_mesh
+    from dlti_tpu_torch.parallel.ring_attention import ring_attention
+    from dlti_tpu_torch.parallel.tensor import all_reduce_
+
+    mesh = build_mesh(_parallel(parallel), torch.device("cpu"))
+    qt, kt, vt = (torch.from_numpy(a.copy()).requires_grad_() for a in (q, k, v))
+    opt = lambda a: None if a is None else torch.from_numpy(a.copy())  # noqa: E731
+    out = ring_attention(qt, kt, vt, mesh, positions=opt(positions),
+                         segment_ids=opt(segment_ids), causal=causal, window=window)
+    res = {"out": out.detach().numpy()}
+    if w is not None:
+        grads = torch.autograd.grad((out * torch.from_numpy(w)).sum(), [qt, kt, vt])
+        res["grads"] = [all_reduce_(g.contiguous(), mesh).numpy() for g in grads]
+    return res
+
+
+def pipe_state(params: dict, batches: list, lora: dict, opt: dict, accum: int) -> dict:
+    """A whole ``llama_tiny`` train state on one device, made this rank's
+    pipe-2 stage state by ``parallel.pipeline.to_pipeline_state``, then
+    stepped as :func:`steps` steps: the metric rows."""
+    from dlti_tpu_torch.config import LoRAConfig, OptimizerConfig, ParallelConfig
+    from dlti_tpu_torch.models import load_model
+    from dlti_tpu_torch.parallel.mesh import build_mesh
+    from dlti_tpu_torch.parallel.pipeline import to_pipeline_state
+    from dlti_tpu_torch.training import build_optimizer, create_train_state
+    from dlti_tpu_torch.training.step import StepWindow
+
+    cfg, lcfg = _model_cfg("llama_tiny"), LoRAConfig(**lora)
+    net = load_model(cfg, {n: torch.from_numpy(a.copy()) for n, a in params.items()}, "cpu",
+                     lora=lcfg, trainable_lora=True)
+    flat = create_train_state(net, build_optimizer(OptimizerConfig(**opt)))
+    mesh = build_mesh(ParallelConfig(pipe=dist.get_world_size()), torch.device("cpu"))
+    state = to_pipeline_state(flat, mesh, lcfg)
+    window = StepWindow(state.model, accum_steps=accum, cuda_graphs=False)
+    rows = [window.run(state, [b], i + 1)[0].tolist() for i, b in enumerate(batches)]
+    return {"metrics": [dict(zip(window.metrics, r)) for r in rows],
+            "layers": len(state.model.model.layers)}
+
+
+def permute(shift: int) -> dict:
+    """``parallel.tensor.permute`` of this rank's ``[rank + 1] * 3`` over a
+    sequence group of the whole world: what arrived, and the gradient of
+    ``sum(received * (arange(3) + 10 * rank))`` back at the sender."""
+    from dlti_tpu_torch.config import ParallelConfig
+    from dlti_tpu_torch.parallel.mesh import build_mesh
+    from dlti_tpu_torch.parallel.tensor import permute as differentiable_permute
+
+    rank, world = _rank_world()
+    mesh = build_mesh(ParallelConfig(sequence=world), torch.device("cpu"))
+    t = torch.full((3,), float(rank + 1), requires_grad=True)
+    got = differentiable_permute(t, shift, mesh.sequence)
+    (got * (torch.arange(3) + 10.0 * rank)).sum().backward()
+    return {"got": got.detach().tolist(), "grad": t.grad.tolist()}
+
+
+def pipe_forward(params: dict, ids, num_microbatches: int, preset: str = "llama_tiny",
+                 model: dict = None, segment_ids=None, positions=None) -> dict:
+    """``parallel.pipeline.pipeline_forward`` of this world's pipe stages
+    (``params`` whole, port names, numpy): rank 0's logits, and a stage's
+    layer count."""
+    from dlti_tpu_torch.config import ParallelConfig
+    from dlti_tpu_torch.models import load_model
+    from dlti_tpu_torch.parallel.mesh import build_mesh
+    from dlti_tpu_torch.parallel.pipeline import pipeline_forward, stage_params
+
+    cfg = _model_cfg(preset, model)
+    mesh = build_mesh(ParallelConfig(pipe=dist.get_world_size()), torch.device("cpu"))
+    tree = stage_params({n: torch.from_numpy(a.copy()) for n, a in params.items()},
+                        mesh.pipe.rank, mesh.pp, cfg.num_layers)
+    net = load_model(cfg, tree, "cpu", stage=(mesh.pipe.rank, mesh.pp))
+    opt = lambda a: None if a is None else torch.from_numpy(a.copy())  # noqa: E731
+    logits = pipeline_forward(net, torch.from_numpy(ids.copy()), mesh,
+                              num_microbatches=num_microbatches,
+                              segment_ids=opt(segment_ids), positions=opt(positions))
+    return {"logits": logits.numpy(), "layers": len(net.model.layers)}
+
+
+CASES = {"steps": steps, "ring": ring, "pipe_forward": pipe_forward, "permute": permute,
+         "pipe_state": pipe_state, "train": train, "data_rows": data_rows, "norm": norm,
          "gathered_leaves": gathered_leaves, "cli_mesh": cli_mesh, "tp_engine": tp_engine,
          "tp_server": tp_server, "tp_refusals": tp_refusals, "tp_gather": tp_gather}
