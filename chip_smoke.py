@@ -123,7 +123,8 @@ Phases, each of which fails the run if its check fails:
     against the gather path (dequantized in float32), gated; against the
     same step on a bf16 pool, printed only (quantization error). Then K4q
     against its plain version on the engine's pool and tables, timed.
-12. The entry points themselves, as subprocesses on the card, on
+12. (In a thread beside phase 17, whose subprocesses leave the host and
+    the card room.) The entry points themselves, as subprocesses on the card, on
     ``llama_300m`` (head dim 64, which K1-K3 take): ``cli.train --max-steps
     4 --save-steps 2 --output-dir D --export-dir E`` exits 0 leaving steps 2
     and 4 in D; ``cli.export --checkpoint-dir D --out E2`` prints the digest
@@ -176,16 +177,19 @@ Phases, each of which fails the run if its check fails:
     check on that engine.
 
 16. ZeRO on one card (run last): phase 7's configuration, llama2_7b LoRA at
-    full width and depth, graphed, 4 steps (8 until phase 20 needed the
-    room) under ``baseline``, ``zero1``,
-    ``zero2``, ``zero3`` and ``zero3`` with both host offloads, in a NCCL
+    full width and depth, graphed, 3 steps (8 until phase 20 needed the
+    room, 4 until phase 23 did) under ``baseline``, ``zero1``,
+    ``zero2``, ``zero3``, ``zero3`` with both host offloads and ``zero3`` on
+    the tensor-parallel path (a tensor group of one, phase 23 (c): the ZeRO-3
+    optimizer and step beside every tensor collective, captured; phase 21
+    (c) runs that path under ``baseline``), in a NCCL
     process group of one joined through the launcher's env
     (``launcher.maybe_initialize_from_env``): every run's losses and grad
-    norms bit-equal to the group's baseline (and that to phase 7's first 4
+    norms bit-equal to the group's baseline (and that to phase 7's first 3
     steps without a group), K1-K3 counted per run as in phase 7, every offloaded
     leaf a pinned host tensor. Prints each strategy's step ms, tokens/s,
     peak memory and launches; each run appends its row to one metrics CSV
-    (``TrainConfig.metrics_csv``), and ``analysis.compare`` prints the five
+    (``TrainConfig.metrics_csv``), and ``analysis.compare`` prints the six
     rows' table (no plot); the group is destroyed at the end.
 17. The README Quickstart through the port's CLIs as subprocesses (run
     last): ``cli.prepare_dataset --synthetic 2000 --write-token-store S``;
@@ -213,7 +217,8 @@ Phases, each of which fails the run if its check fails:
     --concurrency 28 --max-tokens 256`` (the README's 112 and 56, cut to
     make room for phases 19 and 20): 28 ok, none failed; prints
     requests/s, output tok/s, TTFT p50/p99 and mean TPOT.
-18. The engine features at llama2_7b width (run last). First each feature
+18. The engine features at llama2_7b width (run last; phase 21's world runs
+    beside it: both leave the card and the host room). First each feature
     against the engine without it, at full width cut to 8 layers in float32
     (TF32 off), from one ``init_params(seed=0)``: chunked prefill (256
     tokens a step, prompts of 600-1000 tokens) and ragged prefill (fewer
@@ -295,9 +300,10 @@ Phases, each of which fails the run if its check fails:
     reading, not gated; the logits must be finite).
 
 21. Tensor parallelism on one card (before phase 22). (a) and (b) in a world of
-    two ranks on this card over gloo (``python -m dlti_tpu_torch.launcher
-    --one-device --num-processes 2 -- python chip_smoke.py --tensor-rank
-    DIR``; NCCL refuses two ranks on one device), each joining through
+    two ranks on this card over gloo, run in the background beside phase 18
+    (``python -m dlti_tpu_torch.launcher --one-device --num-processes 2 --
+    python chip_smoke.py --tensor-rank DIR``; NCCL refuses two ranks on one
+    device), each joining through
     ``cli.serve``'s ``--tensor 2`` mesh: (a) llama2_7b at full width and
     depth from ``init_params(seed=0)`` sliced as drawn, 16 of 32 heads and
     KV heads a rank, a bf16 pool, eager decode, rank 0 scheduling and rank
@@ -322,15 +328,44 @@ Phases, each of which fails the run if its check fails:
     tensor-parallel runs (one launch, so the second world's start and its
     draw are saved), llama2_7b at full width and depth drawn once a rank:
     (a) LoRA r=16 at ``sequence`` 2, seq 4096 (phase 7's texts packed),
-    micro-batch 1 x accum 2, 2 eager steps, each rank 2048 tokens of every
-    row and attention the ring (``parallel.ring_attention``, plain
+    micro-batch 1 x accum 2, 1 eager step (2 until phase 23 needed the
+    room), each rank 2048 tokens of every row and attention the ring
+    (``parallel.ring_attention``, plain
     arithmetic: no K1-K3); (b) LoRA at ``pipe`` 2, 16 layers a stage,
-    phase 7's 8 rows of 512 as 8 microbatches of 1 row, 2 eager steps
+    phase 7's 8 rows of 512 as 8 microbatches of 1 row, 1 eager step
     through the GPipe schedule. Then here one rank's eager references on
     the same rows and microbatches: each run's losses and grad norms within
     ``SEQPIPE_RTOL`` of them, (b)'s losses within it of phase 7's; K1-K3 0
     under the ring and 2 x 16 x 8 / 16 x 8 a step on each stage; each
     rank's step seconds and peak printed.
+23. ZeRO-3 with the model axes on one card (checked last; its world runs
+    in the background beside phase 17, whose subprocesses leave the host and
+    the card room). A world of four ranks on this card over gloo
+    (``python -m dlti_tpu_torch.launcher --one-device --num-processes 4 --
+    python chip_smoke.py --zero3-rank DIR``), each drawing llama2_7b at full
+    width and depth leaf by leaf and
+    keeping only its part (``init_params(mesh=)``): (a) ``zero3`` at ``fsdp``
+    2 x ``tensor`` 2 (the README's ``--preset zero3 --tensor 2``), phase 7's
+    LoRA configuration and batch, 1 eager step, held to phase 7's eager
+    step (loss and grad norm within ``ZERO3_RTOL``, relative); (b)
+    ``zero3`` at ``fsdp`` 2 x ``pipe`` 2, 16 layers a stage, phase 22 (b)'s
+    8 rows as 2 microbatches of 4, 2 rows of each a fsdp rank (4
+    microbatches of 1 row a rank until the room was needed), 1 eager step:
+    its loss held
+    to phase 22 (b)'s one-rank 8 x 1 reference and its loss and grad norm
+    to one rank's step on the same microbatches (phase 22's references
+    draw it: LoRA dropout follows the microbatches), both within
+    ``ZERO3_RTOL``. Each rank prints its parameter bytes at rest (about a
+    quarter of the whole model: the split), its peak, step seconds and
+    K1-K3 counts, each stage twice 16 x 2 / 16 x 2 and each (a) rank twice
+    32 x 2 / 32 x 2. (c) runs in phase 16's group, at ``fsdp`` 1: nothing is
+    sharded, so on one card no phase runs ZeRO-3's ``fsdp`` gathers, their
+    prefetch a block ahead or their reduce-scatters inside a CUDA graph over
+    NCCL. (d) With four or more cards visible, those run:
+    ``tests/test_torch_cuda.py -k across_cards`` (the five ZeRO-3 meshes,
+    each graphed over NCCL, a rank a card, against one card's eager steps)
+    as a subprocess, which must pass every case; with fewer, (d) is
+    skipped and says so.
 
 Prints ``[time]`` lines with each group of phases' wall clock, a
 ``{"kernels": [...]}`` line (each kernel's float16 mode a row of
@@ -2747,6 +2782,34 @@ def serve_subprocess(cmd, tag, drive=None):
     return (seen, out) if drive is not None else seen
 
 
+class Beside:
+    """``fn(*args)`` in a thread beside the phases that follow it;
+    :meth:`join` waits for it and returns its wall clock in seconds, or
+    raises what it raised."""
+
+    def __init__(self, fn, *args):
+        import threading
+
+        self.error = None
+        self.seconds = None
+        self.thread = threading.Thread(target=self._run, args=(fn, args), daemon=True)
+        self.thread.start()
+
+    def _run(self, fn, args):
+        t0 = time.perf_counter()
+        try:
+            fn(*args)
+        except BaseException as e:  # re-raised by join
+            self.error = e
+        self.seconds = round(time.perf_counter() - t0, 1)
+
+    def join(self, quiet: bool = False) -> float:
+        self.thread.join()
+        if self.error is not None and not quiet:
+            raise self.error
+        return self.seconds
+
+
 def run_cli(cmd, tag, timeout=600):
     """A CLI as a subprocess that must exit 0; returns its stdout."""
     import os
@@ -2818,12 +2881,14 @@ def h2d_pinned_gb_s(torch, nbytes=1 << 30, reps=3) -> float:
 
 
 # Phase 16's strategies: (name, preset, offload_optimizer, offload_params).
-# Phase 16's steps a strategy: phase 7's first 4 (8 until phase 20 needed
-# the room).
-ZERO_STEPS = 4
+# Phase 16's steps a strategy: phase 7's first 3, the last one timed (8
+# until phase 20 needed the room, 4 until phase 23 did).
+ZERO_STEPS = 3
+# "zero3_tensor" is phase 23 (c): ZeRO-3 on the tensor-parallel path (a
+# tensor group of one), its step one CUDA graph.
 ZERO_RUNS = (("baseline", "baseline", False, False), ("zero1", "zero1", False, False),
              ("zero2", "zero2", False, False), ("zero3", "zero3", False, False),
-             ("zero3_offload", "zero3", True, True))
+             ("zero3_offload", "zero3", True, True), ("zero3_tensor", "zero3", False, False))
 
 
 def phase_zero(torch, reference, card):
@@ -2851,6 +2916,7 @@ def phase_zero(torch, reference, card):
     from dlti_tpu_torch.data import ByteTokenizer, make_batches
     from dlti_tpu_torch.models.interop import init_params
     from dlti_tpu_torch.ops import flash_attention as tfa
+    from dlti_tpu_torch.parallel.mesh import build_mesh
     from dlti_tpu_torch.training import Trainer
 
     t_phase = time.perf_counter()
@@ -2876,8 +2942,14 @@ def phase_zero(torch, reference, card):
                 zero_stage=stage, offload_optimizer=off_opt, offload_params=off_params),
                 experiment_name=name, train=dataclasses.replace(
                     base.train, metrics_csv=str(metrics_csv)))
+            mesh = None
+            if name == "zero3_tensor":
+                mesh = build_mesh(cfg.parallel, torch.device("cuda", torch.cuda.current_device()),
+                                  True, tensor_group=True)
+                check(mesh.tensor_parallel and mesh.fsdp_extent == 1,
+                      "[zero] zero3_tensor: no tensor group of one")
             trainer = Trainer(cfg, params=init_params(mcfg, seed=0, device="cuda",
-                                                      lora=cfg.lora), device="cuda")
+                                                      lora=cfg.lora), device="cuda", mesh=mesh)
             state = trainer.init_state()
             if off_params or off_opt:
                 frozen = [p for n, p in state.model.named_parameters()
@@ -4742,11 +4814,12 @@ def teacher_forced(torch, ex, cfg, reqs, outputs, tag) -> dict:
             "min_margin": min(min(r[4]) for r in rows)}
 
 
-def phase_tensor(torch, engine_perf, train_perf, card):
+def phase_tensor(torch, engine_perf, train_perf, card, ranks):
     """Phase 21, tensor parallelism on one card (before phase 22).
 
-    (a)+(b): ``python -m dlti_tpu_torch.launcher --one-device
-    --num-processes 2 -- python chip_smoke.py --tensor-rank DIR``: two ranks
+    (a)+(b): ``ranks``, the results of ``python -m dlti_tpu_torch.launcher
+    --one-device --num-processes 2 -- python chip_smoke.py --tensor-rank
+    DIR`` (:func:`start_world`, run beside phase 18): two ranks
     on this card over gloo (NCCL refuses two ranks on one device), each
     joining through ``cli.serve``'s ``--tensor 2`` mesh. (a) llama2_7b at
     full width and depth, bf16 pool, 16 of 32 heads a rank, eager decode:
@@ -4766,10 +4839,6 @@ def phase_tensor(torch, engine_perf, train_perf, card):
     engine's; each rank's K4 32 x decode steps (K4q on the int8 pool);
     (b)'s losses and grad norms within ``TP_LOSS_RTOL``/``TP_GRAD_NORM_RTOL``
     of phase 7's eager steps, K1-K3 as phase 7 counts them on each rank."""
-    import os
-    import shutil
-    import tempfile
-
     import torch.distributed as dist
 
     from dlti_tpu_torch.config import MODEL_PRESETS, CheckpointConfig, ParallelConfig
@@ -4786,29 +4855,18 @@ def phase_tensor(torch, engine_perf, train_perf, card):
     layers = cfg.num_layers
     reqs = engine_requests(cfg)
     perf = {"card": card}
-    out_dir = tempfile.mkdtemp(prefix="tp21-")
     try:
         # (a) + (b): the TP-2 world on this card.
-        t0 = time.perf_counter()
-        cmd = [sys.executable, "-m", "dlti_tpu_torch.launcher", "--one-device",
-               "--num-processes", "2", "--port", str(free_port()), "--",
-               sys.executable, str(ROOT / "chip_smoke.py"), "--tensor-rank", out_dir]
-        proc = subprocess.run(cmd, cwd=ROOT, env=dict(os.environ, PYTHONPATH=str(ROOT)),
-                              capture_output=True, text=True, timeout=600)
-        lines = [ln for ln in proc.stdout.splitlines() if "rank" in ln and "over" in ln]
-        for ln in lines:
+        for ln in ranks[0]["joined"]:
             log(f"[tensor] {ln}")
-        check(proc.returncode == 0, f"[tensor] the TP-2 world exited {proc.returncode}:\n"
-              + proc.stdout[-3000:] + proc.stderr[-5000:])
-        ranks = [json.load(open(Path(out_dir) / f"rank{r}.json")) for r in (0, 1)]
-        perf["world_s"] = time.perf_counter() - t0
+        perf["world_s"] = ranks[0]["world_s"]
         perf["world_parts_s"] = {k: ranks[0][k]
                                  for k in ("start_s", "serve_s", "train_s", "seqpipe_s")}
         # Phase 22's runs in this world, held there.
         perf["seqpipe_ranks"] = [r.pop("seqpipe") for r in ranks]
         perf["world_parts_s"].update({f"{name}_wall_s": ranks[0][name]["wall_s"]
                                       for name in ("bf16", "f32", "int8")})
-        log(f"[tensor] the TP-2 world took {perf['world_s']:.1f} s: "
+        log(f"[tensor] the TP-2 world took {perf['world_s']:.1f} s (beside phase 18): "
             + json.dumps(perf["world_parts_s"]))
         check(all(r["backend"] == "gloo" and r["device"] == "cuda:0" for r in ranks),
               f"[tensor] the ranks ran {[(r['backend'], r['device']) for r in ranks]}")
@@ -4967,7 +5025,6 @@ def phase_tensor(torch, engine_perf, train_perf, card):
                             **tr["launches"]}
         return perf
     finally:
-        shutil.rmtree(out_dir, ignore_errors=True)
         if dist.is_initialized():
             dist.destroy_process_group()
 
@@ -4982,7 +5039,7 @@ def phase_tensor(torch, engine_perf, train_perf, card):
 SP_SEQ = 4096
 SP_ACCUM = 2
 PP_MICRO = 8
-SEQPIPE_STEPS = 2
+SEQPIPE_STEPS = 1  # 2 until phase 23 needed the room
 # Loss and grad norm against one rank's step on the same rows (relative).
 SEQPIPE_RTOL = 1e-3
 
@@ -5093,6 +5150,9 @@ def phase_seqpipe(torch, train_perf, card, ranks):
     params = init_params(cfg.model, seed=0, device="cuda", lora=cfg.lora)
     ref = {kind: seqpipe_train(torch, seqpipe_config(kind, False), params)
            for kind in ("sp", "pp")}
+    # Phase 23 (b)'s one-rank reference on its microbatches (LoRA dropout
+    # follows the microbatches, so the 8 x 1 step's grad norm is another).
+    ref["zero3_pp"] = seqpipe_train(torch, zero3_config("pp", False), params)
     del params
     free_memory(torch)
     perf["reference_s"] = time.perf_counter() - t0
@@ -5148,7 +5208,276 @@ def phase_seqpipe(torch, train_perf, card, ranks):
     log(f"[seqpipe] references {perf['reference_s']:.1f} s here; in phase 21's world the "
         f"7B draw {perf['draw_s']} s, (a) {perf['sp']['train_s']} s, (b) "
         f"{perf['pp']['train_s']} s")
+    perf["references"] = {kind: {k: ref[kind][k] for k in ("losses", "grad_norms")}
+                          for kind in ("pp", "zero3_pp")}
     return perf
+
+
+# ----------------------------------------------------------------------
+# Phase 23: ZeRO-3 with the model axes on one card
+# ----------------------------------------------------------------------
+
+# One eager step a run: (a) fsdp 2 x tensor 2 on phase 7's batch; (b) fsdp 2
+# x pipe 2 on phase 22 (b)'s 8 rows, 4 rows a microbatch (2 a fsdp rank) x 2
+# (2 x 4 until the room was needed: each microbatch gathers every stage's
+# base twice through gloo).
+ZERO3_STEPS = 1
+ZERO3_PP_MICRO, ZERO3_PP_ACCUM = 4, 2
+# Loss and grad norm against the one-rank references (relative), as phases
+# 21-22 hold theirs.
+ZERO3_RTOL = 1e-3
+# A rank's parameter bytes at rest over the whole model's: a quarter, plus
+# the leaves fsdp alone halves (norms, and under pipe the embedding and the
+# head every stage holds).
+ZERO3_REST_SHARE = (0.24, 0.28)
+
+
+def zero3_config(kind: str, parallel: bool = True):
+    """Phase 23's configurations (phase 7's model, LoRA and optimizer, 1
+    step): ``"tp"`` phase 7's batch at ``zero3``, ``fsdp`` 2 x ``tensor`` 2;
+    ``"pp"`` micro-batch 4 x accum 2 at ``zero3``, ``fsdp`` 2 x ``pipe`` 2, or
+    (not ``parallel``) on one rank."""
+    from dlti_tpu_torch.config import CheckpointConfig, ParallelConfig, ZeROStage
+
+    cfg = train_config(CheckpointConfig(save_strategy="no"), max_steps=ZERO3_STEPS)
+    z3 = ZeROStage.ZERO3
+    if kind == "tp":
+        return cfg.replace(parallel=ParallelConfig(zero_stage=z3, fsdp=2, tensor=2))
+    cfg = cfg.replace(train=dataclasses.replace(cfg.train, micro_batch_size=ZERO3_PP_MICRO,
+                                                grad_accum_steps=ZERO3_PP_ACCUM))
+    return cfg.replace(parallel=ParallelConfig(zero_stage=z3, fsdp=2, pipe=2)) if parallel else cfg
+
+
+def zero3_train(torch, cfg) -> dict:
+    """``ZERO3_STEPS`` eager steps of ``cfg`` on this rank of phase 23's
+    world: llama2_7b drawn leaf by leaf, this rank's part of each leaf kept
+    (``init_params(mesh=)``); the parameter bytes at rest against the whole
+    model's, the peak, step times, losses and the flash kernels' launches."""
+    from dlti_tpu_torch.data import ByteTokenizer, make_batches
+    from dlti_tpu_torch.models.interop import init_params
+    from dlti_tpu_torch.ops import flash_attention as tfa
+    from dlti_tpu_torch.parallel.mesh import build_mesh
+    from dlti_tpu_torch.training import Trainer
+
+    mesh = build_mesh(cfg.parallel, torch.device("cuda", torch.cuda.current_device()),
+                      cfg.lora.enabled)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_params(cfg.model, seed=0, device="cuda", lora=cfg.lora, mesh=mesh)
+    trainer = Trainer(cfg, params=params, device="cuda", cuda_graphs=False, mesh=mesh)
+    del params
+    state = trainer.init_state()
+    draw_s = time.perf_counter() - t0
+    named = dict(state.model.named_parameters())
+    rest = sum(p.numel() * p.element_size() for p in named.values())
+    whole = sum(math.prod(pl.shape) * named[n].element_size() * (mesh.pp if pl.stage else 1)
+                for n, pl in state.layout.leaves.items())
+    if cfg.parallel.pipe > 1:
+        dataset = seqpipe_dataset(cfg)
+    else:
+        dataset = make_batches(training_texts(), ByteTokenizer(), seq_len=cfg.data.max_seq_len,
+                               micro_batch_size=cfg.train.micro_batch_size,
+                               grad_accum_steps=cfg.train.grad_accum_steps)
+    tfa.fwd_launches = tfa.dq_launches = tfa.dkv_launches = 0
+    t0 = time.perf_counter()
+    state, record = trainer.train(dataset=dataset, state=state)
+    torch.cuda.synchronize()
+    out = {"losses": record.losses, "grad_norms": record.grad_norms,
+           "step_times_s": record.step_times_s, "train_s": time.perf_counter() - t0,
+           "draw_s": draw_s, "rest_gb": rest / 1e9, "whole_gb": whole / 1e9,
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9, "launches": flash_counts(tfa),
+           "layers": len(state.model.model.layers), "strategy": record.strategy,
+           "world": record.world,
+           "q_kernel_shape": list(state.model.model.layers[0].attn.q_proj.kernel.shape)}
+    del state, trainer, named
+    free_memory(torch)
+    return out
+
+
+def zero3_rank_main(out_dir: str) -> int:
+    """One rank of phase 23's world (``launcher --one-device
+    --num-processes 4``: every rank on this card over gloo): (a), then (b).
+    Writes its results to ``out_dir/rank{r}.json``."""
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(ROOT))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from dlti_tpu_torch import launcher
+
+    t0 = time.perf_counter()
+    launcher.maybe_initialize_from_env("cuda")
+    rank = dist.get_rank()
+    out = {"backend": dist.get_backend(), "device": f"cuda:{torch.cuda.current_device()}",
+           "rank": rank, "start_s": time.perf_counter() - t0}
+    for kind in ("tp", "pp"):
+        out[kind] = zero3_train(torch, zero3_config(kind))
+    with open(Path(out_dir) / f"rank{rank}.json", "w") as f:
+        json.dump(out, f)
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def start_world(flag: str, ranks: int) -> dict:
+    """Start a world of ``ranks`` ranks on this card over gloo (``launcher
+    --one-device``), each ``chip_smoke.py flag DIR``, in the background:
+    phase 23's (``--zero3-rank``) beside phase 17 and phase 21's
+    (``--tensor-rank``) beside phase 18, whose work leaves the card and the
+    host room; :func:`finish_world` collects it."""
+    import os
+    import tempfile
+
+    out_dir = tempfile.mkdtemp(prefix="world-")
+    cmd = [sys.executable, "-m", "dlti_tpu_torch.launcher", "--one-device",
+           "--num-processes", str(ranks), "--port", str(free_port()), "--",
+           sys.executable, str(ROOT / "chip_smoke.py"), flag, out_dir]
+    # Output to a file: nothing reads a pipe while the phases beside it run.
+    with open(Path(out_dir) / "world.log", "w") as f:
+        proc = subprocess.Popen(cmd, cwd=ROOT, stdout=f, stderr=subprocess.STDOUT,
+                                env=dict(os.environ, PYTHONPATH=str(ROOT)))
+    return {"proc": proc, "dir": out_dir, "ranks": ranks, "t0": time.perf_counter()}
+
+
+def finish_world(world: dict, tag: str, abort: bool = False) -> list:
+    """Wait for a :func:`start_world` world (at most 600 s from its start)
+    and return its ranks' results, each with the world's wall clock and the
+    launcher's lines saying how each rank joined; ``abort``: stop it at once (a phase
+    beside it failed). Every process it started is gone on return."""
+    import shutil
+
+    proc, out_dir = world["proc"], Path(world["dir"])
+    try:
+        if abort:
+            return []
+        proc.wait(timeout=max(1.0, 600 - (time.perf_counter() - world["t0"])))
+        world_s = time.perf_counter() - world["t0"]
+        out = (out_dir / "world.log").read_text()
+        check(proc.returncode == 0,
+              f"{tag} the world of {world['ranks']} exited {proc.returncode}:\n" + out[-8000:])
+        joined = [ln for ln in out.splitlines()
+                  if ln.startswith("rank ") and "process group over" in ln]
+        ranks = [json.load(open(out_dir / f"rank{r}.json")) for r in range(world["ranks"])]
+        return [dict(r, world_s=world_s, joined=joined) for r in ranks]
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        shutil.rmtree(out_dir, ignore_errors=True)
+
+
+def phase_zero3(train_perf, card, pp_refs, ranks):
+    """Phase 23, ZeRO-3 with the model axes on one card (run last): the
+    results of the world of four ranks (:func:`start_world`, run
+    beside phase 17), held to phase 7's eager step ((a)) and to phase 22's
+    references ((b): ``pp_refs``, the 8 x 1 reference and one rank's step
+    on (b)'s microbatches)."""
+    perf = {"card": card, "world_s": ranks[0]["world_s"]}
+    check(all(r["backend"] == "gloo" and r["device"] == "cuda:0" for r in ranks),
+          f"[zero3] the ranks ran {[(r['backend'], r['device']) for r in ranks]}")
+    refs = {"tp": {"losses": train_perf["eager"]["losses"][:ZERO3_STEPS],
+                   "grad_norms": train_perf["eager"]["grad_norms"][:ZERO3_STEPS],
+                   "name": "phase 7's eager step"},
+            "pp": dict(pp_refs["zero3_pp"], name="one rank on the same microbatches")}
+    want = {"tp": (MODEL_LAYERS, flash_expected(MODEL_LAYERS, 2, ZERO3_STEPS)),
+            "pp": (MODEL_LAYERS // 2,
+                   flash_expected(MODEL_LAYERS // 2, ZERO3_PP_ACCUM, ZERO3_STEPS))}
+    for kind, tag in (("tp", "(a) fsdp 2 x tensor 2"), ("pp", "(b) fsdp 2 x pipe 2")):
+        got, ref = ranks[0][kind], refs[kind]
+        check(all(r[kind]["losses"] == got["losses"]
+                  and r[kind]["grad_norms"] == got["grad_norms"] for r in ranks),
+              f"[zero3] {tag}: the ranks' losses or grad norms differ")
+        check(all(r[kind]["strategy"] == "zero3" if kind == "tp" else
+                  r[kind]["strategy"] == "pipe2" for r in ranks)
+              and got["world"] == 4, f"[zero3] {tag}: {got['strategy']} over {got['world']}")
+        dl = rel_diff(got["losses"], ref["losses"])
+        dg = rel_diff(got["grad_norms"], ref["grad_norms"])
+        shares = [r[kind]["rest_gb"] / r[kind]["whole_gb"] for r in ranks]
+        layers, launches = want[kind]
+        perf[kind] = {
+            "losses": got["losses"], "grad_norms": got["grad_norms"],
+            "reference": ref["name"], "reference_losses": ref["losses"],
+            "reference_grad_norms": ref["grad_norms"], "loss_rel": dl, "grad_norm_rel": dg,
+            "step_times_s": [r[kind]["step_times_s"] for r in ranks],
+            "rest_gb": [r[kind]["rest_gb"] for r in ranks], "whole_gb": got["whole_gb"],
+            "rest_share": shares, "peaks_gb": [r[kind]["peak_gb"] for r in ranks],
+            "launches_a_rank": [r[kind]["launches"] for r in ranks],
+            "draw_s": [r[kind]["draw_s"] for r in ranks],
+            "train_s": [r[kind]["train_s"] for r in ranks],
+            "q_kernel_shape": got["q_kernel_shape"]}
+        for r in ranks:
+            x = r[kind]
+            log(f"[zero3] {tag} rank {r['rank']}: parameters at rest {x['rest_gb']:.3f} GB "
+                f"of the model's {x['whole_gb']:.3f} GB ({x['rest_gb'] / x['whole_gb']:.4f}), "
+                f"peak {x['peak_gb']:.2f} GB, step {x['step_times_s']} s, K1-K3 "
+                f"{x['launches']}, q_proj kernel {x['q_kernel_shape']}; card {card}")
+        log(f"[zero3] {tag} LoRA r=16, {ZERO3_STEPS} eager step over gloo: losses "
+            f"{got['losses']} ({ref['name']} {ref['losses']}, relative {dl:.2e}), grad "
+            f"norms {got['grad_norms']} ({ref['grad_norms']}, {dg:.2e})")
+        check(dl <= ZERO3_RTOL and dg <= ZERO3_RTOL,
+              f"[zero3] {tag}: loss {dl:.2e} / grad norm {dg:.2e} beyond {ZERO3_RTOL}")
+        lo, hi = ZERO3_REST_SHARE
+        check(all(lo <= x <= hi for x in shares),
+              f"[zero3] {tag}: parameter bytes at rest {shares} of the model's, not "
+              f"within {ZERO3_REST_SHARE}")
+        check(all(r[kind]["launches"] == launches and r[kind]["layers"] == layers
+                  for r in ranks),
+              f"[zero3] {tag}: flash launches by rank {perf[kind]['launches_a_rank']} "
+              f"(layers {[r[kind]['layers'] for r in ranks]}), expected {launches}")
+    # (a) holds half of q_proj's heads, and half of those rows.
+    check(perf["tp"]["q_kernel_shape"] == [2048, 2048],
+          f"[zero3] (a) rank 0 holds q_proj as {perf['tp']['q_kernel_shape']}")
+    p22 = pp_refs["pp"]["losses"][:ZERO3_STEPS]
+    d22 = rel_diff(perf["pp"]["losses"], p22)
+    perf["pp"].update(phase22_losses=p22, phase22_loss_rel=d22)
+    log(f"[zero3] (b) loss against phase 22 (b)'s 8 x 1 reference on the same rows "
+        f"{p22}: relative {d22:.2e}")
+    check(d22 <= ZERO3_RTOL, f"[zero3] (b) loss {d22:.2e} off phase 22 (b)'s")
+    perf["launches"] = {name: perf["tp"]["launches_a_rank"][0][name]
+                        + perf["pp"]["launches_a_rank"][0][name]
+                        for name in perf["tp"]["launches_a_rank"][0]}
+    perf["start_s"] = [r["start_s"] for r in ranks]
+    log(f"[zero3] the world of 4 took {perf['world_s']:.1f} s (beside phase 17); "
+        f"card {card}")
+    perf["across_cards"] = zero3_across_cards()
+    return perf
+
+
+# Phase 23 (d)'s card tests: their cases, and the most seconds they may take.
+ACROSS_CARDS_CASES = 9
+ACROSS_CARDS_TIMEOUT_S = 900
+
+
+def zero3_across_cards() -> dict:
+    """Phase 23 (d): with four or more cards, ``tests/test_torch_cuda.py -k
+    across_cards`` as a subprocess (NCCL worlds of 2 and 4, a rank a card,
+    each step one CUDA graph: among them the five ZeRO-3 meshes, whose
+    ``fsdp`` gathers run a block ahead and whose reduce-scatters run inside
+    the capture), every case passed; with fewer, skipped and said so."""
+    import os
+
+    import torch
+
+    cards = torch.cuda.device_count()
+    if cards < 4:
+        log(f"[zero3] (d) {cards} card(s) visible: ZeRO-3's fsdp gathers over NCCL inside "
+            "a graph are not run here (tests/test_torch_cuda.py -k across_cards needs 4)")
+        return {"cards": cards, "run": False}
+    t0 = time.perf_counter()
+    cmd = [sys.executable, "-m", "pytest", "--noconftest", "-q", "-p", "no:cacheprovider",
+           "tests/test_torch_cuda.py", "-k", "across_cards"]
+    proc = subprocess.run(cmd, cwd=ROOT, env=dict(os.environ, PYTHONPATH=str(ROOT)),
+                          capture_output=True, text=True, timeout=ACROSS_CARDS_TIMEOUT_S)
+    tail = proc.stdout.strip().splitlines()[-1:] or [""]
+    passed = re.search(r"(\d+) passed", tail[0])
+    check(proc.returncode == 0 and passed and int(passed.group(1)) == ACROSS_CARDS_CASES
+          and "skipped" not in tail[0],
+          f"[zero3] (d) across_cards on {cards} cards exited {proc.returncode}: "
+          f"{proc.stdout[-3000:]}{proc.stderr[-2000:]}")
+    log(f"[zero3] (d) tests/test_torch_cuda.py -k across_cards on {cards} cards: {tail[0]} "
+        f"in {time.perf_counter() - t0:.1f} s")
+    return {"cards": cards, "run": True, "summary": tail[0]}
 
 
 def main() -> int:
@@ -5162,6 +5491,8 @@ def main() -> int:
         return fail(f"the dlti_tpu_torch package is not beside {__file__}")
     if sys.argv[1:2] == ["--tensor-rank"]:  # one rank of phase 21's world
         return tensor_rank_main(sys.argv[2])
+    if sys.argv[1:2] == ["--zero3-rank"]:  # one rank of phase 23's world
+        return zero3_rank_main(sys.argv[2])
     sys.path.insert(0, str(ROOT))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -5226,17 +5557,34 @@ def main() -> int:
                 engine.step()
             del engine
             free_memory(torch)
-        with lap("phase 12"):
-            phase_cli_round_trip(torch)
         with lap("phase 16"):
             zero_perf = phase_zero(torch, train_perf, card)
             free_memory(torch)
-        with lap("phase 17"):
-            quickstart_perf = phase_quickstart(torch, card, flush)
-            free_memory(torch)
-        with lap("phase 18"):
-            features_perf = phase_features(torch, card)
-            free_memory(torch)
+        with lap("phase 17 (phase 12 and phase 23's world beside it)"):
+            # Both mostly wait on subprocesses or gloo, as phase 17 does on
+            # its CLIs: run together, they share the wait.
+            world23 = start_world("--zero3-rank", 4)
+            cli12 = Beside(phase_cli_round_trip, torch)
+            try:
+                quickstart_perf = phase_quickstart(torch, card, flush)
+                free_memory(torch)
+                phase_times["phase 12 (ran beside phase 17)"] = cli12.join()
+            except BaseException:
+                cli12.join(quiet=True)
+                finish_world(world23, "[zero3]", abort=True)
+                raise
+            zero3_ranks = finish_world(world23, "[zero3]")
+        with lap("phase 18 (phase 21's world beside it)"):
+            # Phase 21's world waits on gloo; phase 18 leaves the card room
+            # (8 layers), unlike phases 19-20.
+            world21 = start_world("--tensor-rank", 2)
+            try:
+                features_perf = phase_features(torch, card)
+                free_memory(torch)
+            except BaseException:
+                finish_world(world21, "[tensor]", abort=True)
+                raise
+            tensor_ranks = finish_world(world21, "[tensor]")
         with lap("phase 19"):
             hf_perf = phase_hf_adapters(torch, card)
             free_memory(torch)
@@ -5244,11 +5592,14 @@ def main() -> int:
             mixtral_perf = phase_mixtral(torch, card)
             free_memory(torch)
         with lap("phase 21"):
-            tensor_perf = phase_tensor(torch, engine_perf, train_perf, card)
+            tensor_perf = phase_tensor(torch, engine_perf, train_perf, card, tensor_ranks)
             free_memory(torch)
         with lap("phase 22"):
             seqpipe_perf = phase_seqpipe(torch, train_perf, card,
                                          tensor_perf.pop("seqpipe_ranks"))
+        with lap("phase 23 (its world ran beside phase 17)"):
+            zero3_perf = phase_zero3(train_perf, card, seqpipe_perf.pop("references"),
+                                     zero3_ranks)
     except CheckFailed as e:
         return fail(str(e))
     mix_serve, mix_train = mixtral_perf["serve"], mixtral_perf["train"]
@@ -5325,7 +5676,8 @@ def main() -> int:
         for name, replaces in FLASH_REPLACES.items():
             extra = {} if suffix else {"mixtral_launches": mixtral_flash[name],
                                        "tensor_launches": tensor_perf["launches"][name],
-                                       "pipe_stage_launches": seqpipe_perf["launches"][name]}
+                                       "pipe_stage_launches": seqpipe_perf["launches"][name],
+                                       "zero3_launches": zero3_perf["launches"][name]}
             kernels.append({
                 "name": name + suffix,
                 "design": at[name]["design"],
@@ -5385,6 +5737,7 @@ def main() -> int:
     log("[mixtral] summary " + json.dumps(mixtral_perf))
     log("[tensor] summary " + json.dumps(tensor_perf))
     log("[seqpipe] summary " + json.dumps(seqpipe_perf))
+    log("[zero3] summary " + json.dumps(zero3_perf))
     log("[time] summary " + json.dumps(phase_times))
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)

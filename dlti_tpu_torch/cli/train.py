@@ -89,23 +89,25 @@ microbatch. ``--offload-optimizer`` and ``--offload-params`` keep the
 optimizer moments and the frozen base in pinned host memory. Under the
 launcher rank 0 alone logs, writes checkpoints (consolidated) and the
 export, and prints the summary. ``--tensor N`` splits heads, MLP hidden
-units and the vocabulary over N ranks (alone or with a batch extent:
-baseline, ZeRO-1, ZeRO-2; ``parallel.tensor``). ``--expert N`` splits a mixture of
-experts' experts over N ranks (``--model mixtral_tiny``, ``mixtral_8x7b``);
-the world is then ``N`` times the DP/FSDP extent, which ``--num-devices``
-sets (0: the world over ``N``), as the reference's ``scripts/train.py``
-sizes it; ``--expert`` with ``zero3`` raises. ``--sequence N`` splits
-every row's tokens over N ranks, attention running the ring
-(``parallel.ring_attention``; the batch extent is then the world over
-``--tensor * --sequence * --expert``). ``--pipe P`` splits the layers into
-P GPipe stages (``parallel.pipeline``), the microbatches being
+units and the vocabulary over N ranks (``parallel.tensor``). ``--expert N``
+splits a mixture of experts' experts over N ranks (``--model
+mixtral_tiny``, ``mixtral_8x7b``). ``--sequence N`` splits every row's
+tokens over N ranks, attention running the ring
+(``parallel.ring_attention``). Without ``--pipe`` the batch extent (``data``,
+or ``fsdp`` under ``zero3``) is ``--num-devices``, 0 meaning the world over
+``--tensor * --sequence * --expert``, as the reference's
+``scripts/train.py`` sizes it. ``--pipe P`` splits the layers into P GPipe
+stages (``parallel.pipeline``), the microbatches being
 ``--gradient-accumulation-steps``; under it ``--data D`` is the batch-row
-extent and ``--num-devices``, when given, must equal ``P * tensor *
+extent (``fsdp`` under ``zero3``, which then needs D above 1, as in the
+reference) and ``--num-devices``, when given, must equal ``P * tensor *
 sequence * expert * D``; ``--data`` without ``--pipe`` raises, as in the
-reference. Not ported, each raising by name: ``--tensor`` with ``zero3``,
-``--expert`` or offload; ``--sequence`` or ``--pipe`` with ``zero3`` or
-offload; ``--pipe`` with ``--sequence``; ``--sequence`` with a mixture of
-experts.
+reference. ``zero3`` shards each leaf over its own ``fsdp`` axis, on a dim
+the tensor and expert axes leave free (``parallel.sharding.strategy_axes``),
+so it composes with every model axis; at an ``fsdp`` extent of 1 nothing is
+sharded. Not ported, each raising by name: offload with ``--tensor``,
+``--sequence`` or ``--pipe``; ``--tensor`` with ``--expert``; ``--pipe``
+with ``--sequence``; ``--sequence`` with a mixture of experts.
 
     # sequence parallelism over 2 ranks, then a pipeline of 2 stages (gloo
     # on the CPU; on one card drop --device cpu and give the launcher
@@ -119,6 +121,17 @@ experts.
         python -m dlti_tpu_torch.cli.train --device cpu --model llama_tiny \\
         --pipe 2 --data 1 --tokenizer byte --dataset-path data/ --max-seq-len 64 \\
         --gradient-accumulation-steps 4 --max-steps 4 --save-strategy no
+    # ZeRO-3 over fsdp 2 beside tensor 2 (the README's --preset zero3
+    # --tensor 2), and over fsdp 2 under pipe 2
+    python -m dlti_tpu_torch.launcher --num-processes 4 -- \\
+        python -m dlti_tpu_torch.cli.train --device cpu --model llama_tiny \\
+        --preset zero3 --tensor 2 --tokenizer byte --dataset-path data/ \\
+        --max-seq-len 64 --max-steps 4 --save-strategy no
+    python -m dlti_tpu_torch.launcher --num-processes 4 -- \\
+        python -m dlti_tpu_torch.cli.train --device cpu --model llama_tiny \\
+        --preset zero3 --pipe 2 --data 2 --tokenizer byte --dataset-path data/ \\
+        --max-seq-len 64 --gradient-accumulation-steps 4 --max-steps 4 \\
+        --save-strategy no
 """
 
 from __future__ import annotations

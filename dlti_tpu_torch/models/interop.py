@@ -28,13 +28,14 @@ without copying.
 
 * :func:`shard_params` — a rank's part of a whole tree (from
   :func:`init_params`, :func:`params_from_jax` or
-  ``load_hf_checkpoint``) under tensor parallelism
-  (``parallel.tensor.tensor_shard_dim``), int8 weights quantized whole and
-  then sliced; :func:`gather_params` gives the writer whole leaves again.
+  ``load_hf_checkpoint``) under a mesh, cut by the one placement rule
+  (``parallel.sharding.strategy_axes``): the tensor part (int8 weights
+  quantized whole, then sliced), this rank's experts of it, then its
+  ``fsdp`` shard of that; :func:`gather_params` gives whole leaves again.
   :func:`init_params` and :func:`init_params_int8` take the mesh too and
-  slice each leaf as it is drawn (whole from the shared generator, so
-  every rank draws the same model). ``load_model(..., tensor=)`` builds the
-  module at the rank's local widths around such a tree.
+  cut each leaf as it is drawn (whole from the shared generator, so every
+  rank draws the same model). ``load_model(..., mesh=)`` builds the module
+  at the rank's local widths around such a tree.
 """
 
 from __future__ import annotations
@@ -52,7 +53,7 @@ from dlti_tpu_torch.models.lora import is_lora_name
 from dlti_tpu_torch.models.quantization import (
     install_quantized, quant_bases, quantize_int8, quantize_params_int8, should_quantize,
 )
-from dlti_tpu_torch.parallel.tensor import quant_normalized_name, tensor_shard_dim
+from dlti_tpu_torch.parallel.tensor import quant_normalized_name
 from dlti_tpu_torch.utils.device import resolve_device
 
 # flax's lecun_normal: a normal truncated at two standard deviations, scaled
@@ -138,14 +139,14 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None,
                 lora: Optional[LoRAConfig] = None, mesh=None) -> Dict[str, torch.Tensor]:
     """Random weights for ``cfg`` at full width, made on ``device`` (the card
     unless named) from ``torch.Generator(device).manual_seed(seed)``.
-    ``mesh``: keep this rank's part of each tensor-split leaf, sliced as it
-    is drawn (:func:`shard_params`), and under ``pipe`` only this stage's
+    ``mesh``: keep this rank's part of each leaf, cut as it is drawn
+    (:func:`shard_params`), and under ``pipe`` only this stage's
     layers, under their local names (``parallel.pipeline.stage_params``;
     every leaf is still drawn, so every stage draws the same model)."""
     out: Dict[str, torch.Tensor] = {}
     for name, t in _draw_params(cfg, seed, device, lora, mesh):
-        if mesh is not None and mesh.tensor_parallel:
-            out.update(_place(name, t, tuple(t.shape), mesh.tensor, quantize=False))
+        if mesh is not None and mesh.splits_leaves:
+            out.update(_rank_leaves(name, t, {name: tuple(t.shape)}, mesh, quantize=False))
         else:
             out[name] = t
         del t
@@ -162,8 +163,8 @@ def init_params_int8(cfg: ModelConfig, seed: int = 0, device=None,
     quantized whole, then this rank keeps its part (:func:`shard_params`)."""
     out: Dict[str, torch.Tensor] = {}
     for name, t in _draw_params(cfg, seed, device, lora, mesh):
-        if mesh is not None and mesh.tensor_parallel:
-            out.update(_place(name, t, tuple(t.shape), mesh.tensor, quantize=True))
+        if mesh is not None and mesh.splits_leaves:
+            out.update(_rank_leaves(name, t, {name: tuple(t.shape)}, mesh, quantize=True))
         else:
             out.update(quantize_params_int8({name: t}, donate=True))
         del t
@@ -186,56 +187,43 @@ def _leaf_shape(name: str, whole: Mapping[str, tuple]) -> tuple:
     return w if name.endswith(".q") else w[:-2] + (1, w[-1])
 
 
-def _part(t: torch.Tensor, d: Optional[int], axis) -> torch.Tensor:
-    """Rank ``axis.rank``'s part of the whole ``t`` along ``d`` (a copy),
-    or ``t``."""
-    if d is None or axis.world == 1:
-        return t
-    n = t.shape[d] // axis.world
-    return t.narrow(d, axis.rank * n, n).clone()
-
-
-def _place(name: str, t: torch.Tensor, whole: tuple, axis, quantize: bool
-           ) -> Dict[str, torch.Tensor]:
-    """Leaf ``name`` (whole shape ``whole``) as this tensor rank holds it:
-    its part along the rule's dim when ``t`` is whole, ``t`` itself when it
-    is already the part; with ``quantize``, a weight
+def _rank_leaves(name: str, t: torch.Tensor, whole: Mapping[str, tuple], mesh,
+                 quantize: bool) -> Dict[str, torch.Tensor]:
+    """Leaf ``name`` (whole, its tensor part, or this rank's part already)
+    as this rank holds it, cut by the one placement rule
+    (``parallel.sharding.cut_to_part``). With ``quantize``, a weight
     :func:`~dlti_tpu_torch.models.quantization.should_quantize` selects is
-    quantized whole first, and both leaves of the pair are sliced."""
-    d = tensor_shard_dim(name, whole, axis.world)
-    local = list(whole)
-    if d is not None:
-        local[d] //= axis.world
-    shape = tuple(t.shape)
-    if shape not in (whole, tuple(local)):
-        raise ValueError(f"{name}: shape {shape} is neither the whole leaf's {whole} "
-                         f"nor a tensor rank's part {tuple(local)}")
-    is_whole = shape == whole or d is None
+    quantized whole first (a part's scales would span part of its
+    contraction dim), then each leaf of the pair is cut by its own rule."""
+    from dlti_tpu_torch.parallel.sharding import cut_to_part
+
+    shape = _leaf_shape(name, whole)
     if quantize and should_quantize(name, t):
-        if not is_whole:
-            raise ValueError(f"{name}: an int8 weight is quantized whole, then sliced "
-                             "(a part's scales would span part of its contraction dim); "
-                             "pass whole weights or init_params_int8(mesh=)")
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name}: an int8 weight is quantized whole, then cut; got "
+                             f"{tuple(t.shape)} of {shape} (pass whole weights or "
+                             "init_params_int8(mesh=))")
         q, scale = quantize_int8(t)
-        return {f"{name}.q": _part(q, tensor_shard_dim(f"{name}.q", q.shape, axis.world), axis),
-                f"{name}.scale": _part(scale, tensor_shard_dim(f"{name}.scale", scale.shape,
-                                                               axis.world), axis)}
-    return {name: _part(t, d, axis) if is_whole else t}
+        return {n: cut_to_part(n, p, _leaf_shape(n, whole), mesh)
+                for n, p in ((f"{name}.q", q), (f"{name}.scale", scale))}
+    return {name: cut_to_part(name, t, shape, mesh)}
 
 
 def shard_params(params, mesh, cfg: ModelConfig, lora: Optional[LoRAConfig] = None, *,
                  device=None, quantize: bool = False, donate: bool = False
                  ) -> Dict[str, torch.Tensor]:
-    """This tensor rank's tree of ``params`` under ``mesh`` (a leaf already
-    at the rank's part passes as it is), each leaf moved to ``device``
-    (default: where it lies) first. ``quantize``: the weights
+    """This rank's tree of ``params`` (whole leaves, or a tensor rank's
+    parts) under ``mesh``, cut by the one placement rule
+    (``parallel.sharding.strategy_axes``): the tensor part, this rank's
+    experts of it, then its ``fsdp`` shard of that; each leaf moved to
+    ``device`` (default: where it lies) first. ``quantize``: the weights
     ``quantize_params_int8`` selects become int8 pairs, each quantized
     whole and then sliced (a column-parallel weight's scales split with its
     output channels, a row-parallel one's held whole, as the reference's
     ``_quant_normalized_path`` places them). ``donate``: each source leaf
-    is popped as it is placed. Without a tensor group, ``params`` as they
-    are."""
-    if not mesh.tensor_parallel:
+    is popped as it is placed. When the mesh cuts nothing, ``params`` as
+    they are."""
+    if not mesh.splits_leaves:
         return dict(params)
     whole = _whole_shapes(cfg, lora)
     done = quant_bases(params)
@@ -244,26 +232,25 @@ def shard_params(params, mesh, cfg: ModelConfig, lora: Optional[LoRAConfig] = No
         t = params.pop(name) if donate else params[name]
         if device is not None:
             t = t.to(device)
-        out.update(_place(name, t, _leaf_shape(name, whole), mesh.tensor,
-                          quantize and name.rpartition(".")[0] not in done
-                          and quant_normalized_name(name) == name))
+        out.update(_rank_leaves(name, t, whole, mesh,
+                                quantize and name.rpartition(".")[0] not in done
+                                and quant_normalized_name(name) == name))
         del t
     return out
 
 
 def gather_params(params: Mapping[str, torch.Tensor], mesh, cfg: ModelConfig,
                   lora: Optional[LoRAConfig] = None) -> Dict[str, torch.Tensor]:
-    """The whole tree from every tensor rank's :func:`shard_params` parts
-    (a collective over the tensor group; every rank gets it, in host
-    memory, leaf after leaf), for an export or a checkpoint."""
-    if not mesh.tensor_parallel:
+    """The whole tree from every rank's :func:`shard_params` parts (a
+    collective over each axis that splits a leaf; every rank gets it, in
+    host memory, leaf after leaf), for an export or a checkpoint."""
+    if not mesh.splits_leaves:
         return dict(params)
-    from dlti_tpu_torch.parallel.sharding import gather_whole
+    from dlti_tpu_torch.parallel.sharding import gather_whole, leaf_axes, ordered_axes
 
     whole = _whole_shapes(cfg, lora)
-    axis = mesh.tensor
-    return {name: gather_whole(t, tensor_shard_dim(name, _leaf_shape(name, whole), axis.world),
-                               axis)
+    return {name: gather_whole(t, ordered_axes(leaf_axes(name, _leaf_shape(name, whole),
+                                                         mesh), mesh))
             for name, t in params.items()}
 
 
@@ -306,14 +293,15 @@ def _draw_params(cfg: ModelConfig, seed: int, device, lora: Optional[LoRAConfig]
 
 def load_model(cfg: ModelConfig, params: Mapping[str, torch.Tensor],
                device=None, lora: Optional[LoRAConfig] = None,
-               trainable_lora: bool = False, tensor=None,
+               trainable_lora: bool = False, mesh=None,
                stage: Tuple[int, int] = (0, 1)) -> LlamaForCausalLM:
     """A ``LlamaForCausalLM`` on ``device`` whose parameters are ``params``
     (moved there if they are elsewhere; not copied if they are already).
     A weight ``params`` holds quantized (``{name}.q`` and ``{name}.scale``,
     ``models.quantization``) becomes a ``QuantizedWeight`` of the module.
-    ``tensor`` (``Mesh.tensor``): ``params`` is a tensor rank's tree
-    (:func:`shard_params`), and the module runs at its local widths.
+    ``mesh``: ``params`` is this rank's tree under it (:func:`shard_params`),
+    each leaf its part by the placement rule; the module holds those parts
+    and runs at its tensor rank's local widths.
     ``stage`` ``(k, P)``: ``params`` is pipeline stage ``k``'s tree
     (``parallel.pipeline.stage_params``), and the module holds its layers.
 
@@ -323,15 +311,18 @@ def load_model(cfg: ModelConfig, params: Mapping[str, torch.Tensor],
     device = resolve_device(device)
     model = LlamaForCausalLM(cfg, lora, device="meta", stage=stage)
     install_quantized(model, quant_bases(params))
-    if tensor is not None:
+    if mesh is not None and mesh.splits_leaves:
+        from dlti_tpu_torch.parallel.sharding import leaf_axes, local_shape
+
         for name, p in list(model.named_parameters()):
-            d = tensor_shard_dim(name, p.shape, tensor.world)
-            if d is not None:
+            local = local_shape(p.shape, leaf_axes(name, tuple(p.shape), mesh), mesh)
+            if local != tuple(p.shape):
                 prefix, _, leaf = name.rpartition(".")
                 owner = model.get_submodule(prefix) if prefix else model
                 setattr(owner, leaf, torch.nn.Parameter(
-                    p.narrow(d, 0, p.shape[d] // tensor.world), requires_grad=False))
-        model.set_tensor_axis(tensor)
+                    torch.empty(local, dtype=p.dtype, device="meta"), requires_grad=False))
+    if mesh is not None and mesh.tensor_parallel:
+        model.set_tensor_axis(mesh.tensor)
     state = {k: v.to(device) for k, v in params.items()}
     model.load_state_dict(state, assign=True, strict=True)
     for name, p in model.named_parameters():

@@ -42,7 +42,7 @@ global layers'), and ``parallel.pipeline`` drives its parts
 GPipe schedule.
 
 Tensor parallelism (:meth:`LlamaForCausalLM.set_tensor_axis`, after the
-leaves were split by ``parallel.tensor.tensor_shard_dim``): each rank holds
+leaves were split by ``parallel.sharding.strategy_axes``): each rank holds
 ``num_heads / tp`` query heads and ``num_kv_heads / tp`` KV heads (its
 paged pools too), ``intermediate_size / tp`` MLP hidden units (a mixture
 of experts: of every expert) and ``vocab_size / tp`` rows of the embedding
@@ -368,22 +368,22 @@ class LlamaModel(nn.Module):
         cfg = self.cfg
         dtype = resolve_dtype(cfg.dtype)
         fetcher = self.fetcher
+        emb = self.embed_tokens
+        scale = None
+        if isinstance(emb, QuantizedWeight):
+            table, scale = ((emb.q, emb.scale) if fetcher is None
+                            else (fetcher.leaf("model.embed_tokens.q"),
+                                  fetcher.leaf("model.embed_tokens.scale")))
+        else:
+            table = emb if fetcher is None else fetcher.leaf("model.embed_tokens")
         if self.tp is not None:
-            emb = self.embed_tokens
-            quantized = isinstance(emb, QuantizedWeight)
-            x = vocab_embedding(input_ids, emb.q if quantized else emb, self.tp,
-                                emb.scale if quantized else None, dtype)
-        elif isinstance(self.embed_tokens, QuantizedWeight):
+            x = vocab_embedding(input_ids, table, self.tp, scale, dtype)
+        elif scale is not None:
             # int8: gather the rows, then scale them in the compute dtype,
             # as the reference does.
-            q, scale = ((self.embed_tokens.q, self.embed_tokens.scale) if fetcher is None
-                        else (fetcher.leaf("model.embed_tokens.q"),
-                              fetcher.leaf("model.embed_tokens.scale")))
-            x = q[input_ids].to(dtype) * scale.to(dtype)
+            x = table[input_ids].to(dtype) * scale.to(dtype)
         else:
-            embed = (self.embed_tokens if fetcher is None
-                     else fetcher.leaf("model.embed_tokens"))
-            x = embed[input_ids].to(dtype)
+            x = table[input_ids].to(dtype)
         if cfg.embedding_scale:  # Gemma: scaled by sqrt(hidden) in the compute dtype
             # A CPU scalar: no host-to-device copy, which a CUDA graph refuses.
             x = x * torch.tensor(cfg.hidden_size ** 0.5, dtype=dtype)
@@ -562,6 +562,10 @@ class LlamaForCausalLM(nn.Module):
                 cfg.hidden_size, cfg.vocab_size,
                 dtype=resolve_dtype(cfg.param_dtype), device=device),
                 requires_grad=False)
+        # Every leaf's whole shape, whatever part of it a parallel layout
+        # later leaves this module (parallel.sharding.plan_layout reads it).
+        self.whole_shapes: Dict[str, Tuple[int, ...]] = {
+            n: tuple(p.shape) for n, p in self.named_parameters()}
 
     def forward(self, input_ids, positions=None, segment_ids=None, cache=None,
                 block_tables=None, dropout_seed=None, dropout_row_offset: int = 0,

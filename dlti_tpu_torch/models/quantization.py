@@ -176,12 +176,17 @@ def install_quantized(model: nn.Module, bases: Iterable[str]) -> None:
     """Replace each weight parameter named in ``bases`` by a
     :class:`QuantizedWeight` of its shape on its device (a ``meta`` model's
     slots, before ``load_state_dict``)."""
+    whole = getattr(model, "whole_shapes", None)
     for base in bases:
         prefix, _, leaf = base.rpartition(".")
         owner = model.get_submodule(prefix) if prefix else model
         old = getattr(owner, leaf)
         delattr(owner, leaf)
-        setattr(owner, leaf, QuantizedWeight(old.shape, device=old.device))
+        new = QuantizedWeight(old.shape, device=old.device)
+        setattr(owner, leaf, new)
+        if whole is not None:
+            del whole[base]
+            whole.update({f"{base}.{n}": tuple(p.shape) for n, p in new.named_parameters()})
 
 
 def weight_of(attr, name: str, fetcher, dtype: Optional[torch.dtype]):

@@ -15,21 +15,22 @@ of the ``torch.distributed`` process group, which
 ``launcher.maybe_initialize_from_env`` joins. Ranks are laid out in the
 reference's axis order (data, fsdp, tensor, sequence, pipe, expert), the
 last axis varying fastest: rank ``r`` is expert rank ``r % expert``, pipe
-rank ``(r // expert) % pipe``, sequence rank ``(r // (expert * pipe)) %
-sequence``, tensor rank ``(r // (expert * pipe * sequence)) % tensor`` and
-batch rank ``r // (expert * pipe * sequence * tensor)``. With an axis above
-1, :func:`build_mesh` forms a process subgroup per axis and rank of the
-others (``torch.distributed.new_group``), the batch axes' too; the whole
-world stays the group of everything else. A tensor group of one can be
-asked for (``build_mesh(..., tensor_group=True)``): the model then takes
+rank ``(r // expert) % pipe``, and so on out to data rank ``r // (fsdp *
+tensor * sequence * pipe * expert)``; its batch rank (the rows it takes) is
+``data rank * fsdp + fsdp rank``. With an axis above 1 that is not the whole
+world, :func:`build_mesh` forms a process subgroup per axis and rank of the
+others (``torch.distributed.new_group``), the batch axes' together too; the
+whole world stays the group of everything else. A tensor group of one can
+be asked for (``build_mesh(..., tensor_group=True)``): the model then takes
 the tensor-parallel path at extent 1, its collectives issued on a group of
 one, as ZeRO's run at a world of 1. :func:`build_mesh` checks the strategy
 against the world with the reference trainer's legality rules
 (``dlti_tpu/training/trainer.py:73-169``) and raises for what the port
-cannot run: ``data`` and ``fsdp`` both above 1, ``fsdp`` with ``expert``
-above 1, ``tensor`` above 1 with ZeRO-3, ``expert`` or host offload, and
-``sequence`` or ``pipe`` above 1 with ZeRO-3, host offload, ``expert``
-(sequence only) or each other.
+cannot run: host offload with ``tensor``, ``sequence`` or ``pipe`` above 1,
+``sequence`` with ``pipe`` or ``expert`` above 1, and ``tensor`` with
+``expert`` above 1. ZeRO-3 shards over its own ``fsdp`` axis
+(``parallel.sharding.strategy_axes``), so it runs with every model axis and
+beside ``data``.
 
 The entry points own the process group: the launcher's env, or
 ``launcher.init_group_of_one`` for a ZeRO strategy run without it.
@@ -62,13 +63,19 @@ class Mesh:
     """One rank's view of the world: the strategy (with its extents), the
     world size, this process's rank and device, and the process group
     (None: one process and no collectives, the baseline's single-device
-    path). With a model axis above 1, ``batch_group``, ``tensor_group``,
-    ``sequence_group``, ``pipe_group`` and ``expert_group`` are this rank's
-    subgroups of the axes (:attr:`batch`, :attr:`tensor`, :attr:`sequence`,
-    :attr:`pipe`, :attr:`experts`); ``tensor_group`` may also be a group of
-    one (the tensor-parallel path at extent 1). ``control_group``: the
-    tensor group again over gloo, for the host messages a tensor-parallel
-    engine sends its followers."""
+    path). ``data_group``, ``fsdp_group``, ``batch_group`` (the two
+    together), ``tensor_group``, ``sequence_group``, ``pipe_group`` and
+    ``expert_group`` are this rank's subgroups of the axes (:attr:`data`,
+    :attr:`fsdp`, :attr:`batch`, :attr:`tensor`, :attr:`sequence`,
+    :attr:`pipe`, :attr:`experts`), formed for an axis above 1 that is not
+    the whole world; ``tensor_group`` may also be a group of one (the
+    tensor-parallel path at extent 1). ``control_group``: the tensor group
+    again over gloo, for the host messages a tensor-parallel engine sends
+    its followers.
+
+    A view of an axis whose extent is the whole world runs on the world's
+    group; a view of extent 1 in a larger world has no group (a sum over
+    it is the identity, :func:`axis_sum_`)."""
 
     parallel: ParallelConfig
     world: int
@@ -81,6 +88,8 @@ class Mesh:
     control_group: Optional["dist.ProcessGroup"] = None
     sequence_group: Optional["dist.ProcessGroup"] = None
     pipe_group: Optional["dist.ProcessGroup"] = None
+    data_group: Optional["dist.ProcessGroup"] = None
+    fsdp_group: Optional["dist.ProcessGroup"] = None
 
     @property
     def ep(self) -> int:
@@ -111,25 +120,34 @@ class Mesh:
     def _view(self, **kw) -> "Mesh":
         return dataclasses.replace(self, batch_group=None, expert_group=None,
                                    tensor_group=None, control_group=None,
-                                   sequence_group=None, pipe_group=None, **kw)
+                                   sequence_group=None, pipe_group=None, data_group=None,
+                                   fsdp_group=None, **kw)
 
     def _axis_rank(self, axis: str) -> int:
-        """This rank's coordinate on model axis ``axis``."""
+        """This rank's coordinate on axis ``axis``."""
         stride = 1
-        for a in reversed(_MODEL_AXES):
+        for a in reversed(MESH_AXES):
             n = getattr(self.parallel, a)
             if a == axis:
                 return (self.rank // stride) % n
             stride *= n
         raise KeyError(axis)
 
+    def _axis_view(self, axis: str, subgroup) -> "Mesh":
+        """The view of batch axis ``axis`` (``data`` or ``fsdp``): its own
+        subgroup, the world's group when it spans the world, else none."""
+        n = getattr(self.parallel, axis)
+        group = subgroup if subgroup is not None else (self.group if n == self.world else None)
+        return self._view(parallel=ParallelConfig(), world=n, rank=self._axis_rank(axis),
+                          group=group)
+
     @property
     def batch(self) -> "Mesh":
-        """This rank's view of the batch axes alone: the ranks that hold its
-        tensor, sequence, pipe and expert ranks, which split the batch rows,
-        reduce gradients and shard ZeRO-1/2 moments (the whole mesh when
-        every model axis is 1). For collectives only: its rank 0 is not the
-        writer."""
+        """This rank's view of the batch axes together (``data`` times
+        ``fsdp``): the ranks that hold its tensor, sequence, pipe and expert
+        ranks, which split the batch rows (rank ``data rank * fsdp + fsdp
+        rank``) and reduce the loss's sums (the whole mesh when every model
+        axis is 1). For collectives only: its rank 0 is not the writer."""
         inner = self.ep * self.tp * self.sp * self.pp
         if inner == 1:
             return self
@@ -137,6 +155,19 @@ class Mesh:
                                                        sequence=1, pipe=1),
                           world=self.world // inner, rank=self.rank // inner,
                           group=self.batch_group)
+
+    @property
+    def data(self) -> "Mesh":
+        """This rank's view of the ``data`` axis: the replicas of its
+        parameter shards (ZeRO-1/2 shard the moments over it). For
+        collectives only."""
+        return self._axis_view("data", self.data_group)
+
+    @property
+    def fsdp(self) -> "Mesh":
+        """This rank's view of the ``fsdp`` axis: the ranks over which ZeRO-3
+        shards each parameter and its moments. For collectives only."""
+        return self._axis_view("fsdp", self.fsdp_group)
 
     @property
     def experts(self) -> "Mesh":
@@ -178,6 +209,18 @@ class Mesh:
         return ZeROStage(self.parallel.zero_stage)
 
     @property
+    def fsdp_extent(self) -> int:
+        """The extent ZeRO-3 shards parameters over: ``fsdp`` under ZeRO-3,
+        else 1 (the reference's ``param_pspec``)."""
+        return self.parallel.fsdp if self.zero_stage == ZeROStage.ZERO3 else 1
+
+    @property
+    def splits_leaves(self) -> bool:
+        """Whether the placement rule cuts any leaf under this mesh (a tensor
+        group, the experts split, or ZeRO-3 over ``fsdp``)."""
+        return self.tensor_parallel or self.ep > 1 or self.fsdp_extent > 1
+
+    @property
     def distributed(self) -> bool:
         """Whether the step runs collectives (a group exists, of any size)."""
         return self.group is not None
@@ -186,6 +229,15 @@ class Mesh:
     def is_writer(self) -> bool:
         """Rank 0: the one that logs, writes checkpoints and sidecars."""
         return self.rank == 0
+
+
+def axis_sum_(t: torch.Tensor, view: Mesh) -> torch.Tensor:
+    """Sum ``t`` over the ranks of axis view ``view``, in place; a view
+    without a group (extent 1 in a larger world, or no process group) is
+    the identity."""
+    if view.group is not None:
+        dist.all_reduce(t, op=dist.ReduceOp.SUM, group=view.group)
+    return t
 
 
 def fit_parallel_to_devices(cfg: ParallelConfig, n_devices: int) -> ParallelConfig:
@@ -216,57 +268,26 @@ def check_strategy(par: ParallelConfig, lora_enabled: bool = True) -> None:
     for axis in MESH_AXES:
         if getattr(par, axis) < 1:
             raise ValueError(f"{axis}={getattr(par, axis)}: an extent must be at least 1")
-    zero3 = par.fsdp > 1 or int(par.zero_stage) == 3
     offload = par.offload_optimizer or par.offload_params
-    for axis in ("sequence", "pipe"):
-        n = getattr(par, axis)
-        if n == 1:
-            continue
-        refused = []
-        if zero3:
-            refused.append(f"zero_stage={int(par.zero_stage)}, fsdp={par.fsdp} "
-                           f"({axis} x ZeRO-3)")
-        if offload:
-            refused.append(f"host offload ({axis} x offload)")
-        if axis == "sequence" and par.pipe > 1:
-            refused.append(f"pipe={par.pipe} (pipe x sequence: all-gather sequence "
-                           "parallelism inside the stages)")
-        if axis == "sequence" and par.expert > 1:
-            refused.append(f"expert={par.expert} (sequence x expert: routing over the "
-                           "global token order)")
-        if refused:
-            raise NotImplementedError(
-                f"{axis}={n} with {'; '.join(refused)}: not ported yet (see "
-                f"ROADMAP.md); {axis} parallelism runs with data, tensor"
-                f"{' and expert' if axis == 'pipe' else ''} (baseline, ZeRO-1, ZeRO-2)")
-    if par.tensor > 1:
-        with_tensor = []
-        if zero3:
-            with_tensor.append(f"zero_stage={int(par.zero_stage)}, fsdp={par.fsdp} "
-                               "(tensor x ZeRO-3)")
-        if par.expert > 1:
-            with_tensor.append(f"expert={par.expert} (tensor x expert)")
-        if offload:
-            with_tensor.append("host offload (tensor x offload)")
-        if with_tensor:
-            raise NotImplementedError(
-                f"tensor={par.tensor} with {'; '.join(with_tensor)}: not ported yet "
-                "(see ROADMAP.md); tensor parallelism runs alone or with data "
-                "(baseline, ZeRO-1, ZeRO-2)")
-    if par.expert > 1 and zero3:
-        # Whatever the fsdp extent: ZeRO-3 shards over the whole world,
-        # expert ranks included, which would split the experts twice.
+    refused = []
+    for axis in ("tensor", "sequence", "pipe"):
+        if getattr(par, axis) > 1 and offload:
+            refused.append(f"{axis}={getattr(par, axis)} with host offload ({axis} x offload)")
+    if par.sequence > 1 and par.pipe > 1:
+        refused.append(f"sequence={par.sequence} with pipe={par.pipe} (pipe x sequence: "
+                       "all-gather sequence parallelism inside the stages)")
+    if par.sequence > 1 and par.expert > 1:
+        refused.append(f"sequence={par.sequence} with expert={par.expert} (sequence x "
+                       "expert: routing over the global token order)")
+    if par.tensor > 1 and par.expert > 1:
+        refused.append(f"tensor={par.tensor} with expert={par.expert} (tensor x expert)")
+    if refused:
         raise NotImplementedError(
-            f"zero_stage={int(par.zero_stage)}, fsdp={par.fsdp} with "
-            f"expert={par.expert}: ZeRO-3 with expert parallelism (fsdp x "
-            "expert) is not ported yet (see ROADMAP.md)")
+            f"{'; '.join(refused)}: not ported yet (see ROADMAP.md); every other "
+            "combination of data, fsdp (ZeRO-3), tensor, sequence, pipe and expert runs")
     if par.fsdp > 1 and int(par.zero_stage) != 3:
         raise ValueError(f"fsdp={par.fsdp} without zero_stage=3 (the fsdp axis only "
                          "carries ZeRO-3 param sharding)")
-    if par.data > 1 and par.fsdp > 1:
-        raise NotImplementedError(
-            f"data={par.data} with fsdp={par.fsdp}: the port shards ZeRO-3 over "
-            "the whole world; a mixed data x fsdp mesh is not ported (see ROADMAP.md)")
     if par.offload_params and not lora_enabled:
         raise ValueError("offload_params without LoRA (it offloads the frozen base "
                          "params; a full fine-tune has none)")
@@ -279,11 +300,9 @@ def single_device_mesh(device) -> Mesh:
 
 def _axis_members(par: ParallelConfig, world: int, axis: str) -> list:
     """Every group of ranks that share all coordinates but ``axis``'s
-    (``"batch"``: the batch axes together), in one order."""
-    extents = [world // max(1, par.tensor * par.sequence * par.pipe * par.expert)]
-    extents += [getattr(par, a) for a in _MODEL_AXES]
-    names = ("batch",) + _MODEL_AXES
-    k = names.index(axis)
+    (``"batch"``: ``data`` and ``fsdp`` together), in one order."""
+    extents = [getattr(par, a) for a in MESH_AXES]
+    free = ("data", "fsdp") if axis == "batch" else (axis,)
     groups = {}
     for r in range(world):
         coords, rest = [], r
@@ -291,7 +310,7 @@ def _axis_members(par: ParallelConfig, world: int, axis: str) -> list:
             coords.append(rest % n)
             rest //= n
         coords.reverse()
-        key = tuple(c for i, c in enumerate(coords) if i != k)
+        key = tuple(c for a, c in zip(MESH_AXES, coords) if a not in free)
         groups.setdefault(key, []).append(r)
     return [groups[key] for key in sorted(groups)]
 
@@ -339,12 +358,14 @@ def build_mesh(par: ParallelConfig, device: torch.device,
     groups = {}
     inner = par.tensor * par.sequence * par.pipe * par.expert
     # Every rank forms every subgroup, in one order: the ranks that share
-    # all coordinates but the axis's.
+    # all coordinates but the axis's. An axis spanning the world runs on
+    # the world's group.
     axes = [a for a in ("expert", "sequence", "pipe") if getattr(par, a) > 1]
     if tensor_group:
         axes.append("tensor")
     if inner > 1:
         axes.append("batch")
+    axes += [a for a in ("data", "fsdp") if 1 < getattr(par, a) < world]
     for axis in axes:
         for ranks in _axis_members(par, world, axis):
             g = dist.new_group(ranks)
@@ -360,4 +381,5 @@ def build_mesh(par: ParallelConfig, device: torch.device,
                 group=dist.group.WORLD if initialized else None,
                 batch_group=groups.get("batch"), expert_group=groups.get("expert"),
                 tensor_group=groups.get("tensor"), control_group=groups.get("control"),
-                sequence_group=groups.get("sequence"), pipe_group=groups.get("pipe"))
+                sequence_group=groups.get("sequence"), pipe_group=groups.get("pipe"),
+                data_group=groups.get("data"), fsdp_group=groups.get("fsdp"))

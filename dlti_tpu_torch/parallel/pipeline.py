@@ -32,6 +32,16 @@ dropout draws the single-device masks (microbatch ``m``'s key, the global
 layer index, the rows' global numbers), so a pipelined step equals the
 unpipelined step on the same ``accum`` microbatches.
 
+Under ZeRO-3 (``fsdp`` above 1) a stage's layers rest as ``fsdp`` shards,
+each placed by the one rule (``parallel.sharding.strategy_axes``, the
+stacked layout's ``dim_shift=1``, ``taken=(0,)``), so a stage holds
+``layers_per_stage / fsdp`` layers' worth at rest: each block is gathered
+at its use in every tick (``parallel.sharding.ParamFetcher``), in the
+forward ticks and again in the backward's remat recompute, and its
+gradient is reduce-scattered over ``fsdp``. ``fsdp`` peers share the pipe
+coordinate, so they run one tick schedule and issue their gathers in one
+order.
+
 Layout in and out: :func:`to_pipeline_params` / :func:`from_pipeline_params`
 between the flat tree (``model.layers.{i}...``) and the reference's
 stacked one (``layers...`` with a leading layer dim), :func:`stage_params`
@@ -42,16 +52,15 @@ placement rule, which ``training.state`` follows to name a pipe checkpoint.
 from __future__ import annotations
 
 import re
-from typing import Dict, Mapping, Optional, Tuple
+from typing import Dict, Mapping, Optional
 
 import torch
 
 from dlti_tpu_torch.models.moe import collect_aux_loss
-from dlti_tpu_torch.parallel.tensor import all_reduce_, permute_, tensor_shard_dim
+from dlti_tpu_torch.parallel.tensor import all_reduce_, permute_
 from dlti_tpu_torch.utils.hashing import mix32
 
 _LAYER = re.compile(r"model\.layers\.(\d+)\.(.*)")
-_EXPERT = re.compile(r".*\.mlp\.(w1|w2|w3)(\.q|\.scale)?$")
 
 
 # ----------------------------------------------------------------------
@@ -122,30 +131,32 @@ def stage_params(params: Mapping[str, torch.Tensor], stage: int, num_stages: int
 
 
 def pipeline_param_placement(shapes: Mapping[str, tuple], tensor: int = 1,
-                             expert: int = 1) -> Dict[str, tuple]:
-    """The reference's ``pipeline_param_shardings`` (``fsdp`` 1) as a
-    partition spec per leaf of a stacked tree (``shapes``: name to shape, by
+                             expert: int = 1, fsdp: int = 1) -> Dict[str, tuple]:
+    """The reference's ``pipeline_param_shardings`` as a partition spec per
+    leaf of a stacked tree (``shapes``: name to shape, by
     :func:`to_pipeline_params` names): a stacked leaf's layer dim over
-    ``pipe``, under ``tensor`` the tensor rule shifted by one dim, under
-    ``expert`` an expert leaf's expert dim (1) over ``expert``; the embedding
-    and the head under the tensor rule, the rest replicated. The rules are
-    ``parallel.tensor.tensor_shard_dim``'s and ``parallel.sharding``'s, the
-    ones ``models.interop.shard_params`` and ``shard_model`` cut by."""
+    ``pipe``, and the one placement rule
+    (``parallel.sharding.strategy_axes``) for the rest, shifted by one dim
+    past the layer dim (``dim_shift=1``, ``taken=(0,)``) for a stacked leaf:
+    an expert leaf's expert dim over ``expert``, the tensor rule's dim over
+    ``tensor``, and the largest remaining dim ``fsdp`` divides over
+    ``fsdp``. The live layout (``parallel.sharding.plan_layout``) places a
+    stage's layers one by one by the same rule, so a layer's part is its
+    slice of this one."""
+    from dlti_tpu_torch.parallel.sharding import strategy_axes
+
     out = {}
     for name, shape in shapes.items():
         spec = [None] * len(shape)
         if name.startswith("layers."):
             spec[0] = "pipe"
-            flat, per_layer, shift = f"model.layers.0.{name[len('layers.'):]}", shape[1:], 1
+            flat, shift, taken = f"model.layers.0.{name[len('layers.'):]}", 1, (0,)
         else:
             top = name.split(".")[0] == "lm_head"
-            flat, per_layer, shift = name if top else f"model.{name}", shape, 0
-        if tensor > 1:
-            d = tensor_shard_dim(flat, per_layer, tensor)
-            if d is not None:
-                spec[d + shift] = "tensor"
-        if expert > 1 and _EXPERT.match(flat) and per_layer and per_layer[0] % expert == 0:
-            spec[shift] = "expert"
+            flat, shift, taken = name if top else f"model.{name}", 0, ()
+        for d, axis in strategy_axes(flat, shape, ep=expert, tp=tensor, fsdp=fsdp,
+                                     dim_shift=shift, taken=taken).items():
+            spec[d] = axis
         out[name] = tuple(spec)
     return out
 
@@ -309,8 +320,7 @@ def to_pipeline_state(state, mesh, lora=None):
     params = stage_params(params, mesh.pipe.rank, mesh.pp, cfg.num_layers)
     params = shard_params(params, mesh, cfg, lora)
     model = load_model(cfg, params, mesh.device, lora=lora, trainable_lora=True,
-                       tensor=mesh.tensor if mesh.tensor_parallel else None,
-                       stage=(mesh.pipe.rank, mesh.pp))
+                       mesh=mesh, stage=(mesh.pipe.rank, mesh.pp))
     layout = shard_model(model, mesh, state.lora_enabled)
     return create_train_state(model, state.tx, lora_enabled=state.lora_enabled,
                               layout=layout)
@@ -421,6 +431,8 @@ def make_pipeline_train_step(model, *, accum_steps: int = 4, loss_chunk: int = 0
             if send is None:
                 send = torch.zeros_like(g_next)
             g_next = permute_(send, -1, pipe)
+        if lm.fetcher is not None:
+            lm.fetcher.end()
         if sched.x.requires_grad:
             # The embedding's gradient from stage 0's inputs, on every stage.
             dx = all_reduce_(dx if dx is not None else torch.zeros_like(sched.x), pipe)

@@ -1,80 +1,89 @@
-"""ZeRO placement rules, expert parallelism and their collectives: the port
-of ``dlti_tpu/parallel/sharding.py`` for the batch axes and the expert axis.
+"""The placement rule, ZeRO, expert parallelism and their collectives: the
+port of ``dlti_tpu/parallel/sharding.py``.
 
 The reference expresses DeepSpeed's ZeRO stages as shardings over a mesh
 and lets GSPMD insert the collectives. The port places each leaf by the
-same rules and runs plain ``torch.distributed`` collectives on per-leaf
+same rule and runs plain ``torch.distributed`` collectives on per-leaf
 shards, on the current stream, so that one CUDA graph captures a whole
-step with them:
+step with them.
 
-* **baseline** (``ZeROStage.NONE``): everything replicated; gradients
-  all-reduced.
-* **ZeRO-1**: the optimizer moments of a trainable leaf hold only this
-  rank's shard (:func:`opt_shard_dim`: the leaf's largest dim divisible by
-  the world, any size); gradients are all-reduced, the update runs on the
-  shard, and the new parameter is all-gathered.
+**One rule places every leaf** (:func:`strategy_axes`, the reference's
+function of that name): a mixture of experts' stacked expert leaf splits
+its expert dim over ``expert`` (when ``expert`` divides it), the tensor
+rule's dim goes over ``tensor`` (``parallel.tensor``), and under ZeRO-3
+the largest dim of the *whole* shape that ``fsdp`` divides, leaving out
+those two (the first of equals, at least :data:`_MIN_FSDP_DIM`), goes over
+``fsdp``. So ``q_proj``'s (4096, 4096) kernel splits dim 1 over ``tensor``
+and dim 0 over ``fsdp``, and an int8 pair's (1, n) ``scale`` stays whole
+over ``fsdp``. The flat layout (:func:`leaf_axes`, the reference's
+``param_pspec``) and the stacked pipeline layout
+(``parallel.pipeline.pipeline_param_placement``, ``dim_shift=1``,
+``taken=(0,)``) both call it. A leaf's part is contiguous along each split
+dim, rank ``r`` of the axis holding run ``r``: the tensor part, then this
+rank's experts of it, then its ``fsdp`` shard of that
+(``models.interop.shard_params`` cuts a whole tree so; :func:`shard_model`
+cuts a model that holds tensor parts).
+
+* **baseline** (``ZeROStage.NONE``): every leaf replicated over the batch
+  axes; gradients all-reduced over them.
+* **ZeRO-1**: the optimizer moments of a trainable leaf held whole by the
+  tensor and expert ranks keep only this rank's shard over ``data`` (its
+  largest dim ``data`` divides, any size); gradients are all-reduced, the
+  update runs on the shard, and the new parameter is all-gathered.
 * **ZeRO-2**: as ZeRO-1, but the gradient is reduce-scattered to the shard.
-* **ZeRO-3**: a leaf whose largest dim divisible by the world is at least
-  :data:`_MIN_FSDP_DIM` is itself stored as this rank's shard
-  (:func:`param_shard_dim`) and gathered at use (:class:`GatherAtUse`:
-  all-gather forward, reduce-scatter of a trainable leaf's gradient
-  backward); the rest behaves as under ZeRO-2.
+* **ZeRO-3**: a leaf the rule splits over ``fsdp`` is stored as this
+  rank's shard and gathered at use (:class:`GatherAtUse`: all-gather over
+  ``fsdp`` forward, reduce-scatter of a trainable leaf's gradient
+  backward); its moments are its shard's, and its gradient is then summed
+  over ``data``. A trainable leaf the rule leaves whole behaves as under
+  ZeRO-2 over ``fsdp`` (the reference's ``opt_state_shardings``), its
+  gradient summed over ``data`` too. At ``fsdp`` 1 nothing is sharded.
 
-The ZeRO rules run over the batch axes (``Mesh.batch``: the whole world
-unless ``expert`` is above 1). The two rules pick the same dim for a leaf
-that both shard. A shard is a
-contiguous run of ``shape[d] // world`` indices along dim ``d``, rank
-``r`` holding run ``r``. At a world of 1 a leaf the rules shard is one
-shard, the whole leaf, and its collectives still run (copies), so a group
-of one exercises the same path as a larger world.
+A leaf's moments and owned gradient are its part's whenever the rule
+splits it (over any axis), never split further. At a world of 1 (a group
+of one) the ZeRO-1/2 moments are one shard, the whole leaf, and their
+collectives still run (copies), so a group of one exercises the same path
+as a larger world.
 
 Host offload (``ds_config_zero3.json:19-27`` parity): ``offload_optimizer``
 keeps the moments, ``offload_params`` the frozen base (every leaf no step
 changes: under LoRA the kernels, norms, embedding and head), in pinned host
 memory. The update copies the moments to the card and back inside the
 step; :class:`ParamFetcher` streams the base into the step one block ahead
-on a side stream. On the CPU host and device memory are one, so offload
-moves nothing there.
+on a side stream, and gathers the next block's ``fsdp`` shards while this
+one runs. On the CPU host and device memory are one, so offload moves
+nothing there.
 
-Tensor parallelism (a tensor group, ``parallel.tensor``): the model comes
-in at this rank's parts, sliced by ``models.interop.shard_params`` and
-built at local widths by ``load_model(tensor=)`` (its modules issue the
-tensor group's collectives); the layout records each split leaf's
-``tensor_dim`` and whole shape. Every
-leaf a tensor rank holds whole gets the same gradient on every tensor rank
-through those collectives, so gradients are reduced over the batch axes
-alone (``Mesh.batch``: the ranks of this tensor rank), ZeRO-1/2 shard the
-moments of whole leaves over them, and a split leaf's moments are its
-part's, never split further; the gradient norm sums a split leaf's squares
-over the tensor group and counts a whole one once.
+Tensor parallelism (a tensor group, ``parallel.tensor``): the model runs at
+this rank's parts (``load_model(mesh=)``; its modules issue the tensor
+group's collectives). Every leaf a tensor rank holds whole gets the same
+gradient on every tensor rank through those collectives, so gradients are
+reduced over the batch axes alone.
 
 Expert parallelism (``expert`` above 1, the reference's ``_EP_PATTERN``
-rule): a mixture of experts' ``mlp.w1/w2/w3`` (and their int8 pairs) keep
-only this rank's ``E / ep`` experts, dim 0 split over the expert group,
-when ``ep`` divides ``E`` (else they stay whole, and every rank runs every
-expert). Each MoE layer gets a :class:`MoEGroups`: every rank routes every
+rule): each MoE layer gets a :class:`MoEGroups`: every rank routes every
 token and runs its own experts on them; :class:`ExpertIn` (identity
 forward, all-reduce backward) brings the tokens and their routing weights
 in, :class:`ExpertOut` (all-reduce forward, identity backward) sums the
 partial combines, so every leaf held whole gets the same gradient on every
-expert rank, and gradients are reduced over the batch axes alone. An expert
-leaf's moments are its shard's, never split further. Under data
-parallelism too (any ``expert``), :class:`MoEGroups` makes capacity and the
-load-balance loss the global microbatch's: it all-gathers each batch rank's
-per-(slot, expert) counts and sums the loss's statistics
-(:class:`BatchSum`, all-reduce forward and backward). ZeRO-3 with
-``expert`` above 1 raises (``parallel.mesh.check_strategy``).
+expert rank. Under data parallelism too (any ``expert``), :class:`MoEGroups`
+makes capacity and the load-balance loss the global microbatch's over the
+batch axes (``data`` times ``fsdp``): it all-gathers each batch rank's
+per-(slot, expert) counts and sums the loss's statistics (:class:`BatchSum`,
+all-reduce forward and backward).
 
-Sequence parallelism (``sequence`` above 1): every rank holds every leaf;
-:func:`shard_model` puts the model on the ring (its chunk of each row), and
-the step sums each gradient over the sequence group before the batch axes'
-reduction. Pipeline parallelism (``pipe`` above 1): a stage holds its
-layers' leaves (``LeafPlacement.stage``, the local names ``model.layers.0
-..`` standing for its global layers) and every stage the embedding, the
-final norm and the head; a stage's layer leaf gets its whole gradient on
-its stage, a leaf every stage holds the same gradient on every stage
-(``parallel.pipeline``), so gradients are reduced over the batch axes
-alone, and the norm sums a layer leaf's squares over the pipe group.
+Sequence parallelism (``sequence`` above 1): :func:`shard_model` puts the
+model on the ring (its chunk of each row), and the step sums each gradient
+(a shard's too: sequence peers hold the same shards) over the sequence group
+before the batch axes' reduction. Pipeline parallelism (``pipe`` above 1): a
+stage holds its layers' leaves (``LeafPlacement.stage``, the local names
+``model.layers.0 ..`` standing for its global layers), each placed by the
+rule, and every stage the embedding, the final norm and the head; gradients
+are reduced over the batch axes alone (``parallel.pipeline``).
+
+The gradient norm (:func:`sharded_sq_norm`) sums each leaf's squares over
+every axis that splits it (``fsdp``, ``tensor``, ``expert``, the ZeRO-1/2/3
+moments' axis, ``pipe`` for a stage's layer), so each element counts once.
 """
 
 from __future__ import annotations
@@ -90,72 +99,164 @@ from torch import nn
 from dlti_tpu_torch.config import ZeROStage
 from dlti_tpu_torch.models.lora import is_lora_name
 from dlti_tpu_torch.models.moe import MoEMLP
-from dlti_tpu_torch.parallel.mesh import Mesh
+from dlti_tpu_torch.parallel.mesh import Mesh, axis_sum_
 from dlti_tpu_torch.parallel.tensor import (
-    CopyIn, ReduceOut, all_reduce_, tensor_shard_dim, whole_shapes)
+    CopyIn, ReduceOut, all_reduce_, quant_normalized_name, tensor_shard_dim)
 
-# Expert-parallel rule: stacked expert weights (or their int8 pairs) split
-# dim 0 over 'expert'.
-_EP_PATTERN = re.compile(r".*\.mlp\.(w1|w2|w3)(\.q|\.scale)?$")
+# Expert-parallel rule: stacked expert weights (an int8 pair by its
+# weight's name) split their expert dim over 'expert'.
+_EP_PATTERN = re.compile(r".*\.mlp\.(w1|w2|w3)$")
 
 # Don't ZeRO-3-shard leaves with no dim this long (norm scales, LoRA
 # factors with every dim < 1024): the all-gather latency outweighs the
-# memory saved. Tests lower it to place shards on tiny models.
+# memory saved. Shared by the flat and the stacked layout; tests lower it
+# to place shards on tiny models.
 _MIN_FSDP_DIM = 1024
 
+# The order a leaf's parts are gathered in (the reverse of the cut: the
+# tensor part, then its experts, then the fsdp shard of that).
+_GATHER_ORDER = ("fsdp", "expert", "tensor")
 
-def _largest_divisible_dim(shape: Sequence[int], size: int) -> Optional[int]:
-    """The largest dim divisible by ``size`` (the first of equals)."""
+
+def _largest_divisible_dim(shape: Sequence[int], size: int, taken=()) -> Optional[int]:
+    """The largest dim divisible by ``size`` (the first of equals),
+    leaving out the dims in ``taken``."""
     best, best_len = None, 0
     for d, n in enumerate(shape):
+        if d in taken:
+            continue
         if n % size == 0 and n > best_len:
             best, best_len = d, n
     return best
 
 
-def param_shard_dim(shape: Sequence[int], mesh: Mesh) -> Optional[int]:
-    """The dim a parameter leaf is stored sharded along (ZeRO-3 only), or
-    None when it is stored whole."""
-    if mesh.zero_stage != ZeROStage.ZERO3 or not mesh.distributed or not shape:
-        return None
-    d = _largest_divisible_dim(shape, mesh.world)
-    return d if d is not None and shape[d] >= _MIN_FSDP_DIM else None
+def strategy_axes(name: str, shape: Sequence[int], *, ep: int = 1, tp: int = 1,
+                  fsdp: int = 1, dim_shift: int = 0, taken: tuple = ()) -> Dict[int, str]:
+    """THE expert/tensor/fsdp placement rule for one leaf (``name`` in this
+    package's names, an int8 pair's leaf by its weight's rule; ``shape``
+    whole): ``{dim: axis}``. ``dim_shift`` moves the flat rules for the
+    stacked pipeline layout (a leading layer dim shifts every flat dim by
+    one); ``taken`` marks dims already claimed (the stacked layout's
+    ``pipe`` dim 0) that ``fsdp`` must not take."""
+    path = quant_normalized_name(name)
+    out: Dict[int, str] = {}
+    ep_d = tp_d = None
+    if (ep > 1 and _EP_PATTERN.match(path) and dim_shift < len(shape)
+            and shape[dim_shift] % ep == 0):
+        ep_d = dim_shift
+        out[ep_d] = "expert"
+    if tp > 1:
+        d = tensor_shard_dim(name, tuple(shape[dim_shift:]), tp)
+        if d is not None and d + dim_shift != ep_d:
+            tp_d = d + dim_shift
+            out[tp_d] = "tensor"
+    if fsdp > 1:
+        d = _largest_divisible_dim(shape, fsdp, taken=tuple(taken) + (tp_d, ep_d))
+        if d is not None and shape[d] >= _MIN_FSDP_DIM:
+            out[d] = "fsdp"
+    return out
 
 
-def opt_shard_dim(shape: Sequence[int], mesh: Mesh) -> Optional[int]:
-    """The dim a trainable leaf's optimizer moments (and its owned gradient)
-    are sharded along (ZeRO-1/2/3) over the batch axes, or None when they
-    are whole."""
-    if mesh.zero_stage == ZeROStage.NONE or not mesh.distributed or not shape:
-        return None
-    return _largest_divisible_dim(shape, mesh.batch.world)
+def leaf_axes(name: str, shape: Sequence[int], mesh: Mesh) -> Dict[int, str]:
+    """:func:`strategy_axes` of a flat leaf (or one layer of a stage) under
+    ``mesh``'s extents: ``fsdp`` counts under ZeRO-3 only (the reference's
+    ``param_pspec``)."""
+    if not shape:
+        return {}
+    return strategy_axes(name, shape, ep=mesh.ep, tp=mesh.tp, fsdp=mesh.fsdp_extent)
 
 
-def expert_shard_dim(name: str, shape: Sequence[int], mesh: Mesh) -> Optional[int]:
-    """0 for a stacked expert leaf whose expert count the expert axis
-    divides (stored as this rank's experts), else None."""
-    if mesh.ep > 1 and _EP_PATTERN.match(name) and shape and shape[0] % mesh.ep == 0:
-        return 0
-    return None
+def axis_view(mesh: Mesh, axis: str) -> Mesh:
+    """``mesh``'s view of axis ``axis`` (a mesh axis name)."""
+    return mesh.experts if axis == "expert" else getattr(mesh, axis)
+
+
+def local_shape(shape: Sequence[int], axes: Mapping[int, str], mesh: Mesh) -> tuple:
+    """The shape of this rank's part of a leaf of whole ``shape`` split
+    over ``axes``."""
+    out = list(shape)
+    for d, axis in axes.items():
+        out[d] //= axis_view(mesh, axis).world
+    return tuple(out)
 
 
 def shard_of(t: torch.Tensor, d: Optional[int], mesh: Mesh) -> torch.Tensor:
-    """This rank's shard of the whole ``t`` along ``d`` (a view), or ``t``."""
+    """This rank's shard of the whole ``t`` along ``d`` (a view) over the
+    ranks of ``mesh`` (an axis view), or ``t``."""
     if d is None:
         return t
     n = t.shape[d] // mesh.world
     return t.narrow(d, mesh.rank * n, n)
 
 
+def part_of(t: torch.Tensor, axes: Mapping[int, str], mesh: Mesh,
+            skip: Sequence[str] = ()) -> torch.Tensor:
+    """This rank's part (a copy) of ``t`` along every split of ``axes``
+    but those over the axes in ``skip`` (``t`` itself when nothing is
+    cut)."""
+    out = t
+    for d, axis in axes.items():
+        if axis not in skip:
+            out = shard_of(out, d, axis_view(mesh, axis))
+    return t if out is t else out.clone()
+
+
+def cut_to_part(name: str, t: torch.Tensor, shape: Sequence[int], mesh: Mesh) -> torch.Tensor:
+    """Leaf ``name`` (whole ``shape``) as this rank holds it under ``mesh``,
+    by the rule's splits (:func:`leaf_axes`): ``t`` itself when it is this
+    rank's part already, else this rank's part (a copy) of ``t``, the whole
+    leaf or its tensor part (the tensor part, its experts, then the
+    ``fsdp`` shard of that)."""
+    axes = leaf_axes(name, tuple(shape), mesh)
+    local = local_shape(shape, axes, mesh)
+    tensor_part = local_shape(shape, {d: a for d, a in axes.items() if a == "tensor"}, mesh)
+    got = tuple(t.shape)
+    if got == local:
+        return t
+    if got == tuple(shape):
+        return part_of(t, axes, mesh)
+    if got == tensor_part:
+        return part_of(t, axes, mesh, skip=("tensor",))
+    raise ValueError(f"{name}: shape {got} is neither the whole leaf {tuple(shape)}, its "
+                     f"tensor part {tensor_part} nor this rank's part {local}")
+
+
+def ordered_axes(split: Mapping[int, str], mesh: Mesh) -> List[Tuple[int, Mesh]]:
+    """``[(dim, axis view)]`` of a leaf's ``split``, in gather order."""
+    return [(d, axis_view(mesh, a)) for a in _GATHER_ORDER for d, b in split.items() if b == a]
+
+
 def all_gather_dim(shard: torch.Tensor, d: int, mesh: Mesh) -> torch.Tensor:
     """The whole leaf from every rank's shard along ``d``."""
+    out, work = _gather_start(shard, mesh, async_op=False)
+    return _gather_finish(out, work, d, mesh)
+
+
+@torch.no_grad()
+def _gather_start(shard: torch.Tensor, mesh: Mesh, async_op: bool) -> tuple:
+    """Issue the all-gather of ``shard`` over ``mesh``: ``(out, work)``,
+    every rank's shard concatenated along dim 0 (the layout every backend
+    takes) once ``work`` is waited on. ``async_op`` is taken over NCCL
+    only, which writes ``out`` in place on its stream; elsewhere (gloo,
+    whose host threads copy the result back) the gather completes here and
+    ``work`` is None."""
     s = shard.contiguous()
-    w, shape = mesh.world, tuple(s.shape)
-    # The shards concatenated along dim 0 (the layout every backend takes).
-    out = torch.empty((w * shape[0],) + shape[1:], dtype=s.dtype, device=s.device)
-    dist.all_gather_into_tensor(out, s, group=mesh.group)
+    out = torch.empty((mesh.world * s.shape[0],) + tuple(s.shape[1:]), dtype=s.dtype,
+                      device=s.device)
+    async_op = async_op and dist.get_backend(mesh.group) == "nccl"
+    work = dist.all_gather_into_tensor(out, s, group=mesh.group, async_op=async_op)
+    return out, work if async_op else None
+
+
+def _gather_finish(out: torch.Tensor, work, d: int, mesh: Mesh) -> torch.Tensor:
+    """The whole leaf from :func:`_gather_start`'s result, split along ``d``."""
+    if work is not None:
+        work.wait()
     if d == 0:
         return out
+    w = mesh.world
+    shape = list(out.shape)
+    shape[0] //= w
     whole = list(shape)
     whole[d] *= w
     return out.unflatten(0, (w, shape[0])).movedim(0, d).reshape(whole)
@@ -170,12 +271,6 @@ def reduce_scatter_dim(full: torch.Tensor, d: int, mesh: Mesh) -> torch.Tensor:
     dist.reduce_scatter_tensor(out, inp.flatten(0, 1), op=dist.ReduceOp.SUM,
                                group=mesh.group)
     return out
-
-
-def tensor_dim_of(name: str, shape: Sequence[int], mesh: Mesh) -> Optional[int]:
-    """The dim of leaf ``name`` split over the tensor group, or None (no
-    tensor group, or a leaf every tensor rank holds whole)."""
-    return tensor_shard_dim(name, shape, mesh.tp) if mesh.tensor_parallel else None
 
 
 # A tensor every expert rank holds, into a computation whose gradient each
@@ -227,39 +322,60 @@ class MoEGroups:
 
 
 class GatherAtUse(torch.autograd.Function):
-    """A sharded leaf, whole, for the computation that uses it: the forward
-    all-gathers the shards; the backward reduce-scatters the gradient to
-    this rank's shard (autograd calls it only for a trainable leaf)."""
+    """A leaf's ``fsdp`` shard, whole over ``fsdp`` (its tensor part or its
+    experts, or the whole leaf), for the computation that uses it: the
+    forward all-gathers the shards (or takes ``ready``, a gather of them
+    :class:`ParamFetcher` issued ahead: ``[(out, work)]``); the backward
+    reduce-scatters the gradient to this rank's shard (autograd calls it
+    only for a trainable leaf)."""
 
     @staticmethod
-    def forward(ctx, shard, d, mesh):
+    def forward(ctx, shard, d, mesh, ready=None):
         ctx.d, ctx.mesh = d, mesh
+        if ready:
+            return _gather_finish(*ready.pop(), d, mesh)
         return all_gather_dim(shard, d, mesh)
 
     @staticmethod
     def backward(ctx, grad):
-        return reduce_scatter_dim(grad, ctx.d, ctx.mesh), None, None
+        return reduce_scatter_dim(grad, ctx.d, ctx.mesh), None, None, None
 
 
 @dataclass(frozen=True)
 class LeafPlacement:
-    """Where one parameter leaf lives: ``param_dim`` (stored as this rank's
-    shard along it, ZeRO-3), ``opt_dim`` (its moments and owned gradient
-    sharded along it over the batch axes; trainable leaves), ``expert_dim``
-    (stored as this rank's experts along it, the expert axis), ``shape``
-    (the whole leaf's), ``host`` (kept in pinned host memory: an offloaded
-    frozen leaf), ``tensor_dim`` (stored as this rank's part along it, the
-    tensor axis), ``stage`` (a layer leaf of this pipeline stage, which the
-    other stages do not hold: ``shape`` is one layer's)."""
+    """Where one parameter leaf lives: ``shape`` (the whole leaf's; a
+    stage's layer leaf: one layer's), ``axes`` (the rule's splits,
+    ``(dim, axis)`` pairs: this rank holds its part along each), ``opt_dim``
+    and ``opt_axis`` (a trainable leaf the rule leaves whole: its moments
+    and owned gradient sharded along ``opt_dim`` over ``opt_axis``, ``data``
+    under ZeRO-1/2, ``fsdp`` under ZeRO-3), ``host`` (kept in pinned host
+    memory: an offloaded frozen leaf), ``stage`` (a layer leaf of this
+    pipeline stage, which the other stages do not hold)."""
 
     shape: Tuple[int, ...]
     trainable: bool
-    param_dim: Optional[int] = None
+    axes: Tuple[Tuple[int, str], ...] = ()
     opt_dim: Optional[int] = None
+    opt_axis: str = "data"
     host: bool = False
-    expert_dim: Optional[int] = None
-    tensor_dim: Optional[int] = None
     stage: bool = False
+
+    @property
+    def split(self) -> Dict[int, str]:
+        """The rule's ``{dim: axis}``."""
+        return dict(self.axes)
+
+    def dim(self, axis: str) -> Optional[int]:
+        """The dim split over ``axis``, or None."""
+        return next((d for d, a in self.axes if a == axis), None)
+
+    @property
+    def fsdp_dim(self) -> Optional[int]:
+        return self.dim("fsdp")
+
+    @property
+    def expert_dim(self) -> Optional[int]:
+        return self.dim("expert")
 
 
 @dataclass
@@ -274,52 +390,55 @@ class Layout:
     def offload_optimizer(self) -> bool:
         return self.mesh.parallel.offload_optimizer
 
-    def param_axis(self, name: str) -> Tuple[Optional[int], Mesh]:
-        """``(dim, axis)``: the dim along which this rank holds a shard of the
-        parameter ``name``, and the mesh view of the ranks holding the
-        others ((None, mesh) for a leaf held whole)."""
-        pl = self.leaves[name]
-        if pl.expert_dim is not None:
-            return pl.expert_dim, self.mesh.experts
-        if pl.tensor_dim is not None:
-            return pl.tensor_dim, self.mesh.tensor
-        return pl.param_dim, self.mesh
+    def param_axes(self, name: str) -> List[Tuple[int, Mesh]]:
+        """``[(dim, axis view)]``: each dim along which this rank holds a
+        part of the parameter ``name`` and the view of the ranks holding the
+        others, in gather order (empty for a leaf held whole)."""
+        return ordered_axes(self.leaves[name].split, self.mesh)
 
-    def moment_axis(self, name: str) -> Tuple[Optional[int], Mesh]:
-        """``(dim, axis)`` as :meth:`param_axis`, for ``name``'s moments."""
+    def moment_split(self, name: str) -> Dict[int, str]:
+        """``name``'s moments' ``{dim: axis}``: the leaf's own splits, else
+        its ``opt_dim`` over ``opt_axis`` (empty for moments held whole)."""
         pl = self.leaves[name]
-        if pl.param_dim is not None or pl.expert_dim is not None or pl.tensor_dim is not None:
-            return self.param_axis(name)
-        return pl.opt_dim, self.mesh.batch
+        if pl.axes or pl.opt_dim is None:
+            return pl.split
+        return {pl.opt_dim: pl.opt_axis}
+
+    def moment_axes(self, name: str) -> List[Tuple[int, Mesh]]:
+        """As :meth:`param_axes`, for ``name``'s moments."""
+        return ordered_axes(self.moment_split(name), self.mesh)
+
+    def opt_view(self, name: str) -> Mesh:
+        """The view of the axis ``name``'s moments are sharded over."""
+        return axis_view(self.mesh, self.leaves[name].opt_axis)
 
     def gathers_update(self, name: str) -> bool:
-        """Whether the update of ``name`` runs on a shard of a whole
-        parameter, which is all-gathered after it (ZeRO-1/2 leaves, and
-        ZeRO-3 leaves that are stored whole)."""
+        """Whether the update of ``name`` runs on a shard of a parameter
+        held whole, which is all-gathered after it (ZeRO-1/2/3 leaves the
+        rule leaves whole)."""
         pl = self.leaves[name]
-        return pl.param_dim is None and pl.opt_dim is not None
+        return not pl.axes and pl.opt_dim is not None
 
 
 def plan_layout(model: nn.Module, mesh: Mesh, lora_enabled: bool) -> Layout:
-    """Every leaf's :class:`LeafPlacement` under ``mesh``. Under a tensor
-    group ``model`` holds this rank's parts already (``models.interop``'s
-    ``shard_params`` and ``load_model(tensor=)``), and each placement
-    records the whole leaf's shape."""
+    """Every leaf's :class:`LeafPlacement` under ``mesh``, from the whole
+    shapes the model records (``LlamaForCausalLM.whole_shapes``), whatever
+    part of each leaf it holds."""
     offload = mesh.parallel.offload_params and mesh.device.type == "cuda"
     layout = Layout(mesh)
-    shapes = {name: tuple(p.shape) for name, p in model.named_parameters()}
-    if mesh.tensor_parallel:
-        shapes = whole_shapes(shapes, mesh.tp)
-    for name, shape in shapes.items():
+    stage = mesh.zero_stage
+    opt_axis = "fsdp" if stage == ZeROStage.ZERO3 else "data"
+    opt_view = axis_view(mesh, opt_axis)
+    for name, _ in model.named_parameters():
+        shape = tuple(model.whole_shapes[name])
         trainable = not lora_enabled or is_lora_name(name)
-        ep_dim = expert_shard_dim(name, shape, mesh)
-        tp_dim = tensor_dim_of(name, shape, mesh)
-        whole = ep_dim is None and tp_dim is None
+        axes = leaf_axes(name, shape, mesh)
+        opt_dim = None
+        if trainable and not axes and stage != ZeROStage.NONE and opt_view.group is not None:
+            opt_dim = _largest_divisible_dim(shape, opt_view.world)
         layout.leaves[name] = LeafPlacement(
-            shape=shape, trainable=trainable,
-            param_dim=param_shard_dim(shape, mesh),
-            opt_dim=opt_shard_dim(shape, mesh) if trainable and whole else None,
-            host=offload and not trainable, expert_dim=ep_dim, tensor_dim=tp_dim,
+            shape=shape, trainable=trainable, axes=tuple(sorted(axes.items())),
+            opt_dim=opt_dim, opt_axis=opt_axis, host=offload and not trainable,
             stage=mesh.pp > 1 and name.startswith("model.layers."))
     return layout
 
@@ -331,38 +450,28 @@ def _param_owner(model: nn.Module, name: str) -> Tuple[nn.Module, str]:
 
 @torch.no_grad()
 def shard_model(model: nn.Module, mesh: Mesh, lora_enabled: bool) -> Layout:
-    """Place ``model``'s parameters by :func:`plan_layout`, in place: a
-    ZeRO-3 leaf keeps only this rank's shard (a new ``nn.Parameter`` with
-    the old one's ``requires_grad``), an expert leaf only this rank's
-    experts, an offloaded leaf moves to pinned host memory. Installs a
-    :class:`ParamFetcher` on the model when any leaf must be fetched at
-    use, gives each MoE layer its :class:`MoEGroups` under data or expert
-    parallelism, and returns the layout. Under a tensor group the model
-    comes in at its tensor rank's parts (:func:`plan_layout`)."""
+    """Place ``model``'s parameters by :func:`plan_layout`, in place: a leaf
+    that holds its tensor part (the whole leaf without a tensor split)
+    keeps only this rank's experts and ``fsdp`` shard of it (a new
+    ``nn.Parameter`` with the old one's ``requires_grad``; a leaf already at
+    this rank's part, ``models.interop.shard_params``, stays), an offloaded
+    leaf moves to pinned host memory. Installs a :class:`ParamFetcher` on
+    the model when any leaf must be fetched at use, gives each MoE layer
+    its :class:`MoEGroups` under data or expert parallelism, and returns
+    the layout."""
     layout = plan_layout(model, mesh, lora_enabled)
     fetched = False
     for name, pl in layout.leaves.items():
-        if pl.expert_dim is not None and mesh.ep > 1:
-            owner, leaf = _param_owner(model, name)
-            old = getattr(owner, leaf)
-            t = shard_of(old.detach(), pl.expert_dim, mesh.experts).clone()
-            setattr(owner, leaf, nn.Parameter(t, requires_grad=old.requires_grad))
-            del old
-        if pl.param_dim is None and not pl.host:
-            continue
-        fetched = True
-        if not pl.host and mesh.world == 1:
-            continue  # the one shard is the whole leaf, already in place
         owner, leaf = _param_owner(model, name)
         old = getattr(owner, leaf)
-        t = shard_of(old.detach(), pl.param_dim, mesh)
+        fetched = fetched or pl.host or pl.fsdp_dim is not None
+        held = old.detach()
+        t = cut_to_part(name, held, pl.shape, mesh)
         if pl.host:
-            h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-            t = h.copy_(t)
-        else:
-            t = t.clone()
-        setattr(owner, leaf, nn.Parameter(t, requires_grad=old.requires_grad))
-        del old
+            t = torch.empty(t.shape, dtype=t.dtype, pin_memory=True).copy_(t)
+        if t is not held:
+            setattr(owner, leaf, nn.Parameter(t, requires_grad=old.requires_grad))
+        del old, held, t
     if fetched:
         model.model.fetcher = ParamFetcher(model, layout)
     if mesh.sp > 1:
@@ -378,26 +487,34 @@ def shard_model(model: nn.Module, mesh: Mesh, lora_enabled: bool) -> Layout:
 
 
 class ParamFetcher:
-    """Brings the leaves a model does not hold whole on its device to the
-    computation that uses them: an offloaded leaf is copied from pinned
-    host memory (``copy_(non_blocking=True)`` on a side stream, the next
-    block's while this one runs), a ZeRO-3 shard is all-gathered
-    (:class:`GatherAtUse`). The model calls :meth:`begin` at each forward
-    with the blocks its backward will recompute, :meth:`run_block` for each
+    """Brings the leaves a model does not hold whole on its device (over
+    ``fsdp``: its tensor part or its experts stay parts) to the computation
+    that uses them: an offloaded leaf is copied from pinned host memory
+    (``copy_(non_blocking=True)`` on a side stream), a ZeRO-3 shard is
+    all-gathered over ``fsdp`` (:class:`GatherAtUse`). Both start one block
+    ahead: while block ``i`` runs, the next planned block's copies run on
+    the side stream and its gathers are in flight (``async_op``), waited on
+    at its first use (the forward's last block starts nothing: the loss, or
+    a pipeline stage's other ticks, come before the first recompute). The model calls :meth:`begin` at each forward with
+    the blocks its backward will recompute, :meth:`run_block` for each
     block, and :meth:`leaf` for the embedding, the final norm and the head.
     Fetched tensors are ordinary intermediates: under remat the recompute
     in the backward fetches again, and a block's tensors are freed after
-    its last use.
+    its last use. The plan is the same on every ``fsdp`` rank (they share
+    every other coordinate, and nothing in it reads the rows), so every
+    rank issues its gathers in one order.
 
     Each prefetch buffer is allocated on the computing stream, which the
     side stream waits for before it writes, and the computing stream waits
     for the copy before its first use: no tensor changes streams, so the
     allocator frees buffers in stream order, within a CUDA graph's capture
-    as outside it."""
+    as outside it. An offloaded leaf that is also an ``fsdp`` shard is
+    gathered at its use, after its copy."""
 
     def __init__(self, model: nn.Module, layout: Layout):
         self.layout = layout
         self.mesh = layout.mesh
+        self.fsdp = self.mesh.fsdp
         self._model = model
         n_layers = len(model.model.layers) if hasattr(model, "model") else 0
         self._blocks: List[List[Tuple[str, str]]] = [[] for _ in range(n_layers)]
@@ -413,7 +530,7 @@ class ParamFetcher:
 
     def _fetched(self, name: str) -> bool:
         pl = self.layout.leaves[name]
-        return pl.param_dim is not None or pl.host
+        return pl.fsdp_dim is not None or pl.host
 
     def _param(self, name: str) -> torch.Tensor:
         owner, leaf = _param_owner(self._model, name)
@@ -422,15 +539,31 @@ class ParamFetcher:
     def begin(self, recomputed: Sequence[int]) -> None:
         """A forward over every block, then (training under remat) the
         recompute of ``recomputed`` in the backward, last first."""
-        self._pending.clear()
+        self.end()
         self._plan = list(range(len(self._blocks))) + sorted(recomputed, reverse=True)
         self._pos = 0
 
+    def end(self) -> None:
+        """Let the fetches no block used go, their gathers waited on first
+        (the step calls it after its last backward: a CUDA graph's capture
+        must join every collective it issued)."""
+        for _, _, gathers in self._pending.values():
+            for ready in gathers.values():
+                for _, work in ready:
+                    if work is not None:
+                        work.wait()
+        self._pending.clear()
+
     def _issue(self, names: Sequence[str]) -> tuple:
-        """Start copying the host leaves among ``names`` to the card."""
-        host = [n for n in names if self.layout.leaves[n].host]
+        """Start copying the host leaves among ``names`` to the card, and
+        gathering the ``fsdp`` shards of the others: ``(bufs, event,
+        gathers)``."""
+        leaves = self.layout.leaves
+        gathers = {n: [_gather_start(self._param(n), self.fsdp, async_op=True)]
+                   for n in names if leaves[n].fsdp_dim is not None and not leaves[n].host}
+        host = [n for n in names if leaves[n].host]
         if not host or self._side is None:
-            return {}, None
+            return {}, None, gathers
         cur = torch.cuda.current_stream(self.mesh.device)
         bufs = {n: torch.empty_like(self._param(n), device=self.mesh.device) for n in host}
         self._side.wait_stream(cur)
@@ -438,10 +571,10 @@ class ParamFetcher:
             for n, b in bufs.items():
                 b.copy_(self._param(n), non_blocking=True)
             event = self._side.record_event()
-        return bufs, event
+        return bufs, event, gathers
 
     def _resolve(self, names: Sequence[str], issued: tuple) -> Dict[str, torch.Tensor]:
-        bufs, event = issued
+        bufs, event, gathers = issued
         if event is not None:
             torch.cuda.current_stream(self.mesh.device).wait_event(event)
         out = {}
@@ -449,9 +582,9 @@ class ParamFetcher:
             t = bufs.get(n, None)
             if t is None:
                 t = self._param(n)
-            pl = self.layout.leaves[n]
-            if pl.param_dim is not None:
-                t = GatherAtUse.apply(t, pl.param_dim, self.mesh)
+            d = self.layout.leaves[n].fsdp_dim
+            if d is not None:
+                t = GatherAtUse.apply(t, d, self.fsdp, gathers.get(n))
             out[n] = t
         return out
 
@@ -459,21 +592,23 @@ class ParamFetcher:
         return name in self.layout.leaves and self._fetched(name)
 
     def leaf(self, name: str) -> torch.Tensor:
-        """``name`` whole on the device (the parameter itself when it is
-        held so)."""
+        """``name`` whole over ``fsdp`` on the device (the parameter itself
+        when it is held so)."""
         if not self._fetched(name):
             return self._param(name)
         return self._resolve([name], self._issue([name]))[name]
 
     def block(self, i: int) -> Dict[str, torch.Tensor]:
         """Block ``i``'s fetched leaves by their names within the block;
-        starts the next planned block's copy."""
+        starts the next planned block's fetches."""
         issued = self._pending.pop(i, None)
         if issued is None:
             issued = self._issue([n for _, n in self._blocks[i]])
         if self._pos < len(self._plan) and self._plan[self._pos] == i:
             self._pos += 1
-            if self._pos < len(self._plan):
+            # Not across the forward's end: the loss (a pipeline stage's
+            # next ticks) runs between it and the first recompute.
+            if self._pos != len(self._blocks) and self._pos < len(self._plan):
                 nxt = self._plan[self._pos]
                 if nxt not in self._pending:
                     self._pending[nxt] = self._issue([n for _, n in self._blocks[nxt]])
@@ -486,23 +621,31 @@ class ParamFetcher:
         return torch.func.functional_call(layer, self.block(i), args)
 
 
+def _zero3(layout: Layout) -> bool:
+    return layout.mesh.zero_stage == ZeROStage.ZERO3
+
+
 def owned_grad(g: torch.Tensor, name: str, layout: Layout,
                summed: bool = False) -> torch.Tensor:
-    """A trainable leaf's summed local gradient (whole, or the ZeRO-3 shard
-    autograd reduce-scattered already) as the global gradient this rank
-    owns: the shard along ``opt_dim`` (reduce-scattered under ZeRO-2/3,
-    sliced from the all-reduced whole under ZeRO-1) or the whole
-    (all-reduced). ``summed``: ``g`` is the global sum already
-    (:func:`reduce_in_dtype` per microbatch), so this rank takes its part."""
-    pl, mesh = layout.leaves[name], layout.mesh.batch
-    if pl.param_dim is not None:
-        return g
+    """A trainable leaf's summed local gradient (of this rank's part; an
+    ``fsdp`` shard's reduce-scattered over ``fsdp`` by autograd already) as
+    the global gradient this rank owns: a shard's summed over ``data``; a
+    leaf with an ``opt_dim``, the shard along it (reduce-scattered over the
+    moments' axis under ZeRO-2/3 and, under ZeRO-3, summed over ``data``;
+    sliced from the all-reduced whole under ZeRO-1); any other, summed
+    over the batch axes. ``summed``: ``g`` is the global sum already
+    (:func:`reduce_in_dtype` per microbatch), so this rank takes its
+    part."""
+    pl, mesh = layout.leaves[name], layout.mesh
+    if pl.fsdp_dim is not None:
+        return g if summed else axis_sum_(g, mesh.data)
     if summed:
-        return shard_of(g, pl.opt_dim, mesh)
+        return shard_of(g, pl.opt_dim, layout.opt_view(name))
     if pl.opt_dim is not None and mesh.zero_stage in (ZeROStage.ZERO2, ZeROStage.ZERO3):
-        return reduce_scatter_dim(g, pl.opt_dim, mesh)
-    all_reduce_(g, mesh)
-    return shard_of(g, pl.opt_dim, mesh)
+        g = reduce_scatter_dim(g, pl.opt_dim, layout.opt_view(name))
+        return axis_sum_(g, mesh.data) if _zero3(layout) else g
+    axis_sum_(g, mesh.batch)
+    return shard_of(g, pl.opt_dim, layout.opt_view(name))
 
 
 def reduce_in_dtype(g: torch.Tensor, name: str, layout: Layout,
@@ -512,58 +655,66 @@ def reduce_in_dtype(g: torch.Tensor, name: str, layout: Layout,
     and rounded to ``dtype``, as the reference's sharded step sums the
     compute-dtype partial products of a data-parallel dot: in float16 a sum
     past 65504 is inf on every rank, as on one device, and the loss scaler
-    takes the single device's decision. A ZeRO-3 leaf's gradient arrives
-    reduce-scattered already (``GatherAtUse``) and is only rounded."""
-    if layout.leaves[name].param_dim is None:
-        g = all_reduce_(g, layout.mesh.batch)
+    takes the single device's decision. An ``fsdp`` shard's gradient
+    arrives reduce-scattered over ``fsdp`` already (``GatherAtUse``) and is
+    summed over ``data``."""
+    mesh = layout.mesh
+    g = axis_sum_(g, mesh.data if layout.leaves[name].fsdp_dim is not None else mesh.batch)
     return g.to(dtype).float()
+
+
+def _norm_axes(pl: LeafPlacement) -> Tuple[str, ...]:
+    """The axes over which a leaf's owned gradient is split."""
+    axes = [a for _, a in pl.axes]
+    if not axes and pl.opt_dim is not None:
+        axes.append(pl.opt_axis)
+    if pl.stage:
+        axes.append("pipe")
+    return tuple(sorted(axes))
 
 
 def sharded_sq_norm(grads: Mapping[str, torch.Tensor], layout: Layout) -> torch.Tensor:
     """The whole gradient's sum of squares (float32) from the owned
-    gradients: each leaf's squares summed over the ranks holding its other
-    parts (the batch axes for a ZeRO shard, the expert group for an expert
-    leaf, the tensor group for a tensor-split one; one all-reduce an axis),
-    then every leaf's in order, each leaf held whole on every rank counted
-    once. The leaves add up in one order whatever the placement, so a world
-    of 1 sums as one device does."""
+    gradients: each leaf's squares summed over every axis that splits it
+    (``fsdp``, ``tensor``, ``expert``, its moments' axis, ``pipe`` for a
+    stage's layer leaf; one all-reduce for each axis of each combination,
+    in one order on every rank), so each element counts once, then every
+    leaf's in order. The leaves add up in one order whatever the
+    placement, so a world of 1 sums as one device does."""
     leaves, mesh = layout.leaves, layout.mesh
     sq = {n: torch.sum(g.float() * g.float()) for n, g in grads.items()}
-
-    def axis(pl):
-        if pl.expert_dim is not None:
-            return "experts"
-        if pl.tensor_dim is not None:
-            return "tensor"
-        if pl.opt_dim is not None or pl.param_dim is not None:
-            return "batch"
-        return None
-
-    for name in ("batch", "experts", "tensor"):  # one order on every rank
-        parts = [n for n in grads if axis(leaves[n]) == name]
-        if parts:
-            summed = all_reduce_(torch.stack([sq[n] for n in parts]), getattr(mesh, name))
-            sq.update(zip(parts, summed.unbind()))
-    # A stage's layer leaves: the same local name is another layer on each
-    # stage, so its squares are summed over the pipe group.
-    staged = [n for n in grads if leaves[n].stage]
-    if staged:
-        summed = all_reduce_(torch.stack([sq[n] for n in staged]), mesh.pipe)
-        sq.update(zip(staged, summed.unbind()))
+    groups: Dict[Tuple[str, ...], List[str]] = {}
+    for n in grads:
+        groups.setdefault(_norm_axes(leaves[n]), []).append(n)
+    for axes in sorted(groups):
+        if not axes:
+            continue
+        parts = groups[axes]
+        summed = torch.stack([sq[n] for n in parts])
+        for a in axes:
+            summed = axis_sum_(summed, axis_view(mesh, a))
+        sq.update(zip(parts, summed.unbind()))
     return sum(sq[n] for n in grads)
 
 
 @torch.no_grad()
-def gather_whole(t: torch.Tensor, d: Optional[int], mesh: Mesh) -> torch.Tensor:
-    """The whole leaf of which ``t`` is this rank's shard along ``d`` (a
-    collective), or ``t`` itself when it is whole (``d`` None or a world of
-    1), so a leaf that is not sharded keeps its identity. A gathered leaf
-    comes back in host memory (pinned when the mesh is on the card): it is
+def gather_whole(t: torch.Tensor, axes: Sequence[Tuple[Optional[int], Mesh]],
+                 keep: bool = True) -> Optional[torch.Tensor]:
+    """The whole leaf of which ``t`` is this rank's part along each ``(dim,
+    axis view)`` of ``axes`` (a collective on each axis), or ``t`` itself
+    when it is whole (no dim, or views of one rank), so a leaf that is not
+    split keeps its identity. A gathered leaf comes back in host memory
+    (pinned when the mesh is on the card) when ``keep``, else None: it is
     whole on the device only until it is copied off, so a caller that
     gathers leaf after leaf holds at most one whole leaf there."""
-    if d is None or mesh.world == 1:
+    axes = [(d, m) for d, m in axes if d is not None and m.world > 1]
+    if not axes:
         return t
-    whole = all_gather_dim(t.detach().to(mesh.device), d, mesh)
+    whole = t.detach().to(axes[0][1].device)
+    for d, m in axes:
+        whole = all_gather_dim(whole, d, m)
+    if not keep:
+        return None
     if whole.device.type == "cpu":
         return whole
     host = torch.empty(whole.shape, dtype=whole.dtype, pin_memory=True)

@@ -45,7 +45,7 @@ from __future__ import annotations
 
 import functools
 import re
-from typing import Dict, Mapping, Optional, Sequence
+from typing import Optional, Sequence
 
 import torch
 import torch.distributed as dist
@@ -85,7 +85,9 @@ def quant_normalized_name(name: str) -> str:
     return name
 
 
-def _rule_dim(name: str) -> Optional[int]:
+def tensor_rule_dim(name: str) -> Optional[int]:
+    """The dim the tensor rule splits leaf ``name`` on, whatever its shape
+    (an int8 pair's leaf by its weight's rule), or None."""
     path = quant_normalized_name(name)
     return next((d for pattern, d in _RULES if pattern.match(path)), None)
 
@@ -93,29 +95,8 @@ def _rule_dim(name: str) -> Optional[int]:
 def tensor_shard_dim(name: str, shape: Sequence[int], tp: int) -> Optional[int]:
     """The dim of leaf ``name`` (whole ``shape``) split over a tensor axis
     of extent ``tp``, or None when every tensor rank holds it whole."""
-    d = _rule_dim(name)
+    d = tensor_rule_dim(name)
     return d if d is not None and d < len(shape) and shape[d] % tp == 0 else None
-
-
-def whole_shapes(parts: Mapping[str, Sequence[int]], tp: int) -> Dict[str, tuple]:
-    """Each leaf's whole shape from a tensor rank's parts (``parts``: name
-    to the part's shape, of a model whose widths ``check_divides`` passed):
-    the rule's dim times ``tp``; an int8 pair's ``scale`` from its weight's
-    whole shape (size 1 on the contraction dim)."""
-    out: Dict[str, tuple] = {}
-    for name, shape in parts.items():
-        shape = list(shape)
-        if quant_normalized_name(name) != name and name.endswith(".scale"):
-            continue
-        d = _rule_dim(name)
-        if d is not None and d < len(shape):
-            shape[d] *= tp
-        out[name] = tuple(shape)
-    for name in parts:
-        if name not in out:
-            q = out[name[:-len("scale")] + "q"]
-            out[name] = q[:-2] + (1, q[-1])
-    return {name: out[name] for name in parts}
 
 
 def all_reduce_(t: torch.Tensor, mesh) -> torch.Tensor:

@@ -453,8 +453,7 @@ class EngineExecutor:
             # leaf is let go (popped from the caller's dict) as it is done.
             params = quantize_params_int8(params if donate_params else dict(params),
                                           device=dev, donate=True)
-        self.model = load_model(model_cfg, params, dev, lora_cfg,
-                                tensor=None if tensor is None else tensor.tensor)
+        self.model = load_model(model_cfg, params, dev, lora_cfg, mesh=tensor)
         del params
         # The multi-LoRA pool, sized from the model's final (possibly int8)
         # projection shapes, on the engine's device.

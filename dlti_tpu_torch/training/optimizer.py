@@ -25,10 +25,12 @@ what the last one wrote. Moments are float32 whatever the parameter dtype
 
 ``init`` and ``update`` follow the state's ``parallel.sharding.Layout``
 (on one device, every leaf whole). Under a ZeRO strategy the moments of a
-trainable leaf hold only this rank's shard, the gradient ``update`` takes is
-the one this rank owns (that shard, or the whole leaf), and the update runs
-on the shard of the parameter: a ZeRO-3 leaf is its shard already, a
-ZeRO-1/2 leaf's new whole value is all-gathered after it. The clip reads
+trainable leaf hold only this rank's part (``Layout.moment_axes``), the
+gradient ``update`` takes is the one this rank owns (that part, or the whole
+leaf), and the update runs on the part of the parameter: a leaf the
+placement rule splits is its part already, a leaf it leaves whole is updated
+on its shard over the moments' axis (``data`` under ZeRO-1/2, ``fsdp`` under
+ZeRO-3) and its new whole value all-gathered after it. The clip reads
 the norm of the whole gradient (``sharded_sq_norm``). With
 ``offload_optimizer`` on the card the moments rest in pinned host memory and
 cross to the card for the update and back, with the same arithmetic.
@@ -103,7 +105,7 @@ class ClipAdamW:
 
         def zeros(n: str, p: torch.Tensor) -> torch.Tensor:
             if layout.gathers_update(n):
-                p = shard_of(p, layout.leaves[n].opt_dim, layout.mesh.batch)
+                p = shard_of(p, layout.leaves[n].opt_dim, layout.opt_view(n))
             if host:
                 return torch.zeros(p.shape, dtype=torch.float32, pin_memory=True)
             return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
@@ -137,7 +139,7 @@ class ClipAdamW:
 
         for n, whole in params.items():
             gathered = layout.gathers_update(n)
-            p = shard_of(whole, layout.leaves[n].opt_dim, layout.mesh.batch) if gathered else whole
+            p = shard_of(whole, layout.leaves[n].opt_dim, layout.opt_view(n)) if gathered else whole
             mu_old, nu_old = state.mu[n], state.nu[n]
             if mu_old.device != p.device:  # offloaded moments: onto the card
                 mu_old = mu_old.to(p.device, non_blocking=True)
@@ -156,7 +158,7 @@ class ClipAdamW:
                 state.mu[n].copy_(mu_old, non_blocking=True)
                 state.nu[n].copy_(nu_old, non_blocking=True)
             if gathered:
-                whole.copy_(all_gather_dim(p, layout.leaves[n].opt_dim, layout.mesh.batch))
+                whole.copy_(all_gather_dim(p, layout.leaves[n].opt_dim, layout.opt_view(n)))
         keep(count_inc, state.count)
         return state
 

@@ -27,16 +27,17 @@ other device leaves; :func:`load_state_leaves` reads both back and checks
 that they agree.
 
 The state carries its ``parallel.sharding.Layout`` (on one device without
-a strategy, the single-device mesh's, which places every leaf whole): under
-a ZeRO strategy a leaf may be this rank's shard (ZeRO-3 parameters,
-ZeRO-1/2/3 moments, a mixture of experts' expert leaves under expert
-parallelism) or rest in pinned host memory (offload).
-:func:`state_leaves` still gives every leaf whole, under the same names: a
-sharded one all-gathered into host memory, leaf after leaf (a collective
-every rank joins; rank 0 keeps it), anything else the live tensor. So a
-checkpoint of any strategy and world is the baseline's, and
-:func:`load_state_leaves` takes each rank's shard of the whole leaves it is
-given, so it restores under any other.
+a strategy, the single-device mesh's, which places every leaf whole): a
+leaf may be this rank's part, split over any of ``fsdp``, ``tensor`` and
+``expert`` by the placement rule (its moments too; ZeRO-1/2/3 moments of a
+leaf held whole are sharded over their own axis), or rest in pinned host
+memory (offload). :func:`state_leaves` still gives every leaf whole, under
+the same names: a split one all-gathered over every axis that splits it
+into host memory, leaf after leaf (a collective every rank joins; rank 0
+alone keeps it), anything else the live tensor. So a checkpoint of any
+strategy and world is the baseline's, and :func:`load_state_leaves` cuts
+each rank's part of the whole leaves it is given by the same rule, so it
+restores under any other.
 
 Under pipeline parallelism (``pipe`` above 1) a stage's model holds its
 layers as ``model.layers.0 ..`` and the state is named as the reference's
@@ -65,7 +66,7 @@ from torch import nn
 from dlti_tpu_torch.models.interop import jax_path
 from dlti_tpu_torch.models.lora import is_lora_name
 from dlti_tpu_torch.parallel.mesh import single_device_mesh
-from dlti_tpu_torch.parallel.sharding import Layout, gather_whole, plan_layout, shard_of
+from dlti_tpu_torch.parallel.sharding import Layout, gather_whole, part_of, plan_layout
 from dlti_tpu_torch.training.optimizer import AdamWState, ClipAdamW
 
 _ADAM = ".opt_state[1][0]"
@@ -101,13 +102,13 @@ class TrainState:
         return partition_params(dict(self.model.named_parameters()),
                                 self.lora_enabled)[0]
 
-    def _param_axis(self, name: str) -> tuple:
-        """(dim, mesh view) along which ``name`` is this rank's shard."""
-        return self.layout.param_axis(name)
+    def _param_axes(self, name: str) -> list:
+        """[(dim, mesh view)] along which ``name`` is this rank's part."""
+        return self.layout.param_axes(name)
 
-    def _moment_axis(self, name: str) -> tuple:
-        """(dim, mesh view) along which ``name``'s moments are this rank's shard."""
-        return self.layout.moment_axis(name)
+    def _moment_axes(self, name: str) -> list:
+        """[(dim, mesh view)] along which ``name``'s moments are this rank's part."""
+        return self.layout.moment_axes(name)
 
 
 def create_train_state(model: nn.Module, tx: ClipAdamW, lora_enabled: bool = True,
@@ -187,13 +188,15 @@ def whole_params(state: TrainState) -> Dict[str, torch.Tensor]:
     mesh = state.layout.mesh
     out = {}
     for n, p in state.model.named_parameters():
-        t = gather_whole(p.detach(), *state._param_axis(n))
+        stage = state.layout.leaves[n].stage
+        t = gather_whole(p.detach(), state._param_axes(n), keep=stage or mesh.is_writer)
         m = _LAYER.fullmatch(n)
-        if state.layout.leaves[n].stage:
+        if stage:
             # The same layer of every stage: layer i of stage k is k*K + i.
             per_stage = len(state.model.model.layers)
-            every = gather_whole(t.to(mesh.device)[None], 0, mesh.pipe)
-            for k in range(mesh.pp):
+            every = gather_whole(t.to(mesh.device)[None], [(0, mesh.pipe)],
+                                 keep=mesh.is_writer)
+            for k in range(mesh.pp if mesh.is_writer else 0):
                 out[f"model.layers.{k * per_stage + int(m.group(1))}.{m.group(2)}"] = every[k]
         else:
             out[n] = t
@@ -213,22 +216,22 @@ def state_leaves(state: TrainState, whole: bool = True) -> List[Tuple[str, torch
     layout = state.layout
     mesh = layout.mesh
 
-    def out(t: torch.Tensor, axis: tuple, shape) -> torch.Tensor:
+    def out(t: torch.Tensor, axes: list, shape) -> torch.Tensor:
         if whole:
-            g = gather_whole(t, *axis)
+            g = gather_whole(t, axes, keep=mesh.is_writer)
             if g is t or mesh.is_writer:
                 return g
         return torch.empty(shape, dtype=t.dtype, device="meta")
 
-    def stacked(ts: List[torch.Tensor], axes: List[tuple], shape) -> torch.Tensor:
+    def stacked(ts: List[torch.Tensor], axes: List[list], shape) -> torch.Tensor:
         """A stage's layers of one leaf, each whole, stacked, then every
         stage's concatenated (rank 0 keeps it)."""
         shape = (len(ts) * mesh.pp,) + tuple(shape)
         if not whole:
             return torch.empty(shape, dtype=ts[0].dtype, device="meta")
-        local = torch.stack([gather_whole(t, *a).to(mesh.device) for t, a in zip(ts, axes)])
-        g = gather_whole(local, 0, mesh.pipe)
-        return g if mesh.is_writer else torch.empty(shape, dtype=g.dtype, device="meta")
+        local = torch.stack([gather_whole(t, a).to(mesh.device) for t, a in zip(ts, axes)])
+        g = gather_whole(local, [(0, mesh.pipe)], keep=mesh.is_writer)
+        return g if mesh.is_writer else torch.empty(shape, dtype=local.dtype, device="meta")
 
     def leaves_of(named: Dict[str, torch.Tensor], axis) -> List[tuple]:
         """``[(key path, tensor)]`` sorted by path, a stage's layer leaves
@@ -252,10 +255,10 @@ def state_leaves(state: TrainState, whole: bool = True) -> List[Tuple[str, torch
     count = state.opt_state.count
     scaler = ([(f".scaler[{k!r}]", state.scaler[k]) for k in SCALER_KEYS]
               if state.scaler is not None else [])
-    mu = leaves_of(state.opt_state.mu, state._moment_axis)
-    nu = leaves_of(state.opt_state.nu, state._moment_axis)
+    mu = leaves_of(state.opt_state.mu, state._moment_axes)
+    nu = leaves_of(state.opt_state.nu, state._moment_axes)
     return ([(".step", torch.tensor(state.step, dtype=torch.int32))]
-            + [(_key(path), t) for path, t in leaves_of(params, state._param_axis)]
+            + [(_key(path), t) for path, t in leaves_of(params, state._param_axes)]
             + [(f"{_ADAM}.count", count)]
             + [(f"{_ADAM}.mu[{path!r}]", t) for path, t in mu]
             + [(f"{_ADAM}.nu[{path!r}]", t) for path, t in nu]
@@ -290,14 +293,15 @@ def load_state_leaves(state: TrainState,
             return t[offset + int(_LAYER.fullmatch(n).group(1))]
         return t
 
+    layout, mesh = state.layout, state.layout.mesh
     for n, p in state.model.named_parameters():
-        p.copy_(shard_of(mine(got[_key(_leaf_path(state.layout, n))], n),
-                         *state._param_axis(n)))
+        p.copy_(part_of(mine(got[_key(_leaf_path(layout, n))], n), layout.leaves[n].split,
+                        mesh))
     opt = state.opt_state
     for n in state.trainable():
-        axis, path = state._moment_axis(n), _leaf_path(state.layout, n)
-        opt.mu[n].copy_(shard_of(mine(got[f"{_ADAM}.mu[{path!r}]"], n), *axis))
-        opt.nu[n].copy_(shard_of(mine(got[f"{_ADAM}.nu[{path!r}]"], n), *axis))
+        split, path = layout.moment_split(n), _leaf_path(layout, n)
+        opt.mu[n].copy_(part_of(mine(got[f"{_ADAM}.mu[{path!r}]"], n), split, mesh))
+        opt.nu[n].copy_(part_of(mine(got[f"{_ADAM}.nu[{path!r}]"], n), split, mesh))
     opt.count.fill_(adam_count)
     for k in SCALER_KEYS if state.scaler is not None else ():
         state.scaler[k].copy_(got[f".scaler[{k!r}]"])

@@ -41,10 +41,11 @@ a process group): each rank runs its rows of every microbatch, drawing LoRA drop
 for them by their global row numbers; the token count and the loss sum are
 all-reduced before they divide, so loss and gradients are the global token
 mean; each gradient is all-reduced or reduce-scattered to the part this
-rank owns (``parallel.sharding.owned_grad``; ZeRO-3's sharded leaves
-reduce-scatter in the backward); the norm is the whole gradient's, equal on
-every rank, so the bf16 guard and the fp16 scaler take the same decision
-everywhere. In fp16 each microbatch's gradients are summed over the ranks
+rank owns (``parallel.sharding.owned_grad``; ZeRO-3's ``fsdp`` shards
+reduce-scatter over ``fsdp`` in the backward, then sum over ``data``); the
+norm is the whole gradient's, each element counted once whatever splits
+it, equal on every rank, so the bf16 guard and the fp16 scaler take the
+same decision everywhere. In fp16 each microbatch's gradients are summed over the ranks
 and rounded to float16 (``parallel.sharding.reduce_in_dtype``), where the
 reference's sharded step sums its float16 partial products: a sum past
 float16's range overflows on every rank as on one device, so the scaler
@@ -346,6 +347,9 @@ def make_device_step(model, *, accum_steps: int = 1, loss_chunk: int = 0,
                 acc += g
             loss_sum += ls.detach()
             n_tok += nt
+        fetcher = state.model.model.fetcher
+        if fetcher is not None:
+            fetcher.end()
         if seq_axis is not None:  # every sequence rank's tokens of the rows
             totals = all_reduce_(torch.stack([loss_sum, n_tok]), seq_axis)
             loss_sum, n_tok = totals[0], totals[1]

@@ -89,12 +89,17 @@ router's load-balance loss in the objective; each step's ``aux_loss`` is in
 ``cfg.parallel.expert`` above 1 the experts are split over the expert axis
 (``parallel.sharding``), and the ranks of one expert group take the same
 rows of each batch (the dataset is sliced by the batch axes). Under
-``cfg.parallel.tensor`` above 1 (alone or with ``data``: baseline, ZeRO-1,
-ZeRO-2) each rank holds its part of the heads, hidden units and
-vocabulary (``parallel.tensor``'s rule, cut by ``models.interop``'s
-``shard_params`` or as drawn), the ranks of one tensor group take the
-same rows, and a checkpoint or an export gathers the parts into whole
-leaves on rank 0.
+``cfg.parallel.tensor`` above 1 each rank holds its part of the heads,
+hidden units and vocabulary (``parallel.tensor``'s rule), and the ranks of
+one tensor group take the same rows. Under ZeRO-3 each leaf is sharded
+over its own ``fsdp`` axis on a dim the tensor and expert axes leave free,
+beside any model axis and beside ``data`` (a mixed ``data x fsdp`` mesh):
+the one placement rule (``parallel.sharding.strategy_axes``) cuts every
+leaf, by ``models.interop``'s ``shard_params`` or as drawn, and a
+checkpoint or an export gathers the parts over every axis that splits
+them into whole leaves on rank 0. ``params`` may be whole (this package's
+names) or already this rank's tree under the mesh, as ``init_params(...,
+mesh=)`` draws it (under pipe its stage's layers by their local names).
 
 Under ``cfg.parallel.sequence`` above 1 each rank of a sequence group
 runs its chunk of every row's tokens, attention over the ring, and the
@@ -108,9 +113,8 @@ layout, gathered whole on rank 0 (``training.state``).
 
 Runs on ``cuda`` unless given ``device="cpu"``; without a card and without a
 device it raises. Not ported (each raises or is absent, see ROADMAP.md):
-sequence or pipe with ZeRO-3 or offload, pipe x sequence, sequence with a
-mixture of experts, a mixed data x fsdp mesh, fsdp x expert, tensor with
-ZeRO-3, expert or offload, the reference's other telemetry
+tensor, sequence or pipe with offload, pipe x sequence, sequence with a
+mixture of experts, tensor with expert, the reference's other telemetry
 (tracer, goodput and memory ledgers, watchdog), the sentinel's rollback and
 data quarantine, chaos and elastic training.
 """
@@ -137,7 +141,7 @@ from dlti_tpu_torch.models.interop import (
     init_params, init_params_int8, load_model, shard_params)
 from dlti_tpu_torch.models.quantization import quantize_params_int8
 from dlti_tpu_torch.parallel.mesh import build_mesh
-from dlti_tpu_torch.parallel.pipeline import stage_params
+from dlti_tpu_torch.parallel.pipeline import _LAYER, stage_params
 from dlti_tpu_torch.parallel.sharding import all_reduce_, shard_model
 from dlti_tpu_torch.training.optimizer import build_optimizer
 from dlti_tpu_torch.training.state import (
@@ -291,13 +295,16 @@ class Trainer:
         cfg, mesh = self.cfg, self.mesh
         lora = cfg.lora if cfg.lora.enabled else None
         params = self.params
-        if params is not None and mesh.pp > 1:
-            # This stage's layers under their local names; init_params(mesh=)
-            # keeps them as it draws.
+        per_stage = cfg.model.num_layers // mesh.pp
+        if params is not None and mesh.pp > 1 and any(
+                int(m.group(1)) >= per_stage for m in map(_LAYER.fullmatch, params) if m):
+            # This stage's layers under their local names, from a whole tree
+            # (a tree init_params(mesh=) drew holds them so already).
             params = stage_params(dict(params), mesh.pipe.rank, mesh.pp,
                                   cfg.model.num_layers)
-        # Under a tensor group each leaf is cut to this rank's part as it is
-        # drawn or placed, an int8 weight quantized whole first.
+        # Each leaf is cut to this rank's part (its tensor part, experts and
+        # fsdp shard) as it is drawn or placed, an int8 weight quantized
+        # whole first.
         if params is None and cfg.train.quantize_frozen_base:
             # Drawn and quantized leaf by leaf: the full-precision tree never
             # exists.
@@ -306,15 +313,14 @@ class Trainer:
         elif params is None:
             params = init_params(cfg.model, seed=cfg.train.seed, device=self.device,
                                  lora=lora, mesh=mesh)
-        elif mesh.tensor_parallel:
+        elif mesh.splits_leaves:
             params = shard_params(dict(params), mesh, cfg.model, lora, device=self.device,
                                   quantize=cfg.train.quantize_frozen_base, donate=True)
         elif cfg.train.quantize_frozen_base:
             # Leaf by leaf on the device.
             params = quantize_params_int8(dict(params), device=self.device, donate=True)
         model = load_model(cfg.model, params, self.device, lora=lora, trainable_lora=True,
-                           tensor=mesh.tensor if mesh.tensor_parallel else None,
-                           stage=(mesh.pipe.rank, mesh.pp))
+                           mesh=mesh, stage=(mesh.pipe.rank, mesh.pp))
         del params
         layout = shard_model(model, self.mesh, cfg.lora.enabled)
         if self.params is not None and (cfg.parallel.offload_params or self.mesh.world > 1):

@@ -511,21 +511,57 @@ def _flash_launches(gen, dtype, d):
     return run
 
 
-def _profiled_kernel_names(run) -> list:
-    """The kernel names the profiler records for ``run()``. One warm-up call
-    runs outside the profiled region first, so neither the kernels' first
-    loading nor CUPTI's first records fall inside it. The full list is
-    printed (pytest shows it when an assertion on it fails)."""
-    from torch.profiler import ProfilerActivity, profile
+# The profile of _profiled_kernel_names, in a process of its own: after the
+# file's earlier tests CUPTI has dropped the profiled region's first kernel
+# records in the test process (F3; in every whole-file run on some
+# machines), never in a fresh one.
+_PROFILE_SCRIPT = """
+import json, sys
+import torch
+from torch.profiler import ProfilerActivity, profile
+from dlti_tpu_torch.ops import flash_attention as tfa
 
+dtype, d = getattr(torch, sys.argv[1]), int(sys.argv[2])
+gen = torch.Generator(device="cuda").manual_seed(0)
+q, do = (torch.randn(1, 256, 8, d, device="cuda", generator=gen).to(dtype) for _ in range(2))
+k, v = (torch.randn(1, 256, 2, d, device="cuda", generator=gen).to(dtype) for _ in range(2))
+q, k, v = (t.requires_grad_() for t in (q, k, v))
+
+def run():
+    tfa.flash_attention(q, k, v).backward(do)
+    return dict(tfa.last_kernel)
+
+launched = run()
+torch.cuda.synchronize()
+with profile(activities=[ProfilerActivity.CUDA]) as prof:
     run()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        run()
-        torch.cuda.synchronize()
-    names = sorted({e.key for e in prof.key_averages()})
-    print("profiled kernel names:", *names, sep="\n  ")
-    return names
+print(json.dumps({"launched": launched, "names": sorted({e.key for e in prof.key_averages()})}))
+"""
+
+
+def _profiled_kernel_names(dtype, d) -> list:
+    """The kernel names the profiler records for ``_flash_launches``' call at
+    ``dtype`` and head_dim ``d`` (a forward and backward at (1, 256, 8/2,
+    d)), in a fresh process on this card. One warm-up call runs outside the
+    profiled region first, so neither the kernels' first loading nor
+    CUPTI's first records fall inside it; it must launch ``WGMMA_KERNELS``.
+    The full list is printed (pytest shows it when an assertion on it
+    fails)."""
+    import json
+    import os
+    import subprocess
+    import sys
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    out = subprocess.run([sys.executable, "-c", _PROFILE_SCRIPT, str(dtype).split(".")[1],
+                          str(d)], cwd=root, env=dict(os.environ, PYTHONPATH=root),
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    got = json.loads(out.stdout.strip().splitlines()[-1])
+    assert got["launched"] == WGMMA_KERNELS, got["launched"]
+    print("profiled kernel names:", *got["names"], sep="\n  ")
+    return got["names"]
 
 
 def test_bf16_flash_reaches_the_tensor_core_kernels(gen):
@@ -548,7 +584,7 @@ def test_bf16_flash_reaches_the_tensor_core_kernels(gen):
     run = _flash_launches(gen, torch.bfloat16, 128)
     for _ in range(2):
         assert run() == WGMMA_KERNELS
-    names = _profiled_kernel_names(run)
+    names = _profiled_kernel_names(torch.bfloat16, 128)
     assert any("flash_fwd_wgmma_kernel" in n for n in names), names
     assert any("flash_bwd_dkv_wgmma_kernel" in n for n in names), names
     assert any("flash_bwd_dq_wgmma_kernel" in n for n in names), names
@@ -637,7 +673,7 @@ def test_f16_flash_reaches_the_tensor_core_kernels(gen):
     run = _flash_launches(gen, torch.float16, 128)
     for _ in range(2):
         assert run() == WGMMA_KERNELS
-    names = _profiled_kernel_names(run)
+    names = _profiled_kernel_names(torch.float16, 128)
     for kernel in ("flash_fwd_wgmma_kernel", "flash_bwd_dq_wgmma_kernel",
                    "flash_bwd_dkv_wgmma_kernel"):
         assert any(kernel in n and "half" in n for n in names), names
@@ -1463,6 +1499,11 @@ def _step_memory(quantized, layers=8):
     import gc
 
     gc.collect()
+    # cuBLAS keeps a workspace (32 MiB on Hopper) for each stream it ran on,
+    # from the caching allocator; the capture's streams come from a pool the
+    # file's earlier tests have cycled, so without this one run of the pair
+    # could reuse a workspace the other allocates inside its window.
+    torch._C._cuda_clearCublasWorkspaces()
     torch.cuda.empty_cache()
     torch.cuda.synchronize()
     before = torch.cuda.memory_allocated()
@@ -2116,22 +2157,31 @@ def test_graphs_under_a_gloo_group_on_the_card_raise(gen, monkeypatch):
 # Sequence and pipeline parallelism over NCCL across cards
 # ----------------------------------------------------------------------
 
-# name -> (world, parallel): graphed SP/PP steps, a rank a card.
+# name -> (world, parallel): graphed SP/PP steps and ZeRO-3 on its fsdp axis
+# beside each model axis, a rank a card ("expert" cases on the mixture of
+# experts at the same widths).
 ACROSS_CARDS = {
     "sequence2": (2, dict(sequence=2)),
     "pipe2": (2, dict(pipe=2)),
     "data2_sequence2": (4, dict(data=2, sequence=2)),
     "zero1_pipe2_data2": (4, dict(zero_stage=1, pipe=2, data=2)),
+    "zero3_fsdp2_tensor2": (4, dict(zero_stage=3, fsdp=2, tensor=2)),
+    "zero3_fsdp2_expert2": (4, dict(zero_stage=3, fsdp=2, expert=2)),
+    "zero3_fsdp2_sequence2": (4, dict(zero_stage=3, fsdp=2, sequence=2)),
+    "zero3_fsdp2_pipe2": (4, dict(zero_stage=3, fsdp=2, pipe=2)),
+    "zero3_data2_fsdp2": (4, dict(zero_stage=3, data=2, fsdp=2)),
 }
 ACROSS_MODEL = dict(num_layers=4, vocab_size=512, dtype="float32", param_dtype="float32")
+ACROSS_MOE = dict(ACROSS_MODEL, num_experts=4, num_experts_per_tok=2)
 ACROSS_LORA = dict(r=8, alpha=16, dropout=0.05)
 
 
 @pytest.fixture(scope="module")
 def across_cards(tmp_path_factory):
     """The cases' graphed steps in NCCL worlds of 2 and 4, one rank a card
-    (llama_300m's widths at 4 layers, float32, LoRA with dropout), and the
-    same steps on one card, eager, in this process."""
+    (llama_300m's widths at 4 layers, float32, LoRA with dropout; the
+    expert cases a mixture of 4 experts at those widths), and the same
+    steps on one card, eager, in this process."""
     import numpy as np
 
     import torch_dist_worker as W
@@ -2142,38 +2192,47 @@ def across_cards(tmp_path_factory):
         pytest.skip("needs 4 CUDA devices (one rank a card over NCCL)")
     import dataclasses
 
-    cfg = dataclasses.replace(MODEL_PRESETS["llama_300m"], **ACROSS_MODEL)
     lora = LoRAConfig(**ACROSS_LORA)
-    params = {n: t.numpy() for n, t in init_params(cfg, seed=0, device="cpu",
-                                                     lora=lora).items()}
     rng = np.random.default_rng(3)
     shape = (4, 4, 256)
-    batches = [{"input_ids": rng.integers(3, cfg.vocab_size, shape).astype(np.int32),
+    batches = [{"input_ids": rng.integers(3, 512, shape).astype(np.int32),
                 "loss_mask": (rng.random(shape) > 0.2).astype(np.int32)} for _ in range(2)]
-    kw = dict(params=params, batches=batches, lora=ACROSS_LORA, opt=dict(warmup_steps=1),
-              model=ACROSS_MODEL, preset="llama_300m", seed=5, accum=4)
+    kws = {}
+    for kind, model in (("dense", ACROSS_MODEL), ("moe", ACROSS_MOE)):
+        cfg = dataclasses.replace(MODEL_PRESETS["llama_300m"], **model)
+        params = {n: t.numpy() for n, t in init_params(cfg, seed=0, device="cpu",
+                                                         lora=lora).items()}
+        kws[kind] = dict(params=params, batches=batches, lora=ACROSS_LORA,
+                         opt=dict(warmup_steps=1), model=model, preset="llama_300m", seed=5,
+                         accum=4)
     # Build the kernels once before the ranks load them.
     tfa.flash_attention(*(torch.zeros(1, 64, 2, 64, device="cuda") for _ in range(3)))
     tmp = tmp_path_factory.mktemp("across")
-    worlds = {w: W.spawn_world(w, [(n, "steps", dict(kw, parallel=par, device="cuda",
-                                                      graphs=True))
+    worlds = {w: W.spawn_world(w, [(n, "steps", dict(kws[_across_kind(n)], parallel=par,
+                                                      device="cuda", graphs=True))
                                    for n, (wn, par) in ACROSS_CARDS.items() if wn == w],
                                str(tmp), backend="nccl") for w in (2, 4)}
-    one = W.steps(parallel={}, device="cuda", **kw)
+    one = {kind: W.steps(parallel={}, device="cuda", **kw) for kind, kw in kws.items()}
     return worlds, one
+
+
+def _across_kind(name):
+    return "moe" if "expert" in name else "dense"
 
 
 @pytest.mark.parametrize("name", list(ACROSS_CARDS))
 def test_sequence_and_pipe_graphed_steps_across_cards_equal_one_card(across_cards, name):
     """Each rank a card over NCCL, the step captured as a CUDA graph (the
     ring's permutes and skips, the pipeline's ticks and hand-run backward,
-    their collectives inside): losses, grad norms and LoRA factors equal
-    one card's eager steps on the same rows within 1e-4 (float32: the ring
-    sums in another order than K1), every rank reporting the same metrics."""
+    ZeRO-3's gathers issued a block ahead and its reduce-scatters, their
+    collectives inside): losses, grad norms and LoRA factors equal one
+    card's eager steps on the same rows within 1e-4 (float32: the ring sums
+    in another order than K1), every rank reporting the same metrics."""
     import numpy as np
 
-    worlds, one = across_cards
+    worlds, ones = across_cards
     world, _ = ACROSS_CARDS[name]
+    one = ones[_across_kind(name)]
     got = worlds[world][0][name]
     assert got["captures"] == 1
     for g, w in zip(got["metrics"], one["metrics"]):

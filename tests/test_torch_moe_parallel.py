@@ -232,22 +232,36 @@ def test_expert_axis_strategy_rules():
     check_strategy(tc.ParallelConfig(data=2, expert=2))
     check_strategy(tc.ParallelConfig(zero_stage=tc.ZeROStage.ZERO2, data=2, expert=2))
     check_strategy(tc.ParallelConfig(pipe=2, expert=2))
-    for par, match in [(dict(zero_stage=tc.ZeROStage.ZERO3, fsdp=2, expert=2), "fsdp x expert"),
-                       (dict(zero_stage=tc.ZeROStage.ZERO3, fsdp=1, expert=2), "fsdp x expert"),
-                       (dict(tensor=2, expert=2), "tensor x expert"),
-                       (dict(sequence=2, expert=2), "sequence x expert"),
-                       (dict(pipe=2, zero_stage=tc.ZeROStage.ZERO3, fsdp=2, expert=2),
-                        "pipe x ZeRO-3")]:
+    # ZeRO-3 shards over its own fsdp axis beside the expert one (the steps
+    # are held to JAX's in tests/test_torch_zero3_steps.py).
+    for par in (dict(fsdp=2, expert=2), dict(fsdp=1, expert=2), dict(pipe=2, fsdp=2, expert=2)):
+        check_strategy(tc.ParallelConfig(zero_stage=tc.ZeROStage.ZERO3, **par))
+    for par, match in [(dict(tensor=2, expert=2), "tensor x expert"),
+                       (dict(sequence=2, expert=2), "sequence x expert")]:
         with pytest.raises(NotImplementedError, match=match):
             check_strategy(tc.ParallelConfig(**par))
 
 
-def test_zero3_with_the_expert_axis_is_refused_at_a_batch_extent_of_one(worlds):
-    """``cli.train --preset zero3 --expert 2`` on a world of 2 sizes fsdp to
-    1; ZeRO-3 would still shard over the whole world, expert ranks
-    included, so the mesh is refused by name on every rank."""
+def test_zero3_with_the_expert_axis_is_refused_at_a_batch_extent_of_one():
+    """Under ``--pipe``, ``cli.train --preset zero3 --expert 2`` with no
+    ``--data`` has a batch-row (fsdp) extent of one, which the reference
+    refuses (``scripts/train.py:317-321``): fsdp 1 would shard nothing."""
+    from dlti_tpu_torch.cli.train import build_config, parse_args
+
+    with pytest.raises(SystemExit, match="needs a batch-row extent"):
+        build_config(parse_args(["--model", "mixtral_tiny", "--preset", "zero3",
+                                 "--expert", "2", "--pipe", "2"]))
+    par = build_config(parse_args(["--model", "mixtral_tiny", "--preset", "zero3",
+                                   "--expert", "2", "--pipe", "2", "--data", "2"])).parallel
+    assert (par.fsdp, par.expert, par.pipe, par.zero_stage) == (2, 2, 2, tc.ZeROStage.ZERO3)
+
+
+def test_zero3_with_the_expert_axis_at_a_batch_extent_of_one_builds(worlds):
+    """Without ``--pipe``, ``cli.train --preset zero3 --expert 2`` on a world
+    of 2 sizes fsdp to 1. ZeRO-3 shards over its own fsdp axis, so as in the
+    reference the mesh builds on every rank and nothing is sharded over fsdp
+    (the experts still split over expert)."""
     for rank_out in worlds[2]:
         got = rank_out["zero3_expert2"]
         assert (got["fsdp"], got["expert"], got["zero_stage"]) == (1, 2, 3)
-        assert got["error"] is not None and got["error"].startswith("NotImplementedError")
-        assert "fsdp x expert" in got["error"], got["error"]
+        assert got["error"] is None, got["error"]

@@ -47,7 +47,7 @@ from dlti_tpu_torch.models import params_from_jax
 from dlti_tpu_torch.models.interop import shard_params
 from dlti_tpu_torch.models.quantization import quantize_params_int8
 from dlti_tpu_torch.parallel.mesh import Mesh, check_strategy
-from dlti_tpu_torch.parallel.tensor import tensor_shard_dim, whole_shapes
+from dlti_tpu_torch.parallel.tensor import tensor_shard_dim
 
 RTOL = ATOL = 2e-4
 STEPS = 2
@@ -68,8 +68,8 @@ MESHES = {
     "zero2_data2_tensor2": (4, dict(zero_stage=2, data=2, tensor=2)),
 }
 DROPOUT = dict(LORA, dropout=0.1)
-REFUSED_ARGV = {  # cli.train argv on a world of 2 -> what build_mesh must name
-    "zero3": (["--preset", "zero3", "--tensor", "2"], "tensor x ZeRO-3"),
+REFUSED_ARGV = {  # cli.train argv on a world of 2 -> what build_mesh must name (None: runs)
+    "zero3": (["--preset", "zero3", "--tensor", "2"], None),
     "offload": (["--preset", "zero2", "--tensor", "2", "--offload-optimizer"],
                 "tensor x offload"),
     "expert": (["--model", "mixtral_tiny", "--tensor", "2", "--expert", "2"],
@@ -318,20 +318,25 @@ def test_int8_parts_equal_the_jax_tp_engine_shards():
 
 @pytest.mark.parametrize("run", sorted(RUNS))
 def test_whole_shapes_invert_a_ranks_parts(run):
-    """``whole_shapes`` gives back every leaf's whole shape from a tensor
-    rank's parts (float and int8 trees, llama and mixtral): the shapes the
-    trainer's layout records of a model built at its local widths."""
+    """A model built around a tensor rank's parts (float and int8 trees,
+    llama and mixtral; ``load_model(mesh=)``) holds the parts and records
+    every leaf's whole shape (``LlamaForCausalLM.whole_shapes``): the shapes
+    the trainer's layout reads of a model built at its local widths."""
+    from dlti_tpu_torch.models import load_model
+
     preset, model, lora, int8 = RUNS[run]
     jcfg, tcfg = _cfgs(preset, model)
     whole = {n: torch.from_numpy(a) for n, a in _port_numpy(_jax_tree(jcfg, lora)).items()}
     view = Mesh(parallel=tc.ParallelConfig(tensor=2), world=2, rank=1,
                 device=torch.device("cpu"), tensor_group=object())
-    part = shard_params(whole, view, tcfg, tc.LoRAConfig(**lora) if lora else None,
-                        quantize=int8)
+    lcfg = tc.LoRAConfig(**lora) if lora else None
+    part = shard_params(whole, view, tcfg, lcfg, quantize=int8)
     want = quantize_params_int8(dict(whole)) if int8 else whole
     assert any(part[n].shape != want[n].shape for n in part)
-    assert whole_shapes({n: t.shape for n, t in part.items()}, 2) == {
-        n: tuple(t.shape) for n, t in want.items()}
+    net = load_model(tcfg, dict(part), "cpu", lora=lcfg, mesh=view)
+    assert {n: tuple(p.shape) for n, p in net.named_parameters()} == {
+        n: tuple(t.shape) for n, t in part.items()}
+    assert net.whole_shapes == {n: tuple(t.shape) for n, t in want.items()}
 
 
 @pytest.mark.parametrize("kind", ["float", "int8"])
@@ -350,8 +355,11 @@ def test_tensor_axis_strategy_rules(worlds):
     check_strategy(P(tensor=2))
     check_strategy(P(data=2, tensor=2))
     check_strategy(P(zero_stage=tc.ZeROStage.ZERO2, data=2, tensor=2))
-    for par, match in [(dict(zero_stage=tc.ZeROStage.ZERO3, fsdp=2, tensor=2), "tensor x ZeRO-3"),
-                       (dict(expert=2, tensor=2), "tensor x expert"),
+    # ZeRO-3 shards over its own fsdp axis beside the tensor one (the steps
+    # are held to JAX's in tests/test_torch_zero3_steps.py).
+    check_strategy(P(zero_stage=tc.ZeROStage.ZERO3, fsdp=2, tensor=2))
+    check_strategy(P(zero_stage=tc.ZeROStage.ZERO3, tensor=2))
+    for par, match in [(dict(expert=2, tensor=2), "tensor x expert"),
                        (dict(zero_stage=tc.ZeROStage.ZERO1, tensor=2, offload_params=True),
                         "tensor x offload")]:
         with pytest.raises(NotImplementedError, match=match):
@@ -359,7 +367,12 @@ def test_tensor_axis_strategy_rules(worlds):
     for rank_out in worlds[2]:
         for name, (_, match) in REFUSED_ARGV.items():
             err = rank_out[f"refused_{name}"]["error"]
-            assert err is not None and match in err, (name, err)
+            if match is None:  # --preset zero3 --tensor 2 on 2 ranks: fsdp 1, ZeRO-3
+                assert err is None, (name, err)
+                assert (rank_out[f"refused_{name}"]["fsdp"],
+                        rank_out[f"refused_{name}"]["zero_stage"]) == (1, 3)
+            else:
+                assert err is not None and match in err, (name, err)
 
 
 def _cli_train(tmp_path, tag, launcher_args=(), flags=()):

@@ -404,20 +404,22 @@ def test_strategy_legality_errors():
     with pytest.raises(ValueError, match="offload_params without LoRA"):
         check_strategy(P(zero_stage=tc.ZeROStage.ZERO3, offload_params=True),
                        lora_enabled=False)
-    # The sequence and pipe axes run (parallel.ring_attention,
-    # parallel.pipeline), but not under ZeRO-3.
-    for axis in ("sequence", "pipe"):
+    # ZeRO-3 shards over its own fsdp axis, so it runs with every model
+    # axis and beside data (the steps are held to JAX's in
+    # tests/test_torch_zero3_steps.py); host offload with a model axis
+    # still raises by name.
+    z3 = tc.ZeROStage.ZERO3
+    for par in (dict(fsdp=2, sequence=2), dict(fsdp=2, pipe=2), dict(tensor=2),
+                dict(fsdp=2, tensor=2), dict(data=2, fsdp=2), dict(fsdp=2, expert=2),
+                dict(expert=2)):
+        check_strategy(P(zero_stage=z3, **par))
+    for axis in ("tensor", "sequence", "pipe"):
         check_strategy(P(**{axis: 2}))
-        with pytest.raises(NotImplementedError, match=f"{axis}=2 .*{axis} x ZeRO-3"):
-            check_strategy(P(zero_stage=tc.ZeROStage.ZERO3, fsdp=2, **{axis: 2}))
-    # The tensor axis runs (parallel.tensor), but not under ZeRO-3.
-    with pytest.raises(NotImplementedError, match="tensor x ZeRO-3"):
-        check_strategy(P(zero_stage=tc.ZeROStage.ZERO3, tensor=2))
-    with pytest.raises(NotImplementedError, match="mixed"):
-        check_strategy(P(zero_stage=tc.ZeROStage.ZERO3, data=2, fsdp=2))
-    # The expert axis runs (parallel.sharding), but not under ZeRO-3.
-    with pytest.raises(NotImplementedError, match="fsdp x expert"):
-        check_strategy(P(zero_stage=tc.ZeROStage.ZERO3, fsdp=2, expert=2))
+        with pytest.raises(NotImplementedError, match=f"{axis}=2 .*{axis} x offload"):
+            check_strategy(P(zero_stage=z3, fsdp=2, offload_optimizer=True, **{axis: 2}))
+    # The reference's elastic reshape still refuses a mixed mesh.
+    with pytest.raises(ValueError, match="mixed data=2 x fsdp=2"):
+        fit_parallel_to_devices(P(zero_stage=z3, data=2, fsdp=2), 2)
     with pytest.raises(ValueError, match="process group has 1"):
         build_mesh(P(data=2), torch.device("cpu"))
 

@@ -169,8 +169,7 @@ def _state(params: dict, parallel: dict, lora: dict = None, opt: dict = None,
         tree = stage_params(tree, mesh.pipe.rank, mesh.pp, mcfg.num_layers)
     tree = shard_params(tree, mesh, mcfg, lora_cfg)
     net = load_model(mcfg, tree, dev, lora=lora_cfg, trainable_lora=True,
-                     tensor=mesh.tensor if mesh.tensor_parallel else None,
-                     stage=(mesh.pipe.rank, mesh.pp))
+                     mesh=mesh, stage=(mesh.pipe.rank, mesh.pp))
     layout = shard_model(net, mesh, lcfg.enabled)
     return create_train_state(net, build_optimizer(OptimizerConfig(**(opt or OPT))),
                               lora_enabled=lcfg.enabled, fp16_initial_scale=fp16_scale,
@@ -186,8 +185,8 @@ def steps(params: dict, batches: list, parallel: dict, lora: dict = None,
     axes' share: a tensor or expert group's ranks take the same rows), through
     ``StepWindow`` (eager, or on a card ``graphs``: the step a CUDA graph), on
     ``device``. Returns the metric rows, the captures, every trainable leaf
-    whole (rank 0; the other ranks join the gathers and get none), and each
-    leaf's (local, whole) shape."""
+    whole (rank 0; the other ranks join the gathers and
+    get none), and each leaf's (local, whole) shape."""
     from dlti_tpu_torch.models.lora import is_lora_name
     from dlti_tpu_torch.training import whole_params
     from dlti_tpu_torch.training.step import StepWindow
@@ -225,12 +224,14 @@ def gathered_leaves(params: dict, parallel: dict, lora: dict = None) -> dict:
 
 
 def train(cfg: dict, params: dict, texts: list, copy_from: str = None,
-          drop_steps: Sequence[int] = (), eval_texts: list = None) -> dict:
+          drop_steps: Sequence[int] = (), eval_texts: list = None,
+          export_dir: str = None) -> dict:
     """A ``Trainer`` run of ``Config.from_dict(cfg)`` on ``texts`` (byte
     tokens), evaluated on ``eval_texts`` when given. ``copy_from``: rank 0
     first copies that checkpoint directory to the run's ``output_dir``
     without the steps ``drop_steps``, so the run resumes from what is
-    left."""
+    left. ``export_dir``: the final state's merged export, gathered to rank
+    0 and written there (as ``cli.train --export-dir``)."""
     import shutil
 
     from dlti_tpu_torch.config import Config
@@ -252,8 +253,15 @@ def train(cfg: dict, params: dict, texts: list, copy_from: str = None,
     held_out = None if eval_texts is None else make_batches(
         eval_texts, ByteTokenizer(), seq_len=c.data.max_seq_len,
         micro_batch_size=c.train.micro_batch_size, grad_accum_steps=1, shuffle_seed=None)
-    _, rec = Trainer(c, params=params_t, device="cpu", cuda_graphs=False).train(
+    state, rec = Trainer(c, params=params_t, device="cpu", cuda_graphs=False).train(
         dataset=ds, eval_dataset=held_out)
+    if export_dir:
+        from dlti_tpu_torch.checkpoint import export_merged_model
+        from dlti_tpu_torch.training import whole_params
+
+        whole = whole_params(state)
+        if dist.get_rank() == 0:
+            export_merged_model(export_dir, whole, c)
     return {"losses": rec.losses, "grad_norms": rec.grad_norms,
             "eval_steps": rec.eval_steps, "eval_losses": rec.eval_losses,
             "resumed_from": rec.resumed_from, "save_steps": rec.save_steps,
@@ -283,7 +291,7 @@ def norm(shapes: dict, seed: int = 0) -> dict:
     from dlti_tpu_torch.config import ParallelConfig, ZeROStage
     from dlti_tpu_torch.parallel.mesh import build_mesh
     from dlti_tpu_torch.parallel.sharding import (
-        LeafPlacement, Layout, opt_shard_dim, shard_of, sharded_sq_norm,
+        LeafPlacement, Layout, _largest_divisible_dim, shard_of, sharded_sq_norm,
     )
 
     world = dist.get_world_size()
@@ -293,9 +301,9 @@ def norm(shapes: dict, seed: int = 0) -> dict:
     grads = {n: torch.from_numpy(rng.standard_normal(s).astype(np.float32))
              for n, s in shapes.items()}
     layout = Layout(mesh, {n: LeafPlacement(shape=tuple(s), trainable=True,
-                                            opt_dim=opt_shard_dim(s, mesh))
+                                            opt_dim=_largest_divisible_dim(s, world))
                            for n, s in shapes.items()})
-    owned = {n: shard_of(g, layout.leaves[n].opt_dim, mesh) for n, g in grads.items()}
+    owned = {n: shard_of(g, layout.leaves[n].opt_dim, mesh.data) for n, g in grads.items()}
     whole = torch.sqrt(sum(torch.sum(g * g) for g in grads.values()))
     return {"sharded": float(torch.sqrt(sharded_sq_norm(owned, layout))),
             "whole": float(whole),
@@ -472,6 +480,36 @@ def tp_gather(params: dict, preset: str = "llama_tiny", quantize: bool = False) 
             and all(torch.equal(back[n], whole[n]) for n in whole)}
 
 
+def zero3_parts(params: dict, parallel: dict, preset: str = "llama_tiny", model: dict = None,
+                lora: dict = None) -> dict:
+    """``shard_params`` of a whole tree (port names, numpy; int8 pairs kept)
+    on this rank under ``parallel``, ``gather_params`` back, and a model
+    built around the parts and placed (``load_model(mesh=)``,
+    ``shard_model``): this rank's parts, whether the gathered tree equals
+    the whole one bit for bit, each leaf's placement and what the model
+    holds."""
+    from dlti_tpu_torch.config import LoRAConfig
+    from dlti_tpu_torch.models import load_model
+    from dlti_tpu_torch.models.interop import gather_params, shard_params
+    from dlti_tpu_torch.parallel.mesh import build_mesh
+    from dlti_tpu_torch.parallel.sharding import shard_model
+
+    cfg = _model_cfg(preset, model)
+    lcfg = LoRAConfig(**lora) if lora else None
+    mesh = build_mesh(_parallel(parallel), torch.device("cpu"), lcfg is not None)
+    whole = {n: torch.from_numpy(a.copy()) for n, a in params.items()}
+    part = shard_params(dict(whole), mesh, cfg, lcfg)
+    back = gather_params(part, mesh, cfg, lcfg)
+    net = load_model(cfg, dict(part), "cpu", lora=lcfg, trainable_lora=lcfg is not None,
+                     mesh=mesh)
+    layout = shard_model(net, mesh, lcfg is not None)
+    return {"parts": {n: t.numpy() for n, t in part.items()},
+            "equal": sorted(back) == sorted(whole)
+            and all(torch.equal(back[n], whole[n]) for n in whole),
+            "axes": {n: dict(pl.axes) for n, pl in layout.leaves.items()},
+            "held": {n: tuple(p.shape) for n, p in net.named_parameters()}}
+
+
 # ----------------------------------------------------------------------
 # Sequence and pipeline parallelism: the ring and the pipelined forward
 # ----------------------------------------------------------------------
@@ -562,4 +600,5 @@ def pipe_forward(params: dict, ids, num_microbatches: int, preset: str = "llama_
 CASES = {"steps": steps, "ring": ring, "pipe_forward": pipe_forward, "permute": permute,
          "pipe_state": pipe_state, "train": train, "data_rows": data_rows, "norm": norm,
          "gathered_leaves": gathered_leaves, "cli_mesh": cli_mesh, "tp_engine": tp_engine,
-         "tp_server": tp_server, "tp_refusals": tp_refusals, "tp_gather": tp_gather}
+         "tp_server": tp_server, "tp_refusals": tp_refusals, "tp_gather": tp_gather,
+         "zero3_parts": zero3_parts}
