@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's serving, training (single-device and ZeRO),
 checkpoint-to-serving, HTTP serving, load-test, Hugging Face interop,
-multi-LoRA serving and Mixtral (mixture-of-experts) paths on one NVIDIA GPU
-(an H100).
+multi-LoRA serving, Mixtral (mixture-of-experts), model-parallel and
+replica-fleet paths on one NVIDIA GPU (an H100).
 
     python3 chip_smoke.py
 
@@ -366,6 +366,34 @@ Phases, each of which fails the run if its check fails:
     each graphed over NCCL, a rank a card, against one card's eager steps)
     as a subprocess, which must pass every case; with fewer, (d) is
     skipped and says so.
+24. The replica fleet behind the admission gateway on one card (last):
+    ``cli.serve``'s own builder with the documented configuration (int8
+    weights, int8 KV, 28 slots, 64 steps a sync) and ``--replicas 2 --device
+    cuda:0 --gateway --max-queued-requests 8 --self-heal --probation 0``:
+    llama2_7b at full width and depth, two replicas on this card, each
+    owning its weights, pool and decode graph, behind ``make_server``. (a)
+    Admission: fillers hold every slot, then a burst of 24 greedy requests
+    (a ``batch`` one queued first): 429s with ``Retry-After``, every
+    admitted request 200, the batch request dequeued after the interactive
+    ones queued with it, both replicas taking work, each admitted request's
+    tokens equal to one replica's alone (teacher-forced within phase 21's
+    bound where a bf16 near-tie flips one, and said so). (e) Drain on the
+    same server: in-flight requests finish 200, a new one 503 and
+    ``/health`` 503 ``draining``. Then offline: (b) a ``raise`` at replica
+    1's fourth step (``fault_inject_step`` "1:4"): its requests finish on
+    replica 0 without errors, the replica is rebuilt from the host copy of
+    its weights (its old engine freed first), passes its canary and is live
+    (rebuild seconds, peak memory); (c) ``"0:4:preempt"``: greedy and
+    seeded decodes migrate by paged-KV handoff, byte-equal to the unfaulted
+    run (ms a migration); (d) a rolling reload of the same weights from a
+    ``save_pytree`` export (written in a thread beside (a)-(c)), loaded
+    digest-verified and re-verified before each swap: outputs byte-equal
+    before, during and after, 0 errors, 2 live. (f) With two or more cards,
+    ``tests/test_torch_cuda.py -k replica_fleet_across_cards`` as a
+    subprocess (one replica a card); with one, skipped and said so. K4q
+    counted through (a)-(d) (layers x decode steps in (a), per replica);
+    readings: the burst through the fleet and through one replica offline
+    (requests/s, mean TPOT).
 
 Prints ``[time]`` lines with each group of phases' wall clock, a
 ``{"kernels": [...]}`` line (each kernel's float16 mode a row of
@@ -5466,7 +5494,7 @@ def zero3_across_cards() -> dict:
         return {"cards": cards, "run": False}
     t0 = time.perf_counter()
     cmd = [sys.executable, "-m", "pytest", "--noconftest", "-q", "-p", "no:cacheprovider",
-           "tests/test_torch_cuda.py", "-k", "across_cards"]
+           "tests/test_torch_cuda.py", "-k", "across_cards and not replica_fleet"]
     proc = subprocess.run(cmd, cwd=ROOT, env=dict(os.environ, PYTHONPATH=str(ROOT)),
                           capture_output=True, text=True, timeout=ACROSS_CARDS_TIMEOUT_S)
     tail = proc.stdout.strip().splitlines()[-1:] or [""]
@@ -5478,6 +5506,650 @@ def zero3_across_cards() -> dict:
     log(f"[zero3] (d) tests/test_torch_cuda.py -k across_cards on {cards} cards: {tail[0]} "
         f"in {time.perf_counter() - t0:.1f} s")
     return {"cards": cards, "run": True, "summary": tail[0]}
+
+
+# ----------------------------------------------------------------------
+# Phase 24: replicas behind the admission gateway on one card
+# ----------------------------------------------------------------------
+
+# The serve CLI's fleet: the documented configuration (int8 weights, int8
+# KV, 28 slots, 64 steps a sync), two replicas on this card, the gateway's
+# queue bounded at 8, self-healing with probation 0.
+FLEET_ARGS = DOCUMENTED_ARGS + ["--replicas", "2", "--device", "cuda:0", "--gateway",
+                                "--max-queued-requests", str(8), "--self-heal",
+                                "--probation", "0"]
+# (a): fillers holding every slot of both replicas, then a burst of 24
+# (one batch request queued first, 23 interactive) against the queue of 8.
+FLEET_FILLER_TOKENS, FLEET_BURST, FLEET_TOKENS = 24, 24, 16
+# (b)-(d): waves of requests, a fleet step after each (so the replica the
+# chaos hook names still decodes at its fourth step), greedy and seeded.
+FLEET_WAVES, FLEET_WAVE_TOKENS = 4, 8
+
+
+def finished(reason, n, max_tokens) -> bool:
+    """A request that ended without an error: ``length`` at its budget, or
+    ``stop`` at the end-of-sequence token (a random model samples it at
+    times)."""
+    return (reason == "length" and n == max_tokens) or (reason == "stop" and n <= max_tokens)
+
+
+def fleet_prompt(tok, i, n=24):
+    return tok.encode(" ".join(["replica", "gateway", "token", "decode"][j % 4]
+                               for j in range(i % 7 + n // 4)) + f" {i}", add_bos=True)
+
+
+def fleet_waves(fleet, tok, tag, per_wave=4):
+    """(b)-(d)'s script: ``FLEET_WAVES`` waves of ``per_wave`` requests
+    (greedy and seeded in turn), a fleet step after each, then steps until
+    the fleet is idle and every replica live. The dispatch counter is reset
+    first, so a run and its unfaulted twin place their requests alike until
+    the fault."""
+    from dlti_tpu_torch.serving import SamplingParams
+
+    fleet._rr = 0
+    reqs = []
+    for w in range(FLEET_WAVES):
+        for i in range(per_wave):
+            # Greedy, greedy, seeded, seeded: dispatched in turn, each
+            # replica gets one of each.
+            sp = (SamplingParams(temperature=0.0, max_tokens=FLEET_WAVE_TOKENS)
+                  if i < per_wave // 2 else
+                  SamplingParams(temperature=0.8, top_p=0.95, seed=100 * w + i,
+                                 max_tokens=FLEET_WAVE_TOKENS))
+            reqs.append(fleet.submit(fleet_prompt(tok, 10 * w + i), sp))
+        fleet.step()
+    for _ in range(200):
+        if not fleet.has_work and not fleet.lifecycle_pending:
+            break
+        fleet.step()
+    check(not fleet.has_work and not fleet.lifecycle_pending, f"{tag} the fleet did not settle")
+    return reqs
+
+
+def one_at_a_time(fleet):
+    """A step for ``fleet`` (no faults, no lifecycle) that runs each live
+    replica's whole step in turn, launch, admission and completion: the
+    yardstick of the fleet's own step, which launches every replica's
+    decode round before it waits on any."""
+    def step():
+        done = []
+        for eng in fleet.live_engines():
+            if eng.has_work:
+                done.extend(eng.step())
+        return done
+
+    return step
+
+
+def phase_fleet(torch, card):
+    """Phase 24, the replica fleet behind the admission gateway on one card:
+    ``cli.serve``'s builder with ``FLEET_ARGS`` (llama2_7b at full width and
+    depth, two replicas on ``cuda:0`` each owning its int8 weights, int8
+    pool and decode graph) behind ``make_server``.
+
+    (a) Admission: 56 fillers hold every slot; then a burst of 24 greedy
+    requests (one ``batch`` queued first, 23 ``interactive``) against the
+    queue of 8: 429s with ``Retry-After``, every admitted request 200
+    ``length``, the batch request dispatched after every interactive one
+    queued with it, each admitted request's tokens equal to one replica's
+    alone on its prompt (or, where a bf16 near-tie flips one, its logprobs
+    teacher-forced within phase 21's bound, and said so). (e) Drain, on the
+    same server: in-flight requests finish 200 while a new one gets 503 and
+    ``/health`` 503 ``draining``. Then, offline on the same fleet: (b) a
+    ``raise`` at replica 1's fourth step: its requests finish ``length`` on
+    replica 0, 0 errors; the replica is rebuilt (its old engine freed
+    first), passes its canary and is live (rebuild seconds, peak memory);
+    (c) a ``preempt`` at replica 0's fourth step: every migrated request's
+    tokens byte-equal to the unfaulted run's, greedy and seeded (ms a
+    migration); (d) a rolling reload of the same weights from a
+    ``save_pytree`` directory (written in a thread since the fleet was
+    built), asked for from another thread (as the server's request thread
+    asks) while traffic flows, loaded there digest-verified and re-verified
+    before each swap: outputs byte-equal before, during and after, 2 live
+    replicas; the fleet steps on while the export loads, and the longest
+    step while a live replica decodes (the longest a survivor's client
+    waits for a token) is read before and during the roll. (f) With two or
+    more cards, ``tests/test_torch_cuda.py -k replica_fleet_across_cards``
+    (one replica a card) and the requests/s of a replica a card against
+    one replica; with one, skipped and said so. K4q is counted on the
+    fleet's path alone: (a) (per replica, exactly), the fleet's burst and
+    (b)-(d); replica 0's runs alone, which the fleet is compared with, are
+    left out."""
+    import shutil
+    import tempfile
+    import threading
+
+    from dlti_tpu_torch.checkpoint.store import (
+        load_pytree, manifest_digest, save_pytree, verify_pytree_dir,
+    )
+    from dlti_tpu_torch.cli import serve as cli
+    from dlti_tpu_torch.models.interop import params_from_jax, params_to_jax
+    from dlti_tpu_torch.ops import flash_attention as tfa
+    from dlti_tpu_torch.ops import paged_attention as tpa
+    from dlti_tpu_torch.serving import SamplingParams, make_server
+    from dlti_tpu_torch.serving.replicas import parse_fault_inject
+
+    perf = {"card": card}
+    t_phase = time.perf_counter()
+
+    def uncounted(fn, *a):
+        """``fn(*a)``, a run of replica 0 alone that the fleet is compared
+        with: the kernel counters are put back after it, so they count the
+        fleet's path alone."""
+        saved = (tpa.launches, tpa.launches_int8,
+                 tfa.fwd_launches, tfa.dq_launches, tfa.dkv_launches)
+        try:
+            return fn(*a)
+        finally:
+            (tpa.launches, tpa.launches_int8,
+             tfa.fwd_launches, tfa.dq_launches, tfa.dkv_launches) = saved
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    args = cli.parse_args(FLEET_ARGS)
+    fleet, tok, sc = cli.build(args)
+    fleet.warmup_decode_ladder()
+    torch.cuda.synchronize()
+    cfg = fleet.engines[0].model_cfg
+    perf["build_s"] = time.perf_counter() - t0
+    firsts = [next(e.model.parameters()) for e in fleet.engines]
+    check([e.device for e in fleet.engines] == [torch.device(args.device)] * 2,
+          f"[fleet] replicas on {[e.device for e in fleet.engines]}")
+    check(firsts[0].data_ptr() != firsts[1].data_ptr(), "[fleet] the replicas share weights")
+    check(all(e.cache[0]["k"].dtype == torch.int8 for e in fleet.engines),
+          "[fleet] not an int8 pool")
+    perf["memory_after_build_gb"] = torch.cuda.memory_allocated() / 1e9
+    log(f"[fleet] {' '.join(FLEET_ARGS)}: 2 replicas on cuda:0 built and warmed up in "
+        f"{perf['build_s']:.1f} s; device memory allocated {perf['memory_after_build_gb']:.2f} GB")
+
+    # (d)'s export, written beside (a)-(c): the weights as served (int8).
+    root = Path(tempfile.mkdtemp(prefix="dlti-fleet-"))
+    export = str(root / "weights")
+    model = fleet.engines[0].model
+
+    def save_export():
+        save_pytree(export, params_to_jax({n: p.detach().to("cpu")
+                                           for n, p in model.named_parameters()}))
+
+    saver = Beside(save_export)
+    del model
+
+    # The main path's counts start here ...
+    tpa.launches = tpa.launches_int8 = 0
+    tfa.fwd_launches = tfa.dq_launches = tfa.dkv_launches = 0
+    steps0 = [e.stats["decode_steps"] for e in fleet.engines]
+    requests0 = [e.stats["requests"] for e in fleet.engines]
+
+    # (a) Admission over HTTP.
+    httpd, aeng = make_server(fleet, tok, sc)
+    addr = ("127.0.0.1", httpd.server_address[1])
+    threading.Thread(target=httpd.serve_forever, daemon=True).start()
+    dispatched = []
+    direct_submit = aeng.submit
+
+    def recording_submit(*a, **kw):
+        req, q = direct_submit(*a, **kw)
+        dispatched.append(req.request_id)
+        return req, q
+
+    aeng.submit = recording_submit  # the gateway dispatches through it
+    try:
+        fill = SamplingParams(temperature=0.0, max_tokens=FLEET_FILLER_TOKENS)
+        # 8 more fillers than slots wait in the replicas' queues: a filler
+        # that meets the end-of-sequence token early frees no room.
+        fillers = [direct_submit(fleet_prompt(tok, 1000 + i), fill)[0]
+                   for i in range(2 * fleet.cfg.max_seqs + 8)]
+        # Send the burst once the fillers hold the slots: mid-admission an
+        # engine's queue and slots both miss the requests it is admitting,
+        # so the gateway's room check reads free slots that are not there.
+        deadline = time.monotonic() + 120
+        while fleet.num_active < 2 * fleet.cfg.max_seqs:
+            check(time.monotonic() < deadline, "[fleet] (a) the fillers were never admitted")
+            time.sleep(0.005)
+        burst = {}
+
+        def send(i, priority):
+            import http.client
+
+            body = {"prompt": f"burst {i} " + "replica gateway " * (i % 5 + 2),
+                    "max_tokens": FLEET_TOKENS, "temperature": 0.0, "logprobs": True,
+                    "priority": priority}
+            conn = http.client.HTTPConnection(*addr, timeout=600)
+            conn.request("POST", "/v1/completions", json.dumps(body),
+                         {"Content-Type": "application/json"})
+            resp = conn.getresponse()
+            burst[i] = (priority, body["prompt"], resp.status, resp.read(),
+                        resp.getheader("Retry-After"))
+            conn.close()
+
+        t0 = time.perf_counter()
+        first = threading.Thread(target=send, args=(0, "batch"))
+        first.start()
+        deadline = time.monotonic() + 60
+        while json.loads(http_request(addr, "GET", "/stats")[1]).get(
+                "gateway_queue_depth", 0) < 1:
+            check(time.monotonic() < deadline and 0 not in burst,
+                  "[fleet] (a) the batch request never queued behind the fillers")
+            time.sleep(0.005)
+        threads = [threading.Thread(target=send, args=(i, "interactive"))
+                   for i in range(1, FLEET_BURST)]
+        for t in threads:
+            t.start()
+        # The queue fills (the batch request and 7 interactive ones) before
+        # the fillers leave: those dequeue together, interactive first.
+        deadline = time.monotonic() + 60
+        together = 0
+        while together < 8 and time.monotonic() < deadline:
+            if any(r.startswith("cmpl-") for r in dispatched):
+                break  # dispatch has begun
+            together = max(together, json.loads(http_request(addr, "GET", "/stats")[1]).get(
+                "gateway_queue_depth", 0))
+            time.sleep(0.002)
+        for t in [first] + threads:
+            t.join(timeout=600)
+        perf["burst_wall_s"] = time.perf_counter() - t0
+        check(len(burst) == FLEET_BURST, "[fleet] (a) a burst request did not finish")
+
+        # Shed ones: 429 with Retry-After; admitted ones: 200, length.
+        admitted = {i: r for i, r in burst.items() if r[2] == 200}
+        shed = {i: r for i, r in burst.items() if r[2] == 429}
+        check(len(admitted) + len(shed) == FLEET_BURST and admitted and shed,
+              f"[fleet] (a) statuses {sorted(r[2] for r in burst.values())}")
+        check(all(r[4] is not None and int(r[4]) >= 1 for r in shed.values()),
+              f"[fleet] (a) a 429 without Retry-After: {[r[4] for r in shed.values()]}")
+        for i, (prio, prompt, status, data, _) in admitted.items():
+            obj = json.loads(data)
+            check(finished(obj["choices"][0]["finish_reason"],
+                           obj["usage"]["completion_tokens"], FLEET_TOKENS),
+                  f"[fleet] (a) request {i}: {obj['choices'][0]['finish_reason']}")
+        ids = [r for r in dispatched if r.startswith("cmpl-")]
+        check(len(ids) == len(admitted), f"[fleet] (a) {len(ids)} dispatched of {len(admitted)}")
+        order = {json.loads(r[3])["id"]: r[0] for r in admitted.values()}
+        prios = [order[r] for r in ids]
+        check(together >= 2 and prios[:together] == ["interactive"] * (together - 1) + ["batch"],
+              f"[fleet] (a) dispatch order by class {prios} ({together} queued together)")
+        deadline = time.monotonic() + 120
+        while not all(f.done for f in fillers):
+            check(time.monotonic() < deadline, "[fleet] (a) the fillers never finished")
+            time.sleep(0.01)
+        for f in fillers:
+            check(finished(f.finish_reason, len(f.output_token_ids), FLEET_FILLER_TOKENS),
+                  f"[fleet] (a) filler finished {f.finish_reason}")
+        took = [e.stats["requests"] - r0 for e, r0 in zip(fleet.engines, requests0)]
+        check(all(n > 0 for n in took), f"[fleet] (a) requests a replica {took}")
+        metrics = http_request(addr, "GET", "/metrics")[1].decode()
+        rejected = sum(float(ln.split()[-1]) for ln in metrics.splitlines()
+                       if ln.startswith("dlti_gateway_rejected_total{"))
+        check(rejected >= len(shed), f"[fleet] (a) dlti_gateway_rejected_total {rejected}")
+        perf["a"] = {"admitted": len(admitted), "shed_429": len(shed),
+                     "queued_together": together, "requests_a_replica": took,
+                     "dispatch_order": prios}
+        log(f"[fleet] (a) burst of {FLEET_BURST} against a queue of 8 behind "
+            f"{len(fillers)} fillers: {len(admitted)} admitted (200), {len(shed)} x 429 with "
+            f"Retry-After; dispatch order by class {prios} ({together} queued together); "
+            f"requests a replica {took}")
+
+        # (e) Drain on the same server: in flight finishes, new gets 503.
+        inflight = {}
+
+        def inflight_send(i):
+            inflight[i] = http_request(addr, "POST", "/v1/completions", {
+                "prompt": f"drain {i}", "max_tokens": 32, "temperature": 0.0})
+
+        threads = [threading.Thread(target=inflight_send, args=(i,)) for i in range(4)]
+        for t in threads:
+            t.start()
+        deadline = time.monotonic() + 60
+        while len([r for r in dispatched if r.startswith("cmpl-")]) < len(ids) + 4:
+            check(time.monotonic() < deadline, "[fleet] (e) the in-flight requests never ran")
+            time.sleep(0.005)
+        httpd.gateway.drain()
+        import http.client
+
+        conn = http.client.HTTPConnection(*addr, timeout=60)
+        conn.request("POST", "/v1/completions", json.dumps({"prompt": "late", "max_tokens": 4}),
+                     {"Content-Type": "application/json"})
+        resp = conn.getresponse()
+        late = (resp.status, resp.getheader("Retry-After"), resp.read())
+        conn.close()
+        health = http_request(addr, "GET", "/health")
+        for t in threads:
+            t.join(timeout=600)
+        check(late[0] == 503 and late[1] is not None, f"[fleet] (e) a new request got {late}")
+        check(health[0] == 503 and json.loads(health[1])["status"] == "draining",
+              f"[fleet] (e) /health {health}")
+        check(all(s == 200 for s, _ in inflight.values()) and len(inflight) == 4,
+              f"[fleet] (e) in-flight statuses {[s for s, _ in inflight.values()]}")
+        check(httpd.gateway.wait_idle(60), "[fleet] (e) the drained gateway never went idle")
+        perf["e"] = {"new_request": [late[0], late[1]], "health": json.loads(health[1]),
+                     "inflight_200": 4}
+        log(f"[fleet] (e) drain: 4 in-flight requests 200, a new one {late[0]} "
+            f"(Retry-After {late[1]}), /health {health[0]} {health[1].decode()}")
+    finally:
+        httpd.shutdown()
+        httpd.gateway.shutdown()
+        aeng.shutdown()
+        httpd.server_close()
+    steps_a = [e.stats["decode_steps"] - s0 for e, s0 in zip(fleet.engines, steps0)]
+    k4q_a = tpa.launches_int8
+    check(k4q_a == cfg.num_layers * sum(steps_a),
+          f"[fleet] (a) K4q {k4q_a} != {cfg.num_layers} layers x {steps_a} steps")
+    perf["k4q_a_replica"] = [cfg.num_layers * s for s in steps_a]
+
+    # (a) against one replica alone (the server is down: the engine is idle).
+    greedy = SamplingParams(temperature=0.0, max_tokens=FLEET_TOKENS)
+    adm = [r for _, r in sorted(admitted.items())]
+    prompts = [tok.encode(r[1], add_bos=True) for r in adm]
+    got = [json.loads(r[3])["choices"][0]["logprobs"]["tokens"] for r in adm]
+    lps = [json.loads(r[3])["choices"][0]["logprobs"]["token_logprobs"] for r in adm]
+    alone = [r.output_token_ids
+             for r in uncounted(fleet.engines[0].generate, prompts, greedy)]
+    differ = [j for j, (g, a) in enumerate(zip(got, alone)) if g != a]
+    perf["a"]["tokens_equal_one_replica"] = len(adm) - len(differ)
+    if differ:
+        tf = uncounted(teacher_forced, torch, fleet.engines[0].executor, cfg,
+                       [(prompts[j], dataclasses.replace(greedy, max_tokens=len(got[j])))
+                        for j in differ],
+                       [(got[j], lps[j]) for j in differ], "[fleet] (a)")
+        perf["a"]["teacher_forced"] = tf
+        log(f"[fleet] (a) {len(differ)} of {len(adm)} admitted requests part from one replica's "
+            f"tokens (a bf16 near-tie): held teacher-forced instead, worst logprob "
+            f"{tf['worst_logprob_diff']:.4f} (bound {tf['bound']:.4f})")
+    else:
+        log(f"[fleet] (a) every admitted request's tokens equal one replica's alone")
+
+    # Readings: the same burst through the fleet, through one replica, and
+    # through the fleet stepped one replica at a time (replica 0 alone and
+    # the yardstick leave the counters as they were).
+    burst_prompts = [tok.encode(f"burst {i} " + "replica gateway " * (i % 5 + 2), add_bos=True)
+                     for i in range(FLEET_BURST)]
+
+    def yardstick(*a):
+        fleet.step = one_at_a_time(fleet)
+        try:
+            return uncounted(fleet.generate, *a)
+        finally:
+            del fleet.step
+
+    for name, gen in (("fleet", fleet.generate),
+                      ("one_replica", lambda *a: uncounted(fleet.engines[0].generate, *a)),
+                      ("one_at_a_time", yardstick)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = gen(burst_prompts, greedy)
+        wall = time.perf_counter() - t0
+        tpot = [(r.latency_s - r.ttft_s) / (len(r.output_token_ids) - 1) for r in res]
+        perf[f"{name}_burst"] = {"requests_per_s": FLEET_BURST / wall, "wall_s": wall,
+                                 "tpot_mean_ms": 1e3 * sum(tpot) / len(tpot)}
+    log(f"[fleet] reading: the burst of {FLEET_BURST} offline, two replicas "
+        f"{perf['fleet_burst']['requests_per_s']:.2f} requests/s (mean TPOT "
+        f"{perf['fleet_burst']['tpot_mean_ms']:.1f} ms) against one "
+        f"{perf['one_replica_burst']['requests_per_s']:.2f} requests/s "
+        f"({perf['one_replica_burst']['tpot_mean_ms']:.1f} ms) and two stepped one at a time "
+        f"{perf['one_at_a_time_burst']['requests_per_s']:.2f} requests/s "
+        f"({perf['one_at_a_time_burst']['tpot_mean_ms']:.1f} ms)")
+
+    # (b) Failover and self-healing, offline.
+    rebuilds = []
+    rebuild = fleet._rebuild_replica
+
+    def timed_rebuild(idx, host_params=None):
+        t = time.perf_counter()
+        rebuild(idx, host_params)
+        torch.cuda.synchronize()
+        rebuilds.append(time.perf_counter() - t)
+
+    fleet._rebuild_replica = timed_rebuild
+    torch.cuda.reset_peak_memory_stats()
+    # Re-arm the chaos hook (what fault_inject_step arms at construction).
+    fleet._fault_inject, fleet._step_counts = parse_fault_inject("1:4"), [0, 0]
+    counters = dict(fleet.lifecycle.counters)
+    reqs = fleet_waves(fleet, tok, "[fleet] (b)")
+    over = [r for r in reqs if r.num_retries]
+    check(all(finished(r.finish_reason, len(r.output_token_ids), FLEET_WAVE_TOKENS)
+              for r in reqs) and over
+          and all(r.replica == 0 for r in over), "[fleet] (b) failover outcome "
+          + str([(r.finish_reason, r.num_retries, r.replica) for r in reqs]))
+    check(fleet.lifecycle.counters["quarantines"] == counters["quarantines"] + 1
+          and fleet.lifecycle.counters["reinstates"] == counters["reinstates"] + 1
+          and fleet.lifecycle_counts()["live"] == 2 and fleet.failover["failover_errors"] == 0,
+          f"[fleet] (b) lifecycle {fleet.lifecycle.counters} {fleet.lifecycle_counts()}")
+    perf["b"] = {"failed_over": len(over), "errors": 0, "rebuild_s": rebuilds[-1],
+                 "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+    log(f"[fleet] (b) raise at replica 1's step 4: {len(over)} request(s) failed over to "
+        f"replica 0, all {len(reqs)} finished, 0 errors; replica 1 rebuilt in "
+        f"{rebuilds[-1]:.2f} s, canary passed, live; peak {perf['b']['peak_gb']:.2f} GB")
+
+    # (c) Live migration against the unfaulted run.
+    fleet._fault_inject = None
+    base = [r.output_token_ids for r in fleet_waves(fleet, tok, "[fleet] (c) unfaulted")]
+    drains = []
+    drain = fleet.drain_replica
+
+    def timed_drain(idx, **kw):
+        t = time.perf_counter()
+        out = drain(idx, **kw)
+        torch.cuda.synchronize()
+        drains.append(time.perf_counter() - t)
+        return out
+
+    fleet.drain_replica = timed_drain
+    fleet._fault_inject, fleet._step_counts = parse_fault_inject("0:4:preempt"), [0, 0]
+    migrations0 = fleet.lifecycle.counters["migrations"]
+    reqs = fleet_waves(fleet, tok, "[fleet] (c)")
+    fleet._fault_inject = None
+    moved = [j for j, r in enumerate(reqs) if r.num_migrations]
+    check(moved and all(reqs[j].output_token_ids == base[j] for j in moved)
+          and all(finished(r.finish_reason, len(r.output_token_ids), FLEET_WAVE_TOKENS)
+                  for r in reqs),
+          "[fleet] (c) migrated requests part from the unfaulted run: "
+          + str([(j, reqs[j].output_token_ids, base[j]) for j in moved]))
+    kinds = sorted({"greedy" if reqs[j].params.temperature == 0.0 else "seeded" for j in moved})
+    check(kinds == ["greedy", "seeded"], f"[fleet] (c) only {kinds} requests migrated")
+    n_moved = fleet.lifecycle.counters["migrations"] - migrations0
+    perf["c"] = {"migrated": n_moved, "kinds": kinds, "byte_equal": True,
+                 "ms_a_migration": 1e3 * drains[0] / max(1, n_moved),
+                 "rebuild_s": rebuilds[-1]}
+    log(f"[fleet] (c) preempt at replica 0's step 4: {n_moved} decode(s) migrated by KV "
+        f"handoff ({', '.join(kinds)}), tokens byte-equal to the unfaulted run; the drain "
+        f"took {1e3 * drains[0]:.1f} ms ({perf['c']['ms_a_migration']:.1f} ms a migration); "
+        f"replica 0 rebuilt in {rebuilds[-1]:.2f} s and live")
+    del fleet.drain_replica
+
+    # (d) Rolling reload of the same weights from the save_pytree export.
+    perf["d"] = {"save_s": saver.join(),
+                 "export_gb": sum(f.stat().st_size for f in Path(export).rglob("*")
+                                  if f.is_file()) / 1e9}
+    digest = manifest_digest(export)
+
+    def verify():
+        return manifest_digest(export) == digest and verify_pytree_dir(export)[0]
+
+    def once(reload=False):
+        """Every request admitted in one step (so each run prefills them in
+        the same groups), then the fleet stepped until idle. With
+        ``reload`` the reload is asked for from another thread, as the
+        server's request thread asks (the export loads there), and more
+        requests keep the replicas decoding until the roll ends. Returns
+        the 8 requests' tokens and each step's (wall s, a live replica was
+        decoding, the export was loading)."""
+        fleet._rr = 0
+        reqs = [fleet.submit(fleet_prompt(tok, 50 + i), SamplingParams(
+            temperature=0.0 if i % 2 == 0 else 0.8, seed=i, max_tokens=FLEET_WAVE_TOKENS))
+            for i in range(8)]
+        fleet.step()
+        asked = {}
+
+        def ask():
+            t = time.perf_counter()
+            asked["ok"] = fleet.request_reload(
+                lambda: params_from_jax(load_pytree(export, verify=True)), verify=verify)
+            asked["load_s"] = time.perf_counter() - t
+
+        loader = threading.Thread(target=ask)
+        if reload:
+            loader.start()
+        steps, extra = [], []
+        for _ in range(5000):
+            loading = loader.is_alive()
+            rolling = loading or fleet._reload is not None
+            if not rolling and not fleet.has_work:
+                break
+            if rolling and fleet.num_active + len(fleet.waiting) < 8:
+                extra.append(fleet.submit(fleet_prompt(tok, 300 + len(extra)), SamplingParams(
+                    temperature=0.0, max_tokens=FLEET_WAVE_TOKENS)))
+            decoding = any(not s.free and not s.prefilling
+                           for e in fleet.live_engines() for s in e.slots)
+            t = time.perf_counter()
+            fleet.step()
+            # A step in which the load ended may have run the first swap.
+            steps.append((time.perf_counter() - t, decoding, loading and loader.is_alive()))
+        if reload:
+            loader.join()
+            check(asked.get("ok"), "[fleet] (d) a reload was already in flight")
+            perf["d"]["load_s"] = asked["load_s"]
+        check(all(finished(r.finish_reason, len(r.output_token_ids), FLEET_WAVE_TOKENS)
+                  for r in reqs + extra), "[fleet] (d) a request failed")
+        return [r.output_token_ids for r in reqs], steps, len(extra)
+
+    before, steps_before, _ = once()
+    t0 = time.perf_counter()
+    during, steps_during, n_extra = once(reload=True)
+    check(fleet._reload is None and fleet.last_reload_ok, "[fleet] (d) the roll did not complete")
+    perf["d"]["roll_s"] = time.perf_counter() - t0
+    after, _, _ = once()
+    check(before == during == after, "[fleet] (d) outputs changed across the reload")
+    check(fleet.lifecycle_counts() == {"live": 2, "quarantined": 0, "draining": 0, "dead": 0}
+          and fleet.failover["failover_errors"] == 0, f"[fleet] (d) {fleet.lifecycle_counts()}")
+    loading_steps = [w for w, dec, ld in steps_during if ld and dec]
+    check(loading_steps, "[fleet] (d) the fleet took no step while the export loaded")
+    perf["d"].update({
+        "rebuild_s": rebuilds[-2:], "requests_during": 8 + n_extra,
+        "steps_while_loading": len(loading_steps),
+        "longest_step_before_s": max(w for w, dec, _ in steps_before if dec),
+        "longest_step_while_loading_s": max(loading_steps),
+        "longest_step_in_roll_s": max((w for w, dec, ld in steps_during if dec and not ld),
+                                      default=0.0)})
+    d = perf["d"]
+    log(f"[fleet] (d) rolling reload from a save_pytree export ({d['export_gb']:.2f} GB, "
+        f"written in {d['save_s']:.1f} s beside (a)-(c)), asked for from another thread: "
+        f"loaded there in {d['load_s']:.1f} s while the fleet took {len(loading_steps)} "
+        f"decoding steps (longest {d['longest_step_while_loading_s']:.3f} s); roll "
+        f"{d['roll_s']:.1f} s (rebuilds {', '.join(f'{x:.2f}' for x in rebuilds[-2:])} s), "
+        f"the longest step while a survivor decoded {d['longest_step_in_roll_s']:.2f} s "
+        f"(before the reload {d['longest_step_before_s']:.3f} s); {8 + n_extra} requests, "
+        f"the first 8 byte-equal before, during and after, 0 errors, 2 live")
+    torch.cuda.synchronize()
+    launches_int8, launches_float = tpa.launches_int8, tpa.launches  # ... read here
+    flash = tfa.fwd_launches + tfa.dq_launches + tfa.dkv_launches
+    check(launches_float == 0 and flash == 0,
+          f"[fleet] the float K4 ran {launches_float} times, flash {flash}")
+    check(launches_int8 > k4q_a, f"[fleet] K4q {launches_int8} through (d)")
+    perf["k4q_launches"] = launches_int8  # (a), the fleet's burst, (b)-(d)
+    del fleet, saver
+    shutil.rmtree(root, ignore_errors=True)
+    free_memory(torch)
+    perf["f"] = fleet_across_cards()
+    perf["phase_s"] = time.perf_counter() - t_phase
+    log(f"[fleet] K4q launches on the fleet's path {launches_int8} ((a): "
+        f"{perf['k4q_a_replica']} a replica); "
+        f"phase {perf['phase_s']:.1f} s")
+    return perf
+
+
+FLEET_ACROSS_CASES = 3
+FLEET_ACROSS_TIMEOUT_S = 600
+# (f)'s reading: a full batch of requests of this many greedy tokens for
+# every replica.
+FLEET_ACROSS_TOKENS = 64
+
+
+def fleet_across_reading(torch, cards: int) -> dict:
+    """Phase 24 (f)'s reading: ``cli.serve``'s fleet in the documented
+    configuration with a replica a card (llama2_7b, int8 weights and KV, 28
+    slots, k 64), and the same burst (28 requests a card, greedy) through
+    the fleet, through replica 0 alone and through the fleet stepped one
+    replica at a time (:func:`one_at_a_time`): requests/s and mean TPOT.
+    The fleet launches every replica's decode round before it waits on any,
+    so its requests/s should approach ``cards`` times one replica's."""
+    from dlti_tpu_torch.cli import serve as cli
+    from dlti_tpu_torch.serving import SamplingParams
+
+    t0 = time.perf_counter()
+    fleet, tok, _ = cli.build(cli.parse_args(DOCUMENTED_ARGS + ["--replicas", str(cards)]))
+    fleet.warmup_decode_ladder()
+    for i in range(cards):
+        torch.cuda.synchronize(i)
+    build_s = time.perf_counter() - t0
+    check([e.device.index for e in fleet.engines] == list(range(cards)),
+          f"[fleet] (f) replicas on {[e.device for e in fleet.engines]}")
+    prompts = [fleet_prompt(tok, 500 + i) for i in range(cards * fleet.cfg.max_seqs)]
+    greedy = SamplingParams(temperature=0.0, max_tokens=FLEET_ACROSS_TOKENS)
+    out = {"cards": cards, "requests": len(prompts), "build_s": build_s}
+    def yardstick(*a):
+        fleet.step = one_at_a_time(fleet)
+        try:
+            return fleet.generate(*a)
+        finally:
+            del fleet.step
+
+    for name, gen in (("fleet", fleet.generate), ("one_replica", fleet.engines[0].generate),
+                      ("one_at_a_time", yardstick)):
+        for i in range(cards):
+            torch.cuda.synchronize(i)
+        t0 = time.perf_counter()
+        res = gen(prompts, greedy)
+        wall = time.perf_counter() - t0
+        check(all(finished(r.finish_reason, len(r.output_token_ids), FLEET_ACROSS_TOKENS)
+                  for r in res), f"[fleet] (f) {name}: a request failed")
+        tpot = [(r.latency_s - r.ttft_s) / (len(r.output_token_ids) - 1) for r in res
+                if len(r.output_token_ids) > 1]
+        out[name] = {"requests_per_s": len(prompts) / wall, "wall_s": wall,
+                     "tpot_mean_ms": 1e3 * sum(tpot) / len(tpot)}
+    took = [e.stats["requests"] for e in fleet.engines]
+    check(all(n > 0 for n in took), f"[fleet] (f) requests a replica {took}")
+    out["ratio"] = out["fleet"]["requests_per_s"] / out["one_replica"]["requests_per_s"]
+    log(f"[fleet] (f) reading: {len(prompts)} requests of {FLEET_ACROSS_TOKENS} tokens, a "
+        f"replica a card on {cards} cards {out['fleet']['requests_per_s']:.2f} requests/s "
+        f"(mean TPOT {out['fleet']['tpot_mean_ms']:.1f} ms) against replica 0 alone "
+        f"{out['one_replica']['requests_per_s']:.2f} ({out['one_replica']['tpot_mean_ms']:.1f} "
+        f"ms): {out['ratio']:.2f}x; stepped one replica at a time "
+        f"{out['one_at_a_time']['requests_per_s']:.2f} "
+        f"({out['one_at_a_time']['tpot_mean_ms']:.1f} ms); built in {build_s:.1f} s")
+    del fleet
+    free_memory(torch)
+    return out
+
+
+def fleet_across_cards() -> dict:
+    """Phase 24 (f): with two or more cards, ``tests/test_torch_cuda.py -k
+    replica_fleet_across_cards`` as a subprocess (one replica a card, a
+    ``raise`` failing over and a ``preempt`` migrating KV across cards, held
+    to the fleet on one card), every case passed, then
+    :func:`fleet_across_reading`; with one, skipped and said so."""
+    import os
+
+    import torch
+
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        log(f"[fleet] (f) {cards} card visible: a replica a card is not run here "
+            "(tests/test_torch_cuda.py -k replica_fleet_across_cards needs 2 or more)")
+        return {"cards": cards, "run": False}
+    t0 = time.perf_counter()
+    cmd = [sys.executable, "-m", "pytest", "--noconftest", "-q", "-p", "no:cacheprovider",
+           "tests/test_torch_cuda.py", "-k", "replica_fleet_across_cards"]
+    proc = subprocess.run(cmd, cwd=ROOT, env=dict(os.environ, PYTHONPATH=str(ROOT)),
+                          capture_output=True, text=True, timeout=FLEET_ACROSS_TIMEOUT_S)
+    tail = proc.stdout.strip().splitlines()[-1:] or [""]
+    passed = re.search(r"(\d+) passed", tail[0])
+    check(proc.returncode == 0 and passed and int(passed.group(1)) == FLEET_ACROSS_CASES,
+          f"[fleet] (f) on {cards} cards exited {proc.returncode}: "
+          f"{proc.stdout[-3000:]}{proc.stderr[-2000:]}")
+    log(f"[fleet] (f) tests/test_torch_cuda.py -k replica_fleet_across_cards on {cards} "
+        f"cards: {tail[0]} in {time.perf_counter() - t0:.1f} s")
+    return {"cards": cards, "run": True, "summary": tail[0],
+            "reading": fleet_across_reading(torch, cards)}
 
 
 def main() -> int:
@@ -5600,6 +6272,8 @@ def main() -> int:
         with lap("phase 23 (its world ran beside phase 17)"):
             zero3_perf = phase_zero3(train_perf, card, seqpipe_perf.pop("references"),
                                      zero3_ranks)
+        with lap("phase 24"):
+            fleet_perf = phase_fleet(torch, card)
     except CheckFailed as e:
         return fail(str(e))
     mix_serve, mix_train = mixtral_perf["serve"], mixtral_perf["train"]
@@ -5661,6 +6335,7 @@ def main() -> int:
         "bound_by": int8_main["bound_by"],
         "library_ms": int8_main["library_ms"],
         "tensor_launches": tensor_perf["launches"]["paged_decode_attention_int8"],
+        "fleet_launches": fleet_perf["k4q_launches"],
     })
     # K1-K3: times and bound at the training path's shape (llama2_7b,
     # b 4, s 512, causal), bf16 (phase 7's launches) and float16 (phase
@@ -5738,6 +6413,7 @@ def main() -> int:
     log("[tensor] summary " + json.dumps(tensor_perf))
     log("[seqpipe] summary " + json.dumps(seqpipe_perf))
     log("[zero3] summary " + json.dumps(zero3_perf))
+    log("[fleet] summary " + json.dumps(fleet_perf))
     log("[time] summary " + json.dumps(phase_times))
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)

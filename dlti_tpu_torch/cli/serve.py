@@ -1,4 +1,5 @@
-"""Serving CLI: the port of ``scripts/serve.py`` on one engine.
+"""Serving CLI: the port of ``scripts/serve.py``, on one engine or a
+replica fleet behind the admission gateway.
 
     python -m dlti_tpu_torch.cli.serve --random-init llama2_7b --tokenizer byte \\
         --kv-cache-dtype int8
@@ -40,6 +41,12 @@
         python -m dlti_tpu_torch.cli.serve --random-init llama2_7b \
         --tokenizer byte --tensor 2
 
+    # data-parallel replicas, one a card, behind the admission gateway, with
+    # self-healing (on the CPU: --device cpu, every replica on the CPU)
+    python -m dlti_tpu_torch.cli.serve --random-init llama2_7b --tokenizer byte \
+        --quantization int8 --kv-cache-dtype int8 --max-seqs 28 \
+        --replicas 2 --gateway --max-queued-requests 64 --self-heal
+
 Flags keep the reference's names and defaults (``--steps-per-sync``,
 ``--no-decode-state-cache``, the prefix-cache and tier flags,
 ``--max-prefill-tokens``, ``--ragged-prefill`` and the ``--speculative``
@@ -54,9 +61,21 @@ int8`` keeps the weights as int8 with per-channel (per-expert for stacked
 experts) scales, quantized leaf by leaf on the card (an export is read into
 host memory first, so its bf16 tree never sits whole on the card). ``--adapter-slots`` sizes the multi-LoRA pool (0: none) at rank
 ``--adapter-rank`` over the q/k/v/o projections; each ``--adapter
-NAME=DIR`` registers one at startup (it needs slots). ``--adapter-map``,
-the gateway's tenant-to-adapter routing, is not ported and raises. It
-prints ``serving on http://HOST:PORT`` with the port it bound, and SIGTERM
+NAME=DIR`` registers one at startup (it needs slots); ``--adapter-map``
+routes a gateway tenant to one. ``--replicas N`` serves N engines, one a
+visible card (all on the device ``--device cpu`` or ``--device cuda:I``
+names), dispatched
+least-loaded (``--affinity``: sticky by session or prompt prefix), with
+failover, live KV migration and, under ``--self-heal``, quarantine,
+rebuild and canary (``serving.replicas``); a sole replica gets that
+lifecycle too under ``--self-heal`` or ``--reload-checkpoint``. ``--gateway``
+puts the admission gateway in front (``serving.gateway``: queue bounds,
+rate limits, priorities, tenants, SIGTERM drain). The reference's flags of
+subsystems the port lacks (the multi-process fleet, disaggregation, the
+deploy controller, the tracer, watchdog, SLO engine, flight recorder and
+slow log, the memory ledger and the token-storm guard) are accepted by name
+and refused, naming ROADMAP.md, as is ``--replicas`` with ``--tensor``
+above 1. It prints ``serving on http://HOST:PORT`` with the port it bound, and SIGTERM
 or Ctrl-C stops it with exit code 0. ``--tensor N`` (``scripts/serve.py``'s
 flag) runs under the launcher's N processes: each builds its part of the
 engine (``serving.engine``, random weights drawn whole and sliced as drawn,
@@ -170,12 +189,119 @@ def parse_args(argv=None):
                         "(serving.adapters.save_adapter) at startup; repeatable. "
                         "More can register later via POST /v1/adapters")
     p.add_argument("--adapter-map", default="",
-                   help="tenant->adapter routing (needs the gateway, not ported)")
+                   help="tenant->adapter routing, e.g. 'teamA:ad1,teamB:ad2': requests "
+                        "without an X-Adapter header get their tenant's adapter (needs "
+                        "--gateway; X-Adapter always works)")
     p.add_argument("--tensor", type=int, default=1,
                    help="tensor-parallel extent: weights and KV pools split over this "
                         "many ranks (run under python -m dlti_tpu_torch.launcher)")
+    p.add_argument("--replicas", type=int, default=1,
+                   help="data-parallel engine replicas, one a visible card (all on the "
+                        "device --device cpu or --device cuda:I names); a replica whose "
+                        "step faults is excluded and its requests fail over to survivors")
+    p.add_argument("--no-numeric-guard", action="store_true",
+                   help="disable the nonfinite decode-output guard (NumericFault -> "
+                        "replica quarantine)")
+    # -- admission gateway (serving.gateway) ----------------------------
+    p.add_argument("--gateway", action="store_true",
+                   help="enable the admission gateway: bounded queue with 429 overflow, "
+                        "per-tenant rate limits, interactive>batch priority, deadline "
+                        "shed, graceful SIGTERM drain")
+    p.add_argument("--max-queued-requests", type=int, default=256,
+                   help="gateway queue bound (requests); overflow -> 429 + Retry-After")
+    p.add_argument("--max-queued-tokens", type=int, default=0,
+                   help="gateway queue bound (total queued prompt tokens); 0 = request "
+                        "bound only")
+    p.add_argument("--rate-limit-rps", type=float, default=0.0,
+                   help="per-tenant sustained admission rate (req/s); 0 = off")
+    p.add_argument("--rate-limit-burst", type=float, default=0.0,
+                   help="per-tenant token-bucket burst capacity; 0 derives max(1, 2*rps)")
+    p.add_argument("--tenant-weights", default="",
+                   help="weighted fair dequeue, e.g. 'teamA:4,teamB:1' (unlisted "
+                        "tenants weigh 1)")
+    p.add_argument("--drain-grace", type=float, default=30.0,
+                   help="seconds SIGTERM waits for in-flight requests before exiting "
+                        "anyway")
+    p.add_argument("--max-retries", type=int, default=2,
+                   help="failover resubmissions per request after a replica step fault")
+    p.add_argument("--fault-inject-step", default="",
+                   help="chaos hook 'REPLICA:STEP[:MODE]': fail that replica on its "
+                        "STEP-th step; MODE 'raise' (default), 'nan-logits' (poisons its "
+                        "weights so the numeric guard trips) or 'preempt' (drain by live "
+                        "KV migration, then quarantine) (also env "
+                        "DLTI_GATEWAY_FAULT_INJECT)")
+    p.add_argument("--self-heal", action="store_true",
+                   help="replica lifecycle healing: a faulted replica is quarantined, "
+                        "rebuilt from known-good weights, and reinstated after a "
+                        "passing canary probe (default: a faulted replica stays dead)")
+    p.add_argument("--probation", type=float, default=2.0,
+                   help="seconds before a quarantined replica's first reinstate probe "
+                        "(doubles per failed probe, capped at 60s)")
+    p.add_argument("--flap-window", type=float, default=300.0,
+                   help="flap-breaker window: more than --flap-max-cycles quarantines "
+                        "inside this many seconds evict the replica permanently")
+    p.add_argument("--flap-max-cycles", type=int, default=3,
+                   help="quarantine/reinstate cycles tolerated inside --flap-window "
+                        "before permanent eviction")
+    p.add_argument("--reload-checkpoint", default="",
+                   help="start a rolling weight reload at startup from this "
+                        "checkpoint-store params export (the artifact POST /v1/reload "
+                        "takes), loaded digest-verified")
+    p.add_argument("--affinity", action="store_true",
+                   help="cache-affinity routing: sticky rendezvous-hash a session key "
+                        "(X-Session header, else the hashed prompt prefix) to a replica; "
+                        "spills least-loaded past the backlog threshold (needs --gateway)")
+    p.add_argument("--affinity-spill-threshold", type=int, default=4,
+                   help="spill to least-loaded when the sticky replica's backlog exceeds "
+                        "its decode slots by more than this many requests")
+    p.add_argument("--affinity-prefix-tokens", type=int, default=32,
+                   help="prompt tokens hashed into the affinity key when no X-Session "
+                        "header is present")
+    # The reference's flags of subsystems the port has not reached: each is
+    # accepted by name and refused in build().
+    for flag in REFUSED_FLAGS:
+        p.add_argument(flag, nargs="?", const=True, default=None,
+                       help="not ported yet (see ROADMAP.md)")
     p.add_argument("--device", default=None, help="cuda (default) or cpu")
     return p.parse_args(argv)
+
+
+# scripts/serve.py's flags whose subsystems the port has not reached, by
+# subsystem (ROADMAP.md, queue 1).
+REFUSED_FLAGS = {
+    "--fleet-workers": "the multi-process fleet",
+    "--fleet-runtime-dir": "the multi-process fleet",
+    "--fleet-respawn-backoff": "the multi-process fleet",
+    "--fleet-restart-budget": "the multi-process fleet",
+    "--disagg": "prefill/decode disaggregation",
+    "--prefill-replicas": "prefill/decode disaggregation",
+    "--decode-replicas": "prefill/decode disaggregation",
+    "--handoff-queue-depth": "prefill/decode disaggregation",
+    "--handoff-deadline-s": "prefill/decode disaggregation",
+    "--deploy-watch": "the deploy controller",
+    "--trace-dir": "the tracer",
+    "--trace-capacity": "the tracer",
+    "--watchdog": "the anomaly watchdog",
+    "--watchdog-action": "the anomaly watchdog",
+    "--watchdog-queue-depth": "the anomaly watchdog",
+    "--watchdog-shed-rate": "the anomaly watchdog",
+    "--slo": "the SLO engine",
+    "--slo-window": "the SLO engine",
+    "--slo-burn-tiers": "the SLO engine",
+    "--slo-ttft-s": "the SLO engine",
+    "--slo-ttft-target": "the SLO engine",
+    "--slo-tpot-s": "the SLO engine",
+    "--slo-tpot-target": "the SLO engine",
+    "--slo-queue-s": "the SLO engine",
+    "--slo-queue-target": "the SLO engine",
+    "--slo-availability-target": "the SLO engine",
+    "--flight-dir": "the flight recorder",
+    "--slow-log-k": "the critical-path slow log",
+    "--no-memory-ledger": "the memory ledger",
+    "--hbm-budget-bytes": "the memory ledger's headroom accounting",
+    "--admit-min-headroom-frac": "the memory ledger's headroom-aware admission",
+    "--guard-token-storm": "the token-storm guard",
+}
 
 
 def build(args):
@@ -183,10 +309,19 @@ def build(args):
     :func:`main` serves, and what an in-process caller can drive."""
     if not args.model_dir and not args.random_init:
         raise SystemExit("need --model-dir DIR or --random-init PRESET")
-    if args.adapter_map:
-        raise SystemExit("--adapter-map routes tenants through the admission "
-                         "gateway, which is not ported yet (see ROADMAP.md); "
-                         "name the adapter with the X-Adapter header instead")
+    for flag, what in REFUSED_FLAGS.items():
+        if getattr(args, flag.lstrip("-").replace("-", "_")) is not None:
+            raise SystemExit(f"{flag}: {what} is not ported yet (see ROADMAP.md)")
+    fleet = args.replicas > 1 or args.self_heal or bool(args.reload_checkpoint)
+    if args.replicas < 1:
+        raise SystemExit(f"--replicas {args.replicas}: need at least 1")
+    if fleet and args.tensor > 1:
+        raise SystemExit(f"--replicas/--self-heal/--reload-checkpoint with --tensor "
+                         f"{args.tensor}: a fleet of tensor-parallel replicas is not ported "
+                         "yet (see ROADMAP.md)")
+    if args.adapter_map and not args.gateway:
+        raise SystemExit("--adapter-map routes tenants through the admission gateway: "
+                         "add --gateway")
     if args.adapter and args.adapter_slots <= 0:
         raise SystemExit("--adapter needs --adapter-slots > 0")
     specs = []
@@ -207,6 +342,16 @@ def build(args):
     mesh = tensor_mesh(args)
     tok = get_tokenizer(args.tokenizer)
     device = resolve_device(args.device)
+    # A fleet's replicas: one a visible card, or all on the device --device
+    # names (cpu, or an indexed card: two replicas on one card is how one
+    # card checks a fleet). The weights are made on the first replica's.
+    devices = None
+    if fleet:
+        from dlti_tpu_torch.serving.replicas import fleet_devices
+
+        named = args.device is not None and (device.type == "cpu" or ":" in args.device)
+        devices = fleet_devices(args.replicas, device=device if named else None)
+        device = devices[0]
     t0 = time.perf_counter()
     lora_cfg = None
     if args.model_dir:
@@ -254,8 +399,28 @@ def build(args):
         ragged_prefill=args.ragged_prefill,
         decode_state_cache=not args.no_decode_state_cache,
         quantization=args.quantization,
+        guard_nonfinite=not args.no_numeric_guard,
         adapter_slots=args.adapter_slots,
         adapter_rank=args.adapter_rank)
+    if fleet:
+        from dlti_tpu_torch.config import ReplicaLifecycleConfig
+        from dlti_tpu_torch.serving import ReplicatedEngine
+
+        # A sole replica gets the lifecycle too under --self-heal or
+        # --reload-checkpoint (drains then wait for its work: no survivor).
+        engine = ReplicatedEngine(
+            model_cfg, params, ec, lora_cfg, replicas=args.replicas, devices=devices,
+            max_retries=args.max_retries, fault_inject_step=args.fault_inject_step,
+            affinity_spill_threshold=args.affinity_spill_threshold,
+            lifecycle_cfg=ReplicaLifecycleConfig(
+                enabled=args.self_heal, probation_initial_s=args.probation,
+                flap_window_s=args.flap_window, flap_max_cycles=args.flap_max_cycles),
+            donate_params=True)
+        del params
+        print(f"replica fleet: {args.replicas} replica(s) on "
+              f"{', '.join(str(d) for d in devices)}"
+              + (" (self-healing)" if args.self_heal else ""), flush=True)
+        return _finish_build(args, engine, tok, specs)
     executor = None
     if mesh is not None and device.type == "cuda" and dist.get_backend() == "gloo":
         print("decoding eagerly: the decode graph captures the tensor collectives, "
@@ -270,6 +435,15 @@ def build(args):
                        for p in engine.executor.model.parameters())
     print(f"weights on {device}: {weight_bytes / 1e9:.2f} GB "
           f"(quantization {args.quantization})", flush=True)
+    return _finish_build(args, engine, tok, specs)
+
+
+def _finish_build(args, engine, tok, specs):
+    """Register the startup adapters and make the server's configuration
+    (with the gateway's, under ``--gateway``)."""
+    from dlti_tpu_torch.config import GatewayConfig
+    from dlti_tpu_torch.serving import SamplingParams, ServerConfig
+
     if engine.adapter_pool is not None:
         from dlti_tpu_torch.serving.adapters import register_adapter
 
@@ -278,8 +452,20 @@ def build(args):
             print(f"registered adapter {name!r} from {adir}", flush=True)
         print(f"adapter pool: {args.adapter_slots} slots at rank {args.adapter_rank}, "
               f"{engine.adapter_pool.nbytes / 1e9:.3f} GB", flush=True)
+    gw_cfg = None
+    if args.gateway:
+        gw_cfg = GatewayConfig(
+            enabled=True, max_queued_requests=args.max_queued_requests,
+            max_queued_tokens=args.max_queued_tokens, rate_limit_rps=args.rate_limit_rps,
+            rate_limit_burst=args.rate_limit_burst, tenant_weights=args.tenant_weights,
+            drain_grace_s=args.drain_grace, max_retries=args.max_retries,
+            fault_inject_step=args.fault_inject_step, affinity=args.affinity,
+            affinity_spill_threshold=args.affinity_spill_threshold,
+            affinity_prefix_tokens=args.affinity_prefix_tokens,
+            adapter_map=args.adapter_map)
     sc = ServerConfig(host=args.host, port=args.port,
-                      default_params=SamplingParams(max_tokens=args.max_tokens_default))
+                      default_params=SamplingParams(max_tokens=args.max_tokens_default),
+                      gateway=gw_cfg)
     return engine, tok, sc
 
 
@@ -305,7 +491,7 @@ def tensor_mesh(args):
 def main(argv=None) -> None:
     args = parse_args(argv)
     engine, tok, sc = build(args)
-    if engine.follower:
+    if getattr(engine, "follower", False):
         print(f"tensor rank {engine.executor.mesh.tensor.rank}: following rank 0",
               flush=True)
         engine.follow()
@@ -321,9 +507,19 @@ def main(argv=None) -> None:
           flush=True)
     t0 = time.time()
     engine.warmup_decode_ladder()
-    pool = engine.executor.graph_pool_bytes
+    pool = sum(e.executor.graph_pool_bytes for e in getattr(engine, "engines", [engine]))
     print(f"decode programs ready in {time.time() - t0:.0f}s"
           + (f" (graph pool {pool / 1e9:.2f} GB)" if pool else ""), flush=True)
+    if args.reload_checkpoint:
+        # The same verified load POST /v1/reload runs.
+        from dlti_tpu_torch.checkpoint.store import load_pytree
+        from dlti_tpu_torch.models.interop import params_from_jax
+
+        rdir = args.reload_checkpoint
+        engine.request_reload(lambda: params_from_jax(load_pytree(rdir, verify=True)))
+        print(f"rolling weight reload from {rdir}: "
+              + ("failed to load" if engine.last_reload_ok is False else "loaded, queued"),
+              flush=True)
     serve(engine, tok, sc)
 
 

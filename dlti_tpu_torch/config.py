@@ -1,7 +1,8 @@
 """Configuration: this package's copy of ``dlti_tpu/config.py``'s
 ``ModelConfig``, ``LoRAConfig``, ``MODEL_PRESETS`` and, for training,
 ``OptimizerConfig``, ``ZeROStage``, ``ParallelConfig``, ``DataConfig``,
-``CheckpointConfig``, ``TrainConfig``, the root ``Config`` with its JSON form
+``CheckpointConfig``, ``TrainConfig``, for serving ``GatewayConfig`` and
+``ReplicaLifecycleConfig`` (under ``ServingConfig``), the root ``Config`` with its JSON form
 (``to_dict``/``from_dict``) and the strategy presets (:func:`preset`).
 
 Field names, defaults and presets are the reference's, so a configuration
@@ -313,6 +314,90 @@ MODEL_PRESETS: dict = {
 }
 
 
+@dataclass(frozen=True)
+class GatewayConfig:
+    """Admission gateway (``serving.gateway``): the scheduling front end
+    between the HTTP layer and the engine(s). Disabled by default: the
+    server then admits directly into the engine."""
+
+    enabled: bool = False
+    # Bounded admission queue: overflow is refused with HTTP 429 and a
+    # Retry-After. 0 queued tokens = no token bound (the request-count bound
+    # still applies).
+    max_queued_requests: int = 256
+    max_queued_tokens: int = 0
+    # Per-tenant token-bucket rate limit (requests/s, sustained). 0 = off.
+    # Burst is the bucket's capacity; 0 derives max(1, 2 * rps).
+    rate_limit_rps: float = 0.0
+    rate_limit_burst: float = 0.0
+    # Weighted fair dequeue across tenants: "tenantA:4,tenantB:1" gives
+    # tenantA 4x tenantB's dequeue share under contention. Unlisted tenants
+    # weigh 1.
+    tenant_weights: str = ""
+    default_tenant: str = "default"
+    # Tenant -> LoRA adapter routing ("tenantA:ad1,tenantB:ad2") for
+    # requests that carry no X-Adapter header ("" = no mapping).
+    adapter_map: str = ""
+    # Retry-After (seconds) of queue-bound refusals (rate-limit refusals
+    # derive theirs from the bucket's deficit).
+    retry_after_s: float = 1.0
+    # Replica failover: how many times one request may be resubmitted onto
+    # a surviving replica after its replica's step faulted.
+    max_retries: int = 2
+    # Cache-affinity routing (serving.replicas): send each request to its
+    # sticky rendezvous-hash replica (key: the X-Session header, else a
+    # digest of the first affinity_prefix_tokens prompt ids); spill
+    # least-loaded when the sticky replica's backlog exceeds its decode
+    # slots by more than affinity_spill_threshold.
+    affinity: bool = False
+    affinity_spill_threshold: int = 4
+    affinity_prefix_tokens: int = 32
+    # Graceful drain: seconds SIGTERM waits for in-flight requests before
+    # the server exits anyway.
+    drain_grace_s: float = 30.0
+    # Chaos hook "REPLICA:STEP[:MODE]": fail replica REPLICA at its STEP-th
+    # step() (1-based). MODE "raise" (default) raises in place of a device
+    # fault; "nan-logits" poisons the replica's weights with NaN so the
+    # engine's numeric guard trips; "preempt" drains the replica by live KV
+    # migration. Also settable through DLTI_GATEWAY_FAULT_INJECT.
+    fault_inject_step: str = ""
+
+
+@dataclass(frozen=True)
+class ReplicaLifecycleConfig:
+    """Serving replica self-healing (``serving.lifecycle``): a faulted
+    replica is quarantined, its engine rebuilt from known-good weights and
+    reinstated after a passing canary probe, with exponential probation
+    backoff and a flap breaker (too many quarantines inside a window evict
+    it for good). Off by default: a faulted replica then stays dead."""
+
+    enabled: bool = False
+    # Probation before the first probe, and the backoff per failed probe
+    # (delay = initial * backoff**fails, capped at max).
+    probation_initial_s: float = 2.0
+    probation_backoff: float = 2.0
+    probation_max_s: float = 60.0
+    # Canary probe: a short greedy generation on the rebuilt replica,
+    # checked against a digest pinned at fleet construction (and re-pinned
+    # by a weight reload).
+    canary_prompt_tokens: int = 8
+    canary_max_tokens: int = 4
+    # Flap breaker: more than flap_max_cycles quarantines within
+    # flap_window_s seconds evict the replica permanently.
+    flap_window_s: float = 300.0
+    flap_max_cycles: int = 3
+
+
+@dataclass(frozen=True)
+class ServingConfig:
+    """The serving blocks above the engine (the reference's
+    ``ServingConfig``, with the blocks the port has: the gateway and the
+    replica lifecycle)."""
+
+    gateway: GatewayConfig = field(default_factory=GatewayConfig)
+    lifecycle: ReplicaLifecycleConfig = field(default_factory=ReplicaLifecycleConfig)
+
+
 _SECTIONS = {"model": ModelConfig, "lora": LoRAConfig,
              "optimizer": OptimizerConfig, "parallel": ParallelConfig,
              "data": DataConfig,
@@ -322,7 +407,8 @@ _SECTIONS = {"model": ModelConfig, "lora": LoRAConfig,
 @dataclass(frozen=True)
 class Config:
     """Root config (the reference's ``Config``, without the blocks of code
-    the port has not reached: telemetry, serving)."""
+    the port has not reached: telemetry, and the serving blocks other than
+    the gateway and the replica lifecycle)."""
 
     model: ModelConfig = field(default_factory=ModelConfig)
     lora: LoRAConfig = field(default_factory=LoRAConfig)
@@ -331,6 +417,7 @@ class Config:
     data: DataConfig = field(default_factory=DataConfig)
     checkpoint: CheckpointConfig = field(default_factory=CheckpointConfig)
     train: TrainConfig = field(default_factory=TrainConfig)
+    serving: ServingConfig = field(default_factory=ServingConfig)
     experiment_name: str = ""
 
     def replace(self, **kwargs: Any) -> "Config":
@@ -375,6 +462,14 @@ class Config:
                 k: ZeROStage(v) if k == "zero_stage" else
                 tuple(v) if isinstance(v, list) else v
                 for k, v in d[name].items() if k in fields})
+        serving = d.get("serving")
+        if isinstance(serving, dict):
+            kwargs["serving"] = ServingConfig(**{
+                name: section(**{k: v for k, v in serving[name].items()
+                                 if k in {f.name for f in dataclasses.fields(section)}})
+                for name, section in (("gateway", GatewayConfig),
+                                      ("lifecycle", ReplicaLifecycleConfig))
+                if isinstance(serving.get(name), dict)})
         if isinstance(d.get("experiment_name"), str):
             kwargs["experiment_name"] = d["experiment_name"]
         return cls(**kwargs)

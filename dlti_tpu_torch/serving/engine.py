@@ -103,9 +103,17 @@
   weights run. A CUDA graph needs NCCL: under gloo (``launcher
   --one-device``) the executor must run eagerly.
 
-Not ported yet (ROADMAP.md): the native block allocator, disaggregated
-handoff, the memory ledger and headroom-aware admission, the token-storm
-guard, tracer spans and critical-path attribution.
+* **Paged-KV handoff** (:meth:`InferenceEngine.export_handoff` /
+  :meth:`InferenceEngine.adopt_handoff`): a decoding slot's written blocks
+  travel device -> host -> device (the prefix tiers' transport) with what
+  its next decode step needs to sample the token the origin would have,
+  so a replica fleet (``serving.replicas``) migrates live decodes off a
+  draining replica without a re-prefill. :meth:`InferenceEngine.resubmit`
+  re-enqueues a failed-over request with its tokens so far.
+
+Not ported yet (ROADMAP.md): the native block allocator, the
+disaggregation controller, the memory ledger and headroom-aware admission,
+the token-storm guard, tracer spans and critical-path attribution.
 """
 
 from __future__ import annotations
@@ -279,6 +287,11 @@ class Request:
     # evicted meanwhile).
     adapter: str = ""
     _adapter_slot: int = -1
+    # Replica fleets (serving.replicas): the replica that owns the request,
+    # failover resubmissions it consumed, and live migrations it survived.
+    replica: int = 0
+    num_retries: int = 0
+    num_migrations: int = 0
 
     @property
     def done(self) -> bool:
@@ -498,6 +511,7 @@ class EngineExecutor:
         # once); its size is what the captures added to the reserved bytes
         # (the verify forward's gathered windows are most of it).
         self._pool = None
+        self._capture_stream = None
         self.graph_pool_bytes = 0
         # Block fetches for the prefix tiers that failed (each such block
         # was discarded instead of demoted).
@@ -574,8 +588,15 @@ class EngineExecutor:
             torch.cuda.empty_cache()
             before = torch.cuda.memory_reserved(self.device)
             graph = torch.cuda.CUDAGraph()
+            if self._capture_stream is None:
+                # A capture stream of this device: torch.cuda.graph's own is
+                # one per process, made on the device of its first capture,
+                # and an engine on another card (a replica fleet's) would
+                # launch off it and invalidate the capture.
+                self._capture_stream = torch.cuda.Stream(self.device)
             with launches.capturing(), torch.cuda.graph(
-                    graph, pool=self._pool, capture_error_mode="thread_local"):
+                    graph, pool=self._pool, stream=self._capture_stream,
+                    capture_error_mode="thread_local"):
                 run(*static_args, self.state.tensors)
             self.graph_pool_bytes += torch.cuda.memory_reserved(self.device) - before
         return graph
@@ -794,6 +815,20 @@ class EngineExecutor:
             m.stopped = True
             m.send("stop", ())
 
+    def release(self) -> None:
+        """Drop the model, the KV pools, the adapter pool and the captured
+        graphs, so their device memory is free before a replacement engine
+        is built (a replica fleet's rebuild). The executor runs no call
+        afterwards."""
+        self.model = None
+        self.cache = []
+        self.adapter_pool = None
+        self.graph = None
+        self.spec_graphs = {}
+        self._spec_out = {}
+        self._pool = None
+        self._capture_stream = None
+
     # ------------------------------------------------------------------
     # Block transport (prefix-tier demotion and restore)
     # ------------------------------------------------------------------
@@ -879,7 +914,8 @@ class InferenceEngine:
                  engine_cfg: EngineConfig = EngineConfig(),
                  lora_cfg: Optional[LoRAConfig] = None, device=None,
                  executor: Optional[EngineExecutor] = None,
-                 donate_params: bool = False, mesh=None):
+                 donate_params: bool = False, mesh=None,
+                 telemetry: Optional[RequestTelemetry] = None):
         """``executor``: a prebuilt :class:`EngineExecutor` for this model
         and ``engine_cfg`` (how a caller runs the card eagerly:
         ``EngineExecutor(..., cuda_graphs=False)``); built here by default,
@@ -887,7 +923,9 @@ class InferenceEngine:
         ``quantization="int8"`` or a tensor group each leaf of ``params``
         (a dict) is popped as it is placed, so its source is freed unless
         the caller holds it elsewhere. ``mesh``: a mesh with a tensor group
-        (every rank of it builds the engine; see the module docstring)."""
+        (every rank of it builds the engine; see the module docstring).
+        ``telemetry``: request histograms shared with other engines (a
+        replica fleet's); a fresh set by default."""
         if engine_cfg.steps_per_sync < 1:
             raise ValueError(f"steps_per_sync must be >= 1, got "
                              f"{engine_cfg.steps_per_sync}")
@@ -925,7 +963,7 @@ class InferenceEngine:
         self.waiting: collections.deque = collections.deque()
         # Recently finished requests, for the server to drain their last events.
         self.finished: collections.deque = collections.deque(maxlen=256)
-        self.telemetry = RequestTelemetry()
+        self.telemetry = telemetry if telemetry is not None else RequestTelemetry()
         self._rng = random.Random(0)  # seeds of requests that name none
         self._req_counter = itertools.count()
 
@@ -1111,9 +1149,24 @@ class InferenceEngine:
         req = Request(request_id=request_id or f"req-{next(self._req_counter)}",
                       prompt_token_ids=list(prompt_token_ids),
                       params=params or SamplingParams(), adapter=adapter)
+        return self.enqueue(req)
+
+    def enqueue(self, req: Request) -> Request:
+        """Queue a new request built elsewhere (a replica fleet builds one
+        before it picks the replica); the thread contract of :meth:`submit`."""
         self.waiting.append(req)
         self.stats["requests"] += 1
         return req
+
+    def resubmit(self, req: Request) -> None:
+        """Re-enqueue an existing request (replica failover): it keeps its
+        id, parameters, arrival time and tokens so far, and admission
+        recomputes prompt plus output as after a preemption. Same thread
+        contract as :meth:`submit`; ``stats["requests"]`` does not count it
+        again. Its adapter pin did not survive (the dead replica's pool is
+        gone), so admission resolves ``req.adapter`` on this engine."""
+        req._adapter_slot = -1
+        self.waiting.append(req)
 
     def generate(self, prompts: Sequence[Sequence[int]],
                  params: Optional[SamplingParams] = None,
@@ -1132,9 +1185,19 @@ class InferenceEngine:
         Slots admitted here were free when the decode round was set up, so
         its block tables point their rows at the trash block; they join the
         next round."""
-        pending = None
+        return self.step_finish(self.step_launch())
+
+    def step_launch(self):
+        """:meth:`step`'s first half: launch the decode round (None when no
+        slot decodes). Waits on nothing, so a fleet launches every
+        replica's round before it waits on any."""
         if any(not s.free and not s.prefilling for s in self.slots):
-            pending = self._decode_dispatch()
+            return self._decode_dispatch()
+        return None
+
+    def step_finish(self, pending) -> List[Request]:
+        """:meth:`step`'s second half: admit and prefill, then complete the
+        round :meth:`step_launch` returned (its one sync)."""
         self._admit()
         if self.cfg.max_prefill_tokens_per_step > 0:
             self._prefill_work()
@@ -1769,6 +1832,113 @@ class InferenceEngine:
         req.finish_time = time.monotonic()
         self.finished.append(req)
         self.telemetry.on_finished(req)
+
+    # ------------------------------------------------------------------
+    # Paged-KV handoff (live migration between replicas)
+    # ------------------------------------------------------------------
+    def export_handoff(self, slot: _Slot) -> Optional[dict]:
+        """Snapshot what another engine needs to continue ``slot``'s request
+        token for token, then release the slot here. Only the blocks that
+        cover written positions (``0..seq_len-1``) travel, device -> host
+        through :meth:`EngineExecutor.fetch_block_kv`. The snapshot carries
+        the slot's seed and draw count (a seed the request did not name
+        came from this engine's own stream, so it is carried, never drawn
+        again), its last token, the adaptive-spec gate's state and, on the
+        request, the adapter name. Returns None, with the slot untouched,
+        if a block fetch fails."""
+        req = slot.request
+        sid = slot.slot_id
+        n_blocks = self.block_manager.blocks_needed(slot.seq_len)
+        payloads = []
+        for b in slot.blocks[:n_blocks]:
+            p = self.executor.fetch_block_kv(b)
+            if p is None:
+                return None
+            payloads.append(p)
+        snap = {
+            "request": req,
+            "payloads": payloads,
+            "seq_len": slot.seq_len,
+            "last_token": slot.last_token,
+            "seed": int(self._slot_seeds[sid]),
+            "gen_count": int(self._gen_counts[sid]),
+            "spec": {"prop": int(self._spec_slot_prop[sid]),
+                     "hits": int(self._spec_slot_hits[sid]),
+                     "acc": int(self._spec_slot_acc[sid]),
+                     "pause": int(self._spec_slot_pause[sid]),
+                     "ewma": float(self._spec_slot_ewma[sid])},
+        }
+        self._release(slot)
+        return snap
+
+    def adopt_handoff(self, snap: dict) -> bool:
+        """Admit a request whose KV arrives as host payloads (the
+        :meth:`export_handoff` counterpart): take a free slot, allocate a
+        block chain, restore the payloads into it on this engine's device
+        and stream, and seed the slot so its next decode step samples the
+        token the origin engine would have. Returns False, consuming
+        nothing, when no slot, adapter row or blocks are free."""
+        slot = next((s for s in self.slots if s.free), None)
+        if slot is None:
+            return False
+        req = snap["request"]
+        # Re-pin the adapter on this engine's pool first: the origin's pin
+        # went with the origin's slot.
+        pinned = False
+        if req.adapter and req._adapter_slot < 0:
+            if self.adapter_pool is None:
+                return False
+            try:
+                row, _ = self.adapter_pool.acquire(req.adapter)
+            except AdapterError:
+                return False
+            if row < 0:
+                return False
+            req._adapter_slot = row
+            pinned = True
+        seq_len = snap["seq_len"]
+        # + 1: the first decode step writes position seq_len.
+        blocks = self._alloc(self.block_manager.blocks_needed(seq_len + 1))
+        if blocks is None:
+            if pinned:
+                # The row is this pool's: the next survivor pins its own.
+                self._release_adapter(req)
+            return False
+        self.telemetry.on_admitted(req)
+        slot.request = req
+        slot.blocks = blocks
+        slot.seq_len = seq_len
+        slot.next_pos = seq_len
+        slot.prefill_end = seq_len
+        slot.last_token = snap["last_token"]
+        sid = slot.slot_id
+        self._block_tables[sid] = 0
+        self._block_tables[sid, :len(blocks)] = blocks
+        self._temperature[sid] = req.params.temperature
+        self._top_k[sid] = req.params.top_k
+        self._top_p[sid] = req.params.top_p
+        self._slot_seeds[sid] = snap["seed"]
+        self._gen_counts[sid] = snap["gen_count"]
+        self._adapter_ids[sid] = max(req._adapter_slot, 0)
+        if self._spec_hist is not None:
+            ctx = req.prompt_token_ids + req.output_token_ids
+            self._spec_hist[sid, :len(ctx)] = ctx
+        spec = snap.get("spec")
+        if spec:
+            self._spec_slot_prop[sid] = spec["prop"]
+            self._spec_slot_hits[sid] = spec["hits"]
+            self._spec_slot_acc[sid] = spec["acc"]
+            self._spec_slot_pause[sid] = spec["pause"]
+            self._spec_slot_ewma[sid] = spec["ewma"]
+        self._mark_state_dirty(sid)
+        for b, payload in zip(blocks, snap["payloads"]):
+            # The origin's device -> host copies may still be in flight on
+            # another device's stream: wait for them before the host rows
+            # are read.
+            if isinstance(payload, BlockPayload):
+                payload.wait()
+            self.executor.restore_block(b, payload)
+        return True
 
     def abort_all(self, reason: str = "abort") -> List[Request]:
         """Finish every running and queued request with ``reason`` and free

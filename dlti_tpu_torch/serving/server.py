@@ -1,5 +1,5 @@
-"""OpenAI-compatible HTTP server over the continuous-batching engine: the
-port of ``dlti_tpu/serving/server.py`` on one engine.
+"""OpenAI-compatible HTTP server over the continuous-batching engine or a
+replica fleet: the port of ``dlti_tpu/serving/server.py``.
 
 * ``POST /v1/completions``      — text completion, optional SSE streaming
 * ``POST /v1/chat/completions`` — chat with the Llama-2 template
@@ -14,22 +14,31 @@ port of ``dlti_tpu/serving/server.py`` on one engine.
   bad or corrupt directory answers 400 and stays unregistered). A
   completion names its adapter in the ``X-Adapter`` header; an unknown name
   answers 404 before the engine sees it.
-* ``POST /v1/reload`` answers as the reference's single-engine server does:
-  400, since a rolling reload needs a replica lifecycle (not ported).
+* ``POST /v1/reload {"directory"}``: a rolling weight reload of a replica
+  fleet (``serving.replicas``) from a ``save_pytree`` export, digest-checked
+  before every replica's swap: 200 ``reloading`` once the export is loaded,
+  409 while a reload is in flight, 400 on a single engine (no replica
+  lifecycle).
+* With ``ServerConfig.gateway`` enabled, admissions go through the
+  admission gateway (``serving.gateway``): the tenant from ``X-Tenant``,
+  ``priority`` and ``deadline_s`` from the body (or ``X-Priority``), the
+  tenant's mapped adapter, cache-affinity keys; refusals answer 429 or 503
+  with ``Retry-After``. ``/health`` answers 503 ``draining`` while it
+  drains, and SIGTERM drains it for up to ``drain_grace_s`` before exit.
 
 Requests take OpenAI's ``stop`` strings (matched on detokenized text, the
 stop string never returned or streamed), ``n`` choices decoding
 concurrently, ``seed``, ``logprobs`` and ``stop_token_ids``. Responses keep
-the reference's JSON keys; ``migrations`` and ``retries`` are 0 on one
-engine. Not ported (ROADMAP.md, queue 1): the admission gateway (and its
-tenant-to-adapter map), the ``/debug/*`` routes, ``/dashboard``,
-``/v1/deploy``, and the ``phases`` and ``trace_id`` response keys; those
-routes answer 404 and say so.
+the reference's JSON keys, with the request's ``migrations`` and
+``retries``. Not ported (ROADMAP.md, queue 1): the ``/debug/*`` routes,
+``/dashboard``, ``/v1/deploy``, and the ``phases`` and ``trace_id``
+response keys; those routes answer 404 and say so.
 
 Standard library HTTP (``http.server`` + threads): the engine steps in one
 background thread, which selects the engine's CUDA device before its first
 step; handler threads block on per-request event queues and touch only
-Python values.
+Python values. A fleet's requests are dispatched to a replica on that
+thread too, between steps.
 """
 
 from __future__ import annotations
@@ -48,9 +57,13 @@ from typing import Dict, List, Optional, Tuple
 
 import torch
 
+from dlti_tpu_torch.config import GatewayConfig
 from dlti_tpu_torch.data.tokenizer import Tokenizer
-from dlti_tpu_torch.serving import adapters, prefix_cache
+from dlti_tpu_torch.serving import adapters, lifecycle, prefix_cache
 from dlti_tpu_torch.serving.engine import InferenceEngine, Request
+from dlti_tpu_torch.serving.gateway import (
+    PRIORITIES, AdmissionError, AdmissionGateway, affinity_key_from, tenant_from_headers,
+)
 from dlti_tpu_torch.serving.sampling import SamplingParams
 from dlti_tpu_torch.telemetry.registry import MetricsRegistry
 from dlti_tpu_torch.utils.logging import get_logger
@@ -97,6 +110,12 @@ def build_registry(async_engine: "AsyncEngine") -> MetricsRegistry:
     # pool (the reference's show only once a pool has touched them).
     if async_engine.engine.adapter_pool is not None:
         for metric in adapters.METRICS:
+            registry.register(metric)
+    # The replica lifecycle's series (module-level, every fleet's), on a
+    # fleet's server: the port's unlabelled counters render from 0, where the
+    # reference's render once they move, so one engine's server shows none.
+    if hasattr(async_engine.engine, "lifecycle"):
+        for metric in lifecycle.METRICS:
             registry.register(metric)
 
     def _prefix_hit_rate() -> dict:
@@ -172,7 +191,11 @@ def llama2_chat_prompt(messages: List[dict]) -> str:
 
 class AsyncEngine:
     """Thread-safe facade: a single stepper thread drives the engine;
-    callers get a per-request event queue for streaming."""
+    callers get a per-request event queue for streaming. Over a replica
+    fleet (an engine with ``dispatch``) a submit builds the request on the
+    caller's thread and the stepper dispatches it to a replica between
+    steps, so only the stepper touches the replicas' queues (a fault's
+    failover rewrites them)."""
 
     def __init__(self, engine: InferenceEngine):
         self.engine = engine
@@ -181,6 +204,9 @@ class AsyncEngine:
         self._work = threading.Condition(self._lock)
         self._queues: Dict[str, queue.Queue] = {}
         self._seen: Dict[str, int] = {}
+        # A fleet's submissions awaiting dispatch: (request, affinity key).
+        self._inbox: List[tuple] = []
+        self._fleet = hasattr(engine, "dispatch")
         self._stop = False
         self._dead = False  # set when even fault recovery failed
         self._thread = threading.Thread(target=self._run, daemon=True,
@@ -193,24 +219,54 @@ class AsyncEngine:
         (every later submit raises; ``/health`` reports 503)."""
         return self._dead
 
+    @property
+    def pending_submits(self) -> int:
+        """A fleet's submissions not yet dispatched to a replica."""
+        return len(self._inbox)
+
     def submit(self, prompt_ids: List[int], params: SamplingParams,
                request_id: Optional[str] = None,
+               q: Optional[queue.Queue] = None,
+               affinity_key: Optional[str] = None,
                adapter: str = "") -> Tuple[Request, queue.Queue]:
         """Enqueue a request (under LoRA ``adapter``, "" = the base model);
-        returns (request, event queue).
+        returns (request, event queue). ``q``: a queue the caller made (the
+        gateway hands it to the handler before dispatch); ``affinity_key``:
+        a fleet's sticky-replica key (ignored by one engine).
 
         Queue events: ``("token", token_id, logprob)`` per generated token,
         then ``("done", finish_reason)`` — or ``("error", message)``.
         """
-        q: queue.Queue = queue.Queue()
+        q = q if q is not None else queue.Queue()
         with self._work:
             if self._dead:
                 raise RuntimeError("engine is down (unrecoverable step fault)")
-            req = self.engine.submit(prompt_ids, params, request_id, adapter=adapter)
+            if self._fleet:
+                if self.engine.num_live == 0:
+                    raise RuntimeError("all replicas dead (step faults); engine cannot "
+                                       "accept requests")
+                req = self.engine.new_request(prompt_ids, params, request_id, adapter=adapter)
+                self._inbox.append((req, affinity_key))
+            else:
+                req = self.engine.submit(prompt_ids, params, request_id, adapter=adapter)
             self._queues[req.request_id] = q
             self._seen[req.request_id] = 0
             self._work.notify()
         return req, q
+
+    def _dispatch_inbox(self) -> None:
+        """Hand the fleet's pending submissions to replicas (the stepper's
+        side, under the lock). A request no replica can take gets its error
+        event."""
+        for req, key in self._inbox:
+            try:
+                self.engine.dispatch(req, key)
+            except Exception as e:  # noqa: BLE001 - every replica dead
+                q = self._queues.pop(req.request_id, None)
+                self._seen.pop(req.request_id, None)
+                if q is not None:
+                    q.put(("error", f"{type(e).__name__}: {e}"))
+        self._inbox.clear()
 
     def shutdown(self) -> None:
         """Stop the stepper, then release a tensor-parallel engine's
@@ -246,12 +302,20 @@ class AsyncEngine:
             return
         while True:
             with self._work:
-                while not self._stop and not self.engine.has_work:
+                while not self._stop and not self.engine.has_work and not self._inbox:
+                    if getattr(self.engine, "lifecycle_pending", False):
+                        # A quarantined replica awaits its probe or a reload
+                        # is rolling: poll, so the fleet's lifecycle tick
+                        # runs on an idle server too (a step without work is
+                        # just the tick).
+                        self._work.wait(timeout=0.05)
+                        break
                     self._work.wait()
                 if self._stop:
                     for q in self._queues.values():
                         q.put(("error", "server shutting down"))
                     return
+                self._dispatch_inbox()
             # Step outside the lock: a concurrent submit only appends to the
             # engine's waiting deque, which admission reads at one point
             # inside step(), so a racing submit lands this step or the next.
@@ -295,7 +359,13 @@ class AsyncEngine:
                 q.put(("token", req.output_token_ids[i], req.output_logprobs[i]))
             self._seen[req.request_id] = len(req.output_token_ids)
             if req.done:
-                q.put(("done", req.finish_reason))
+                if req.finish_reason == "error":
+                    # Failover ran out of retries or survivors (or the
+                    # request's adapter failed at admission): this request
+                    # failed, the engine serves on.
+                    q.put(("error", "request failed: replica fault, retries exhausted"))
+                else:
+                    q.put(("done", req.finish_reason))
                 del self._queues[req.request_id]
                 del self._seen[req.request_id]
 
@@ -307,6 +377,9 @@ class ServerConfig:
     model_name: str = "dlti-tpu-model"
     request_timeout_s: float = 600.0
     default_params: SamplingParams = field(default_factory=SamplingParams)
+    # Admission gateway (serving.gateway): None or disabled admits directly
+    # into the engine.
+    gateway: Optional[GatewayConfig] = None
 
 
 class _Handler(BaseHTTPRequestHandler):
@@ -320,24 +393,32 @@ class _Handler(BaseHTTPRequestHandler):
     tokenizer: Tokenizer
     cfg: ServerConfig
     registry: MetricsRegistry
+    gateway: Optional[AdmissionGateway] = None
 
     def log_message(self, fmt, *args):  # route through our logger
         get_logger().debug("http: " + fmt, *args)
 
     # -- helpers -------------------------------------------------------
-    def _json(self, code: int, obj: dict) -> None:
+    def _json(self, code: int, obj: dict, headers: Optional[dict] = None) -> None:
         body = json.dumps(obj).encode()
         self.send_response(code)
         self.send_header("Content-Type", "application/json")
         self.send_header("Content-Length", str(len(body)))
+        for k, v in (headers or {}).items():
+            self.send_header(k, v)
         self.end_headers()
         self.wfile.write(body)
 
-    def _error(self, code: int, message: str) -> None:
+    def _error(self, code: int, message: str, retry_after: Optional[float] = None) -> None:
+        headers = None
+        if retry_after is not None:
+            # Whole seconds (RFC 9110), never 0: a 429 that says "now"
+            # invites the same overload back at once.
+            headers = {"Retry-After": str(max(1, int(-(-retry_after // 1))))}
         err_type = ("rate_limit_error" if code == 429
                     else "overloaded_error" if code == 503
                     else "invalid_request_error")
-        self._json(code, {"error": {"message": message, "type": err_type}})
+        self._json(code, {"error": {"message": message, "type": err_type}}, headers=headers)
 
     def _read_body(self) -> Optional[dict]:
         try:
@@ -422,12 +503,17 @@ class _Handler(BaseHTTPRequestHandler):
         if path.startswith("/debug/") or path in _NOT_PORTED_ROUTES:
             self._error(404, _not_ported(path))
         elif self.path == "/health":
-            # A parked stepper must read unhealthy, so a balancer routes
-            # elsewhere instead of sending requests that 503.
+            # A parked stepper or a draining gateway must read unhealthy, so
+            # a balancer routes elsewhere instead of sending requests that
+            # 503. A fleet adds its replicas' lifecycle counts.
+            counts = getattr(self.async_engine.engine, "lifecycle_counts", None)
+            body = counts() if counts is not None else {}
             if self.async_engine.dead:
-                self._json(503, {"status": "dead"})
+                self._json(503, {"status": "dead", **body})
+            elif self.gateway is not None and self.gateway.draining:
+                self._json(503, {"status": "draining", **body})
             else:
-                self._json(200, {"status": "ok"})
+                self._json(200, {"status": "ok", **body})
         elif self.path == "/stats":
             self._json(200, self.registry.stats_dict())
         elif self.path == "/metrics":
@@ -482,9 +568,15 @@ class _Handler(BaseHTTPRequestHandler):
         self._json(200, {"object": "adapter", "name": name, "directory": directory})
 
     def _reload_weights(self) -> None:
-        """``POST /v1/reload {"directory"}``: a rolling weight reload needs
-        a replica lifecycle, which one engine has not (the reference's
-        single-engine server answers the same 400s)."""
+        """``POST /v1/reload {"directory"}``: a rolling weight reload of a
+        replica fleet from a ``checkpoint.store.save_pytree`` export (drain
+        by live migration, rebuild, canary, reinstate, one replica at a
+        time; no request errors, but each swap stalls the stepper). The
+        export loads digest-verified on this request's thread while the
+        fleet serves; its manifest digest is pinned now and the export
+        re-verified before every replica's swap, so bytes that change
+        mid-roll abort the rest. 409 while a reload loads or rolls; 400 on
+        a single engine, which restarts instead."""
         body = self._read_body()
         if body is None:
             return
@@ -494,9 +586,31 @@ class _Handler(BaseHTTPRequestHandler):
         if not os.path.isfile(os.path.join(directory, "MANIFEST.json")):
             return self._error(400, f"{directory!r} is not a checkpoint-store params "
                                     f"export (no MANIFEST.json)")
-        return self._error(400, "engine has no replica lifecycle (rolling reload "
-                                "needs a replicated fleet; restart single-engine "
-                                "servers instead)")
+        request_reload = getattr(self.async_engine.engine, "request_reload", None)
+        if request_reload is None:
+            return self._error(400, "engine has no replica lifecycle (rolling reload "
+                                    "needs a replicated fleet; restart single-engine "
+                                    "servers instead)")
+        from dlti_tpu_torch.checkpoint.store import (
+            load_pytree, manifest_digest, verify_pytree_dir,
+        )
+        from dlti_tpu_torch.models.interop import params_from_jax
+
+        def provider():
+            return params_from_jax(load_pytree(directory, verify=True))
+
+        expect_digest = manifest_digest(directory)
+
+        def verify() -> bool:
+            if manifest_digest(directory) != expect_digest:
+                return False
+            return verify_pytree_dir(directory)[0]
+
+        if not request_reload(provider, verify=verify):
+            return self._error(409, "a rolling reload is already in progress")
+        with self.async_engine._work:
+            self.async_engine._work.notify()  # wake an idle stepper
+        self._json(200, {"status": "reloading", "directory": directory})
 
     # -- completion core ----------------------------------------------
     def _completions(self, chat: bool) -> None:
@@ -541,19 +655,52 @@ class _Handler(BaseHTTPRequestHandler):
                 400, "n > 1 with deterministic sampling (temperature=0 or "
                      "top_k=1) would return n identical choices; relax the "
                      "sampling or drop n")
-        # Unknown names answer 404 here, before any queue or slot is taken:
-        # the engine only sees registered adapters.
+        # The X-Adapter header first (with or without a gateway), else the
+        # gateway's tenant map. Unknown names answer 404 here, before any
+        # queue or slot is taken: the engine only sees registered adapters.
         adapter = str(self.headers.get("X-Adapter", "") or "").strip()
         if adapter and adapter not in adapters.get_catalog():
             return self._error(404, f"unknown adapter {adapter!r}: register it via "
                                     "POST /v1/adapters first")
-        by_adapter = {"adapter": adapter} if adapter else {}
+
+        # Admission metadata (gateway only), checked before submit so a bad
+        # value answers 400 for this request alone.
+        tenant = priority = None
+        deadline_s = 0.0
+        affinity_key = None
+        gw = self.gateway
+        if gw is not None:
+            tenant = tenant_from_headers(self.headers, gw.cfg.default_tenant)
+            priority = str(body.get("priority") or self.headers.get("X-Priority")
+                           or "interactive")
+            if priority not in PRIORITIES:
+                return self._error(400, f"priority must be one of {PRIORITIES}")
+            try:
+                deadline_s = float(body.get("deadline_s", 0) or 0)
+            except (TypeError, ValueError):
+                return self._error(400, "deadline_s must be a number")
+            if not adapter:
+                adapter = gw.adapter_for(tenant)
+            if gw.cfg.affinity:
+                # The adapter is part of the key: one adapter's warm KV is of
+                # no use to another.
+                affinity_key = affinity_key_from(self.headers, prompt_ids,
+                                                 gw.cfg.affinity_prefix_tokens,
+                                                 adapter=adapter)
+
+        def submit(p_ids, p, rid_):
+            if gw is not None:
+                return gw.submit(p_ids, p, rid_, tenant=tenant, priority=priority,
+                                 deadline_s=deadline_s, affinity_key=affinity_key,
+                                 adapter=adapter)
+            return self.async_engine.submit(p_ids, p, rid_,
+                                            **({"adapter": adapter} if adapter else {}))
 
         rid = ("chatcmpl-" if chat else "cmpl-") + uuid.uuid4().hex[:24]
         created = int(time.time())
         try:
             if n == 1:
-                req, q = self.async_engine.submit(prompt_ids, params, rid, **by_adapter)
+                req, q = submit(prompt_ids, params, rid)
             else:
                 # n choices = n engine requests decoding concurrently; a user
                 # seed derives per-choice seeds so the response reproduces
@@ -563,14 +710,15 @@ class _Handler(BaseHTTPRequestHandler):
                     for i in range(n):
                         p_i = params if params.seed is None else \
                             dataclasses.replace(params, seed=params.seed + i)
-                        subs.append(self.async_engine.submit(
-                            prompt_ids, p_i, f"{rid}-{i}", **by_adapter))
+                        subs.append(submit(prompt_ids, p_i, f"{rid}-{i}"))
                 except Exception:
                     # A submit failed mid-loop: cancel the choices already
                     # submitted, or they decode into queues nobody reads.
                     for other, _ in subs:
                         other.cancel_requested = True
                     raise
+        except AdmissionError as e:  # gateway refusal: 429/503 + Retry-After
+            return self._error(e.status, e.message, retry_after=e.retry_after)
         except ValueError as e:
             return self._error(400, str(e))
         except RuntimeError as e:  # engine parked after an unrecoverable fault
@@ -599,7 +747,7 @@ class _Handler(BaseHTTPRequestHandler):
             except queue.Empty:
                 continue
             yield ev
-            if ev[0] in ("done", "error"):
+            if ev[0] in ("done", "error", "reject"):
                 return
 
     def _collect_choice(self, req: Request, q: queue.Queue,
@@ -623,6 +771,8 @@ class _Handler(BaseHTTPRequestHandler):
                         req.cancel_requested = True
             elif ev[0] == "done":
                 finish = ev[1]
+            elif ev[0] == "reject":  # a gateway shed after admission
+                return None, tuple(ev[1:])
             else:
                 return None, (500, ev[1])
         text = self.tokenizer.decode(token_ids)
@@ -657,9 +807,16 @@ class _Handler(BaseHTTPRequestHandler):
             "usage": {"prompt_tokens": n_prompt,
                       "completion_tokens": len(token_ids),
                       "total_tokens": n_prompt + len(token_ids)},
-            # One engine: no live migration, no failover resubmission.
-            "migrations": 0, "retries": 0,
+            **self._lifecycle_keys(req),
         })
+
+    @staticmethod
+    def _lifecycle_keys(req) -> dict:
+        """How often the request was live-migrated and failed over (a
+        gateway handle reads its engine request's counts)."""
+        eng_req = getattr(req, "_req", None) or req
+        return {"migrations": getattr(eng_req, "num_migrations", 0),
+                "retries": getattr(eng_req, "num_retries", 0)}
 
     def _multi_response(self, subs: list, rid: str, chat: bool,
                         created: int, stops: tuple = ()) -> None:
@@ -760,9 +917,11 @@ class _Handler(BaseHTTPRequestHandler):
                             emitted += tail
                             delta_chunk(tail)
                 else:
-                    # Headers are already on the wire: the failure arrives
-                    # as a terminal SSE error frame.
-                    chunk(json.dumps({"error": {"message": ev[-1]}}))
+                    # ("error", msg) or a gateway ("reject", status, msg,
+                    # ...): headers are already on the wire, so the failure
+                    # arrives as a terminal SSE error frame.
+                    chunk(json.dumps({"error": {
+                        "message": ev[2] if ev[0] == "reject" else ev[-1]}}))
                     break
             if finish is not None:
                 n_prompt, n_out = len(req.prompt_token_ids), len(req.output_token_ids)
@@ -776,7 +935,7 @@ class _Handler(BaseHTTPRequestHandler):
                     "usage": {"prompt_tokens": n_prompt,
                               "completion_tokens": n_out,
                               "total_tokens": n_prompt + n_out},
-                    "migrations": 0, "retries": 0}))
+                    **self._lifecycle_keys(req)}))
             chunk("[DONE]")
             self.wfile.write(b"0\r\n\r\n")
             self.wfile.flush()
@@ -791,20 +950,31 @@ def make_server(engine: InferenceEngine, tokenizer: Tokenizer,
                 ) -> Tuple[ThreadingHTTPServer, AsyncEngine]:
     """Build (but do not start) the HTTP server and start the engine's
     stepper; the caller runs ``serve_forever()``. With ``cfg.port`` 0 the
-    system picks a free port: ``httpd.server_address[1]``."""
+    system picks a free port: ``httpd.server_address[1]``. With
+    ``cfg.gateway`` enabled an :class:`~dlti_tpu_torch.serving.gateway.
+    AdmissionGateway` stands between the handlers and the engine
+    (``httpd.gateway``; None otherwise). ``engine``: an
+    :class:`InferenceEngine` or a :class:`~dlti_tpu_torch.serving.replicas.
+    ReplicatedEngine`."""
     cfg = cfg or ServerConfig()
     async_engine = AsyncEngine(engine)
     registry = build_registry(async_engine)
+    gateway = None
+    if cfg.gateway is not None and cfg.gateway.enabled:
+        gateway = AdmissionGateway(async_engine, cfg.gateway, registry)
     handler = type("BoundHandler", (_Handler,), {
         "async_engine": async_engine, "tokenizer": tokenizer, "cfg": cfg,
-        "registry": registry,
+        "registry": registry, "gateway": gateway,
     })
     try:
         httpd = ThreadingHTTPServer((cfg.host, cfg.port), handler)
     except OSError:
+        if gateway is not None:
+            gateway.shutdown()
         async_engine.shutdown()
         raise
     httpd.daemon_threads = True
+    httpd.gateway = gateway
     return httpd, async_engine
 
 
@@ -812,16 +982,25 @@ def serve(engine: InferenceEngine, tokenizer: Tokenizer,
           cfg: Optional[ServerConfig] = None) -> None:
     """Blocking entry point (``dlti_tpu_torch.cli.serve``). SIGTERM, like
     Ctrl-C, stops the server cleanly: the stepper is shut down and the
-    socket closed, and the call returns."""
+    socket closed, and the call returns. With a gateway SIGTERM first
+    drains: new admissions get 503, ``/health`` reads ``draining``, and
+    queued and in-flight requests finish for up to ``drain_grace_s``."""
     cfg = cfg or ServerConfig()
     httpd, async_engine = make_server(engine, tokenizer, cfg)
+    gateway = httpd.gateway
     host, port = httpd.server_address[:2]
     get_logger().info("serving on http://%s:%d (model=%s)", host, port,
                       cfg.model_name)
 
+    def _graceful_stop():
+        if gateway is not None:
+            gateway.drain()
+            gateway.wait_idle(gateway.cfg.drain_grace_s)
+        httpd.shutdown()
+
     def _on_term(signum, frame):
         # httpd.shutdown() joins serve_forever, so it runs off this thread.
-        threading.Thread(target=httpd.shutdown, daemon=True).start()
+        threading.Thread(target=_graceful_stop, daemon=True).start()
 
     prev_handler = None
     installed = False
@@ -837,5 +1016,7 @@ def serve(engine: InferenceEngine, tokenizer: Tokenizer,
     finally:
         if installed:
             signal.signal(signal.SIGTERM, prev_handler or signal.SIG_DFL)
+        if gateway is not None:
+            gateway.shutdown()
         async_engine.shutdown()
         httpd.server_close()

@@ -20,7 +20,10 @@ one with K1-K3 at GQA 32/8, each layer's expanded experts freed inside the
 step's graph, the decode graph equal to eager decode with K4 once a layer,
 a decode window that never syncs the host); then sequence and pipeline
 parallelism over NCCL across four cards (graphed steps against one card's;
-skipped with fewer cards).
+skipped with fewer cards); then the replica fleet (two replicas on one card
+failing over and migrating KV with K4/K4q, the serve CLI's fleet behind the
+gateway over HTTP, and one replica a card on two to four cards, skipped
+with fewer).
 
 Marked ``cuda``: each test skips where ``torch.cuda.is_available()`` is
 false, as on a CPU-only host. On a machine with the card and without JAX,
@@ -2242,3 +2245,164 @@ def test_sequence_and_pipe_graphed_steps_across_cards_equal_one_card(across_card
         np.testing.assert_allclose(t, one["trainable"][n], rtol=1e-4, atol=1e-6, err_msg=n)
     for rank_out in worlds[world][1:]:
         assert rank_out[name]["metrics"] == got["metrics"]
+
+
+# ----------------------------------------------------------------------
+# The replica fleet on the card: failover and live KV migration between
+# replicas that each own their weights, pool and decode graph
+# ----------------------------------------------------------------------
+
+def _debug_cfg(dtype):
+    import dataclasses
+
+    from dlti_tpu_torch.config import MODEL_PRESETS
+
+    return dataclasses.replace(MODEL_PRESETS["llama_debug"], dtype=dtype, param_dtype=dtype)
+
+
+def _card_fleet(cfg, pool, devices, fault=""):
+    """llama_debug replicas on ``devices`` (a repeat shares a card), the
+    decode graphs captured, self-healing on; K4/K4q counted from here."""
+    from dlti_tpu_torch.config import ReplicaLifecycleConfig
+    from dlti_tpu_torch.models import init_params
+    from dlti_tpu_torch.serving import EngineConfig, ReplicatedEngine
+
+    ec = EngineConfig(max_seqs=4, block_size=16, num_blocks=64, max_model_len=128,
+                      cache_dtype=pool, eos_token_id=-1, steps_per_sync=4)
+    fleet = ReplicatedEngine(cfg, init_params(cfg, seed=0, device=devices[0]), ec,
+                             replicas=len(devices), devices=devices, fault_inject_step=fault,
+                             lifecycle_cfg=ReplicaLifecycleConfig(enabled=True,
+                                                                  probation_initial_s=0.0),
+                             donate_params=True)
+    fleet.warmup_decode_ladder()
+    tpa.launches = tpa.launches_int8 = 0
+    return fleet
+
+
+def _fleet_waves(fleet, n_replicas):
+    """Three waves of requests (greedy and seeded), a fleet step after each,
+    then steps until the fleet is idle and healed; returns the requests."""
+    from dlti_tpu_torch.serving import SamplingParams
+
+    reqs = []
+    for w in range(3):
+        for i in range(n_replicas):
+            sp = (SamplingParams(temperature=0.0, max_tokens=12) if i % 2 == 0 else
+                  SamplingParams(temperature=0.8, top_k=40, max_tokens=12, seed=10 * w + i))
+            reqs.append(fleet.submit([3 + w, 5 + i, 7, 11 + w * i][:2 + (i + w) % 3], sp))
+        fleet.step()
+    for _ in range(500):
+        if not fleet.has_work and not fleet.lifecycle_pending:
+            break
+        fleet.step()
+    return reqs
+
+
+def _check_fleet_against(fleet, reqs, ref, replicas, mode, pool):
+    tokens = [r.output_token_ids for r in reqs]
+    assert all(r.finish_reason == "length" for r in reqs)
+    assert fleet.lifecycle_counts() == {"live": replicas, "quarantined": 0, "draining": 0,
+                                        "dead": 0}
+    assert fleet.lifecycle.counters["reinstates"] == 1
+    if mode == "raise":
+        # A failed-over request is recomputed on its survivor: float32, held
+        # to the unfaulted run's tokens.
+        assert any(r.num_retries for r in reqs)
+        assert tokens == ref
+    else:
+        # A migrated decode carries its KV and its draws: byte-equal.
+        moved = [i for i, r in enumerate(reqs) if r.num_migrations]
+        assert moved and all(tokens[i] == ref[i] for i in moved)
+    counted = tpa.launches_int8 if pool == "int8" else tpa.launches
+    assert counted > 0 and (tpa.launches if pool == "int8" else tpa.launches_int8) == 0
+
+
+@pytest.mark.parametrize("mode,pool", [("raise", "float32"), ("preempt", "bfloat16"),
+                                       ("preempt", "int8")])
+def test_two_replicas_on_one_card_fail_over_and_migrate(gen, mode, pool):
+    """Two replicas on cuda:0, each owning its weights, pool and graphs: a
+    ``raise`` at replica 1's third step fails its requests over to replica 0
+    (float32, the unfaulted fleet's tokens), a ``preempt`` migrates its
+    decodes' KV to replica 0 (bf16 K4 and int8 K4q pools, the migrated
+    requests byte-equal to the unfaulted fleet's); the replica heals."""
+    cfg = _debug_cfg("float32" if pool == "float32" else "bfloat16")
+    devices = [torch.device("cuda", 0)] * 2
+    ref = [r.output_token_ids for r in _fleet_waves(_card_fleet(cfg, pool, devices), 2)]
+    fleet = _card_fleet(cfg, pool, devices, f"1:3:{mode}")
+    reqs = _fleet_waves(fleet, 2)
+    _check_fleet_against(fleet, reqs, ref, 2, mode, pool)
+
+
+def test_two_replicas_on_one_card_serve_http_through_the_cli_with_the_gateway(gen):
+    """``cli.serve --replicas 2 --device cuda:0 --gateway``'s builder behind
+    ``make_server``: two replicas on the card answer through the gateway,
+    and ``/health`` counts them."""
+    import http.client
+    import json
+    import threading
+
+    from dlti_tpu_torch.cli import serve as cli
+    from dlti_tpu_torch.serving import ReplicatedEngine, make_server
+
+    args = cli.parse_args(["--random-init", "llama_debug", "--tokenizer", "byte",
+                           "--device", "cuda:0", "--port", "0", "--host", "127.0.0.1",
+                           "--max-model-len", "128", "--num-blocks", "64",
+                           "--kv-cache-dtype", "int8", "--replicas", "2", "--gateway"])
+    engine, tok, sc = cli.build(args)
+    assert isinstance(engine, ReplicatedEngine)
+    assert [e.device for e in engine.engines] == [torch.device("cuda", 0)] * 2
+    engine.warmup_decode_ladder()
+    httpd, aeng = make_server(engine, tok, sc)
+    threading.Thread(target=httpd.serve_forever, daemon=True).start()
+    addr = ("127.0.0.1", httpd.server_address[1])
+    try:
+        out = []
+
+        def go(i):
+            conn = http.client.HTTPConnection(*addr, timeout=120)
+            conn.request("POST", "/v1/completions", json.dumps(
+                {"prompt": f"hello {i}", "max_tokens": 6, "temperature": 0}))
+            resp = conn.getresponse()
+            out.append((resp.status, json.loads(resp.read())))
+
+        threads = [threading.Thread(target=go, args=(i,)) for i in range(4)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        assert all(s == 200 and b["usage"]["completion_tokens"] == 6 for s, b in out), out
+        conn = http.client.HTTPConnection(*addr, timeout=60)
+        conn.request("GET", "/health")
+        assert json.loads(conn.getresponse().read()) == {
+            "status": "ok", "live": 2, "quarantined": 0, "draining": 0, "dead": 0}
+        assert all(e.stats["requests"] > 0 for e in engine.engines)
+        assert tpa.launches_int8 > 0
+    finally:
+        httpd.shutdown()
+        httpd.gateway.shutdown()
+        aeng.shutdown()
+        httpd.server_close()
+
+
+@pytest.mark.parametrize("mode,pool", [("raise", "float32"), ("preempt", "bfloat16"),
+                                       ("preempt", "int8")])
+def test_replica_fleet_across_cards_fails_over_and_migrates_as_on_one_card(gen, mode, pool):
+    """One replica a card (up to four): a ``raise`` fails replica 1's
+    requests over to another card, a ``preempt`` migrates its decodes' KV
+    device -> host -> another card, held to the same fleet's tokens with
+    every replica on one card (float32 for the recomputed failover; the
+    migrated requests byte-equal)."""
+    n = min(4, torch.cuda.device_count())
+    if n < 2:
+        pytest.skip("needs 2 or more CUDA devices (one replica a card)")
+    cfg = _debug_cfg("float32" if pool == "float32" else "bfloat16")
+    one = [torch.device("cuda", 0)] * n
+    ref = [r.output_token_ids for r in _fleet_waves(_card_fleet(cfg, pool, one), n)]
+    apart = [torch.device("cuda", i) for i in range(n)]
+    fleet = _card_fleet(cfg, pool, apart, f"1:3:{mode}")
+    assert [e.device for e in fleet.engines] == apart
+    reqs = _fleet_waves(fleet, n)
+    _check_fleet_against(fleet, reqs, ref, n, mode, pool)
+    if mode == "preempt":
+        assert any(fleet.engines[r.replica].device != apart[1] for r in reqs
+                   if r.num_migrations)

@@ -383,3 +383,56 @@ def test_hf_interop_and_adapters_run_without_jax_or_safetensors():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-4000:]
     assert proc.stdout.strip().endswith("OK")
+
+
+_FLEET_CHILD = textwrap.dedent("""
+    import sys, tempfile
+    sys.modules["jax"] = None
+
+    import http.client, json, threading
+    import dlti_tpu_torch.cli.serve as cli
+    import dlti_tpu_torch.serving.gateway
+    import dlti_tpu_torch.serving.lifecycle
+    import dlti_tpu_torch.serving.replicas
+    from dlti_tpu_torch.checkpoint.store import save_pytree
+    from dlti_tpu_torch.models.interop import params_to_jax
+    from dlti_tpu_torch.serving import make_server
+
+    args = cli.parse_args(["--device", "cpu", "--random-init", "llama_tiny",
+                           "--tokenizer", "byte", "--port", "0", "--max-model-len", "64",
+                           "--num-blocks", "16", "--replicas", "2", "--gateway",
+                           "--self-heal", "--fault-inject-step", "1:2:preempt"])
+    engine, tok, sc = cli.build(args)
+    httpd, aeng = make_server(engine, tok, sc)
+    threading.Thread(target=httpd.serve_forever, daemon=True).start()
+    addr = ("127.0.0.1", httpd.server_address[1])
+
+    def post(path, body):
+        conn = http.client.HTTPConnection(*addr, timeout=60)
+        conn.request("POST", path, json.dumps(body))
+        resp = conn.getresponse()
+        return resp.status, json.loads(resp.read())
+
+    status, body = post("/v1/completions", {"prompt": "hi", "max_tokens": 3})
+    assert status == 200 and body["usage"]["completion_tokens"] == 3, body
+    d = tempfile.mkdtemp() + "/w"
+    save_pytree(d, params_to_jax({k: p.detach() for k, p in
+                                  engine.engines[0].model.named_parameters()}))
+    assert post("/v1/reload", {"directory": d})[0] == 200
+    httpd.shutdown(); httpd.gateway.shutdown(); aeng.shutdown(); httpd.server_close()
+
+    loaded = sorted(n for n, m in sys.modules.items() if m is not None and (
+        n in ("jax", "dlti_tpu") or n.startswith(("jax.", "jaxlib", "dlti_tpu."))))
+    assert not loaded, loaded
+    print("OK")
+""")
+
+
+def test_replica_fleet_gateway_and_lifecycle_run_without_jax():
+    """The replica fleet, its lifecycle and the admission gateway import and
+    serve (a completion, a live migration, a reload request) from the serve
+    CLI's builder with ``jax`` blocked."""
+    proc = subprocess.run([sys.executable, "-c", _FLEET_CHILD], cwd=ROOT,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert proc.stdout.strip().endswith("OK")
