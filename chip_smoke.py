@@ -394,6 +394,26 @@ Phases, each of which fails the run if its check fails:
     counted through (a)-(d) (layers x decode steps in (a), per replica);
     readings: the burst through the fleet and through one replica offline
     (requests/s, mean TPOT).
+25. Serving's observation layer (right after phase 11, on its engine, which
+    phase 11 builds with ``OBS_FLAGS`` and ``--trace-dir`` beside the
+    documented configuration; no other phase's world runs beside it, since
+    (d) fills the card): a fresh ``make_server`` over it. (a) The tracer's
+    cost: phase 10's 12 requests four times, the tracer off, on, off, on
+    (requests/s, mean TPOT, spans; ``dlti_trace_dropped_events`` 0). (b) The
+    critical path: every single-choice 200 answer's ``phases`` sum to its
+    ``total_s`` within 1e-6 and ``total_s`` lies in [client latency - 0.25
+    s, client latency + 1 ms]; ``/debug/slow`` holds 8;
+    ``/debug/trace?request_id=`` gives one request's spans under one
+    ``trace_id``. (c) ``/debug/memory``'s buckets sum exactly to bytes in
+    use, ``params`` and ``kv_block_pool`` equal their shapes' bytes; the
+    untracked and residual buckets and the card's capacity, and
+    ``snapshot()``'s median over 1,000 calls beside the step. (d) A
+    ``MemoryBalloon`` leaves under 5% of the card free: 8 requests wait,
+    admission passes are deferred and none admitted; deflated, all 8
+    answer 200. (e) ``POST /debug/profile {"seconds": 2}`` during a burst, a
+    second POST 409; K4q's launches and the device busy share in the
+    capture's Chrome trace. (f) The phase's wall clock. K4q is counted over
+    (a)-(e).
 
 Prints ``[time]`` lines with each group of phases' wall clock, a
 ``{"kernels": [...]}`` line (each kernel's float16 mode a row of
@@ -413,8 +433,10 @@ import json
 import logging
 import math
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -2609,6 +2631,12 @@ def phase_server(torch, argv=SERVE_ARGS, tag="[server]"):
               "the serve CLI's defaults changed")
     t0 = time.perf_counter()
     engine, tok, sc = cli.build(args)
+    if args.trace_dir:
+        # The build turned the tracer on: this phase's readings keep it off,
+        # as before; phase 25 (a) reads its cost.
+        from dlti_tpu_torch.telemetry import configure_tracer
+
+        configure_tracer(enabled=False)
     engine.warmup_decode_ladder()
     torch.cuda.synchronize()
     cfg = engine.model_cfg
@@ -5696,9 +5724,12 @@ def phase_fleet(torch, card):
     try:
         fill = SamplingParams(temperature=0.0, max_tokens=FLEET_FILLER_TOKENS)
         # 8 more fillers than slots wait in the replicas' queues: a filler
-        # that meets the end-of-sequence token early frees no room.
-        fillers = [direct_submit(fleet_prompt(tok, 1000 + i), fill)[0]
-                   for i in range(2 * fleet.cfg.max_seqs + 8)]
+        # that meets the end-of-sequence token early frees no room. They are
+        # submitted between two steps, so the stepper dispatches all of them
+        # at once (one it took early would finish before the last were in).
+        fillers = aeng.call_between_steps(lambda: [
+            direct_submit(fleet_prompt(tok, 1000 + i), fill)[0]
+            for i in range(2 * fleet.cfg.max_seqs + 8)])
         # Send the burst once the fillers hold the slots: mid-admission an
         # engine's queue and slots both miss the requests it is admitting,
         # so the gateway's room check reads free slots that are not there.
@@ -5858,22 +5889,16 @@ def phase_fleet(torch, card):
     else:
         log(f"[fleet] (a) every admitted request's tokens equal one replica's alone")
 
-    # Readings: the same burst through the fleet, through one replica, and
-    # through the fleet stepped one replica at a time (replica 0 alone and
-    # the yardstick leave the counters as they were).
+    # Readings: the same burst through the fleet and through one replica
+    # (replica 0 alone leaves the counters as they were). The fleet stepped
+    # one replica at a time is read on four cards only ((f)): on one card it
+    # matched the fleet's own step (1.00x, PR 19), and phase 25 took its
+    # seconds.
     burst_prompts = [tok.encode(f"burst {i} " + "replica gateway " * (i % 5 + 2), add_bos=True)
                      for i in range(FLEET_BURST)]
 
-    def yardstick(*a):
-        fleet.step = one_at_a_time(fleet)
-        try:
-            return uncounted(fleet.generate, *a)
-        finally:
-            del fleet.step
-
     for name, gen in (("fleet", fleet.generate),
-                      ("one_replica", lambda *a: uncounted(fleet.engines[0].generate, *a)),
-                      ("one_at_a_time", yardstick)):
+                      ("one_replica", lambda *a: uncounted(fleet.engines[0].generate, *a))):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         res = gen(burst_prompts, greedy)
@@ -5885,9 +5910,7 @@ def phase_fleet(torch, card):
         f"{perf['fleet_burst']['requests_per_s']:.2f} requests/s (mean TPOT "
         f"{perf['fleet_burst']['tpot_mean_ms']:.1f} ms) against one "
         f"{perf['one_replica_burst']['requests_per_s']:.2f} requests/s "
-        f"({perf['one_replica_burst']['tpot_mean_ms']:.1f} ms) and two stepped one at a time "
-        f"{perf['one_at_a_time_burst']['requests_per_s']:.2f} requests/s "
-        f"({perf['one_at_a_time_burst']['tpot_mean_ms']:.1f} ms)")
+        f"({perf['one_replica_burst']['tpot_mean_ms']:.1f} ms)")
 
     # (b) Failover and self-healing, offline.
     rebuilds = []
@@ -6152,6 +6175,352 @@ def fleet_across_cards() -> dict:
             "reading": fleet_across_reading(torch, cards)}
 
 
+# ----------------------------------------------------------------------
+# Phase 25: serving's observation layer on the documented server
+# ----------------------------------------------------------------------
+
+# Phase 25's flags beside the documented configuration (the trace dir is
+# made at run time): the slow log holds 8, admission defers under 5%
+# headroom; the memory ledger is on by default.
+OBS_FLAGS = ["--slow-log-k", "8", "--admit-min-headroom-frac", "0.05"]
+OBS_SQUEEZE_FRAC = 0.04   # the balloon leaves this share of the card free
+OBS_SNAPSHOT_CALLS = 1000
+OBS_PROFILE_S = 2.0
+OBS_SPIN_CYCLES = 100_000_000  # ~50 ms of spin kernel at the H100's clocks
+
+
+def obs_args(trace_dir):
+    return DOCUMENTED_ARGS + OBS_FLAGS + ["--trace-dir", str(trace_dir)]
+
+
+def timed_call(addr, kind, path, body):
+    """(response, client seconds) of one of phase 10's requests."""
+    t0 = time.perf_counter()
+    res = post_stream(addr, path, body) if kind == "stream" else post_json(addr, path, body)
+    return res, time.perf_counter() - t0
+
+
+def kernel_busy(trace_path):
+    """K4q's launches and the device busy share in a ``torch.profiler``
+    Chrome trace: split-K launches of the int8 paged kernel, and the union
+    of every kernel's interval over the trace's window (its first event's
+    start to its last one's end)."""
+    with open(trace_path) as f:
+        events = json.load(f)["traceEvents"]
+    timed = [(float(e["ts"]), float(e["ts"]) + float(e["dur"])) for e in events
+             if e.get("ph") == "X" and "dur" in e and "ts" in e]
+    window_s = (max(b for _, b in timed) - min(a for a, _ in timed)) / 1e6 if timed else 0.0
+    kernels = [e for e in events if e.get("cat") == "kernel" and "dur" in e]
+    k4q = [e for e in kernels if "paged_decode_kernel" in e["name"]
+           and ("signed char" in e["name"] or "int8" in e["name"])]
+    spans = sorted((float(e["ts"]), float(e["ts"]) + float(e["dur"])) for e in kernels)
+    busy, cur = 0.0, None
+    for a, b in spans:
+        if cur is None or a > cur[1]:
+            if cur is not None:
+                busy += cur[1] - cur[0]
+            cur = [a, b]
+        else:
+            cur[1] = max(cur[1], b)
+    if cur is not None:
+        busy += cur[1] - cur[0]
+    return {"kernels": len(kernels), "k4q_launches": len(k4q),
+            "k4q_names": sorted({e["name"][:80] for e in k4q}), "window_s": window_s,
+            "busy_s": busy / 1e6, "busy_share": busy / 1e6 / window_s if window_s else 0.0}
+
+
+def phase_observation(torch, engine, trace_dir, step_ms):
+    """Phase 25: serving's observation layer on phase 11's documented
+    engine (``cli.serve``'s builder with ``obs_args``: int8 weights and KV,
+    28 slots, k 64, the tracer, a slow log of 8, admission deferred under 5%
+    headroom), behind a fresh ``make_server``. (a) Tracer cost: phase 10's
+    12 requests four times, the tracer off, on, off, on (requests/s, mean
+    TPOT from the TPOT histogram's deltas, spans, dropped events). (b) The
+    critical path: every single-choice 200 answer's ``phases`` sum to
+    ``total_s`` within 1e-6, ``total_s`` within [client - 0.25 s, client +
+    1 ms] (the n=2 answer carries none, as the reference's); ``/debug/slow``
+    holds 8; ``/debug/trace?request_id=`` one request's spans under one
+    ``trace_id``. (c) ``/debug/memory``: buckets summing to bytes in use,
+    ``params`` and ``kv_block_pool`` equal to their shapes' bytes;
+    ``snapshot()``'s median over 1,000 calls beside the step. (d) A
+    ``MemoryBalloon`` leaves under 5% of the card free: 8 requests wait
+    (deferred passes, none admitted), then all answer 200 after it
+    deflates. (e) ``POST /debug/profile`` for 2 s during a burst, a second
+    POST 409; K4q launches and the device's busy share in its trace.
+    (f) The phase's wall clock. K4q is counted over (a)-(e)."""
+    import os
+    import threading
+
+    from dlti_tpu_torch.cli import serve as cli
+    from dlti_tpu_torch.data import get_tokenizer
+    from dlti_tpu_torch.ops import paged_attention as tpa
+    from dlti_tpu_torch.serving import make_server
+    from dlti_tpu_torch.telemetry import MemoryBalloon, configure_tracer, get_tracer
+
+    t_phase = time.perf_counter()
+    args = cli.parse_args(obs_args(trace_dir))
+    tok = get_tokenizer(args.tokenizer)
+    _, _, sc = cli._finish_build(args, engine, tok, [])
+    ec, led = engine.cfg, engine.memledger
+    check(ec.admit_min_headroom_frac == 0.05 and led.enabled and ec.steps_per_sync == 64
+          and ec.max_seqs == 28 and ec.quantization == "int8"
+          and engine.telemetry.critical_path.slow.k == 8,
+          "phase 25's engine is not the documented one with the observation flags")
+    tracer = get_tracer()
+    httpd, aeng = make_server(engine, tok, sc)
+    addr = ("127.0.0.1", httpd.server_address[1])
+    threading.Thread(target=httpd.serve_forever, daemon=True).start()
+    perf = {"trace_dir": str(trace_dir)}
+    balloon = MemoryBalloon(led)
+    tpa.launches = tpa.launches_int8 = 0  # the phase's main path starts here
+    try:
+        # (a) the tracer off, on, off, on over phase 10's 12 requests.
+        reqs = server_requests()
+        rounds, answered = [], []
+        for on in (False, True, False, True):
+            configure_tracer(enabled=on)
+            ev0, drop0 = tracer.total_events, tracer.dropped_events
+            _, tsum0, tcnt0 = engine.telemetry.tpot.snapshot()
+            results, errors = [None] * len(reqs), []
+
+            def run(i, kind, path, body):
+                try:
+                    results[i] = timed_call(addr, kind, path, body)
+                except Exception as e:  # reported, and fails the phase below
+                    errors.append(f"{kind} {i}: {type(e).__name__}: {e}")
+
+            t0 = time.perf_counter()
+            threads = [threading.Thread(target=run, args=(i, *r)) for i, r in enumerate(reqs)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=600)
+            wall = time.perf_counter() - t0
+            check(not errors and all(r is not None for r in results),
+                  f"phase 25 (a) requests failed: {errors}")
+            _, tsum, tcnt = engine.telemetry.tpot.snapshot()
+            rounds.append({"tracer": on, "wall_s": wall, "requests_per_s": len(reqs) / wall,
+                           "tpot_mean_ms": 1e3 * (tsum - tsum0) / max(1, tcnt - tcnt0),
+                           "spans": tracer.total_events - ev0,
+                           "dropped": tracer.dropped_events - drop0})
+            answered += [(kind, res, lat, on) for (kind, _, _), (res, lat)
+                         in zip(reqs, results)]
+            log(f"[obs] (a) tracer {'on ' if on else 'off'}: {rounds[-1]['requests_per_s']:.3f} "
+                f"requests/s, mean TPOT {rounds[-1]['tpot_mean_ms']:.2f} ms, "
+                f"{rounds[-1]['spans']} spans, {rounds[-1]['dropped']} dropped")
+        metrics = http_request(addr, "GET", "/metrics")[1].decode()
+        dropped = [float(ln.split()[1]) for ln in metrics.splitlines()
+                   if ln.startswith("dlti_trace_dropped_events ")]
+        check(dropped == [0.0], f"dlti_trace_dropped_events {dropped}")
+        check(all(r["spans"] == 0 for r in rounds if not r["tracer"])
+              and all(r["spans"] > 0 for r in rounds if r["tracer"]),
+              f"spans recorded with the tracer off, or none with it on: {rounds}")
+        off = [r for r in rounds if not r["tracer"]]
+        on_ = [r for r in rounds if r["tracer"]]
+        perf["tracer"] = {"rounds": rounds, "dlti_trace_dropped_events": dropped[0],
+                          "rps_on_over_off": (sum(r["requests_per_s"] for r in on_)
+                                              / sum(r["requests_per_s"] for r in off))}
+
+        # (b) every single-choice answer's phases against its client clock.
+        worst_gap, n_checked, traced = 0.0, 0, None
+        for kind, res, lat, on in answered:
+            body = res[1] if kind == "stream" else res
+            if kind == "n2":
+                check("phases" not in body, "the n=2 answer grew phases")
+                continue
+            ph = body["phases"]
+            parts = sum(v for k, v in ph.items() if k not in ("total_s", "ttft_s"))
+            check(abs(parts - ph["total_s"]) <= 1e-6,
+                  f"phases {ph} sum to {parts}, not total_s")
+            check(lat - 0.25 <= ph["total_s"] <= lat + 0.001,
+                  f"total_s {ph['total_s']} outside [{lat - 0.25}, {lat + 0.001}]")
+            check(re.fullmatch(r"[0-9a-f]{16}", body["trace_id"]) is not None,
+                  f"trace_id {body['trace_id']!r}")
+            worst_gap = max(worst_gap, lat - ph["total_s"])
+            n_checked += 1
+            if on and kind == "completion":
+                traced = (body["id"], body["trace_id"], lat)
+        slow = json.loads(http_request(addr, "GET", "/debug/slow")[1])
+        check(slow["k"] == 8 and len(slow["worst"]) == 8, f"/debug/slow held {slow['retained']}")
+        status, data = http_request(addr, "GET", f"/debug/trace?request_id={traced[0]}"
+                                                 f"&latency_s={traced[2]}")
+        tl = json.loads(data)
+        traces = {e["args"]["trace"] for e in tl.get("spans", []) if "trace" in e["args"]}
+        check(status == 200 and traces == {traced[1]} and tl["trace_id"] == traced[1],
+              f"/debug/trace for {traced[0]}: {status} {traces}")
+        perf["critical_path"] = {
+            "answers_checked": n_checked, "max_client_minus_total_s": worst_gap,
+            "slow_retained": slow["retained"], "slowest_total_s": slow["worst"][0]["total_s"],
+            "trace_spans": len(tl["spans"]), "trace_legs": sorted(tl["legs"]),
+            "trace_residual_s": tl["residual_s"]}
+        log(f"[obs] (b) {n_checked} answers: phases sum to total_s (1e-6), client - total "
+            f"at most {worst_gap * 1e3:.2f} ms; /debug/slow 8 of {slow['retained']}, slowest "
+            f"{slow['worst'][0]['total_s']:.3f} s; /debug/trace {traced[0]}: "
+            f"{len(tl['spans'])} spans under {traced[1]}, residual {tl['residual_s']:.4f} s")
+
+        # (c) the memory map, and the snapshot's cost on the stepper path.
+        mem = json.loads(http_request(addr, "GET", "/debug/memory")[1])
+        check(sum(mem["buckets"].values()) == mem["bytes_in_use"],
+              f"/debug/memory buckets sum to {sum(mem['buckets'].values())}, "
+              f"not {mem['bytes_in_use']}")
+        params_bytes = sum(math.prod(p.shape) * p.element_size()
+                           for p in engine.model.parameters())
+        pool_bytes = sum(math.prod(t.shape) * t.element_size()
+                         for layer in engine.cache for t in layer.values())
+        check(mem["owners"]["params"]["bytes"] == params_bytes,
+              f"params {mem['owners']['params']['bytes']} != {params_bytes} from the shapes")
+        check(mem["owners"]["kv_block_pool"]["bytes"] == pool_bytes,
+              f"kv_block_pool {mem['owners']['kv_block_pool']['bytes']} != {pool_bytes}")
+        check(mem["source"] == "device" and mem["capacity_bytes"] > 0,
+              f"the ledger did not read the card: {mem['source']}")
+        times = []
+        for _ in range(OBS_SNAPSHOT_CALLS):
+            t0 = time.perf_counter()
+            led.snapshot()
+            times.append(time.perf_counter() - t0)
+        snap_us = 1e6 * sorted(times)[len(times) // 2]
+        # The stepper's snapshot runs while a decode window is in flight: it
+        # must not wait for it. With ~50 ms of spin kernel queued it returns
+        # and the spin still runs.
+        torch.cuda.synchronize()
+        done = torch.cuda.Event()
+        torch.cuda._sleep(OBS_SPIN_CYCLES)
+        done.record()
+        t0 = time.perf_counter()
+        led.snapshot()
+        in_flight = (1e3 * (time.perf_counter() - t0), not done.query())
+        torch.cuda.synchronize()
+        check(in_flight[1], f"the snapshot waited for the device: {in_flight}")
+        perf["memory"] = {k: mem[k] for k in ("bytes_in_use", "capacity_bytes",
+                                               "headroom_bytes", "untracked_bytes",
+                                               "residual_bytes", "peak_bytes")}
+        perf["memory"].update({"owners": {o: d["bytes"] for o, d in mem["owners"].items()},
+                               "top_untracked": mem["top_untracked_tensors"][:3],
+                               "snapshot_us_p50": snap_us, "step_ms_p50": step_ms,
+                               "in_flight_ms": in_flight[0],
+                               "spin_still_running": in_flight[1]})
+        log(f"[obs] (c) /debug/memory: {mem['bytes_in_use'] / 1e9:.3f} GB in use of "
+            f"{mem['capacity_bytes'] / 1e9:.3f} GB (the card's total), buckets sum exactly: "
+            + ", ".join(f"{k} {v / 1e9:.3f}" for k, v in mem["buckets"].items())
+            + f" GB; params = the int8 tree's {params_bytes / 1e9:.3f} GB, kv_block_pool = "
+            f"the pool's {pool_bytes / 1e9:.3f} GB; snapshot() p50 {snap_us:.1f} us over "
+            f"{OBS_SNAPSHOT_CALLS} calls, the documented step p50 {step_ms:.2f} ms; with "
+            f"~50 ms of spin queued: snapshot {in_flight[0]:.3f} ms, the spin still running")
+
+        # (d) the squeeze: a balloon leaves under 5% free, 8 requests wait.
+        cap = led.snapshot()["capacity_bytes"]
+        while True:
+            head = led.headroom_bytes()
+            if head < ec.admit_min_headroom_frac * cap:
+                break
+            balloon.inflate(min(2 << 30, head - int(OBS_SQUEEZE_FRAC * cap)))
+        deferred0 = engine.stats["hbm_deferred_admissions"]
+        body = {"prompt": "squeeze " * 8, "max_tokens": 4, "temperature": 0.0}
+        results, errors = [None] * 8, []
+
+        def squeezed(i):
+            try:
+                results[i] = post_json(addr, "/v1/completions", body)
+            except Exception as e:  # reported, and fails the phase below
+                errors.append(f"{i}: {type(e).__name__}: {e}")
+
+        threads = [threading.Thread(target=squeezed, args=(i,)) for i in range(8)]
+        for t in threads:
+            t.start()
+        deadline = time.perf_counter() + 60
+        while (len(engine.waiting) < 8
+               or engine.stats["hbm_deferred_admissions"] - deferred0 < 10):
+            check(time.perf_counter() < deadline, "the squeezed requests never queued")
+            time.sleep(0.01)
+        time.sleep(0.2)
+        held = (engine.num_active, len(engine.waiting),
+                sum(r.admitted_time is not None for r in list(engine.waiting)))
+        deferred = engine.stats["hbm_deferred_admissions"] - deferred0
+        squeezed_head = led.headroom_bytes()
+        check(held == (0, 8, 0), f"admitted under the squeeze: (active, waiting, "
+                                 f"admitted) {held}")
+        balloon_bytes = balloon.nbytes
+        balloon.deflate()
+        torch.cuda.empty_cache()  # the balloon's blocks back to the driver
+        for t in threads:
+            t.join(timeout=600)
+        check(not errors and all(r is not None for r in results),
+              f"squeezed requests failed: {errors}")
+        perf["squeeze"] = {"balloon_bytes": balloon_bytes, "headroom_bytes": squeezed_head,
+                           "headroom_frac": squeezed_head / cap,
+                           "deferred_admissions": deferred, "answered_200": len(results)}
+        log(f"[obs] (d) balloon {balloon_bytes / 1e9:.2f} GB left {squeezed_head / 1e9:.2f} GB "
+            f"({100 * squeezed_head / cap:.2f}% of the card): 8 requests queued, none "
+            f"admitted, {deferred} admission passes deferred; deflated: 8 x 200, 0 errors")
+
+        # (e) a 2 s profile during a burst: 12 clients sending 8-token
+        # completions until the capture returns (it starts and stops between
+        # steps, on the stepper, and its start takes seconds of its own; 8
+        # tokens keep each window, which the stop waits out, at 8 steps); a
+        # second capture is refused.
+        burst_errors, prof, done_capturing = [], {}, threading.Event()
+        short = {"max_tokens": 8, "temperature": 0.0}
+
+        def burst(i, kind, path, body):
+            while not done_capturing.is_set():
+                try:
+                    post_json(addr, "/v1/completions", {"prompt": f"burst {i} " * 4, **short})
+                except Exception as e:  # reported, and fails the phase below
+                    burst_errors.append(f"{kind} {i}: {e}")
+                    return
+
+        def capture():
+            t0 = time.perf_counter()
+            prof["first"] = http_request(addr, "POST", "/debug/profile",
+                                         {"seconds": OBS_PROFILE_S})
+            prof["post_s"] = time.perf_counter() - t0
+            done_capturing.set()
+
+        threads = [threading.Thread(target=burst, args=(i, *r)) for i, r in enumerate(reqs)]
+        for t in threads:
+            t.start()
+        time.sleep(0.3)
+        capturer = threading.Thread(target=capture)
+        capturer.start()
+        time.sleep(0.5)
+        second = http_request(addr, "POST", "/debug/profile", {"seconds": 1})
+        capturer.join(timeout=600)
+        done_capturing.set()
+        for t in threads:
+            t.join(timeout=600)
+        check(not burst_errors, f"burst requests failed: {burst_errors}")
+        check(second[0] == 409, f"a second capture answered {second[0]}: {second[1][:200]!r}")
+        status, data = prof["first"]
+        check(status == 200, f"POST /debug/profile answered {status}: {data[:300]!r}")
+        answer = json.loads(data)
+        busy = kernel_busy(answer["trace"])
+        check(busy["k4q_launches"] > 0, f"no K4q launch in the profile: {busy}")
+        perf["profile"] = {"seconds": answer["seconds"], "post_s": prof["post_s"],
+                           "second_post": second[0],
+                           "trace_mb": os.path.getsize(answer["trace"]) / 1e6, **busy}
+        log(f"[obs] (e) POST /debug/profile {answer['seconds']:.3f} s ({prof['post_s']:.3f} s "
+            f"to its answer) during a burst (a second "
+            f"POST {second[0]}): {busy['kernels']} kernels, K4q {busy['k4q_launches']} "
+            f"launches ({busy['k4q_names']}), device busy {busy['busy_s']:.3f} s = "
+            f"{100 * busy['busy_share']:.1f}% of the trace's {busy['window_s']:.3f} s; trace "
+            f"{perf['profile']['trace_mb']:.1f} MB")
+    finally:
+        balloon.deflate()
+        configure_tracer(enabled=False)
+        tracer.clear()
+        httpd.shutdown()
+        aeng.shutdown()
+        httpd.server_close()
+    torch.cuda.synchronize()
+    perf["k4q_launches"], float_launches = tpa.launches_int8, tpa.launches  # read here
+    check(perf["k4q_launches"] > 0 and float_launches == 0,
+          f"phase 25 launched K4q {perf['k4q_launches']} times, the float K4 {float_launches}")
+    perf["wall_s"] = time.perf_counter() - t_phase
+    log(f"[obs] (f) phase 25 in {perf['wall_s']:.1f} s; K4q launches {perf['k4q_launches']}")
+    log("[obs] perf " + json.dumps(perf))
+    return perf
+
+
 def main() -> int:
     try:
         import torch
@@ -6222,11 +6591,19 @@ def main() -> int:
             int8_main = phase_in_model(torch, engine, flush)
             del engine
             free_memory(torch)
-            engine, _, documented_perf = phase_server(torch, DOCUMENTED_ARGS,
+            # Built with phase 25's flags too, so phase 25 reuses the engine.
+            obs_dir = Path(tempfile.mkdtemp(prefix="dlti-obs-"))
+            engine, _, documented_perf = phase_server(torch, obs_args(obs_dir),
                                                       "[server-documented]")
             sync_check(torch, engine, "[server-documented]", submit=True)
             while engine.has_work:
                 engine.step()
+        with lap("phase 25"):
+            try:
+                obs_perf = phase_observation(torch, engine, obs_dir,
+                                             documented_perf["step_ms_p50"])
+            finally:
+                shutil.rmtree(obs_dir, ignore_errors=True)
             del engine
             free_memory(torch)
         with lap("phase 16"):
@@ -6336,6 +6713,7 @@ def main() -> int:
         "library_ms": int8_main["library_ms"],
         "tensor_launches": tensor_perf["launches"]["paged_decode_attention_int8"],
         "fleet_launches": fleet_perf["k4q_launches"],
+        "observation_launches": obs_perf["k4q_launches"],
     })
     # K1-K3: times and bound at the training path's shape (llama2_7b,
     # b 4, s 512, causal), bf16 (phase 7's launches) and float16 (phase
@@ -6414,6 +6792,7 @@ def main() -> int:
     log("[seqpipe] summary " + json.dumps(seqpipe_perf))
     log("[zero3] summary " + json.dumps(zero3_perf))
     log("[fleet] summary " + json.dumps(fleet_perf))
+    log("[obs] summary " + json.dumps(obs_perf))
     log("[time] summary " + json.dumps(phase_times))
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)

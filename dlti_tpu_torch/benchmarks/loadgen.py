@@ -2,8 +2,9 @@
 
 The port's copy of ``dlti_tpu/benchmarks/loadgen.py``: the same requests,
 scrapes and report keys, against either package's server. A scrape of an
-endpoint the server lacks (the port has no ``/debug/*`` and no fleet yet)
-leaves its report section empty and counts no failed request.
+endpoint the server lacks or answers 404 (the port has no ``/debug/slo`` and
+no fleet yet; ``/debug/trace`` while tracing is off) leaves its report
+section empty and counts no failed request.
 
 The reference claims "Benchmarking: Locust, AsyncIO" (``README.md:11,17``)
 with ``locust``/``aiohttp`` pinned but unused (``requirements.txt:35-36``).

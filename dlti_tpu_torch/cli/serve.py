@@ -70,12 +70,18 @@ failover, live KV migration and, under ``--self-heal``, quarantine,
 rebuild and canary (``serving.replicas``); a sole replica gets that
 lifecycle too under ``--self-heal`` or ``--reload-checkpoint``. ``--gateway``
 puts the admission gateway in front (``serving.gateway``: queue bounds,
-rate limits, priorities, tenants, SIGTERM drain). The reference's flags of
-subsystems the port lacks (the multi-process fleet, disaggregation, the
-deploy controller, the tracer, watchdog, SLO engine, flight recorder and
-slow log, the memory ledger and the token-storm guard) are accepted by name
-and refused, naming ROADMAP.md, as is ``--replicas`` with ``--tensor``
-above 1. It prints ``serving on http://HOST:PORT`` with the port it bound, and SIGTERM
+rate limits, priorities, tenants, SIGTERM drain). ``--trace-dir`` turns the
+span tracer on (ring of ``--trace-capacity`` events; Chrome trace
+``trace_serve_<pid>.json`` written there at exit; ``POST /debug/profile``
+captures under it), ``--slow-log-k`` sizes ``/debug/slow``, the memory
+ledger (off with ``--no-memory-ledger``) backs ``/debug/memory`` and, with
+``--admit-min-headroom-frac``, defers admission under low headroom
+(``--hbm-budget-bytes`` is the capacity where the device reports none), and
+``--guard-token-storm N`` faults a round after N all-slots-equal steps.
+The reference's flags of subsystems the port lacks (the multi-process
+fleet, disaggregation, the deploy controller, the watchdog, SLO engine and
+flight recorder) are accepted by name and refused, naming ROADMAP.md, as is
+``--replicas`` with ``--tensor`` above 1. It prints ``serving on http://HOST:PORT`` with the port it bound, and SIGTERM
 or Ctrl-C stops it with exit code 0. ``--tensor N`` (``scripts/serve.py``'s
 flag) runs under the launcher's N processes: each builds its part of the
 engine (``serving.engine``, random weights drawn whole and sliced as drawn,
@@ -87,6 +93,7 @@ under it.
 from __future__ import annotations
 
 import argparse
+import os
 import time
 
 import torch.distributed as dist
@@ -202,6 +209,31 @@ def parse_args(argv=None):
     p.add_argument("--no-numeric-guard", action="store_true",
                    help="disable the nonfinite decode-output guard (NumericFault -> "
                         "replica quarantine)")
+    p.add_argument("--guard-token-storm", type=int, default=0,
+                   help="quarantine a replica after N consecutive decode steps where "
+                        "every active slot sampled the same token (degenerate-output "
+                        "storm; 0 = off)")
+    # -- observation (telemetry) ----------------------------------------
+    p.add_argument("--no-memory-ledger", action="store_true",
+                   help="disable the device-memory ledger: no per-owner attribution, "
+                        "/debug/memory or hbm_* gauges")
+    p.add_argument("--hbm-budget-bytes", type=int, default=0,
+                   help="device capacity for headroom accounting where the device "
+                        "reports none (the CPU); a card's own total wins (0 = none)")
+    p.add_argument("--admit-min-headroom-frac", type=float, default=0.0,
+                   help="defer admitting new requests while ledger headroom is below "
+                        "this fraction of capacity (0 = off; deferred requests stay "
+                        "queued: latency, never a client error)")
+    p.add_argument("--trace-dir", default="",
+                   help="enable the host-side span tracer (request lifecycle, engine "
+                        "step phases, gateway) and write its Chrome-trace JSON here at "
+                        "exit (trace_serve_<pid>.json); GET /debug/trace serves it live "
+                        "and POST /debug/profile captures into <dir>/serve_profile")
+    p.add_argument("--trace-capacity", type=int, default=65536,
+                   help="span ring capacity (the most recent events are kept)")
+    p.add_argument("--slow-log-k", type=int, default=32,
+                   help="worst-latency requests retained with their critical-path "
+                        "timelines for GET /debug/slow")
     # -- admission gateway (serving.gateway) ----------------------------
     p.add_argument("--gateway", action="store_true",
                    help="enable the admission gateway: bounded queue with 429 overflow, "
@@ -279,8 +311,6 @@ REFUSED_FLAGS = {
     "--handoff-queue-depth": "prefill/decode disaggregation",
     "--handoff-deadline-s": "prefill/decode disaggregation",
     "--deploy-watch": "the deploy controller",
-    "--trace-dir": "the tracer",
-    "--trace-capacity": "the tracer",
     "--watchdog": "the anomaly watchdog",
     "--watchdog-action": "the anomaly watchdog",
     "--watchdog-queue-depth": "the anomaly watchdog",
@@ -296,11 +326,6 @@ REFUSED_FLAGS = {
     "--slo-queue-target": "the SLO engine",
     "--slo-availability-target": "the SLO engine",
     "--flight-dir": "the flight recorder",
-    "--slow-log-k": "the critical-path slow log",
-    "--no-memory-ledger": "the memory ledger",
-    "--hbm-budget-bytes": "the memory ledger's headroom accounting",
-    "--admit-min-headroom-frac": "the memory ledger's headroom-aware admission",
-    "--guard-token-storm": "the token-storm guard",
 }
 
 
@@ -339,6 +364,11 @@ def build(args):
     from dlti_tpu_torch.serving.engine import EngineExecutor
     from dlti_tpu_torch.utils.device import resolve_device
 
+    if args.trace_dir:
+        from dlti_tpu_torch.telemetry import configure_tracer
+
+        # On before the engine is built: its spans see it from the start.
+        configure_tracer(enabled=True, capacity=args.trace_capacity)
     mesh = tensor_mesh(args)
     tok = get_tokenizer(args.tokenizer)
     device = resolve_device(args.device)
@@ -400,6 +430,10 @@ def build(args):
         decode_state_cache=not args.no_decode_state_cache,
         quantization=args.quantization,
         guard_nonfinite=not args.no_numeric_guard,
+        guard_token_storm=args.guard_token_storm,
+        memory_ledger=not args.no_memory_ledger,
+        hbm_budget_bytes=args.hbm_budget_bytes,
+        admit_min_headroom_frac=args.admit_min_headroom_frac,
         adapter_slots=args.adapter_slots,
         adapter_rank=args.adapter_rank)
     if fleet:
@@ -439,10 +473,13 @@ def build(args):
 
 
 def _finish_build(args, engine, tok, specs):
-    """Register the startup adapters and make the server's configuration
-    (with the gateway's, under ``--gateway``)."""
-    from dlti_tpu_torch.config import GatewayConfig
+    """Register the startup adapters, size the slow log and make the
+    server's configuration (with the gateway's, under ``--gateway``)."""
+    from dlti_tpu_torch.config import GatewayConfig, TelemetryConfig
     from dlti_tpu_torch.serving import SamplingParams, ServerConfig
+
+    # One slow log for the engine, or the whole fleet (one telemetry).
+    engine.telemetry.critical_path.slow.k = max(1, args.slow_log_k)
 
     if engine.adapter_pool is not None:
         from dlti_tpu_torch.serving.adapters import register_adapter
@@ -465,7 +502,9 @@ def _finish_build(args, engine, tok, specs):
             adapter_map=args.adapter_map)
     sc = ServerConfig(host=args.host, port=args.port,
                       default_params=SamplingParams(max_tokens=args.max_tokens_default),
-                      gateway=gw_cfg)
+                      gateway=gw_cfg,
+                      telemetry=TelemetryConfig(trace_dir=args.trace_dir,
+                                                trace_capacity=args.trace_capacity))
     return engine, tok, sc
 
 
@@ -520,7 +559,17 @@ def main(argv=None) -> None:
         print(f"rolling weight reload from {rdir}: "
               + ("failed to load" if engine.last_reload_ok is False else "loaded, queued"),
               flush=True)
-    serve(engine, tok, sc)
+    print("live dashboard: /dashboard (JSON: /debug/vars; profiler: POST "
+          "/debug/profile)", flush=True)
+    try:
+        serve(engine, tok, sc)
+    finally:
+        if args.trace_dir:
+            from dlti_tpu_torch.telemetry import get_tracer
+
+            path = get_tracer().export(os.path.join(
+                args.trace_dir, f"trace_serve_{os.getpid()}.json"))
+            print(f"telemetry trace -> {path} (open in ui.perfetto.dev)", flush=True)
 
 
 if __name__ == "__main__":

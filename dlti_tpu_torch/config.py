@@ -389,6 +389,18 @@ class ReplicaLifecycleConfig:
 
 
 @dataclass(frozen=True)
+class TelemetryConfig:
+    """The telemetry fields serving reads (the reference's
+    ``TelemetryConfig.trace_dir``/``trace_capacity``): ``trace_dir`` turns
+    the span tracer on, receives its Chrome-trace export and the
+    ``POST /debug/profile`` captures ("" = tracer off, profiling refused);
+    the ring keeps the last ``trace_capacity`` events."""
+
+    trace_dir: str = ""
+    trace_capacity: int = 65536
+
+
+@dataclass(frozen=True)
 class ServingConfig:
     """The serving blocks above the engine (the reference's
     ``ServingConfig``, with the blocks the port has: the gateway and the

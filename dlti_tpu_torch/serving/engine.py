@@ -111,9 +111,19 @@
   draining replica without a re-prefill. :meth:`InferenceEngine.resubmit`
   re-enqueues a failed-over request with its tokens so far.
 
+* **Observation** (``telemetry``): every step's phases are tracer spans
+  (``engine/decode_dispatch``, ``engine/admit``, ``engine/prefill_chunks``,
+  ``engine/decode_sync``; a tier restore and an adapter load are spans
+  charged to their request's critical path); every request carries a
+  ``trace_id`` and emits ``request/*`` spans; the memory ledger
+  (``InferenceEngine.memledger``) attributes the device's bytes to the
+  engine's owners and defers admission under low headroom
+  (``admit_min_headroom_frac``); the token-storm guard
+  (``guard_token_storm``) raises :class:`NumericFault` when every active
+  slot samples one token for that many consecutive steps.
+
 Not ported yet (ROADMAP.md): the native block allocator, the
-disaggregation controller, the memory ledger and headroom-aware admission,
-the token-storm guard, tracer spans and critical-path attribution.
+disaggregation controller, and the flight recorder's fault dumps.
 """
 
 from __future__ import annotations
@@ -142,7 +152,9 @@ from dlti_tpu_torch.serving.decode_state import FIELDS, DecodeStateCache
 from dlti_tpu_torch.serving.prefix_cache import PrefixCachingAllocator
 from dlti_tpu_torch.serving.prefix_tiers import TieredBlockStore
 from dlti_tpu_torch.serving.sampling import SamplingParams, sample_tokens
+from dlti_tpu_torch.telemetry.distributed_trace import mint_trace_id
 from dlti_tpu_torch.telemetry.lifecycle import RequestTelemetry
+from dlti_tpu_torch.telemetry.memledger import MemoryLedger, tree_nbytes
 from dlti_tpu_torch.utils.device import (
     resolve_device, resolve_dtype, to_host, upload,
 )
@@ -196,6 +208,24 @@ class EngineConfig:
     # Raise NumericFault before appending any token of a round whose
     # logprobs are not finite (NaN/inf logits).
     guard_nonfinite: bool = True
+    # Token-storm guard: N consecutive decode steps in which every active
+    # slot (>= 2 of them) sampled the same token raise NumericFault (a
+    # degenerate output distribution). 0 = off: legitimate decodes can
+    # agree, so size the window for the traffic.
+    guard_token_storm: int = 0
+    # Memory ledger (telemetry.memledger): per-owner device-memory
+    # attribution (params, kv_block_pool, prefix_cache_hbm,
+    # decode_state_cache, lora_adapters) behind /debug/memory and the
+    # hbm_* gauges.
+    memory_ledger: bool = True
+    # Capacity budget in bytes for headroom accounting where the device
+    # reports none (the CPU); a card's own total wins. 0 = none.
+    hbm_budget_bytes: int = 0
+    # Headroom-aware admission: defer a whole admission pass while the
+    # ledger's headroom is below this fraction of capacity (0 = off; off
+    # too while the capacity is unknown). Deferred requests stay queued:
+    # the degraded mode is latency, never a client error.
+    admit_min_headroom_frac: float = 0.0
     # Weight-only quantization: "int8" stores the matmul weights as int8 +
     # per-channel scales, expanded at use; "none" keeps param_dtype.
     quantization: str = "none"
@@ -255,8 +285,8 @@ class EngineConfig:
 
 
 class NumericFault(RuntimeError):
-    """A round produced nonfinite logprobs; raised before any of its tokens
-    is appended."""
+    """A round produced numerically dead output (nonfinite logprobs, or an
+    all-slots token storm); raised before any of its tokens is appended."""
 
 
 @dataclass
@@ -292,6 +322,24 @@ class Request:
     replica: int = 0
     num_retries: int = 0
     num_migrations: int = 0
+    # Admission metadata the gateway sets (the engine schedules FCFS and
+    # ignores them; the slow log reports them).
+    tenant: str = ""
+    priority: str = ""
+    # Critical-path inputs (telemetry.ledger): the gateway's enqueue time
+    # (the client's t0) when one fronts the engine, seconds restoring
+    # prefix-tier blocks or loading an adapter at admission, requeue stalls
+    # by kind ("failover", "preempt") with their pre-first-token part, and
+    # the open requeue mark note_requeue/note_readmitted keep.
+    gateway_enqueue_time: Optional[float] = None
+    restore_s: float = 0.0
+    stall_s: Dict[str, float] = field(default_factory=dict)
+    stall_prefill_s: float = 0.0
+    _requeue_mark: Optional[tuple] = None
+    # Distributed-trace context (telemetry.distributed_trace): minted at
+    # the gateway (or at submit) and carried through failover resubmits and
+    # live migrations, so every span of the request shares it.
+    trace_id: str = ""
 
     @property
     def done(self) -> bool:
@@ -1019,9 +1067,35 @@ class InferenceEngine:
             "prefill_batches": 0,
             "spec_proposed": 0, "spec_accepted": 0, "spec_paused_rounds": 0,
             "numeric_faults": 0,
-            # Multi-step windows shrunk to one step because the pool could
-            # not reserve their blocks.
+            # Admission passes deferred for want of device-memory headroom
+            # (the memory ledger), and multi-step windows shrunk to one
+            # step because the pool could not reserve their blocks: both
+            # defer work instead of faulting.
+            "hbm_deferred_admissions": 0,
             "hbm_growth_deferrals": 0})
+        # Token-storm guard: consecutive decode steps in which every active
+        # slot sampled one token, carried across windows.
+        self._storm_run = 0
+        self._tracer = self.telemetry.tracer
+
+        # Memory ledger: the engine's owners, as callables (a rebuild's
+        # release drops the model and pools). Prefix-cached blocks live
+        # inside the pool, so that owner is a carve of kv_block_pool.
+        self.memledger = MemoryLedger(enabled=ec.memory_ledger,
+                                      capacity_bytes=ec.hbm_budget_bytes,
+                                      device=self.device)
+        self.memledger.register("params", lambda: self.executor.model)
+        self.memledger.register("kv_block_pool", lambda: self.executor.cache)
+        self.memledger.register("decode_state_cache", lambda: self._state_cache.tensors)
+        self.memledger.register("lora_adapters", lambda: (
+            self.adapter_pool.tensors if self.adapter_pool is not None else None))
+        if self.prefix_cache is not None:
+            # (num_cached_blocks is a property: the reference calls it, and
+            # its carve reads 0 for the TypeError its ledger swallows.)
+            per_block = tree_nbytes(self.executor.cache) // max(1, ec.num_blocks)
+            self.memledger.register_carve(
+                "prefix_cache_hbm", "kv_block_pool",
+                lambda: self.prefix_cache.num_cached_blocks * per_block)
 
     @property
     def device(self) -> torch.device:
@@ -1134,12 +1208,14 @@ class InferenceEngine:
     # ------------------------------------------------------------------
     def submit(self, prompt_token_ids: Sequence[int],
                params: Optional[SamplingParams] = None,
-               request_id: Optional[str] = None, adapter: str = "") -> Request:
+               request_id: Optional[str] = None, adapter: str = "",
+               trace_id: str = "") -> Request:
         """Enqueue a request; tokens arrive through :meth:`step`. Touches no
         engine state but the queue and its own counter, so handler threads
         may call it while the stepper thread steps. ``adapter`` names a
         registered LoRA adapter ("" = the base model); an unknown one fails
-        this request at admission."""
+        this request at admission. ``trace_id`` adopts an upstream trace
+        context (the gateway's); "" mints one."""
         if not prompt_token_ids:
             raise ValueError("prompt must contain at least one token")
         if len(prompt_token_ids) >= self.cfg.max_model_len:
@@ -1148,14 +1224,17 @@ class InferenceEngine:
                 f"max_model_len={self.cfg.max_model_len}")
         req = Request(request_id=request_id or f"req-{next(self._req_counter)}",
                       prompt_token_ids=list(prompt_token_ids),
-                      params=params or SamplingParams(), adapter=adapter)
+                      params=params or SamplingParams(), adapter=adapter,
+                      trace_id=trace_id or mint_trace_id())
         return self.enqueue(req)
 
     def enqueue(self, req: Request) -> Request:
         """Queue a new request built elsewhere (a replica fleet builds one
-        before it picks the replica); the thread contract of :meth:`submit`."""
+        before it picks the replica); the thread contract of :meth:`submit`
+        (the submitted instant takes only the tracer's own lock)."""
         self.waiting.append(req)
         self.stats["requests"] += 1
+        self.telemetry.on_submitted(req)
         return req
 
     def resubmit(self, req: Request) -> None:
@@ -1192,18 +1271,23 @@ class InferenceEngine:
         slot decodes). Waits on nothing, so a fleet launches every
         replica's round before it waits on any."""
         if any(not s.free and not s.prefilling for s in self.slots):
-            return self._decode_dispatch()
+            with self._tracer.span("engine/decode_dispatch", cat="engine"):
+                return self._decode_dispatch()
         return None
 
     def step_finish(self, pending) -> List[Request]:
         """:meth:`step`'s second half: admit and prefill, then complete the
         round :meth:`step_launch` returned (its one sync)."""
-        self._admit()
+        tr = self._tracer
+        with tr.span("engine/admit", cat="engine"):
+            self._admit()
         if self.cfg.max_prefill_tokens_per_step > 0:
-            self._prefill_work()
+            with tr.span("engine/prefill_chunks", cat="engine"):
+                self._prefill_work()
         if pending is None:
             return []
-        return self._decode_complete(pending)
+        with tr.span("engine/decode_sync", cat="engine"):
+            return self._decode_complete(pending)
 
     # ------------------------------------------------------------------
     # Admission and prefill
@@ -1218,7 +1302,21 @@ class InferenceEngine:
         """Admit waiting requests into free slots (FCFS), reusing cached
         prefix blocks and restoring lower-tier ones, then prefill the rest
         in batched calls (by length bucket, packed ragged, or in chunks
-        from :meth:`_prefill_work`)."""
+        from :meth:`_prefill_work`).
+
+        Headroom-aware: while the memory ledger's headroom is below
+        ``admit_min_headroom_frac`` of a known capacity, the whole pass is
+        deferred (counted in ``stats["hbm_deferred_admissions"]``); the
+        queue keeps the requests and the next step retries."""
+        if (self.memledger.enabled and self.cfg.admit_min_headroom_frac > 0
+                and self.waiting):
+            snap = self.memledger.snapshot()
+            cap = snap.get("capacity_bytes", 0)
+            headroom = snap.get("headroom_bytes")
+            if (cap and headroom is not None
+                    and headroom < self.cfg.admit_min_headroom_frac * cap):
+                self.stats["hbm_deferred_admissions"] += 1
+                return
         admissions = []
         for slot in self.slots:
             # Cancelled while queued: finish without taking a slot.
@@ -1247,8 +1345,9 @@ class InferenceEngine:
                                             "(adapter_slots=0)")
                     continue
                 else:
+                    t_ad = time.monotonic()
                     try:
-                        row, _ = self.adapter_pool.acquire(req.adapter)
+                        row, loaded = self.adapter_pool.acquire(req.adapter)
                     except AdapterError as e:
                         self.waiting.popleft()
                         self._fail_waiting(req, str(e))
@@ -1256,6 +1355,14 @@ class InferenceEngine:
                     if row < 0:
                         break  # every row pinned: retry next step
                     req._adapter_slot = row
+                    if loaded:
+                        # A pool-miss load is restore work on this
+                        # request's critical path, not queueing or prefill.
+                        now = time.monotonic()
+                        req.restore_s += now - t_ad
+                        self._tracer.complete("engine/adapter_load", t_ad, now,
+                                              cat="engine", id=req.request_id,
+                                              adapter=req.adapter)
             ns = req.adapter or None
             tokens = req.prompt_token_ids + req.output_token_ids
             cached_blocks: List[int] = []
@@ -1281,6 +1388,7 @@ class InferenceEngine:
                 break  # head-of-line blocking: FCFS, no starvation
             restored_by_tier: Dict[str, int] = {}
             n_restored = 0
+            t_restore = time.monotonic() if tier_keys else 0.0
             for j, key in enumerate(tier_keys):
                 # A fetch misses if the allocation's evictions cascaded the
                 # key off the bounded disk tier, or fails verification:
@@ -1292,6 +1400,14 @@ class InferenceEngine:
                 self.prefix_cache.register_restored(key, blocks[j])
                 restored_by_tier[tier] = restored_by_tier.get(tier, 0) + 1
                 n_restored += 1
+            if n_restored:
+                # The tier fetch and restore are this request's critical
+                # path: its TTFT splits into restore and prefill.
+                now = time.monotonic()
+                req.restore_s += now - t_restore
+                self._tracer.complete("engine/tier_restore", t_restore, now,
+                                      cat="engine", id=req.request_id,
+                                      blocks=n_restored)
             if self.prefix_cache is not None:
                 self.stats["prefix_cached_tokens"] += n_cached
                 self.stats["prefix_restored_tokens"] += n_restored * self.cfg.block_size
@@ -1592,6 +1708,18 @@ class InferenceEngine:
                 raise NumericFault(f"nonfinite decode output on slot(s) {bad} "
                                    f"(window of {k_steps} step(s)): the model "
                                    "is producing NaN/inf logits")
+        if self.cfg.guard_token_storm > 0 and len(active) >= 2:
+            # Step by step through the window, the run carried across
+            # windows, so the guard trips at the step a one-step engine
+            # would; the whole window is judged before any token appends.
+            for j in range(k_steps):
+                col = {int(tokens[j, s.slot_id]) for s in active}
+                self._storm_run = self._storm_run + 1 if len(col) == 1 else 0
+                if self._storm_run >= self.cfg.guard_token_storm:
+                    self.stats["numeric_faults"] += 1
+                    raise NumericFault(
+                        f"token storm: every active slot sampled the same token for "
+                        f"{self._storm_run} consecutive steps (token {col.pop()})")
         finished = []
         for s in active:
             req = s.request
@@ -1973,6 +2101,7 @@ class InferenceEngine:
         req = victim.request
         req.num_preemptions += 1
         self.stats["preemptions"] += 1
+        self.telemetry.on_preempted(req)
         self.waiting.appendleft(req)
         self._release(victim)
         return True

@@ -23,9 +23,12 @@ The gateway holds requests in its own per-(priority, tenant) queues and
 dispatches into the engine only while the engine (every live replica of a
 fleet) has free slots, so ordering is decided here, not in the engine's
 FCFS deque. Its series on ``/metrics`` keep the reference's
-``dlti_gateway_*`` names. Not ported (ROADMAP.md, with the tracer): the
-``gateway/queued`` spans, the shed and reject instants and the request's
-``trace_id``; no decision depends on them.
+``dlti_gateway_*`` names. Each admission mints the request's ``trace_id``
+(carried into the engine and every leg after) and is traced on the
+lifecycle timeline: the ``gateway/enqueued`` instant, the ``gateway/queued``
+span up to dispatch, the ``gateway/rejected`` and ``gateway/shed``
+instants; the dispatched request's critical path starts at its gateway
+enqueue time, the client's t0.
 """
 
 from __future__ import annotations
@@ -36,11 +39,12 @@ import logging
 import queue
 import threading
 import time
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Tuple
 
 from dlti_tpu_torch.config import GatewayConfig
 from dlti_tpu_torch.serving.sampling import SamplingParams
+from dlti_tpu_torch.telemetry.distributed_trace import mint_trace_id
 from dlti_tpu_torch.telemetry.registry import Counter
 
 logger = logging.getLogger("dlti_tpu_torch.serving.gateway")
@@ -85,6 +89,9 @@ class GatewayRequest:
         self.request_id = request_id
         self.prompt_token_ids = list(prompt_token_ids)
         self.params = params
+        # Minted here, at admission, so the gateway's spans and every leg
+        # downstream share one id.
+        self.trace_id = mint_trace_id()
         self._req = None
         self._cancel = False
 
@@ -127,6 +134,7 @@ class _Pending:
     affinity_key: Optional[str] = None
     # Resolved LoRA adapter ("" = the base): X-Adapter, else the tenant's map.
     adapter: str = ""
+    enqueue_t: float = field(default_factory=time.monotonic)
 
 
 class _TokenBucket:
@@ -231,6 +239,7 @@ class AdmissionGateway:
         self._draining = False
         self._drain_t0: Optional[float] = None
         self._stop = False
+        self._tracer = async_engine.engine.telemetry.tracer
 
         # Labelled counters are registry objects; the live gauges and the
         # fleet's failover counters ride a scalar source.
@@ -310,7 +319,7 @@ class AdmissionGateway:
             from dlti_tpu_torch.serving.adapters import get_catalog
 
             if adapter not in get_catalog():
-                self._reject("unknown_adapter", priority)
+                self._reject("unknown_adapter", priority, tenant=tenant)
                 raise AdmissionError(404, f"unknown adapter {adapter!r}: register it via "
                                           f"POST /v1/adapters first")
         n_tokens = len(prompt_token_ids)
@@ -332,7 +341,7 @@ class AdmissionGateway:
                     bucket = self._buckets[tenant] = _TokenBucket(burst)
                 wait = bucket.take(self.cfg.rate_limit_rps, burst)
                 if wait is not None:
-                    self._reject("rate_limited", priority)
+                    self._reject("rate_limited", priority, tenant=tenant)
                     raise AdmissionError(429, f"tenant {tenant!r} over rate limit "
                                               f"({self.cfg.rate_limit_rps:g} req/s)",
                                          retry_after=wait)
@@ -363,12 +372,16 @@ class AdmissionGateway:
             self._queued_tokens += n_tokens
             if self._m_admitted is not None:
                 self._m_admitted.labels(tenant=tenant, priority=priority).inc()
+            self._tracer.instant("gateway/enqueued", cat="gateway", id=request_id,
+                                 trace=handle.trace_id, tenant=tenant, priority=priority)
             self._cond.notify()
         return handle, entry.q
 
-    def _reject(self, reason: str, priority: str = "interactive") -> None:
+    def _reject(self, reason: str, priority: str = "interactive", **labels) -> None:
         if self._m_rejected is not None:
             self._m_rejected.labels(reason=reason, priority=priority).inc()
+        self._tracer.instant("gateway/rejected", cat="gateway", reason=reason,
+                             priority=priority, **labels)
 
     # -- scheduling -----------------------------------------------------
     def _engine_room(self) -> int:
@@ -412,6 +425,9 @@ class AdmissionGateway:
                     self._queued_tokens -= len(e.handle.prompt_token_ids)
                     if self._m_shed is not None:
                         self._m_shed.labels(priority=prio).inc()
+                    self._tracer.instant("gateway/shed", cat="gateway",
+                                         id=e.handle.request_id, tenant=tenant,
+                                         queued_s=round(now - e.enqueue_t, 4))
                     e.q.put(("reject", 503, "deadline expired while queued (shed before "
                                             "prefill)", self.cfg.retry_after_s))
         alive = []
@@ -447,12 +463,21 @@ class AdmissionGateway:
                     kw["adapter"] = entry.adapter
                 req, _ = self.async_engine.submit(
                     entry.handle.prompt_token_ids, entry.handle.params,
-                    entry.handle.request_id, q=entry.q, **kw)
+                    entry.handle.request_id, q=entry.q,
+                    trace_id=entry.handle.trace_id, **kw)
             except Exception as e:  # noqa: BLE001 - engine parked, every replica dead
                 self._reject("engine_unavailable", entry.priority)
                 entry.q.put(("reject", 503, f"{type(e).__name__}: {e}"))
                 continue
+            req.tenant = entry.tenant
+            req.priority = entry.priority
+            # The critical path's t0: the client's clock started here.
+            req.gateway_enqueue_time = entry.enqueue_t
             entry.handle.bind(req)
+            self._tracer.complete("gateway/queued", entry.enqueue_t, time.monotonic(),
+                                  cat="gateway", id=entry.handle.request_id,
+                                  trace=entry.handle.trace_id, tenant=entry.tenant,
+                                  priority=entry.priority)
             with self._cond:
                 self._inflight.append(entry)
 

@@ -38,8 +38,12 @@ engine's device memory before it builds the new one.
 
 Not ported (ROADMAP.md): replicas of tensor-parallel engines (the port's TP
 engine is a multi-process world), the disaggregation pools' rescue hook,
-the deploy controller's shadow tap, the flight recorder's fault dumps and
-the goodput ledger's requeue attribution.
+the deploy controller's shadow tap and the flight recorder's fault dumps.
+
+Each request keeps its ``trace_id`` through failover resubmits and live
+migrations, and the wait from leaving a replica to re-admission on a
+survivor books to its critical path as a ``failover`` or ``preempt`` stall
+(``telemetry.ledger.note_requeue``), not as inflated prefill or decode.
 """
 
 from __future__ import annotations
@@ -63,6 +67,8 @@ from dlti_tpu_torch.serving.engine import (
 )
 from dlti_tpu_torch.serving.lifecycle import ReplicaLifecycle, canary_digest
 from dlti_tpu_torch.serving.sampling import SamplingParams
+from dlti_tpu_torch.telemetry.distributed_trace import mint_trace_id
+from dlti_tpu_torch.telemetry.ledger import note_requeue
 from dlti_tpu_torch.telemetry.lifecycle import RequestTelemetry
 from dlti_tpu_torch.utils.device import resolve_device
 
@@ -253,9 +259,11 @@ class ReplicatedEngine:
 
     def new_request(self, prompt_token_ids: Sequence[int],
                     params: Optional[SamplingParams] = None,
-                    request_id: Optional[str] = None, adapter: str = "") -> Request:
+                    request_id: Optional[str] = None, adapter: str = "",
+                    trace_id: str = "") -> Request:
         """A request for :meth:`dispatch`, checked as an engine's ``submit``
-        checks it; touches no engine."""
+        checks it (``trace_id``: an upstream trace context, else a fresh
+        one); touches no engine."""
         max_len = self.cfg.max_model_len
         if not prompt_token_ids:
             raise ValueError("prompt must contain at least one token")
@@ -264,7 +272,8 @@ class ReplicatedEngine:
                              f"than max_model_len={max_len}")
         return Request(request_id=request_id or f"rep-req-{next(self._req_counter)}",
                        prompt_token_ids=list(prompt_token_ids),
-                       params=params or SamplingParams(), adapter=adapter)
+                       params=params or SamplingParams(), adapter=adapter,
+                       trace_id=trace_id or mint_trace_id())
 
     def dispatch(self, req: Request, affinity_key: Optional[str] = None) -> Request:
         """Queue ``req`` on the least-loaded live replica (round-robin among
@@ -294,12 +303,13 @@ class ReplicatedEngine:
     def submit(self, prompt_token_ids: Sequence[int],
                params: Optional[SamplingParams] = None,
                request_id: Optional[str] = None,
-               affinity_key: Optional[str] = None, adapter: str = "") -> Request:
+               affinity_key: Optional[str] = None, adapter: str = "",
+               trace_id: str = "") -> Request:
         """:meth:`new_request`, then :meth:`dispatch`. Not thread-safe against
         :meth:`step`: the server's ``AsyncEngine`` builds the request on the
         caller's thread and dispatches it on the stepper's."""
-        return self.dispatch(self.new_request(prompt_token_ids, params, request_id, adapter),
-                             affinity_key)
+        return self.dispatch(self.new_request(prompt_token_ids, params, request_id, adapter,
+                                              trace_id), affinity_key)
 
     @property
     def has_work(self) -> bool:
@@ -394,16 +404,15 @@ class ReplicatedEngine:
         survivors = self.live_engines()
         errored: List[Request] = []
         for req in stranded:
-            errored.extend(self._rehome(req, eng, survivors))
+            errored.extend(self._rehome(req, eng, survivors, "failover"))
         return errored
 
     def _rehome(self, req: Request, eng: InferenceEngine,
-                survivors: List[InferenceEngine]) -> List[Request]:
+                survivors: List[InferenceEngine], kind: str) -> List[Request]:
         """Resubmit one request on the least-loaded survivor (recomputed on
-        readmission), or finish it ``"error"`` past the retry cap or with no
-        survivor. Returns it if it errored. (The reference books the wait
-        as a requeue stall in its goodput ledger, ``note_requeue``, which
-        comes with the telemetry slice, ROADMAP.md.)"""
+        readmission), its wait until then booked as a ``kind`` stall; or
+        finish it ``"error"`` past the retry cap or with no survivor.
+        Returns it if it errored."""
         if not survivors or req.num_retries >= self.max_retries:
             req.finish_reason = "error"
             req.finish_time = time.monotonic()
@@ -414,6 +423,7 @@ class ReplicatedEngine:
             return [req]
         req.num_retries += 1
         self.failover["retries"] += 1
+        note_requeue(req, kind)
         target = min(survivors, key=self._load)
         target.resubmit(req)
         req.replica = self.engines.index(target)
@@ -422,12 +432,14 @@ class ReplicatedEngine:
     # ------------------------------------------------------------------
     # Lifecycle: drain and migrate, rebuild, canary, reload
     # ------------------------------------------------------------------
-    def drain_replica(self, idx: int, *, quarantine: bool = True) -> List[Request]:
+    def drain_replica(self, idx: int, *, kind: str = "preempt",
+                      quarantine: bool = True) -> List[Request]:
         """Planned drain of one replica: each decoding request moves to a
         survivor through the paged-KV handoff (tokens so far and the slot's
         seeded stream carry over; no re-prefill), falling back to a resubmit
         when the handoff fails; queued and mid-prefill requests resubmit.
-        With ``quarantine`` the replica then enters the lifecycle
+        Each request's wait until a survivor takes it books as a ``kind``
+        stall. With ``quarantine`` the replica then enters the lifecycle
         (quarantined with healing on, dead without); a rolling reload passes
         False and swaps the weights itself. Returns the requests that
         errored."""
@@ -442,6 +454,8 @@ class ReplicatedEngine:
             req = slot.request
             if req is None or req.done:
                 continue
+            # The survivor's adopt or admit closes the mark.
+            note_requeue(req, kind)
             snap = None
             if survivors and not slot.prefilling:
                 snap = eng.export_handoff(slot)
@@ -460,11 +474,11 @@ class ReplicatedEngine:
             # drained engine is healthy, its blocks go back to its pool).
             if slot.request is not None:
                 eng._release(slot)
-            errored.extend(self._rehome(req, eng, survivors))
+            errored.extend(self._rehome(req, eng, survivors, kind))
         stranded = list(eng.waiting)
         eng.waiting.clear()
         for req in stranded:
-            errored.extend(self._rehome(req, eng, survivors))
+            errored.extend(self._rehome(req, eng, survivors, kind))
         if migrated:
             self.lifecycle.note_migration(migrated)
         if fallbacks:

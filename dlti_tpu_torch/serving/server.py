@@ -19,6 +19,16 @@ replica fleet: the port of ``dlti_tpu/serving/server.py``.
   before every replica's swap: 200 ``reloading`` once the export is loaded,
   409 while a reload is in flight, 400 on a single engine (no replica
   lifecycle).
+* ``GET /debug/vars`` (the time-series ring, ``?tail=N``) and ``GET
+  /dashboard`` (a self-contained page polling it); ``GET /debug/slow``
+  (the worst requests' critical paths, ``?n=N``); ``GET /debug/trace``
+  (the span ring as Chrome-trace JSON, or with ``?request_id=`` one
+  request's timeline; 404 while tracing is off); ``GET /debug/memory`` (the
+  engine's memory ledger; 404 when disabled or on a replica fleet);
+  ``POST /debug/profile {"seconds"}``: a ``torch.profiler`` capture of the
+  live server (CUDA activities on the card) into
+  ``<trace_dir>/serve_profile``: 400 without a trace dir or for seconds
+  outside (0, 120], 409 while a capture runs, 500 if the profiler fails.
 * With ``ServerConfig.gateway`` enabled, admissions go through the
   admission gateway (``serving.gateway``): the tenant from ``X-Tenant``,
   ``priority`` and ``deadline_s`` from the body (or ``X-Priority``), the
@@ -29,10 +39,11 @@ replica fleet: the port of ``dlti_tpu/serving/server.py``.
 Requests take OpenAI's ``stop`` strings (matched on detokenized text, the
 stop string never returned or streamed), ``n`` choices decoding
 concurrently, ``seed``, ``logprobs`` and ``stop_token_ids``. Responses keep
-the reference's JSON keys, with the request's ``migrations`` and
-``retries``. Not ported (ROADMAP.md, queue 1): the ``/debug/*`` routes,
-``/dashboard``, ``/v1/deploy``, and the ``phases`` and ``trace_id``
-response keys; those routes answer 404 and say so.
+the reference's JSON keys: a finished response (and a stream's final
+chunk) carries the request's critical-path ``phases`` (parts summing to
+``total_s``), ``migrations``, ``retries`` and ``trace_id``. Not ported
+(ROADMAP.md, queue 1): ``/v1/deploy`` and ``/debug/slo``, which answer 404
+and say so.
 
 Standard library HTTP (``http.server`` + threads): the engine steps in one
 background thread, which selects the engine's CUDA device before its first
@@ -57,7 +68,7 @@ from typing import Dict, List, Optional, Tuple
 
 import torch
 
-from dlti_tpu_torch.config import GatewayConfig
+from dlti_tpu_torch.config import GatewayConfig, TelemetryConfig
 from dlti_tpu_torch.data.tokenizer import Tokenizer
 from dlti_tpu_torch.serving import adapters, lifecycle, prefix_cache
 from dlti_tpu_torch.serving.engine import InferenceEngine, Request
@@ -65,7 +76,11 @@ from dlti_tpu_torch.serving.gateway import (
     PRIORITIES, AdmissionError, AdmissionGateway, affinity_key_from, tenant_from_headers,
 )
 from dlti_tpu_torch.serving.sampling import SamplingParams
+from dlti_tpu_torch.telemetry import distributed_trace, ledger, memledger
+from dlti_tpu_torch.telemetry.ledger import REQUEST_PHASES, request_breakdown
 from dlti_tpu_torch.telemetry.registry import MetricsRegistry
+from dlti_tpu_torch.telemetry.timeseries import TimeSeriesSampler, render_dashboard_html
+from dlti_tpu_torch.telemetry.tracer import get_tracer
 from dlti_tpu_torch.utils.logging import get_logger
 
 # /stats keys exposed as Prometheus gauges; every other numeric stat is a
@@ -73,7 +88,7 @@ from dlti_tpu_torch.utils.logging import get_logger
 _GAUGE_KEYS = ("active_seqs", "waiting", "free_blocks")
 
 # Routes of the reference server whose subsystems are not ported.
-_NOT_PORTED_ROUTES = ("/dashboard", "/v1/deploy")
+_NOT_PORTED_ROUTES = ("/debug/slo", "/v1/deploy")
 
 
 def _not_ported(what: str) -> str:
@@ -98,6 +113,19 @@ def build_registry(async_engine: "AsyncEngine") -> MetricsRegistry:
                                prefix="dlti_")
     for hist in async_engine.engine.telemetry.histograms():
         registry.register(hist)
+    # Self-monitoring: the span ring's eviction counter (a truncated trace
+    # announces itself), the critical-path series and the memory ledger's
+    # gauges (module-level, as in the reference: every engine in the
+    # process shares them). The reference's goodput and trace-federation
+    # series have no writer in the port's server process (the trainer's
+    # booking and the multi-process fleet are not ported), so they are not
+    # registered.
+    registry.add_scalar_source(
+        lambda: {"trace_dropped_events": get_tracer().dropped_events}, prefix="dlti_")
+    for metric in (ledger.phase_seconds_total, ledger.phase_requests_total,
+                   memledger.hbm_bytes_gauge, memledger.hbm_peak_gauge,
+                   memledger.hbm_headroom_gauge, memledger.hbm_untracked_gauge):
+        registry.register(metric)
     # Tiered prefix-cache telemetry (module-level, as in the reference):
     # per-tier hit/miss/eviction/promotion/demotion counters and block
     # gauges, rendered once an engine has touched them.
@@ -207,6 +235,11 @@ class AsyncEngine:
         # A fleet's submissions awaiting dispatch: (request, affinity key).
         self._inbox: List[tuple] = []
         self._fleet = hasattr(engine, "dispatch")
+        # make_server's time-series sampler, stopped with the stepper.
+        self.sampler: Optional[TimeSeriesSampler] = None
+        # Calls to run on the stepper thread between two steps:
+        # (fn, result box) pairs (call_between_steps).
+        self._calls: List[tuple] = []
         self._stop = False
         self._dead = False  # set when even fault recovery failed
         self._thread = threading.Thread(target=self._run, daemon=True,
@@ -228,11 +261,12 @@ class AsyncEngine:
                request_id: Optional[str] = None,
                q: Optional[queue.Queue] = None,
                affinity_key: Optional[str] = None,
-               adapter: str = "") -> Tuple[Request, queue.Queue]:
+               adapter: str = "", trace_id: str = "") -> Tuple[Request, queue.Queue]:
         """Enqueue a request (under LoRA ``adapter``, "" = the base model);
         returns (request, event queue). ``q``: a queue the caller made (the
         gateway hands it to the handler before dispatch); ``affinity_key``:
-        a fleet's sticky-replica key (ignored by one engine).
+        a fleet's sticky-replica key (ignored by one engine); ``trace_id``:
+        the gateway's trace context ("" mints one).
 
         Queue events: ``("token", token_id, logprob)`` per generated token,
         then ``("done", finish_reason)`` — or ``("error", message)``.
@@ -245,14 +279,49 @@ class AsyncEngine:
                 if self.engine.num_live == 0:
                     raise RuntimeError("all replicas dead (step faults); engine cannot "
                                        "accept requests")
-                req = self.engine.new_request(prompt_ids, params, request_id, adapter=adapter)
+                req = self.engine.new_request(prompt_ids, params, request_id, adapter=adapter,
+                                              trace_id=trace_id)
                 self._inbox.append((req, affinity_key))
             else:
-                req = self.engine.submit(prompt_ids, params, request_id, adapter=adapter)
+                req = self.engine.submit(prompt_ids, params, request_id, adapter=adapter,
+                                         trace_id=trace_id)
             self._queues[req.request_id] = q
             self._seen[req.request_id] = 0
             self._work.notify()
         return req, q
+
+    def call_between_steps(self, fn, timeout: float = 600.0):
+        """Run ``fn()`` on the stepper thread between two engine steps and
+        return its result (raising what it raised): how the profiler starts
+        and stops on the thread that issues every device call, never beside
+        a graph replay on another thread. Raises ``RuntimeError`` once the
+        stepper is down."""
+        box = {"done": threading.Event()}
+        with self._work:
+            if self._dead or self._stop:
+                raise RuntimeError("engine is down (stepper stopped)")
+            self._calls.append((fn, box))
+            self._work.notify()
+        if not box["done"].wait(timeout):
+            raise TimeoutError(f"the stepper did not run the call in {timeout:g} s")
+        if "error" in box:
+            raise box["error"]
+        return box.get("result")
+
+    def _run_calls(self, calls: List[tuple]) -> None:
+        for fn, box in calls:
+            try:
+                box["result"] = fn()
+            except Exception as e:  # noqa: BLE001 - handed to the caller
+                box["error"] = e
+            box["done"].set()
+
+    def _fail_calls(self) -> None:
+        """(Under the lock.) The stepper is leaving: refuse pending calls."""
+        for _, box in self._calls:
+            box["error"] = RuntimeError("engine is down (stepper stopped)")
+            box["done"].set()
+        self._calls.clear()
 
     def _dispatch_inbox(self) -> None:
         """Hand the fleet's pending submissions to replicas (the stepper's
@@ -269,9 +338,11 @@ class AsyncEngine:
         self._inbox.clear()
 
     def shutdown(self) -> None:
-        """Stop the stepper, then release a tensor-parallel engine's
-        followers (they leave their loop once the stepper's last call is
-        theirs too)."""
+        """Stop the server's time-series sampler and the stepper, then
+        release a tensor-parallel engine's followers (they leave their loop
+        once the stepper's last call is theirs too)."""
+        if self.sampler is not None:
+            self.sampler.stop()
         with self._work:
             self._stop = True
             self._work.notify()
@@ -299,10 +370,12 @@ class AsyncEngine:
                     q.put(("error", f"{type(e).__name__}: {e}"))
                 self._queues.clear()
                 self._seen.clear()
+                self._fail_calls()
             return
         while True:
             with self._work:
-                while not self._stop and not self.engine.has_work and not self._inbox:
+                while (not self._stop and not self.engine.has_work and not self._inbox
+                       and not self._calls):
                     if getattr(self.engine, "lifecycle_pending", False):
                         # A quarantined replica awaits its probe or a reload
                         # is rolling: poll, so the fleet's lifecycle tick
@@ -314,8 +387,11 @@ class AsyncEngine:
                 if self._stop:
                     for q in self._queues.values():
                         q.put(("error", "server shutting down"))
+                    self._fail_calls()
                     return
                 self._dispatch_inbox()
+                calls, self._calls = self._calls, []
+            self._run_calls(calls)
             # Step outside the lock: a concurrent submit only appends to the
             # engine's waiting deque, which admission reads at one point
             # inside step(), so a racing submit lands this step or the next.
@@ -340,6 +416,7 @@ class AsyncEngine:
                     self._queues.clear()
                     self._seen.clear()
                     if self._stop:
+                        self._fail_calls()
                         return
                 continue
             with self._work:
@@ -380,6 +457,9 @@ class ServerConfig:
     # Admission gateway (serving.gateway): None or disabled admits directly
     # into the engine.
     gateway: Optional[GatewayConfig] = None
+    # trace_dir receives POST /debug/profile's captures (None or "":
+    # profiling answers 400). The /debug/vars sampler is always on.
+    telemetry: Optional[TelemetryConfig] = None
 
 
 class _Handler(BaseHTTPRequestHandler):
@@ -394,6 +474,8 @@ class _Handler(BaseHTTPRequestHandler):
     cfg: ServerConfig
     registry: MetricsRegistry
     gateway: Optional[AdmissionGateway] = None
+    sampler: Optional[TimeSeriesSampler] = None  # behind /debug/vars and /dashboard
+    profile_lock: Optional[threading.Lock] = None  # one POST /debug/profile at a time
 
     def log_message(self, fmt, *args):  # route through our logger
         get_logger().debug("http: " + fmt, *args)
@@ -499,8 +581,50 @@ class _Handler(BaseHTTPRequestHandler):
 
     # -- routes --------------------------------------------------------
     def do_GET(self):
-        path = self.path.partition("?")[0]
-        if path.startswith("/debug/") or path in _NOT_PORTED_ROUTES:
+        path, _, query = self.path.partition("?")
+        if path == "/debug/vars":
+            # The time-series ring (every registry scalar and histogram
+            # summary, sampled on a cadence): what /dashboard polls.
+            if self.sampler is None:
+                return self._error(404, "no time-series sampler")
+            tail = None
+            if query.startswith("tail="):
+                try:
+                    tail = max(1, int(query[5:]))
+                except ValueError:
+                    return self._error(400, "tail must be an integer")
+            return self._json(200, self.sampler.snapshot(tail))
+        if path == "/debug/slow":
+            # The K worst requests with their critical-path timelines.
+            cp = self.async_engine.engine.telemetry.critical_path
+            n = None
+            if query.startswith("n="):
+                try:
+                    n = max(1, int(query[2:]))
+                except ValueError:
+                    return self._error(400, "n must be an integer")
+            return self._json(200, {"k": cp.slow.k, "retained": len(cp.slow),
+                                    "phases": list(REQUEST_PHASES),
+                                    "worst": cp.slow.worst(n)})
+        if path == "/debug/trace":
+            return self._trace(query)
+        if path == "/debug/memory":
+            # The memory ledger's map: owners, untracked and residual
+            # summing to bytes in use, the top untracked tensors.
+            led = getattr(self.async_engine.engine, "memledger", None)
+            if led is None or not led.enabled:
+                return self._error(404, "memory ledger disabled")
+            return self._json(200, led.to_dict(top_k=8))
+        if path == "/dashboard":
+            # A self-contained page polling /debug/vars.
+            body = render_dashboard_html().encode()
+            self.send_response(200)
+            self.send_header("Content-Type", "text/html; charset=utf-8")
+            self.send_header("Content-Length", str(len(body)))
+            self.end_headers()
+            self.wfile.write(body)
+            return
+        if path in _NOT_PORTED_ROUTES:
             self._error(404, _not_ported(path))
         elif self.path == "/health":
             # A parked stepper or a draining gateway must read unhealthy, so
@@ -544,10 +668,92 @@ class _Handler(BaseHTTPRequestHandler):
             self._register_adapter()
         elif self.path == "/v1/reload":
             self._reload_weights()
-        elif self.path.startswith("/debug/") or self.path in _NOT_PORTED_ROUTES:
+        elif self.path == "/debug/profile":
+            self._profile()
+        elif self.path in _NOT_PORTED_ROUTES:
             self._error(404, _not_ported(self.path))
         else:
             self._error(404, f"no route {self.path}")
+
+    def _trace(self, query: str) -> None:
+        """``GET /debug/trace``: the span ring as Chrome-trace JSON; with
+        ``?request_id=`` (and ``&latency_s=``, the client's latency) one
+        request's spans, legs and residual (``request_timeline``)."""
+        tracer = get_tracer()
+        if not tracer.enabled:
+            return self._error(404, "tracing disabled (start the server with --trace-dir)")
+        qp = {}
+        for part in query.split("&"):
+            k, _, v = part.partition("=")
+            if k:
+                qp[k] = v
+        rid = qp.get("request_id", "")
+        if not rid:
+            return self._json(200, tracer.to_dict())
+        latency = None
+        if qp.get("latency_s"):
+            try:
+                latency = float(qp["latency_s"])
+            except ValueError:
+                return self._error(400, "latency_s must be a float")
+        tl = distributed_trace.request_timeline(tracer.events(), rid,
+                                                client_latency_s=latency)
+        if not tl["spans"]:
+            return self._error(404, f"no spans retained for request {rid!r} (ring "
+                                    f"evicted, or id unknown)")
+        self._json(200, tl)
+
+    def _profile(self) -> None:
+        """``POST /debug/profile {"seconds": s}``: a ``torch.profiler``
+        capture of the live server (the card's kernels and the runtime calls
+        that launched them where a card is up, else the host's operators)
+        for ``s`` seconds, its Chrome
+        trace written into ``<trace_dir>/serve_profile``. The capture starts
+        and stops on the stepper thread between two engine steps
+        (:meth:`AsyncEngine.call_between_steps`): stopping it from this
+        thread while the stepper replays a decode graph can deadlock the
+        two. One capture at a time: the profiler is process-global, so a
+        concurrent request gets 409."""
+        body = self._read_body()
+        if body is None:
+            return
+        trace_dir = self.cfg.telemetry.trace_dir if self.cfg.telemetry is not None else ""
+        if not trace_dir:
+            return self._error(400, "profiling needs a trace dir: start the server with "
+                                    "--trace-dir")
+        try:
+            seconds = float(body.get("seconds", 3.0))
+        except (TypeError, ValueError):
+            return self._error(400, "seconds must be a number")
+        if not 0.0 < seconds <= 120.0:
+            return self._error(400, "seconds must be in (0, 120]")
+        if self.profile_lock is None or not self.profile_lock.acquire(blocking=False):
+            return self._error(409, "a profile capture is already running")
+        try:
+            from torch.profiler import ProfilerActivity, profile
+
+            out_dir = os.path.join(trace_dir, "serve_profile")
+            os.makedirs(out_dir, exist_ok=True)
+            # A device trace on the card: recording every host operator of a
+            # busy server's prefills would cost the capture seconds.
+            activities = [ProfilerActivity.CUDA if torch.cuda.is_available()
+                          else ProfilerActivity.CPU]
+            prof = profile(activities=activities)
+            t0 = time.monotonic()
+            self.async_engine.call_between_steps(prof.start)
+            try:
+                time.sleep(seconds)
+            finally:
+                self.async_engine.call_between_steps(prof.stop)
+            wall = time.monotonic() - t0
+            path = os.path.join(out_dir, f"trace_{os.getpid()}_{int(time.time() * 1e3)}.json")
+            prof.export_chrome_trace(path)
+            self._json(200, {"status": "ok", "trace_dir": out_dir, "trace": path,
+                             "seconds": round(wall, 3)})
+        except Exception as e:  # noqa: BLE001 - the profiler failed this request
+            self._error(500, f"profiler: {type(e).__name__}: {e}")
+        finally:
+            self.profile_lock.release()
 
     def _register_adapter(self) -> None:
         """``POST /v1/adapters {"name", "directory"}``: register an adapter
@@ -811,12 +1017,29 @@ class _Handler(BaseHTTPRequestHandler):
         })
 
     @staticmethod
-    def _lifecycle_keys(req) -> dict:
-        """How often the request was live-migrated and failed over (a
-        gateway handle reads its engine request's counts)."""
+    def _phases_of(req) -> Optional[dict]:
+        """The finished request's critical-path breakdown, ``{"total_s",
+        "ttft_s", <phase>: s, ...}``; None while it is unfinished."""
         eng_req = getattr(req, "_req", None) or req
-        return {"migrations": getattr(eng_req, "num_migrations", 0),
-                "retries": getattr(eng_req, "num_retries", 0)}
+        if getattr(eng_req, "finish_time", None) is None:
+            return None
+        try:
+            b = request_breakdown(eng_req)
+        except Exception:  # noqa: BLE001 - attribution never fails a response
+            return None
+        return {"total_s": b["total_s"], "ttft_s": b["ttft_s"], **b["phases"]}
+
+    @classmethod
+    def _lifecycle_keys(cls, req) -> dict:
+        """The request's critical-path ``phases`` (when finished), how often
+        it was live-migrated and failed over, and its ``trace_id`` (a
+        gateway handle reads its engine request's)."""
+        eng_req = getattr(req, "_req", None) or req
+        phases = cls._phases_of(req)
+        return {**({"phases": phases} if phases is not None else {}),
+                "migrations": getattr(eng_req, "num_migrations", 0),
+                "retries": getattr(eng_req, "num_retries", 0),
+                "trace_id": getattr(eng_req, "trace_id", "")}
 
     def _multi_response(self, subs: list, rid: str, chat: bool,
                         created: int, stops: tuple = ()) -> None:
@@ -945,6 +1168,17 @@ class _Handler(BaseHTTPRequestHandler):
             get_logger().info("client disconnected mid-stream: %s", req.request_id)
 
 
+class _HTTPServer(ThreadingHTTPServer):
+    """The server's socket: a listen queue a burst of clients fits in.
+    socketserver's default of 5 refuses the connections past it while the
+    accepting thread waits for the interpreter, and each refused client
+    waits out TCP's 1 s retransmission before its request reaches the
+    engine: time no request's critical path can see."""
+
+    daemon_threads = True
+    request_queue_size = 128
+
+
 def make_server(engine: InferenceEngine, tokenizer: Tokenizer,
                 cfg: Optional[ServerConfig] = None,
                 ) -> Tuple[ThreadingHTTPServer, AsyncEngine]:
@@ -959,22 +1193,34 @@ def make_server(engine: InferenceEngine, tokenizer: Tokenizer,
     cfg = cfg or ServerConfig()
     async_engine = AsyncEngine(engine)
     registry = build_registry(async_engine)
+    # This process's row in a Perfetto export.
+    get_tracer().process_label = "server"
     gateway = None
     if cfg.gateway is not None and cfg.gateway.enabled:
         gateway = AdmissionGateway(async_engine, cfg.gateway, registry)
+    # The time-series ring behind /debug/vars and /dashboard: always on,
+    # one registry read (and a ledger snapshot) a second; stopped with the
+    # stepper (AsyncEngine.shutdown).
+    sampler = TimeSeriesSampler(interval_s=1.0, registry=registry)
+    led = getattr(engine, "memledger", None)
+    if led is not None and led.enabled:
+        sampler.add_source(led.scalars)
+    async_engine.sampler = sampler
+    sampler.start()
     handler = type("BoundHandler", (_Handler,), {
         "async_engine": async_engine, "tokenizer": tokenizer, "cfg": cfg,
-        "registry": registry, "gateway": gateway,
+        "registry": registry, "gateway": gateway, "sampler": sampler,
+        "profile_lock": threading.Lock(),
     })
     try:
-        httpd = ThreadingHTTPServer((cfg.host, cfg.port), handler)
+        httpd = _HTTPServer((cfg.host, cfg.port), handler)
     except OSError:
         if gateway is not None:
             gateway.shutdown()
         async_engine.shutdown()
         raise
-    httpd.daemon_threads = True
     httpd.gateway = gateway
+    httpd.sampler = sampler
     return httpd, async_engine
 
 

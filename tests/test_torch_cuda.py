@@ -343,6 +343,121 @@ def test_int8_engine_decode_launches_the_int8_kernel_per_layer(gen):
     assert tpa.launches_int8 == cfg.num_layers * engine.stats["decode_steps"] > 0
 
 
+def test_memory_ledger_reads_the_allocator_and_sums_exactly(gen):
+    """On the card the ledger reads the caching allocator and the driver:
+    its buckets sum to bytes in use exactly, the capacity is the card's,
+    and a balloon's bytes leave the headroom and come back."""
+    from dlti_tpu_torch.telemetry.memledger import MemoryBalloon, MemoryLedger
+
+    led = MemoryLedger(device="cuda")
+    held = torch.zeros(1 << 20, device="cuda")
+    led.register("params", held)
+    snap = led.snapshot()
+    assert sum(snap["buckets"].values()) == snap["bytes_in_use"]
+    assert snap["source"] == "device"
+    # NVML's total: the whole card, the driver's reserve included.
+    assert snap["capacity_bytes"] >= torch.cuda.mem_get_info(0)[1]
+    assert snap["owners"]["params"]["bytes"] == 4 << 20
+    assert snap["bytes_in_use"] >= torch.cuda.memory_allocated() >= 4 << 20
+    balloon = MemoryBalloon(led)
+    before = led.headroom_bytes()
+    balloon.inflate(64 << 20)
+    assert before - led.headroom_bytes() >= (64 << 20) - (2 << 20)
+    balloon.deflate()
+    assert abs(led.headroom_bytes() - before) <= 2 << 20
+
+
+def test_engine_ledger_owners_are_their_tensors_bytes_on_the_card(gen):
+    """A CUDA engine's ledger: params and the int8 pool as counted from
+    their shapes, and the sum exact."""
+    from dlti_tpu_torch.config import MODEL_PRESETS
+    from dlti_tpu_torch.models import init_params
+    from dlti_tpu_torch.serving import EngineConfig, InferenceEngine, SamplingParams
+
+    cfg = MODEL_PRESETS["llama_tiny"]
+    engine = InferenceEngine(cfg, init_params(cfg, seed=0, device="cuda"),
+                             EngineConfig(max_seqs=2, block_size=16, num_blocks=32,
+                                          max_model_len=128, cache_dtype="int8",
+                                          eos_token_id=-1, admit_min_headroom_frac=0.01),
+                             device="cuda")
+    engine.generate([[1, 2, 3]], SamplingParams(max_tokens=3, temperature=0.0))
+    snap = engine.memledger.to_dict(top_k=2)
+    assert sum(snap["buckets"].values()) == snap["bytes_in_use"]
+    assert snap["owners"]["params"]["bytes"] == sum(
+        p.numel() * p.element_size() for p in engine.model.parameters())
+    assert snap["owners"]["kv_block_pool"]["bytes"] == sum(
+        t.numel() * t.element_size() for layer in engine.cache for t in layer.values())
+    assert len(snap["top_untracked_tensors"]) == 2
+    assert engine.stats["hbm_deferred_admissions"] == 0
+
+
+def test_debug_profile_records_the_decode_kernels_of_a_live_server(gen, tmp_path):
+    """``POST /debug/profile`` from a handler thread while the stepper
+    replays the decode graph: the capture's Chrome trace holds the paged
+    decode kernel's launches; a second POST meanwhile gets 409."""
+    import http.client
+    import json
+    import threading
+    import time
+
+    from dlti_tpu_torch.config import MODEL_PRESETS, TelemetryConfig
+    from dlti_tpu_torch.data import ByteTokenizer
+    from dlti_tpu_torch.models import init_params
+    from dlti_tpu_torch.serving import EngineConfig, InferenceEngine, ServerConfig, make_server
+
+    cfg = MODEL_PRESETS["llama_tiny"]
+    engine = InferenceEngine(cfg, init_params(cfg, seed=0, device="cuda"),
+                             EngineConfig(max_seqs=4, block_size=16, num_blocks=64,
+                                          max_model_len=256, cache_dtype="int8",
+                                          eos_token_id=-1, steps_per_sync=8), device="cuda")
+    engine.warmup_decode_ladder()
+    httpd, aeng = make_server(engine, ByteTokenizer(), ServerConfig(
+        host="127.0.0.1", port=0, telemetry=TelemetryConfig(trace_dir=str(tmp_path))))
+    threading.Thread(target=httpd.serve_forever, daemon=True).start()
+    port = httpd.server_address[1]
+    stop = threading.Event()
+
+    def post(path, body):
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=120)
+        conn.request("POST", path, json.dumps(body), {"Content-Type": "application/json"})
+        resp = conn.getresponse()
+        out = (resp.status, resp.read())
+        conn.close()
+        return out
+
+    def traffic():
+        while not stop.is_set():
+            post("/v1/completions", {"prompt": "profile me", "max_tokens": 200,
+                                     "temperature": 0.0})
+
+    workers = [threading.Thread(target=traffic) for _ in range(3)]
+    for w in workers:
+        w.start()
+    try:
+        time.sleep(1.0)
+        first = {}
+        capture = threading.Thread(target=lambda: first.update(r=post(
+            "/debug/profile", {"seconds": 1.5})))
+        capture.start()
+        time.sleep(0.5)
+        second = post("/debug/profile", {"seconds": 1})
+        capture.join(timeout=120)
+    finally:
+        stop.set()
+        for w in workers:
+            w.join(timeout=120)
+        httpd.shutdown()
+        aeng.shutdown()
+        httpd.server_close()
+    assert second[0] == 409
+    status, data = first["r"]
+    assert status == 200, data
+    with open(json.loads(data)["trace"]) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
+    assert sum("paged_decode_kernel" in k for k in kernels) > 0, len(kernels)
+
+
 def test_server_on_an_engine_built_with_device_cuda_answers(gen):
     """``device="cuda"`` (no index, as ``--device cuda`` passes it): the
     server's stepper selects the card and serves a completion."""

@@ -187,10 +187,16 @@ def test_port_loadgen_matches_jax_loadgen_against_the_port_server(servers, monke
         sorted(r.output_tokens for r in want.records)
     d = got.to_dict()
     assert set(d) == set(want.to_dict())
-    # Routes the port's server lacks: empty sections, no failure counted.
-    for key in ("watchdog_alerts", "slo", "memory", "fleet_federation"):
+    # Routes the port's server lacks (/debug/slo, a fleet) or answers 404
+    # (/debug/trace with tracing off): empty sections, no failure counted.
+    # /debug/vars and /debug/memory answer: the memory map as the JAX
+    # loadgen reads it from the same server.
+    for key in ("watchdog_alerts", "slo", "fleet_federation"):
         assert d[key] == {}, key
     assert d["trace_coverage"] == 0.0
+    wmem = want.to_dict()["memory"]
+    assert set(d["memory"]) == set(wmem) and d["memory"]["owners"] == wmem["owners"]
+    assert d["memory"]["bytes_in_use"] > 0 and d["memory"]["source"] == "owners"
     if case == "sessions":
         assert got.num_warm > 0 and got.cache_hit_rate > 0
     if case == "long_prompts":
